@@ -10,26 +10,34 @@ Phases (any failure raises and the exit code is not 0):
    with nvcc for sm_90a (parallel, one nvcc per source).
 3. Kernels: each kernel against its plain PyTorch version on the same
    CUDA tensors at the serving shapes of llama3-1b (B=8 decode rows,
-   a 4-row prefill window batch, page size 128, bf16). KV writers must
-   be bit-exact; attention must agree within atol = rtol = 2e-2 (bf16
-   outputs; the plain version rounds its probabilities to bf16 before
-   P @ V) on active rows / valid query rows, with plain, windowed,
-   soft-capped and sink cases. Each kernel is timed with CUDA events
-   (>= 20 launches after warm-up) beside its plain version, one PyTorch
+   a 4-row prefill window batch, a ragged batch of 7 decode rows and a
+   256-token window in a T=256 bucket, page size 128, bf16). KV writers
+   must be bit-exact; attention must agree within atol = rtol = 2e-2
+   (bf16 outputs; the plain version rounds its probabilities to bf16
+   before P @ V) on active rows / valid query rows, with plain,
+   windowed, soft-capped and sink cases; a ragged row of length 0 must
+   come out finite. Each kernel is timed with CUDA events (>= 20
+   launches after warm-up) beside its plain version, one PyTorch
    library call computing the same function, and its bound (bytes over
-   3.35 TB/s or operations over 989 TFLOP/s, whichever is larger).
-4. Forward: a full-width llama3-1b forward_prefill + forward_decode
-   through the kernels (bf16 on the GPU) against the plain path (float32
-   on the CPU, same weights): logits within a relative L2 error of 5e-2
-   (16 bf16 layers against float32).
+   3.35 TB/s or operations over 989 TFLOP/s, whichever is larger); the
+   ragged kernel also beside the split path's two launches for the same
+   work (decode kernel on the decode rows, prefill kernel on the window).
+4. Forward: a full-width llama3-1b forward_prefill + forward_decode + a
+   ragged forward_prefill through the kernels (bf16 on the GPU) against
+   the plain path (float32 on the CPU, same weights): logits within a
+   relative L2 error of 5e-2 (16 bf16 layers against float32).
 5. Serving: the worker the CLI builds (``runtime.worker`` with
    --model llama3-1b --page-size 128 --num-pages 512 --max-model-len 1024
    --max-batch-size 8, prefill buckets 128,256,512, 256 prefill tokens
    per step so the longer prompts prefill in chunks) answers 4
    concurrent requests (2 streamed chats, 2 non-streamed completions,
-   prompts of 100-400 tokens, 32 new tokens, temperature 0). Launch
-   counts are zeroed just before and read just after: every kernel must
-   have run.
+   prompts of 100-400 tokens, 32 new tokens, temperature 0), with the
+   ragged step off. Launch counts are zeroed just before and read just
+   after: the four kernels of that path must have run.
+5b. Serving, ragged: the same worker, flags and requests with
+   XLLM_RAGGED_ATTN=1. At least one mixed iteration must run as one
+   ragged forward, each launching the ragged kernel once per layer and
+   neither the decode nor the prefill attention kernel.
 6. Summary: one line ``{"kernels": [...]}``, the card line, then the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -40,6 +48,7 @@ present, or when the port's package is not beside it.
 from __future__ import annotations
 
 import json
+import os
 import random
 import subprocess
 import sys
@@ -158,7 +167,7 @@ class KernelBench:
         return self.torch.tensor(xs, dtype=self.torch.int32, device=self.dev)
 
     def record(self, name, source, replaces, err, kernel, plain, library,
-               nbytes, flops):
+               nbytes, flops, **extra):
         """Time ``kernel`` (the wrapper) and ``library`` as device time
         (graph replay), the wrapper also per eager call (device time plus
         its host overhead), and ``plain`` per eager call (it syncs with
@@ -171,10 +180,11 @@ class KernelBench:
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "kernel_ms": ms, "eager_ms": eager_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms})
+            "library_ms": lib_ms, **extra})
         log(f"[kernel] {name}: max_abs_err={err} ms={ms:.5f} "
             f"eager_ms={eager_ms:.5f} plain_ms={plain_ms:.5f} "
-            f"library_ms={lib_ms:.5f} bound_ms={b_ms:.6f} ({b_by})")
+            f"library_ms={lib_ms:.5f} bound_ms={b_ms:.6f} ({b_by}) "
+            f"{json.dumps(extra)}")
 
     # -- K1 ----------------------------------------------------------------
     def decode_writer(self, kv):
@@ -378,6 +388,102 @@ class KernelBench:
             lib, nbytes, flops)
 
 
+    # -- K5 ----------------------------------------------------------------
+    def ragged_attention(self, ra, pa, pf, attention):
+        """The ragged serving mix: 7 decode rows (length 1 at context - 1,
+        contexts 117-411, mid-page) and a 256-token continuation window
+        at q_start 128, in one B=8 x T=256 bucket."""
+        torch = self.torch
+        B, T = 8, 256
+        ctx = [117, 205, 298, 411, 150, 260, 333]
+        starts = [c - 1 for c in ctx] + [128]
+        lens_list = [1] * 7 + [256]
+        q = self.randn(B, T, self.Hq, self.D)
+        q_start, lens = self.i32(starts), self.i32(lens_list)
+        sinks = self.randn(self.Hq, dtype=torch.float32)
+        worst = 0.0
+        # The last case makes row 6 a padding row of length 0.
+        for extras, lens_case in (({}, lens_list),
+                                  ({"sliding_window": 100}, lens_list),
+                                  ({"logits_soft_cap": 30.0, "scale": 0.1},
+                                   lens_list),
+                                  ({"sinks": sinks, "sliding_window": 64},
+                                   lens_list),
+                                  ({}, lens_list[:6] + [0, 256])):
+            lc = self.i32(lens_case)
+            valid = (torch.arange(T, device=self.dev)[None, :]
+                     < lc.long()[:, None])
+            got = ra.ragged_paged_attention(q, self.kp, self.vp, self.pt8,
+                                            q_start, lc, self.layer, **extras)
+            want = ra.ragged_paged_attention_plain(
+                q, self.kp, self.vp, self.pt8, q_start, lc, self.layer,
+                **extras)
+            torch.cuda.synchronize()
+            g, w = got[valid].float(), want[valid].float()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"ragged attention not finite {extras} "
+                                     f"lengths {lens_case}")
+            if not torch.allclose(g, w, atol=ATTN_TOL, rtol=ATTN_TOL):
+                raise AssertionError(
+                    f"ragged attention disagrees ({list(extras)}, lengths "
+                    f"{lens_case}): {float((g - w).abs().max())}")
+            if bool(got[~valid].float().abs().max() != 0):
+                raise AssertionError("padded ragged rows not zero")
+            worst = max(worst, float((g - w).abs().max()))
+        S = self.MP * self.ps
+        kv_pos = torch.arange(S, device=self.dev)[None, None, :]
+        q_pos = q_start.long()[:, None, None] + torch.arange(
+            T, device=self.dev)[None, :, None]
+        mask = (kv_pos <= q_pos) & (kv_pos < (q_start + lens).long()[
+            :, None, None])
+        mask = mask[:, None]
+
+        def lib():
+            k = attention.gather_pages(self.kp[self.layer], self.pt8)
+            v = attention.gather_pages(self.vp[self.layer], self.pt8)
+            return sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), mask)
+        # The split path's two launches for the same work: the decode
+        # kernel on the decode rows, the prefill kernel on the window.
+        q_dec = q[:7, 0].contiguous()
+        ctx_t = self.i32(ctx)
+        pt_dec, pt_win = self.pt8[:7].contiguous(), self.pt8[7:].contiguous()
+        q_win = q[7:].contiguous()
+        win_start, win_len = self.i32([128]), self.i32([256])
+
+        def split():
+            pa.paged_decode_attention(q_dec, self.kp, self.vp, pt_dec, ctx_t,
+                                      self.layer)
+            pf.paged_prefill_attention(q_win, self.kp, self.vp, pt_win,
+                                       win_start, win_len, self.layer)
+        split_ms = graph_ms(split)
+        # The kernel on each half of the batch alone (the other half's
+        # rows at length 0): which rows set its time.
+        lens_dec = self.i32(lens_list[:7] + [0])
+        lens_win = self.i32([0] * 7 + [256])
+        dec_ms = graph_ms(lambda: ra.ragged_paged_attention(
+            q, self.kp, self.vp, self.pt8, q_start, lens_dec, self.layer))
+        win_ms = graph_ms(lambda: ra.ragged_paged_attention(
+            q, self.kp, self.vp, self.pt8, q_start, lens_win, self.layer))
+        keys = sum(s + n for s, n in zip(starts, lens_list))
+        pairs = sum(n * s + n * (n + 1) // 2 for s, n in zip(starts,
+                                                             lens_list))
+        row = self.Hkv * self.D * 2
+        n_rows = sum(lens_list)
+        nbytes = keys * 2 * row + 2 * n_rows * self.Hq * self.D * 2 \
+            + B * (8 + 4 * self.MP)
+        flops = 4.0 * pairs * self.Hq * self.D
+        self.record(
+            "ragged_paged_attention", f"{CSRC}/ragged_paged_attention.cu",
+            f"{PALLAS}/ragged_attention.py:191", worst,
+            lambda: ra.ragged_paged_attention(q, self.kp, self.vp, self.pt8,
+                                              q_start, lens, self.layer),
+            lambda: ra.ragged_paged_attention_plain(
+                q, self.kp, self.vp, self.pt8, q_start, lens, self.layer),
+            lib, nbytes, flops, split_ms=split_ms,
+            decode_rows_only_ms=dec_ms, window_only_ms=win_ms)
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: full-width forward, kernels (GPU bf16) vs plain (CPU float32)
 # ---------------------------------------------------------------------------
@@ -397,6 +503,13 @@ def forward_check(torch, cfg, device) -> float:
                            for _ in range(B)])
     start = torch.zeros(B, dtype=torch.int32)
     lens = torch.tensor([128, 77], dtype=torch.int32)
+    # Then a ragged batch: row 0 decodes at position 129 (mid-page), row 1
+    # continues with a 40-token window from position 78.
+    rg_tokens = torch.zeros(B, 64, dtype=torch.long)
+    rg_tokens[1, :40] = torch.tensor([rng.randrange(3, 259)
+                                      for _ in range(40)])
+    rg_start = torch.tensor([129, 78], dtype=torch.int32)
+    rg_lens = torch.tensor([1, 40], dtype=torch.int32)
     results = []
     for device, p, dtype in ((dev, params, tf.torch_dtype(cfg)),
                              (torch.device("cpu"), cpu_params,
@@ -410,15 +523,21 @@ def forward_check(torch, cfg, device) -> float:
             p, cfg, nxt.to(device), lens.to(device),
             torch.ones(B, dtype=torch.bool, device=device), kv,
             pt.to(device))
-        results.append((pre.float().cpu(), dec.float().cpu()))
+        rg_tokens[0, 0] = (dec if not results else results[0][1]).argmax(
+            -1)[0].item()
+        rag, kv = tf.forward_prefill(p, cfg, rg_tokens.to(device),
+                                     rg_start.to(device), rg_lens.to(device),
+                                     kv, pt.to(device), ragged=True)
+        results.append((pre.float().cpu(), dec.float().cpu(),
+                        rag.float().cpu()))
     worst = 0.0
     for got, want in zip(results[0], results[1]):
         if not bool(torch.isfinite(got).all()):
             raise AssertionError("kernel-path logits not finite")
         rel = float((got - want).norm() / want.norm())
         worst = max(worst, rel)
-    log(f"[forward] llama3-1b prefill+decode rel L2 (GPU kernels bf16 vs "
-        f"CPU plain fp32): {worst:.5f}")
+    log(f"[forward] llama3-1b prefill+decode+ragged rel L2 (GPU kernels "
+        f"bf16 vs CPU plain fp32): {worst:.5f}")
     if worst > FORWARD_REL_L2:
         raise AssertionError(f"forward logits rel L2 {worst} > "
                              f"{FORWARD_REL_L2}")
@@ -500,14 +619,58 @@ def profile_request(torch, addr: str, body: dict) -> dict:
     return out
 
 
-def serve(torch, kernels, model: str, device: str) -> dict:
+class StepLog:
+    """Wraps a live engine's ``step``: per iteration its kind, forwards,
+    wall time (host clock; a step ends in the host read of its sampled
+    tokens, so it includes the device's work) and hand-written kernel
+    launches, and the tokens of each request, keyed by prompt length."""
+
+    def __init__(self, engine, kernels) -> None:
+        self.rows, self.tokens = [], {}
+        inner = engine.step
+
+        def step():
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            outs = inner()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = kernels.launch_counts()
+            self.rows.append({
+                "kind": engine.last_step_kind,
+                "ragged": engine.last_step_ragged,
+                "forwards": engine.last_step_attn_dispatches, "ms": ms,
+                "launches": {k: after[k] - before[k] for k in after}})
+            for o in outs:
+                self.tokens.setdefault(o.num_prompt_tokens, []).extend(
+                    o.new_token_ids)
+            return outs
+        engine.step = step
+
+    def clear(self) -> None:
+        self.rows, self.tokens = [], {}
+
+
+def serve(torch, kernels, model: str, device: str, ragged: bool) -> dict:
+    """Phase 5 (ragged off) or 5b (ragged on): 4 concurrent requests
+    through the worker; checks the replies and which kernels ran."""
     from xllm_service_tpu_torch.runtime import worker
     args = worker.parse_args([
         "--model", model, "--device", device,
         "--page-size", "128", "--num-pages", "512",
         "--max-model-len", "1024", "--max-batch-size", "8",
         "--prefill-buckets", "128,256,512", "--max-prefill-tokens", "256"])
-    w = worker.build_worker(args).start()
+    # The engine reads the switch once, when its config is built.
+    saved = os.environ.get("XLLM_RAGGED_ATTN")
+    os.environ["XLLM_RAGGED_ATTN"] = "1" if ragged else "0"
+    try:
+        w = worker.build_worker(args).start()
+    finally:
+        if saved is None:
+            del os.environ["XLLM_RAGGED_ATTN"]
+        else:
+            os.environ["XLLM_RAGGED_ATTN"] = saved
+    layers = w.engine.cfg.num_layers
+    steplog = StepLog(w.engine, kernels)
     try:
         rng = random.Random(0)
         warm = {}
@@ -539,7 +702,9 @@ def serve(torch, kernels, model: str, device: str) -> dict:
                 body["logprobs"] = True
             bodies.append(body)
         steps0 = w.engine.step_count
+        ragged0 = w.engine.ragged_steps
         kernels.reset_launch_counts()
+        steplog.clear()
         results = [{} for _ in plan]
         threads = [threading.Thread(target=_request,
                                     args=(w.name, p, b, s, r))
@@ -553,7 +718,10 @@ def serve(torch, kernels, model: str, device: str) -> dict:
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         steps = w.engine.step_count - steps0
-        prof = profile_request(torch, w.name, bodies[0])
+        ragged_steps = w.engine.ragged_steps - ragged0
+        rows = list(steplog.rows)
+        tokens = {n: list(t) for n, t in steplog.tokens.items()}
+        prof = None if ragged else profile_request(torch, w.name, bodies[0])
     finally:
         w.stop()
     ttfts, decode_rates, total_tokens = [], [], 0
@@ -581,18 +749,60 @@ def serve(torch, kernels, model: str, device: str) -> dict:
                     r["body"]["choices"][0]["finish_reason"] != "length":
                 raise AssertionError(f"completion body {r['body']}")
             total_tokens += usage["completion_tokens"]
-    missing = [k for k, n in counts.items() if n <= 0]
+    if w.engine.ragged != ragged:
+        raise AssertionError(f"engine.ragged={w.engine.ragged}, want {ragged}")
+    if ragged:
+        # The ragged path: ragged forwards ran, each one launch of the
+        # ragged kernel per layer and no decode or prefill attention.
+        need = ["paged_prefill_kv_update_layer", "ragged_paged_attention"]
+        if ragged_steps < 1:
+            raise AssertionError("no ragged iteration ran")
+        if counts["ragged_paged_attention"] % layers:
+            raise AssertionError(f"ragged kernel launches not a multiple of "
+                                 f"{layers}: {counts}")
+        for row in rows:
+            if row["kind"] == "mixed" and not row["ragged"]:
+                raise AssertionError(f"a mixed iteration ran split: {row}")
+            n = row["launches"]
+            if row["ragged"] and (
+                    n["ragged_paged_attention"] != layers
+                    or n["paged_decode_attention"]
+                    or n["paged_prefill_attention"]):
+                raise AssertionError(f"ragged iteration launches: {row}")
+    else:
+        need = ["paged_kv_update_layer", "paged_prefill_kv_update_layer",
+                "paged_decode_attention", "paged_prefill_attention"]
+    missing = [k for k in need if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing} ({counts})")
-    out = {"launches": counts, "engine_steps": steps,
+    mixed = [r for r in rows if r["kind"] == "mixed"]
+    out = {"ragged": ragged, "launches": counts, "engine_steps": steps,
+           "ragged_steps": ragged_steps,
            "ttft_ms_streams": ttfts,
            "decode_tokens_per_s_streams": decode_rates,
            "completion_tokens": total_tokens, "wall_s": wall,
            "tokens_per_s_aggregate": total_tokens / wall,
+           "forwards_per_request": sum(r["forwards"] for r in rows)
+           / len(plan),
+           "mixed_steps": len(mixed),
+           "forwards_per_mixed_step": (sum(r["forwards"] for r in mixed)
+                                       / len(mixed) if mixed else None),
+           "kernel_launches_per_mixed_step": (
+               sum(sum(r["launches"].values()) for r in mixed) / len(mixed)
+               if mixed else None),
+           "mixed_step_ms": sorted(r["ms"] for r in mixed),
+           "decode_step_ms_median": _median(
+               [r["ms"] for r in rows if r["kind"] == "decode"]),
            "profile": prof}
-    log(f"[serve] {json.dumps(out)}")
+    log(f"[serve{'b' if ragged else ''}] {json.dumps(out)}")
+    out["tokens"] = tokens
     return out
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
 
 
 def main() -> int:
@@ -613,7 +823,8 @@ def main() -> int:
     from xllm_service_tpu_torch.ops import attention, kernels
     from xllm_service_tpu_torch.ops.kernels import (_build, kv_update,
                                                     paged_attention,
-                                                    prefill_attention)
+                                                    prefill_attention,
+                                                    ragged_attention)
 
     # 1. Device.
     card = subprocess.run(
@@ -641,6 +852,8 @@ def main() -> int:
     bench.prefill_writer(kv_update)
     bench.decode_attention(paged_attention, attention)
     bench.prefill_attention(prefill_attention, attention)
+    bench.ragged_attention(ragged_attention, paged_attention,
+                           prefill_attention, attention)
     del bench.kp, bench.vp
     torch.cuda.empty_cache()
 
@@ -648,14 +861,31 @@ def main() -> int:
     rel = forward_check(torch, cfg, "cuda")
     torch.cuda.empty_cache()
 
-    # 5. Serving.
-    served = serve(torch, kernels, "llama3-1b", "cuda")
+    # 5. Serving, split path; 5b. serving, ragged step.
+    served = serve(torch, kernels, "llama3-1b", "cuda", ragged=False)
+    served_b = serve(torch, kernels, "llama3-1b", "cuda", ragged=True)
+    tok_a, tok_b = served.pop("tokens"), served_b.pop("tokens")
+    pairs = [(x, y) for n in tok_a for x, y in zip(tok_a[n],
+                                                   tok_b.get(n, []))]
+    same = sum(x == y for x, y in pairs) / len(pairs) if pairs else None
+    log(f"[serve] {card}: split vs ragged: TTFT ms "
+        f"{served['ttft_ms_streams']} vs {served_b['ttft_ms_streams']}; "
+        f"decode tokens/s per stream {served['decode_tokens_per_s_streams']}"
+        f" vs {served_b['decode_tokens_per_s_streams']}; engine steps "
+        f"{served['engine_steps']} vs {served_b['engine_steps']}; forwards "
+        f"per request {served['forwards_per_request']} vs "
+        f"{served_b['forwards_per_request']}; kernel launches per mixed "
+        f"iteration {served['kernel_launches_per_mixed_step']} vs "
+        f"{served_b['kernel_launches_per_mixed_step']}; share of equal "
+        f"tokens {same}")
 
     # 6. Summary.
     for r in bench.results:
-        r["launches"] = served["launches"][r["name"]]
+        phase = served_b if r["name"] == "ragged_paged_attention" else served
+        r["launches"] = phase["launches"][r["name"]]
     summary = {"card": card, "build_s": build_s, "forward_rel_l2": rel,
-               "serve": served}
+               "serve": served, "serve_ragged": served_b,
+               "equal_token_share": same}
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": bench.results}))
     print(card)

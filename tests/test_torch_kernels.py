@@ -22,10 +22,12 @@ from xllm_service_tpu.ops.pallas.paged_attention import (
     paged_decode_attention_pallas)
 from xllm_service_tpu.ops.pallas.prefill_attention import (
     paged_prefill_attention_pallas)
+from xllm_service_tpu.ops.pallas.ragged_attention import (
+    ragged_paged_attention_pallas)
 from xllm_service_tpu_torch.ops import kernels
 from xllm_service_tpu_torch.ops.kernels import (
     paged_decode_attention, paged_kv_update_layer, paged_prefill_attention,
-    paged_prefill_kv_update_layer)
+    paged_prefill_kv_update_layer, ragged_paged_attention)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -207,3 +209,83 @@ def test_writers_and_prefill_reject_bad_arguments():
     with pytest.raises(ValueError):         # sinks must be float32 [Hq]
         paged_prefill_attention(torch.zeros(2, 4, 4, 16), kp, vp, pt, i32,
                                 i32, 0, sinks=torch.zeros(3))
+
+
+# Ragged batches: (T, q_start, lengths, page table or None for disjoint
+# tables). Rows are prefill windows, length-1 decode rows starting
+# mid-page, and length-0 padding rows.
+RAGGED_BATCHES = {
+    # A full window, a continuation at q_start=13, a decode row at 29,
+    # a padding row.
+    "mixed": (16, [0, 13, 29, 0], [16, 9, 1, 0], None),
+    "decode_only": (1, [5, 0, 31, 47], [1, 1, 1, 1], None),
+    # Spans that start and end mid-page, crossing page boundaries.
+    "page_straddle": (12, [3, 7, 15, 21], [12, 9, 1, 10], None),
+    # Tables padded with the NULL page past each row's own pages.
+    "null_pages": (16, [0, 13, 7, 16], [9, 9, 1, 16],
+                   [[3, 1, 0, 0, 0, 0], [5, 2, 7, 0, 0, 0],
+                    [4, 0, 0, 0, 0, 0], [6, 8, 9, 10, 0, 0]]),
+}
+
+
+def _ragged_check(batch, case, Hq=8, Hkv=2, seed=23):
+    rng = np.random.default_rng(seed)
+    T, q_start, lens, table = RAGGED_BATCHES[batch]
+    L, P, ps, D, MP = 2, 32, 8, 16, 6
+    B = len(lens)
+    kp, vp = _f32(rng, L, P, ps, Hkv, D), _f32(rng, L, P, ps, Hkv, D)
+    q = _f32(rng, B, T, Hq, D)
+    pt = (np.asarray(table, np.int32) if table is not None else
+          (1 + np.arange(B * MP).reshape(B, MP)).astype(np.int32))
+    q_start, lens = np.array(q_start, np.int32), np.array(lens, np.int32)
+    jx, tx = _extras(rng, Hq, case)
+    for li in range(L):
+        want = np.asarray(ragged_paged_attention_pallas(
+            jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(pt), jnp.asarray(q_start), jnp.asarray(lens),
+            interpret=True, layer=jnp.int32(li), **jx))
+        got = ragged_paged_attention(_t(q), _t(kp), _t(vp), _t(pt),
+                                     _t(q_start), _t(lens), li, **tx).numpy()
+        for b in range(B):
+            n = int(lens[b])
+            np.testing.assert_allclose(got[b, :n], want[b, :n], **TOL)
+            assert not got[b, n:].any()             # rows past the length
+        assert np.isfinite(got).all() and np.isfinite(want).all()
+
+
+@pytest.mark.parametrize("batch", sorted(RAGGED_BATCHES))
+def test_ragged_attention_matches_pallas(batch):
+    _ragged_check(batch, {})
+
+
+@pytest.mark.parametrize("case", ATTN_CASES[1:])
+def test_ragged_attention_model_deltas_match_pallas(case):
+    _ragged_check("mixed", case)
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(8, 1), (4, 4)])
+def test_ragged_attention_groups_match_pallas(Hq, Hkv):
+    _ragged_check("mixed", {}, Hq=Hq, Hkv=Hkv)
+
+
+def test_ragged_attention_rejects_bad_arguments():
+    rng = np.random.default_rng(2)
+    kp, vp = _t(_f32(rng, 2, 8, 4, 2, 16)), _t(_f32(rng, 2, 8, 4, 2, 16))
+    q = torch.zeros(2, 4, 4, 16)
+    pt = torch.ones(2, 3, dtype=torch.int32)
+    i32 = torch.zeros(2, dtype=torch.int32)
+    bad = [
+        dict(lengths=torch.zeros(2, dtype=torch.int64)),        # dtype
+        dict(q_start=torch.zeros(3, dtype=torch.int32)),        # shape
+        dict(q=torch.zeros(2, 4, 16, 4).transpose(2, 3)),       # strides
+        dict(q=torch.zeros(2, 4, 3, 16)),                        # Hq % Hkv
+        dict(layer=2),                                           # range
+        dict(sinks=torch.zeros(4, dtype=torch.float64)),        # sinks
+    ]
+    for kw in bad:
+        args = dict(q=q, k_pages=kp, v_pages=vp, page_table=pt, q_start=i32,
+                    lengths=i32, layer=0)
+        sinks = kw.pop("sinks", None)
+        args.update(kw)
+        with pytest.raises(ValueError):
+            ragged_paged_attention(**args, sinks=sinks)

@@ -129,3 +129,51 @@ def test_unsupported_families_refused():
                 ModelConfig.gemma3_12b()):
         with pytest.raises(NotImplementedError):
             ttf.check_supported(cfg)
+
+
+@pytest.mark.parametrize("family", ["llama", "gemma2"])
+def test_ragged_forward_matches_jax(family):
+    """One ragged forward: two decode rows (length 1, starting mid-page),
+    a first window and a continuation window, after a plain prefill has
+    put the decode rows' and the continuation's prefixes in the pools."""
+    jcfg, tcfg, jparams, tparams = _setup(family)
+    rng = np.random.default_rng(1)
+    P, ps, B, MP = 32, 8, 4, 6
+    jkv = jtf.init_kv_cache(jcfg, P, ps)
+    tkv = ttf.init_kv_cache(tcfg, P, ps, "cpu")
+    pt = (1 + np.arange(B * MP).reshape(B, MP)).astype(np.int32)
+    prompts = [rng.integers(3, 96, size=n).astype(np.int32)
+               for n in (13, 21, 16, 22)]
+
+    def both(tokens, start, lens, ragged=False):
+        nonlocal jkv, tkv
+        jl, _, jkv = jtf.forward_prefill(
+            jparams, jcfg, jnp.asarray(tokens), jnp.asarray(start),
+            jnp.asarray(lens), jkv, jnp.asarray(pt), write_then_attend=True,
+            page_aligned_prefill=not ragged, ragged=ragged)
+        tl, tkv = ttf.forward_prefill(
+            tparams, tcfg, torch.from_numpy(tokens).long(),
+            torch.from_numpy(start), torch.from_numpy(lens), tkv,
+            torch.from_numpy(pt), ragged=ragged)
+        return np.asarray(jl), tl
+
+    # Prefixes: rows 0 and 1 whole (they decode next), row 3's first 10
+    # tokens (its continuation comes next), nothing for row 2.
+    pre = np.zeros((B, 24), np.int32)
+    pre_lens = np.array([13, 21, 0, 10], np.int32)
+    for b in (0, 1, 3):
+        pre[b, :pre_lens[b]] = prompts[b][:pre_lens[b]]
+    jl, tl = both(pre, np.zeros(B, np.int32), pre_lens)
+    _close(tl[[0, 1, 3]], jl[[0, 1, 3]])
+    # The ragged batch in a T = 16 bucket: decode rows at 13 and 21 (both
+    # mid-page), row 2's first window, row 3's window from 10.
+    tokens = np.zeros((B, 16), np.int32)
+    tokens[0, 0], tokens[1, 0] = jl[0].argmax(), jl[1].argmax()
+    tokens[2, :16] = prompts[2]
+    tokens[3, :12] = prompts[3][10:]
+    start = np.array([13, 21, 0, 10], np.int32)
+    lens = np.array([1, 1, 16, 12], np.int32)
+    jl, tl = both(tokens, start, lens, ragged=True)
+    _close(tl, jl)
+    _close(tkv[0], jkv[0])
+    _close(tkv[1], jkv[1])

@@ -12,6 +12,7 @@ Standard library only.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, Optional, Tuple
 
 
@@ -646,10 +647,10 @@ class ModelConfig:
 class EngineConfig:
     """Worker-engine runtime config (paged KV cache + continuous batching).
 
-    Field names and defaults match the JAX package's ``EngineConfig``.
-    ``enable_prefix_cache`` is accepted for that compatibility but not
-    read: this engine has no prefix cache yet, so every prompt is
-    prefilled in full."""
+    Field names, defaults and environment overrides match the JAX
+    package's ``EngineConfig``. ``enable_prefix_cache`` is accepted for
+    that compatibility but not read: this engine has no prefix cache yet,
+    so every prompt is prefilled in full."""
 
     page_size: int = 64                 # tokens per KV page
     num_pages: int = 1024               # KV pool size (per layer)
@@ -658,6 +659,26 @@ class EngineConfig:
     max_prefill_tokens: int = 2048      # prefill token budget per step
     prefill_buckets: Tuple[int, ...] = (64, 128, 256, 512, 1024, 2048)
     enable_prefix_cache: bool = True
+    # One-dispatch ragged mixed steps: an interleaved iteration with both
+    # running decoders and schedulable prefill windows packs both into
+    # one ragged batch (decode rows are length-1 continuation windows)
+    # served by one forward whose layers attend with the ragged kernel.
+    # None = off. Env XLLM_RAGGED_ATTN=0/1 overrides.
+    ragged_attn: Optional[bool] = None
+    # Token-budget interleaving: every iteration decodes the running set
+    # first, then spends the rest of the iteration's token budget on
+    # chunked-prefill windows. None = on; off = prefill-first routing
+    # (a step prefills if it can, else decodes). Env XLLM_INTERLEAVE=0/1
+    # overrides.
+    interleave: Optional[bool] = None
+    # Token budget of one interleaved iteration, decode tokens included.
+    # 0 = max_prefill_tokens. Env XLLM_STEP_TOKEN_BUDGET overrides.
+    step_token_budget: int = 0
+    # Once the oldest waiting prompt has queued this long (ms), the
+    # iteration's prefill budget is floored at the smallest prefill
+    # bucket even if decode used up the budget. 0 = the floor applies on
+    # every iteration. Env XLLM_PREFILL_DEADLINE_MS overrides.
+    prefill_deadline_ms: float = 500.0
 
     def __post_init__(self) -> None:
         if self.max_model_len % self.page_size != 0:
@@ -668,3 +689,32 @@ class EngineConfig:
         # window start, page-aligned or not.
         self.prefill_buckets = tuple(sorted(self.prefill_buckets))
         self.max_pages_per_seq = self.max_model_len // self.page_size
+        flag = _env_flag("XLLM_RAGGED_ATTN")
+        if flag is not None:
+            self.ragged_attn = flag
+        flag = _env_flag("XLLM_INTERLEAVE")
+        if flag is not None:
+            self.interleave = flag
+        env = os.environ.get("XLLM_STEP_TOKEN_BUDGET", "").strip()
+        if env:
+            try:
+                self.step_token_budget = int(env)
+            except ValueError:
+                pass
+        env = os.environ.get("XLLM_PREFILL_DEADLINE_MS", "").strip()
+        if env:
+            try:
+                self.prefill_deadline_ms = float(env)
+            except ValueError:
+                pass
+
+
+def _env_flag(name: str) -> Optional[bool]:
+    """A 0/1 environment switch: True, False, or None when unset (or
+    neither)."""
+    env = os.environ.get(name, "").strip()
+    if env in ("0", "false", "no"):
+        return False
+    if env in ("1", "true", "yes"):
+        return True
+    return None

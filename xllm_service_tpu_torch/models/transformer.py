@@ -26,7 +26,7 @@ from xllm_service_tpu_torch.config import ModelConfig
 from xllm_service_tpu_torch.ops.attention import FULL_WINDOW
 from xllm_service_tpu_torch.ops.kernels import (
     paged_decode_attention, paged_kv_update_layer, paged_prefill_attention,
-    paged_prefill_kv_update_layer)
+    paged_prefill_kv_update_layer, ragged_paged_attention)
 from xllm_service_tpu_torch.ops.norm import rms_norm
 from xllm_service_tpu_torch.ops.rope import rope_cos_sin, rotate
 
@@ -224,14 +224,23 @@ def _attn_out(lp, a: torch.Tensor) -> torch.Tensor:
 
 def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     start_pos: torch.Tensor, lengths: torch.Tensor,
-                    kv: KVCache, page_table: torch.Tensor
-                    ) -> Tuple[torch.Tensor, KVCache]:
+                    kv: KVCache, page_table: torch.Tensor,
+                    ragged: bool = False) -> Tuple[torch.Tensor, KVCache]:
     """Prefill ``tokens`` [B, T] (padded; ``lengths`` [B] int32 true
     counts) at positions start_pos[b] + t, with the cached prefix
     [0, start_pos[b]) already in the pools. Writes the window's K/V into
     the pools in place. Returns (logits of each row's last valid token
-    [B, V] float32, kv)."""
+    [B, V] float32, kv).
+
+    ``ragged``: the batch is the engine's ragged mix, each row a prefill
+    window or a single decode continuation (length 1 at start_pos =
+    context - 1, mid-page as often as not), and each layer attends with
+    the ragged kernel instead of the prefill kernel. The writer is the
+    same: this package's prefill KV writer takes any start (on the TPU
+    the ragged step writes through the XLA scatter there, because the
+    Pallas writer needs page-aligned starts)."""
     check_supported(cfg)
+    attend = ragged_paged_attention if ragged else paged_prefill_attention
     k_pages, v_pages = kv
     B, T = tokens.shape
     x = _scale_embed(cfg, params["embed"][tokens])                 # [B, T, D]
@@ -249,7 +258,7 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         q, k = rotate(q, cos, sin), rotate(k, cos, sin)
         paged_prefill_kv_update_layer(k_pages, v_pages, k, v, page_table,
                                       start_pos, lengths, i)
-        attn = paged_prefill_attention(
+        attn = attend(
             q, k_pages, v_pages, page_table, start_pos, lengths, i,
             sliding_window=windows[i], sinks=lp.get("sinks"), **extras)
         x = _block_tail(lp, cfg, x, _attn_out(lp, attn.reshape(B, T, -1)))

@@ -9,7 +9,8 @@ Each wrapper checks its arguments, then:
   count, and raises if the launch failed. There is no fallback.
 
 The kernels replace the Pallas kernels of the JAX package that the
-write-then-attend serving path launches:
+write-then-attend serving path launches, the ragged mixed step
+(``EngineConfig.ragged_attn``) included:
 
 =====================================  ===================================
 wrapper                                Pallas kernel replaced
@@ -21,6 +22,8 @@ paged_attention.paged_decode_          paged_attention.py
 attention                              paged_decode_attention_pallas
 prefill_attention.paged_prefill_       prefill_attention.py
 attention                              paged_prefill_attention_pallas
+ragged_attention.ragged_paged_         ragged_attention.py
+attention                              ragged_paged_attention_pallas
 =====================================  ===================================
 """
 
@@ -34,10 +37,13 @@ from xllm_service_tpu_torch.ops.kernels.paged_attention import (
     paged_decode_attention)
 from xllm_service_tpu_torch.ops.kernels.prefill_attention import (
     paged_prefill_attention)
+from xllm_service_tpu_torch.ops.kernels.ragged_attention import (
+    ragged_paged_attention)
 
 WRAPPERS: List[Callable] = [paged_kv_update_layer,
                             paged_prefill_kv_update_layer,
-                            paged_decode_attention, paged_prefill_attention]
+                            paged_decode_attention, paged_prefill_attention,
+                            ragged_paged_attention]
 
 
 def launch_counts() -> Dict[str, int]:
@@ -51,4 +57,5 @@ def reset_launch_counts() -> None:
 
 __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts",
            "paged_kv_update_layer", "paged_prefill_kv_update_layer",
-           "paged_decode_attention", "paged_prefill_attention"]
+           "paged_decode_attention", "paged_prefill_attention",
+           "ragged_paged_attention"]

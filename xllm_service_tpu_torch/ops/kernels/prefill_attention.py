@@ -15,7 +15,7 @@ once per query tile of 64 (position, head) rows).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -64,23 +64,10 @@ def paged_prefill_attention_plain(q, k_pages, v_pages, page_table, q_start,
     return out.masked_fill(pad[:, :, None, None], 0.0)
 
 
-def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
-                            v_pages: torch.Tensor, page_table: torch.Tensor,
-                            q_start: torch.Tensor, lengths: torch.Tensor,
-                            layer: int, *, sliding_window: int = 0,
-                            logits_soft_cap: float = 0.0,
-                            scale: Optional[float] = None,
-                            sinks: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
-    """Causal GQA attention of a prefill window over layer ``layer`` of
-    the paged pools, the window's own K/V included.
-
-    q: [B, T, Hq, D], query t of row b at position q_start[b] + t;
-    k/v_pages: [L, P, ps, Hkv, D]; page_table: [B, MP] int32;
-    q_start/lengths: [B] int32. Keys at positions
-    < q_start[b] + lengths[b] are valid, causally and (W > 0) inside the
-    sliding window. Rows t >= lengths[b] give zeros. Returns
-    [B, T, Hq, D]."""
+def check_arguments(q, k_pages, v_pages, page_table, q_start, lengths,
+                    layer, sinks) -> List[torch.Tensor]:
+    """The argument checks this kernel shares with the ragged kernel;
+    returns the tensors that must lie on one device."""
     check("q", q, 4)
     check("k_pages", k_pages, 5)
     check("v_pages", v_pages, 5)
@@ -102,15 +89,47 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
         check("sinks", sinks, 1, torch.float32)
         require(sinks.shape[0] == Hq, "sinks must be [Hq]")
         tensors.append(sinks)
+    return tensors
+
+
+def check_cuda_shapes(q: torch.Tensor, k_pages: torch.Tensor) -> None:
+    """What the CUDA kernels (this one and the ragged one) take beyond
+    ``check_arguments``."""
+    Hq, D = q.shape[2], q.shape[3]
+    num_pages, ps, Hkv = k_pages.shape[1], k_pages.shape[2], k_pages.shape[3]
+    require(q.dtype == torch.bfloat16, "the CUDA kernel takes bfloat16")
+    require(D in _HEAD_DIMS, f"head_dim {D} not in {_HEAD_DIMS}")
+    require(Hq // Hkv <= _TILE_ROWS, f"query group {Hq // Hkv} > {_TILE_ROWS}")
+    require(num_pages * ps < 2 ** 31, "pool too large for int32 rows")
+
+
+def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor, page_table: torch.Tensor,
+                            q_start: torch.Tensor, lengths: torch.Tensor,
+                            layer: int, *, sliding_window: int = 0,
+                            logits_soft_cap: float = 0.0,
+                            scale: Optional[float] = None,
+                            sinks: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Causal GQA attention of a prefill window over layer ``layer`` of
+    the paged pools, the window's own K/V included.
+
+    q: [B, T, Hq, D], query t of row b at position q_start[b] + t;
+    k/v_pages: [L, P, ps, Hkv, D]; page_table: [B, MP] int32;
+    q_start/lengths: [B] int32. Keys at positions
+    < q_start[b] + lengths[b] are valid, causally and (W > 0) inside the
+    sliding window. Rows t >= lengths[b] give zeros. Returns
+    [B, T, Hq, D]."""
+    tensors = check_arguments(q, k_pages, v_pages, page_table, q_start,
+                              lengths, layer, sinks)
     if not on_cuda(tensors):
         return paged_prefill_attention_plain(
             q, k_pages, v_pages, page_table, q_start, lengths, int(layer),
             sliding_window, logits_soft_cap, scale, sinks)
+    check_cuda_shapes(q, k_pages)
+    B, T, Hq, D = q.shape
+    ps, Hkv = k_pages.shape[2], k_pages.shape[3]
     G = Hq // Hkv
-    require(q.dtype == torch.bfloat16, "the CUDA kernel takes bfloat16")
-    require(D in _HEAD_DIMS, f"head_dim {D} not in {_HEAD_DIMS}")
-    require(G <= _TILE_ROWS, f"query group {G} > {_TILE_ROWS}")
-    require(num_pages * ps < 2 ** 31, "pool too large for int32 rows")
     out = torch.empty_like(q)
     rc = _kernel().paged_prefill_attention(
         ptr(q), ptr(k_pages[layer]), ptr(v_pages[layer]), ptr(page_table),

@@ -2,28 +2,36 @@
 
 The counterpart of the JAX package's ``runtime/engine.py`` for one model
 on one CUDA device (or on the CPU, where every kernel runs its plain
-version). Each ``step()`` first decodes every running sequence in one
-fixed-slot batch of ``max_batch_size`` rows, then spends what is left of
-the ``max_prefill_tokens`` budget on prefill windows:
+version). Each ``step()`` is one iteration of the JAX engine's
+scheduler:
 
-- a prompt prefills in windows of at most one bucket of
-  ``prefill_buckets``; the window shrinks to the largest bucket that
-  fits the step's remaining budget, so prompts longer than it prefill
-  in chunks over several steps, each window starting where the last
-  ended (a sum of bucket sizes, so page-aligned for page-multiple
-  buckets);
-- the prefill batch pads to a power of two rows and its window to the
-  bucket that holds the longest window;
-- tokens are sampled on the device inside the step; only the sampled
-  ids and their logprobs cross to the host.
+- interleaved (the default): decode every running sequence in one
+  fixed-slot batch of ``max_batch_size`` rows, then spend what is left
+  of ``step_token_budget`` on prefill windows. Once the oldest waiting
+  prompt has queued past ``prefill_deadline_ms``, that residual is
+  floored at the smallest prefill bucket;
+- prefill-first (``interleave=False``): prefill whole-bucket windows if
+  any prompt can be scheduled, else decode;
+- ragged (``ragged_attn``): an interleaved iteration that both decodes
+  and prefills runs as ONE forward over a ragged batch, the decode rows
+  as length-1 continuation windows first, then the prefill windows,
+  each layer attending with the ragged kernel.
+
+A prompt prefills in windows of at most one bucket of
+``prefill_buckets``; an interleaved window snaps down to the largest
+bucket that fits the residual budget, so prompts longer than it prefill
+in chunks over several steps, each window starting where the last
+ended. A batch pads to a power of two rows and its window to the bucket
+that holds the longest window. Tokens are sampled on the device inside
+the step; only the sampled ids and their logprobs cross to the host.
 
 A sequence finishes on EOS, a stop token id, ``max_tokens`` or
 ``max_model_len``; its pages and slot are freed then.
 
 Not in this package yet: the prefix cache, preemption (admission
 reserves the pages of the whole sequence instead), fused multi-step
-decode and its pipeline, the ragged mixed step, CUDA graphs, the step
-fault boundary and the step trace.
+decode and its pipeline, CUDA graphs, the step fault boundary and the
+step trace.
 """
 
 from __future__ import annotations
@@ -146,6 +154,23 @@ class Engine:
             [None] * engine_cfg.max_batch_size
         self._cancelled: set = set()
         self.step_count = 0
+        # The interleaver's knobs and the ragged switch, resolved once.
+        self.interleave = engine_cfg.interleave is not False
+        self.step_token_budget = (engine_cfg.step_token_budget
+                                  or engine_cfg.max_prefill_tokens)
+        self.prefill_deadline_ms = float(engine_cfg.prefill_deadline_ms)
+        self.ragged = bool(engine_cfg.ragged_attn)
+        # What the last step() did (the JAX engine's step ledger). A
+        # forward is one attention dispatch: decode, prefill or ragged.
+        self.last_step_kind = "idle"    # "prefill"|"decode"|"mixed"|"idle"
+        self.last_step_tokens = 0
+        self.last_step_prefill_tokens = 0
+        self.last_step_decode_tokens = 0
+        self.last_step_prefill_windows: Tuple[int, ...] = ()
+        self.last_step_decode_deferred = False
+        self.last_step_ragged = False
+        self.last_step_attn_dispatches = 0
+        self.ragged_steps = 0           # ragged forwards run so far
 
     # ------------------------------------------------------------------
     # Request intake
@@ -179,6 +204,12 @@ class Engine:
         seq = Sequence(req=req, tokens=list(req.token_ids))
         self._by_id[req.request_id] = seq
         self.waiting.append(seq)
+        self._sort_waiting()
+
+    def _sort_waiting(self) -> None:
+        # Sequences between chunked windows first (they hold a slot and
+        # pages), then by arrival.
+        self.waiting.sort(key=lambda s: (s.slot < 0, s.req.arrival_time))
 
     def cancel(self, request_id: str) -> None:
         self._cancelled.add(request_id)
@@ -198,9 +229,12 @@ class Engine:
         # The last sampled token is never written to the pool.
         return len(req.token_ids) + max(req.sampling.max_tokens - 1, 0)
 
+    def _free_slot(self) -> int:
+        return next((i for i, s in enumerate(self._slots) if s is None), -1)
+
     def _try_admit(self, seq: Sequence) -> bool:
         """Take a free slot and the pages of the whole sequence."""
-        slot = next((i for i, s in enumerate(self._slots) if s is None), -1)
+        slot = self._free_slot()
         if slot < 0:
             return False
         pages = self.allocator.alloc(
@@ -230,21 +264,92 @@ class Engine:
     # Step
     # ------------------------------------------------------------------
     def step(self) -> List[StepOutput]:
-        """One iteration: decode the running set, then prefill windows
-        with the rest of the token budget."""
+        """One iteration, interleaved or prefill-first (see the module
+        docstring); ``last_step_*`` describe it afterwards."""
         self.step_count += 1
         outs = self._drain_cancelled()
-        if self.running:
-            outs.extend(self._run_decode())
-        decoded = sum(len(o.new_token_ids) for o in outs)
-        # The budget never drops below one smallest bucket, so prompts
-        # keep moving while a full decode batch runs.
-        budget = max(self.ecfg.max_prefill_tokens - decoded,
-                     self.ecfg.prefill_buckets[0])
-        batch = self._schedule_prefill(budget)
-        if batch:
-            outs.extend(self._run_prefill(batch))
+        self.last_step_prefill_tokens = 0
+        self.last_step_decode_tokens = 0
+        self.last_step_prefill_windows = ()
+        self.last_step_decode_deferred = False
+        self.last_step_ragged = False
+        self.last_step_attn_dispatches = 0
+        if self.interleave:
+            self._step_interleaved(outs)
+        else:
+            self._step_prefill_first(outs)
+        pf = self.last_step_prefill_tokens
+        dc = self.last_step_decode_tokens
+        self.last_step_tokens = pf + dc
+        self.last_step_kind = ("mixed" if pf and dc else
+                               "prefill" if pf else
+                               "decode" if dc else "idle")
         return outs
+
+    def _step_interleaved(self, outs: List[StepOutput]) -> None:
+        if self.ragged and self.running and self.waiting and \
+                self._step_ragged_mixed(outs):
+            return
+        if self.running:
+            self._decode_section(outs)
+        # Decode tokens count against the iteration's budget, so prefill
+        # windows shrink exactly when decode load is high.
+        budget = self.step_token_budget - self.last_step_decode_tokens
+        if self.waiting:
+            budget = max(budget, self._starvation_quantum())
+        if budget > 0 and self.waiting:
+            batch = self._schedule_prefill(budget)
+            if batch:
+                self._prefill_section(batch, outs)
+
+    def _step_prefill_first(self, outs: List[StepOutput]) -> None:
+        batch = self._schedule_prefill()
+        if batch:
+            # Live decode streams wait this iteration out.
+            self.last_step_decode_deferred = bool(self.running)
+            self._prefill_section(batch, outs)
+        elif self.running:
+            self._decode_section(outs)
+
+    def _decode_section(self, outs: List[StepOutput]) -> None:
+        decoded = self._run_decode()
+        self.last_step_decode_tokens = sum(len(o.new_token_ids)
+                                           for o in decoded)
+        outs.extend(decoded)
+
+    def _prefill_section(self, batch: List[Sequence],
+                         outs: List[StepOutput]) -> None:
+        # Prefill occupancy is the prompt tokens computed, not the one
+        # token sampled per window.
+        self.last_step_prefill_windows = tuple(s.sched_window for s in batch)
+        self.last_step_prefill_tokens = sum(self.last_step_prefill_windows)
+        outs.extend(self._run_prefill(batch))
+
+    def _starvation_quantum(self) -> int:
+        """Floor on an iteration's prefill budget: the smallest bucket
+        once the oldest waiting prompt has queued past
+        ``prefill_deadline_ms``, even if decode used up the budget."""
+        oldest = min(s.req.arrival_time for s in self.waiting)
+        if (time.monotonic() - oldest) * 1000.0 < self.prefill_deadline_ms:
+            return 0
+        return self.ecfg.prefill_buckets[0]
+
+    def _step_ragged_mixed(self, outs: List[StepOutput]) -> bool:
+        """Serve this iteration as one ragged forward of the running
+        decoders and the prefill windows scheduled beside them. False,
+        with nothing changed, when no window fits the budget: the
+        caller then runs the split sections."""
+        decode_seqs = list(self.running)
+        # A ragged decode row spends one token of the budget.
+        budget = max(self.step_token_budget - len(decode_seqs),
+                     self._starvation_quantum())
+        if budget <= 0:
+            return False
+        batch = self._schedule_prefill(budget)
+        if not batch:
+            return False
+        self._run_ragged(decode_seqs, batch, outs)
+        return True
 
     def _drain_cancelled(self) -> List[StepOutput]:
         outs = []
@@ -261,27 +366,51 @@ class Engine:
                 num_generated=seq.num_generated))
         return outs
 
-    def _window_cap(self, budget: int) -> int:
-        """Largest prefill bucket not above ``budget`` (0 if none)."""
-        i = bisect.bisect_right(self.ecfg.prefill_buckets, budget)
-        return self.ecfg.prefill_buckets[i - 1] if i else 0
+    # Bounded skip-ahead past refused admissions: a prompt behind one
+    # whose pages do not fit still admits this step; the refused one
+    # keeps its place and retries first on the next step.
+    _ADMIT_SKIP_AHEAD = 4
 
-    def _schedule_prefill(self, budget: int) -> List[Sequence]:
-        """Pick the prefill windows of this step, in queue order (a
-        sequence between chunked windows keeps its place at the front)."""
+    def _window_cap(self, budget: Optional[int]) -> int:
+        """Largest window one prefill step takes: the largest bucket, or
+        under an interleaved ``budget`` the largest bucket not above it
+        (0 if none), so windows stay bucket-shaped."""
+        buckets = self.ecfg.prefill_buckets
+        if budget is None:
+            return buckets[-1]
+        i = bisect.bisect_right(buckets, budget)
+        return buckets[i - 1] if i else 0
+
+    def _schedule_prefill(self, budget: Optional[int] = None
+                          ) -> List[Sequence]:
+        """Pick this step's prefill windows in queue order and pin each
+        on ``seq.sched_window``. ``budget`` is an interleaved
+        iteration's residual token budget, which each window's cap
+        follows as it shrinks; None is the prefill-first step's
+        ``max_prefill_tokens`` with whole-bucket windows."""
         batch: List[Sequence] = []
+        interleaved = budget is not None
+        if budget is None:
+            budget = self.ecfg.max_prefill_tokens
+        skipped = 0
         for seq in list(self.waiting):
             window = min(len(seq.tokens) - seq.num_computed,
-                         self._window_cap(budget))
+                         self._window_cap(budget if interleaved else None))
             if window <= 0:
+                break               # residual below the smallest bucket
+            if batch and window > budget:
                 break
             if seq.slot < 0 and not self._try_admit(seq):
-                break
+                if self._free_slot() < 0 or \
+                        skipped >= self._ADMIT_SKIP_AHEAD:
+                    break           # no slot at all, or the bound is hit
+                skipped += 1
+                continue            # pages short: try the next prompt
             seq.sched_window = window
             budget -= window
             self.waiting.remove(seq)
             batch.append(seq)
-            if len(batch) >= self.ecfg.max_batch_size:
+            if budget <= 0 or len(batch) >= self.ecfg.max_batch_size:
                 break
         return batch
 
@@ -298,33 +427,72 @@ class Engine:
         lp = compute_logprobs(logits, tok)
         return tok.tolist(), lp.tolist()
 
-    def _run_prefill(self, batch: List[Sequence]) -> List[StepOutput]:
-        windows = [s.sched_window for s in batch]
-        B = _pow2(len(batch))
-        T = self._bucket(max(windows))
-        MP = _pow2(max(max(len(s.pages) for s in batch),
-                       max(self._pages_needed(s.num_computed + T)
-                           for s in batch)))
+    def _forward_windows(self, rows: List[Sequence],
+                         spans: List[Tuple[int, int]],
+                         ragged: bool) -> Tuple[List[int], List[float]]:
+        """One forward_prefill over ``rows``, row i taking the tokens
+        [start, start + n) of ``spans[i]``; the batch pads to a power of
+        two rows and to the bucket of the longest span. Returns the
+        token sampled after each row's last token, and its logprob."""
+        B = _pow2(len(rows))
+        T = self._bucket(max(n for _, n in spans))
+        # The writer and the attention kernels touch only [start,
+        # start + n) of a row, inside its own pages.
+        MP = min(_pow2(max(len(s.pages) for s in rows)),
+                 self.ecfg.max_pages_per_seq)
         tokens = np.zeros((B, T), np.int64)
         start = np.zeros((B,), np.int32)
         lengths = np.zeros((B,), np.int32)
         table = np.zeros((B, MP), np.int32)
-        for i, seq in enumerate(batch):
-            new = seq.tokens[seq.num_computed:seq.num_computed + windows[i]]
-            tokens[i, :len(new)] = new
-            start[i] = seq.num_computed
-            lengths[i] = len(new)
+        for i, (seq, (st, n)) in enumerate(zip(rows, spans)):
+            tokens[i, :n] = seq.tokens[st:st + n]
+            start[i] = st
+            lengths[i] = n
             table[i, :len(seq.pages)] = seq.pages
         logits, self.kv = transformer.forward_prefill(
             self.params, self.cfg, self._to_device(tokens),
             self._to_device(start), self._to_device(lengths), self.kv,
-            self._to_device(table))
+            self._to_device(table), ragged=ragged)
+        self.last_step_attn_dispatches += 1
         positions = [int(start[i] + lengths[i] - 1) for i in range(B)]
-        toks, lps = self._sample(logits, [s.req.sampling for s in batch],
-                                 positions)
+        return self._sample(logits, [s.req.sampling for s in rows],
+                            positions)
+
+    def _run_prefill(self, batch: List[Sequence]) -> List[StepOutput]:
+        windows = [s.sched_window for s in batch]
+        toks, lps = self._forward_windows(
+            batch, [(s.num_computed, w) for s, w in zip(batch, windows)],
+            ragged=False)
+        return self._finish_windows(batch, windows, toks, lps)
+
+    def _run_ragged(self, decode_seqs: List[Sequence], batch: List[Sequence],
+                    outs: List[StepOutput]) -> None:
+        """One forward for a mixed iteration: the decode rows first, each
+        a length-1 window at start = len(tokens) - 1 (mid-page as often
+        as not), then the scheduled prefill windows. Rows are indexed by
+        their place in the batch, not by decode slot."""
+        windows = [s.sched_window for s in batch]
+        rows = decode_seqs + batch
+        nd = len(decode_seqs)
+        self.last_step_ragged = True
+        self.last_step_prefill_windows = tuple(windows)
+        self.last_step_prefill_tokens = sum(windows)
+        self.last_step_decode_tokens = nd
+        spans = [(len(s.tokens) - 1, 1) for s in decode_seqs] + \
+            [(s.num_computed, w) for s, w in zip(batch, windows)]
+        toks, lps = self._forward_windows(rows, spans, ragged=True)
+        self.ragged_steps += 1
+        for i, seq in enumerate(decode_seqs):
+            seq.num_computed = len(seq.tokens)
+            outs.append(self._append_token(seq, toks[i], lps[i]))
+        outs.extend(self._finish_windows(batch, windows, toks[nd:],
+                                         lps[nd:]))
+
+    def _finish_windows(self, batch: List[Sequence], windows: List[int],
+                        toks: List[int], lps: List[float]
+                        ) -> List[StepOutput]:
         now = time.monotonic()
         outs: List[StepOutput] = []
-        resumed: List[Sequence] = []
         for i, seq in enumerate(batch):
             seq.sched_window = 0
             seq.num_computed += windows[i]
@@ -332,13 +500,13 @@ class Engine:
                 # Mid-prompt window: its sampled token is discarded and
                 # the sequence (slot and pages kept) waits for its next
                 # window at the front of the queue.
-                resumed.append(seq)
+                self.waiting.append(seq)
                 continue
             seq.status = SeqStatus.RUNNING
             seq.first_token_time = now
             self.running.append(seq)
             outs.append(self._append_token(seq, toks[i], lps[i]))
-        self.waiting[:0] = resumed
+        self._sort_waiting()
         return outs
 
     def _run_decode(self) -> List[StepOutput]:
@@ -361,6 +529,7 @@ class Engine:
             self.params, self.cfg, self._to_device(tokens),
             self._to_device(positions), self._to_device(active), self.kv,
             self._to_device(table))
+        self.last_step_attn_dispatches += 1
         toks, lps = self._sample(logits, params, positions.tolist())
         outs = []
         for seq in list(self.running):
