@@ -11,35 +11,53 @@ Phases (any failure raises and the exit code is not 0):
 3. Kernels: each kernel against its plain PyTorch version on the same
    CUDA tensors at the serving shapes of llama3-1b (B=8 decode rows,
    a 4-row prefill window batch, a ragged batch of 7 decode rows and a
-   256-token window in a T=256 bucket, page size 128, bf16). KV writers
-   must be bit-exact; attention must agree within atol = rtol = 2e-2
-   (bf16 outputs; the plain version rounds its probabilities to bf16
-   before P @ V) on active rows / valid query rows, with plain,
-   windowed, soft-capped and sink cases; a ragged row of length 0 must
-   come out finite. Each kernel is timed with CUDA events (>= 20
-   launches after warm-up) beside its plain version, one PyTorch
-   library call computing the same function, and its bound (bytes over
-   3.35 TB/s or operations over 989 TFLOP/s, whichever is larger); the
-   ragged kernel also beside the split path's two launches for the same
-   work (decode kernel on the decode rows, prefill kernel on the window).
+   256-token window in a T=256 bucket, page size 128, bf16), in both
+   orders of the KV write: the one-layer writers K1/K2 and the pool-only
+   attention K3/K4 (write-then-attend), the all-layer writers K6/K7 over
+   16 layers (also at the MLA latent row, Hkv=1 and D=576) and the
+   attention forms K3' (current token held apart; a row with cache
+   length 0 compared like the others) and K4' (fresh window operands)
+   of attend-then-write, whose pools hold random stale values where the
+   current token or the window would sit. KV writers must be bit-exact;
+   attention must agree within atol = rtol = 2e-2 (bf16 outputs; the
+   plain version rounds its probabilities to bf16 before P @ V) on
+   active rows / valid query rows, with plain, windowed, soft-capped and
+   sink cases; a ragged row of length 0 must come out finite. Each
+   kernel is timed with CUDA events (>= 20 launches after warm-up)
+   beside its plain version, one PyTorch library call computing the
+   same function, and its bound (bytes over 3.35 TB/s or operations
+   over 989 TFLOP/s, whichever is larger); the ragged kernel also beside
+   the split path's two launches for the same work (decode kernel on
+   the decode rows, prefill kernel on the window), and K6 beside 16 K1
+   launches for the same rows.
 4. Forward: a full-width llama3-1b forward_prefill + forward_decode + a
-   ragged forward_prefill through the kernels (bf16 on the GPU) against
-   the plain path (float32 on the CPU, same weights): logits within a
-   relative L2 error of 5e-2 (16 bf16 layers against float32).
+   ragged forward_prefill through the kernels (bf16 on the GPU), and
+   the attend-then-write order (two prefill windows, the second at
+   q_start > 0, then a decode step), each against the plain path
+   (float32 on the CPU, same weights): logits within a relative L2
+   error of 5e-2 (16 bf16 layers against float32).
 5. Serving: the worker the CLI builds (``runtime.worker`` with
    --model llama3-1b --page-size 128 --num-pages 512 --max-model-len 1024
    --max-batch-size 8, prefill buckets 128,256,512, 256 prefill tokens
    per step so the longer prompts prefill in chunks) answers 4
    concurrent requests (2 streamed chats, 2 non-streamed completions,
    prompts of 100-400 tokens, 32 new tokens, temperature 0), with the
-   ragged step off. Launch counts are zeroed just before and read just
-   after: the four kernels of that path must have run.
+   ragged step off and XLLM_WRITE_THEN_ATTEND=1. Launch counts are
+   zeroed just before and read just after: the four kernels of that
+   path must have run. Then one streamed request is served again under
+   torch.profiler (device time by kernel, idle share, launches).
 5b. Serving, ragged: the same worker, flags and requests with
    XLLM_RAGGED_ATTN=1. At least one mixed iteration must run as one
    ragged forward, each launching the ragged kernel once per layer and
    neither the decode nor the prefill attention kernel.
-6. Summary: one line ``{"kernels": [...]}``, the card line, then the last
-   line ``{"ok": true, "device": {...}}``.
+5c. Serving, attend-then-write: the same worker, flags and requests
+   with XLLM_WRITE_THEN_ATTEND=0 (ragged off). Every decode forward
+   must launch K3' once per layer and K6 once, every prefill forward
+   K4' once per layer and K7 once, and K1-K5 never. One request is
+   profiled as in phase 5.
+6. Summary: one line ``{"kernels": [...]}`` (K1-K4 launches from phase
+   5, K5 from 5b, K6, K7, K3' and K4' from 5c), the card line, then the
+   last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without printing a result when no CUDA device is
 present, or when the port's package is not beside it.
@@ -484,6 +502,256 @@ class KernelBench:
             decode_rows_only_ms=dec_ms, window_only_ms=win_ms)
 
 
+    # -- K6 / K7 ------------------------------------------------------------
+    def all_layer_writers(self, kv, L, Hkv, D, record):
+        """K6 (a decode step: 8 rows, contexts 117-411, row 6 inactive)
+        and K7 (the 4 x 256 prefill window batch, one start unaligned)
+        over the ``L`` layers of a pool of (Hkv, D) rows: bit-exact
+        against the plain version; with ``record``, timed as well."""
+        torch = self.torch
+        P, MP = 128, self.MP
+        shape = (L, P, self.ps, Hkv, D)
+        kp, vp = self.randn(*shape), self.randn(*shape)
+        perm = torch.randperm(P - 1, generator=self.g,
+                              device=self.dev)[:8 * MP] + 1
+        pt8 = perm.reshape(8, MP).to(torch.int32).contiguous()
+        rows = [self._decode_writer_all(kv, kp, vp, pt8),
+                self._prefill_writer_all(kv, kp, vp, pt8)]
+        if not record:
+            log(f"[kernel] all-layer writers bit-exact at (L, Hkv, D) = "
+                f"{(L, Hkv, D)}")
+            return
+        for name, replaces, kernel, plain, lib, nbytes, extra in rows:
+            extra = {k: graph_ms(f) for k, f in extra.items()}
+            self.record(name, f"{CSRC}/kv_update.cu", replaces, 0.0, kernel,
+                        plain, lib, nbytes, 0.0, layers=L, **extra)
+
+    def _same(self, a, b, what, geometry):
+        self.torch.cuda.synchronize()
+        if not (self.torch.equal(a[0], b[0]) and self.torch.equal(a[1], b[1])):
+            raise AssertionError(f"{what} is not bit-exact at (L, Hkv, D) = "
+                                 f"{geometry}")
+
+    def _decode_writer_all(self, kv, kp, vp, pt8):
+        torch = self.torch
+        L, P, ps, Hkv, D = kp.shape
+        B = 8
+        ctx = [117, 205, 298, 411, 150, 260, 333, 390]
+        pos = self.i32([c - 1 for c in ctx])
+        active = torch.tensor([1, 1, 1, 1, 1, 1, 0, 1], dtype=torch.bool,
+                              device=self.dev)
+        kn, vn = self.randn(L, B, Hkv, D), self.randn(L, B, Hkv, D)
+        pt = pt8.clone()
+        pt[5, 2] = 0                      # row 5's page is NULL: dropped
+        ka, va, kb, vb = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+        kv.paged_kv_update(ka, va, kn, vn, pt, pos, active)
+        kv.paged_kv_update_plain(kb, vb, kn, vn, pt, pos, active)
+        self._same((ka, va), (kb, vb), "all-layer decode KV writer",
+                   (L, Hkv, D))
+        changed = int((ka != kp).flatten(3).any(-1).sum())
+        if changed != 6 * L:                      # rows 5 and 6 dropped
+            raise AssertionError(f"all-layer decode writer touched "
+                                 f"{changed} rows, want {6 * L}")
+        act_rows = active.nonzero()[:, 0]
+        flat = (pt8.long().gather(1, (pos.long() // ps)[:, None])[:, 0]
+                * ps + pos.long() % ps)[act_rows]
+        kn_a = kn[:, act_rows].contiguous()
+        vn_a = vn[:, act_rows].contiguous()
+        kf = ka.view(L, P * ps, Hkv, D)
+        vf = va.view(L, P * ps, Hkv, D)
+
+        def lib():
+            kf.index_copy_(1, flat, kn_a)
+            vf.index_copy_(1, flat, vn_a)
+
+        def one_layer_writer_x_layers():   # what K6 replaces: L K1 launches
+            for li in range(L):
+                kv.paged_kv_update_layer(ka, va, kn[li], vn[li], pt8, pos,
+                                         active, li)
+        nbytes = int(active.sum()) * L * 2 * 2 * Hkv * D * 2 \
+            + B * (4 + 4 + 1 + 4)
+        return ("paged_kv_update", f"{PALLAS}/kv_update.py:77",
+                lambda: kv.paged_kv_update(ka, va, kn, vn, pt8, pos, active),
+                lambda: kv.paged_kv_update_plain(kb, vb, kn, vn, pt8, pos,
+                                                 active),
+                lib, nbytes,
+                {"one_layer_writer_x_layers_ms": one_layer_writer_x_layers})
+
+    def _prefill_writer_all(self, kv, kp, vp, pt8):
+        torch = self.torch
+        L, P, ps, Hkv, D = kp.shape
+        B, T = 4, 256
+        kn, vn = self.randn(L, B, T, Hkv, D), self.randn(L, B, T, Hkv, D)
+        pt = pt8[:B].contiguous()
+        start = self.i32([0, 256, 128, 7])            # last row unaligned
+        lens = self.i32([256, 144, 200, 97])
+        ka, va, kb, vb = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+        kv.paged_prefill_kv_update(ka, va, kn, vn, pt, start, lens)
+        kv.paged_prefill_kv_update_plain(kb, vb, kn, vn, pt, start, lens)
+        self._same((ka, va), (kb, vb), "all-layer prefill KV writer",
+                   (L, Hkv, D))
+        t = torch.arange(T, device=self.dev)
+        valid = t[None, :] < lens.long()[:, None]
+        pos = start.long()[:, None] + t[None, :]
+        flat = (pt.long().gather(1, pos // ps) * ps + pos % ps)[valid]
+        kr, vr = kn[:, valid].contiguous(), vn[:, valid].contiguous()
+        kf = ka.view(L, P * ps, Hkv, D)
+        vf = va.view(L, P * ps, Hkv, D)
+
+        def lib():
+            kf.index_copy_(1, flat, kr)
+            vf.index_copy_(1, flat, vr)
+        nbytes = int(lens.sum()) * L * 2 * 2 * Hkv * D * 2 \
+            + B * (4 * self.MP + 8)
+        return ("paged_prefill_kv_update", f"{PALLAS}/kv_update.py:244",
+                lambda: kv.paged_prefill_kv_update(ka, va, kn, vn, pt, start,
+                                                   lens),
+                lambda: kv.paged_prefill_kv_update_plain(kb, vb, kn, vn, pt,
+                                                         start, lens),
+                lib, nbytes, {})
+
+    # -- K3' ---------------------------------------------------------------
+    def decode_attention_current(self, pa, attention):
+        """K3' at the decode shape: cache lengths 116-410 and an inactive
+        row with cache length 0 (it attends to its current token alone),
+        all rows compared. The pool slot at each cache length holds a
+        random value unlike k_cur/v_cur (stale in this order)."""
+        torch = self.torch
+        B = 8
+        q = self.randn(B, self.Hq, self.D)
+        k_cur, v_cur = self.randn(B, self.Hkv, self.D), \
+            self.randn(B, self.Hkv, self.D)
+        cache_list = [116, 204, 297, 410, 149, 259, 0, 389]
+        cache = self.i32(cache_list)
+        sinks = self.randn(self.Hq, dtype=torch.float32)
+        worst = 0.0
+        for extras in ({}, {"sliding_window": 100},
+                       {"logits_soft_cap": 30.0, "scale": 0.1},
+                       {"sinks": sinks, "sliding_window": 64},
+                       {"sliding_window": 1}):
+            got = pa.paged_decode_attention_current(
+                q, self.kp, self.vp, self.pt8, cache, k_cur, v_cur,
+                self.layer, **extras)
+            want = pa.paged_decode_attention_current_plain(
+                q, self.kp, self.vp, self.pt8, cache, k_cur, v_cur,
+                self.layer, **extras)
+            torch.cuda.synchronize()
+            g, w = got.float(), want.float()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"decode attention (current) not "
+                                     f"finite {list(extras)}")
+            if not torch.allclose(g, w, atol=ATTN_TOL, rtol=ATTN_TOL):
+                raise AssertionError(
+                    f"decode attention (current) disagrees "
+                    f"({list(extras)}): {float((g - w).abs().max())}")
+            worst = max(worst, float((g - w).abs().max()))
+        S = self.MP * self.ps
+        pos = torch.arange(S + 1, device=self.dev)[None, :]
+        mask = ((pos < cache.long()[:, None]) | (pos == S))[:, None, None, :]
+
+        def lib():
+            k = torch.cat([attention.gather_pages(self.kp[self.layer],
+                                                  self.pt8),
+                           k_cur[:, None]], dim=1)
+            v = torch.cat([attention.gather_pages(self.vp[self.layer],
+                                                  self.pt8),
+                           v_cur[:, None]], dim=1)
+            return sdpa(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                        mask)
+        keys = sum(cache_list) + B           # the current keys included
+        row = self.Hkv * self.D * 2
+        nbytes = keys * 2 * row + 2 * B * self.Hq * self.D * 2 \
+            + B * (4 + 4 * self.MP)
+        flops = 4.0 * keys * self.Hq * self.D
+        self.record(
+            "paged_decode_attention_current",
+            f"{CSRC}/paged_decode_attention.cu",
+            f"{PALLAS}/paged_attention.py:154", worst,
+            lambda: pa.paged_decode_attention_current(
+                q, self.kp, self.vp, self.pt8, cache, k_cur, v_cur,
+                self.layer),
+            lambda: pa.paged_decode_attention_current_plain(
+                q, self.kp, self.vp, self.pt8, cache, k_cur, v_cur,
+                self.layer),
+            lib, nbytes, flops)
+
+    # -- K4' ---------------------------------------------------------------
+    def prefill_attention_fresh(self, pf, attention):
+        """K4' at the 4 x 256 prefill shape with q_start 0/256/128/0: the
+        window's K/V as fresh operands; the pool's window slots hold
+        random values unlike them (stale in this order)."""
+        torch = self.torch
+        B, T = 4, 256
+        q = self.randn(B, T, self.Hq, self.D)
+        k_fresh, v_fresh = self.randn(B, T, self.Hkv, self.D), \
+            self.randn(B, T, self.Hkv, self.D)
+        pt = self.pt8[:B].contiguous()
+        starts = [0, 256, 128, 0]
+        lens_list = [256, 144, 200, 97]
+        q_start, lens = self.i32(starts), self.i32(lens_list)
+        sinks = self.randn(self.Hq, dtype=torch.float32)
+        valid = (torch.arange(T, device=self.dev)[None, :]
+                 < lens.long()[:, None])
+        worst = 0.0
+        for extras in ({}, {"sliding_window": 100},
+                       {"logits_soft_cap": 30.0, "scale": 0.1},
+                       {"sinks": sinks, "sliding_window": 64}):
+            got = pf.paged_prefill_attention_fresh(
+                q, k_fresh, v_fresh, self.kp, self.vp, pt, q_start, lens,
+                self.layer, **extras)
+            want = pf.paged_prefill_attention_fresh_plain(
+                q, k_fresh, v_fresh, self.kp, self.vp, pt, q_start, lens,
+                self.layer, **extras)
+            torch.cuda.synchronize()
+            g, w = got[valid].float(), want[valid].float()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"prefill attention (fresh) not "
+                                     f"finite {list(extras)}")
+            if not torch.allclose(g, w, atol=ATTN_TOL, rtol=ATTN_TOL):
+                raise AssertionError(
+                    f"prefill attention (fresh) disagrees "
+                    f"({list(extras)}): {float((g - w).abs().max())}")
+            if bool(got[~valid].float().abs().max() != 0):
+                raise AssertionError("padded prefill rows (fresh) not zero")
+            worst = max(worst, float((g - w).abs().max()))
+        S = self.MP * self.ps
+        kv_pos = torch.arange(S, device=self.dev)[None, None, :]
+        q_pos = q_start.long()[:, None, None] + torch.arange(
+            T, device=self.dev)[None, :, None]
+        mask = (kv_pos <= q_pos) & (kv_pos < (q_start + lens).long()[
+            :, None, None])
+        mask = mask[:, None]
+        idx = (q_start.long()[:, None] + torch.arange(T, device=self.dev))[
+            :, :, None, None].expand(-1, -1, self.Hkv, self.D)
+
+        def lib():
+            k = attention.gather_pages(self.kp[self.layer], pt)
+            v = attention.gather_pages(self.vp[self.layer], pt)
+            k.scatter_(1, idx, k_fresh)
+            v.scatter_(1, idx, v_fresh)
+            return sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), mask)
+        keys = sum(s + n for s, n in zip(starts, lens_list))
+        pairs = sum(n * s + n * (n + 1) // 2 for s, n in zip(starts,
+                                                             lens_list))
+        row = self.Hkv * self.D * 2
+        n_rows = sum(lens_list)
+        nbytes = keys * 2 * row + 2 * n_rows * self.Hq * self.D * 2 \
+            + B * (8 + 4 * self.MP)
+        flops = 4.0 * pairs * self.Hq * self.D
+        self.record(
+            "paged_prefill_attention_fresh",
+            f"{CSRC}/paged_prefill_attention.cu",
+            f"{PALLAS}/prefill_attention.py:272", worst,
+            lambda: pf.paged_prefill_attention_fresh(
+                q, k_fresh, v_fresh, self.kp, self.vp, pt, q_start, lens,
+                self.layer),
+            lambda: pf.paged_prefill_attention_fresh_plain(
+                q, k_fresh, v_fresh, self.kp, self.vp, pt, q_start, lens,
+                self.layer),
+            lib, nbytes, flops)
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: full-width forward, kernels (GPU bf16) vs plain (CPU float32)
 # ---------------------------------------------------------------------------
@@ -510,6 +778,11 @@ def forward_check(torch, cfg, device) -> float:
                                       for _ in range(40)])
     rg_start = torch.tensor([129, 78], dtype=torch.int32)
     rg_lens = torch.tensor([1, 40], dtype=torch.int32)
+    # The attend-then-write order's second windows: 40 and 30 tokens at
+    # q_start = the first windows' lengths.
+    aw_tokens = torch.tensor([[rng.randrange(3, 259) for _ in range(64)]
+                              for _ in range(B)])
+    aw_lens = torch.tensor([40, 30], dtype=torch.int32)
     results = []
     for device, p, dtype in ((dev, params, tf.torch_dtype(cfg)),
                              (torch.device("cpu"), cpu_params,
@@ -528,16 +801,32 @@ def forward_check(torch, cfg, device) -> float:
         rag, kv = tf.forward_prefill(p, cfg, rg_tokens.to(device),
                                      rg_start.to(device), rg_lens.to(device),
                                      kv, pt.to(device), ragged=True)
-        results.append((pre.float().cpu(), dec.float().cpu(),
-                        rag.float().cpu()))
-    worst = 0.0
+        # Attend-then-write, on a fresh pool: a first window, a second
+        # at q_start 128 / 77 (unaligned), then a decode step.
+        kv = tf.init_kv_cache(cfg, P, ps, device, dtype=dtype)
+        first, kv = tf.forward_prefill(p, cfg, tokens.to(device),
+                                       start.to(device), lens.to(device), kv,
+                                       pt.to(device), write_then_attend=False)
+        second, kv = tf.forward_prefill(p, cfg, aw_tokens.to(device),
+                                        lens.to(device), aw_lens.to(device),
+                                        kv, pt.to(device),
+                                        write_then_attend=False)
+        nxt = second.argmax(-1) if not results else results[0][4].argmax(-1)
+        aw_dec, kv = tf.forward_decode(
+            p, cfg, nxt.to(device), (lens + aw_lens).to(device),
+            torch.ones(B, dtype=torch.bool, device=device), kv,
+            pt.to(device), write_then_attend=False)
+        results.append(tuple(x.float().cpu() for x in (
+            pre, dec, rag, first, second, aw_dec)))
+    rels = []
     for got, want in zip(results[0], results[1]):
         if not bool(torch.isfinite(got).all()):
             raise AssertionError("kernel-path logits not finite")
-        rel = float((got - want).norm() / want.norm())
-        worst = max(worst, rel)
-    log(f"[forward] llama3-1b prefill+decode+ragged rel L2 (GPU kernels "
-        f"bf16 vs CPU plain fp32): {worst:.5f}")
+        rels.append(float((got - want).norm() / want.norm()))
+    worst = max(rels)
+    log(f"[forward] llama3-1b rel L2 (GPU kernels bf16 vs CPU plain fp32): "
+        f"write-then-attend prefill/decode/ragged {rels[:3]}, "
+        f"attend-then-write prefill/prefill/decode {rels[3:]}")
     if worst > FORWARD_REL_L2:
         raise AssertionError(f"forward logits rel L2 {worst} > "
                              f"{FORWARD_REL_L2}")
@@ -650,25 +939,39 @@ class StepLog:
         self.rows, self.tokens = [], {}
 
 
-def serve(torch, kernels, model: str, device: str, ragged: bool) -> dict:
-    """Phase 5 (ragged off) or 5b (ragged on): 4 concurrent requests
-    through the worker; checks the replies and which kernels ran."""
+# The kernels of each order, by launches per forward.
+ONE_LAYER_KERNELS = ("paged_kv_update_layer", "paged_prefill_kv_update_layer",
+                     "paged_decode_attention", "paged_prefill_attention",
+                     "ragged_paged_attention")
+ATTEND_THEN_WRITE_KERNELS = ("paged_kv_update", "paged_prefill_kv_update",
+                             "paged_decode_attention_current",
+                             "paged_prefill_attention_fresh")
+
+
+def serve(torch, kernels, model: str, device: str, ragged: bool,
+          write_then_attend: bool = True) -> dict:
+    """Phase 5 (ragged off), 5b (ragged on) or 5c (attend-then-write):
+    4 concurrent requests through the worker; checks the replies and
+    which kernels ran."""
     from xllm_service_tpu_torch.runtime import worker
     args = worker.parse_args([
         "--model", model, "--device", device,
         "--page-size", "128", "--num-pages", "512",
         "--max-model-len", "1024", "--max-batch-size", "8",
         "--prefill-buckets", "128,256,512", "--max-prefill-tokens", "256"])
-    # The engine reads the switch once, when its config is built.
-    saved = os.environ.get("XLLM_RAGGED_ATTN")
-    os.environ["XLLM_RAGGED_ATTN"] = "1" if ragged else "0"
+    # The engine reads the switches once, when its config is built.
+    env = {"XLLM_RAGGED_ATTN": "1" if ragged else "0",
+           "XLLM_WRITE_THEN_ATTEND": "1" if write_then_attend else "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
         w = worker.build_worker(args).start()
     finally:
-        if saved is None:
-            del os.environ["XLLM_RAGGED_ATTN"]
-        else:
-            os.environ["XLLM_RAGGED_ATTN"] = saved
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
     layers = w.engine.cfg.num_layers
     steplog = StepLog(w.engine, kernels)
     try:
@@ -721,7 +1024,14 @@ def serve(torch, kernels, model: str, device: str, ragged: bool) -> dict:
         ragged_steps = w.engine.ragged_steps - ragged0
         rows = list(steplog.rows)
         tokens = {n: list(t) for n, t in steplog.tokens.items()}
-        prof = None if ragged else profile_request(torch, w.name, bodies[0])
+        prof = None
+        if not ragged:
+            n0 = len(steplog.rows)
+            prof = profile_request(torch, w.name, bodies[0])
+            fwd = sum(r["forwards"] for r in steplog.rows[n0:])
+            prof["forwards"] = fwd
+            prof["kernel_launches_per_forward"] = (
+                prof["kernel_launches"] / fwd if fwd else None)
     finally:
         w.stop()
     ttfts, decode_rates, total_tokens = [], [], 0
@@ -749,9 +1059,28 @@ def serve(torch, kernels, model: str, device: str, ragged: bool) -> dict:
                     r["body"]["choices"][0]["finish_reason"] != "length":
                 raise AssertionError(f"completion body {r['body']}")
             total_tokens += usage["completion_tokens"]
-    if w.engine.ragged != ragged:
-        raise AssertionError(f"engine.ragged={w.engine.ragged}, want {ragged}")
-    if ragged:
+    if w.engine.ragged != ragged or \
+            w.engine.write_then_attend != write_then_attend:
+        raise AssertionError(
+            f"engine.ragged={w.engine.ragged}, write_then_attend="
+            f"{w.engine.write_then_attend}; want {ragged}, "
+            f"{write_then_attend}")
+    if not write_then_attend:
+        # Attend-then-write: per decode forward K3' x layers + K6 once,
+        # per prefill forward K4' x layers + K7 once, no other kernel.
+        need = list(ATTEND_THEN_WRITE_KERNELS)
+        for row in rows:
+            dec = int(row["kind"] in ("decode", "mixed"))
+            pre = int(row["kind"] in ("prefill", "mixed"))
+            want = {"paged_decode_attention_current": layers * dec,
+                    "paged_kv_update": dec,
+                    "paged_prefill_attention_fresh": layers * pre,
+                    "paged_prefill_kv_update": pre,
+                    **{k: 0 for k in ONE_LAYER_KERNELS}}
+            if row["launches"] != want or row["forwards"] != dec + pre:
+                raise AssertionError(f"attend-then-write step launches: "
+                                     f"{row}, want {want}")
+    elif ragged:
         # The ragged path: ragged forwards ran, each one launch of the
         # ragged kernel per layer and no decode or prefill attention.
         need = ["paged_prefill_kv_update_layer", "ragged_paged_attention"]
@@ -772,12 +1101,17 @@ def serve(torch, kernels, model: str, device: str, ragged: bool) -> dict:
     else:
         need = ["paged_kv_update_layer", "paged_prefill_kv_update_layer",
                 "paged_decode_attention", "paged_prefill_attention"]
+        if any(counts[k] for k in ATTEND_THEN_WRITE_KERNELS):
+            raise AssertionError(f"write-then-attend ran an attend-then-"
+                                 f"write kernel: {counts}")
     missing = [k for k in need if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing} ({counts})")
     mixed = [r for r in rows if r["kind"] == "mixed"]
-    out = {"ragged": ragged, "launches": counts, "engine_steps": steps,
+    decode_rows = [r for r in rows if r["kind"] == "decode"]
+    out = {"ragged": ragged, "write_then_attend": write_then_attend,
+           "launches": counts, "engine_steps": steps,
            "ragged_steps": ragged_steps,
            "ttft_ms_streams": ttfts,
            "decode_tokens_per_s_streams": decode_rates,
@@ -792,10 +1126,14 @@ def serve(torch, kernels, model: str, device: str, ragged: bool) -> dict:
                sum(sum(r["launches"].values()) for r in mixed) / len(mixed)
                if mixed else None),
            "mixed_step_ms": sorted(r["ms"] for r in mixed),
+           "kernel_launches_per_decode_step": (
+               sum(sum(r["launches"].values()) for r in decode_rows)
+               / len(decode_rows) if decode_rows else None),
            "decode_step_ms_median": _median(
                [r["ms"] for r in rows if r["kind"] == "decode"]),
            "profile": prof}
-    log(f"[serve{'b' if ragged else ''}] {json.dumps(out)}")
+    tag = "c" if not write_then_attend else "b" if ragged else ""
+    log(f"[serve{tag}] {json.dumps(out)}")
     out["tokens"] = tokens
     return out
 
@@ -826,6 +1164,7 @@ def main() -> int:
                                                     prefill_attention,
                                                     ragged_attention)
 
+    t_start = time.perf_counter()
     # 1. Device.
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -854,6 +1193,11 @@ def main() -> int:
     bench.prefill_attention(prefill_attention, attention)
     bench.ragged_attention(ragged_attention, paged_attention,
                            prefill_attention, attention)
+    bench.all_layer_writers(kv_update, cfg.num_layers, cfg.num_kv_heads,
+                            cfg.head_dim, record=True)
+    bench.all_layer_writers(kv_update, 4, 1, 576, record=False)  # MLA row
+    bench.decode_attention_current(paged_attention, attention)
+    bench.prefill_attention_fresh(prefill_attention, attention)
     del bench.kp, bench.vp
     torch.cuda.empty_cache()
 
@@ -861,13 +1205,21 @@ def main() -> int:
     rel = forward_check(torch, cfg, "cuda")
     torch.cuda.empty_cache()
 
-    # 5. Serving, split path; 5b. serving, ragged step.
+    # 5. Serving, split path; 5b. serving, ragged step; 5c. serving,
+    # attend-then-write.
     served = serve(torch, kernels, "llama3-1b", "cuda", ragged=False)
     served_b = serve(torch, kernels, "llama3-1b", "cuda", ragged=True)
-    tok_a, tok_b = served.pop("tokens"), served_b.pop("tokens")
-    pairs = [(x, y) for n in tok_a for x, y in zip(tok_a[n],
-                                                   tok_b.get(n, []))]
-    same = sum(x == y for x, y in pairs) / len(pairs) if pairs else None
+    served_c = serve(torch, kernels, "llama3-1b", "cuda", ragged=False,
+                     write_then_attend=False)
+    tok_a = served.pop("tokens")
+    same = {}
+    for tag, other in (("ragged", served_b), ("attend_then_write",
+                                              served_c)):
+        tok_b = other.pop("tokens")
+        pairs = [(x, y) for n in tok_a for x, y in zip(tok_a[n],
+                                                       tok_b.get(n, []))]
+        same[tag] = (sum(x == y for x, y in pairs) / len(pairs)
+                     if pairs else None)
     log(f"[serve] {card}: split vs ragged: TTFT ms "
         f"{served['ttft_ms_streams']} vs {served_b['ttft_ms_streams']}; "
         f"decode tokens/s per stream {served['decode_tokens_per_s_streams']}"
@@ -877,15 +1229,39 @@ def main() -> int:
         f"{served_b['forwards_per_request']}; kernel launches per mixed "
         f"iteration {served['kernel_launches_per_mixed_step']} vs "
         f"{served_b['kernel_launches_per_mixed_step']}; share of equal "
-        f"tokens {same}")
+        f"tokens {same['ragged']}")
+    log(f"[serve] {card}: write-then-attend (5) vs attend-then-write (5c): "
+        f"TTFT ms {served['ttft_ms_streams']} vs "
+        f"{served_c['ttft_ms_streams']}; decode tokens/s per stream "
+        f"{served['decode_tokens_per_s_streams']} vs "
+        f"{served_c['decode_tokens_per_s_streams']}; hand-written kernel "
+        f"launches per decode step "
+        f"{served['kernel_launches_per_decode_step']} vs "
+        f"{served_c['kernel_launches_per_decode_step']}; median decode "
+        f"step ms {served['decode_step_ms_median']} vs "
+        f"{served_c['decode_step_ms_median']}; share of equal tokens "
+        f"{same['attend_then_write']}")
+    p5, p5c = served["profile"], served_c["profile"]
+    log(f"[profile] {card}: one profiled stream, write-then-attend (5) vs "
+        f"attend-then-write (5c): device kernel launches "
+        f"{p5['kernel_launches']} vs {p5c['kernel_launches']} in "
+        f"{p5['forwards']} vs {p5c['forwards']} forwards "
+        f"({p5['kernel_launches_per_forward']} vs "
+        f"{p5c['kernel_launches_per_forward']} per forward); device busy ms "
+        f"{p5['device_busy_ms']} vs {p5c['device_busy_ms']}; idle share "
+        f"{p5['idle_share']} vs {p5c['idle_share']}")
 
     # 6. Summary.
     for r in bench.results:
-        phase = served_b if r["name"] == "ragged_paged_attention" else served
+        phase = (served_b if r["name"] == "ragged_paged_attention" else
+                 served_c if r["name"] in ATTEND_THEN_WRITE_KERNELS else
+                 served)
         r["launches"] = phase["launches"][r["name"]]
     summary = {"card": card, "build_s": build_s, "forward_rel_l2": rel,
                "serve": served, "serve_ragged": served_b,
-               "equal_token_share": same}
+               "serve_attend_then_write": served_c,
+               "equal_token_share": same,
+               "seconds": time.perf_counter() - t_start}
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": bench.results}))
     print(card)

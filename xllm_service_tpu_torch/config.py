@@ -4,7 +4,8 @@
 (presets and ``from_hf_config`` unchanged), so a configuration written
 for one package describes the same model in the other. ``EngineConfig``
 keeps the fields this engine reads: the paged KV pool, the decode slot
-count and the prefill buckets.
+count, the prefill buckets, the step schedule and the order of the KV
+write.
 
 Standard library only.
 """
@@ -679,6 +680,15 @@ class EngineConfig:
     # bucket even if decode used up the budget. 0 = the floor applies on
     # every iteration. Env XLLM_PREFILL_DEADLINE_MS overrides.
     prefill_deadline_ms: float = 500.0
+    # Order of the KV write in a layer. True: write-then-attend, each
+    # layer writes its fresh K/V into the pool, then attends to the pool.
+    # False: attend-then-write, each layer attends to the pool plus its
+    # fresh K/V, and one launch writes every layer's rows after the layer
+    # loop. None = resolved at Engine init: on where the CUDA kernels run,
+    # off on the CPU (as the JAX engine resolves it from its Pallas
+    # switch). The ragged mixed step always writes first. Env
+    # XLLM_WRITE_THEN_ATTEND=0/1 overrides.
+    write_then_attend: Optional[bool] = None
 
     def __post_init__(self) -> None:
         if self.max_model_len % self.page_size != 0:
@@ -695,6 +705,9 @@ class EngineConfig:
         flag = _env_flag("XLLM_INTERLEAVE")
         if flag is not None:
             self.interleave = flag
+        flag = _env_flag("XLLM_WRITE_THEN_ATTEND")
+        if flag is not None:
+            self.write_then_attend = flag
         env = os.environ.get("XLLM_STEP_TOKEN_BUDGET", "").strip()
         if env:
             try:

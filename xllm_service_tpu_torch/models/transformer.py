@@ -2,10 +2,18 @@
 
 The counterpart of the JAX package's ``models/transformer.py`` for
 dense, non-MLA, non-MoE models (Llama-2/3.x, Qwen2/2.5/3, Phi-3,
-Mistral, Gemma-2), in its write-then-attend form: every layer writes
-its fresh K/V into the pool first (the KV writer kernels), then its
-attention kernel reads everything, cached prefix and current tokens
-alike, from the pool.
+Mistral, Gemma-2), in both of its orders of the KV write
+(``write_then_attend``):
+
+- write-then-attend: every layer writes its fresh K/V into the pool
+  first (the one-layer KV writer kernels), then its attention kernel
+  reads everything, cached prefix and current tokens alike, from the
+  pool;
+- attend-then-write: every layer attends to the pool (the cached
+  prefix) plus its fresh K/V, handed to the attention kernel as
+  separate operands, and keeps them; after the layer loop they are
+  stacked to [L, ...] and one launch of the all-layer writer puts them
+  in the pool.
 
 Parameters are a plain dict with the JAX package's layout: per-layer
 weights stacked over a leading [L] axis, weights used as ``x @ W`` with
@@ -25,7 +33,9 @@ import torch.nn.functional as F
 from xllm_service_tpu_torch.config import ModelConfig
 from xllm_service_tpu_torch.ops.attention import FULL_WINDOW
 from xllm_service_tpu_torch.ops.kernels import (
-    paged_decode_attention, paged_kv_update_layer, paged_prefill_attention,
+    paged_decode_attention, paged_decode_attention_current, paged_kv_update,
+    paged_kv_update_layer, paged_prefill_attention,
+    paged_prefill_attention_fresh, paged_prefill_kv_update,
     paged_prefill_kv_update_layer, ragged_paged_attention)
 from xllm_service_tpu_torch.ops.norm import rms_norm
 from xllm_service_tpu_torch.ops.rope import rope_cos_sin, rotate
@@ -225,21 +235,29 @@ def _attn_out(lp, a: torch.Tensor) -> torch.Tensor:
 def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     start_pos: torch.Tensor, lengths: torch.Tensor,
                     kv: KVCache, page_table: torch.Tensor,
-                    ragged: bool = False) -> Tuple[torch.Tensor, KVCache]:
+                    ragged: bool = False, write_then_attend: bool = True
+                    ) -> Tuple[torch.Tensor, KVCache]:
     """Prefill ``tokens`` [B, T] (padded; ``lengths`` [B] int32 true
     counts) at positions start_pos[b] + t, with the cached prefix
     [0, start_pos[b]) already in the pools. Writes the window's K/V into
     the pools in place. Returns (logits of each row's last valid token
     [B, V] float32, kv).
 
+    ``write_then_attend`` (see the module docstring): True writes each
+    layer's window before its attention; False attends to the prefix
+    and the fresh window, then writes all layers' windows in one launch.
+
     ``ragged``: the batch is the engine's ragged mix, each row a prefill
     window or a single decode continuation (length 1 at start_pos =
     context - 1, mid-page as often as not), and each layer attends with
-    the ragged kernel instead of the prefill kernel. The writer is the
-    same: this package's prefill KV writer takes any start (on the TPU
-    the ragged step writes through the XLA scatter there, because the
-    Pallas writer needs page-aligned starts)."""
+    the ragged kernel instead of the prefill kernel. It requires
+    write-then-attend, as in the JAX package. The writer is the same:
+    this package's prefill KV writer takes any start (on the TPU the
+    ragged step writes through the XLA scatter there, because the Pallas
+    writer needs page-aligned starts)."""
     check_supported(cfg)
+    if ragged and not write_then_attend:
+        raise ValueError("the ragged mixed step requires write_then_attend")
     attend = ragged_paged_attention if ragged else paged_prefill_attention
     k_pages, v_pages = kv
     B, T = tokens.shape
@@ -251,17 +269,29 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                             cfg.rope_scaling)
     extras = _attn_extras(cfg)
     windows = _layer_windows(cfg)
+    k_fresh, v_fresh = [], []
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(lp, cfg, h)
         q, k = rotate(q, cos, sin), rotate(k, cos, sin)
-        paged_prefill_kv_update_layer(k_pages, v_pages, k, v, page_table,
-                                      start_pos, lengths, i)
-        attn = attend(
-            q, k_pages, v_pages, page_table, start_pos, lengths, i,
-            sliding_window=windows[i], sinks=lp.get("sinks"), **extras)
+        kw = dict(sliding_window=windows[i], sinks=lp.get("sinks"), **extras)
+        if write_then_attend:
+            paged_prefill_kv_update_layer(k_pages, v_pages, k, v, page_table,
+                                          start_pos, lengths, i)
+            attn = attend(q, k_pages, v_pages, page_table, start_pos,
+                          lengths, i, **kw)
+        else:
+            k_fresh.append(k)
+            v_fresh.append(v)
+            attn = paged_prefill_attention_fresh(
+                q, k, v, k_pages, v_pages, page_table, start_pos, lengths, i,
+                **kw)
         x = _block_tail(lp, cfg, x, _attn_out(lp, attn.reshape(B, T, -1)))
+    if not write_then_attend:
+        paged_prefill_kv_update(k_pages, v_pages, torch.stack(k_fresh),
+                                torch.stack(v_fresh), page_table, start_pos,
+                                lengths)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = (lengths.long() - 1).clamp(min=0)
     last_x = x[torch.arange(B, device=x.device), last]
@@ -270,20 +300,30 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    positions: torch.Tensor, active: torch.Tensor,
-                   kv: KVCache, page_table: torch.Tensor
+                   kv: KVCache, page_table: torch.Tensor,
+                   write_then_attend: bool = True
                    ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step for ``tokens`` [B] at ``positions`` [B] int32
     (``active`` [B] bool masks empty slots). Writes each active row's
-    K/V into the pools in place, then attends with a context that
-    includes it. Returns (logits [B, V] float32, kv)."""
+    K/V into the pools in place. Returns (logits [B, V] float32, kv).
+
+    ``write_then_attend`` True: each layer writes the current token's
+    K/V, then attends with a context that includes it. False: each layer
+    attends to the ``where(active, positions, 0)`` cached tokens plus
+    the current one, held apart; one launch writes all layers' rows
+    after the loop."""
     check_supported(cfg)
     k_pages, v_pages = kv
     B = tokens.shape[0]
     x = _scale_embed(cfg, params["embed"][tokens[:, None]])        # [B, 1, D]
     cos, sin = rope_cos_sin(positions.long()[:, None], cfg.head_dim,
                             cfg.rope_theta, cfg.rope_scaling)
-    context = torch.where(active, positions + 1,
-                          torch.zeros_like(positions))
+    zero = torch.zeros_like(positions)
+    if write_then_attend:
+        context = torch.where(active, positions + 1, zero)
+    else:
+        cache_lens = torch.where(active, positions, zero)
+    k_cur, v_cur = [], []
     extras = _attn_extras(cfg)
     windows = _layer_windows(cfg)
     for i in range(cfg.num_layers):
@@ -291,11 +331,21 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(lp, cfg, h)                                 # [B,1,H,Dh]
         q, k = rotate(q, cos, sin), rotate(k, cos, sin)
-        paged_kv_update_layer(k_pages, v_pages, k[:, 0], v[:, 0], page_table,
-                              positions, active, i)
-        attn = paged_decode_attention(
-            q[:, 0], k_pages, v_pages, page_table, context, i,
-            sliding_window=windows[i], sinks=lp.get("sinks"), **extras)
+        kw = dict(sliding_window=windows[i], sinks=lp.get("sinks"), **extras)
+        if write_then_attend:
+            paged_kv_update_layer(k_pages, v_pages, k[:, 0], v[:, 0],
+                                  page_table, positions, active, i)
+            attn = paged_decode_attention(q[:, 0], k_pages, v_pages,
+                                          page_table, context, i, **kw)
+        else:
+            k_cur.append(k[:, 0])
+            v_cur.append(v[:, 0])
+            attn = paged_decode_attention_current(
+                q[:, 0], k_pages, v_pages, page_table, cache_lens, k[:, 0],
+                v[:, 0], i, **kw)
         x = _block_tail(lp, cfg, x, _attn_out(lp, attn.reshape(B, 1, -1)))
+    if not write_then_attend:
+        paged_kv_update(k_pages, v_pages, torch.stack(k_cur),
+                        torch.stack(v_cur), page_table, positions, active)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return _head_logits(cfg, x[:, 0], _head(params)), (k_pages, v_pages)

@@ -7,12 +7,12 @@ int32). Page id 0 is the NULL page: writes that target it are dropped,
 and the allocator (``runtime/kv_cache.py``) never hands it out.
 
 Each function here is the counterpart of the JAX package's XLA
-reference of the same name (``write_*_kv_layer`` of its
-``write_*_kv_layer_xla``). They are the plain versions the hand-written
-CUDA kernels in ``ops/kernels/`` are held against, and what those
-kernels' wrappers run for tensors on the CPU.
+reference of the same name (``write_*_kv_layer`` and
+``write_*_kv_all_layers`` of its ``*_xla`` scatters). They are the plain
+versions the hand-written CUDA kernels in ``ops/kernels/`` are held
+against, and what those kernels' wrappers run for tensors on the CPU.
 
-Unlike the JAX functions, the two writers update the pools in place
+Unlike the JAX functions, the writers update the pools in place
 (PyTorch needs no aliasing declaration for that) and return them.
 GQA groups query heads over KV heads ([.., Hkv, G, D]); scores and the
 softmax are float32.
@@ -61,12 +61,12 @@ def _flat_kv_index(page_table: torch.Tensor, positions: torch.Tensor,
 
 def _scatter_rows(pages: torch.Tensor, flat: torch.Tensor,
                   rows: torch.Tensor) -> None:
-    """pages[flat] = rows over the pool's [P * ps] slot axis, dropping
-    out-of-range indices (the sentinel among them)."""
-    P, ps = pages.shape[0], pages.shape[1]
-    view = pages.view(P * ps, *pages.shape[2:])
+    """pages[:, flat] = rows ([L, N, ...]) over the [L, P * ps] slot
+    axes, dropping out-of-range indices (the sentinel among them)."""
+    L, P, ps = pages.shape[0], pages.shape[1], pages.shape[2]
+    view = pages.view(L, P * ps, *pages.shape[3:])
     keep = (flat >= 0) & (flat < P * ps)
-    view[flat[keep]] = rows[keep].to(pages.dtype)
+    view[:, flat[keep]] = rows[:, keep].to(pages.dtype)
 
 
 def write_decode_kv_layer(k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -77,12 +77,9 @@ def write_decode_kv_layer(k_pages: torch.Tensor, v_pages: torch.Tensor,
     """Write ONE decode token's K/V [B, Hkv, D] per row into layer
     ``layer`` of the [L, P, ps, Hkv, D] pools, in place. Inactive rows,
     NULL pages and positions past the table write nothing."""
-    ps = k_pages.shape[2]
-    num_slots = k_pages.shape[1] * ps
-    flat = _flat_kv_index(page_table, positions.long()[:, None], ps,
-                          num_slots, active.bool()[:, None])[:, 0]
-    _scatter_rows(k_pages[layer], flat, k_new)
-    _scatter_rows(v_pages[layer], flat, v_new)
+    write_decode_kv_all_layers(
+        k_pages[layer:layer + 1], v_pages[layer:layer + 1], k_new[None],
+        v_new[None], page_table, positions, active)
     return k_pages, v_pages
 
 
@@ -94,7 +91,40 @@ def write_prefill_kv_layer(k_pages: torch.Tensor, v_pages: torch.Tensor,
     """Write a prefill window [B, T, Hkv, D] into layer ``layer`` of the
     pools, in place: token t of row b lands at position start_pos[b] + t;
     tokens with t >= lengths[b] are dropped. Any start is accepted."""
-    B, T = k_new.shape[0], k_new.shape[1]
+    write_prefill_kv_all_layers(
+        k_pages[layer:layer + 1], v_pages[layer:layer + 1], k_new[None],
+        v_new[None], page_table, start_pos, lengths)
+    return k_pages, v_pages
+
+
+def write_decode_kv_all_layers(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                               k_new: torch.Tensor, v_new: torch.Tensor,
+                               page_table: torch.Tensor,
+                               positions: torch.Tensor, active: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write ONE decode token's K/V for ALL layers, k_new/v_new
+    [L, B, Hkv, D], into the [L, P, ps, Hkv, D] pools, in place: the
+    attend-then-write decode step's writer after its layer loop. Drops
+    as ``write_decode_kv_layer``."""
+    ps = k_pages.shape[2]
+    num_slots = k_pages.shape[1] * ps
+    flat = _flat_kv_index(page_table, positions.long()[:, None], ps,
+                          num_slots, active.bool()[:, None])[:, 0]
+    _scatter_rows(k_pages, flat, k_new)
+    _scatter_rows(v_pages, flat, v_new)
+    return k_pages, v_pages
+
+
+def write_prefill_kv_all_layers(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                                k_new: torch.Tensor, v_new: torch.Tensor,
+                                page_table: torch.Tensor,
+                                start_pos: torch.Tensor, lengths: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write a prefill window for ALL layers, k_new/v_new
+    [L, B, T, Hkv, D], into the pools, in place: the attend-then-write
+    prefill's writer after its layer loop. Positions and drops as
+    ``write_prefill_kv_layer``; any start is accepted."""
+    L, B, T = k_new.shape[0], k_new.shape[1], k_new.shape[2]
     ps = k_pages.shape[2]
     num_slots = k_pages.shape[1] * ps
     t = torch.arange(T, device=k_new.device)[None, :]
@@ -102,9 +132,27 @@ def write_prefill_kv_layer(k_pages: torch.Tensor, v_pages: torch.Tensor,
     valid = t < lengths.long()[:, None]
     flat = _flat_kv_index(page_table, positions, ps, num_slots,
                           valid).reshape(-1)
-    _scatter_rows(k_pages[layer], flat, k_new.reshape(B * T, *k_new.shape[2:]))
-    _scatter_rows(v_pages[layer], flat, v_new.reshape(B * T, *v_new.shape[2:]))
+    _scatter_rows(k_pages, flat, k_new.reshape(L, B * T, *k_new.shape[3:]))
+    _scatter_rows(v_pages, flat, v_new.reshape(L, B * T, *v_new.shape[3:]))
     return k_pages, v_pages
+
+
+def overlay_fresh_kv(k_all: torch.Tensor, k_fresh: torch.Tensor,
+                     start_pos: torch.Tensor) -> torch.Tensor:
+    """This step's fresh K/V [B, T, H, D] placed over the gathered cache
+    view [B, S, H, D] at positions start_pos[b] + t, so that prefill
+    attends to cache + fresh before the fresh tokens are written.
+    Returns a new [B, S + T, H, D] view: the JAX function's
+    ``dynamic_update_slice`` would clamp a window that runs past the
+    view's end back inside it (its engine sizes the page table so that
+    never happens); T zero positions past the end keep every fresh row
+    at its own position instead, and lie beyond every valid key length
+    where the window does not reach them. Requires start_pos[b] <= S."""
+    B, T = k_fresh.shape[0], k_fresh.shape[1]
+    out = torch.cat([k_all, k_all.new_zeros(B, T, *k_all.shape[2:])], dim=1)
+    idx = start_pos.long()[:, None] + torch.arange(T, device=k_all.device)
+    idx = idx[:, :, None, None].expand(-1, -1, *k_fresh.shape[2:])
+    return out.scatter_(1, idx, k_fresh.to(out.dtype))
 
 
 def gather_pages(pages: torch.Tensor, page_table: torch.Tensor
@@ -196,6 +244,49 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     mask = pos < ctx
     if sliding_window:
         mask = mask & (pos > ctx - 1 - sliding_window)
+    logits = logits.masked_fill(~mask[:, None, None, :], _NEG_INF)
+    p = _softmax_with_sinks(logits, sinks, Hkv, 1)
+    out = torch.einsum("bhgs,bshd->bhgd", p.to(v.dtype), v)
+    return out.reshape(B, Hq, D)
+
+
+def paged_decode_attention_current(q: torch.Tensor, k_pages: torch.Tensor,
+                                   v_pages: torch.Tensor,
+                                   page_table: torch.Tensor,
+                                   cache_lens: torch.Tensor,
+                                   k_cur: torch.Tensor, v_cur: torch.Tensor,
+                                   logits_soft_cap: float = 0.0,
+                                   sliding_window: int = 0,
+                                   scale: Optional[float] = None,
+                                   sinks: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+    """Decode attention over one layer's cache PLUS the current token's
+    K/V, which is not in the pool yet (the attend-then-write order).
+
+    q: [B, Hq, D]; k/v_pages: [P, ps, Hkv, D]; k_cur/v_cur: [B, Hkv, D];
+    cache_lens: [B] tokens already in the cache, the current one
+    EXcluded (it sits at position cache_lens). Cache slot j is valid for
+    j < cache_lens and, with W > 0, j > cache_lens - W; the current
+    token is always valid, so a row with cache_lens 0 attends to it
+    alone. Returns [B, Hq, D]."""
+    B, Hq, D = q.shape
+    Hkv = k_cur.shape[1]
+    k = gather_pages(k_pages, page_table)                    # [B, S, Hkv, D]
+    v = gather_pages(v_pages, page_table)
+    k = torch.cat([k, k_cur[:, None].to(k.dtype)], dim=1)   # [B, S+1, ...]
+    v = torch.cat([v, v_cur[:, None].to(v.dtype)], dim=1)
+    qg = _group_heads(q, Hkv).float()
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) \
+        * _attn_scale(D, scale)
+    if logits_soft_cap > 0.0:
+        logits = logits_soft_cap * torch.tanh(logits / logits_soft_cap)
+    S1 = k.shape[1]
+    pos = torch.arange(S1, device=q.device)[None, :]
+    cache = cache_lens.long()[:, None]
+    in_cache = pos < cache
+    if sliding_window:
+        in_cache = in_cache & (pos > cache - sliding_window)
+    mask = in_cache | (pos == S1 - 1)
     logits = logits.masked_fill(~mask[:, None, None, :], _NEG_INF)
     p = _softmax_with_sinks(logits, sinks, Hkv, 1)
     out = torch.einsum("bhgs,bshd->bhgd", p.to(v.dtype), v)

@@ -9,8 +9,13 @@ Each wrapper checks its arguments, then:
   count, and raises if the launch failed. There is no fallback.
 
 The kernels replace the Pallas kernels of the JAX package that the
-write-then-attend serving path launches, the ragged mixed step
-(``EngineConfig.ragged_attn``) included:
+serving path launches in both orderings of the KV write: write-then-
+attend (each layer writes its fresh K/V into the pool, then attends to
+the pool; the ragged mixed step ``EngineConfig.ragged_attn`` included)
+and attend-then-write (``EngineConfig.write_then_attend=False``: each
+layer attends to the pool plus its fresh K/V, and one launch writes all
+layers' rows after the layer loop). Pallas files are under
+``xllm_service_tpu/ops/pallas/``:
 
 =====================================  ===================================
 wrapper                                Pallas kernel replaced
@@ -18,13 +23,25 @@ wrapper                                Pallas kernel replaced
 kv_update.paged_kv_update_layer        kv_update.py paged_kv_update_layer
 kv_update.paged_prefill_kv_update_     kv_update.py
 layer                                  paged_prefill_kv_update_layer
+kv_update.paged_kv_update              kv_update.py paged_kv_update
+kv_update.paged_prefill_kv_update      kv_update.py paged_prefill_kv_update
 paged_attention.paged_decode_          paged_attention.py
 attention                              paged_decode_attention_pallas
+paged_attention.paged_decode_          paged_attention.py
+attention_current                      paged_decode_attention_pallas
+                                       (k_cur/v_cur form)
 prefill_attention.paged_prefill_       prefill_attention.py
 attention                              paged_prefill_attention_pallas
+                                       (from_pool form)
+prefill_attention.paged_prefill_       prefill_attention.py
+attention_fresh                        paged_prefill_attention_pallas
+                                       (two-source form)
 ragged_attention.ragged_paged_         ragged_attention.py
 attention                              ragged_paged_attention_pallas
 =====================================  ===================================
+
+Each wrapper has its own launch count, also where two share device
+code, so a run shows which ordering it went through.
 """
 
 from __future__ import annotations
@@ -32,18 +49,22 @@ from __future__ import annotations
 from typing import Callable, Dict, List
 
 from xllm_service_tpu_torch.ops.kernels.kv_update import (
-    paged_kv_update_layer, paged_prefill_kv_update_layer)
+    paged_kv_update, paged_kv_update_layer, paged_prefill_kv_update,
+    paged_prefill_kv_update_layer)
 from xllm_service_tpu_torch.ops.kernels.paged_attention import (
-    paged_decode_attention)
+    paged_decode_attention, paged_decode_attention_current)
 from xllm_service_tpu_torch.ops.kernels.prefill_attention import (
-    paged_prefill_attention)
+    paged_prefill_attention, paged_prefill_attention_fresh)
 from xllm_service_tpu_torch.ops.kernels.ragged_attention import (
     ragged_paged_attention)
 
 WRAPPERS: List[Callable] = [paged_kv_update_layer,
                             paged_prefill_kv_update_layer,
                             paged_decode_attention, paged_prefill_attention,
-                            ragged_paged_attention]
+                            ragged_paged_attention, paged_kv_update,
+                            paged_prefill_kv_update,
+                            paged_decode_attention_current,
+                            paged_prefill_attention_fresh]
 
 
 def launch_counts() -> Dict[str, int]:
@@ -58,4 +79,6 @@ def reset_launch_counts() -> None:
 __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts",
            "paged_kv_update_layer", "paged_prefill_kv_update_layer",
            "paged_decode_attention", "paged_prefill_attention",
-           "ragged_paged_attention"]
+           "ragged_paged_attention", "paged_kv_update",
+           "paged_prefill_kv_update", "paged_decode_attention_current",
+           "paged_prefill_attention_fresh"]

@@ -4,12 +4,17 @@ Each ``csrc/*.cu`` file compiles on its own into a shared library with a
 plain C interface, loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/torch_kernels/<name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC --split-compile=0
+         -o build/torch_kernels/<name>-<hash>.so <name>.cu
 
 The output lands in ``build/torch_kernels/`` at the root of the checkout,
 named by a hash of the sources (headers included) and the flags, so a
 changed source rebuilds and an unchanged one is loaded as it is. All
-missing libraries compile in parallel, one ``nvcc`` per source. Nothing
+missing libraries compile in parallel, one ``nvcc`` per source, and
+each ``nvcc`` optimizes its kernels on parallel threads
+(``--split-compile=0``: the attention sources instantiate tens of
+kernels each, over head dims, group widths and both KV write orders, and
+compile in about half the time that way). Nothing
 here runs at import: the CPU tests import every module of the package,
 and a CPU has no ``nvcc``.
 
@@ -31,7 +36,8 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--split-compile=0",
+              "-Xptxas=-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,7 +1,7 @@
 // Single-query GQA attention of one (row, kv head) over one layer of the
-// paged KV pool: the device code shared by the decode kernel
-// (paged_decode_attention.cu) and the ragged kernel's decode rows
-// (ragged_paged_attention.cu).
+// paged KV pool: the device code shared by the decode kernels
+// (paged_decode_attention.cu, both orderings) and the ragged kernel's
+// decode rows (ragged_paged_attention.cu).
 //
 // It is bound by bytes: the row reads its context's K and V once
 // (2 x ctx x Hkv x D x 2 bytes) for 4 x G flops per byte, far below the
@@ -27,9 +27,20 @@
 // then soft-capped; sinks join the denominator only; ctx = 0 outputs
 // zeros.
 //
+// With CUR (the Pallas kernel's has_current form, attend-then-write
+// decode), `ctx_raw` is the cache length, the current token EXcluded: the
+// query sits at position cache_len, the pool holds [0, cache_len) and
+// the current token's K/V row comes from k_cur/v_cur. The key walk is the
+// same; only the staging step picks where a key's bytes come from: the
+// key at position cache_len from the current row, the others through the
+// page table. The pool slot at cache_len is never read (it is stale in
+// this ordering). The current key is always valid, so a row with
+// cache_len 0 attends to it alone and is not zeros.
+//
 // Layout: the caller passes the row's G query head rows (qb, [G][D] bf16)
-// and output rows (ob), its page-table row, and the pools
-// [P, ps, Hkv, D] bf16 of one layer.
+// and output rows (ob), its page-table row, the pools [P, ps, Hkv, D]
+// bf16 of one layer and, with CUR, the current token's K and V head rows
+// ([D] bf16 each).
 #pragma once
 
 #include <stdint.h>
@@ -51,15 +62,18 @@ __host__ __device__ constexpr size_t smem_bytes(int D, int KG, int G,
 }
 
 // KG: the group width G rounded up to a power of two (rows g >= G of the
-// group are skipped). THREADS: the block size, a multiple of D.
-template <int D, int KG, int THREADS>
+// group are skipped). THREADS: the block size, a multiple of D. CUR: the
+// current token's K/V row is a separate operand (see above).
+template <int D, int KG, int THREADS, bool CUR = false>
 __device__ __forceinline__ void attend_row(
     float* smem, const __nv_bfloat16* __restrict__ qb,
     const __nv_bfloat16* __restrict__ k_pool,
     const __nv_bfloat16* __restrict__ v_pool,
     const int* __restrict__ table_row, const float* __restrict__ sinks,
     __nv_bfloat16* __restrict__ ob, int ctx_raw, int h, int Hkv, int G,
-    int MP, int page_size, int window, float scale, float cap) {
+    int MP, int page_size, int window, float scale, float cap,
+    const __nv_bfloat16* __restrict__ k_cur = nullptr,
+    const __nv_bfloat16* __restrict__ v_cur = nullptr) {
   constexpr int nsplit = THREADS / D;
   constexpr int KW = D / 2 + 1;         // K/V row stride, bf16 pairs (padded)
   constexpr int vpr = D / 8;            // 16-byte vectors per head row
@@ -81,8 +95,13 @@ __device__ __forceinline__ void attend_row(
   constexpr int nwarps = THREADS / 32;
   const long long row_stride = (long long)Hkv * D;
 
-  const int ctx = min(ctx_raw, MP * page_size);
-  const int lo = window > 0 ? max(0, ctx_raw - window) : 0;
+  // Keys [lo, ctx). With CUR the last of them, position pool_end, is
+  // the current token.
+  const int pool_end = min(ctx_raw, MP * page_size);
+  const int ctx = CUR ? pool_end + 1 : pool_end;
+  const int q_pos = CUR ? ctx_raw : ctx_raw - 1;
+  int lo = window > 0 ? max(0, q_pos - window + 1) : 0;
+  if constexpr (CUR) lo = min(lo, pool_end);
 
   for (int i = tid; i < KG * D; i += THREADS)
     q_s[i] = i < G * D ? __bfloat162float(qb[i]) : 0.f;
@@ -105,12 +124,19 @@ __device__ __forceinline__ void attend_row(
     //    every load of a batch is issued before its stores.
     for (int t = tid; t < n; t += THREADS) {
       const int pos = c0 + t;
-      const int page = table_row[pos / page_size];
-      const long long off =
-          ((long long)page * page_size + pos % page_size) * row_stride +
-          (long long)h * D;
-      const uint4* ksrc = reinterpret_cast<const uint4*>(k_pool + off);
-      const uint4* vsrc = reinterpret_cast<const uint4*>(v_pool + off);
+      const uint4* ksrc;
+      const uint4* vsrc;
+      if (CUR && pos >= pool_end) {
+        ksrc = reinterpret_cast<const uint4*>(k_cur);
+        vsrc = reinterpret_cast<const uint4*>(v_cur);
+      } else {
+        const int page = table_row[pos / page_size];
+        const long long off =
+            ((long long)page * page_size + pos % page_size) * row_stride +
+            (long long)h * D;
+        ksrc = reinterpret_cast<const uint4*>(k_pool + off);
+        vsrc = reinterpret_cast<const uint4*>(v_pool + off);
+      }
 #pragma unroll
       for (int c0v = 0; c0v < vpr; c0v += kBatch) {
         uint4 kr[kBatch], vr[kBatch];

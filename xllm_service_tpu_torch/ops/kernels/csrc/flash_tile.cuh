@@ -19,9 +19,18 @@
 // scale, soft-cap and sinks as in the decode kernel. Query rows
 // t >= lengths[b] output zeros.
 //
+// With FRESH (the Pallas kernel's two-source form, attend-then-write
+// prefill) the window's own K/V is not in the pool yet: it comes as the
+// operands k_fresh/v_fresh, key t of row b at position q_start[b] + t.
+// The key range and the masks stay the same; only the staging step picks
+// where a key's bytes come from: a key at position >= fresh_start (the
+// row's q_start) from the fresh operand, one below it through the page
+// table. The window's pool slots (stale in this ordering) are never
+// read, nor are pool positions past the table.
+//
 // Layout: q and out [B, T, Hq, D] bf16; pools [P, ps, Hkv, D] bf16 (the
 // caller passes k_pages[layer]); page table [B, MP] int32; sinks [Hq]
-// float32 or null.
+// float32 or null; with FRESH, k_fresh/v_fresh [B, T, Hkv, D] bf16.
 #pragma once
 
 #include <mma.h>
@@ -67,8 +76,9 @@ __device__ __forceinline__ bool key_ok(int j, int n, int tl, int nt,
 // The tile of row b, kv head h, whose first query is t0 (position q_lo);
 // its first nt query positions are valid (nt may be 0). Keys
 // [kv_lo, kv_hi] (inclusive, clamped by the caller to the causal limit,
-// the window and the table) are read; the mask drops the rest.
-template <int D>
+// the window and, unless FRESH, the table) are read; the mask drops the
+// rest.
+template <int D, bool FRESH = false>
 __device__ __forceinline__ void attend_tile(
     unsigned char* smem, const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* __restrict__ k_pool,
@@ -76,7 +86,10 @@ __device__ __forceinline__ void attend_tile(
     const int* __restrict__ page_table, const float* __restrict__ sinks,
     __nv_bfloat16* __restrict__ out, int b, int h, int t0, int nt, int q_lo,
     int kv_lo, int kv_hi, int T, int Hkv, int G, int MP, int page_size,
-    int QB, int window, float scale, float cap) {
+    int QB, int window, float scale, float cap,
+    const __nv_bfloat16* __restrict__ k_fresh = nullptr,
+    const __nv_bfloat16* __restrict__ v_fresh = nullptr,
+    int fresh_start = 0) {
   using PL = Plan<D>;
   constexpr int LQ = PL::LQ, LS = PL::LS, LP = PL::LP, LO = PL::LO;
   constexpr int vpr = D / 8;                   // 16-byte vectors per row
@@ -123,8 +136,14 @@ __device__ __forceinline__ void attend_tile(
       for (int i = tid; i < kKeys * vpr; i += kThreads) {
         const int j = i / vpr, c = i % vpr;
         uint4 kk = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-        if (j < n) {
-          const int pos = c0 + j;
+        const int pos = c0 + j;
+        if (FRESH && j < n && pos >= fresh_start) {
+          const long long off =
+              ((long long)b * T + (pos - fresh_start)) * row_stride +
+              (long long)h * D + c * 8;
+          kk = *reinterpret_cast<const uint4*>(k_fresh + off);
+          vv = *reinterpret_cast<const uint4*>(v_fresh + off);
+        } else if (j < n && (!FRESH || pos < MP * page_size)) {
           const int page = page_table[(long long)b * MP + pos / page_size];
           const long long off =
               ((long long)page * page_size + pos % page_size) * row_stride +

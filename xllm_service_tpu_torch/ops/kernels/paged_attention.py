@@ -1,9 +1,15 @@
 """Paged decode attention (CUDA kernel ``csrc/paged_decode_attention.cu``).
 
 Replaces the Pallas kernel ``paged_decode_attention_pallas``
-(xllm_service_tpu/ops/pallas/paged_attention.py:154) in the form the
-write-then-attend decode step launches: layered pools, pool only (the
-current token was written first, so ``context_lens`` includes it).
+(xllm_service_tpu/ops/pallas/paged_attention.py:154) in the two forms
+the decode step launches, on layered pools:
+
+- ``paged_decode_attention``, write-then-attend: pool only (the current
+  token was written first, so ``context_lens`` includes it);
+- ``paged_decode_attention_current``, attend-then-write (the Pallas
+  ``has_current`` form): the pool holds ``cache_lens`` tokens and the
+  current token's K/V come as ``k_cur``/``v_cur``, written to the pool
+  for all layers only after the layer loop.
 
 The Pallas "layered" form put the layer index in the page DMA's index
 map so that the [L, P, ps, Hkv, D] pool was never sliced; in PyTorch
@@ -15,7 +21,7 @@ Bound on an H100: bytes (each K/V row of the context read once).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -36,6 +42,9 @@ def _kernel():
         lib.paged_decode_attention.argtypes = [
             P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, F, P]
         lib.paged_decode_attention.restype = I
+        lib.paged_decode_attention_current.argtypes = [
+            P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, F, P]
+        lib.paged_decode_attention_current.restype = I
         _lib = lib
     return _lib
 
@@ -55,6 +64,43 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table,
     return out.masked_fill((context_lens <= 0)[:, None, None], 0.0)
 
 
+def _check_arguments(q, k_pages, v_pages, page_table, lens, lens_name,
+                     layer, sinks) -> List[torch.Tensor]:
+    """The checks both forms share; returns the tensors that must lie on
+    one device."""
+    check("q", q, 3)
+    check("k_pages", k_pages, 5)
+    check("v_pages", v_pages, 5)
+    check("page_table", page_table, 2, torch.int32)
+    check(lens_name, lens, 1, torch.int32)
+    B, Hq, D = q.shape
+    L, Hkv, Dk = k_pages.shape[0], k_pages.shape[3], k_pages.shape[4]
+    require(v_pages.shape == k_pages.shape, "k_pages and v_pages differ")
+    require(q.dtype == k_pages.dtype == v_pages.dtype,
+            "q and the pools must share a dtype")
+    require(Dk == D and Hq % Hkv == 0,
+            f"q {tuple(q.shape)} does not fit pools {tuple(k_pages.shape)}")
+    require(page_table.shape[0] == B and lens.shape[0] == B,
+            "batch sizes disagree")
+    require(0 <= int(layer) < L, f"layer {layer} outside [0, {L})")
+    tensors = [q, k_pages, v_pages, page_table, lens]
+    if sinks is not None:
+        check("sinks", sinks, 1, torch.float32)
+        require(sinks.shape[0] == Hq, "sinks must be [Hq]")
+        tensors.append(sinks)
+    return tensors
+
+
+def _check_cuda_shapes(q: torch.Tensor, k_pages: torch.Tensor) -> None:
+    """What the CUDA kernel takes beyond ``_check_arguments``."""
+    D, G = q.shape[2], q.shape[1] // k_pages.shape[3]
+    require(q.dtype == torch.bfloat16, "the CUDA kernel takes bfloat16")
+    require(D in _HEAD_DIMS, f"head_dim {D} not in {_HEAD_DIMS}")
+    require(G <= _MAX_GROUP, f"query group {G} > {_MAX_GROUP}")
+    require(k_pages.shape[1] * k_pages.shape[2] < 2 ** 31,
+            "pool too large for int32 rows")
+
+
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, page_table: torch.Tensor,
                            context_lens: torch.Tensor, layer: int, *,
@@ -71,35 +117,16 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     > ctx - 1 - W; ``logits_soft_cap`` and ``scale`` are Gemma's;
     ``sinks`` [Hq] float32 are GPT-OSS's. Rows with context 0 give
     zeros. Returns [B, Hq, D]."""
-    check("q", q, 3)
-    check("k_pages", k_pages, 5)
-    check("v_pages", v_pages, 5)
-    check("page_table", page_table, 2, torch.int32)
-    check("context_lens", context_lens, 1, torch.int32)
-    B, Hq, D = q.shape
-    L, num_pages, ps, Hkv, Dk = k_pages.shape
-    require(v_pages.shape == k_pages.shape, "k_pages and v_pages differ")
-    require(q.dtype == k_pages.dtype == v_pages.dtype,
-            "q and the pools must share a dtype")
-    require(Dk == D and Hq % Hkv == 0,
-            f"q {tuple(q.shape)} does not fit pools {tuple(k_pages.shape)}")
-    require(page_table.shape[0] == B and context_lens.shape[0] == B,
-            "batch sizes disagree")
-    require(0 <= int(layer) < L, f"layer {layer} outside [0, {L})")
-    tensors = [q, k_pages, v_pages, page_table, context_lens]
-    if sinks is not None:
-        check("sinks", sinks, 1, torch.float32)
-        require(sinks.shape[0] == Hq, "sinks must be [Hq]")
-        tensors.append(sinks)
+    tensors = _check_arguments(q, k_pages, v_pages, page_table,
+                               context_lens, "context_lens", layer, sinks)
     if not on_cuda(tensors):
         return paged_decode_attention_plain(
             q, k_pages, v_pages, page_table, context_lens, int(layer),
             sliding_window, logits_soft_cap, scale, sinks)
+    _check_cuda_shapes(q, k_pages)
+    B, Hq, D = q.shape
+    ps, Hkv = k_pages.shape[2], k_pages.shape[3]
     G = Hq // Hkv
-    require(q.dtype == torch.bfloat16, "the CUDA kernel takes bfloat16")
-    require(D in _HEAD_DIMS, f"head_dim {D} not in {_HEAD_DIMS}")
-    require(G <= _MAX_GROUP, f"query group {G} > {_MAX_GROUP}")
-    require(num_pages * ps < 2 ** 31, "pool too large for int32 rows")
     out = torch.empty_like(q)
     rc = _kernel().paged_decode_attention(
         ptr(q), ptr(k_pages[layer]), ptr(v_pages[layer]), ptr(page_table),
@@ -113,3 +140,69 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_decode_attention_current_plain(q, k_pages, v_pages, page_table,
+                                         cache_lens, k_cur, v_cur,
+                                         layer: int, sliding_window: int = 0,
+                                         logits_soft_cap: float = 0.0,
+                                         scale: Optional[float] = None,
+                                         sinks: Optional[torch.Tensor] = None):
+    """Plain version: ``ops/attention.paged_decode_attention_current``
+    over the layer's pools. Every row attends at least to its current
+    token, so no row is zeroed."""
+    return attention.paged_decode_attention_current(
+        q, k_pages[layer], v_pages[layer], page_table, cache_lens, k_cur,
+        v_cur, logits_soft_cap, sliding_window, scale, sinks)
+
+
+def paged_decode_attention_current(q: torch.Tensor, k_pages: torch.Tensor,
+                                   v_pages: torch.Tensor,
+                                   page_table: torch.Tensor,
+                                   cache_lens: torch.Tensor,
+                                   k_cur: torch.Tensor, v_cur: torch.Tensor,
+                                   layer: int, *, sliding_window: int = 0,
+                                   logits_soft_cap: float = 0.0,
+                                   scale: Optional[float] = None,
+                                   sinks: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+    """One query per row, GQA over layer ``layer`` of the paged pools
+    plus the current token's K/V, which the pools do not hold yet.
+
+    q: [B, Hq, D]; k/v_pages: [L, P, ps, Hkv, D]; page_table: [B, MP]
+    int32; cache_lens: [B] int32 tokens in the pools before the current
+    one (the query's position); k_cur/v_cur: [B, Hkv, D]. Pool keys at
+    positions < cache_len (and, W > 0, > cache_len - W) and the current
+    key are attended; the pool slot at cache_len is never read. A row
+    with cache_len 0 attends to its current token alone. Returns
+    [B, Hq, D]."""
+    tensors = _check_arguments(q, k_pages, v_pages, page_table, cache_lens,
+                               "cache_lens", layer, sinks)
+    check("k_cur", k_cur, 3)
+    check("v_cur", v_cur, 3)
+    B, Hq, D = q.shape
+    Hkv = k_pages.shape[3]
+    require(tuple(k_cur.shape) == (B, Hkv, D)
+            and tuple(v_cur.shape) == (B, Hkv, D),
+            f"k_cur/v_cur must be {(B, Hkv, D)}")
+    require(k_cur.dtype == q.dtype and v_cur.dtype == q.dtype,
+            "k_cur/v_cur must share q's dtype")
+    if not on_cuda(tensors + [k_cur, v_cur]):
+        return paged_decode_attention_current_plain(
+            q, k_pages, v_pages, page_table, cache_lens, k_cur, v_cur,
+            int(layer), sliding_window, logits_soft_cap, scale, sinks)
+    _check_cuda_shapes(q, k_pages)
+    ps = k_pages.shape[2]
+    out = torch.empty_like(q)
+    rc = _kernel().paged_decode_attention_current(
+        ptr(q), ptr(k_pages[layer]), ptr(v_pages[layer]), ptr(page_table),
+        ptr(cache_lens), ptr(k_cur), ptr(v_cur), ptr(sinks), ptr(out), B,
+        Hkv, Hq // Hkv, D, page_table.shape[1], ps, int(sliding_window),
+        float(attention._attn_scale(D, scale)), float(logits_soft_cap),
+        stream())
+    raise_on_error("paged_decode_attention_current", rc)
+    paged_decode_attention_current.launches += 1
+    return out
+
+
+paged_decode_attention_current.launches = 0

@@ -1,10 +1,18 @@
 """Paged prefill attention (CUDA kernel ``csrc/paged_prefill_attention.cu``).
 
 Replaces the Pallas kernel ``paged_prefill_attention_pallas``
-(xllm_service_tpu/ops/pallas/prefill_attention.py:272) in the form the
-write-then-attend prefill step launches: layered pools with
-``from_pool=True`` (the window's K/V is already in the pool, so every
-key, cached prefix and window alike, is read through the page table).
+(xllm_service_tpu/ops/pallas/prefill_attention.py:272) in the two forms
+the prefill step launches, on layered pools:
+
+- ``paged_prefill_attention``, write-then-attend (``from_pool=True``):
+  the window's K/V is already in the pool, so every key, cached prefix
+  and window alike, is read through the page table;
+- ``paged_prefill_attention_fresh``, attend-then-write (two sources):
+  the cached prefix comes through the page table and the window's K/V
+  as the ``k_fresh``/``v_fresh`` operands; the window is written to the
+  pool for all layers after the layer loop. Any T is accepted (the
+  Pallas form needs T % page_size == 0, the block shape of its fresh
+  operand stream).
 
 As for decode, the Pallas layered form's layer-in-the-index-map becomes
 ``k_pages[layer]``, a view of the full pool.
@@ -36,6 +44,9 @@ def _kernel():
         lib.paged_prefill_attention.argtypes = [
             P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, P]
         lib.paged_prefill_attention.restype = I
+        lib.paged_prefill_attention_fresh.argtypes = [
+            P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, P]
+        lib.paged_prefill_attention_fresh.restype = I
         _lib = lib
     return _lib
 
@@ -143,3 +154,84 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_prefill_attention.launches = 0
+
+
+def paged_prefill_attention_fresh_plain(q, k_fresh, v_fresh, k_pages,
+                                        v_pages, page_table, q_start,
+                                        lengths, layer: int,
+                                        sliding_window: int = 0,
+                                        logits_soft_cap: float = 0.0,
+                                        scale: Optional[float] = None,
+                                        sinks: Optional[torch.Tensor] = None):
+    """Plain version: ``ops/attention.mha_prefill`` over the layer's
+    gathered pages with the fresh window placed over them
+    (``overlay_fresh_kv``), with query rows t >= lengths[b] set to zero
+    as the kernel leaves them."""
+    kp = attention.overlay_fresh_kv(
+        attention.gather_pages(k_pages[layer], page_table), k_fresh, q_start)
+    vp = attention.overlay_fresh_kv(
+        attention.gather_pages(v_pages[layer], page_table), v_fresh, q_start)
+    out = attention.mha_prefill(q, kp, vp, q_start + lengths, q_start,
+                                logits_soft_cap, sliding_window, scale, sinks)
+    t = torch.arange(q.shape[1], device=q.device)
+    pad = t[None, :] >= lengths.long()[:, None]
+    return out.masked_fill(pad[:, :, None, None], 0.0)
+
+
+def paged_prefill_attention_fresh(q: torch.Tensor, k_fresh: torch.Tensor,
+                                  v_fresh: torch.Tensor,
+                                  k_pages: torch.Tensor,
+                                  v_pages: torch.Tensor,
+                                  page_table: torch.Tensor,
+                                  q_start: torch.Tensor,
+                                  lengths: torch.Tensor, layer: int, *,
+                                  sliding_window: int = 0,
+                                  logits_soft_cap: float = 0.0,
+                                  scale: Optional[float] = None,
+                                  sinks: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """Causal GQA attention of a prefill window over layer ``layer`` of
+    the paged pools (the cached prefix) and the window's own K/V, which
+    the pools do not hold yet.
+
+    q: [B, T, Hq, D] and k_fresh/v_fresh: [B, T, Hkv, D], token t of row
+    b at position q_start[b] + t; k/v_pages: [L, P, ps, Hkv, D];
+    page_table: [B, MP] int32 covering each row's prefix
+    (q_start[b] <= MP * ps); q_start/lengths: [B] int32. A key at a
+    position below q_start[b] comes from the pools, one at or past it
+    from the fresh operands; the window's pool slots are never read.
+    Masks and zero rows as ``paged_prefill_attention``. Returns
+    [B, T, Hq, D]."""
+    tensors = check_arguments(q, k_pages, v_pages, page_table, q_start,
+                              lengths, layer, sinks)
+    check("k_fresh", k_fresh, 4)
+    check("v_fresh", v_fresh, 4)
+    B, T, Hq, D = q.shape
+    Hkv = k_pages.shape[3]
+    require(tuple(k_fresh.shape) == (B, T, Hkv, D)
+            and tuple(v_fresh.shape) == (B, T, Hkv, D),
+            f"k_fresh/v_fresh must be {(B, T, Hkv, D)}")
+    require(k_fresh.dtype == q.dtype and v_fresh.dtype == q.dtype,
+            "k_fresh/v_fresh must share q's dtype")
+    if not on_cuda(tensors + [k_fresh, v_fresh]):
+        return paged_prefill_attention_fresh_plain(
+            q, k_fresh, v_fresh, k_pages, v_pages, page_table, q_start,
+            lengths, int(layer), sliding_window, logits_soft_cap, scale,
+            sinks)
+    check_cuda_shapes(q, k_pages)
+    ps = k_pages.shape[2]
+    G = Hq // Hkv
+    out = torch.empty_like(q)
+    rc = _kernel().paged_prefill_attention_fresh(
+        ptr(q), ptr(k_fresh), ptr(v_fresh), ptr(k_pages[layer]),
+        ptr(v_pages[layer]), ptr(page_table), ptr(q_start), ptr(lengths),
+        ptr(sinks), ptr(out), B, T, Hkv, G, D, page_table.shape[1], ps,
+        query_tile(G), int(sliding_window),
+        float(attention._attn_scale(D, scale)), float(logits_soft_cap),
+        stream())
+    raise_on_error("paged_prefill_attention_fresh", rc)
+    paged_prefill_attention_fresh.launches += 1
+    return out
+
+
+paged_prefill_attention_fresh.launches = 0

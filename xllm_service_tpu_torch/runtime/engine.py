@@ -17,6 +17,14 @@ scheduler:
   as length-1 continuation windows first, then the prefill windows,
   each layer attending with the ragged kernel.
 
+Decode and prefill forwards write the KV in the order
+``write_then_attend`` picks (see ``models/transformer.py``), resolved
+once at init as the JAX engine resolves it: the config's value or the
+``XLLM_WRITE_THEN_ATTEND`` environment, else on for a CUDA engine
+(where the kernels run, as the JAX engine's default follows its Pallas
+switch) and off on the CPU (as on the JAX engine's pure-XLA path). The
+ragged step always writes first.
+
 A prompt prefills in windows of at most one bucket of
 ``prefill_buckets``; an interleaved window snaps down to the largest
 bucket that fits the residual budget, so prompts longer than it prefill
@@ -64,6 +72,13 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def resolve_write_then_attend(flag: Optional[bool],
+                              device: torch.device) -> bool:
+    """``EngineConfig.write_then_attend`` for an engine on ``device``:
+    an explicit value wins; None means on where the CUDA kernels run."""
+    return device.type == "cuda" if flag is None else bool(flag)
 
 
 @dataclasses.dataclass
@@ -160,6 +175,8 @@ class Engine:
                                   or engine_cfg.max_prefill_tokens)
         self.prefill_deadline_ms = float(engine_cfg.prefill_deadline_ms)
         self.ragged = bool(engine_cfg.ragged_attn)
+        self.write_then_attend = resolve_write_then_attend(
+            engine_cfg.write_then_attend, self.device)
         # What the last step() did (the JAX engine's step ledger). A
         # forward is one attention dispatch: decode, prefill or ragged.
         self.last_step_kind = "idle"    # "prefill"|"decode"|"mixed"|"idle"
@@ -452,7 +469,8 @@ class Engine:
         logits, self.kv = transformer.forward_prefill(
             self.params, self.cfg, self._to_device(tokens),
             self._to_device(start), self._to_device(lengths), self.kv,
-            self._to_device(table), ragged=ragged)
+            self._to_device(table), ragged=ragged,
+            write_then_attend=ragged or self.write_then_attend)
         self.last_step_attn_dispatches += 1
         positions = [int(start[i] + lengths[i] - 1) for i in range(B)]
         return self._sample(logits, [s.req.sampling for s in rows],
@@ -528,7 +546,7 @@ class Engine:
         logits, self.kv = transformer.forward_decode(
             self.params, self.cfg, self._to_device(tokens),
             self._to_device(positions), self._to_device(active), self.kv,
-            self._to_device(table))
+            self._to_device(table), write_then_attend=self.write_then_attend)
         self.last_step_attn_dispatches += 1
         toks, lps = self._sample(logits, params, positions.tolist())
         outs = []
