@@ -29,13 +29,22 @@ Phases (any failure raises and the exit code is not 0):
    over 989 TFLOP/s, whichever is larger); the ragged kernel also beside
    the split path's two launches for the same work (decode kernel on
    the decode rows, prefill kernel on the window), and K6 beside 16 K1
-   launches for the same rows.
+   launches for the same rows. Then K3'', the MLA decode attention, in
+   both forms at DeepSeek-V2-Lite's decode shape (B=8, 16 heads, one
+   576-wide latent head, a 27-layer pool; contexts 117-411 with an
+   inactive row, and for the current form a row at cache length 0 and
+   stale slots), timed beside gather + SDPA over the latent as K and V
+   of every head; and K1/K2 bit-exact at the latent row.
 4. Forward: a full-width llama3-1b forward_prefill + forward_decode + a
    ragged forward_prefill through the kernels (bf16 on the GPU), and
    the attend-then-write order (two prefill windows, the second at
    q_start > 0, then a decode step), each against the plain path
    (float32 on the CPU, same weights): logits within a relative L2
-   error of 5e-2 (16 bf16 layers against float32).
+   error of 5e-2 (16 bf16 layers against float32). Then DeepSeek-V2-
+   Lite at full width in both orders (prefill + decode; prefill x2 +
+   decode), its depth cut to 4 layers (the dense one and 3 MoE layers:
+   the float32 CPU copy of all 27 would be 63 GB), to the same bound;
+   each of its decode forwards must launch K3'' once per layer.
 5. Serving: the worker the CLI builds (``runtime.worker`` with
    --model llama3-1b --page-size 128 --num-pages 512 --max-model-len 1024
    --max-batch-size 8, prefill buckets 128,256,512, 256 prefill tokens
@@ -55,9 +64,20 @@ Phases (any failure raises and the exit code is not 0):
    must launch K3' once per layer and K6 once, every prefill forward
    K4' once per layer and K7 once, and K1-K5 never. One request is
    profiled as in phase 5.
+5d. Serving DeepSeek-V2-Lite: the worker with --model deepseek-v2-lite
+   (all 27 layers, random bf16 weights, 31.4 GB), the same flags and
+   requests, in the GPU default order (write-then-attend). Every decode
+   forward must launch K1 and K3'' once per layer, every prefill
+   forward K2 once per layer (its attention is plain), and K3-K5 never.
+   One streamed request is profiled as in phase 5.
+5e. The same with XLLM_WRITE_THEN_ATTEND=0: every decode forward K3''
+   (current form) once per layer and K6 once, every prefill forward K7
+   once, K1-K5 never. Profiled as 5d. Each worker's weights are freed
+   before the next phase.
 6. Summary: one line ``{"kernels": [...]}`` (K1-K4 launches from phase
-   5, K5 from 5b, K6, K7, K3' and K4' from 5c), the card line, then the
-   last line ``{"ok": true, "device": {...}}``.
+   5, K5 from 5b, K6, K7, K3' and K4' from 5c, K3'' from 5d and its
+   current form from 5e), the card line, then the last line
+   ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without printing a result when no CUDA device is
 present, or when the port's package is not beside it.
@@ -65,6 +85,8 @@ present, or when the port's package is not beside it.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import os
 import random
@@ -137,18 +159,18 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sdpa(q, k, v, mask):
+def sdpa(q, k, v, mask, scale=None):
     """One library call: q [B, Hq, Tq, D]; k/v [B, Hkv, S, D]."""
     import torch
     import torch.nn.functional as F
     major, minor = (int(x) for x in torch.__version__.split(".")[:2])
     if (major, minor) >= (2, 5):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                              enable_gqa=True)
+                                              enable_gqa=True, scale=scale)
     g = q.shape[1] // k.shape[1]
     return F.scaled_dot_product_attention(
         q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
-        attn_mask=mask)
+        attn_mask=mask, scale=scale)
 
 
 # ---------------------------------------------------------------------------
@@ -204,36 +226,55 @@ class KernelBench:
             f"library_ms={lib_ms:.5f} bound_ms={b_ms:.6f} ({b_by}) "
             f"{json.dumps(extra)}")
 
+    def latent_pools(self):
+        """A 4-layer pool pair of the MLA latent row (Hkv=1, D=576) with
+        its own disjoint page table."""
+        P = 128
+        kp, vp = self.randn(4, P, self.ps, 1, 576), \
+            self.randn(4, P, self.ps, 1, 576)
+        perm = self.torch.randperm(P - 1, generator=self.g,
+                                   device=self.dev)[:8 * self.MP] + 1
+        return kp, vp, perm.reshape(8, self.MP).to(
+            self.torch.int32).contiguous()
+
     # -- K1 ----------------------------------------------------------------
-    def decode_writer(self, kv):
+    def decode_writer(self, kv, pools=None):
+        """K1 at llama3-1b's rows, timed; with ``pools`` (k, v, page
+        table) at their geometry, checked only."""
         torch = self.torch
+        kp, vp, pt8 = pools or (self.kp, self.vp, self.pt8)
+        P, Hkv, D = kp.shape[1], kp.shape[3], kp.shape[4]
         B = 8
-        row_bytes = self.Hkv * self.D * 2
-        kn, vn = self.randn(B, self.Hkv, self.D), self.randn(B, self.Hkv,
-                                                             self.D)
+        row_bytes = Hkv * D * 2
+        kn, vn = self.randn(B, Hkv, D), self.randn(B, Hkv, D)
         ctx = [117, 205, 298, 411, 150, 260, 333, 390]
         pos = self.i32([c - 1 for c in ctx])
-        pt = self.pt8.clone()
+        pt = pt8.clone()
         pt[5, 2] = 0                      # row 5's page is NULL: dropped
         active = torch.tensor([1, 1, 1, 1, 1, 1, 0, 1], dtype=torch.bool,
                               device=self.dev)      # an inactive row
-        ka, va = self.kp.clone(), self.vp.clone()
-        kb, vb = self.kp.clone(), self.vp.clone()
+        ka, va = kp.clone(), vp.clone()
+        kb, vb = kp.clone(), vp.clone()
         kv.paged_kv_update_layer(ka, va, kn, vn, pt, pos, active, self.layer)
         kv.paged_kv_update_layer_plain(kb, vb, kn, vn, pt, pos, active,
                                        self.layer)
         torch.cuda.synchronize()
         if not (torch.equal(ka, kb) and torch.equal(va, vb)):
-            raise AssertionError("decode KV writer is not bit-exact")
-        changed = int((ka != self.kp).flatten(2).any(-1).sum())
+            raise AssertionError(f"decode KV writer is not bit-exact at "
+                                 f"(Hkv, D) = {(Hkv, D)}")
+        changed = int((ka != kp).flatten(2).any(-1).sum())
         if changed != 6:                           # rows 5 and 6 dropped
             raise AssertionError(f"decode writer touched {changed} pages")
+        if pools is not None:
+            log(f"[kernel] paged_kv_update_layer bit-exact at (Hkv, D) = "
+                f"{(Hkv, D)}")
+            return
         all_on = torch.ones(B, dtype=torch.bool, device=self.dev)
-        pt = self.pt8
+        pt = pt8
         flat = (pt.long().gather(1, (pos.long() // self.ps)[:, None])[:, 0]
                 * self.ps + pos.long() % self.ps)
-        kf = ka[self.layer].view(self.P * self.ps, self.Hkv, self.D)
-        vf = va[self.layer].view(self.P * self.ps, self.Hkv, self.D)
+        kf = ka[self.layer].view(P * self.ps, Hkv, D)
+        vf = va[self.layer].view(P * self.ps, Hkv, D)
 
         def lib():
             kf.index_copy_(0, flat, kn)
@@ -249,32 +290,39 @@ class KernelBench:
             lib, nbytes, 0.0)
 
     # -- K2 ----------------------------------------------------------------
-    def prefill_writer(self, kv):
+    def prefill_writer(self, kv, pools=None):
+        """K2 at llama3-1b's rows, timed; with ``pools``, checked only."""
         torch = self.torch
+        kp, vp, pt8 = pools or (self.kp, self.vp, self.pt8)
+        P, Hkv, D = kp.shape[1], kp.shape[3], kp.shape[4]
         B, T = 4, 256
-        row_bytes = self.Hkv * self.D * 2
-        kn, vn = self.randn(B, T, self.Hkv, self.D), \
-            self.randn(B, T, self.Hkv, self.D)
-        pt = self.pt8[:B].contiguous()
+        row_bytes = Hkv * D * 2
+        kn, vn = self.randn(B, T, Hkv, D), self.randn(B, T, Hkv, D)
+        pt = pt8[:B].contiguous()
         start = self.i32([0, 256, 128, 7])            # last row unaligned
         lens = self.i32([256, 144, 200, 97])
-        ka, va = self.kp.clone(), self.vp.clone()
-        kb, vb = self.kp.clone(), self.vp.clone()
+        ka, va = kp.clone(), vp.clone()
+        kb, vb = kp.clone(), vp.clone()
         kv.paged_prefill_kv_update_layer(ka, va, kn, vn, pt, start, lens,
                                          self.layer)
         kv.paged_prefill_kv_update_layer_plain(kb, vb, kn, vn, pt, start,
                                                lens, self.layer)
         torch.cuda.synchronize()
         if not (torch.equal(ka, kb) and torch.equal(va, vb)):
-            raise AssertionError("prefill KV writer is not bit-exact")
+            raise AssertionError(f"prefill KV writer is not bit-exact at "
+                                 f"(Hkv, D) = {(Hkv, D)}")
+        if pools is not None:
+            log(f"[kernel] paged_prefill_kv_update_layer bit-exact at "
+                f"(Hkv, D) = {(Hkv, D)}")
+            return
         t = torch.arange(T, device=self.dev)
         valid = t[None, :] < lens.long()[:, None]
         pos = start.long()[:, None] + t[None, :]
         flat = (pt.long().gather(1, pos // self.ps) * self.ps
                 + pos % self.ps)[valid]
         kr, vr = kn[valid], vn[valid]
-        kf = ka[self.layer].view(self.P * self.ps, self.Hkv, self.D)
-        vf = va[self.layer].view(self.P * self.ps, self.Hkv, self.D)
+        kf = ka[self.layer].view(P * self.ps, Hkv, D)
+        vf = va[self.layer].view(P * self.ps, Hkv, D)
 
         def lib():
             kf.index_copy_(0, flat, kr)
@@ -752,6 +800,74 @@ class KernelBench:
             lib, nbytes, flops)
 
 
+    # -- K3'' -------------------------------------------------------------
+    def mla_decode_attention(self, pa, attention, mla_cfg, scale):
+        """K3'' in both forms at DeepSeek-V2-Lite's decode shape: B=8, 16
+        heads, one latent head of 576, a 27-layer pool of page size 128.
+        Pool-only: contexts 117-411, row 6 inactive (context 0, zeros).
+        Current: cache lengths one less, row 6 at cache length 0 (its
+        current row alone); the pool is random everywhere, so the slot
+        at each cache length holds a stale row unlike the current one.
+        Every row compared."""
+        torch = self.torch
+        B, Hq, D = 8, mla_cfg.num_heads, mla_cfg.kv_cache_dim
+        L, P = mla_cfg.num_layers, 512
+        pool = self.randn(L, P, self.ps, 1, D)
+        layer = L // 2
+        q = self.randn(B, Hq, D)
+        cur = self.randn(B, 1, D)
+        ctx_list = [117, 205, 298, 411, 150, 260, 0, 390]
+        cache_list = [max(c - 1, 0) for c in ctx_list]
+        ctx, cache = self.i32(ctx_list), self.i32(cache_list)
+        S = self.MP * self.ps
+        pos = torch.arange(S + 1, device=self.dev)[None, :]
+        for name, got, want, keys, mask, lib_kv in (
+                ("paged_decode_attention_mla",
+                 lambda: pa.paged_decode_attention_mla(
+                     q, pool, self.pt8, ctx, layer, scale),
+                 lambda: pa.paged_decode_attention_mla_plain(
+                     q, pool, self.pt8, ctx, layer, scale),
+                 sum(ctx_list),
+                 (pos[:, :S] < ctx.long()[:, None]) | (pos[:, :S] == 0),
+                 lambda: attention.gather_pages(pool[layer], self.pt8)),
+                ("paged_decode_attention_mla_current",
+                 lambda: pa.paged_decode_attention_mla_current(
+                     q, pool, self.pt8, cache, cur, layer, scale),
+                 lambda: pa.paged_decode_attention_mla_current_plain(
+                     q, pool, self.pt8, cache, cur, layer, scale),
+                 sum(cache_list) + B,
+                 (pos < cache.long()[:, None]) | (pos == S),
+                 lambda: torch.cat([attention.gather_pages(pool[layer],
+                                                           self.pt8),
+                                    cur[:, None]], dim=1))):
+            g, w = got(), want()
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{name} not finite")
+            g, w = g.float(), w.float()
+            if not torch.allclose(g, w, atol=ATTN_TOL, rtol=ATTN_TOL):
+                raise AssertionError(f"{name} disagrees: "
+                                     f"{float((g - w).abs().max())}")
+            if name == "paged_decode_attention_mla" and \
+                    bool(g[6].abs().max() != 0):
+                raise AssertionError("MLA row of context 0 not zero")
+            m = mask[:, None, None, :]
+
+            def lib(m=m, lib_kv=lib_kv):
+                # The latent as K and V of every head (an SDPA yardstick;
+                # the port never calls it). The inactive row's mask keeps
+                # key 0 so that SDPA has a key.
+                kv = lib_kv().transpose(1, 2)
+                return sdpa(q[:, :, None], kv, kv, m, scale=scale)
+            nbytes = keys * D * 2 + 2 * B * Hq * D * 2 + B * (4 + 4 * self.MP)
+            flops = 4.0 * keys * Hq * D
+            self.record(name, f"{CSRC}/paged_decode_attention_mla.cu",
+                        f"{PALLAS}/paged_attention.py:154",
+                        float((g - w).abs().max()), got, want, lib, nbytes,
+                        flops, layers=L, pool_pages=P)
+        del pool
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: full-width forward, kernels (GPU bf16) vs plain (CPU float32)
 # ---------------------------------------------------------------------------
@@ -831,6 +947,105 @@ def forward_check(torch, cfg, device) -> float:
         raise AssertionError(f"forward logits rel L2 {worst} > "
                              f"{FORWARD_REL_L2}")
     return worst
+
+
+def cpu_float(params):
+    """A float32 CPU copy of a parameter dict (stacks of layers too)."""
+    return {k: ({n: t.cpu().float() for n, t in v.items()}
+                if isinstance(v, dict) else v.cpu().float())
+            for k, v in params.items()}
+
+
+def mla_forward_check(torch, kernels, cfg, device) -> float:
+    """DeepSeek-V2-Lite at full width (hidden 2048, 16 heads, the
+    576-wide latent, 64 routed + 2 shared experts, random bf16 weights
+    from a seed), its depth cut to 4 layers (the dense layer and 3 MoE
+    layers) because the float32 CPU copy that the plain path runs on
+    would take 63 GB at all 27. Write-then-attend: a prefill (rows of 128
+    and 77 tokens), then a decode step; attend-then-write: the same
+    prefill, a second window at q_start 128 / 77 (unaligned), then a
+    decode step. Each against the plain path (float32 on the CPU, same
+    weights): relative L2 of the logits <= 5e-2. Each decode forward on
+    the GPU must launch K3'' once per layer: K1 + K3'' (write-then-
+    attend), K3'' current form + one K6 (attend-then-write)."""
+    from xllm_service_tpu_torch.models import transformer as tf
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    params = tf.init_params(cfg, gen, dev)
+    cpu_params = cpu_float(params)
+    L, P, ps, B, T = cfg.num_layers, 8, 128, 2, 128
+    pt = torch.tensor([[1, 2, 0, 0], [3, 4, 0, 0]], dtype=torch.int32)
+    rng = random.Random(11)
+    tokens = torch.tensor([[rng.randrange(3, 259) for _ in range(T)]
+                           for _ in range(B)])
+    start = torch.zeros(B, dtype=torch.int32)
+    lens = torch.tensor([128, 77], dtype=torch.int32)
+    aw_tokens = torch.tensor([[rng.randrange(3, 259) for _ in range(64)]
+                              for _ in range(B)])
+    aw_lens = torch.tensor([40, 30], dtype=torch.int32)
+    ones = torch.ones(B, dtype=torch.bool)
+    results = []
+
+    def decode(p, device, nxt, pos, kv, wta):
+        kernels.reset_launch_counts()
+        out, kv = tf.forward_decode(p, cfg, nxt.to(device), pos.to(device),
+                                    ones.to(device), kv, pt.to(device),
+                                    write_then_attend=wta)
+        n = kernels.launch_counts()
+        want = {k: 0 for k in n}
+        if wta:
+            want.update(paged_kv_update_layer=L, paged_decode_attention_mla=L)
+        else:
+            want.update(paged_decode_attention_mla_current=L,
+                        paged_kv_update=1)
+        if device.type == "cuda" and n != want:
+            raise AssertionError(f"MLA decode forward launches {n}, want "
+                                 f"{want}")
+        return out, kv
+
+    for device, p, dtype in ((dev, params, tf.torch_dtype(cfg)),
+                             (torch.device("cpu"), cpu_params,
+                              torch.float32)):
+        kv = tf.init_kv_cache(cfg, P, ps, device, dtype=dtype)
+        pre, kv = tf.forward_prefill(p, cfg, tokens.to(device),
+                                     start.to(device), lens.to(device), kv,
+                                     pt.to(device))
+        nxt = pre.argmax(-1) if not results else results[0][0].argmax(-1)
+        dec, kv = decode(p, device, nxt, lens, kv, True)
+        kv = tf.init_kv_cache(cfg, P, ps, device, dtype=dtype)
+        first, kv = tf.forward_prefill(p, cfg, tokens.to(device),
+                                       start.to(device), lens.to(device), kv,
+                                       pt.to(device), write_then_attend=False)
+        second, kv = tf.forward_prefill(p, cfg, aw_tokens.to(device),
+                                        lens.to(device), aw_lens.to(device),
+                                        kv, pt.to(device),
+                                        write_then_attend=False)
+        nxt = second.argmax(-1) if not results else results[0][3].argmax(-1)
+        aw_dec, kv = decode(p, device, nxt, lens + aw_lens, kv, False)
+        results.append(tuple(x.float().cpu() for x in (
+            pre, dec, first, second, aw_dec)))
+        del kv
+    del params, cpu_params
+    rels = []
+    for got, want in zip(results[0], results[1]):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("MLA kernel-path logits not finite")
+        rels.append(float((got - want).norm() / want.norm()))
+    worst = max(rels)
+    log(f"[forward] deepseek-v2-lite ({L} layers) rel L2 (GPU kernels bf16 "
+        f"vs CPU plain fp32): write-then-attend prefill/decode {rels[:2]}, "
+        f"attend-then-write prefill/prefill/decode {rels[2:]}")
+    if worst > FORWARD_REL_L2:
+        raise AssertionError(f"MLA forward logits rel L2 {worst} > "
+                             f"{FORWARD_REL_L2}")
+    return worst
+
+
+def free_device_memory(torch) -> None:
+    """Collect what a finished phase left (the worker and its engine sit
+    in reference cycles) and return the cached blocks to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -946,13 +1161,38 @@ ONE_LAYER_KERNELS = ("paged_kv_update_layer", "paged_prefill_kv_update_layer",
 ATTEND_THEN_WRITE_KERNELS = ("paged_kv_update", "paged_prefill_kv_update",
                              "paged_decode_attention_current",
                              "paged_prefill_attention_fresh")
+MLA_KERNELS = ("paged_decode_attention_mla",
+               "paged_decode_attention_mla_current")
+
+
+def step_launches_wanted(row, layers: int, mla: bool,
+                         write_then_attend: bool) -> dict:
+    """The hand-written launches one split step must make: a decode
+    forward and/or a prefill forward (a mixed step runs both), for
+    attend-then-write or, under MLA, for either order."""
+    dec = int(row["kind"] in ("decode", "mixed"))
+    pre = int(row["kind"] in ("prefill", "mixed"))
+    want = {k: 0 for k in row["launches"]}
+    if mla and write_then_attend:
+        want.update(paged_kv_update_layer=layers * dec,
+                    paged_decode_attention_mla=layers * dec,
+                    paged_prefill_kv_update_layer=layers * pre)
+    elif mla:
+        want.update(paged_decode_attention_mla_current=layers * dec,
+                    paged_kv_update=dec, paged_prefill_kv_update=pre)
+    else:
+        want.update(paged_decode_attention_current=layers * dec,
+                    paged_kv_update=dec,
+                    paged_prefill_attention_fresh=layers * pre,
+                    paged_prefill_kv_update=pre)
+    return want
 
 
 def serve(torch, kernels, model: str, device: str, ragged: bool,
-          write_then_attend: bool = True) -> dict:
-    """Phase 5 (ragged off), 5b (ragged on) or 5c (attend-then-write):
-    4 concurrent requests through the worker; checks the replies and
-    which kernels ran."""
+          write_then_attend: bool = True, tag: str = "") -> dict:
+    """Phase 5 (ragged off), 5b (ragged on), 5c (attend-then-write), 5d
+    and 5e (DeepSeek-V2-Lite in either order): 4 concurrent requests
+    through the worker; checks the replies and which kernels ran."""
     from xllm_service_tpu_torch.runtime import worker
     args = worker.parse_args([
         "--model", model, "--device", device,
@@ -973,6 +1213,8 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
             else:
                 os.environ[k] = v
     layers = w.engine.cfg.num_layers
+    mla = w.engine.cfg.mla
+    torch.cuda.reset_peak_memory_stats()
     steplog = StepLog(w.engine, kernels)
     try:
         rng = random.Random(0)
@@ -1034,6 +1276,9 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
                 prof["kernel_launches"] / fwd if fwd else None)
     finally:
         w.stop()
+    engine_ragged, engine_wta = w.engine.ragged, w.engine.write_then_attend
+    del w, steplog
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     ttfts, decode_rates, total_tokens = [], [], 0
     for (path, stream, n), r in zip(plan, results):
         if r.get("status") != 200:
@@ -1059,27 +1304,26 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
                     r["body"]["choices"][0]["finish_reason"] != "length":
                 raise AssertionError(f"completion body {r['body']}")
             total_tokens += usage["completion_tokens"]
-    if w.engine.ragged != ragged or \
-            w.engine.write_then_attend != write_then_attend:
+    if engine_ragged != ragged or engine_wta != write_then_attend:
         raise AssertionError(
-            f"engine.ragged={w.engine.ragged}, write_then_attend="
-            f"{w.engine.write_then_attend}; want {ragged}, "
-            f"{write_then_attend}")
-    if not write_then_attend:
-        # Attend-then-write: per decode forward K3' x layers + K6 once,
-        # per prefill forward K4' x layers + K7 once, no other kernel.
-        need = list(ATTEND_THEN_WRITE_KERNELS)
+            f"engine.ragged={engine_ragged}, write_then_attend="
+            f"{engine_wta}; want {ragged}, {write_then_attend}")
+    if mla or not write_then_attend:
+        # Every split step exactly: attend-then-write, K3' x layers + K6
+        # per decode forward, K4' x layers + K7 per prefill forward; MLA
+        # write-then-attend, K1 + K3'' x layers per decode forward and
+        # K2 x layers per prefill forward (attention plain); MLA
+        # attend-then-write, K3'' current x layers + K6 per decode
+        # forward and K7 per prefill forward. No other kernel.
+        need = set()
         for row in rows:
+            want = step_launches_wanted(row, layers, mla, write_then_attend)
             dec = int(row["kind"] in ("decode", "mixed"))
             pre = int(row["kind"] in ("prefill", "mixed"))
-            want = {"paged_decode_attention_current": layers * dec,
-                    "paged_kv_update": dec,
-                    "paged_prefill_attention_fresh": layers * pre,
-                    "paged_prefill_kv_update": pre,
-                    **{k: 0 for k in ONE_LAYER_KERNELS}}
             if row["launches"] != want or row["forwards"] != dec + pre:
-                raise AssertionError(f"attend-then-write step launches: "
-                                     f"{row}, want {want}")
+                raise AssertionError(f"step launches: {row}, want {want}")
+            need |= {k for k, n in want.items() if n}
+        need = sorted(need)
     elif ragged:
         # The ragged path: ragged forwards ran, each one launch of the
         # ragged kernel per layer and no decode or prefill attention.
@@ -1101,16 +1345,17 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
     else:
         need = ["paged_kv_update_layer", "paged_prefill_kv_update_layer",
                 "paged_decode_attention", "paged_prefill_attention"]
-        if any(counts[k] for k in ATTEND_THEN_WRITE_KERNELS):
+        if any(counts[k] for k in ATTEND_THEN_WRITE_KERNELS + MLA_KERNELS):
             raise AssertionError(f"write-then-attend ran an attend-then-"
-                                 f"write kernel: {counts}")
+                                 f"write or MLA kernel: {counts}")
     missing = [k for k in need if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing} ({counts})")
     mixed = [r for r in rows if r["kind"] == "mixed"]
     decode_rows = [r for r in rows if r["kind"] == "decode"]
-    out = {"ragged": ragged, "write_then_attend": write_then_attend,
+    out = {"model": model, "layers": layers, "ragged": ragged,
+           "write_then_attend": write_then_attend,
            "launches": counts, "engine_steps": steps,
            "ragged_steps": ragged_steps,
            "ttft_ms_streams": ttfts,
@@ -1131,8 +1376,10 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
                / len(decode_rows) if decode_rows else None),
            "decode_step_ms_median": _median(
                [r["ms"] for r in rows if r["kind"] == "decode"]),
+           "prefill_step_ms_median": _median(
+               [r["ms"] for r in rows if r["kind"] == "prefill"]),
+           "max_memory_allocated_gib": peak_gb,
            "profile": prof}
-    tag = "c" if not write_then_attend else "b" if ragged else ""
     log(f"[serve{tag}] {json.dumps(out)}")
     out["tokens"] = tokens
     return out
@@ -1158,6 +1405,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from xllm_service_tpu_torch.config import ModelConfig
+    from xllm_service_tpu_torch.models import transformer
     from xllm_service_tpu_torch.ops import attention, kernels
     from xllm_service_tpu_torch.ops.kernels import (_build, kv_update,
                                                     paged_attention,
@@ -1198,19 +1446,39 @@ def main() -> int:
     bench.all_layer_writers(kv_update, 4, 1, 576, record=False)  # MLA row
     bench.decode_attention_current(paged_attention, attention)
     bench.prefill_attention_fresh(prefill_attention, attention)
-    del bench.kp, bench.vp
-    torch.cuda.empty_cache()
+    mla_cfg = ModelConfig.deepseek_v2_lite()
+    bench.mla_decode_attention(paged_attention, attention, mla_cfg,
+                               transformer._mla_scale(mla_cfg))
+    latent = bench.latent_pools()                 # K1/K2 at the latent row
+    bench.decode_writer(kv_update, latent)
+    bench.prefill_writer(kv_update, latent)
+    del bench.kp, bench.vp, latent
+    free_device_memory(torch)
 
-    # 4. Forward pass.
+    # 4. Forward pass: llama3-1b, then DeepSeek-V2-Lite cut to 4 layers.
     rel = forward_check(torch, cfg, "cuda")
-    torch.cuda.empty_cache()
+    free_device_memory(torch)
+    rel_mla = mla_forward_check(
+        torch, kernels, dataclasses.replace(mla_cfg, num_layers=4), "cuda")
+    free_device_memory(torch)
 
     # 5. Serving, split path; 5b. serving, ragged step; 5c. serving,
-    # attend-then-write.
+    # attend-then-write; 5d/5e. DeepSeek-V2-Lite, 27 layers, in the GPU
+    # default order and in attend-then-write.
     served = serve(torch, kernels, "llama3-1b", "cuda", ragged=False)
-    served_b = serve(torch, kernels, "llama3-1b", "cuda", ragged=True)
+    free_device_memory(torch)
+    served_b = serve(torch, kernels, "llama3-1b", "cuda", ragged=True,
+                     tag="b")
+    free_device_memory(torch)
     served_c = serve(torch, kernels, "llama3-1b", "cuda", ragged=False,
-                     write_then_attend=False)
+                     write_then_attend=False, tag="c")
+    free_device_memory(torch)
+    served_d = serve(torch, kernels, "deepseek-v2-lite", "cuda",
+                     ragged=False, tag="d")
+    free_device_memory(torch)
+    served_e = serve(torch, kernels, "deepseek-v2-lite", "cuda",
+                     ragged=False, write_then_attend=False, tag="e")
+    free_device_memory(torch)
     tok_a = served.pop("tokens")
     same = {}
     for tag, other in (("ragged", served_b), ("attend_then_write",
@@ -1250,16 +1518,37 @@ def main() -> int:
         f"{p5c['kernel_launches_per_forward']} per forward); device busy ms "
         f"{p5['device_busy_ms']} vs {p5c['device_busy_ms']}; idle share "
         f"{p5['idle_share']} vs {p5c['idle_share']}")
+    tok_d, tok_e = served_d.pop("tokens"), served_e.pop("tokens")
+    pairs = [(x, y) for n in tok_d for x, y in zip(tok_d[n],
+                                                   tok_e.get(n, []))]
+    same["deepseek_orders"] = (sum(x == y for x, y in pairs) / len(pairs)
+                               if pairs else None)
+    p5d, p5e = served_d["profile"], served_e["profile"]
+    log(f"[serve] {card}: deepseek-v2-lite write-then-attend (5d) vs "
+        f"attend-then-write (5e): TTFT ms {served_d['ttft_ms_streams']} vs "
+        f"{served_e['ttft_ms_streams']}; decode tokens/s per stream "
+        f"{served_d['decode_tokens_per_s_streams']} vs "
+        f"{served_e['decode_tokens_per_s_streams']}; median decode step ms "
+        f"{served_d['decode_step_ms_median']} vs "
+        f"{served_e['decode_step_ms_median']}; device busy ms per profiled "
+        f"stream {p5d['device_busy_ms']} vs {p5e['device_busy_ms']}; idle "
+        f"share {p5d['idle_share']} vs {p5e['idle_share']}; share of equal "
+        f"tokens {same['deepseek_orders']}")
 
     # 6. Summary.
     for r in bench.results:
         phase = (served_b if r["name"] == "ragged_paged_attention" else
                  served_c if r["name"] in ATTEND_THEN_WRITE_KERNELS else
+                 served_d if r["name"] == "paged_decode_attention_mla" else
+                 served_e if r["name"] in MLA_KERNELS else
                  served)
         r["launches"] = phase["launches"][r["name"]]
     summary = {"card": card, "build_s": build_s, "forward_rel_l2": rel,
+               "forward_rel_l2_deepseek": rel_mla,
                "serve": served, "serve_ragged": served_b,
                "serve_attend_then_write": served_c,
+               "serve_deepseek": served_d,
+               "serve_deepseek_attend_then_write": served_e,
                "equal_token_share": same,
                "seconds": time.perf_counter() - t_start}
     log(f"[summary] {json.dumps(summary)}")

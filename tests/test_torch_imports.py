@@ -43,3 +43,15 @@ def test_checker_catches_jax_imports(tmp_path):
                    "from xllm_service_tpu_torch.ops import norm\n")
     assert [n for _, n in _bad_imports(bad)] == [
         "jax.numpy", "xllm_service_tpu.ops"]
+
+
+def test_every_subpackage_is_checked():
+    """The walk reaches every subpackage of the port, ``parallel/``
+    (the MoE dispatch) included."""
+    pkg = ROOT / "xllm_service_tpu_torch"
+    subpackages = {p.parent.relative_to(pkg).as_posix()
+                   for p in pkg.rglob("__init__.py")}
+    checked = {p.parent.relative_to(pkg).as_posix() for p in FILES[:-1]}
+    assert "parallel" in subpackages
+    assert subpackages <= checked
+    assert pkg / "parallel" / "expert.py" in FILES

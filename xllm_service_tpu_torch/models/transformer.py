@@ -1,9 +1,11 @@
-"""Decoder-only transformer over a paged KV cache: the dense families.
+"""Decoder-only transformer over a paged KV cache.
 
-The counterpart of the JAX package's ``models/transformer.py`` for
-dense, non-MLA, non-MoE models (Llama-2/3.x, Qwen2/2.5/3, Phi-3,
-Mistral, Gemma-2), in both of its orders of the KV write
-(``write_then_attend``):
+The counterpart of the JAX package's ``models/transformer.py`` for the
+Llama-2/3.x, Qwen2/2.5/3, Phi-3, Mistral and Gemma-2 families, their
+mixture-of-experts variants (Mixtral, Qwen3-MoE: SwiGLU experts behind
+a softmax top-k router, ``parallel/expert.py``), and DeepSeek-V2/V3's
+multi-head latent attention (MLA) with DeepSeek's MoE, in both of its
+orders of the KV write (``write_then_attend``):
 
 - write-then-attend: every layer writes its fresh K/V into the pool
   first (the one-layer KV writer kernels), then its attention kernel
@@ -14,6 +16,14 @@ Mistral, Gemma-2), in both of its orders of the KV write
   separate operands, and keeps them; after the layer loop they are
   stacked to [L, ...] and one launch of the all-layer writer puts them
   in the pool.
+
+Under MLA the pool holds one latent row per token, [kv_lora_rank
+(normed) | rotated k_pe], as a single KV "head" of width
+``cfg.kv_cache_dim``; the key up-projection is absorbed into the query
+and the value up-projection applied after attention, so decode
+attention reads each latent row once for both products (the K3''
+kernel). Both pools carry the same latent rows, as in the JAX package;
+the second is written and never read.
 
 Parameters are a plain dict with the JAX package's layout: per-layer
 weights stacked over a leading [L] axis, weights used as ``x @ W`` with
@@ -31,14 +41,18 @@ import torch
 import torch.nn.functional as F
 
 from xllm_service_tpu_torch.config import ModelConfig
-from xllm_service_tpu_torch.ops.attention import FULL_WINDOW
+from xllm_service_tpu_torch.ops.attention import (
+    FULL_WINDOW, gather_pages, mha_prefill, overlay_fresh_kv)
 from xllm_service_tpu_torch.ops.kernels import (
-    paged_decode_attention, paged_decode_attention_current, paged_kv_update,
-    paged_kv_update_layer, paged_prefill_attention,
+    paged_decode_attention, paged_decode_attention_current,
+    paged_decode_attention_mla, paged_decode_attention_mla_current,
+    paged_kv_update, paged_kv_update_layer, paged_prefill_attention,
     paged_prefill_attention_fresh, paged_prefill_kv_update,
     paged_prefill_kv_update_layer, ragged_paged_attention)
 from xllm_service_tpu_torch.ops.norm import rms_norm
-from xllm_service_tpu_torch.ops.rope import rope_cos_sin, rotate
+from xllm_service_tpu_torch.ops.rope import (rope_cos_sin, rotate,
+                                             rotate_interleaved)
+from xllm_service_tpu_torch.parallel.expert import moe_mlp
 
 Params = Dict[str, Any]
 KVCache = Tuple[torch.Tensor, torch.Tensor]   # [L, P, ps, Hkv, D] each
@@ -47,14 +61,13 @@ KVCache = Tuple[torch.Tensor, torch.Tensor]   # [L, P, ps, Hkv, D] each
 def check_supported(cfg: ModelConfig) -> None:
     """Refuse the families whose layer body this package lacks."""
     missing = []
-    if cfg.mla:
-        missing.append("multi-head latent attention")
-    if cfg.is_moe or cfg.gptoss:
-        missing.append("mixture-of-experts MLPs")
+    if cfg.gptoss:
+        missing.append("GPT-OSS (attention sinks, biased router, clamped "
+                       "GLU experts)")
     if cfg.rope_local_base_freq is not None:
         missing.append("per-layer rope bases")
     if cfg.rope_scaling is not None and cfg.rope_scaling[0] not in (
-            "llama3", "linear"):
+            "llama3", "linear", "yarn"):
         missing.append(f"{cfg.rope_scaling[0]} rope scaling")
     if missing:
         raise NotImplementedError(
@@ -70,19 +83,42 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 # Initialization
 # ---------------------------------------------------------------------------
 
+# Largest float32 draw of the random init, in elements (1 GiB): a larger
+# weight is drawn a slice of its leading axis at a time, so that the
+# float32 transient stays small beside the weights being built (one
+# layer's experts of DeepSeek-V2-Lite, not all 26).
+_DRAW_ELEMS = 1 << 28
+
+
+def _random_weight(shape, fan_in: int, generator: torch.Generator, device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """N(0, 1/fan_in) in ``dtype``, drawn in float32 from ``generator``
+    in slices of the leading axis of at most ``_DRAW_ELEMS`` elements."""
+    out = torch.empty(shape, device=device, dtype=dtype)
+    if out.numel() == 0:
+        return out
+    rows = max(1, _DRAW_ELEMS // (out.numel() // shape[0]))
+    for i in range(0, shape[0], rows):
+        x = torch.randn((min(rows, shape[0] - i),) + tuple(shape[1:]),
+                        generator=generator, device=device,
+                        dtype=torch.float32)
+        out[i:i + rows] = x.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
+    return out
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device, dtype: Optional[torch.dtype] = None) -> Params:
     """Random-init a parameter dict with the stacked-layer layout, drawn
     from ``generator`` (which must live on ``device``)."""
     check_supported(cfg)
     dtype = dtype or torch_dtype(cfg)
+    if cfg.mla:
+        return _init_mla_params(cfg, generator, device, dtype)
     L, D, Fi = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     def w(shape, fan_in):
-        x = torch.randn(shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return (x * (1.0 / math.sqrt(fan_in))).to(dtype)
+        return _random_weight(shape, fan_in, generator, device, dtype)
 
     def ones(*shape):
         return torch.ones(shape, device=device, dtype=dtype)
@@ -97,9 +133,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "v_proj": w((L, D, Hkv * Dh), D),
         "o_proj": w((L, Hq * Dh, D), Hq * Dh),
         "post_norm": ones(L, D),
-        "gate_proj": w((L, D, Fi), D),
-        "up_proj": w((L, D, Fi), D),
-        "down_proj": w((L, Fi, D), Fi),
     }
     if cfg.attention_bias:
         layers["q_bias"] = zeros(L, Hq * Dh)
@@ -111,6 +144,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if cfg.qk_norm:
         layers["q_norm"] = ones(L, Dh)
         layers["k_norm"] = ones(L, Dh)
+    if cfg.is_moe:
+        E, Fe = cfg.num_experts, cfg.moe_intermediate_size or Fi
+        layers["router"] = w((L, D, E), D)
+        layers["gate_proj"] = w((L, E, D, Fe), D)
+        layers["up_proj"] = w((L, E, D, Fe), D)
+        layers["down_proj"] = w((L, E, Fe, D), Fe)
+    else:
+        layers["gate_proj"] = w((L, D, Fi), D)
+        layers["up_proj"] = w((L, D, Fi), D)
+        layers["down_proj"] = w((L, Fi, D), Fi)
     params: Params = {
         "embed": w((cfg.vocab_size, D), D),
         "layers": layers,
@@ -124,8 +167,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def init_kv_cache(cfg: ModelConfig, num_pages: int, page_size: int, device,
                   dtype: Optional[torch.dtype] = None) -> KVCache:
     dtype = dtype or torch_dtype(cfg)
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
-             cfg.head_dim)
+    # MLA: one latent "head" of width kv_lora_rank + qk_rope_head_dim.
+    shape = (cfg.num_layers, num_pages, page_size, cfg.kv_cache_heads,
+             cfg.kv_cache_dim)
     return (torch.zeros(shape, device=device, dtype=dtype),
             torch.zeros(shape, device=device, dtype=dtype))
 
@@ -201,26 +245,61 @@ def _qkv(lp: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor):
     return q, k, v
 
 
-def _mlp(lp: Dict[str, torch.Tensor], cfg: ModelConfig,
-         x: torch.Tensor) -> torch.Tensor:
-    """Dense gated MLP: SiLU (Llama family) or tanh-GELU (Gemma)."""
-    gate = x @ lp["gate_proj"]
-    act = F.gelu(gate, approximate="tanh") if cfg.gemma else F.silu(gate)
-    return (act * (x @ lp["up_proj"])) @ lp["down_proj"]
+def _scatter_topk(vals: torch.Tensor, idx: torch.Tensor,
+                  num_classes: int) -> torch.Tensor:
+    """Per-token top-k ``vals`` [.., k] at distinct expert ids ``idx``
+    [.., k] as a dense [.., E] map."""
+    out = vals.new_zeros(vals.shape[:-1] + (num_classes,))
+    return out.scatter_(-1, idx, vals)
 
 
-def _block_tail(lp, cfg: ModelConfig, x: torch.Tensor,
-                a: torch.Tensor) -> torch.Tensor:
+def _experts_dense(lp: Dict[str, torch.Tensor], x: torch.Tensor,
+                   weights: torch.Tensor) -> torch.Tensor:
+    """The dense oracle of an MoE layer: every SwiGLU expert on every
+    token, mixed by the [B, T, E] routing map."""
+    h = F.silu(torch.einsum("btd,edf->btef", x, lp["gate_proj"])) \
+        * torch.einsum("btd,edf->btef", x, lp["up_proj"])
+    out = torch.einsum("btef,efd->bted", h, lp["down_proj"])
+    return torch.einsum("bted,bte->btd", out, weights.to(x.dtype))
+
+
+def _mlp(lp: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
+         valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gated MLP: SiLU (Llama family) or tanh-GELU (Gemma); MoE models
+    route each token through its top-k SwiGLU experts. ``valid`` [B, T]
+    bool marks real tokens: padding and inactive rows take no expert
+    capacity. The capacity path's drop count is not surfaced."""
+    if not cfg.is_moe:
+        gate = x @ lp["gate_proj"]
+        act = F.gelu(gate, approximate="tanh") if cfg.gemma else F.silu(gate)
+        return (act * (x @ lp["up_proj"])) @ lp["down_proj"]
+    k = cfg.num_experts_per_tok
+    if cfg.moe_capacity_factor > 0:
+        out, _ = moe_mlp(x, lp["router"], lp["gate_proj"], lp["up_proj"],
+                         lp["down_proj"], k, cfg.moe_capacity_factor,
+                         valid=valid, group_size=cfg.moe_group_size,
+                         norm_topk=cfg.norm_topk_prob)
+        return out
+    # Dense oracle (capacity factor 0), the reference of the sparse path.
+    gates = torch.softmax((x @ lp["router"]).float(), dim=-1)
+    topv, topi = torch.topk(gates, k, dim=-1)
+    if cfg.norm_topk_prob:
+        topv = topv / topv.sum(dim=-1, keepdim=True)
+    return _experts_dense(lp, x, _scatter_topk(topv, topi, gates.shape[-1]))
+
+
+def _block_tail(lp, cfg: ModelConfig, x: torch.Tensor, a: torch.Tensor,
+                valid: torch.Tensor) -> torch.Tensor:
     """Residual adds around attention output ``a`` and the MLP; Gemma's
     four-norm block norms each sublayer output before its add."""
     if cfg.gemma:
         x = x + rms_norm(a, lp["post_norm"], cfg.rms_norm_eps)
         h = rms_norm(x, lp["pre_ff_norm"], cfg.rms_norm_eps)
-        return x + rms_norm(_mlp(lp, cfg, h), lp["post_ff_norm"],
+        return x + rms_norm(_mlp(lp, cfg, h, valid), lp["post_ff_norm"],
                             cfg.rms_norm_eps)
     x = x + a
     h = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
-    return x + _mlp(lp, cfg, h)
+    return x + _mlp(lp, cfg, h, valid)
 
 
 def _attn_out(lp, a: torch.Tensor) -> torch.Tensor:
@@ -258,6 +337,11 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     check_supported(cfg)
     if ragged and not write_then_attend:
         raise ValueError("the ragged mixed step requires write_then_attend")
+    if cfg.mla:
+        if ragged:
+            raise ValueError("MLA models have no ragged mixed-batch path")
+        return _mla_forward_prefill(params, cfg, tokens, start_pos, lengths,
+                                    kv, page_table, write_then_attend)
     attend = ragged_paged_attention if ragged else paged_prefill_attention
     k_pages, v_pages = kv
     B, T = tokens.shape
@@ -267,6 +351,8 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     # Every layer rotates by the same positions: one cos/sin table.
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
+    valid = torch.arange(T, device=tokens.device)[None, :] \
+        < lengths.long()[:, None]
     extras = _attn_extras(cfg)
     windows = _layer_windows(cfg)
     k_fresh, v_fresh = [], []
@@ -287,7 +373,8 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             attn = paged_prefill_attention_fresh(
                 q, k, v, k_pages, v_pages, page_table, start_pos, lengths, i,
                 **kw)
-        x = _block_tail(lp, cfg, x, _attn_out(lp, attn.reshape(B, T, -1)))
+        x = _block_tail(lp, cfg, x, _attn_out(lp, attn.reshape(B, T, -1)),
+                        valid)
     if not write_then_attend:
         paged_prefill_kv_update(k_pages, v_pages, torch.stack(k_fresh),
                                 torch.stack(v_fresh), page_table, start_pos,
@@ -313,6 +400,9 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     the current one, held apart; one launch writes all layers' rows
     after the loop."""
     check_supported(cfg)
+    if cfg.mla:
+        return _mla_forward_decode(params, cfg, tokens, positions, active,
+                                   kv, page_table, write_then_attend)
     k_pages, v_pages = kv
     B = tokens.shape[0]
     x = _scale_embed(cfg, params["embed"][tokens[:, None]])        # [B, 1, D]
@@ -343,9 +433,308 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             attn = paged_decode_attention_current(
                 q[:, 0], k_pages, v_pages, page_table, cache_lens, k[:, 0],
                 v[:, 0], i, **kw)
-        x = _block_tail(lp, cfg, x, _attn_out(lp, attn.reshape(B, 1, -1)))
+        x = _block_tail(lp, cfg, x, _attn_out(lp, attn.reshape(B, 1, -1)),
+                        active[:, None])
     if not write_then_attend:
         paged_kv_update(k_pages, v_pages, torch.stack(k_cur),
                         torch.stack(v_cur), page_table, positions, active)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return _head_logits(cfg, x[:, 0], _head(params)), (k_pages, v_pages)
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2/V3 multi-head latent attention (MLA)
+#
+# The pool holds one latent row per token, [c_hat (kv_a_norm-ed, rank r)
+# | rope(k_pe)], as a single KV "head" (cfg.kv_cache_heads/dim). The kv_b
+# up-projections are absorbed: scores = (W_bk^T q_nope) . c + q_pe . k_pe
+# and out_h = W_bv (sum p c), HF's per-head math by associativity, so
+# attention reads r + rope values per token. The rope sub-head rotates
+# adjacent pairs (cfg.rope_interleave).
+# ---------------------------------------------------------------------------
+
+def _init_mla_params(cfg: ModelConfig, generator: torch.Generator, device,
+                     dtype: torch.dtype) -> Params:
+    """The JAX package's MLA layout: ``layers`` holds the first
+    ``first_k_dense_replace`` (dense-MLP) layers, ``layers_moe`` the MoE
+    layers after them."""
+    D, Hq = cfg.hidden_size, cfg.num_heads
+    r, rope = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
+
+    def w(shape, fan_in):
+        return _random_weight(shape, fan_in, generator, device, dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, device=device, dtype=dtype)
+
+    def attn_block(L):
+        blk = {
+            "input_norm": ones(L, D),
+            "kv_a": w((L, D, r + rope), D),
+            "kv_a_norm": ones(L, r),
+            "kv_b_k": w((L, Hq, nope, r), r),
+            "kv_b_v": w((L, Hq, vd, r), r),
+            "o_proj": w((L, Hq * vd, D), Hq * vd),
+            "post_norm": ones(L, D),
+        }
+        if cfg.q_lora_rank:
+            blk["q_a"] = w((L, D, cfg.q_lora_rank), D)
+            blk["q_a_norm"] = ones(L, cfg.q_lora_rank)
+            blk["q_b"] = w((L, cfg.q_lora_rank, Hq * cfg.qk_head_dim),
+                           cfg.q_lora_rank)
+        else:
+            blk["q_proj"] = w((L, D, Hq * cfg.qk_head_dim), D)
+        return blk
+
+    k_dense = cfg.first_k_dense_replace if cfg.is_moe else cfg.num_layers
+    n_moe = cfg.num_layers - k_dense
+    Fi = cfg.intermediate_size
+    dense = attn_block(k_dense)
+    dense["gate_proj"] = w((k_dense, D, Fi), D)
+    dense["up_proj"] = w((k_dense, D, Fi), D)
+    dense["down_proj"] = w((k_dense, Fi, D), Fi)
+    params: Params = {
+        "embed": w((cfg.vocab_size, D), D),
+        "layers": dense,
+        "final_norm": ones(D),
+    }
+    if n_moe:
+        Fe = cfg.moe_intermediate_size or Fi
+        E = cfg.num_experts
+        moe = attn_block(n_moe)
+        moe["router"] = w((n_moe, D, E), D)
+        if cfg.moe_scoring == "sigmoid":
+            moe["router_bias"] = torch.zeros(n_moe, E, device=device,
+                                             dtype=torch.float32)
+        moe["gate_proj"] = w((n_moe, E, D, Fe), D)
+        moe["up_proj"] = w((n_moe, E, D, Fe), D)
+        moe["down_proj"] = w((n_moe, E, Fe, D), Fe)
+        if cfg.n_shared_experts:
+            Fs = Fe * cfg.n_shared_experts
+            moe["shared_gate"] = w((n_moe, D, Fs), D)
+            moe["shared_up"] = w((n_moe, D, Fs), D)
+            moe["shared_down"] = w((n_moe, Fs, D), Fs)
+        params["layers_moe"] = moe
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = w((D, cfg.vocab_size), D)
+    return params
+
+
+def _deepseek_gate(cfg: ModelConfig, x: torch.Tensor,
+                   router_w: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Routing weights after DeepSeek's selection rules, as a dense
+    [.., E] map.
+
+    V2 (softmax scoring): softmax over float32 logits; group-limited
+    routing zeroes every expert outside the top ``topk_group`` of
+    ``n_group`` groups (a group scores its best member); the top-k
+    selected scores are the weights, unnormalized. V3 (sigmoid scoring):
+    selection uses the scores plus the per-expert ``bias`` and top-2-sum
+    group scores; the weights are the raw sigmoid scores of the chosen
+    experts, normalized when ``norm_topk_prob``. Both scale by
+    ``routed_scaling_factor``."""
+    logits = (x @ router_w).float()
+    E = logits.shape[-1]
+    sigmoid = cfg.moe_scoring == "sigmoid"
+    scores = torch.sigmoid(logits) if sigmoid else torch.softmax(logits, -1)
+    choice = scores + bias if (sigmoid and bias is not None) else scores
+    if cfg.topk_method == "group_limited_greedy":
+        G = cfg.n_group
+        grouped = choice.reshape(*choice.shape[:-1], G, E // G)
+        gs = (grouped.topk(2, dim=-1).values.sum(-1) if sigmoid
+              else grouped.amax(dim=-1))
+        gidx = gs.topk(cfg.topk_group, dim=-1).indices
+        gmask = torch.zeros_like(gs).scatter_(-1, gidx, 1.0)
+        choice = torch.where(gmask.repeat_interleave(E // G, dim=-1) > 0,
+                             choice, torch.zeros_like(choice))
+    topi = choice.topk(cfg.num_experts_per_tok, dim=-1).indices
+    sel = torch.zeros_like(scores).scatter_(-1, topi, 1.0)
+    weights = (scores if sigmoid else choice) * sel
+    if sigmoid and cfg.norm_topk_prob:
+        weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-20)
+    return weights * cfg.routed_scaling_factor
+
+
+def _mla_moe_mlp(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
+                 x: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Routed experts behind the DeepSeek gate, plus the always-on shared
+    experts. A capacity factor > 0 dispatches sparsely (the drop count is
+    discarded, as in the JAX package); 0 runs the dense oracle."""
+    weights = _deepseek_gate(cfg, x, lp["router"], lp.get("router_bias"))
+    if cfg.moe_capacity_factor > 0:
+        routed, _ = moe_mlp(
+            x, lp["router"], lp["gate_proj"], lp["up_proj"],
+            lp["down_proj"], cfg.num_experts_per_tok,
+            cfg.moe_capacity_factor, valid=valid,
+            group_size=cfg.moe_group_size, norm_topk=False, gates=weights)
+    else:
+        routed = _experts_dense(lp, x, weights)
+    if "shared_gate" not in lp:
+        return routed
+    return routed + (F.silu(x @ lp["shared_gate"]) * (x @ lp["shared_up"])) \
+        @ lp["shared_down"]
+
+
+def _mla_rope(cfg: ModelConfig, positions: torch.Tensor):
+    """cos/sin of the rope sub-head for ``positions`` [B, T], and the
+    rotation it takes."""
+    cos, sin = rope_cos_sin(positions.long(), cfg.qk_rope_head_dim,
+                            cfg.rope_theta, cfg.rope_scaling)
+    return cos, sin, (rotate_interleaved if cfg.rope_interleave else rotate)
+
+
+def _mla_qkv(cfg: ModelConfig, lp, h: torch.Tensor, rope):
+    """The absorbed query and the latent row of one layer.
+
+    h: [B, T, D]; ``rope`` from ``_mla_rope``. Returns (q_tilde [B, T, Hq,
+    r + rope] = [W_bk^T q_nope | rope(q_pe)], latent [B, T, 1, r + rope]
+    = [c_hat | rope(k_pe)])."""
+    cos, sin, rot = rope
+    B, T, _ = h.shape
+    r, nope = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    if cfg.q_lora_rank:
+        q = rms_norm(h @ lp["q_a"], lp["q_a_norm"], cfg.rms_norm_eps) \
+            @ lp["q_b"]
+    else:
+        q = h @ lp["q_proj"]
+    q = q.reshape(B, T, cfg.num_heads, cfg.qk_head_dim)
+    q_eff = torch.einsum("bthn,hnr->bthr", q[..., :nope], lp["kv_b_k"])
+    q_tilde = torch.cat([q_eff, rot(q[..., nope:], cos, sin)], dim=-1)
+    ckv = h @ lp["kv_a"]                                     # [B, T, r+rope]
+    c_hat = rms_norm(ckv[..., :r], lp["kv_a_norm"], cfg.rms_norm_eps)
+    latent = torch.cat([c_hat, rot(ckv[..., r:], cos, sin)], dim=-1)
+    return q_tilde, latent[:, :, None, :]
+
+
+def _mla_out(cfg: ModelConfig, lp, attn: torch.Tensor) -> torch.Tensor:
+    """attn [..., Hq, r + rope] -> the absorbed value up-projection of its
+    first r columns -> o_proj."""
+    o = torch.einsum("...hr,hvr->...hv", attn[..., :cfg.kv_lora_rank],
+                     lp["kv_b_v"])
+    return o.reshape(*o.shape[:-2], -1) @ lp["o_proj"]
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    """Softmax scale: qk_head_dim^-0.5, times yarn's mscale squared (the
+    query and the key side) when the checkpoint folds it in
+    (``mla_yarn_mscale``, a nonzero mscale_all_dim)."""
+    scale = cfg.qk_head_dim ** -0.5
+    rs = cfg.rope_scaling
+    if cfg.mla_yarn_mscale and rs is not None and rs[0] == "yarn":
+        factor, msa = rs[1], rs[7] if len(rs) > 7 else 0.0
+        if msa and factor > 1.0:
+            m = 0.1 * msa * math.log(factor) + 1.0
+            scale = scale * m * m
+    return scale
+
+
+def _mla_layers(params: Params):
+    """(global layer index, layer weights, MoE?) over the dense layers,
+    then the MoE layers."""
+    li = 0
+    for key, moe in (("layers", False), ("layers_moe", True)):
+        stack = params.get(key)
+        if stack is None:
+            continue
+        for i in range(stack["input_norm"].shape[0]):
+            yield li, {k: v[i] for k, v in stack.items()}, moe
+            li += 1
+
+
+def _mla_mlp(cfg: ModelConfig, lp, h: torch.Tensor, moe: bool,
+             valid: torch.Tensor) -> torch.Tensor:
+    if moe:
+        return _mla_moe_mlp(cfg, lp, h, valid)
+    return (F.silu(h @ lp["gate_proj"]) * (h @ lp["up_proj"])) \
+        @ lp["down_proj"]
+
+
+def _mla_forward_prefill(params: Params, cfg: ModelConfig,
+                         tokens: torch.Tensor, start_pos: torch.Tensor,
+                         lengths: torch.Tensor, kv: KVCache,
+                         page_table: torch.Tensor, write_then_attend: bool
+                         ) -> Tuple[torch.Tensor, KVCache]:
+    """``forward_prefill`` for MLA models. Attention is the plain
+    ``mha_prefill`` over the gathered latent pool (write-then-attend:
+    after K2 wrote the window) or over the gathered prefix with the fresh
+    window laid over it (attend-then-write: K7 writes every layer's
+    window after the loop), as the JAX package runs it through XLA."""
+    k_pages, v_pages = kv
+    B, T = tokens.shape
+    x = params["embed"][tokens]
+    positions = start_pos.long()[:, None] + torch.arange(
+        T, device=tokens.device)[None, :]
+    kv_lengths = start_pos + lengths
+    valid = torch.arange(T, device=tokens.device)[None, :] \
+        < lengths.long()[:, None]
+    rope = _mla_rope(cfg, positions)
+    scale = _mla_scale(cfg)
+    fresh = []
+    for li, lp, moe in _mla_layers(params):
+        h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+        q_t, latent = _mla_qkv(cfg, lp, h, rope)
+        if write_then_attend:
+            paged_prefill_kv_update_layer(k_pages, v_pages, latent, latent,
+                                          page_table, start_pos, lengths, li)
+            lat_all = gather_pages(k_pages[li], page_table)
+        else:
+            fresh.append(latent)
+            lat_all = overlay_fresh_kv(gather_pages(k_pages[li], page_table),
+                                       latent, start_pos)
+        attn = mha_prefill(q_t, lat_all, lat_all, kv_lengths, start_pos,
+                           scale=scale)
+        x = x + _mla_out(cfg, lp, attn)
+        h = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
+        x = x + _mla_mlp(cfg, lp, h, moe, valid)
+    if not write_then_attend:
+        rows = torch.stack(fresh)
+        paged_prefill_kv_update(k_pages, v_pages, rows, rows, page_table,
+                                start_pos, lengths)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    last = (lengths.long() - 1).clamp(min=0)
+    last_x = x[torch.arange(B, device=x.device), last]
+    return _head_logits(cfg, last_x, _head(params)), (k_pages, v_pages)
+
+
+def _mla_forward_decode(params: Params, cfg: ModelConfig,
+                        tokens: torch.Tensor, positions: torch.Tensor,
+                        active: torch.Tensor, kv: KVCache,
+                        page_table: torch.Tensor, write_then_attend: bool
+                        ) -> Tuple[torch.Tensor, KVCache]:
+    """``forward_decode`` for MLA models: every layer attends with K3''
+    over its latent pool, after K1 wrote the current latent row
+    (write-then-attend), or with the current row held apart and K6
+    writing every layer's row after the loop (attend-then-write)."""
+    k_pages, v_pages = kv
+    x = params["embed"][tokens[:, None]]                    # [B, 1, D]
+    rope = _mla_rope(cfg, positions[:, None])
+    scale = _mla_scale(cfg)
+    zero = torch.zeros_like(positions)
+    context = torch.where(active, positions + 1, zero)
+    cache_lens = torch.where(active, positions, zero)
+    current = []
+    for li, lp, moe in _mla_layers(params):
+        h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+        q_t, latent = _mla_qkv(cfg, lp, h, rope)
+        lat = latent[:, 0]                                  # [B, 1, r+rope]
+        if write_then_attend:
+            paged_kv_update_layer(k_pages, v_pages, lat, lat, page_table,
+                                  positions, active, li)
+            attn = paged_decode_attention_mla(q_t[:, 0], k_pages, page_table,
+                                              context, li, scale)
+        else:
+            current.append(lat)
+            attn = paged_decode_attention_mla_current(
+                q_t[:, 0], k_pages, page_table, cache_lens, lat, li, scale)
+        x = x + _mla_out(cfg, lp, attn)[:, None, :]
+        h = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
+        x = x + _mla_mlp(cfg, lp, h, moe, active[:, None])
+    if not write_then_attend:
+        rows = torch.stack(current)
+        paged_kv_update(k_pages, v_pages, rows, rows, page_table, positions,
+                        active)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return _head_logits(cfg, x[:, 0], _head(params)), (k_pages, v_pages)

@@ -19,8 +19,12 @@ from xllm_service_tpu_torch.config import ModelConfig
 from xllm_service_tpu_torch.models.transformer import (
     Params, check_supported, torch_dtype)
 
-# Leaves kept in float32 whatever the model dtype (GPT-OSS sink logits).
-_FLOAT32_LEAVES = ("sinks",)
+# Leaves kept in float32 whatever the model dtype: GPT-OSS sink logits
+# and DeepSeek-V3's expert selection bias.
+_FLOAT32_LEAVES = ("sinks", "router_bias")
+# Stacks of per-layer weights: every family's layers, and under MLA the
+# MoE layers after the dense ones.
+_LAYER_STACKS = ("layers", "layers_moe")
 
 
 def _tensor(x: Any, device, dtype: torch.dtype) -> torch.Tensor:
@@ -41,6 +45,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device,
                        torch.float32 if name in _FLOAT32_LEAVES else dtype)
 
     params: Params = {k: conv(k, v) for k, v in tree.items()
-                      if k != "layers"}
-    params["layers"] = {k: conv(k, v) for k, v in tree["layers"].items()}
+                      if k not in _LAYER_STACKS}
+    for stack in _LAYER_STACKS:
+        if stack in tree:
+            params[stack] = {k: conv(k, v) for k, v in tree[stack].items()}
     return params

@@ -30,6 +30,12 @@ attention                              paged_decode_attention_pallas
 paged_attention.paged_decode_          paged_attention.py
 attention_current                      paged_decode_attention_pallas
                                        (k_cur/v_cur form)
+paged_attention.paged_decode_          paged_attention.py
+attention_mla                          paged_decode_attention_pallas
+                                       (MLA latent pool as K and V)
+paged_attention.paged_decode_          paged_attention.py
+attention_mla_current                  paged_decode_attention_pallas
+                                       (MLA, k_cur/v_cur form)
 prefill_attention.paged_prefill_       prefill_attention.py
 attention                              paged_prefill_attention_pallas
                                        (from_pool form)
@@ -52,7 +58,8 @@ from xllm_service_tpu_torch.ops.kernels.kv_update import (
     paged_kv_update, paged_kv_update_layer, paged_prefill_kv_update,
     paged_prefill_kv_update_layer)
 from xllm_service_tpu_torch.ops.kernels.paged_attention import (
-    paged_decode_attention, paged_decode_attention_current)
+    paged_decode_attention, paged_decode_attention_current,
+    paged_decode_attention_mla, paged_decode_attention_mla_current)
 from xllm_service_tpu_torch.ops.kernels.prefill_attention import (
     paged_prefill_attention, paged_prefill_attention_fresh)
 from xllm_service_tpu_torch.ops.kernels.ragged_attention import (
@@ -64,7 +71,9 @@ WRAPPERS: List[Callable] = [paged_kv_update_layer,
                             ragged_paged_attention, paged_kv_update,
                             paged_prefill_kv_update,
                             paged_decode_attention_current,
-                            paged_prefill_attention_fresh]
+                            paged_prefill_attention_fresh,
+                            paged_decode_attention_mla,
+                            paged_decode_attention_mla_current]
 
 
 def launch_counts() -> Dict[str, int]:
@@ -81,4 +90,5 @@ __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts",
            "paged_decode_attention", "paged_prefill_attention",
            "ragged_paged_attention", "paged_kv_update",
            "paged_prefill_kv_update", "paged_decode_attention_current",
-           "paged_prefill_attention_fresh"]
+           "paged_prefill_attention_fresh", "paged_decode_attention_mla",
+           "paged_decode_attention_mla_current"]

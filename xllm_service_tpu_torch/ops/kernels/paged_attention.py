@@ -1,4 +1,5 @@
-"""Paged decode attention (CUDA kernel ``csrc/paged_decode_attention.cu``).
+"""Paged decode attention (CUDA kernels ``csrc/paged_decode_attention.cu``
+and ``csrc/paged_decode_attention_mla.cu``).
 
 Replaces the Pallas kernel ``paged_decode_attention_pallas``
 (xllm_service_tpu/ops/pallas/paged_attention.py:154) in the two forms
@@ -9,14 +10,22 @@ the decode step launches, on layered pools:
 - ``paged_decode_attention_current``, attend-then-write (the Pallas
   ``has_current`` form): the pool holds ``cache_lens`` tokens and the
   current token's K/V come as ``k_cur``/``v_cur``, written to the pool
-  for all layers only after the layer loop.
+  for all layers only after the layer loop;
+
+and at the geometry of multi-head latent attention (MLA), where one KV
+"head" per token holds the latent row (D = kv_lora_rank +
+qk_rope_head_dim = 576 for DeepSeek) that serves as both K and V:
+``paged_decode_attention_mla`` and ``paged_decode_attention_mla_current``
+take that one pool, in the same two forms. Their kernel reads each
+latent row once for both products.
 
 The Pallas "layered" form put the layer index in the page DMA's index
 map so that the [L, P, ps, Hkv, D] pool was never sliced; in PyTorch
 ``k_pages[layer]`` is a view of the full pool and costs nothing, so the
 kernel reads that view.
 
-Bound on an H100: bytes (each K/V row of the context read once).
+Bound on an H100: bytes (each K/V row, or latent row, of the context
+read once).
 """
 
 from __future__ import annotations
@@ -31,8 +40,11 @@ from xllm_service_tpu_torch.ops.kernels._launch import (
     F, I, P, check, on_cuda, ptr, raise_on_error, require, stream)
 
 _lib = None
+_lib_mla = None
 _HEAD_DIMS = (64, 128, 256)       # the kernel's instantiations
 _MAX_GROUP = 16
+_MLA_DIMS = (576,)                # the MLA kernel's latent row
+_MLA_MAX_HEADS = 16               # one 16-row tensor-core tile
 
 
 def _kernel():
@@ -206,3 +218,142 @@ def paged_decode_attention_current(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_decode_attention_current.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# MLA: one latent pool serves as K and V
+# ---------------------------------------------------------------------------
+
+def _mla_kernel():
+    global _lib_mla
+    if _lib_mla is None:
+        lib = _build.load("paged_decode_attention_mla")
+        lib.paged_decode_attention_mla.argtypes = [
+            P, P, P, P, P, I, I, I, I, I, F, P]
+        lib.paged_decode_attention_mla.restype = I
+        lib.paged_decode_attention_mla_current.argtypes = [
+            P, P, P, P, P, P, I, I, I, I, I, F, P]
+        lib.paged_decode_attention_mla_current.restype = I
+        _lib_mla = lib
+    return _lib_mla
+
+
+def paged_decode_attention_mla_plain(q, latent_pages, page_table,
+                                     context_lens, layer: int,
+                                     scale: float):
+    """Plain version: ``ops/attention.paged_decode_attention`` with the
+    layer's latent pool as both K and V, rows of context 0 set to zero
+    as the kernel leaves them."""
+    pool = latent_pages[layer]
+    out = attention.paged_decode_attention(q, pool, pool, page_table,
+                                           context_lens, scale=scale)
+    return out.masked_fill((context_lens <= 0)[:, None, None], 0.0)
+
+
+def paged_decode_attention_mla_current_plain(q, latent_pages, page_table,
+                                             cache_lens, latent_cur,
+                                             layer: int, scale: float):
+    """Plain version: ``ops/attention.paged_decode_attention_current``
+    with the layer's latent pool and the current latent row as both K
+    and V."""
+    pool = latent_pages[layer]
+    return attention.paged_decode_attention_current(
+        q, pool, pool, page_table, cache_lens, latent_cur, latent_cur,
+        scale=scale)
+
+
+def _check_mla(q, latent_pages, page_table, lens, lens_name,
+               layer) -> List[torch.Tensor]:
+    """``_check_arguments`` with the latent pool as K and V, which must
+    hold one head."""
+    _check_arguments(q, latent_pages, latent_pages, page_table, lens,
+                     lens_name, layer, None)
+    require(latent_pages.shape[3] == 1,
+            f"an MLA pool holds one latent head, got "
+            f"{tuple(latent_pages.shape)}")
+    return [q, latent_pages, page_table, lens]
+
+
+def _check_mla_cuda(q: torch.Tensor, latent_pages: torch.Tensor) -> None:
+    """What the CUDA kernel takes beyond ``_check_mla``."""
+    require(q.dtype == torch.bfloat16, "the CUDA kernel takes bfloat16")
+    require(q.shape[2] in _MLA_DIMS,
+            f"latent width {q.shape[2]} not in {_MLA_DIMS}")
+    require(q.shape[1] <= _MLA_MAX_HEADS,
+            f"{q.shape[1]} query heads > {_MLA_MAX_HEADS}")
+    require(latent_pages.shape[1] * latent_pages.shape[2] < 2 ** 31,
+            "pool too large for int32 rows")
+
+
+def paged_decode_attention_mla(q: torch.Tensor, latent_pages: torch.Tensor,
+                               page_table: torch.Tensor,
+                               context_lens: torch.Tensor, layer: int,
+                               scale: float) -> torch.Tensor:
+    """MLA decode attention of the absorbed queries over layer ``layer``
+    of the latent pool, the write-then-attend form.
+
+    q: [B, Hq, D] (D = kv_lora_rank + qk_rope_head_dim); latent_pages:
+    [L, P, ps, 1, D]; page_table: [B, MP] int32; context_lens: [B] int32
+    keys per row, the query's own included; ``scale`` the softmax scale
+    (yarn's mscale folded in). Rows with context 0 give zeros. Returns
+    [B, Hq, D], all D columns (the caller keeps the first
+    kv_lora_rank)."""
+    tensors = _check_mla(q, latent_pages, page_table, context_lens,
+                         "context_lens", layer)
+    if not on_cuda(tensors):
+        return paged_decode_attention_mla_plain(
+            q, latent_pages, page_table, context_lens, int(layer),
+            float(scale))
+    _check_mla_cuda(q, latent_pages)
+    B, Hq, D = q.shape
+    out = torch.empty_like(q)
+    rc = _mla_kernel().paged_decode_attention_mla(
+        ptr(q), ptr(latent_pages[layer]), ptr(page_table), ptr(context_lens),
+        ptr(out), B, Hq, D, page_table.shape[1], latent_pages.shape[2],
+        float(scale), stream())
+    raise_on_error("paged_decode_attention_mla", rc)
+    paged_decode_attention_mla.launches += 1
+    return out
+
+
+paged_decode_attention_mla.launches = 0
+
+
+def paged_decode_attention_mla_current(q: torch.Tensor,
+                                       latent_pages: torch.Tensor,
+                                       page_table: torch.Tensor,
+                                       cache_lens: torch.Tensor,
+                                       latent_cur: torch.Tensor, layer: int,
+                                       scale: float) -> torch.Tensor:
+    """MLA decode attention over layer ``layer`` of the latent pool plus
+    the current token's latent row, which the pool does not hold yet:
+    the attend-then-write form.
+
+    q: [B, Hq, D]; latent_pages: [L, P, ps, 1, D]; cache_lens: [B] int32
+    tokens in the pool before the current one; latent_cur: [B, 1, D].
+    Pool keys at positions < cache_len and the current row are attended;
+    the pool slot at cache_len is never read, and a row with cache_len 0
+    attends to its current row alone. Returns [B, Hq, D]."""
+    tensors = _check_mla(q, latent_pages, page_table, cache_lens,
+                         "cache_lens", layer)
+    check("latent_cur", latent_cur, 3)
+    B, Hq, D = q.shape
+    require(tuple(latent_cur.shape) == (B, 1, D),
+            f"latent_cur must be {(B, 1, D)}")
+    require(latent_cur.dtype == q.dtype, "latent_cur must share q's dtype")
+    if not on_cuda(tensors + [latent_cur]):
+        return paged_decode_attention_mla_current_plain(
+            q, latent_pages, page_table, cache_lens, latent_cur, int(layer),
+            float(scale))
+    _check_mla_cuda(q, latent_pages)
+    out = torch.empty_like(q)
+    rc = _mla_kernel().paged_decode_attention_mla_current(
+        ptr(q), ptr(latent_pages[layer]), ptr(page_table), ptr(cache_lens),
+        ptr(latent_cur), ptr(out), B, Hq, D, page_table.shape[1],
+        latent_pages.shape[2], float(scale), stream())
+    raise_on_error("paged_decode_attention_mla_current", rc)
+    paged_decode_attention_mla_current.launches += 1
+    return out
+
+
+paged_decode_attention_mla_current.launches = 0

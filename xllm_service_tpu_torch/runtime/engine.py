@@ -174,7 +174,9 @@ class Engine:
         self.step_token_budget = (engine_cfg.step_token_budget
                                   or engine_cfg.max_prefill_tokens)
         self.prefill_deadline_ms = float(engine_cfg.prefill_deadline_ms)
-        self.ragged = bool(engine_cfg.ragged_attn)
+        # MLA models have no ragged mixed step (as in the JAX engine):
+        # their mixed iterations run split.
+        self.ragged = bool(engine_cfg.ragged_attn) and not model_cfg.mla
         self.write_then_attend = resolve_write_then_attend(
             engine_cfg.write_then_attend, self.device)
         # What the last step() did (the JAX engine's step ledger). A

@@ -53,9 +53,12 @@ from xllm_service_tpu_torch.utils.types import (
 logger = logging.getLogger(__name__)
 
 _MODEL_REGISTRY = {
-    # vocab 512 >= the byte tokenizer's id range (256 bytes + specials).
+    # vocab 512 >= the byte tokenizer's id range (256 bytes + specials):
+    # an embedding lookup past the vocabulary raises in PyTorch.
     "tiny": lambda: ModelConfig.tiny(vocab_size=512),
+    "tiny-moe": lambda: ModelConfig.tiny(vocab_size=512, num_experts=4),
     "llama3-1b": ModelConfig.llama3_1b,
+    "deepseek-v2-lite": ModelConfig.deepseek_v2_lite,
 }
 
 
