@@ -34,7 +34,13 @@ Phases (any failure raises and the exit code is not 0):
    576-wide latent head, a 27-layer pool; contexts 117-411 with an
    inactive row, and for the current form a row at cache length 0 and
    stale slots), timed beside gather + SDPA over the latent as K and V
-   of every head; and K1/K2 bit-exact at the latent row.
+   of every head; and K1/K2 bit-exact at the latent row. K4, K4' and
+   K5's window tiles (the tile code they share) are also held at
+   D = 128 (G = 3) and D = 256 (G = 4) on a small pool of page size 16,
+   and at a long prompt (B = 2 x T = 2048 at q_start 0/2048, page
+   tables of 32 pages), in all four argument sets; K4 and K4' are timed
+   at the long prompt too (records ``*_long_prompt``, bound by the
+   tensor cores' operations, with their share of the bound).
 4. Forward: a full-width llama3-1b forward_prefill + forward_decode + a
    ragged forward_prefill through the kernels (bf16 on the GPU), and
    the attend-then-write order (two prefill windows, the second at
@@ -76,7 +82,8 @@ Phases (any failure raises and the exit code is not 0):
    before the next phase.
 6. Summary: one line ``{"kernels": [...]}`` (K1-K4 launches from phase
    5, K5 from 5b, K6, K7, K3' and K4' from 5c, K3'' from 5d and its
-   current form from 5e), the card line, then the last line
+   current form from 5e; a record at another shape takes its kernel's
+   count), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without printing a result when no CUDA device is
@@ -220,11 +227,11 @@ class KernelBench:
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "kernel_ms": ms, "eager_ms": eager_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, **extra})
+            "bound_share": b_ms / ms, "library_ms": lib_ms, **extra})
         log(f"[kernel] {name}: max_abs_err={err} ms={ms:.5f} "
             f"eager_ms={eager_ms:.5f} plain_ms={plain_ms:.5f} "
-            f"library_ms={lib_ms:.5f} bound_ms={b_ms:.6f} ({b_by}) "
-            f"{json.dumps(extra)}")
+            f"library_ms={lib_ms:.5f} bound_ms={b_ms:.6f} ({b_by}, "
+            f"{b_ms / ms:.4f} of it) {json.dumps(extra)}")
 
     def latent_pools(self):
         """A 4-layer pool pair of the MLA latent row (Hkv=1, D=576) with
@@ -403,25 +410,14 @@ class KernelBench:
         valid = (torch.arange(T, device=self.dev)[None, :]
                  < lens.long()[:, None])
         worst = 0.0
-        for extras in ({}, {"sliding_window": 100},
-                       {"logits_soft_cap": 30.0, "scale": 0.1},
-                       {"sinks": sinks, "sliding_window": 64}):
-            got = pf.paged_prefill_attention(q, self.kp, self.vp, pt,
-                                             q_start, lens, self.layer,
-                                             **extras)
-            want = pf.paged_prefill_attention_plain(
-                q, self.kp, self.vp, pt, q_start, lens, self.layer, **extras)
-            torch.cuda.synchronize()
-            g, w = got[valid].float(), want[valid].float()
-            if not bool(torch.isfinite(got).all()):
-                raise AssertionError(f"prefill attention not finite {extras}")
-            if not torch.allclose(g, w, atol=ATTN_TOL, rtol=ATTN_TOL):
-                raise AssertionError(
-                    f"prefill attention disagrees ({list(extras)}): "
-                    f"{float((g - w).abs().max())}")
-            if bool(got[~valid].float().abs().max() != 0):
-                raise AssertionError("padded prefill rows not zero")
-            worst = max(worst, float((g - w).abs().max()))
+        for extras in self.arg_sets(sinks):
+            worst = max(worst, self.close(
+                f"prefill attention ({list(extras)})",
+                pf.paged_prefill_attention(q, self.kp, self.vp, pt, q_start,
+                                           lens, self.layer, **extras),
+                pf.paged_prefill_attention_plain(
+                    q, self.kp, self.vp, pt, q_start, lens, self.layer,
+                    **extras), valid))
         S = self.MP * self.ps
         kv_pos = torch.arange(S, device=self.dev)[None, None, :]
         q_pos = q_start.long()[:, None, None] + torch.arange(
@@ -469,33 +465,17 @@ class KernelBench:
         sinks = self.randn(self.Hq, dtype=torch.float32)
         worst = 0.0
         # The last case makes row 6 a padding row of length 0.
-        for extras, lens_case in (({}, lens_list),
-                                  ({"sliding_window": 100}, lens_list),
-                                  ({"logits_soft_cap": 30.0, "scale": 0.1},
-                                   lens_list),
-                                  ({"sinks": sinks, "sliding_window": 64},
-                                   lens_list),
-                                  ({}, lens_list[:6] + [0, 256])):
+        cases = [(extras, lens_list) for extras in self.arg_sets(sinks)]
+        cases.append(({}, lens_list[:6] + [0, 256]))
+        for extras, lens_case in cases:
             lc = self.i32(lens_case)
             valid = (torch.arange(T, device=self.dev)[None, :]
                      < lc.long()[:, None])
-            got = ra.ragged_paged_attention(q, self.kp, self.vp, self.pt8,
-                                            q_start, lc, self.layer, **extras)
-            want = ra.ragged_paged_attention_plain(
-                q, self.kp, self.vp, self.pt8, q_start, lc, self.layer,
-                **extras)
-            torch.cuda.synchronize()
-            g, w = got[valid].float(), want[valid].float()
-            if not bool(torch.isfinite(got).all()):
-                raise AssertionError(f"ragged attention not finite {extras} "
-                                     f"lengths {lens_case}")
-            if not torch.allclose(g, w, atol=ATTN_TOL, rtol=ATTN_TOL):
-                raise AssertionError(
-                    f"ragged attention disagrees ({list(extras)}, lengths "
-                    f"{lens_case}): {float((g - w).abs().max())}")
-            if bool(got[~valid].float().abs().max() != 0):
-                raise AssertionError("padded ragged rows not zero")
-            worst = max(worst, float((g - w).abs().max()))
+            args = (q, self.kp, self.vp, self.pt8, q_start, lc, self.layer)
+            worst = max(worst, self.close(
+                f"ragged attention ({list(extras)}, lengths {lens_case})",
+                ra.ragged_paged_attention(*args, **extras),
+                ra.ragged_paged_attention_plain(*args, **extras), valid))
         S = self.MP * self.ps
         kv_pos = torch.arange(S, device=self.dev)[None, None, :]
         q_pos = q_start.long()[:, None, None] + torch.arange(
@@ -741,27 +721,14 @@ class KernelBench:
         valid = (torch.arange(T, device=self.dev)[None, :]
                  < lens.long()[:, None])
         worst = 0.0
-        for extras in ({}, {"sliding_window": 100},
-                       {"logits_soft_cap": 30.0, "scale": 0.1},
-                       {"sinks": sinks, "sliding_window": 64}):
-            got = pf.paged_prefill_attention_fresh(
-                q, k_fresh, v_fresh, self.kp, self.vp, pt, q_start, lens,
-                self.layer, **extras)
-            want = pf.paged_prefill_attention_fresh_plain(
-                q, k_fresh, v_fresh, self.kp, self.vp, pt, q_start, lens,
-                self.layer, **extras)
-            torch.cuda.synchronize()
-            g, w = got[valid].float(), want[valid].float()
-            if not bool(torch.isfinite(got).all()):
-                raise AssertionError(f"prefill attention (fresh) not "
-                                     f"finite {list(extras)}")
-            if not torch.allclose(g, w, atol=ATTN_TOL, rtol=ATTN_TOL):
-                raise AssertionError(
-                    f"prefill attention (fresh) disagrees "
-                    f"({list(extras)}): {float((g - w).abs().max())}")
-            if bool(got[~valid].float().abs().max() != 0):
-                raise AssertionError("padded prefill rows (fresh) not zero")
-            worst = max(worst, float((g - w).abs().max()))
+        for extras in self.arg_sets(sinks):
+            args = (q, k_fresh, v_fresh, self.kp, self.vp, pt, q_start, lens,
+                    self.layer)
+            worst = max(worst, self.close(
+                f"prefill attention (fresh) ({list(extras)})",
+                pf.paged_prefill_attention_fresh(*args, **extras),
+                pf.paged_prefill_attention_fresh_plain(*args, **extras),
+                valid))
         S = self.MP * self.ps
         kv_pos = torch.arange(S, device=self.dev)[None, None, :]
         q_pos = q_start.long()[:, None, None] + torch.arange(
@@ -798,6 +765,135 @@ class KernelBench:
                 q, k_fresh, v_fresh, self.kp, self.vp, pt, q_start, lens,
                 self.layer),
             lib, nbytes, flops)
+
+    # -- K4, K4', K5 beyond the serving shape -------------------------------
+    @staticmethod
+    def arg_sets(sinks):
+        """The attention kernels' four argument sets: plain; window;
+        soft-cap and scale; sinks and window."""
+        return ({}, {"sliding_window": 100},
+                {"logits_soft_cap": 30.0, "scale": 0.1},
+                {"sinks": sinks, "sliding_window": 64})
+
+    def close(self, what, got, want, valid) -> float:
+        """Valid query rows within ATTN_TOL of the plain version, padded
+        rows exactly zero, everything finite; returns the max abs error."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what} not finite")
+        g, w = got[valid].float(), want[valid].float()
+        err = float((g - w).abs().max())
+        if not torch.allclose(g, w, atol=ATTN_TOL, rtol=ATTN_TOL):
+            raise AssertionError(f"{what} disagrees: {err}")
+        if bool((~valid).any()) and bool(got[~valid].float().abs().max()
+                                         != 0):
+            raise AssertionError(f"{what}: padded rows not zero")
+        return err
+
+    def tile_kernels(self, pf, ra, kp, vp, pt, q, k_fresh, v_fresh, q_start,
+                     lens, layer, label) -> float:
+        """K4, K4' (pool slots of the window stale) and K5 on one input,
+        in all four argument sets."""
+        torch = self.torch
+        sinks = self.randn(q.shape[2], dtype=torch.float32)
+        valid = (torch.arange(q.shape[1], device=self.dev)[None, :]
+                 < lens.long()[:, None])
+        worst = 0.0
+        for extras in self.arg_sets(sinks):
+            args = (kp, vp, pt, q_start, lens, layer)
+            fresh = (q, k_fresh, v_fresh) + args
+            for kname, kernel, plain, a in (
+                    ("K4", pf.paged_prefill_attention,
+                     pf.paged_prefill_attention_plain, (q,) + args),
+                    ("K4'", pf.paged_prefill_attention_fresh,
+                     pf.paged_prefill_attention_fresh_plain, fresh),
+                    ("K5", ra.ragged_paged_attention,
+                     ra.ragged_paged_attention_plain, (q,) + args)):
+                worst = max(worst, self.close(
+                    f"{kname} {label} ({list(extras)})", kernel(*a, **extras),
+                    plain(*a, **extras), valid))
+        log(f"[kernel] K4, K4', K5 {label}: all four argument sets within "
+            f"{ATTN_TOL}, max abs err {worst}")
+        return worst
+
+    def head_dims(self, pf, ra):
+        """K4, K4' and K5's window tiles at D = 128 (G = 3: 126 of a
+        tile's 128 rows used) and D = 256 (G = 4) on a small pool of
+        page size 16 (a 64-key chunk spans four pages): rows at q_start
+        0/100/37 of lengths 160/90/1 in a T = 160 bucket (K5 serves the
+        last as a decode row), windows that start and end mid-chunk."""
+        torch = self.torch
+        B, T, ps, MP, P = 3, 160, 16, 20, 80
+        for D, Hkv, G in ((128, 2, 3), (256, 2, 4)):
+            kp, vp = self.randn(2, P, ps, Hkv, D), self.randn(2, P, ps, Hkv, D)
+            perm = torch.randperm(P - 1, generator=self.g,
+                                  device=self.dev)[:B * MP] + 1
+            pt = perm.reshape(B, MP).to(torch.int32).contiguous()
+            q = self.randn(B, T, Hkv * G, D)
+            k_fresh, v_fresh = self.randn(B, T, Hkv, D), \
+                self.randn(B, T, Hkv, D)
+            self.tile_kernels(pf, ra, kp, vp, pt, q, k_fresh, v_fresh,
+                              self.i32([0, 100, 37]), self.i32([160, 90, 1]),
+                              1, f"at D={D} G={G}")
+
+    def prefill_long(self, pf, ra, attention):
+        """K4 and K4' at a long prompt, B = 2 x T = 2048 at q_start
+        0/2048 (the second row's first 2048 keys in the pool), page tables
+        of 32 pages per row from the 512-page pool: checked in all four
+        argument sets (K5's window tiles too) and timed; there the bound
+        is the tensor cores' operations."""
+        torch = self.torch
+        B, T, MP = 2, 2048, 32
+        perm = torch.randperm(self.P - 1, generator=self.g,
+                              device=self.dev)[:B * MP] + 1
+        pt = perm.reshape(B, MP).to(torch.int32).contiguous()
+        q = self.randn(B, T, self.Hq, self.D)
+        k_fresh, v_fresh = self.randn(B, T, self.Hkv, self.D), \
+            self.randn(B, T, self.Hkv, self.D)
+        starts, lens_list = [0, 2048], [2048, 2048]
+        q_start, lens = self.i32(starts), self.i32(lens_list)
+        worst = self.tile_kernels(pf, ra, self.kp, self.vp, pt, q, k_fresh,
+                                  v_fresh, q_start, lens, self.layer,
+                                  "long prompt")
+        S = MP * self.ps
+        kv_pos = torch.arange(S, device=self.dev)[None, None, :]
+        q_pos = q_start.long()[:, None, None] + torch.arange(
+            T, device=self.dev)[None, :, None]
+        mask = ((kv_pos <= q_pos) & (kv_pos < (q_start + lens).long()[
+            :, None, None]))[:, None]
+        idx = (q_start.long()[:, None] + torch.arange(T, device=self.dev))[
+            :, :, None, None].expand(-1, -1, self.Hkv, self.D)
+
+        def lib(fresh):
+            k = attention.gather_pages(self.kp[self.layer], pt)
+            v = attention.gather_pages(self.vp[self.layer], pt)
+            if fresh:
+                k.scatter_(1, idx, k_fresh)
+                v.scatter_(1, idx, v_fresh)
+            return sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), mask)
+        keys = sum(s + n for s, n in zip(starts, lens_list))
+        pairs = sum(n * s + n * (n + 1) // 2 for s, n in zip(starts,
+                                                             lens_list))
+        nbytes = keys * 2 * self.Hkv * self.D * 2 \
+            + 2 * sum(lens_list) * self.Hq * self.D * 2 + B * (8 + 4 * MP)
+        flops = 4.0 * pairs * self.Hq * self.D
+        args = (self.kp, self.vp, pt, q_start, lens, self.layer)
+        for name, kernel, plain, a, fresh in (
+                ("paged_prefill_attention", pf.paged_prefill_attention,
+                 pf.paged_prefill_attention_plain, (q,) + args, False),
+                ("paged_prefill_attention_fresh",
+                 pf.paged_prefill_attention_fresh,
+                 pf.paged_prefill_attention_fresh_plain,
+                 (q, k_fresh, v_fresh) + args, True)):
+            self.record(f"{name}_long_prompt",
+                        f"{CSRC}/paged_prefill_attention.cu",
+                        f"{PALLAS}/prefill_attention.py:272", worst,
+                        lambda a=a, kernel=kernel: kernel(*a),
+                        lambda a=a, plain=plain: plain(*a),
+                        lambda fresh=fresh: lib(fresh), nbytes, flops,
+                        entry=name, shape="B=2 T=2048 q_start 0/2048")
 
 
     # -- K3'' -------------------------------------------------------------
@@ -1428,7 +1524,8 @@ def main() -> int:
     log(f"[build] {build_s:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "wgmma")):
                 log(f"[ptxas] {name}: {line.strip()}")
 
     # 3. Kernels against their plain versions.
@@ -1446,6 +1543,8 @@ def main() -> int:
     bench.all_layer_writers(kv_update, 4, 1, 576, record=False)  # MLA row
     bench.decode_attention_current(paged_attention, attention)
     bench.prefill_attention_fresh(prefill_attention, attention)
+    bench.head_dims(prefill_attention, ragged_attention)
+    bench.prefill_long(prefill_attention, ragged_attention, attention)
     mla_cfg = ModelConfig.deepseek_v2_lite()
     bench.mla_decode_attention(paged_attention, attention, mla_cfg,
                                transformer._mla_scale(mla_cfg))
@@ -1537,12 +1636,13 @@ def main() -> int:
 
     # 6. Summary.
     for r in bench.results:
-        phase = (served_b if r["name"] == "ragged_paged_attention" else
-                 served_c if r["name"] in ATTEND_THEN_WRITE_KERNELS else
-                 served_d if r["name"] == "paged_decode_attention_mla" else
-                 served_e if r["name"] in MLA_KERNELS else
+        name = r.get("entry", r["name"])       # a record at another shape
+        phase = (served_b if name == "ragged_paged_attention" else
+                 served_c if name in ATTEND_THEN_WRITE_KERNELS else
+                 served_d if name == "paged_decode_attention_mla" else
+                 served_e if name in MLA_KERNELS else
                  served)
-        r["launches"] = phase["launches"][r["name"]]
+        r["launches"] = phase["launches"][name]
     summary = {"card": card, "build_s": build_s, "forward_rel_l2": rel,
                "forward_rel_l2_deepseek": rel_mla,
                "serve": served, "serve_ragged": served_b,

@@ -16,18 +16,20 @@
 //   fresh operand streams in page-sized blocks; here a key is staged one
 //   16-byte vector at a time from either source, so any T is accepted.
 //
-// What bounds it on an H100: bytes at the serving shapes this slice
-// runs (windows of a few hundred tokens; see chip_smoke.py's bound).
-// Each key row is read once per query tile, and a tile's work is
-// (QB x G) x D x 4 flops per key. One block per (row, kv head, query
-// tile) runs the tile code of flash_tile.cuh: the tile's 64 (position,
-// head) rows stay in shared memory, its keys stream through once in
-// chunks of 32, and both products run on the tensor cores (`wmma` bf16,
-// float32 accumulators), where on the CUDA cores they would issue about
-// one shared-memory load per FMA. Key chunks outside
+// What bounds it on an H100: at the serving shapes this slice runs
+// (windows of a few hundred tokens) neither bytes nor operations, but
+// the serial chain of key chunks that the longest tile walks; at a long
+// prompt (thousands of tokens) the tensor cores' operations. One block
+// per (row, kv head, query tile) runs the tile code of flash_tile.cuh:
+// 128 (position, head) rows, S and O in registers on the tensor cores,
+// keys in 64-key chunks through a `cp.async` ring with the next chunk's
+// copies in flight during this one's math. Key chunks outside
 // [max(0, q_lo - W + 1), q_hi] (causal limit and sliding window of the
 // tile) are never read. The two forms read the same bytes; only their
-// source differs. `wgmma`/TMA pipelining is later work.
+// source differs. Blocks start heaviest first: the first B x Hkv blocks
+// take each (row, kv head)'s last live query tile, which has the most
+// keys, the next ones the tile before it, and the dead tiles (no valid
+// query) come last.
 //
 // Semantics and layout: those of flash_tile.cuh; query rows
 // t >= lengths[b] (and rows of length 0) output zeros.
@@ -43,7 +45,8 @@ using flash::Plan;
 
 // D: head dim; FRESH: the attend-then-write form.
 template <int D, bool FRESH>
-__global__ void __launch_bounds__(kThreads) paged_prefill_attention_kernel(
+__global__ void __launch_bounds__(kThreads, Plan<D>::kMinBlocks)
+paged_prefill_attention_kernel(
     const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* __restrict__ k_fresh,
     const __nv_bfloat16* __restrict__ v_fresh,
@@ -55,9 +58,12 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_attention_kernel(
     int page_size, int QB, int window, float scale, float cap) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int nqt = (T + QB - 1) / QB;
-  const int qt = blockIdx.x % nqt;
-  const int h = (blockIdx.x / nqt) % Hkv;
-  const int b = blockIdx.x / (nqt * Hkv);
+  const int rows = gridDim.x / nqt;                   // B x Hkv
+  const int h = blockIdx.x % rows % Hkv;
+  const int b = blockIdx.x % rows / Hkv;
+  const int k = blockIdx.x / rows;                     // rank, heaviest first
+  const int live = min(nqt, (max(lengths[b], 0) + QB - 1) / QB);
+  const int qt = k < live ? live - 1 - k : k;
   const int t0 = qt * QB;
   const int nt = max(0, min(QB, lengths[b] - t0));   // valid tile rows
   const int q_lo = q_start[b] + t0;
@@ -125,7 +131,7 @@ int dispatch(int D, const Args& a) {
 }  // namespace
 
 // Returns a CUDA error code (0 = launched). D must be 64, 128 or 256; the
-// wrapper checks it, G <= 64, and picks QB = max(1, 64 / G) query
+// wrapper checks it, G <= 128, and picks QB = max(1, 128 / G) query
 // positions per tile.
 extern "C" int paged_prefill_attention(
     const void* q, const void* k_pool, const void* v_pool,

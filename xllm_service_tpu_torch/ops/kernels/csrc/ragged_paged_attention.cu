@@ -19,16 +19,15 @@
 // The design: one block per (row, kv head, query tile), and each block
 // serves its tile by the code suited to it:
 // - a window tile runs the prefill kernel's tile code (flash_tile.cuh:
-//   64 (position, head) rows in shared memory, keys streamed once in
-//   chunks of 32, both products on the tensor cores with `wmma` bf16 and
-//   float32 accumulators), reading only the key chunks of
-//   [max(0, q_lo - W + 1), min(q_hi, q_start + length - 1)];
+//   128 (position, head) rows, S and O in registers on the tensor cores,
+//   keys in 64-key chunks through a `cp.async` ring), reading only the
+//   key chunks of [max(0, q_lo - W + 1), min(q_hi, q_start + length - 1)];
 // - a decode row (length 1) runs the decode kernel's row code
 //   (decode_row.cuh: chunks of 128 keys, one key per thread, the G heads'
-//   scores on the CUDA cores). In a 64-row tile it would fill 1 position
-//   of 64 / G and walk its context 32 keys per step through five
-//   block-wide barriers; the row code reads the same bytes in a quarter
-//   of the steps;
+//   scores on the CUDA cores). In a 128-row tile it would fill 1
+//   position of 128 / G and leave all but G of the tile's rows idle on
+//   the tensor cores; the row code reads the same bytes with every
+//   thread on a key;
 // - a dead tile, with no valid query row, writes its padding rows as
 //   zeros with 16-byte stores and returns before it reads a key.
 // The grid still holds a block for every (row, kv head, query tile) of
@@ -37,8 +36,7 @@
 // tile from the row lengths in start order: window tiles first (their
 // last tiles, with the most keys, foremost), one per SM as far as they
 // go, then the decode rows, then the dead tiles. A host-built list of
-// live tiles (no dead blocks launched at all) and `wgmma`/TMA are later
-// work.
+// live tiles (no dead blocks launched at all) is later work.
 //
 // Semantics and layout: those of flash_tile.cuh, with q_start and
 // lengths [B] int32. Query rows t >= lengths[b] (and rows of length 0)
@@ -110,7 +108,9 @@ __device__ __forceinline__ Tile tile_of(int i, const int* __restrict__ lengths,
   return {0, nqt};                                   // not reached
 }
 
-// D: head dim; KG: the group width G rounded up to a power of two.
+// D: head dim; KG: the group width G rounded up to a power of two. One
+// block per SM, unlike the prefill kernel at D = 64: at 128 registers a
+// thread its decode rows spill, and K5 measured 15% slower.
 template <int D, int KG>
 __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
     const __nv_bfloat16* __restrict__ q,
@@ -193,7 +193,7 @@ int launch_d(const void* q, const void* k_pool, const void* v_pool,
 }  // namespace
 
 // Returns a CUDA error code (0 = launched). D must be 64, 128 or 256 and
-// G at most 16; the wrapper checks both and picks QB = max(1, 64 / G)
+// G at most 16; the wrapper checks both and picks QB = max(1, 128 / G)
 // query positions per tile.
 extern "C" int ragged_paged_attention(
     const void* q, const void* k_pool, const void* v_pool,

@@ -17,8 +17,11 @@ the prefill step launches, on layered pools:
 As for decode, the Pallas layered form's layer-in-the-index-map becomes
 ``k_pages[layer]``, a view of the full pool.
 
-Bound on an H100 at this slice's window sizes: bytes (each key row read
-once per query tile of 64 (position, head) rows).
+On an H100 a serving window (a few hundred tokens) is bound by the
+serial chain of key chunks its longest query tile walks, a long prompt
+by the tensor cores' operations. Each key row is read once per query
+tile of 128 (position, head) rows; ``csrc/flash_tile.cuh`` holds the
+design.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from xllm_service_tpu_torch.ops.kernels._launch import (
     F, I, P, check, on_cuda, ptr, raise_on_error, require, stream)
 
 _lib = None
-_TILE_ROWS = 64          # (query position, head) rows per thread block
+_TILE_ROWS = 128         # (query position, head) rows per thread block
+                         # (flash::kRows of csrc/flash_tile.cuh)
 _HEAD_DIMS = (64, 128, 256)       # the kernel's instantiations
 
 
@@ -52,7 +56,7 @@ def _kernel():
 
 
 def query_tile(group: int) -> int:
-    """Query positions per thread block: a tile holds 64 rows of
+    """Query positions per thread block: a tile holds 128 rows of
     (position, head of the group)."""
     return max(1, _TILE_ROWS // group)
 
