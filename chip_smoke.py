@@ -34,9 +34,17 @@ Phases (any failure raises and the exit code is not 0):
    576-wide latent head, a 27-layer pool; contexts 117-411 with an
    inactive row, and for the current form a row at cache length 0 and
    stale slots), timed beside gather + SDPA over the latent as K and V
-   of every head; and K1/K2 bit-exact at the latent row. K4, K4' and
-   K5's window tiles (the tile code they share) are also held at
-   D = 128 (G = 3) and D = 256 (G = 4) on a small pool of page size 16,
+   of every head; and K1/K2 bit-exact at the latent row. The split-KV
+   decode kernels (K3, K3', K3'') are also checked and timed at long
+   contexts, B = 8 rows of 2048-4096 keys (seeded) and B = 1 row of
+   4096 (records ``*_long_b8`` / ``*_long_b1``), and every K3/K3'/K3''
+   record carries the split count the wrapper chose (``splits``) and the
+   same kernel's time at one split (``unsplit_ms``, checked too); the
+   pool-only long records also time the split counts 4-64
+   (``split_sweep_ms``). K4, K4'
+   and K5's window tiles (the tile code they share), and K3 and K3' at
+   1, 3 and the wrappers' splits, are also held at D = 128 (G = 3) and
+   D = 256 (G = 4) on a small pool of page size 16,
    and at a long prompt (B = 2 x T = 2048 at q_start 0/2048, page
    tables of 32 pages), in all four argument sets; K4 and K4' are timed
    at the long prompt too (records ``*_long_prompt``, bound by the
@@ -50,7 +58,8 @@ Phases (any failure raises and the exit code is not 0):
    Lite at full width in both orders (prefill + decode; prefill x2 +
    decode), its depth cut to 4 layers (the dense one and 3 MoE layers:
    the float32 CPU copy of all 27 would be 63 GB), to the same bound;
-   each of its decode forwards must launch K3'' once per layer.
+   each of its decode forwards must launch K3'' once per layer. Each
+   model's largest absolute logit error is kept for phase 5's margins.
 5. Serving: the worker the CLI builds (``runtime.worker`` with
    --model llama3-1b --page-size 128 --num-pages 512 --max-model-len 1024
    --max-batch-size 8, prefill buckets 128,256,512, 256 prefill tokens
@@ -60,7 +69,8 @@ Phases (any failure raises and the exit code is not 0):
    ragged step off and XLLM_WRITE_THEN_ATTEND=1. Launch counts are
    zeroed just before and read just after: the four kernels of that
    path must have run. Then one streamed request is served again under
-   torch.profiler (device time by kernel, idle share, launches).
+   torch.profiler (device time by kernel, idle share, launches, and the
+   decode attention kernels' own device ms).
 5b. Serving, ragged: the same worker, flags and requests with
    XLLM_RAGGED_ATTN=1. At least one mixed iteration must run as one
    ragged forward, each launching the ragged kernel once per layer and
@@ -80,6 +90,13 @@ Phases (any failure raises and the exit code is not 0):
    (current form) once per layer and K6 once, every prefill forward K7
    once, K1-K5 never. Profiled as 5d. Each worker's weights are freed
    before the next phase.
+   Margins: each model's phases serve the same weights, so on the live
+   engine of 5c (and 5e) the script reads, at each stream's first
+   divergent token between phase 5 and 5b, 5 and 5c (5d and 5e), the
+   top-2 logit margin of one prefill forward over the common prefix on
+   the card through both paths and, for llama3-1b, under the plain
+   float32 path on the CPU (``[margins]``): wider than 10 x phase 4's
+   largest logit error for the model is a fault, narrower is drift.
 6. Summary: one line ``{"kernels": [...]}`` (K1-K4 launches from phase
    5, K5 from 5b, K6, K7, K3' and K4' from 5c, K3'' from 5d and its
    current form from 5e; a record at another shape takes its kernel's
@@ -388,14 +405,108 @@ class KernelBench:
         nbytes = keys * 2 * row + 2 * int(act.sum()) * self.Hq * self.D * 2 \
             + B * (4 + 4 * self.MP)
         flops = 4.0 * keys * self.Hq * self.D
-        self.record(
-            "paged_decode_attention", f"{CSRC}/paged_decode_attention.cu",
-            f"{PALLAS}/paged_attention.py:154", worst,
-            lambda: pa.paged_decode_attention(q, self.kp, self.vp, self.pt8,
-                                              ctx, self.layer),
+        self.split_record(
+            "paged_decode_attention", "paged_decode_attention",
+            f"{CSRC}/paged_decode_attention.cu",
+            lambda n: pa.paged_decode_attention(
+                q, self.kp, self.vp, self.pt8, ctx, self.layer, num_splits=n),
             lambda: pa.paged_decode_attention_plain(
                 q, self.kp, self.vp, self.pt8, ctx, self.layer),
-            lib, nbytes, flops)
+            lib, nbytes, flops,
+            pa.gqa_splits(B, self.Hkv, self.MP, self.ps, 0, False), act,
+            worst)
+
+    # Split counts timed at the long shapes beside the wrapper's own.
+    SPLIT_SWEEP = (4, 8, 12, 16, 24, 32, 48, 64)
+
+    def split_record(self, name, entry, source, run, plain, lib, nbytes,
+                     flops, splits, valid, worst=0.0, sweep=False, **extra):
+        """A split decode kernel at one shape: ``run(None)`` (the
+        wrapper's own split count, ``splits``) and ``run(1)`` (one split,
+        one block per row and kv head: the unsplit yardstick, through the
+        same kernel) checked against ``plain()`` on the ``valid`` rows
+        (the others must be zero), then recorded with the second's device
+        time beside the first's; with ``sweep``, also the device time at
+        each of SPLIT_SWEEP (``split_sweep_ms``)."""
+        want = plain()
+        errs = [self.close(f"{name} S={s}", run(n), want, valid)
+                for s, n in ((splits, None), (1, 1))]
+        unsplit_ms = graph_ms(lambda: run(1))
+        if sweep:
+            extra["split_sweep_ms"] = {
+                n: graph_ms(lambda n=n: run(n)) for n in self.SPLIT_SWEEP}
+        self.record(name, source, f"{PALLAS}/paged_attention.py:154",
+                    max([worst] + errs), lambda: run(None), plain, lib,
+                    nbytes, flops, entry=entry, splits=splits,
+                    unsplit_ms=unsplit_ms, **extra)
+
+    def long_decode_rows(self, P):
+        """The long decode shapes, over a pool of ``P`` pages of 128:
+        (label, contexts, page table) for B = 8 rows of 2048-4096 keys
+        (seeded) and B = 1 row of 4096, 32 pages a row."""
+        rng = random.Random(6)
+        ctx8 = [rng.randrange(2048, 4097) for _ in range(8)]
+        perm = self.torch.randperm(P - 1, generator=self.g,
+                                   device=self.dev)[:8 * 32] + 1
+        pt = perm.reshape(8, 32).to(self.torch.int32).contiguous()
+        return [("B=8 ctx 2048-4096", "long_b8", ctx8, pt),
+                ("B=1 ctx 4096", "long_b1", [4096], pt[:1].contiguous())]
+
+    def decode_attention_long(self, pa, attention):
+        """K3 and K3' at the long shapes: contexts (cache lengths one
+        less, with the current token's K/V apart), every row compared."""
+        torch = self.torch
+        for label, tag, ctx_list, pt in self.long_decode_rows(self.P):
+            B, MP = len(ctx_list), pt.shape[1]
+            q = self.randn(B, self.Hq, self.D)
+            k_cur, v_cur = self.randn(B, self.Hkv, self.D), \
+                self.randn(B, self.Hkv, self.D)
+            ctx = self.i32(ctx_list)
+            cache = self.i32([c - 1 for c in ctx_list])
+            valid = torch.ones(B, dtype=torch.bool, device=self.dev)
+            S = MP * self.ps
+            pos = torch.arange(S + 1, device=self.dev)[None, :]
+            keys = sum(ctx_list)
+            nbytes = keys * 2 * self.Hkv * self.D * 2 \
+                + 2 * B * self.Hq * self.D * 2 + B * (4 + 4 * MP)
+            flops = 4.0 * keys * self.Hq * self.D
+
+            def gathered(pool):
+                return attention.gather_pages(pool[self.layer], pt)
+
+            def lib(mask=(pos[:, :S] < ctx.long()[:, None])[:, None, None]):
+                return sdpa(q[:, :, None], gathered(self.kp).transpose(1, 2),
+                            gathered(self.vp).transpose(1, 2), mask)
+
+            def lib_cur(mask=((pos < cache.long()[:, None])
+                              | (pos == S))[:, None, None]):
+                k = torch.cat([gathered(self.kp), k_cur[:, None]], dim=1)
+                v = torch.cat([gathered(self.vp), v_cur[:, None]], dim=1)
+                return sdpa(q[:, :, None], k.transpose(1, 2),
+                            v.transpose(1, 2), mask)
+            self.split_record(
+                f"paged_decode_attention_{tag}", "paged_decode_attention",
+                f"{CSRC}/paged_decode_attention.cu",
+                lambda n: pa.paged_decode_attention(
+                    q, self.kp, self.vp, pt, ctx, self.layer, num_splits=n),
+                lambda: pa.paged_decode_attention_plain(
+                    q, self.kp, self.vp, pt, ctx, self.layer),
+                lib, nbytes, flops,
+                pa.gqa_splits(B, self.Hkv, MP, self.ps, 0, False), valid,
+                sweep=True, shape=label)
+            self.split_record(
+                f"paged_decode_attention_current_{tag}",
+                "paged_decode_attention_current",
+                f"{CSRC}/paged_decode_attention.cu",
+                lambda n: pa.paged_decode_attention_current(
+                    q, self.kp, self.vp, pt, cache, k_cur, v_cur, self.layer,
+                    num_splits=n),
+                lambda: pa.paged_decode_attention_current_plain(
+                    q, self.kp, self.vp, pt, cache, k_cur, v_cur,
+                    self.layer),
+                lib_cur, nbytes, flops,
+                pa.gqa_splits(B, self.Hkv, MP, self.ps, 0, True), valid,
+                shape=label)
 
     # -- K4 ----------------------------------------------------------------
     def prefill_attention(self, pf, attention):
@@ -691,17 +802,19 @@ class KernelBench:
         nbytes = keys * 2 * row + 2 * B * self.Hq * self.D * 2 \
             + B * (4 + 4 * self.MP)
         flops = 4.0 * keys * self.Hq * self.D
-        self.record(
+        self.split_record(
+            "paged_decode_attention_current",
             "paged_decode_attention_current",
             f"{CSRC}/paged_decode_attention.cu",
-            f"{PALLAS}/paged_attention.py:154", worst,
-            lambda: pa.paged_decode_attention_current(
+            lambda n: pa.paged_decode_attention_current(
                 q, self.kp, self.vp, self.pt8, cache, k_cur, v_cur,
-                self.layer),
+                self.layer, num_splits=n),
             lambda: pa.paged_decode_attention_current_plain(
                 q, self.kp, self.vp, self.pt8, cache, k_cur, v_cur,
                 self.layer),
-            lib, nbytes, flops)
+            lib, nbytes, flops,
+            pa.gqa_splits(B, self.Hkv, self.MP, self.ps, 0, True),
+            torch.ones(B, dtype=torch.bool, device=self.dev), worst)
 
     # -- K4' ---------------------------------------------------------------
     def prefill_attention_fresh(self, pf, attention):
@@ -817,12 +930,15 @@ class KernelBench:
             f"{ATTN_TOL}, max abs err {worst}")
         return worst
 
-    def head_dims(self, pf, ra):
+    def head_dims(self, pf, ra, pa):
         """K4, K4' and K5's window tiles at D = 128 (G = 3: 126 of a
         tile's 128 rows used) and D = 256 (G = 4) on a small pool of
         page size 16 (a 64-key chunk spans four pages): rows at q_start
         0/100/37 of lengths 160/90/1 in a T = 160 bucket (K5 serves the
-        last as a decode row), windows that start and end mid-chunk."""
+        last as a decode row), windows that start and end mid-chunk.
+        Then K3 and K3' on the same pools: contexts 300/0/45 (cache
+        lengths one less), at the wrappers' split count, one split and
+        three, in all four argument sets."""
         torch = self.torch
         B, T, ps, MP, P = 3, 160, 16, 20, 80
         for D, Hkv, G in ((128, 2, 3), (256, 2, 4)):
@@ -836,6 +952,29 @@ class KernelBench:
             self.tile_kernels(pf, ra, kp, vp, pt, q, k_fresh, v_fresh,
                               self.i32([0, 100, 37]), self.i32([160, 90, 1]),
                               1, f"at D={D} G={G}")
+            qd = self.randn(B, Hkv * G, D)
+            k_cur, v_cur = self.randn(B, Hkv, D), self.randn(B, Hkv, D)
+            ctx, cache = self.i32([300, 0, 45]), self.i32([299, 0, 44])
+            every = torch.ones(B, dtype=torch.bool, device=self.dev)
+            sinks = self.randn(Hkv * G, dtype=torch.float32)
+            for extras in self.arg_sets(sinks):
+                for n in (None, 1, 3):
+                    what = f"at D={D} G={G} S={n} {list(extras)}"
+                    self.close(
+                        f"decode attention {what}",
+                        pa.paged_decode_attention(qd, kp, vp, pt, ctx, 1,
+                                                  num_splits=n, **extras),
+                        pa.paged_decode_attention_plain(qd, kp, vp, pt, ctx,
+                                                        1, **extras),
+                        ctx > 0)
+                    self.close(
+                        f"decode attention (current) {what}",
+                        pa.paged_decode_attention_current(
+                            qd, kp, vp, pt, cache, k_cur, v_cur, 1,
+                            num_splits=n, **extras),
+                        pa.paged_decode_attention_current_plain(
+                            qd, kp, vp, pt, cache, k_cur, v_cur, 1, **extras),
+                        every)
 
     def prefill_long(self, pf, ra, attention):
         """K4 and K4' at a long prompt, B = 2 x T = 2048 at q_start
@@ -904,63 +1043,64 @@ class KernelBench:
         Current: cache lengths one less, row 6 at cache length 0 (its
         current row alone); the pool is random everywhere, so the slot
         at each cache length holds a stale row unlike the current one.
-        Every row compared."""
+        Every row compared. Then both forms at the long shapes (B = 8 x
+        2048-4096 keys, B = 1 x 4096)."""
         torch = self.torch
-        B, Hq, D = 8, mla_cfg.num_heads, mla_cfg.kv_cache_dim
+        Hq, D = mla_cfg.num_heads, mla_cfg.kv_cache_dim
         L, P = mla_cfg.num_layers, 512
         pool = self.randn(L, P, self.ps, 1, D)
         layer = L // 2
-        q = self.randn(B, Hq, D)
-        cur = self.randn(B, 1, D)
         ctx_list = [117, 205, 298, 411, 150, 260, 0, 390]
-        cache_list = [max(c - 1, 0) for c in ctx_list]
-        ctx, cache = self.i32(ctx_list), self.i32(cache_list)
-        S = self.MP * self.ps
-        pos = torch.arange(S + 1, device=self.dev)[None, :]
-        for name, got, want, keys, mask, lib_kv in (
-                ("paged_decode_attention_mla",
-                 lambda: pa.paged_decode_attention_mla(
-                     q, pool, self.pt8, ctx, layer, scale),
-                 lambda: pa.paged_decode_attention_mla_plain(
-                     q, pool, self.pt8, ctx, layer, scale),
-                 sum(ctx_list),
-                 (pos[:, :S] < ctx.long()[:, None]) | (pos[:, :S] == 0),
-                 lambda: attention.gather_pages(pool[layer], self.pt8)),
-                ("paged_decode_attention_mla_current",
-                 lambda: pa.paged_decode_attention_mla_current(
-                     q, pool, self.pt8, cache, cur, layer, scale),
-                 lambda: pa.paged_decode_attention_mla_current_plain(
-                     q, pool, self.pt8, cache, cur, layer, scale),
-                 sum(cache_list) + B,
-                 (pos < cache.long()[:, None]) | (pos == S),
-                 lambda: torch.cat([attention.gather_pages(pool[layer],
-                                                           self.pt8),
-                                    cur[:, None]], dim=1))):
-            g, w = got(), want()
-            torch.cuda.synchronize()
-            if not bool(torch.isfinite(g).all()):
-                raise AssertionError(f"{name} not finite")
-            g, w = g.float(), w.float()
-            if not torch.allclose(g, w, atol=ATTN_TOL, rtol=ATTN_TOL):
-                raise AssertionError(f"{name} disagrees: "
-                                     f"{float((g - w).abs().max())}")
-            if name == "paged_decode_attention_mla" and \
-                    bool(g[6].abs().max() != 0):
-                raise AssertionError("MLA row of context 0 not zero")
-            m = mask[:, None, None, :]
+        shapes = [("B=8 ctx 117-411", "", ctx_list, self.pt8)] + \
+            self.long_decode_rows(P)
+        for label, tag, ctx_list, pt in shapes:
+            B, MP = len(ctx_list), pt.shape[1]
+            q = self.randn(B, Hq, D)
+            cur = self.randn(B, 1, D)
+            cache_list = [max(c - 1, 0) for c in ctx_list]
+            ctx, cache = self.i32(ctx_list), self.i32(cache_list)
+            S = MP * self.ps
+            pos = torch.arange(S + 1, device=self.dev)[None, :]
+            sfx = f"_{tag}" if tag else ""
+            for name, run, plain, keys, mask, lib_kv, valid, splits in (
+                    ("paged_decode_attention_mla",
+                     lambda n: pa.paged_decode_attention_mla(
+                         q, pool, pt, ctx, layer, scale, num_splits=n),
+                     lambda: pa.paged_decode_attention_mla_plain(
+                         q, pool, pt, ctx, layer, scale),
+                     sum(ctx_list),
+                     (pos[:, :S] < ctx.long()[:, None]) | (pos[:, :S] == 0),
+                     lambda: attention.gather_pages(pool[layer], pt),
+                     ctx > 0, pa.mla_splits(B, MP, self.ps, False)),
+                    ("paged_decode_attention_mla_current",
+                     lambda n: pa.paged_decode_attention_mla_current(
+                         q, pool, pt, cache, cur, layer, scale,
+                         num_splits=n),
+                     lambda: pa.paged_decode_attention_mla_current_plain(
+                         q, pool, pt, cache, cur, layer, scale),
+                     sum(cache_list) + B,
+                     (pos < cache.long()[:, None]) | (pos == S),
+                     lambda: torch.cat([attention.gather_pages(pool[layer],
+                                                               pt),
+                                        cur[:, None]], dim=1),
+                     torch.ones(B, dtype=torch.bool, device=self.dev),
+                     pa.mla_splits(B, MP, self.ps, True))):
+                m = mask[:, None, None, :]
 
-            def lib(m=m, lib_kv=lib_kv):
-                # The latent as K and V of every head (an SDPA yardstick;
-                # the port never calls it). The inactive row's mask keeps
-                # key 0 so that SDPA has a key.
-                kv = lib_kv().transpose(1, 2)
-                return sdpa(q[:, :, None], kv, kv, m, scale=scale)
-            nbytes = keys * D * 2 + 2 * B * Hq * D * 2 + B * (4 + 4 * self.MP)
-            flops = 4.0 * keys * Hq * D
-            self.record(name, f"{CSRC}/paged_decode_attention_mla.cu",
-                        f"{PALLAS}/paged_attention.py:154",
-                        float((g - w).abs().max()), got, want, lib, nbytes,
-                        flops, layers=L, pool_pages=P)
+                def lib(m=m, lib_kv=lib_kv):
+                    # The latent as K and V of every head (an SDPA
+                    # yardstick; the port never calls it). An inactive
+                    # row's mask keeps key 0 so that SDPA has a key.
+                    kv = lib_kv().transpose(1, 2)
+                    return sdpa(q[:, :, None], kv, kv, m, scale=scale)
+                nbytes = keys * D * 2 + 2 * B * Hq * D * 2 + B * (4 + 4 * MP)
+                flops = 4.0 * keys * Hq * D
+                self.split_record(
+                    name + sfx, name,
+                    f"{CSRC}/paged_decode_attention_mla.cu", run, plain, lib,
+                    nbytes, flops, splits, valid,
+                    sweep=bool(tag) and name.endswith("_mla"), layers=L,
+                    pool_pages=P, shape=label)
         del pool
 
 
@@ -1030,19 +1170,28 @@ def forward_check(torch, cfg, device) -> float:
             pt.to(device), write_then_attend=False)
         results.append(tuple(x.float().cpu() for x in (
             pre, dec, rag, first, second, aw_dec)))
-    rels = []
+    worst, err = logit_errors(torch, results)
+    log(f"[forward] llama3-1b rel L2 (GPU kernels bf16 vs CPU plain fp32): "
+        f"write-then-attend prefill/decode/ragged {worst[:3]}, "
+        f"attend-then-write prefill/prefill/decode {worst[3:]}; largest "
+        f"logit error {err}")
+    if max(worst) > FORWARD_REL_L2:
+        raise AssertionError(f"forward logits rel L2 {max(worst)} > "
+                             f"{FORWARD_REL_L2}")
+    return max(worst), err
+
+
+def logit_errors(torch, results):
+    """Per forward, the relative L2 error of the kernel path's logits
+    (results[0]) against the plain path's (results[1]); and the largest
+    absolute logit error of all of them."""
+    rels, err = [], 0.0
     for got, want in zip(results[0], results[1]):
         if not bool(torch.isfinite(got).all()):
             raise AssertionError("kernel-path logits not finite")
         rels.append(float((got - want).norm() / want.norm()))
-    worst = max(rels)
-    log(f"[forward] llama3-1b rel L2 (GPU kernels bf16 vs CPU plain fp32): "
-        f"write-then-attend prefill/decode/ragged {rels[:3]}, "
-        f"attend-then-write prefill/prefill/decode {rels[3:]}")
-    if worst > FORWARD_REL_L2:
-        raise AssertionError(f"forward logits rel L2 {worst} > "
-                             f"{FORWARD_REL_L2}")
-    return worst
+        err = max(err, float((got - want).abs().max()))
+    return rels, err
 
 
 def cpu_float(params):
@@ -1122,19 +1271,15 @@ def mla_forward_check(torch, kernels, cfg, device) -> float:
             pre, dec, first, second, aw_dec)))
         del kv
     del params, cpu_params
-    rels = []
-    for got, want in zip(results[0], results[1]):
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError("MLA kernel-path logits not finite")
-        rels.append(float((got - want).norm() / want.norm()))
-    worst = max(rels)
+    rels, err = logit_errors(torch, results)
     log(f"[forward] deepseek-v2-lite ({L} layers) rel L2 (GPU kernels bf16 "
         f"vs CPU plain fp32): write-then-attend prefill/decode {rels[:2]}, "
-        f"attend-then-write prefill/prefill/decode {rels[2:]}")
-    if worst > FORWARD_REL_L2:
-        raise AssertionError(f"MLA forward logits rel L2 {worst} > "
+        f"attend-then-write prefill/prefill/decode {rels[2:]}; largest "
+        f"logit error {err}")
+    if max(rels) > FORWARD_REL_L2:
+        raise AssertionError(f"MLA forward logits rel L2 {max(rels)} > "
                              f"{FORWARD_REL_L2}")
-    return worst
+    return max(rels), err
 
 
 def free_device_memory(torch) -> None:
@@ -1210,8 +1355,14 @@ def profile_request(torch, addr: str, body: dict) -> dict:
     rows.sort(reverse=True)
     wall_ms = res["latency_s"] * 1e3
     busy_ms = sum(r[0] for r in rows)
+    # The decode attention kernels' own device time (K3/K3' and K3'').
+    k3 = {kind: sum(ms for ms, _, k in rows if f"{kernel}<" in k)
+          for kind, kernel in (
+              ("gqa", "paged_decode_attention_kernel"),
+              ("mla", "paged_decode_attention_mla_kernel"))}
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms if rows else None,
            "idle_share": 1.0 - busy_ms / wall_ms if rows else None,
+           "decode_attention_device_ms": k3,
            "kernel_launches": sum(r[1] for r in rows),
            "top": [{"ms": ms, "count": n, "name": k[:90]}
                    for ms, n, k in rows[:14]]}
@@ -1226,8 +1377,13 @@ class StepLog:
     launches, and the tokens of each request, keyed by prompt length."""
 
     def __init__(self, engine, kernels) -> None:
-        self.rows, self.tokens = [], {}
-        inner = engine.step
+        self.rows, self.tokens, self.prompts = [], {}, {}
+        inner, add = engine.step, engine.add_request
+
+        def add_request(req):
+            self.prompts[len(req.token_ids)] = list(req.token_ids)
+            return add(req)
+        engine.add_request = add_request
 
         def step():
             before = kernels.launch_counts()
@@ -1285,10 +1441,14 @@ def step_launches_wanted(row, layers: int, mla: bool,
 
 
 def serve(torch, kernels, model: str, device: str, ragged: bool,
-          write_then_attend: bool = True, tag: str = "") -> dict:
+          write_then_attend: bool = True, tag: str = "",
+          on_engine=None) -> dict:
     """Phase 5 (ragged off), 5b (ragged on), 5c (attend-then-write), 5d
     and 5e (DeepSeek-V2-Lite in either order): 4 concurrent requests
-    through the worker; checks the replies and which kernels ran."""
+    through the worker; checks the replies and which kernels ran.
+    ``on_engine(engine, tokens)``, if given, runs on the live engine once
+    the requests are served (``tokens``: each request's, by prompt
+    length); its result is ``out["on_engine"]``."""
     from xllm_service_tpu_torch.runtime import worker
     args = worker.parse_args([
         "--model", model, "--device", device,
@@ -1370,6 +1530,8 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
             prof["forwards"] = fwd
             prof["kernel_launches_per_forward"] = (
                 prof["kernel_launches"] / fwd if fwd else None)
+        prompts = dict(steplog.prompts)
+        on_engine_out = on_engine(w.engine, tokens) if on_engine else None
     finally:
         w.stop()
     engine_ragged, engine_wta = w.engine.ragged, w.engine.write_then_attend
@@ -1477,7 +1639,70 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
            "max_memory_allocated_gib": peak_gb,
            "profile": prof}
     log(f"[serve{tag}] {json.dumps(out)}")
-    out["tokens"] = tokens
+    out["tokens"], out["prompts"] = tokens, prompts
+    out["on_engine"] = on_engine_out
+    return out
+
+
+def _last_logits(torch, params, cfg, ids, device, dtype, path):
+    """The logits after ``ids`` from one prefill forward of the whole
+    sequence, on ``device`` through ``path`` (ragged, write_then_attend)."""
+    from xllm_service_tpu_torch.models import transformer as tf
+    ps, T = 128, len(ids)
+    pages = -(-T // ps)
+    kv = tf.init_kv_cache(cfg, pages + 1, ps, device, dtype=dtype)
+    table = torch.arange(1, pages + 1, dtype=torch.int32,
+                         device=device)[None]
+    logits, _ = tf.forward_prefill(
+        params, cfg, torch.tensor([ids], device=device),
+        torch.zeros(1, dtype=torch.int32, device=device),
+        torch.tensor([T], dtype=torch.int32, device=device), kv, table,
+        ragged=path["ragged"],
+        write_then_attend=path["ragged"] or path["write_then_attend"])
+    return logits[0].float().cpu()
+
+
+def divergence_margins(torch, engine, pairs, err, cpu_params=None):
+    """At each stream's first divergent token between two served paths,
+    the top-2 logit margin of one forward over the common prefix (the
+    prompt and the tokens both streams share): on the card through each
+    path, and with ``cpu_params`` under the plain float32 path on the
+    CPU. ``pairs``: (tag, tokens_a, path_a, tokens_b, path_b, prompts),
+    tokens by prompt length. A divergence whose reference margin (the
+    CPU's where there is one, else the smaller card margin) is wider
+    than 10 x ``err`` (phase 4's largest logit error for the model) is
+    a fault; a narrower one is drift."""
+    from xllm_service_tpu_torch.models import transformer as tf
+    dtype = tf.torch_dtype(engine.cfg)
+    out = []
+    for tag, tok_a, path_a, tok_b, path_b, prompts in pairs:
+        for n in sorted(tok_a):
+            a, b = tok_a[n], tok_b.get(n, [])
+            i = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+            if i is None:
+                continue
+            ids = prompts[n] + a[:i]
+            rec = {"pair": tag, "prompt_tokens": n, "position": i,
+                   "served": [a[i], b[i]]}
+            for side, path in (("a", path_a), ("b", path_b)):
+                top = torch.topk(_last_logits(torch, engine.params,
+                                              engine.cfg, ids, engine.device,
+                                              dtype, path), 2)
+                rec[f"margin_{side}"] = float(top.values[0] - top.values[1])
+                rec[f"top2_{side}"] = top.indices.tolist()
+            ref = min(rec["margin_a"], rec["margin_b"])
+            if cpu_params is not None:
+                top = torch.topk(_last_logits(
+                    torch, cpu_params, engine.cfg, ids, torch.device("cpu"),
+                    torch.float32, {"ragged": False,
+                                    "write_then_attend": False}), 2)
+                rec["margin_cpu_fp32"] = ref = float(top.values[0]
+                                                     - top.values[1])
+                rec["top2_cpu_fp32"] = top.indices.tolist()
+            rec["limit"] = 10 * err
+            rec["verdict"] = "fault" if ref > 10 * err else "drift"
+            out.append(rec)
     return out
 
 
@@ -1542,8 +1767,9 @@ def main() -> int:
                             cfg.head_dim, record=True)
     bench.all_layer_writers(kv_update, 4, 1, 576, record=False)  # MLA row
     bench.decode_attention_current(paged_attention, attention)
+    bench.decode_attention_long(paged_attention, attention)
     bench.prefill_attention_fresh(prefill_attention, attention)
-    bench.head_dims(prefill_attention, ragged_attention)
+    bench.head_dims(prefill_attention, ragged_attention, paged_attention)
     bench.prefill_long(prefill_attention, ragged_attention, attention)
     mla_cfg = ModelConfig.deepseek_v2_lite()
     bench.mla_decode_attention(paged_attention, attention, mla_cfg,
@@ -1555,36 +1781,55 @@ def main() -> int:
     free_device_memory(torch)
 
     # 4. Forward pass: llama3-1b, then DeepSeek-V2-Lite cut to 4 layers.
-    rel = forward_check(torch, cfg, "cuda")
+    rel, err = forward_check(torch, cfg, "cuda")
     free_device_memory(torch)
-    rel_mla = mla_forward_check(
+    rel_mla, err_mla = mla_forward_check(
         torch, kernels, dataclasses.replace(mla_cfg, num_layers=4), "cuda")
     free_device_memory(torch)
 
     # 5. Serving, split path; 5b. serving, ragged step; 5c. serving,
     # attend-then-write; 5d/5e. DeepSeek-V2-Lite, 27 layers, in the GPU
     # default order and in attend-then-write.
+    # Each phase's path; every llama3-1b phase serves the same weights
+    # (the engine's seed), and so does every DeepSeek one. The margins of
+    # the streams' first divergent tokens are read on the live engine of
+    # each model's last phase (5c, 5e).
+    split_wta = {"ragged": False, "write_then_attend": True}
+    ragged_path = {"ragged": True, "write_then_attend": True}
+    split_atw = {"ragged": False, "write_then_attend": False}
     served = serve(torch, kernels, "llama3-1b", "cuda", ragged=False)
     free_device_memory(torch)
     served_b = serve(torch, kernels, "llama3-1b", "cuda", ragged=True,
                      tag="b")
     free_device_memory(torch)
-    served_c = serve(torch, kernels, "llama3-1b", "cuda", ragged=False,
-                     write_then_attend=False, tag="c")
+    tok_a, tok_b = served.pop("tokens"), served_b.pop("tokens")
+    served_c = serve(
+        torch, kernels, "llama3-1b", "cuda", ragged=False,
+        write_then_attend=False, tag="c",
+        on_engine=lambda eng, tok_c: divergence_margins(
+            torch, eng, [("ragged", tok_a, split_wta, tok_b, ragged_path,
+                          served["prompts"]),
+                         ("attend_then_write", tok_a, split_wta, tok_c,
+                          split_atw, served["prompts"])],
+            err, cpu_float(eng.params)))
     free_device_memory(torch)
     served_d = serve(torch, kernels, "deepseek-v2-lite", "cuda",
                      ragged=False, tag="d")
     free_device_memory(torch)
-    served_e = serve(torch, kernels, "deepseek-v2-lite", "cuda",
-                     ragged=False, write_then_attend=False, tag="e")
+    tok_d = served_d.pop("tokens")
+    served_e = serve(
+        torch, kernels, "deepseek-v2-lite", "cuda", ragged=False,
+        write_then_attend=False, tag="e",
+        on_engine=lambda eng, tok_e: divergence_margins(
+            torch, eng, [("deepseek_orders", tok_d, split_wta, tok_e,
+                          split_atw, served_d["prompts"])], err_mla))
     free_device_memory(torch)
-    tok_a = served.pop("tokens")
     same = {}
-    for tag, other in (("ragged", served_b), ("attend_then_write",
-                                              served_c)):
-        tok_b = other.pop("tokens")
-        pairs = [(x, y) for n in tok_a for x, y in zip(tok_a[n],
-                                                       tok_b.get(n, []))]
+    for tag, tok_x, tok_y in (("ragged", tok_a, tok_b),
+                              ("attend_then_write", tok_a,
+                               served_c.pop("tokens"))):
+        pairs = [(x, y) for n in tok_x for x, y in zip(tok_x[n],
+                                                       tok_y.get(n, []))]
         same[tag] = (sum(x == y for x, y in pairs) / len(pairs)
                      if pairs else None)
     log(f"[serve] {card}: split vs ragged: TTFT ms "
@@ -1617,7 +1862,7 @@ def main() -> int:
         f"{p5c['kernel_launches_per_forward']} per forward); device busy ms "
         f"{p5['device_busy_ms']} vs {p5c['device_busy_ms']}; idle share "
         f"{p5['idle_share']} vs {p5c['idle_share']}")
-    tok_d, tok_e = served_d.pop("tokens"), served_e.pop("tokens")
+    tok_e = served_e.pop("tokens")
     pairs = [(x, y) for n in tok_d for x, y in zip(tok_d[n],
                                                    tok_e.get(n, []))]
     same["deepseek_orders"] = (sum(x == y for x, y in pairs) / len(pairs)
@@ -1630,9 +1875,20 @@ def main() -> int:
         f"{served_e['decode_tokens_per_s_streams']}; median decode step ms "
         f"{served_d['decode_step_ms_median']} vs "
         f"{served_e['decode_step_ms_median']}; device busy ms per profiled "
-        f"stream {p5d['device_busy_ms']} vs {p5e['device_busy_ms']}; idle "
+        f"stream {p5d['device_busy_ms']} vs {p5e['device_busy_ms']}, of it "
+        f"K3'' {p5d['decode_attention_device_ms']['mla']} vs "
+        f"{p5e['decode_attention_device_ms']['mla']}; idle "
         f"share {p5d['idle_share']} vs {p5e['idle_share']}; share of equal "
         f"tokens {same['deepseek_orders']}")
+
+    margins = served_c["on_engine"] + served_e["on_engine"]
+    for phase in (served, served_b, served_c, served_d, served_e):
+        phase.pop("prompts")
+        phase.pop("on_engine")
+    log(f"[margins] {card}: top-2 logit margin at each stream's first "
+        f"divergent token between served paths (limit: 10 x phase 4's "
+        f"largest logit error, llama3-1b {err}, deepseek-v2-lite "
+        f"{err_mla}): {json.dumps(margins)}")
 
     # 6. Summary.
     for r in bench.results:
@@ -1645,6 +1901,9 @@ def main() -> int:
         r["launches"] = phase["launches"][name]
     summary = {"card": card, "build_s": build_s, "forward_rel_l2": rel,
                "forward_rel_l2_deepseek": rel_mla,
+               "forward_max_abs_logit_err": err,
+               "forward_max_abs_logit_err_deepseek": err_mla,
+               "divergence_margins": margins,
                "serve": served, "serve_ragged": served_b,
                "serve_attend_then_write": served_c,
                "serve_deepseek": served_d,

@@ -3,9 +3,10 @@ package's Engine, on the CPU with a tiny float32 model and the same
 weights, at temperature 0.
 
 Both engines get a page pool large enough that admission never waits
-for pages (the port reserves a whole sequence's pages at admission, the
-JAX engine a window's at a time), and the JAX engine single-step decode
-and no prefix cache, as the port has. Time is counted in engine steps.
+for pages (both take a window's pages at a time and grow the table as
+the sequence grows; tests/test_torch_admission.py holds them under page
+pressure), and the JAX engine single-step decode and no prefix cache,
+as the port has. Time is counted in engine steps.
 Pinned: the token streams are identical, and so is the per-step ledger
 (kind, ragged, prefill windows, decode tokens, attention dispatches)."""
 
@@ -180,8 +181,8 @@ def test_skip_ahead_admits_small_prompt_behind_page_starved_one(weights):
     def req(rid, n, max_tokens):
         return EngineRequest(rid, list(range(3, 3 + n)), SamplingParams(
             max_tokens=max_tokens, temperature=0.0, ignore_eos=True))
-    # The blocker reserves 12 of the 15 pages; the giant needs 11, the
-    # small prompt 3.
+    # The blocker holds 10 of the 15 pages after its prefill (36 tokens
+    # and the one it sampled); the giant needs 11, the small prompt 3.
     engine.add_request(req("blocker", 36, 12))
     engine.step()
     engine.add_request(req("giant", 40, 2))

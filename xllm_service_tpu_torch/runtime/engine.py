@@ -33,13 +33,23 @@ ended. A batch pads to a power of two rows and its window to the bucket
 that holds the longest window. Tokens are sampled on the device inside
 the step; only the sampled ids and their logprobs cross to the host.
 
+Pages are allocated as the JAX engine allocates them: admission takes
+only the pages of the first window (plus the first sampled token's when
+that window completes the prompt), a later window extends the table to
+cover it, and every decode grows it to cover the token it writes. When
+the pool runs out, the sequence that needs the pages is preempted by
+recompute: its slot and pages are freed and it requeues with its
+generated tokens, to be prefilled again. (The JAX engine first evicts
+offline requests; this package has no offline requests, so the needy
+sequence is always its own victim, as in the JAX engine under online
+traffic.) Only a prompt whose KV can never fit the pool is refused.
+
 A sequence finishes on EOS, a stop token id, ``max_tokens`` or
 ``max_model_len``; its pages and slot are freed then.
 
-Not in this package yet: the prefix cache, preemption (admission
-reserves the pages of the whole sequence instead), fused multi-step
-decode and its pipeline, CUDA graphs, the step fault boundary and the
-step trace.
+Not in this package yet: the prefix cache, offline requests, fused
+multi-step decode and its pipeline, CUDA graphs, the step fault boundary
+and the step trace.
 """
 
 from __future__ import annotations
@@ -190,6 +200,7 @@ class Engine:
         self.last_step_ragged = False
         self.last_step_attn_dispatches = 0
         self.ragged_steps = 0           # ragged forwards run so far
+        self.num_preemptions = 0
 
     # ------------------------------------------------------------------
     # Request intake
@@ -202,6 +213,15 @@ class Engine:
             raise ValueError(
                 f"prompt of {len(req.token_ids)} tokens exceeds the "
                 f"engine's limit of {max_prompt}")
+        # A prompt (and its first sampled token) whose KV can never fit
+        # the pool is refused: admitted, it would preempt itself forever.
+        # Page 0 is the NULL page, hence the -1.
+        pool_pages = self.ecfg.num_pages - 1
+        if self._pages_needed(len(req.token_ids) + 1) > pool_pages:
+            raise ValueError(
+                f"prompt of {len(req.token_ids)} tokens needs more KV "
+                f"pages than the pool holds ({pool_pages} × "
+                f"{self.ecfg.page_size} tokens)")
         if len(req.token_ids) + req.sampling.max_tokens > \
                 self.ecfg.max_model_len:
             req = dataclasses.replace(
@@ -209,15 +229,6 @@ class Engine:
                     req.sampling,
                     max_tokens=max(
                         1, self.ecfg.max_model_len - len(req.token_ids))))
-        # Admission reserves the whole sequence's pages: one that can
-        # never fit the pool (page 0 is NULL, hence the -1) is refused.
-        if self._pages_needed(self._reserve_tokens(req)) > \
-                self.ecfg.num_pages - 1:
-            raise ValueError(
-                f"request of {len(req.token_ids)} prompt tokens and "
-                f"{req.sampling.max_tokens} new tokens needs more KV pages "
-                f"than the pool holds ({self.ecfg.num_pages - 1} x "
-                f"{self.ecfg.page_size} tokens)")
         if req.arrival_time == 0.0:
             req.arrival_time = time.monotonic()
         seq = Sequence(req=req, tokens=list(req.token_ids))
@@ -243,27 +254,74 @@ class Engine:
         ps = self.ecfg.page_size
         return (num_tokens + ps - 1) // ps
 
-    @staticmethod
-    def _reserve_tokens(req: EngineRequest) -> int:
-        # The last sampled token is never written to the pool.
-        return len(req.token_ids) + max(req.sampling.max_tokens - 1, 0)
-
     def _free_slot(self) -> int:
         return next((i for i, s in enumerate(self._slots) if s is None), -1)
 
-    def _try_admit(self, seq: Sequence) -> bool:
-        """Take a free slot and the pages of the whole sequence."""
+    def _window_pages_covered(self, seq: Sequence, window: int) -> int:
+        """Token positions the pages must cover for a prefill window of
+        ``window`` tokens from ``seq.num_computed``: the window, plus the
+        token it samples when it completes the prompt."""
+        end = seq.num_computed + window
+        return end + (1 if end >= len(seq.tokens) else 0)
+
+    def _try_admit(self, seq: Sequence, window: int) -> bool:
+        """Take a free slot and the pages of ``seq``'s first prefill
+        window; later windows and decode grow the table."""
         slot = self._free_slot()
         if slot < 0:
             return False
-        pages = self.allocator.alloc(
-            self._pages_needed(self._reserve_tokens(seq.req)))
+        pages = self.allocator.alloc(self._pages_needed(
+            self._window_pages_covered(seq, window)))
         if pages is None:
             return False
         seq.pages = pages
         seq.slot = slot
         self._slots[slot] = seq
         return True
+
+    def _preempt_seq(self, seq: Sequence) -> None:
+        """Preemption by recompute: free the slot and pages and requeue;
+        the generated tokens are kept and prefilled again on
+        readmission."""
+        if seq.slot >= 0:
+            self._slots[seq.slot] = None
+            seq.slot = -1
+        self.allocator.free(seq.pages)
+        seq.pages = []
+        seq.num_computed = 0
+        seq.sched_window = 0
+        seq.status = SeqStatus.WAITING
+        self.num_preemptions += 1
+        if seq in self.running:
+            self.running.remove(seq)
+        if seq not in self.waiting:     # a partial prefill already waits
+            self.waiting.append(seq)
+        self._sort_waiting()
+
+    def _grow_pages(self, seq: Sequence) -> bool:
+        """Pages for ``seq``'s next token write (see ``_ensure_pages``)."""
+        return self._ensure_pages(seq, len(seq.tokens))
+
+    def _ensure_pages(self, seq: Sequence, covered: int) -> bool:
+        """Extend ``seq``'s page table to cover ``covered`` token
+        positions. When the pool is short, ``seq`` preempts itself (the
+        JAX engine would first evict an offline request; this package
+        has none) and False is returned."""
+        need = self._pages_needed(covered) - len(seq.pages)
+        if need <= 0:
+            return True
+        pages = self.allocator.alloc(need)
+        if pages is None:
+            self._preempt_seq(seq)
+            return False
+        seq.pages.extend(pages)
+        return True
+
+    def _grow_running(self) -> None:
+        """Grow every running sequence's table for this step's decode
+        write; growth may preempt, hence the snapshot."""
+        for seq in list(self.running):
+            self._grow_pages(seq)
 
     def _finish_seq(self, seq: Sequence) -> None:
         seq.status = SeqStatus.FINISHED
@@ -357,7 +415,11 @@ class Engine:
         """Serve this iteration as one ragged forward of the running
         decoders and the prefill windows scheduled beside them. False,
         with nothing changed, when no window fits the budget: the
-        caller then runs the split sections."""
+        caller then runs the split sections (pages grown for the decode
+        rows stay grown)."""
+        self._grow_running()
+        if not self.running:
+            return False
         decode_seqs = list(self.running)
         # A ragged decode row spends one token of the budget.
         budget = max(self.step_token_budget - len(decode_seqs),
@@ -419,12 +481,16 @@ class Engine:
                 break               # residual below the smallest bucket
             if batch and window > budget:
                 break
-            if seq.slot < 0 and not self._try_admit(seq):
-                if self._free_slot() < 0 or \
-                        skipped >= self._ADMIT_SKIP_AHEAD:
-                    break           # no slot at all, or the bound is hit
-                skipped += 1
-                continue            # pages short: try the next prompt
+            if seq.slot < 0:
+                if not self._try_admit(seq, window):
+                    if self._free_slot() < 0 or \
+                            skipped >= self._ADMIT_SKIP_AHEAD:
+                        break       # no slot at all, or the bound is hit
+                    skipped += 1
+                    continue        # pages short: try the next prompt
+            elif not self._ensure_pages(
+                    seq, self._window_pages_covered(seq, window)):
+                continue            # preempted itself: waits, slotless
             seq.sched_window = window
             budget -= window
             self.waiting.remove(seq)
@@ -530,6 +596,9 @@ class Engine:
         return outs
 
     def _run_decode(self) -> List[StepOutput]:
+        self._grow_running()
+        if not self.running:
+            return []
         B = self.ecfg.max_batch_size
         MP = min(_pow2(max(len(s.pages) for s in self.running)),
                  self.ecfg.max_pages_per_seq)
@@ -569,6 +638,10 @@ class Engine:
             num_generated=seq.num_generated)
         if reason != FinishReason.NONE:
             self._finish_seq(seq)
+        else:
+            # Pages for the next token's write; may preempt ``seq``,
+            # which keeps this token and prefills it again later.
+            self._grow_pages(seq)
         return out
 
     def _finish_reason(self, seq: Sequence, tok: int) -> FinishReason:
