@@ -34,7 +34,17 @@ Phases (any failure raises and the exit code is not 0):
    576-wide latent head, a 27-layer pool; contexts 117-411 with an
    inactive row, and for the current form a row at cache length 0 and
    stale slots), timed beside gather + SDPA over the latent as K and V
-   of every head; and K1/K2 bit-exact at the latent row. The split-KV
+   of every head; and K1/K2 bit-exact at the latent row. Then the layer
+   body's writers as the serving path runs them, fused with their
+   neighbours: K1 and K2 fused with the rope of q and k
+   (``rope_kv_update_layer``, ``rope_prefill_kv_update_layer``:
+   bit-exact against their plain version, two ``rotate`` + the scatter,
+   in decode, prefill, ragged-window and pool-less modes) and with the
+   MLA latent row (``latent_kv_update_layer``,
+   ``latent_prefill_kv_update_layer`` at DeepSeek-V2-Lite's geometry:
+   within 2e-2, the rope columns bit-exact, with pools and without), each
+   timed beside the unfused chain it replaces in one CUDA graph
+   (``unfused_ms``) and K1 / K2 alone (``writer_only_ms``). The split-KV
    decode kernels (K3, K3', K3'') are also checked and timed at long
    contexts, B = 8 rows of 2048-4096 keys (seeded) and B = 1 row of
    4096 (records ``*_long_b8`` / ``*_long_b1``), and every K3/K3'/K3''
@@ -67,29 +77,37 @@ Phases (any failure raises and the exit code is not 0):
    concurrent requests (2 streamed chats, 2 non-streamed completions,
    prompts of 100-400 tokens, 32 new tokens, temperature 0), with the
    ragged step off and XLLM_WRITE_THEN_ATTEND=1. Launch counts are
-   zeroed just before and read just after: the four kernels of that
-   path must have run. Then one streamed request is served again under
-   torch.profiler (device time by kernel, idle share, launches, and the
-   decode attention kernels' own device ms).
+   zeroed just before and read just after, and counted per engine step:
+   every decode forward must launch the fused rope writer and K3 once
+   per layer, every prefill forward the fused prefill writer and K4 once
+   per layer, and nothing else (in every phase below as well: the
+   unfused K1/K2 never run on a served path). Then one streamed request
+   is served again under torch.profiler (device time by kernel, idle
+   share, launches per forward, the decode attention kernels', the
+   writers' and PyTorch's elementwise and copy kernels' device ms).
 5b. Serving, ragged: the same worker, flags and requests with
    XLLM_RAGGED_ATTN=1. At least one mixed iteration must run as one
-   ragged forward, each launching the ragged kernel once per layer and
-   neither the decode nor the prefill attention kernel.
+   ragged forward, each launching the fused prefill writer and the
+   ragged kernel once per layer and neither the decode nor the prefill
+   attention kernel.
 5c. Serving, attend-then-write: the same worker, flags and requests
    with XLLM_WRITE_THEN_ATTEND=0 (ragged off). Every decode forward
-   must launch K3' once per layer and K6 once, every prefill forward
-   K4' once per layer and K7 once, and K1-K5 never. One request is
-   profiled as in phase 5.
+   must launch the fused rope writer (no pools: rotation only) and K3'
+   once per layer and K6 once, every prefill forward the fused prefill
+   writer and K4' once per layer and K7 once, and K1-K5 never. One
+   request is profiled as in phase 5.
 5d. Serving DeepSeek-V2-Lite: the worker with --model deepseek-v2-lite
    (all 27 layers, random bf16 weights, 31.4 GB), the same flags and
    requests, in the GPU default order (write-then-attend). Every decode
-   forward must launch K1 and K3'' once per layer, every prefill
-   forward K2 once per layer (its attention is plain), and K3-K5 never.
-   One streamed request is profiled as in phase 5.
-5e. The same with XLLM_WRITE_THEN_ATTEND=0: every decode forward K3''
-   (current form) once per layer and K6 once, every prefill forward K7
-   once, K1-K5 never. Profiled as 5d. Each worker's weights are freed
-   before the next phase.
+   forward must launch the fused latent writer and K3'' once per layer,
+   every prefill forward the fused latent prefill writer once per layer
+   (its attention is plain), and K1-K5 never. One streamed request is
+   profiled as in phase 5.
+5e. The same with XLLM_WRITE_THEN_ATTEND=0: every decode forward the
+   fused latent writer (no pools) and K3'' (current form) once per
+   layer and K6 once, every prefill forward the fused latent prefill
+   writer once per layer and K7 once, K1-K5 never. Profiled as 5d.
+   Each worker's weights are freed before the next phase.
    Margins: each model's phases serve the same weights, so on the live
    engine of 5c (and 5e) the script reads, at each stream's first
    divergent token between phase 5 and 5b, 5 and 5c (5d and 5e), the
@@ -97,10 +115,12 @@ Phases (any failure raises and the exit code is not 0):
    the card through both paths and, for llama3-1b, under the plain
    float32 path on the CPU (``[margins]``): wider than 10 x phase 4's
    largest logit error for the model is a fault, narrower is drift.
-6. Summary: one line ``{"kernels": [...]}`` (K1-K4 launches from phase
-   5, K5 from 5b, K6, K7, K3' and K4' from 5c, K3'' from 5d and its
-   current form from 5e; a record at another shape takes its kernel's
-   count), the card line, then the last line
+   ``[profile]`` prints the launches per forward of 5, 5c, 5d and 5e.
+6. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
+   writers' launches from phase 5 (K1/K2 now 0), K5 from 5b, K6, K7,
+   K3' and K4' from 5c, K3'' and the fused latent writers from 5d and
+   the current form of K3'' from 5e; a record at another shape takes its
+   kernel's count), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without printing a result when no CUDA device is
@@ -124,6 +144,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 PEAK_BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core rate
+PEAK_FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 ATTN_TOL = 2e-2
 FORWARD_REL_L2 = 5e-2
 CSRC = "xllm_service_tpu_torch/ops/kernels/csrc"
@@ -177,9 +198,9 @@ def graph_ms(fn, iters: int = 30, replays: int = 5) -> float:
     return start.elapsed_time(end) / (replays * iters)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -207,6 +228,7 @@ class KernelBench:
 
     def __init__(self, torch, cfg, device) -> None:
         self.torch = torch
+        self.cfg = cfg
         self.dev = torch.device(device)
         self.g = torch.Generator(device=self.dev).manual_seed(1234)
         self.L, self.P, self.ps = 4, 512, 128
@@ -231,14 +253,18 @@ class KernelBench:
         return self.torch.tensor(xs, dtype=self.torch.int32, device=self.dev)
 
     def record(self, name, source, replaces, err, kernel, plain, library,
-               nbytes, flops, **extra):
+               nbytes, flops, peak=PEAK_BF16_FLOPS, **extra):
         """Time ``kernel`` (the wrapper) and ``library`` as device time
         (graph replay), the wrapper also per eager call (device time plus
         its host overhead), and ``plain`` per eager call (it syncs with
-        the host, so it cannot be captured)."""
-        ms, lib_ms = graph_ms(kernel), graph_ms(library)
+        the host, so it cannot be captured). ``library`` None: no one
+        PyTorch call computes the same function (``library_ms`` null).
+        ``peak``: the operations' rate (the fused writers' float32
+        arithmetic runs outside the tensor cores)."""
+        ms = graph_ms(kernel)
+        lib_ms = graph_ms(library) if library is not None else None
         eager_ms, plain_ms = time_ms(kernel), time_ms(plain)
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops, peak)
         self.results.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
@@ -247,7 +273,7 @@ class KernelBench:
             "bound_share": b_ms / ms, "library_ms": lib_ms, **extra})
         log(f"[kernel] {name}: max_abs_err={err} ms={ms:.5f} "
             f"eager_ms={eager_ms:.5f} plain_ms={plain_ms:.5f} "
-            f"library_ms={lib_ms:.5f} bound_ms={b_ms:.6f} ({b_by}, "
+            f"library_ms={lib_ms} bound_ms={b_ms:.6f} ({b_by}, "
             f"{b_ms / ms:.4f} of it) {json.dumps(extra)}")
 
     def latent_pools(self):
@@ -311,7 +337,8 @@ class KernelBench:
                                              self.layer),
             lambda: kv.paged_kv_update_layer_plain(kb, vb, kn, vn, pt, pos,
                                                    all_on, self.layer),
-            lib, nbytes, 0.0)
+            lib, nbytes, 0.0, superseded_by="rope_kv_update_layer, "
+            "latent_kv_update_layer (no served path launches K1 alone)")
 
     # -- K2 ----------------------------------------------------------------
     def prefill_writer(self, kv, pools=None):
@@ -360,7 +387,251 @@ class KernelBench:
                                                      lens, self.layer),
             lambda: kv.paged_prefill_kv_update_layer_plain(
                 kb, vb, kn, vn, pt, start, lens, self.layer),
-            lib, nbytes, 0.0)
+            lib, nbytes, 0.0, superseded_by="rope_prefill_kv_update_layer, "
+            "latent_prefill_kv_update_layer (no served path launches K2 "
+            "alone)")
+
+    # -- K1 / K2 fused with the rope of q and k ----------------------------
+    def _rope_inputs(self, rope, B, T, starts):
+        """Fresh q [B, T, Hq, D], k/v [B, T, Hkv, D] and llama3-1b's
+        cos/sin [B, T, D/2] (its llama3 scaling) at starts[b] + t."""
+        torch, cfg = self.torch, self.cfg
+        pos = self.i32(starts).long()[:, None] \
+            + torch.arange(T, device=self.dev)[None, :]
+        cos, sin = rope.rope_cos_sin(pos, self.D, cfg.rope_theta,
+                                     cfg.rope_scaling)
+        return (self.randn(B, T, self.Hq, self.D),
+                self.randn(B, T, self.Hkv, self.D),
+                self.randn(B, T, self.Hkv, self.D), cos, sin)
+
+    def _rope_same(self, fused, plain, q, k, v, cos, sin, pools, rest,
+                   what):
+        """``fused`` and ``plain`` on copies of the same q, k (and pools):
+        the rotated q and k and both pools must be bit-exact, and the
+        rotation must have changed q."""
+        torch = self.torch
+        outs = []
+        for fn in (fused, plain):
+            qc, kc = q.clone(), k.clone()
+            pc = [p.clone() for p in pools] if pools else [None, None]
+            fn(qc, kc, v, cos, sin, *pc, *rest)
+            outs.append([qc, kc] + pc)
+        torch.cuda.synchronize()
+        for a, b, name in zip(*outs, ("q", "k", "k_pages", "v_pages")):
+            if a is not None and not torch.equal(a, b):
+                raise AssertionError(f"{what}: {name} is not bit-exact")
+        if torch.equal(outs[0][0], q):
+            raise AssertionError(f"{what}: q was not rotated")
+        log(f"[kernel] {what} bit-exact")
+
+    def rope_decode_writer(self, kv, rope):
+        """K1 fused with the rope (``rope_kv_update_layer``) at llama3-1b's
+        decode rows (B=8, contexts 117-411, row 6 inactive, row 5's page
+        NULL): bit-exact with pools and without (attend-then-write), then
+        timed beside the unfused chain it replaces (two ``rotate`` + K1,
+        one CUDA graph) and K1 alone."""
+        torch = self.torch
+        B = 8
+        positions = [c - 1 for c in (117, 205, 298, 411, 150, 260, 333, 390)]
+        q, k, v, cos, sin = self._rope_inputs(rope, B, 1, positions)
+        pos = self.i32(positions)
+        pt = self.pt8.clone()
+        pt[5, 2] = 0
+        active = torch.tensor([1, 1, 1, 1, 1, 1, 0, 1], dtype=torch.bool,
+                              device=self.dev)
+        for pools, rest, mode in (
+                ((self.kp, self.vp), (pt, pos, active, self.layer), "decode"),
+                (None, (), "pool-less decode")):
+            self._rope_same(kv.rope_kv_update_layer,
+                            kv.rope_kv_update_layer_plain, q, k, v, cos, sin,
+                            pools, rest, f"rope_kv_update_layer ({mode})")
+        all_on = torch.ones(B, dtype=torch.bool, device=self.dev)
+        ka, va, qa, kq = self.kp.clone(), self.vp.clone(), q.clone(), \
+            k.clone()
+        kb, vb, qb, kqb = self.kp.clone(), self.vp.clone(), q.clone(), \
+            k.clone()
+        args = (self.pt8, pos, all_on, self.layer)
+
+        def unfused():                    # the unfused chain it replaces
+            qr, kr = rope.rotate(qa, cos, sin), rope.rotate(kq, cos, sin)
+            kv.paged_kv_update_layer(ka, va, kr[:, 0], v[:, 0], *args)
+            return qr
+        # q and k read and written, v read, cos/sin read, k and v rows
+        # written to the pool, the row metadata read.
+        nbytes = (B * (2 * self.Hq + 3 * self.Hkv) * self.D * 2
+                  + 2 * B * self.D // 2 * 4 + B * 2 * self.Hkv * self.D * 2
+                  + B * (4 + 4 + 1 + 4))
+        self.record(
+            "rope_kv_update_layer", f"{CSRC}/kv_update.cu",
+            f"{PALLAS}/kv_update.py:162", 0.0,
+            lambda: kv.rope_kv_update_layer(qa, kq, v, cos, sin, ka, va,
+                                            *args),
+            lambda: kv.rope_kv_update_layer_plain(qb, kqb, v, cos, sin, kb,
+                                                  vb, *args),
+            None, nbytes, 6.0 * B * (self.Hq + self.Hkv) * self.D // 2,
+            PEAK_FP32_FLOPS, entry="rope_kv_update_layer",
+            unfused_ms=graph_ms(unfused),
+            writer_only_ms=graph_ms(lambda: kv.paged_kv_update_layer(
+                ka, va, kq[:, 0], v[:, 0], *args)))
+
+    def rope_prefill_writer(self, kv, rope):
+        """K2 fused with the rope (``rope_prefill_kv_update_layer``):
+        bit-exact on the 4 x 256 prefill batch (one start unaligned), a
+        ragged batch (7 decode rows at mid-page starts and a 256-token
+        window in a T = 256 bucket) and without pools; timed on the
+        prefill batch beside the unfused chain (two ``rotate`` + K2) and
+        K2 alone."""
+        torch = self.torch
+        ragged_starts = [c - 1 for c in (117, 205, 298, 411, 150, 260, 333)]
+        for B, starts, lens, pools, mode in (
+                (4, [0, 256, 128, 7], [256, 144, 200, 97], True, "prefill"),
+                (8, ragged_starts + [0], [1] * 7 + [256], True,
+                 "ragged window"),
+                (4, [0, 256, 128, 7], [256, 144, 200, 97], False,
+                 "pool-less prefill")):
+            q, k, v, cos, sin = self._rope_inputs(rope, B, 256, starts)
+            rest = (self.pt8[:B].contiguous(), self.i32(starts),
+                    self.i32(lens), self.layer) if pools else ()
+            self._rope_same(kv.rope_prefill_kv_update_layer,
+                            kv.rope_prefill_kv_update_layer_plain, q, k, v,
+                            cos, sin, (self.kp, self.vp) if pools else None,
+                            rest, f"rope_prefill_kv_update_layer ({mode})")
+        B, T = 4, 256
+        starts, lens = [0, 256, 128, 7], [256, 144, 200, 97]
+        q, k, v, cos, sin = self._rope_inputs(rope, B, T, starts)
+        ka, va, qa, kq = self.kp.clone(), self.vp.clone(), q.clone(), \
+            k.clone()
+        kb, vb, qb, kqb = self.kp.clone(), self.vp.clone(), q.clone(), \
+            k.clone()
+        args = (self.pt8[:B].contiguous(), self.i32(starts), self.i32(lens),
+                self.layer)
+
+        def unfused():                    # the unfused chain it replaces
+            qr, kr = rope.rotate(qa, cos, sin), rope.rotate(kq, cos, sin)
+            kv.paged_prefill_kv_update_layer(ka, va, kr, v, *args)
+            return qr
+        n = sum(lens)
+        nbytes = (B * T * (2 * self.Hq + 3 * self.Hkv) * self.D * 2
+                  + 2 * B * T * self.D // 2 * 4
+                  + n * 2 * self.Hkv * self.D * 2 + B * (4 * self.MP + 8))
+        self.record(
+            "rope_prefill_kv_update_layer", f"{CSRC}/kv_update.cu",
+            f"{PALLAS}/kv_update.py:336", 0.0,
+            lambda: kv.rope_prefill_kv_update_layer(qa, kq, v, cos, sin, ka,
+                                                    va, *args),
+            lambda: kv.rope_prefill_kv_update_layer_plain(
+                qb, kqb, v, cos, sin, kb, vb, *args),
+            None, nbytes, 6.0 * B * T * (self.Hq + self.Hkv) * self.D // 2,
+            PEAK_FP32_FLOPS, entry="rope_prefill_kv_update_layer",
+            unfused_ms=graph_ms(unfused),
+            writer_only_ms=graph_ms(lambda: kv.paged_prefill_kv_update_layer(
+                ka, va, kq, v, *args)))
+
+    # -- K1 / K2 fused with the MLA latent row -----------------------------
+    def _latent_close(self, fused, plain, args, pools, rest, what, r):
+        """``fused`` and ``plain`` on copies of the same pools: the latent
+        rows (returned and written to both pools) within ATTN_TOL, their
+        rope columns bit-exact, and the same pool rows written. Returns
+        the largest absolute error."""
+        torch = self.torch
+        outs = []
+        for fn in (fused, plain):
+            pc = [p.clone() for p in pools] if pools else [None, None]
+            outs.append([fn(*args, *pc, *rest)] + pc)
+        torch.cuda.synchronize()
+        (got, gk, gv), (want, wk, wv) = outs
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: latent not finite")
+        if not torch.equal(got[..., r:], want[..., r:]):
+            raise AssertionError(f"{what}: rope columns not bit-exact")
+        err = float((got.float() - want.float()).abs().max())
+        if pools:
+            for a, b, p0 in ((gk, wk, pools[0]), (gv, wv, pools[1])):
+                if not torch.equal((a != p0).flatten(3).any(-1),
+                                   (b != p0).flatten(3).any(-1)):
+                    raise AssertionError(f"{what}: other pool rows written")
+                err = max(err, float((a.float() - b.float()).abs().max()))
+        if err > ATTN_TOL:
+            raise AssertionError(f"{what}: max abs error {err}")
+        log(f"[kernel] {what}: max_abs_err={err}")
+        return err
+
+    def latent_writers(self, kv, rope, mla_cfg):
+        """K1 and K2 fused with the MLA latent row (``latent_kv_update_
+        layer``, ``latent_prefill_kv_update_layer``) at DeepSeek-V2-Lite's
+        geometry (ckv = h @ kv_a of width 512 + 64, yarn cos/sin,
+        adjacent-pair rope): the decode rows (B=8, row 6 inactive, row 5's
+        page NULL) and the 4 x 256 prefill batch, with pools and without,
+        within ATTN_TOL (the norm's sum runs in another order; the rope
+        columns bit-exact); each timed beside the unfused chain (rms_norm,
+        rope, cat, then K1 / K2; one CUDA graph) and K1 / K2 alone."""
+        torch = self.torch
+        kp, vp, pt8 = self.latent_pools()
+        r, dr = mla_cfg.kv_lora_rank, mla_cfg.qk_rope_head_dim
+        W = r + dr
+        weight = (1.0 + 0.1 * self.randn(r, dtype=torch.float32)).to(
+            torch.bfloat16)
+        eps, inter = mla_cfg.rms_norm_eps, mla_cfg.rope_interleave
+        layer = 1
+        decode_pos = [c - 1 for c in (117, 205, 298, 411, 150, 260, 333, 390)]
+        for name, B, T, starts, lens in (
+                ("latent_kv_update_layer", 8, 1, decode_pos, None),
+                ("latent_prefill_kv_update_layer", 4, 256, [0, 256, 128, 7],
+                 [256, 144, 200, 97])):
+            fused = getattr(kv, name)
+            plain = getattr(kv, name + "_plain")
+            pos = self.i32(starts).long()[:, None] \
+                + torch.arange(T, device=self.dev)[None, :]
+            cos, sin = rope.rope_cos_sin(pos, dr, mla_cfg.rope_theta,
+                                         mla_cfg.rope_scaling)
+            ckv = self.randn(B, T, W)
+            args = (ckv, weight, cos, sin, eps, inter)
+            pt = pt8[:B].clone()
+            if lens is None:
+                pt[5, 2] = 0
+                act = torch.tensor([1, 1, 1, 1, 1, 1, 0, 1], dtype=torch.bool,
+                                   device=self.dev)
+                rest = (pt, self.i32(starts), act, layer)
+                n = int(act.sum())
+            else:
+                rest = (pt, self.i32(starts), self.i32(lens), layer)
+                n = sum(lens)
+            err = max(self._latent_close(fused, plain, args, p, re,
+                                         f"{name} ({mode})", r)
+                      for p, re, mode in (((kp, vp), rest, "pools"),
+                                          (None, (), "pool-less")))
+            if lens is None:                  # timed with every row on
+                rest = (pt8[:B].contiguous(), self.i32(starts),
+                        torch.ones(B, dtype=torch.bool, device=self.dev),
+                        layer)
+                n = B
+            writer = (kv.paged_kv_update_layer if lens is None
+                      else kv.paged_prefill_kv_update_layer)
+            ka, va, kb, vb = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+            fresh = kv.latent_prefill_kv_update_layer_plain(*args)
+            if lens is None:
+                fresh = fresh[:, 0]
+
+            def unfused(args=args, writer=writer, rest=rest, T=T):
+                lat = kv.latent_prefill_kv_update_layer_plain(*args)
+                lat = lat[:, 0] if T == 1 else lat
+                writer(ka, va, lat, lat, *rest)
+            nbytes = (B * T * W * 2 * 2 + r * 2 + 2 * B * T * dr // 2 * 4
+                      + n * 2 * W * 2
+                      + B * (4 + 4 + 1 + 4 if lens is None
+                             else 4 * self.MP + 8))
+            self.record(
+                name, f"{CSRC}/kv_update.cu",
+                f"{PALLAS}/kv_update.py:{162 if lens is None else 336}", err,
+                lambda f=fused, a=args, re=rest: f(*a, ka, va, *re),
+                lambda p=plain, a=args, re=rest: p(*a, kb, vb, *re),
+                None, nbytes, B * T * (3.0 * r + 3.0 * dr), PEAK_FP32_FLOPS,
+                entry=name,
+                unfused_ms=graph_ms(unfused),
+                writer_only_ms=graph_ms(
+                    lambda w=writer, f=fresh, re=rest: w(ka, va, f, f, *re)),
+                shape=f"B={B} T={T} (Hkv, D) = (1, {W})")
+        del kp, vp
 
     # -- K3 ----------------------------------------------------------------
     def decode_attention(self, pa, attention):
@@ -1211,8 +1482,9 @@ def mla_forward_check(torch, kernels, cfg, device) -> float:
     prefill, a second window at q_start 128 / 77 (unaligned), then a
     decode step. Each against the plain path (float32 on the CPU, same
     weights): relative L2 of the logits <= 5e-2. Each decode forward on
-    the GPU must launch K3'' once per layer: K1 + K3'' (write-then-
-    attend), K3'' current form + one K6 (attend-then-write)."""
+    the GPU must launch K3'' once per layer: the latent form of K1 (the
+    latent row built and written) + K3'' (write-then-attend), the latent
+    form without pools + K3'' current form + one K6 (attend-then-write)."""
     from xllm_service_tpu_torch.models import transformer as tf
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -1239,9 +1511,11 @@ def mla_forward_check(torch, kernels, cfg, device) -> float:
         n = kernels.launch_counts()
         want = {k: 0 for k in n}
         if wta:
-            want.update(paged_kv_update_layer=L, paged_decode_attention_mla=L)
+            want.update(latent_kv_update_layer=L,
+                        paged_decode_attention_mla=L)
         else:
-            want.update(paged_decode_attention_mla_current=L,
+            want.update(latent_kv_update_layer=L,
+                        paged_decode_attention_mla_current=L,
                         paged_kv_update=1)
         if device.type == "cuda" and n != want:
             raise AssertionError(f"MLA decode forward launches {n}, want "
@@ -1355,14 +1629,27 @@ def profile_request(torch, addr: str, body: dict) -> dict:
     rows.sort(reverse=True)
     wall_ms = res["latency_s"] * 1e3
     busy_ms = sum(r[0] for r in rows)
-    # The decode attention kernels' own device time (K3/K3' and K3'').
+    # The decode attention kernels' own device time (K3/K3' and K3''),
+    # the layer body's fused writers', and PyTorch's elementwise kernels
+    # and copies (cat, casts, index copies).
     k3 = {kind: sum(ms for ms, _, k in rows if f"{kernel}<" in k)
           for kind, kernel in (
               ("gqa", "paged_decode_attention_kernel"),
               ("mla", "paged_decode_attention_mla_kernel"))}
+    writers = {name: sum(ms for ms, _, k in rows if k.startswith(name + "("))
+               for name in ("rope_kv_write_kernel", "latent_kv_write_kernel",
+                            "kv_write_kernel")}
+    def is_copy(k):
+        return "CatArrayBatchedCopy" in k or "copy_kernel" in k
+    elementwise = sum(ms for ms, _, k in rows
+                      if "elementwise_kernel" in k and not is_copy(k))
+    copies = sum(ms for ms, _, k in rows if is_copy(k))
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms if rows else None,
            "idle_share": 1.0 - busy_ms / wall_ms if rows else None,
            "decode_attention_device_ms": k3,
+           "writer_device_ms": writers,
+           "elementwise_device_ms": elementwise,
+           "cat_copy_device_ms": copies,
            "kernel_launches": sum(r[1] for r in rows),
            "top": [{"ms": ms, "count": n, "name": k[:90]}
                    for ms, n, k in rows[:14]]}
@@ -1406,37 +1693,53 @@ class StepLog:
         self.rows, self.tokens = [], {}
 
 
-# The kernels of each order, by launches per forward.
-ONE_LAYER_KERNELS = ("paged_kv_update_layer", "paged_prefill_kv_update_layer",
+# The kernels of each order, by launches per forward. The layer body's
+# writers run fused with the rope of q and k (dense) or with the latent
+# row (MLA) in both orders; the unfused one-layer writers K1/K2 never run
+# on a served path.
+ONE_LAYER_KERNELS = ("rope_kv_update_layer", "rope_prefill_kv_update_layer",
                      "paged_decode_attention", "paged_prefill_attention",
                      "ragged_paged_attention")
 ATTEND_THEN_WRITE_KERNELS = ("paged_kv_update", "paged_prefill_kv_update",
                              "paged_decode_attention_current",
                              "paged_prefill_attention_fresh")
-MLA_KERNELS = ("paged_decode_attention_mla",
+MLA_KERNELS = ("latent_kv_update_layer", "latent_prefill_kv_update_layer",
+               "paged_decode_attention_mla",
                "paged_decode_attention_mla_current")
+UNFUSED_WRITERS = ("paged_kv_update_layer", "paged_prefill_kv_update_layer")
 
 
 def step_launches_wanted(row, layers: int, mla: bool,
                          write_then_attend: bool) -> dict:
-    """The hand-written launches one split step must make: a decode
-    forward and/or a prefill forward (a mixed step runs both), for
-    attend-then-write or, under MLA, for either order."""
+    """The hand-written launches one step must make: one ragged forward
+    (the fused prefill writer and the ragged kernel once per layer), or a
+    decode forward and/or a prefill forward (a split mixed step runs
+    both), each with its fused writer once per layer, in either order."""
     dec = int(row["kind"] in ("decode", "mixed"))
     pre = int(row["kind"] in ("prefill", "mixed"))
     want = {k: 0 for k in row["launches"]}
-    if mla and write_then_attend:
-        want.update(paged_kv_update_layer=layers * dec,
-                    paged_decode_attention_mla=layers * dec,
-                    paged_prefill_kv_update_layer=layers * pre)
+    if row["ragged"]:
+        want.update(rope_prefill_kv_update_layer=layers,
+                    ragged_paged_attention=layers)
     elif mla:
-        want.update(paged_decode_attention_mla_current=layers * dec,
-                    paged_kv_update=dec, paged_prefill_kv_update=pre)
+        want.update(latent_kv_update_layer=layers * dec,
+                    latent_prefill_kv_update_layer=layers * pre)
+        if write_then_attend:
+            want.update(paged_decode_attention_mla=layers * dec)
+        else:
+            want.update(paged_decode_attention_mla_current=layers * dec,
+                        paged_kv_update=dec, paged_prefill_kv_update=pre)
     else:
-        want.update(paged_decode_attention_current=layers * dec,
-                    paged_kv_update=dec,
-                    paged_prefill_attention_fresh=layers * pre,
-                    paged_prefill_kv_update=pre)
+        want.update(rope_kv_update_layer=layers * dec,
+                    rope_prefill_kv_update_layer=layers * pre)
+        if write_then_attend:
+            want.update(paged_decode_attention=layers * dec,
+                        paged_prefill_attention=layers * pre)
+        else:
+            want.update(paged_decode_attention_current=layers * dec,
+                        paged_kv_update=dec,
+                        paged_prefill_attention_fresh=layers * pre,
+                        paged_prefill_kv_update=pre)
     return want
 
 
@@ -1566,46 +1869,30 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
         raise AssertionError(
             f"engine.ragged={engine_ragged}, write_then_attend="
             f"{engine_wta}; want {ragged}, {write_then_attend}")
-    if mla or not write_then_attend:
-        # Every split step exactly: attend-then-write, K3' x layers + K6
-        # per decode forward, K4' x layers + K7 per prefill forward; MLA
-        # write-then-attend, K1 + K3'' x layers per decode forward and
-        # K2 x layers per prefill forward (attention plain); MLA
-        # attend-then-write, K3'' current x layers + K6 per decode
-        # forward and K7 per prefill forward. No other kernel.
-        need = set()
-        for row in rows:
-            want = step_launches_wanted(row, layers, mla, write_then_attend)
-            dec = int(row["kind"] in ("decode", "mixed"))
-            pre = int(row["kind"] in ("prefill", "mixed"))
-            if row["launches"] != want or row["forwards"] != dec + pre:
-                raise AssertionError(f"step launches: {row}, want {want}")
-            need |= {k for k, n in want.items() if n}
-        need = sorted(need)
-    elif ragged:
-        # The ragged path: ragged forwards ran, each one launch of the
-        # ragged kernel per layer and no decode or prefill attention.
-        need = ["paged_prefill_kv_update_layer", "ragged_paged_attention"]
-        if ragged_steps < 1:
-            raise AssertionError("no ragged iteration ran")
-        if counts["ragged_paged_attention"] % layers:
-            raise AssertionError(f"ragged kernel launches not a multiple of "
-                                 f"{layers}: {counts}")
-        for row in rows:
-            if row["kind"] == "mixed" and not row["ragged"]:
-                raise AssertionError(f"a mixed iteration ran split: {row}")
-            n = row["launches"]
-            if row["ragged"] and (
-                    n["ragged_paged_attention"] != layers
-                    or n["paged_decode_attention"]
-                    or n["paged_prefill_attention"]):
-                raise AssertionError(f"ragged iteration launches: {row}")
-    else:
-        need = ["paged_kv_update_layer", "paged_prefill_kv_update_layer",
-                "paged_decode_attention", "paged_prefill_attention"]
-        if any(counts[k] for k in ATTEND_THEN_WRITE_KERNELS + MLA_KERNELS):
-            raise AssertionError(f"write-then-attend ran an attend-then-"
-                                 f"write or MLA kernel: {counts}")
+    # Every step exactly (step_launches_wanted): the fused writer once per
+    # layer per forward, in every path; write-then-attend, K3 x layers per
+    # decode forward and K4 x layers per prefill forward, or one ragged
+    # forward with K5 x layers; attend-then-write, K3' x layers + K6 per
+    # decode forward, K4' x layers + K7 per prefill forward; MLA, K3''
+    # (pool-only or current form) x layers per decode forward, its prefill
+    # attention plain, K6 / K7 in attend-then-write. No other kernel, so
+    # the unfused writers K1/K2 never.
+    need = set()
+    for row in rows:
+        if ragged and row["kind"] == "mixed" and not row["ragged"]:
+            raise AssertionError(f"a mixed iteration ran split: {row}")
+        want = step_launches_wanted(row, layers, mla, write_then_attend)
+        dec = int(row["kind"] in ("decode", "mixed"))
+        pre = int(row["kind"] in ("prefill", "mixed"))
+        forwards = 1 if row["ragged"] else dec + pre
+        if row["launches"] != want or row["forwards"] != forwards:
+            raise AssertionError(f"step launches: {row}, want {want}")
+        need |= {k for k, n in want.items() if n}
+    if ragged and ragged_steps < 1:
+        raise AssertionError("no ragged iteration ran")
+    if any(counts[k] for k in UNFUSED_WRITERS):
+        raise AssertionError(f"an unfused one-layer writer ran: {counts}")
+    need = sorted(need)
     missing = [k for k in need if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
@@ -1727,7 +2014,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from xllm_service_tpu_torch.config import ModelConfig
     from xllm_service_tpu_torch.models import transformer
-    from xllm_service_tpu_torch.ops import attention, kernels
+    from xllm_service_tpu_torch.ops import attention, kernels, rope
     from xllm_service_tpu_torch.ops.kernels import (_build, kv_update,
                                                     paged_attention,
                                                     prefill_attention,
@@ -1759,6 +2046,8 @@ def main() -> int:
     bench = KernelBench(torch, cfg, "cuda")
     bench.decode_writer(kv_update)
     bench.prefill_writer(kv_update)
+    bench.rope_decode_writer(kv_update, rope)
+    bench.rope_prefill_writer(kv_update, rope)
     bench.decode_attention(paged_attention, attention)
     bench.prefill_attention(prefill_attention, attention)
     bench.ragged_attention(ragged_attention, paged_attention,
@@ -1774,6 +2063,7 @@ def main() -> int:
     mla_cfg = ModelConfig.deepseek_v2_lite()
     bench.mla_decode_attention(paged_attention, attention, mla_cfg,
                                transformer._mla_scale(mla_cfg))
+    bench.latent_writers(kv_update, rope, mla_cfg)
     latent = bench.latent_pools()                 # K1/K2 at the latent row
     bench.decode_writer(kv_update, latent)
     bench.prefill_writer(kv_update, latent)
@@ -1881,6 +2171,16 @@ def main() -> int:
         f"share {p5d['idle_share']} vs {p5e['idle_share']}; share of equal "
         f"tokens {same['deepseek_orders']}")
 
+    log(f"[profile] {card}: one profiled stream, kernel launches per "
+        f"forward: llama3-1b 5 {p5['kernel_launches_per_forward']}, 5c "
+        f"{p5c['kernel_launches_per_forward']}; deepseek-v2-lite 5d "
+        f"{p5d['kernel_launches_per_forward']}, 5e "
+        f"{p5e['kernel_launches_per_forward']}; PyTorch elementwise device "
+        f"ms 5 {p5['elementwise_device_ms']}, 5c "
+        f"{p5c['elementwise_device_ms']}, 5d {p5d['elementwise_device_ms']}, "
+        f"5e {p5e['elementwise_device_ms']}; cat/copy device ms 5 "
+        f"{p5['cat_copy_device_ms']}, 5c {p5c['cat_copy_device_ms']}, 5d "
+        f"{p5d['cat_copy_device_ms']}, 5e {p5e['cat_copy_device_ms']}")
     margins = served_c["on_engine"] + served_e["on_engine"]
     for phase in (served, served_b, served_c, served_d, served_e):
         phase.pop("prompts")
@@ -1895,8 +2195,8 @@ def main() -> int:
         name = r.get("entry", r["name"])       # a record at another shape
         phase = (served_b if name == "ragged_paged_attention" else
                  served_c if name in ATTEND_THEN_WRITE_KERNELS else
-                 served_d if name == "paged_decode_attention_mla" else
-                 served_e if name in MLA_KERNELS else
+                 served_e if name == "paged_decode_attention_mla_current"
+                 else served_d if name in MLA_KERNELS else
                  served)
         r["launches"] = phase["launches"][name]
     summary = {"card": card, "build_s": build_s, "forward_rel_l2": rel,

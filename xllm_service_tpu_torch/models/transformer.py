@@ -8,14 +8,16 @@ multi-head latent attention (MLA) with DeepSeek's MoE, in both of its
 orders of the KV write (``write_then_attend``):
 
 - write-then-attend: every layer writes its fresh K/V into the pool
-  first (the one-layer KV writer kernels), then its attention kernel
-  reads everything, cached prefix and current tokens alike, from the
-  pool;
+  first (the one-layer KV writer kernels, fused with the rope of q and
+  k, or under MLA with the latent row's norm and rope: one launch), then
+  its attention kernel reads everything, cached prefix and current
+  tokens alike, from the pool;
 - attend-then-write: every layer attends to the pool (the cached
   prefix) plus its fresh K/V, handed to the attention kernel as
   separate operands, and keeps them; after the layer loop they are
   stacked to [L, ...] and one launch of the all-layer writer puts them
-  in the pool.
+  in the pool. The same fused kernels rotate (or build the latent)
+  there, with no pools to write.
 
 Under MLA the pool holds one latent row per token, [kv_lora_rank
 (normed) | rotated k_pe], as a single KV "head" of width
@@ -44,11 +46,12 @@ from xllm_service_tpu_torch.config import ModelConfig
 from xllm_service_tpu_torch.ops.attention import (
     FULL_WINDOW, gather_pages, mha_prefill, overlay_fresh_kv)
 from xllm_service_tpu_torch.ops.kernels import (
+    latent_kv_update_layer, latent_prefill_kv_update_layer,
     paged_decode_attention, paged_decode_attention_current,
     paged_decode_attention_mla, paged_decode_attention_mla_current,
-    paged_kv_update, paged_kv_update_layer, paged_prefill_attention,
-    paged_prefill_attention_fresh, paged_prefill_kv_update,
-    paged_prefill_kv_update_layer, ragged_paged_attention)
+    paged_kv_update, paged_prefill_attention, paged_prefill_attention_fresh,
+    paged_prefill_kv_update, ragged_paged_attention, rope_kv_update_layer,
+    rope_prefill_kv_update_layer)
 from xllm_service_tpu_torch.ops.norm import rms_norm
 from xllm_service_tpu_torch.ops.rope import (rope_cos_sin, rotate,
                                              rotate_interleaved)
@@ -360,14 +363,15 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         lp = _layer(params, i)
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(lp, cfg, h)
-        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
         kw = dict(sliding_window=windows[i], sinks=lp.get("sinks"), **extras)
         if write_then_attend:
-            paged_prefill_kv_update_layer(k_pages, v_pages, k, v, page_table,
-                                          start_pos, lengths, i)
+            # q and k rotated in place, k and v written: one launch.
+            rope_prefill_kv_update_layer(q, k, v, cos, sin, k_pages, v_pages,
+                                         page_table, start_pos, lengths, i)
             attn = attend(q, k_pages, v_pages, page_table, start_pos,
                           lengths, i, **kw)
         else:
+            rope_prefill_kv_update_layer(q, k, v, cos, sin)
             k_fresh.append(k)
             v_fresh.append(v)
             attn = paged_prefill_attention_fresh(
@@ -420,14 +424,14 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         lp = _layer(params, i)
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(lp, cfg, h)                                 # [B,1,H,Dh]
-        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
         kw = dict(sliding_window=windows[i], sinks=lp.get("sinks"), **extras)
         if write_then_attend:
-            paged_kv_update_layer(k_pages, v_pages, k[:, 0], v[:, 0],
-                                  page_table, positions, active, i)
+            rope_kv_update_layer(q, k, v, cos, sin, k_pages, v_pages,
+                                 page_table, positions, active, i)
             attn = paged_decode_attention(q[:, 0], k_pages, v_pages,
                                           page_table, context, i, **kw)
         else:
+            rope_kv_update_layer(q, k, v, cos, sin)
             k_cur.append(k[:, 0])
             v_cur.append(v[:, 0])
             attn = paged_decode_attention_current(
@@ -586,15 +590,13 @@ def _mla_rope(cfg: ModelConfig, positions: torch.Tensor):
     return cos, sin, (rotate_interleaved if cfg.rope_interleave else rotate)
 
 
-def _mla_qkv(cfg: ModelConfig, lp, h: torch.Tensor, rope):
-    """The absorbed query and the latent row of one layer.
-
-    h: [B, T, D]; ``rope`` from ``_mla_rope``. Returns (q_tilde [B, T, Hq,
-    r + rope] = [W_bk^T q_nope | rope(q_pe)], latent [B, T, 1, r + rope]
-    = [c_hat | rope(k_pe)])."""
+def _mla_q(cfg: ModelConfig, lp, h: torch.Tensor, rope) -> torch.Tensor:
+    """The absorbed query of one layer: h [B, T, D] -> q_tilde [B, T, Hq,
+    r + rope] = [W_bk^T q_nope | rope(q_pe)]; ``rope`` from ``_mla_rope``.
+    Its rope and ``cat`` stay plain PyTorch."""
     cos, sin, rot = rope
     B, T, _ = h.shape
-    r, nope = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    nope = cfg.qk_nope_head_dim
     if cfg.q_lora_rank:
         q = rms_norm(h @ lp["q_a"], lp["q_a_norm"], cfg.rms_norm_eps) \
             @ lp["q_b"]
@@ -602,11 +604,16 @@ def _mla_qkv(cfg: ModelConfig, lp, h: torch.Tensor, rope):
         q = h @ lp["q_proj"]
     q = q.reshape(B, T, cfg.num_heads, cfg.qk_head_dim)
     q_eff = torch.einsum("bthn,hnr->bthr", q[..., :nope], lp["kv_b_k"])
-    q_tilde = torch.cat([q_eff, rot(q[..., nope:], cos, sin)], dim=-1)
-    ckv = h @ lp["kv_a"]                                     # [B, T, r+rope]
-    c_hat = rms_norm(ckv[..., :r], lp["kv_a_norm"], cfg.rms_norm_eps)
-    latent = torch.cat([c_hat, rot(ckv[..., r:], cos, sin)], dim=-1)
-    return q_tilde, latent[:, :, None, :]
+    return torch.cat([q_eff, rot(q[..., nope:], cos, sin)], dim=-1)
+
+
+def _latent_args(cfg: ModelConfig, lp, h: torch.Tensor, rope):
+    """The latent-row kernels' leading arguments for one layer: ckv =
+    h @ kv_a [B, T, r + rope], kv_a_norm, cos, sin, eps and the rope's
+    pairing. The kernel builds [c_hat | rope(k_pe)] from them."""
+    cos, sin, _ = rope
+    return (h @ lp["kv_a"], lp["kv_a_norm"], cos, sin, cfg.rms_norm_eps,
+            cfg.rope_interleave)
 
 
 def _mla_out(cfg: ModelConfig, lp, attn: torch.Tensor) -> torch.Tensor:
@@ -659,7 +666,8 @@ def _mla_forward_prefill(params: Params, cfg: ModelConfig,
                          ) -> Tuple[torch.Tensor, KVCache]:
     """``forward_prefill`` for MLA models. Attention is the plain
     ``mha_prefill`` over the gathered latent pool (write-then-attend:
-    after K2 wrote the window) or over the gathered prefix with the fresh
+    after the latent form of K2 built and wrote the window's latent
+    rows) or over the gathered prefix with the fresh
     window laid over it (attend-then-write: K7 writes every layer's
     window after the loop), as the JAX package runs it through XLA."""
     k_pages, v_pages = kv
@@ -675,12 +683,14 @@ def _mla_forward_prefill(params: Params, cfg: ModelConfig,
     fresh = []
     for li, lp, moe in _mla_layers(params):
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-        q_t, latent = _mla_qkv(cfg, lp, h, rope)
+        q_t = _mla_q(cfg, lp, h, rope)
+        lat_args = _latent_args(cfg, lp, h, rope)
         if write_then_attend:
-            paged_prefill_kv_update_layer(k_pages, v_pages, latent, latent,
-                                          page_table, start_pos, lengths, li)
+            latent_prefill_kv_update_layer(*lat_args, k_pages, v_pages,
+                                           page_table, start_pos, lengths, li)
             lat_all = gather_pages(k_pages[li], page_table)
         else:
+            latent = latent_prefill_kv_update_layer(*lat_args)
             fresh.append(latent)
             lat_all = overlay_fresh_kv(gather_pages(k_pages[li], page_table),
                                        latent, start_pos)
@@ -705,7 +715,8 @@ def _mla_forward_decode(params: Params, cfg: ModelConfig,
                         page_table: torch.Tensor, write_then_attend: bool
                         ) -> Tuple[torch.Tensor, KVCache]:
     """``forward_decode`` for MLA models: every layer attends with K3''
-    over its latent pool, after K1 wrote the current latent row
+    over its latent pool, after the latent form of K1 built and wrote
+    the current latent row
     (write-then-attend), or with the current row held apart and K6
     writing every layer's row after the loop (attend-then-write)."""
     k_pages, v_pages = kv
@@ -718,14 +729,15 @@ def _mla_forward_decode(params: Params, cfg: ModelConfig,
     current = []
     for li, lp, moe in _mla_layers(params):
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-        q_t, latent = _mla_qkv(cfg, lp, h, rope)
-        lat = latent[:, 0]                                  # [B, 1, r+rope]
+        q_t = _mla_q(cfg, lp, h, rope)
+        lat_args = _latent_args(cfg, lp, h, rope)
         if write_then_attend:
-            paged_kv_update_layer(k_pages, v_pages, lat, lat, page_table,
-                                  positions, active, li)
+            latent_kv_update_layer(*lat_args, k_pages, v_pages, page_table,
+                                   positions, active, li)
             attn = paged_decode_attention_mla(q_t[:, 0], k_pages, page_table,
                                               context, li, scale)
         else:
+            lat = latent_kv_update_layer(*lat_args)[:, 0]   # [B, 1, r+rope]
             current.append(lat)
             attn = paged_decode_attention_mla_current(
                 q_t[:, 0], k_pages, page_table, cache_lens, lat, li, scale)

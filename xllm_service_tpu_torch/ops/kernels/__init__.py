@@ -20,9 +20,21 @@ layers' rows after the layer loop). Pallas files are under
 =====================================  ===================================
 wrapper                                Pallas kernel replaced
 =====================================  ===================================
+kv_update.rope_kv_update_layer         kv_update.py paged_kv_update_layer
+                                       (fused with the rope of q and k)
+kv_update.rope_prefill_kv_update_      kv_update.py
+layer                                  paged_prefill_kv_update_layer
+                                       (fused with the rope of q and k)
+kv_update.latent_kv_update_layer       kv_update.py paged_kv_update_layer
+                                       (fused with the MLA latent row)
+kv_update.latent_prefill_kv_update_    kv_update.py
+layer                                  paged_prefill_kv_update_layer
+                                       (fused with the MLA latent row)
 kv_update.paged_kv_update_layer        kv_update.py paged_kv_update_layer
+                                       (unfused; off the serving path)
 kv_update.paged_prefill_kv_update_     kv_update.py
 layer                                  paged_prefill_kv_update_layer
+                                       (unfused; off the serving path)
 kv_update.paged_kv_update              kv_update.py paged_kv_update
 kv_update.paged_prefill_kv_update      kv_update.py paged_prefill_kv_update
 paged_attention.paged_decode_          paged_attention.py
@@ -55,8 +67,10 @@ from __future__ import annotations
 from typing import Callable, Dict, List
 
 from xllm_service_tpu_torch.ops.kernels.kv_update import (
-    paged_kv_update, paged_kv_update_layer, paged_prefill_kv_update,
-    paged_prefill_kv_update_layer)
+    latent_kv_update_layer, latent_prefill_kv_update_layer, paged_kv_update,
+    paged_kv_update_layer, paged_prefill_kv_update,
+    paged_prefill_kv_update_layer, rope_kv_update_layer,
+    rope_prefill_kv_update_layer)
 from xllm_service_tpu_torch.ops.kernels.paged_attention import (
     paged_decode_attention, paged_decode_attention_current,
     paged_decode_attention_mla, paged_decode_attention_mla_current)
@@ -73,7 +87,11 @@ WRAPPERS: List[Callable] = [paged_kv_update_layer,
                             paged_decode_attention_current,
                             paged_prefill_attention_fresh,
                             paged_decode_attention_mla,
-                            paged_decode_attention_mla_current]
+                            paged_decode_attention_mla_current,
+                            rope_kv_update_layer,
+                            rope_prefill_kv_update_layer,
+                            latent_kv_update_layer,
+                            latent_prefill_kv_update_layer]
 
 
 def launch_counts() -> Dict[str, int]:
@@ -91,4 +109,6 @@ __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts",
            "ragged_paged_attention", "paged_kv_update",
            "paged_prefill_kv_update", "paged_decode_attention_current",
            "paged_prefill_attention_fresh", "paged_decode_attention_mla",
-           "paged_decode_attention_mla_current"]
+           "paged_decode_attention_mla_current", "rope_kv_update_layer",
+           "rope_prefill_kv_update_layer", "latent_kv_update_layer",
+           "latent_prefill_kv_update_layer"]
