@@ -26,10 +26,19 @@ Phases (any failure raises and the exit code is not 0):
    kernel is timed with CUDA events (>= 20 launches after warm-up)
    beside its plain version, one PyTorch library call computing the
    same function, and its bound (bytes over 3.35 TB/s or operations
-   over 989 TFLOP/s, whichever is larger); the ragged kernel also beside
-   the split path's two launches for the same work (decode kernel on
-   the decode rows, prefill kernel on the window), and K6 beside 16 K1
-   launches for the same rows. Then K3'', the MLA decode attention, in
+   over 989 TFLOP/s, whichever is larger); the ragged kernel K5 also
+   beside the split path's two launches for the same work (decode kernel
+   on the decode rows, prefill kernel on the window) and alone on its
+   decode rows and on its window, with its split count and grid, its
+   bound counting the whole [B, T, Hq, D] output written once
+   (``bound_ms_valid_rows_only``: the count that takes only the valid
+   rows, kept for comparison with older records), and at long decode
+   rows (8 x 2048-4096 keys beside a 256-token window,
+   ``ragged_paged_attention_long``, held to atol = rtol = 5e-3, the
+   reference's RMS beside its error); the blocks with work and the work
+   items, as the host rule ``ragged_work`` derives them (not measured),
+   go to a ``[kernel]`` line of their own; K6 beside 16 K1 launches for the
+   same rows. Then K3'', the MLA decode attention, in
    both forms at DeepSeek-V2-Lite's decode shape (B=8, 16 heads, one
    576-wide latent head, a 27-layer pool; contexts 117-411 with an
    inactive row, and for the current form a row at cache length 0 and
@@ -44,7 +53,16 @@ Phases (any failure raises and the exit code is not 0):
    ``latent_prefill_kv_update_layer`` at DeepSeek-V2-Lite's geometry:
    within 2e-2, the rope columns bit-exact, with pools and without), each
    timed beside the unfused chain it replaces in one CUDA graph
-   (``unfused_ms``) and K1 / K2 alone (``writer_only_ms``). The split-KV
+   (``unfused_ms``) and K1 / K2 alone (``writer_only_ms``). K6 folded
+   into the last layer's writer: the all-layer modes
+   (``rope_kv_update_all_layers`` over llama3-1b's 16 layers,
+   ``latent_kv_update_all_layers`` over DeepSeek-V2-Lite's 27) against
+   their plain versions (the dense one and the staged layers bit-exact,
+   the latent row within 2e-2 with its rope columns exact) and the
+   unfused chain they replace (pool-less writer, ``torch.stack``, K6),
+   timed beside that chain in one CUDA graph and K6 alone; and K3' and
+   K3'' current shown blind to NaN at the slot where the fold writes
+   the current rows. The split-KV
    decode kernels (K3, K3', K3'') are also checked and timed at long
    contexts, B = 8 rows of 2048-4096 keys (seeded) and B = 1 row of
    4096 (records ``*_long_b8`` / ``*_long_b1``), and every K3/K3'/K3''
@@ -92,10 +110,12 @@ Phases (any failure raises and the exit code is not 0):
    attention kernel.
 5c. Serving, attend-then-write: the same worker, flags and requests
    with XLLM_WRITE_THEN_ATTEND=0 (ragged off). Every decode forward
-   must launch the fused rope writer (no pools: rotation only) and K3'
-   once per layer and K6 once, every prefill forward the fused prefill
-   writer and K4' once per layer and K7 once, and K1-K5 never. One
-   request is profiled as in phase 5.
+   must launch the fused rope writer (no pools: rotation into the
+   staging buffer) for every layer but the last, its all-layer mode
+   (``rope_kv_update_all_layers``, K6 folded in) for the last, and K3'
+   once per layer; every prefill forward the fused prefill writer and
+   K4' once per layer and K7 once; K1-K6 never. One request is profiled
+   as in phase 5.
 5d. Serving DeepSeek-V2-Lite: the worker with --model deepseek-v2-lite
    (all 27 layers, random bf16 weights, 31.4 GB), the same flags and
    requests, in the GPU default order (write-then-attend). Every decode
@@ -104,9 +124,11 @@ Phases (any failure raises and the exit code is not 0):
    (its attention is plain), and K1-K5 never. One streamed request is
    profiled as in phase 5.
 5e. The same with XLLM_WRITE_THEN_ATTEND=0: every decode forward the
-   fused latent writer (no pools) and K3'' (current form) once per
-   layer and K6 once, every prefill forward the fused latent prefill
-   writer once per layer and K7 once, K1-K5 never. Profiled as 5d.
+   fused latent writer (no pools) for every layer but the last, its
+   all-layer mode (``latent_kv_update_all_layers``) for the last, and
+   K3'' (current form) once per layer, every prefill forward the fused
+   latent prefill writer once per layer and K7 once, K1-K6 never.
+   Profiled as 5d.
    Each worker's weights are freed before the next phase.
    Margins: each model's phases serve the same weights, so on the live
    engine of 5c (and 5e) the script reads, at each stream's first
@@ -117,10 +139,11 @@ Phases (any failure raises and the exit code is not 0):
    largest logit error for the model is a fault, narrower is drift.
    ``[profile]`` prints the launches per forward of 5, 5c, 5d and 5e.
 6. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
-   writers' launches from phase 5 (K1/K2 now 0), K5 from 5b, K6, K7,
-   K3' and K4' from 5c, K3'' and the fused latent writers from 5d and
-   the current form of K3'' from 5e; a record at another shape takes its
-   kernel's count), the card line, then the last line
+   writers' launches from phase 5 (K1/K2 now 0), K5 from 5b, K6 (now 0),
+   K7, K3', K4' and the dense all-layer mode from 5c, K3'' and the fused
+   latent writers from 5d, the current form of K3'' and the latent
+   all-layer mode from 5e; a record at another shape takes its kernel's
+   count), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without printing a result when no CUDA device is
@@ -146,6 +169,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 PEAK_BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 ATTN_TOL = 2e-2
+# K5 at long decode rows: outputs ~0.03 RMS, where ATTN_TOL is the size
+# of a value (its error there read 0.0020 on an H100).
+LONG_ROW_TOL = 5e-3
 FORWARD_REL_L2 = 5e-2
 CSRC = "xllm_service_tpu_torch/ops/kernels/csrc"
 PALLAS = "xllm_service_tpu/ops/pallas"
@@ -527,6 +553,207 @@ class KernelBench:
             writer_only_ms=graph_ms(lambda: kv.paged_prefill_kv_update_layer(
                 ka, va, kq, v, *args)))
 
+    # -- K6 folded into the last layer's fused writer ----------------------
+    def _fold_inputs(self, L, Hkv, D, P):
+        """A decode step's rows for the all-layer mode: pools [L, P, 128,
+        Hkv, D], staging [L, 8, Hkv, D] (random: the earlier layers'
+        rows), positions 116-410 with row 6 inactive and row 5's page
+        NULL."""
+        torch = self.torch
+        kp, vp = self.randn(L, P, self.ps, Hkv, D), \
+            self.randn(L, P, self.ps, Hkv, D)
+        perm = torch.randperm(P - 1, generator=self.g,
+                              device=self.dev)[:8 * self.MP] + 1
+        pt = perm.reshape(8, self.MP).to(torch.int32).contiguous()
+        pt[5, 2] = 0
+        positions = [c - 1 for c in (117, 205, 298, 411, 150, 260, 333, 390)]
+        act = torch.tensor([1, 1, 1, 1, 1, 1, 0, 1], dtype=torch.bool,
+                           device=self.dev)
+        return kp, vp, pt, positions, self.i32(positions), act
+
+    def fold_writers(self, kv, rope, mla_cfg):
+        """K6 folded into the last layer's fused writer, the attend-then-
+        write decode step: ``rope_kv_update_all_layers`` at llama3-1b's
+        16 layers and ``latent_kv_update_all_layers`` at DeepSeek-V2-
+        Lite's 27, each held to its plain version (the dense one bit for
+        bit; the latent one's staged layers bit for bit and its own
+        layer within ATTN_TOL, rope columns exact) and to the unfused
+        chain it replaces (the pool-less writer, ``torch.stack`` of every
+        layer's rows and K6: the same pool bytes), then timed beside that
+        chain in one CUDA graph (``unfused_ms``) and K6 alone
+        (``k6_only_ms``)."""
+        torch = self.torch
+        cfg, B = self.cfg, 8
+        # Dense.
+        L, Hkv, D = cfg.num_layers, self.Hkv, self.D
+        kp, vp, pt, positions, pos, act = self._fold_inputs(L, Hkv, D, 128)
+        q, k, v, cos, sin = self._rope_inputs(rope, B, 1, positions)
+        k_stage, v_stage = self.randn(L, B, Hkv, D), self.randn(L, B, Hkv, D)
+        outs = []
+        for fn in (kv.rope_kv_update_all_layers,
+                   kv.rope_kv_update_all_layers_plain):
+            t = [x.clone() for x in (q, k, kp, vp, k_stage, v_stage)]
+            fn(t[0], t[1], v, cos, sin, t[2], t[3], pt, pos, act, L - 1,
+               t[4], t[5])
+            outs.append(t)
+        # The unfused chain: the pool-less writer, a stack of every
+        # layer's rows, K6.
+        t = [x.clone() for x in (q, k, kp, vp)]
+        kv.rope_kv_update_layer(t[0], t[1], v, cos, sin)
+        kv.paged_kv_update(t[2], t[3],
+                           torch.cat([k_stage[:-1], t[1][None, :, 0]]),
+                           torch.cat([v_stage[:-1], v[None, :, 0]]), pt, pos,
+                           act)
+        torch.cuda.synchronize()
+        names = ("q", "k", "k_pages", "v_pages", "k_stage", "v_stage")
+        for a, b, n in zip(*outs, names):
+            if not torch.equal(a, b):
+                raise AssertionError(f"rope_kv_update_all_layers: {n} is "
+                                     f"not bit-exact with its plain version")
+        for a, b, n in zip(outs[0][:4], t, names):
+            if not torch.equal(a, b):
+                raise AssertionError(f"rope_kv_update_all_layers: {n} is "
+                                     f"not bit-exact with the unfused chain")
+        changed = int((outs[0][2] != kp).flatten(3).any(-1).sum())
+        if changed != 6 * L:                       # rows 5 and 6 dropped
+            raise AssertionError(f"all-layer mode touched {changed} rows, "
+                                 f"want {6 * L}")
+        log("[kernel] rope_kv_update_all_layers bit-exact with its plain "
+            "version and the unfused chain")
+        qa, ka, kpa, vpa, ksa, vsa = (x.clone() for x in
+                                      (q, k, kp, vp, k_stage, v_stage))
+        qb, kb, kpb, vpb, ksb, vsb = (x.clone() for x in
+                                      (q, k, kp, vp, k_stage, v_stage))
+        all_on = torch.ones(B, dtype=torch.bool, device=self.dev)
+        k_list = [x.clone() for x in k_stage[:-1]]
+        v_list = [x.clone() for x in v_stage[:-1]]
+
+        def unfused():
+            kv.rope_kv_update_layer(qb, kb, v, cos, sin)
+            kv.paged_kv_update(kpb, vpb, torch.stack(k_list + [kb[:, 0]]),
+                               torch.stack(v_list + [v[:, 0]]), pt, pos,
+                               all_on)
+        row = Hkv * D * 2
+        # q and k read and written, v, cos and sin read, k and v staged,
+        # the earlier layers' staged rows read, every layer's row
+        # written to both pools, the row metadata read.
+        nbytes = (B * (2 * self.Hq + 3 * Hkv) * D * 2 + 2 * B * D // 2 * 4
+                  + 2 * B * row + (L - 1) * B * 2 * row + L * B * 2 * row
+                  + B * (4 + 4 + 1 + 4))
+        self.record(
+            "rope_kv_update_all_layers", f"{CSRC}/kv_update.cu",
+            f"{PALLAS}/kv_update.py:77", 0.0,
+            lambda: kv.rope_kv_update_all_layers(
+                qa, ka, v, cos, sin, kpa, vpa, pt, pos, all_on, L - 1, ksa,
+                vsa),
+            lambda: kv.rope_kv_update_all_layers_plain(
+                qa, ka, v, cos, sin, kpa, vpa, pt, pos, all_on, L - 1, ksa,
+                vsa),
+            None, nbytes, 6.0 * B * (self.Hq + Hkv) * D // 2,
+            PEAK_FP32_FLOPS, entry="rope_kv_update_all_layers", layers=L,
+            unfused_ms=graph_ms(unfused),
+            k6_only_ms=graph_ms(lambda: kv.paged_kv_update(
+                kpb, vpb, ksb, vsb, pt, pos, all_on)))
+        del kp, vp, kpa, vpa, kpb, vpb
+        # MLA latent rows.
+        L = mla_cfg.num_layers
+        r, dr = mla_cfg.kv_lora_rank, mla_cfg.qk_rope_head_dim
+        W = r + dr
+        kp, vp, pt, positions, pos, act = self._fold_inputs(L, 1, W, 80)
+        cos, sin = rope.rope_cos_sin(pos.long()[:, None], dr,
+                                     mla_cfg.rope_theta, mla_cfg.rope_scaling)
+        ckv = self.randn(B, 1, W)
+        weight = (1.0 + 0.1 * self.randn(r, dtype=torch.float32)).to(
+            torch.bfloat16)
+        args = (ckv, weight, cos, sin, mla_cfg.rms_norm_eps,
+                mla_cfg.rope_interleave)
+        stage = self.randn(L, B, 1, W)
+        outs = []
+        for fn in (kv.latent_kv_update_all_layers,
+                   kv.latent_kv_update_all_layers_plain):
+            t = [x.clone() for x in (kp, vp, stage)]
+            fn(*args, t[0], t[1], pt, pos, act, L - 1, t[2])
+            outs.append(t)
+        torch.cuda.synchronize()
+        (gk, gv, gs), (wk, wv, ws) = outs
+        if not (torch.equal(gk[:-1], wk[:-1]) and torch.equal(gv[:-1], wv[:-1])
+                and torch.equal(gs[:-1], ws[:-1])):
+            raise AssertionError("latent_kv_update_all_layers: staged layers "
+                                 "not bit-exact")
+        if not torch.equal(gs[-1][..., r:], ws[-1][..., r:]):
+            raise AssertionError("latent_kv_update_all_layers: rope columns "
+                                 "not bit-exact")
+        err = max(float((a[-1].float() - b[-1].float()).abs().max())
+                  for a, b in ((gk, wk), (gv, wv), (gs, ws)))
+        same_rows = torch.equal(gk[-1] != kp[-1], wk[-1] != kp[-1])
+        if err > ATTN_TOL or not same_rows:
+            raise AssertionError(f"latent_kv_update_all_layers: last layer "
+                                 f"{err}")
+        log(f"[kernel] latent_kv_update_all_layers: staged layers bit-exact, "
+            f"its own layer max_abs_err={err}")
+        ka, va, sa = kp.clone(), vp.clone(), stage.clone()
+        kb, vb = kp.clone(), vp.clone()
+        lat_list = [x.clone() for x in stage[:-1]]
+
+        def unfused_latent():
+            lat = kv.latent_kv_update_layer(*args)[:, 0]
+            rows = torch.stack(lat_list + [lat])
+            kv.paged_kv_update(kb, vb, rows, rows, pt, pos, all_on)
+        row = W * 2
+        nbytes = (B * W * 2 * 2 + r * 2 + 2 * B * dr // 2 * 4
+                  + (L - 1) * B * row + L * B * 2 * row + B * (4 + 4 + 1 + 4))
+        self.record(
+            "latent_kv_update_all_layers", f"{CSRC}/kv_update.cu",
+            f"{PALLAS}/kv_update.py:77", err,
+            lambda: kv.latent_kv_update_all_layers(
+                *args, ka, va, pt, pos, all_on, L - 1, sa),
+            lambda: kv.latent_kv_update_all_layers_plain(
+                *args, ka, va, pt, pos, all_on, L - 1, sa),
+            None, nbytes, B * (3.0 * r + 3.0 * dr), PEAK_FP32_FLOPS,
+            entry="latent_kv_update_all_layers", layers=L,
+            unfused_ms=graph_ms(unfused_latent),
+            k6_only_ms=graph_ms(lambda: kv.paged_kv_update(
+                kb, vb, sa, sa, pt, pos, all_on)),
+            shape=f"B=8 (Hkv, D) = (1, {W}) x {L} layers")
+
+    def poison_current_slot(self, pa, mla_scale):
+        """Why the fold may write before the last layer attends: with NaN
+        in the pool slot at each row's cache length (where the fold
+        writes the current rows), K3' and K3'' current give the same
+        bits as without."""
+        torch = self.torch
+        B = 8
+        cache = self.i32([116, 204, 297, 410, 149, 259, 0, 389])
+        flat = (self.pt8.long().gather(1, (cache.long() // self.ps)[:, None])
+                [:, 0] * self.ps + cache.long() % self.ps)
+        q = self.randn(B, self.Hq, self.D)
+        k_cur, v_cur = self.randn(B, self.Hkv, self.D), \
+            self.randn(B, self.Hkv, self.D)
+        kp, vp = self.kp.clone(), self.vp.clone()
+        want = pa.paged_decode_attention_current(
+            q, kp, vp, self.pt8, cache, k_cur, v_cur, self.layer)
+        for pool in (kp, vp):
+            pool[self.layer].view(-1, self.Hkv, self.D)[flat] = float("nan")
+        got = pa.paged_decode_attention_current(
+            q, kp, vp, self.pt8, cache, k_cur, v_cur, self.layer)
+        lat = self.randn(4, 128, self.ps, 1, 576)
+        qm, cur = self.randn(B, 16, 576), self.randn(B, 1, 576)
+        pt_m = (torch.randperm(127, generator=self.g, device=self.dev)[
+            :8 * self.MP] + 1).reshape(8, self.MP).to(torch.int32)
+        want_m = pa.paged_decode_attention_mla_current(
+            qm, lat, pt_m, cache, cur, 1, mla_scale)
+        flat_m = (pt_m.long().gather(1, (cache.long() // self.ps)[:, None])
+                  [:, 0] * self.ps + cache.long() % self.ps)
+        lat[1].view(-1, 576)[flat_m] = float("nan")
+        got_m = pa.paged_decode_attention_mla_current(
+            qm, lat, pt_m, cache, cur, 1, mla_scale)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got_m, want_m)):
+            raise AssertionError("a NaN at the cache-length slot reached "
+                                 "K3' or K3'' current")
+        log("[kernel] K3' and K3'' current unchanged by NaN at the "
+            "cache-length slot")
+
     # -- K1 / K2 fused with the MLA latent row -----------------------------
     def _latent_close(self, fused, plain, args, pools, rest, what, r):
         """``fused`` and ``plain`` on copies of the same pools: the latent
@@ -836,29 +1063,127 @@ class KernelBench:
     def ragged_attention(self, ra, pa, pf, attention):
         """The ragged serving mix: 7 decode rows (length 1 at context - 1,
         contexts 117-411, mid-page) and a 256-token continuation window
-        at q_start 128, in one B=8 x T=256 bucket."""
-        torch = self.torch
+        at q_start 128, in one B=8 x T=256 bucket; checked in the four
+        argument sets and with a padding row, timed beside the split
+        path and SDPA, and alone on its decode rows and on its window."""
         B, T = 8, 256
         ctx = [117, 205, 298, 411, 150, 260, 333]
         starts = [c - 1 for c in ctx] + [128]
         lens_list = [1] * 7 + [256]
+        pt = self.pt8
+        self._ragged_case(
+            ra, pa, pf, attention, "ragged_paged_attention", starts,
+            lens_list, pt, T, checks=True,
+            # The kernel on each half of the batch alone (the other
+            # half's rows at length 0): which rows set its time.
+            parts={"decode_rows_only": lens_list[:7] + [0],
+                   "window_only": [0] * 7 + [256]})
+
+    def ragged_attention_long(self, ra, pa, pf, attention):
+        """K5 at long decode rows, which no served phase reaches: B = 8
+        decode rows of 2048-4096 keys (seeded) beside one 256-token
+        window at q_start 512, in a T = 256 bucket, 32 pages a row."""
+        rng = random.Random(8)
+        ctx = [rng.randrange(2048, 4097) for _ in range(8)]
+        starts = [c - 1 for c in ctx] + [512]
+        lens_list = [1] * 8 + [256]
+        perm = self.torch.randperm(self.P - 1, generator=self.g,
+                                   device=self.dev)[:9 * 32] + 1
+        pt = perm.reshape(9, 32).to(self.torch.int32).contiguous()
+        self._ragged_case(
+            ra, pa, pf, attention, "ragged_paged_attention_long", starts,
+            lens_list, pt, 256, checks=False,
+            parts={"decode_rows_only": lens_list[:8] + [0]},
+            shape="B=9: 8 decode rows ctx 2048-4096 + a 256-token window",
+            # Its decode rows' outputs are ~0.03 RMS (a mean over 2048+
+            # random values): ATTN_TOL would let a dropped split pass.
+            tol=LONG_ROW_TOL)
+
+    def ragged_attention_wide(self, ra):
+        """K5 at the largest bucket its row table holds, 256 rows (the
+        engine refuses a larger one at start-up): decode rows, windows
+        of 2-16 tokens and padding rows mixed, T = 16, checked in the
+        four argument sets."""
+        torch = self.torch
+        B, T = 256, 16
+        rng = random.Random(9)
+        lens_list = [rng.choice([1, 1, 0, rng.randrange(2, T + 1)])
+                     for _ in range(B)]
+        starts = [rng.randrange(0, self.MP * self.ps - T) for _ in range(B)]
+        pt = torch.randint(1, self.P, (B, self.MP), generator=self.g,
+                           device=self.dev).to(torch.int32)
+        q = self.randn(B, T, self.Hq, self.D)
+        q_start, lens = self.i32(starts), self.i32(lens_list)
+        valid = (torch.arange(T, device=self.dev)[None, :]
+                 < lens.long()[:, None])
+        worst = 0.0
+        for extras in self.arg_sets(self.randn(self.Hq,
+                                               dtype=torch.float32)):
+            args = (q, self.kp, self.vp, pt, q_start, lens, self.layer)
+            worst = max(worst, self.close(
+                f"ragged_paged_attention B={B} ({list(extras)})",
+                ra.ragged_paged_attention(*args, **extras),
+                ra.ragged_paged_attention_plain(*args, **extras), valid))
+        log(f"[kernel] ragged_paged_attention at B={B} x T={T} "
+            f"({lens_list.count(1)} decode rows): all four argument sets "
+            f"within {ATTN_TOL}, max abs err {worst}")
+
+    def _ragged_nbytes(self, starts, lens_list, T, MP):
+        """K5's bytes: the live keys' K and V, the valid query rows of q
+        and the whole [B, T, Hq, D] output (padding rows are written as
+        zeros), each once, and the row metadata; also the count that
+        takes the output for the valid rows only, as older records
+        did."""
+        B = len(lens_list)
+        keys = sum(s + n for s, n in zip(starts, lens_list) if n > 0)
+        row = self.Hkv * self.D * 2
+        head_rows = self.Hq * self.D * 2
+        n_rows = sum(lens_list)
+        meta = B * (8 + 4 * MP)
+        full = keys * 2 * row + n_rows * head_rows + B * T * head_rows
+        return full + meta, keys * 2 * row + 2 * n_rows * head_rows + meta
+
+    def _ragged_flops(self, starts, lens_list):
+        """The products' operations: 4 D per (query, key) pair a head."""
+        pairs = sum(n * s + n * (n + 1) // 2 for s, n in zip(starts,
+                                                             lens_list))
+        return 4.0 * pairs * self.Hq * self.D
+
+    def _ragged_case(self, ra, pa, pf, attention, name, starts, lens_list,
+                     pt, T, checks, parts, shape=None, tol=ATTN_TOL):
+        torch = self.torch
+        B, MP = len(lens_list), pt.shape[1]
         q = self.randn(B, T, self.Hq, self.D)
         q_start, lens = self.i32(starts), self.i32(lens_list)
         sinks = self.randn(self.Hq, dtype=torch.float32)
+        cases = [({}, lens_list)]
+        if checks:
+            # The last case makes row 6 a padding row of length 0.
+            cases = [(extras, lens_list) for extras in self.arg_sets(sinks)]
+            cases.append(({}, lens_list[:6] + [0] + lens_list[7:]))
+        cases += [({}, p) for p in parts.values()]
         worst = 0.0
-        # The last case makes row 6 a padding row of length 0.
-        cases = [(extras, lens_list) for extras in self.arg_sets(sinks)]
-        cases.append(({}, lens_list[:6] + [0, 256]))
         for extras, lens_case in cases:
             lc = self.i32(lens_case)
             valid = (torch.arange(T, device=self.dev)[None, :]
                      < lc.long()[:, None])
-            args = (q, self.kp, self.vp, self.pt8, q_start, lc, self.layer)
+            args = (q, self.kp, self.vp, pt, q_start, lc, self.layer)
+            want = ra.ragged_paged_attention_plain(*args, **extras)
             worst = max(worst, self.close(
-                f"ragged attention ({list(extras)}, lengths {lens_case})",
-                ra.ragged_paged_attention(*args, **extras),
-                ra.ragged_paged_attention_plain(*args, **extras), valid))
-        S = self.MP * self.ps
+                f"{name} ({list(extras)}, lengths {lens_case})",
+                ra.ragged_paged_attention(*args, **extras), want, valid,
+                tol))
+            if lens_case is lens_list and not extras:
+                # The scale the error is read against: the reference's
+                # RMS over its decode rows and over all its valid rows.
+                dec_rows = valid.clone()
+                dec_rows[self.i32(lens_case).long() != 1] = False
+                ref_rms = {
+                    "decode_rows": float(want[dec_rows].float().pow(2)
+                                         .mean().sqrt()),
+                    "valid_rows": float(want[valid].float().pow(2)
+                                        .mean().sqrt())}
+        S = MP * self.ps
         kv_pos = torch.arange(S, device=self.dev)[None, None, :]
         q_pos = q_start.long()[:, None, None] + torch.arange(
             T, device=self.dev)[None, :, None]
@@ -867,50 +1192,74 @@ class KernelBench:
         mask = mask[:, None]
 
         def lib():
-            k = attention.gather_pages(self.kp[self.layer], self.pt8)
-            v = attention.gather_pages(self.vp[self.layer], self.pt8)
+            k = attention.gather_pages(self.kp[self.layer], pt)
+            v = attention.gather_pages(self.vp[self.layer], pt)
             return sdpa(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), mask)
         # The split path's two launches for the same work: the decode
-        # kernel on the decode rows, the prefill kernel on the window.
-        q_dec = q[:7, 0].contiguous()
-        ctx_t = self.i32(ctx)
-        pt_dec, pt_win = self.pt8[:7].contiguous(), self.pt8[7:].contiguous()
-        q_win = q[7:].contiguous()
-        win_start, win_len = self.i32([128]), self.i32([256])
+        # kernel on the decode rows, the prefill kernel on the windows.
+        dec = [b for b, n in enumerate(lens_list) if n == 1]
+        win = [b for b, n in enumerate(lens_list) if n > 1]
+        q_dec = q[dec, 0].contiguous()
+        ctx_t = self.i32([starts[b] + 1 for b in dec])
+        pt_dec, pt_win = pt[dec].contiguous(), pt[win].contiguous()
+        q_win = q[win].contiguous()
+        win_start = self.i32([starts[b] for b in win])
+        win_len = self.i32([lens_list[b] for b in win])
 
-        def split():
+        def split_decode():
             pa.paged_decode_attention(q_dec, self.kp, self.vp, pt_dec, ctx_t,
                                       self.layer)
+
+        def split_window():
             pf.paged_prefill_attention(q_win, self.kp, self.vp, pt_win,
                                        win_start, win_len, self.layer)
-        split_ms = graph_ms(split)
-        # The kernel on each half of the batch alone (the other half's
-        # rows at length 0): which rows set its time.
-        lens_dec = self.i32(lens_list[:7] + [0])
-        lens_win = self.i32([0] * 7 + [256])
-        dec_ms = graph_ms(lambda: ra.ragged_paged_attention(
-            q, self.kp, self.vp, self.pt8, q_start, lens_dec, self.layer))
-        win_ms = graph_ms(lambda: ra.ragged_paged_attention(
-            q, self.kp, self.vp, self.pt8, q_start, lens_win, self.layer))
-        keys = sum(s + n for s, n in zip(starts, lens_list))
-        pairs = sum(n * s + n * (n + 1) // 2 for s, n in zip(starts,
-                                                             lens_list))
-        row = self.Hkv * self.D * 2
-        n_rows = sum(lens_list)
-        nbytes = keys * 2 * row + 2 * n_rows * self.Hq * self.D * 2 \
-            + B * (8 + 4 * self.MP)
-        flops = 4.0 * pairs * self.Hq * self.D
+
+        def split():
+            split_decode()
+            split_window()
+        splits = pa.gqa_splits(B, self.Hkv, MP, self.ps, 0, False)
+        blocks = ra.ragged_blocks(B, T, self.Hq, self.Hkv, self.D, splits)
+        # The split path, and each of its launches alone: K3 on the
+        # decode rows, K4 on the windows.
+        extra = {"split_ms": graph_ms(split),
+                 "split_decode_k3_ms": graph_ms(split_decode),
+                 "split_window_k4_ms": graph_ms(split_window),
+                 "splits": splits, "grid_blocks": blocks,
+                 "tolerance": tol, "ref_rms": ref_rms}
+
+        def work_record(tag, lens_case):
+            w = ra.ragged_work(starts, lens_case, T, self.Hq, self.Hkv,
+                               self.D, MP, self.ps, 0, splits)
+            log(f"[kernel] {name} {tag.rstrip('_') or 'mix'}: derived by "
+                f"the host rule ragged_work, not measured: "
+                f"{w.live_blocks(blocks, self.D)} of {blocks} blocks with "
+                f"work; {len(w.windows)} window tiles, {len(w.splits)} "
+                f"decode splits, {len(w.zeros)} zero ranges")
+            nbytes, _ = self._ragged_nbytes(starts, lens_case, T, MP)
+            extra[f"{tag}bound_ms"] = bound(
+                nbytes, self._ragged_flops(starts, lens_case))[0]
+        work_record("", lens_list)
+        for tag, lens_case in parts.items():
+            lc = self.i32(lens_case)
+            extra[f"{tag}_ms"] = graph_ms(
+                lambda lc=lc: ra.ragged_paged_attention(
+                    q, self.kp, self.vp, pt, q_start, lc, self.layer))
+            work_record(f"{tag}_", lens_case)
+        del extra["bound_ms"]             # the record's own bound_ms
+        flops = self._ragged_flops(starts, lens_list)
+        nbytes, nbytes_valid = self._ragged_nbytes(starts, lens_list, T, MP)
+        extra["bound_ms_valid_rows_only"] = bound(nbytes_valid, flops)[0]
+        if shape:
+            extra.update(entry="ragged_paged_attention", shape=shape)
         self.record(
-            "ragged_paged_attention", f"{CSRC}/ragged_paged_attention.cu",
+            name, f"{CSRC}/ragged_paged_attention.cu",
             f"{PALLAS}/ragged_attention.py:191", worst,
-            lambda: ra.ragged_paged_attention(q, self.kp, self.vp, self.pt8,
+            lambda: ra.ragged_paged_attention(q, self.kp, self.vp, pt,
                                               q_start, lens, self.layer),
             lambda: ra.ragged_paged_attention_plain(
-                q, self.kp, self.vp, self.pt8, q_start, lens, self.layer),
-            lib, nbytes, flops, split_ms=split_ms,
-            decode_rows_only_ms=dec_ms, window_only_ms=win_ms)
-
+                q, self.kp, self.vp, pt, q_start, lens, self.layer),
+            lib, nbytes, flops, **extra)
 
     # -- K6 / K7 ------------------------------------------------------------
     def all_layer_writers(self, kv, L, Hkv, D, record):
@@ -933,6 +1282,10 @@ class KernelBench:
             return
         for name, replaces, kernel, plain, lib, nbytes, extra in rows:
             extra = {k: graph_ms(f) for k, f in extra.items()}
+            if name == "paged_kv_update":
+                extra["superseded_by"] = (
+                    "rope_kv_update_all_layers, latent_kv_update_all_layers "
+                    "(no served path launches K6 alone)")
             self.record(name, f"{CSRC}/kv_update.cu", replaces, 0.0, kernel,
                         plain, lib, nbytes, 0.0, layers=L, **extra)
 
@@ -1159,16 +1512,17 @@ class KernelBench:
                 {"logits_soft_cap": 30.0, "scale": 0.1},
                 {"sinks": sinks, "sliding_window": 64})
 
-    def close(self, what, got, want, valid) -> float:
-        """Valid query rows within ATTN_TOL of the plain version, padded
-        rows exactly zero, everything finite; returns the max abs error."""
+    def close(self, what, got, want, valid, tol=ATTN_TOL) -> float:
+        """Valid query rows within ``tol`` (atol = rtol) of the plain
+        version, padded rows exactly zero, everything finite; returns the
+        max abs error."""
         torch = self.torch
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"{what} not finite")
         g, w = got[valid].float(), want[valid].float()
         err = float((g - w).abs().max())
-        if not torch.allclose(g, w, atol=ATTN_TOL, rtol=ATTN_TOL):
+        if not torch.allclose(g, w, atol=tol, rtol=tol):
             raise AssertionError(f"{what} disagrees: {err}")
         if bool((~valid).any()) and bool(got[~valid].float().abs().max()
                                          != 0):
@@ -1514,9 +1868,9 @@ def mla_forward_check(torch, kernels, cfg, device) -> float:
             want.update(latent_kv_update_layer=L,
                         paged_decode_attention_mla=L)
         else:
-            want.update(latent_kv_update_layer=L,
-                        paged_decode_attention_mla_current=L,
-                        paged_kv_update=1)
+            want.update(latent_kv_update_layer=L - 1,
+                        latent_kv_update_all_layers=1,
+                        paged_decode_attention_mla_current=L)
         if device.type == "cuda" and n != want:
             raise AssertionError(f"MLA decode forward launches {n}, want "
                                  f"{want}")
@@ -1702,11 +2056,15 @@ ONE_LAYER_KERNELS = ("rope_kv_update_layer", "rope_prefill_kv_update_layer",
                      "ragged_paged_attention")
 ATTEND_THEN_WRITE_KERNELS = ("paged_kv_update", "paged_prefill_kv_update",
                              "paged_decode_attention_current",
-                             "paged_prefill_attention_fresh")
+                             "paged_prefill_attention_fresh",
+                             "rope_kv_update_all_layers")
 MLA_KERNELS = ("latent_kv_update_layer", "latent_prefill_kv_update_layer",
                "paged_decode_attention_mla",
                "paged_decode_attention_mla_current")
-UNFUSED_WRITERS = ("paged_kv_update_layer", "paged_prefill_kv_update_layer")
+# The unfused writers: K1/K2, and K6, which the last layer's fused writer
+# does in an attend-then-write decode step.
+UNFUSED_WRITERS = ("paged_kv_update_layer", "paged_prefill_kv_update_layer",
+                   "paged_kv_update")
 
 
 def step_launches_wanted(row, layers: int, mla: bool,
@@ -1714,7 +2072,9 @@ def step_launches_wanted(row, layers: int, mla: bool,
     """The hand-written launches one step must make: one ragged forward
     (the fused prefill writer and the ragged kernel once per layer), or a
     decode forward and/or a prefill forward (a split mixed step runs
-    both), each with its fused writer once per layer, in either order."""
+    both), each with its fused writer once per layer, in either order;
+    an attend-then-write decode forward's last layer takes the writer's
+    all-layer mode (K6 folded in), a prefill forward adds K7."""
     dec = int(row["kind"] in ("decode", "mixed"))
     pre = int(row["kind"] in ("prefill", "mixed"))
     want = {k: 0 for k in row["launches"]}
@@ -1727,8 +2087,10 @@ def step_launches_wanted(row, layers: int, mla: bool,
         if write_then_attend:
             want.update(paged_decode_attention_mla=layers * dec)
         else:
-            want.update(paged_decode_attention_mla_current=layers * dec,
-                        paged_kv_update=dec, paged_prefill_kv_update=pre)
+            want.update(latent_kv_update_layer=(layers - 1) * dec,
+                        latent_kv_update_all_layers=dec,
+                        paged_decode_attention_mla_current=layers * dec,
+                        paged_prefill_kv_update=pre)
     else:
         want.update(rope_kv_update_layer=layers * dec,
                     rope_prefill_kv_update_layer=layers * pre)
@@ -1736,8 +2098,9 @@ def step_launches_wanted(row, layers: int, mla: bool,
             want.update(paged_decode_attention=layers * dec,
                         paged_prefill_attention=layers * pre)
         else:
-            want.update(paged_decode_attention_current=layers * dec,
-                        paged_kv_update=dec,
+            want.update(rope_kv_update_layer=(layers - 1) * dec,
+                        rope_kv_update_all_layers=dec,
+                        paged_decode_attention_current=layers * dec,
                         paged_prefill_attention_fresh=layers * pre,
                         paged_prefill_kv_update=pre)
     return want
@@ -1872,11 +2235,12 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
     # Every step exactly (step_launches_wanted): the fused writer once per
     # layer per forward, in every path; write-then-attend, K3 x layers per
     # decode forward and K4 x layers per prefill forward, or one ragged
-    # forward with K5 x layers; attend-then-write, K3' x layers + K6 per
-    # decode forward, K4' x layers + K7 per prefill forward; MLA, K3''
-    # (pool-only or current form) x layers per decode forward, its prefill
-    # attention plain, K6 / K7 in attend-then-write. No other kernel, so
-    # the unfused writers K1/K2 never.
+    # forward with K5 x layers; attend-then-write, K3' x layers per decode
+    # forward with the last layer's writer in its all-layer mode, K4' x
+    # layers + K7 per prefill forward; MLA, K3'' (pool-only or current
+    # form) x layers per decode forward, its prefill attention plain, the
+    # all-layer mode / K7 in attend-then-write. No other kernel, so the
+    # unfused writers K1/K2 and K6 never.
     need = set()
     for row in rows:
         if ragged and row["kind"] == "mixed" and not row["ragged"]:
@@ -1891,7 +2255,7 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
     if ragged and ragged_steps < 1:
         raise AssertionError("no ragged iteration ran")
     if any(counts[k] for k in UNFUSED_WRITERS):
-        raise AssertionError(f"an unfused one-layer writer ran: {counts}")
+        raise AssertionError(f"an unfused writer ran: {counts}")
     need = sorted(need)
     missing = [k for k in need if counts[k] <= 0]
     if missing:
@@ -2052,6 +2416,9 @@ def main() -> int:
     bench.prefill_attention(prefill_attention, attention)
     bench.ragged_attention(ragged_attention, paged_attention,
                            prefill_attention, attention)
+    bench.ragged_attention_long(ragged_attention, paged_attention,
+                                prefill_attention, attention)
+    bench.ragged_attention_wide(ragged_attention)
     bench.all_layer_writers(kv_update, cfg.num_layers, cfg.num_kv_heads,
                             cfg.head_dim, record=True)
     bench.all_layer_writers(kv_update, 4, 1, 576, record=False)  # MLA row
@@ -2064,6 +2431,8 @@ def main() -> int:
     bench.mla_decode_attention(paged_attention, attention, mla_cfg,
                                transformer._mla_scale(mla_cfg))
     bench.latent_writers(kv_update, rope, mla_cfg)
+    bench.fold_writers(kv_update, rope, mla_cfg)
+    bench.poison_current_slot(paged_attention, transformer._mla_scale(mla_cfg))
     latent = bench.latent_pools()                 # K1/K2 at the latent row
     bench.decode_writer(kv_update, latent)
     bench.prefill_writer(kv_update, latent)
@@ -2195,7 +2564,8 @@ def main() -> int:
         name = r.get("entry", r["name"])       # a record at another shape
         phase = (served_b if name == "ragged_paged_attention" else
                  served_c if name in ATTEND_THEN_WRITE_KERNELS else
-                 served_e if name == "paged_decode_attention_mla_current"
+                 served_e if name in ("paged_decode_attention_mla_current",
+                                      "latent_kv_update_all_layers")
                  else served_d if name in MLA_KERNELS else
                  served)
         r["launches"] = phase["launches"][name]

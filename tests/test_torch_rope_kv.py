@@ -381,7 +381,8 @@ def test_fused_writers_reject_bad_arguments():
 # ---------------------------------------------------------------------------
 
 FUSED = ("rope_kv_update_layer", "rope_prefill_kv_update_layer",
-         "latent_kv_update_layer", "latent_prefill_kv_update_layer")
+         "latent_kv_update_layer", "latent_prefill_kv_update_layer",
+         "rope_kv_update_all_layers", "latent_kv_update_all_layers")
 UNFUSED = ("paged_kv_update_layer", "paged_prefill_kv_update_layer")
 
 
@@ -451,5 +452,11 @@ def test_forwards_call_fused_writer_once_per_layer(writer_calls, model,
     _run_forward(cfg, params, path)
     kind = "rope" if model == "dense" else "latent"
     name = f"{kind}_{PATHS[path] + '_' if PATHS[path] else ''}kv_update_layer"
+    if path == "attend_then_write_decode":
+        # The last layer's writer is the all-layer mode, which writes
+        # every layer's staged rows into the pools (K6 folded in).
+        assert writer_calls == {(name, "no pools"): cfg.num_layers - 1,
+                                (f"{kind}_kv_update_all_layers", "pools"): 1}
+        return
     pools = "no pools" if path.startswith("attend_then_write") else "pools"
     assert writer_calls == {(name, pools): cfg.num_layers}

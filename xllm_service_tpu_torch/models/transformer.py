@@ -14,10 +14,14 @@ orders of the KV write (``write_then_attend``):
   tokens alike, from the pool;
 - attend-then-write: every layer attends to the pool (the cached
   prefix) plus its fresh K/V, handed to the attention kernel as
-  separate operands, and keeps them; after the layer loop they are
-  stacked to [L, ...] and one launch of the all-layer writer puts them
-  in the pool. The same fused kernels rotate (or build the latent)
-  there, with no pools to write.
+  separate operands. The same fused kernels rotate (or build the
+  latent) there, with no pools to write, and put the fresh rows in
+  their layer's slot of a staging buffer [L, B, (T,) Hkv, D] that the
+  forward allocates once; the attention reads them there. A decode
+  step's last layer writes every layer's rows into the pool in its own
+  writer launch (``rope_kv_update_all_layers``,
+  ``latent_kv_update_all_layers``); a prefill step writes them after
+  the layer loop with one launch of the all-layer window writer.
 
 Under MLA the pool holds one latent row per token, [kv_lora_rank
 (normed) | rotated k_pe], as a single KV "head" of width
@@ -46,11 +50,12 @@ from xllm_service_tpu_torch.config import ModelConfig
 from xllm_service_tpu_torch.ops.attention import (
     FULL_WINDOW, gather_pages, mha_prefill, overlay_fresh_kv)
 from xllm_service_tpu_torch.ops.kernels import (
-    latent_kv_update_layer, latent_prefill_kv_update_layer,
-    paged_decode_attention, paged_decode_attention_current,
-    paged_decode_attention_mla, paged_decode_attention_mla_current,
-    paged_kv_update, paged_prefill_attention, paged_prefill_attention_fresh,
-    paged_prefill_kv_update, ragged_paged_attention, rope_kv_update_layer,
+    latent_kv_update_all_layers, latent_kv_update_layer,
+    latent_prefill_kv_update_layer, paged_decode_attention,
+    paged_decode_attention_current, paged_decode_attention_mla,
+    paged_decode_attention_mla_current, paged_prefill_attention,
+    paged_prefill_attention_fresh, paged_prefill_kv_update,
+    ragged_paged_attention, rope_kv_update_all_layers, rope_kv_update_layer,
     rope_prefill_kv_update_layer)
 from xllm_service_tpu_torch.ops.norm import rms_norm
 from xllm_service_tpu_torch.ops.rope import (rope_cos_sin, rotate,
@@ -310,6 +315,18 @@ def _attn_out(lp, a: torch.Tensor) -> torch.Tensor:
     return a + lp["o_bias"] if "o_bias" in lp else a
 
 
+def _staging(cfg: ModelConfig, lead: Tuple[int, ...], pool: torch.Tensor):
+    """The attend-then-write path's staging buffers: every layer's fresh
+    K and V rows, [L, *lead, Hkv, D] each in the pools' dtype
+    (``torch.empty``: no launch), or under MLA one buffer of latent rows
+    (K and V alike)."""
+    shape = (cfg.num_layers, *lead, cfg.kv_cache_heads, cfg.kv_cache_dim)
+    if cfg.mla:
+        return torch.empty(shape, dtype=pool.dtype, device=pool.device)
+    return tuple(torch.empty(shape, dtype=pool.dtype, device=pool.device)
+                 for _ in range(2))
+
+
 # ---------------------------------------------------------------------------
 # Prefill and decode
 # ---------------------------------------------------------------------------
@@ -327,7 +344,8 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
     ``write_then_attend`` (see the module docstring): True writes each
     layer's window before its attention; False attends to the prefix
-    and the fresh window, then writes all layers' windows in one launch.
+    and the fresh window (staged per layer), then writes all layers'
+    windows in one launch.
 
     ``ragged``: the batch is the engine's ragged mix, each row a prefill
     window or a single decode continuation (length 1 at start_pos =
@@ -358,7 +376,8 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         < lengths.long()[:, None]
     extras = _attn_extras(cfg)
     windows = _layer_windows(cfg)
-    k_fresh, v_fresh = [], []
+    if not write_then_attend:
+        k_stage, v_stage = _staging(cfg, (B, T), k_pages)
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
@@ -371,18 +390,16 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             attn = attend(q, k_pages, v_pages, page_table, start_pos,
                           lengths, i, **kw)
         else:
-            rope_prefill_kv_update_layer(q, k, v, cos, sin)
-            k_fresh.append(k)
-            v_fresh.append(v)
+            rope_prefill_kv_update_layer(q, k, v, cos, sin, layer=i,
+                                         k_stage=k_stage, v_stage=v_stage)
             attn = paged_prefill_attention_fresh(
-                q, k, v, k_pages, v_pages, page_table, start_pos, lengths, i,
-                **kw)
+                q, k_stage[i], v_stage[i], k_pages, v_pages, page_table,
+                start_pos, lengths, i, **kw)
         x = _block_tail(lp, cfg, x, _attn_out(lp, attn.reshape(B, T, -1)),
                         valid)
     if not write_then_attend:
-        paged_prefill_kv_update(k_pages, v_pages, torch.stack(k_fresh),
-                                torch.stack(v_fresh), page_table, start_pos,
-                                lengths)
+        paged_prefill_kv_update(k_pages, v_pages, k_stage, v_stage,
+                                page_table, start_pos, lengths)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = (lengths.long() - 1).clamp(min=0)
     last_x = x[torch.arange(B, device=x.device), last]
@@ -401,8 +418,9 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ``write_then_attend`` True: each layer writes the current token's
     K/V, then attends with a context that includes it. False: each layer
     attends to the ``where(active, positions, 0)`` cached tokens plus
-    the current one, held apart; one launch writes all layers' rows
-    after the loop."""
+    the current one, held apart in a staging buffer; the last layer's
+    writer writes all layers' rows, before that layer attends (which
+    reads only positions below ``positions``)."""
     check_supported(cfg)
     if cfg.mla:
         return _mla_forward_decode(params, cfg, tokens, positions, active,
@@ -417,7 +435,7 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         context = torch.where(active, positions + 1, zero)
     else:
         cache_lens = torch.where(active, positions, zero)
-    k_cur, v_cur = [], []
+        k_stage, v_stage = _staging(cfg, (B,), k_pages)
     extras = _attn_extras(cfg)
     windows = _layer_windows(cfg)
     for i in range(cfg.num_layers):
@@ -431,17 +449,18 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             attn = paged_decode_attention(q[:, 0], k_pages, v_pages,
                                           page_table, context, i, **kw)
         else:
-            rope_kv_update_layer(q, k, v, cos, sin)
-            k_cur.append(k[:, 0])
-            v_cur.append(v[:, 0])
+            if i < cfg.num_layers - 1:
+                rope_kv_update_layer(q, k, v, cos, sin, layer=i,
+                                     k_stage=k_stage, v_stage=v_stage)
+            else:
+                rope_kv_update_all_layers(q, k, v, cos, sin, k_pages,
+                                          v_pages, page_table, positions,
+                                          active, i, k_stage, v_stage)
             attn = paged_decode_attention_current(
-                q[:, 0], k_pages, v_pages, page_table, cache_lens, k[:, 0],
-                v[:, 0], i, **kw)
+                q[:, 0], k_pages, v_pages, page_table, cache_lens,
+                k_stage[i], v_stage[i], i, **kw)
         x = _block_tail(lp, cfg, x, _attn_out(lp, attn.reshape(B, 1, -1)),
                         active[:, None])
-    if not write_then_attend:
-        paged_kv_update(k_pages, v_pages, torch.stack(k_cur),
-                        torch.stack(v_cur), page_table, positions, active)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return _head_logits(cfg, x[:, 0], _head(params)), (k_pages, v_pages)
 
@@ -668,8 +687,9 @@ def _mla_forward_prefill(params: Params, cfg: ModelConfig,
     ``mha_prefill`` over the gathered latent pool (write-then-attend:
     after the latent form of K2 built and wrote the window's latent
     rows) or over the gathered prefix with the fresh
-    window laid over it (attend-then-write: K7 writes every layer's
-    window after the loop), as the JAX package runs it through XLA."""
+    window laid over it (attend-then-write: the windows staged per
+    layer, K7 writes every layer's window after the loop), as the JAX
+    package runs it through XLA."""
     k_pages, v_pages = kv
     B, T = tokens.shape
     x = params["embed"][tokens]
@@ -680,7 +700,8 @@ def _mla_forward_prefill(params: Params, cfg: ModelConfig,
         < lengths.long()[:, None]
     rope = _mla_rope(cfg, positions)
     scale = _mla_scale(cfg)
-    fresh = []
+    if not write_then_attend:
+        stage = _staging(cfg, (B, T), k_pages)
     for li, lp, moe in _mla_layers(params):
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
         q_t = _mla_q(cfg, lp, h, rope)
@@ -690,8 +711,8 @@ def _mla_forward_prefill(params: Params, cfg: ModelConfig,
                                            page_table, start_pos, lengths, li)
             lat_all = gather_pages(k_pages[li], page_table)
         else:
-            latent = latent_prefill_kv_update_layer(*lat_args)
-            fresh.append(latent)
+            latent = latent_prefill_kv_update_layer(*lat_args, layer=li,
+                                                    stage=stage)
             lat_all = overlay_fresh_kv(gather_pages(k_pages[li], page_table),
                                        latent, start_pos)
         attn = mha_prefill(q_t, lat_all, lat_all, kv_lengths, start_pos,
@@ -700,8 +721,7 @@ def _mla_forward_prefill(params: Params, cfg: ModelConfig,
         h = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
         x = x + _mla_mlp(cfg, lp, h, moe, valid)
     if not write_then_attend:
-        rows = torch.stack(fresh)
-        paged_prefill_kv_update(k_pages, v_pages, rows, rows, page_table,
+        paged_prefill_kv_update(k_pages, v_pages, stage, stage, page_table,
                                 start_pos, lengths)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = (lengths.long() - 1).clamp(min=0)
@@ -716,9 +736,9 @@ def _mla_forward_decode(params: Params, cfg: ModelConfig,
                         ) -> Tuple[torch.Tensor, KVCache]:
     """``forward_decode`` for MLA models: every layer attends with K3''
     over its latent pool, after the latent form of K1 built and wrote
-    the current latent row
-    (write-then-attend), or with the current row held apart and K6
-    writing every layer's row after the loop (attend-then-write)."""
+    the current latent row (write-then-attend), or with the current row
+    held apart in a staging buffer and the last layer's latent writer
+    writing every layer's row (attend-then-write)."""
     k_pages, v_pages = kv
     x = params["embed"][tokens[:, None]]                    # [B, 1, D]
     rope = _mla_rope(cfg, positions[:, None])
@@ -726,7 +746,8 @@ def _mla_forward_decode(params: Params, cfg: ModelConfig,
     zero = torch.zeros_like(positions)
     context = torch.where(active, positions + 1, zero)
     cache_lens = torch.where(active, positions, zero)
-    current = []
+    if not write_then_attend:
+        stage = _staging(cfg, (tokens.shape[0],), k_pages)
     for li, lp, moe in _mla_layers(params):
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
         q_t = _mla_q(cfg, lp, h, rope)
@@ -737,16 +758,17 @@ def _mla_forward_decode(params: Params, cfg: ModelConfig,
             attn = paged_decode_attention_mla(q_t[:, 0], k_pages, page_table,
                                               context, li, scale)
         else:
-            lat = latent_kv_update_layer(*lat_args)[:, 0]   # [B, 1, r+rope]
-            current.append(lat)
+            if li < cfg.num_layers - 1:
+                latent_kv_update_layer(*lat_args, layer=li, stage=stage)
+            else:
+                latent_kv_update_all_layers(*lat_args, k_pages, v_pages,
+                                            page_table, positions, active,
+                                            li, stage)
+            lat = stage[li]                                 # [B, 1, r+rope]
             attn = paged_decode_attention_mla_current(
                 q_t[:, 0], k_pages, page_table, cache_lens, lat, li, scale)
         x = x + _mla_out(cfg, lp, attn)[:, None, :]
         h = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
         x = x + _mla_mlp(cfg, lp, h, moe, active[:, None])
-    if not write_then_attend:
-        rows = torch.stack(current)
-        paged_kv_update(k_pages, v_pages, rows, rows, page_table, positions,
-                        active)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return _head_logits(cfg, x[:, 0], _head(params)), (k_pages, v_pages)

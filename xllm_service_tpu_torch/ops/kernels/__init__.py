@@ -14,7 +14,8 @@ attend (each layer writes its fresh K/V into the pool, then attends to
 the pool; the ragged mixed step ``EngineConfig.ragged_attn`` included)
 and attend-then-write (``EngineConfig.write_then_attend=False``: each
 layer attends to the pool plus its fresh K/V, and one launch writes all
-layers' rows after the layer loop). Pallas files are under
+layers' rows after the layer loop, or, in a decode step, the last
+layer's writer does). Pallas files are under
 ``xllm_service_tpu/ops/pallas/``:
 
 =====================================  ===================================
@@ -30,12 +31,18 @@ kv_update.latent_kv_update_layer       kv_update.py paged_kv_update_layer
 kv_update.latent_prefill_kv_update_    kv_update.py
 layer                                  paged_prefill_kv_update_layer
                                        (fused with the MLA latent row)
+kv_update.rope_kv_update_all_layers    kv_update.py paged_kv_update_layer
+                                       and paged_kv_update (the last
+                                       layer's writer, all layers)
+kv_update.latent_kv_update_all_layers  kv_update.py paged_kv_update_layer
+                                       and paged_kv_update (MLA)
 kv_update.paged_kv_update_layer        kv_update.py paged_kv_update_layer
                                        (unfused; off the serving path)
 kv_update.paged_prefill_kv_update_     kv_update.py
 layer                                  paged_prefill_kv_update_layer
                                        (unfused; off the serving path)
 kv_update.paged_kv_update              kv_update.py paged_kv_update
+                                       (unfused; off the serving path)
 kv_update.paged_prefill_kv_update      kv_update.py paged_prefill_kv_update
 paged_attention.paged_decode_          paged_attention.py
 attention                              paged_decode_attention_pallas
@@ -67,9 +74,10 @@ from __future__ import annotations
 from typing import Callable, Dict, List
 
 from xllm_service_tpu_torch.ops.kernels.kv_update import (
-    latent_kv_update_layer, latent_prefill_kv_update_layer, paged_kv_update,
-    paged_kv_update_layer, paged_prefill_kv_update,
-    paged_prefill_kv_update_layer, rope_kv_update_layer,
+    latent_kv_update_all_layers, latent_kv_update_layer,
+    latent_prefill_kv_update_layer, paged_kv_update, paged_kv_update_layer,
+    paged_prefill_kv_update, paged_prefill_kv_update_layer,
+    rope_kv_update_all_layers, rope_kv_update_layer,
     rope_prefill_kv_update_layer)
 from xllm_service_tpu_torch.ops.kernels.paged_attention import (
     paged_decode_attention, paged_decode_attention_current,
@@ -91,7 +99,9 @@ WRAPPERS: List[Callable] = [paged_kv_update_layer,
                             rope_kv_update_layer,
                             rope_prefill_kv_update_layer,
                             latent_kv_update_layer,
-                            latent_prefill_kv_update_layer]
+                            latent_prefill_kv_update_layer,
+                            rope_kv_update_all_layers,
+                            latent_kv_update_all_layers]
 
 
 def launch_counts() -> Dict[str, int]:
@@ -111,4 +121,5 @@ __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts",
            "paged_prefill_attention_fresh", "paged_decode_attention_mla",
            "paged_decode_attention_mla_current", "rope_kv_update_layer",
            "rope_prefill_kv_update_layer", "latent_kv_update_layer",
-           "latent_prefill_kv_update_layer"]
+           "latent_prefill_kv_update_layer", "rope_kv_update_all_layers",
+           "latent_kv_update_all_layers"]

@@ -1,25 +1,41 @@
 // Single-query GQA attention of one (row, kv head) over one layer of the
-// paged KV pool: the device code shared by the decode kernels
-// (paged_decode_attention.cu, both orderings) and the ragged kernel's
-// decode rows (ragged_paged_attention.cu).
+// paged KV pool, split over its keys (split-KV): the device code shared by
+// the decode kernels (paged_decode_attention.cu, both orderings) and the
+// ragged kernel's decode rows (ragged_paged_attention.cu).
 //
-// It is bound by bytes: the row reads its context's K and V once
+// It is bound by bytes: a row reads its context's K and V once
 // (2 x ctx x Hkv x D x 2 bytes) for 4 x G flops per byte, far below the
-// ~295 flops per byte where the tensor cores would become the limit. So
-// it reads every K/V row of the context exactly once and keeps as many of
-// those reads in flight as it can: one block serves all G query heads of
-// the group. For each chunk of 128 keys, each thread takes one key: it
-// looks up the key's page once, then issues all the 16-byte loads of that
-// key's K and V head rows before it stores any of them to shared memory,
-// so a chunk costs about one memory latency, not one per load. Then one
-// thread per key computes the G scores from shared memory and the online
-// float32 softmax folds the chunk; nothing but the output is written
-// back. Keys outside [ctx - W, ctx) are never read. The head dim D and
-// the group width are template parameters, so the per-key dot products
-// and the P @ V loop unroll into independent loads and FMAs instead of
-// one dependent chain per element: with one block per (row, kv head)
-// there are few warps to hide latency, so each warp needs the
-// instruction-level parallelism.
+// ~295 flops per byte where the tensor cores would become the limit. With
+// one block per (row, kv head) a batch of 8 llama3-1b rows is 64 blocks on
+// 132 SMs, each walking its keys one chunk after another, so the time is
+// the chain of dependent steps, not the bytes. So each row's attended
+// range is split over S blocks (or thread groups), and the splits' softmax
+// states fold at the end.
+//
+// split_range gives split s of S: an equal share, in whole kChunk-key
+// units, of the attended range [lo, ctx) (so a sliding window cuts across
+// splits, and with CUR the current key falls in the last non-empty
+// split). Only the first `live` splits hold keys. attend_split walks its
+// share in 64-key steps on the tensor cores: the G query heads of the kv
+// head padded to one 16-row `mma.sync` m16n8k16 tile, Q's fragments in
+// registers for the whole walk, K and V staged by `cp.async` into two
+// buffers (the next step's rows load while this one computes), S = Q K^T
+// by 4 warps of 16 keys each through shared memory, the online softmax on
+// every warp's copy of the rows (log2 units, P rounded to bf16 as the
+// plain version rounds it), and O += P V with O in registers, each warp
+// owning D / 4 columns. Two barriers a step. A row held by one live split
+// (or none: context 0) is finished by that split. Otherwise each live
+// split writes its unnormalised float32 O [G][D] and its softmax state
+// (m, l) instead of the output, and combine_splits folds the live states
+// in split order and only then lets the sinks join the denominator, once.
+// Soft-cap applies per logit inside the split.
+//
+// A split runs on one group of kSplitThreads (128) threads: the whole
+// block of the decode kernels, or either half of the ragged kernel's
+// 256-thread block, which runs two splits side by side. `gtid` is the
+// thread's index in its group and `bar` the group's barrier: 0 is the
+// block's own (__syncthreads), 1 and up a named barrier of the group's
+// 128 threads.
 //
 // Semantics (those of the Pallas decode kernel): the query sits at
 // position ctx - 1; positions >= ctx and, with a sliding window W > 0,
@@ -34,38 +50,14 @@
 // same; only the staging step picks where a key's bytes come from: the
 // key at position cache_len from the current row, the others through the
 // page table. The pool slot at cache_len is never read (it is stale in
-// this ordering). The current key is always valid, so a row with
-// cache_len 0 attends to it alone and is not zeros.
+// this ordering, or already holds the current row where the last
+// layer's writer wrote every layer first). The current key is always
+// valid, so a row with cache_len 0 attends to it alone and is not zeros.
 //
 // Layout: the caller passes the row's G query head rows (qb, [G][D] bf16)
-// and output rows (ob), its page-table row, the pools [P, ps, Hkv, D]
-// bf16 of one layer and, with CUR, the current token's K and V head rows
+// and output rows (ob), its page-table row, the pools [P, ps, Hkv, D] bf16
+// of one layer and, with CUR, the current token's K and V head rows
 // ([D] bf16 each).
-//
-// Split-KV (split_range, attend_split and combine_splits: the decode
-// kernels' walk; the ragged kernel's decode rows keep attend_row). With
-// one block per (row, kv head) a batch of 8 llama3-1b rows is 64 blocks on
-// 132 SMs, each walking its chunks one after another, and each chunk of
-// attend_row is a chain of shared-memory loads and FMAs on the CUDA cores
-// (one thread per key, then one per column). attend_split takes split s
-// of S: an equal share, in whole 128-key units, of the attended range
-// [lo, ctx) (so a sliding window cuts across splits, and with CUR the
-// current key falls in the last non-empty split). Only the first `live`
-// splits hold keys; the others have nothing to do. It walks its share in
-// 64-key steps on the tensor cores, as the MLA kernel does: the G query
-// heads of the kv head padded to one 16-row `mma.sync` m16n8k16 tile, Q's
-// fragments in registers for the whole walk, K and V staged by `cp.async`
-// into two buffers (the next step's rows load while this one computes),
-// S = Q K^T by 4 warps of 16 keys each through shared memory, the online
-// softmax on every warp's copy of the rows (log2 units, P rounded to bf16
-// as the plain version rounds it), and O += P V with O in registers, each
-// warp owning D / 4 columns. Two barriers a step. A row held by one live
-// split (or none: context 0) is finished by that split, as attend_row
-// finishes it. Otherwise each live split writes its unnormalised float32
-// O [G][D] and its softmax state (m, l) instead of the output, and
-// combine_splits folds the live states in split order and only then lets
-// the sinks join the denominator, once. Soft-cap applies per logit inside
-// the split.
 #pragma once
 
 #include <math.h>
@@ -76,187 +68,7 @@
 
 namespace decode {
 
-constexpr int kChunk = 128;   // keys per step of attend_row; a split's unit
-constexpr int kBatch = 8;     // 16-byte loads in flight per row and tensor
-
-// Shared memory of one block (bytes): D head dim, KG the group width G
-// rounded up to a power of two, G the group width, THREADS the block.
-__host__ __device__ constexpr size_t smem_bytes(int D, int KG, int G,
-                                                int THREADS) {
-  return sizeof(float) *
-             (size_t)(KG * D + KG * kChunk + 3 * G + (THREADS / D) * G * D) +
-         sizeof(uint32_t) * (size_t)kChunk * 2 * (D / 2 + 1);
-}
-
-// KG: the group width G rounded up to a power of two (rows g >= G of the
-// group are skipped). THREADS: the block size, a multiple of D. CUR: the
-// current token's K/V row is a separate operand (see above).
-template <int D, int KG, int THREADS, bool CUR = false>
-__device__ __forceinline__ void attend_row(
-    float* smem, const __nv_bfloat16* __restrict__ qb,
-    const __nv_bfloat16* __restrict__ k_pool,
-    const __nv_bfloat16* __restrict__ v_pool,
-    const int* __restrict__ table_row, const float* __restrict__ sinks,
-    __nv_bfloat16* __restrict__ ob, int ctx_raw, int h, int Hkv, int G,
-    int MP, int page_size, int window, float scale, float cap,
-    const __nv_bfloat16* __restrict__ k_cur = nullptr,
-    const __nv_bfloat16* __restrict__ v_cur = nullptr) {
-  constexpr int nsplit = THREADS / D;
-  constexpr int KW = D / 2 + 1;         // K/V row stride, bf16 pairs (padded)
-  constexpr int vpr = D / 8;            // 16-byte vectors per head row
-  // Unroll the dot products fully while the body stays small; cap it for
-  // wide heads x wide groups, whose full unroll only costs build time.
-  constexpr int kDotUnroll = (D / 2) * KG <= 256 ? D / 2 : 8;
-  float* q_s = smem;                    // [KG][D], rows >= G zero
-  float* p_s = q_s + KG * D;            // [KG][kChunk] scores, then probs
-  float* m_s = p_s + KG * kChunk;       // [G] running max
-  float* l_s = m_s + G;                 // [G] running denominator
-  float* c_s = l_s + G;                 // [G] this chunk's rescale
-  float* red = c_s + G;                 // [nsplit][G][D]
-  uint32_t* k_s = (uint32_t*)(red + nsplit * G * D);  // [kChunk][KW]
-  uint32_t* v_s = k_s + kChunk * KW;                  // [kChunk][KW]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  constexpr int nwarps = THREADS / 32;
-  const long long row_stride = (long long)Hkv * D;
-
-  // Keys [lo, ctx). With CUR the last of them, position pool_end, is
-  // the current token.
-  const int pool_end = min(ctx_raw, MP * page_size);
-  const int ctx = CUR ? pool_end + 1 : pool_end;
-  const int q_pos = CUR ? ctx_raw : ctx_raw - 1;
-  int lo = window > 0 ? max(0, q_pos - window + 1) : 0;
-  if constexpr (CUR) lo = min(lo, pool_end);
-
-  for (int i = tid; i < KG * D; i += THREADS)
-    q_s[i] = i < G * D ? __bfloat162float(qb[i]) : 0.f;
-  for (int g = tid; g < G; g += THREADS) {
-    m_s[g] = XLLM_NEG_INF;
-    l_s[g] = 0.f;
-  }
-  // PV mapping: thread owns column d of every head of the group, over
-  // the keys t = split, split + nsplit, ...
-  const int d = tid % D;
-  const int split = tid / D;
-  float acc[KG];
-#pragma unroll
-  for (int g = 0; g < KG; ++g) acc[g] = 0.f;
-  __syncthreads();
-
-  for (int c0 = lo; c0 < ctx; c0 += kChunk) {
-    const int n = min(kChunk, ctx - c0);
-    // 1. Stage the chunk's K and V head rows, one key row per thread:
-    //    every load of a batch is issued before its stores.
-    for (int t = tid; t < n; t += THREADS) {
-      const int pos = c0 + t;
-      const uint4* ksrc;
-      const uint4* vsrc;
-      if (CUR && pos >= pool_end) {
-        ksrc = reinterpret_cast<const uint4*>(k_cur);
-        vsrc = reinterpret_cast<const uint4*>(v_cur);
-      } else {
-        const int page = table_row[pos / page_size];
-        const long long off =
-            ((long long)page * page_size + pos % page_size) * row_stride +
-            (long long)h * D;
-        ksrc = reinterpret_cast<const uint4*>(k_pool + off);
-        vsrc = reinterpret_cast<const uint4*>(v_pool + off);
-      }
-#pragma unroll
-      for (int c0v = 0; c0v < vpr; c0v += kBatch) {
-        uint4 kr[kBatch], vr[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          if (c0v + u < vpr) {
-            kr[u] = ksrc[c0v + u];
-            vr[u] = vsrc[c0v + u];
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          if (c0v + u < vpr) {
-            uint32_t* kd = k_s + t * KW + (c0v + u) * 4;
-            kd[0] = kr[u].x; kd[1] = kr[u].y; kd[2] = kr[u].z; kd[3] = kr[u].w;
-            uint32_t* vd = v_s + t * KW + (c0v + u) * 4;
-            vd[0] = vr[u].x; vd[1] = vr[u].y; vd[2] = vr[u].z; vd[3] = vr[u].w;
-          }
-        }
-      }
-    }
-    __syncthreads();
-    // 2. Scores: one thread per key (the padded K rows spread the banks).
-    for (int t = tid; t < n; t += THREADS) {
-      const __nv_bfloat162* kr =
-          reinterpret_cast<const __nv_bfloat162*>(k_s + t * KW);
-      float part[KG];
-#pragma unroll
-      for (int g = 0; g < KG; ++g) part[g] = 0.f;
-#pragma unroll kDotUnroll
-      for (int e2 = 0; e2 < D / 2; ++e2) {
-        const float2 kf = __bfloat1622float2(kr[e2]);
-#pragma unroll
-        for (int g = 0; g < KG; ++g)
-          part[g] += q_s[g * D + 2 * e2] * kf.x +
-                     q_s[g * D + 2 * e2 + 1] * kf.y;
-      }
-#pragma unroll
-      for (int g = 0; g < KG; ++g)
-        if (g < G) p_s[g * kChunk + t] = soft_cap(part[g] * scale, cap);
-    }
-    __syncthreads();
-    // 3. Online softmax: one warp per query head.
-    for (int g = warp; g < G; g += nwarps) {
-      float mx = XLLM_NEG_INF;
-      for (int t = lane; t < n; t += 32) mx = fmaxf(mx, p_s[g * kChunk + t]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int t = lane; t < n; t += 32) {
-        const float p = expf(p_s[g * kChunk + t] - m_new);
-        p_s[g * kChunk + t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        c_s[g] = corr;
-        l_s[g] = l_s[g] * corr + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-    // 4. P @ V from shared memory into the per-thread accumulators.
-#pragma unroll
-    for (int g = 0; g < KG; ++g)
-      if (g < G) acc[g] *= c_s[g];
-    const __nv_bfloat16* vcol =
-        reinterpret_cast<const __nv_bfloat16*>(v_s) + d;
-#pragma unroll 8
-    for (int t = split; t < n; t += nsplit) {
-      const float v = __bfloat162float(vcol[t * 2 * KW]);
-#pragma unroll
-      for (int g = 0; g < KG; ++g)
-        acc[g] += p_s[g * kChunk + t] * v;
-    }
-    __syncthreads();
-  }
-
-  // 5. Sum the key splits and normalise.
-#pragma unroll
-  for (int g = 0; g < KG; ++g)
-    if (g < G) red[(split * G + g) * D + d] = acc[g];
-  __syncthreads();
-  for (int i = tid; i < G * D; i += THREADS) {
-    const int g = i / D;
-    const int dd = i % D;
-    float a = 0.f;
-    for (int s = 0; s < nsplit; ++s) a += red[(s * G + g) * D + dd];
-    ob[i] = __float2bfloat16(finish_row(a, m_s[g], l_s[g], sinks, h * G + g));
-  }
-}
+constexpr int kChunk = 128;   // keys of a split's unit
 
 // Split `split` of `num_splits` of a row's attended keys: its share
 // [k_lo, k_hi) of whole kChunk-key chunks of [lo, ctx), the number of
@@ -291,6 +103,16 @@ constexpr int kSplitRows = 16;
 constexpr int kSplitKeys = 64;
 constexpr int kSplitThreads = 128;
 
+// The barrier of a thread group (see above): 0 the block's, else named
+// barrier `bar` over kSplitThreads threads.
+__device__ __forceinline__ void group_sync(int bar) {
+  if (bar == 0)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "n"(kSplitThreads)
+                 : "memory");
+}
+
 template <int D>
 struct SplitPlan {
   static constexpr int LK = D + 8;                   // bf16 row stride
@@ -306,13 +128,15 @@ struct SplitPlan {
 
 // The first loads of a split, issued before anything that waits on the
 // context length: this thread's vectors of the Q tile (rows >= G zero).
+// `gtid`: the thread's index in its group.
 template <int D>
 __device__ __forceinline__ void load_q(const __nv_bfloat16* __restrict__ qb,
                                        int G,
-                                       uint4 (&qv)[SplitPlan<D>::kQVecs]) {
+                                       uint4 (&qv)[SplitPlan<D>::kQVecs],
+                                       int gtid) {
 #pragma unroll
   for (int u = 0; u < SplitPlan<D>::kQVecs; ++u) {
-    const int i = threadIdx.x + u * kSplitThreads;
+    const int i = gtid + u * kSplitThreads;
     const int r = i / (D / 8);
     qv[u] = make_uint4(0, 0, 0, 0);
     if (i < kSplitRows * D / 8 && r < G)
@@ -324,7 +148,8 @@ __device__ __forceinline__ void load_q(const __nv_bfloat16* __restrict__ qb,
 // from `qv` (load_q). With `finish` it writes the normalised output rows
 // ob [G][D] (zeros for an empty range); otherwise the split's state:
 // part_o [G][D] (O before normalisation) and part_ml [2][G] (m, then l,
-// natural units). `smem` holds SplitPlan<D>::kTotal bytes.
+// natural units). `smem` holds SplitPlan<D>::kTotal bytes; `gtid` and
+// `bar` name the thread group (see the top of this file).
 template <int D, bool CUR>
 __device__ __forceinline__ void attend_split(
     unsigned char* smem, const uint4 (&qv)[SplitPlan<D>::kQVecs],
@@ -334,8 +159,8 @@ __device__ __forceinline__ void attend_split(
     __nv_bfloat16* __restrict__ ob, float* __restrict__ part_o,
     float* __restrict__ part_ml, const SplitRange& sr, bool finish, int h,
     int Hkv, int G, int page_size, float scale, float cap,
-    const __nv_bfloat16* __restrict__ k_cur = nullptr,
-    const __nv_bfloat16* __restrict__ v_cur = nullptr) {
+    const __nv_bfloat16* __restrict__ k_cur,
+    const __nv_bfloat16* __restrict__ v_cur, int gtid, int bar) {
   using namespace msync;
   using Plan = SplitPlan<D>;
   constexpr int LK = Plan::LK, LS = Plan::LS;
@@ -349,7 +174,7 @@ __device__ __forceinline__ void attend_split(
     return reinterpret_cast<__nv_bfloat16*>(smem + Plan::kQ +
                                             (2 * stage + x) * Plan::kKV);
   };
-  const int tid = threadIdx.x;
+  const int tid = gtid;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int k_lo = sr.k_lo, k_hi = sr.k_hi;
@@ -419,7 +244,7 @@ __device__ __forceinline__ void attend_split(
     // 1. This step's rows have landed and every warp is done with the
     //    previous step; the next step's rows start loading.
     cp_async_wait_all();
-    __syncthreads();
+    group_sync(bar);
     if (it == 0) {
 #pragma unroll
       for (int kk = 0; kk < KT; ++kk) ldsm_x4(qa_addr + kk * 32, qa[kk]);
@@ -448,7 +273,7 @@ __device__ __forceinline__ void attend_split(
             make_float2(acc[tt][2], acc[tt][3]);
       }
     }
-    __syncthreads();
+    group_sync(bar);
     // 3. Online softmax on rows g and g + 8: the scores this thread's P
     //    fragments hold (columns 16kk + 2t + {0, 1, 8, 9}), scaled,
     //    soft-capped, in log2 units; keys >= n masked.
@@ -557,13 +382,14 @@ __device__ __forceinline__ void attend_split(
 // (M, l, O) takes split s as M' = max(M, m_s), O = O e^(M - M') + O_s
 // e^(m_s - M'), l likewise; then the sinks join the denominator once
 // (finish_row). A thread issues the loads of 4 splits before it folds
-// them, so a fold of up to 4 splits is one round trip to memory.
+// them, so a fold of up to 4 splits is one round trip to memory. `gtid`:
+// the thread's index in its group.
 __device__ __forceinline__ void combine_splits(
     const float* __restrict__ part_o, const float* __restrict__ part_ml,
     const float* __restrict__ sinks, __nv_bfloat16* __restrict__ ob, int h,
-    int G, int D, int live) {
+    int G, int D, int live, int gtid) {
   constexpr int kU = 4;
-  for (int i = threadIdx.x; i < G * D; i += kSplitThreads) {
+  for (int i = gtid; i < G * D; i += kSplitThreads) {
     const int g = i / D;
     float M = XLLM_NEG_INF, l = 0.f, o = 0.f;
     for (int s0 = 0; s0 < live; s0 += kU) {

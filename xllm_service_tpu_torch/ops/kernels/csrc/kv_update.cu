@@ -38,6 +38,9 @@
 // The layer body's writers fused with their neighbours (rope_kv_write,
 // latent_kv_write, at the end of this file) are what the serving path
 // runs in place of kv_write; kv_write stays as their unfused yardstick.
+// In a decode step of the attend-then-write path their all-layer mode
+// also does kv_write_all_layers' work (see below), which then stays as
+// that mode's yardstick.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -163,6 +166,22 @@ extern "C" int kv_write_all_layers(void* k_pool, void* v_pool,
 // that kv_slot keeps. Without pools (k_pool null) it only rotates: the
 // attend-then-write layer body, whose writer runs after the layer loop.
 //
+// Staging (attend-then-write). With k_stage/v_stage, the layer's rotated
+// k and v rows of every token also go to slot `layer` of the staging
+// buffers [L, B, T, Hkv, D], which the forward allocates once: the
+// attention kernels read the current or fresh rows there and the
+// all-layer writer reads every layer's rows from there, so no list of
+// per-layer tensors and no torch.stack copy is left. The all-layer mode
+// (all_layers, a decode step's last layer) is K6 folded into the last
+// layer's writer: grid.y runs over layers 0..layer; blocks y < layer copy
+// staged layer y's kept rows into pool layer y (kv_write_all_layers'
+// work), and blocks y == layer rotate and write their layer from
+// registers. A block reads only staging slots of earlier launches, never
+// one that this launch writes. Writing every layer before the last
+// layer attends is safe in that order: its attention reads pool positions
+// below the cache length and the current row from the staging buffer,
+// and the rows land at the cache length.
+//
 // Exactness: element j pairs with j + D/2 and
 //   out_j       = x_j * cos_j - x_{j+D/2} * sin_j
 //   out_{j+D/2} = x_{j+D/2} * cos_j + x_j * sin_j
@@ -175,7 +194,9 @@ extern "C" int kv_write_all_layers(void* k_pool, void* v_pool,
 //
 // Bound on an H100: bytes (q and k read and written once; v, cos and sin
 // read once; the kept tokens' k and v rows written once to the pool); at
-// a decode step, the launch. Layout: one thread per pair of 16-byte
+// a decode step, the launch (the all-layer mode adds each earlier layer's
+// kept rows read from the staging buffer and written once). Layout: one
+// thread per pair of 16-byte
 // vectors of a q or k head (8 elements of the first half and the 8 they
 // pair with) with cos/sin as two float4s each, then one thread per
 // 16-byte vector of v. threadIdx.x goes over those items of one token,
@@ -212,21 +233,37 @@ __global__ void rope_kv_write_kernel(
     uint4* __restrict__ q, uint4* __restrict__ k,
     const uint4* __restrict__ v, const float4* __restrict__ cos_tab,
     const float4* __restrict__ sin_tab, uint4* __restrict__ k_pool,
-    uint4* __restrict__ v_pool, const int* __restrict__ page_table,
+    uint4* __restrict__ v_pool, uint4* __restrict__ k_stage,
+    uint4* __restrict__ v_stage, const int* __restrict__ page_table,
     const int* __restrict__ start_pos, const int* __restrict__ lengths,
     const unsigned char* __restrict__ active, int num_tokens, int T, int Hq,
-    int Hkv, int D, int MP, int page_size, int num_pages) {
+    int Hkv, int D, int MP, int page_size, int num_pages, int layer) {
   const int token = blockIdx.x * blockDim.y + threadIdx.y;    // b * T + t
   if (token >= num_tokens) return;
   const int b = token / T;
+  const int y = gridDim.y == 1 ? layer : blockIdx.y;         // pool layer
   const long long slot =
       k_pool == nullptr ? -1
                         : kv_slot(b, token - b * T, page_table, start_pos,
                                   lengths, active, MP, page_size, num_pages);
   const int hv = D / 16;                  // vector pairs of a head
   const int dv = D / 8;                   // 16-byte vectors of a head
+  const int rv = Hkv * dv;                // 16-byte vectors of a k/v row
+  const long long pool_row = ((long long)y * num_pages * page_size + slot) *
+                             rv;          // this layer's slot, in vectors
+  const long long stage_row = ((long long)y * num_tokens + token) * rv;
+  if (y < layer) {                        // all-layer mode: a staged layer
+    if (slot < 0) return;
+    for (int i = threadIdx.x; i < 2 * rv; i += blockDim.x) {
+      if (i < rv)
+        k_pool[pool_row + i] = k_stage[stage_row + i];
+      else
+        v_pool[pool_row + i - rv] = v_stage[stage_row + i - rv];
+    }
+    return;
+  }
   const int nq = Hq * hv, nqk = nq + Hkv * hv;
-  const int n = nqk + (slot >= 0 ? Hkv * dv : 0);
+  const int n = nqk + (slot >= 0 || k_stage != nullptr ? rv : 0);
   const float4* cs = cos_tab + (long long)token * dv;     // D/2 floats
   const float4* sn = sin_tab + (long long)token * dv;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
@@ -244,46 +281,59 @@ __global__ void rope_kv_write_kernel(
       row[c] = out_lo;
       row[c + hv] = out_hi;
       if (!is_q && slot >= 0) {
-        uint4* dst = k_pool + (slot * Hkv + h) * dv;
+        uint4* dst = k_pool + pool_row + h * dv;
+        dst[c] = out_lo;
+        dst[c + hv] = out_hi;
+      }
+      if (!is_q && k_stage != nullptr) {
+        uint4* dst = k_stage + stage_row + h * dv;
         dst[c] = out_lo;
         dst[c + hv] = out_hi;
       }
     } else {
       const int j = i - nqk;
-      const int h = j / dv, c = j - h * dv;
-      v_pool[(slot * Hkv + h) * dv + c] =
-          v[((long long)token * Hkv + h) * dv + c];
+      const uint4 x = v[(long long)token * rv + j];
+      if (slot >= 0) v_pool[pool_row + j] = x;
+      if (v_stage != nullptr) v_stage[stage_row + j] = x;
     }
   }
 }
 
 // q [B, T, Hq, D], k/v [B, T, Hkv, D] bf16 with D % 16 == 0; cos/sin
-// [B, T, D/2] float32; pools one layer's view [P, ps, Hkv, D] or null
-// (rotation only; then page_table, start_pos, lengths and active are not
-// read). A decode step passes T = 1 and `active`, a prefill or ragged
-// window `lengths` (active null). Returns cudaGetLastError().
+// [B, T, D/2] float32; pools the full [L, P, ps, Hkv, D], written at
+// `layer`, or null (no pool write; then page_table, start_pos, lengths
+// and active are not read); k_stage/v_stage the staging buffers
+// [L, B, T, Hkv, D] or null. A decode step passes T = 1 and `active`, a
+// prefill or ragged window `lengths` (active null). `all_layers` (pools
+// and staging required) also writes pool layers 0..layer-1 from the
+// staging buffers. Returns cudaGetLastError().
 extern "C" int rope_kv_write(void* q, void* k, const void* v,
                              const float* cos_tab, const float* sin_tab,
-                             void* k_pool, void* v_pool,
-                             const int* page_table, const int* start_pos,
-                             const int* lengths, const unsigned char* active,
-                             int B, int T, int Hq, int Hkv, int D, int MP,
-                             int page_size, int num_pages, void* stream) {
+                             void* k_pool, void* v_pool, void* k_stage,
+                             void* v_stage, const int* page_table,
+                             const int* start_pos, const int* lengths,
+                             const unsigned char* active, int B, int T,
+                             int Hq, int Hkv, int D, int MP, int page_size,
+                             int num_pages, int layer, int all_layers,
+                             void* stream) {
   const int num_tokens = B * T;
   if (num_tokens <= 0) return 0;
+  if (all_layers && (k_pool == nullptr || k_stage == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int items = (Hq + Hkv) * (D / 16) +
-                    (k_pool != nullptr ? Hkv * (D / 8) : 0);
+                    (k_pool != nullptr || k_stage != nullptr ? Hkv * (D / 8)
+                                                             : 0);
   int bx = (items + 31) / 32 * 32;
   if (bx > 256) bx = 256;
   int by = 256 / bx;
   if (by > num_tokens) by = num_tokens;
   const dim3 block(bx, by);
-  const dim3 grid((num_tokens + by - 1) / by);
+  const dim3 grid((num_tokens + by - 1) / by, all_layers ? layer + 1 : 1);
   rope_kv_write_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (uint4*)q, (uint4*)k, (const uint4*)v, (const float4*)cos_tab,
-      (const float4*)sin_tab, (uint4*)k_pool, (uint4*)v_pool, page_table,
-      start_pos, lengths, active, num_tokens, T, Hq, Hkv, D, MP, page_size,
-      num_pages);
+      (const float4*)sin_tab, (uint4*)k_pool, (uint4*)v_pool,
+      (uint4*)k_stage, (uint4*)v_stage, page_table, start_pos, lengths,
+      active, num_tokens, T, Hq, Hkv, D, MP, page_size, num_pages, layer);
   return (int)cudaGetLastError();
 }
 
@@ -296,7 +346,11 @@ extern "C" int rope_kv_write(void* q, void* k, const void* v,
 // ops/kernels/kv_update.py): ~21 launches a layer. Here one warp per
 // token builds the row into `latent` [B, T, r + dr] and, with pools,
 // into both pools' slot (both carry the latent, as in the JAX package);
-// without pools (attend-then-write) it only builds it.
+// without pools (attend-then-write) it only builds it. The latent rows
+// may go to a slot of a staging buffer [L, B, T, r + dr] (the wrapper
+// passes its base and the slot), and the all-layer mode is
+// rope_kv_write's: blocks y < layer copy staged layer y's kept rows into
+// both pools' layer y, blocks y == layer build and write their layer.
 //
 // The norm: a float32 sum of squares of the r values over the warp,
 // rsqrt(sum / r + eps), times the weight, each product rounded on its
@@ -317,20 +371,38 @@ __global__ void latent_kv_write_kernel(
     __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ page_table,
     const int* __restrict__ start_pos, const int* __restrict__ lengths,
     const unsigned char* __restrict__ active, int num_tokens, int T, int r,
-    int dr, int MP, int page_size, int num_pages) {
+    int dr, int MP, int page_size, int num_pages, int layer,
+    int stage_slot) {
   const int lane = threadIdx.x & 31;
   const int token = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (token >= num_tokens) return;                 // the whole warp
   const int b = token / T;
+  const int y = gridDim.y == 1 ? layer : blockIdx.y;         // pool layer
   const long long slot =
       k_pool == nullptr ? -1
                         : kv_slot(b, token - b * T, page_table, start_pos,
                                   lengths, active, MP, page_size, num_pages);
   const int width = r + dr;
+  const long long pool_row =
+      ((long long)y * num_pages * page_size + slot) * width;
+  if (y < layer) {                        // all-layer mode: a staged layer
+    if (slot < 0) return;
+    const uint4* src = reinterpret_cast<const uint4*>(
+        latent + ((long long)y * num_tokens + token) * width);
+    uint4* kd = reinterpret_cast<uint4*>(k_pool + pool_row);
+    uint4* vd = reinterpret_cast<uint4*>(v_pool + pool_row);
+    for (int c = lane; c < width / 8; c += 32) {
+      const uint4 u = src[c];
+      kd[c] = u;
+      vd[c] = u;
+    }
+    return;
+  }
   const __nv_bfloat16* x = ckv + (long long)token * width;
-  __nv_bfloat16* out = latent + (long long)token * width;
-  __nv_bfloat16* kd = slot >= 0 ? k_pool + slot * width : nullptr;
-  __nv_bfloat16* vd = slot >= 0 ? v_pool + slot * width : nullptr;
+  __nv_bfloat16* out =
+      latent + ((long long)stage_slot * num_tokens + token) * width;
+  __nv_bfloat16* kd = slot >= 0 ? k_pool + pool_row : nullptr;
+  __nv_bfloat16* vd = slot >= 0 ? v_pool + pool_row : nullptr;
   const uint4* xv = reinterpret_cast<const uint4*>(x);
   const uint4* wv = reinterpret_cast<const uint4*>(weight);
   const int nv = r / 8;
@@ -387,25 +459,34 @@ __global__ void latent_kv_write_kernel(
 }
 
 // ckv [B, T, r + dr] bf16 (r % 8 == 0, dr even), weight [r] bf16, cos/sin
-// [B, T, dr/2] float32, latent [B, T, r + dr] bf16 (written); pools one
-// layer's view [P, ps, 1, r + dr] or null; the rest as rope_kv_write.
+// [B, T, dr/2] float32; latent the output [S, B, T, r + dr] bf16, the
+// layer's rows written at slot `stage_slot` (a staging buffer, or a
+// tensor of one slot); pools the full [L, P, ps, 1, r + dr], written at
+// `layer`, or null; `all_layers` (pools and a staging buffer with
+// stage_slot == layer) also writes pool layers 0..layer-1 from the
+// staging slots; the rest as rope_kv_write.
 extern "C" int latent_kv_write(const void* ckv, const void* weight,
                                const float* cos_tab, const float* sin_tab,
                                float eps, int interleave, void* latent,
-                               void* k_pool, void* v_pool,
+                               int stage_slot, void* k_pool, void* v_pool,
                                const int* page_table,
                                const int* start_pos, const int* lengths,
                                const unsigned char* active, int B, int T,
                                int r, int dr, int MP, int page_size,
-                               int num_pages, void* stream) {
+                               int num_pages, int layer, int all_layers,
+                               void* stream) {
   const int num_tokens = B * T;
   if (num_tokens <= 0) return 0;
+  if (all_layers && (k_pool == nullptr || stage_slot != layer))
+    return (int)cudaErrorInvalidValue;
   const int warps = 8;                                 // tokens a block
-  const dim3 grid((num_tokens + warps - 1) / warps);
+  const dim3 grid((num_tokens + warps - 1) / warps,
+                  all_layers ? layer + 1 : 1);
   latent_kv_write_kernel<<<grid, warps * 32, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)ckv, (const __nv_bfloat16*)weight, cos_tab,
       sin_tab, eps, interleave, (__nv_bfloat16*)latent,
       (__nv_bfloat16*)k_pool, (__nv_bfloat16*)v_pool, page_table, start_pos,
-      lengths, active, num_tokens, T, r, dr, MP, page_size, num_pages);
+      lengths, active, num_tokens, T, r, dr, MP, page_size, num_pages,
+      layer, stage_slot);
   return (int)cudaGetLastError();
 }

@@ -66,7 +66,7 @@ paged_decode_attention_kernel(
   const int h = bh % Hkv;
   const long long head0 = (long long)bh * G * D;
   uint4 qv[decode::SplitPlan<D>::kQVecs];
-  decode::load_q<D>(q + head0, G, qv);
+  decode::load_q<D>(q + head0, G, qv, threadIdx.x);
   const decode::SplitRange sr = decode::split_range<CUR>(
       lens[b], MP, page_size, window, split, S);
   if (split >= max(sr.live, 1)) return;        // no keys in this split
@@ -76,7 +76,8 @@ paged_decode_attention_kernel(
   decode::attend_split<D, CUR>(
       smem, qv, k_pool, v_pool, page_table + (long long)b * MP, sinks,
       out + head0, po, pml, sr, sr.live <= 1, h, Hkv, G, page_size, scale,
-      cap, CUR ? k_cur + cur0 : nullptr, CUR ? v_cur + cur0 : nullptr);
+      cap, CUR ? k_cur + cur0 : nullptr, CUR ? v_cur + cur0 : nullptr,
+      threadIdx.x, 0);
   if (sr.live <= 1) return;
   __threadfence();
   __syncthreads();
@@ -87,7 +88,7 @@ paged_decode_attention_kernel(
   __threadfence();
   decode::combine_splits(part_o + (long long)bh * S * G * D,
                          part_ml + (long long)bh * S * 2 * G, sinks,
-                         out + head0, h, G, D, sr.live);
+                         out + head0, h, G, D, sr.live, threadIdx.x);
   if (threadIdx.x == 0) tickets[bh] = 0;
 }
 

@@ -32,8 +32,20 @@ launch a layer instead of ~21):
   ``h @ kv_a`` and write it into both pools (K1 / K2 with the latent of
   the MLA layer body); without pools they only build it.
 
-``paged_kv_update_layer`` and ``paged_prefill_kv_update_layer`` stay as
-the unfused writers (the serving path no longer calls them).
+In the attend-then-write path the pool-less forms write their layer's
+rotated k and v (or latent row) into a slot of a staging buffer
+[L, B, (T,) Hkv, D] that the forward allocates once; the attention
+kernels and the all-layer writers read the rows there. A decode step's
+last layer runs ``rope_kv_update_all_layers`` /
+``latent_kv_update_all_layers``: the same launch also writes every
+earlier layer's staged rows into the pools, which is K6's work, so K6
+(``paged_kv_update``) no longer runs on a served path. A prefill step
+keeps K7 (``paged_prefill_kv_update``) as its own launch, fed from the
+staging buffer.
+
+``paged_kv_update_layer``, ``paged_prefill_kv_update_layer`` and
+``paged_kv_update`` stay as the unfused writers (the serving path no
+longer calls them; they are the fused forms' yardsticks).
 """
 
 from __future__ import annotations
@@ -60,10 +72,10 @@ def _kernel():
         lib.kv_write_all_layers.argtypes = [P, P, P, P, P, P, P, P, I, I, I,
                                             I, I, I, I, P]
         lib.kv_write_all_layers.restype = I
-        lib.rope_kv_write.argtypes = [P] * 11 + [I] * 8 + [P]
+        lib.rope_kv_write.argtypes = [P] * 13 + [I] * 10 + [P]
         lib.rope_kv_write.restype = I
-        lib.latent_kv_write.argtypes = [P, P, P, P, F, I] + [P] * 7 \
-            + [I] * 7 + [P]
+        lib.latent_kv_write.argtypes = [P, P, P, P, F, I, P, I] + [P] * 6 \
+            + [I] * 9 + [P]
         lib.latent_kv_write.restype = I
         _lib = lib
     return _lib
@@ -295,7 +307,22 @@ def _aligned(name: str, t: torch.Tensor) -> None:
             f"{name} must start on a 16-byte boundary for the kernel")
 
 
-def _check_rope(q, k, v, cos, sin, k_pages, v_pages, layer) -> None:
+def _check_stage(name: str, stage, rows: torch.Tensor, layer) -> None:
+    """A staging buffer: [L, ...] contiguous, each slot holding as many
+    elements as ``rows`` (one layer's rows), of its dtype, with a slot
+    for ``layer``."""
+    require(isinstance(stage, torch.Tensor) and stage.dim() >= 2
+            and stage.is_contiguous(), f"{name} must be a contiguous "
+            f"[L, ...] tensor")
+    require(stage[0].numel() == rows.numel() and stage.dtype == rows.dtype,
+            f"{name} {tuple(stage.shape)} {stage.dtype} does not hold "
+            f"rows {tuple(rows.shape)} {rows.dtype} per layer")
+    require(0 <= int(layer) < stage.shape[0],
+            f"layer {layer} outside the {name}'s {stage.shape[0]} slots")
+
+
+def _check_rope(q, k, v, cos, sin, k_pages, v_pages, layer,
+                k_stage=None, v_stage=None) -> None:
     check("q", q, 4)
     check("k", k, 4)
     B, T, _, D = q.shape
@@ -307,49 +334,69 @@ def _check_rope(q, k, v, cos, sin, k_pages, v_pages, layer) -> None:
     require(tuple(cos.shape) == (B, T, D // 2) and cos.shape == sin.shape,
             f"cos/sin must be [B, T, D/2] = {(B, T, D // 2)}, got "
             f"{tuple(cos.shape)} / {tuple(sin.shape)}")
-    if k_pages is not None:
+    if k_pages is not None or k_stage is not None:
         check("v", v, 4)
+        require(v.shape == k.shape and v.dtype == k.dtype,
+                f"v {tuple(v.shape)} does not match k {tuple(k.shape)}")
+    if k_pages is not None:
         _check_pools(k_pages, v_pages, k, v, layer)
+    require((k_stage is None) == (v_stage is None),
+            "k_stage and v_stage go together")
+    if k_stage is not None:
+        _check_stage("k_stage", k_stage, k, layer)
+        _check_stage("v_stage", v_stage, v, layer)
 
 
 def _launch_rope(q, k, v, cos, sin, k_pages, v_pages, page_table, start,
-                 lengths, active, layer: int) -> None:
+                 lengths, active, layer: int, k_stage=None, v_stage=None,
+                 all_layers: bool = False) -> None:
     B, T, Hq, D = q.shape
-    tensors = [q, k, cos, sin]
+    tensors = [("q", q), ("k", k), ("cos", cos), ("sin", sin)]
+    if k_pages is not None or k_stage is not None:
+        tensors.append(("v", v))
     if k_pages is not None:
-        tensors += [v, k_pages, v_pages]
+        tensors += [("k_pages", k_pages), ("v_pages", v_pages)]
+    if k_stage is not None:
+        tensors += [("k_stage", k_stage), ("v_stage", v_stage)]
     require(q.dtype == torch.bfloat16,
             f"the kernel rotates bf16, got {q.dtype}")
     require(D % 16 == 0, f"the kernel needs head_dim % 16 == 0, got {D}")
-    for name, t in zip(("q", "k", "cos", "sin", "v", "k_pages", "v_pages"),
-                       tensors):
+    for name, t in tensors:
         _aligned(name, t)
     if k_pages is None:
-        kp = vp = None
         MP = ps = num_pages = 0
     else:
-        kp, vp = k_pages[layer], v_pages[layer]
         MP, ps, num_pages = page_table.shape[1], k_pages.shape[2], \
             k_pages.shape[1]
     rc = _kernel().rope_kv_write(
-        ptr(q), ptr(k), ptr(v if kp is not None else None), ptr(cos),
-        ptr(sin), ptr(kp), ptr(vp), ptr(page_table), ptr(start),
-        ptr(lengths), ptr(active), B, T, Hq, k.shape[2], D, MP, ps,
-        num_pages, stream())
+        ptr(q), ptr(k), ptr(v if k_pages is not None or k_stage is not None
+                             else None), ptr(cos), ptr(sin), ptr(k_pages),
+        ptr(v_pages), ptr(k_stage), ptr(v_stage), ptr(page_table),
+        ptr(start), ptr(lengths), ptr(active), B, T, Hq, k.shape[2], D, MP,
+        ps, num_pages, int(layer), int(all_layers), stream())
     raise_on_error("rope_kv_write", rc)
+
+
+def _stage_rows(stage, layer: int, rows: torch.Tensor) -> None:
+    """Plain: copy one layer's rows into slot ``layer``."""
+    stage[layer].view(rows.shape).copy_(rows)
 
 
 def rope_kv_update_layer_plain(q, k, v, cos, sin, k_pages=None,
                                v_pages=None, page_table=None, positions=None,
-                               active=None, layer: int = 0):
+                               active=None, layer: int = 0, *, k_stage=None,
+                               v_stage=None):
     """Plain version: the chain the kernel fuses, ``rotate`` of q and of
     k (written back in place), then the scatter reference of
-    ``ops/attention.py``."""
+    ``ops/attention.py``, or the copy into the staging slot."""
     q.copy_(rope.rotate(q, cos, sin))
     k.copy_(rope.rotate(k, cos, sin))
     if k_pages is not None:
         attention.write_decode_kv_layer(k_pages, v_pages, k[:, 0], v[:, 0],
                                         page_table, positions, active, layer)
+    if k_stage is not None:
+        _stage_rows(k_stage, layer, k)
+        _stage_rows(v_stage, layer, v)
     return q, k
 
 
@@ -360,33 +407,40 @@ def rope_kv_update_layer(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          page_table: Optional[torch.Tensor] = None,
                          positions: Optional[torch.Tensor] = None,
                          active: Optional[torch.Tensor] = None,
-                         layer: int = 0):
+                         layer: int = 0, *,
+                         k_stage: Optional[torch.Tensor] = None,
+                         v_stage: Optional[torch.Tensor] = None):
     """K1 fused with the rope of its layer body: rotate one decode
     token's q [B, 1, Hq, D] and k [B, 1, Hkv, D] in place by cos/sin
     [B, 1, D/2] float32 (``rope_cos_sin`` of the positions), then write
     the rotated k and v [B, 1, Hkv, D] into layer ``layer`` of the pools
     as ``paged_kv_update_layer`` does (inactive rows, NULL page 0 and
     positions past the table write nothing; every row is rotated).
-    Without pools, only the rotation (attend-then-write). Returns (q, k).
+    Without pools, only the rotation (attend-then-write), and with
+    ``k_stage``/``v_stage`` (staging buffers [L, B, Hkv, D]) the rotated
+    k and v of every row also go to their slot ``layer``. Returns
+    (q, k).
 
     page_table: [B, MP] int32; positions: [B] int32; active: [B] bool."""
-    _check_rope(q, k, v, cos, sin, k_pages, v_pages, layer)
+    _check_rope(q, k, v, cos, sin, k_pages, v_pages, layer, k_stage,
+                v_stage)
+    require(k_pages is None or k_stage is None,
+            "staging is the pool-less form's (rope_kv_update_all_layers "
+            "takes both)")
     B = q.shape[0]
     require(q.shape[1] == 1, f"a decode step has T = 1, got {q.shape[1]}")
     tensors = [q, k, cos, sin]
     if k_pages is not None:
-        check("page_table", page_table, 2, torch.int32)
-        check("positions", positions, 1, torch.int32)
-        check("active", active, 1, torch.bool)
-        require(page_table.shape[0] == B and positions.shape[0] == B
-                and active.shape[0] == B, "batch sizes disagree")
-        tensors += [v, k_pages, v_pages, page_table, positions, active]
+        tensors += _decode_rows(B, page_table, positions, active)
+        tensors += [v, k_pages, v_pages]
+    if k_stage is not None:
+        tensors += [v, k_stage, v_stage]
     if not on_cuda(tensors):
-        return rope_kv_update_layer_plain(q, k, v, cos, sin, k_pages,
-                                          v_pages, page_table, positions,
-                                          active, int(layer))
+        return rope_kv_update_layer_plain(
+            q, k, v, cos, sin, k_pages, v_pages, page_table, positions,
+            active, int(layer), k_stage=k_stage, v_stage=v_stage)
     _launch_rope(q, k, v, cos, sin, k_pages, v_pages, page_table, positions,
-                 None, active, int(layer))
+                 None, active, int(layer), k_stage, v_stage)
     rope_kv_update_layer.launches += 1
     return q, k
 
@@ -394,17 +448,95 @@ def rope_kv_update_layer(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 rope_kv_update_layer.launches = 0
 
 
+def _decode_rows(B: int, page_table, positions, active):
+    """Checks a decode step's row metadata; returns it as a list."""
+    check("page_table", page_table, 2, torch.int32)
+    check("positions", positions, 1, torch.int32)
+    check("active", active, 1, torch.bool)
+    require(page_table.shape[0] == B and positions.shape[0] == B
+            and active.shape[0] == B, "batch sizes disagree")
+    return [page_table, positions, active]
+
+
+def _all_layers_plain(k_pages, v_pages, k_stage, v_stage, page_table,
+                      positions, active, layer: int) -> None:
+    """Plain: K6's scatter of staged layers 0..layer into the pools."""
+    n = layer + 1
+    L, B = k_stage.shape[0], positions.shape[0]
+    rows = k_pages.shape[3:]
+    attention.write_decode_kv_all_layers(
+        k_pages[:n], v_pages[:n], k_stage.view(L, B, *rows)[:n],
+        v_stage.view(L, B, *rows)[:n], page_table, positions, active)
+
+
+def rope_kv_update_all_layers_plain(q, k, v, cos, sin, k_pages, v_pages,
+                                    page_table, positions, active,
+                                    layer: int, k_stage, v_stage):
+    """Plain version: the pool-less writer with staging (``rotate`` of q
+    and k, the copy into slot ``layer``), then the scatter reference of
+    K6 (``write_decode_kv_all_layers``) of slots 0..layer."""
+    rope_kv_update_layer_plain(q, k, v, cos, sin, layer=layer,
+                               k_stage=k_stage, v_stage=v_stage)
+    _all_layers_plain(k_pages, v_pages, k_stage, v_stage, page_table,
+                      positions, active, layer)
+    return q, k
+
+
+def rope_kv_update_all_layers(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, cos: torch.Tensor,
+                              sin: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor,
+                              page_table: torch.Tensor,
+                              positions: torch.Tensor, active: torch.Tensor,
+                              layer: int, k_stage: torch.Tensor,
+                              v_stage: torch.Tensor):
+    """K6 folded into the last layer's fused writer (the attend-then-write
+    decode step): as ``rope_kv_update_layer`` with staging, rotate q and
+    k of layer ``layer`` in place and put the rotated k and v in slot
+    ``layer`` of ``k_stage``/``v_stage`` [L, B, Hkv, D], and in the same
+    launch write slots 0..layer (this layer's rows from the values just
+    rotated) into pool layers 0..layer at ``positions``, as
+    ``paged_kv_update`` writes them (inactive rows, NULL page 0 and
+    positions past the table write nothing). Returns (q, k).
+
+    Writing before this layer attends is safe: its current-token
+    attention reads pool positions below the cache length (= positions)
+    only, and the current row from the staging slot."""
+    _check_rope(q, k, v, cos, sin, k_pages, v_pages, layer, k_stage,
+                v_stage)
+    B = q.shape[0]
+    require(q.shape[1] == 1, f"a decode step has T = 1, got {q.shape[1]}")
+    tensors = [q, k, v, cos, sin, k_pages, v_pages, k_stage, v_stage]
+    tensors += _decode_rows(B, page_table, positions, active)
+    if not on_cuda(tensors):
+        return rope_kv_update_all_layers_plain(
+            q, k, v, cos, sin, k_pages, v_pages, page_table, positions,
+            active, int(layer), k_stage, v_stage)
+    _launch_rope(q, k, v, cos, sin, k_pages, v_pages, page_table, positions,
+                 None, active, int(layer), k_stage, v_stage, all_layers=True)
+    rope_kv_update_all_layers.launches += 1
+    return q, k
+
+
+rope_kv_update_all_layers.launches = 0
+
+
 def rope_prefill_kv_update_layer_plain(q, k, v, cos, sin, k_pages=None,
                                        v_pages=None, page_table=None,
                                        start_pos=None, lengths=None,
-                                       layer: int = 0):
+                                       layer: int = 0, *, k_stage=None,
+                                       v_stage=None):
     """Plain version: ``rotate`` of q and of k (in place), then the
-    scatter reference of ``ops/attention.py``."""
+    scatter reference of ``ops/attention.py``, or the copy into the
+    staging slot."""
     q.copy_(rope.rotate(q, cos, sin))
     k.copy_(rope.rotate(k, cos, sin))
     if k_pages is not None:
         attention.write_prefill_kv_layer(k_pages, v_pages, k, v, page_table,
                                          start_pos, lengths, layer)
+    if k_stage is not None:
+        _stage_rows(k_stage, layer, k)
+        _stage_rows(v_stage, layer, v)
     return q, k
 
 
@@ -416,7 +548,9 @@ def rope_prefill_kv_update_layer(q: torch.Tensor, k: torch.Tensor,
                                  page_table: Optional[torch.Tensor] = None,
                                  start_pos: Optional[torch.Tensor] = None,
                                  lengths: Optional[torch.Tensor] = None,
-                                 layer: int = 0):
+                                 layer: int = 0, *,
+                                 k_stage: Optional[torch.Tensor] = None,
+                                 v_stage: Optional[torch.Tensor] = None):
     """K2 fused with the rope of its layer body: rotate a window's q
     [B, T, Hq, D] and k [B, T, Hkv, D] in place by cos/sin [B, T, D/2]
     (every token, padding included), then write the rotated k and v into
@@ -424,8 +558,13 @@ def rope_prefill_kv_update_layer(q: torch.Tensor, k: torch.Tensor,
     does (token t of row b at start_pos[b] + t; t >= lengths[b], NULL
     pages and positions past the table dropped; any start). The ragged
     step's windows and decode rows take the same call. Without pools,
-    only the rotation. Returns (q, k)."""
-    _check_rope(q, k, v, cos, sin, k_pages, v_pages, layer)
+    only the rotation, and with ``k_stage``/``v_stage`` (staging buffers
+    [L, B, T, Hkv, D]) the rotated k and v also go to their slot
+    ``layer``. Returns (q, k)."""
+    _check_rope(q, k, v, cos, sin, k_pages, v_pages, layer, k_stage,
+                v_stage)
+    require(k_pages is None or k_stage is None,
+            "staging is the pool-less form's")
     B = q.shape[0]
     tensors = [q, k, cos, sin]
     if k_pages is not None:
@@ -435,12 +574,14 @@ def rope_prefill_kv_update_layer(q: torch.Tensor, k: torch.Tensor,
         require(page_table.shape[0] == B and start_pos.shape[0] == B
                 and lengths.shape[0] == B, "batch sizes disagree")
         tensors += [v, k_pages, v_pages, page_table, start_pos, lengths]
+    if k_stage is not None:
+        tensors += [v, k_stage, v_stage]
     if not on_cuda(tensors):
         return rope_prefill_kv_update_layer_plain(
             q, k, v, cos, sin, k_pages, v_pages, page_table, start_pos,
-            lengths, int(layer))
+            lengths, int(layer), k_stage=k_stage, v_stage=v_stage)
     _launch_rope(q, k, v, cos, sin, k_pages, v_pages, page_table, start_pos,
-                 lengths, None, int(layer))
+                 lengths, None, int(layer), k_stage, v_stage)
     rope_prefill_kv_update_layer.launches += 1
     return q, k
 
@@ -457,7 +598,8 @@ def _latent_plain(ckv, weight, cos, sin, eps: float, interleave: bool):
                       rot(ckv[..., r:], cos, sin)], dim=-1)[:, :, None, :]
 
 
-def _check_latent(ckv, weight, cos, sin, k_pages, v_pages, layer) -> None:
+def _check_latent(ckv, weight, cos, sin, k_pages, v_pages, layer,
+                  stage=None) -> None:
     check("ckv", ckv, 3)
     check("weight", weight, 1)
     B, T, W = ckv.shape
@@ -473,48 +615,60 @@ def _check_latent(ckv, weight, cos, sin, k_pages, v_pages, layer) -> None:
     if k_pages is not None:
         _check_pools(k_pages, v_pages, ckv[:, :, None, :],
                      ckv[:, :, None, :], layer)
+    if stage is not None:
+        _check_stage("stage", stage, ckv, layer)
 
 
 def _launch_latent(ckv, weight, cos, sin, eps, interleave, k_pages, v_pages,
-                   page_table, start, lengths, active, layer: int):
+                   page_table, start, lengths, active, layer: int,
+                   stage=None, all_layers: bool = False):
+    """Returns the layer's latent rows [B, T, 1, W]: slot ``layer`` of
+    ``stage`` when given, else a new tensor."""
     B, T, W = ckv.shape
     r = weight.shape[0]
     require(ckv.dtype == torch.bfloat16 and weight.dtype == torch.bfloat16,
             f"the kernel builds bf16 latents, got {ckv.dtype} / "
             f"{weight.dtype}")
-    require(r % 8 == 0, f"the kernel needs kv_lora_rank % 8 == 0, got {r}")
-    latent = torch.empty(B, T, 1, W, dtype=ckv.dtype, device=ckv.device)
-    tensors = [("ckv", ckv), ("weight", weight), ("latent", latent)]
+    require(r % 8 == 0 and W % 8 == 0, f"the kernel needs kv_lora_rank "
+            f"and the row width % 8 == 0, got {r} and {W}")
+    if stage is None:
+        out, slot = torch.empty(1, B, T, 1, W, dtype=ckv.dtype,
+                                device=ckv.device), 0
+    else:
+        out, slot = stage, int(layer)
+    tensors = [("ckv", ckv), ("weight", weight), ("latent", out)]
     if k_pages is None:
-        kp = vp = None
         MP = ps = num_pages = 0
     else:
-        kp, vp = k_pages[layer], v_pages[layer]
-        tensors += [("k_pages", kp), ("v_pages", vp)]
+        tensors += [("k_pages", k_pages), ("v_pages", v_pages)]
         MP, ps, num_pages = page_table.shape[1], k_pages.shape[2], \
             k_pages.shape[1]
     for name, t in tensors:
         _aligned(name, t)
     rc = _kernel().latent_kv_write(
         ptr(ckv), ptr(weight), ptr(cos), ptr(sin), float(eps),
-        int(bool(interleave)), ptr(latent), ptr(kp), ptr(vp),
+        int(bool(interleave)), ptr(out), slot, ptr(k_pages), ptr(v_pages),
         ptr(page_table), ptr(start), ptr(lengths), ptr(active), B, T, r,
-        W - r, MP, ps, num_pages, stream())
+        W - r, MP, ps, num_pages, int(layer), int(all_layers), stream())
     raise_on_error("latent_kv_write", rc)
-    return latent
+    return out[slot].view(B, T, 1, W)
 
 
 def latent_kv_update_layer_plain(ckv, weight, cos, sin, eps: float,
                                  interleave: bool, k_pages=None, v_pages=None,
                                  page_table=None, positions=None, active=None,
-                                 layer: int = 0):
+                                 layer: int = 0, *, stage=None):
     """Plain version: ``rms_norm``, the rope of k_pe and a ``cat``, then
-    the scatter reference of ``ops/attention.py`` into both pools."""
+    the scatter reference of ``ops/attention.py`` into both pools, or
+    the copy into the staging slot (returned)."""
     latent = _latent_plain(ckv, weight, cos, sin, eps, interleave)
     if k_pages is not None:
         lat = latent[:, 0]
         attention.write_decode_kv_layer(k_pages, v_pages, lat, lat,
                                         page_table, positions, active, layer)
+    if stage is not None:
+        _stage_rows(stage, layer, latent)
+        return stage[layer].view(latent.shape)
     return latent
 
 
@@ -526,33 +680,37 @@ def latent_kv_update_layer(ckv: torch.Tensor, weight: torch.Tensor,
                            page_table: Optional[torch.Tensor] = None,
                            positions: Optional[torch.Tensor] = None,
                            active: Optional[torch.Tensor] = None,
-                           layer: int = 0) -> torch.Tensor:
+                           layer: int = 0, *,
+                           stage: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """K1 fused with the MLA latent of its layer body: from one decode
     token's ckv = h @ kv_a [B, 1, r + dr], build the latent row [B, 1, 1,
     r + dr] = [rms_norm(ckv[:r]) * ``weight`` (kv_a_norm, eps) |
     rope(ckv[r:]) by cos/sin [B, 1, dr/2] (adjacent pairs when
     ``interleave``, else halves)], write it into layer ``layer`` of both
     pools as ``paged_kv_update_layer`` does, and return it. Without
-    pools, only the row (attend-then-write)."""
-    _check_latent(ckv, weight, cos, sin, k_pages, v_pages, layer)
+    pools, only the row (attend-then-write), built into slot ``layer``
+    of ``stage`` (a staging buffer [L, B, 1, r + dr]) when given."""
+    _check_latent(ckv, weight, cos, sin, k_pages, v_pages, layer, stage)
+    require(k_pages is None or stage is None,
+            "staging is the pool-less form's (latent_kv_update_all_layers "
+            "takes both)")
     B = ckv.shape[0]
     require(ckv.shape[1] == 1, f"a decode step has T = 1, got "
             f"{ckv.shape[1]}")
     tensors = [ckv, weight, cos, sin]
     if k_pages is not None:
-        check("page_table", page_table, 2, torch.int32)
-        check("positions", positions, 1, torch.int32)
-        check("active", active, 1, torch.bool)
-        require(page_table.shape[0] == B and positions.shape[0] == B
-                and active.shape[0] == B, "batch sizes disagree")
-        tensors += [k_pages, v_pages, page_table, positions, active]
+        tensors += _decode_rows(B, page_table, positions, active)
+        tensors += [k_pages, v_pages]
+    if stage is not None:
+        tensors.append(stage)
     if not on_cuda(tensors):
         return latent_kv_update_layer_plain(
             ckv, weight, cos, sin, eps, interleave, k_pages, v_pages,
-            page_table, positions, active, int(layer))
+            page_table, positions, active, int(layer), stage=stage)
     latent = _launch_latent(ckv, weight, cos, sin, eps, interleave, k_pages,
                             v_pages, page_table, positions, None, active,
-                            int(layer))
+                            int(layer), stage)
     latent_kv_update_layer.launches += 1
     return latent
 
@@ -560,18 +718,73 @@ def latent_kv_update_layer(ckv: torch.Tensor, weight: torch.Tensor,
 latent_kv_update_layer.launches = 0
 
 
+def latent_kv_update_all_layers_plain(ckv, weight, cos, sin, eps: float,
+                                      interleave: bool, k_pages, v_pages,
+                                      page_table, positions, active,
+                                      layer: int, stage):
+    """Plain version: the latent chain into slot ``layer`` of the
+    staging buffer, then the scatter reference of K6 of slots 0..layer
+    into both pools."""
+    latent = latent_kv_update_layer_plain(ckv, weight, cos, sin, eps,
+                                          interleave, layer=layer,
+                                          stage=stage)
+    _all_layers_plain(k_pages, v_pages, stage, stage, page_table, positions,
+                      active, layer)
+    return latent
+
+
+def latent_kv_update_all_layers(ckv: torch.Tensor, weight: torch.Tensor,
+                                cos: torch.Tensor, sin: torch.Tensor,
+                                eps: float, interleave: bool,
+                                k_pages: torch.Tensor, v_pages: torch.Tensor,
+                                page_table: torch.Tensor,
+                                positions: torch.Tensor,
+                                active: torch.Tensor, layer: int,
+                                stage: torch.Tensor) -> torch.Tensor:
+    """K6 folded into the last layer's fused latent writer (the
+    attend-then-write decode step of an MLA model): as
+    ``latent_kv_update_layer`` with staging, build layer ``layer``'s
+    latent row into slot ``layer`` of ``stage`` [L, B, 1, r + dr], and in
+    the same launch write slots 0..layer into layers 0..layer of both
+    pools at ``positions``, as ``paged_kv_update`` writes the latent rows
+    (the layer's own from the values just built). Returns the latent
+    [B, 1, 1, r + dr] (the staging slot)."""
+    _check_latent(ckv, weight, cos, sin, k_pages, v_pages, layer, stage)
+    B = ckv.shape[0]
+    require(ckv.shape[1] == 1, f"a decode step has T = 1, got "
+            f"{ckv.shape[1]}")
+    tensors = [ckv, weight, cos, sin, k_pages, v_pages, stage]
+    tensors += _decode_rows(B, page_table, positions, active)
+    if not on_cuda(tensors):
+        return latent_kv_update_all_layers_plain(
+            ckv, weight, cos, sin, eps, interleave, k_pages, v_pages,
+            page_table, positions, active, int(layer), stage)
+    latent = _launch_latent(ckv, weight, cos, sin, eps, interleave, k_pages,
+                            v_pages, page_table, positions, None, active,
+                            int(layer), stage, all_layers=True)
+    latent_kv_update_all_layers.launches += 1
+    return latent
+
+
+latent_kv_update_all_layers.launches = 0
+
+
 def latent_prefill_kv_update_layer_plain(ckv, weight, cos, sin, eps: float,
                                          interleave: bool, k_pages=None,
                                          v_pages=None, page_table=None,
                                          start_pos=None, lengths=None,
-                                         layer: int = 0):
+                                         layer: int = 0, *, stage=None):
     """Plain version: the latent chain, then the window scatter reference
-    of ``ops/attention.py`` into both pools."""
+    of ``ops/attention.py`` into both pools, or the copy into the staging
+    slot (returned)."""
     latent = _latent_plain(ckv, weight, cos, sin, eps, interleave)
     if k_pages is not None:
         attention.write_prefill_kv_layer(k_pages, v_pages, latent, latent,
                                          page_table, start_pos, lengths,
                                          layer)
+    if stage is not None:
+        _stage_rows(stage, layer, latent)
+        return stage[layer].view(latent.shape)
     return latent
 
 
@@ -583,13 +796,18 @@ def latent_prefill_kv_update_layer(ckv: torch.Tensor, weight: torch.Tensor,
                                    page_table: Optional[torch.Tensor] = None,
                                    start_pos: Optional[torch.Tensor] = None,
                                    lengths: Optional[torch.Tensor] = None,
-                                   layer: int = 0) -> torch.Tensor:
+                                   layer: int = 0, *,
+                                   stage: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
     """K2 fused with the MLA latent: ``latent_kv_update_layer`` for a
     window ckv [B, T, r + dr], written as
     ``paged_prefill_kv_update_layer`` writes (positions start_pos[b] + t,
     t < lengths[b]). Returns the latent [B, T, 1, r + dr], every token's
-    (padding included)."""
-    _check_latent(ckv, weight, cos, sin, k_pages, v_pages, layer)
+    (padding included): slot ``layer`` of ``stage`` (a staging buffer
+    [L, B, T, 1, r + dr], the pool-less form) when given."""
+    _check_latent(ckv, weight, cos, sin, k_pages, v_pages, layer, stage)
+    require(k_pages is None or stage is None,
+            "staging is the pool-less form's")
     B = ckv.shape[0]
     tensors = [ckv, weight, cos, sin]
     if k_pages is not None:
@@ -599,13 +817,15 @@ def latent_prefill_kv_update_layer(ckv: torch.Tensor, weight: torch.Tensor,
         require(page_table.shape[0] == B and start_pos.shape[0] == B
                 and lengths.shape[0] == B, "batch sizes disagree")
         tensors += [k_pages, v_pages, page_table, start_pos, lengths]
+    if stage is not None:
+        tensors.append(stage)
     if not on_cuda(tensors):
         return latent_prefill_kv_update_layer_plain(
             ckv, weight, cos, sin, eps, interleave, k_pages, v_pages,
-            page_table, start_pos, lengths, int(layer))
+            page_table, start_pos, lengths, int(layer), stage=stage)
     latent = _launch_latent(ckv, weight, cos, sin, eps, interleave, k_pages,
                             v_pages, page_table, start_pos, lengths, None,
-                            int(layer))
+                            int(layer), stage)
     latent_prefill_kv_update_layer.launches += 1
     return latent
 

@@ -501,9 +501,10 @@ def split_partials(q, k_pages, v_pages, page_table, lens, layer: int,
     MP = page_table.shape[1]
     current = k_cur is not None
     sc = attention._attn_scale(D, scale)
-    m = torch.full((B, num_splits, Hq), -math.inf)
-    l = torch.zeros(B, num_splits, Hq)
-    o = torch.zeros(B, num_splits, Hq, D)
+    dev = q.device
+    m = torch.full((B, num_splits, Hq), -math.inf, device=dev)
+    l = torch.zeros(B, num_splits, Hq, device=dev)
+    o = torch.zeros(B, num_splits, Hq, D, device=dev)
     for b in range(B):
         raw = int(lens[b])
         pool_end = min(raw, MP * ps)
@@ -517,7 +518,7 @@ def split_partials(q, k_pages, v_pages, page_table, lens, layer: int,
                 split_bounds(min(lo, ctx), ctx, num_splits, chunk)):
             if k_lo >= k_hi:
                 continue
-            pos = torch.arange(k_lo, k_hi)
+            pos = torch.arange(k_lo, k_hi, device=dev)
             in_pool = pos < pool_end
             pages = page_table[b, (pos // ps).clamp(max=MP - 1)].long()
             k = kp[pages, pos % ps]                      # [n, Hkv, D]
@@ -545,9 +546,10 @@ def combine_partials(m, l, o, sinks: Optional[torch.Tensor] = None):
     e^(m_s - M), O = sum_s o_s e^(m_s - M); then the sinks [Hq] join the
     denominator once. A row whose splits are all empty (and that has no
     sink) gives zeros."""
+    zero = torch.zeros((), device=m.device)
     mx = m.amax(1)                                       # [B, Hq]
     w = torch.where(l > 0, torch.exp(m - mx[:, None].clamp(min=-1e30)),
-                    torch.zeros(()))
+                    zero)
     den = (l * w).sum(1)
     acc = (o * w[..., None]).sum(1)
     if sinks is not None:
@@ -557,8 +559,7 @@ def combine_partials(m, l, o, sinks: Optional[torch.Tensor] = None):
         den = den * corr + torch.exp(sk - m2)
         acc = acc * corr[..., None]
     return torch.where(den[..., None] > 0,
-                       acc / den.clamp(min=1e-30)[..., None],
-                       torch.zeros(()))
+                       acc / den.clamp(min=1e-30)[..., None], zero)
 
 
 def paged_decode_attention_split_plain(q, k_pages, v_pages, page_table,

@@ -65,6 +65,7 @@ import torch
 
 from xllm_service_tpu_torch.config import EngineConfig, ModelConfig
 from xllm_service_tpu_torch.models import transformer
+from xllm_service_tpu_torch.ops.kernels import ragged_attention
 from xllm_service_tpu_torch.ops.sampling import (compute_logprobs,
                                                  sample_tokens)
 from xllm_service_tpu_torch.runtime.kv_cache import PageAllocator
@@ -187,6 +188,13 @@ class Engine:
         # MLA models have no ragged mixed step (as in the JAX engine):
         # their mixed iterations run split.
         self.ragged = bool(engine_cfg.ragged_attn) and not model_cfg.mla
+        if self.ragged:
+            # The ragged kernel's largest bucket, refused here rather
+            # than at the first mixed iteration that reaches it.
+            ragged_attention.check_sizes(
+                _pow2(engine_cfg.max_batch_size),
+                max(engine_cfg.prefill_buckets),
+                model_cfg.num_heads // model_cfg.num_kv_heads)
         self.write_then_attend = resolve_write_then_attend(
             engine_cfg.write_then_attend, self.device)
         # What the last step() did (the JAX engine's step ledger). A
