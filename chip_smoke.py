@@ -76,7 +76,10 @@ Phases (any failure raises and the exit code is not 0):
    and at a long prompt (B = 2 x T = 2048 at q_start 0/2048, page
    tables of 32 pages), in all four argument sets; K4 and K4' are timed
    at the long prompt too (records ``*_long_prompt``, bound by the
-   tensor cores' operations, with their share of the bound).
+   tensor cores' operations, with their share of the bound). K5 is
+   also held at 256 rows (its row table) and at 300 rows (299 decode
+   rows and a 256-token window), which the wrapper cuts into two
+   launches (``ragged_attention.launch_plan``).
 4. Forward: a full-width llama3-1b forward_prefill + forward_decode + a
    ragged forward_prefill through the kernels (bf16 on the GPU), and
    the attend-then-write order (two prefill windows, the second at
@@ -88,6 +91,14 @@ Phases (any failure raises and the exit code is not 0):
    the float32 CPU copy of all 27 would be 63 GB), to the same bound;
    each of its decode forwards must launch K3'' once per layer. Each
    model's largest absolute logit error is kept for phase 5's margins.
+   With each model's weights, one decode forward (B = 8) is captured in
+   a CUDA graph and replayed against the same forward run eagerly, in
+   both orders (``[graph]``: the logits' max abs difference, 0
+   expected, and the kernels the graph launches per replay). With
+   llama3-1b's, two engines with 4-step bursts through graphs, the
+   pipeline on and off, serve two sampled streams and a greedy one
+   admitted mid-run (``[pipeline]``): identical streams, at least one
+   speculation hit and one rollback.
 5. Serving: the worker the CLI builds (``runtime.worker`` with
    --model llama3-1b --page-size 128 --num-pages 512 --max-model-len 1024
    --max-batch-size 8, prefill buckets 128,256,512, 256 prefill tokens
@@ -129,7 +140,25 @@ Phases (any failure raises and the exit code is not 0):
    K3'' (current form) once per layer, every prefill forward the fused
    latent prefill writer once per layer and K7 once, K1-K6 never.
    Profiled as 5d.
+5f. Decode modes, llama3-1b: the worker of phase 5 (write-then-attend,
+   ragged off) serves the same requests with CUDA graphs off
+   (XLLM_CUDA_GRAPHS=0, single steps), on (single steps) and on with
+   --decode-steps 4 (fused bursts and the speculative pipeline), in that
+   order, twice (interleaved rounds, one set of weights). Each worker
+   warms up (captures every decode graph) before serving; with graphs
+   on, every decode step must be a replay of a graph warmup captured.
+   Per mode (``[servef]``): TTFT, decode tokens/s per stream, the
+   profiled stream's idle share, host launches per forward (kernel and
+   graph launches the profiler sees the host issue), device kernels per
+   forward, graphs captured, speculation hits and rollbacks. Greedy
+   streams with graphs on must equal graphs off; where not, the margins
+   rule below decides, and a fault fails.
+5g. The same for DeepSeek-V2-Lite (27 layers).
    Each worker's weights are freed before the next phase.
+   Launch counts: a kernel captured in a CUDA graph counts once per
+   replay (``ops/kernels/_launch.count_replay``), so the per-step checks
+   hold in every mode (a burst step runs N decode forwards, 2N with a
+   speculative burst).
    Margins: each model's phases serve the same weights, so on the live
    engine of 5c (and 5e) the script reads, at each stream's first
    divergent token between phase 5 and 5b, 5 and 5c (5d and 5e), the
@@ -143,7 +172,8 @@ Phases (any failure raises and the exit code is not 0):
    K7, K3', K4' and the dense all-layer mode from 5c, K3'' and the fused
    latent writers from 5d, the current form of K3'' and the latent
    all-layer mode from 5e; a record at another shape takes its kernel's
-   count), the card line, then the last line
+   count; phases 5f/5g and the graph checks go to the ``[summary]``
+   line), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without printing a result when no CUDA device is
@@ -1128,6 +1158,41 @@ class KernelBench:
             f"({lens_list.count(1)} decode rows): all four argument sets "
             f"within {ATTN_TOL}, max abs err {worst}")
 
+    def ragged_attention_rows(self, ra):
+        """K5 past its row table: 300 rows (299 decode rows of 1-255 keys
+        and one 256-token window, T = 256, two-page tables), which the
+        wrapper cuts into two launches (256 + 44 rows), against the plain
+        version of the whole batch, in the four argument sets."""
+        torch = self.torch
+        B, T, MP = 300, 256, 2
+        rng = random.Random(17)
+        lens_list = [T] + [1] * (B - 1)
+        starts = [0] + [rng.randrange(0, MP * self.ps - 1)
+                        for _ in range(B - 1)]
+        pt = torch.randint(1, self.P, (B, MP), generator=self.g,
+                           device=self.dev).to(torch.int32)
+        q = self.randn(B, T, self.Hq, self.D)
+        q_start, lens = self.i32(starts), self.i32(lens_list)
+        valid = (torch.arange(T, device=self.dev)[None, :]
+                 < lens.long()[:, None])
+        plan = ra.launch_plan(B, T, self.Hq // self.Hkv)
+        worst = 0.0
+        for extras in self.arg_sets(self.randn(self.Hq,
+                                               dtype=torch.float32)):
+            args = (q, self.kp, self.vp, pt, q_start, lens, self.layer)
+            n0 = ra.ragged_paged_attention.launches
+            got = ra.ragged_paged_attention(*args, **extras)
+            if ra.ragged_paged_attention.launches - n0 != len(plan) or \
+                    len(plan) != 2:
+                raise AssertionError(f"300 rows in {len(plan)} launches")
+            worst = max(worst, self.close(
+                f"ragged_paged_attention B={B} ({list(extras)})", got,
+                ra.ragged_paged_attention_plain(*args, **extras), valid))
+            del got
+        log(f"[kernel] ragged_paged_attention at B={B} x T={T} (299 decode "
+            f"rows, one {T}-token window) in {len(plan)} launches {plan}: "
+            f"all four argument sets within {ATTN_TOL}, max abs err {worst}")
+
     def _ragged_nbytes(self, starts, lens_list, T, MP):
         """K5's bytes: the live keys' K and V, the valid query rows of q
         and the whole [B, T, Hq, D] output (padding rows are written as
@@ -1795,6 +1860,8 @@ def forward_check(torch, cfg, device) -> float:
             pt.to(device), write_then_attend=False)
         results.append(tuple(x.float().cpu() for x in (
             pre, dec, rag, first, second, aw_dec)))
+    graph = graph_decode_check(torch, params, cfg, "llama3-1b")
+    graph["pipeline"] = pipeline_check(torch, params, cfg, "llama3-1b")
     worst, err = logit_errors(torch, results)
     log(f"[forward] llama3-1b rel L2 (GPU kernels bf16 vs CPU plain fp32): "
         f"write-then-attend prefill/decode/ragged {worst[:3]}, "
@@ -1803,7 +1870,113 @@ def forward_check(torch, cfg, device) -> float:
     if max(worst) > FORWARD_REL_L2:
         raise AssertionError(f"forward logits rel L2 {max(worst)} > "
                              f"{FORWARD_REL_L2}")
-    return max(worst), err
+    return max(worst), err, graph
+
+
+def graph_decode_check(torch, params, cfg, name: str) -> dict:
+    """A decode forward captured in a CUDA graph and replayed, against
+    the same forward run eagerly on the same inputs, in both orders of
+    the KV write (B = 8 rows of 1-411 keys, one inactive, on a pool of
+    random stale values): the logits' max abs difference (the same
+    kernels in the same order: 0 expected), and the hand-written
+    kernels the graph captured, which each replay launches."""
+    from xllm_service_tpu_torch.models import transformer as tf
+    from xllm_service_tpu_torch.ops.kernels import _launch
+    dev = torch.device("cuda")
+    B, MP, ps = 8, 4, 128
+    g = torch.Generator(device=dev).manual_seed(13)
+    kv = tf.init_kv_cache(cfg, 1 + B * MP, ps, dev)
+    for pool in kv:
+        pool.normal_(generator=g)
+    table = torch.arange(1, 1 + B * MP, dtype=torch.int32,
+                         device=dev).reshape(B, MP)
+    positions = torch.tensor([117, 240, 411, 5, 300, 0, 128, 77],
+                             dtype=torch.int32, device=dev)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    active[3] = False
+    tokens = torch.randint(3, 259, (B,), generator=g, device=dev)
+    out = {}
+    for wta in (True, False):
+        order = "write_then_attend" if wta else "attend_then_write"
+        eager, _ = tf.forward_decode(params, cfg, tokens, positions, active,
+                                     kv, table, write_then_attend=wta)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            tf.forward_decode(params, cfg, tokens, positions, active, kv,
+                              table, write_then_attend=wta)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with _launch.capture_tally() as tally:
+            with torch.cuda.graph(graph):
+                static, _ = tf.forward_decode(params, cfg, tokens, positions,
+                                              active, kv, table,
+                                              write_then_attend=wta)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(static[active]).all()):
+            raise AssertionError(f"{name} graph logits not finite")
+        diff = float((static.float() - eager.float()).abs().max())
+        rel = float((static.float() - eager.float()).norm()
+                    / eager.float().norm())
+        if rel > FORWARD_REL_L2:
+            raise AssertionError(f"{name} {order}: graph vs eager rel L2 "
+                                 f"{rel}")
+        out[order] = {"max_abs_diff": diff, "rel_l2": rel,
+                      "kernels_per_replay": {w.__name__: n
+                                             for w, n in tally.items()}}
+        del graph, static
+    log(f"[graph] {name}: a captured decode forward replayed vs the same "
+        f"forward eager: {json.dumps(out)}")
+    return out
+
+
+def pipeline_check(torch, params, cfg, name: str) -> dict:
+    """The speculative pipeline on the card: two engines on the same
+    weights, 4-step bursts through graphs with the pipeline on and off,
+    serve two sampled streams (temperature 1, top-p 0.9) and, admitted
+    mid-run, a greedy one, whose admission (prefill-first routing)
+    rolls an in-flight burst back.
+    The streams must be identical (the generator's state is restored on
+    a rollback), with at least one speculation hit and one rollback."""
+    from xllm_service_tpu_torch.config import EngineConfig
+    from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
+    from xllm_service_tpu_torch.utils.types import SamplingParams
+    rng = random.Random(19)
+    prompts = [[rng.randrange(3, 259) for _ in range(n)] for n in (90, 60, 40)]
+    runs = []
+    for pipeline in (True, False):
+        eng = Engine(cfg, EngineConfig(
+            page_size=128, num_pages=64, max_model_len=1024,
+            max_batch_size=8, max_prefill_tokens=256,
+            prefill_buckets=(128, 256), decode_steps=4,
+            decode_pipeline=pipeline, cuda_graphs=True,
+            interleave=False),
+            params=params, device="cuda", seed=3)
+        eng.warmup()
+        for i in range(2):
+            eng.add_request(EngineRequest(f"s{i}", prompts[i], SamplingParams(
+                max_tokens=24, temperature=1.0, top_p=0.9,
+                ignore_eos=True)))
+        streams, step = {}, 0
+        while eng.has_work():
+            step += 1
+            if step == 4:
+                eng.add_request(EngineRequest("g", prompts[2], SamplingParams(
+                    max_tokens=10, temperature=0.0, ignore_eos=True)))
+            for o in eng.step():
+                streams.setdefault(o.request_id, []).extend(o.new_token_ids)
+        runs.append((streams, eng.overlap_metrics(), eng.capture_report()))
+        del eng
+    (on, om, cap), (off, _, _) = runs
+    out = {"equal": on == off, "overlap": om,
+           "replays": cap["replays"], "eager_steps": cap["eager_steps"]}
+    log(f"[pipeline] {name}: sampled streams, pipeline on vs off: "
+        f"{json.dumps(out)}")
+    if on != off or om["spec_rollbacks"] < 1 or om["spec_hits"] < 1 or \
+            cap["eager_steps"] or cap["captures_after_warmup"]:
+        raise AssertionError(f"{name} pipeline check: {out}, {cap}")
+    return out
 
 
 def logit_errors(torch, results):
@@ -1898,6 +2071,8 @@ def mla_forward_check(torch, kernels, cfg, device) -> float:
         results.append(tuple(x.float().cpu() for x in (
             pre, dec, first, second, aw_dec)))
         del kv
+    graph = graph_decode_check(torch, params, cfg,
+                               f"deepseek-v2-lite ({L} layers)")
     del params, cpu_params
     rels, err = logit_errors(torch, results)
     log(f"[forward] deepseek-v2-lite ({L} layers) rel L2 (GPU kernels bf16 "
@@ -1907,7 +2082,7 @@ def mla_forward_check(torch, kernels, cfg, device) -> float:
     if max(rels) > FORWARD_REL_L2:
         raise AssertionError(f"MLA forward logits rel L2 {max(rels)} > "
                              f"{FORWARD_REL_L2}")
-    return max(rels), err
+    return max(rels), err, graph
 
 
 def free_device_memory(torch) -> None:
@@ -1971,9 +2146,12 @@ def profile_request(torch, addr: str, body: dict) -> dict:
         torch.cuda.synchronize()
     if res.get("status") != 200:
         raise AssertionError(f"profiled request failed: {res}")
-    rows = []
+    rows, host_launches = [], 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            # What the host issued: kernel launches and graph launches.
+            if e.key in HOST_LAUNCH_CALLS:
+                host_launches += e.count
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -2005,10 +2183,17 @@ def profile_request(torch, addr: str, body: dict) -> dict:
            "elementwise_device_ms": elementwise,
            "cat_copy_device_ms": copies,
            "kernel_launches": sum(r[1] for r in rows),
+           "host_launches": host_launches,
            "top": [{"ms": ms, "count": n, "name": k[:90]}
                    for ms, n, k in rows[:14]]}
     log(f"[profile] {json.dumps(out)}")
     return out
+
+
+# Runtime calls by which the host issues device work: a kernel, or a
+# whole CUDA graph.
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch")
 
 
 class StepLog:
@@ -2028,6 +2213,7 @@ class StepLog:
 
         def step():
             before = kernels.launch_counts()
+            runs0 = (engine.graphs.launches, engine.graphs.forwards)
             t0 = time.perf_counter()
             outs = inner()
             ms = (time.perf_counter() - t0) * 1e3
@@ -2036,6 +2222,10 @@ class StepLog:
                 "kind": engine.last_step_kind,
                 "ragged": engine.last_step_ragged,
                 "forwards": engine.last_step_attn_dispatches, "ms": ms,
+                # Decode dispatches (graph replays or eager steps) and
+                # the forwards they ran (N a burst).
+                "decode_dispatches": engine.graphs.launches - runs0[0],
+                "decode_forwards": engine.graphs.forwards - runs0[1],
                 "launches": {k: after[k] - before[k] for k in after}})
             for o in outs:
                 self.tokens.setdefault(o.num_prompt_tokens, []).extend(
@@ -2070,12 +2260,14 @@ UNFUSED_WRITERS = ("paged_kv_update_layer", "paged_prefill_kv_update_layer",
 def step_launches_wanted(row, layers: int, mla: bool,
                          write_then_attend: bool) -> dict:
     """The hand-written launches one step must make: one ragged forward
-    (the fused prefill writer and the ragged kernel once per layer), or a
-    decode forward and/or a prefill forward (a split mixed step runs
+    (the fused prefill writer and the ragged kernel once per layer), or
+    decode forwards (one a single step, N a fused burst, 2N with a
+    speculative burst) and/or a prefill forward (a split mixed step runs
     both), each with its fused writer once per layer, in either order;
     an attend-then-write decode forward's last layer takes the writer's
-    all-layer mode (K6 folded in), a prefill forward adds K7."""
-    dec = int(row["kind"] in ("decode", "mixed"))
+    all-layer mode (K6 folded in), a prefill forward adds K7. A kernel
+    in a CUDA graph counts once per replay (``_launch.count_replay``)."""
+    dec = row["decode_forwards"]
     pre = int(row["kind"] in ("prefill", "mixed"))
     want = {k: 0 for k in row["launches"]}
     if row["ragged"]:
@@ -2108,26 +2300,35 @@ def step_launches_wanted(row, layers: int, mla: bool,
 
 def serve(torch, kernels, model: str, device: str, ragged: bool,
           write_then_attend: bool = True, tag: str = "",
-          on_engine=None) -> dict:
+          on_engine=None, graphs: bool = True, decode_steps: int = 1,
+          params=None, keep_params: bool = False) -> dict:
     """Phase 5 (ragged off), 5b (ragged on), 5c (attend-then-write), 5d
-    and 5e (DeepSeek-V2-Lite in either order): 4 concurrent requests
-    through the worker; checks the replies and which kernels ran.
-    ``on_engine(engine, tokens)``, if given, runs on the live engine once
-    the requests are served (``tokens``: each request's, by prompt
-    length); its result is ``out["on_engine"]``."""
+    and 5e (DeepSeek-V2-Lite in either order), and each mode of 5f/5g:
+    4 concurrent requests through the worker (which captures its decode
+    graphs before serving, unless ``graphs`` is off); checks the replies
+    and which kernels ran. ``decode_steps``: the worker's
+    --decode-steps. ``params``: weights to serve (default: random from
+    the engine's seed); ``keep_params`` returns them as
+    ``out["params"]``. ``on_engine(engine, tokens)``, if given, runs on
+    the live engine once the requests are served (``tokens``: each
+    request's, by prompt length); its result is ``out["on_engine"]``."""
     from xllm_service_tpu_torch.runtime import worker
     args = worker.parse_args([
         "--model", model, "--device", device,
         "--page-size", "128", "--num-pages", "512",
         "--max-model-len", "1024", "--max-batch-size", "8",
-        "--prefill-buckets", "128,256,512", "--max-prefill-tokens", "256"])
+        "--prefill-buckets", "128,256,512", "--max-prefill-tokens", "256",
+        "--decode-steps", str(decode_steps)])
     # The engine reads the switches once, when its config is built.
     env = {"XLLM_RAGGED_ATTN": "1" if ragged else "0",
-           "XLLM_WRITE_THEN_ATTEND": "1" if write_then_attend else "0"}
+           "XLLM_WRITE_THEN_ATTEND": "1" if write_then_attend else "0",
+           "XLLM_CUDA_GRAPHS": "1" if graphs else "0"}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        w = worker.build_worker(args).start()
+        t_build = time.perf_counter()
+        w = worker.build_worker(args, params=params).start()
+        build_s = time.perf_counter() - t_build
     finally:
         for k, v in saved.items():
             if v is None:
@@ -2188,19 +2389,27 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
         ragged_steps = w.engine.ragged_steps - ragged0
         rows = list(steplog.rows)
         tokens = {n: list(t) for n, t in steplog.tokens.items()}
+        capture = w.engine.capture_report()
+        overlap = w.engine.overlap_metrics()
         prof = None
         if not ragged:
             n0 = len(steplog.rows)
             prof = profile_request(torch, w.name, bodies[0])
-            fwd = sum(r["forwards"] for r in steplog.rows[n0:])
+            # Forward passes: decode forwards (N a burst) and prefill
+            # forwards.
+            fwd = sum(r["decode_forwards"] + int(r["kind"] in (
+                "prefill", "mixed")) for r in steplog.rows[n0:])
             prof["forwards"] = fwd
             prof["kernel_launches_per_forward"] = (
                 prof["kernel_launches"] / fwd if fwd else None)
+            prof["host_launches_per_forward"] = (
+                prof["host_launches"] / fwd if fwd else None)
         prompts = dict(steplog.prompts)
         on_engine_out = on_engine(w.engine, tokens) if on_engine else None
     finally:
         w.stop()
     engine_ragged, engine_wta = w.engine.ragged, w.engine.write_then_attend
+    kept = w.engine.params if keep_params else None
     del w, steplog
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     ttfts, decode_rates, total_tokens = [], [], 0
@@ -2213,8 +2422,10 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
                 raise AssertionError(f"stream did not end in [DONE]: "
                                      f"{frames[-2:]}")
             objs = [json.loads(f[len("data: "):]) for f in frames[:-1]]
+            # A frame carries one token, or a fused burst's tokens.
             tok_t = [r["times"][i] for i, o in enumerate(objs)
-                     if o["choices"] and o["choices"][0].get("logprobs")]
+                     if o["choices"] and o["choices"][0].get("logprobs")
+                     for _ in o["choices"][0]["logprobs"]["content"]]
             usage = objs[-1]["usage"]
             if usage["completion_tokens"] != 32 or len(tok_t) != 32:
                 raise AssertionError(f"stream usage {usage}, "
@@ -2232,6 +2443,14 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
         raise AssertionError(
             f"engine.ragged={engine_ragged}, write_then_attend="
             f"{engine_wta}; want {ragged}, {write_then_attend}")
+    # Graphs on: every decode step a replay of a graph warmup captured;
+    # off: none.
+    if graphs and (capture["replays"] == 0 or capture["eager_steps"]
+                   or capture["captures_after_warmup"]):
+        raise AssertionError(f"decode did not run through the warmed-up "
+                             f"graphs: {capture}")
+    if not graphs and capture["replays"]:
+        raise AssertionError(f"graphs replayed with graphs off: {capture}")
     # Every step exactly (step_launches_wanted): the fused writer once per
     # layer per forward, in every path; write-then-attend, K3 x layers per
     # decode forward and K4 x layers per prefill forward, or one ragged
@@ -2246,9 +2465,8 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
         if ragged and row["kind"] == "mixed" and not row["ragged"]:
             raise AssertionError(f"a mixed iteration ran split: {row}")
         want = step_launches_wanted(row, layers, mla, write_then_attend)
-        dec = int(row["kind"] in ("decode", "mixed"))
         pre = int(row["kind"] in ("prefill", "mixed"))
-        forwards = 1 if row["ragged"] else dec + pre
+        forwards = 1 if row["ragged"] else row["decode_dispatches"] + pre
         if row["launches"] != want or row["forwards"] != forwards:
             raise AssertionError(f"step launches: {row}, want {want}")
         need |= {k for k, n in want.items() if n}
@@ -2288,10 +2506,14 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
            "prefill_step_ms_median": _median(
                [r["ms"] for r in rows if r["kind"] == "prefill"]),
            "max_memory_allocated_gib": peak_gb,
+           "worker_build_s": build_s,
+           "decode_steps": decode_steps, "capture": capture,
+           "overlap": overlap,
            "profile": prof}
     log(f"[serve{tag}] {json.dumps(out)}")
     out["tokens"], out["prompts"] = tokens, prompts
     out["on_engine"] = on_engine_out
+    out["params"] = kept
     return out
 
 
@@ -2357,6 +2579,97 @@ def divergence_margins(torch, engine, pairs, err, cpu_params=None):
     return out
 
 
+# Phases 5f/5g: the decode modes, in the order each round serves them.
+DECODE_MODES = (("graphs_off", False, 1), ("graphs_n1", True, 1),
+                ("graphs_n4", True, 4))
+
+
+def decode_mode_rounds(torch, kernels, model: str, tag: str, err: float,
+                       card: str, rounds: int = 2, cpu_params=None) -> dict:
+    """Phase 5f (llama3-1b) / 5g (DeepSeek-V2-Lite): the same 4 requests
+    served (write-then-attend, ragged off) with graphs off (single
+    steps), graphs on (single steps) and graphs on with 4-step bursts and
+    the pipeline, in interleaved rounds, all on the same weights. Per
+    mode: TTFT, decode tokens/s per stream, the profiled idle share, host
+    launches and device kernels per forward, graphs captured, speculation
+    hits and rollbacks. Greedy streams with graphs on must equal graphs
+    off token for token; where they do not, the margins rule
+    (``divergence_margins``) decides drift or fault, and a fault fails."""
+    import types
+    params, runs = None, {name: [] for name, _, _ in DECODE_MODES}
+    margins, same = [], {name: [] for name, _, _ in DECODE_MODES[1:]}
+    by_round = []
+    for r in range(rounds):
+        tokens = {}
+        by_round.append(tokens)
+        for name, graphs, steps in DECODE_MODES:
+            out = serve(torch, kernels, model, "cuda", ragged=False,
+                        tag=f"{tag}:{name}:{r}", graphs=graphs,
+                        decode_steps=steps, params=params, keep_params=True)
+            params = out.pop("params")
+            tokens[name] = out.pop("tokens")
+            prompts = out.pop("prompts")
+            out.pop("on_engine")
+            runs[name].append(out)
+            free_device_memory(torch)
+        cfg = None
+        for name in same:
+            same[name].append(tokens[name] == tokens["graphs_off"])
+            if same[name][-1]:
+                continue
+            if cfg is None:
+                from xllm_service_tpu_torch.runtime.worker import \
+                    resolve_model_config
+                cfg = resolve_model_config(model)
+            path = {"ragged": False, "write_then_attend": True}
+            margins += divergence_margins(
+                torch, types.SimpleNamespace(
+                    params=params, cfg=cfg, device=torch.device("cuda")),
+                [(f"{name}_round{r}", tokens["graphs_off"], path,
+                  tokens[name], path, prompts)], err, cpu_params)
+    del params
+    free_device_memory(torch)
+    faults = [m for m in margins if m["verdict"] == "fault"]
+    table = {}
+    for name, _, steps in DECODE_MODES:
+        rs = runs[name]
+        table[name] = {
+            "decode_steps": steps,
+            "ttft_ms": [x["ttft_ms_streams"] for x in rs],
+            "decode_tokens_per_s_per_stream":
+                [x["decode_tokens_per_s_streams"] for x in rs],
+            "idle_share": [x["profile"]["idle_share"] for x in rs],
+            "host_launches_per_forward":
+                [x["profile"]["host_launches_per_forward"] for x in rs],
+            "device_kernels_per_forward":
+                [x["profile"]["kernel_launches_per_forward"] for x in rs],
+            "device_busy_ms": [x["profile"]["device_busy_ms"] for x in rs],
+            "graphs_captured": [x["capture"]["captured"] for x in rs],
+            "captures_after_warmup":
+                [x["capture"]["captures_after_warmup"] for x in rs],
+            "spec_hits": [x["overlap"]["spec_hits"] for x in rs],
+            "spec_rollbacks": [x["overlap"]["spec_rollbacks"] for x in rs],
+            "decode_step_ms_median":
+                [x["decode_step_ms_median"] for x in rs],
+            "worker_build_s": [x["worker_build_s"] for x in rs]}
+        log(f"[serve{tag}] {card}: {model} {name}: "
+            f"{json.dumps(table[name])}")
+    # A mode's streams across rounds: where they differ, the batches the
+    # requests met (the requests' arrival against the steps) moved them.
+    stable = {name: all(t[name] == by_round[0][name] for t in by_round[1:])
+              for name, _, _ in DECODE_MODES}
+    log(f"[serve{tag}] {card}: {model} greedy streams equal to graphs off, "
+        f"by round: {json.dumps(same)}; each mode's equal across rounds: "
+        f"{json.dumps(stable)}")
+    log(f"[margins] {card}: {model} graphs on vs off: {json.dumps(margins)}")
+    if faults:
+        raise AssertionError(f"{model}: greedy streams with graphs on "
+                             f"diverge from graphs off past the margin "
+                             f"rule: {faults}")
+    return {"modes": table, "equal_to_graphs_off": same,
+            "equal_across_rounds": stable, "margins": margins}
+
+
 def _median(xs):
     xs = sorted(xs)
     return xs[len(xs) // 2] if xs else None
@@ -2419,6 +2732,7 @@ def main() -> int:
     bench.ragged_attention_long(ragged_attention, paged_attention,
                                 prefill_attention, attention)
     bench.ragged_attention_wide(ragged_attention)
+    bench.ragged_attention_rows(ragged_attention)
     bench.all_layer_writers(kv_update, cfg.num_layers, cfg.num_kv_heads,
                             cfg.head_dim, record=True)
     bench.all_layer_writers(kv_update, 4, 1, 576, record=False)  # MLA row
@@ -2440,9 +2754,9 @@ def main() -> int:
     free_device_memory(torch)
 
     # 4. Forward pass: llama3-1b, then DeepSeek-V2-Lite cut to 4 layers.
-    rel, err = forward_check(torch, cfg, "cuda")
+    rel, err, graph = forward_check(torch, cfg, "cuda")
     free_device_memory(torch)
-    rel_mla, err_mla = mla_forward_check(
+    rel_mla, err_mla, graph_mla = mla_forward_check(
         torch, kernels, dataclasses.replace(mla_cfg, num_layers=4), "cuda")
     free_device_memory(torch)
 
@@ -2550,10 +2864,16 @@ def main() -> int:
         f"5e {p5e['elementwise_device_ms']}; cat/copy device ms 5 "
         f"{p5['cat_copy_device_ms']}, 5c {p5c['cat_copy_device_ms']}, 5d "
         f"{p5d['cat_copy_device_ms']}, 5e {p5e['cat_copy_device_ms']}")
+    # 5f/5g. The decode modes in interleaved rounds.
+    served_f = decode_mode_rounds(torch, kernels, "llama3-1b", "f", err,
+                                  card)
+    served_g = decode_mode_rounds(torch, kernels, "deepseek-v2-lite", "g",
+                                  err_mla, card)
     margins = served_c["on_engine"] + served_e["on_engine"]
     for phase in (served, served_b, served_c, served_d, served_e):
         phase.pop("prompts")
         phase.pop("on_engine")
+        phase.pop("params")
     log(f"[margins] {card}: top-2 logit margin at each stream's first "
         f"divergent token between served paths (limit: 10 x phase 4's "
         f"largest logit error, llama3-1b {err}, deepseek-v2-lite "
@@ -2578,6 +2898,10 @@ def main() -> int:
                "serve_attend_then_write": served_c,
                "serve_deepseek": served_d,
                "serve_deepseek_attend_then_write": served_e,
+               "serve_decode_modes": served_f,
+               "serve_deepseek_decode_modes": served_g,
+               "graph_decode_check": {"llama3-1b": graph,
+                                      "deepseek-v2-lite": graph_mla},
                "equal_token_share": same,
                "seconds": time.perf_counter() - t_start}
     log(f"[summary] {json.dumps(summary)}")

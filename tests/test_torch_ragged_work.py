@@ -344,21 +344,111 @@ def test_bucket_sizes_the_kernel_holds(B, T, G, ok):
             ra.check_sizes(B, T, G)
 
 
-@pytest.mark.parametrize("max_batch_size, ok", [(256, True), (257, False)])
-def test_engine_refuses_a_ragged_bucket_too_large_at_start(max_batch_size,
-                                                          ok):
-    """With the ragged step on, an engine whose largest bucket the
-    kernel cannot hold (257 slots pad to 512 rows) is refused when it is
-    built, not at its first mixed iteration; with it off, it is built."""
+# (B, T, group): one launch, rows cut, positions cut, both.
+PLANS = [(8, 256, 2), (256, 4096, 1), (300, 256, 2), (257, 4096 + 8, 16),
+         (520, 9000, 8), (1, 70000, 1)]
+
+
+@pytest.mark.parametrize("B, T, G", PLANS)
+def test_launch_plan_covers_every_row_and_tile_once(B, T, G):
+    """The wrapper's cut of a ragged batch (a pure function of B, T and
+    the group): every (row, position) in exactly one launch, each launch
+    within the row table (``check_sizes``), position slices on query
+    tile bounds, and one launch where the table holds the batch."""
+    plan = ra.launch_plan(B, T, G)
+    seen = np.zeros((B, T), np.int32)
+    for b0, b1, t0, t1 in plan:
+        ra.check_sizes(b1 - b0, t1 - t0, G)
+        assert t0 % query_tile(G) == 0 and b0 < b1 and t0 < t1
+        seen[b0:b1, t0:t1] += 1
+    assert (seen == 1).all()
+    fits = B <= 256 and -(-T // query_tile(G)) <= 512
+    assert (len(plan) == 1) == fits
+
+
+@pytest.mark.parametrize("case", ["plain", "window", "sinks"])
+@pytest.mark.parametrize("batch", sorted(BATCHES))
+def test_plain_run_by_the_plan_equals_it_run_whole(monkeypatch, batch, case):
+    """Rows and query positions are independent: the plain version run
+    launch by launch (rows in chunks of 3, positions in slices of 2
+    tiles of 4, each slice a window at a shifted start) equals it run
+    whole, at the whole batch's split count."""
+    monkeypatch.setattr(ra, "_MAX_ROWS", 3)
+    monkeypatch.setattr(ra, "_MAX_RANKS", 2)
+    monkeypatch.setattr(ra, "query_tile", lambda group: 4)
+    x = _inputs(batch, G=2)
+    kw = dict(CASES[case])
+    sinks = _t(x["sinks"]) if kw.pop("sinks", False) else None
+    q, kp, vp, pt, qs, lens = (_t(x[k]) for k in (
+        "q", "kp", "vp", "pt", "q_start", "lens"))
+    assert len(ra.launch_plan(q.shape[0], q.shape[1], 2)) == 4
+    for layer in range(L):
+        def plain(q, pt, qs, lens):
+            return ra.ragged_paged_attention_plain(
+                q, kp, vp, pt, qs, lens, layer, sinks=sinks, num_splits=3,
+                chunk=CHUNK, **kw)
+
+        def launch(q, pt, qs, lens, out):
+            out.copy_(plain(q, pt, qs, lens))
+        whole = plain(q, pt, qs, lens)
+        np.testing.assert_allclose(
+            ra.run_plan(launch, q, pt, qs, lens, 2).numpy(), whole.numpy(),
+            **TOL)
+
+
+def test_engine_at_257_slots_serves_a_ragged_mix_as_jax():
+    """257 slots (a largest ragged bucket of 512 rows, two launches of
+    the kernel's row table): the engine is built with the ragged step on
+    and serves mixed iterations with the JAX engine's streams and
+    per-step ledger."""
+    import dataclasses
+    import jax
+    from xllm_service_tpu.config import EngineConfig as JaxEngineConfig
+    from xllm_service_tpu.config import ModelConfig as JaxModelConfig
+    from xllm_service_tpu.models import transformer as jtf
+    from xllm_service_tpu.runtime.engine import Engine as JaxEngine
+    from xllm_service_tpu.runtime.engine import EngineRequest as JaxRequest
+    from xllm_service_tpu.utils.types import SamplingParams as JaxSampling
     from xllm_service_tpu_torch.config import EngineConfig, ModelConfig
-    from xllm_service_tpu_torch.runtime.engine import Engine
-    cfg = ModelConfig.tiny()
-    build = lambda ragged: Engine(  # noqa: E731
-        cfg, EngineConfig(max_batch_size=max_batch_size, num_pages=16,
-                          page_size=8, ragged_attn=ragged), device="cpu")
-    build(False)
-    if ok:
-        assert build(True).ragged
-    else:
-        with pytest.raises(ValueError, match="rows"):
-            build(True)
+    from xllm_service_tpu_torch.models.weights import params_from_jax
+    from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
+    from xllm_service_tpu_torch.utils.types import SamplingParams
+    jcfg = dataclasses.replace(JaxModelConfig.tiny(vocab_size=128),
+                               dtype="float32")
+    tcfg = dataclasses.replace(ModelConfig.tiny(vocab_size=128),
+                               dtype="float32")
+    jparams = jtf.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                              tcfg, "cpu")
+    kw = dict(page_size=8, num_pages=64, max_model_len=128,
+              max_batch_size=257, max_prefill_tokens=32,
+              prefill_buckets=(8, 16, 32), ragged_attn=True)
+    rng = np.random.default_rng(5)
+    feed = {1: [rng.integers(3, 128, size=11).tolist()],
+            3: [rng.integers(3, 128, size=26).tolist(),
+                rng.integers(3, 128, size=5).tolist()]}
+    runs = []
+    for engine, request, sampling in (
+            (JaxEngine(jcfg, JaxEngineConfig(**kw, decode_steps=1,
+                                             enable_prefix_cache=False),
+                       params=jparams), JaxRequest, JaxSampling),
+            (Engine(tcfg, EngineConfig(**kw), params=tparams,
+                    device="cpu"), EngineRequest, SamplingParams)):
+        streams, ledger, step, i = {}, [], 0, 0
+        while engine.has_work() or step < max(feed):
+            step += 1
+            for prompt in feed.get(step, []):
+                engine.add_request(request(f"r{i}", prompt, sampling(
+                    max_tokens=6, temperature=0.0, ignore_eos=True)))
+                i += 1
+            for o in engine.step():
+                streams.setdefault(o.request_id, []).extend(o.new_token_ids)
+            ledger.append((engine.last_step_kind, engine.last_step_ragged,
+                           tuple(engine.last_step_prefill_windows),
+                           engine.last_step_decode_tokens,
+                           engine.last_step_attn_dispatches))
+            assert step < 100
+        runs.append((streams, ledger))
+    assert runs[0] == runs[1]
+    assert any(ragged for _, ragged, *_ in runs[1][1])
+    assert all(len(t) == 6 for t in runs[1][0].values())

@@ -689,6 +689,27 @@ class EngineConfig:
     # switch). The ragged mixed step always writes first. Env
     # XLLM_WRITE_THEN_ATTEND=0/1 overrides.
     write_then_attend: Optional[bool] = None
+    # Decode steps fused into one dispatch (one CUDA graph replay): the
+    # N forwards feed each sampled token and position forward on the
+    # device, and only the [N, B] tokens and logprobs cross to the host.
+    # Finish detection runs on the host afterwards; tokens sampled past
+    # a stop are discarded.
+    decode_steps: int = 1
+    # Pipelined decode: after dispatching fused burst k, start its
+    # device-to-host copy and, while the batch still matches, dispatch
+    # burst k+1 from the device-resident carries before reading burst k
+    # back, so the host post overlaps the next burst's device work. A
+    # wrong speculation is discarded (the generator's state restored)
+    # and re-dispatched from host truth; token streams are identical
+    # either way. None = on when decode_steps > 1. Env
+    # XLLM_DECODE_PIPELINE=0/1 overrides.
+    decode_pipeline: Optional[bool] = None
+    # Decode steps through CUDA graphs captured per (table width, steps,
+    # sampling mode), the counterpart of the JAX engine's jitted decode
+    # programs. None = on for a CUDA engine, off on the CPU (where the
+    # same runner calls the step eagerly). Env XLLM_CUDA_GRAPHS=0/1
+    # overrides.
+    cuda_graphs: Optional[bool] = None
 
     def __post_init__(self) -> None:
         if self.max_model_len % self.page_size != 0:
@@ -708,6 +729,12 @@ class EngineConfig:
         flag = _env_flag("XLLM_WRITE_THEN_ATTEND")
         if flag is not None:
             self.write_then_attend = flag
+        flag = _env_flag("XLLM_DECODE_PIPELINE")
+        if flag is not None:
+            self.decode_pipeline = flag
+        flag = _env_flag("XLLM_CUDA_GRAPHS")
+        if flag is not None:
+            self.cuda_graphs = flag
         env = os.environ.get("XLLM_STEP_TOKEN_BUDGET", "").strip()
         if env:
             try:

@@ -6,7 +6,9 @@ Each wrapper checks its arguments, then:
   ``*_plain`` function of the same module);
 - for CUDA tensors, launches the kernel (built from ``csrc/`` at first
   use by ``_build``) on the current stream, adds one to its ``launches``
-  count, and raises if the launch failed. There is no fallback.
+  count, and raises if the launch failed. There is no fallback. Called
+  while a CUDA graph is captured, it adds the kernel to the graph, and
+  each replay of the graph counts it (``_launch.count_launch``).
 
 The kernels replace the Pallas kernels of the JAX package that the
 serving path launches in both orderings of the KV write: write-then-

@@ -2,8 +2,9 @@
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import torch
 
@@ -49,6 +50,39 @@ def raise_on_error(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
+
+
+# A wrapper called while its stream is captured into a CUDA graph does
+# not launch its kernel: the graph does, at every replay. Such calls are
+# tallied for the graph being captured (``capture_tally``), and each
+# replay adds the tally to the wrappers' counts (``count_replay``), so a
+# count is the kernel's launches on the device either way.
+_tally: Optional[Dict[Callable, int]] = None
+
+
+def count_launch(wrapper: Callable) -> None:
+    """One launch of ``wrapper``'s kernel, or one captured node."""
+    if torch.cuda.is_current_stream_capturing():
+        if _tally is not None:
+            _tally[wrapper] = _tally.get(wrapper, 0) + 1
+        return
+    wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def capture_tally() -> Iterator[Dict[Callable, int]]:
+    """The kernels captured inside the block, by wrapper."""
+    global _tally
+    saved, _tally = _tally, {}
+    try:
+        yield _tally
+    finally:
+        _tally = saved
+
+
+def count_replay(tally: Dict[Callable, int]) -> None:
+    for wrapper, n in tally.items():
+        wrapper.launches += n
 
 
 P = ctypes.c_void_p

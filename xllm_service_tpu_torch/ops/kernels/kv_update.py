@@ -57,7 +57,8 @@ import torch
 from xllm_service_tpu_torch.ops import attention, rope
 from xllm_service_tpu_torch.ops.kernels import _build
 from xllm_service_tpu_torch.ops.kernels._launch import (
-    F, I, P, check, on_cuda, ptr, raise_on_error, require, stream)
+    F, I, P, check, count_launch, on_cuda, ptr, raise_on_error, require,
+    stream)
 from xllm_service_tpu_torch.ops.norm import rms_norm
 
 _lib = None
@@ -168,7 +169,7 @@ def paged_kv_update_layer(k_pages: torch.Tensor, v_pages: torch.Tensor,
                                            int(layer))
     _launch(k_pages, v_pages, k_new, v_new, page_table, positions, None,
             active, int(layer), 1)
-    paged_kv_update_layer.launches += 1
+    count_launch(paged_kv_update_layer)
     return k_pages, v_pages
 
 
@@ -211,7 +212,7 @@ def paged_prefill_kv_update_layer(k_pages: torch.Tensor,
             int(layer))
     _launch(k_pages, v_pages, k_new, v_new, page_table, start_pos, lengths,
             None, int(layer), T)
-    paged_prefill_kv_update_layer.launches += 1
+    count_launch(paged_prefill_kv_update_layer)
     return k_pages, v_pages
 
 
@@ -251,7 +252,7 @@ def paged_kv_update(k_pages: torch.Tensor, v_pages: torch.Tensor,
                                      page_table, positions, active)
     _launch_all_layers(k_pages, v_pages, k_new, v_new, page_table,
                        positions, None, active, 1)
-    paged_kv_update.launches += 1
+    count_launch(paged_kv_update)
     return k_pages, v_pages
 
 
@@ -290,7 +291,7 @@ def paged_prefill_kv_update(k_pages: torch.Tensor, v_pages: torch.Tensor,
             k_pages, v_pages, k_new, v_new, page_table, start_pos, lengths)
     _launch_all_layers(k_pages, v_pages, k_new, v_new, page_table,
                        start_pos, lengths, None, T)
-    paged_prefill_kv_update.launches += 1
+    count_launch(paged_prefill_kv_update)
     return k_pages, v_pages
 
 
@@ -441,7 +442,7 @@ def rope_kv_update_layer(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             active, int(layer), k_stage=k_stage, v_stage=v_stage)
     _launch_rope(q, k, v, cos, sin, k_pages, v_pages, page_table, positions,
                  None, active, int(layer), k_stage, v_stage)
-    rope_kv_update_layer.launches += 1
+    count_launch(rope_kv_update_layer)
     return q, k
 
 
@@ -514,7 +515,7 @@ def rope_kv_update_all_layers(q: torch.Tensor, k: torch.Tensor,
             active, int(layer), k_stage, v_stage)
     _launch_rope(q, k, v, cos, sin, k_pages, v_pages, page_table, positions,
                  None, active, int(layer), k_stage, v_stage, all_layers=True)
-    rope_kv_update_all_layers.launches += 1
+    count_launch(rope_kv_update_all_layers)
     return q, k
 
 
@@ -582,7 +583,7 @@ def rope_prefill_kv_update_layer(q: torch.Tensor, k: torch.Tensor,
             lengths, int(layer), k_stage=k_stage, v_stage=v_stage)
     _launch_rope(q, k, v, cos, sin, k_pages, v_pages, page_table, start_pos,
                  lengths, None, int(layer), k_stage, v_stage)
-    rope_prefill_kv_update_layer.launches += 1
+    count_launch(rope_prefill_kv_update_layer)
     return q, k
 
 
@@ -711,7 +712,7 @@ def latent_kv_update_layer(ckv: torch.Tensor, weight: torch.Tensor,
     latent = _launch_latent(ckv, weight, cos, sin, eps, interleave, k_pages,
                             v_pages, page_table, positions, None, active,
                             int(layer), stage)
-    latent_kv_update_layer.launches += 1
+    count_launch(latent_kv_update_layer)
     return latent
 
 
@@ -762,7 +763,7 @@ def latent_kv_update_all_layers(ckv: torch.Tensor, weight: torch.Tensor,
     latent = _launch_latent(ckv, weight, cos, sin, eps, interleave, k_pages,
                             v_pages, page_table, positions, None, active,
                             int(layer), stage, all_layers=True)
-    latent_kv_update_all_layers.launches += 1
+    count_launch(latent_kv_update_all_layers)
     return latent
 
 
@@ -826,7 +827,7 @@ def latent_prefill_kv_update_layer(ckv: torch.Tensor, weight: torch.Tensor,
     latent = _launch_latent(ckv, weight, cos, sin, eps, interleave, k_pages,
                             v_pages, page_table, start_pos, lengths, None,
                             int(layer), stage)
-    latent_prefill_kv_update_layer.launches += 1
+    count_launch(latent_prefill_kv_update_layer)
     return latent
 
 

@@ -44,7 +44,8 @@ import torch
 from xllm_service_tpu_torch.ops import attention
 from xllm_service_tpu_torch.ops.kernels import _build
 from xllm_service_tpu_torch.ops.kernels._launch import (
-    F, I, P, check, on_cuda, ptr, raise_on_error, require, stream)
+    F, I, P, check, count_launch, on_cuda, ptr, raise_on_error, require,
+    stream)
 
 _lib = None
 _lib_mla = None
@@ -66,7 +67,9 @@ MLA_CHUNK, MLA_TARGET_BLOCKS = 64, SMS
 # calls (the last split of each row resets its own), so calls share them
 # only in stream order: the kernels launch on the current stream. A call
 # that needs more replaces the buffer; the old one stays alive for CUDA
-# graphs captured with it.
+# graphs captured with it. An engine reserves its largest size before it
+# captures anything (``reserve_tickets``): a buffer first made during a
+# capture would come from the graph's private pool.
 _tickets: Dict[torch.device, torch.Tensor] = {}
 _retired: List[torch.Tensor] = []
 
@@ -102,11 +105,23 @@ def mla_splits(B: int, max_pages: int, page_size: int,
 def _ticket_counters(device: torch.device, n: int) -> torch.Tensor:
     t = _tickets.get(device)
     if t is None or t.numel() < n:
+        require(not torch.cuda.is_current_stream_capturing(),
+                f"{n} split tickets needed inside a CUDA graph capture; "
+                f"reserve them first (reserve_tickets)")
         if t is not None:
             _retired.append(t)
         t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _tickets[device] = t
     return t
+
+
+def reserve_tickets(device: torch.device, n: int) -> None:
+    """Make the ticket counters of ``device`` hold ``n`` (row, kv head)
+    pairs now, outside any capture."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    _ticket_counters(dev, n)
 
 
 def _split_scratch(q: torch.Tensor, blocks: int, splits: int, rows: int,
@@ -230,7 +245,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         float(attention._attn_scale(D, scale)), float(logits_soft_cap),
         stream())
     raise_on_error("paged_decode_attention", rc)
-    paged_decode_attention.launches += 1
+    count_launch(paged_decode_attention)
     return out
 
 
@@ -303,7 +318,7 @@ def paged_decode_attention_current(q: torch.Tensor, k_pages: torch.Tensor,
         float(attention._attn_scale(D, scale)), float(logits_soft_cap),
         stream())
     raise_on_error("paged_decode_attention_current", rc)
-    paged_decode_attention_current.launches += 1
+    count_launch(paged_decode_attention_current)
     return out
 
 
@@ -409,7 +424,7 @@ def paged_decode_attention_mla(q: torch.Tensor, latent_pages: torch.Tensor,
         ptr(out), ptr(part_o), ptr(part_ml), ptr(tickets), B, Hq, D,
         page_table.shape[1], ps, int(splits), float(scale), stream())
     raise_on_error("paged_decode_attention_mla", rc)
-    paged_decode_attention_mla.launches += 1
+    count_launch(paged_decode_attention_mla)
     return out
 
 
@@ -457,7 +472,7 @@ def paged_decode_attention_mla_current(q: torch.Tensor,
         B, Hq, D, page_table.shape[1], ps, int(splits), float(scale),
         stream())
     raise_on_error("paged_decode_attention_mla_current", rc)
-    paged_decode_attention_mla_current.launches += 1
+    count_launch(paged_decode_attention_mla_current)
     return out
 
 

@@ -33,7 +33,8 @@ import torch
 from xllm_service_tpu_torch.ops import attention
 from xllm_service_tpu_torch.ops.kernels import _build
 from xllm_service_tpu_torch.ops.kernels._launch import (
-    F, I, P, check, on_cuda, ptr, raise_on_error, require, stream)
+    F, I, P, check, count_launch, on_cuda, ptr, raise_on_error, require,
+    stream)
 
 _lib = None
 _TILE_ROWS = 128         # (query position, head) rows per thread block
@@ -153,7 +154,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
         float(attention._attn_scale(D, scale)), float(logits_soft_cap),
         stream())
     raise_on_error("paged_prefill_attention", rc)
-    paged_prefill_attention.launches += 1
+    count_launch(paged_prefill_attention)
     return out
 
 
@@ -234,7 +235,7 @@ def paged_prefill_attention_fresh(q: torch.Tensor, k_fresh: torch.Tensor,
         float(attention._attn_scale(D, scale)), float(logits_soft_cap),
         stream())
     raise_on_error("paged_prefill_attention_fresh", rc)
-    paged_prefill_attention_fresh.launches += 1
+    count_launch(paged_prefill_attention_fresh)
     return out
 
 

@@ -19,6 +19,15 @@ prefill kernel's tile code, the decode rows' splits by the decode
 kernel's split walk (``paged_attention.gqa_splits`` splits, folded in the
 same launch), then the padding zeros. No block is spent on a tile
 without a valid query, and the grid depends on host-known sizes only.
+
+The kernel's row table holds 256 rows of at most 512 query tiles. A
+larger batch is cut into launches (``launch_plan``): rows in chunks of
+at most 256, and a longer window into slices of at most 512 query
+tiles, each slice a window of its own at a shifted start. Rows are
+independent (each attends only to its own pages), and so are the query
+positions of one window, because the step writes the window before it
+attends. The cut depends on B, T and the group only, so the launches
+stay shape-static; every launch takes the whole batch's split count.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ import torch
 from xllm_service_tpu_torch.ops import attention
 from xllm_service_tpu_torch.ops.kernels import _build
 from xllm_service_tpu_torch.ops.kernels._launch import (
-    F, I, P, on_cuda, ptr, raise_on_error, require, stream)
+    F, I, P, count_launch, on_cuda, ptr, raise_on_error, require, stream)
 from xllm_service_tpu_torch.ops.kernels.paged_attention import (
     GQA_CHUNK, _split_scratch, gqa_splits, paged_decode_attention_split_plain,
     split_bounds)
@@ -66,14 +75,47 @@ def split_groups(D: int) -> int:
 
 
 def check_sizes(B: int, T: int, group: int) -> None:
-    """Raises ValueError unless the kernel's row table holds a bucket of
+    """Raises ValueError unless the kernel's row table holds a launch of
     B rows x T positions at query group ``group``: B <= 256 rows and
-    T / query_tile(group) <= 512 query tiles a row. The engine checks its
-    largest bucket at start-up, the wrapper every call."""
+    T / query_tile(group) <= 512 query tiles a row. The wrapper checks
+    every launch of its plan."""
     require(group <= _MAX_GROUP, f"query group {group} > {_MAX_GROUP}")
     require(B <= _MAX_ROWS, f"{B} rows > {_MAX_ROWS}")
     nqt = -(-T // query_tile(group))
     require(nqt <= _MAX_RANKS, f"{nqt} query tiles a row > {_MAX_RANKS}")
+
+
+def launch_plan(B: int, T: int, group: int
+                ) -> List[Tuple[int, int, int, int]]:
+    """The launches of a ragged batch of B rows x T positions, each
+    (b0, b1, t0, t1): rows [b0, b1) at positions [t0, t1). One launch
+    when the row table holds the batch."""
+    require(group <= _MAX_GROUP, f"query group {group} > {_MAX_GROUP}")
+    span = _MAX_RANKS * query_tile(group)
+    return [(b0, min(b0 + _MAX_ROWS, B), t0, min(t0 + span, T))
+            for b0 in range(0, B, _MAX_ROWS) for t0 in range(0, T, span)]
+
+
+def run_plan(launch, q: torch.Tensor, page_table: torch.Tensor,
+             q_start: torch.Tensor, lengths: torch.Tensor, group: int
+             ) -> torch.Tensor:
+    """[B, T, Hq, D] output of ``launch(q, page_table, q_start, lengths,
+    out)`` run once per entry of ``launch_plan``, each on its rows and
+    positions: a position slice as a window starting t0 later, its
+    lengths cut to the slice (0 where the row ended before it)."""
+    B, T = q.shape[:2]
+    out = torch.empty_like(q)
+    for b0, b1, t0, t1 in launch_plan(B, T, group):
+        if t0 == 0 and t1 == T:
+            launch(q[b0:b1], page_table[b0:b1], q_start[b0:b1],
+                   lengths[b0:b1], out[b0:b1])
+            continue
+        part = torch.empty_like(q[b0:b1, t0:t1])
+        launch(q[b0:b1, t0:t1].contiguous(), page_table[b0:b1],
+               q_start[b0:b1] + t0,
+               (lengths[b0:b1] - t0).clamp(0, t1 - t0), part)
+        out[b0:b1, t0:t1] = part
+    return out
 
 
 @dataclasses.dataclass
@@ -219,20 +261,23 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     ps, Hkv = k_pages.shape[2], k_pages.shape[3]
     G, MP = Hq // Hkv, page_table.shape[1]
     QB = query_tile(G)
-    check_sizes(B, T, G)
     splits = gqa_splits(B, Hkv, MP, ps, sliding_window, False)
-    part_o, part_ml, tickets = _split_scratch(q, B * Hkv, splits, G, D)
-    out = torch.empty_like(q)
-    rc = _kernel().ragged_paged_attention(
-        ptr(q), ptr(k_pages[layer]), ptr(v_pages[layer]), ptr(page_table),
-        ptr(q_start), ptr(lengths), ptr(sinks), ptr(out), ptr(part_o),
-        ptr(part_ml), ptr(tickets), B, T, Hkv, G, D, MP, ps, QB,
-        int(splits), int(sliding_window),
-        float(attention._attn_scale(D, scale)), float(logits_soft_cap),
-        stream())
-    raise_on_error("ragged_paged_attention", rc)
-    ragged_paged_attention.launches += 1
-    return out
+    scale = float(attention._attn_scale(D, scale))
+
+    def launch(q, page_table, q_start, lengths, out):
+        Bl, Tl = q.shape[:2]
+        check_sizes(Bl, Tl, G)
+        part_o, part_ml, tickets = _split_scratch(q, Bl * Hkv, splits, G, D)
+        rc = _kernel().ragged_paged_attention(
+            ptr(q), ptr(k_pages[layer]), ptr(v_pages[layer]),
+            ptr(page_table), ptr(q_start), ptr(lengths), ptr(sinks),
+            ptr(out), ptr(part_o), ptr(part_ml), ptr(tickets), Bl, Tl, Hkv,
+            G, D, MP, ps, QB, int(splits), int(sliding_window), scale,
+            float(logits_soft_cap), stream())
+        raise_on_error("ragged_paged_attention", rc)
+        count_launch(ragged_paged_attention)
+
+    return run_plan(launch, q, page_table, q_start, lengths, G)
 
 
 ragged_paged_attention.launches = 0

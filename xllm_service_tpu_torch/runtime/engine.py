@@ -47,27 +47,42 @@ traffic.) Only a prompt whose KV can never fit the pool is refused.
 A sequence finishes on EOS, a stop token id, ``max_tokens`` or
 ``max_model_len``; its pages and slot are freed then.
 
-Not in this package yet: the prefix cache, offline requests, fused
-multi-step decode and its pipeline, CUDA graphs, the step fault boundary
-and the step trace.
+Decode runs through ``runtime/decode_graph.py``: one CUDA graph per
+(table width, steps, sampling mode), captured by ``warmup()`` (or at a
+key's first use), as the JAX engine compiles its decode programs. With
+``decode_steps = N > 1`` one dispatch runs N forwards, each feeding its
+sampled token forward on the device; the host accepts each sequence's
+tokens up to its first stop, and one ``StepOutput`` carries the burst.
+With the pipeline (``decode_pipeline``) burst k+1 is dispatched from
+burst k's device-resident carries before burst k is read back, and
+discarded, with the generator's state restored, when burst k's post
+changed the batch; token streams are those of the pipeline off.
+
+Not in this package yet: the prefix cache, offline requests, graphs for
+the prefill and ragged steps, the step fault boundary and the step
+trace.
 """
 
 from __future__ import annotations
 
 import bisect
+import collections
 import dataclasses
 import enum
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence as Seq, Tuple
 
 import numpy as np
 import torch
 
 from xllm_service_tpu_torch.config import EngineConfig, ModelConfig
 from xllm_service_tpu_torch.models import transformer
-from xllm_service_tpu_torch.ops.kernels import ragged_attention
-from xllm_service_tpu_torch.ops.sampling import (compute_logprobs,
+from xllm_service_tpu_torch.ops.kernels import paged_attention
+from xllm_service_tpu_torch.ops.sampling import (SamplingTensors,
+                                                 compute_logprobs,
                                                  sample_tokens)
+from xllm_service_tpu_torch.runtime import decode_graph
+from xllm_service_tpu_torch.runtime.decode_graph import Seeded
 from xllm_service_tpu_torch.runtime.kv_cache import PageAllocator
 from xllm_service_tpu_torch.utils.types import FinishReason, SamplingParams
 
@@ -90,6 +105,17 @@ def resolve_write_then_attend(flag: Optional[bool],
     """``EngineConfig.write_then_attend`` for an engine on ``device``:
     an explicit value wins; None means on where the CUDA kernels run."""
     return device.type == "cuda" if flag is None else bool(flag)
+
+
+def resolve_cuda_graphs(flag: Optional[bool], device: torch.device) -> bool:
+    """``EngineConfig.cuda_graphs`` for an engine on ``device``: None
+    means on for CUDA; there are no graphs on the CPU."""
+    if device.type != "cuda":
+        return False
+    return True if flag is None else bool(flag)
+
+
+_GREEDY = SamplingParams(temperature=0.0)
 
 
 @dataclasses.dataclass
@@ -188,15 +214,37 @@ class Engine:
         # MLA models have no ragged mixed step (as in the JAX engine):
         # their mixed iterations run split.
         self.ragged = bool(engine_cfg.ragged_attn) and not model_cfg.mla
-        if self.ragged:
-            # The ragged kernel's largest bucket, refused here rather
-            # than at the first mixed iteration that reaches it.
-            ragged_attention.check_sizes(
-                _pow2(engine_cfg.max_batch_size),
-                max(engine_cfg.prefill_buckets),
-                model_cfg.num_heads // model_cfg.num_kv_heads)
         self.write_then_attend = resolve_write_then_attend(
             engine_cfg.write_then_attend, self.device)
+        # Fused multi-step decode and its pipeline (None = on when
+        # bursts are fused), as the JAX engine resolves them.
+        self.decode_steps = max(1, int(engine_cfg.decode_steps))
+        dp = engine_cfg.decode_pipeline
+        self.decode_pipeline = self.decode_steps > 1 and (
+            dp is None or bool(dp))
+        if self.device.type == "cuda":
+            # The split kernels' tickets at their largest size (a decode
+            # step's rows, a ragged launch's), before any capture.
+            rows = max(engine_cfg.max_batch_size,
+                       min(_pow2(engine_cfg.max_batch_size), 256))
+            paged_attention.reserve_tickets(
+                self.device, rows * model_cfg.kv_cache_heads)
+        self.graphs = decode_graph.DecodeGraphs(
+            self.params, model_cfg, self.kv, engine_cfg.max_batch_size,
+            self.decode_steps, self.write_then_attend, self.generator,
+            self.device, resolve_cuda_graphs(engine_cfg.cuda_graphs,
+                                             self.device))
+        # The batch the decode runner's token and position carries hold
+        # (see _snapshot), or None when they were not kept.
+        self._resident: Optional[Tuple] = None
+        # The in-flight speculative burst (consumed or rolled back by
+        # the next step).
+        self._pending: Optional[Dict[str, Any]] = None
+        # Device-idle attribution between consecutive bursts.
+        self._last_burst_ready_t: Optional[float] = None
+        self._last_burst_step = -1
+        self.phase_counts: Dict[str, int] = collections.Counter()
+        self.phase_times: Dict[str, float] = collections.Counter()
         # What the last step() did (the JAX engine's step ledger). A
         # forward is one attention dispatch: decode, prefill or ragged.
         self.last_step_kind = "idle"    # "prefill"|"decode"|"mixed"|"idle"
@@ -239,6 +287,11 @@ class Engine:
                         1, self.ecfg.max_model_len - len(req.token_ids))))
         if req.arrival_time == 0.0:
             req.arrival_time = time.monotonic()
+        # Prefill-first routing prefills this prompt on the next step,
+        # which a speculative burst did not assume; the interleaver
+        # decodes first and drains only when a prefill lands.
+        if not self.interleave:
+            self.drain_pipeline()
         seq = Sequence(req=req, tokens=list(req.token_ids))
         self._by_id[req.request_id] = seq
         self.waiting.append(seq)
@@ -306,9 +359,10 @@ class Engine:
             self.waiting.append(seq)
         self._sort_waiting()
 
-    def _grow_pages(self, seq: Sequence) -> bool:
-        """Pages for ``seq``'s next token write (see ``_ensure_pages``)."""
-        return self._ensure_pages(seq, len(seq.tokens))
+    def _grow_pages(self, seq: Sequence, lookahead: int = 0) -> bool:
+        """Pages for ``seq``'s next ``1 + lookahead`` token writes (see
+        ``_ensure_pages``)."""
+        return self._ensure_pages(seq, len(seq.tokens) + lookahead)
 
     def _ensure_pages(self, seq: Sequence, covered: int) -> bool:
         """Extend ``seq``'s page table to cover ``covered`` token
@@ -397,13 +451,15 @@ class Engine:
             self._decode_section(outs)
 
     def _decode_section(self, outs: List[StepOutput]) -> None:
-        decoded = self._run_decode()
+        decoded = self._decode_once()
         self.last_step_decode_tokens = sum(len(o.new_token_ids)
                                            for o in decoded)
         outs.extend(decoded)
 
     def _prefill_section(self, batch: List[Sequence],
                          outs: List[StepOutput]) -> None:
+        # The landing prefill is what changes a speculative burst's batch.
+        self.drain_pipeline()
         # Prefill occupancy is the prompt tokens computed, not the one
         # token sampled per window.
         self.last_step_prefill_windows = tuple(s.sched_window for s in batch)
@@ -565,6 +621,7 @@ class Engine:
         a length-1 window at start = len(tokens) - 1 (mid-page as often
         as not), then the scheduled prefill windows. Rows are indexed by
         their place in the batch, not by decode slot."""
+        self.drain_pipeline()
         windows = [s.sched_window for s in batch]
         rows = decode_seqs + batch
         nd = len(decode_seqs)
@@ -603,37 +660,318 @@ class Engine:
         self._sort_waiting()
         return outs
 
+    # ------------------------------------------------------------------
+    # Decode: single steps, fused bursts and the speculative pipeline
+    # ------------------------------------------------------------------
+    def _decode_once(self) -> List[StepOutput]:
+        N = self.decode_steps
+        # A burst writes KV up to position len + N - 2: a sequence that
+        # would cross max_model_len takes single steps.
+        if N > 1 and all(len(s.tokens) + N - 1 <= self.ecfg.max_model_len
+                         for s in self.running):
+            return self._run_decode_multi()
+        # Single-step fallback: the burst carries are unusable.
+        self.drain_pipeline()
+        return self._run_decode()
+
+    def _table_width(self) -> int:
+        """Page-table columns the running batch needs, as a power of two
+        (clamped to ``max_pages_per_seq``): one graph per width."""
+        mp = max((len(s.pages) for s in self.running), default=1)
+        return min(_pow2(mp), self.ecfg.max_pages_per_seq)
+
+    def _snapshot(self) -> Tuple:
+        return tuple((s.req.request_id, s.slot, s.tokens[-1],
+                      len(s.tokens) - 1) for s in self.running)
+
+    def _active_table(self, width: int) -> Tuple[np.ndarray, np.ndarray]:
+        B = self.ecfg.max_batch_size
+        active = np.zeros((B,), np.bool_)
+        table = np.zeros((B, width), np.int32)
+        for seq in self.running:
+            active[seq.slot] = True
+            n = min(len(seq.pages), width)
+            table[seq.slot, :n] = seq.pages[:n]
+        return active, table
+
+    def _stage_decode(self, steps: int
+                      ) -> Tuple[decode_graph.Key, Optional[Seeded]]:
+        """Fill the decode runner's inputs from the running batch, each
+        only where it changed: the active mask and page table, the
+        slots' sampling tensors, and the token and position carries
+        unless they already hold this batch (``_resident``). Returns the
+        step's graph key and its seeded rows."""
+        width = self._table_width()
+        self.graphs.stage_active_table(*self._active_table(width))
+        params = [_GREEDY] * self.ecfg.max_batch_size
+        for seq in self.running:
+            params[seq.slot] = seq.req.sampling
+        self.graphs.stage_sampling(SamplingTensors.pack_batch(params))
+        if self._resident != self._snapshot():
+            B = self.ecfg.max_batch_size
+            tokens = np.zeros((B,), np.int64)
+            positions = np.zeros((B,), np.int32)
+            for seq in self.running:
+                tokens[seq.slot] = seq.tokens[-1]
+                positions[seq.slot] = len(seq.tokens) - 1
+            self.graphs.stage_carries(tokens, positions)
+        self._resident = None           # the launch advances the carries
+        sampled = [s for s in self.running if s.req.sampling.temperature > 0]
+        seeded = [s for s in sampled if s.req.sampling.seed is not None]
+        return ((width, steps, not sampled),
+                Seeded([s.slot for s in seeded],
+                       [s.req.sampling.seed for s in seeded],
+                       [len(s.tokens) - 1 for s in seeded])
+                if seeded else None)
+
     def _run_decode(self) -> List[StepOutput]:
         self._grow_running()
         if not self.running:
             return []
-        B = self.ecfg.max_batch_size
-        MP = min(_pow2(max(len(s.pages) for s in self.running)),
-                 self.ecfg.max_pages_per_seq)
-        tokens = np.zeros((B,), np.int64)
-        positions = np.zeros((B,), np.int32)
-        active = np.zeros((B,), np.bool_)
-        table = np.zeros((B, MP), np.int32)
-        params: List[SamplingParams] = [SamplingParams(temperature=0.0)] * B
-        for seq in self.running:
-            i = seq.slot
-            tokens[i] = seq.tokens[-1]
-            positions[i] = len(seq.tokens) - 1
-            active[i] = True
-            table[i, :min(len(seq.pages), MP)] = seq.pages[:MP]
-            params[i] = seq.req.sampling
-        logits, self.kv = transformer.forward_decode(
-            self.params, self.cfg, self._to_device(tokens),
-            self._to_device(positions), self._to_device(active), self.kv,
-            self._to_device(table), write_then_attend=self.write_then_attend)
+        key, seeded = self._stage_decode(1)
+        launch = self.graphs.launch(key, seeded)
         self.last_step_attn_dispatches += 1
-        toks, lps = self._sample(logits, params, positions.tolist())
+        toks, lps = launch.read()
         outs = []
         for seq in list(self.running):
             seq.num_computed = len(seq.tokens)
-            outs.append(self._append_token(seq, toks[seq.slot],
-                                           lps[seq.slot]))
+            outs.append(self._append_token(seq, toks[0][seq.slot],
+                                           lps[0][seq.slot]))
+        # Every slot's carry is its sampled token and the next position.
+        self._resident = self._snapshot()
         return outs
+
+    def _run_decode_multi(self) -> List[StepOutput]:
+        """N fused decode steps per dispatch (one graph replay).
+
+        Pages are pre-grown for the whole lookahead; finish detection
+        runs on the host afterwards, discarding tokens sampled past a
+        stop. Each surviving sequence gets ONE StepOutput carrying its
+        accepted tokens.
+
+        Pipelined (``decode_pipeline``): burst k+1's inputs are burst
+        k's device-resident carries, so when no host event can be
+        pending it is dispatched before burst k's outputs are read, and
+        burst k's host post overlaps its device work. A speculation that
+        the post invalidates (a finish, a preemption, an admission, a
+        page-table change) is discarded: the generator's state saved
+        before it is restored, so the replacement burst draws what the
+        pipeline-off engine draws, and its in-place KV writes land only
+        at positions at or past every sequence's computed length, which
+        the replacement rewrites before anything reads them."""
+        burst = None
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            if self._pending_matches(pending):
+                # Speculation hit: nothing to pack or upload.
+                self.phase_counts["decode_multi.spec_hit"] += 1
+                self._note_burst_gap(overlapped=True)
+                burst = pending
+            else:
+                self._discard_spec(pending)
+        if burst is None:
+            burst = self._dispatch_burst()
+            if burst is None:
+                return []
+        # Two-deep pipeline: enqueue burst k+1 before blocking on burst
+        # k's host copy.
+        spec = self._dispatch_spec(burst) if self.decode_pipeline else None
+        toks, lps = burst["launch"].read()                # [N][B] each
+        self._last_burst_ready_t = time.monotonic()
+        self._last_burst_step = self.step_count
+        outs = self._post_decode_multi(toks, lps, carry_free=spec is None)
+        if spec is not None:
+            if self._pending_matches(spec):
+                self._pending = spec
+            else:
+                self._discard_spec(spec)
+        return outs
+
+    def _dispatch_burst(self) -> Optional[Dict[str, Any]]:
+        """Stage and dispatch one fused burst from host truth; None when
+        the pre-growth preempted the whole batch away."""
+        N = self.decode_steps
+        # Pre-grow pages for the burst's KV writes, clamped to the tokens
+        # each sequence can still take (a sequence 2 tokens from its
+        # max_tokens reserves no pages for N - 1 more). Writes past the
+        # clamp land on the NULL page, and their tokens are discarded on
+        # the host. May preempt: iterate over a snapshot.
+        for seq in list(self.running):
+            remaining = min(N, seq.req.sampling.max_tokens - seq.num_generated)
+            self._grow_pages(seq, lookahead=max(remaining - 1, 0))
+        if not self.running:
+            return None
+        key, seeded = self._stage_decode(N)
+        self._note_burst_gap(overlapped=False)
+        launch = self.graphs.launch(key, seeded)
+        self.last_step_attn_dispatches += 1
+        self.phase_counts["decode_multi.dispatch"] += 1
+        return {"launch": launch, "key": key, "seeded": seeded}
+
+    def _dispatch_spec(self, burst: Dict[str, Any]
+                       ) -> Optional[Dict[str, Any]]:
+        """Dispatch the NEXT burst from ``burst``'s carries before
+        ``burst`` is read back; the generator's state before it is kept
+        to restore on a rollback."""
+        if not self._spec_eligible():
+            return None
+        gen_state = self.generator.get_state()
+        seeded = burst["seeded"]
+        if seeded is not None:
+            seeded = seeded.advanced(self.decode_steps)
+        launch = self.graphs.launch(burst["key"], seeded)
+        self.last_step_attn_dispatches += 1
+        self.phase_counts["decode_multi.spec_dispatch"] += 1
+        return {"launch": launch, "key": burst["key"], "seeded": seeded,
+                "gen_state": gen_state,
+                "members": tuple((s.req.request_id, s.slot)
+                                 for s in self.running)}
+
+    def _spec_eligible(self) -> bool:
+        """May the next burst go out before this one is read back? Only
+        when the host post cannot need what the speculation lacks: no
+        queued or cancelled work, nobody can expire by length inside the
+        current burst (an EOS still rolls back), the speculative writes
+        stay inside ``max_model_len`` and inside the pages already held
+        (a speculation never allocates, so a rollback has nothing to
+        undo)."""
+        N = self.decode_steps
+        if self.waiting or self._cancelled:
+            return False
+        ps = self.ecfg.page_size
+        for s in self.running:
+            rem = s.req.sampling.max_tokens - s.num_generated
+            if rem <= N:
+                return False
+            if len(s.tokens) + 2 * N - 1 > self.ecfg.max_model_len:
+                return False
+            if len(s.pages) * ps < len(s.tokens) + N + min(N, rem - N) - 1:
+                return False
+        return True
+
+    def _pending_matches(self, p: Dict[str, Any]) -> bool:
+        """A speculative burst stays valid while the batch is what its
+        carries assumed: the same members in the same slots (so every
+        one accepted the whole burst, and the host's token tails equal
+        the carries) and an unchanged active mask and page table."""
+        members = tuple((s.req.request_id, s.slot) for s in self.running)
+        if not members or members != p["members"]:
+            return False
+        return self.graphs.active_table_matches(
+            *self._active_table(p["key"][0]))
+
+    def _discard_spec(self, p: Dict[str, Any]) -> None:
+        """Roll a speculative burst back: its device work finishes on its
+        own and its outputs are dropped; the generator goes back to its
+        state before it, and the carries are re-uploaded."""
+        self.phase_counts["decode_multi.spec_rollback"] += 1
+        self.generator.set_state(p["gen_state"])
+        self._resident = None
+        # A rolled-back boundary was busy on the discarded burst: it is
+        # kept out of the idle ledger.
+        self._last_burst_ready_t = None
+
+    def drain_pipeline(self) -> None:
+        """Discard any in-flight speculative burst; called wherever the
+        batch changes outside the decode loop (prefill sections, the
+        ragged step, admission under prefill-first, warmup)."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            self._discard_spec(pending)
+
+    def _note_burst_gap(self, overlapped: bool) -> None:
+        """Host time between the previous burst's outputs being ready and
+        this dispatch, during which the device had nothing queued (0 when
+        a speculative burst covered it). Only consecutive decode bursts
+        count."""
+        t = self._last_burst_ready_t
+        if t is None or self.step_count != self._last_burst_step + 1:
+            return
+        gap = 0.0 if overlapped else max(time.monotonic() - t, 0.0)
+        self.phase_times["decode_multi.device_idle"] += gap
+        self.phase_counts["decode_multi.device_idle"] += 1
+
+    def _post_decode_multi(self, toks: List[List[int]],
+                           lps: List[List[float]],
+                           carry_free: bool) -> List[StepOutput]:
+        """Accept each sequence's burst tokens up to its first stop.
+        ``carry_free``: no speculative burst went out, so the carries
+        still hold this batch."""
+        outs: List[StepOutput] = []
+        for seq, slot in [(s, s.slot) for s in self.running]:
+            accepted: List[int] = []
+            logprobs: List[float] = []
+            reason = FinishReason.NONE
+            for k in range(len(toks)):
+                tok = toks[k][slot]
+                seq.tokens.append(tok)
+                accepted.append(tok)
+                logprobs.append(lps[k][slot])
+                reason = self._finish_reason(seq, tok)
+                if reason != FinishReason.NONE:
+                    break
+            # KV is resident for every token but the last sampled one.
+            seq.num_computed = len(seq.tokens) - 1
+            outs.append(StepOutput(
+                request_id=seq.req.request_id, new_token_ids=accepted,
+                logprobs=logprobs, finish_reason=reason,
+                num_prompt_tokens=seq.num_prompt_tokens,
+                num_generated=seq.num_generated))
+            if reason != FinishReason.NONE:
+                self._finish_seq(seq)
+        if carry_free:
+            self._resident = self._snapshot()
+        return outs
+
+    def overlap_metrics(self) -> Dict[str, Any]:
+        """Decode-pipeline health: speculation dispatch/hit/rollback
+        counts, the hit ratio, and host-side device-idle ms per burst
+        boundary (0 for boundaries a speculative burst covered)."""
+        disp = self.phase_counts.get("decode_multi.spec_dispatch", 0)
+        hits = self.phase_counts.get("decode_multi.spec_hit", 0)
+        idle_n = self.phase_counts.get("decode_multi.device_idle", 0)
+        idle_s = self.phase_times.get("decode_multi.device_idle", 0.0)
+        return {
+            "spec_dispatches": disp,
+            "spec_hits": hits,
+            "spec_rollbacks": self.phase_counts.get(
+                "decode_multi.spec_rollback", 0),
+            "hit_ratio": hits / disp if disp else 0.0,
+            "device_idle_ms_per_burst":
+                1e3 * idle_s / idle_n if idle_n else 0.0,
+        }
+
+    # ------------------------------------------------------------------
+    # Warmup and the capture census
+    # ------------------------------------------------------------------
+    def warmup(self, decode_widths: Optional[Seq[int]] = None) -> float:
+        """Capture every decode graph this configuration can reach: each
+        table width (``decode_widths``, default every power of two up to
+        ``max_pages_per_seq`` and the clamp), single steps and N-step
+        bursts, greedy and sampled. A caller that passes its widths with
+        ``decode_steps > 1`` gets the bursts only (the JAX engine's
+        scoped warmup). Nothing is written to the pools and the
+        generator's state is kept. Returns the seconds spent."""
+        self.drain_pipeline()
+        t0 = time.monotonic()
+        widths = (list(decode_widths) if decode_widths is not None else
+                  decode_graph.decode_widths(self.ecfg.max_pages_per_seq))
+        steps = sorted({1, self.decode_steps})
+        if decode_widths is not None and self.decode_steps > 1:
+            steps = [self.decode_steps]
+        for width in widths:
+            for n in steps:
+                for greedy in (True, False):
+                    self.graphs.prepare((width, n, greedy))
+        self.graphs.warm = True
+        return time.monotonic() - t0
+
+    def capture_report(self) -> Dict[str, Any]:
+        """The decode graphs by key (with their replays), the captures
+        made after ``warmup()``, and the decode steps run eagerly, by
+        reason: ``seeded`` (a row with its own generator), ``graphs_off``
+        (``cuda_graphs=False`` on CUDA) or ``cpu``."""
+        return self.graphs.report()
 
     def _append_token(self, seq: Sequence, tok: int,
                       logprob: float) -> StepOutput:

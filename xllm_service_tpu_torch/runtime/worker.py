@@ -76,6 +76,9 @@ class WorkerOptions:
     port: int = 0
     model: str = "tiny"
     device: str = "cuda"
+    # Capture the engine's decode graphs before serving (Engine.warmup);
+    # None = on for a CUDA device.
+    warmup: Optional[bool] = None
     # Bound on the wait for one engine output of a request.
     request_timeout_s: float = 600.0
 
@@ -188,6 +191,13 @@ class Worker:
         # socket is bound.
         self.engine = Engine(self.model_cfg, engine_cfg or EngineConfig(),
                              params=params, device=opts.device)
+        warmup = opts.warmup
+        if warmup is None:
+            warmup = self.engine.device.type == "cuda"
+        if warmup:
+            secs = self.engine.warmup()
+            logger.info("warmup: %.1f s, %s", secs,
+                        self.engine.capture_report())
         self._live: Dict[str, _LiveRequest] = {}
         self._live_lock = threading.Lock()
         self._engine_lock = threading.Lock()
@@ -491,21 +501,31 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--prefill-buckets",
                    default=",".join(map(str, d.prefill_buckets)),
                    help="comma-separated prefill window buckets")
+    p.add_argument("--decode-steps", type=int, default=d.decode_steps,
+                   help="decode steps fused into one dispatch")
+    p.add_argument("--warmup", dest="warmup", default=None,
+                   action="store_true",
+                   help="capture the engine's decode graphs before "
+                        "serving (default: auto, on for CUDA)")
+    p.add_argument("--no-warmup", dest="warmup", action="store_false")
     return p.parse_args(argv)
 
 
-def build_worker(args: argparse.Namespace) -> Worker:
-    """The Worker the CLI serves, from parsed arguments."""
+def build_worker(args: argparse.Namespace,
+                 params: Optional[Params] = None) -> Worker:
+    """The Worker the CLI serves, from parsed arguments (``params``:
+    weights to serve instead of random ones from the engine's seed)."""
     ecfg = EngineConfig(
         page_size=args.page_size, num_pages=args.num_pages,
         max_model_len=args.max_model_len,
         max_batch_size=args.max_batch_size,
         max_prefill_tokens=args.max_prefill_tokens,
         prefill_buckets=tuple(int(b) for b in
-                              args.prefill_buckets.split(",") if b))
+                              args.prefill_buckets.split(",") if b),
+        decode_steps=args.decode_steps)
     opts = WorkerOptions(host=args.host, port=args.port, model=args.model,
-                         device=args.device)
-    return Worker(opts, engine_cfg=ecfg)
+                         device=args.device, warmup=args.warmup)
+    return Worker(opts, engine_cfg=ecfg, params=params)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
