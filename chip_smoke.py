@@ -167,7 +167,32 @@ Phases (any failure raises and the exit code is not 0):
    float32 path on the CPU (``[margins]``): wider than 10 x phase 4's
    largest logit error for the model is a fault, narrower is drift.
    ``[profile]`` prints the launches per forward of 5, 5c, 5d and 5e.
-6. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
+6. Cluster: the reference coordination store and master run as child
+   processes (``python -m xllm_service_tpu.service.coordination_net``,
+   ``python -m xllm_service_tpu.service.master --block-size 128
+   --heartbeat-interval 0.5 --load-balance-policy RR``; nothing of the
+   reference package is imported here) and the port's worker (llama3-1b,
+   the phase 5 flags and seed, write-then-attend, graphs on) joins them
+   in-process: it warms up, registers through the store under a lease
+   and heartbeats every 0.5 s; the phase waits (60 s at most) for the
+   master's ``/rpc/static_prefill_list`` to list it and checks its
+   ``/rpc/instance_info``. Then: one streamed chat alone (its token ids
+   in the body, so the master's chat template cannot change the prompt)
+   gives the same text and chosen-token logprobs direct and through the
+   master; phase 5's four requests run direct and through the master,
+   all finish with 32 tokens, every step launching the fused writers, K3
+   and K4 as phase 5 requires; while a long stream runs through the
+   master, the master's books (``/admin/debug_bundle``) show one running
+   request and a step p99 that a heartbeat carried, and ``POST /cancel``
+   on the worker ends the stream, the engine idle after; the master is
+   stopped and one with ``--enable-decode-response-to-service`` takes
+   over, the worker follows its advertisement in the store and learns
+   the RPC topology, and the four requests finish through it (tokens
+   pushed to ``/rpc/generations``); ``worker.stop()`` takes the worker
+   off the master's list within the lease TTL (1.5 s). ``[cluster]``:
+   the median TTFT and decode tokens/s per stream through the master
+   (relay, rpc) and direct, the heartbeat's step p99 and the card.
+7. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
    writers' launches from phase 5 (K1/K2 now 0), K5 from 5b, K6 (now 0),
    K7, K3', K4' and the dense all-layer mode from 5c, K3'' and the fused
    latent writers from 5d, the current form of K3'' and the latent
@@ -2105,12 +2130,13 @@ def _prompt(rng: random.Random, n: int) -> str:
     return out[:n]
 
 
-def _request(addr, path, body, stream, result):
+def _request(addr, path, body, stream, result, headers=None):
     host, port = addr.rsplit(":", 1)
     conn = HTTPConnection(host, int(port), timeout=600)
     t0 = time.perf_counter()
     conn.request("POST", path, body=json.dumps(body),
-                 headers={"Content-Type": "application/json"})
+                 headers={"Content-Type": "application/json",
+                          **(headers or {})})
     r = conn.getresponse()
     result["status"] = r.status
     if not stream:
@@ -2298,6 +2324,127 @@ def step_launches_wanted(row, layers: int, mla: bool,
     return want
 
 
+# The served requests of phases 5-6: 2 streamed chats and 2 non-streamed
+# completions, prompts of 100-400 tokens, 32 new tokens at temperature 0.
+SERVE_PLAN = (
+    ("/v1/chat/completions", True, 380),
+    ("/v1/completions", False, 250),
+    ("/v1/chat/completions", True, 120),
+    ("/v1/completions", False, 330),
+)
+
+
+def serve_bodies(rng: random.Random, tokenizer=None) -> list:
+    """The bodies of ``SERVE_PLAN``. With ``tokenizer`` each also carries
+    its prompt's token ids, so a master in front (which renders chats
+    through its own template) serves the prompt a direct request does."""
+    bodies = []
+    for path, stream, n in SERVE_PLAN:
+        body = {"max_tokens": 32, "temperature": 0.0, "ignore_eos": True,
+                "stream": stream}
+        text = _prompt(rng, n)
+        if path.endswith("chat/completions"):
+            body["messages"] = [{"role": "user", "content": text}]
+        else:
+            body["prompt"] = text
+        if tokenizer is not None:
+            body["token_ids"] = tokenizer.encode(text)
+        if stream:
+            # With logprobs every token gets its own frame, even one
+            # whose text is empty (random weights mostly sample ids
+            # past the byte tokenizer's range), so frames time tokens.
+            body["stream_options"] = {"include_usage": True}
+            body["logprobs"] = True
+        bodies.append(body)
+    return bodies
+
+
+def stream_tokens(frames):
+    """A chat stream's frames as (text, chosen-token logprobs, frame
+    times' indices, usage); raises unless it ends in [DONE]."""
+    if not frames or frames[-1] != "data: [DONE]":
+        raise AssertionError(f"stream did not end in [DONE]: {frames[-2:]}")
+    objs = [json.loads(f[len("data: "):]) for f in frames[:-1]]
+    text, lps, idx = "", [], []
+    for i, o in enumerate(objs):
+        if not o["choices"]:
+            continue
+        c = o["choices"][0]
+        text += c["delta"].get("content") or ""
+        for e in (c.get("logprobs") or {}).get("content") or []:
+            lps.append(e["logprob"])
+            idx.append(i)
+    return text, lps, idx, objs[-1].get("usage")
+
+
+def check_replies(plan, results):
+    """Every reply 200 with 32 completion tokens (a stream ends in [DONE]
+    and carries one token frame per token); returns the streams' TTFT
+    (ms) and decode tokens/s, and the completion tokens in all."""
+    ttfts, decode_rates, total_tokens = [], [], 0
+    for (path, stream, n), r in zip(plan, results):
+        if r.get("status") != 200:
+            raise AssertionError(f"{path} returned {r.get('status')}: {r}")
+        if stream:
+            _, _, idx, usage = stream_tokens(r["frames"])
+            # A frame carries one token, or a fused burst's tokens.
+            tok_t = [r["times"][i] for i in idx]
+            if not usage or usage["completion_tokens"] != 32 \
+                    or len(tok_t) != 32:
+                raise AssertionError(f"stream usage {usage}, "
+                                     f"{len(tok_t)} token frames")
+            ttfts.append(tok_t[0] * 1e3)
+            decode_rates.append(31 / (tok_t[-1] - tok_t[0]))
+            total_tokens += usage["completion_tokens"]
+        else:
+            usage = r["body"]["usage"]
+            if usage["completion_tokens"] != 32 or \
+                    r["body"]["choices"][0]["finish_reason"] != "length":
+                raise AssertionError(f"completion body {r['body']}")
+            total_tokens += usage["completion_tokens"]
+    return ttfts, decode_rates, total_tokens
+
+
+def run_concurrent(addr, bodies, headers=None):
+    """``SERVE_PLAN``'s requests with ``bodies``, all at once, to
+    ``addr``; returns (results, wall seconds)."""
+    results = [{} for _ in SERVE_PLAN]
+    threads = [threading.Thread(target=_request,
+                                args=(addr, p, b, s, r, headers))
+               for (p, s, _), b, r in zip(SERVE_PLAN, bodies, results)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return results, time.perf_counter() - t0
+
+
+def check_step_launches(rows, counts, layers: int, mla: bool,
+                        write_then_attend: bool, ragged: bool) -> list:
+    """Every step exactly (``step_launches_wanted``), and every kernel a
+    step wanted launched in the run (``counts``, zeroed just before it);
+    the unfused writers never. Returns the kernels the run needed."""
+    need = set()
+    for row in rows:
+        if ragged and row["kind"] == "mixed" and not row["ragged"]:
+            raise AssertionError(f"a mixed iteration ran split: {row}")
+        want = step_launches_wanted(row, layers, mla, write_then_attend)
+        pre = int(row["kind"] in ("prefill", "mixed"))
+        forwards = 1 if row["ragged"] else row["decode_dispatches"] + pre
+        if row["launches"] != want or row["forwards"] != forwards:
+            raise AssertionError(f"step launches: {row}, want {want}")
+        need |= {k for k, n in want.items() if n}
+    if any(counts[k] for k in UNFUSED_WRITERS):
+        raise AssertionError(f"an unfused writer ran: {counts}")
+    need = sorted(need)
+    missing = [k for k in need if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: "
+                             f"{missing} ({counts})")
+    return need
+
+
 def serve(torch, kernels, model: str, device: str, ragged: bool,
           write_then_attend: bool = True, tag: str = "",
           on_engine=None, graphs: bool = True, decode_steps: int = 1,
@@ -2347,42 +2494,13 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
                   "temperature": 0.0}, False, warm)
         if warm["status"] != 200:
             raise AssertionError(f"warm-up request failed: {warm}")
-        plan = [
-            ("/v1/chat/completions", True, 380),
-            ("/v1/completions", False, 250),
-            ("/v1/chat/completions", True, 120),
-            ("/v1/completions", False, 330),
-        ]
-        bodies = []
-        for path, stream, n in plan:
-            body = {"max_tokens": 32, "temperature": 0.0, "ignore_eos": True,
-                    "stream": stream}
-            if path.endswith("chat/completions"):
-                body["messages"] = [{"role": "user",
-                                     "content": _prompt(rng, n)}]
-            else:
-                body["prompt"] = _prompt(rng, n)
-            if stream:
-                # With logprobs every token gets its own frame, even one
-                # whose text is empty (random weights mostly sample ids
-                # past the byte tokenizer's range), so frames time tokens.
-                body["stream_options"] = {"include_usage": True}
-                body["logprobs"] = True
-            bodies.append(body)
+        plan = SERVE_PLAN
+        bodies = serve_bodies(rng)
         steps0 = w.engine.step_count
         ragged0 = w.engine.ragged_steps
         kernels.reset_launch_counts()
         steplog.clear()
-        results = [{} for _ in plan]
-        threads = [threading.Thread(target=_request,
-                                    args=(w.name, p, b, s, r))
-                   for (p, s, _), b, r in zip(plan, bodies, results)]
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        wall = time.perf_counter() - t0
+        results, wall = run_concurrent(w.name, bodies)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         steps = w.engine.step_count - steps0
@@ -2412,33 +2530,7 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
     kept = w.engine.params if keep_params else None
     del w, steplog
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    ttfts, decode_rates, total_tokens = [], [], 0
-    for (path, stream, n), r in zip(plan, results):
-        if r.get("status") != 200:
-            raise AssertionError(f"{path} returned {r.get('status')}: {r}")
-        if stream:
-            frames = r["frames"]
-            if frames[-1] != "data: [DONE]":
-                raise AssertionError(f"stream did not end in [DONE]: "
-                                     f"{frames[-2:]}")
-            objs = [json.loads(f[len("data: "):]) for f in frames[:-1]]
-            # A frame carries one token, or a fused burst's tokens.
-            tok_t = [r["times"][i] for i, o in enumerate(objs)
-                     if o["choices"] and o["choices"][0].get("logprobs")
-                     for _ in o["choices"][0]["logprobs"]["content"]]
-            usage = objs[-1]["usage"]
-            if usage["completion_tokens"] != 32 or len(tok_t) != 32:
-                raise AssertionError(f"stream usage {usage}, "
-                                     f"{len(tok_t)} token frames")
-            ttfts.append(tok_t[0] * 1e3)
-            decode_rates.append(31 / (tok_t[-1] - tok_t[0]))
-            total_tokens += usage["completion_tokens"]
-        else:
-            usage = r["body"]["usage"]
-            if usage["completion_tokens"] != 32 or \
-                    r["body"]["choices"][0]["finish_reason"] != "length":
-                raise AssertionError(f"completion body {r['body']}")
-            total_tokens += usage["completion_tokens"]
+    ttfts, decode_rates, total_tokens = check_replies(plan, results)
     if engine_ragged != ragged or engine_wta != write_then_attend:
         raise AssertionError(
             f"engine.ragged={engine_ragged}, write_then_attend="
@@ -2460,25 +2552,10 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
     # form) x layers per decode forward, its prefill attention plain, the
     # all-layer mode / K7 in attend-then-write. No other kernel, so the
     # unfused writers K1/K2 and K6 never.
-    need = set()
-    for row in rows:
-        if ragged and row["kind"] == "mixed" and not row["ragged"]:
-            raise AssertionError(f"a mixed iteration ran split: {row}")
-        want = step_launches_wanted(row, layers, mla, write_then_attend)
-        pre = int(row["kind"] in ("prefill", "mixed"))
-        forwards = 1 if row["ragged"] else row["decode_dispatches"] + pre
-        if row["launches"] != want or row["forwards"] != forwards:
-            raise AssertionError(f"step launches: {row}, want {want}")
-        need |= {k for k, n in want.items() if n}
+    check_step_launches(rows, counts, layers, mla, write_then_attend,
+                        ragged)
     if ragged and ragged_steps < 1:
         raise AssertionError("no ragged iteration ran")
-    if any(counts[k] for k in UNFUSED_WRITERS):
-        raise AssertionError(f"an unfused writer ran: {counts}")
-    need = sorted(need)
-    missing = [k for k in need if counts[k] <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing} ({counts})")
     mixed = [r for r in rows if r["kind"] == "mixed"]
     decode_rows = [r for r in rows if r["kind"] == "decode"]
     out = {"model": model, "layers": layers, "ragged": ragged,
@@ -2675,6 +2752,392 @@ def _median(xs):
     return xs[len(xs) // 2] if xs else None
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the cluster
+# ---------------------------------------------------------------------------
+
+class RefProcess:
+    """A process of the reference package (the coordination store or the
+    master), started as ``python -m <module>`` from this checkout: the
+    script itself imports nothing of that package. Waits (bounded) for
+    the stdout line starting with ``marker``; stderr goes to ``log``."""
+
+    def __init__(self, args, marker: str, log: Path,
+                 timeout: float = 60.0) -> None:
+        import queue
+        self.log_path = log
+        self._log = open(log, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", *args], cwd=ROOT, text=True,
+            stdout=subprocess.PIPE, stderr=self._log,
+            env={**os.environ, "PYTHONPATH": str(ROOT)})
+        lines: "queue.Queue[str]" = queue.Queue()
+
+        def drain() -> None:       # keeps the pipe from filling up
+            for line in self.proc.stdout:
+                lines.put(line)
+        threading.Thread(target=drain, daemon=True).start()
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                line = lines.get(timeout=max(deadline - time.monotonic(),
+                                             0.01))
+            except queue.Empty:
+                self.stop()
+                raise AssertionError(f"{args[0]} did not start: "
+                                     f"{self.tail()}") from None
+            if line.startswith(marker):
+                self.line = line.strip()
+                return
+
+    def tail(self, n: int = 20) -> str:
+        self._log.flush()
+        return "\n".join(self.log_path.read_text(
+            errors="replace").splitlines()[-n:])
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=15)
+        self._log.close()
+
+
+def _get(addr: str, path: str):
+    host, port = addr.rsplit(":", 1)
+    conn = HTTPConnection(host, int(port), timeout=30)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, json.loads(r.read() or b"null")
+    finally:
+        conn.close()
+
+
+class PushTimes:
+    """The RPC topology's push of a step's outputs to the master, timed
+    on the engine loop's thread, where it runs after the step and before
+    the next one. Wraps the method on the worker instance."""
+
+    def __init__(self, w) -> None:
+        self.ms = []
+        push = w._push_outputs_to_service
+
+        def timed_push(outs) -> None:
+            t0 = time.perf_counter()
+            push(outs)
+            if outs:
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+
+        w._push_outputs_to_service = timed_push
+
+    def summary(self, steplog) -> dict:
+        """This run's steps and pushes; empties the push log."""
+        steps = sorted(r["ms"] for r in steplog.rows)
+        pushes, self.ms = sorted(self.ms), []
+        return {"step_ms_median": _median(steps),
+                "step_ms_sum": sum(steps),
+                "pushes": len(pushes),
+                "push_ms_median": _median(pushes),
+                "push_ms_max": pushes[-1] if pushes else None,
+                "push_ms_sum": sum(pushes)}
+
+
+def start_master(store: str, rpc_topology: bool, log: Path):
+    """The reference master on ``store``: round robin, block size 128 (the
+    worker's page size), 0.5 s heartbeats. Returns (process, http, rpc)."""
+    args = ["xllm_service_tpu.service.master", "--host", "127.0.0.1",
+            "--http-port", "0", "--rpc-port", "0", "--etcd-addr", store,
+            "--block-size", "128", "--heartbeat-interval", "0.5",
+            "--load-balance-policy", "RR"]
+    if rpc_topology:
+        args.append("--enable-decode-response-to-service")
+    p = RefProcess(args, "XLLM_SERVICE_UP", log)
+    fields = dict(f.split("=", 1) for f in p.line.split()[1:])
+    return p, fields["http"], fields["rpc"]
+
+
+def listed(master_rpc: str) -> list:
+    status, resp = _get(master_rpc, "/rpc/static_prefill_list")
+    if status != 200:
+        raise AssertionError(f"static_prefill_list: {status} {resp}")
+    return resp["instances"]
+
+
+def master_row(master_http: str, name: str):
+    """The master's books on instance ``name`` (load and latency as its
+    heartbeats carried them), from ``/admin/debug_bundle``."""
+    status, bundle = _get(master_http, "/admin/debug_bundle")
+    if status != 200:
+        raise AssertionError(f"debug_bundle: {status}")
+    return next((r for r in bundle["instances"] if r["name"] == name),
+                None)
+
+
+def wait_for(cond, timeout: float, what: str, step: float = 0.05):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = cond()
+        if got:
+            return got
+        time.sleep(step)
+    got = cond()
+    if not got:
+        raise AssertionError(f"phase 6: {what} not within {timeout:g} s")
+    return got
+
+
+def cluster_phase(torch, kernels, card: str) -> dict:
+    """Phase 6: the reference store and master as child processes, the
+    port's worker (llama3-1b, 16 layers, bf16, write-then-attend, decode
+    through the warmed-up graphs) in-process, registered through the
+    store. Checks: one streamed chat alone gives the same text and token
+    logprobs direct and through the master; the four served requests
+    through the relay master all finish, each step launching the kernels
+    it must; the master's books show the load a heartbeat carried (and
+    its step p99) while a long stream runs, which ``POST /cancel`` then
+    ends, the engine idle after; the master is replaced by one in the
+    RPC topology, which the worker follows through the store, and the
+    four requests finish through it too; ``stop()`` takes the worker off
+    the master's list within the lease TTL."""
+    from xllm_service_tpu_torch.runtime import worker
+    model = "llama3-1b"
+    logs = ROOT / "build" / "cluster_logs"
+    logs.mkdir(parents=True, exist_ok=True)
+    procs, w, out = [], None, {}
+    try:
+        store = RefProcess(["xllm_service_tpu.service.coordination_net",
+                            "--port", "0"],
+                           "coordination store serving on",
+                           logs / "store.log")
+        procs.append(store)
+        store_addr = store.line.split()[-1]
+        relay, relay_http, relay_rpc = start_master(
+            store_addr, False, logs / "master_relay.log")
+        procs.append(relay)
+        args = worker.parse_args([
+            "--model", model, "--device", "cuda",
+            "--page-size", "128", "--num-pages", "512",
+            "--max-model-len", "1024", "--max-batch-size", "8",
+            "--prefill-buckets", "128,256,512", "--max-prefill-tokens",
+            "256", "--instance-type", "DEFAULT",
+            "--store-addr", store_addr, "--service-addr", relay_rpc,
+            "--heartbeat-interval-s", "0.5"])
+        env = {"XLLM_RAGGED_ATTN": "0", "XLLM_WRITE_THEN_ATTEND": "1",
+               "XLLM_CUDA_GRAPHS": "1"}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            t0 = time.perf_counter()
+            # Warms up (captures the decode graphs) in build, then
+            # registers in start().
+            w = worker.build_worker(args)
+            out["worker_build_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            w.start()
+            out["worker_start_s"] = time.perf_counter() - t0
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    del os.environ[k]
+                else:
+                    os.environ[k] = v
+        t0 = time.perf_counter()
+        wait_for(lambda: w.name in listed(relay_rpc), 60.0,
+                 "the worker on the master's list")
+        out["listed_after_start_s"] = time.perf_counter() - t0
+        status, info = _get(relay_rpc,
+                            f"/rpc/instance_info?name={w.name}")
+        if status != 200 or info["page_size"] != 128 or \
+                info["models"] != [model] or \
+                info["kv_block_bytes"] != w.engine.kv_block_bytes():
+            raise AssertionError(f"registration on the master: {info}")
+        layers = w.engine.cfg.num_layers
+        steplog = StepLog(w.engine, kernels)
+        pushes = PushTimes(w)
+        rng = random.Random(6)
+        chat = "/v1/chat/completions"
+
+        # 1. One streamed chat alone, direct and through the master.
+        text = _prompt(rng, 200)
+        one = {"model": model, "max_tokens": 32, "temperature": 0.0,
+               "ignore_eos": True, "stream": True, "logprobs": True,
+               "stream_options": {"include_usage": True},
+               "messages": [{"role": "user", "content": text}],
+               "token_ids": w.tokenizer.encode(text)}
+        alone = {}
+        for where, addr in (("direct", w.name), ("master", relay_http)):
+            r = {}
+            _request(addr, chat, one, True, r)
+            if r.get("status") != 200:
+                raise AssertionError(f"{where} chat: {r}")
+            alone[where] = stream_tokens(r["frames"])
+        (t_d, lp_d, _, u_d), (t_m, lp_m, _, u_m) = (alone["direct"],
+                                                    alone["master"])
+        lp_diff = max(abs(a - b) for a, b in zip(lp_d, lp_m))
+        if t_d != t_m or len(lp_d) != 32 or len(lp_m) != 32 or \
+                u_d != u_m or lp_diff > ATTN_TOL:
+            raise AssertionError(f"alone: direct {t_d!r} {u_d} vs master "
+                                 f"{t_m!r} {u_m}, logprob diff {lp_diff}")
+        out["alone_logprob_max_diff"] = lp_diff
+
+        # 2. The four requests direct, then through the relay master.
+        bodies = [{**b, "model": model}
+                  for b in serve_bodies(rng, w.tokenizer)]
+        runs = {}
+        for where, addr in (("direct", w.name), ("relay", relay_http)):
+            kernels.reset_launch_counts()
+            steplog.clear()
+            pushes.ms.clear()
+            results, wall = run_concurrent(addr, bodies)
+            torch.cuda.synchronize()
+            ttft, rate, toks = check_replies(SERVE_PLAN, results)
+            need = check_step_launches(steplog.rows,
+                                       kernels.launch_counts(), layers,
+                                       False, True, False)
+            runs[where] = {"ttft_ms_streams": ttft,
+                           "decode_tokens_per_s_streams": rate,
+                           "wall_s": wall,
+                           "tokens_per_s_aggregate": toks / wall,
+                           "engine_steps": len(steplog.rows),
+                           **pushes.summary(steplog),
+                           "launches": {k: kernels.launch_counts()[k]
+                                        for k in need}}
+
+        # 3-4. A long stream through the master: the master's books show
+        # the heartbeat's load; POST /cancel ends it.
+        srid = "phase6-cancel"
+        long_body = {"model": model, "max_tokens": 900,
+                     "temperature": 0.0, "ignore_eos": True, "stream": True,
+                     "logprobs": True,
+                     "messages": [{"role": "user",
+                                   "content": _prompt(rng, 64)}]}
+        long_r = {}
+        th = threading.Thread(target=_request, args=(
+            relay_http, chat, long_body, True, long_r,
+            {"x-request-id": srid}))
+        th.start()
+        try:
+            wait_for(lambda: srid in w._live and w.engine.running, 30.0,
+                     "the long request running")
+            # One running request: a beat sent while the long stream
+            # ran, not one left from the four requests.
+            row = wait_for(lambda: (lambda r: r if r and r["load"]
+                                    ["running_requests"] == 1 and
+                                    r["latency"]["step_ms_p99"] > 0
+                                    else None)(
+                master_row(relay_http, w.name)), 10.0,
+                "the heartbeat's load on the master")
+            # The next beat covers decode steps only (the first holds
+            # the long request's prefill).
+            beats, age = [row["latency"]["step_ms_p99"]], \
+                row["heartbeat_age_s"]
+            t_end = time.monotonic() + 1.5
+            while len(beats) < 2 and time.monotonic() < t_end:
+                r = master_row(relay_http, w.name)
+                if r["heartbeat_age_s"] < age and \
+                        r["load"]["running_requests"] == 1:
+                    beats.append(r["latency"]["step_ms_p99"])
+                age = r["heartbeat_age_s"]
+                time.sleep(0.05)
+            status, ack = 0, None
+            host, port = w.name.rsplit(":", 1)
+            conn = HTTPConnection(host, int(port), timeout=30)
+            conn.request("POST", "/cancel", json.dumps(
+                {"service_request_id": srid}),
+                {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            status, ack = resp.status, json.loads(resp.read())
+            conn.close()
+        finally:
+            th.join(timeout=60)
+        if status != 200 or ack != {"ok": True} or th.is_alive():
+            raise AssertionError(f"cancel: {status} {ack}")
+        _, lp_c, _, _ = stream_tokens(long_r["frames"])
+        if len(lp_c) >= 900:
+            raise AssertionError("the cancelled stream ran to its end")
+        wait_for(lambda: not w.engine.running and not w.engine.has_work()
+                 and not w._live, 10.0, "an idle engine after the cancel")
+        out["heartbeat_on_master"] = row
+        out["heartbeat_step_ms_p99"] = beats
+        out["cancelled_after_tokens"] = len(lp_c)
+
+        # 5. The RPC topology: the relay master stops, one with
+        # --enable-decode-response-to-service takes over; the worker
+        # follows the store's advertisement and learns the topology.
+        relay.stop()
+        procs.remove(relay)
+        rpc_p, rpc_http, rpc_rpc = start_master(
+            store_addr, True, logs / "master_rpc.log")
+        procs.append(rpc_p)
+        t0 = time.perf_counter()
+        wait_for(lambda: w.service_addr == rpc_rpc and w._decode_to_service
+                 and w.name in listed(rpc_rpc), 60.0,
+                 "the worker following the new master")
+        out["takeover_s"] = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        steplog.clear()
+        pushes.ms.clear()
+        results, wall = run_concurrent(rpc_http, bodies)
+        torch.cuda.synchronize()
+        ttft, rate, toks = check_replies(SERVE_PLAN, results)
+        need = check_step_launches(steplog.rows, kernels.launch_counts(),
+                                   layers, False, True, False)
+        runs["rpc"] = {"ttft_ms_streams": ttft,
+                       "decode_tokens_per_s_streams": rate,
+                       "wall_s": wall,
+                       "tokens_per_s_aggregate": toks / wall,
+                       "engine_steps": len(steplog.rows),
+                       **pushes.summary(steplog),
+                       "launches": {k: kernels.launch_counts()[k]
+                                    for k in need}}
+
+        # 6. stop() takes the worker off the master's list within the
+        # lease TTL.
+        t0 = time.perf_counter()
+        w.stop()
+        # Still referenced: freeing the engine is not part of the wait.
+        stopped, w = w, None
+        wait_for(lambda: stopped.name not in listed(rpc_rpc),
+                 stopped.lease_ttl_s, "the worker off the list after stop()")
+        out["off_list_after_stop_s"] = time.perf_counter() - t0
+        del stopped
+    except Exception:
+        for p in procs:
+            log(f"[cluster] {p.proc.args[2]} log tail:\n{p.tail()}")
+        raise
+    finally:
+        if w is not None:
+            w.stop()
+        for p in procs:
+            p.stop()
+    out["runs"] = runs
+    import statistics
+    med = {k: {"ttft_ms": statistics.median(v["ttft_ms_streams"]),
+               "decode_tokens_per_s": statistics.median(
+                   v["decode_tokens_per_s_streams"])}
+           for k, v in runs.items()}
+    out["medians"] = med
+    log(f"[cluster] detail {json.dumps(out)}")
+    log(f"[cluster-loop] {card}: the engine loop per run, [steps, step "
+        f"ms median, pushes, push ms median, push ms max]: "
+        + json.dumps({k: [v["engine_steps"], v["step_ms_median"],
+                          v["pushes"], v["push_ms_median"],
+                          v["push_ms_max"]] for k, v in runs.items()}))
+    log(f"[cluster] {card}: median TTFT ms through the master (relay) "
+        f"{med['relay']['ttft_ms']}, (rpc) {med['rpc']['ttft_ms']}, direct "
+        f"{med['direct']['ttft_ms']}; median decode tokens/s per stream "
+        f"through the master (relay) {med['relay']['decode_tokens_per_s']}"
+        f", (rpc) {med['rpc']['decode_tokens_per_s']}, direct "
+        f"{med['direct']['decode_tokens_per_s']}; heartbeat step_ms_p99 "
+        f"by beat during a long stream (the first holds its prefill) "
+        f"{beats}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2869,6 +3332,10 @@ def main() -> int:
                                   card)
     served_g = decode_mode_rounds(torch, kernels, "deepseek-v2-lite", "g",
                                   err_mla, card)
+    free_device_memory(torch)
+    # 6. The cluster: the reference master in front of the port's worker.
+    clustered = cluster_phase(torch, kernels, card)
+    free_device_memory(torch)
     margins = served_c["on_engine"] + served_e["on_engine"]
     for phase in (served, served_b, served_c, served_d, served_e):
         phase.pop("prompts")
@@ -2879,7 +3346,7 @@ def main() -> int:
         f"largest logit error, llama3-1b {err}, deepseek-v2-lite "
         f"{err_mla}): {json.dumps(margins)}")
 
-    # 6. Summary.
+    # 7. Summary.
     for r in bench.results:
         name = r.get("entry", r["name"])       # a record at another shape
         phase = (served_b if name == "ragged_paged_attention" else
@@ -2900,6 +3367,7 @@ def main() -> int:
                "serve_deepseek_attend_then_write": served_e,
                "serve_decode_modes": served_f,
                "serve_deepseek_decode_modes": served_g,
+               "cluster": clustered,
                "graph_decode_check": {"llama3-1b": graph,
                                       "deepseek-v2-lite": graph_mla},
                "equal_token_share": same,

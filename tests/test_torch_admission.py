@@ -9,8 +9,9 @@ cache, as the port has). Pinned: a request whose prompt fits but whose
 prompt + ``max_tokens`` would not is served, with the JAX engine's
 tokens, also through the worker; on a pool too small for the running
 set the token streams, the per-step ledger and the preemption count
-equal the JAX engine's, in the split, ragged and prefill-first steps; a
-prompt that can never fit is refused with the JAX engine's message."""
+equal the JAX engine's, in the split, ragged and prefill-first steps, and
+so does the heartbeat's ``load_metrics()`` after every step; a prompt
+that can never fit is refused with the JAX engine's message."""
 
 import dataclasses
 import json
@@ -79,8 +80,9 @@ def _feed(workload, seed=0):
     return feed
 
 
-def _drive(engine, feed, request, sampling, eos=()):
-    """Run to idle; returns (streams, finish reasons, per-step ledger)."""
+def _drive(engine, feed, request, sampling, eos=(), loads=None):
+    """Run to idle; returns (streams, finish reasons, per-step ledger).
+    ``loads``, a list, takes ``engine.load_metrics()`` after each step."""
     streams, finish, ledger, step = {}, {}, [], 0
     while engine.has_work() or step < max(feed):
         step += 1
@@ -96,6 +98,8 @@ def _drive(engine, feed, request, sampling, eos=()):
                        tuple(engine.last_step_prefill_windows),
                        engine.last_step_decode_tokens,
                        engine.last_step_attn_dispatches))
+        if loads is not None:
+            loads.append(engine.load_metrics())
         assert step < 400, "engine did not drain"
     return streams, finish, ledger
 
@@ -127,6 +131,25 @@ def test_preemption_under_a_tight_pool_matches_jax(weights, mode):
         assert any(r for _, r, *_ in tled), "no ragged iteration ran"
     assert port.allocator.num_free == TIGHT["num_pages"] - 1
     assert all(s is None for s in port._slots)
+
+
+@pytest.mark.parametrize("mode", [dict(), dict(ragged_attn=True),
+                                  dict(interleave=False)],
+                         ids=["split", "ragged", "prefill_first"])
+def test_load_metrics_match_jax_at_every_step(weights, mode):
+    """The heartbeat's load (queue depths, the prefill backlog, KV usage,
+    preemptions) equals the JAX engine's after every step under
+    pressure; the JAX engine has no prefix cache here, so neither counts
+    reclaimable pages."""
+    jloads, tloads = [], []
+    _drive(_jax(weights, **mode), _feed(PRESSURE), JaxRequest, JaxSampling,
+           loads=jloads)
+    _drive(_port(weights, **mode), _feed(PRESSURE), EngineRequest,
+           SamplingParams, loads=tloads)
+    assert tloads == jloads
+    assert max(x["kv_cache_usage"] for x in tloads) > 0.9
+    assert max(x["waiting_prefill_tokens"] for x in tloads) > 0
+    assert tloads[-1]["num_preemptions"] > 0
 
 
 def test_decode_growth_takes_one_page_at_a_time(weights):

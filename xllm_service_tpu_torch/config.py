@@ -1,11 +1,13 @@
-"""Model and engine configuration for the PyTorch/CUDA worker.
+"""Model, engine and cluster-role configuration for the PyTorch/CUDA
+worker.
 
 ``ModelConfig`` is a copy of the JAX package's architecture config
 (presets and ``from_hf_config`` unchanged), so a configuration written
 for one package describes the same model in the other. ``EngineConfig``
 keeps the fields this engine reads: the paged KV pool, the decode slot
 count, the prefill buckets, the step schedule and the order of the KV
-write.
+write. ``InstanceType`` is the worker's role in the cluster, as the
+JAX package names it.
 
 Standard library only.
 """
@@ -13,8 +15,21 @@ Standard library only.
 from __future__ import annotations
 
 import dataclasses
+import enum
 import os
 from typing import Any, Dict, Optional, Tuple
+
+
+class InstanceType(str, enum.Enum):
+    """Worker roles. Mirrors reference ``common/types.h:71-79``; ENCODE is the
+    net-new EPD multimodal encode role (reference claims EPD but keeps it
+    engine-side)."""
+
+    DEFAULT = "DEFAULT"
+    PREFILL = "PREFILL"
+    DECODE = "DECODE"
+    MIX = "MIX"
+    ENCODE = "ENCODE"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -251,6 +251,10 @@ class Engine:
         self.last_step_tokens = 0
         self.last_step_prefill_tokens = 0
         self.last_step_decode_tokens = 0
+        # Host seconds of the step's prefill forward, its sampled tokens
+        # read back (a ragged forward's whole time): the heartbeat's
+        # measured prefill rate.
+        self.last_step_prefill_s = 0.0
         self.last_step_prefill_windows: Tuple[int, ...] = ()
         self.last_step_decode_deferred = False
         self.last_step_ragged = False
@@ -307,6 +311,36 @@ class Engine:
 
     def has_work(self) -> bool:
         return bool(self.waiting or self.running or self._cancelled)
+
+    # ------------------------------------------------------------------
+    # Load reporting (the worker's heartbeat and /metrics). The heartbeat
+    # thread calls these without the engine lock, so they read snapshots.
+    # ------------------------------------------------------------------
+    def load_metrics(self) -> Dict[str, Any]:
+        """The heartbeat's LoadMetrics, with the JAX engine's formulas.
+        No prefix cache here, so no page is reclaimable, and no MoE
+        capacity drop is counted."""
+        used = self.ecfg.num_pages - 1 - self.allocator.num_free
+        return {
+            "waiting_requests": len(self.waiting),
+            "running_requests": len(self.running),
+            "waiting_prefill_tokens": self.waiting_prefill_tokens(),
+            "kv_cache_usage": used / max(self.ecfg.num_pages - 1, 1),
+            "num_preemptions": self.num_preemptions,
+            "moe_dropped_tokens": 0,
+        }
+
+    def waiting_prefill_tokens(self) -> int:
+        """Prefill backlog: prompt tokens queued but not yet computed."""
+        return sum(max(len(s.tokens) - s.num_computed, 0)
+                   for s in list(self.waiting))
+
+    def kv_block_bytes(self) -> int:
+        """Bytes of one KV page across every layer, K and V (the
+        registration record's ``kv_block_bytes``)."""
+        k_pages = self.kv[0]
+        return 2 * k_pages.numel() * k_pages.element_size() \
+            // k_pages.shape[1]
 
     # ------------------------------------------------------------------
     # Pages and slots
@@ -409,6 +443,7 @@ class Engine:
         outs = self._drain_cancelled()
         self.last_step_prefill_tokens = 0
         self.last_step_decode_tokens = 0
+        self.last_step_prefill_s = 0.0
         self.last_step_prefill_windows = ()
         self.last_step_decode_deferred = False
         self.last_step_ragged = False
@@ -464,7 +499,9 @@ class Engine:
         # token sampled per window.
         self.last_step_prefill_windows = tuple(s.sched_window for s in batch)
         self.last_step_prefill_tokens = sum(self.last_step_prefill_windows)
+        t0 = time.perf_counter()
         outs.extend(self._run_prefill(batch))
+        self.last_step_prefill_s = time.perf_counter() - t0
 
     def _starvation_quantum(self) -> int:
         """Floor on an iteration's prefill budget: the smallest bucket
@@ -631,7 +668,9 @@ class Engine:
         self.last_step_decode_tokens = nd
         spans = [(len(s.tokens) - 1, 1) for s in decode_seqs] + \
             [(s.num_computed, w) for s, w in zip(batch, windows)]
+        t0 = time.perf_counter()
         toks, lps = self._forward_windows(rows, spans, ragged=True)
+        self.last_step_prefill_s = time.perf_counter() - t0
         self.ragged_steps += 1
         for i, seq in enumerate(decode_seqs):
             seq.num_computed = len(seq.tokens)

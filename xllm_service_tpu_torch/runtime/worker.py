@@ -1,26 +1,46 @@
-"""Worker process: an OpenAI HTTP front over one engine on one device.
+"""Worker process: an OpenAI HTTP front over one engine on one device,
+a member of the service's cluster.
 
-The counterpart of the JAX package's ``runtime/worker.py`` serving
-requests sent straight to the worker (no master in front):
+The counterpart of the JAX package's ``runtime/worker.py``:
 
-- ``GET /hello``, ``GET /v1/models``;
+- ``GET /hello``, ``GET /v1/models``, ``GET /metrics`` (Prometheus text:
+  load gauges and per-step series under the JAX worker's names);
 - ``POST /v1/completions`` and ``POST /v1/chat/completions``, with
-  ``stream`` true (SSE, ending in ``data: [DONE]``) or false. Prompts
-  are tokenized here (chat messages joined by newlines, as the JAX
-  worker does), and the response and SSE chunk JSON come from the same
-  assemblers.
+  ``stream`` true (SSE, ending in ``data: [DONE]``) or false. A request
+  the master forwards carries its token ids and the service-parsed
+  ``sampling``; a request sent straight here is tokenized here (chat
+  messages joined by newlines, as the JAX worker does). The response
+  and SSE chunk JSON come from the same assemblers;
+- ``POST /cancel`` ``{"service_request_id"}``: ends a request in flight.
+
+The cluster plane, as the JAX worker runs it: ``start()`` registers an
+``InstanceMetaInfo`` under ``XLLM:<TYPE>:<name>`` in the coordination
+store on a TTL lease (after the engine's warmup, which ``__init__``
+runs), follows the master's advertised address (``XLLM:SERVICE:ADDR``),
+and a heartbeat loop keeps the lease alive (re-registering when the
+store says it is gone) and sends the master ``Heartbeat``s with the
+engine's load, its recent step p99 and its prefill rate. When the
+service's ``/rpc/config`` asks for ``enable_decode_response_to_service``
+(the RPC topology), a request's ``RequestOutput``s are pushed to the
+master's ``/rpc/generations`` and its HTTP reply is only the ack;
+otherwise the master relays this worker's SSE stream. Given neither
+``store_addr`` nor ``service_addr``, the worker opens no store, registers
+nowhere and sends no heartbeat: it serves requests sent straight to it.
 
 One engine-loop thread owns the device and runs ``Engine.step()``; HTTP
 handler threads queue requests to it under the engine lock and read
 their outputs from a per-request queue.
 
-Not in this package yet: registration and heartbeats with the master,
-``/metrics``, ``/admin/*``, PD/EPD traffic, and the sampling options
-the engine lacks (``n``/``best_of`` > 1, ``echo``, ``top_logprobs``,
+Not in this package yet: etcd stores, profiling data in the
+registration, draining, spans and step-trace tails on the heartbeat,
+failpoints, sleep/wakeup and role flips, ``/admin/*``, PD/EPD traffic,
+the relay's per-frame token ledger, and the sampling options the engine
+lacks (``n``/``best_of`` > 1, ``echo``, ``top_logprobs``,
 ``logit_bias``, presence/frequency penalties), which are refused with a
 400 rather than ignored.
 
-Run: ``python -m xllm_service_tpu_torch.runtime.worker --model llama3-1b``.
+Run: ``python -m xllm_service_tpu_torch.runtime.worker --model llama3-1b``
+(add ``--store-addr`` and ``--service-addr`` to join a cluster).
 """
 
 from __future__ import annotations
@@ -33,22 +53,36 @@ import queue
 import secrets
 import signal
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
-from xllm_service_tpu_torch.config import EngineConfig, ModelConfig
+from xllm_service_tpu_torch.config import (EngineConfig, InstanceType,
+                                           ModelConfig)
 from xllm_service_tpu_torch.models.transformer import Params
 from xllm_service_tpu_torch.nlp.tokenizer import (IncrementalDecoder,
                                                   Tokenizer,
                                                   TokenizerFactory)
+from xllm_service_tpu_torch.obs.metrics import (Registry,
+                                                quantile_from_buckets)
 from xllm_service_tpu_torch.runtime.engine import (Engine, EngineRequest,
                                                    StepOutput)
+from xllm_service_tpu_torch.service.coordination import (
+    KEY_MASTER_ADDR, CoordinationStore, instance_prefix)
+from xllm_service_tpu_torch.service.coordination_net import (
+    StoreOutageError, connect_store)
+from xllm_service_tpu_torch.service.httpd import http_json
+from xllm_service_tpu_torch.service.instance_types import (
+    Heartbeat, InstanceMetaInfo, LatencyMetrics, LoadMetrics)
 from xllm_service_tpu_torch.service.response_handler import (
     ChatStreamAssembler, CompletionStreamAssembler, ResponseCollector,
     sse_frame)
+from xllm_service_tpu_torch.utils import threads
+from xllm_service_tpu_torch.utils.retry import RetryPolicy
 from xllm_service_tpu_torch.utils.types import (
     FinishReason, LogProb, RequestOutput, SamplingParams, SequenceOutput,
-    Usage, parse_openai_sampling, validate_sampling)
+    Status, StatusCode, Usage, parse_openai_sampling, validate_sampling)
+from xllm_service_tpu_torch.utils.wire import stamp
 
 logger = logging.getLogger(__name__)
 
@@ -81,6 +115,15 @@ class WorkerOptions:
     warmup: Optional[bool] = None
     # Bound on the wait for one engine output of a request.
     request_timeout_s: float = 600.0
+    # The cluster plane (JAX worker runtime/worker.py:128-161).
+    instance_type: InstanceType = InstanceType.DEFAULT
+    service_addr: str = ""      # service RPC host:port for heartbeats
+    store_addr: str = ""        # coordination store; '' = in-process
+    heartbeat_interval_s: float = 3.0
+    lease_ttl_s: Optional[float] = None   # None = 3 x the interval
+    # Must equal the service's --murmur-hash3-seed (advertised as the
+    # registration's hash_seed).
+    murmur_seed: int = 0
 
 
 class HttpError(Exception):
@@ -143,12 +186,16 @@ class _EngineDied:
 
 
 class _LiveRequest:
-    """Host-side streaming state of one in-flight request."""
+    """Host-side streaming state of one in-flight request.
+    ``stream_to_service``: its outputs are pushed to the service's RPC
+    fan-in by the engine loop instead of queued for an HTTP reply."""
 
     def __init__(self, req: EngineRequest, tokenizer: Tokenizer, model: str,
                  is_chat: bool, stream: bool, include_usage: bool,
-                 sampling: SamplingParams) -> None:
+                 sampling: SamplingParams,
+                 stream_to_service: bool = False) -> None:
         self.req = req
+        self.stream_to_service = stream_to_service
         self.q: "queue.Queue[Any]" = queue.Queue()
         self.tokenizer = tokenizer
         self.model = model
@@ -175,6 +222,10 @@ _UNSUPPORTED = (
     ("presence_penalty", lambda sp: sp.presence_penalty != 0.0),
     ("frequency_penalty", lambda sp: sp.frequency_penalty != 0.0),
 )
+
+
+MODEL_AWAKE = "awake"
+_STEP_PHASES = ("prefill", "decode", "mixed")
 
 
 class Worker:
@@ -210,31 +261,406 @@ class Worker:
         host, port = self._srv.server_address[:2]
         self.name = f"{host}:{port}"
         self._threads: List[threading.Thread] = []
+        # The cluster plane: none for a worker given neither a store nor
+        # a service, which serves requests sent straight to it.
+        self.store: Optional[CoordinationStore] = (
+            connect_store(opts.store_addr)
+            if opts.store_addr or opts.service_addr else None)
+        self.lease_ttl_s = (opts.lease_ttl_s if opts.lease_ttl_s
+                            else 3 * opts.heartbeat_interval_s)
+        # The registry /metrics renders, under the JAX worker's series
+        # names; the families are made once, the engine loop fills them.
+        self.obs = Registry()
+        self._m_steps = self.obs.counter(
+            "xllm_worker_steps_total",
+            "engine iterations by phase "
+            "(mixed = interleaved decode+prefill)",
+            labelnames=("model", "phase"))
+        self._m_step_tokens = self.obs.counter(
+            "xllm_worker_step_tokens_total",
+            "batch token occupancy: prompt tokens computed (prefill) / "
+            "tokens sampled (decode); mixed iterations split per phase",
+            labelnames=("model", "phase"))
+        self._m_step_ms = self.obs.histogram(
+            "xllm_worker_step_ms", "wall time of one engine step",
+            labelnames=("model", "phase"))
+        self._m_alive = self.obs.gauge(
+            "xllm_worker_engine_alive",
+            "1 while the engine loop serves this model, 0 once it died",
+            labelnames=("model",))
+        self._m_load = {k: self.obs.gauge(f"xllm_worker_{k}",
+                                          labelnames=("model",))
+                        for k in self.engine.load_metrics()}
+        self._lease_id: Optional[int] = None
+        self._reg_mu = threading.Lock()
+        self._addr_watch: Optional[int] = None
+        # Current service target (configured, then store-advertised) and
+        # its topology; compare-and-swapped under _addr_mu by the watch
+        # thread and the heartbeat thread.
+        self._addr_mu = threading.Lock()
+        self._service_addr = opts.service_addr
+        self._service_config_stale = bool(opts.service_addr)
+        self._decode_to_service = False
+        # Serializes heartbeat build + send; the step-p99 baseline and
+        # the acked master epoch are touched only under it.
+        self._hb_lock = threading.Lock()
+        self._hb_step_cum: Dict[str, List[Tuple[float, float]]] = {}
+        self._master_epoch = 0
+        self._prefill_tok_cum = 0
+        self._prefill_s_cum = 0.0
+        # Beat sends back off against a down master with full jitter
+        # while the loop keeps ticking (the lease keepalive must go on);
+        # registration retries a store hiccup at boot.
+        self._hb_backoff = RetryPolicy(
+            max_attempts=1, base_delay_s=opts.heartbeat_interval_s,
+            max_delay_s=30.0, multiplier=2.0, jitter=0.5)
+        self._reg_retry = RetryPolicy(max_attempts=5, base_delay_s=0.2,
+                                      max_delay_s=5.0)
 
     # ------------------------------------------------------------------
     # Lifecycle
     # ------------------------------------------------------------------
     def start(self) -> "Worker":
+        """Serve, then join the cluster (JAX worker :921-975): register
+        under a lease with retry and backoff (a store outage waits
+        without spending the budget), adopt and watch the master's
+        advertised address, learn the service's topology, and start the
+        heartbeat loop. The engine warmed up in ``__init__``, before
+        registration. A worker without a store only serves."""
         for target, name in ((self._engine_loop, "engine-loop"),
                              (self._srv.serve_forever, "http")):
             t = threading.Thread(target=target, name=f"worker-{name}",
                                  daemon=True)
             t.start()
             self._threads.append(t)
+        if self.store is None:
+            return self
+        attempt = outage_waits = 0
+        while not self._stop.is_set():
+            try:
+                self._register()
+                break
+            except StoreOutageError as e:
+                outage_waits += 1
+                if outage_waits == 1 or outage_waits % 10 == 0:
+                    logger.warning("store outage at boot (%s); "
+                                   "registration queued until heal", e)
+                self._reg_retry.sleep(min(outage_waits - 1, 4),
+                                      stop_event=self._stop)
+            except Exception as e:  # noqa: BLE001 — transient store error
+                attempt += 1
+                if attempt >= self._reg_retry.max_attempts:
+                    raise
+                logger.warning("registration attempt %d failed (%s); "
+                               "backing off", attempt, e)
+                self._reg_retry.sleep(attempt - 1, stop_event=self._stop)
+        # Only a worker configured with a service follows the advertised
+        # master: a standalone worker sharing the store must not start
+        # taking routed traffic.
+        if self.opts.service_addr:
+            self._adopt_advertised_addr()
+            self._addr_watch = self.store.add_watch(KEY_MASTER_ADDR,
+                                                    self._on_master_addr)
+            self._refresh_service_config()
+        self._threads.append(threads.spawn("worker.hb_loop",
+                                           self._heartbeat_loop))
         return self
 
     def stop(self) -> None:
+        """Cancel the watch, end live streams, revoke the lease and stop
+        the HTTP server (JAX worker :1074-1112, which revokes last): the
+        master drops this instance on the lease's DELETE, before the
+        server's shutdown poll."""
         self._stop.set()
         self._work.set()
+        if self._addr_watch is not None:
+            try:
+                self.store.cancel_watch(self._addr_watch)
+            except Exception:  # noqa: BLE001 — best-effort: the store
+                pass            # may be gone
+            self._addr_watch = None
+        self._end_lives("worker stopped")
+        with self._reg_mu:
+            lease_id, self._lease_id = self._lease_id, None
+        if lease_id is not None:
+            try:
+                self.store.lease_revoke(lease_id)
+            except Exception:  # noqa: BLE001 — best-effort: the lease's
+                pass            # TTL expires it anyway
         if self._threads:
             self._srv.shutdown()
         self._srv.server_close()
         for t in self._threads:
             t.join(timeout=30.0)
+        if self.store is not None:
+            self.store.close()
 
     def serve_forever(self) -> None:
         """Block until ``stop`` (from another thread or a signal)."""
         self._stop.wait()
+
+    # ------------------------------------------------------------------
+    # Registration and the master's address
+    # ------------------------------------------------------------------
+    def _register(self) -> None:
+        """Write the registration (JAX worker :1114-1169; no profiling
+        data, as this engine has no profiler yet) under a fresh TTL
+        lease. A re-registration revokes the old lease first, or every
+        one leaks a live lease in the store."""
+        layers = list(range(self.model_cfg.num_layers))
+        meta = InstanceMetaInfo(
+            name=self.name, rpc_address=self.name,
+            instance_type=self.opts.instance_type,
+            models=[self.opts.model], dp_size=1,
+            k_cache_ids=layers, v_cache_ids=list(layers),
+            addrs=[self.name],
+            # The block-hash contract the service checks against its
+            # (block_size, murmur seed), and one block's bytes.
+            page_size=self.engine.ecfg.page_size,
+            hash_seed=self.opts.murmur_seed,
+            kv_block_bytes=self.engine.kv_block_bytes())
+        with self._reg_mu:
+            if self._lease_id is not None:
+                try:
+                    self.store.lease_revoke(self._lease_id)
+                except Exception:  # noqa: BLE001 — best-effort: the old
+                    pass            # lease's TTL expires it anyway
+                self._lease_id = None
+            self._lease_id = self.store.lease_grant(self.lease_ttl_s)
+            self.store.put_json(
+                instance_prefix(self.opts.instance_type.value) + self.name,
+                stamp(meta.to_json()), self._lease_id)
+
+    @property
+    def service_addr(self) -> str:
+        """Current service RPC target (configured, then store-advertised)."""
+        return self._service_addr
+
+    def _retarget(self, info) -> bool:
+        """Adopt an advertised master address if it differs from the
+        current target, and mark the service config stale: the
+        heartbeat loop re-fetches it, never the watch thread."""
+        rpc = (info or {}).get("rpc")
+        if not rpc:
+            return False
+        with self._addr_mu:
+            if rpc == self._service_addr:
+                return False
+            old, self._service_addr = self._service_addr, rpc
+            self._service_config_stale = True
+        logger.info("service master moved %s -> %s", old, rpc)
+        return True
+
+    def _adopt_advertised_addr(self) -> bool:
+        """Re-read ``KEY_MASTER_ADDR`` and retarget if it moved (at boot,
+        and after two failed beats: a PUT that landed before the watch
+        was live)."""
+        try:
+            info = self.store.get_json(KEY_MASTER_ADDR)
+        except Exception:  # noqa: BLE001 — store hiccup; retried next beat
+            return False
+        return self._retarget(info)
+
+    def _on_master_addr(self, event) -> None:
+        ev_type, _key, value = event
+        if ev_type != "PUT" or not value:
+            return   # DELETE = master lease expired; keep the last known
+        try:
+            info = json.loads(value)
+        except ValueError:
+            return
+        self._retarget(info)
+
+    def _fetch_service_config(self) -> bool:
+        """Learn the response topology from ``/rpc/config`` (JAX worker
+        :4149). True only when the answer still belongs to the current
+        target."""
+        addr = self.service_addr
+        if not addr:
+            return False
+        try:
+            status, cfg = http_json("GET", addr, "/rpc/config", timeout=5.0)
+        except Exception as e:  # noqa: BLE001 — retried via the stale flag
+            logger.debug("service config fetch from %s failed: %s", addr, e)
+            return False
+        if status == 200 and isinstance(cfg, dict) \
+                and addr == self.service_addr:
+            self._decode_to_service = bool(
+                cfg.get("enable_decode_response_to_service"))
+            return True
+        return False
+
+    def _refresh_service_config(self) -> None:
+        """Fetch the current target's config; the stale flag clears only
+        if no retarget landed while the fetch was in flight."""
+        addr = self.service_addr
+        ok = self._fetch_service_config()
+        with self._addr_mu:
+            if self._service_addr == addr:
+                self._service_config_stale = bool(addr) and not ok
+
+    # ------------------------------------------------------------------
+    # Heartbeats
+    # ------------------------------------------------------------------
+    def _heartbeat_loop(self) -> None:
+        """Each tick (JAX worker :4173-4275): the lease keepalive (a store
+        outage is not a beat failure; a dead lease while the store
+        answers re-registers, and so does the store's return after an
+        outage), the service config when stale, then a beat unless the
+        backoff holds it (a retarget clears it); after two failed beats,
+        the advertised address is read again."""
+        hb_failures = 0
+        next_hb = 0.0
+        store_down = False
+        target = self.service_addr
+        while not self._stop.wait(self.opts.heartbeat_interval_s):
+            if self.service_addr != target:
+                # A new master gets its first beat now, not after the
+                # backoff earned against the old one.
+                target = self.service_addr
+                hb_failures, next_hb = 0, 0.0
+            try:
+                lease_id = self._lease_id
+                if lease_id is not None:
+                    try:
+                        alive = self.store.lease_keepalive(lease_id)
+                        healed, store_down = store_down, False
+                    except StoreOutageError as e:
+                        logger.debug("store keepalive unreachable: %s", e)
+                        alive, healed, store_down = True, False, True
+                    if (not alive or healed) and lease_id == self._lease_id:
+                        try:
+                            self._register()
+                            logger.warning("lease %d %s; re-registered "
+                                           "with a fresh lease", lease_id,
+                                           "expired" if not alive
+                                           else "outlived a store outage")
+                        except Exception as e:  # noqa: BLE001 — the
+                            # next tick retries
+                            logger.warning("re-registration failed: %s", e)
+                        if healed and self.opts.service_addr:
+                            self._adopt_advertised_addr()
+                if self._service_config_stale:
+                    self._refresh_service_config()
+                if self.service_addr and time.monotonic() >= next_hb:
+                    if self._send_heartbeat():
+                        hb_failures, next_hb = 0, 0.0
+                    else:
+                        hb_failures += 1
+                        next_hb = time.monotonic() + \
+                            self._hb_backoff.delay(hb_failures - 1)
+            except Exception as e:  # noqa: BLE001 — a failed beat
+                hb_failures += 1
+                next_hb = time.monotonic() + \
+                    self._hb_backoff.delay(hb_failures - 1)
+                logger.warning("heartbeat failed: %s", e)
+            if hb_failures >= 2 and self.opts.service_addr \
+                    and self._adopt_advertised_addr():
+                hb_failures, next_hb = 0, 0.0
+
+    def _send_heartbeat(self) -> bool:
+        """One beat; True when the service acknowledged it (HTTP 200
+        from a master whose epoch is not behind one already acked)."""
+        with self._hb_lock:
+            hb, step_baseline = self._build_heartbeat()
+            status, ack = http_json("POST", self.service_addr,
+                                    "/rpc/heartbeat", stamp(hb.to_json()),
+                                    timeout=10.0)
+            if status != 200:
+                return False
+            ack_epoch = int((ack or {}).get("epoch", 0) or 0)
+            if ack_epoch < self._master_epoch:
+                # A deposed master still answers on this address: its ack
+                # is no delivery (JAX worker :4424-4446).
+                logger.warning("rejected beat-ack from deposed master at "
+                               "%s (epoch %d < acked %d)", self.service_addr,
+                               ack_epoch, self._master_epoch)
+                return False
+            self._master_epoch = ack_epoch
+            self._hb_step_cum = step_baseline
+            return True
+
+    def _build_heartbeat(self) -> Tuple[Heartbeat, Dict[str, Any]]:
+        """The beat's payload (JAX worker :4336-4471) and the step
+        histogram's baseline to commit once it is acked."""
+        p99, baseline = self._recent_step_p99()
+        latency = LatencyMetrics(
+            step_ms_p99=p99,
+            prefill_tok_s=(self._prefill_tok_cum / self._prefill_s_cum
+                           if self._prefill_s_cum > 0 else 0.0),
+            waiting_prefill_tokens=int(
+                self.engine.waiting_prefill_tokens()))
+        hb = Heartbeat(name=self.name,
+                       instance_type=self.opts.instance_type,
+                       load=self._engine_load(), latency=latency,
+                       model_states={self.opts.model: MODEL_AWAKE})
+        return hb, baseline
+
+    def _recent_step_p99(self) -> Tuple[float, Dict[str, Any]]:
+        """p99 of ``xllm_worker_step_ms`` over the steps since the last
+        acked beat, prefill, decode and mixed merged (JAX worker :4307):
+        the delta of cumulative bucket counts is itself a histogram.
+        Returns (p99, the baseline to commit on an ack), so a refused
+        beat folds its interval into the next. 0.0 = no step ran."""
+        h = self._m_step_ms
+        pending = dict(self._hb_step_cum)
+        merged = None
+        for phase in _STEP_PHASES:
+            cur = h.cumulative(model=self.opts.model, phase=phase)
+            if cur is None:
+                continue
+            prev = self._hb_step_cum.get(phase)
+            pending[phase] = cur
+            delta = cur if prev is None else \
+                [(le, c - p) for (le, c), (_le, p) in zip(cur, prev)]
+            merged = delta if merged is None else \
+                [(le, a + b) for (le, a), (_le, b) in zip(merged, delta)]
+        if not merged or merged[-1][1] <= 0:
+            return 0.0, pending
+        return quantile_from_buckets(merged, 0.99) or 0.0, pending
+
+    def _engine_load(self) -> LoadMetrics:
+        """The engine's load as the heartbeat carries it, mirrored into
+        the registry as ``xllm_worker_<key>{model}`` (JAX worker
+        :4285-4305). Reads the engine without its lock."""
+        lm = self.engine.load_metrics()
+        model = self.opts.model
+        for k, v in lm.items():
+            self._m_load[k].set(v, model=model)
+        alive = int(self.engine_error is None)
+        self._m_alive.set(alive, model=model)
+        return LoadMetrics(
+            waiting_requests=lm["waiting_requests"],
+            running_requests=lm["running_requests"],
+            kv_cache_usage=lm["kv_cache_usage"],
+            num_preemptions=lm["num_preemptions"],
+            moe_dropped_tokens=lm["moe_dropped_tokens"],
+            engine_alive=alive)
+
+    def _record_step(self, step_ms: float) -> None:
+        """After each ``Engine.step()``, on the engine-loop thread: the
+        step series by ``last_step_kind`` (JAX worker :1386-1440). The
+        load mirrors refresh at each scrape and beat."""
+        eng, m = self.engine, self.opts.model
+        kind = eng.last_step_kind
+        if kind == "idle":
+            return
+        pf, dc = eng.last_step_prefill_tokens, eng.last_step_decode_tokens
+        self._m_steps.inc(1, model=m, phase=kind)
+        if pf:
+            self._m_step_tokens.inc(pf, model=m, phase="prefill")
+        if dc:
+            self._m_step_tokens.inc(dc, model=m, phase="decode")
+        self._m_step_ms.observe(step_ms, model=m, phase=kind)
+        if pf:
+            self._prefill_tok_cum += pf
+            self._prefill_s_cum += eng.last_step_prefill_s
+
+    def metrics_text(self) -> str:
+        """``GET /metrics``: the load mirrors refreshed, then the
+        registry in Prometheus text."""
+        self._engine_load()
+        return self.obs.render()
 
     # ------------------------------------------------------------------
     # Engine loop
@@ -245,7 +671,9 @@ class Worker:
                 busy = self.engine.has_work()
                 if busy:
                     try:
+                        t0 = time.perf_counter()
                         outs = self.engine.step()
+                        step_ms = (time.perf_counter() - t0) * 1e3
                     except Exception as exc:  # noqa: BLE001 — the loop
                         # dies visibly: every waiting request gets a 500
                         logger.exception("engine step failed")
@@ -255,20 +683,64 @@ class Worker:
                 self._work.wait(timeout=0.05)
                 self._work.clear()
                 continue
+            self._record_step(step_ms)
+            to_service: List[RequestOutput] = []
             for out in outs:
                 with self._live_lock:
                     live = self._live.get(out.request_id)
                     if live is not None and out.finished:
                         self._live.pop(out.request_id, None)
-                if live is not None:
+                if live is None:
+                    continue
+                if not live.stream_to_service:
                     live.q.put(out)
+                    continue
+                ro = self._to_request_output(live, out)
+                if ro is not None:
+                    to_service.append(ro)
+                if live.finished:
+                    with self._live_lock:
+                        self._live.pop(live.request_id, None)
+            self._push_outputs_to_service(to_service)
+
+    def _push_outputs_to_service(self, outs: List[RequestOutput]) -> None:
+        """The RPC topology: one push of a step's outputs to the
+        service's fan-in, stamped and with the sender's name (JAX worker
+        :3573-3589)."""
+        if not outs:
+            return
+        try:
+            status, _ = http_json(
+                "POST", self.service_addr, "/rpc/generations",
+                stamp({"outputs": [o.to_json() for o in outs],
+                       "from": self.name}), timeout=30.0)
+            if status != 200:
+                logger.warning("generations push refused: %d (%d outputs "
+                               "lost)", status, len(outs))
+        except Exception as e:  # noqa: BLE001 — the service's request
+            # timeout ends a request whose outputs were lost
+            logger.warning("generations push failed: %s", e)
+
+    def _end_lives(self, message: str) -> None:
+        """End every live request: a relayed one gets an error in its
+        reply, a pushed one a finished output with an INTERNAL status."""
+        with self._live_lock:
+            lives, self._live = list(self._live.values()), {}
+        to_service = []
+        for live in lives:
+            if live.stream_to_service:
+                to_service.append(RequestOutput(
+                    request_id=live.request_id,
+                    service_request_id=live.request_id,
+                    status=Status(StatusCode.INTERNAL, message),
+                    finished=True))
+            else:
+                live.q.put(_EngineDied(message))
+        self._push_outputs_to_service(to_service)
 
     def _fail_all(self, message: str) -> None:
         self.engine_error = message
-        with self._live_lock:
-            lives, self._live = list(self._live.values()), {}
-        for live in lives:
-            live.q.put(_EngineDied(message))
+        self._end_lives(message)
 
     # ------------------------------------------------------------------
     # Requests
@@ -289,7 +761,13 @@ class Worker:
                 prompt = body.get("prompt", "")
             token_ids = self.tokenizer.encode(prompt)
         try:
-            sampling = parse_openai_sampling(body, is_chat)
+            # The service-parsed SamplingParams travel in the forwarded
+            # body: what the service normalized (max_completion_tokens,
+            # stop strings) is never re-derived here (JAX :1970-1978).
+            if body.get("sampling"):
+                sampling = SamplingParams.from_json(body["sampling"])
+            else:
+                sampling = parse_openai_sampling(body, is_chat)
             stream = bool(body.get("stream", False))
             validate_sampling(sampling, stream)
         except (TypeError, ValueError) as e:
@@ -304,7 +782,9 @@ class Worker:
         live = _LiveRequest(
             req, self.tokenizer, model, is_chat, stream,
             bool((body.get("stream_options") or {}).get("include_usage")),
-            sampling)
+            sampling,
+            stream_to_service=self._decode_to_service
+            and bool(self.service_addr))
         with self._engine_lock:
             try:
                 self.engine.add_request(req)
@@ -357,6 +837,17 @@ class Worker:
         with self._engine_lock:
             self.engine.cancel(live.request_id)
         self._work.set()
+
+    def cancel_request(self, service_request_id: str) -> bool:
+        """``POST /cancel`` (JAX worker :2542-2561): cancel a live request
+        in the engine; its stream ends with finish reason ``cancelled``.
+        False when no such request is in flight."""
+        with self._live_lock:
+            live = self._live.get(service_request_id)
+        if live is None:
+            return False
+        self._cancel(live)
+        return True
 
     def _finalize(self, live: _LiveRequest) -> None:
         """Consumer-side cleanup: unfinished engine work whose consumer
@@ -440,13 +931,21 @@ def _handler_class(worker: Worker):
                 self._json(200, {"ok": True})
             elif self.path == "/v1/models":
                 self._json(200, worker.models_body())
+            elif self.path == "/metrics":
+                data = worker.metrics_text().encode()
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 "text/plain; version=0.0.4")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
             else:
                 self._error(HttpError(404, f"no route {self.path}"))
 
         def do_POST(self) -> None:
             routes = {"/v1/completions": False,
                       "/v1/chat/completions": True}
-            if self.path not in routes:
+            if self.path not in routes and self.path != "/cancel":
                 self._error(HttpError(404, f"no route {self.path}"))
                 return
             try:
@@ -454,12 +953,22 @@ def _handler_class(worker: Worker):
                 body = json.loads(self.rfile.read(n) or b"{}")
                 if not isinstance(body, dict):
                     raise HttpError(400, "request body must be an object")
+                if self.path == "/cancel":
+                    self._json(200, {"ok": worker.cancel_request(
+                        str(body.get("service_request_id", "")))})
+                    return
                 live = worker._parse_generate(body, routes[self.path])
             except json.JSONDecodeError:
                 self._error(HttpError(400, "invalid JSON body"))
                 return
             except HttpError as e:
                 self._error(e)
+                return
+            if live.stream_to_service:
+                # The RPC topology: the outputs go to the service's
+                # fan-in; this reply is the ack it waits for.
+                self._json(200, {"status": "accepted",
+                                 "service_request_id": live.request_id})
                 return
             if not live.stream:
                 try:
@@ -491,6 +1000,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--port", type=int, default=0)
     p.add_argument("--model", default="tiny", choices=sorted(_MODEL_REGISTRY))
     p.add_argument("--device", default="cuda")
+    p.add_argument("--instance-type", default=InstanceType.DEFAULT.value,
+                   choices=[t.value for t in InstanceType])
+    p.add_argument("--service-addr", default="",
+                   help="service RPC host:port for heartbeats")
+    p.add_argument("--store-addr", default="",
+                   help="coordination store host:port ('' with a "
+                        "--service-addr = private in-process store)")
+    p.add_argument("--heartbeat-interval-s", type=float, default=3.0)
+    # Must equal the service's --murmur-hash3-seed.
+    p.add_argument("--murmur-seed", type=int, default=0)
     d = EngineConfig()
     p.add_argument("--page-size", type=int, default=d.page_size)
     p.add_argument("--num-pages", type=int, default=d.num_pages)
@@ -523,8 +1042,13 @@ def build_worker(args: argparse.Namespace,
         prefill_buckets=tuple(int(b) for b in
                               args.prefill_buckets.split(",") if b),
         decode_steps=args.decode_steps)
-    opts = WorkerOptions(host=args.host, port=args.port, model=args.model,
-                         device=args.device, warmup=args.warmup)
+    opts = WorkerOptions(
+        host=args.host, port=args.port, model=args.model,
+        device=args.device, warmup=args.warmup,
+        instance_type=InstanceType(args.instance_type),
+        service_addr=args.service_addr, store_addr=args.store_addr,
+        heartbeat_interval_s=args.heartbeat_interval_s,
+        murmur_seed=args.murmur_seed)
     return Worker(opts, engine_cfg=ecfg, params=params)
 
 

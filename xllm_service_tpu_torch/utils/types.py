@@ -1,9 +1,10 @@
 """Request/response value types of the worker: sampling parameters,
 finish reasons and the per-step output records the OpenAI assemblers
-consume.
+consume and the RPC topology pushes to the service.
 
 A copy of the JAX package's ``utils/types.py`` subset that the worker
-serves, with the same field names and JSON shapes.
+serves, with the same field names and JSON shapes (``to_json`` /
+``from_json``; ``utils/wire.py`` holds them to the wire contract).
 """
 
 from __future__ import annotations
@@ -12,6 +13,40 @@ import dataclasses
 import enum
 import math
 from typing import Any, Dict, List, Optional
+
+
+class StatusCode(enum.IntEnum):
+    OK = 0
+    CANCELLED = 1
+    UNKNOWN = 2
+    INVALID_ARGUMENT = 3
+    DEADLINE_EXCEEDED = 4
+    RESOURCE_EXHAUSTED = 8
+    UNAVAILABLE = 14
+    INTERNAL = 13
+
+
+@dataclasses.dataclass
+class Status:
+    code: StatusCode = StatusCode.OK
+    message: str = ""
+
+    @property
+    def ok(self) -> bool:
+        return self.code == StatusCode.OK
+
+    def to_json(self) -> Dict[str, Any]:
+        return {"code": int(self.code), "message": self.message}
+
+    @classmethod
+    def from_json(cls, d: Optional[Dict[str, Any]]) -> "Status":
+        if not d:
+            return cls()
+        try:
+            code = StatusCode(d.get("code", 0))
+        except ValueError:  # unknown code from a newer/older peer
+            code = StatusCode.UNKNOWN
+        return cls(code, d.get("message", ""))
 
 
 class FinishReason(str, enum.Enum):
@@ -40,6 +75,12 @@ class Usage:
                 "completion_tokens": self.completion_tokens,
                 "total_tokens": self.total_tokens}
 
+    @classmethod
+    def from_json(cls, d: Optional[Dict[str, Any]]) -> "Usage":
+        if not d:
+            return cls()
+        return cls(d.get("prompt_tokens", 0), d.get("completion_tokens", 0))
+
 
 @dataclasses.dataclass
 class LogProb:
@@ -50,6 +91,14 @@ class LogProb:
     logprob: Optional[float] = 0.0
     top_logprobs: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
 
+    def to_json(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any]) -> "LogProb":
+        return cls(d.get("token", ""), d.get("token_id", 0),
+                   d.get("logprob", 0.0), d.get("top_logprobs", []))
+
 
 @dataclasses.dataclass
 class SequenceOutput:
@@ -58,6 +107,37 @@ class SequenceOutput:
     token_ids: List[int] = dataclasses.field(default_factory=list)
     finish_reason: FinishReason = FinishReason.NONE
     logprobs: List[LogProb] = dataclasses.field(default_factory=list)
+    # Mean token logprob of the whole choice (the service's ``best_of``
+    # ranking key); this worker serves n = best_of = 1 and leaves it
+    # unset.
+    mean_logprob: Optional[float] = None
+
+    def to_json(self) -> Dict[str, Any]:
+        out = {
+            "index": self.index,
+            "text": self.text,
+            "token_ids": self.token_ids,
+            "finish_reason": self.finish_reason.value,
+            "logprobs": [lp.to_json() for lp in self.logprobs],
+        }
+        if self.mean_logprob is not None:
+            out["mean_logprob"] = self.mean_logprob
+        return out
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any]) -> "SequenceOutput":
+        try:
+            fr = FinishReason(d.get("finish_reason", ""))
+        except ValueError:  # unknown reason from a newer peer → treat as stop
+            fr = FinishReason.STOP
+        return cls(
+            index=d.get("index", 0),
+            text=d.get("text", ""),
+            token_ids=d.get("token_ids", []),
+            finish_reason=fr,
+            logprobs=[LogProb.from_json(x) for x in d.get("logprobs", [])],
+            mean_logprob=d.get("mean_logprob"),
+        )
 
 
 @dataclasses.dataclass
@@ -67,10 +147,34 @@ class RequestOutput:
 
     request_id: str = ""
     service_request_id: str = ""
+    status: Status = dataclasses.field(default_factory=Status)
     outputs: List[SequenceOutput] = dataclasses.field(default_factory=list)
     usage: Optional[Usage] = None
     finished: bool = False
     cancelled: bool = False
+
+    def to_json(self) -> Dict[str, Any]:
+        return {
+            "request_id": self.request_id,
+            "service_request_id": self.service_request_id,
+            "status": self.status.to_json(),
+            "outputs": [o.to_json() for o in self.outputs],
+            "usage": self.usage.to_json() if self.usage else None,
+            "finished": self.finished,
+            "cancelled": self.cancelled,
+        }
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any]) -> "RequestOutput":
+        return cls(
+            request_id=d.get("request_id", ""),
+            service_request_id=d.get("service_request_id", ""),
+            status=Status.from_json(d.get("status")),
+            outputs=[SequenceOutput.from_json(x) for x in d.get("outputs", [])],
+            usage=Usage.from_json(d["usage"]) if d.get("usage") else None,
+            finished=d.get("finished", False),
+            cancelled=d.get("cancelled", False),
+        )
 
 
 @dataclasses.dataclass
