@@ -79,7 +79,11 @@ Phases (any failure raises and the exit code is not 0):
    tensor cores' operations, with their share of the bound). K5 is
    also held at 256 rows (its row table) and at 300 rows (299 decode
    rows and a 256-token window), which the wrapper cuts into two
-   launches (``ragged_attention.launch_plan``).
+   launches (``ragged_attention.launch_plan``). K3 is also held under a
+   100-token sliding window with each row's leading table entries NULL
+   (page 0, filled with large values), as the engine leaves a table once
+   it has released the pages every later window masks
+   (``paged_decode_attention_null_lead``).
 4. Forward: a full-width llama3-1b forward_prefill + forward_decode + a
    ragged forward_prefill through the kernels (bf16 on the GPU), and
    the attend-then-write order (two prefill windows, the second at
@@ -191,14 +195,46 @@ Phases (any failure raises and the exit code is not 0):
    pushed to ``/rpc/generations``); ``worker.stop()`` takes the worker
    off the master's list within the lease TTL (1.5 s). ``[cluster]``:
    the median TTFT and decode tokens/s per stream through the master
-   (relay, rpc) and direct, the heartbeat's step p99 and the card.
-7. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
+   (relay, rpc) and direct, the heartbeat's step p99 and the card. In
+   phase 6 each run sends its own prompts, and the chat compared direct
+   and through the master runs with the prefix cache off (the second
+   would otherwise prefill only past the first's pages).
+7. Prefix reuse (``[prefix]``): llama3-1b (16 layers, bf16, phase 5's
+   flags with --max-model-len 2048, graphs on) serves a 1,024-token
+   system prompt (8 full pages) with four tails of 100-300 tokens, on the
+   split path in write-then-attend order (fused writer + K4 at start
+   1024), on the ragged step (K5 windows at start 1024 beside decode
+   rows) and in attend-then-write order (K4' + K7): four rounds, the
+   prefix cache off / on / on / off (``prefix_cache.enable`` toggled on
+   the idle engine), two prompt sets; in each the first request alone
+   (cold), then the other three at once (warm). A cache-on round must
+   hit 3 x 1,024 tokens, every step must launch its kernels, and the
+   warm streams must equal the cache-off round's, or the margins rule
+   decides. Printed: hit tokens, prefill tokens computed per request,
+   TTFT cold against warm (and cache off), the launches of each warm
+   prefill step.
+7b. Spill and restore (``[spill]``): the same weights on a 40-page pool
+   with ``XLLM_KV_SPILL_MB=160``: the shared-prompt request, three
+   fillers that reclaim its pages (spilled to the host tier), then the
+   shared request again (restored). Pages spilled and restored, every
+   restored page read back from the pool bit-equal to the bytes the tier
+   took, the stream equal to the cold one (or the margins rule decides);
+   each spill's and restore's host ms.
+6b. Cache-aware routing (``[cluster-car]``): the reference store and a
+   master with ``--load-balance-policy CAR --block-size 128`` over two
+   port workers (phase 7's weights): A (the shared prompt and a tail),
+   then, once a heartbeat after it reached the master, B and C (the same
+   prefix, new tails) and D (no shared prefix). The master's routing
+   audit (``/admin/trace/<id>``) must put B and C on A's worker with a
+   match ratio above 0 and no fallback, and D on the least-loaded
+   fallback.
+8. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
    writers' launches from phase 5 (K1/K2 now 0), K5 from 5b, K6 (now 0),
    K7, K3', K4' and the dense all-layer mode from 5c, K3'' and the fused
    latent writers from 5d, the current form of K3'' and the latent
    all-layer mode from 5e; a record at another shape takes its kernel's
    count; phases 5f/5g and the graph checks go to the ``[summary]``
-   line), the card line, then the last line
+   line; phases 7, 7b and 6b too), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without printing a result when no CUDA device is
@@ -968,6 +1004,65 @@ class KernelBench:
             lib, nbytes, flops,
             pa.gqa_splits(B, self.Hkv, self.MP, self.ps, 0, False), act,
             worst)
+
+    def decode_attention_null_lead(self, pa, attention):
+        """K3 under a 100-token sliding window with each row's leading
+        table entries NULL (page 0), as the engine leaves a table once it
+        has released the pages every later window masks. Page 0 holds
+        large values here, so a read of it outside the masked lanes
+        would show; checked against the plain version on the same table,
+        timed as the other K3 records."""
+        torch = self.torch
+        B, W = 8, 100
+        q = self.randn(B, self.Hq, self.D)
+        ctx_list = [117, 205, 298, 411, 150, 260, 0, 390]   # row 6 inactive
+        ctx = self.i32(ctx_list)
+        act = ctx > 0
+        pt = self.pt8.clone()
+        nulls = 0
+        for b, c in enumerate(ctx_list):
+            # Pages whose every position is below the window of the
+            # row's one query (position c - 1).
+            n = max(c - 1 - W, 0) // self.ps
+            pt[b, :n] = 0
+            nulls += n
+        if not nulls:
+            raise AssertionError("no NULL leading entry in the table")
+        saved = (self.kp[self.layer, 0].clone(),
+                 self.vp[self.layer, 0].clone())
+        self.kp[self.layer, 0] = 300.0
+        self.vp[self.layer, 0] = 300.0
+        try:
+            run = (lambda n=None: pa.paged_decode_attention(
+                q, self.kp, self.vp, pt, ctx, self.layer, sliding_window=W,
+                num_splits=n))
+            plain = (lambda: pa.paged_decode_attention_plain(
+                q, self.kp, self.vp, pt, ctx, self.layer, sliding_window=W))
+            S = self.MP * self.ps
+            pos = torch.arange(S, device=self.dev)[None, :]
+            last = ctx.long()[:, None] - 1
+            mask = ((pos <= last) & (pos > last - W))[:, None, None, :]
+            mask[~act] = True              # SDPA needs a key per row
+
+            def lib():
+                k = attention.gather_pages(self.kp[self.layer], pt)
+                v = attention.gather_pages(self.vp[self.layer], pt)
+                return sdpa(q[:, :, None], k.transpose(1, 2),
+                            v.transpose(1, 2), mask)
+            keys = sum(min(c, W) for c in ctx_list)
+            nbytes = keys * 2 * self.Hkv * self.D * 2 \
+                + 2 * int(act.sum()) * self.Hq * self.D * 2 \
+                + B * (4 + 4 * self.MP)
+            flops = 4.0 * keys * self.Hq * self.D
+            self.split_record(
+                "paged_decode_attention_null_lead", "paged_decode_attention",
+                f"{CSRC}/paged_decode_attention.cu", run, plain, lib, nbytes,
+                flops, pa.gqa_splits(B, self.Hkv, self.MP, self.ps, W,
+                                     False), act, null_entries=nulls,
+                sliding_window=W)
+        finally:
+            self.kp[self.layer, 0] = saved[0]
+            self.vp[self.layer, 0] = saved[1]
 
     # Split counts timed at the long shapes beside the wrapper's own.
     SPLIT_SWEEP = (4, 8, 12, 16, 24, 32, 48, 64)
@@ -2226,10 +2321,12 @@ class StepLog:
     """Wraps a live engine's ``step``: per iteration its kind, forwards,
     wall time (host clock; a step ends in the host read of its sampled
     tokens, so it includes the device's work) and hand-written kernel
-    launches, and the tokens of each request, keyed by prompt length."""
+    launches, and the tokens of each request and the prompt tokens the
+    prefix cache served it (``cached``), keyed by prompt length."""
 
     def __init__(self, engine, kernels) -> None:
         self.rows, self.tokens, self.prompts = [], {}, {}
+        self.cached = {}
         inner, add = engine.step, engine.add_request
 
         def add_request(req):
@@ -2256,11 +2353,13 @@ class StepLog:
             for o in outs:
                 self.tokens.setdefault(o.num_prompt_tokens, []).extend(
                     o.new_token_ids)
+                if o.num_cached_tokens:
+                    self.cached[o.num_prompt_tokens] = o.num_cached_tokens
             return outs
         engine.step = step
 
     def clear(self) -> None:
-        self.rows, self.tokens = [], {}
+        self.rows, self.tokens, self.cached = [], {}, {}
 
 
 # The kernels of each order, by launches per forward. The layer body's
@@ -2512,7 +2611,12 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
         prof = None
         if not ragged:
             n0 = len(steplog.rows)
-            prof = profile_request(torch, w.name, bodies[0])
+            # A prompt of the same length that no served request shares a
+            # page with: the profiled request prefills from token 0.
+            fresh = dict(bodies[0], messages=[{
+                "role": "user", "content": _prompt(random.Random(5),
+                                                   SERVE_PLAN[0][2])}])
+            prof = profile_request(torch, w.name, fresh)
             # Forward passes: decode forwards (N a burst) and prefill
             # forwards.
             fwd = sum(r["decode_forwards"] + int(r["kind"] in (
@@ -2969,6 +3073,10 @@ def cluster_phase(torch, kernels, card: str) -> dict:
                "messages": [{"role": "user", "content": text}],
                "token_ids": w.tokenizer.encode(text)}
         alone = {}
+        # The same prompt twice: with the prefix cache the second would
+        # prefill only past the first's pages, a different window; the
+        # pair compares the master's relay, so both prefill in full.
+        w.engine.prefix_cache.enable = False
         for where, addr in (("direct", w.name), ("master", relay_http)):
             r = {}
             _request(addr, chat, one, True, r)
@@ -2983,12 +3091,14 @@ def cluster_phase(torch, kernels, card: str) -> dict:
             raise AssertionError(f"alone: direct {t_d!r} {u_d} vs master "
                                  f"{t_m!r} {u_m}, logprob diff {lp_diff}")
         out["alone_logprob_max_diff"] = lp_diff
+        w.engine.prefix_cache.enable = True
 
-        # 2. The four requests direct, then through the relay master.
-        bodies = [{**b, "model": model}
-                  for b in serve_bodies(rng, w.tokenizer)]
+        # 2. The four requests direct, then through the relay master; each
+        # run its own prompts, so no run prefills from another's pages.
         runs = {}
         for where, addr in (("direct", w.name), ("relay", relay_http)):
+            bodies = [{**b, "model": model}
+                      for b in serve_bodies(rng, w.tokenizer)]
             kernels.reset_launch_counts()
             steplog.clear()
             pushes.ms.clear()
@@ -3081,6 +3191,8 @@ def cluster_phase(torch, kernels, card: str) -> dict:
         kernels.reset_launch_counts()
         steplog.clear()
         pushes.ms.clear()
+        bodies = [{**b, "model": model}
+                  for b in serve_bodies(rng, w.tokenizer)]
         results, wall = run_concurrent(rpc_http, bodies)
         torch.cuda.synchronize()
         ttft, rate, toks = check_replies(SERVE_PLAN, results)
@@ -3138,6 +3250,444 @@ def cluster_phase(torch, kernels, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: prefix reuse; 7b: spill and restore; 6b: cache-aware routing
+# ---------------------------------------------------------------------------
+
+# Phase 5's flags, with room for a 1,024-token system prompt, a tail of up
+# to 300 tokens and 32 new tokens.
+PREFIX_ARGS = ["--model", "llama3-1b", "--device", "cuda",
+               "--page-size", "128", "--num-pages", "512",
+               "--max-model-len", "2048", "--max-batch-size", "8",
+               "--prefill-buckets", "128,256,512",
+               "--max-prefill-tokens", "256"]
+SYSTEM_TOKENS = 1024                     # 8 full pages of 128
+# The cold request's tail, then the three warm requests' tails.
+PREFIX_TAILS = (100, 180, 260, 300)
+# (tag, ragged, write_then_attend)
+PREFIX_PATHS = (("write_then_attend", False, True),
+                ("ragged", True, True),
+                ("attend_then_write", False, False))
+CHAT = "/v1/chat/completions"
+
+
+def _token_ids(tokenizer, rng: random.Random, n: int) -> list:
+    """Exactly ``n`` token ids of a random word prompt (the byte
+    tokenizer: one id per byte)."""
+    ids = tokenizer.encode(_prompt(rng, 2 * n + 8))
+    if len(ids) < n:
+        raise AssertionError(f"{len(ids)} ids for {n}")
+    return ids[:n]
+
+
+def _chat_body(ids: list) -> dict:
+    return {"model": "llama3-1b", "max_tokens": 32, "temperature": 0.0,
+            "ignore_eos": True, "stream": True, "logprobs": True,
+            "stream_options": {"include_usage": True},
+            "messages": [{"role": "user", "content": "x"}],
+            "token_ids": list(ids)}
+
+
+def _ttft_ms(result) -> float:
+    """A streamed reply's first token time (ms); its 32 tokens checked."""
+    if result.get("status") != 200:
+        raise AssertionError(f"reply {result.get('status')}: {result}")
+    _, lps, idx, usage = stream_tokens(result["frames"])
+    if not usage or usage["completion_tokens"] != 32 or len(lps) != 32:
+        raise AssertionError(f"stream usage {usage}, {len(lps)} tokens")
+    return result["times"][idx[0]] * 1e3
+
+
+def _start(worker, argv, env, params=None):
+    """A worker from ``argv`` with ``env`` set while its engine config is
+    built (the engine reads its switches once, then)."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        w = worker.build_worker(worker.parse_args(argv),
+                                params=params).start()
+        return w, time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def _concurrent(addr, bodies, headers=None):
+    results = [{} for _ in bodies]
+    threads = [threading.Thread(target=_request, args=(
+        addr, CHAT, b, True, r, (headers[i] if headers else None)))
+        for i, (b, r) in enumerate(zip(bodies, results))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return results
+
+
+def prefix_phase(torch, kernels, card: str, err: float) -> dict:
+    """Phase 7: a 1,024-token system prompt (8 full pages) shared by 4
+    requests with distinct tails, served by one llama3-1b worker (16
+    layers, bf16, phase 5's flags, graphs on) on each path: the split
+    step in write-then-attend order (fused writer + K4 at start 1024),
+    the ragged step (K5 windows at start 1024 beside decode rows) and
+    attend-then-write (K4' + K7). Four rounds, cache off / on / on / off
+    (``prefix_cache.enable`` toggled on the idle engine), two prompt
+    sets: in each the first request runs alone (cold), then the other
+    three at once (warm). A cache-on round must hit 3 x 1,024 tokens,
+    and every step launch its kernels; the warm streams must equal the
+    cache-off round's, or the margins rule decides (a fault fails).
+    Returns the weights for phase 7b and each path's numbers."""
+    from xllm_service_tpu_torch.runtime import worker
+    params, out, margins = None, {}, []
+    for tag, ragged, wta in PREFIX_PATHS:
+        env = {"XLLM_RAGGED_ATTN": "1" if ragged else "0",
+               "XLLM_WRITE_THEN_ATTEND": "1" if wta else "0",
+               "XLLM_CUDA_GRAPHS": "1"}
+        w, build_s = _start(worker, PREFIX_ARGS, env, params)
+        params = w.engine.params
+        steplog = StepLog(w.engine, kernels)
+        layers = w.engine.cfg.num_layers
+        path = {"ragged": ragged, "write_then_attend": wta}
+        rec = {"worker_build_s": build_s, "rounds": []}
+        try:
+            rng = random.Random(70)
+            sets = []
+            for _ in range(2):
+                system = _token_ids(w.tokenizer, rng, SYSTEM_TOKENS)
+                sets.append([system + _token_ids(w.tokenizer, rng, n)
+                             for n in PREFIX_TAILS])
+            tokens = {}
+            for r, on in ((0, False), (0, True), (1, True), (1, False)):
+                prompts = sets[r]
+                w.engine.prefix_cache.enable = on
+                kernels.reset_launch_counts()
+                steplog.clear()
+                hits0 = w.engine.prefix_hit_tokens
+                cold = {}
+                _request(w.name, CHAT, _chat_body(prompts[0]), True, cold)
+                n_cold = len(steplog.rows)
+                warm = _concurrent(w.name, [_chat_body(p)
+                                            for p in prompts[1:]])
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                rows = list(steplog.rows)
+                check_step_launches(rows, counts, layers, False, wta,
+                                    ragged)
+                hits = w.engine.prefix_hit_tokens - hits0
+                if hits != (3 * SYSTEM_TOKENS if on else 0):
+                    raise AssertionError(f"phase 7 {tag} round {r} cache "
+                                         f"{on}: {hits} hit tokens")
+                if on and ragged and not any(x["ragged"]
+                                             for x in rows[n_cold:]):
+                    raise AssertionError(f"phase 7 {tag}: no ragged step "
+                                         f"beside a cached-start window")
+                computed = {len(p): len(p) - steplog.cached.get(len(p), 0)
+                            for p in prompts}
+                prefill_rows = [x for x in rows[n_cold:]
+                                if x["kind"] in ("prefill", "mixed")]
+                rec["rounds"].append({
+                    "round": r, "cache": on, "hit_tokens": hits,
+                    "prefill_tokens_computed": [computed[len(p)]
+                                                for p in prompts],
+                    "ttft_ms_cold": _ttft_ms(cold),
+                    "ttft_ms_warm": [_ttft_ms(x) for x in warm],
+                    "warm_prefill_steps": len(prefill_rows),
+                    "warm_prefill_step_launches": [
+                        {k: v for k, v in x["launches"].items() if v}
+                        for x in prefill_rows],
+                    "engine_steps": len(rows)})
+                tokens[(r, on)] = {n: list(t)
+                                   for n, t in steplog.tokens.items()}
+            same = []
+            for r in (0, 1):
+                same.append(tokens[(r, True)] == tokens[(r, False)])
+                if not same[-1]:
+                    margins += divergence_margins(
+                        torch, w.engine,
+                        [(f"prefix_{tag}_round{r}", tokens[(r, False)],
+                          path, tokens[(r, True)], path,
+                          {len(p): p for p in sets[r]})], err)
+            rec["warm_equal_to_cache_off"] = same
+            rec["prefix_cache_stats"] = w.engine.prefix_cache_stats()
+        finally:
+            w.stop()
+        del w, steplog
+        free_device_memory(torch)
+        out[tag] = rec
+        log(f"[prefix] {card}: {tag}: {json.dumps(rec)}")
+    faults = [m for m in margins if m["verdict"] == "fault"]
+    log(f"[margins] {card}: llama3-1b prefix cache on vs off: "
+        f"{json.dumps(margins)}")
+    if faults:
+        raise AssertionError(f"phase 7: warm streams diverge from the "
+                             f"cache-off streams past the margin rule: "
+                             f"{faults}")
+    out["margins"] = margins
+    for tag, rec in out.items():
+        if tag == "margins":
+            continue
+        on = [x for x in rec["rounds"] if x["cache"]]
+        off = [x for x in rec["rounds"] if not x["cache"]]
+        log(f"[prefix] {card}: {tag}: hit tokens per cache-on round "
+            f"{[x['hit_tokens'] for x in on]}; prefill tokens computed per "
+            f"request, on {[x['prefill_tokens_computed'] for x in on]} vs "
+            f"off {[x['prefill_tokens_computed'] for x in off]}; TTFT ms "
+            f"cold {[round(x['ttft_ms_cold'], 3) for x in on]} vs warm "
+            f"{[[round(t, 3) for t in x['ttft_ms_warm']] for x in on]} "
+            f"(cache off, the same requests: "
+            f"{[[round(t, 3) for t in x['ttft_ms_warm']] for x in off]})")
+    out["params"] = params
+    return out
+
+
+def spill_phase(torch, kernels, card: str, params, err: float) -> dict:
+    """Phase 7b: the same weights on a 40-page pool with a 160 MB host
+    tier (XLLM_KV_SPILL_MB; one llama3-1b page, K and V over 16 layers,
+    is 4 MiB): a shared-prompt request, three fillers of 1,900 distinct
+    tokens that reclaim its pages (spilled to the tier), then the shared
+    request again, restored from the tier. Checks: pages spilled and
+    restored; every restored page, read back from the pool, bit-equal to
+    the bytes the tier took at spill; the stream equal to the cold one
+    (or the margins rule decides)."""
+    from xllm_service_tpu_torch.runtime import worker
+    from xllm_service_tpu_torch.runtime.kv_cache import pool_gather
+    argv = list(PREFIX_ARGS)
+    argv[argv.index("--num-pages") + 1] = "40"
+    env = {"XLLM_RAGGED_ATTN": "0", "XLLM_WRITE_THEN_ATTEND": "1",
+           "XLLM_CUDA_GRAPHS": "1", "XLLM_KV_SPILL_MB": "160"}
+    w, build_s = _start(worker, argv, env, params)
+    eng = w.engine
+    taken = {}
+    # Host ms of each spill (the gather and the tier's put, without this
+    # phase's copy of the block) and of each restore.
+    spill_ms, restore_ms = [], []
+    try:
+        if eng.host_tier is None:
+            raise AssertionError("phase 7b: no host tier")
+        put, spill = eng.host_tier.put, eng.prefix_cache.spill_hook
+        restore = eng._restore_spilled
+
+        def recording_put(h, k, v):
+            ok = put(h, k, v)
+            if ok:
+                taken[h] = (k, v)       # copied in timed_spill
+            return ok
+
+        def timed_spill(h, pid):
+            t0 = time.perf_counter()
+            ok = spill(h, pid)
+            if ok:
+                t1 = time.perf_counter()
+                taken[h] = tuple(x.clone() for x in taken[h])
+                t0 += time.perf_counter() - t1     # the check's copy
+            spill_ms.append((time.perf_counter() - t0) * 1e3)
+            return ok
+
+        def timed_restore(*args):
+            t0 = time.perf_counter()
+            got = restore(*args)
+            restore_ms.append((time.perf_counter() - t0) * 1e3)
+            return got
+        eng.host_tier.put = recording_put
+        eng.prefix_cache.spill_hook = timed_spill
+        eng._restore_spilled = timed_restore
+        steplog = StepLog(eng, kernels)
+        rng = random.Random(71)
+        shared = _token_ids(w.tokenizer, rng, SYSTEM_TOKENS) + \
+            _token_ids(w.tokenizer, rng, 200)
+        fillers = [_token_ids(w.tokenizer, rng, 1900) for _ in range(3)]
+        first = {}
+        _request(w.name, CHAT, _chat_body(shared), True, first)
+        cold = list(steplog.tokens[len(shared)])
+        for f in fillers:
+            r = {}
+            _request(w.name, CHAT, _chat_body(f), True, r)
+            _ttft_ms(r)
+        stats0 = eng.prefix_cache_stats()
+        steplog.clear()
+        again = {}
+        _request(w.name, CHAT, _chat_body(shared), True, again)
+        torch.cuda.synchronize()
+        warm = list(steplog.tokens[len(shared)])
+        stats = eng.prefix_cache_stats()
+        hashes = eng.prefix_cache.block_hashes(shared)[:len(shared) // 128]
+        restored = [h for h in hashes if h in taken]
+        unequal = []
+        for h in restored:
+            pid = eng.prefix_cache.page_of(h)
+            if pid is None:
+                unequal.append((h.hex(), "not in the pool"))
+                continue
+            back = pool_gather(eng.kv, pid)
+            if not all(torch.equal(a, b) for a, b in zip(back, taken[h])):
+                unequal.append((h.hex(), pid))
+        ev = eng.drain_kvcache_event()
+        rec = {"worker_build_s": build_s,
+               "spilled_pages": stats["spilled_pages"],
+               "restored_pages": stats["restored_pages"],
+               "spilled_before_reuse": stats0["spilled_pages"],
+               "restored_blocks_of_shared_prompt": len(restored),
+               "cached_tokens_on_reuse": steplog.cached.get(len(shared), 0),
+               "bit_equal": not unequal,
+               "ttft_ms_cold": _ttft_ms(first),
+               "ttft_ms_restored": _ttft_ms(again),
+               "spill_ms": spill_ms,
+               "restore_ms": restore_ms,
+               "stream_equal": warm == cold,
+               "events": {"stored": len(ev.stored),
+                          "removed": len(ev.removed),
+                          "offloaded": len(ev.offloaded),
+                          "offloaded_ssd": len(ev.offloaded_ssd)}}
+        if not (stats["spilled_pages"] > 0 and stats["restored_pages"] > 0
+                and restored):
+            raise AssertionError(f"phase 7b: nothing spilled and restored:"
+                                 f" {rec}")
+        if unequal:
+            raise AssertionError(f"phase 7b: restored pages differ from "
+                                 f"the spilled bytes: {unequal}")
+        rec["margins"] = [] if warm == cold else divergence_margins(
+            torch, eng, [("spill_restore", {len(shared): cold},
+                          {"ragged": False, "write_then_attend": True},
+                          {len(shared): warm},
+                          {"ragged": False, "write_then_attend": True},
+                          {len(shared): shared})], err)
+    finally:
+        w.stop()
+    del w, eng
+    free_device_memory(torch)
+    log(f"[spill] {card}: {json.dumps(rec)}")
+    if any(m["verdict"] == "fault" for m in rec["margins"]):
+        raise AssertionError(f"phase 7b: the restored stream diverges "
+                             f"past the margin rule: {rec['margins']}")
+    return rec
+
+
+def _route_audit(master_http: str, srid: str):
+    """The routing audit of request ``srid`` on the master: (winner,
+    winner's match ratio, fallback reason)."""
+    status, span = _get(master_http, f"/admin/trace/{srid}")
+    if status != 200:
+        raise AssertionError(f"trace {srid}: {status} {span}")
+    audit = span["attrs"]["schedule_decision"]
+    role = next(audit[r] for r in ("prefill", "decode")
+                if audit.get(r, {}).get("candidates"))
+    row = next(c for c in role["candidates"]
+               if c["instance"] == role["winner"])
+    return role["winner"], row["match_ratio"], role["fallback_reason"]
+
+
+def routed_cluster_phase(torch, kernels, card: str, params) -> dict:
+    """Phase 6b: the reference store and a master under the cache-aware
+    policy (``--load-balance-policy CAR --block-size 128``) with two
+    port workers (llama3-1b, the same weights, 0.5 s heartbeats) in this
+    process. A (the 1,024-token shared prompt and a tail) is served
+    first; once a heartbeat after it was acknowledged, B and C (the same
+    prefix, new tails) at once, then D (no shared prefix). The master's
+    routing audit (``/admin/trace/<id>``) must show B and C on A's
+    worker with a match ratio above 0 and no fallback, and D on the
+    least-loaded fallback."""
+    from xllm_service_tpu_torch.runtime import worker
+    logs = ROOT / "build" / "cluster_logs"
+    logs.mkdir(parents=True, exist_ok=True)
+    procs, ws, out = [], [], {}
+    try:
+        store = RefProcess(["xllm_service_tpu.service.coordination_net",
+                            "--port", "0"], "coordination store serving on",
+                           logs / "store_car.log")
+        procs.append(store)
+        store_addr = store.line.split()[-1]
+        master = RefProcess(
+            ["xllm_service_tpu.service.master", "--host", "127.0.0.1",
+             "--http-port", "0", "--rpc-port", "0", "--etcd-addr",
+             store_addr, "--block-size", "128", "--heartbeat-interval",
+             "0.5", "--load-balance-policy", "CAR"], "XLLM_SERVICE_UP",
+            logs / "master_car.log")
+        procs.append(master)
+        fields = dict(f.split("=", 1) for f in master.line.split()[1:])
+        http, rpc = fields["http"], fields["rpc"]
+        argv = PREFIX_ARGS + ["--instance-type", "DEFAULT", "--store-addr",
+                              store_addr, "--service-addr", rpc,
+                              "--heartbeat-interval-s", "0.5"]
+        env = {"XLLM_RAGGED_ATTN": "0", "XLLM_WRITE_THEN_ATTEND": "1",
+               "XLLM_CUDA_GRAPHS": "1"}
+        for _ in range(2):
+            # Built one after the other: a worker's warmup captures its
+            # graphs while the other's engine loop is idle.
+            w, _ = _start(worker, argv, env, params)
+            ws.append(w)
+        for w in ws:
+            wait_for(lambda w=w: w.name in listed(rpc), 60.0,
+                     f"worker {w.name} on the cache-aware master's list")
+        rng = random.Random(72)
+        tok = ws[0].tokenizer
+        system = _token_ids(tok, rng, SYSTEM_TOKENS)
+        prompts = {"A": system + _token_ids(tok, rng, 150),
+                   "B": system + _token_ids(tok, rng, 220),
+                   "C": system + _token_ids(tok, rng, 90),
+                   "D": _token_ids(tok, rng, 1100)}
+        results, audit = {}, {}
+
+        def send(names):
+            rs = _concurrent(http, [_chat_body(prompts[n]) for n in names],
+                             [{"x-request-id": f"phase6b-{n}"}
+                              for n in names])
+            for n, r in zip(names, rs):
+                results[n] = r
+                audit[n] = _route_audit(http, f"phase6b-{n}")
+
+        send(["A"])
+        t_done = time.monotonic()
+        holder = audit["A"][0]
+        # A beat the master received after A finished carries A's
+        # digests (the worker keeps an undelivered delta for the next).
+        wait_for(lambda: (lambda row: row is not None and
+                          time.monotonic() - row["heartbeat_age_s"]
+                          > t_done + 0.1)(master_row(http, holder)),
+                 10.0, "a heartbeat after A on the master")
+        send(["B", "C"])
+        send(["D"])
+        for n in ("B", "C"):
+            winner, ratio, fallback = audit[n]
+            if winner != holder or not ratio > 0 or fallback is not None:
+                raise AssertionError(f"phase 6b: {n} routed {audit[n]}, "
+                                     f"A's worker {holder}")
+        if audit["D"][2] != "no_prefix_overlap" or audit["D"][1] != 0:
+            raise AssertionError(f"phase 6b: D routed {audit['D']}")
+        served = {w.name: w.engine.prefix_cache_stats() for w in ws}
+        if served[holder]["hit_tokens_total"] < 2 * SYSTEM_TOKENS:
+            raise AssertionError(f"phase 6b: the holder's hits {served}")
+        out = {"holder": holder,
+               "routes": {n: {"winner": a[0], "match_ratio": a[1],
+                              "fallback_reason": a[2]}
+                          for n, a in audit.items()},
+               "ttft_ms": {n: _ttft_ms(r) for n, r in results.items()},
+               "prefix_cache_stats": served}
+    except Exception:
+        for p in procs:
+            log(f"[cluster-car] {p.proc.args[2]} log tail:\n{p.tail()}")
+        raise
+    finally:
+        for w in ws:
+            w.stop()
+        for p in procs:
+            p.stop()
+    del ws
+    free_device_memory(torch)
+    log(f"[cluster-car] {card}: winners "
+        f"{ {n: r['winner'] == out['holder'] for n, r in out['routes'].items()} }"
+        f" (True = A's worker); match ratios "
+        f"{ {n: r['match_ratio'] for n, r in out['routes'].items()} }; "
+        f"fallbacks { {n: r['fallback_reason'] for n, r in out['routes'].items()} }"
+        f"; TTFT ms A {out['ttft_ms']['A']} vs B {out['ttft_ms']['B']}, C "
+        f"{out['ttft_ms']['C']} (D, no shared prefix, {out['ttft_ms']['D']})")
+    log(f"[cluster-car] detail {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3189,6 +3739,7 @@ def main() -> int:
     bench.rope_decode_writer(kv_update, rope)
     bench.rope_prefill_writer(kv_update, rope)
     bench.decode_attention(paged_attention, attention)
+    bench.decode_attention_null_lead(paged_attention, attention)
     bench.prefill_attention(prefill_attention, attention)
     bench.ragged_attention(ragged_attention, paged_attention,
                            prefill_attention, attention)
@@ -3336,6 +3887,14 @@ def main() -> int:
     # 6. The cluster: the reference master in front of the port's worker.
     clustered = cluster_phase(torch, kernels, card)
     free_device_memory(torch)
+    # 7. Prefix reuse on each path; 7b. spill and restore; 6b. the
+    # cache-aware master over two workers, on phase 7's weights.
+    prefixed = prefix_phase(torch, kernels, card, err)
+    prefix_params = prefixed.pop("params")
+    spilled = spill_phase(torch, kernels, card, prefix_params, err)
+    routed = routed_cluster_phase(torch, kernels, card, prefix_params)
+    del prefix_params
+    free_device_memory(torch)
     margins = served_c["on_engine"] + served_e["on_engine"]
     for phase in (served, served_b, served_c, served_d, served_e):
         phase.pop("prompts")
@@ -3368,6 +3927,8 @@ def main() -> int:
                "serve_decode_modes": served_f,
                "serve_deepseek_decode_modes": served_g,
                "cluster": clustered,
+               "prefix_reuse": prefixed, "spill_restore": spilled,
+               "cluster_cache_aware": routed,
                "graph_decode_check": {"llama3-1b": graph,
                                       "deepseek-v2-lite": graph_mla},
                "equal_token_share": same,

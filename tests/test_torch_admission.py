@@ -23,6 +23,7 @@ import pytest
 
 from xllm_service_tpu.config import EngineConfig as JaxEngineConfig
 from xllm_service_tpu.config import ModelConfig as JaxModelConfig
+from xllm_service_tpu.models import transformer as jtf
 from xllm_service_tpu.runtime.engine import Engine as JaxEngine
 from xllm_service_tpu.runtime.engine import EngineRequest as JaxRequest
 from xllm_service_tpu.utils.types import SamplingParams as JaxSampling
@@ -64,8 +65,9 @@ def _jax(weights, **kw):
 
 def _port(weights, **kw):
     _, tcfg, _, tparams = weights
-    return Engine(tcfg, EngineConfig(**{**TIGHT, **kw}), params=tparams,
-                  device="cpu")
+    return Engine(tcfg, EngineConfig(
+        **{**TIGHT, "enable_prefix_cache": False, **kw}), params=tparams,
+        device="cpu")
 
 
 def _feed(workload, seed=0):
@@ -150,6 +152,69 @@ def test_load_metrics_match_jax_at_every_step(weights, mode):
     assert max(x["kv_cache_usage"] for x in tloads) > 0.9
     assert max(x["waiting_prefill_tokens"] for x in tloads) > 0
     assert tloads[-1]["num_preemptions"] > 0
+
+
+# F1 and F2: a uniform sliding window of 8 tokens (the engine releases
+# the leading pages every later window masks) and a 4-expert MoE at
+# capacity factor 0.5 (tokens dropped at expert capacity, counted).
+VARIANTS = {"window": dict(sliding_window=8),
+            "moe": dict(num_experts=4, moe_capacity_factor=0.5)}
+# (variant, mode, decode steps, prefix cache)
+VARIANT_RUNS = [(v, m, 1, False) for v in sorted(VARIANTS)
+                for m in ("split", "ragged", "prefill_first")] + \
+    [(v, "split", 4, True) for v in sorted(VARIANTS)]
+MODES = {"split": dict(), "ragged": dict(ragged_attn=True),
+         "prefill_first": dict(interleave=False)}
+
+
+@pytest.fixture(scope="module")
+def variant_weights():
+    out = {}
+    for name, kw in VARIANTS.items():
+        jcfg = dataclasses.replace(JaxModelConfig.tiny(vocab_size=VOCAB),
+                                   dtype="float32", **kw)
+        tcfg = dataclasses.replace(ModelConfig.tiny(vocab_size=VOCAB),
+                                   dtype="float32", **kw)
+        jparams = jtf.init_params(jcfg, jax.random.PRNGKey(0))
+        tparams = params_from_jax(
+            jax.tree_util.tree_map(np.asarray, jparams), tcfg, "cpu")
+        out[name] = (jcfg, tcfg, jparams, tparams)
+    return out
+
+
+@pytest.mark.parametrize(
+    "variant,mode,steps,cache", VARIANT_RUNS,
+    ids=[f"{v}-{m}-n{n}-{'cache' if c else 'nocache'}"
+         for v, m, n, c in VARIANT_RUNS])
+def test_load_metrics_match_jax_at_every_step_window_and_moe(
+        variant_weights, variant, mode, steps, cache):
+    """F1 and F2 pinned: with a sliding window the port trims pages as
+    the JAX engine does (steps, preemptions and ``kv_cache_usage`` equal
+    at every step), and an MoE model's ``moe_dropped_tokens`` equals the
+    JAX engine's at every step, single steps and fused bursts alike."""
+    jcfg, tcfg, jparams, tparams = variant_weights[variant]
+    kw = {**TIGHT, **MODES[mode], "decode_steps": steps,
+          "enable_prefix_cache": cache}
+    runs = []
+    for engine, request, sampling in (
+            (JaxEngine(jcfg, JaxEngineConfig(**kw), params=jparams),
+             JaxRequest, JaxSampling),
+            (Engine(tcfg, EngineConfig(**kw), params=tparams, device="cpu"),
+             EngineRequest, SamplingParams)):
+        loads = []
+        streams, finish, ledger = _drive(engine, _feed(PRESSURE), request,
+                                         sampling, loads=loads)
+        runs.append((streams, finish, ledger, loads,
+                     engine.num_preemptions))
+    assert runs[1] == runs[0]
+    loads = runs[1][3]
+    if variant == "moe":
+        assert loads[-1]["moe_dropped_tokens"] > 0
+    else:
+        # Trimmed pages come back: the usage falls while streams run on.
+        usage = [x["kv_cache_usage"] for x in loads]
+        assert any(b < a for a, b in zip(usage, usage[1:])
+                   if b > 0)
 
 
 def test_decode_growth_takes_one_page_at_a_time(weights):

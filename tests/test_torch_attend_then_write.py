@@ -571,8 +571,9 @@ def _drive(engine, feed, request, sampling):
 
 def _run_port(weights, workload, **kw):
     _, tcfg, _, tparams = weights
-    engine = Engine(tcfg, EngineConfig(**{**ENGINE_KW, **kw}),
-                    params=tparams, device="cpu")
+    engine = Engine(tcfg, EngineConfig(
+        **{**ENGINE_KW, "enable_prefix_cache": False, **kw}),
+        params=tparams, device="cpu")
     return _drive(engine, _feed(workload), EngineRequest, SamplingParams), \
         engine
 

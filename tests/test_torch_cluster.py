@@ -75,11 +75,12 @@ def models():
 class Cluster:
     """One StoreServer, one JAX master on its store, and workers."""
 
-    def __init__(self, rpc_topology: bool = False) -> None:
+    def __init__(self, rpc_topology: bool = False,
+                 policy=LoadBalancePolicyType.ROUND_ROBIN) -> None:
         self.server = StoreServer().start()
         self.master = Master(ServiceOptions(
             http_port=0, rpc_port=0, num_output_pools=4,
-            load_balance_policy=LoadBalancePolicyType.ROUND_ROBIN,
+            load_balance_policy=policy,
             block_size=ENGINE["page_size"], heartbeat_interval_s=HB_S,
             master_upload_interval_s=HB_S,
             enable_decode_response_to_service=rpc_topology),
@@ -705,3 +706,99 @@ def test_in_memory_store_lease_expiry_fires_delete():
         assert s.lease_keepalive(lease) is False
     finally:
         s.close()
+
+
+# ---------------------------------------------------------------------------
+# The prefix cache's digests on the beat, and cache-aware routing
+# ---------------------------------------------------------------------------
+
+SHARED = list(range(40, 104))            # 4 full blocks of 16 tokens
+
+
+def _holders(cluster, token_ids):
+    """The master's index: each instance's contiguous leading blocks of
+    ``token_ids``, by storage tier."""
+    return cluster.master.scheduler.kvcache_mgr.match_prefix_tiers(
+        token_ids)[2]
+
+
+def test_heartbeat_digests_equal_jax_workers(models):
+    """One port and one JAX worker behind a cache-aware master serve the
+    same prompt: the master files every block of it under both, so the
+    digests each beat carried are the same bytes."""
+    c = Cluster(policy=LoadBalancePolicyType.CACHE_AWARE)
+    try:
+        mine = c.add_torch_worker(models)
+        ref = c.add_jax_worker()
+        prompt = SHARED + [7, 8, 9]
+        for w in (mine, ref):
+            status, resp = http_json(
+                "POST", w.name, "/v1/completions",
+                {"token_ids": prompt, "max_tokens": 4, "temperature": 0.0,
+                 "ignore_eos": True}, timeout=120.0)
+            assert status == 200, resp
+        assert wait_until(lambda: {mine.name, ref.name} <= set(
+            _holders(c, prompt))), _holders(c, prompt)
+        held = _holders(c, prompt)
+        assert held[mine.name] == held[ref.name] == ["hbm"] * 4
+        stats = mine.engine.prefix_cache_stats()
+        assert stats["lookups_total"] == 1
+        _, text = _get_text(mine.name, "/metrics")
+        assert 'xllm_worker_prefix_cache_lookups_total{model="tiny"} 1' \
+            in text
+        validate_exposition(text)
+    finally:
+        c.close()
+
+
+def _route(cluster, token_ids):
+    """Serve ``token_ids`` through the master; the winner of its routing
+    audit with the winner's candidate row and the fallback reason."""
+    status, resp = http_json(
+        "POST", cluster.master.http_address, "/v1/completions",
+        {"model": MODEL, "token_ids": list(token_ids), "max_tokens": 4,
+         "temperature": 0.0, "ignore_eos": True}, timeout=120.0)
+    assert status == 200, resp
+    _, text = _get_text(cluster.master.http_address,
+                        f"/admin/trace/{resp['id']}")
+    span = json.loads(text)
+    audit = span["attrs"]["schedule_decision"]
+    role = next(audit[r] for r in ("prefill", "decode")
+                if audit.get(r, {}).get("candidates"))
+    row = next(c for c in role["candidates"]
+               if c["instance"] == role["winner"])
+    return role["winner"], row["match_ratio"], role["fallback_reason"]
+
+
+def _routing_run(models, kind):
+    c = Cluster(policy=LoadBalancePolicyType.CACHE_AWARE)
+    try:
+        for _ in range(2):
+            (c.add_torch_worker(models) if kind == "torch"
+             else c.add_jax_worker())
+        a = SHARED + [5, 6, 7]
+        holder, ratio_a, fallback_a = _route(c, a)
+        assert wait_until(lambda: len(_holders(c, a).get(holder, []))
+                          == 4), _holders(c, a)
+        runs = [(ratio_a, fallback_a)]
+        for tail in ([11, 12, 13, 14, 15], [200, 201]):
+            winner, ratio, fallback = _route(c, SHARED + tail)
+            assert winner == holder
+            runs.append((ratio, fallback))
+        winner, ratio, fallback = _route(c, list(range(300, 340)))
+        runs.append((ratio, fallback))
+        return runs
+    finally:
+        c.close()
+
+
+def test_cache_aware_master_routes_shared_prefix_to_holder(models):
+    """A shared-prefix request goes to the worker that served the prefix,
+    with the JAX workers' match ratios; a request that shares nothing
+    takes the least-loaded fallback."""
+    mine = _routing_run(models, "torch")
+    assert mine == _routing_run(models, "jax")
+    assert mine[0] == (0.0, "no_prefix_overlap")
+    assert mine[1][0] > 0 and mine[1][1] is None
+    assert mine[2][0] > 0 and mine[2][1] is None
+    assert mine[3] == (0.0, "no_prefix_overlap")

@@ -66,8 +66,8 @@ def _run_both(setup, max_tokens, eos):
     treqs = [EngineRequest(f"r{i}", p, SamplingParams(
         max_tokens=max_tokens[i], temperature=0.0),
         eos_token_ids=eos.get(i, ())) for i, p in enumerate(prompts)]
-    port = Engine(tcfg, EngineConfig(**ENGINE_KW), params=params,
-                  device="cpu")
+    port = Engine(tcfg, EngineConfig(**ENGINE_KW, enable_prefix_cache=False),
+                  params=params, device="cpu")
     return _drain(jax_engine, jreqs), _drain(port, treqs)
 
 
@@ -106,7 +106,9 @@ def test_pages_and_slots_freed(setup):
     outs = port.step()
     assert any(o.request_id == "r3" and
                o.finish_reason == FinishReason.CANCELLED for o in outs)
-    assert port.allocator.num_free == free0
+    # Every page is back: free, or (prefix cache on) reclaimable.
+    assert port.allocator.num_free + port.prefix_cache.num_reclaimable \
+        == free0
     assert all(s is None for s in port._slots)
     with pytest.raises(ValueError):
         port.add_request(EngineRequest("long", [3] * 128))

@@ -302,7 +302,8 @@ def test_engine_matches_jax_under_pressure(monkeypatch, model, order):
         **TIGHT, decode_steps=1, enable_prefix_cache=False), params=jparams)
     assert jeng.write_then_attend is wta
     jst, jled = _drive(jeng, feed, JaxRequest, JaxSampling)
-    teng = Engine(tcfg, EngineConfig(**TIGHT), params=tparams, device="cpu")
+    teng = Engine(tcfg, EngineConfig(**TIGHT, enable_prefix_cache=False),
+                  params=tparams, device="cpu")
     assert teng.write_then_attend is wta
     calls = []
     fold = ("rope" if model == "dense" else "latent") + \

@@ -417,8 +417,9 @@ def test_mla_engine_matches_jax(kw):
         params=jparams)
     assert not jeng.ragged
     jst, jled = _drive(jeng, feed, JaxRequest, JaxSampling)
-    teng = Engine(tcfg, EngineConfig(**ENGINE_KW, **kw), params=tparams,
-                  device="cpu")
+    teng = Engine(tcfg, EngineConfig(**ENGINE_KW, **kw,
+                                     enable_prefix_cache=False),
+                  params=tparams, device="cpu")
     assert not teng.ragged
     assert teng.write_then_attend == kw["write_then_attend"]
     tst, tled = _drive(teng, feed, EngineRequest, SamplingParams)

@@ -293,7 +293,8 @@ def test_moe_engine_matches_jax(write_then_attend):
     jeng = JaxEngine(jcfg, JaxEngineConfig(
         **kw, decode_steps=1, enable_prefix_cache=False), params=jparams)
     jst, jled = _drive(jeng, JaxRequest, JaxSampling)
-    teng = Engine(tcfg, EngineConfig(**kw), params=tparams, device="cpu")
+    teng = Engine(tcfg, EngineConfig(**kw, enable_prefix_cache=False),
+                  params=tparams, device="cpu")
     tst, tled = _drive(teng, EngineRequest, SamplingParams)
     assert tst == jst
     assert tled == jled

@@ -82,8 +82,9 @@ def _drive(engine, feed, request, sampling):
 
 def _port(weights, **kw):
     _, tcfg, _, tparams = weights
-    engine = Engine(tcfg, EngineConfig(**{**ENGINE_KW, **kw}),
-                    params=tparams, device="cpu")
+    engine = Engine(tcfg, EngineConfig(
+        **{**ENGINE_KW, "enable_prefix_cache": False, **kw}),
+        params=tparams, device="cpu")
     return engine
 
 
@@ -173,9 +174,12 @@ def test_skip_ahead_admits_small_prompt_behind_page_starved_one(weights):
     """A prompt whose pages do not fit does not hold back a smaller one
     behind it; it keeps its place and admits once pages free up."""
     _, tcfg, _, tparams = weights
+    # The prompts share their leading tokens: with the prefix cache the
+    # giant would hit the blocker's pages, so it is off here.
     engine = Engine(tcfg, EngineConfig(
         page_size=4, num_pages=16, max_model_len=64, max_batch_size=4,
-        max_prefill_tokens=64, prefill_buckets=(8, 16, 32, 64)),
+        max_prefill_tokens=64, prefill_buckets=(8, 16, 32, 64),
+        enable_prefix_cache=False),
         params=tparams, device="cpu")
 
     def req(rid, n, max_tokens):

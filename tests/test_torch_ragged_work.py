@@ -432,8 +432,9 @@ def test_engine_at_257_slots_serves_a_ragged_mix_as_jax():
             (JaxEngine(jcfg, JaxEngineConfig(**kw, decode_steps=1,
                                              enable_prefix_cache=False),
                        params=jparams), JaxRequest, JaxSampling),
-            (Engine(tcfg, EngineConfig(**kw), params=tparams,
-                    device="cpu"), EngineRequest, SamplingParams)):
+            (Engine(tcfg, EngineConfig(**kw, enable_prefix_cache=False),
+                    params=tparams, device="cpu"), EngineRequest,
+             SamplingParams)):
         streams, ledger, step, i = {}, [], 0, 0
         while engine.has_work() or step < max(feed):
             step += 1

@@ -664,9 +664,11 @@ class EngineConfig:
     """Worker-engine runtime config (paged KV cache + continuous batching).
 
     Field names, defaults and environment overrides match the JAX
-    package's ``EngineConfig``. ``enable_prefix_cache`` is accepted for
-    that compatibility but not read: this engine has no prefix cache yet,
-    so every prompt is prefilled in full."""
+    package's ``EngineConfig``. ``enable_prefix_cache`` turns on the
+    content-addressed prefix cache (``runtime/kv_cache.PrefixCacheIndex``):
+    full pages are registered under their chained block digest, a prompt
+    whose leading pages are cached prefills only past them, and released
+    pages stay reclaimable until allocation pressure takes them."""
 
     page_size: int = 64                 # tokens per KV page
     num_pages: int = 1024               # KV pool size (per layer)
@@ -725,6 +727,19 @@ class EngineConfig:
     # same runner calls the step eagerly). Env XLLM_CUDA_GRAPHS=0/1
     # overrides.
     cuda_graphs: Optional[bool] = None
+    # Host spill tier: when > 0 (and the prefix cache is on), cached
+    # pages reclaimed under allocation pressure are copied into a
+    # host-memory tier of this many MB instead of dropped, and restored
+    # into fresh pages on a later prefix hit. 0 = off. Env
+    # XLLM_KV_SPILL_MB overrides.
+    kv_spill_mb: float = 0.0
+    # Optional disk tier behind the host tier: blocks the host tier
+    # demotes land as header + raw-bytes ``.kv`` files under this
+    # directory, bounded by kv_spill_disk_mb. An empty directory or a
+    # zero budget means no disk tier. Env XLLM_KV_SPILL_DIR /
+    # XLLM_KV_SPILL_DISK_MB override.
+    kv_spill_dir: str = ""
+    kv_spill_disk_mb: float = 0.0
 
     def __post_init__(self) -> None:
         if self.max_model_len % self.page_size != 0:
@@ -760,6 +775,21 @@ class EngineConfig:
         if env:
             try:
                 self.prefill_deadline_ms = float(env)
+            except ValueError:
+                pass
+        env = os.environ.get("XLLM_KV_SPILL_MB", "").strip()
+        if env:
+            try:
+                self.kv_spill_mb = float(env)
+            except ValueError:
+                pass
+        env = os.environ.get("XLLM_KV_SPILL_DIR", "").strip()
+        if env:
+            self.kv_spill_dir = env
+        env = os.environ.get("XLLM_KV_SPILL_DISK_MB", "").strip()
+        if env:
+            try:
+                self.kv_spill_disk_mb = float(env)
             except ValueError:
                 pass
 

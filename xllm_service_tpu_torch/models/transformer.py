@@ -272,21 +272,27 @@ def _experts_dense(lp: Dict[str, torch.Tensor], x: torch.Tensor,
 
 
 def _mlp(lp: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
-         valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+         valid: Optional[torch.Tensor] = None,
+         moe_dropped: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Gated MLP: SiLU (Llama family) or tanh-GELU (Gemma); MoE models
     route each token through its top-k SwiGLU experts. ``valid`` [B, T]
     bool marks real tokens: padding and inactive rows take no expert
-    capacity. The capacity path's drop count is not surfaced."""
+    capacity. The capacity path adds its dropped (token, expert)
+    assignments into the device scalar ``moe_dropped`` when one is
+    given (no host sync)."""
     if not cfg.is_moe:
         gate = x @ lp["gate_proj"]
         act = F.gelu(gate, approximate="tanh") if cfg.gemma else F.silu(gate)
         return (act * (x @ lp["up_proj"])) @ lp["down_proj"]
     k = cfg.num_experts_per_tok
     if cfg.moe_capacity_factor > 0:
-        out, _ = moe_mlp(x, lp["router"], lp["gate_proj"], lp["up_proj"],
-                         lp["down_proj"], k, cfg.moe_capacity_factor,
-                         valid=valid, group_size=cfg.moe_group_size,
-                         norm_topk=cfg.norm_topk_prob)
+        out, dropped = moe_mlp(x, lp["router"], lp["gate_proj"],
+                               lp["up_proj"], lp["down_proj"], k,
+                               cfg.moe_capacity_factor, valid=valid,
+                               group_size=cfg.moe_group_size,
+                               norm_topk=cfg.norm_topk_prob)
+        if moe_dropped is not None:
+            moe_dropped.add_(dropped)
         return out
     # Dense oracle (capacity factor 0), the reference of the sparse path.
     gates = torch.softmax((x @ lp["router"]).float(), dim=-1)
@@ -297,17 +303,18 @@ def _mlp(lp: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
 
 
 def _block_tail(lp, cfg: ModelConfig, x: torch.Tensor, a: torch.Tensor,
-                valid: torch.Tensor) -> torch.Tensor:
+                valid: torch.Tensor,
+                moe_dropped: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Residual adds around attention output ``a`` and the MLP; Gemma's
     four-norm block norms each sublayer output before its add."""
     if cfg.gemma:
         x = x + rms_norm(a, lp["post_norm"], cfg.rms_norm_eps)
         h = rms_norm(x, lp["pre_ff_norm"], cfg.rms_norm_eps)
-        return x + rms_norm(_mlp(lp, cfg, h, valid), lp["post_ff_norm"],
-                            cfg.rms_norm_eps)
+        return x + rms_norm(_mlp(lp, cfg, h, valid, moe_dropped),
+                            lp["post_ff_norm"], cfg.rms_norm_eps)
     x = x + a
     h = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
-    return x + _mlp(lp, cfg, h, valid)
+    return x + _mlp(lp, cfg, h, valid, moe_dropped)
 
 
 def _attn_out(lp, a: torch.Tensor) -> torch.Tensor:
@@ -334,7 +341,8 @@ def _staging(cfg: ModelConfig, lead: Tuple[int, ...], pool: torch.Tensor):
 def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     start_pos: torch.Tensor, lengths: torch.Tensor,
                     kv: KVCache, page_table: torch.Tensor,
-                    ragged: bool = False, write_then_attend: bool = True
+                    ragged: bool = False, write_then_attend: bool = True,
+                    moe_dropped: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, KVCache]:
     """Prefill ``tokens`` [B, T] (padded; ``lengths`` [B] int32 true
     counts) at positions start_pos[b] + t, with the cached prefix
@@ -354,7 +362,12 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     write-then-attend, as in the JAX package. The writer is the same:
     this package's prefill KV writer takes any start (on the TPU the
     ragged step writes through the XLA scatter there, because the Pallas
-    writer needs page-aligned starts)."""
+    writer needs page-aligned starts).
+
+    ``moe_dropped``: a device int64 scalar into which an MoE model's
+    capacity path adds the (token, expert) assignments it dropped, the
+    JAX forwards' ``moe_dropped``; MLA models add nothing (their routed
+    experts run dense, as in the JAX package)."""
     check_supported(cfg)
     if ragged and not write_then_attend:
         raise ValueError("the ragged mixed step requires write_then_attend")
@@ -396,7 +409,7 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 q, k_stage[i], v_stage[i], k_pages, v_pages, page_table,
                 start_pos, lengths, i, **kw)
         x = _block_tail(lp, cfg, x, _attn_out(lp, attn.reshape(B, T, -1)),
-                        valid)
+                        valid, moe_dropped)
     if not write_then_attend:
         paged_prefill_kv_update(k_pages, v_pages, k_stage, v_stage,
                                 page_table, start_pos, lengths)
@@ -409,7 +422,8 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    positions: torch.Tensor, active: torch.Tensor,
                    kv: KVCache, page_table: torch.Tensor,
-                   write_then_attend: bool = True
+                   write_then_attend: bool = True,
+                   moe_dropped: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step for ``tokens`` [B] at ``positions`` [B] int32
     (``active`` [B] bool masks empty slots). Writes each active row's
@@ -420,7 +434,8 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     attends to the ``where(active, positions, 0)`` cached tokens plus
     the current one, held apart in a staging buffer; the last layer's
     writer writes all layers' rows, before that layer attends (which
-    reads only positions below ``positions``)."""
+    reads only positions below ``positions``). ``moe_dropped`` as in
+    ``forward_prefill``."""
     check_supported(cfg)
     if cfg.mla:
         return _mla_forward_decode(params, cfg, tokens, positions, active,
@@ -460,7 +475,7 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 q[:, 0], k_pages, v_pages, page_table, cache_lens,
                 k_stage[i], v_stage[i], i, **kw)
         x = _block_tail(lp, cfg, x, _attn_out(lp, attn.reshape(B, 1, -1)),
-                        active[:, None])
+                        active[:, None], moe_dropped)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return _head_logits(cfg, x[:, 0], _head(params)), (k_pages, v_pages)
 

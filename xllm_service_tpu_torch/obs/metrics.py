@@ -119,6 +119,16 @@ class Counter(_Family):
         with self._lock:
             self._series[key] = self._series.get(key, 0.0) + amount
 
+    def set_total(self, total: float, **labels: Any) -> None:
+        """Mirror a cumulative total kept elsewhere (an engine's
+        lifetime count); a total below the current value is refused."""
+        key = self._key(labels)
+        with self._lock:
+            if total < self._series.get(key, 0.0):
+                raise ValueError(f"{self.name}: counter total {total} "
+                                 f"below {self._series[key]}")
+            self._series[key] = float(total)
+
 
 class Gauge(_Family):
     kind = "gauge"

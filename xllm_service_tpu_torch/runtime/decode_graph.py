@@ -14,7 +14,12 @@ with no upload, also when it is dispatched before this one is read back
 (the engine's speculative pipeline). Each launch's [n, B] tokens and
 logprobs are copied into one of two pinned host buffers behind a CUDA
 event, so burst k's copy is queued before burst k+1 replays over the
-graph's outputs.
+graph's outputs. An MoE model's capacity drops are summed over the n
+forwards into a device scalar, a third output of the graph, copied
+beside the tokens: a replay reports them with no host sync per layer.
+Tables may carry NULL (0) entries where a sliding window trimmed a
+sequence's leading pages; every kernel reads them only in lanes the
+window masks.
 
 All graphs share one memory pool; they never run at once. A capture
 that fails raises: nothing falls back to eager steps on CUDA. Steps run
@@ -63,17 +68,24 @@ class Launch:
     tokens: torch.Tensor                # [n, B] (pinned host on CUDA)
     logprobs: torch.Tensor
     event: Optional[torch.cuda.Event] = None
+    # MoE capacity drops of the n forwards ([1]; None for other models),
+    # and their value once read.
+    dropped: Optional[torch.Tensor] = None
+    moe_dropped: int = 0
 
     def read(self) -> Tuple[List[List[int]], List[List[float]]]:
         if self.event is not None:
             self.event.synchronize()
+        if self.dropped is not None:
+            self.moe_dropped = int(self.dropped[0])
         return (self.tokens[:self.n].tolist(),
                 self.logprobs[:self.n].tolist())
 
 
 class _Graph:
-    def __init__(self, graph, tokens, logprobs, tally) -> None:
+    def __init__(self, graph, tokens, logprobs, dropped, tally) -> None:
         self.graph, self.tokens, self.logprobs = graph, tokens, logprobs
+        self.dropped = dropped
         self.tally = tally              # kernels captured, by wrapper
         self.replays = 0
 
@@ -89,6 +101,8 @@ class DecodeGraphs:
         self.B, self.wta, self.generator = batch, write_then_attend, generator
         self.device = device
         self.use_graphs = use_graphs
+        # MLA models count no drop (their routed experts run dense).
+        self.count_drops = cfg.is_moe and not cfg.mla
         B = batch
         self.tokens = torch.zeros(B, dtype=torch.int64, device=device)
         self.positions = torch.zeros(B, dtype=torch.int32, device=device)
@@ -101,13 +115,15 @@ class DecodeGraphs:
         self.graphs: Dict[Key, Optional[_Graph]] = {}
         self.pool = (torch.cuda.graph_pool_handle() if use_graphs
                      else None)
-        self._host: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self._host: List[Tuple[torch.Tensor, ...]] = []
         if device.type == "cuda":
             self._host = [
                 (torch.empty((max_steps, B), dtype=torch.int64,
                              pin_memory=True),
                  torch.empty((max_steps, B), dtype=torch.float32,
-                             pin_memory=True)) for _ in range(2)]
+                             pin_memory=True),
+                 torch.empty((1,), dtype=torch.int64, pin_memory=True))
+                for _ in range(2)]
         self._next_host = 0
         self.warm = False
         self.captures_after_warmup = 0
@@ -175,16 +191,20 @@ class DecodeGraphs:
     # ------------------------------------------------------------------
     def _body(self, width: int, n: int, greedy: bool,
               seeded: Optional[Seeded] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """n decode forwards from the carries; ends by writing the last
-        token and position back into them."""
+        token and position back into them. Returns the [n, B] tokens and
+        logprobs, and the [1] MoE drop count of the n forwards (None
+        where none is counted)."""
         tok, pos = self.tokens, self.positions
         table = self.tables[width]
         toks, lps = [], []
+        drops = (torch.zeros((1,), dtype=torch.int64, device=self.device)
+                 if self.count_drops else None)
         for j in range(n):
             logits, kv = transformer.forward_decode(
                 self.params, self.cfg, tok, pos, self.active, self.kv,
-                table, write_then_attend=self.wta)
+                table, write_then_attend=self.wta, moe_dropped=drops)
             if kv[0] is not self.kv[0] or kv[1] is not self.kv[1]:
                 raise RuntimeError("forward_decode replaced the KV pools; "
                                    "the writers must write in place")
@@ -197,7 +217,7 @@ class DecodeGraphs:
             tok, pos = new, pos + 1
         self.tokens.copy_(tok)
         self.positions.copy_(pos)
-        return torch.stack(toks), torch.stack(lps)
+        return torch.stack(toks), torch.stack(lps), drops
 
     # ------------------------------------------------------------------
     # Capture and launch
@@ -234,9 +254,9 @@ class DecodeGraphs:
             graph.register_generator_state(self.generator)
         with capture_tally() as tally:
             with torch.cuda.graph(graph, pool=self.pool):
-                tokens, logprobs = self._body(width, n, greedy)
+                tokens, logprobs, dropped = self._body(width, n, greedy)
         self.generator.set_state(saved[3])
-        self.graphs[key] = _Graph(graph, tokens, logprobs, tally)
+        self.graphs[key] = _Graph(graph, tokens, logprobs, dropped, tally)
 
     def launch(self, key: Key, seeded: Optional[Seeded] = None) -> Launch:
         """Run ``key``'s step(s) from the staged inputs: a graph replay,
@@ -249,22 +269,25 @@ class DecodeGraphs:
             self.eager_steps["seeded" if g is not None else
                              "graphs_off" if self.device.type == "cuda"
                              else "cpu"] += 1
-            tokens, logprobs = self._body(*key, seeded=seeded)
+            tokens, logprobs, dropped = self._body(*key, seeded=seeded)
         else:
             g.graph.replay()
             count_replay(g.tally)
             g.replays += 1
-            tokens, logprobs = g.tokens, g.logprobs
+            tokens, logprobs, dropped = g.tokens, g.logprobs, g.dropped
         if not self._host:
-            return Launch(key[1], tokens, logprobs)
-        host_tok, host_lp = self._host[self._next_host]
+            return Launch(key[1], tokens, logprobs, dropped=dropped)
+        host_tok, host_lp, host_drop = self._host[self._next_host]
         self._next_host ^= 1
         n = key[1]
         host_tok[:n].copy_(tokens, non_blocking=True)
         host_lp[:n].copy_(logprobs, non_blocking=True)
+        if dropped is not None:
+            host_drop.copy_(dropped, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return Launch(n, host_tok, host_lp, event)
+        return Launch(n, host_tok, host_lp, event,
+                      dropped=host_drop if dropped is not None else None)
 
     def report(self) -> Dict[str, object]:
         def name(k: Key) -> str:

@@ -37,15 +37,29 @@ Pages are allocated as the JAX engine allocates them: admission takes
 only the pages of the first window (plus the first sampled token's when
 that window completes the prompt), a later window extends the table to
 cover it, and every decode grows it to cover the token it writes. When
-the pool runs out, the sequence that needs the pages is preempted by
-recompute: its slot and pages are freed and it requeues with its
-generated tokens, to be prefilled again. (The JAX engine first evicts
-offline requests; this package has no offline requests, so the needy
-sequence is always its own victim, as in the JAX engine under online
-traffic.) Only a prompt whose KV can never fit the pool is refused.
+the pool runs out, the most recently arrived offline request holding
+pages is preempted by recompute (its slot and pages are released and it
+requeues with its generated tokens, to be prefilled again); with no
+offline victim, the sequence that needs the pages is its own victim.
+Online requests queue before offline ones. Only a prompt whose KV can
+never fit the pool is refused.
+
+The prefix cache (``enable_prefix_cache``, ``runtime/kv_cache.py``)
+registers every full page under its chained block digest as the
+sequence fills it, and at its finish or preemption. Admission matches
+the prompt's leading full pages, restores the ones the host spill tier
+holds (``kv_spill_mb``), allocates only the pages past the hit, and
+prefills from the cached start. Released pages stay reclaimable until
+allocation pressure takes them (LRU), spilling them to the host tier
+first when it is on. The digests stored, removed and offloaded drain
+into the worker's heartbeat (``drain_kvcache_event``).
+
+Uniform sliding-window models release the leading pages that every
+later window masks (``_swa_trim``); the freed table entries become the
+NULL page 0, which every kernel reads only in window-masked lanes.
 
 A sequence finishes on EOS, a stop token id, ``max_tokens`` or
-``max_model_len``; its pages and slot are freed then.
+``max_model_len``; its slot is freed and its pages are released then.
 
 Decode runs through ``runtime/decode_graph.py``: one CUDA graph per
 (table width, steps, sampling mode), captured by ``warmup()`` (or at a
@@ -58,9 +72,9 @@ burst k's device-resident carries before burst k is read back, and
 discarded, with the generator's state restored, when burst k's post
 changed the batch; token streams are those of the pipeline off.
 
-Not in this package yet: the prefix cache, offline requests, graphs for
-the prefill and ragged steps, the step fault boundary and the step
-trace.
+Not in this package yet: graphs for the prefill and ragged steps, the
+step fault boundary, the step trace, and the cross-worker block fetch
+(``export_blocks``, adoption of a remote holder's blocks).
 """
 
 from __future__ import annotations
@@ -83,7 +97,12 @@ from xllm_service_tpu_torch.ops.sampling import (SamplingTensors,
                                                  sample_tokens)
 from xllm_service_tpu_torch.runtime import decode_graph
 from xllm_service_tpu_torch.runtime.decode_graph import Seeded
-from xllm_service_tpu_torch.runtime.kv_cache import PageAllocator
+from xllm_service_tpu_torch.runtime.kv_cache import (HostKvTier,
+                                                     KvCacheEvent,
+                                                     PageAllocator,
+                                                     PrefixCacheIndex,
+                                                     pool_gather,
+                                                     pool_scatter)
 from xllm_service_tpu_torch.utils.types import FinishReason, SamplingParams
 
 
@@ -126,6 +145,9 @@ class EngineRequest:
     token_ids: List[int]
     sampling: SamplingParams = dataclasses.field(
         default_factory=SamplingParams)
+    # Offline (batch-tier) requests queue behind online ones and are the
+    # first victims when the pool runs out.
+    offline: bool = False
     eos_token_ids: Tuple[int, ...] = ()
     arrival_time: float = 0.0
 
@@ -142,9 +164,13 @@ class Sequence:
     tokens: List[int]                  # prompt + generated
     pages: List[int] = dataclasses.field(default_factory=list)
     num_computed: int = 0              # tokens with KV resident
+    num_cached_tokens: int = 0         # prefix-cache hit size
     slot: int = -1                     # decode slot, -1 = none
     status: SeqStatus = SeqStatus.WAITING
     first_token_time: float = 0.0
+    # Sliding-window models: leading pages already released (every
+    # position in them is below all later attention windows).
+    num_trimmed: int = 0
     # Window the scheduler pinned for this step's prefill.
     sched_window: int = 0
 
@@ -167,6 +193,9 @@ class StepOutput:
     finish_reason: FinishReason = FinishReason.NONE
     num_prompt_tokens: int = 0
     num_generated: int = 0
+    # Prompt tokens served from the prefix cache; rides the output that
+    # carries the first sampled token.
+    num_cached_tokens: int = 0
 
     @property
     def finished(self) -> bool:
@@ -183,7 +212,8 @@ class Engine:
 
     def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
                  params: Optional[transformer.Params] = None,
-                 device="cuda", seed: int = 0) -> None:
+                 device="cuda", seed: int = 0,
+                 murmur_seed: int = 0) -> None:
         self.cfg = model_cfg
         self.ecfg = engine_cfg
         self.device = resolve_device(device)
@@ -199,6 +229,19 @@ class Engine:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.allocator = PageAllocator(engine_cfg.num_pages)
+        self.prefix_cache = PrefixCacheIndex(
+            self.allocator, engine_cfg.page_size, seed=murmur_seed,
+            enable=engine_cfg.enable_prefix_cache)
+        # The host spill tier: cached pages reclaimed under pressure are
+        # copied to host memory (and on to disk when configured) and
+        # restored on a later hit. None unless kv_spill_mb > 0.
+        self.host_tier: Optional[HostKvTier] = None
+        spill_bytes = int(engine_cfg.kv_spill_mb * 1e6)
+        if spill_bytes > 0 and engine_cfg.enable_prefix_cache:
+            self.host_tier = HostKvTier(
+                spill_bytes, disk_dir=engine_cfg.kv_spill_dir,
+                disk_capacity_bytes=int(engine_cfg.kv_spill_disk_mb * 1e6))
+            self.prefix_cache.spill_hook = self._spill_page
         self.waiting: List[Sequence] = []
         self.running: List[Sequence] = []
         self._by_id: Dict[str, Sequence] = {}
@@ -261,6 +304,14 @@ class Engine:
         self.last_step_attn_dispatches = 0
         self.ragged_steps = 0           # ragged forwards run so far
         self.num_preemptions = 0
+        # (token, expert) assignments lost to MoE expert capacity, over
+        # the engine's life; 0 on dense and MLA models.
+        self.moe_dropped_tokens = 0
+        self._count_drops = model_cfg.is_moe and not model_cfg.mla
+        # The prefix-reuse ledger: admitted lookups and the prompt tokens
+        # the cache covered (local hits and tier restores).
+        self.prefix_lookups = 0
+        self.prefix_hit_tokens = 0
 
     # ------------------------------------------------------------------
     # Request intake
@@ -303,8 +354,9 @@ class Engine:
 
     def _sort_waiting(self) -> None:
         # Sequences between chunked windows first (they hold a slot and
-        # pages), then by arrival.
-        self.waiting.sort(key=lambda s: (s.slot < 0, s.req.arrival_time))
+        # pages), then online before offline, then by arrival.
+        self.waiting.sort(key=lambda s: (s.slot < 0, s.req.offline,
+                                         s.req.arrival_time))
 
     def cancel(self, request_id: str) -> None:
         self._cancelled.add(request_id)
@@ -317,18 +369,45 @@ class Engine:
     # thread calls these without the engine lock, so they read snapshots.
     # ------------------------------------------------------------------
     def load_metrics(self) -> Dict[str, Any]:
-        """The heartbeat's LoadMetrics, with the JAX engine's formulas.
-        No prefix cache here, so no page is reclaimable, and no MoE
-        capacity drop is counted."""
-        used = self.ecfg.num_pages - 1 - self.allocator.num_free
+        """The heartbeat's LoadMetrics, with the JAX engine's formulas:
+        reclaimable cached pages count as free, and the MoE capacity
+        drops are the engine's running total."""
+        used = (self.ecfg.num_pages - 1 - self.allocator.num_free
+                - self.prefix_cache.num_reclaimable)
         return {
             "waiting_requests": len(self.waiting),
             "running_requests": len(self.running),
             "waiting_prefill_tokens": self.waiting_prefill_tokens(),
             "kv_cache_usage": used / max(self.ecfg.num_pages - 1, 1),
             "num_preemptions": self.num_preemptions,
-            "moe_dropped_tokens": 0,
+            "moe_dropped_tokens": self.moe_dropped_tokens,
         }
+
+    def prefix_cache_stats(self) -> Dict[str, int]:
+        """The ``xllm_worker_prefix_cache_*`` series: lifetime lookups,
+        hit tokens and spill traffic (no block is fetched from another
+        worker in this package: ``fetched_blocks_total`` stays 0)."""
+        tier = self.host_tier
+        return {
+            "lookups_total": self.prefix_lookups,
+            "hit_tokens_total": self.prefix_hit_tokens,
+            "fetched_blocks_total": 0,
+            "spilled_pages": tier.spilled_blocks if tier else 0,
+            "restored_pages": tier.restored_blocks if tier else 0,
+        }
+
+    def drain_kvcache_event(self) -> KvCacheEvent:
+        """The cache-content delta since the last drain: the index's
+        stored / removed / offloaded digests, then the tier's own
+        demotions and drops."""
+        ev = self.prefix_cache.drain_event()
+        if self.host_tier is not None:
+            ev.merge(self.host_tier.drain_event())
+        return ev
+
+    def _note_moe_dropped(self, dropped: int) -> None:
+        if self._count_drops:
+            self.moe_dropped_tokens += int(dropped)
 
     def waiting_prefill_tokens(self) -> int:
         """Prefill backlog: prompt tokens queued but not yet computed."""
@@ -352,37 +431,96 @@ class Engine:
     def _free_slot(self) -> int:
         return next((i for i, s in enumerate(self._slots) if s is None), -1)
 
-    def _window_pages_covered(self, seq: Sequence, window: int) -> int:
+    def _window_pages_covered(self, seq: Sequence, window: int,
+                              start: Optional[int] = None) -> int:
         """Token positions the pages must cover for a prefill window of
-        ``window`` tokens from ``seq.num_computed``: the window, plus the
-        token it samples when it completes the prompt."""
-        end = seq.num_computed + window
+        ``window`` tokens from ``start`` (default ``seq.num_computed``):
+        the window, plus the token it samples when it completes the
+        prompt."""
+        end = (seq.num_computed if start is None else start) + window
         return end + (1 if end >= len(seq.tokens) else 0)
 
-    def _try_admit(self, seq: Sequence, window: int) -> bool:
-        """Take a free slot and the pages of ``seq``'s first prefill
-        window; later windows and decode grow the table."""
+    def _preempt_one_offline(self) -> bool:
+        """Preempt the most recently arrived offline sequence that holds
+        pages: running, or waiting between chunked windows (slot >= 0).
+        False when there is none."""
+        victims = [s for s in self.running if s.req.offline]
+        victims += [s for s in self.waiting
+                    if s.req.offline and s.slot >= 0]
+        if not victims:
+            return False
+        self._preempt_seq(max(victims, key=lambda s: s.req.arrival_time))
+        return True
+
+    def _try_admit(self, seq: Sequence, cap: int) -> bool:
+        """Take a free slot, the prompt's cached leading pages (an index
+        hit, extended by the host tier's restores) and fresh pages for
+        the first prefill window past them, of at most ``cap`` tokens;
+        later windows and decode grow the table. An online sequence
+        short of pages preempts offline ones first. On success
+        ``seq.num_computed`` is the cached start."""
         slot = self._free_slot()
         if slot < 0:
             return False
-        pages = self.allocator.alloc(self._pages_needed(
-            self._window_pages_covered(seq, window)))
-        if pages is None:
+        cached_pages, cached_tokens = \
+            self.prefix_cache.match_prefix(seq.req.token_ids)
+        if self.host_tier is not None:
+            cached_pages, cached_tokens = self._restore_spilled(
+                seq.req.token_ids, cached_pages, cached_tokens)
+        window = min(len(seq.tokens) - cached_tokens, cap)
+        need = max(self._pages_needed(self._window_pages_covered(
+            seq, window, cached_tokens)) - len(cached_pages), 0)
+        new_pages = self.prefix_cache.alloc(need)
+        while new_pages is None and not seq.req.offline and \
+                self._preempt_one_offline():
+            new_pages = self.prefix_cache.alloc(need)
+        if new_pages is None:
+            self.prefix_cache.release_pages(cached_pages)
             return False
-        seq.pages = pages
+        seq.pages = list(cached_pages) + new_pages
+        seq.num_computed = cached_tokens
+        seq.num_cached_tokens = cached_tokens
+        # Only admitted lookups count: a refused one retries every step.
+        self.prefix_lookups += 1
+        self.prefix_hit_tokens += cached_tokens
         seq.slot = slot
         self._slots[slot] = seq
         return True
 
+    def _swa_trim(self, seq: Sequence) -> None:
+        """Uniform sliding-window models: release the leading pages whose
+        every position is below all later attention windows (positions
+        < num_computed - W), so a sequence holds O(W) KV. The freed
+        table entries become the NULL page 0; the kernels read such
+        entries only in window-masked lanes. Per-layer window mixes keep
+        every page (their full layers read the whole history)."""
+        W = self.cfg.sliding_window
+        if not W or self.cfg.layer_sliding is not None:
+            return
+        bound = min((seq.num_computed - W) // self.ecfg.page_size,
+                    len(seq.pages))
+        if bound <= seq.num_trimmed:
+            return
+        for i in range(seq.num_trimmed, bound):
+            pid = seq.pages[i]
+            if pid:
+                self.prefix_cache.release_pages([pid])
+                seq.pages[i] = 0
+        seq.num_trimmed = bound
+
     def _preempt_seq(self, seq: Sequence) -> None:
-        """Preemption by recompute: free the slot and pages and requeue;
-        the generated tokens are kept and prefilled again on
-        readmission."""
+        """Preemption by recompute: register the computed full pages,
+        release the slot and pages and requeue; the generated tokens are
+        kept and prefilled again on readmission (from whatever of them
+        the cache still holds)."""
         if seq.slot >= 0:
             self._slots[seq.slot] = None
             seq.slot = -1
-        self.allocator.free(seq.pages)
+        self.prefix_cache.register_full_pages(
+            seq.tokens[:seq.num_computed], seq.pages)
+        self.prefix_cache.release_pages([p for p in seq.pages if p])
         seq.pages = []
+        seq.num_trimmed = 0
         seq.num_computed = 0
         seq.sched_window = 0
         seq.status = SeqStatus.WAITING
@@ -400,16 +538,25 @@ class Engine:
 
     def _ensure_pages(self, seq: Sequence, covered: int) -> bool:
         """Extend ``seq``'s page table to cover ``covered`` token
-        positions. When the pool is short, ``seq`` preempts itself (the
-        JAX engine would first evict an offline request; this package
-        has none) and False is returned."""
+        positions. When the pool is short, an online ``seq`` preempts
+        offline sequences (latest arrival first); with none left,
+        ``seq`` preempts itself and False is returned."""
         need = self._pages_needed(covered) - len(seq.pages)
         if need <= 0:
             return True
-        pages = self.allocator.alloc(need)
-        if pages is None:
-            self._preempt_seq(seq)
-            return False
+        pages = self.prefix_cache.alloc(need)
+        while pages is None:
+            victims = [s for s in self.running
+                       if s.req.offline and s is not seq]
+            victims += [s for s in self.waiting
+                        if s.req.offline and s.slot >= 0 and s is not seq]
+            if victims and not seq.req.offline:
+                self._preempt_seq(
+                    max(victims, key=lambda s: s.req.arrival_time))
+            else:
+                self._preempt_seq(seq)
+                return False
+            pages = self.prefix_cache.alloc(need)
         seq.pages.extend(pages)
         return True
 
@@ -417,7 +564,8 @@ class Engine:
         """Grow every running sequence's table for this step's decode
         write; growth may preempt, hence the snapshot."""
         for seq in list(self.running):
-            self._grow_pages(seq)
+            if seq.status == SeqStatus.RUNNING:
+                self._grow_pages(seq)
 
     def _finish_seq(self, seq: Sequence) -> None:
         seq.status = SeqStatus.FINISHED
@@ -428,7 +576,11 @@ class Engine:
             self.running.remove(seq)
         if seq in self.waiting:
             self.waiting.remove(seq)
-        self.allocator.free(seq.pages)
+        # Full pages become reusable by later prompts; only
+        # tokens[:num_computed] have KV (the last sampled token has none).
+        self.prefix_cache.register_full_pages(
+            seq.tokens[:seq.num_computed], seq.pages)
+        self.prefix_cache.release_pages([p for p in seq.pages if p])
         seq.pages = []
         self._by_id.pop(seq.req.request_id, None)
         self._cancelled.discard(seq.req.request_id)
@@ -521,15 +673,22 @@ class Engine:
         self._grow_running()
         if not self.running:
             return False
-        decode_seqs = list(self.running)
         # A ragged decode row spends one token of the budget.
-        budget = max(self.step_token_budget - len(decode_seqs),
+        budget = max(self.step_token_budget - len(self.running),
                      self._starvation_quantum())
         if budget <= 0:
             return False
         batch = self._schedule_prefill(budget)
         if not batch:
             return False
+        # Admission may have preempted offline decoders: they skip this
+        # iteration's decode. With none left the committed batch runs
+        # through the split sections.
+        decode_seqs = [s for s in self.running
+                       if s.status == SeqStatus.RUNNING]
+        if not decode_seqs:
+            self._prefill_section(batch, outs)
+            return True
         self._run_ragged(decode_seqs, batch, outs)
         return True
 
@@ -576,19 +735,22 @@ class Engine:
             budget = self.ecfg.max_prefill_tokens
         skipped = 0
         for seq in list(self.waiting):
-            window = min(len(seq.tokens) - seq.num_computed,
-                         self._window_cap(budget if interleaved else None))
+            cap = self._window_cap(budget if interleaved else None)
+            window = min(len(seq.tokens) - seq.num_computed, cap)
             if window <= 0:
                 break               # residual below the smallest bucket
             if batch and window > budget:
                 break
             if seq.slot < 0:
-                if not self._try_admit(seq, window):
+                if not self._try_admit(seq, cap):
                     if self._free_slot() < 0 or \
                             skipped >= self._ADMIT_SKIP_AHEAD:
                         break       # no slot at all, or the bound is hit
                     skipped += 1
                     continue        # pages short: try the next prompt
+                # The window starts past the cached prefix: the budget
+                # is charged, and the executor runs, only what is left.
+                window = min(len(seq.tokens) - seq.num_computed, cap)
             elif not self._ensure_pages(
                     seq, self._window_pages_covered(seq, window)):
                 continue            # preempted itself: waits, slotless
@@ -635,15 +797,21 @@ class Engine:
             start[i] = st
             lengths[i] = n
             table[i, :len(seq.pages)] = seq.pages
+        drops = (torch.zeros((), dtype=torch.int64, device=self.device)
+                 if self._count_drops else None)
         logits, self.kv = transformer.forward_prefill(
             self.params, self.cfg, self._to_device(tokens),
             self._to_device(start), self._to_device(lengths), self.kv,
             self._to_device(table), ragged=ragged,
-            write_then_attend=ragged or self.write_then_attend)
+            write_then_attend=ragged or self.write_then_attend,
+            moe_dropped=drops)
         self.last_step_attn_dispatches += 1
         positions = [int(start[i] + lengths[i] - 1) for i in range(B)]
-        return self._sample(logits, [s.req.sampling for s in rows],
-                            positions)
+        out = self._sample(logits, [s.req.sampling for s in rows],
+                           positions)
+        if drops is not None:
+            self._note_moe_dropped(int(drops))
+        return out
 
     def _run_prefill(self, batch: List[Sequence]) -> List[StepOutput]:
         windows = [s.sched_window for s in batch]
@@ -673,7 +841,8 @@ class Engine:
         self.last_step_prefill_s = time.perf_counter() - t0
         self.ragged_steps += 1
         for i, seq in enumerate(decode_seqs):
-            seq.num_computed = len(seq.tokens)
+            if seq.status == SeqStatus.RUNNING:
+                seq.num_computed = len(seq.tokens)
             outs.append(self._append_token(seq, toks[i], lps[i]))
         outs.extend(self._finish_windows(batch, windows, toks[nd:],
                                          lps[nd:]))
@@ -690,12 +859,15 @@ class Engine:
                 # Mid-prompt window: its sampled token is discarded and
                 # the sequence (slot and pages kept) waits for its next
                 # window at the front of the queue.
+                self._swa_trim(seq)
                 self.waiting.append(seq)
                 continue
             seq.status = SeqStatus.RUNNING
             seq.first_token_time = now
             self.running.append(seq)
-            outs.append(self._append_token(seq, toks[i], lps[i]))
+            out = self._append_token(seq, toks[i], lps[i])
+            out.num_cached_tokens = seq.num_cached_tokens
+            outs.append(out)
         self._sort_waiting()
         return outs
 
@@ -771,11 +943,15 @@ class Engine:
         launch = self.graphs.launch(key, seeded)
         self.last_step_attn_dispatches += 1
         toks, lps = launch.read()
+        self._note_moe_dropped(launch.moe_dropped)
         outs = []
-        for seq in list(self.running):
-            seq.num_computed = len(seq.tokens)
-            outs.append(self._append_token(seq, toks[0][seq.slot],
-                                           lps[0][seq.slot]))
+        # (seq, slot) first: a growth below may preempt an offline
+        # sequence later in the list, which still takes its token.
+        for seq, slot in [(s, s.slot) for s in self.running]:
+            if seq.status == SeqStatus.RUNNING:
+                seq.num_computed = len(seq.tokens)
+            outs.append(self._append_token(seq, toks[0][slot],
+                                           lps[0][slot]))
         # Every slot's carry is its sampled token and the next position.
         self._resident = self._snapshot()
         return outs
@@ -816,6 +992,7 @@ class Engine:
         # k's host copy.
         spec = self._dispatch_spec(burst) if self.decode_pipeline else None
         toks, lps = burst["launch"].read()                # [N][B] each
+        self._note_moe_dropped(burst["launch"].moe_dropped)
         self._last_burst_ready_t = time.monotonic()
         self._last_burst_step = self.step_count
         outs = self._post_decode_multi(toks, lps, carry_free=spec is None)
@@ -836,6 +1013,8 @@ class Engine:
         # clamp land on the NULL page, and their tokens are discarded on
         # the host. May preempt: iterate over a snapshot.
         for seq in list(self.running):
+            if seq.status != SeqStatus.RUNNING:
+                continue
             remaining = min(N, seq.req.sampling.max_tokens - seq.num_generated)
             self._grow_pages(seq, lookahead=max(remaining - 1, 0))
         if not self.running:
@@ -933,7 +1112,9 @@ class Engine:
     def _post_decode_multi(self, toks: List[List[int]],
                            lps: List[List[float]],
                            carry_free: bool) -> List[StepOutput]:
-        """Accept each sequence's burst tokens up to its first stop.
+        """Accept each sequence's burst tokens up to its first stop,
+        register the pages they filled and trim sliding windows (a trim
+        changes the page table, so it rolls a speculation back).
         ``carry_free``: no speculative burst went out, so the carries
         still hold this batch."""
         outs: List[StepOutput] = []
@@ -958,6 +1139,10 @@ class Engine:
                 num_generated=seq.num_generated))
             if reason != FinishReason.NONE:
                 self._finish_seq(seq)
+            else:
+                self.prefix_cache.register_full_pages(
+                    seq.tokens[:seq.num_computed], seq.pages)
+                self._swa_trim(seq)
         if carry_free:
             self._resident = self._snapshot()
         return outs
@@ -1023,11 +1208,89 @@ class Engine:
             num_generated=seq.num_generated)
         if reason != FinishReason.NONE:
             self._finish_seq(seq)
-        else:
-            # Pages for the next token's write; may preempt ``seq``,
-            # which keeps this token and prefills it again later.
+        elif seq.status == SeqStatus.RUNNING:
+            # Register the pages the computed tokens filled (the token
+            # just sampled has no KV yet), trim a sliding window, and
+            # grow the table for the next token's write; the growth may
+            # preempt ``seq``, which keeps this token and prefills it
+            # again later.
+            self.prefix_cache.register_full_pages(
+                seq.tokens[:seq.num_computed], seq.pages)
+            self._swa_trim(seq)
             self._grow_pages(seq)
         return out
+
+    # ------------------------------------------------------------------
+    # The host spill tier
+    # ------------------------------------------------------------------
+    def _spill_page(self, h: bytes, pid: int) -> bool:
+        """The prefix index's spill hook: copy page ``pid``, about to be
+        reclaimed, into the host tier under digest ``h``. The copy is
+        taken here, before the page's next owner is handed it, so it
+        reads the content the page held."""
+        if self.host_tier is None:
+            return False
+        return self.host_tier.put(h, *pool_gather(self.kv, pid))
+
+    def _restore_spilled(self, tokens: Seq[int], pages: List[int],
+                         cached_tokens: int) -> Tuple[List[int], int]:
+        """Extend an index hit past where ``match_prefix`` stopped, over
+        blocks the host tier holds (copied back into fresh pages) and
+        registered pages behind them (acquired as a hit would be). The
+        tier's blocks are taken out before the allocation, so that the
+        allocation's own spills cannot push them out; whatever fails
+        (the allocation, the copy) unpins the acquired pages, releases
+        the fresh ones and puts the blocks back."""
+        ps = self.ecfg.page_size
+        hashes = self.prefix_cache.block_hashes(tokens)
+        i = len(pages)
+        # ("tier", hash, blocks) | ("hbm", hash, page), in block order;
+        # never the whole prompt (prefill needs one new token).
+        plan: List[Tuple[str, bytes, Any]] = []
+        n_tier = 0
+        while i < len(hashes) and (i + 1) * ps < len(tokens):
+            blk = self.host_tier.peek(hashes[i])
+            if blk is not None:
+                plan.append(("tier", hashes[i], blk))
+                n_tier += 1
+            else:
+                pid = self.prefix_cache.page_of(hashes[i])
+                if pid is None:
+                    break
+                plan.append(("hbm", hashes[i], pid))
+            i += 1
+        if not n_tier:
+            return pages, cached_tokens
+        hbm_pids = [p[2] for p in plan if p[0] == "hbm"]
+        self.prefix_cache.acquire_pages(hbm_pids)
+        restored = False
+        new_pages = None
+        try:
+            for kind, h, _ in plan:
+                if kind == "tier":
+                    self.host_tier.pop(h)
+            new_pages = self.prefix_cache.alloc(n_tier)
+            if new_pages is not None:
+                pool_scatter(self.kv, new_pages,
+                             [b for kind, _, b in plan if kind == "tier"])
+                restored = True
+        finally:
+            if not restored:
+                self.prefix_cache.release_pages(hbm_pids)
+                if new_pages is not None:
+                    # Unregistered: straight back to the free list.
+                    self.prefix_cache.release_pages(new_pages)
+                for kind, h, blk in plan:
+                    if kind == "tier":
+                        self.host_tier.put(h, *blk)
+        if new_pages is None:
+            return pages, cached_tokens
+        new_iter = iter(new_pages)
+        chain = [next(new_iter) if kind == "tier" else payload
+                 for kind, _, payload in plan]
+        all_pages = list(pages) + chain
+        self.prefix_cache.register_full_pages(tokens[:i * ps], all_pages)
+        return all_pages, i * ps
 
     def _finish_reason(self, seq: Sequence, tok: int) -> FinishReason:
         sp = seq.req.sampling

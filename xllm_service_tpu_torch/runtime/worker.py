@@ -19,7 +19,12 @@ store on a TTL lease (after the engine's warmup, which ``__init__``
 runs), follows the master's advertised address (``XLLM:SERVICE:ADDR``),
 and a heartbeat loop keeps the lease alive (re-registering when the
 store says it is gone) and sends the master ``Heartbeat``s with the
-engine's load, its recent step p99 and its prefill rate. When the
+engine's load, its recent step p99, its prefill rate and the prefix
+cache's block digests stored, removed and offloaded since the last
+acked beat (``cache_stored`` / ``cache_removed`` / ``cache_offloaded``
+/ ``cache_offloaded_ssd``), which the master's cache-aware routing
+scores. A beat that is not acknowledged keeps its digests for the
+next. When the
 service's ``/rpc/config`` asks for ``enable_decode_response_to_service``
 (the RPC topology), a request's ``RequestOutput``s are pushed to the
 master's ``/rpc/generations`` and its HTTP reply is only the ack;
@@ -30,6 +35,12 @@ nowhere and sends no heartbeat: it serves requests sent straight to it.
 One engine-loop thread owns the device and runs ``Engine.step()``; HTTP
 handler threads queue requests to it under the engine lock and read
 their outputs from a per-request queue.
+
+A request body may mark the request ``offline`` (batch tier: queued
+behind online requests, preempted first). The master's ``kv_fetch``
+routing plan (pull the leading blocks from another worker) is not
+followed: the worker prefills from its own prefix hit, the JAX worker's
+own path when a fetch fails.
 
 Not in this package yet: etcd stores, profiling data in the
 registration, draining, spans and step-trace tails on the heartbeat,
@@ -67,6 +78,7 @@ from xllm_service_tpu_torch.obs.metrics import (Registry,
                                                 quantile_from_buckets)
 from xllm_service_tpu_torch.runtime.engine import (Engine, EngineRequest,
                                                    StepOutput)
+from xllm_service_tpu_torch.runtime.kv_cache import KvCacheEvent
 from xllm_service_tpu_torch.service.coordination import (
     KEY_MASTER_ADDR, CoordinationStore, instance_prefix)
 from xllm_service_tpu_torch.service.coordination_net import (
@@ -226,6 +238,19 @@ _UNSUPPORTED = (
 
 MODEL_AWAKE = "awake"
 _STEP_PHASES = ("prefill", "decode", "mixed")
+# The prefix-reuse series on /metrics (JAX worker :1565-1600), by
+# ``Engine.prefix_cache_stats()`` key.
+_PREFIX_SERIES = (
+    ("hit_tokens_total", "prompt tokens served from the prefix cache "
+                         "(local hits and tier restores)"),
+    ("lookups_total", "admits that consulted the prefix cache"),
+    ("spilled_pages", "cached pages copied to the host tier instead of "
+                      "dropped (XLLM_KV_SPILL_MB)"),
+    ("restored_pages", "spilled pages restored to the pool on a later "
+                       "prefix hit"),
+    ("fetched_blocks_total", "KV blocks adopted from a remote holder "
+                             "(none: this worker does not fetch)"),
+)
 
 
 class Worker:
@@ -241,7 +266,8 @@ class Worker:
         # The engine first: without the device it raises before any
         # socket is bound.
         self.engine = Engine(self.model_cfg, engine_cfg or EngineConfig(),
-                             params=params, device=opts.device)
+                             params=params, device=opts.device,
+                             murmur_seed=opts.murmur_seed)
         warmup = opts.warmup
         if warmup is None:
             warmup = self.engine.device.type == "cuda"
@@ -291,6 +317,10 @@ class Worker:
         self._m_load = {k: self.obs.gauge(f"xllm_worker_{k}",
                                           labelnames=("model",))
                         for k in self.engine.load_metrics()}
+        self._m_prefix = {
+            key: self.obs.counter(f"xllm_worker_prefix_cache_{key}", help,
+                                  labelnames=("model",))
+            for key, help in _PREFIX_SERIES}
         self._lease_id: Optional[int] = None
         self._reg_mu = threading.Lock()
         self._addr_watch: Optional[int] = None
@@ -305,6 +335,10 @@ class Worker:
         # the acked master epoch are touched only under it.
         self._hb_lock = threading.Lock()
         self._hb_step_cum: Dict[str, List[Tuple[float, float]]] = {}
+        # The cache digests of a beat that was not delivered, folded
+        # into the next one (touched only under _hb_lock: a beat never
+        # waits for the engine lock).
+        self._hb_cache_pending: Optional[KvCacheEvent] = None
         self._master_epoch = 0
         self._prefill_tok_cum = 0
         self._prefill_s_cum = 0.0
@@ -562,27 +596,41 @@ class Worker:
         """One beat; True when the service acknowledged it (HTTP 200
         from a master whose epoch is not behind one already acked)."""
         with self._hb_lock:
-            hb, step_baseline = self._build_heartbeat()
-            status, ack = http_json("POST", self.service_addr,
-                                    "/rpc/heartbeat", stamp(hb.to_json()),
-                                    timeout=10.0)
-            if status != 200:
-                return False
-            ack_epoch = int((ack or {}).get("epoch", 0) or 0)
-            if ack_epoch < self._master_epoch:
-                # A deposed master still answers on this address: its ack
-                # is no delivery (JAX worker :4424-4446).
-                logger.warning("rejected beat-ack from deposed master at "
-                               "%s (epoch %d < acked %d)", self.service_addr,
-                               ack_epoch, self._master_epoch)
-                return False
-            self._master_epoch = ack_epoch
-            self._hb_step_cum = step_baseline
-            return True
+            cache_ev = self.engine.drain_kvcache_event()
+            if self._hb_cache_pending is not None:
+                self._hb_cache_pending.merge(cache_ev)
+                cache_ev, self._hb_cache_pending = \
+                    self._hb_cache_pending, None
+            delivered = False
+            try:
+                hb, step_baseline = self._build_heartbeat(cache_ev)
+                status, ack = http_json(
+                    "POST", self.service_addr, "/rpc/heartbeat",
+                    stamp(hb.to_json()), timeout=10.0)
+                if status != 200:
+                    return False
+                ack_epoch = int((ack or {}).get("epoch", 0) or 0)
+                if ack_epoch < self._master_epoch:
+                    # A deposed master still answers on this address: its
+                    # ack is no delivery (JAX worker :4424-4446).
+                    logger.warning(
+                        "rejected beat-ack from deposed master at %s "
+                        "(epoch %d < acked %d)", self.service_addr,
+                        ack_epoch, self._master_epoch)
+                    return False
+                self._master_epoch = ack_epoch
+                self._hb_step_cum = step_baseline
+                delivered = True
+                return True
+            finally:
+                if not delivered and not cache_ev.empty:
+                    self._hb_cache_pending = cache_ev
 
-    def _build_heartbeat(self) -> Tuple[Heartbeat, Dict[str, Any]]:
-        """The beat's payload (JAX worker :4336-4471) and the step
-        histogram's baseline to commit once it is acked."""
+    def _build_heartbeat(self, cache_ev: Optional[KvCacheEvent] = None
+                         ) -> Tuple[Heartbeat, Dict[str, Any]]:
+        """The beat's payload (JAX worker :4336-4471), carrying the
+        cache digests of ``cache_ev`` as hex, and the step histogram's
+        baseline to commit once it is acked."""
         p99, baseline = self._recent_step_p99()
         latency = LatencyMetrics(
             step_ms_p99=p99,
@@ -590,9 +638,15 @@ class Worker:
                            if self._prefill_s_cum > 0 else 0.0),
             waiting_prefill_tokens=int(
                 self.engine.waiting_prefill_tokens()))
+        ev = cache_ev or KvCacheEvent()
         hb = Heartbeat(name=self.name,
                        instance_type=self.opts.instance_type,
                        load=self._engine_load(), latency=latency,
+                       cache_stored=[h.hex() for h in ev.stored],
+                       cache_removed=[h.hex() for h in ev.removed],
+                       cache_offloaded=[h.hex() for h in ev.offloaded],
+                       cache_offloaded_ssd=[h.hex()
+                                            for h in ev.offloaded_ssd],
                        model_states={self.opts.model: MODEL_AWAKE})
         return hb, baseline
 
@@ -657,9 +711,13 @@ class Worker:
             self._prefill_s_cum += eng.last_step_prefill_s
 
     def metrics_text(self) -> str:
-        """``GET /metrics``: the load mirrors refreshed, then the
-        registry in Prometheus text."""
+        """``GET /metrics``: the load mirrors and the prefix-cache series
+        refreshed, then the registry in Prometheus text."""
         self._engine_load()
+        stats = self.engine.prefix_cache_stats()
+        for key, _ in _PREFIX_SERIES:
+            self._m_prefix[key].set_total(stats[key],
+                                          model=self.opts.model)
         return self.obs.render()
 
     # ------------------------------------------------------------------
@@ -778,6 +836,7 @@ class Worker:
                                      f"worker yet")
         req = EngineRequest(request_id=rid, token_ids=list(token_ids),
                             sampling=sampling,
+                            offline=bool(body.get("offline", False)),
                             eos_token_ids=self.tokenizer.eos_token_ids)
         live = _LiveRequest(
             req, self.tokenizer, model, is_chat, stream,
