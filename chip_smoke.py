@@ -1688,6 +1688,135 @@ class KernelBench:
                 self.layer),
             lib, nbytes, flops)
 
+    # -- K4, K5, K4' + K7 at phase 7's cached starts -----------------------
+    def cached_start(self, pf, ra, pa, kv, attention):
+        """Phase 7's warm windows: three requests whose first 1,024
+        tokens (8 pages) the prefix cache holds prefill their tails of
+        180, 260 and 300 tokens from start 1,024, in one T = 512 bucket
+        of B = 4 rows, tables 16 pages wide (11 pages cover 1,325
+        positions). K4 with a padding row beside them; K5 with a decode
+        row (context 1,141) before them, as a ragged step would carry
+        the cold request; K4' (the window's K/V as fresh operands, the
+        pool's window slots stale) with K7 writing the windows into all
+        4 layers of the pool after it, as an attend-then-write step
+        does (its record also times K4' and K7 in one graph,
+        ``with_k7_ms``). Each checked against its plain version and timed
+        beside the library: SDPA over ``gather_pages`` (for K4' the fresh
+        window scattered in first) and, for K7, ``index_copy_``."""
+        torch = self.torch
+        B, T, MP = 4, 512, 16
+        perm = torch.randperm(self.P - 1, generator=self.g,
+                              device=self.dev)[:B * MP] + 1
+        pt = perm.reshape(B, MP).to(torch.int32).contiguous()
+        tails = [180, 260, 300]
+        shape = ("B=4, T=512: windows of 180/260/300 tokens at start "
+                 "1,024, page 128, tables 16 pages wide")
+        # K5: a decode row first, then the three windows.
+        self._ragged_case(
+            ra, pa, pf, attention, "ragged_paged_attention_cached_start",
+            [1140] + [1024] * 3, [1] + tails, pt, T, checks=False,
+            parts={"windows_only": [0] + tails},
+            shape=shape + " after a decode row at context 1,141")
+        # K4 and K4' + K7: the three windows and a padding row.
+        starts, lens_list = [1024] * 3 + [0], tails + [0]
+        q = self.randn(B, T, self.Hq, self.D)
+        q_start, lens = self.i32(starts), self.i32(lens_list)
+        valid = (torch.arange(T, device=self.dev)[None, :]
+                 < lens.long()[:, None])
+        args = (self.kp, self.vp, pt, q_start, lens, self.layer)
+        err = self.close("K4 at a cached start",
+                         pf.paged_prefill_attention(q, *args),
+                         pf.paged_prefill_attention_plain(q, *args), valid)
+        S = MP * self.ps
+        kv_pos = torch.arange(S, device=self.dev)[None, None, :]
+        q_pos = q_start.long()[:, None, None] + torch.arange(
+            T, device=self.dev)[None, :, None]
+        mask = ((kv_pos <= q_pos) & (kv_pos < (q_start + lens).long()[
+            :, None, None]))[:, None]
+
+        def lib():
+            k = attention.gather_pages(self.kp[self.layer], pt)
+            v = attention.gather_pages(self.vp[self.layer], pt)
+            return sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), mask)
+        keys = sum(st + n for st, n in zip(starts, lens_list) if n)
+        pairs = sum(n * st + n * (n + 1) // 2
+                    for st, n in zip(starts, lens_list))
+        row = self.Hkv * self.D * 2
+        n_rows = sum(lens_list)
+        nbytes = keys * 2 * row + 2 * n_rows * self.Hq * self.D * 2 \
+            + B * (8 + 4 * MP)
+        flops = 4.0 * pairs * self.Hq * self.D
+        self.record(
+            "paged_prefill_attention_cached_start",
+            f"{CSRC}/paged_prefill_attention.cu",
+            f"{PALLAS}/prefill_attention.py:272", err,
+            lambda: pf.paged_prefill_attention(q, *args),
+            lambda: pf.paged_prefill_attention_plain(q, *args), lib,
+            nbytes, flops, entry="paged_prefill_attention", shape=shape)
+        # K4' + K7 on copies of the pools (K7 writes them).
+        L = self.L
+        kn = self.randn(L, B, T, self.Hkv, self.D)
+        vn = self.randn(L, B, T, self.Hkv, self.D)
+        kf, vf = kn[self.layer], vn[self.layer]
+        ka, va, kb, vb = (self.kp.clone(), self.vp.clone(),
+                          self.kp.clone(), self.vp.clone())
+        fresh = (q, kf, vf, ka, va, pt, q_start, lens, self.layer)
+        err = self.close("K4' at a cached start",
+                         pf.paged_prefill_attention_fresh(*fresh),
+                         pf.paged_prefill_attention_fresh_plain(*fresh),
+                         valid)
+        kv.paged_prefill_kv_update(ka, va, kn, vn, pt, q_start, lens)
+        kv.paged_prefill_kv_update_plain(kb, vb, kn, vn, pt, q_start, lens)
+        self._same((ka, va), (kb, vb), "K7 at a cached start",
+                   (L, self.Hkv, self.D))
+
+        t = torch.arange(T, device=self.dev)
+        pos = q_start.long()[:, None] + t[None, :]
+        idx = pos[:, :, None, None].expand(-1, -1, self.Hkv, self.D)
+
+        def lib_fresh():
+            k = attention.gather_pages(ka[self.layer], pt)
+            v = attention.gather_pages(va[self.layer], pt)
+            k.scatter_(1, idx, kf)
+            v.scatter_(1, idx, vf)
+            return sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), mask)
+
+        def both():
+            pf.paged_prefill_attention_fresh(*fresh)
+            kv.paged_prefill_kv_update(ka, va, kn, vn, pt, q_start, lens)
+        self.record(
+            "paged_prefill_attention_fresh_cached_start",
+            f"{CSRC}/paged_prefill_attention.cu",
+            f"{PALLAS}/prefill_attention.py:272", err,
+            lambda: pf.paged_prefill_attention_fresh(*fresh),
+            lambda: pf.paged_prefill_attention_fresh_plain(
+                q, kf, vf, kb, vb, pt, q_start, lens, self.layer),
+            lib_fresh, nbytes, flops,
+            entry="paged_prefill_attention_fresh", shape=shape,
+            with_k7_ms=graph_ms(both))
+        flat = (pt.long().gather(1, pos // self.ps) * self.ps
+                + pos % self.ps)[valid]
+        kr, vr = kn[:, valid].contiguous(), vn[:, valid].contiguous()
+        kflat = ka.view(L, self.P * self.ps, self.Hkv, self.D)
+        vflat = va.view(L, self.P * self.ps, self.Hkv, self.D)
+
+        def lib_write():
+            kflat.index_copy_(1, flat, kr)
+            vflat.index_copy_(1, flat, vr)
+        self.record(
+            "paged_prefill_kv_update_cached_start", f"{CSRC}/kv_update.cu",
+            f"{PALLAS}/kv_update.py:244", 0.0,
+            lambda: kv.paged_prefill_kv_update(ka, va, kn, vn, pt, q_start,
+                                               lens),
+            lambda: kv.paged_prefill_kv_update_plain(kb, vb, kn, vn, pt,
+                                                     q_start, lens),
+            lib_write, n_rows * L * 2 * 2 * self.Hkv * self.D * 2
+            + B * (4 * MP + 8), 0.0, entry="paged_prefill_kv_update",
+            layers=L, shape=shape + "; all 4 layers of the pool")
+        del ka, va, kb, vb
+
     # -- K4, K4', K5 beyond the serving shape -------------------------------
     @staticmethod
     def arg_sets(sinks):
@@ -1981,6 +2110,9 @@ def forward_check(torch, cfg, device) -> float:
         results.append(tuple(x.float().cpu() for x in (
             pre, dec, rag, first, second, aw_dec)))
     graph = graph_decode_check(torch, params, cfg, "llama3-1b")
+    graph["prefill"] = graph_prefill_check(
+        torch, params, cfg, "llama3-1b",
+        (("prefill", True), ("prefill", False), ("ragged", True)))
     graph["pipeline"] = pipeline_check(torch, params, cfg, "llama3-1b")
     worst, err = logit_errors(torch, results)
     log(f"[forward] llama3-1b rel L2 (GPU kernels bf16 vs CPU plain fp32): "
@@ -2048,6 +2180,89 @@ def graph_decode_check(torch, params, cfg, name: str) -> dict:
         del graph, static
     log(f"[graph] {name}: a captured decode forward replayed vs the same "
         f"forward eager: {json.dumps(out)}")
+    return out
+
+
+def graph_prefill_check(torch, params, cfg, name: str, kinds) -> dict:
+    """The prefill runner's graphs on the card: one step captured and
+    replayed against the same step run eagerly through the runner's body,
+    each on its own copy of a pool of random stale values: B = 4 rows in
+    a T = 256 bucket, tables 4 pages wide, windows of 200, 77 and 130
+    tokens at starts 0, 256 (a cached start) and 128 beside a padding
+    row (length 0, NULL table); a ragged step has two decode rows (contexts
+    301 and 411) before its two windows. For each (kind, order): the
+    capture's warm-up body (every length 0, every table NULL) left every
+    pool byte as it was; the replay wrote the live rows' window slots and
+    no other byte; tokens equal, logprobs and the written slots within
+    ATTN_TOL of the eager body's (the same kernels in the same order: 0
+    expected); and the kernels a replay launches."""
+    from xllm_service_tpu_torch.models import transformer as tf
+    from xllm_service_tpu_torch.ops.sampling import SamplingTensors
+    from xllm_service_tpu_torch.runtime import prefill_graph
+    from xllm_service_tpu_torch.utils.types import SamplingParams
+    dev = torch.device("cuda")
+    B, T, MP, ps = 4, 256, 4, 128
+    g = torch.Generator(device=dev).manual_seed(17)
+    base = tf.init_kv_cache(cfg, 1 + B * MP, ps, dev)
+    for pool in base:
+        pool.normal_(generator=g)
+    table = [list(range(1 + i * MP, 1 + (i + 1) * MP)) for i in range(B)]
+    rng = random.Random(17)
+    spans = {"prefill": [(0, 200), (256, 77), (128, 130)],
+             "ragged": [(300, 1), (410, 1), (0, 200), (128, 130)]}
+    greedy = SamplingTensors.pack_batch([SamplingParams(temperature=0.0)]
+                                        * B)
+    out = {}
+    for kind, wta in kinds:
+        rows = [([rng.randrange(3, 259) for _ in range(n)], st, table[i])
+                for i, (st, n) in enumerate(spans[kind])]
+        flat = prefill_graph.pack((B, T, MP), rows, greedy)
+        key = (kind, B, T, MP, True)
+        got = {}
+        for use_graphs in (True, False):
+            kv = tuple(p.clone() for p in base)
+            runner = prefill_graph.PrefillGraphs(
+                params, cfg, kv, B, wta, torch.Generator(device=dev), dev,
+                use_graphs, torch.cuda.graph_pool_handle()
+                if use_graphs else None)
+            runner.stage((B, T, MP), flat)
+            runner.prepare(key)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(kv, base)):
+                raise AssertionError(f"{name} {kind}: the capture's warm-up "
+                                     f"body (length 0, NULL tables) wrote "
+                                     f"into the pools")
+            toks, lps, _ = runner.launch(key)
+            got[use_graphs] = (toks, lps, kv, runner)
+        (tg, lg, kg, rg), (te, le, ke, _) = got[True], got[False]
+        touched = torch.zeros((1 + B * MP, ps), dtype=torch.bool,
+                              device=dev)
+        for i, (st, n) in enumerate(spans[kind]):
+            for pos in range(st, st + n):
+                touched[table[i][pos // ps], pos % ps] = True
+        slot_err = 0.0
+        for new, old, eager in zip(kg, base, ke):
+            moved = (new != old).flatten(3).any(-1).any(0)
+            if bool(moved[~touched].any()):
+                raise AssertionError(f"{name} {kind}: the replay wrote "
+                                     f"outside the live rows' windows")
+            slot_err = max(slot_err, float(
+                (new.float() - eager.float()).abs().max()))
+        lp_err = max(abs(a - b) for a, b in zip(lg[:len(rows)],
+                                                 le[:len(rows)]))
+        order = "write_then_attend" if wta else "attend_then_write"
+        rec = {"tokens_equal": tg == te, "logprob_max_abs_diff": lp_err,
+               "pool_max_abs_diff": slot_err,
+               "kernels_per_replay": {
+                   w.__name__: n for w, n in rg.graphs[key].tally.items()}}
+        if tg[:len(rows)] != te[:len(rows)] or lp_err > ATTN_TOL or \
+                slot_err > ATTN_TOL:
+            raise AssertionError(f"{name} {kind} {order}: graph vs eager "
+                                 f"{rec}")
+        out[f"{kind}_{order}"] = rec
+        del got, rg
+    log(f"[graph] {name}: a captured prefill step replayed vs the same "
+        f"step eager: {json.dumps(out)}")
     return out
 
 
@@ -2193,6 +2408,9 @@ def mla_forward_check(torch, kernels, cfg, device) -> float:
         del kv
     graph = graph_decode_check(torch, params, cfg,
                                f"deepseek-v2-lite ({L} layers)")
+    graph["prefill"] = graph_prefill_check(
+        torch, params, cfg, f"deepseek-v2-lite ({L} layers)",
+        (("prefill", True), ("prefill", False)))
     del params, cpu_params
     rels, err = logit_errors(torch, results)
     log(f"[forward] deepseek-v2-lite ({L} layers) rel L2 (GPU kernels bf16 "
@@ -2308,6 +2526,44 @@ def profile_request(torch, addr: str, body: dict) -> dict:
            "top": [{"ms": ms, "count": n, "name": k[:90]}
                    for ms, n, k in rows[:14]]}
     log(f"[profile] {json.dumps(out)}")
+    return out
+
+
+def runner_host_launches(torch, engine) -> dict:
+    """Host launch calls (``HOST_LAUNCH_CALLS``) of one prefill forward
+    and, on a dense model, one ragged forward through the live engine's
+    runner, under torch.profiler on this thread: ``launch`` as the engine
+    runs it in its mode (a replay with graphs on, the body eagerly with
+    them off), and ``eager_body`` the same forward's body called alone.
+    The smallest greedy key of each kind (one the engine's mode lacks is
+    made first: after the phase's census was read), on padding inputs
+    (every row length 0: the pools are not written)."""
+    from torch.profiler import ProfilerActivity, profile
+    from xllm_service_tpu_torch.ops.sampling import SamplingTensors
+    from xllm_service_tpu_torch.runtime import prefill_graph
+    from xllm_service_tpu_torch.utils.types import SamplingParams
+    runner = engine.prefill_graphs
+    out = {}
+    for kind in ("prefill",) + (() if engine.cfg.mla else ("ragged",)):
+        keys = sorted(k for k in runner.graphs if k[0] == "prefill" and k[4])
+        key = (kind,) + keys[0][1:]
+        runner.prepare(key)
+        B = key[1]
+        runner.stage(key[1:4], prefill_graph.pack(
+            key[1:4], [], SamplingTensors.pack_batch(
+                [SamplingParams(temperature=0.0)] * B)))
+        counts = {"key": list(key)}
+        for mode, fn in (("launch", lambda: runner.launch(key)),
+                         ("eager_body", lambda: runner._body(*key))):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            counts[mode] = sum(e.count for e in prof.key_averages()
+                               if e.key in HOST_LAUNCH_CALLS)
+        out[kind] = counts
     return out
 
 
@@ -2608,6 +2864,7 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
         tokens = {n: list(t) for n, t in steplog.tokens.items()}
         capture = w.engine.capture_report()
         overlap = w.engine.overlap_metrics()
+        runner_launches = runner_host_launches(torch, w.engine)
         prof = None
         if not ragged:
             n0 = len(steplog.rows)
@@ -2639,11 +2896,15 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
         raise AssertionError(
             f"engine.ragged={engine_ragged}, write_then_attend="
             f"{engine_wta}; want {ragged}, {write_then_attend}")
-    # Graphs on: every decode step a replay of a graph warmup captured;
-    # off: none.
-    if graphs and (capture["replays"] == 0 or capture["eager_steps"]
+    # Graphs on: every prefill, ragged and decode step a replay of a
+    # graph warmup captured (no capture after warmup, no eager step, in
+    # any program); off: none.
+    served_programs = ["prefill", "decode_multi" if decode_steps > 1
+                       else "decode"] + (["ragged"] if ragged else [])
+    if graphs and (any(capture[p]["replays"] == 0 for p in served_programs)
+                   or capture["eager_steps"]
                    or capture["captures_after_warmup"]):
-        raise AssertionError(f"decode did not run through the warmed-up "
+        raise AssertionError(f"steps did not run through the warmed-up "
                              f"graphs: {capture}")
     if not graphs and capture["replays"]:
         raise AssertionError(f"graphs replayed with graphs off: {capture}")
@@ -2688,7 +2949,13 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
                [r["ms"] for r in rows if r["kind"] == "prefill"]),
            "max_memory_allocated_gib": peak_gb,
            "worker_build_s": build_s,
-           "decode_steps": decode_steps, "capture": capture,
+           "decode_steps": decode_steps,
+           # The census without its per-key graph lists.
+           "capture": {k: ({kk: vv for kk, vv in v.items()
+                            if kk != "graphs"}
+                           if isinstance(v, dict) and "graphs" in v else v)
+                       for k, v in capture.items()},
+           "runner_host_launches": runner_launches,
            "overlap": overlap,
            "profile": prof}
     log(f"[serve{tag}] {json.dumps(out)}")
@@ -2771,9 +3038,11 @@ def decode_mode_rounds(torch, kernels, model: str, tag: str, err: float,
     served (write-then-attend, ragged off) with graphs off (single
     steps), graphs on (single steps) and graphs on with 4-step bursts and
     the pipeline, in interleaved rounds, all on the same weights. Per
-    mode: TTFT, decode tokens/s per stream, the profiled idle share, host
-    launches and device kernels per forward, graphs captured, speculation
-    hits and rollbacks. Greedy streams with graphs on must equal graphs
+    mode: TTFT, decode tokens/s per stream, the prefill step's median
+    ms, host launches per prefill and per ragged forward
+    (``runner_host_launches``), the profiled idle share, host launches
+    and device kernels per forward, graphs captured, speculation hits
+    and rollbacks. Greedy streams with graphs on must equal graphs
     off token for token; where they do not, the margins rule
     (``divergence_margins``) decides drift or fault, and a fault fails."""
     import types
@@ -2832,6 +3101,15 @@ def decode_mode_rounds(torch, kernels, model: str, tag: str, err: float,
             "spec_rollbacks": [x["overlap"]["spec_rollbacks"] for x in rs],
             "decode_step_ms_median":
                 [x["decode_step_ms_median"] for x in rs],
+            "prefill_step_ms_median":
+                [x["prefill_step_ms_median"] for x in rs],
+            "mixed_step_ms_median":
+                [_median(x["mixed_step_ms"]) for x in rs],
+            "host_launches_per_prefill_forward":
+                [x["runner_host_launches"]["prefill"]["launch"] for x in rs],
+            "host_launches_per_ragged_forward":
+                [x["runner_host_launches"].get("ragged", {}).get("launch")
+                 for x in rs],
             "worker_build_s": [x["worker_build_s"] for x in rs]}
         log(f"[serve{tag}] {card}: {model} {name}: "
             f"{json.dumps(table[name])}")
@@ -2849,6 +3127,40 @@ def decode_mode_rounds(torch, kernels, model: str, tag: str, err: float,
                              f"rule: {faults}")
     return {"modes": table, "equal_to_graphs_off": same,
             "equal_across_rounds": stable, "margins": margins}
+
+
+def ladder_warmup(torch, model: str, params, card: str) -> dict:
+    """``Engine.warmup()``'s full ladder at ``EngineConfig``'s defaults
+    (page 64, buckets 64-2048, a 2,048-token budget, 8 slots,
+    max_model_len 2048; ragged off) on one model's served weights: the
+    seconds, the graph pool's bytes (its segments in the allocator's
+    snapshot; beside it the reserved bytes the warmup added, with the
+    cached blocks returned) and the graphs captured per program."""
+    from xllm_service_tpu_torch.config import EngineConfig
+    from xllm_service_tpu_torch.runtime.engine import Engine
+    from xllm_service_tpu_torch.runtime.worker import resolve_model_config
+    free_device_memory(torch)
+    eng = Engine(resolve_model_config(model),
+                 EngineConfig(cuda_graphs=True, ragged_attn=False),
+                 params=params, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    secs = eng.warmup()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pool = tuple(eng.graphs.pool)
+    pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                     if tuple(seg.get("segment_pool_id", ())) == pool)
+    out = {"model": model, "warmup_s": secs, "graph_pool_bytes": pool_bytes,
+           "reserved_bytes_added": torch.cuda.memory_reserved() - reserved0,
+           "graphs": eng.compile_report(),
+           "captures_after_warmup":
+               eng.capture_report()["captures_after_warmup"]}
+    del eng
+    free_device_memory(torch)
+    log(f"[warmup] {card}: {model}, the default ladder: {json.dumps(out)}")
+    return out
 
 
 def _median(xs):
@@ -2994,19 +3306,55 @@ def wait_for(cond, timeout: float, what: str, step: float = 0.05):
     return got
 
 
+# Phase 6's streamed chats a round (two rounds a topology): prompt
+# lengths of 100-400 tokens.
+CHAT_ROUND = (380, 250, 120, 330, 200, 300, 150, 400)
+
+
+def chat_round(addr: str, tokenizer, rng: random.Random) -> list:
+    """``CHAT_ROUND``'s streamed chats (32 tokens each, temperature 0,
+    their token ids carried) sent at once to ``addr``; per stream its
+    TTFT (ms) and its decode tokens/s (31 gaps)."""
+    bodies = [_chat_body(_token_ids(tokenizer, rng, n)) for n in CHAT_ROUND]
+    out = []
+    for r in _concurrent(addr, bodies):
+        ttft = _ttft_ms(r)
+        _, _, idx, _ = stream_tokens(r["frames"])
+        out.append((ttft, 31 / (r["times"][idx[-1]] - r["times"][idx[0]])))
+    return out
+
+
+def _nearest_rank(xs, q: float):
+    xs = sorted(xs)
+    return xs[max(0, -(-int(q * 100) * len(xs) // 100) - 1)]
+
+
+def chat_summary(streams: list) -> dict:
+    ttft = [t for t, _ in streams]
+    rate = [r for _, r in streams]
+    return {"streams": len(streams), "ttft_ms_median": _median(ttft),
+            "ttft_ms_p90": _nearest_rank(ttft, 0.9),
+            "decode_tokens_per_s_median": _median(rate),
+            "decode_tokens_per_s_p10": _nearest_rank(rate, 0.1),
+            "ttft_ms": ttft, "decode_tokens_per_s": rate}
+
+
 def cluster_phase(torch, kernels, card: str) -> dict:
     """Phase 6: the reference store and master as child processes, the
-    port's worker (llama3-1b, 16 layers, bf16, write-then-attend, decode
-    through the warmed-up graphs) in-process, registered through the
-    store. Checks: one streamed chat alone gives the same text and token
-    logprobs direct and through the master; the four served requests
-    through the relay master all finish, each step launching the kernels
-    it must; the master's books show the load a heartbeat carried (and
-    its step p99) while a long stream runs, which ``POST /cancel`` then
-    ends, the engine idle after; the master is replaced by one in the
-    RPC topology, which the worker follows through the store, and the
-    four requests finish through it too; ``stop()`` takes the worker off
-    the master's list within the lease TTL."""
+    port's worker (llama3-1b, 16 layers, bf16, write-then-attend, every
+    step through the warmed-up graphs) in-process, registered through
+    the store. Checks: one streamed chat alone gives the same text and
+    token logprobs direct and through the master; the four served
+    requests through the relay master all finish, each step launching
+    the kernels it must; 16 streamed chats a topology (``chat_round``,
+    two rounds of 8 at once; direct and relay interleaved, RPC after its
+    takeover) give TTFT median and p90 and decode tokens/s per stream;
+    the master's books show the load a heartbeat carried (and its step
+    p99) while a long stream runs, which ``POST /cancel`` then ends, the
+    engine idle after; the master is replaced by one in the RPC
+    topology, which the worker follows through the store, and the four
+    requests finish through it too; ``stop()`` takes the worker off the
+    master's list within the lease TTL."""
     from xllm_service_tpu_torch.runtime import worker
     model = "llama3-1b"
     logs = ROOT / "build" / "cluster_logs"
@@ -3117,6 +3465,14 @@ def cluster_phase(torch, kernels, card: str) -> dict:
                            "launches": {k: kernels.launch_counts()[k]
                                         for k in need}}
 
+        # 2b. TTFT through the master: 16 streamed chats a topology, in
+        # two rounds of 8 at once, direct and relay interleaved (the RPC
+        # rounds follow its takeover below).
+        chats = {"direct": [], "relay": [], "rpc": []}
+        for where, addr in (("direct", w.name), ("relay", relay_http),
+                            ("relay", relay_http), ("direct", w.name)):
+            chats[where] += chat_round(addr, w.tokenizer, rng)
+
         # 3-4. A long stream through the master: the master's books show
         # the heartbeat's load; POST /cancel ends it.
         srid = "phase6-cancel"
@@ -3207,6 +3563,13 @@ def cluster_phase(torch, kernels, card: str) -> dict:
                        "launches": {k: kernels.launch_counts()[k]
                                     for k in need}}
 
+        for _ in range(2):
+            chats["rpc"] += chat_round(rpc_http, w.tokenizer, rng)
+        capture = w.engine.capture_report()
+        if capture["captures_after_warmup"] or capture["eager_steps"]:
+            raise AssertionError(f"phase 6 steps outside the warmed-up "
+                                 f"graphs: {capture}")
+
         # 6. stop() takes the worker off the master's list within the
         # lease TTL.
         t0 = time.perf_counter()
@@ -3233,6 +3596,7 @@ def cluster_phase(torch, kernels, card: str) -> dict:
                    v["decode_tokens_per_s_streams"])}
            for k, v in runs.items()}
     out["medians"] = med
+    out["chats"] = {k: chat_summary(v) for k, v in chats.items()}
     log(f"[cluster] detail {json.dumps(out)}")
     log(f"[cluster-loop] {card}: the engine loop per run, [steps, step "
         f"ms median, pushes, push ms median, push ms max]: "
@@ -3247,6 +3611,12 @@ def cluster_phase(torch, kernels, card: str) -> dict:
         f"{med['direct']['decode_tokens_per_s']}; heartbeat step_ms_p99 "
         f"by beat during a long stream (the first holds its prefill) "
         f"{beats}")
+    log(f"[cluster] {card}: 16 streamed chats a topology (two rounds of "
+        f"8 at once), TTFT ms median / p90 and decode tokens/s per stream "
+        f"median: " + json.dumps({
+            k: [v["ttft_ms_median"], v["ttft_ms_p90"],
+                v["decode_tokens_per_s_median"]]
+            for k, v in out["chats"].items()}))
     return out
 
 
@@ -3331,7 +3701,9 @@ def _concurrent(addr, bodies, headers=None):
 def prefix_phase(torch, kernels, card: str, err: float) -> dict:
     """Phase 7: a 1,024-token system prompt (8 full pages) shared by 4
     requests with distinct tails, served by one llama3-1b worker (16
-    layers, bf16, phase 5's flags, graphs on) on each path: the split
+    layers, bf16, phase 5's flags, every step a replay of a graph its
+    warmup captured, wide cached-start tables included) on each path:
+    the split
     step in write-then-attend order (fused writer + K4 at start 1024),
     the ragged step (K5 windows at start 1024 beside decode rows) and
     attend-then-write (K4' + K7). Four rounds, cache off / on / on / off
@@ -3413,6 +3785,17 @@ def prefix_phase(torch, kernels, card: str, err: float) -> dict:
                           {len(p): p for p in sets[r]})], err)
             rec["warm_equal_to_cache_off"] = same
             rec["prefix_cache_stats"] = w.engine.prefix_cache_stats()
+            # Every window, cached starts and their wide tables included,
+            # a replay of a graph the worker's warmup captured.
+            cap = w.engine.capture_report()
+            rec["capture"] = {p: {k: cap[p][k] for k in (
+                "captured", "replays", "captures_after_warmup", "late",
+                "eager_steps")} for p in ("prefill", "ragged", "decode")}
+            if cap["captures_after_warmup"] or cap["eager_steps"] or \
+                    cap["prefill"]["replays"] == 0 or \
+                    (ragged and cap["ragged"]["replays"] == 0):
+                raise AssertionError(f"phase 7 {tag}: steps outside the "
+                                     f"warmed-up graphs: {rec['capture']}")
         finally:
             w.stop()
         del w, steplog
@@ -3753,6 +4136,8 @@ def main() -> int:
     bench.decode_attention_current(paged_attention, attention)
     bench.decode_attention_long(paged_attention, attention)
     bench.prefill_attention_fresh(prefill_attention, attention)
+    bench.cached_start(prefill_attention, ragged_attention, paged_attention,
+                       kv_update, attention)
     bench.head_dims(prefill_attention, ragged_attention, paged_attention)
     bench.prefill_long(prefill_attention, ragged_attention, attention)
     mla_cfg = ModelConfig.deepseek_v2_lite()
@@ -3784,7 +4169,10 @@ def main() -> int:
     split_wta = {"ragged": False, "write_then_attend": True}
     ragged_path = {"ragged": True, "write_then_attend": True}
     split_atw = {"ragged": False, "write_then_attend": False}
-    served = serve(torch, kernels, "llama3-1b", "cuda", ragged=False)
+    served = serve(torch, kernels, "llama3-1b", "cuda", ragged=False,
+                   keep_params=True)
+    ladders = {"llama3-1b": ladder_warmup(torch, "llama3-1b",
+                                          served.pop("params"), card)}
     free_device_memory(torch)
     served_b = serve(torch, kernels, "llama3-1b", "cuda", ragged=True,
                      tag="b")
@@ -3801,7 +4189,9 @@ def main() -> int:
             err, cpu_float(eng.params)))
     free_device_memory(torch)
     served_d = serve(torch, kernels, "deepseek-v2-lite", "cuda",
-                     ragged=False, tag="d")
+                     ragged=False, tag="d", keep_params=True)
+    ladders["deepseek-v2-lite"] = ladder_warmup(
+        torch, "deepseek-v2-lite", served_d.pop("params"), card)
     free_device_memory(torch)
     tok_d = served_d.pop("tokens")
     served_e = serve(
@@ -3899,7 +4289,7 @@ def main() -> int:
     for phase in (served, served_b, served_c, served_d, served_e):
         phase.pop("prompts")
         phase.pop("on_engine")
-        phase.pop("params")
+        phase.pop("params", None)
     log(f"[margins] {card}: top-2 logit margin at each stream's first "
         f"divergent token between served paths (limit: 10 x phase 4's "
         f"largest logit error, llama3-1b {err}, deepseek-v2-lite "
@@ -3931,6 +4321,7 @@ def main() -> int:
                "cluster_cache_aware": routed,
                "graph_decode_check": {"llama3-1b": graph,
                                       "deepseek-v2-lite": graph_mla},
+               "warmup_ladders": ladders,
                "equal_token_share": same,
                "seconds": time.perf_counter() - t_start}
     log(f"[summary] {json.dumps(summary)}")

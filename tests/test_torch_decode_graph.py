@@ -407,7 +407,9 @@ def test_no_capture_after_a_warmup_that_covered_the_run(steps):
     eng.warmup()
     report = eng.capture_report()
     widths = decode_graph.decode_widths(eng.ecfg.max_pages_per_seq)
-    assert report["captured"] == len(widths) * len({1, steps}) * 2
+    assert report["decode"]["captured"] + report["decode_multi"]["captured"] \
+        == len(widths) * len({1, steps}) * 2
+    assert (report["decode_multi"]["captured"] > 0) == (steps > 1)
     out = _run(eng, [_req("a", range(1, 9), 20, temperature=0.7),
                      _req("b", range(2, 14), 11)])
     assert len(out["a"][0]) == 20 and len(out["b"][0]) == 11

@@ -721,10 +721,11 @@ class EngineConfig:
     # either way. None = on when decode_steps > 1. Env
     # XLLM_DECODE_PIPELINE=0/1 overrides.
     decode_pipeline: Optional[bool] = None
-    # Decode steps through CUDA graphs captured per (table width, steps,
-    # sampling mode), the counterpart of the JAX engine's jitted decode
-    # programs. None = on for a CUDA engine, off on the CPU (where the
-    # same runner calls the step eagerly). Env XLLM_CUDA_GRAPHS=0/1
+    # Every step kind through CUDA graphs: decode captured per (table
+    # width, steps, sampling mode), prefill and ragged per (rows, bucket,
+    # table width, sampling mode), the counterparts of the JAX engine's
+    # jitted programs. None = on for a CUDA engine, off on the CPU (where
+    # the same runners call the steps eagerly). Env XLLM_CUDA_GRAPHS=0/1
     # overrides.
     cuda_graphs: Optional[bool] = None
     # Host spill tier: when > 0 (and the prefix cache is on), cached

@@ -21,7 +21,8 @@ Tables may carry NULL (0) entries where a sliding window trimmed a
 sequence's leading pages; every kernel reads them only in lanes the
 window masks.
 
-All graphs share one memory pool; they never run at once. A capture
+All graphs, these and the prefill runner's (``runtime/prefill_graph.py``),
+share one memory pool; they never run at once. A capture
 that fails raises: nothing falls back to eager steps on CUDA. Steps run
 eagerly, through the same body and buffers, where graphs are off (the
 CPU, ``EngineConfig.cuda_graphs=False``) or a row draws from its own
@@ -32,7 +33,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -90,6 +91,30 @@ class _Graph:
         self.replays = 0
 
 
+def capture(warm_up: Callable[[], None], body: Callable[[], Tuple],
+            pool, generator: torch.Generator, greedy: bool) -> _Graph:
+    """``body()`` (returning tokens, logprobs and the drop count)
+    captured into a graph in ``pool``. ``warm_up()`` runs first, eagerly
+    on a side stream, so that lazy set-up (libraries' handles and
+    workspaces, the kernels' modules) stays out of the graph; it must
+    leave the inputs as it found them. A sampled body (not ``greedy``)
+    registers ``generator``, whose state is as it was before."""
+    state = generator.get_state()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        warm_up()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    if not greedy:
+        graph.register_generator_state(generator)
+    with capture_tally() as tally:
+        with torch.cuda.graph(graph, pool=pool):
+            tokens, logprobs, dropped = body()
+    generator.set_state(state)
+    return _Graph(graph, tokens, logprobs, dropped, tally)
+
+
 class DecodeGraphs:
     """The decode step runner of one engine (see the module
     docstring)."""
@@ -126,11 +151,14 @@ class DecodeGraphs:
                 for _ in range(2)]
         self._next_host = 0
         self.warm = False
-        self.captures_after_warmup = 0
+        # The keys captured after warmup, and the eager steps by program
+        # (``program``: single steps, fused bursts).
+        self.late: List[Key] = []
+        self.eager_steps: Dict[str, Dict[str, int]] = {
+            p: collections.Counter() for p in PROGRAMS}
         # Dispatches (a replay or an eager call) and the forwards in them.
         self.launches = 0
         self.forwards = 0
-        self.eager_steps: Dict[str, int] = collections.Counter()
 
     # ------------------------------------------------------------------
     # Static inputs
@@ -229,34 +257,25 @@ class DecodeGraphs:
         if key in self.graphs:
             return
         if self.warm:
-            self.captures_after_warmup += 1
+            self.late.append(key)
         width, n, greedy = key
         self.table(width)
         if not self.use_graphs:
             self.graphs[key] = None
             return
         saved = (self.tokens.clone(), self.positions.clone(),
-                 self.active.clone(), self.generator.get_state())
-        # One eager step first, every row inactive (the writers write
-        # nothing), on a side stream: lazy set-up (libraries' handles
-        # and workspaces, the kernels' modules) stays out of the graph.
-        self.active.zero_()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
+                 self.active.clone())
+
+        def warm_up():
+            # Every row inactive: the writers write nothing.
+            self.active.zero_()
             self._body(width, 1, greedy)
-        torch.cuda.current_stream().wait_stream(side)
-        self.tokens.copy_(saved[0])
-        self.positions.copy_(saved[1])
-        self.active.copy_(saved[2])
-        graph = torch.cuda.CUDAGraph()
-        if not greedy:
-            graph.register_generator_state(self.generator)
-        with capture_tally() as tally:
-            with torch.cuda.graph(graph, pool=self.pool):
-                tokens, logprobs, dropped = self._body(width, n, greedy)
-        self.generator.set_state(saved[3])
-        self.graphs[key] = _Graph(graph, tokens, logprobs, dropped, tally)
+            for buf, old in zip((self.tokens, self.positions, self.active),
+                                saved):
+                buf.copy_(old)
+        self.graphs[key] = capture(warm_up,
+                                   lambda: self._body(width, n, greedy),
+                                   self.pool, self.generator, greedy)
 
     def launch(self, key: Key, seeded: Optional[Seeded] = None) -> Launch:
         """Run ``key``'s step(s) from the staged inputs: a graph replay,
@@ -266,9 +285,9 @@ class DecodeGraphs:
         self.launches += 1
         self.forwards += key[1]
         if g is None or seeded is not None:
-            self.eager_steps["seeded" if g is not None else
-                             "graphs_off" if self.device.type == "cuda"
-                             else "cpu"] += 1
+            self.eager_steps[program(key)][
+                "seeded" if g is not None else
+                "graphs_off" if self.device.type == "cuda" else "cpu"] += 1
             tokens, logprobs, dropped = self._body(*key, seeded=seeded)
         else:
             g.graph.replay()
@@ -289,19 +308,67 @@ class DecodeGraphs:
         return Launch(n, host_tok, host_lp, event,
                       dropped=host_drop if dropped is not None else None)
 
-    def report(self) -> Dict[str, object]:
+    def programs(self) -> Dict[str, Dict[str, object]]:
+        """Per program (``decode``, ``decode_multi``): the graphs by key
+        with their replays, the captures after warmup and the eager
+        steps by reason."""
         def name(k: Key) -> str:
             return f"mp{k[0]}_n{k[1]}_{'greedy' if k[2] else 'sampled'}"
-        return {
-            "cuda_graphs": self.use_graphs,
-            "graphs": {name(k): (g.replays if g is not None else 0)
-                       for k, g in sorted(self.graphs.items())},
-            "captured": len(self.graphs),
-            "captures_after_warmup": self.captures_after_warmup,
-            "replays": sum(g.replays for g in self.graphs.values()
-                           if g is not None),
-            "eager_steps": dict(self.eager_steps),
-        }
+        return program_census(list(self.graphs.items()), PROGRAMS, program,
+                              name, list(self.late), self.eager_steps)
+
+    def report(self) -> Dict[str, object]:
+        """The census of both programs together."""
+        return census_totals(self.programs(), self.use_graphs)
+
+
+PROGRAMS = ("decode", "decode_multi")
+
+
+def program(key: Key) -> str:
+    """The JAX program a decode key counts under: ``decode`` (one step,
+    ``_jit_decode``) or ``decode_multi`` (a fused burst)."""
+    return "decode" if key[1] == 1 else "decode_multi"
+
+
+def program_census(items, programs, program_of, name_of, late,
+                   eager) -> Dict[str, Dict[str, object]]:
+    """A runner's census by program: its graphs (``items``: key, graph
+    or None where none is captured) by name with their replays, the
+    count of them, the captures after warmup (``late``: their keys, in
+    order) and the eager steps by reason (``eager``)."""
+    out = {p: {"graphs": {}, "captured": 0, "replays": 0,
+               "captures_after_warmup": 0, "late": [],
+               "eager_steps": dict(eager.get(p, {}))} for p in programs}
+    for k in late:
+        row = out[program_of(k)]
+        row["captures_after_warmup"] += 1
+        row["late"].append(name_of(k))
+    for k, g in sorted(items):
+        row = out[program_of(k)]
+        replays = g.replays if g is not None else 0
+        row["graphs"][name_of(k)] = replays
+        row["captured"] += 1
+        row["replays"] += replays
+    return out
+
+
+def census_totals(programs: Dict[str, Dict[str, object]],
+                  use_graphs: bool) -> Dict[str, object]:
+    """``programs`` with their sums: graphs captured, captures after
+    warmup, replays and eager steps by reason over every program."""
+    eager: Dict[str, int] = collections.Counter()
+    for row in programs.values():
+        eager.update(row["eager_steps"])
+    out: Dict[str, object] = {
+        "cuda_graphs": use_graphs,
+        "captured": sum(r["captured"] for r in programs.values()),
+        "captures_after_warmup": sum(r["captures_after_warmup"]
+                                     for r in programs.values()),
+        "replays": sum(r["replays"] for r in programs.values()),
+        "eager_steps": dict(eager)}
+    out.update(programs)
+    return out
 
 
 def decode_widths(max_pages_per_seq: int) -> List[int]:
@@ -314,4 +381,5 @@ def decode_widths(max_pages_per_seq: int) -> List[int]:
     return widths + [max_pages_per_seq]
 
 
-__all__ = ["DecodeGraphs", "Launch", "Seeded", "decode_widths"]
+__all__ = ["DecodeGraphs", "Launch", "PROGRAMS", "Seeded", "capture",
+           "census_totals", "decode_widths", "program", "program_census"]

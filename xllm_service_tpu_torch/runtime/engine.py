@@ -72,9 +72,19 @@ burst k's device-resident carries before burst k is read back, and
 discarded, with the generator's state restored, when burst k's post
 changed the batch; token streams are those of the pipeline off.
 
-Not in this package yet: graphs for the prefill and ragged steps, the
-step fault boundary, the step trace, and the cross-worker block fetch
-(``export_blocks``, adoption of a remote holder's blocks).
+Prefill, prefill-first and ragged steps run through
+``runtime/prefill_graph.py``: one CUDA graph per (kind, pow2 rows,
+bucket, table width, sampling mode), in the decode graphs' memory pool,
+the counterpart of ``_jit_prefill`` / ``_jit_ragged``. ``warmup()``
+captures the JAX engine's ladder of both runners; a shape it missed is
+captured at first use and counted after warmup, by program
+(``capture_report()``; ``compile_report()`` counts every program's
+graphs). The prefix cache's restore runs before the forward, outside
+the graph.
+
+Not in this package yet: the step fault boundary, the step trace, and
+the cross-worker block fetch (``export_blocks``, adoption of a remote
+holder's blocks).
 """
 
 from __future__ import annotations
@@ -92,10 +102,8 @@ import torch
 from xllm_service_tpu_torch.config import EngineConfig, ModelConfig
 from xllm_service_tpu_torch.models import transformer
 from xllm_service_tpu_torch.ops.kernels import paged_attention
-from xllm_service_tpu_torch.ops.sampling import (SamplingTensors,
-                                                 compute_logprobs,
-                                                 sample_tokens)
-from xllm_service_tpu_torch.runtime import decode_graph
+from xllm_service_tpu_torch.ops.sampling import SamplingTensors
+from xllm_service_tpu_torch.runtime import decode_graph, prefill_graph
 from xllm_service_tpu_torch.runtime.decode_graph import Seeded
 from xllm_service_tpu_torch.runtime.kv_cache import (HostKvTier,
                                                      KvCacheEvent,
@@ -272,11 +280,17 @@ class Engine:
                        min(_pow2(engine_cfg.max_batch_size), 256))
             paged_attention.reserve_tickets(
                 self.device, rows * model_cfg.kv_cache_heads)
+        use_graphs = resolve_cuda_graphs(engine_cfg.cuda_graphs, self.device)
         self.graphs = decode_graph.DecodeGraphs(
             self.params, model_cfg, self.kv, engine_cfg.max_batch_size,
             self.decode_steps, self.write_then_attend, self.generator,
-            self.device, resolve_cuda_graphs(engine_cfg.cuda_graphs,
-                                             self.device))
+            self.device, use_graphs)
+        # The prefill and ragged steps' runner, in the decode runner's
+        # memory pool.
+        self.prefill_graphs = prefill_graph.PrefillGraphs(
+            self.params, model_cfg, self.kv,
+            _pow2(engine_cfg.max_batch_size), self.write_then_attend,
+            self.generator, self.device, use_graphs, self.graphs.pool)
         # The batch the decode runner's token and position carries hold
         # (see _snapshot), or None when they were not kept.
         self._resident: Optional[Tuple] = None
@@ -766,52 +780,35 @@ class Engine:
         buckets = self.ecfg.prefill_buckets
         return buckets[bisect.bisect_left(buckets, n)]
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device)
-
-    def _sample(self, logits: torch.Tensor, params: List[SamplingParams],
-                positions: List[int]) -> Tuple[List[int], List[float]]:
-        tok = sample_tokens(logits, params, self.generator, positions)
-        lp = compute_logprobs(logits, tok)
-        return tok.tolist(), lp.tolist()
-
     def _forward_windows(self, rows: List[Sequence],
                          spans: List[Tuple[int, int]],
                          ragged: bool) -> Tuple[List[int], List[float]]:
-        """One forward_prefill over ``rows``, row i taking the tokens
-        [start, start + n) of ``spans[i]``; the batch pads to a power of
-        two rows and to the bucket of the longest span. Returns the
-        token sampled after each row's last token, and its logprob."""
+        """One forward_prefill over ``rows`` through the prefill runner,
+        row i taking the tokens [start, start + n) of ``spans[i]``; the
+        batch pads to a power of two rows and to the bucket of the
+        longest span. Returns the token sampled after each row's last
+        token, and its logprob."""
         B = _pow2(len(rows))
         T = self._bucket(max(n for _, n in spans))
         # The writer and the attention kernels touch only [start,
         # start + n) of a row, inside its own pages.
         MP = min(_pow2(max(len(s.pages) for s in rows)),
                  self.ecfg.max_pages_per_seq)
-        tokens = np.zeros((B, T), np.int64)
-        start = np.zeros((B,), np.int32)
-        lengths = np.zeros((B,), np.int32)
-        table = np.zeros((B, MP), np.int32)
-        for i, (seq, (st, n)) in enumerate(zip(rows, spans)):
-            tokens[i, :n] = seq.tokens[st:st + n]
-            start[i] = st
-            lengths[i] = n
-            table[i, :len(seq.pages)] = seq.pages
-        drops = (torch.zeros((), dtype=torch.int64, device=self.device)
-                 if self._count_drops else None)
-        logits, self.kv = transformer.forward_prefill(
-            self.params, self.cfg, self._to_device(tokens),
-            self._to_device(start), self._to_device(lengths), self.kv,
-            self._to_device(table), ragged=ragged,
-            write_then_attend=ragged or self.write_then_attend,
-            moe_dropped=drops)
+        params = [s.req.sampling for s in rows]
+        self.prefill_graphs.stage((B, T, MP), prefill_graph.pack(
+            (B, T, MP), [(seq.tokens[st:st + n], st, seq.pages)
+                         for seq, (st, n) in zip(rows, spans)],
+            SamplingTensors.pack_batch(params + [_GREEDY] * (B - len(rows)))))
+        sampled = [i for i, p in enumerate(params) if p.temperature > 0]
+        seeded = [i for i in sampled if params[i].seed is not None]
+        toks, lps, drops = self.prefill_graphs.launch(
+            ("ragged" if ragged else "prefill", B, T, MP, not sampled),
+            Seeded(seeded, [params[i].seed for i in seeded],
+                   [spans[i][0] + spans[i][1] - 1 for i in seeded])
+            if seeded else None)
         self.last_step_attn_dispatches += 1
-        positions = [int(start[i] + lengths[i] - 1) for i in range(B)]
-        out = self._sample(logits, [s.req.sampling for s in rows],
-                           positions)
-        if drops is not None:
-            self._note_moe_dropped(int(drops))
-        return out
+        self._note_moe_dropped(drops)
+        return toks, lps
 
     def _run_prefill(self, batch: List[Sequence]) -> List[StepOutput]:
         windows = [s.sched_window for s in batch]
@@ -1168,18 +1165,50 @@ class Engine:
     # ------------------------------------------------------------------
     # Warmup and the capture census
     # ------------------------------------------------------------------
-    def warmup(self, decode_widths: Optional[Seq[int]] = None) -> float:
-        """Capture every decode graph this configuration can reach: each
-        table width (``decode_widths``, default every power of two up to
-        ``max_pages_per_seq`` and the clamp), single steps and N-step
-        bursts, greedy and sampled. A caller that passes its widths with
-        ``decode_steps > 1`` gets the bursts only (the JAX engine's
-        scoped warmup). Nothing is written to the pools and the
+    def warmup(self, buckets: Optional[Seq[int]] = None,
+               extended: bool = True,
+               prefill_shapes: Optional[Seq[Tuple[int, int, int]]] = None,
+               decode_widths: Optional[Seq[int]] = None) -> float:
+        """Capture every graph this configuration's steady state runs,
+        on the JAX engine's warmup ladder, each greedy and sampled:
+
+        - prefill: every (pow2 B, bucket T) with (B - 1) + T <=
+          max(budget, T), at the table widths pow2(pages(T)) and
+          pow2(pages(T + 1)) (``prefill_graph.ladder``); only the first
+          pair when not ``extended``; exactly ``prefill_shapes`` ((B, T,
+          MP) triples) when given;
+        - decode: each table width (``decode_widths``, default every
+          power of two up to ``max_pages_per_seq`` and the clamp; the
+          first only when not ``extended``), single steps and N-step
+          bursts; a caller that passes its widths with ``decode_steps >
+          1`` gets the bursts only (the JAX engine's scoped warmup);
+        - ragged (when on, and ``extended``): the cross product of the
+          pow2 batches, the prefill shapes' buckets and their widths
+          with the decode widths.
+
+        A shape warmup missed is captured at its first use and counted
+        as a capture after warmup, by program (the JAX engine's
+        recompile counters). Nothing is written to the pools and the
         generator's state is kept. Returns the seconds spent."""
         self.drain_pipeline()
         t0 = time.monotonic()
-        widths = (list(decode_widths) if decode_widths is not None else
-                  decode_graph.decode_widths(self.ecfg.max_pages_per_seq))
+        # A second call (a wider scope) is warmup too, not a late capture.
+        self.graphs.warm = self.prefill_graphs.warm = False
+        buckets = tuple(buckets or self.ecfg.prefill_buckets)
+        batch_pows = self._batch_pows()
+        if prefill_shapes is None:
+            prefill_shapes = prefill_graph.ladder(
+                batch_pows, buckets, self.ecfg.max_prefill_tokens,
+                self.ecfg.page_size, extended)
+        for B, T, mp in prefill_shapes:
+            for greedy in (True, False):
+                self.prefill_graphs.prepare(("prefill", B, T, mp, greedy))
+        if decode_widths is None:
+            widths = decode_graph.decode_widths(self.ecfg.max_pages_per_seq)
+            if not extended:
+                widths = widths[:1]
+        else:
+            widths = list(decode_widths)
         steps = sorted({1, self.decode_steps})
         if decode_widths is not None and self.decode_steps > 1:
             steps = [self.decode_steps]
@@ -1187,15 +1216,61 @@ class Engine:
             for n in steps:
                 for greedy in (True, False):
                     self.graphs.prepare((width, n, greedy))
-        self.graphs.warm = True
+        if self.ragged and extended:
+            t_set = sorted({T for _, T, _ in prefill_shapes})
+            mp_set = sorted({mp for *_, mp in prefill_shapes} | set(widths))
+            for B in batch_pows:
+                for T in t_set:
+                    for mp in mp_set:
+                        for greedy in (True, False):
+                            self.prefill_graphs.prepare(
+                                ("ragged", B, T, mp, greedy))
+        self.graphs.warm = self.prefill_graphs.warm = True
         return time.monotonic() - t0
 
+    def _batch_pows(self) -> List[int]:
+        """The pow2 batch ladder up to ``max_batch_size``."""
+        out, b = [], 1
+        while b <= self.ecfg.max_batch_size:
+            out.append(b)
+            b <<= 1
+        return out
+
+    def late_window_shapes(self) -> List[Tuple[int, int, int]]:
+        """The prefill ladder's (B, T) pairs at every other table width a
+        step can take (the decode widths): a window that starts past
+        token 0 (a chunked prompt's later window, a prefix-cache hit)
+        takes a wider table than the pair's own. The JAX engine leaves
+        these to lazy compiles; the worker captures them in its
+        warmup."""
+        ladder = prefill_graph.ladder(
+            self._batch_pows(), self.ecfg.prefill_buckets,
+            self.ecfg.max_prefill_tokens, self.ecfg.page_size, True)
+        widths = decode_graph.decode_widths(self.ecfg.max_pages_per_seq)
+        pairs = sorted({(B, T) for B, T, _ in ladder})
+        return [(B, T, w) for B, T in pairs for w in widths
+                if (B, T, w) not in ladder]
+
     def capture_report(self) -> Dict[str, Any]:
-        """The decode graphs by key (with their replays), the captures
-        made after ``warmup()``, and the decode steps run eagerly, by
+        """Per program (``prefill``, ``ragged``, ``decode``,
+        ``decode_multi``): the graphs by key with their replays, the
+        captures made after ``warmup()``, and the steps run eagerly, by
         reason: ``seeded`` (a row with its own generator), ``graphs_off``
-        (``cuda_graphs=False`` on CUDA) or ``cpu``."""
-        return self.graphs.report()
+        (``cuda_graphs=False`` on CUDA) or ``cpu``; and their sums over
+        every program."""
+        return decode_graph.census_totals(
+            {**self.prefill_graphs.programs(), **self.graphs.programs()},
+            self.graphs.use_graphs)
+
+    def compile_report(self) -> Dict[str, int]:
+        """Graphs captured per program, warmup included (on the CPU, or
+        with graphs off, the keys recorded): the counterpart of the JAX
+        engine's ``compile_report``. ``ragged`` only where the ragged
+        step is on."""
+        rep = self.capture_report()
+        return {p: rep[p]["captured"]
+                for p in ("prefill", "ragged", "decode", "decode_multi")
+                if p != "ragged" or self.ragged}
 
     def _append_token(self, seq: Sequence, tok: int,
                       logprob: float) -> StepOutput:

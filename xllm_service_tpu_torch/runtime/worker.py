@@ -4,7 +4,8 @@ a member of the service's cluster.
 The counterpart of the JAX package's ``runtime/worker.py``:
 
 - ``GET /hello``, ``GET /v1/models``, ``GET /metrics`` (Prometheus text:
-  load gauges and per-step series under the JAX worker's names);
+  load gauges, per-step series and the graphs captured per program,
+  warmup included and after it, under the JAX worker's names);
 - ``POST /v1/completions`` and ``POST /v1/chat/completions``, with
   ``stream`` true (SSE, ending in ``data: [DONE]``) or false. A request
   the master forwards carries its token ids and the service-parsed
@@ -60,6 +61,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import queue
 import secrets
 import signal
@@ -122,8 +124,8 @@ class WorkerOptions:
     port: int = 0
     model: str = "tiny"
     device: str = "cuda"
-    # Capture the engine's decode graphs before serving (Engine.warmup);
-    # None = on for a CUDA device.
+    # Capture the engine's graphs before serving (``warmup``); None = on
+    # for a CUDA device.
     warmup: Optional[bool] = None
     # Bound on the wait for one engine output of a request.
     request_timeout_s: float = 600.0
@@ -272,9 +274,9 @@ class Worker:
         if warmup is None:
             warmup = self.engine.device.type == "cuda"
         if warmup:
-            secs = self.engine.warmup()
+            secs = self.warmup()
             logger.info("warmup: %.1f s, %s", secs,
-                        self.engine.capture_report())
+                        self.engine.compile_report())
         self._live: Dict[str, _LiveRequest] = {}
         self._live_lock = threading.Lock()
         self._engine_lock = threading.Lock()
@@ -321,6 +323,14 @@ class Worker:
             key: self.obs.counter(f"xllm_worker_prefix_cache_{key}", help,
                                   labelnames=("model",))
             for key, help in _PREFIX_SERIES}
+        self._m_recompiles = self.obs.counter(
+            "xllm_worker_recompiles_total",
+            "post-warmup graph captures per program (0 is the contract)",
+            labelnames=("model", "program"))
+        self._m_compiles = self.obs.counter(
+            "xllm_worker_jit_compiles_total",
+            "graphs captured per program, warmup included (steady growth "
+            "= an unbucketed shape)", labelnames=("model", "program"))
         self._lease_id: Optional[int] = None
         self._reg_mu = threading.Lock()
         self._addr_watch: Optional[int] = None
@@ -711,14 +721,35 @@ class Worker:
             self._prefill_s_cum += eng.last_step_prefill_s
 
     def metrics_text(self) -> str:
-        """``GET /metrics``: the load mirrors and the prefix-cache series
-        refreshed, then the registry in Prometheus text."""
+        """``GET /metrics``: the load mirrors, the prefix-cache series and
+        the graph census (captures per program, and those after warmup:
+        the JAX worker's compile and recompile counters) refreshed, then
+        the registry in Prometheus text."""
         self._engine_load()
         stats = self.engine.prefix_cache_stats()
         for key, _ in _PREFIX_SERIES:
             self._m_prefix[key].set_total(stats[key],
                                           model=self.opts.model)
+        captures = self.engine.capture_report()
+        for program, total in self.engine.compile_report().items():
+            self._m_compiles.set_total(total, model=self.opts.model,
+                                       program=program)
+            self._m_recompiles.set_total(
+                captures[program]["captures_after_warmup"],
+                model=self.opts.model, program=program)
         return self.obs.render()
+
+    def warmup(self) -> float:
+        """The engine's warmup ladder (``XLLM_WARMUP_EXTENDED=0`` keeps
+        only its first shapes, as the JAX worker reads it), and with the
+        full ladder the wider tables of later windows
+        (``Engine.late_window_shapes``). Returns the seconds spent."""
+        extended = os.environ.get("XLLM_WARMUP_EXTENDED", "1") != "0"
+        secs = self.engine.warmup(extended=extended)
+        if extended:
+            secs += self.engine.warmup(
+                prefill_shapes=self.engine.late_window_shapes())
+        return secs
 
     # ------------------------------------------------------------------
     # Engine loop
@@ -1083,8 +1114,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="decode steps fused into one dispatch")
     p.add_argument("--warmup", dest="warmup", default=None,
                    action="store_true",
-                   help="capture the engine's decode graphs before "
-                        "serving (default: auto, on for CUDA)")
+                   help="capture the engine's graphs before serving "
+                        "(default: auto, on for CUDA)")
     p.add_argument("--no-warmup", dest="warmup", action="store_false")
     return p.parse_args(argv)
 
