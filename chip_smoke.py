@@ -228,7 +228,27 @@ Phases (any failure raises and the exit code is not 0):
    audit (``/admin/trace/<id>``) must put B and C on A's worker with a
    match ratio above 0 and no fallback, and D on the least-loaded
    fallback.
-8. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
+8. Sampling (``[sampling]``, ``sampling_phase``): threefry on the card
+   against the CPU for seeds 0, 1 and 2^31 - 1 at positions 0, 1 and
+   4095 over llama3-1b's vocabulary (bits bit-equal, Gumbel noise within
+   1e-6), the sampler's pieces timed at B = 8 (greedy, sampled, seeded,
+   penalized, the seeded chain alone, the counts update, top-5
+   logprobs); then a llama3-1b worker (phase 5's flags,
+   ``num_top_logprobs=5``) serves a greedy round, a concurrent mix (two
+   penalized greedy requests, a ``logit_bias`` banning the greedy first
+   token, a 20-entry bias, two seeded sampled requests with top-5
+   logprobs, an n=3 seeded chat, an echo with logprobs=2, a best_of=3
+   completion) and a seeded round, then each seeded request of the mix
+   alone. It fails unless the banned token never comes, every top list
+   has 5 sorted entries headed at or above the chosen token, each seeded
+   stream equals its request served alone or diverges as drift (the
+   perturbed-score margin at the first divergent token below 10 x phase
+   4's logit error over the temperature), echo leads with its prompt, no
+   step ran eagerly, the captures after warmup are only the bias-32 and
+   echo keys, a prefill forward is one host launch and the mix's
+   launches per step hold; it prints the three rounds' decode step
+   medians.
+9. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
    writers' launches from phase 5 (K1/K2 now 0), K5 from 5b, K6 (now 0),
    K7, K3', K4' and the dense all-layer mode from 5c, K3'' and the fused
    latent writers from 5d, the current form of K3'' and the latent
@@ -2217,7 +2237,7 @@ def graph_prefill_check(torch, params, cfg, name: str, kinds) -> dict:
         rows = [([rng.randrange(3, 259) for _ in range(n)], st, table[i])
                 for i, (st, n) in enumerate(spans[kind])]
         flat = prefill_graph.pack((B, T, MP), rows, greedy)
-        key = (kind, B, T, MP, True)
+        key = prefill_graph.Key(kind, B, T, MP, True)
         got = {}
         for use_graphs in (True, False):
             kv = tuple(p.clone() for p in base)
@@ -2232,8 +2252,8 @@ def graph_prefill_check(torch, params, cfg, name: str, kinds) -> dict:
                 raise AssertionError(f"{name} {kind}: the capture's warm-up "
                                      f"body (length 0, NULL tables) wrote "
                                      f"into the pools")
-            toks, lps, _ = runner.launch(key)
-            got[use_graphs] = (toks, lps, kv, runner)
+            res = runner.launch(key)
+            got[use_graphs] = (res.tokens, res.logprobs, kv, runner)
         (tg, lg, kg, rg), (te, le, ke, _) = got[True], got[False]
         touched = torch.zeros((1 + B * MP, ps), dtype=torch.bool,
                               device=dev)
@@ -2546,15 +2566,14 @@ def runner_host_launches(torch, engine) -> dict:
     out = {}
     for kind in ("prefill",) + (() if engine.cfg.mla else ("ragged",)):
         keys = sorted(k for k in runner.graphs if k[0] == "prefill" and k[4])
-        key = (kind,) + keys[0][1:]
-        runner.prepare(key)
+        key = runner.prepare((kind,) + keys[0][1:])
         B = key[1]
         runner.stage(key[1:4], prefill_graph.pack(
             key[1:4], [], SamplingTensors.pack_batch(
                 [SamplingParams(temperature=0.0)] * B)))
         counts = {"key": list(key)}
         for mode, fn in (("launch", lambda: runner.launch(key)),
-                         ("eager_body", lambda: runner._body(*key))):
+                         ("eager_body", lambda: runner._body(key))):
             fn()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
@@ -2593,10 +2612,12 @@ class StepLog:
         def step():
             before = kernels.launch_counts()
             runs0 = (engine.graphs.launches, engine.graphs.forwards)
+            late0 = (len(engine.graphs.late), len(engine.prefill_graphs.late))
             t0 = time.perf_counter()
             outs = inner()
             ms = (time.perf_counter() - t0) * 1e3
             after = kernels.launch_counts()
+            captured = engine.graphs.use_graphs
             self.rows.append({
                 "kind": engine.last_step_kind,
                 "ragged": engine.last_step_ragged,
@@ -2605,6 +2626,13 @@ class StepLog:
                 # the forwards they ran (N a burst).
                 "decode_dispatches": engine.graphs.launches - runs0[0],
                 "decode_forwards": engine.graphs.forwards - runs0[1],
+                # Graphs captured in the step (each runs its body once
+                # eagerly first).
+                "decode_captures": (len(engine.graphs.late) - late0[0])
+                if captured else 0,
+                "prefill_captures":
+                    (len(engine.prefill_graphs.late) - late0[1])
+                    if captured else 0,
                 "launches": {k: after[k] - before[k] for k in after}})
             for o in outs:
                 self.tokens.setdefault(o.num_prompt_tokens, []).extend(
@@ -2647,13 +2675,17 @@ def step_launches_wanted(row, layers: int, mla: bool,
     both), each with its fused writer once per layer, in either order;
     an attend-then-write decode forward's last layer takes the writer's
     all-layer mode (K6 folded in), a prefill forward adds K7. A kernel
-    in a CUDA graph counts once per replay (``_launch.count_replay``)."""
-    dec = row["decode_forwards"]
-    pre = int(row["kind"] in ("prefill", "mixed"))
+    in a CUDA graph counts once per replay (``_launch.count_replay``).
+    A graph captured in the step (a key after warmup) first runs its
+    body once eagerly: one more decode or prefill (ragged) forward."""
+    dec = row["decode_forwards"] + row.get("decode_captures", 0)
+    pre = int(row["kind"] in ("prefill", "mixed")) + \
+        row.get("prefill_captures", 0)
     want = {k: 0 for k in row["launches"]}
     if row["ragged"]:
-        want.update(rope_prefill_kv_update_layer=layers,
-                    ragged_paged_attention=layers)
+        n = layers * (1 + row.get("prefill_captures", 0))
+        want.update(rope_prefill_kv_update_layer=n,
+                    ragged_paged_attention=n)
     elif mla:
         want.update(latent_kv_update_layer=layers * dec,
                     latent_prefill_kv_update_layer=layers * pre)
@@ -4071,6 +4103,336 @@ def routed_cluster_phase(torch, kernels, card: str, params) -> dict:
     return out
 
 
+# Phase 8: the seeds and positions of the threefry check, and the
+# tolerance of the card's Gumbel noise against the CPU's.
+THREEFRY_SEEDS = (0, 1, 2 ** 31 - 1)
+THREEFRY_POSITIONS = (0, 1, 4095)
+GUMBEL_TOL = 1e-6
+CMPL = "/v1/completions"
+# Phase 8's model and device (a CPU rehearsal rewrites them: "tiny",
+# "cpu").
+SAMPLING_MODEL, SAMPLING_DEVICE = "llama3-1b", "cuda"
+
+
+def _sampler_times(torch, samp, V: int) -> dict:
+    """Device ms of the sampler's pieces at a decode step's shape (B = 8
+    rows over llama3-1b's vocabulary, ``graph_ms``): greedy (bias and
+    argmax), sampled (the filter and the generator's draw), seeded (the
+    threefry chain added), seeded with the penalties, and the seeded
+    chain alone (``seeded_gumbel``), the counts update and the top-5
+    logprobs."""
+    from xllm_service_tpu_torch.utils.types import SamplingParams
+    dev = torch.device("cuda")
+    B = 8
+    g = torch.Generator(device=dev).manual_seed(23)
+    logits = torch.randn((B, V), generator=g, device=dev) * 3
+    params = [SamplingParams(temperature=0.8, top_p=0.9, seed=i,
+                             presence_penalty=0.5, frequency_penalty=0.5)
+              for i in range(B)]
+    st = samp.SamplingTensors.from_packed(
+        samp.SamplingTensors.pack_batch(params), dev)
+    pos = torch.arange(100, 100 + B, dtype=torch.int32, device=dev)
+    counts = torch.randint(0, 3, (B, V), generator=g, device=dev,
+                           dtype=torch.int32)
+    ids, vals = (torch.from_numpy(a).to(dev)
+                 for a in samp.batch_bias(params, B, V))
+    tokens = torch.zeros(B, dtype=torch.int64, device=dev)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+
+    def sample(greedy, seeded, cnt=None):
+        # The default generator: graph_ms registers no other.
+        return lambda: samp.sample_packed(logits, st, None, greedy, seeded,
+                                          pos, cnt, ids, vals)
+    return {
+        "greedy": graph_ms(sample(True, False)),
+        "sampled": graph_ms(sample(False, False)),
+        "seeded": graph_ms(sample(False, True)),
+        "seeded_penalized": graph_ms(sample(False, True, counts)),
+        "seeded_chain": graph_ms(lambda: samp.seeded_gumbel(st.seed, pos,
+                                                            V)),
+        "update_counts": graph_ms(lambda: samp.update_counts(
+            counts, tokens, active)),
+        "top_logprobs_5": graph_ms(lambda: samp.compute_top_logprobs(
+            logits, 5))}
+
+
+def _perturbed_margin(torch, samp, engine, ids, a: int, b: int,
+                      sp) -> float:
+    """|score(a) - score(b)| of the seeded draw after ``ids``: each
+    token's filtered, scaled logit (one prefill forward on the card)
+    plus its threefry Gumbel noise at the draw's position."""
+    from xllm_service_tpu_torch.models import transformer as tf
+    logits = _last_logits(torch, engine.params, engine.cfg, ids,
+                          engine.device, tf.torch_dtype(engine.cfg),
+                          {"ragged": False, "write_then_attend": True})
+    st = samp.SamplingTensors.from_packed(
+        samp.SamplingTensors.pack_batch([sp]), "cpu")
+    noise = samp.seeded_gumbel(torch.tensor([sp.seed]),
+                               torch.tensor([len(ids) - 1]),
+                               logits.shape[-1])[0]
+    score = samp.filtered_scaled(logits[None], st)[0] + noise
+    return float((score[a] - score[b]).abs())
+
+
+def sampling_phase(torch, kernels, card: str, err: float) -> dict:
+    """Phase 8: the OpenAI sampling surface on the card.
+
+    8a: threefry on the card (bits bit-equal to the CPU's, the Gumbel
+    noise within ``GUMBEL_TOL``) for ``THREEFRY_SEEDS`` x
+    ``THREEFRY_POSITIONS`` over llama3-1b's vocabulary, and the
+    sampler's pieces timed (``_sampler_times``).
+
+    8b: a llama3-1b worker (phase 5's flags, ``num_top_logprobs=5``)
+    serves a greedy round, a concurrent mix (2 greedy requests with
+    presence and frequency penalties, a ``logit_bias`` banning the
+    greedy first token, one of 20 entries (a bias width of 32, captured
+    late), 2 seeded sampled requests with top-5 logprobs, an ``n=3``
+    seeded chat, an echo with ``logprobs=2`` and a ``best_of=3, n=1``
+    completion) and a seeded round, then each seeded request of the mix
+    alone. Checks: every reply; the banned token never sampled; each
+    top list 5 entries, sorted, headed at or above the chosen token's
+    logprob; each seeded stream equal to the same request served alone
+    (where one is not, the perturbed-score margin at its first divergent
+    token, ``_perturbed_margin``, against 10 x phase 4's logit error
+    over the temperature: drift below it, a fault above); echo's text
+    led by its prompt; no eager step; captures after warmup only the
+    named late keys (bias width 32, the prompt-scored prefill); one host
+    launch a prefill forward; the mix's kernel launches per step.
+    Prints the decode step medians of the three rounds."""
+    from xllm_service_tpu_torch.config import EngineConfig
+    from xllm_service_tpu_torch.ops import sampling as samp
+    from xllm_service_tpu_torch.runtime import worker
+    from xllm_service_tpu_torch.utils.types import SamplingParams
+    V = worker.resolve_model_config(SAMPLING_MODEL).vocab_size
+    dev = torch.device(SAMPLING_DEVICE)
+    # 8a. threefry on the card.
+    seeds = torch.tensor([s for s in THREEFRY_SEEDS
+                          for _ in THREEFRY_POSITIONS])
+    positions = torch.tensor([p for _ in THREEFRY_SEEDS
+                              for p in THREEFRY_POSITIONS])
+
+    def chain(device):
+        key = samp.fold_in(samp.prng_key(seeds.to(device)),
+                           positions.to(device))
+        bits = samp.random_bits(key, (V,))
+        return bits.cpu(), samp.gumbel_from_bits(bits).cpu()
+    bits_cpu, gumbel_cpu = chain(torch.device("cpu"))
+    bits_card, gumbel_card = chain(dev)
+    gdiff = (gumbel_card - gumbel_cpu).abs()
+    threefry = {"rows": len(seeds), "vocab": V,
+                "bits_equal": bool(torch.equal(bits_cpu, bits_card)),
+                "gumbel_max_abs_diff": float(gdiff.max()),
+                "gumbel_max_rel_diff": float(
+                    (gdiff / gumbel_cpu.abs().clamp(min=1.0)).max()),
+                "tolerance": GUMBEL_TOL}
+    times = _sampler_times(torch, samp, V)
+    log(f"[sampling] {card}: threefry on the card against the CPU "
+        f"{json.dumps(threefry)}; sampler device ms at B = 8 x V = {V} "
+        f"{json.dumps(times)}")
+    if not threefry["bits_equal"] or \
+            threefry["gumbel_max_abs_diff"] > GUMBEL_TOL:
+        raise AssertionError(f"threefry on the card: {threefry}")
+
+    # 8b. The worker.
+    env = {"XLLM_RAGGED_ATTN": "0", "XLLM_WRITE_THEN_ATTEND": "1",
+           "XLLM_CUDA_GRAPHS": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        ecfg = EngineConfig(page_size=128, num_pages=512,
+                            max_model_len=1024, max_batch_size=8,
+                            max_prefill_tokens=256,
+                            prefill_buckets=(128, 256, 512),
+                            num_top_logprobs=5)
+        w = worker.Worker(worker.WorkerOptions(model=SAMPLING_MODEL,
+                                               device=SAMPLING_DEVICE,
+                                               warmup=True),
+                          engine_cfg=ecfg).start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+    eng = w.engine
+    steplog = StepLog(eng, kernels)
+    by_rid = {}
+    inner = eng.step
+
+    def step():
+        outs = inner()
+        for o in outs:
+            r = by_rid.setdefault(o.request_id,
+                                  {"tokens": [], "lps": [], "tops": []})
+            r["tokens"] += o.new_token_ids
+            r["lps"] += o.logprobs
+            r["tops"] += o.top_logprobs or []
+        return outs
+    eng.step = step
+    rng = random.Random(8)
+    tok = w.tokenizer
+
+    def body(rid, path, length, **kw):
+        ids = _token_ids(tok, rng, length)
+        b = {"max_tokens": 32, "ignore_eos": True, "token_ids": ids,
+             "service_request_id": rid, **kw}
+        if path == CHAT:
+            b["messages"] = [{"role": "user", "content": "x"}]
+        else:
+            b["prompt"] = tok.decode(ids)
+        return rid, path, b
+
+    def run(reqs):
+        results = [{} for _ in reqs]
+        threads = [threading.Thread(target=_request,
+                                    args=(w.name, p, b, False, r))
+                   for (_, p, b), r in zip(reqs, results)]
+        steplog.clear()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        for (rid, _, _), r in zip(reqs, results):
+            if r.get("status") != 200:
+                raise AssertionError(f"{rid}: {r}")
+        return results, list(steplog.rows), wall
+
+    def decode_median(rows):
+        return _median([r["ms"] for r in rows if r["kind"] == "decode"])
+    try:
+        sizes = (120, 200, 160, 260)
+        greedy_round = [body(f"g{i}", CMPL, n, temperature=0.0)
+                        for i, n in enumerate(sizes)]
+        _, g_rows, _ = run(greedy_round)
+        probe = body("ban_probe", CMPL, 180, temperature=0.0, max_tokens=1)
+        run([probe])
+        ban = by_rid["ban_probe"]["tokens"][0]
+        sampled = dict(temperature=0.8, top_p=0.9)
+        mix = [
+            body("pen0", CMPL, 150, temperature=0.0, presence_penalty=0.5,
+                 frequency_penalty=0.5),
+            body("pen1", CHAT, 230, temperature=0.0, presence_penalty=0.5,
+                 frequency_penalty=0.5),
+            ("ban", CMPL, dict(probe[2], service_request_id="ban",
+                               max_tokens=32,
+                               logit_bias={str(ban): -100})),
+            body("bias20", CMPL, 110, temperature=0.0,
+                 logit_bias={str(V - 1 - i): 1.0 for i in range(20)}),
+            body("seed0", CMPL, 190, seed=1234, logprobs=5, **sampled),
+            body("seed1", CHAT, 140, seed=99, logprobs=True,
+                 top_logprobs=5, **sampled),
+            body("n3", CHAT, 170, n=3, seed=7, **sampled),
+            body("echo", CMPL, 130, temperature=0.0, echo=True, logprobs=2),
+            body("best", CMPL, 210, best_of=3, n=1, seed=5, **sampled)]
+        kernels.reset_launch_counts()
+        mix_results, mix_rows, mix_wall = run(mix)
+        torch.cuda.synchronize()
+        launch_counts = kernels.launch_counts()
+        seeded_round = [body(f"s{i}", CMPL, n, seed=300 + i, **sampled)
+                        for i, n in enumerate(sizes)]
+        _, s_rows, _ = run(seeded_round)
+        seeded_rids = {"seed0": ["seed0"], "seed1": ["seed1"],
+                       "n3": [f"n3#{k}" for k in range(3)],
+                       "best": [f"best#{k}" for k in range(3)]}
+        alone = {}
+        for rid, path, b in mix:
+            if rid in seeded_rids:
+                run([(rid + "_alone", path,
+                      dict(b, service_request_id=rid + "_alone"))])
+                alone[rid] = b
+        capture = eng.capture_report()
+        host = runner_host_launches(torch, eng)
+    finally:
+        w.stop()
+    bodies = {rid: r["body"] for (rid, _, _), r in zip(mix, mix_results)}
+    checks = {}
+    if ban in by_rid["ban"]["tokens"]:
+        raise AssertionError(f"the banned token {ban} was sampled")
+    checks["banned_token_sampled"] = False
+    tops = 0
+    for rid in ("seed0", "seed1"):
+        r = by_rid[rid]
+        if len(r["tops"]) != 32 or len(r["tokens"]) != 32:
+            raise AssertionError(f"{rid}: {len(r['tops'])} top lists")
+        for lp, row in zip(r["lps"], r["tops"]):
+            vals = [e["logprob"] for e in row]
+            if len(row) != 5 or vals != sorted(vals, reverse=True) or \
+                    vals[0] < lp - 1e-6:
+                raise AssertionError(f"{rid}: top list {row}, chosen {lp}")
+            tops += 1
+    checks["top_lists_checked"] = tops
+    if len(bodies["n3"]["choices"]) != 3 or \
+            len(bodies["best"]["choices"]) != 1:
+        raise AssertionError(f"choices: {bodies['n3']}, {bodies['best']}")
+    echo_prompt = dict((r, b) for r, _, b in mix)["echo"]["prompt"]
+    if not bodies["echo"]["choices"][0]["text"].startswith(echo_prompt):
+        raise AssertionError(f"echo: {bodies['echo']['choices'][0]}")
+    lp_echo = bodies["echo"]["choices"][0]["logprobs"]["token_logprobs"]
+    if lp_echo[0] is not None or len(lp_echo) != \
+            len(dict((r, b) for r, _, b in mix)["echo"]["token_ids"]) + 32:
+        raise AssertionError(f"echo logprobs: {lp_echo[:3]}, "
+                             f"{len(lp_echo)}")
+    equal, margins = {}, []
+    for rid, erids in seeded_rids.items():
+        b = alone[rid]
+        for k, erid in enumerate(erids):
+            x = by_rid[erid]["tokens"]
+            y = by_rid[erid.replace(rid, rid + "_alone", 1)]["tokens"]
+            equal[erid] = x == y
+            i = next((j for j, (p, q) in enumerate(zip(x, y)) if p != q),
+                     None)
+            if i is None:
+                continue
+            sp = SamplingParams(temperature=b["temperature"],
+                                top_p=b["top_p"], seed=b["seed"] + k
+                                if len(erids) > 1 else b["seed"])
+            margin = _perturbed_margin(torch, samp, eng,
+                                       b["token_ids"] + x[:i], x[i], y[i],
+                                       sp)
+            limit = 10 * err / b["temperature"]
+            margins.append({"stream": erid, "position": i,
+                            "served": [x[i], y[i]], "margin": margin,
+                            "limit": limit,
+                            "verdict": "fault" if margin > limit
+                            else "drift"})
+    late = [n for p in ("prefill", "ragged", "decode", "decode_multi")
+            for n in capture[p]["late"]]
+    eager = {p: capture[p]["eager_steps"] for p in ("prefill", "ragged",
+                                                    "decode",
+                                                    "decode_multi")}
+    need = check_step_launches(mix_rows, launch_counts, eng.cfg.num_layers,
+                               False, True, False)
+    out = {"card": card, "threefry": threefry, "sampler_ms": times,
+           "banned_token": ban, "checks": checks,
+           "seeded_equal_alone": equal, "margins": margins,
+           "late_captures": late, "eager_steps": eager,
+           "captures_after_warmup": capture["captures_after_warmup"],
+           "graphs": eng.compile_report(),
+           "host_launches_per_prefill_forward": host["prefill"]["launch"],
+           "kernels_on_the_mix": need,
+           "decode_step_ms_median": {
+               "greedy_round": decode_median(g_rows),
+               "mix": decode_median(mix_rows),
+               "seeded_round": decode_median(s_rows)},
+           "mix_wall_s": mix_wall, "mix_engine_steps": len(mix_rows)}
+    log(f"[sampling] {card}: {json.dumps(out)}")
+    if any(m["verdict"] == "fault" for m in margins):
+        raise AssertionError(f"seeded streams served alone diverge past "
+                             f"the margin rule: {margins}")
+    if capture["eager_steps"] or any(eager.values()):
+        raise AssertionError(f"eager steps: {eager}")
+    if not late or not all("_bias32" in n or n.endswith("_echo")
+                           for n in late) \
+            or not any(n.endswith("_echo") for n in late) \
+            or not any("_bias32" in n for n in late):
+        raise AssertionError(f"captures after warmup: {late}")
+    if host["prefill"]["launch"] != 1:
+        raise AssertionError(f"host launches a prefill forward: {host}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4285,6 +4647,9 @@ def main() -> int:
     routed = routed_cluster_phase(torch, kernels, card, prefix_params)
     del prefix_params
     free_device_memory(torch)
+    # 8. The OpenAI sampling surface.
+    sampled = sampling_phase(torch, kernels, card, err)
+    free_device_memory(torch)
     margins = served_c["on_engine"] + served_e["on_engine"]
     for phase in (served, served_b, served_c, served_d, served_e):
         phase.pop("prompts")
@@ -4295,7 +4660,7 @@ def main() -> int:
         f"largest logit error, llama3-1b {err}, deepseek-v2-lite "
         f"{err_mla}): {json.dumps(margins)}")
 
-    # 7. Summary.
+    # 9. Summary.
     for r in bench.results:
         name = r.get("entry", r["name"])       # a record at another shape
         phase = (served_b if name == "ragged_paged_attention" else
@@ -4318,7 +4683,7 @@ def main() -> int:
                "serve_deepseek_decode_modes": served_g,
                "cluster": clustered,
                "prefix_reuse": prefixed, "spill_restore": spilled,
-               "cluster_cache_aware": routed,
+               "cluster_cache_aware": routed, "sampling": sampled,
                "graph_decode_check": {"llama3-1b": graph,
                                       "deepseek-v2-lite": graph_mla},
                "warmup_ladders": ladders,

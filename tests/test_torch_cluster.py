@@ -635,12 +635,14 @@ def test_forwarded_sampling_wins_over_body_fields(relay):
                       "ignore_eos": True}})
     assert status == 200, resp
     assert resp["usage"]["completion_tokens"] == 5
+    # The forwarded n = 2 is served: two choices of 5 tokens each.
     status, resp = http_json(
         "POST", w.name, "/v1/completions",
-        {"model": MODEL, "prompt": "hello",
-         "sampling": {"max_tokens": 5, "n": 2}})
-    assert status == 400 and "n is not supported" in \
-        resp["error"]["message"]
+        {"model": MODEL, "prompt": "hello", "n": 1,
+         "sampling": {"max_tokens": 5, "n": 2, "ignore_eos": True}})
+    assert status == 200, resp
+    assert [c["index"] for c in resp["choices"]] == [0, 1]
+    assert resp["usage"]["completion_tokens"] == 10
 
 
 def test_standalone_worker_opens_no_store(models):

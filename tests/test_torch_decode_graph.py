@@ -370,7 +370,8 @@ def test_runner_step_equals_the_plain_eager_step(models, model):
     runner.stage_sampling(packed)
     runner.stage_carries(tokens, positions)
     launch = runner.launch((MP, 1, False))
-    toks, lps = launch.read()
+    toks, lps, tops = launch.read()
+    assert tops is None
     logits, _ = ttf.forward_decode(
         params, cfg, torch.from_numpy(tokens), torch.from_numpy(positions),
         torch.from_numpy(active), kv_b, torch.from_numpy(table),
@@ -407,8 +408,9 @@ def test_no_capture_after_a_warmup_that_covered_the_run(steps):
     eng.warmup()
     report = eng.capture_report()
     widths = decode_graph.decode_widths(eng.ecfg.max_pages_per_seq)
+    # Greedy, sampled and seeded, each with and without the counts.
     assert report["decode"]["captured"] + report["decode_multi"]["captured"] \
-        == len(widths) * len({1, steps}) * 2
+        == len(widths) * len({1, steps}) * 6
     assert (report["decode_multi"]["captured"] > 0) == (steps > 1)
     out = _run(eng, [_req("a", range(1, 9), 20, temperature=0.7),
                      _req("b", range(2, 14), 11)])

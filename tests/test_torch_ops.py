@@ -6,6 +6,7 @@ sum in different orders). The KV writers move values without
 arithmetic and must agree exactly."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -14,6 +15,7 @@ from xllm_service_tpu.ops import attention as jatt
 from xllm_service_tpu.ops import norm as jnorm
 from xllm_service_tpu.ops import rope as jrope
 from xllm_service_tpu.ops import sampling as jsamp
+from xllm_service_tpu.utils.types import SamplingParams as JaxSampling
 from xllm_service_tpu_torch.ops import attention as tatt
 from xllm_service_tpu_torch.ops import norm as tnorm
 from xllm_service_tpu_torch.ops import rope as trope
@@ -198,8 +200,8 @@ def test_greedy_and_logprobs():
 
 def test_sampling_filters_and_seeds():
     """top_k=1 and a tiny top_p reduce to greedy; a seeded row draws the
-    same token whatever shares its batch (streams are not the JAX
-    package's: it draws with threefry)."""
+    JAX package's token (threefry from (seed, position)) whatever shares
+    its batch, and the position reseeds it."""
     rng = np.random.default_rng(8)
     logits = _t(_f32(rng, 4, 100) * 3)
     g = torch.Generator().manual_seed(0)
@@ -216,6 +218,16 @@ def test_sampling_filters_and_seeds():
     mixed = tsamp.sample_tokens(logits[[1, 0]].contiguous(),
                                 [other, seeded], g, positions=[3, 7])
     assert int(alone[0]) == int(mixed[1])
-    draws = {int(tsamp.sample_tokens(logits[:1], [seeded], g,
-                                     positions=[p])[0]) for p in range(40)}
+    draws = set()
+    for p in range(40):
+        tok = int(tsamp.sample_tokens(logits[:1], [seeded], g,
+                                      positions=[p])[0])
+        f32, i32 = jsamp.SamplingTensors.pack_batch(
+            [JaxSampling(temperature=1.5, seed=1234)])
+        want = jsamp.sample_tokens(
+            jnp.asarray(logits[:1].numpy()),
+            jsamp.SamplingTensors.unpack(jnp.asarray(f32), jnp.asarray(i32)),
+            jax.random.PRNGKey(99), positions=jnp.asarray([p], jnp.int32))
+        assert tok == int(want[0]), p
+        draws.add(tok)
     assert len(draws) > 1                       # the position reseeds

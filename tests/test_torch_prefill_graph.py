@@ -42,8 +42,8 @@ from xllm_service_tpu_torch.config import EngineConfig, ModelConfig
 from xllm_service_tpu_torch.models import transformer as ttf
 from xllm_service_tpu_torch.ops import sampling as tsamp
 from xllm_service_tpu_torch.runtime import prefill_graph
-from xllm_service_tpu_torch.runtime.decode_graph import Seeded
-from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
+from xllm_service_tpu_torch.runtime.engine import (_VARIANTS as VARIANTS,
+                                                   Engine, EngineRequest)
 from xllm_service_tpu_torch.utils.types import SamplingParams
 from tests.test_torch_prefix import (MODES, PLAN, TIGHT, _drive, _feed,
                                      _model)
@@ -117,9 +117,9 @@ def _port_ladder(kw, warm_kw):
     keys = list(teng.prefill_graphs.graphs)
     sets = {p: {k[1:4] for k in keys if k[0] == p}
             for p in ("prefill", "ragged")}
-    for p in sets:                     # each shape greedy and sampled
-        assert sorted(k for k in keys if k[0] == p) == sorted(
-            (p, *s, g) for s in sets[p] for g in (True, False))
+    for p in sets:                     # each shape in every variant
+        assert sorted(k[:6] for k in keys if k[0] == p) == sorted(
+            (p, *s, g, sd) for s in sets[p] for g, sd in VARIANTS)
     return sets, teng.compile_report(), teng
 
 
@@ -162,15 +162,16 @@ def test_warmup_ladder_equals_jax(case):
     assert tsets["prefill"] == jsets["prefill"] == set(want_prefill)
     assert tsets["ragged"] == jsets["ragged"] == set(want_ragged)
     # The JAX counts are its compiled variants; the port's are graphs,
-    # a greedy and a sampled one per shape.
+    # one per sampling variant of a shape (decode: each with and
+    # without the penalty counts).
     assert jrep["prefill"] == len(want_prefill)
-    assert trep["prefill"] == 2 * len(want_prefill)
+    assert trep["prefill"] == len(VARIANTS) * len(want_prefill)
     if kw.get("ragged_attn"):
         assert jrep["ragged"] == len(want_ragged)
-        assert trep["ragged"] == 2 * len(want_ragged)
+        assert trep["ragged"] == len(VARIANTS) * len(want_ragged)
     else:
         assert "ragged" not in trep and "ragged" not in jrep
-    assert trep["decode"] == 2 * jrep["decode"]
+    assert trep["decode"] == 2 * len(VARIANTS) * jrep["decode"]
     report = teng.capture_report()
     assert report["captures_after_warmup"] == 0
     assert set(report) >= {"prefill", "ragged", "decode", "decode_multi"}
@@ -235,13 +236,7 @@ def _run_both(cfg, params, spans, kind, wta, sampling, ps=4, MP=8):
                      for s, (st, n), p in zip(seqs, spans, pages)],
         tsamp.SamplingTensors.pack_batch(
             sp + [SamplingParams(temperature=0.0)] * (B - len(sp)))))
-    seeded = [i for i, p in enumerate(sp) if p.temperature > 0 and
-              p.seed is not None]
-    got = runner.launch(
-        (kind, B, T, MP, all(p.temperature == 0 for p in sp)),
-        Seeded(seeded, [sp[i].seed for i in seeded],
-               [spans[i][0] + spans[i][1] - 1 for i in seeded])
-        if seeded else None)
+    got = runner.launch((kind, B, T, MP, *tsamp.batch_mode(sp)))
     tokens = np.zeros((B, T), np.int64)
     start = np.zeros((B,), np.int32)
     lengths = np.zeros((B,), np.int32)
@@ -391,11 +386,16 @@ def test_uncovered_shape_counted_under_its_program():
 
 
 def test_seeded_rows_run_eager_and_are_counted():
+    """A seeded row's step takes the warmed seeded variant of its shape
+    (a replay on the card; on the CPU its eager step counts under
+    ``cpu``, never a reason of its own), and no capture follows."""
     eng = _engine()
     eng.warmup()
     _serve(eng, [range(3, 10)], temperature=0.9, seed=3)
     report = eng.capture_report()
     assert report["prefill"]["eager_steps"] == {"cpu": 1}
+    assert "seeded" not in report["eager_steps"]
+    assert "b1_t8_mp2_sampled_seeded" in report["prefill"]["graphs"]
     assert report["captures_after_warmup"] == 0
 
 
@@ -480,7 +480,8 @@ def test_worker_exports_recompile_counters(monkeypatch, extended):
         ladder = prefill_graph.ladder([1, 2, 4], (16, 32, 64), 64, 16,
                                       extended == "1")
         late = w.engine.late_window_shapes() if extended == "1" else []
-        assert compiled["prefill"] == 2 * len(ladder) + 2 * len(late)
+        assert compiled["prefill"] == len(VARIANTS) * (len(ladder)
+                                                       + len(late))
         status, body = _http(w.name, "POST", "/v1/completions", {
             "prompt": "a prompt of some forty bytes or so, here",
             "max_tokens": 4, "temperature": 0.0})

@@ -144,8 +144,9 @@ def test_routes_and_refusals(workers):
             assert body["data"][0]["id"] == "tiny"
     conn.close()
     status, body = _post(torch_addr, "/v1/completions",
-                         {"prompt": "x", "n": 2})
-    assert status == 400 and "not supported" in body
+                         {"prompt": "x", "n": 2})       # two choices now
+    assert status == 200
+    assert [c["index"] for c in json.loads(body)["choices"]] == [0, 1]
     status, _ = _post(torch_addr, "/v1/completions",
                       {"prompt": "x" * 5000})     # past max_model_len
     assert status == 400

@@ -712,6 +712,10 @@ class EngineConfig:
     # Finish detection runs on the host afterwards; tokens sampled past
     # a stop are discarded.
     decode_steps: int = 1
+    # Top-k alternative logprobs computed inside every step (a static k;
+    # 0 computes none). OpenAI callers get at most this many
+    # ``top_logprobs``.
+    num_top_logprobs: int = 0
     # Pipelined decode: after dispatching fused burst k, start its
     # device-to-host copy and, while the batch still matches, dispatch
     # burst k+1 from the device-resident carries before reading burst k

@@ -342,13 +342,17 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     start_pos: torch.Tensor, lengths: torch.Tensor,
                     kv: KVCache, page_table: torch.Tensor,
                     ragged: bool = False, write_then_attend: bool = True,
-                    moe_dropped: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, KVCache]:
+                    moe_dropped: Optional[torch.Tensor] = None,
+                    prompt_lp_targets: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, ...]:
     """Prefill ``tokens`` [B, T] (padded; ``lengths`` [B] int32 true
     counts) at positions start_pos[b] + t, with the cached prefix
     [0, start_pos[b]) already in the pools. Writes the window's K/V into
     the pools in place. Returns (logits of each row's last valid token
-    [B, V] float32, kv).
+    [B, V] float32, kv), and with ``prompt_lp_targets`` [B, T] a third
+    element: [B, T] float32, the logprob of ``prompt_lp_targets[b, t]``
+    under the distribution predicted at window position t (the
+    completion API's ``echo`` scores; ``_prompt_logprobs``).
 
     ``write_then_attend`` (see the module docstring): True writes each
     layer's window before its attention; False attends to the prefix
@@ -375,7 +379,8 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         if ragged:
             raise ValueError("MLA models have no ragged mixed-batch path")
         return _mla_forward_prefill(params, cfg, tokens, start_pos, lengths,
-                                    kv, page_table, write_then_attend)
+                                    kv, page_table, write_then_attend,
+                                    prompt_lp_targets)
     attend = ragged_paged_attention if ragged else paged_prefill_attention
     k_pages, v_pages = kv
     B, T = tokens.shape
@@ -416,7 +421,33 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = (lengths.long() - 1).clamp(min=0)
     last_x = x[torch.arange(B, device=x.device), last]
-    return _head_logits(cfg, last_x, _head(params)), (k_pages, v_pages)
+    out = (_head_logits(cfg, last_x, _head(params)), (k_pages, v_pages))
+    if prompt_lp_targets is None:
+        return out
+    return out + (_prompt_logprobs(x, _head(params), prompt_lp_targets,
+                                   cap=cfg.final_logit_softcapping),)
+
+
+def _prompt_logprobs(x: torch.Tensor, head: torch.Tensor,
+                     targets: torch.Tensor, chunk: int = 128,
+                     cap: float = 0.0) -> torch.Tensor:
+    """logprob of ``targets[b, t]`` under the distribution predicted at
+    position t, from the final hidden states ``x`` [B, T, D]. Chunked
+    over T (gcd(T, 128) positions a chunk) so the [B, c, V] logits block,
+    not the whole [B, T, V], is the peak intermediate, as the JAX
+    package's ``_prompt_logprobs``."""
+    B, T, _ = x.shape
+    c = math.gcd(T, min(chunk, T))
+    out = []
+    for i in range(0, T, c):
+        logits = (x[:, i:i + c] @ head).float()              # [B, c, V]
+        if cap > 0.0:
+            logits = cap * torch.tanh(logits / cap)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, 2,
+                           targets[:, i:i + c, None].long())[..., 0]
+        out.append(tgt - lse)
+    return torch.cat(out, dim=1)
 
 
 def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -696,8 +727,9 @@ def _mla_mlp(cfg: ModelConfig, lp, h: torch.Tensor, moe: bool,
 def _mla_forward_prefill(params: Params, cfg: ModelConfig,
                          tokens: torch.Tensor, start_pos: torch.Tensor,
                          lengths: torch.Tensor, kv: KVCache,
-                         page_table: torch.Tensor, write_then_attend: bool
-                         ) -> Tuple[torch.Tensor, KVCache]:
+                         page_table: torch.Tensor, write_then_attend: bool,
+                         prompt_lp_targets: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, ...]:
     """``forward_prefill`` for MLA models. Attention is the plain
     ``mha_prefill`` over the gathered latent pool (write-then-attend:
     after the latent form of K2 built and wrote the window's latent
@@ -741,7 +773,11 @@ def _mla_forward_prefill(params: Params, cfg: ModelConfig,
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = (lengths.long() - 1).clamp(min=0)
     last_x = x[torch.arange(B, device=x.device), last]
-    return _head_logits(cfg, last_x, _head(params)), (k_pages, v_pages)
+    out = (_head_logits(cfg, last_x, _head(params)), (k_pages, v_pages))
+    if prompt_lp_targets is None:
+        return out
+    # No final soft-cap on the MLA path's scores, as in the JAX package.
+    return out + (_prompt_logprobs(x, _head(params), prompt_lp_targets),)
 
 
 def _mla_forward_decode(params: Params, cfg: ModelConfig,

@@ -2,38 +2,46 @@
 jitted decode programs ``_jit_decode`` (one step) and
 ``_jit_decode_multi`` (N fused steps, ``_decode_multi_step``).
 
-One graph per key (table width MP, steps n, greedy or sampled). The
-batch is the engine's fixed ``max_batch_size`` slots. Every input lives
-in a static device buffer that the engine fills before a replay, and
-only where it changed: the sampled tokens and positions, the active
-mask, one page table per width, and the per-slot sampling tensors. The
-body runs n forwards, each feeding its sampled token and ``pos + 1``
-forward on the device, and ends by copying the last token and position
+One graph per key (``Key``: table width MP, steps n, and the sampling
+variant: greedy or sampled, whether some sampled row is seeded, whether
+the penalty counts ride along, the ``logit_bias`` width K). The batch is
+the engine's fixed ``max_batch_size`` slots. Every input lives in a
+static device buffer that the engine fills before a replay, and only
+where it changed: the sampled tokens and positions, the active mask,
+one page table per width, the packed sampling pair (float32 [B, 4],
+int32 [B, 2]), the bias ids and values [B, K] (always staged, zeros
+when unused, as the JAX engine always builds them) and, for penalized
+keys, the [B, V] output-token counts. The body runs n forwards, each
+sampling with the bias and (penalized keys) the penalties, adding its
+tokens to the counts, and feeding its sampled token and ``pos + 1``
+forward on the device; it ends by copying the last token and position
 back into the input buffers: the next burst starts from these carries
 with no upload, also when it is dispatched before this one is read back
-(the engine's speculative pipeline). Each launch's [n, B] tokens and
-logprobs are copied into one of two pinned host buffers behind a CUDA
-event, so burst k's copy is queued before burst k+1 replays over the
-graph's outputs. An MoE model's capacity drops are summed over the n
-forwards into a device scalar, a third output of the graph, copied
-beside the tokens: a replay reports them with no host sync per layer.
-Tables may carry NULL (0) entries where a sliding window trimmed a
-sequence's leading pages; every kernel reads them only in lanes the
-window masks.
+(the engine's speculative pipeline). A seeded key draws its seeded rows'
+noise by threefry from (seed, position) inside the graph, so a seeded
+request's step is a replay like any other. Each launch's [n, B] tokens
+and logprobs (and, when asked for, the [n, B, k] top logprobs, k =
+``EngineConfig.num_top_logprobs``) are copied into one of two pinned
+host buffers behind a CUDA event, so burst k's copy is queued before
+burst k+1 replays over the graph's outputs. An MoE model's capacity
+drops are summed over the n forwards into a device scalar, copied beside
+the tokens: a replay reports them with no host sync per layer. Tables
+may carry NULL (0) entries where a sliding window trimmed a sequence's
+leading pages; every kernel reads them only in lanes the window masks.
 
 All graphs, these and the prefill runner's (``runtime/prefill_graph.py``),
 share one memory pool; they never run at once. A capture
 that fails raises: nothing falls back to eager steps on CUDA. Steps run
-eagerly, through the same body and buffers, where graphs are off (the
-CPU, ``EngineConfig.cuda_graphs=False``) or a row draws from its own
-seeded generator; ``report()`` counts them under that reason.
+eagerly, through the same body and buffers, only where graphs are off
+(the CPU, ``EngineConfig.cuda_graphs=False``); ``report()`` counts them
+under that reason.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,22 +51,62 @@ from xllm_service_tpu_torch.ops.kernels._launch import (capture_tally,
                                                         count_replay)
 from xllm_service_tpu_torch.ops.sampling import (SamplingTensors,
                                                  compute_logprobs,
+                                                 compute_top_logprobs,
                                                  sample_packed,
-                                                 sample_seeded)
+                                                 update_counts)
 
-Key = Tuple[int, int, bool]             # (table width, steps, greedy)
+# The logit-bias columns every graph is warmed with (the JAX engine's
+# ``_BIAS_K``); a request with more entries takes the next power of two,
+# captured at its first use.
+BIAS_K = 8
+
+
+class Key(NamedTuple):
+    """A decode graph's key."""
+    width: int                          # page-table columns
+    steps: int                          # forwards per dispatch
+    greedy: bool                        # no row samples
+    seeded: bool = False                # some sampled row has a seed
+    penalized: bool = False             # the counts ride along
+    bias_k: int = BIAS_K                # logit-bias columns
+
+    def suffix(self) -> str:
+        return variant(self.greedy, self.seeded, self.penalized,
+                       self.bias_k)
+
+
+def variant(greedy: bool, seeded: bool, penalized: bool,
+            bias_k: int) -> str:
+    """The sampling variant's part of a graph's name: ``greedy`` or
+    ``sampled``, then ``_seeded``, ``_penalized`` and ``_bias<K>`` (K
+    past ``BIAS_K``) where they hold."""
+    return (("greedy" if greedy else "sampled")
+            + ("_seeded" if seeded else "")
+            + ("_penalized" if penalized else "")
+            + (f"_bias{bias_k}" if bias_k != BIAS_K else ""))
 
 
 @dataclasses.dataclass
-class Seeded:
-    """Rows drawn from per-row generators seeded by (seed, position):
-    ``positions`` are each row's positions at the burst's first step."""
-    rows: List[int]
-    seeds: List[int]
-    positions: List[int]
+class Outputs:
+    """What one body run leaves on the device: [n, B] (decode) or [B]
+    (prefill) tokens and logprobs, the [1] MoE drop count (None where
+    none is counted), the top logprobs (None when k = 0) and the prompt
+    logprobs (prefill's echo variant only)."""
+    tokens: torch.Tensor
+    logprobs: torch.Tensor
+    dropped: Optional[torch.Tensor] = None
+    top_ids: Optional[torch.Tensor] = None
+    top_lps: Optional[torch.Tensor] = None
+    prompt_lps: Optional[torch.Tensor] = None
 
-    def advanced(self, n: int) -> "Seeded":
-        return Seeded(self.rows, self.seeds, [p + n for p in self.positions])
+
+def top_rows(ids, lps) -> List[List[Dict[str, float]]]:
+    """[B, k] top ids and logprobs (host lists) as each row's entries,
+    ``{"token_id", "logprob"}``, best first (the JAX engine's
+    ``_top_row``)."""
+    return [[{"token_id": int(i), "logprob": float(lp)}
+             for i, lp in zip(r_ids, r_lps)]
+            for r_ids, r_lps in zip(ids, lps)]
 
 
 @dataclasses.dataclass
@@ -73,32 +121,42 @@ class Launch:
     # and their value once read.
     dropped: Optional[torch.Tensor] = None
     moe_dropped: int = 0
+    # [n, B, k] top logprobs, when the launch copied them.
+    top_ids: Optional[torch.Tensor] = None
+    top_lps: Optional[torch.Tensor] = None
 
-    def read(self) -> Tuple[List[List[int]], List[List[float]]]:
+    def read(self) -> Tuple[List[List[int]], List[List[float]],
+                            Optional[List[List[List[Dict[str, float]]]]]]:
+        """[n][B] tokens and logprobs, and [n][B] top entries (None
+        unless copied)."""
         if self.event is not None:
             self.event.synchronize()
         if self.dropped is not None:
             self.moe_dropped = int(self.dropped[0])
+        tops = None
+        if self.top_ids is not None:
+            tops = [top_rows(i, lp) for i, lp in zip(
+                self.top_ids[:self.n].tolist(),
+                self.top_lps[:self.n].tolist())]
         return (self.tokens[:self.n].tolist(),
-                self.logprobs[:self.n].tolist())
+                self.logprobs[:self.n].tolist(), tops)
 
 
 class _Graph:
-    def __init__(self, graph, tokens, logprobs, dropped, tally) -> None:
-        self.graph, self.tokens, self.logprobs = graph, tokens, logprobs
-        self.dropped = dropped
+    def __init__(self, graph, outs: Outputs, tally) -> None:
+        self.graph, self.outs = graph, outs
         self.tally = tally              # kernels captured, by wrapper
         self.replays = 0
 
 
-def capture(warm_up: Callable[[], None], body: Callable[[], Tuple],
+def capture(warm_up: Callable[[], None], body: Callable[[], Outputs],
             pool, generator: torch.Generator, greedy: bool) -> _Graph:
-    """``body()`` (returning tokens, logprobs and the drop count)
-    captured into a graph in ``pool``. ``warm_up()`` runs first, eagerly
-    on a side stream, so that lazy set-up (libraries' handles and
-    workspaces, the kernels' modules) stays out of the graph; it must
-    leave the inputs as it found them. A sampled body (not ``greedy``)
-    registers ``generator``, whose state is as it was before."""
+    """``body()`` (returning its ``Outputs``) captured into a graph in
+    ``pool``. ``warm_up()`` runs first, eagerly on a side stream, so
+    that lazy set-up (libraries' handles and workspaces, the kernels'
+    modules) stays out of the graph; it must leave the inputs as it
+    found them. A sampled body (not ``greedy``) registers ``generator``,
+    whose state is as it was before."""
     state = generator.get_state()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -110,9 +168,9 @@ def capture(warm_up: Callable[[], None], body: Callable[[], Tuple],
         graph.register_generator_state(generator)
     with capture_tally() as tally:
         with torch.cuda.graph(graph, pool=pool):
-            tokens, logprobs, dropped = body()
+            outs = body()
     generator.set_state(state)
-    return _Graph(graph, tokens, logprobs, dropped, tally)
+    return _Graph(graph, outs, tally)
 
 
 class DecodeGraphs:
@@ -121,11 +179,13 @@ class DecodeGraphs:
 
     def __init__(self, params, cfg, kv, batch: int, max_steps: int,
                  write_then_attend: bool, generator: torch.Generator,
-                 device: torch.device, use_graphs: bool) -> None:
+                 device: torch.device, use_graphs: bool,
+                 num_top: int = 0) -> None:
         self.params, self.cfg, self.kv = params, cfg, kv
         self.B, self.wta, self.generator = batch, write_then_attend, generator
         self.device = device
         self.use_graphs = use_graphs
+        self.num_top = num_top
         # MLA models count no drop (their routed experts run dense).
         self.count_drops = cfg.is_moe and not cfg.mla
         B = batch
@@ -133,21 +193,35 @@ class DecodeGraphs:
         self.positions = torch.zeros(B, dtype=torch.int32, device=device)
         self.active = torch.zeros(B, dtype=torch.bool, device=device)
         self.tables: Dict[int, torch.Tensor] = {}
-        self.st = SamplingTensors.zeros(B, device)
+        # The packed sampling pair (greedy rows, unseeded) and its views.
+        self.samp_f32 = torch.zeros((B, 4), dtype=torch.float32,
+                                    device=device)
+        self.samp_f32[:, 1] = 1.0
+        self.samp_i32 = torch.zeros((B, 2), dtype=torch.int32, device=device)
+        self.samp_i32[:, 1] = -1
+        self.st = SamplingTensors.unpack(self.samp_f32, self.samp_i32)
+        # Bias ids and values by width K; the [B, V] counts, made at the
+        # first penalized key.
+        self.bias: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.counts: Optional[torch.Tensor] = None
         # Host mirrors of the last upload, compared before the next.
         self._apt_mirror: Optional[Tuple[int, np.ndarray]] = None
-        self._st_mirror: Optional[np.ndarray] = None
+        self._st_mirror: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self._bias_mirror: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         self.graphs: Dict[Key, Optional[_Graph]] = {}
         self.pool = (torch.cuda.graph_pool_handle() if use_graphs
                      else None)
-        self._host: List[Tuple[torch.Tensor, ...]] = []
+        self._host: List[Tuple[Optional[torch.Tensor], ...]] = []
         if device.type == "cuda":
+            def pinned(shape, dtype):
+                return torch.empty(shape, dtype=dtype, pin_memory=True)
+            k = num_top
             self._host = [
-                (torch.empty((max_steps, B), dtype=torch.int64,
-                             pin_memory=True),
-                 torch.empty((max_steps, B), dtype=torch.float32,
-                             pin_memory=True),
-                 torch.empty((1,), dtype=torch.int64, pin_memory=True))
+                (pinned((max_steps, B), torch.int64),
+                 pinned((max_steps, B), torch.float32),
+                 pinned((1,), torch.int64),
+                 pinned((max_steps, B, k), torch.int64) if k else None,
+                 pinned((max_steps, B, k), torch.float32) if k else None)
                 for _ in range(2)]
         self._next_host = 0
         self.warm = False
@@ -180,6 +254,22 @@ class DecodeGraphs:
                 (self.B, width), dtype=torch.int32, device=self.device)
         return t
 
+    def bias_buffers(self, K: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        buf = self.bias.get(K)
+        if buf is None:
+            buf = self.bias[K] = (
+                torch.zeros((self.B, K), dtype=torch.int64,
+                            device=self.device),
+                torch.zeros((self.B, K), dtype=torch.float32,
+                            device=self.device))
+        return buf
+
+    def counts_buffer(self) -> torch.Tensor:
+        if self.counts is None:
+            self.counts = torch.zeros((self.B, self.cfg.vocab_size),
+                                      dtype=torch.int32, device=self.device)
+        return self.counts
+
     def stage_active_table(self, active: np.ndarray,
                            table: np.ndarray) -> bool:
         """Upload the active mask and the page table of width
@@ -200,14 +290,34 @@ class DecodeGraphs:
                 and np.array_equal(m[1][:, 0], active)
                 and np.array_equal(m[1][:, 1:], table))
 
-    def stage_sampling(self, packed: np.ndarray) -> None:
-        if self._st_mirror is not None and \
-                np.array_equal(self._st_mirror, packed):
+    def stage_sampling(self, packed: Tuple[np.ndarray, np.ndarray]) -> None:
+        """Upload the packed pair (``SamplingTensors.pack_batch``) of
+        every slot unless it equals the last upload."""
+        f32, i32 = packed
+        m = self._st_mirror
+        if m is not None and np.array_equal(m[0], f32) and \
+                np.array_equal(m[1], i32):
             return
-        self._upload(self.st.temperature, packed[:, 0].astype(np.float32))
-        self._upload(self.st.top_p, packed[:, 1].astype(np.float32))
-        self._upload(self.st.top_k, packed[:, 2].astype(np.int64))
-        self._st_mirror = packed.copy()
+        self._upload(self.samp_f32, f32)
+        self._upload(self.samp_i32, i32)
+        self._st_mirror = (f32.copy(), i32.copy())
+
+    def stage_bias(self, ids: np.ndarray, vals: np.ndarray) -> None:
+        """Upload the padded logit bias ([B, K] ids and values) into the
+        width-K buffers unless it equals their last upload."""
+        K = ids.shape[1]
+        m = self._bias_mirror.get(K)
+        if m is not None and np.array_equal(m[0], ids) and \
+                np.array_equal(m[1], vals):
+            return
+        dst_ids, dst_vals = self.bias_buffers(K)
+        self._upload(dst_ids, ids.astype(np.int64))
+        self._upload(dst_vals, vals)
+        self._bias_mirror[K] = (ids.copy(), vals.copy())
+
+    def stage_counts(self, counts: np.ndarray) -> None:
+        """Upload a host rebuild of the [B, V] output-token counts."""
+        self._upload(self.counts_buffer(), counts)
 
     def stage_carries(self, tokens: np.ndarray,
                       positions: np.ndarray) -> None:
@@ -217,103 +327,126 @@ class DecodeGraphs:
     # ------------------------------------------------------------------
     # The body
     # ------------------------------------------------------------------
-    def _body(self, width: int, n: int, greedy: bool,
-              seeded: Optional[Seeded] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-        """n decode forwards from the carries; ends by writing the last
-        token and position back into them. Returns the [n, B] tokens and
-        logprobs, and the [1] MoE drop count of the n forwards (None
-        where none is counted)."""
+    def _body(self, key: Key, steps: Optional[int] = None) -> Outputs:
+        """``steps`` (default ``key.steps``) decode forwards from the
+        carries; ends by writing the last token and position back into
+        them. Returns the [n, B] tokens and logprobs, the [1] MoE drop
+        count of the n forwards and the [n, B, k] top logprobs."""
         tok, pos = self.tokens, self.positions
-        table = self.tables[width]
-        toks, lps = [], []
+        table = self.tables[key.width]
+        bias_ids, bias_vals = self.bias[key.bias_k]
+        counts = self.counts if key.penalized else None
+        toks, lps, top_ids, top_lps = [], [], [], []
         drops = (torch.zeros((1,), dtype=torch.int64, device=self.device)
                  if self.count_drops else None)
-        for j in range(n):
+        for _ in range(key.steps if steps is None else steps):
             logits, kv = transformer.forward_decode(
                 self.params, self.cfg, tok, pos, self.active, self.kv,
                 table, write_then_attend=self.wta, moe_dropped=drops)
             if kv[0] is not self.kv[0] or kv[1] is not self.kv[1]:
                 raise RuntimeError("forward_decode replaced the KV pools; "
                                    "the writers must write in place")
-            new = sample_packed(logits, self.st, self.generator, greedy)
-            if seeded is not None:
-                sample_seeded(new, logits, self.st, seeded.rows,
-                              seeded.seeds, seeded.advanced(j).positions)
+            # A seeded row's fold-in datum is its input token's position.
+            new = sample_packed(logits, self.st, self.generator, key.greedy,
+                                key.seeded, pos, counts, bias_ids,
+                                bias_vals)
             toks.append(new)
             lps.append(compute_logprobs(logits, new))
+            if self.num_top:
+                ids, tlp = compute_top_logprobs(logits, self.num_top)
+                top_ids.append(ids)
+                top_lps.append(tlp)
+            if counts is not None:
+                update_counts(counts, new, self.active)
             tok, pos = new, pos + 1
         self.tokens.copy_(tok)
         self.positions.copy_(pos)
-        return torch.stack(toks), torch.stack(lps), drops
+        return Outputs(torch.stack(toks), torch.stack(lps), drops,
+                       torch.stack(top_ids) if top_ids else None,
+                       torch.stack(top_lps) if top_lps else None)
 
     # ------------------------------------------------------------------
     # Capture and launch
     # ------------------------------------------------------------------
-    def prepare(self, key: Key) -> None:
+    def prepare(self, key) -> Key:
         """Capture ``key``'s graph (on the CPU, or with graphs off, only
         record the key). The staged inputs, the carries and the
-        generator's state are as they were before."""
+        generator's state are as they were before. Returns the key."""
+        key = Key(*key)
         if key in self.graphs:
-            return
+            return key
         if self.warm:
             self.late.append(key)
-        width, n, greedy = key
-        self.table(width)
+        self.table(key.width)
+        self.bias_buffers(key.bias_k)
+        if key.penalized:
+            self.counts_buffer()
         if not self.use_graphs:
             self.graphs[key] = None
-            return
+            return key
         saved = (self.tokens.clone(), self.positions.clone(),
                  self.active.clone())
 
         def warm_up():
-            # Every row inactive: the writers write nothing.
+            # Every row inactive: the writers write nothing and the
+            # counts take nothing.
             self.active.zero_()
-            self._body(width, 1, greedy)
+            self._body(key, steps=1)
             for buf, old in zip((self.tokens, self.positions, self.active),
                                 saved):
                 buf.copy_(old)
-        self.graphs[key] = capture(warm_up,
-                                   lambda: self._body(width, n, greedy),
-                                   self.pool, self.generator, greedy)
+        self.graphs[key] = capture(warm_up, lambda: self._body(key),
+                                   self.pool, self.generator, key.greedy)
+        return key
 
-    def launch(self, key: Key, seeded: Optional[Seeded] = None) -> Launch:
+    def launch(self, key, want_top: bool = False) -> Launch:
         """Run ``key``'s step(s) from the staged inputs: a graph replay,
-        or the body eagerly where graphs are off or rows are seeded."""
-        self.prepare(key)
+        or the body eagerly where graphs are off. ``want_top``: copy the
+        top logprobs to the host too."""
+        key = self.prepare(key)
         g = self.graphs[key]
         self.launches += 1
-        self.forwards += key[1]
-        if g is None or seeded is not None:
+        self.forwards += key.steps
+        if g is None:
             self.eager_steps[program(key)][
-                "seeded" if g is not None else
                 "graphs_off" if self.device.type == "cuda" else "cpu"] += 1
-            tokens, logprobs, dropped = self._body(*key, seeded=seeded)
+            outs = self._body(key)
         else:
             g.graph.replay()
             count_replay(g.tally)
             g.replays += 1
-            tokens, logprobs, dropped = g.tokens, g.logprobs, g.dropped
+            outs = g.outs
+        want_top = want_top and outs.top_ids is not None
         if not self._host:
-            return Launch(key[1], tokens, logprobs, dropped=dropped)
-        host_tok, host_lp, host_drop = self._host[self._next_host]
+            return Launch(key.steps, outs.tokens, outs.logprobs,
+                          dropped=outs.dropped,
+                          top_ids=outs.top_ids if want_top else None,
+                          top_lps=outs.top_lps if want_top else None)
+        host_tok, host_lp, host_drop, host_ids, host_tlp = \
+            self._host[self._next_host]
         self._next_host ^= 1
-        n = key[1]
-        host_tok[:n].copy_(tokens, non_blocking=True)
-        host_lp[:n].copy_(logprobs, non_blocking=True)
-        if dropped is not None:
-            host_drop.copy_(dropped, non_blocking=True)
+        n = key.steps
+        host_tok[:n].copy_(outs.tokens, non_blocking=True)
+        host_lp[:n].copy_(outs.logprobs, non_blocking=True)
+        if outs.dropped is not None:
+            host_drop.copy_(outs.dropped, non_blocking=True)
+        if want_top:
+            host_ids[:n].copy_(outs.top_ids, non_blocking=True)
+            host_tlp[:n].copy_(outs.top_lps, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
         return Launch(n, host_tok, host_lp, event,
-                      dropped=host_drop if dropped is not None else None)
+                      dropped=host_drop if outs.dropped is not None
+                      else None,
+                      top_ids=host_ids if want_top else None,
+                      top_lps=host_tlp if want_top else None)
 
     def programs(self) -> Dict[str, Dict[str, object]]:
         """Per program (``decode``, ``decode_multi``): the graphs by key
         with their replays, the captures after warmup and the eager
         steps by reason."""
         def name(k: Key) -> str:
-            return f"mp{k[0]}_n{k[1]}_{'greedy' if k[2] else 'sampled'}"
+            return f"mp{k.width}_n{k.steps}_{k.suffix()}"
         return program_census(list(self.graphs.items()), PROGRAMS, program,
                               name, list(self.late), self.eager_steps)
 
@@ -328,7 +461,7 @@ PROGRAMS = ("decode", "decode_multi")
 def program(key: Key) -> str:
     """The JAX program a decode key counts under: ``decode`` (one step,
     ``_jit_decode``) or ``decode_multi`` (a fused burst)."""
-    return "decode" if key[1] == 1 else "decode_multi"
+    return "decode" if key.steps == 1 else "decode_multi"
 
 
 def program_census(items, programs, program_of, name_of, late,
@@ -381,5 +514,6 @@ def decode_widths(max_pages_per_seq: int) -> List[int]:
     return widths + [max_pages_per_seq]
 
 
-__all__ = ["DecodeGraphs", "Launch", "PROGRAMS", "Seeded", "capture",
-           "census_totals", "decode_widths", "program", "program_census"]
+__all__ = ["BIAS_K", "DecodeGraphs", "Key", "Launch", "Outputs", "PROGRAMS",
+           "capture", "census_totals", "decode_widths", "program",
+           "program_census", "top_rows", "variant"]

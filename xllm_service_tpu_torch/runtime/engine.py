@@ -31,7 +31,17 @@ bucket that fits the residual budget, so prompts longer than it prefill
 in chunks over several steps, each window starting where the last
 ended. A batch pads to a power of two rows and its window to the bucket
 that holds the longest window. Tokens are sampled on the device inside
-the step; only the sampled ids and their logprobs cross to the host.
+the step (``ops/sampling.py``) with each request's ``logit_bias``, and
+in decode its presence and frequency penalties over a [B, V] count of
+its generated tokens, which the decode steps update on the device and
+the engine rebuilds from its token lists wherever the batch changed
+outside a decode (``_ensure_counts``, as the JAX engine). A seeded row
+draws the JAX package's threefry noise from (seed, position), so its
+stream equals the JAX engine's. Only the sampled ids, their logprobs
+and, when a request asked for logprobs, the top-k alternatives
+(``num_top_logprobs``) cross to the host. A prompt-scored request (echo
+with logprobs) prefills alone and skips prefix hits; its window scores
+are stitched into ``prompt_logprobs`` on its first sampled token.
 
 Pages are allocated as the JAX engine allocates them: admission takes
 only the pages of the first window (plus the first sampled token's when
@@ -102,9 +112,9 @@ import torch
 from xllm_service_tpu_torch.config import EngineConfig, ModelConfig
 from xllm_service_tpu_torch.models import transformer
 from xllm_service_tpu_torch.ops.kernels import paged_attention
-from xllm_service_tpu_torch.ops.sampling import SamplingTensors
+from xllm_service_tpu_torch.ops.sampling import (SamplingTensors,
+                                                 batch_bias, batch_mode)
 from xllm_service_tpu_torch.runtime import decode_graph, prefill_graph
-from xllm_service_tpu_torch.runtime.decode_graph import Seeded
 from xllm_service_tpu_torch.runtime.kv_cache import (HostKvTier,
                                                      KvCacheEvent,
                                                      PageAllocator,
@@ -143,6 +153,11 @@ def resolve_cuda_graphs(flag: Optional[bool], device: torch.device) -> bool:
 
 
 _GREEDY = SamplingParams(temperature=0.0)
+# The sampling variants every warmed shape is captured in: (greedy,
+# seeded) = greedy, sampled, sampled with a seeded row. Decode captures
+# each with and without the penalty counts; every one at the default
+# logit-bias width.
+_VARIANTS = ((True, False), (False, False), (False, True))
 
 
 @dataclasses.dataclass
@@ -158,6 +173,11 @@ class EngineRequest:
     offline: bool = False
     eos_token_ids: Tuple[int, ...] = ()
     arrival_time: float = 0.0
+    # Completion-API echo with logprobs: score every prompt token (the
+    # first is None: nothing to condition on). Such a sequence prefills
+    # alone, through the prompt-scoring graph, and skips prefix-cache
+    # hits (cached positions are never scored).
+    prompt_logprobs: bool = False
 
 
 class SeqStatus(enum.Enum):
@@ -181,6 +201,10 @@ class Sequence:
     num_trimmed: int = 0
     # Window the scheduler pinned for this step's prefill.
     sched_window: int = 0
+    # Echo with logprobs: the prompt tokens' scores, filled window by
+    # window (index 0 stays None), handed out with the first sampled
+    # token.
+    prompt_lps: Optional[List[Optional[float]]] = None
 
     @property
     def num_prompt_tokens(self) -> int:
@@ -204,6 +228,13 @@ class StepOutput:
     # Prompt tokens served from the prefix cache; rides the output that
     # carries the first sampled token.
     num_cached_tokens: int = 0
+    # Per new token, the top-k alternatives [{"token_id", "logprob"}]
+    # (only when the engine computes them and the request asked for
+    # logprobs).
+    top_logprobs: Optional[List[List[Dict[str, Any]]]] = None
+    # Echo with logprobs: one entry per prompt token (the first None),
+    # on the output that carries the first sampled token.
+    prompt_logprobs: Optional[List[Optional[float]]] = None
 
     @property
     def finished(self) -> bool:
@@ -281,16 +312,25 @@ class Engine:
             paged_attention.reserve_tickets(
                 self.device, rows * model_cfg.kv_cache_heads)
         use_graphs = resolve_cuda_graphs(engine_cfg.cuda_graphs, self.device)
+        # Top-k alternative logprobs computed inside every step (0: none).
+        self.num_top = int(engine_cfg.num_top_logprobs)
         self.graphs = decode_graph.DecodeGraphs(
             self.params, model_cfg, self.kv, engine_cfg.max_batch_size,
             self.decode_steps, self.write_then_attend, self.generator,
-            self.device, use_graphs)
+            self.device, use_graphs, self.num_top)
         # The prefill and ragged steps' runner, in the decode runner's
         # memory pool.
         self.prefill_graphs = prefill_graph.PrefillGraphs(
             self.params, model_cfg, self.kv,
             _pow2(engine_cfg.max_batch_size), self.write_then_attend,
-            self.generator, self.device, use_graphs, self.graphs.pool)
+            self.generator, self.device, use_graphs, self.graphs.pool,
+            self.num_top)
+        # Whether the decode runner's [B, V] output-token counts hold the
+        # running batch's histogram (the JAX engine's ``_counts`` is not
+        # None): dropped wherever the batch changes outside a decode
+        # (prefill, ragged, a speculation's rollback) and rebuilt from
+        # host truth by the next penalized decode (``_ensure_counts``).
+        self._counts_valid = False
         # The batch the decode runner's token and position carries hold
         # (see _snapshot), or None when they were not kept.
         self._resident: Optional[Tuple] = None
@@ -476,9 +516,14 @@ class Engine:
         slot = self._free_slot()
         if slot < 0:
             return False
-        cached_pages, cached_tokens = \
-            self.prefix_cache.match_prefix(seq.req.token_ids)
-        if self.host_tier is not None:
+        # A prompt-scored sequence skips hits: cached positions would
+        # never be scored.
+        scored = seq.req.prompt_logprobs
+        cached_pages, cached_tokens = [], 0
+        if not scored:
+            cached_pages, cached_tokens = \
+                self.prefix_cache.match_prefix(seq.req.token_ids)
+        if self.host_tier is not None and not scored:
             cached_pages, cached_tokens = self._restore_spilled(
                 seq.req.token_ids, cached_pages, cached_tokens)
         window = min(len(seq.tokens) - cached_tokens, cap)
@@ -495,8 +540,9 @@ class Engine:
         seq.num_computed = cached_tokens
         seq.num_cached_tokens = cached_tokens
         # Only admitted lookups count: a refused one retries every step.
-        self.prefix_lookups += 1
-        self.prefix_hit_tokens += cached_tokens
+        if not scored:
+            self.prefix_lookups += 1
+            self.prefix_hit_tokens += cached_tokens
         seq.slot = slot
         self._slots[slot] = seq
         return True
@@ -687,6 +733,11 @@ class Engine:
         self._grow_running()
         if not self.running:
             return False
+        # The ragged program samples without the penalty counts: a
+        # penalized decoder takes the split sections.
+        if any(s.req.sampling.presence_penalty
+               or s.req.sampling.frequency_penalty for s in self.running):
+            return False
         # A ragged decode row spends one token of the budget.
         budget = max(self.step_token_budget - len(self.running),
                      self._starvation_quantum())
@@ -696,11 +747,14 @@ class Engine:
         if not batch:
             return False
         # Admission may have preempted offline decoders: they skip this
-        # iteration's decode. With none left the committed batch runs
+        # iteration's decode. With none left, or a prompt-scored window
+        # (the ragged program scores none), the committed batch runs
         # through the split sections.
         decode_seqs = [s for s in self.running
                        if s.status == SeqStatus.RUNNING]
-        if not decode_seqs:
+        if not decode_seqs or batch[0].req.prompt_logprobs:
+            if self.running:
+                self._decode_section(outs)
             self._prefill_section(batch, outs)
             return True
         self._run_ragged(decode_seqs, batch, outs)
@@ -755,6 +809,8 @@ class Engine:
                 break               # residual below the smallest bucket
             if batch and window > budget:
                 break
+            if seq.req.prompt_logprobs and batch:
+                break               # a prompt-scored window runs alone
             if seq.slot < 0:
                 if not self._try_admit(seq, cap):
                     if self._free_slot() < 0 or \
@@ -772,6 +828,8 @@ class Engine:
             budget -= window
             self.waiting.remove(seq)
             batch.append(seq)
+            if seq.req.prompt_logprobs:
+                break
             if budget <= 0 or len(batch) >= self.ecfg.max_batch_size:
                 break
         return batch
@@ -782,12 +840,14 @@ class Engine:
 
     def _forward_windows(self, rows: List[Sequence],
                          spans: List[Tuple[int, int]],
-                         ragged: bool) -> Tuple[List[int], List[float]]:
+                         ragged: bool) -> prefill_graph.Result:
         """One forward_prefill over ``rows`` through the prefill runner,
         row i taking the tokens [start, start + n) of ``spans[i]``; the
         batch pads to a power of two rows and to the bucket of the
         longest span. Returns the token sampled after each row's last
-        token, and its logprob."""
+        token, its logprob and, where asked for, the top entries; a
+        prompt-scored row (alone in its batch) also gets its window's
+        prompt scores, stitched into ``seq.prompt_lps``."""
         B = _pow2(len(rows))
         T = self._bucket(max(n for _, n in spans))
         # The writer and the attention kernels touch only [start,
@@ -795,27 +855,62 @@ class Engine:
         MP = min(_pow2(max(len(s.pages) for s in rows)),
                  self.ecfg.max_pages_per_seq)
         params = [s.req.sampling for s in rows]
-        self.prefill_graphs.stage((B, T, MP), prefill_graph.pack(
+        padded = params + [_GREEDY] * (B - len(rows))
+        bias = batch_bias(padded, B, self.cfg.vocab_size)
+        scored = rows[0] if rows[0].req.prompt_logprobs else None
+        targets = None
+        if scored is not None:
+            # Window position t scores the prompt token at start + t + 1
+            # (target 0 past the prompt).
+            start, n = spans[0]
+            scored_at = [(t, start + t + 1) for t in range(n)
+                         if start + t + 1 < scored.num_prompt_tokens]
+            targets = np.zeros((B, T), np.int32)
+            for t, g in scored_at:
+                targets[0, t] = scored.tokens[g]
+        K = bias[0].shape[1]
+        self.prefill_graphs.stage((B, T, MP, K, scored is not None),
+                                  prefill_graph.pack(
             (B, T, MP), [(seq.tokens[st:st + n], st, seq.pages)
                          for seq, (st, n) in zip(rows, spans)],
-            SamplingTensors.pack_batch(params + [_GREEDY] * (B - len(rows)))))
-        sampled = [i for i, p in enumerate(params) if p.temperature > 0]
-        seeded = [i for i in sampled if params[i].seed is not None]
-        toks, lps, drops = self.prefill_graphs.launch(
-            ("ragged" if ragged else "prefill", B, T, MP, not sampled),
-            Seeded(seeded, [params[i].seed for i in seeded],
-                   [spans[i][0] + spans[i][1] - 1 for i in seeded])
-            if seeded else None)
+            SamplingTensors.pack_batch(padded), bias, targets))
+        greedy_only, seeded = batch_mode(params)
+        res = self.prefill_graphs.launch(
+            prefill_graph.Key("ragged" if ragged else "prefill", B, T, MP,
+                              greedy_only, seeded, K, scored is not None),
+            want_top=self._want_top(rows))
         self.last_step_attn_dispatches += 1
-        self._note_moe_dropped(drops)
-        return toks, lps
+        self._note_moe_dropped(res.dropped)
+        if scored is not None:
+            if scored.prompt_lps is None:
+                scored.prompt_lps = [None] * scored.num_prompt_tokens
+            for t, g in scored_at:
+                scored.prompt_lps[g] = res.prompt_lps[0][t]
+        # The batch changed outside a decode: the penalty counts are
+        # rebuilt from host truth before the next penalized decode.
+        self._counts_valid = False
+        return res
+
+    def _want_top(self, seqs) -> bool:
+        """Whether a step's top logprobs cross to the host: computed
+        (``num_top_logprobs``) and some sequence asked for logprobs."""
+        return self.num_top > 0 and any(s.req.sampling.logprobs
+                                        for s in seqs)
+
+    def _top_entry(self, seq: Sequence, tops, row: int
+                   ) -> Optional[List[List[Dict[str, Any]]]]:
+        """One sampled token's top alternatives for ``seq`` (None unless
+        read back and the request asked for logprobs)."""
+        if tops is None or not seq.req.sampling.logprobs:
+            return None
+        return [tops[row]]
 
     def _run_prefill(self, batch: List[Sequence]) -> List[StepOutput]:
         windows = [s.sched_window for s in batch]
-        toks, lps = self._forward_windows(
+        res = self._forward_windows(
             batch, [(s.num_computed, w) for s, w in zip(batch, windows)],
             ragged=False)
-        return self._finish_windows(batch, windows, toks, lps)
+        return self._finish_windows(batch, windows, res, 0)
 
     def _run_ragged(self, decode_seqs: List[Sequence], batch: List[Sequence],
                     outs: List[StepOutput]) -> None:
@@ -834,24 +929,28 @@ class Engine:
         spans = [(len(s.tokens) - 1, 1) for s in decode_seqs] + \
             [(s.num_computed, w) for s, w in zip(batch, windows)]
         t0 = time.perf_counter()
-        toks, lps = self._forward_windows(rows, spans, ragged=True)
+        res = self._forward_windows(rows, spans, ragged=True)
         self.last_step_prefill_s = time.perf_counter() - t0
         self.ragged_steps += 1
         for i, seq in enumerate(decode_seqs):
             if seq.status == SeqStatus.RUNNING:
                 seq.num_computed = len(seq.tokens)
-            outs.append(self._append_token(seq, toks[i], lps[i]))
-        outs.extend(self._finish_windows(batch, windows, toks[nd:],
-                                         lps[nd:]))
+            outs.append(self._append_token(
+                seq, res.tokens[i], res.logprobs[i],
+                self._top_entry(seq, res.tops, i)))
+        outs.extend(self._finish_windows(batch, windows, res, nd))
 
     def _finish_windows(self, batch: List[Sequence], windows: List[int],
-                        toks: List[int], lps: List[float]
+                        res: prefill_graph.Result, first: int
                         ) -> List[StepOutput]:
+        """The post of ``batch``'s windows, whose sampled tokens are the
+        rows of ``res`` from ``first`` on."""
         now = time.monotonic()
         outs: List[StepOutput] = []
-        for i, seq in enumerate(batch):
+        for j, seq in enumerate(batch):
+            i = first + j
             seq.sched_window = 0
-            seq.num_computed += windows[i]
+            seq.num_computed += windows[j]
             if seq.num_computed < len(seq.tokens):
                 # Mid-prompt window: its sampled token is discarded and
                 # the sequence (slot and pages kept) waits for its next
@@ -862,8 +961,12 @@ class Engine:
             seq.status = SeqStatus.RUNNING
             seq.first_token_time = now
             self.running.append(seq)
-            out = self._append_token(seq, toks[i], lps[i])
+            out = self._append_token(seq, res.tokens[i], res.logprobs[i],
+                                     self._top_entry(seq, res.tops, i))
             out.num_cached_tokens = seq.num_cached_tokens
+            if seq.prompt_lps is not None:
+                out.prompt_logprobs = seq.prompt_lps
+                seq.prompt_lps = None
             outs.append(out)
         self._sort_waiting()
         return outs
@@ -902,19 +1005,22 @@ class Engine:
             table[seq.slot, :n] = seq.pages[:n]
         return active, table
 
-    def _stage_decode(self, steps: int
-                      ) -> Tuple[decode_graph.Key, Optional[Seeded]]:
+    def _stage_decode(self, steps: int) -> decode_graph.Key:
         """Fill the decode runner's inputs from the running batch, each
         only where it changed: the active mask and page table, the
-        slots' sampling tensors, and the token and position carries
-        unless they already hold this batch (``_resident``). Returns the
-        step's graph key and its seeded rows."""
+        slots' packed sampling pair and logit bias, the penalty counts
+        (rebuilt when they are stale, ``_ensure_counts``), and the token
+        and position carries unless they already hold this batch
+        (``_resident``). Returns the step's graph key."""
         width = self._table_width()
         self.graphs.stage_active_table(*self._active_table(width))
         params = [_GREEDY] * self.ecfg.max_batch_size
         for seq in self.running:
             params[seq.slot] = seq.req.sampling
         self.graphs.stage_sampling(SamplingTensors.pack_batch(params))
+        bias = batch_bias(params, len(params), self.cfg.vocab_size)
+        self.graphs.stage_bias(*bias)
+        penalized = self._ensure_counts()
         if self._resident != self._snapshot():
             B = self.ecfg.max_batch_size
             tokens = np.zeros((B,), np.int64)
@@ -924,22 +1030,40 @@ class Engine:
                 positions[seq.slot] = len(seq.tokens) - 1
             self.graphs.stage_carries(tokens, positions)
         self._resident = None           # the launch advances the carries
-        sampled = [s for s in self.running if s.req.sampling.temperature > 0]
-        seeded = [s for s in sampled if s.req.sampling.seed is not None]
-        return ((width, steps, not sampled),
-                Seeded([s.slot for s in seeded],
-                       [s.req.sampling.seed for s in seeded],
-                       [len(s.tokens) - 1 for s in seeded])
-                if seeded else None)
+        greedy_only, seeded = batch_mode(
+            [s.req.sampling for s in self.running])
+        return decode_graph.Key(width, steps, greedy_only, seeded,
+                                penalized, bias[0].shape[1])
+
+    def _ensure_counts(self) -> bool:
+        """Whether this decode applies the penalties: some running
+        sequence sets one. The runner's [B, V] counts are then rebuilt
+        from the host's token lists if they are stale (the JAX engine's
+        ``_ensure_counts``)."""
+        if not any(s.req.sampling.presence_penalty
+                   or s.req.sampling.frequency_penalty
+                   for s in self.running):
+            self._counts_valid = False
+            return False
+        if not self._counts_valid:
+            counts = np.zeros((self.ecfg.max_batch_size,
+                               self.cfg.vocab_size), np.int32)
+            for seq in self.running:
+                gen = seq.tokens[seq.num_prompt_tokens:]
+                if seq.slot >= 0 and gen:
+                    np.add.at(counts[seq.slot], gen, 1)
+            self.graphs.stage_counts(counts)
+            self._counts_valid = True
+        return True
 
     def _run_decode(self) -> List[StepOutput]:
         self._grow_running()
         if not self.running:
             return []
-        key, seeded = self._stage_decode(1)
-        launch = self.graphs.launch(key, seeded)
+        key = self._stage_decode(1)
+        launch = self.graphs.launch(key, self._want_top(self.running))
         self.last_step_attn_dispatches += 1
-        toks, lps = launch.read()
+        toks, lps, tops = launch.read()
         self._note_moe_dropped(launch.moe_dropped)
         outs = []
         # (seq, slot) first: a growth below may preempt an offline
@@ -947,8 +1071,9 @@ class Engine:
         for seq, slot in [(s, s.slot) for s in self.running]:
             if seq.status == SeqStatus.RUNNING:
                 seq.num_computed = len(seq.tokens)
-            outs.append(self._append_token(seq, toks[0][slot],
-                                           lps[0][slot]))
+            outs.append(self._append_token(
+                seq, toks[0][slot], lps[0][slot],
+                self._top_entry(seq, tops[0] if tops else None, slot)))
         # Every slot's carry is its sampled token and the next position.
         self._resident = self._snapshot()
         return outs
@@ -988,11 +1113,12 @@ class Engine:
         # Two-deep pipeline: enqueue burst k+1 before blocking on burst
         # k's host copy.
         spec = self._dispatch_spec(burst) if self.decode_pipeline else None
-        toks, lps = burst["launch"].read()                # [N][B] each
+        toks, lps, tops = burst["launch"].read()          # [N][B] each
         self._note_moe_dropped(burst["launch"].moe_dropped)
         self._last_burst_ready_t = time.monotonic()
         self._last_burst_step = self.step_count
-        outs = self._post_decode_multi(toks, lps, carry_free=spec is None)
+        outs = self._post_decode_multi(toks, lps, tops,
+                                       carry_free=spec is None)
         if spec is not None:
             if self._pending_matches(spec):
                 self._pending = spec
@@ -1016,12 +1142,13 @@ class Engine:
             self._grow_pages(seq, lookahead=max(remaining - 1, 0))
         if not self.running:
             return None
-        key, seeded = self._stage_decode(N)
+        key = self._stage_decode(N)
         self._note_burst_gap(overlapped=False)
-        launch = self.graphs.launch(key, seeded)
+        want_top = self._want_top(self.running)
+        launch = self.graphs.launch(key, want_top)
         self.last_step_attn_dispatches += 1
         self.phase_counts["decode_multi.dispatch"] += 1
-        return {"launch": launch, "key": key, "seeded": seeded}
+        return {"launch": launch, "key": key, "want_top": want_top}
 
     def _dispatch_spec(self, burst: Dict[str, Any]
                        ) -> Optional[Dict[str, Any]]:
@@ -1031,14 +1158,11 @@ class Engine:
         if not self._spec_eligible():
             return None
         gen_state = self.generator.get_state()
-        seeded = burst["seeded"]
-        if seeded is not None:
-            seeded = seeded.advanced(self.decode_steps)
-        launch = self.graphs.launch(burst["key"], seeded)
+        launch = self.graphs.launch(burst["key"], burst["want_top"])
         self.last_step_attn_dispatches += 1
         self.phase_counts["decode_multi.spec_dispatch"] += 1
-        return {"launch": launch, "key": burst["key"], "seeded": seeded,
-                "gen_state": gen_state,
+        return {"launch": launch, "key": burst["key"],
+                "want_top": burst["want_top"], "gen_state": gen_state,
                 "members": tuple((s.req.request_id, s.slot)
                                  for s in self.running)}
 
@@ -1049,7 +1173,7 @@ class Engine:
         current burst (an EOS still rolls back), the speculative writes
         stay inside ``max_model_len`` and inside the pages already held
         (a speculation never allocates, so a rollback has nothing to
-        undo)."""
+        undo), and not while the penalty counts await their rebuild."""
         N = self.decode_steps
         if self.waiting or self._cancelled:
             return False
@@ -1062,6 +1186,10 @@ class Engine:
                 return False
             if len(s.pages) * ps < len(s.tokens) + N + min(N, rem - N) - 1:
                 return False
+        if not self._counts_valid and any(
+                s.req.sampling.presence_penalty
+                or s.req.sampling.frequency_penalty for s in self.running):
+            return False
         return True
 
     def _pending_matches(self, p: Dict[str, Any]) -> bool:
@@ -1081,6 +1209,9 @@ class Engine:
         state before it, and the carries are re-uploaded."""
         self.phase_counts["decode_multi.spec_rollback"] += 1
         self.generator.set_state(p["gen_state"])
+        # Its in-place count updates went into the counts: rebuilt from
+        # host truth at the next dispatch.
+        self._counts_valid = False
         self._resident = None
         # A rolled-back boundary was busy on the discarded burst: it is
         # kept out of the idle ledger.
@@ -1107,7 +1238,7 @@ class Engine:
         self.phase_counts["decode_multi.device_idle"] += 1
 
     def _post_decode_multi(self, toks: List[List[int]],
-                           lps: List[List[float]],
+                           lps: List[List[float]], tops,
                            carry_free: bool) -> List[StepOutput]:
         """Accept each sequence's burst tokens up to its first stop,
         register the pages they filled and trim sliding windows (a trim
@@ -1118,12 +1249,16 @@ class Engine:
         for seq, slot in [(s, s.slot) for s in self.running]:
             accepted: List[int] = []
             logprobs: List[float] = []
+            top = ([] if tops is not None and seq.req.sampling.logprobs
+                   else None)
             reason = FinishReason.NONE
             for k in range(len(toks)):
                 tok = toks[k][slot]
                 seq.tokens.append(tok)
                 accepted.append(tok)
                 logprobs.append(lps[k][slot])
+                if top is not None:
+                    top.append(tops[k][slot])
                 reason = self._finish_reason(seq, tok)
                 if reason != FinishReason.NONE:
                     break
@@ -1133,7 +1268,7 @@ class Engine:
                 request_id=seq.req.request_id, new_token_ids=accepted,
                 logprobs=logprobs, finish_reason=reason,
                 num_prompt_tokens=seq.num_prompt_tokens,
-                num_generated=seq.num_generated))
+                num_generated=seq.num_generated, top_logprobs=top))
             if reason != FinishReason.NONE:
                 self._finish_seq(seq)
             else:
@@ -1170,7 +1305,9 @@ class Engine:
                prefill_shapes: Optional[Seq[Tuple[int, int, int]]] = None,
                decode_widths: Optional[Seq[int]] = None) -> float:
         """Capture every graph this configuration's steady state runs,
-        on the JAX engine's warmup ladder, each greedy and sampled:
+        on the JAX engine's warmup ladder, each in every sampling variant
+        (greedy, sampled, sampled with a seeded row; decode each with and
+        without the penalty counts) at the default logit-bias width:
 
         - prefill: every (pow2 B, bucket T) with (B - 1) + T <=
           max(budget, T), at the table widths pow2(pages(T)) and
@@ -1186,9 +1323,10 @@ class Engine:
           pow2 batches, the prefill shapes' buckets and their widths
           with the decode widths.
 
-        A shape warmup missed is captured at its first use and counted
-        as a capture after warmup, by program (the JAX engine's
-        recompile counters). Nothing is written to the pools and the
+        A shape warmup missed, a wider logit bias or a prompt-scored
+        prefill is captured at its first use and counted as a capture
+        after warmup, by program (the JAX engine's recompile counters;
+        it compiles the counts' decode variant lazily too). Nothing is written to the pools and the
         generator's state is kept. Returns the seconds spent."""
         self.drain_pipeline()
         t0 = time.monotonic()
@@ -1201,8 +1339,9 @@ class Engine:
                 batch_pows, buckets, self.ecfg.max_prefill_tokens,
                 self.ecfg.page_size, extended)
         for B, T, mp in prefill_shapes:
-            for greedy in (True, False):
-                self.prefill_graphs.prepare(("prefill", B, T, mp, greedy))
+            for greedy, seeded in _VARIANTS:
+                self.prefill_graphs.prepare(
+                    ("prefill", B, T, mp, greedy, seeded))
         if decode_widths is None:
             widths = decode_graph.decode_widths(self.ecfg.max_pages_per_seq)
             if not extended:
@@ -1214,17 +1353,19 @@ class Engine:
             steps = [self.decode_steps]
         for width in widths:
             for n in steps:
-                for greedy in (True, False):
-                    self.graphs.prepare((width, n, greedy))
+                for greedy, seeded in _VARIANTS:
+                    for penalized in (False, True):
+                        self.graphs.prepare(
+                            (width, n, greedy, seeded, penalized))
         if self.ragged and extended:
             t_set = sorted({T for _, T, _ in prefill_shapes})
             mp_set = sorted({mp for *_, mp in prefill_shapes} | set(widths))
             for B in batch_pows:
                 for T in t_set:
                     for mp in mp_set:
-                        for greedy in (True, False):
+                        for greedy, seeded in _VARIANTS:
                             self.prefill_graphs.prepare(
-                                ("ragged", B, T, mp, greedy))
+                                ("ragged", B, T, mp, greedy, seeded))
         self.graphs.warm = self.prefill_graphs.warm = True
         return time.monotonic() - t0
 
@@ -1255,9 +1396,8 @@ class Engine:
         """Per program (``prefill``, ``ragged``, ``decode``,
         ``decode_multi``): the graphs by key with their replays, the
         captures made after ``warmup()``, and the steps run eagerly, by
-        reason: ``seeded`` (a row with its own generator), ``graphs_off``
-        (``cuda_graphs=False`` on CUDA) or ``cpu``; and their sums over
-        every program."""
+        reason: ``graphs_off`` (``cuda_graphs=False`` on CUDA) or
+        ``cpu``; and their sums over every program."""
         return decode_graph.census_totals(
             {**self.prefill_graphs.programs(), **self.graphs.programs()},
             self.graphs.use_graphs)
@@ -1272,15 +1412,16 @@ class Engine:
                 for p in ("prefill", "ragged", "decode", "decode_multi")
                 if p != "ragged" or self.ragged}
 
-    def _append_token(self, seq: Sequence, tok: int,
-                      logprob: float) -> StepOutput:
+    def _append_token(self, seq: Sequence, tok: int, logprob: float,
+                      top: Optional[List[List[Dict[str, Any]]]] = None
+                      ) -> StepOutput:
         seq.tokens.append(tok)
         reason = self._finish_reason(seq, tok)
         out = StepOutput(
             request_id=seq.req.request_id, new_token_ids=[tok],
             logprobs=[logprob], finish_reason=reason,
             num_prompt_tokens=seq.num_prompt_tokens,
-            num_generated=seq.num_generated)
+            num_generated=seq.num_generated, top_logprobs=top)
         if reason != FinishReason.NONE:
             self._finish_seq(seq)
         elif seq.status == SeqStatus.RUNNING:

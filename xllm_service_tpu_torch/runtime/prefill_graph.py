@@ -1,39 +1,49 @@
 """Prefill and ragged steps through CUDA graphs: the counterpart of the
 JAX engine's jitted prefill programs ``_jit_prefill`` (the split and
-prefill-first steps) and ``_jit_ragged`` (the ragged mixed step).
+prefill-first steps), ``_jit_prefill_plp`` (a prefill that also scores
+its window's prompt tokens, for ``echo`` with ``logprobs``) and
+``_jit_ragged`` (the ragged mixed step).
 
-One graph per key (kind, B, T, MP, greedy): ``kind`` is ``prefill`` or
-``ragged``, B the power-of-two row count, T the prefill bucket, MP the
-table width the engine picks for the batch (a power of two of its widest
-row, clamped to ``max_pages_per_seq``), ``greedy`` whether no row
-samples. Every input of a (B, T, MP) shape lives in one static int32
-buffer that the engine fills with one upload before each launch, as the
-JAX step packs its header, tokens and table into one array: the rows'
-starts and lengths, their sampling parameters (temperature and top-p as
-float32 bits, top-k), the [B, T] tokens and the [B, MP] page table. The
-whole buffer is written each time, so the rows past the batch are
-padding of length 0 with an all-NULL table row: a padding row left from
-an earlier, larger batch under the same key would write into another
-sequence's pages.
+One graph per key (``Key``: kind, B, T, MP, the sampling variant, the
+``logit_bias`` width K, ``plp``): ``kind`` is ``prefill`` or ``ragged``,
+B the power-of-two row count, T the prefill bucket, MP the table width
+the engine picks for the batch (a power of two of its widest row,
+clamped to ``max_pages_per_seq``), then whether no row samples, whether
+some sampled row is seeded, K, and whether the window's prompt tokens
+are scored (B = 1, captured at its first use, as the JAX engine compiles
+``_jit_prefill_plp`` lazily). Every input of an input shape (B, T, MP,
+K, plp) lives in one static int32 buffer that the engine fills with one
+upload before each launch, as the JAX step packs its header, tokens and
+table into one array: the rows' starts and lengths, the packed sampling
+pair (float32 [B, 4] as bits, int32 [B, 2]), the bias ids and values
+[B, K] (zeros when unused), the [B, T] tokens, the [B, MP] page table
+and, for ``plp``, the [B, T] targets (the prompt token after each window
+position). The whole buffer is written each time, so the rows past the
+batch are padding of length 0 with an all-NULL table row: a padding row
+left from an earlier, larger batch under the same key would write into
+another sequence's pages.
 
 The body is the eager step's: ``forward_prefill`` (the ragged kernel for
 ``ragged``, else the prefill kernel in the engine's write order), the
-packed sampler, each sampled token's logprob. A replay's [B] tokens and
+packed sampler with the bias (no penalties: the JAX prefill and ragged
+programs take no counts), a seeded row's noise by threefry from (seed,
+start + length - 1), each sampled token's logprob and the top logprobs
+(k = ``EngineConfig.num_top_logprobs``). A replay's [B] tokens and
 logprobs and its MoE drop count are copied into pinned host buffers
 behind a CUDA event. The graphs share the decode runner's memory pool:
-no two run at once, and each launch queues its outputs' host copy before
-the next replay can reuse the pool's memory.
+no two run at once, and each launch queues its outputs' host copy
+before the next replay can reuse the pool's memory.
 
 A capture that fails raises: nothing falls back to eager steps on CUDA.
-Steps run eagerly, through the same body and buffers, where graphs are
-off (the CPU, ``EngineConfig.cuda_graphs=False``) or a row draws from
-its own seeded generator; ``programs()`` counts them under that reason.
+Steps run eagerly, through the same body and buffers, only where graphs
+are off (the CPU, ``EngineConfig.cuda_graphs=False``); ``programs()``
+counts them under that reason.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import (Dict, List, NamedTuple, Optional, Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -42,23 +52,59 @@ from xllm_service_tpu_torch.models import transformer
 from xllm_service_tpu_torch.ops.kernels._launch import count_replay
 from xllm_service_tpu_torch.ops.sampling import (SamplingTensors,
                                                  compute_logprobs,
-                                                 sample_packed,
-                                                 sample_seeded)
-from xllm_service_tpu_torch.runtime.decode_graph import (Seeded, _Graph,
-                                                         capture,
-                                                         program_census)
+                                                 compute_top_logprobs,
+                                                 sample_packed)
+from xllm_service_tpu_torch.runtime.decode_graph import (
+    BIAS_K, Outputs, _Graph, capture, program_census, top_rows, variant)
 
-Key = Tuple[str, int, int, int, bool]   # (kind, B, T, MP, greedy)
 Shape = Tuple[int, int, int]            # (B, T, MP)
+InShape = Tuple[int, int, int, int, bool]   # (B, T, MP, K, plp)
 KINDS = ("prefill", "ragged")
 
 
-def layout(B: int, T: int, MP: int) -> Dict[str, Tuple[int, int]]:
+class Key(NamedTuple):
+    """A prefill or ragged graph's key."""
+    kind: str
+    B: int
+    T: int
+    MP: int
+    greedy: bool                        # no row samples
+    seeded: bool = False                # some sampled row has a seed
+    bias_k: int = BIAS_K                # logit-bias columns
+    plp: bool = False                   # scores the window's prompt
+
+    @property
+    def in_shape(self) -> InShape:
+        return (self.B, self.T, self.MP, self.bias_k, self.plp)
+
+
+class Result(NamedTuple):
+    """One launch read back: the [B] tokens and logprobs, the MoE drops,
+    each row's top entries (None unless asked for) and the [B, T] prompt
+    logprobs (``plp`` keys only)."""
+    tokens: List[int]
+    logprobs: List[float]
+    dropped: int
+    tops: Optional[List[List[Dict[str, float]]]] = None
+    prompt_lps: Optional[List[List[float]]] = None
+
+
+def _in_shape(shape) -> InShape:
+    """An input shape from (B, T, MP) (bias width ``BIAS_K``, no
+    targets) or the whole (B, T, MP, K, plp)."""
+    return tuple(shape) if len(shape) == 5 else (*shape, BIAS_K, False)
+
+
+def layout(B: int, T: int, MP: int, K: int = BIAS_K, plp: bool = False
+           ) -> Dict[str, Tuple[int, int]]:
     """(offset, length) of each field in a shape's packed int32 buffer."""
     out, off = {}, 0
-    for name, n in (("start", B), ("lengths", B), ("temperature", B),
-                    ("top_p", B), ("top_k", B), ("tokens", B * T),
-                    ("table", B * MP)):
+    fields = [("start", B), ("lengths", B), ("f32", B * 4), ("i32", B * 2),
+              ("bias_ids", B * K), ("bias_vals", B * K),
+              ("tokens", B * T), ("table", B * MP)]
+    if plp:
+        fields.append(("targets", B * T))
+    for name, n in fields:
         out[name] = (off, n)
         off += n
     return out
@@ -66,12 +112,17 @@ def layout(B: int, T: int, MP: int) -> Dict[str, Tuple[int, int]]:
 
 def pack(shape: Shape, rows: Sequence[Tuple[Sequence[int], int,
                                             Sequence[int]]],
-         sampling: np.ndarray) -> np.ndarray:
+         sampling: Tuple[np.ndarray, np.ndarray],
+         bias: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+         targets: Optional[np.ndarray] = None) -> np.ndarray:
     """The packed buffer of one step: ``rows`` (tokens, start, pages) for
     the live rows, zeros (length 0, NULL pages) past them; ``sampling``
-    the [B, 3] ``SamplingTensors.pack_batch`` block of all B rows."""
-    B, T, MP = shape
-    lay = layout(B, T, MP)
+    the ``SamplingTensors.pack_batch`` pair of all B rows; ``bias`` the
+    [B, K] ids and values (None: K = ``BIAS_K`` zeros); ``targets`` the
+    [B, T] prompt-score targets of a ``plp`` step."""
+    B, T, MP = shape[:3]
+    K = BIAS_K if bias is None else bias[0].shape[1]
+    lay = layout(B, T, MP, K, targets is not None)
     flat = np.zeros(sum(n for _, n in lay.values()), np.int32)
 
     def field(name):
@@ -85,9 +136,14 @@ def pack(shape: Shape, rows: Sequence[Tuple[Sequence[int], int,
         lengths[i] = len(toks)
         tokens[i, :len(toks)] = toks
         table[i, :len(pages)] = pages
-    field("temperature").view(np.float32)[:] = sampling[:, 0]
-    field("top_p").view(np.float32)[:] = sampling[:, 1]
-    field("top_k")[:] = sampling[:, 2]
+    f32, i32 = sampling
+    field("f32").view(np.float32)[:] = f32.reshape(-1)
+    field("i32")[:] = i32.reshape(-1)
+    if bias is not None:
+        field("bias_ids")[:] = bias[0].reshape(-1)
+        field("bias_vals").view(np.float32)[:] = bias[1].reshape(-1)
+    if targets is not None:
+        field("targets")[:] = targets.reshape(-1)
     return flat
 
 
@@ -97,14 +153,16 @@ class PrefillGraphs:
 
     def __init__(self, params, cfg, kv, max_rows: int,
                  write_then_attend: bool, generator: torch.Generator,
-                 device: torch.device, use_graphs: bool, pool) -> None:
+                 device: torch.device, use_graphs: bool, pool,
+                 num_top: int = 0) -> None:
         self.params, self.cfg, self.kv = params, cfg, kv
         self.wta, self.generator = write_then_attend, generator
         self.device = device
         self.use_graphs = use_graphs
         self.pool = pool
+        self.num_top = num_top
         self.count_drops = cfg.is_moe and not cfg.mla
-        self.inputs: Dict[Shape, torch.Tensor] = {}
+        self.inputs: Dict[InShape, torch.Tensor] = {}
         self.graphs: Dict[Key, Optional[_Graph]] = {}
         self._host: Tuple[torch.Tensor, ...] = ()
         if device.type == "cuda":
@@ -122,7 +180,8 @@ class PrefillGraphs:
     # ------------------------------------------------------------------
     # Static inputs
     # ------------------------------------------------------------------
-    def _buffer(self, shape: Shape) -> torch.Tensor:
+    def _buffer(self, shape) -> torch.Tensor:
+        shape = _in_shape(shape)
         buf = self.inputs.get(shape)
         if buf is None:
             n = sum(n for _, n in layout(*shape).values())
@@ -130,9 +189,10 @@ class PrefillGraphs:
                 (n,), dtype=torch.int32, device=self.device)
         return buf
 
-    def stage(self, shape: Shape, flat: np.ndarray) -> None:
-        """Upload a step's packed inputs (``pack``) into its shape's
-        buffer: one host-to-device copy."""
+    def stage(self, shape, flat: np.ndarray) -> None:
+        """Upload a step's packed inputs (``pack``) into the buffer of
+        its input shape ((B, T, MP), or (B, T, MP, K, plp)): one
+        host-to-device copy."""
         src = torch.from_numpy(flat)
         if self.device.type == "cuda":
             # Pinned staging, kept by the caching host allocator until
@@ -144,107 +204,122 @@ class PrefillGraphs:
     # ------------------------------------------------------------------
     # The body
     # ------------------------------------------------------------------
-    def _body(self, kind: str, B: int, T: int, MP: int, greedy: bool,
-              seeded: Optional[Seeded] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    def _body(self, key: Key) -> Outputs:
         """One forward over the staged windows and the sampler; returns
-        the [B] tokens, their logprobs and the [1] MoE drop count (None
-        where none is counted)."""
-        flat = self.inputs[(B, T, MP)]
-        lay = layout(B, T, MP)
+        the [B] tokens, their logprobs, the [1] MoE drop count (None
+        where none is counted), the [B, k] top logprobs and, for a
+        ``plp`` key, the [B, T] prompt logprobs."""
+        B, T, K = key.B, key.T, key.bias_k
+        flat = self.inputs[key.in_shape]
+        lay = layout(*key.in_shape)
 
         def field(name):
             off, n = lay[name]
             return flat[off:off + n]
-        st = SamplingTensors(field("temperature").view(torch.float32),
-                             field("top_p").view(torch.float32),
-                             field("top_k").long())
+        st = SamplingTensors.unpack(
+            field("f32").view(torch.float32).view(B, 4),
+            field("i32").view(B, 2))
         drops = (torch.zeros((1,), dtype=torch.int64, device=self.device)
                  if self.count_drops else None)
-        ragged = kind == "ragged"
-        logits, kv = transformer.forward_prefill(
+        ragged = key.kind == "ragged"
+        start, lengths = field("start"), field("lengths")
+        res = transformer.forward_prefill(
             self.params, self.cfg, field("tokens").view(B, T).long(),
-            field("start"), field("lengths"), self.kv,
-            field("table").view(B, MP), ragged=ragged,
-            write_then_attend=ragged or self.wta, moe_dropped=drops)
+            start, lengths, self.kv, field("table").view(B, key.MP),
+            ragged=ragged, write_then_attend=ragged or self.wta,
+            moe_dropped=drops,
+            prompt_lp_targets=(field("targets").view(B, T) if key.plp
+                               else None))
+        logits, kv = res[0], res[1]
         if kv[0] is not self.kv[0] or kv[1] is not self.kv[1]:
             raise RuntimeError("forward_prefill replaced the KV pools; "
                                "the writers must write in place")
-        tokens = sample_packed(logits, st, self.generator, greedy)
-        if seeded is not None:
-            sample_seeded(tokens, logits, st, seeded.rows, seeded.seeds,
-                          seeded.positions)
-        return tokens, compute_logprobs(logits, tokens), drops
+        # A seeded row's fold-in datum: its last window token's position.
+        positions = start + (lengths - 1).clamp(min=0)
+        tokens = sample_packed(
+            logits, st, self.generator, key.greedy, key.seeded, positions,
+            None, field("bias_ids").view(B, K),
+            field("bias_vals").view(torch.float32).view(B, K))
+        top_ids = top_lps = None
+        if self.num_top:
+            top_ids, top_lps = compute_top_logprobs(logits, self.num_top)
+        return Outputs(tokens, compute_logprobs(logits, tokens), drops,
+                       top_ids, top_lps, res[2] if key.plp else None)
 
     # ------------------------------------------------------------------
     # Capture and launch
     # ------------------------------------------------------------------
-    def prepare(self, key: Key) -> None:
+    def prepare(self, key) -> Key:
         """Capture ``key``'s graph (on the CPU, or with graphs off, only
         record the key). The staged inputs and the generator's state are
-        as they were before."""
+        as they were before. Returns the key."""
+        key = Key(*key)
         if key in self.graphs:
-            return
+            return key
         if self.warm:
             self.late.append(key)
-        kind, B, T, MP, greedy = key
-        flat = self._buffer((B, T, MP))
+        flat = self._buffer(key.in_shape)
         if not self.use_graphs:
             self.graphs[key] = None
-            return
+            return key
         saved = flat.clone()
 
         def warm_up():
             # Every length 0 and every table NULL: the writers write
             # nothing.
             flat.zero_()
-            self._body(kind, B, T, MP, greedy)
+            self._body(key)
             flat.copy_(saved)
-        self.graphs[key] = capture(
-            warm_up, lambda: self._body(kind, B, T, MP, greedy), self.pool,
-            self.generator, greedy)
+        self.graphs[key] = capture(warm_up, lambda: self._body(key),
+                                   self.pool, self.generator, key.greedy)
+        return key
 
-    def launch(self, key: Key, seeded: Optional[Seeded] = None
-               ) -> Tuple[List[int], List[float], int]:
+    def launch(self, key, want_top: bool = False) -> Result:
         """Run ``key``'s step from the staged inputs (a graph replay, or
-        the body eagerly where graphs are off or rows are seeded) and
-        read it back: the [B] tokens, their logprobs, the MoE drops."""
-        self.prepare(key)
+        the body eagerly where graphs are off) and read it back.
+        ``want_top``: read the top logprobs too."""
+        key = self.prepare(key)
         g = self.graphs[key]
-        if g is None or seeded is not None:
-            self.eager_steps[key[0]][
-                "seeded" if g is not None else
+        if g is None:
+            self.eager_steps[key.kind][
                 "graphs_off" if self.device.type == "cuda" else "cpu"] += 1
-            tokens, logprobs, dropped = self._body(*key, seeded=seeded)
+            outs = self._body(key)
         else:
             g.graph.replay()
             count_replay(g.tally)
             g.replays += 1
-            tokens, logprobs, dropped = g.tokens, g.logprobs, g.dropped
-        if not self._host:
-            return (tokens.tolist(), logprobs.tolist(),
-                    int(dropped[0]) if dropped is not None else 0)
-        B = key[1]
-        host_tok, host_lp, host_drop = self._host
-        host_tok[:B].copy_(tokens, non_blocking=True)
-        host_lp[:B].copy_(logprobs, non_blocking=True)
-        if dropped is not None:
-            host_drop.copy_(dropped, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        event.synchronize()
-        return (host_tok[:B].tolist(), host_lp[:B].tolist(),
-                int(host_drop[0]) if dropped is not None else 0)
+            outs = g.outs
+        B = key.B
+        if self._host:
+            host_tok, host_lp, host_drop = self._host
+            host_tok[:B].copy_(outs.tokens, non_blocking=True)
+            host_lp[:B].copy_(outs.logprobs, non_blocking=True)
+            if outs.dropped is not None:
+                host_drop.copy_(outs.dropped, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            event.synchronize()
+            toks, lps, drop = host_tok[:B], host_lp[:B], host_drop
+        else:
+            toks, lps, drop = outs.tokens, outs.logprobs, outs.dropped
+        tops = None
+        if want_top and outs.top_ids is not None:
+            tops = top_rows(outs.top_ids.tolist(), outs.top_lps.tolist())
+        return Result(toks.tolist(), lps.tolist(),
+                      int(drop[0]) if outs.dropped is not None else 0,
+                      tops,
+                      outs.prompt_lps.tolist() if key.plp else None)
 
     def programs(self) -> Dict[str, Dict[str, object]]:
         """Per program (``prefill``, ``ragged``): the graphs by key with
         their replays, the captures after warmup and the eager steps by
         reason."""
         def name(k: Key) -> str:
-            return (f"b{k[1]}_t{k[2]}_mp{k[3]}_"
-                    f"{'greedy' if k[4] else 'sampled'}")
+            return (f"b{k.B}_t{k.T}_mp{k.MP}_"
+                    f"{variant(k.greedy, k.seeded, False, k.bias_k)}"
+                    + ("_echo" if k.plp else ""))
         return program_census(list(self.graphs.items()), KINDS,
-                              lambda k: k[0], name, list(self.late),
+                              lambda k: k.kind, name, list(self.late),
                               self.eager_steps)
 
 
@@ -269,4 +344,5 @@ def ladder(batch_pows: Sequence[int], buckets: Sequence[int], budget: int,
     return shapes
 
 
-__all__ = ["KINDS", "PrefillGraphs", "ladder", "layout", "pack"]
+__all__ = ["KINDS", "Key", "PrefillGraphs", "Result", "ladder", "layout",
+           "pack"]

@@ -37,6 +37,17 @@ One engine-loop thread owns the device and runs ``Engine.step()``; HTTP
 handler threads queue requests to it under the engine lock and read
 their outputs from a per-request queue.
 
+Every OpenAI sampling option is served as the JAX worker serves it:
+``n`` choices (and ``best_of`` candidates, the ``n`` with the highest
+mean token logprob kept by the non-streamed response) run as engine
+requests ``<id>#k``, a seeded request's choice k with seed + k;
+``echo`` prepends the prompt, and with ``logprobs`` its scores, computed
+once by choice 0's prefill (the other choices' deltas are held until
+they land); ``logprobs`` / ``top_logprobs`` (cut to the request's count,
+at most ``EngineConfig.num_top_logprobs``), ``logit_bias`` (an id past
+the vocabulary is a 400), the presence and frequency penalties and the
+per-request ``seed`` are applied by the engine inside its steps.
+
 A request body may mark the request ``offline`` (batch tier: queued
 behind online requests, preempted first). The master's ``kv_fetch``
 routing plan (pull the leading blocks from another worker) is not
@@ -46,10 +57,7 @@ own path when a fetch fails.
 Not in this package yet: etcd stores, profiling data in the
 registration, draining, spans and step-trace tails on the heartbeat,
 failpoints, sleep/wakeup and role flips, ``/admin/*``, PD/EPD traffic,
-the relay's per-frame token ledger, and the sampling options the engine
-lacks (``n``/``best_of`` > 1, ``echo``, ``top_logprobs``,
-``logit_bias``, presence/frequency penalties), which are refused with a
-400 rather than ignored.
+and the relay's per-frame token ledger.
 
 Run: ``python -m xllm_service_tpu_torch.runtime.worker --model llama3-1b``
 (add ``--store-addr`` and ``--service-addr`` to join a cluster).
@@ -199,15 +207,54 @@ class _EngineDied:
         self.message = message
 
 
+def _merge_step_outputs(outs: List[StepOutput]) -> StepOutput:
+    """Held-back deltas of one choice (in arrival order) as one
+    StepOutput; the last one supplies the finish state."""
+    last = outs[-1]
+    merged = StepOutput(
+        request_id=last.request_id,
+        new_token_ids=[t for o in outs for t in o.new_token_ids],
+        logprobs=[lp for o in outs for lp in o.logprobs],
+        finish_reason=last.finish_reason,
+        num_prompt_tokens=last.num_prompt_tokens,
+        num_generated=last.num_generated)
+    if any(o.top_logprobs for o in outs):
+        merged.top_logprobs = [row for o in outs
+                               for row in (o.top_logprobs or [])]
+    return merged
+
+
+class _Choice:
+    """Streaming state of one choice (an ``n`` / ``best_of``
+    candidate)."""
+
+    __slots__ = ("decoder", "stopper", "completion_tokens", "finished",
+                 "cum_logprob", "echo_done", "pending")
+
+    def __init__(self, decoder: IncrementalDecoder,
+                 stops: Optional[List[str]]) -> None:
+        self.decoder = decoder
+        self.stopper = _StopWatcher(stops)
+        self.completion_tokens = 0
+        self.finished = False
+        self.cum_logprob = 0.0
+        self.echo_done = False
+        # Echo with logprobs over several choices: deltas held until
+        # choice 0's prompt scores arrive.
+        self.pending: List[StepOutput] = []
+
+
 class _LiveRequest:
-    """Host-side streaming state of one in-flight request.
-    ``stream_to_service``: its outputs are pushed to the service's RPC
-    fan-in by the engine loop instead of queued for an HTTP reply."""
+    """Host-side streaming state of one in-flight request, all its
+    choices (engine request ids ``<id>`` for n = 1, ``<id>#k``
+    otherwise). ``stream_to_service``: its outputs are pushed to the
+    service's RPC fan-in by the engine loop instead of queued for an
+    HTTP reply."""
 
     def __init__(self, req: EngineRequest, tokenizer: Tokenizer, model: str,
                  is_chat: bool, stream: bool, include_usage: bool,
                  sampling: SamplingParams,
-                 stream_to_service: bool = False) -> None:
+                 stream_to_service: bool = False, n: int = 1) -> None:
         self.req = req
         self.stream_to_service = stream_to_service
         self.q: "queue.Queue[Any]" = queue.Queue()
@@ -217,25 +264,48 @@ class _LiveRequest:
         self.stream = stream
         self.include_usage = include_usage
         self.sampling = sampling
-        self.decoder = IncrementalDecoder(tokenizer)
-        self.stopper = _StopWatcher(sampling.stop)
-        self.completion_tokens = 0
-        self.finished = False
+        n = max(1, n)
+        self.engine_rids = ([req.request_id] if n == 1 else
+                            [f"{req.request_id}#{k}" for k in range(n)])
+        self.choices = [_Choice(IncrementalDecoder(tokenizer),
+                                sampling.stop) for _ in range(n)]
+        # best_of: the choices above are the candidates; target_n of
+        # them survive the non-streamed response's selection.
+        self.target_n = n
+        # Echo with logprobs: the prompt tokens' scores, computed once
+        # (choice 0) and shared by every choice's echo.
+        self.prompt_lps: Optional[List[Optional[float]]] = None
+        self._echo_cache: Optional[Tuple[str, List[LogProb]]] = None
 
     @property
     def request_id(self) -> str:
         return self.req.request_id
 
+    @property
+    def finished(self) -> bool:
+        return all(c.finished for c in self.choices)
 
-_UNSUPPORTED = (
-    ("n", lambda sp: sp.n > 1),
-    ("best_of", lambda sp: (sp.best_of or 1) > 1),
-    ("echo", lambda sp: sp.echo),
-    ("top_logprobs", lambda sp: sp.top_logprobs > 0),
-    ("logit_bias", lambda sp: bool(sp.logit_bias)),
-    ("presence_penalty", lambda sp: sp.presence_penalty != 0.0),
-    ("frequency_penalty", lambda sp: sp.frequency_penalty != 0.0),
-)
+    def choice_index(self, engine_rid: str) -> int:
+        if len(self.choices) == 1:
+            return 0
+        try:
+            return int(engine_rid.rsplit("#", 1)[1])
+        except (IndexError, ValueError):
+            return 0
+
+    def echo_prefix(self) -> Tuple[str, List[LogProb]]:
+        """(prompt text, prompt LogProbs) of the echo, decoded once for
+        every choice."""
+        if self._echo_cache is None:
+            text = self.tokenizer.decode(list(self.req.token_ids))
+            lps = []
+            if self.sampling.logprobs and self.prompt_lps:
+                for tid, plp in zip(self.req.token_ids, self.prompt_lps):
+                    lps.append(LogProb(
+                        token=self.tokenizer.decode([tid]), token_id=tid,
+                        logprob=plp, top_logprobs=[]))
+            self._echo_cache = (text, lps)
+        return self._echo_cache
 
 
 MODEL_AWAKE = "awake"
@@ -277,7 +347,8 @@ class Worker:
             secs = self.warmup()
             logger.info("warmup: %.1f s, %s", secs,
                         self.engine.compile_report())
-        self._live: Dict[str, _LiveRequest] = {}
+        self._live: Dict[str, _LiveRequest] = {}        # engine rid
+        self._live_srid: Dict[str, _LiveRequest] = {}   # request id
         self._live_lock = threading.Lock()
         self._engine_lock = threading.Lock()
         self._work = threading.Event()
@@ -777,19 +848,22 @@ class Worker:
             for out in outs:
                 with self._live_lock:
                     live = self._live.get(out.request_id)
-                    if live is not None and out.finished:
-                        self._live.pop(out.request_id, None)
                 if live is None:
                     continue
                 if not live.stream_to_service:
                     live.q.put(out)
+                    if out.finished:
+                        self._drop_live(out.request_id)
                     continue
-                ro = self._to_request_output(live, out)
-                if ro is not None:
-                    to_service.append(ro)
+                to_service.extend(self._process_step_output(live, out))
+                if out.finished or live.choices[
+                        live.choice_index(out.request_id)].finished:
+                    self._drop_live(out.request_id)
                 if live.finished:
+                    # A flush may have finished choices whose engine ids
+                    # were dropped already.
                     with self._live_lock:
-                        self._live.pop(live.request_id, None)
+                        self._live_srid.pop(live.request_id, None)
             self._push_outputs_to_service(to_service)
 
     def _push_outputs_to_service(self, outs: List[RequestOutput]) -> None:
@@ -810,11 +884,18 @@ class Worker:
             # timeout ends a request whose outputs were lost
             logger.warning("generations push failed: %s", e)
 
+    def _drop_live(self, engine_rid: str) -> None:
+        with self._live_lock:
+            live = self._live.pop(engine_rid, None)
+            if live is not None and live.finished:
+                self._live_srid.pop(live.request_id, None)
+
     def _end_lives(self, message: str) -> None:
         """End every live request: a relayed one gets an error in its
         reply, a pushed one a finished output with an INTERNAL status."""
         with self._live_lock:
-            lives, self._live = list(self._live.values()), {}
+            lives = list(self._live_srid.values())
+            self._live, self._live_srid = {}, {}
         to_service = []
         for live in lives:
             if live.stream_to_service:
@@ -861,91 +942,201 @@ class Worker:
             validate_sampling(sampling, stream)
         except (TypeError, ValueError) as e:
             raise HttpError(400, str(e)) from e
-        for name, used in _UNSUPPORTED:
-            if used(sampling):
-                raise HttpError(400, f"{name} is not supported by this "
-                                     f"worker yet")
+        if sampling.logit_bias:
+            # Only the worker knows the vocabulary: an id past it is
+            # refused, not silently ignored (JAX worker :2024-2033).
+            V = self.model_cfg.vocab_size
+            bad = [t for t in sampling.logit_bias if t >= V]
+            if bad:
+                raise HttpError(400, f"logit_bias token ids out of vocab "
+                                     f"range (< {V}): {bad[:5]}")
+        # best_of: the larger candidate pool runs; the response keeps
+        # target_n of them (ResponseCollector).
+        n = max(1, sampling.n, sampling.best_of or 0)
         req = EngineRequest(request_id=rid, token_ids=list(token_ids),
                             sampling=sampling,
                             offline=bool(body.get("offline", False)),
-                            eos_token_ids=self.tokenizer.eos_token_ids)
+                            eos_token_ids=self.tokenizer.eos_token_ids,
+                            prompt_logprobs=(sampling.echo
+                                             and sampling.logprobs
+                                             and not is_chat))
         live = _LiveRequest(
             req, self.tokenizer, model, is_chat, stream,
             bool((body.get("stream_options") or {}).get("include_usage")),
             sampling,
             stream_to_service=self._decode_to_service
-            and bool(self.service_addr))
+            and bool(self.service_addr), n=n)
+        live.target_n = max(1, sampling.n)
         with self._engine_lock:
+            added: List[str] = []
             try:
-                self.engine.add_request(req)
+                for k, erid in enumerate(live.engine_rids):
+                    creq = req
+                    if n > 1:
+                        # Distinct choices: a seeded request's choice k
+                        # draws from seed + k; prompt scores are the same
+                        # for every choice, so choice 0 computes them.
+                        creq = dataclasses.replace(
+                            req, request_id=erid,
+                            token_ids=list(token_ids),
+                            sampling=dataclasses.replace(
+                                sampling, seed=(sampling.seed + k
+                                                if sampling.seed is not None
+                                                else None)),
+                            prompt_logprobs=req.prompt_logprobs and k == 0)
+                    self.engine.add_request(creq)
+                    added.append(erid)
             except ValueError as e:
+                for erid in added:
+                    self.engine.cancel(erid)
                 raise HttpError(400, str(e)) from e
             with self._live_lock:
-                self._live[rid] = live
+                self._live_srid[rid] = live
+                for erid in live.engine_rids:
+                    self._live[erid] = live
         self._work.set()
         return live
 
+    def _process_step_output(self, live: _LiveRequest,
+                             out: StepOutput) -> List[RequestOutput]:
+        """One engine StepOutput as wire RequestOutputs (JAX worker
+        :1735-1790): usually 0 or 1; more when its arrival releases other
+        choices. Under echo with logprobs the prompt scores ride choice
+        0's first output, and every other choice's deltas are held until
+        they land (their logprob arrays lead with the prompt's). Choice 0
+        finishing without them (cancelled before its prefill scored the
+        prompt) releases the held choices with empty scores."""
+        need_plp = (live.sampling.echo and live.sampling.logprobs
+                    and not live.is_chat)
+        arrived = out.prompt_logprobs is not None and live.prompt_lps is None
+        source_died = (need_plp and live.prompt_lps is None
+                       and out.prompt_logprobs is None
+                       and live.choice_index(out.request_id) == 0
+                       and out.finish_reason != FinishReason.NONE)
+        if arrived or source_died:
+            live.prompt_lps = out.prompt_logprobs if arrived else []
+            ros: List[RequestOutput] = []
+            ro = self._to_request_output(live, out)
+            if ro is not None:
+                ros.append(ro)
+            for other in live.choices:
+                if other.pending:
+                    pend, other.pending = other.pending, []
+                    ro = self._to_request_output(
+                        live, _merge_step_outputs(pend))
+                    if ro is not None:
+                        ros.append(ro)
+            return ros
+        ch = live.choices[live.choice_index(out.request_id)]
+        if need_plp and not ch.echo_done and not ch.finished \
+                and live.prompt_lps is None:
+            ch.pending.append(out)
+            return []
+        if ch.pending:
+            pend, ch.pending = ch.pending, []
+            out = _merge_step_outputs(pend + [out])
+        ro = self._to_request_output(live, out)
+        return [ro] if ro is not None else []
+
     def _to_request_output(self, live: _LiveRequest,
                            out: StepOutput) -> Optional[RequestOutput]:
-        """One engine StepOutput as the wire RequestOutput: incremental
-        detokenization, stop strings (the engine request is cancelled
-        once one fires) and chosen-token logprobs. None once the request
-        has finished."""
-        if live.finished:
+        """One engine StepOutput of one choice as the wire RequestOutput:
+        incremental detokenization, stop strings (the choice's engine
+        request is cancelled once one fires), the echo, chosen-token and
+        top logprobs, the mean logprob on the finish delta (the
+        ``best_of`` ranking key) and usage once every choice finished.
+        None once the choice has finished."""
+        idx = live.choice_index(out.request_id)
+        ch = live.choices[idx]
+        if ch.finished:
             return None
         finish = out.finish_reason
-        text = live.decoder.feed(out.new_token_ids)
+        text = ch.decoder.feed(out.new_token_ids)
         if finish != FinishReason.NONE:
-            text += live.decoder.flush()
-        if live.stopper.stops:
-            text = live.stopper.feed(text)
-            if live.stopper.stopped:
+            text += ch.decoder.flush()
+        if ch.stopper.stops:
+            text = ch.stopper.feed(text)
+            if ch.stopper.stopped:
                 finish = FinishReason.STOP
-                self._cancel(live)
+                self._cancel([out.request_id])
             elif finish != FinishReason.NONE:
-                text += live.stopper.flush()
-        live.completion_tokens += len(out.new_token_ids)
-        logprobs: List[LogProb] = []
+                text += ch.stopper.flush()
+        ch.completion_tokens += len(out.new_token_ids)
+        ch.cum_logprob += sum(out.logprobs)
+        echo_lps: List[LogProb] = []
+        if live.sampling.echo and not ch.echo_done:
+            # The first delta of each choice leads with the prompt: its
+            # text and, with logprobs, its scores (the first null).
+            ch.echo_done = True
+            prefix_text, echo_lps = live.echo_prefix()
+            text = prefix_text + text
+        logprobs = list(echo_lps)
         if live.sampling.logprobs:
-            logprobs = [LogProb(token=live.tokenizer.decode([tid]),
-                                token_id=tid, logprob=lp, top_logprobs=[])
-                        for tid, lp in zip(out.new_token_ids, out.logprobs)]
-        live.finished = finish != FinishReason.NONE
-        seq = SequenceOutput(index=0, text=text,
-                             token_ids=list(out.new_token_ids),
-                             finish_reason=finish, logprobs=logprobs)
+            for j, tid in enumerate(out.new_token_ids):
+                top = []
+                if out.top_logprobs and live.sampling.top_logprobs > 0:
+                    top = [{"token": live.tokenizer.decode([e["token_id"]]),
+                            "token_id": e["token_id"],
+                            "logprob": e["logprob"]}
+                           for e in out.top_logprobs[j]
+                           [:live.sampling.top_logprobs]]
+                logprobs.append(LogProb(
+                    token=live.tokenizer.decode([tid]), token_id=tid,
+                    logprob=out.logprobs[j] if j < len(out.logprobs)
+                    else 0.0,
+                    top_logprobs=top))
+        if finish != FinishReason.NONE:
+            ch.finished = True
+        seq = SequenceOutput(
+            index=idx, text=text, token_ids=list(out.new_token_ids),
+            finish_reason=finish, logprobs=logprobs,
+            # A cancelled or empty choice ranks last (None), below every
+            # real choice's negative mean.
+            mean_logprob=(ch.cum_logprob / ch.completion_tokens
+                          if finish not in (FinishReason.NONE,
+                                            FinishReason.CANCELLED)
+                          and ch.completion_tokens > 0 else None))
         usage = None
         if live.finished:
             usage = Usage(prompt_tokens=len(live.req.token_ids),
-                          completion_tokens=live.completion_tokens)
+                          completion_tokens=sum(c.completion_tokens
+                                                for c in live.choices))
         return RequestOutput(
             request_id=live.request_id, service_request_id=live.request_id,
             outputs=[seq], usage=usage, finished=live.finished,
             cancelled=finish == FinishReason.CANCELLED)
 
-    def _cancel(self, live: _LiveRequest) -> None:
+    def _cancel(self, engine_rids: List[str]) -> None:
         with self._engine_lock:
-            self.engine.cancel(live.request_id)
+            for erid in engine_rids:
+                self.engine.cancel(erid)
         self._work.set()
 
     def cancel_request(self, service_request_id: str) -> bool:
-        """``POST /cancel`` (JAX worker :2542-2561): cancel a live request
-        in the engine; its stream ends with finish reason ``cancelled``.
-        False when no such request is in flight."""
+        """``POST /cancel`` (JAX worker :2542-2561): cancel every engine
+        request of a live request; each choice's stream ends with finish
+        reason ``cancelled``. False when no such request is in flight."""
         with self._live_lock:
-            live = self._live.get(service_request_id)
+            live = (self._live_srid.get(service_request_id)
+                    or self._live.get(service_request_id))
         if live is None:
             return False
-        self._cancel(live)
+        self._cancel(live.engine_rids)
         return True
 
     def _finalize(self, live: _LiveRequest) -> None:
         """Consumer-side cleanup: unfinished engine work whose consumer
         is gone (client disconnect, timeout) is cancelled."""
         with self._live_lock:
-            self._live.pop(live.request_id, None)
-        if not live.finished:
-            self._cancel(live)
+            self._live_srid.pop(live.request_id, None)
+            for erid in live.engine_rids:
+                if self._live.get(erid) is live:
+                    self._live.pop(erid, None)
+        unfinished = [erid for erid, ch in zip(live.engine_rids,
+                                               live.choices)
+                      if not ch.finished]
+        if unfinished:
+            self._cancel(unfinished)
 
     def _next_output(self, live: _LiveRequest) -> StepOutput:
         try:
@@ -972,18 +1163,18 @@ class Worker:
                                                "type": e.err_type,
                                                "code": e.status}})
                     return
-                ro = self._to_request_output(live, out)
-                if ro is not None:
+                for ro in self._process_step_output(live, out):
                     yield from asm.on_output(ro)
         finally:
             self._finalize(live)
 
     def collect_full(self, live: _LiveRequest) -> Dict[str, Any]:
-        coll = ResponseCollector(live.request_id, live.model, live.is_chat)
+        coll = ResponseCollector(live.request_id, live.model, live.is_chat,
+                                 target_n=live.target_n)
         try:
             while not live.finished:
-                ro = self._to_request_output(live, self._next_output(live))
-                if ro is not None:
+                for ro in self._process_step_output(
+                        live, self._next_output(live)):
                     coll.add(ro)
         finally:
             self._finalize(live)

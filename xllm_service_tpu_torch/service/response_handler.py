@@ -207,17 +207,26 @@ class CompletionStreamAssembler:
 
 class ResponseCollector:
     """Aggregates streamed RequestOutputs into one non-stream OpenAI body
-    (choices, logprobs, usage)."""
+    (all ``n`` choices, logprobs, usage).
 
-    def __init__(self, request_id: str, model: str, is_chat: bool) -> None:
+    ``target_n``: server-side ``best_of`` selection. When more candidate
+    choices were generated than requested, the ``target_n`` with the
+    highest mean token logprob (the finish delta's ``mean_logprob``;
+    a candidate without one ranks last) are kept, renumbered 0 ..
+    target_n - 1. Usage still counts every candidate's tokens."""
+
+    def __init__(self, request_id: str, model: str, is_chat: bool,
+                 target_n: Optional[int] = None) -> None:
         self.request_id = request_id
         self.model = model
         self.is_chat = is_chat
+        self.target_n = target_n
         self.usage = Usage()
         self._texts: Dict[int, List[str]] = {}
         self._finish: Dict[int, FinishReason] = {}
         self._chat_lps: Dict[int, List[LogProb]] = {}
         self._cmpl_lps: Dict[int, _CompletionLogprobs] = {}
+        self._mean_lp: Dict[int, float] = {}
 
     def add(self, out: RequestOutput) -> None:
         if out.usage:
@@ -226,6 +235,8 @@ class ResponseCollector:
             self._texts.setdefault(seq.index, []).append(seq.text)
             if seq.finish_reason != FinishReason.NONE:
                 self._finish[seq.index] = seq.finish_reason
+            if seq.mean_logprob is not None:
+                self._mean_lp[seq.index] = seq.mean_logprob
             if seq.logprobs:
                 if self.is_chat:
                     self._chat_lps.setdefault(seq.index, []).extend(
@@ -235,13 +246,19 @@ class ResponseCollector:
                         seq.index, _CompletionLogprobs()).add(seq.logprobs)
 
     def body(self) -> Dict[str, Any]:
+        indices = sorted(self._texts) or [0]
+        if self.target_n is not None and len(indices) > self.target_n:
+            indices = sorted(
+                indices,
+                key=lambda i: self._mean_lp.get(i, float("-inf")),
+                reverse=True)[:self.target_n]
         choices = []
-        for i in sorted(self._texts) or [0]:
+        for rank, i in enumerate(indices):
             text = "".join(self._texts.get(i, []))
             finish = self._finish.get(i, FinishReason.STOP)
             if self.is_chat:
                 choice: Dict[str, Any] = {
-                    "index": i,
+                    "index": rank,
                     "message": {"role": "assistant", "content": text},
                     "finish_reason": finish.openai or "stop",
                 }
@@ -249,7 +266,7 @@ class ResponseCollector:
                 choice["logprobs"] = _chat_logprobs_json(lps or [])
             else:
                 choice = {
-                    "index": i,
+                    "index": rank,
                     "text": text,
                     "logprobs": (self._cmpl_lps[i].to_json()
                                  if i in self._cmpl_lps else None),

@@ -107,9 +107,9 @@ class SequenceOutput:
     token_ids: List[int] = dataclasses.field(default_factory=list)
     finish_reason: FinishReason = FinishReason.NONE
     logprobs: List[LogProb] = dataclasses.field(default_factory=list)
-    # Mean token logprob of the whole choice (the service's ``best_of``
-    # ranking key); this worker serves n = best_of = 1 and leaves it
-    # unset.
+    # Mean token logprob of the whole choice, attached on its finish
+    # delta: the server-side ``best_of`` ranking key (computed whether
+    # or not the client asked for logprobs).
     mean_logprob: Optional[float] = None
 
     def to_json(self) -> Dict[str, Any]:
