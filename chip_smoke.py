@@ -248,13 +248,38 @@ Phases (any failure raises and the exit code is not 0):
    echo keys, a prefill forward is one host launch and the mix's
    launches per step hold; it prints the three rounds' decode step
    medians.
-9. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
+9. Faults and the flight recorder (``fault_phase``, ``[faults]``,
+   ``[steptrace]``): a llama3-1b worker with phase 5's flags serves
+   eight greedy 32-token streams fault-free (launches checked per
+   step), then again with a request seeded past int32 arriving while
+   they decode (9a: its prefill packing raises), then seven of them with
+   an eighth arriving while ``worker.fault_step`` is armed (count:1,
+   ``POST /admin/failpoint``) during a decode graph's replay, so that
+   the same step's prefill section faults after the decode section
+   completed (9b), and once more with the failpoint armed while eight
+   decode and nothing is queued, so that a decode section faults and is
+   bisected in probe steps. Each faulted request must get the typed
+   ``engine_fault`` with a ``culprit`` verdict; the other streams must
+   finish with 32 tokens, equal to the fault-free round or drift under
+   the margins rule; ``xllm_engine_faults_total{outcome="culprit"}``
+   reads 1, 2, then 3; 9b's salvaged outputs reach their streams; the
+   engine loop lives; no step runs eagerly and nothing is captured
+   after warmup. Printed: each faulted step's ms, probes and salvaged
+   outputs, and each survivor's extra wait. 9c reads ``/admin/steptrace``:
+   median MFU, debt and bound per step kind, the roofline rows and the
+   peaks beside the card (the ``h100`` row on an H100); each ``decode``
+   key holds 2 x B x (non-embedding parameters + LM head) FLOPs plus at
+   most its attention share; then the greedy round four times, recorder
+   off and on alternately: the decode step medians and the recorder's
+   host microseconds a step.
+10. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
    writers' launches from phase 5 (K1/K2 now 0), K5 from 5b, K6 (now 0),
    K7, K3', K4' and the dense all-layer mode from 5c, K3'' and the fused
    latent writers from 5d, the current form of K3'' and the latent
    all-layer mode from 5e; a record at another shape takes its kernel's
    count; phases 5f/5g and the graph checks go to the ``[summary]``
-   line; phases 7, 7b and 6b too), the card line, then the last line
+   line; phases 7, 7b, 6b and 9 too, and ``phase_end_s``, the script's
+   clock at the end of each phase), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without printing a result when no CUDA device is
@@ -4433,6 +4458,394 @@ def sampling_phase(torch, kernels, card: str, err: float) -> dict:
     return out
 
 
+# Phase 9's model and device (a CPU rehearsal rewrites them: "tiny",
+# "cpu"), and the prompt lengths of its eight greedy streams.
+FAULT_MODEL, FAULT_DEVICE = "llama3-1b", "cuda"
+FAULT_SIZES = (120, 200, 160, 260, 140, 230, 180, 110)
+
+
+def _stream_tokens_and_times(result):
+    """(token ids, arrival seconds of each, error frame or None) of one
+    streamed completion served with ``ledger_tokens`` (every frame
+    carries its token ids)."""
+    ids, times, error = [], [], None
+    for frame, t in zip(result.get("frames", []), result.get("times", [])):
+        if not frame.startswith("data: ") or frame == "data: [DONE]":
+            continue
+        obj = json.loads(frame[len("data: "):])
+        if "error" in obj:
+            error = obj["error"]
+            continue
+        new = (obj.get("xllm") or {}).get("token_ids") or []
+        ids += new
+        times += [t] * len(new)
+    return ids, times, error
+
+
+def fault_phase(torch, kernels, card: str, err: float) -> dict:
+    """Phase 9: the step fault boundary and the flight recorder on the
+    card, on one llama3-1b worker with phase 5's flags (write-then-
+    attend, graphs on, single decode steps).
+
+    A fault-free round first: the eight greedy streams of
+    ``FAULT_SIZES`` (32 tokens each, streamed with ``ledger_tokens`` so
+    every frame carries its token ids), launch counts checked per step.
+
+    9a: the same eight streams; once all eight decode, a request seeded
+    past int32 (``seed: 2**31``) arrives; it is admitted when the first
+    stream finishes, and its prefill packing raises OverflowError. It
+    must get the typed ``engine_fault`` with a ``culprit`` verdict, the
+    eight streams must finish with 32 tokens each, equal to the
+    fault-free round or diverging as drift (``divergence_margins``), the
+    culprit counter read 1 and the engine loop stay alive.
+
+    9b: seven of the streams decode; an eighth arrives; while the decode
+    step's graph replays, ``worker.fault_step`` is armed with count:1
+    through ``POST /admin/failpoint``, so that the prefill section of
+    the same step faults after the decode section completed: the eighth
+    request is the culprit, and the decode section's salvaged outputs
+    must reach their seven streams (32 tokens each, equal or drift); the
+    culprit counter reads 2. Then the eight streams once more, with the
+    failpoint armed while they decode and nothing is queued: it trips in
+    a decode section of eight members, which the worker bisects in probe
+    steps (isolating halves, each re-prefilled), blaming one stream by
+    elimination; the seven others finish (equal or drift), the counter
+    reads 3 and at least one probe ran.
+
+    In both: no eager step and no capture after warmup (every probe,
+    re-prefill and resumed decode replays a warmup graph). Printed: the
+    faulted step's ms, the probes, the salvaged outputs, and each
+    survivor's extra wait from re-prefill (its longest gap between
+    tokens against its median gap in the fault-free round).
+
+    9c: ``/admin/steptrace``: the median MFU and debt per step kind and
+    the bound verdicts, the roofline rows and the peaks beside the card;
+    llama3-1b's ``decode`` keys hold 2 x B x (non-embedding parameters +
+    LM head) FLOPs plus at most their attention share; then the greedy
+    round four times with the recorder off and on alternately: the
+    decode step median of each setting and the recorder's host
+    microseconds a step."""
+    from xllm_service_tpu_torch.config import EngineConfig
+    from xllm_service_tpu_torch.runtime import worker
+    env = {"XLLM_RAGGED_ATTN": "0", "XLLM_WRITE_THEN_ATTEND": "1",
+           "XLLM_CUDA_GRAPHS": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        ecfg = EngineConfig(page_size=128, num_pages=512,
+                            max_model_len=1024, max_batch_size=8,
+                            max_prefill_tokens=256,
+                            prefill_buckets=(128, 256, 512))
+        w = worker.Worker(worker.WorkerOptions(model=FAULT_MODEL,
+                                               device=FAULT_DEVICE,
+                                               warmup=True),
+                          engine_cfg=ecfg).start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+    eng = w.engine
+    steplog = StepLog(eng, kernels)
+    rng = random.Random(9)
+    prompts = {n: _token_ids(w.tokenizer, rng, n) for n in FAULT_SIZES}
+    probes = [0]
+    isolate = eng.isolate
+
+    def counted_isolate(keep):
+        probes[0] += 1
+        return isolate(keep)
+    eng.isolate = counted_isolate
+    faults = []
+    contain = w._contain_engine_fault
+
+    def noted_contain(exc, step_ms):
+        probes[0] = 0
+        salvaged = [o.request_id for o in eng.last_step_partial_outs]
+        members = list(eng.step_members)
+        ok = contain(exc, step_ms)
+        faults.append({"error": f"{type(exc).__name__}: {exc}",
+                       "step_ms": step_ms, "members": members,
+                       "salvaged_outputs": len(salvaged),
+                       "probes": probes[0], "contained": ok})
+        return ok
+    w._contain_engine_fault = noted_contain
+    arm = {"pending": False, "status": None}
+    launch = eng.graphs.launch
+
+    def arming_launch(key, want_top=False):
+        out = launch(key, want_top)
+        # The decode graph is replaying: arm the injected fault now, so
+        # that the next section of this step, a prefill, trips it.
+        if arm["pending"] and eng.waiting and eng._free_slot() >= 0:
+            arm["pending"] = False
+            armed = {}
+            _request(w.name, "/admin/failpoint", {
+                "name": "worker.fault_step", "mode": "count", "n": 1},
+                False, armed)
+            arm["status"] = armed["status"]
+        return out
+    eng.graphs.launch = arming_launch
+
+    def body(rid, n, **kw):
+        return {"prompt": w.tokenizer.decode(prompts[n]),
+                "token_ids": prompts[n], "max_tokens": 32,
+                "ignore_eos": True, "temperature": 0.0, "stream": True,
+                "ledger_tokens": True, "service_request_id": rid, **kw}
+
+    def start(reqs):
+        results = [{} for _ in reqs]
+        threads = [threading.Thread(target=_request,
+                                    args=(w.name, CMPL, b, True, r))
+                   for b, r in zip(reqs, results)]
+        for t in threads:
+            t.start()
+        return threads, results
+
+    def join(threads):
+        for t in threads:
+            t.join(timeout=900)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a phase 9 request hung")
+
+    def by_size(sizes, results):
+        out = {}
+        for n, r in zip(sizes, results):
+            ids, times, error = _stream_tokens_and_times(r)
+            out[n] = {"tokens": ids, "times": times, "error": error,
+                      "status": r.get("status")}
+        return out
+
+    def wait_running(k):
+        wait_for(lambda: len(eng.running) >= k and not eng.waiting, 300,
+                 f"{k} running streams")
+
+    def gaps(times):
+        return [b - a for a, b in zip(times, times[1:])]
+
+    def metric(name, **labels):
+        for line in w.metrics_text().splitlines():
+            if line.startswith(name + "{") and all(
+                    f'{k}="{v}"' in line for k, v in labels.items()):
+                return float(line.split()[-1])
+        return 0.0
+
+    def survivors(tag, got, ref, sizes):
+        """Each survivor's 32 tokens against the fault-free round, and
+        its longest gap against that round's median gap."""
+        out, pairs_ref, pairs_got = [], {}, {}
+        for n in sizes:
+            g = got[n]
+            if g["error"] is not None or g["status"] != 200 or \
+                    len(g["tokens"]) != 32:
+                raise AssertionError(f"{tag}: survivor {n}: {g['error']}, "
+                                     f"{len(g['tokens'])} tokens")
+            pairs_ref[n], pairs_got[n] = ref[n]["tokens"], g["tokens"]
+            out.append({"prompt_tokens": n,
+                        "equal": g["tokens"] == ref[n]["tokens"],
+                        "extra_wait_ms": 1e3 * (
+                            max(gaps(g["times"]), default=0.0)
+                            - (_median(gaps(ref[n]["times"])) or 0.0))})
+        path = {"ragged": False, "write_then_attend": True}
+        margins = divergence_margins(
+            torch, eng, [(tag, pairs_ref, path, pairs_got, path, prompts)],
+            err)
+        if any(m["verdict"] == "fault" for m in margins):
+            raise AssertionError(f"{tag}: survivors diverge past the "
+                                 f"margin rule: {margins}")
+        return out, margins
+
+    try:
+        # The fault-free round, its launches checked per step.
+        steplog.clear()
+        kernels.reset_launch_counts()
+        threads, results = start([body(f"ref{n}", n) for n in FAULT_SIZES])
+        join(threads)
+        torch.cuda.synchronize()
+        need = check_step_launches(steplog.rows, kernels.launch_counts(),
+                                   eng.cfg.num_layers, False, True, False)
+        ref = by_size(FAULT_SIZES, results)
+
+        # 9a. The seeded request.
+        threads, results = start([body(f"a{n}", n) for n in FAULT_SIZES])
+        wait_running(len(FAULT_SIZES))
+        bad = {}
+        bt = threading.Thread(target=_request, args=(
+            w.name, CMPL, {"prompt": "seeded past int32", "max_tokens": 8,
+                           "temperature": 1.0, "seed": 2 ** 31,
+                           "service_request_id": "seed_fault"}, False, bad))
+        bt.start()
+        join(threads + [bt])
+        got_a = by_size(FAULT_SIZES, results)
+        if bad.get("status") != 500 or \
+                bad["body"]["error"]["type"] != "engine_fault" or \
+                "culprit" not in bad["body"]["error"]["message"]:
+            raise AssertionError(f"9a: the seeded request got {bad}")
+        surv_a, margins_a = survivors("9a", got_a, ref, FAULT_SIZES)
+        culprits_a = metric("xllm_engine_faults_total", outcome="culprit")
+        if len(faults) != 1 or culprits_a != 1 or not w._engine_loop_alive:
+            raise AssertionError(f"9a: faults {faults}, culprit count "
+                                 f"{culprits_a}")
+
+        # 9b. The injected fault, armed while a decode graph replays.
+        seven = FAULT_SIZES[:7]
+        threads, results = start([body(f"b{n}", n) for n in seven])
+        wait_running(7)
+        arm["pending"] = True
+        t8, r8 = start([body(f"b{FAULT_SIZES[7]}", FAULT_SIZES[7])])
+        join(threads + t8)
+        got_b = by_size(seven, results)
+        eighth = by_size(FAULT_SIZES[7:], r8)[FAULT_SIZES[7]]
+        if arm["status"] != 200 or eighth["error"] is None or \
+                eighth["error"].get("type") != "engine_fault" or \
+                "culprit" not in eighth["error"].get("message", ""):
+            raise AssertionError(f"9b: armed {arm}, the eighth stream "
+                                 f"{eighth['error']}")
+        surv_b, margins_b = survivors("9b", got_b, ref, seven)
+        culprits_b = metric("xllm_engine_faults_total", outcome="culprit")
+        if len(faults) != 2 or culprits_b != 2 or \
+                faults[1]["salvaged_outputs"] < 7 or \
+                not w._engine_loop_alive or \
+                w.failpoints.trips("worker.fault_step") != 1:
+            raise AssertionError(f"9b: faults {faults}, culprit count "
+                                 f"{culprits_b}")
+        # 9b, second fault: armed while the eight decode with nothing
+        # queued, it trips in a decode section of eight members, which
+        # the worker bisects in probe steps (each re-prefills its half:
+        # pow2 batches of the warmup ladder).
+        threads, results = start([body(f"p{n}", n) for n in FAULT_SIZES])
+        wait_running(len(FAULT_SIZES))
+        armed = {}
+        _request(w.name, "/admin/failpoint", {
+            "name": "worker.fault_step", "mode": "count", "n": 1}, False,
+            armed)
+        join(threads)
+        got_p = by_size(FAULT_SIZES, results)
+        blamed = [n for n in FAULT_SIZES if got_p[n]["error"] is not None]
+        if armed.get("status") != 200 or len(blamed) != 1 or \
+                got_p[blamed[0]]["error"].get("type") != "engine_fault" or \
+                "culprit" not in got_p[blamed[0]]["error"]["message"]:
+            raise AssertionError(f"9b probes: armed {armed}, errors "
+                                 f"{[got_p[n]['error'] for n in blamed]}")
+        rest = tuple(n for n in FAULT_SIZES if n not in blamed)
+        surv_p, margins_p = survivors("9b_probes", got_p, ref, rest)
+        margins_b += margins_p
+        culprits_p = metric("xllm_engine_faults_total", outcome="culprit")
+        if len(faults) != 3 or culprits_p != 3 or faults[2]["probes"] < 1 \
+                or len(faults[2]["members"]) != len(FAULT_SIZES) or \
+                w.failpoints.trips("worker.fault_step") != 2:
+            raise AssertionError(f"9b probes: faults {faults}, culprit "
+                                 f"count {culprits_p}")
+        capture = eng.capture_report()
+
+        # 9c. The flight recorder.
+        status, trace = _get(w.name, "/admin/steptrace?n=512")
+        if status != 200:
+            raise AssertionError(f"/admin/steptrace: {status}")
+        per_kind = {}
+        for kind in ("prefill", "decode", "mixed", "fault"):
+            recs = [r for r in trace["steps"] if r["kind"] == kind]
+            if not recs:
+                continue
+            bounds = {}
+            for r in recs:
+                bounds[r["bound"]] = bounds.get(r["bound"], 0) + 1
+            per_kind[kind] = {
+                "steps": len(recs),
+                "step_ms_median": _median([r["step_ms"] for r in recs]),
+                "mfu_median": _median([r["mfu"] for r in recs]),
+                "debt_ms_median": _median([r["debt_ms"] for r in recs]),
+                "bound": bounds}
+        cfg = eng.cfg
+        B = ecfg.max_batch_size
+        non_embed = sum(t.numel() for k, t in eng.params.items()
+                        if k not in ("embed", "lm_head")
+                        and isinstance(t, torch.Tensor)) + sum(
+            t.numel() for t in eng.params["layers"].values())
+        norms = (2 * cfg.num_layers + 1) * cfg.hidden_size
+        decode_check = {}
+        for key, v in eng.roofline.get("decode", {}).items():
+            mp = int(key[2:])
+            gemm = 2 * B * (non_embed - norms
+                            + cfg.hidden_size * cfg.vocab_size)
+            attn = 2 * B * cfg.num_layers * mp * ecfg.page_size * 2 * \
+                cfg.num_heads * cfg.head_dim
+            decode_check[key] = {"flops": v["flops"], "gemm": gemm,
+                                 "attention_share": attn}
+            if not 0 <= v["flops"] - gemm <= attn:
+                raise AssertionError(f"decode key {key}: {decode_check}")
+        if not decode_check:
+            raise AssertionError(f"no decode roofline key: {eng.roofline}")
+        peaks = (trace["peak_flops"], trace["peak_bytes_s"])
+        if "H100" in trace["device_kind"] and peaks != (989e12, 3.35e12):
+            raise AssertionError(f"peaks {peaks} on {trace['device_kind']}")
+        if not per_kind.get("fault") or per_kind["fault"]["steps"] != 3:
+            raise AssertionError(f"fault records: {per_kind}")
+        record = w._record_steptrace
+        rec_s = [0.0, 0]
+
+        def timed_record(kind, step_ms):
+            t0 = time.perf_counter()
+            record(kind, step_ms)
+            rec_s[0] += time.perf_counter() - t0
+            rec_s[1] += 1
+        w._record_steptrace = timed_record
+        medians = {"off": [], "on": []}
+        for setting in ("off", "on", "off", "on"):
+            w.steptrace.enabled = setting == "on"
+            steplog.clear()
+            threads, _ = start([body(f"{setting}{len(medians[setting])}"
+                                     f"_{n}", n) for n in FAULT_SIZES])
+            join(threads)
+            medians[setting].append(_median(
+                [r["ms"] for r in steplog.rows if r["kind"] == "decode"]))
+        w.steptrace.enabled = True
+        capture_end = eng.capture_report()
+    finally:
+        w.stop()
+    late = [n for p in ("prefill", "ragged", "decode", "decode_multi")
+            for n in capture_end[p]["late"]]
+    out = {"card": card, "kernels_on_the_fault_free_round": need,
+           "faults": faults, "seeded_culprit": bad["body"]["error"],
+           "injected_culprit": eighth["error"],
+           "survivors_9a": surv_a, "survivors_9b": surv_b,
+           "survivors_9b_probes": surv_p,
+           "margins": margins_a + margins_b,
+           "eager_steps": capture_end["eager_steps"],
+           "captures_after_warmup": capture_end["captures_after_warmup"],
+           "late_captures": late,
+           "captures_after_warmup_9ab": capture["captures_after_warmup"],
+           "steptrace": {"device_kind": trace["device_kind"],
+                         "peak_flops": peaks[0], "peak_bytes_s": peaks[1],
+                         "per_kind": per_kind,
+                         "roofline": trace["roofline"],
+                         "decode_key_check": decode_check},
+           "decode_step_ms_median_recorder": medians,
+           "recorder_us_per_step": (1e6 * rec_s[0] / rec_s[1]
+                                    if rec_s[1] else None)}
+    log(f"[faults] {card}: 9a faulted step ms {faults[0]['step_ms']:.3f}, "
+        f"probes {faults[0]['probes']}, salvaged "
+        f"{faults[0]['salvaged_outputs']}, survivors' extra wait ms "
+        f"{[round(s['extra_wait_ms'], 3) for s in surv_a]}; 9b faulted step "
+        f"ms {faults[1]['step_ms']:.3f}, probes {faults[1]['probes']}, "
+        f"salvaged {faults[1]['salvaged_outputs']}, survivors' extra wait "
+        f"ms {[round(s['extra_wait_ms'], 3) for s in surv_b]}; 9b with "
+        f"probes: faulted step ms {faults[2]['step_ms']:.3f}, probes "
+        f"{faults[2]['probes']}, survivors' extra wait ms "
+        f"{[round(s['extra_wait_ms'], 3) for s in surv_p]}")
+    log(f"[steptrace] {card}: peaks {peaks[0]:.4g} FLOP/s, "
+        f"{peaks[1]:.4g} B/s ({trace['device_kind']}); per kind "
+        f"{json.dumps(per_kind)}; decode step ms median recorder off "
+        f"{medians['off']} on {medians['on']}; recorder "
+        f"{out['recorder_us_per_step']} us a step")
+    log(f"[faults] {card}: {json.dumps(out)}")
+    if capture_end["eager_steps"] or capture_end["captures_after_warmup"]:
+        raise AssertionError(f"eager steps or late captures: "
+                             f"{capture_end['eager_steps']}, {late}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4456,6 +4869,12 @@ def main() -> int:
                                                     ragged_attention)
 
     t_start = time.perf_counter()
+    # Seconds on the script's clock at the end of each phase (the
+    # summary's ``phase_end_s``).
+    marks = {}
+
+    def mark(phase: str) -> None:
+        marks[phase] = time.perf_counter() - t_start
     # 1. Device.
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4468,6 +4887,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
+    mark("2_build")
     log(f"[build] {build_s:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
@@ -4513,6 +4933,7 @@ def main() -> int:
     bench.prefill_writer(kv_update, latent)
     del bench.kp, bench.vp, latent
     free_device_memory(torch)
+    mark("3_kernels")
 
     # 4. Forward pass: llama3-1b, then DeepSeek-V2-Lite cut to 4 layers.
     rel, err, graph = forward_check(torch, cfg, "cuda")
@@ -4520,6 +4941,7 @@ def main() -> int:
     rel_mla, err_mla, graph_mla = mla_forward_check(
         torch, kernels, dataclasses.replace(mla_cfg, num_layers=4), "cuda")
     free_device_memory(torch)
+    mark("4_forward")
 
     # 5. Serving, split path; 5b. serving, ragged step; 5c. serving,
     # attend-then-write; 5d/5e. DeepSeek-V2-Lite, 27 layers, in the GPU
@@ -4563,6 +4985,7 @@ def main() -> int:
             torch, eng, [("deepseek_orders", tok_d, split_wta, tok_e,
                           split_atw, served_d["prompts"])], err_mla))
     free_device_memory(torch)
+    mark("5_5e_serve")
     same = {}
     for tag, tok_x, tok_y in (("ragged", tok_a, tok_b),
                               ("attend_then_write", tok_a,
@@ -4636,9 +5059,11 @@ def main() -> int:
     served_g = decode_mode_rounds(torch, kernels, "deepseek-v2-lite", "g",
                                   err_mla, card)
     free_device_memory(torch)
+    mark("5f_5g_decode_modes")
     # 6. The cluster: the reference master in front of the port's worker.
     clustered = cluster_phase(torch, kernels, card)
     free_device_memory(torch)
+    mark("6_cluster")
     # 7. Prefix reuse on each path; 7b. spill and restore; 6b. the
     # cache-aware master over two workers, on phase 7's weights.
     prefixed = prefix_phase(torch, kernels, card, err)
@@ -4647,9 +5072,15 @@ def main() -> int:
     routed = routed_cluster_phase(torch, kernels, card, prefix_params)
     del prefix_params
     free_device_memory(torch)
+    mark("7_7b_6b_prefix")
     # 8. The OpenAI sampling surface.
     sampled = sampling_phase(torch, kernels, card, err)
     free_device_memory(torch)
+    mark("8_sampling")
+    # 9. Faults and the flight recorder.
+    faulted = fault_phase(torch, kernels, card, err)
+    free_device_memory(torch)
+    mark("9_faults")
     margins = served_c["on_engine"] + served_e["on_engine"]
     for phase in (served, served_b, served_c, served_d, served_e):
         phase.pop("prompts")
@@ -4660,7 +5091,7 @@ def main() -> int:
         f"largest logit error, llama3-1b {err}, deepseek-v2-lite "
         f"{err_mla}): {json.dumps(margins)}")
 
-    # 9. Summary.
+    # 10. Summary.
     for r in bench.results:
         name = r.get("entry", r["name"])       # a record at another shape
         phase = (served_b if name == "ragged_paged_attention" else
@@ -4684,10 +5115,12 @@ def main() -> int:
                "cluster": clustered,
                "prefix_reuse": prefixed, "spill_restore": spilled,
                "cluster_cache_aware": routed, "sampling": sampled,
+               "faults": faulted,
                "graph_decode_check": {"llama3-1b": graph,
                                       "deepseek-v2-lite": graph_mla},
                "warmup_ladders": ladders,
                "equal_token_share": same,
+               "phase_end_s": marks,
                "seconds": time.perf_counter() - t_start}
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": bench.results}))

@@ -315,6 +315,14 @@ class DecodeGraphs:
         self._upload(dst_vals, vals)
         self._bias_mirror[K] = (ids.copy(), vals.copy())
 
+    def invalidate_staged(self) -> None:
+        """Forget the host mirrors of the last uploads (after a step
+        fault): the next step uploads the active mask, table, sampling
+        pair and bias whole, into the same buffers."""
+        self._apt_mirror = None
+        self._st_mirror = None
+        self._bias_mirror = {}
+
     def stage_counts(self, counts: np.ndarray) -> None:
         """Upload a host rebuild of the [B, V] output-token counts."""
         self._upload(self.counts_buffer(), counts)

@@ -92,9 +92,25 @@ captured at first use and counted after warmup, by program
 graphs). The prefix cache's restore runs before the forward, outside
 the graph.
 
-Not in this package yet: the step fault boundary, the step trace, and
-the cross-worker block fetch (``export_blocks``, adoption of a remote
-holder's blocks).
+The step fault boundary's engine side, as the JAX engine's: every
+section records its batch (``step_members``) and calls ``fault_hook``
+(the worker's failpoint hook, which may raise) before it stages or
+packs anything; ``last_step_partial_outs`` is the list the sections of
+a step extend, so that a worker can salvage the outputs of the sections
+that completed before a fault. ``isolate`` confines the next step to a
+set of requests (the others are preempted or parked, and new arrivals
+park), ``release_isolation`` undoes it, and ``fault_reset`` evicts the
+blamed requests and requeues every survivor for re-prefill with its
+tokens, releasing its pages unregistered and marking the device state
+the runners keep between steps stale, to be rebuilt from host truth.
+
+``warmup()`` also fills ``roofline``: program -> variant key ->
+{"flops", "bytes", "tokens"} from the analytic count of
+``models/cost.py``, keyed as the JAX engine keys its ``cost_analysis``
+table (``obs/steptrace.py`` reads it).
+
+Not in this package yet: the cross-worker block fetch
+(``export_blocks``, adoption of a remote holder's blocks).
 """
 
 from __future__ import annotations
@@ -103,14 +119,16 @@ import bisect
 import collections
 import dataclasses
 import enum
+import os
 import time
-from typing import Any, Dict, List, Optional, Sequence as Seq, Tuple
+from typing import (Any, Callable, Dict, List, Optional, Sequence as Seq,
+                    Tuple)
 
 import numpy as np
 import torch
 
 from xllm_service_tpu_torch.config import EngineConfig, ModelConfig
-from xllm_service_tpu_torch.models import transformer
+from xllm_service_tpu_torch.models import cost, transformer
 from xllm_service_tpu_torch.ops.kernels import paged_attention
 from xllm_service_tpu_torch.ops.sampling import (SamplingTensors,
                                                  batch_bias, batch_mode)
@@ -366,6 +384,25 @@ class Engine:
         # the cache covered (local hits and tier restores).
         self.prefix_lookups = 0
         self.prefix_hit_tokens = 0
+        # The step fault boundary (module docstring): the worker reads
+        # ``step_members`` and ``last_step_partial_outs`` after a fault
+        # and drives ``isolate`` / ``fault_reset``; ``fault_hook`` is its
+        # injection point, called with each section's members.
+        self.fault_hook: Optional[Callable[[Tuple[str, ...]], None]] = None
+        self.step_members: Tuple[str, ...] = ()
+        self.last_step_partial_outs: List[StepOutput] = []
+        self._fault_isolated = False
+        self._parked: List[Sequence] = []
+        # The roofline table, filled at warmup (XLLM_ROOFLINE=0 leaves it
+        # empty; XLLM_ROOFLINE_VARIANTS caps the variants per program).
+        self.roofline: Dict[str, Dict[str, Dict[str, float]]] = {}
+        self._roofline_enabled = os.environ.get(
+            "XLLM_ROOFLINE", "1").strip() not in ("0", "false", "no")
+        try:
+            self._roofline_cap = max(1, int(os.environ.get(
+                "XLLM_ROOFLINE_VARIANTS", "8")))
+        except ValueError:
+            self._roofline_cap = 8
 
     # ------------------------------------------------------------------
     # Request intake
@@ -403,6 +440,10 @@ class Engine:
             self.drain_pipeline()
         seq = Sequence(req=req, tokens=list(req.token_ids))
         self._by_id[req.request_id] = seq
+        if self._fault_isolated:
+            # An arrival during a bisection probe waits outside it.
+            self._parked.append(seq)
+            return
         self.waiting.append(seq)
         self._sort_waiting()
 
@@ -653,6 +694,10 @@ class Engine:
         docstring); ``last_step_*`` describe it afterwards."""
         self.step_count += 1
         outs = self._drain_cancelled()
+        # Every section extends this list: after a fault the worker
+        # salvages the outputs of the sections that completed.
+        self.last_step_partial_outs = outs
+        self.step_members = ()
         self.last_step_prefill_tokens = 0
         self.last_step_decode_tokens = 0
         self.last_step_prefill_s = 0.0
@@ -707,6 +752,7 @@ class Engine:
                          outs: List[StepOutput]) -> None:
         # The landing prefill is what changes a speculative burst's batch.
         self.drain_pipeline()
+        self._note_members(batch)
         # Prefill occupancy is the prompt tokens computed, not the one
         # token sampled per window.
         self.last_step_prefill_windows = tuple(s.sched_window for s in batch)
@@ -922,6 +968,7 @@ class Engine:
         windows = [s.sched_window for s in batch]
         rows = decode_seqs + batch
         nd = len(decode_seqs)
+        self._note_members(rows)
         self.last_step_ragged = True
         self.last_step_prefill_windows = tuple(windows)
         self.last_step_prefill_tokens = sum(windows)
@@ -975,6 +1022,7 @@ class Engine:
     # Decode: single steps, fused bursts and the speculative pipeline
     # ------------------------------------------------------------------
     def _decode_once(self) -> List[StepOutput]:
+        self._note_members(self.running)
         N = self.decode_steps
         # A burst writes KV up to position len + N - 2: a sequence that
         # would cross max_model_len takes single steps.
@@ -1225,6 +1273,99 @@ class Engine:
         if pending is not None:
             self._discard_spec(pending)
 
+    # ------------------------------------------------------------------
+    # The step fault boundary (the worker's ``_contain_engine_fault``
+    # drives these under its engine lock, as it drives ``step()``)
+    # ------------------------------------------------------------------
+    def _note_members(self, seqs: List[Sequence]) -> None:
+        """Record a section's batch for fault attribution, then let the
+        worker's hook raise. Called before the section stages or packs
+        anything, so that a raise leaves no half-written input."""
+        self.step_members = tuple(s.req.request_id for s in seqs)
+        if self.fault_hook is not None:
+            self.fault_hook(self.step_members)
+
+    def live_request_ids(self) -> Tuple[str, ...]:
+        """Every request the engine still owns (``_by_id``: a fault in a
+        step can leave a sequence in neither queue)."""
+        return tuple(self._by_id)
+
+    def isolate(self, keep_rids: Seq[str]) -> None:
+        """Confine the next step to ``keep_rids``: every other running
+        sequence is preempted by recompute and every other waiting one
+        parked; new arrivals park too, so a probe never takes in a
+        bystander."""
+        keep = set(keep_rids)
+        self._fault_isolated = True
+        for seq in [s for s in self.running
+                    if s.req.request_id not in keep]:
+            self._preempt_seq(seq)
+        parked = [s for s in self.waiting
+                  if s.req.request_id not in keep]
+        for seq in parked:
+            self.waiting.remove(seq)
+        self._parked.extend(parked)
+
+    def release_isolation(self) -> None:
+        """Undo ``isolate``: the parked sequences rejoin the waiting
+        queue (a probe's survivors keep their progress)."""
+        self._fault_isolated = False
+        parked, self._parked = self._parked, []
+        for seq in parked:
+            if seq.status != SeqStatus.FINISHED \
+                    and seq not in self.waiting:
+                self.waiting.append(seq)
+        if parked:
+            self._sort_waiting()
+
+    def fault_reset(self, evict_rids: Seq[str] = ()) -> List[str]:
+        """Recover from a step fault: ``evict_rids`` leave the engine and
+        every survivor requeues for re-prefill with its tokens (the shape
+        of a preemption by recompute). The KV the faulted step touched is
+        suspect, so pages are released without being registered in the
+        prefix cache; the speculative carry is dropped (draining it may
+        itself raise); and the device state the runners keep between
+        steps (the penalty counts, the staged table, sampling pair and
+        bias, the carries) is marked stale, to be rebuilt from host
+        truth by the next step. No static buffer is freed or
+        reallocated. Returns the ids evicted."""
+        self.release_isolation()
+        try:
+            self.drain_pipeline()
+        except Exception:  # noqa: BLE001 — the carry may be the corrupt
+            self._pending = None    # state; drop it unconsumed
+        evict = set(evict_rids)
+        evicted: List[str] = []
+        for seq in list(self._by_id.values()):
+            if seq.slot >= 0:
+                self._slots[seq.slot] = None
+                seq.slot = -1
+            self.prefix_cache.release_pages([p for p in seq.pages if p])
+            seq.pages = []
+            seq.num_trimmed = 0
+            seq.num_computed = 0
+            seq.sched_window = 0
+            seq.prompt_lps = None
+            if seq in self.running:
+                self.running.remove(seq)
+            if seq.req.request_id in evict:
+                seq.status = SeqStatus.FINISHED
+                if seq in self.waiting:
+                    self.waiting.remove(seq)
+                self._by_id.pop(seq.req.request_id, None)
+                self._cancelled.discard(seq.req.request_id)
+                evicted.append(seq.req.request_id)
+            else:
+                seq.status = SeqStatus.WAITING
+                self.num_preemptions += 1
+                if seq not in self.waiting:
+                    self.waiting.append(seq)
+        self._sort_waiting()
+        self._counts_valid = False
+        self._resident = None
+        self.graphs.invalidate_staged()
+        return evicted
+
     def _note_burst_gap(self, overlapped: bool) -> None:
         """Host time between the previous burst's outputs being ready and
         this dispatch, during which the device had nothing queued (0 when
@@ -1339,6 +1480,7 @@ class Engine:
                 batch_pows, buckets, self.ecfg.max_prefill_tokens,
                 self.ecfg.page_size, extended)
         for B, T, mp in prefill_shapes:
+            self._roofline_capture("prefill", B, T, mp)
             for greedy, seeded in _VARIANTS:
                 self.prefill_graphs.prepare(
                     ("prefill", B, T, mp, greedy, seeded))
@@ -1353,6 +1495,9 @@ class Engine:
             steps = [self.decode_steps]
         for width in widths:
             for n in steps:
+                self._roofline_capture(
+                    "decode" if n == 1 else "decode_multi",
+                    self.ecfg.max_batch_size, 1, width)
                 for greedy, seeded in _VARIANTS:
                     for penalized in (False, True):
                         self.graphs.prepare(
@@ -1363,11 +1508,30 @@ class Engine:
             for B in batch_pows:
                 for T in t_set:
                     for mp in mp_set:
+                        self._roofline_capture("ragged", B, T, mp)
                         for greedy, seeded in _VARIANTS:
                             self.prefill_graphs.prepare(
                                 ("ragged", B, T, mp, greedy, seeded))
         self.graphs.warm = self.prefill_graphs.warm = True
         return time.monotonic() - t0
+
+    def _roofline_capture(self, program: str, B: int, T: int,
+                          mp: int) -> None:
+        """One warmup shape's analytic count (``models/cost.py``) into
+        ``roofline``, under the JAX engine's key (``B{B}xT{T}xmp{mp}``
+        with B x T tokens for ``prefill`` / ``ragged``; ``mp{mp}`` with
+        the slots, times the burst for ``decode_multi``), at most
+        ``XLLM_ROOFLINE_VARIANTS`` keys a program."""
+        if not self._roofline_enabled:
+            return
+        table = self.roofline.setdefault(program, {})
+        key = (f"B{B}xT{T}xmp{mp}" if program in ("prefill", "ragged")
+               else f"mp{mp}")
+        if key in table or len(table) >= self._roofline_cap:
+            return
+        table[key] = cost.forward_cost(self.cfg, program, B, T, mp,
+                                       self.ecfg.page_size,
+                                       self.decode_steps)
 
     def _batch_pows(self) -> List[int]:
         """The pow2 batch ladder up to ``max_batch_size``."""

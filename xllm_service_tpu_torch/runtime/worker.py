@@ -29,7 +29,9 @@ next. When the
 service's ``/rpc/config`` asks for ``enable_decode_response_to_service``
 (the RPC topology), a request's ``RequestOutput``s are pushed to the
 master's ``/rpc/generations`` and its HTTP reply is only the ack;
-otherwise the master relays this worker's SSE stream. Given neither
+otherwise the master relays this worker's SSE stream, whose chunks then
+carry their token ids (``ledger_tokens`` on the forwarded body), so that
+the master can resume a stream that breaks on another worker. Given neither
 ``store_addr`` nor ``service_addr``, the worker opens no store, registers
 nowhere and sends no heartbeat: it serves requests sent straight to it.
 
@@ -54,10 +56,43 @@ routing plan (pull the leading blocks from another worker) is not
 followed: the worker prefills from its own prefix hit, the JAX worker's
 own path when a fetch fails.
 
+The engine step runs inside the JAX worker's fault boundary: an
+exception from ``Engine.step()`` is classified (a timeout or a dropped
+connection is transient and retried in place; anything else is
+deterministic), the culprit is found by bisecting the faulting
+section's requests in isolated probe steps (``XLLM_FAULT_BISECT_BUDGET``
+probes), the blamed requests end with the typed ``engine_fault`` error
+(an error frame or a 500; a pushed request gets a finished output with
+an ``INTERNAL`` status) and the survivors are requeued with their tokens
+and resume. The outputs of the sections that completed before the fault,
+and of clean probes, reach their streams. More than
+``XLLM_ENGINE_FAULT_LIMIT`` faults within ``XLLM_ENGINE_FAULT_WINDOW_S``
+open the breaker: the engine loop dies and every request, then and
+after, is refused with a 500. ``xllm_engine_faults_total{model,outcome}``
+counts the outcomes.
+
+Failpoints (``obs/failpoints.py``): ``XLLM_FAILPOINTS`` at construction,
+``POST /admin/failpoint`` (``{"spec"}`` or ``{"name", "mode", "n",
+"value"}``) and ``GET /admin/failpoints``. This worker fires
+``worker.fault_step`` and ``worker.fault_step_req`` (a request whose
+prompt holds the armed string, or every request, is marked at
+admission; a step that holds a marked request faults) inside the step,
+``worker.slow_response_ms``, ``worker.hang_rpc`` and
+``worker.refuse_generate`` at the generate routes, and
+``worker.drop_heartbeats`` in the heartbeat loop.
+
+The step flight recorder (``obs/steptrace.py``): one record a step, with
+the roofline verdict of the engine's analytic count against the
+device's peaks (an H100 row, or the CPU placeholder), on ``GET
+/admin/steptrace`` (``?n=`` / ``?seconds=``), and its newest 64 records
+since the last acknowledged beat on each heartbeat; ``/metrics`` carries
+``xllm_worker_step_mfu``, ``xllm_worker_step_debt_ms``,
+``xllm_worker_program_flops`` / ``_bytes`` and ``xllm_worker_peak_flops``.
+
 Not in this package yet: etcd stores, profiling data in the
-registration, draining, spans and step-trace tails on the heartbeat,
-failpoints, sleep/wakeup and role flips, ``/admin/*``, PD/EPD traffic,
-and the relay's per-frame token ledger.
+registration, draining, spans on the heartbeat (and the hot-path
+sections of ``/admin/steptrace``), the store guard, sleep/wakeup and
+role flips, the other ``/admin/*`` routes, and PD/EPD traffic.
 
 Run: ``python -m xllm_service_tpu_torch.runtime.worker --model llama3-1b``
 (add ``--store-addr`` and ``--service-addr`` to join a cluster).
@@ -75,8 +110,12 @@ import secrets
 import signal
 import threading
 import time
+from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Iterator, List, Optional, Tuple
+from urllib.parse import parse_qs, urlsplit
+
+import torch
 
 from xllm_service_tpu_torch.config import (EngineConfig, InstanceType,
                                            ModelConfig)
@@ -84,6 +123,8 @@ from xllm_service_tpu_torch.models.transformer import Params
 from xllm_service_tpu_torch.nlp.tokenizer import (IncrementalDecoder,
                                                   Tokenizer,
                                                   TokenizerFactory)
+from xllm_service_tpu_torch.obs import steptrace
+from xllm_service_tpu_torch.obs.failpoints import Failpoints
 from xllm_service_tpu_torch.obs.metrics import (Registry,
                                                 quantile_from_buckets)
 from xllm_service_tpu_torch.runtime.engine import (Engine, EngineRequest,
@@ -207,6 +248,38 @@ class _EngineDied:
         self.message = message
 
 
+class StepFaultInjected(Exception):
+    """Raised by the ``worker.fault_step*`` failpoints inside the engine
+    step's fault boundary: a deterministic step fault for tests."""
+
+
+class _EngineFault:
+    """Queued to a request the step fault boundary blamed: its consumer
+    answers with the typed ``engine_fault`` error (a 500 or an error
+    frame carrying the verdict), which the master counts as a poison
+    strike."""
+
+    __slots__ = ("verdict",)
+
+    def __init__(self, verdict: str) -> None:
+        self.verdict = verdict
+
+
+def _classify_step_fault(exc: BaseException) -> str:
+    """``transient`` (retried in place, nobody blamed) for a timeout or
+    a dropped connection, and for an XLA runtime error whose status is
+    one of the retryable ones (matched by the type's name, as the JAX
+    worker matches it); ``deterministic`` (blamed by bisection) for
+    anything else."""
+    if isinstance(exc, (TimeoutError, ConnectionError)):
+        return "transient"
+    if type(exc).__name__ == "XlaRuntimeError" and any(
+            tag in str(exc) for tag in
+            ("UNAVAILABLE", "DEADLINE_EXCEEDED", "ABORTED", "CANCELLED")):
+        return "transient"
+    return "deterministic"
+
+
 def _merge_step_outputs(outs: List[StepOutput]) -> StepOutput:
     """Held-back deltas of one choice (in arrival order) as one
     StepOutput; the last one supplies the finish state."""
@@ -275,6 +348,9 @@ class _LiveRequest:
         # Echo with logprobs: the prompt tokens' scores, computed once
         # (choice 0) and shared by every choice's echo.
         self.prompt_lps: Optional[List[Optional[float]]] = None
+        # The relay's token ledger (``ledger_tokens`` on a body the
+        # master forwards): SSE chunks carry their token ids.
+        self.emit_token_ids = False
         self._echo_cache: Optional[Tuple[str, List[LogProb]]] = None
 
     @property
@@ -431,6 +507,43 @@ class Worker:
             max_delay_s=30.0, multiplier=2.0, jitter=0.5)
         self._reg_retry = RetryPolicy(max_attempts=5, base_delay_s=0.2,
                                       max_delay_s=5.0)
+        # Fault injection, armed by XLLM_FAILPOINTS and POST
+        # /admin/failpoint; trips count in this registry.
+        self.failpoints = Failpoints(obs=self.obs)
+        self._m_faults = self.obs.counter(
+            "xllm_engine_faults_total",
+            "engine step faults seen by the fault boundary, by "
+            "containment outcome", labelnames=("model", "outcome"))
+        # The step fault boundary: probe steps a bisection may spend, and
+        # the breaker (more than _fault_limit contained faults within
+        # _fault_window_s let the engine loop die). Read once here.
+        self._fault_bisect_budget = int(os.environ.get(
+            "XLLM_FAULT_BISECT_BUDGET", "4") or 4)
+        self._fault_limit = int(os.environ.get(
+            "XLLM_ENGINE_FAULT_LIMIT", "5") or 5)
+        self._fault_window_s = float(os.environ.get(
+            "XLLM_ENGINE_FAULT_WINDOW_S", "60") or 60)
+        self._fault_times: "deque[float]" = deque()   # engine-loop only
+        # Engine request ids marked by worker.fault_step_req (guarded by
+        # the engine lock).
+        self._fault_marked: set = set()
+        # True while the engine loop serves; False once the breaker let
+        # it die (xllm_worker_engine_alive, the beat's engine_alive).
+        self._engine_loop_alive = True
+        # The step flight recorder, its per-step delta snapshots (engine
+        # loop only), the last verdict (mirrored at scrape time) and the
+        # highest record seq an acknowledged beat carried (under
+        # _hb_lock).
+        self.steptrace = steptrace.StepTrace()
+        self._st_phase_snap: Dict[str, float] = {}
+        self._st_spec_snap: Dict[str, int] = {}
+        self._st_prefix_snap = 0
+        self._st_free_pages: Optional[int] = None
+        self._st_last = {"mfu": 0.0, "debt_ms": 0.0}
+        self._hb_steps_seq = 0
+        self._device_kind = (torch.cuda.get_device_name(self.engine.device)
+                             if self.engine.device.type == "cuda"
+                             else "cpu")
 
     # ------------------------------------------------------------------
     # Lifecycle
@@ -634,6 +747,10 @@ class Worker:
                 # backoff earned against the old one.
                 target = self.service_addr
                 hb_failures, next_hb = 0, 0.0
+            if self.failpoints.fire("worker.drop_heartbeats") is not None:
+                # A simulated partition: no keepalive and no beat, so
+                # the lease expires as if the process were gone.
+                continue
             try:
                 lease_id = self._lease_id
                 if lease_id is not None:
@@ -684,7 +801,8 @@ class Worker:
                     self._hb_cache_pending, None
             delivered = False
             try:
-                hb, step_baseline = self._build_heartbeat(cache_ev)
+                hb, (step_baseline, steps_seq) = \
+                    self._build_heartbeat(cache_ev)
                 status, ack = http_json(
                     "POST", self.service_addr, "/rpc/heartbeat",
                     stamp(hb.to_json()), timeout=10.0)
@@ -701,6 +819,7 @@ class Worker:
                     return False
                 self._master_epoch = ack_epoch
                 self._hb_step_cum = step_baseline
+                self._hb_steps_seq = steps_seq
                 delivered = True
                 return True
             finally:
@@ -708,11 +827,20 @@ class Worker:
                     self._hb_cache_pending = cache_ev
 
     def _build_heartbeat(self, cache_ev: Optional[KvCacheEvent] = None
-                         ) -> Tuple[Heartbeat, Dict[str, Any]]:
+                         ) -> Tuple[Heartbeat, Tuple[Dict[str, Any], int]]:
         """The beat's payload (JAX worker :4336-4471), carrying the
-        cache digests of ``cache_ev`` as hex, and the step histogram's
-        baseline to commit once it is acked."""
+        cache digests of ``cache_ev`` as hex and the step records since
+        the last acknowledged beat (at most 64), and what to commit once
+        it is acked: the step histogram's baseline and the last record's
+        seq."""
         p99, baseline = self._recent_step_p99()
+        steps_tail: List[Dict[str, Any]] = []
+        steps_seq = self._hb_steps_seq
+        if self.steptrace.enabled:
+            steps_tail = self.steptrace.tail(n=64,
+                                             since_seq=self._hb_steps_seq)
+            if steps_tail:
+                steps_seq = int(steps_tail[-1].get("seq", steps_seq))
         latency = LatencyMetrics(
             step_ms_p99=p99,
             prefill_tok_s=(self._prefill_tok_cum / self._prefill_s_cum
@@ -728,8 +856,9 @@ class Worker:
                        cache_offloaded=[h.hex() for h in ev.offloaded],
                        cache_offloaded_ssd=[h.hex()
                                             for h in ev.offloaded_ssd],
-                       model_states={self.opts.model: MODEL_AWAKE})
-        return hb, baseline
+                       model_states={self.opts.model: MODEL_AWAKE},
+                       steps=steps_tail)
+        return hb, (baseline, steps_seq)
 
     def _recent_step_p99(self) -> Tuple[float, Dict[str, Any]]:
         """p99 of ``xllm_worker_step_ms`` over the steps since the last
@@ -762,7 +891,7 @@ class Worker:
         model = self.opts.model
         for k, v in lm.items():
             self._m_load[k].set(v, model=model)
-        alive = int(self.engine_error is None)
+        alive = int(self._engine_loop_alive)
         self._m_alive.set(alive, model=model)
         return LoadMetrics(
             waiting_requests=lm["waiting_requests"],
@@ -772,14 +901,19 @@ class Worker:
             moe_dropped_tokens=lm["moe_dropped_tokens"],
             engine_alive=alive)
 
-    def _record_step(self, step_ms: float) -> None:
-        """After each ``Engine.step()``, on the engine-loop thread: the
-        step series by ``last_step_kind`` (JAX worker :1386-1440). The
-        load mirrors refresh at each scrape and beat."""
+    def _record_step(self, step_ms: float,
+                     phase: Optional[str] = None) -> None:
+        """After each ``Engine.step()`` and its outputs' dispatch, on the
+        engine-loop thread: the step series by ``last_step_kind`` (JAX
+        worker :1386-1440), or by ``phase`` (``"fault"`` for a faulted
+        step), and the flight recorder's record. The load mirrors
+        refresh at each scrape and beat."""
         eng, m = self.engine, self.opts.model
-        kind = eng.last_step_kind
+        kind = phase or eng.last_step_kind
         if kind == "idle":
             return
+        if self.steptrace.enabled:
+            self._record_steptrace(kind, step_ms)
         pf, dc = eng.last_step_prefill_tokens, eng.last_step_decode_tokens
         self._m_steps.inc(1, model=m, phase=kind)
         if pf:
@@ -790,6 +924,80 @@ class Worker:
         if pf:
             self._prefill_tok_cum += pf
             self._prefill_s_cum += eng.last_step_prefill_s
+
+    def _record_steptrace(self, kind: str, step_ms: float) -> None:
+        """One flight-recorder record for the step that just ran (JAX
+        worker :1476-1534): the phase, speculation, prefix-hit and
+        free-page deltas against the previous step's snapshots, and the
+        roofline verdict of the engine's table against the device's
+        peaks."""
+        eng = self.engine
+        cur = dict(eng.phase_times)
+        phases = {}
+        for k, v in cur.items():
+            d = (v - self._st_phase_snap.get(k, 0.0)) * 1e3
+            if d > 0.0005:
+                phases[k] = round(d, 3)
+        self._st_phase_snap = cur
+        om = eng.overlap_metrics()
+        spec = {k: int(om[k] - self._st_spec_snap.get(k, 0))
+                for k in ("spec_dispatches", "spec_hits", "spec_rollbacks")}
+        self._st_spec_snap = {k: int(om[k]) for k in spec}
+        hit_cum = int(eng.prefix_cache_stats()["hit_tokens_total"])
+        hit_delta = hit_cum - self._st_prefix_snap
+        self._st_prefix_snap = hit_cum
+        free = int(eng.allocator.num_free)
+        prev = self._st_free_pages
+        self._st_free_pages = free
+        peak_flops, peak_bytes_s = steptrace.peaks_for(self._device_kind)
+        verdict = steptrace.attribute_step(
+            eng.roofline, kind=kind, step_ms=step_ms,
+            prefill_tokens=eng.last_step_prefill_tokens,
+            decode_tokens=eng.last_step_decode_tokens,
+            batch_size=eng.ecfg.max_batch_size,
+            decode_steps=eng.decode_steps,
+            ragged=eng.last_step_ragged,
+            peak_flops=peak_flops, peak_bytes_s=peak_bytes_s)
+        self._st_last = {"mfu": verdict["mfu"],
+                         "debt_ms": verdict["debt_ms"]}
+        self.steptrace.record(
+            model=self.opts.model, kind=kind, step_ms=round(step_ms, 3),
+            prefill_tokens=eng.last_step_prefill_tokens,
+            decode_tokens=eng.last_step_decode_tokens,
+            prefill_windows=eng.last_step_prefill_windows,
+            decode_deferred=eng.last_step_decode_deferred,
+            ragged=eng.last_step_ragged,
+            attn_dispatches=eng.last_step_attn_dispatches,
+            members=eng.step_members,
+            phases=phases, spec=spec,
+            kv_usage=round(float(eng.load_metrics()["kv_cache_usage"]), 4),
+            pages_delta=free - (free if prev is None else prev),
+            cache_hit_tokens=hit_delta,
+            flops=verdict["flops"], bytes=verdict["bytes"],
+            mfu=verdict["mfu"], bound=verdict["bound"],
+            debt_ms=verdict["debt_ms"])
+
+    def steptrace_body(self, n: int = 0,
+                       window_s: float = 0.0) -> Dict[str, Any]:
+        """``GET /admin/steptrace`` (JAX worker :1908-1940): the ring's
+        tail (``n`` newest, or within ``window_s`` of the newest), the
+        peaks, and the roofline rows. ``sections`` stays empty: this
+        package has no hot-path section profiler."""
+        peak_flops, peak_bytes_s = steptrace.peaks_for(self._device_kind)
+        roofline = steptrace.roofline_table(self.engine.roofline,
+                                            peak_flops, peak_bytes_s)
+        for row in roofline:
+            row["model"] = self.opts.model
+        return {
+            "name": self.name,
+            "enabled": self.steptrace.enabled,
+            "device_kind": self._device_kind,
+            "peak_flops": peak_flops,
+            "peak_bytes_s": peak_bytes_s,
+            "steps": self.steptrace.tail(n=n, window_s=window_s),
+            "sections": [],
+            "roofline": roofline,
+        }
 
     def metrics_text(self) -> str:
         """``GET /metrics``: the load mirrors, the prefix-cache series and
@@ -808,6 +1016,9 @@ class Worker:
             self._m_recompiles.set_total(
                 captures[program]["captures_after_warmup"],
                 model=self.opts.model, program=program)
+        steptrace.flush_metrics(self.obs, self.opts.model,
+                                self.engine.roofline, self._st_last["mfu"],
+                                self._st_last["debt_ms"], self._device_kind)
         return self.obs.render()
 
     def warmup(self) -> float:
@@ -826,45 +1037,192 @@ class Worker:
     # Engine loop
     # ------------------------------------------------------------------
     def _engine_loop(self) -> None:
+        eng = self.engine
+        eng.fault_hook = self._step_fault_hook
         while not self._stop.is_set():
+            fault: Optional[BaseException] = None
             with self._engine_lock:
-                busy = self.engine.has_work()
+                busy = eng.has_work()
                 if busy:
+                    t0 = time.perf_counter()
                     try:
-                        t0 = time.perf_counter()
-                        outs = self.engine.step()
-                        step_ms = (time.perf_counter() - t0) * 1e3
-                    except Exception as exc:  # noqa: BLE001 — the loop
-                        # dies visibly: every waiting request gets a 500
-                        logger.exception("engine step failed")
-                        self._fail_all(f"engine step failed: {exc!r}")
-                        return
+                        outs = eng.step()
+                    except Exception as exc:  # noqa: BLE001 — the step
+                        fault = exc           # fault boundary, below
+                    step_ms = (time.perf_counter() - t0) * 1e3
             if not busy:
                 self._work.wait(timeout=0.05)
                 self._work.clear()
                 continue
+            if fault is not None:
+                # Contain, attribute, resume; or, with the breaker open,
+                # die visibly: every request gets a 500, then and after.
+                if not self._contain_engine_fault(fault, step_ms):
+                    logger.error("engine step failed", exc_info=fault)
+                    self._engine_loop_alive = False
+                    self._fail_all(f"engine step failed: {fault!r}")
+                    return
+                continue
+            # The outputs first, then the step's records.
+            self._dispatch_outputs(outs)
             self._record_step(step_ms)
-            to_service: List[RequestOutput] = []
-            for out in outs:
-                with self._live_lock:
-                    live = self._live.get(out.request_id)
-                if live is None:
-                    continue
-                if not live.stream_to_service:
-                    live.q.put(out)
-                    if out.finished:
-                        self._drop_live(out.request_id)
-                    continue
-                to_service.extend(self._process_step_output(live, out))
-                if out.finished or live.choices[
-                        live.choice_index(out.request_id)].finished:
+
+    def _step_fault_hook(self, member_rids: Tuple[str, ...]) -> None:
+        """``Engine.fault_hook``: called under the engine lock with each
+        step section's members; the two step failpoints raise here."""
+        if self.failpoints.fire("worker.fault_step") is not None:
+            raise StepFaultInjected("worker.fault_step")
+        if self._fault_marked \
+                and self._fault_marked.intersection(member_rids) \
+                and self.failpoints.fire(
+                    "worker.fault_step_req") is not None:
+            raise StepFaultInjected("worker.fault_step_req")
+
+    def _contain_engine_fault(self, exc: BaseException,
+                              step_ms: float) -> bool:
+        """The fault boundary's recovery (JAX worker :1245-1317): the
+        faulted step's records under ``phase="fault"``, the breaker,
+        then the blame (nobody for a transient fault; by bisection for a
+        deterministic one), ``fault_reset``, the salvaged and probe
+        outputs to their streams and the blamed requests' typed errors.
+        True when contained; False when the breaker is open."""
+        eng = self.engine
+        self._record_step(step_ms, phase="fault")
+        now = time.monotonic()
+        self._fault_times.append(now)
+        while self._fault_times and \
+                now - self._fault_times[0] > self._fault_window_s:
+            self._fault_times.popleft()
+        if len(self._fault_times) > self._fault_limit:
+            self._m_faults.inc(model=self.opts.model, outcome="uncontained")
+            logger.error("engine fault breaker open (%d faults in %.0fs "
+                         "window): %s", len(self._fault_times),
+                         self._fault_window_s, exc)
+            return False
+        kind = _classify_step_fault(exc)
+        probe_outs: List[Tuple[List[StepOutput], float]] = []
+        with self._engine_lock:
+            live_ids = set(eng.live_request_ids())
+            suspects = [r for r in eng.step_members if r in live_ids] \
+                or sorted(live_ids)
+            # The completed sections' outputs: their tokens are already
+            # on the sequences.
+            salvaged = list(eng.last_step_partial_outs)
+            if kind == "transient":
+                blamed: List[str] = []
+                eng.fault_reset(())
+            else:
+                blamed, probe_outs = self._bisect_step_fault(eng, suspects)
+                eng.fault_reset(blamed)
+            self._fault_marked.difference_update(blamed)
+        outcome = ("transient_retry" if kind == "transient" else
+                   "culprit" if len(blamed) == 1 else
+                   "whole_batch" if blamed else
+                   # A deterministic fault no probe reproduced: nobody
+                   # blamed, retried in place.
+                   "transient_retry")
+        verdict = (f"{outcome} [{type(exc).__name__}: {exc}] "
+                   f"on {self.name}")
+        logger.warning("engine step fault contained (%s): blamed %s",
+                       outcome, blamed or "nobody")
+        blamed_set = set(blamed)
+        salvaged = [o for o in salvaged if o.request_id not in blamed_set]
+        if salvaged:
+            self._dispatch_outputs(salvaged)
+        for outs, _ms in probe_outs:
+            kept = [o for o in outs if o.request_id not in blamed_set]
+            if kept:
+                self._dispatch_outputs(kept)
+        self._m_faults.inc(model=self.opts.model, outcome=outcome)
+        if blamed:
+            self._fail_lives_engine_fault(blamed, verdict)
+        self._work.set()
+        return True
+
+    def _bisect_step_fault(self, eng, suspects: List[str]
+                           ) -> Tuple[List[str],
+                                      List[Tuple[List[StepOutput], float]]]:
+        """Blame by bisection (JAX worker :1319-1353): step the first half
+        of the suspects alone, within ``_fault_bisect_budget`` probes. A
+        faulting half narrows the suspects to it; a clean half is
+        exonerated (its probe's outputs are returned for dispatch). When
+        the budget runs out, the suspects left are blamed. Runs under
+        the engine lock."""
+        probe_outs: List[Tuple[List[StepOutput], float]] = []
+        budget = self._fault_bisect_budget
+        if len(suspects) <= 1 or budget <= 0:
+            return list(suspects), probe_outs
+        eng.fault_reset(())      # a known-good point before probing
+        while len(suspects) > 1 and budget > 0:
+            half = suspects[:max(1, len(suspects) // 2)]
+            budget -= 1
+            t0 = time.monotonic()
+            outs: List[StepOutput] = []
+            faulted = False
+            try:
+                eng.isolate(half)
+                outs = eng.step()
+            except Exception:  # noqa: BLE001 — the probe reproduced the
+                faulted = True  # fault: the suspects narrow to this half
+            finally:
+                eng.release_isolation()
+            if faulted:
+                eng.fault_reset(())
+                suspects = list(half)
+            else:
+                probe_outs.append((outs, 1000.0 * (time.monotonic() - t0)))
+                suspects = [r for r in suspects if r not in half]
+        return list(suspects), probe_outs
+
+    def _fail_lives_engine_fault(self, rids: List[str],
+                                 verdict: str) -> None:
+        """End the blamed requests with the typed ``engine_fault``
+        failure (JAX worker :1355-1384): a relayed request's consumer
+        gets ``_EngineFault``, a pushed one a finished output with an
+        INTERNAL ``engine_fault: <verdict>`` status. Their other choices
+        are cancelled."""
+        to_service: List[RequestOutput] = []
+        for rid in rids:
+            with self._live_lock:
+                live = self._live.get(rid)
+            if live is None:
+                continue
+            if live.stream_to_service:
+                to_service.append(RequestOutput(
+                    request_id=live.request_id,
+                    service_request_id=live.request_id,
+                    status=Status(StatusCode.INTERNAL,
+                                  f"engine_fault: {verdict}"),
+                    finished=True))
+            else:
+                live.q.put(_EngineFault(verdict))
+            self._finalize(live)
+        self._push_outputs_to_service(to_service)
+
+    def _dispatch_outputs(self, outs: List[StepOutput]) -> None:
+        """A step's outputs to their consumers: a relayed request's
+        queue, or one push of the wire outputs to the service."""
+        to_service: List[RequestOutput] = []
+        for out in outs:
+            with self._live_lock:
+                live = self._live.get(out.request_id)
+            if live is None:
+                continue
+            if not live.stream_to_service:
+                live.q.put(out)
+                if out.finished:
                     self._drop_live(out.request_id)
-                if live.finished:
-                    # A flush may have finished choices whose engine ids
-                    # were dropped already.
-                    with self._live_lock:
-                        self._live_srid.pop(live.request_id, None)
-            self._push_outputs_to_service(to_service)
+                continue
+            to_service.extend(self._process_step_output(live, out))
+            if out.finished or live.choices[
+                    live.choice_index(out.request_id)].finished:
+                self._drop_live(out.request_id)
+            if live.finished:
+                # A flush may have finished choices whose engine ids
+                # were dropped already.
+                with self._live_lock:
+                    self._live_srid.pop(live.request_id, None)
+        self._push_outputs_to_service(to_service)
 
     def _push_outputs_to_service(self, outs: List[RequestOutput]) -> None:
         """The RPC topology: one push of a step's outputs to the
@@ -915,6 +1273,21 @@ class Worker:
     # ------------------------------------------------------------------
     # Requests
     # ------------------------------------------------------------------
+    def generate_failpoints(self) -> None:
+        """The generate routes' injected faults (JAX worker :2174-2186),
+        no-ops unless armed: a delay, a hang (then a 503) or a
+        refusal."""
+        v = self.failpoints.fire("worker.slow_response_ms")
+        if v is not None:
+            self._stop.wait((float(v) if v is not True else 100.0) / 1000.0)
+        v = self.failpoints.fire("worker.hang_rpc")
+        if v is not None:
+            self._stop.wait(float(v) if v is not True else 3600.0)
+            raise HttpError(503, "hung rpc released (failpoint)",
+                            "unavailable")
+        if self.failpoints.fire("worker.refuse_generate") is not None:
+            raise HttpError(503, "refused by failpoint", "unavailable")
+
     def _parse_generate(self, body: Dict[str, Any],
                         is_chat: bool) -> _LiveRequest:
         if self.engine_error is not None:
@@ -967,7 +1340,16 @@ class Worker:
             stream_to_service=self._decode_to_service
             and bool(self.service_addr), n=n)
         live.target_n = max(1, sampling.n)
+        live.emit_token_ids = bool(body.get("ledger_tokens"))
+        # worker.fault_step_req marks a request at admission: a string
+        # value marks prompts that contain it, any other every request.
+        mark = self.failpoints.armed_value("worker.fault_step_req")
+        marked = mark is not None and (
+            not isinstance(mark, str)
+            or mark in self.tokenizer.decode(list(token_ids)))
         with self._engine_lock:
+            if marked:
+                self._fault_marked.update(live.engine_rids)
             added: List[str] = []
             try:
                 for k, erid in enumerate(live.engine_rids):
@@ -1137,6 +1519,9 @@ class Worker:
                       if not ch.finished]
         if unfinished:
             self._cancel(unfinished)
+        if self._fault_marked:
+            with self._engine_lock:
+                self._fault_marked.difference_update(live.engine_rids)
 
     def _next_output(self, live: _LiveRequest) -> StepOutput:
         try:
@@ -1147,12 +1532,18 @@ class Worker:
                             "timeout") from None
         if isinstance(out, _EngineDied):
             raise HttpError(500, out.message, "engine_fault")
+        if isinstance(out, _EngineFault):
+            # Blamed by the step fault boundary: the typed error the
+            # master counts as a poison strike.
+            raise HttpError(500, f"engine_fault: {out.verdict}",
+                            "engine_fault")
         return out
 
     def stream_sse(self, live: _LiveRequest) -> Iterator[bytes]:
         asm = (ChatStreamAssembler if live.is_chat
                else CompletionStreamAssembler)(
-            live.request_id, live.model, live.include_usage)
+            live.request_id, live.model, live.include_usage,
+            emit_token_ids=live.emit_token_ids)
         try:
             while not live.finished:
                 try:
@@ -1208,10 +1599,21 @@ def _handler_class(worker: Worker):
                                             "code": e.status}})
 
         def do_GET(self) -> None:
+            url = urlsplit(self.path)
             if self.path == "/hello":
                 self._json(200, {"ok": True})
             elif self.path == "/v1/models":
                 self._json(200, worker.models_body())
+            elif self.path == "/admin/failpoints":
+                self._json(200, worker.failpoints.state())
+            elif url.path == "/admin/steptrace":
+                q = parse_qs(url.query)
+                try:
+                    n = int((q.get("n") or ["0"])[0] or 0)
+                    window_s = float((q.get("seconds") or ["0"])[0] or 0)
+                except ValueError:
+                    n, window_s = 0, 0.0
+                self._json(200, worker.steptrace_body(n, window_s))
             elif self.path == "/metrics":
                 data = worker.metrics_text().encode()
                 self.send_response(200)
@@ -1226,7 +1628,8 @@ def _handler_class(worker: Worker):
         def do_POST(self) -> None:
             routes = {"/v1/completions": False,
                       "/v1/chat/completions": True}
-            if self.path not in routes and self.path != "/cancel":
+            if self.path not in routes and \
+                    self.path not in ("/cancel", "/admin/failpoint"):
                 self._error(HttpError(404, f"no route {self.path}"))
                 return
             try:
@@ -1238,6 +1641,15 @@ def _handler_class(worker: Worker):
                     self._json(200, {"ok": worker.cancel_request(
                         str(body.get("service_request_id", "")))})
                     return
+                if self.path == "/admin/failpoint":
+                    try:
+                        worker.failpoints.arm_from_body(body)
+                    except (TypeError, ValueError) as e:
+                        raise HttpError(400, str(e)) from e
+                    self._json(200, {"ok": True,
+                                     "state": worker.failpoints.state()})
+                    return
+                worker.generate_failpoints()
                 live = worker._parse_generate(body, routes[self.path])
             except json.JSONDecodeError:
                 self._error(HttpError(400, "invalid JSON body"))

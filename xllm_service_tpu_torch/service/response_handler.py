@@ -82,13 +82,22 @@ class _CompletionLogprobs:
 
 class ChatStreamAssembler:
     """Builds the chat-completion SSE chunk sequence for one request
-    (every choice index streams role → deltas → finish)."""
+    (every choice index streams role → deltas → finish).
+
+    ``emit_token_ids``: the relay's token ledger (the master sets
+    ``ledger_tokens`` on a forwarded body): every delta chunk carries its
+    engine token ids under a top-level ``"xllm"`` key, and a delta is
+    sent even when its text is empty, so that the master knows every
+    token delivered and can resume a broken stream on another worker.
+    The master strips the key before the client sees the chunk."""
 
     def __init__(self, request_id: str, model: str,
-                 include_usage: bool = False) -> None:
+                 include_usage: bool = False,
+                 emit_token_ids: bool = False) -> None:
         self.request_id = request_id
         self.model = model
         self.include_usage = include_usage
+        self.emit_token_ids = emit_token_ids
         self.created = _now()
         self._sent_role: set = set()
         self._usage = Usage()
@@ -117,12 +126,17 @@ class ChatStreamAssembler:
                 frames.append(sse_frame(
                     self._chunk({"role": "assistant"}, seq.index)))
                 self._sent_role.add(seq.index)
-            if seq.text or seq.logprobs:
+            if seq.text or seq.logprobs or (self.emit_token_ids
+                                            and seq.token_ids):
                 # A token whose text delta is empty (UTF-8 or stop-string
-                # holdback) still carries its logprob entry.
-                frames.append(sse_frame(self._chunk(
+                # holdback) still carries its logprob entry, and under
+                # the ledger its token ids.
+                chunk = self._chunk(
                     {"content": seq.text}, seq.index,
-                    logprobs=_chat_logprobs_json(seq.logprobs))))
+                    logprobs=_chat_logprobs_json(seq.logprobs))
+                if self.emit_token_ids and seq.token_ids:
+                    chunk["xllm"] = {"token_ids": list(seq.token_ids)}
+                frames.append(sse_frame(chunk))
             if seq.finish_reason != FinishReason.NONE:
                 frames.append(sse_frame(
                     self._chunk({}, seq.index, seq.finish_reason.openai)))
@@ -141,13 +155,16 @@ class ChatStreamAssembler:
 
 
 class CompletionStreamAssembler:
-    """Text-completion SSE chunks (response_handler.cpp:218-278)."""
+    """Text-completion SSE chunks (response_handler.cpp:218-278);
+    ``emit_token_ids`` as in ``ChatStreamAssembler``."""
 
     def __init__(self, request_id: str, model: str,
-                 include_usage: bool = False) -> None:
+                 include_usage: bool = False,
+                 emit_token_ids: bool = False) -> None:
         self.request_id = request_id
         self.model = model
         self.include_usage = include_usage
+        self.emit_token_ids = emit_token_ids
         self.created = _now()
         self._usage = Usage()
         self._lp: Dict[int, _CompletionLogprobs] = {}
@@ -184,9 +201,12 @@ class CompletionStreamAssembler:
                     "top_logprobs": acc.top_logprobs[before:],
                     "text_offset": acc.text_offset[before:],
                 }
-            if seq.text or seq.logprobs:
-                frames.append(sse_frame(
-                    self._chunk(seq.text, seq.index, logprobs=lp_json)))
+            if seq.text or seq.logprobs or (self.emit_token_ids
+                                            and seq.token_ids):
+                chunk = self._chunk(seq.text, seq.index, logprobs=lp_json)
+                if self.emit_token_ids and seq.token_ids:
+                    chunk["xllm"] = {"token_ids": list(seq.token_ids)}
+                frames.append(sse_frame(chunk))
             if seq.finish_reason != FinishReason.NONE:
                 frames.append(sse_frame(
                     self._chunk("", seq.index,
