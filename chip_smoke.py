@@ -157,8 +157,8 @@ Phases (any failure raises and the exit code is not 0):
    forward, graphs captured, speculation hits and rollbacks. Greedy
    streams with graphs on must equal graphs off; where not, the margins
    rule below decides, and a fault fails.
-5g. The same for DeepSeek-V2-Lite (27 layers).
-   Each worker's weights are freed before the next phase.
+5g. The same for DeepSeek-V2-Lite (27 layers). Each worker's weights
+   are freed before the next phase.
    Launch counts: a kernel captured in a CUDA graph counts once per
    replay (``ops/kernels/_launch.count_replay``), so the per-step checks
    hold in every mode (a burst step runs N decode forwards, 2N with a
@@ -272,7 +272,31 @@ Phases (any failure raises and the exit code is not 0):
    most its attention share; then the greedy round four times, recorder
    off and on alternately: the decode step medians and the recorder's
    host microseconds a step.
-10. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
+10. PD disaggregation (``pd_phase``, ``[pd]``): the reference store and
+   master as children, a llama3-1b PREFILL worker in-process (phase 5's
+   flags and seed) whose own round (phase 5's four requests and 16
+   streamed chats) is the reference before ``POST /flip_role`` makes it
+   PREFILL; the same round through the master by each transport: the
+   direct path to a DECODE worker in this process (once with the two
+   engines' steps serialized, for the launch checks, and once stepping
+   freely, for the migration time), then, to a DECODE
+   worker in a child process (``python -m
+   xllm_service_tpu_torch.runtime.worker``, its weights checked equal by
+   one stream), the CUDA IPC device wire, the chunked host shuttle and
+   the monolithic one. Every stream 32 tokens, equal to the reference or
+   drift under the margins rule; each transport's counter moved once a
+   request and no local decode happened; K2/K4 in every prefill replay
+   and K1/K3 in every decode replay (the child's from its ``/metrics``);
+   no eager step or capture after warmup; no held page left, free pages
+   back to their start. Then ``worker.fail_kv_transfer`` decodes one
+   request locally, one RPC round runs over the wire, and the roles
+   flipped serve one request the other way. A child process's pull of a
+   staged block is bit-equal (sha256), timed beside a device ``copy_``
+   and pinned D2H / H2D copies of the same bytes;
+   ``probe_kv_migration`` at 16 pages. Printed: KV bytes per request,
+   migration ms and GB/s per transport, TTFT and tokens/s per stream
+   under PD against the reference.
+11. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
    writers' launches from phase 5 (K1/K2 now 0), K5 from 5b, K6 (now 0),
    K7, K3', K4' and the dense all-layer mode from 5c, K3'' and the fused
    latent writers from 5d, the current form of K3'' and the latent
@@ -3230,20 +3254,22 @@ def _median(xs):
 # ---------------------------------------------------------------------------
 
 class RefProcess:
-    """A process of the reference package (the coordination store or the
-    master), started as ``python -m <module>`` from this checkout: the
-    script itself imports nothing of that package. Waits (bounded) for
-    the stdout line starting with ``marker``; stderr goes to ``log``."""
+    """A child process started as ``python -m <module>`` from this
+    checkout: the reference package's coordination store or master (the
+    script itself imports nothing of that package), or the port's worker
+    (phase 10), with ``env`` added to its environment. Waits (bounded)
+    for the stdout line starting with ``marker``; stderr goes to
+    ``log``."""
 
     def __init__(self, args, marker: str, log: Path,
-                 timeout: float = 60.0) -> None:
+                 timeout: float = 60.0, env=None) -> None:
         import queue
         self.log_path = log
         self._log = open(log, "w")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", *args], cwd=ROOT, text=True,
             stdout=subprocess.PIPE, stderr=self._log,
-            env={**os.environ, "PYTHONPATH": str(ROOT)})
+            env={**os.environ, **(env or {}), "PYTHONPATH": str(ROOT)})
         lines: "queue.Queue[str]" = queue.Queue()
 
         def drain() -> None:       # keeps the pipe from filling up
@@ -4846,6 +4872,692 @@ def fault_phase(torch, kernels, card: str, err: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: PD disaggregation
+# ---------------------------------------------------------------------------
+
+PD_MODEL, PD_DEVICE = "llama3-1b", "cuda"
+PD_ARGS = ["--page-size", "128", "--num-pages", "512", "--max-model-len",
+           "1024", "--max-batch-size", "8", "--prefill-buckets",
+           "128,256,512", "--max-prefill-tokens", "256",
+           "--heartbeat-interval-s", "0.5"]
+PD_ENV = {"XLLM_RAGGED_ATTN": "0", "XLLM_WRITE_THEN_ATTEND": "1",
+          "XLLM_CUDA_GRAPHS": "1"}
+# Sixteen streamed chats a round (two waves of eight), prompt lengths
+# distinct from each other and from phase 5's four requests (380, 250,
+# 120, 330), so that each request's tokens are known by its length.
+PD_CHATS = ((390, 260, 130, 340, 210, 310, 160, 410),
+            (370, 240, 110, 320, 190, 290, 140, 400))
+# The chunked shuttle's chunk budget in MB: a llama3-1b page (128
+# tokens) holds 256 KiB of K and V a layer, so a one-page prompt goes
+# out in 3 chunks of up to 7 layers and a four-page one in 16 of one.
+PD_CHUNK_MB = 2.0
+# The wire check's block: a 400-token prompt's KV, 4 pages of 128.
+PD_WIRE_PAGES = 4
+
+WIRE_CHILD = r"""
+import hashlib, json, sys, time
+import torch
+from xllm_service_tpu_torch.runtime import kv_wire
+tr = json.loads(sys.argv[1])
+t0 = time.perf_counter()
+k, v = kv_wire.pull_block(tr)
+first_ms = (time.perf_counter() - t0) * 1e3
+ms = []
+for _ in range(10):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k, v = kv_wire.pull_block(tr)
+    ms.append((time.perf_counter() - t0) * 1e3)
+h = hashlib.sha256()
+for t in (k, v):
+    h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+print(json.dumps({"sha256": h.hexdigest(), "first_pull_ms": first_ms,
+                  "pull_ms": sorted(ms)[len(ms) // 2]}))
+"""
+
+
+def _sha256(torch, *tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def wire_pull_check(torch, kv_wire, card: str) -> dict:
+    """A block staged on this process's CUDA IPC wire, pulled by a child
+    process (the check a process cannot make on its own handle): the
+    pulled bytes must be bit-equal (sha256) to the staged ones. Beside
+    it, on the card, the same bytes by a device ``copy_`` and by pinned
+    device-to-host and host-to-device copies (CUDA events around ten
+    back-to-back copies, the median of ten such timings)."""
+    shape = (16, PD_WIRE_PAGES, 128, 8, 64)          # llama3-1b pages
+    g = torch.Generator(device="cuda").manual_seed(10)
+    k = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    wire = kv_wire.get_device_wire()
+    if wire is None:
+        raise AssertionError("phase 10: no CUDA IPC wire on the card")
+    uuid = wire.stage(k, v)
+    torch.cuda.synchronize()
+    want = _sha256(torch, k, v)
+    try:
+        child = subprocess.run(
+            [sys.executable, "-c", WIRE_CHILD,
+             json.dumps(wire.ticket(uuid))], cwd=ROOT, text=True,
+            capture_output=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": str(ROOT)})
+    finally:
+        wire.release(uuid)
+    if child.returncode != 0:
+        raise AssertionError(f"phase 10: the wire's child failed: "
+                             f"{child.stderr[-2000:]}")
+    got = json.loads(child.stdout.strip().splitlines()[-1])
+    if got["sha256"] != want:
+        raise AssertionError("phase 10: the pulled block differs from "
+                             "the staged one")
+    nbytes = 2 * k.numel() * k.element_size()
+
+    def events_ms(fn) -> float:
+        """Median of 10 timings of 10 back-to-back calls, a call's ms."""
+        fn()
+        ms = []
+        for _ in range(10):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(10):
+                fn()
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b) / 10)
+        return sorted(ms)[5]
+
+    dst = torch.empty_like(k)
+    host = torch.empty(k.shape, dtype=k.dtype, pin_memory=True)
+    copy_ms = 2 * events_ms(lambda: dst.copy_(k))
+    d2h_ms = 2 * events_ms(lambda: host.copy_(k, non_blocking=True))
+    h2d_ms = 2 * events_ms(lambda: dst.copy_(host, non_blocking=True))
+    out = {"bytes": nbytes, "bit_equal": True,
+           "wire_pull_ms": got["pull_ms"],
+           "wire_first_pull_ms": got["first_pull_ms"],
+           "wire_gbps": nbytes / got["pull_ms"] / 1e6,
+           "device_copy_gbps": nbytes / copy_ms / 1e6,
+           "pinned_d2h_gbps": nbytes / d2h_ms / 1e6,
+           "pinned_h2d_gbps": nbytes / h2d_ms / 1e6}
+    log(f"[pd] {card}: wire pull of {nbytes} B (a 400-token prompt's KV) "
+        f"by another process, bit-equal; pull ms {got['pull_ms']:.4f} "
+        f"({out['wire_gbps']:.2f} GB/s; the first, mapping the segment, "
+        f"{got['first_pull_ms']:.2f} ms); yardsticks on the same bytes: "
+        f"device copy_ {out['device_copy_gbps']:.1f} GB/s, pinned D2H "
+        f"{out['pinned_d2h_gbps']:.1f} GB/s, pinned H2D "
+        f"{out['pinned_h2d_gbps']:.1f} GB/s")
+    return out
+
+
+def _metric_rows(addr: str) -> dict:
+    """A worker's /metrics as {(name, frozenset of label pairs): value}."""
+    host, port = addr.rsplit(":", 1)
+    conn = HTTPConnection(host, int(port), timeout=30)
+    try:
+        conn.request("GET", "/metrics")
+        text = conn.getresponse().read().decode()
+    finally:
+        conn.close()
+    rows = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, value = line.rsplit(" ", 1)
+        name, labels = head, frozenset()
+        if "{" in head:
+            name, rest = head.split("{", 1)
+            labels = frozenset(
+                tuple(p.split("=", 1)) for p in rest.rstrip("}").split(",")
+                if p)
+            labels = frozenset((a, b.strip('"')) for a, b in labels)
+        rows[(name, labels)] = float(value)
+    return rows
+
+
+def _metric(rows: dict, name: str, **labels) -> float:
+    want = set(labels.items())
+    return sum(v for (n, ls), v in rows.items()
+               if n == name and want <= set(ls))
+
+
+def _pd_stream_stats(r) -> tuple:
+    """A streamed chat's TTFT (ms) and decode tokens/s (31 gaps, from the
+    first content frame to the finish frame); its usage must count 32
+    tokens."""
+    if r.get("status") != 200:
+        raise AssertionError(f"phase 10: reply {r.get('status')}: {r}")
+    frames = r["frames"]
+    if not frames or frames[-1] != "data: [DONE]":
+        raise AssertionError(f"phase 10: stream ended {frames[-2:]}")
+    first = last = None
+    usage = None
+    for i, f in enumerate(frames[:-1]):
+        o = json.loads(f[len("data: "):])
+        usage = o.get("usage") or usage
+        for c in o.get("choices") or []:
+            if first is None and "content" in c.get("delta", {}):
+                first = i
+            if c.get("finish_reason"):
+                last = i
+    if not usage or usage["completion_tokens"] != 32 or first is None \
+            or last is None:
+        raise AssertionError(f"phase 10: stream usage {usage}")
+    t0, t1 = r["times"][first], r["times"][last]
+    return t0 * 1e3, 31 / max(t1 - t0, 1e-9)
+
+
+class _RelayTee:
+    """The token ids of every RequestOutput frame the prefill worker
+    relays from its decode worker, by request id (a wrapper of the
+    worker module's ``iter_sse_events``)."""
+
+    def __init__(self, worker_mod) -> None:
+        self.tokens, inner = {}, worker_mod.iter_sse_events
+
+        def tee(chunks):
+            for payload in inner(chunks):
+                if payload != "[DONE]":
+                    o = json.loads(payload)
+                    for s in o.get("outputs") or []:
+                        self.tokens.setdefault(o["request_id"], []).extend(
+                            s.get("token_ids") or [])
+                yield payload
+        worker_mod.iter_sse_events = tee
+        self._undo = lambda: setattr(worker_mod, "iter_sse_events", inner)
+
+    def close(self) -> None:
+        self._undo()
+
+
+def pd_phase(torch, kernels, card: str, err: float) -> dict:
+    """Phase 10: PD disaggregation behind the reference master. The store
+    and master run as child processes (as in phase 6); the PREFILL
+    worker P (llama3-1b at phase 5's flags, random weights from the
+    engine's seed) runs in-process. Its first round, sent straight to
+    it while it is registered DEFAULT, is the reference: phase 5's four
+    requests and 16 streamed chats (``PD_CHATS``), 32 greedy tokens
+    each. Then ``POST /flip_role`` makes it PREFILL (the master's books
+    follow) and the same round runs through the master once per
+    transport:
+
+    - direct: a DECODE worker D1 in this process, twice: first with the
+      steps of P and D1 serialized, so that each step's launch counts
+      are its own (``direct_serialized``), then stepping freely, which
+      gives the direct path's migration time (the serialized round's
+      holds waits for the other engine's step) and the export's and
+      the import's own times; ``probe_kv_migration`` at 16 pages
+      between their engines;
+    - after D1 leaves, a DECODE worker D2 as a child process
+      (``python -m xllm_service_tpu_torch.runtime.worker --instance-type
+      DECODE``) with the same seed; one greedy stream straight to D2
+      must equal P's (the same weights); then the CUDA IPC device wire,
+      the chunked host shuttle (``PD_CHUNK_MB``) and the monolithic one.
+
+    Checks, each round: every stream 32 tokens, equal to the reference
+    or diverging as drift under the margins rule; the transport's
+    counter moved once a request and no other, and P never decoded
+    locally (a silent fallback fails); P's steps (and D1's) launch the
+    kernels they must (K2/K4 each prefill replay, K1/K3 each decode
+    replay), and D2's /metrics count K1 and K3 16 times a decode step
+    and no prefill kernel; no step eager, no capture after warmup, on
+    every worker; no held pages, P's and D1's free pages back to their
+    start and D2's KV usage 0. Then one request with
+    ``worker.fail_kv_transfer`` armed decodes on P; one RPC round (the
+    master replaced by one in the RPC topology, which both workers
+    follow) over the wire; and the roles flipped (P to DECODE, D2 to
+    PREFILL) serve one more request over the wire the other way. The
+    wire's block is checked bit-equal by a child process's pull
+    (``wire_pull_check``), beside the card's copy yardsticks. Printed:
+    KV bytes per request, migration ms and GB/s per transport, TTFT and
+    tokens/s per stream under PD against the reference."""
+    from xllm_service_tpu_torch.runtime import kv_transfer, kv_wire, worker
+    logs = ROOT / "build" / "pd_logs"
+    logs.mkdir(parents=True, exist_ok=True)
+    procs, live_workers, out = [], [], {}
+    tee = None
+
+    def argv(role, store_addr, rpc):
+        return ["--model", PD_MODEL, "--device", PD_DEVICE, *PD_ARGS,
+                "--instance-type", role, "--store-addr", store_addr,
+                "--service-addr", rpc]
+
+    try:
+        store = RefProcess(["xllm_service_tpu.service.coordination_net",
+                            "--port", "0"],
+                           "coordination store serving on",
+                           logs / "store.log")
+        procs.append(store)
+        store_addr = store.line.split()[-1]
+        master, m_http, m_rpc = start_master(store_addr, False,
+                                             logs / "master_relay.log")
+        procs.append(master)
+        p, p_s = _start(worker, argv("DEFAULT", store_addr, m_rpc), PD_ENV)
+        live_workers.append(p)
+        eng = p.engine
+        layers = eng.cfg.num_layers
+        start_free = eng.allocator.num_free + eng.prefix_cache.num_reclaimable
+        wait_for(lambda: p.name in listed(m_rpc), 60.0,
+                 "P on the master's list")
+        rng = random.Random(10)
+        plan_ids = [_token_ids(p.tokenizer, rng, n)
+                    for _, _, n in SERVE_PLAN]
+        chat_ids = [[_token_ids(p.tokenizer, rng, n) for n in wave]
+                    for wave in PD_CHATS]
+        prompts = {len(ids): ids for ids in plan_ids}
+        prompts.update({len(ids): ids for w in chat_ids for ids in w})
+        assert len(prompts) == 4 + 16, "prompt lengths must be distinct"
+        steplog_p = StepLog(eng, kernels)
+        # Each engine request's prompt length, by request id.
+        srid_len = {}
+        p_add = eng.add_request
+
+        def noted_add(req):
+            srid_len[req.request_id] = len(req.token_ids)
+            return p_add(req)
+        eng.add_request = noted_add
+        imports_p = [0]
+        p_import = eng.import_sequence
+
+        def counted_import(*a, **k):
+            imports_p[0] += 1
+            return p_import(*a, **k)
+        eng.import_sequence = counted_import
+
+        def plan_bodies():
+            bodies = []
+            for (path, stream, n), ids in zip(SERVE_PLAN, plan_ids):
+                body = {"model": PD_MODEL, "max_tokens": 32,
+                        "temperature": 0.0, "ignore_eos": True,
+                        "stream": stream, "token_ids": list(ids)}
+                if path.endswith("chat/completions"):
+                    body["messages"] = [{"role": "user", "content": "x"}]
+                else:
+                    body["prompt"] = "x"
+                if stream:
+                    body["stream_options"] = {"include_usage": True}
+                    body["logprobs"] = True
+                bodies.append(body)
+            return bodies
+
+        def run_round(addr) -> dict:
+            """Phase 5's four requests at once, then the chats in two
+            waves of eight; returns the chats' (TTFT, tokens/s)."""
+            results, _ = run_concurrent(addr, plan_bodies())
+            for (path, stream, n), r in zip(SERVE_PLAN, results):
+                if stream:
+                    _pd_stream_stats(r)
+                elif r.get("status") != 200 or \
+                        r["body"]["usage"]["completion_tokens"] != 32:
+                    raise AssertionError(f"phase 10: {path}: {r}")
+            stats = []
+            for wave in chat_ids:
+                for r in _concurrent(addr, [_chat_body(ids)
+                                            for ids in wave]):
+                    stats.append(_pd_stream_stats(r))
+            return chat_summary(stats)
+
+        def counters():
+            return (p.kv_migration_direct, p.kv_migration_device_wire,
+                    p.kv_migration_chunked, p.kv_migration_bytes,
+                    p.kv_migration_seconds)
+
+        def census_clean(w, tag):
+            rep = w.engine.capture_report()
+            if rep["captures_after_warmup"] or rep["eager_steps"]:
+                raise AssertionError(f"phase 10 {tag}: captures after "
+                                     f"warmup {rep['captures_after_warmup']},"
+                                     f" eager steps {rep['eager_steps']}")
+
+        def pages_back(w, start, tag):
+            e = w.engine
+            ok = wait_for(lambda: not e.has_work(), 60.0, f"{tag} idle")
+            free = e.allocator.num_free + e.prefix_cache.num_reclaimable
+            if not ok or e.num_held or free != start:
+                raise AssertionError(f"phase 10 {tag}: held {e.num_held}, "
+                                     f"free pages {free} of {start}")
+
+        # The reference: P serves the round itself, as a DEFAULT worker.
+        steplog_p.clear()
+        kernels.reset_launch_counts()
+        out["reference"] = run_round(p.name)
+        torch.cuda.synchronize()
+        check_step_launches(steplog_p.rows, kernels.launch_counts(), layers,
+                            False, True, False)
+        ref = {n: list(t) for n, t in steplog_p.tokens.items()}
+        if sorted(ref) != sorted(prompts) or \
+                any(len(t) != 32 for t in ref.values()):
+            raise AssertionError("phase 10: the reference round")
+        # The role flip, followed by the master.
+        status = {}
+        _request(p.name, "/flip_role", {"instance_type": "PREFILL"},
+                 False, status)
+        if status.get("status") != 200:
+            raise AssertionError(f"phase 10: /flip_role {status}")
+        wait_for(lambda: (_get(m_rpc, f"/rpc/instance_info?name={p.name}")
+                          [1] or {}).get("instance_type") == "PREFILL",
+                 30.0, "the master's books on P's new role")
+
+        margins = []
+
+        def check_streams(tag, got, where, keys=None):
+            """``got`` (tokens by prompt length, every key of ``keys``,
+            default all) equal to the reference, or drift; returns the
+            count of equal streams."""
+            keys = sorted(ref if keys is None else keys)
+            if sorted(got) != keys or \
+                    any(len(t) != 32 for t in got.values()):
+                raise AssertionError(
+                    f"phase 10 {tag}: streams "
+                    f"{ {n: len(t) for n, t in got.items()} }")
+            path = {"ragged": False, "write_then_attend": True}
+            m = divergence_margins(torch, where.engine,
+                                   [(f"pd_{tag}", {n: ref[n] for n in keys},
+                                     path, got, path, prompts)], err)
+            if any(x["verdict"] == "fault" for x in m):
+                raise AssertionError(f"phase 10 {tag}: divergence past "
+                                     f"the margin rule: {m}")
+            margins.extend(m)
+            return sum(got[n] == ref[n] for n in keys)
+
+        def transport_round(tag, idx, decode_logs, launches=True) -> dict:
+            """One round through the master: the transport ``idx`` of
+            ``counters()`` (None: the monolithic shuttle, which has no
+            counter of its own) moves once a request and no other does;
+            P never decodes locally. ``launches``: each step's kernel
+            launches are checked (steps of two engines in this process
+            must then be serialized)."""
+            before = counters()
+            steplog_p.clear()
+            srid_len.clear()
+            if tee is not None:
+                tee.tokens.clear()
+            for s in decode_logs:
+                s.clear()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            chats = run_round(m_http)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            if launches:
+                rows = steplog_p.rows + [r for s in decode_logs
+                                         for r in s.rows]
+                check_step_launches(rows, kernels.launch_counts(), layers,
+                                    False, True, False)
+            after = counters()
+            moved = [after[i] - before[i] for i in range(3)]
+            want = [0, 0, 0]
+            if idx is not None:
+                want[idx] = 20
+            nbytes, secs = after[3] - before[3], after[4] - before[4]
+            if moved != want or imports_p[0] or nbytes <= 0:
+                raise AssertionError(f"phase 10 {tag}: transports moved "
+                                     f"{moved}, want {want}; local "
+                                     f"decodes on P {imports_p[0]}; "
+                                     f"{nbytes} B")
+            return {"chats": chats, "round_s": wall,
+                    "kv_bytes_per_request": nbytes / 20,
+                    "migration_ms_per_request": 1e3 * secs / 20,
+                    "migration_gbps": nbytes / secs / 1e9}
+
+        # Direct: D1 in this process.
+        d1, d1_s = _start(worker, argv("DECODE", store_addr, m_rpc), PD_ENV)
+        live_workers.append(d1)
+        out["worker_start_s"] = {"prefill": p_s, "decode_direct": d1_s}
+        d1_free = d1.engine.allocator.num_free + \
+            d1.engine.prefix_cache.num_reclaimable
+        wait_for(lambda: _get(m_rpc, "/rpc/static_decode_list")[1].get(
+            "instances") == [d1.name], 60.0, "D1 on the decode list")
+        steplog_d1 = StepLog(d1.engine, kernels)
+        p_step, d1_step = eng.step, d1.engine.step
+        d1_import = d1.engine.import_sequence
+        serial = threading.Lock()
+        for e in (eng, d1.engine):
+            inner = e.step
+
+            def step(inner=inner):
+                with serial:
+                    return inner()
+            e.step = step
+        out["direct_serialized"] = transport_round("direct", 0,
+                                                   [steplog_d1])
+        got = {n: steplog_p.tokens.get(n, []) + steplog_d1.tokens.get(n, [])
+               for n in ref}
+        out["direct_serialized"]["equal_streams"] = check_streams(
+            "direct", got, p)
+        # The same round with the engines stepping freely: its migration
+        # time holds no wait for the other engine's step (the serialized
+        # round's does, up to two steps a request). The export and the
+        # import are also timed alone, each until the device is done.
+        eng.step, d1.engine.step = p_step, d1_step
+        handoff = {"export": 0.0, "import": 0.0}
+
+        def timed(fn, key):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                r = fn(*a, **k)
+                torch.cuda.synchronize()
+                handoff[key] += time.perf_counter() - t0
+                return r
+            return call
+        p_export = eng.export_held
+        eng.export_held = timed(p_export, "export")
+        d1.engine.import_sequence = timed(d1_import, "import")
+        try:
+            out["direct"] = transport_round("direct", 0, [steplog_d1],
+                                            launches=False)
+        finally:
+            eng.export_held = p_export
+            d1.engine.import_sequence = d1_import
+        got = {n: steplog_p.tokens.get(n, []) + steplog_d1.tokens.get(n, [])
+               for n in ref}
+        out["direct"]["equal_streams"] = check_streams("direct", got, p)
+        out["direct"]["export_ms_per_request"] = 1e3 * handoff["export"] / 20
+        out["direct"]["import_ms_per_request"] = 1e3 * handoff["import"] / 20
+        census_clean(d1, "D1")
+        pages_back(d1, d1_free, "D1")
+        out["probe_kv_migration"] = kv_transfer.probe_kv_migration(
+            eng, d1.engine, n_pages=16, iters=5)
+        d1.stop()
+        live_workers.remove(d1)
+        del d1, steplog_d1
+        free_device_memory(torch)
+
+        # D2: a DECODE worker in a child process, the same seed.
+        d2 = RefProcess(["xllm_service_tpu_torch.runtime.worker",
+                         *argv("DECODE", store_addr, m_rpc)],
+                        "XLLM_TORCH_WORKER_UP", logs / "decode_child.log",
+                        timeout=300.0, env=PD_ENV)
+        procs.append(d2)
+        d2_addr = d2.line.split("http=")[-1]
+        wait_for(lambda: _get(m_rpc, "/rpc/static_decode_list")[1].get(
+            "instances") == [d2_addr], 60.0, "D2 on the decode list")
+        one = {}
+        n0 = len(chat_ids[0][2])
+        _request(d2_addr, CHAT, {**_chat_body(chat_ids[0][2]),
+                                 "ledger_tokens": True}, True, one)
+        d2_tokens = [t for f in one["frames"][:-1]
+                     for t in (json.loads(f[6:]).get("xllm") or {})
+                     .get("token_ids", [])]
+        if d2_tokens != ref[n0]:
+            raise AssertionError("phase 10: D2's weights differ from P's "
+                                 f"({d2_tokens[:8]} vs {ref[n0][:8]})")
+        tee = _RelayTee(worker)
+        for tag, idx, wire_on, chunk_mb in (
+                ("device_wire", 1, True, 0.0),
+                ("chunked", 2, False, PD_CHUNK_MB),
+                ("monolithic", None, False, 0.0)):
+            p.opts.pd_device_wire = wire_on
+            p._kv_shuttle_chunk_mb = chunk_mb
+            m0 = _metric_rows(d2_addr)
+            res = transport_round(tag, idx, [])
+            m1 = _metric_rows(d2_addr)
+            # The relay's frames by request, the first of them the
+            # migrated first token.
+            got = {srid_len[rid]: toks for rid, toks in tee.tokens.items()}
+            res["equal_streams"] = check_streams(tag, got, p)
+            dsteps = _metric(m1, "xllm_worker_steps_total", phase="decode") \
+                - _metric(m0, "xllm_worker_steps_total", phase="decode")
+            other = sum(_metric(m1, "xllm_worker_steps_total", phase=ph)
+                        - _metric(m0, "xllm_worker_steps_total", phase=ph)
+                        for ph in ("prefill", "mixed"))
+            launches = {k: _metric(m1, "xllm_worker_kernel_launches",
+                                   kernel=k)
+                        - _metric(m0, "xllm_worker_kernel_launches", kernel=k)
+                        for k in ("rope_kv_update_layer",
+                                  "paged_decode_attention",
+                                  "rope_prefill_kv_update_layer",
+                                  "paged_prefill_attention")}
+            if other or dsteps <= 0 or \
+                    launches["rope_kv_update_layer"] != layers * dsteps or \
+                    launches["paged_decode_attention"] != layers * dsteps or \
+                    launches["rope_prefill_kv_update_layer"] or \
+                    launches["paged_prefill_attention"]:
+                raise AssertionError(f"phase 10 {tag}: D2 ran {dsteps} "
+                                     f"decode and {other} other steps, "
+                                     f"launches {launches}")
+            res["decode_worker_steps"] = dsteps
+            out[tag] = res
+        for name in ("xllm_worker_eager_steps_total",
+                     "xllm_worker_recompiles_total"):
+            if _metric(m1, name):
+                raise AssertionError(f"phase 10: D2 {name} "
+                                     f"{_metric(m1, name)}")
+        if _metric(m1, "xllm_worker_kv_cache_usage") != 0.0:
+            raise AssertionError("phase 10: D2 holds KV after the rounds")
+
+        # One armed worker.fail_kv_transfer: P decodes locally.
+        armed = {}
+        _request(p.name, "/admin/failpoint",
+                 {"name": "worker.fail_kv_transfer", "mode": "count",
+                  "n": 1}, False, armed)
+        steplog_p.clear()
+        failed = {}
+        n1 = len(plan_ids[2])
+        _request(m_http, CHAT, _chat_body(plan_ids[2]), True, failed)
+        _pd_stream_stats(failed)
+        if imports_p[0] != 1:
+            raise AssertionError(f"phase 10: fail_kv_transfer: local "
+                                 f"decodes {imports_p[0]}")
+        check_streams("fail_kv_transfer", {n1: steplog_p.tokens.get(n1)},
+                      p, [n1])
+        imports_p[0] = 0
+        out["fail_kv_transfer_local_decode"] = True
+
+        # The RPC topology: the relay master replaced; both workers
+        # follow the store's advertised address.
+        master.stop()
+        procs.remove(master)
+        rpc_master, r_http, r_rpc = start_master(store_addr, True,
+                                                 logs / "master_rpc.log")
+        procs.append(rpc_master)
+        wait_for(lambda: p.service_addr == r_rpc and p._decode_to_service,
+                 60.0, "P following the RPC master")
+        wait_for(lambda: _get(r_rpc, "/rpc/static_decode_list")[1].get(
+            "instances") == [d2_addr] and p.name in listed(r_rpc), 60.0,
+            "both workers on the RPC master")
+        time.sleep(2.0)          # D2's beats fetch the new topology
+        p.opts.pd_device_wire = True
+        before = counters()
+        results, rpc_wall = run_concurrent(r_http, plan_bodies())
+        for (path, stream, n), r in zip(SERVE_PLAN, results):
+            if stream:
+                _pd_stream_stats(r)
+            elif r.get("status") != 200 or \
+                    r["body"]["usage"]["completion_tokens"] != 32:
+                raise AssertionError(f"phase 10 rpc: {path}: {r}")
+        if counters()[1] - before[1] != 4 or imports_p[0]:
+            raise AssertionError("phase 10 rpc: not over the wire")
+        out["rpc_round_s"] = rpc_wall
+
+        # The roles flipped: D2 prefills, P decodes, over the wire.
+        for addr, role in ((p.name, "DECODE"), (d2_addr, "PREFILL")):
+            st = {}
+            _request(addr, "/flip_role", {"instance_type": role}, False, st)
+            if st.get("status") != 200:
+                raise AssertionError(f"phase 10: flip {addr}: {st}")
+        wait_for(lambda: _get(r_rpc, "/rpc/static_decode_list")[1].get(
+            "instances") == [p.name] and _get(
+            r_rpc, "/rpc/static_prefill_list")[1].get("instances")
+            == [d2_addr], 60.0, "the master's lists after the flips")
+        firsts = []
+        adopt = p.adopt_migrated
+
+        def noted_adopt(meta, k, v):
+            firsts.append(int(meta["tokens"][-1]))
+            return adopt(meta, k, v)
+        p.adopt_migrated = noted_adopt
+        pulls = [0]
+        pull = kv_wire.pull_block
+
+        def counted_pull(tr):
+            pulls[0] += 1
+            return pull(tr)
+        kv_wire.pull_block = counted_pull
+        try:
+            steplog_p.clear()
+            flipped = {}
+            _request(r_http, CHAT, _chat_body(chat_ids[1][0]), True,
+                     flipped)
+            _pd_stream_stats(flipped)
+        finally:
+            kv_wire.pull_block = pull
+        n2 = len(chat_ids[1][0])
+        if pulls[0] != 1 or len(firsts) != 1:
+            raise AssertionError(f"phase 10: flipped roles: pulls "
+                                 f"{pulls[0]}, adoptions {len(firsts)}")
+        check_streams("flipped", {n2: firsts + steplog_p.tokens.get(n2, [])},
+                      p, [n2])
+        out["flip_role_followed"] = True
+        census_clean(p, "P")
+        pages_back(p, start_free, "P")
+        out["wire_check"] = wire_pull_check(torch, kv_wire, card)
+    finally:
+        if tee is not None:
+            tee.close()
+        for w in live_workers:
+            try:
+                w.stop()
+            except Exception as e:  # noqa: BLE001 — teardown goes on
+                log(f"phase 10: stopping a worker: {e}")
+        for proc in procs:
+            proc.stop()
+    out["margins"] = margins
+    rounds = ("direct_serialized", "direct", "device_wire", "chunked",
+              "monolithic")
+    out["equal_token_streams"] = {t: out[t]["equal_streams"]
+                                  for t in rounds}
+    ref_c = out["reference"]
+    rows = []
+    for t in rounds:
+        r = out[t]
+        rows.append(f"{t}: {r['kv_bytes_per_request']:.0f} B/request, "
+                    f"{r['migration_ms_per_request']:.3f} ms, "
+                    f"{r['migration_gbps']:.3f} GB/s, TTFT ms median "
+                    f"{r['chats']['ttft_ms_median']:.1f}, tokens/s median "
+                    f"{r['chats']['decode_tokens_per_s_median']:.1f}")
+    pr, dr = out["probe_kv_migration"], out["direct"]
+    rows.append(f"direct's export {dr['export_ms_per_request']:.3f} ms and "
+                f"import {dr['import_ms_per_request']:.3f} ms a request "
+                f"(each until the device is done)")
+    log(f"[pd] {card}: reference (DEFAULT) TTFT ms median "
+        f"{ref_c['ttft_ms_median']:.1f}, tokens/s median "
+        f"{ref_c['decode_tokens_per_s_median']:.1f}; " + "; ".join(rows))
+    log(f"[pd] {card}: probe_kv_migration at {pr['pages']:.0f} pages "
+        f"({pr['bytes']:.0f} B): direct {pr['direct_gbps']:.2f}, host "
+        f"{pr['host_gbps']:.2f}, host pipelined "
+        f"{pr['host_pipelined_gbps']:.2f} GB/s; equal streams "
+        f"{out['equal_token_streams']} of 20; margins {json.dumps(margins)}")
+    log(f"[pd] detail {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5081,6 +5793,10 @@ def main() -> int:
     faulted = fault_phase(torch, kernels, card, err)
     free_device_memory(torch)
     mark("9_faults")
+    # 10. PD disaggregation behind the reference master.
+    disaggregated = pd_phase(torch, kernels, card, err)
+    free_device_memory(torch)
+    mark("10_pd")
     margins = served_c["on_engine"] + served_e["on_engine"]
     for phase in (served, served_b, served_c, served_d, served_e):
         phase.pop("prompts")
@@ -5091,7 +5807,7 @@ def main() -> int:
         f"largest logit error, llama3-1b {err}, deepseek-v2-lite "
         f"{err_mla}): {json.dumps(margins)}")
 
-    # 10. Summary.
+    # 11. Summary.
     for r in bench.results:
         name = r.get("entry", r["name"])       # a record at another shape
         phase = (served_b if name == "ragged_paged_attention" else
@@ -5115,7 +5831,7 @@ def main() -> int:
                "cluster": clustered,
                "prefix_reuse": prefixed, "spill_restore": spilled,
                "cluster_cache_aware": routed, "sampling": sampled,
-               "faults": faulted,
+               "faults": faulted, "pd": disaggregated,
                "graph_decode_check": {"llama3-1b": graph,
                                       "deepseek-v2-lite": graph_mla},
                "warmup_ladders": ladders,

@@ -216,9 +216,9 @@ def test_multi_to_single_fallback_no_kv_hole():
     seen = {}
     finish = eng._finish_seq
 
-    def keep(seq):
+    def keep(seq, reason):
         seen["pages"], seen["tokens"] = list(seq.pages), list(seq.tokens)
-        finish(seq)
+        finish(seq, reason)
     eng._finish_seq = keep
     out = _run(eng, [_req("r", range(1, 7), 12)])["r"]
     assert len(seen["tokens"]) == 16 and len(out[0]) == 10

@@ -41,6 +41,7 @@ from xllm_service_tpu.config import LoadBalancePolicyType, ServiceOptions
 from xllm_service_tpu.config import ModelConfig as JaxModelConfig
 from xllm_service_tpu.models import transformer as jtf
 from xllm_service_tpu.obs.failpoints import FAILPOINTS
+from xllm_service_tpu.runtime import engine as jax_engine_mod
 from xllm_service_tpu.runtime import worker as jax_worker
 from xllm_service_tpu.runtime.engine import Engine as JaxEngine
 from xllm_service_tpu.runtime.engine import EngineRequest as JaxRequest
@@ -53,6 +54,7 @@ from xllm_service_tpu.utils.types import SamplingParams as JaxSampling
 from xllm_service_tpu_torch.config import (EngineConfig, InstanceType,
                                            ModelConfig)
 from xllm_service_tpu_torch.models.weights import params_from_jax
+from xllm_service_tpu_torch.runtime import engine as torch_engine_mod
 from xllm_service_tpu_torch.runtime import worker as torch_worker
 from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
 from xllm_service_tpu_torch.utils.types import SamplingParams
@@ -204,6 +206,59 @@ def weights():
     return jcfg, tcfg, jparams, tparams
 
 
+class StepClock:
+    """The ``time`` an engine module reads, advanced by ``STEP_MS`` per
+    ``Engine.step()``: the starvation deadline (``prefill_deadline_ms``)
+    then falls on the same step of two engines whatever the host's load.
+    Every other attribute is the real ``time`` module's."""
+
+    STEP_MS = 250.0
+
+    def __init__(self) -> None:
+        self.t = 1000.0
+
+    def monotonic(self) -> float:
+        return self.t
+
+    perf_counter = monotonic
+
+    def tick(self) -> None:
+        self.t += self.STEP_MS / 1000.0
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+@pytest.fixture()
+def step_clock(monkeypatch):
+    """A ``StepClock`` in both engine modules, ticked before each step;
+    each engine counts ``quantum_steps``, the steps whose prefill budget
+    the starvation quantum raised (decode had left less than it)."""
+    clocks = {}
+    for mod in (jax_engine_mod, torch_engine_mod):
+        clock = clocks[mod] = StepClock()
+        monkeypatch.setattr(mod, "time", clock)
+        cls = mod.Engine
+
+        def step(self, _orig=cls.step, _clock=clock):
+            _clock.tick()
+            self._quantum_raised = False
+            outs = _orig(self)
+            if self._quantum_raised:
+                self.quantum_steps = getattr(self, "quantum_steps", 0) + 1
+            return outs
+
+        def quantum(self, _orig=cls._starvation_quantum):
+            q = _orig(self)
+            if q > self.step_token_budget - self.last_step_decode_tokens:
+                self._quantum_raised = True
+            return q
+
+        monkeypatch.setattr(cls, "step", step)
+        monkeypatch.setattr(cls, "_starvation_quantum", quantum)
+    return clocks
+
+
 def _engines(weights, kw):
     jcfg, tcfg, jparams, tparams = weights
     kw = {**ENGINE, **kw, "enable_prefix_cache": True}
@@ -302,7 +357,8 @@ FAULT_RUNS = [(m, src) for m in sorted(MODES)
 
 @pytest.mark.parametrize("mode,source", FAULT_RUNS,
                          ids=[f"{m}-{s}" for m, s in FAULT_RUNS])
-def test_engine_fault_recovery_matches_jax(weights, mode, source):
+def test_engine_fault_recovery_matches_jax(weights, step_clock, mode,
+                                          source):
     jeng, teng = _engines(weights, MODES[mode])
     plan = [SEED_FAULT if p[1] == "x" and source == "seed" else p
             for p in PLAN]
@@ -336,6 +392,14 @@ def test_engine_fault_recovery_matches_jax(weights, mode, source):
         == ENGINE["num_pages"] - 1
     assert all(s is None for s in teng._slots)
     assert teng.num_preemptions > 0
+    assert getattr(teng, "quantum_steps", 0) \
+        == getattr(jeng, "quantum_steps", 0)
+    if (mode, source) == ("burst4", "decode"):
+        # Fused bursts of 4 leave less of the 16-token budget than the
+        # smallest bucket: a waiting prompt prefills on the quantum. (The
+        # earlier faults of the other sources requeue the batch before
+        # its decode grows that far.)
+        assert teng.quantum_steps >= 1
 
 
 def test_fault_reset_keeps_the_runners_buffers(weights):

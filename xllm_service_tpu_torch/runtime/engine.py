@@ -71,6 +71,16 @@ NULL page 0, which every kernel reads only in window-masked lanes.
 A sequence finishes on EOS, a stop token id, ``max_tokens`` or
 ``max_model_len``; its slot is freed and its pages are released then.
 
+PD disaggregation, as the JAX engine hands a sequence over: a request
+with ``hold_after_finish`` (a PREFILL worker's, sampling its first token
+only) keeps its pages when it finishes, unless it was cancelled;
+``export_held`` gathers their K/V ([L, n, page_size, H, D] from each
+pool, both pools of an MLA model as the JAX engine ships them) and
+releases them, ``drop_held`` releases them unread, and
+``import_sequence`` adopts such a block on the decode side as a RUNNING
+sequence with the first token still to be written. The gather and the
+scatter are plain tensor indexing, as the JAX engine's are XLA.
+
 Decode runs through ``runtime/decode_graph.py``: one CUDA graph per
 (table width, steps, sampling mode), captured by ``warmup()`` (or at a
 key's first use), as the JAX engine compiles its decode programs. With
@@ -196,6 +206,9 @@ class EngineRequest:
     # alone, through the prompt-scoring graph, and skips prefix-cache
     # hits (cached positions are never scored).
     prompt_logprobs: bool = False
+    # PD disaggregation: keep the pages resident after the finish, for
+    # ``export_held`` to hand the KV to a decode worker.
+    hold_after_finish: bool = False
 
 
 class SeqStatus(enum.Enum):
@@ -305,6 +318,8 @@ class Engine:
         self._slots: List[Optional[Sequence]] = \
             [None] * engine_cfg.max_batch_size
         self._cancelled: set = set()
+        # Finished PD prefills whose pages wait for export_held.
+        self._held: Dict[str, Sequence] = {}
         self.step_count = 0
         # The interleaver's knobs and the ragged switch, resolved once.
         self.interleave = engine_cfg.interleave is not False
@@ -594,9 +609,11 @@ class Engine:
         < num_computed - W), so a sequence holds O(W) KV. The freed
         table entries become the NULL page 0; the kernels read such
         entries only in window-masked lanes. Per-layer window mixes keep
-        every page (their full layers read the whole history)."""
+        every page (their full layers read the whole history), and so
+        does a PD-held prefill (its export ships the whole prefix)."""
         W = self.cfg.sliding_window
-        if not W or self.cfg.layer_sliding is not None:
+        if not W or self.cfg.layer_sliding is not None \
+                or seq.req.hold_after_finish:
             return
         bound = min((seq.num_computed - W) // self.ecfg.page_size,
                     len(seq.pages))
@@ -668,7 +685,7 @@ class Engine:
             if seq.status == SeqStatus.RUNNING:
                 self._grow_pages(seq)
 
-    def _finish_seq(self, seq: Sequence) -> None:
+    def _finish_seq(self, seq: Sequence, reason: FinishReason) -> None:
         seq.status = SeqStatus.FINISHED
         if seq.slot >= 0:
             self._slots[seq.slot] = None
@@ -681,8 +698,12 @@ class Engine:
         # tokens[:num_computed] have KV (the last sampled token has none).
         self.prefix_cache.register_full_pages(
             seq.tokens[:seq.num_computed], seq.pages)
-        self.prefix_cache.release_pages([p for p in seq.pages if p])
-        seq.pages = []
+        if seq.req.hold_after_finish and reason != FinishReason.CANCELLED:
+            # PD handoff: the pages stay referenced until export_held.
+            self._held[seq.req.request_id] = seq
+        else:
+            self.prefix_cache.release_pages([p for p in seq.pages if p])
+            seq.pages = []
         self._by_id.pop(seq.req.request_id, None)
         self._cancelled.discard(seq.req.request_id)
 
@@ -813,7 +834,7 @@ class Engine:
             self._cancelled.discard(rid)
             if seq is None:
                 continue
-            self._finish_seq(seq)
+            self._finish_seq(seq, FinishReason.CANCELLED)
             outs.append(StepOutput(
                 request_id=rid, new_token_ids=[], logprobs=[],
                 finish_reason=FinishReason.CANCELLED,
@@ -1411,7 +1432,7 @@ class Engine:
                 num_prompt_tokens=seq.num_prompt_tokens,
                 num_generated=seq.num_generated, top_logprobs=top))
             if reason != FinishReason.NONE:
-                self._finish_seq(seq)
+                self._finish_seq(seq, reason)
             else:
                 self.prefix_cache.register_full_pages(
                     seq.tokens[:seq.num_computed], seq.pages)
@@ -1587,7 +1608,7 @@ class Engine:
             num_prompt_tokens=seq.num_prompt_tokens,
             num_generated=seq.num_generated, top_logprobs=top)
         if reason != FinishReason.NONE:
-            self._finish_seq(seq)
+            self._finish_seq(seq, reason)
         elif seq.status == SeqStatus.RUNNING:
             # Register the pages the computed tokens filled (the token
             # just sampled has no KV yet), trim a sliding window, and
@@ -1599,6 +1620,95 @@ class Engine:
             self._swa_trim(seq)
             self._grow_pages(seq)
         return out
+
+    # ------------------------------------------------------------------
+    # PD disaggregation: the KV handoff
+    # ------------------------------------------------------------------
+    def export_held(self, request_id: str, device: bool = False
+                    ) -> Optional[Tuple[List[int], torch.Tensor,
+                                        torch.Tensor]]:
+        """A held (prefill-finished) sequence's KV, out of the pools:
+        (tokens, k, v) with k and v [L, n_pages, page_size, H, D], gathered
+        into fresh tensors, and its pages released. ``tokens`` end with the
+        first sampled token, whose KV is not written yet (the decode side
+        writes it in its first step). On the engine's device with
+        ``device=True`` (the co-hosted direct path and the device wire),
+        else on the CPU. None when nothing is held under the id."""
+        seq = self._held.pop(request_id, None)
+        if seq is None:
+            return None
+        self.drain_pipeline()
+        k_pages, v_pages = self.kv
+        idx = torch.tensor(seq.pages, dtype=torch.long,
+                           device=k_pages.device)
+        k = k_pages.index_select(1, idx)
+        v = v_pages.index_select(1, idx)
+        if not device:
+            k, v = k.cpu(), v.cpu()
+        self.prefix_cache.release_pages([p for p in seq.pages if p])
+        seq.pages = []
+        return list(seq.tokens), k, v
+
+    def drop_held(self, request_id: str) -> None:
+        """Release a held sequence's pages unread."""
+        seq = self._held.pop(request_id, None)
+        if seq is not None:
+            self.prefix_cache.release_pages([p for p in seq.pages if p])
+            seq.pages = []
+
+    @property
+    def num_held(self) -> int:
+        return len(self._held)
+
+    def import_sequence(self, req: EngineRequest, tokens: Seq[int],
+                        k, v) -> bool:
+        """Adopt a migrated sequence mid-generation (the decode side of
+        the handoff): ``tokens`` are the prompt and the first sampled
+        token, ``k`` / ``v`` (tensors on any device, or numpy arrays) the
+        KV of ``tokens[:-1]`` in the pools' layout. Takes a free slot and
+        fresh pages (an online request preempts offline ones), scatters
+        the block, adds a RUNNING sequence and registers its full pages
+        in the prefix cache. False, with nothing changed, when the layout
+        differs from this engine's or no slot or pages are free: the
+        caller decodes elsewhere."""
+        self.drain_pipeline()
+        n_pages = self._pages_needed(len(tokens))
+        k_pages, v_pages = self.kv
+        expect = (k_pages.shape[0], n_pages, *k_pages.shape[2:])
+        if tuple(k.shape) != expect or tuple(v.shape) != expect \
+                or k.dtype != v.dtype:
+            return False
+        slot = self._free_slot()
+        if slot < 0:
+            return False
+        pages = self.prefix_cache.alloc(n_pages)
+        while pages is None and not req.offline and \
+                self._preempt_one_offline():
+            pages = self.prefix_cache.alloc(n_pages)
+        if pages is None:
+            return False
+        idx = torch.tensor(pages, dtype=torch.long, device=k_pages.device)
+        for pool, block in ((k_pages, k), (v_pages, v)):
+            block = torch.as_tensor(block)
+            pool.index_copy_(1, idx, block.to(device=pool.device,
+                                              dtype=pool.dtype))
+        seq = Sequence(req=req, tokens=list(tokens), pages=pages,
+                       num_computed=len(tokens) - 1, slot=slot,
+                       status=SeqStatus.RUNNING,
+                       first_token_time=time.monotonic())
+        self._by_id[req.request_id] = seq
+        self.running.append(seq)
+        self._slots[slot] = seq
+        # The decode runner's staged rows change: the new slot's table,
+        # sampling pair and bias restage at the next decode (each is
+        # compared with what it holds), its carries with the batch
+        # snapshot, and the penalty counts are rebuilt from the token
+        # lists, the migrated first token included.
+        self._counts_valid = False
+        self._resident = None
+        self.prefix_cache.register_full_pages(
+            seq.tokens[:seq.num_computed], seq.pages)
+        return True
 
     # ------------------------------------------------------------------
     # The host spill tier

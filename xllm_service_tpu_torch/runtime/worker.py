@@ -78,8 +78,32 @@ Failpoints (``obs/failpoints.py``): ``XLLM_FAILPOINTS`` at construction,
 prompt holds the armed string, or every request, is marked at
 admission; a step that holds a marked request faults) inside the step,
 ``worker.slow_response_ms``, ``worker.hang_rpc`` and
-``worker.refuse_generate`` at the generate routes, and
+``worker.refuse_generate`` at the generate routes,
+``worker.fail_kv_transfer`` in the PD handoff and
 ``worker.drop_heartbeats`` in the heartbeat loop.
+
+PD disaggregation, as the JAX worker serves it: a request the master
+routes here as its prefill worker with a ``routing.decode_name`` (one
+choice, no ``best_of``, no ``echo``, ``max_tokens`` > 1) prefills with
+``max_tokens=1`` and ``hold_after_finish``, and its KV moves to the
+decode worker by the first transport that takes it: the co-hosted direct
+path (a decode worker in this process, ``pd_direct_kv``: device tensors
+end to end), the CUDA IPC device wire (``runtime/kv_wire.py``,
+``pd_device_wire``: a ticket in the ``/kv/import`` meta line), the
+chunked host shuttle (``/kv/chunk`` per span of layers, then a manifest)
+or the monolithic host shuttle (meta line + K bytes + V bytes). The
+decode worker answers ``POST /kv/import`` by adopting the sequence
+(``Engine.import_sequence``) and streams its outputs back as
+RequestOutput SSE frames, which this worker assembles for the client, or
+pushes them to the service in the RPC topology. Any refusal decodes
+locally (``worker.fail_kv_transfer`` forces it). A duplicate import of a
+live request is answered idempotently. A migration carrying multimodal
+state is refused with a 503 (no multimodal path here yet). ``POST
+/flip_role {"instance_type"}`` re-registers the worker under its new
+role. ``/metrics`` counts ``xllm_worker_kv_migration_{bytes,seconds,
+direct,device_wire,chunked}_total``, and the device wire's staging
+bytes, its stages refused for lack of a segment and its leaked segments
+(``xllm_worker_kv_wire_{reserved_bytes,busy_total,leaked_total}``).
 
 The step flight recorder (``obs/steptrace.py``): one record a step, with
 the roofline verdict of the engine's analytic count against the
@@ -91,8 +115,9 @@ since the last acknowledged beat on each heartbeat; ``/metrics`` carries
 
 Not in this package yet: etcd stores, profiling data in the
 registration, draining, spans on the heartbeat (and the hot-path
-sections of ``/admin/steptrace``), the store guard, sleep/wakeup and
-role flips, the other ``/admin/*`` routes, and PD/EPD traffic.
+sections of ``/admin/steptrace``), the store guard, sleep/wakeup, the
+other ``/admin/*`` routes, the cross-worker block fetch (``/kv/blocks``)
+and EPD traffic.
 
 Run: ``python -m xllm_service_tpu_torch.runtime.worker --model llama3-1b``
 (add ``--store-addr`` and ``--service-addr`` to join a cluster).
@@ -110,6 +135,7 @@ import secrets
 import signal
 import threading
 import time
+import weakref
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Iterator, List, Optional, Tuple
@@ -127,25 +153,32 @@ from xllm_service_tpu_torch.obs import steptrace
 from xllm_service_tpu_torch.obs.failpoints import Failpoints
 from xllm_service_tpu_torch.obs.metrics import (Registry,
                                                 quantile_from_buckets)
+from xllm_service_tpu_torch.ops import kernels
 from xllm_service_tpu_torch.runtime.engine import (Engine, EngineRequest,
                                                    StepOutput)
-from xllm_service_tpu_torch.runtime.kv_cache import KvCacheEvent
+from xllm_service_tpu_torch.runtime import kv_wire
+from xllm_service_tpu_torch.runtime.kv_cache import (KvCacheEvent,
+                                                     decode_kv_blob,
+                                                     encode_kv_block)
+from xllm_service_tpu_torch.runtime.kv_transfer import start_host_copies
 from xllm_service_tpu_torch.service.coordination import (
     KEY_MASTER_ADDR, CoordinationStore, instance_prefix)
 from xllm_service_tpu_torch.service.coordination_net import (
     StoreOutageError, connect_store)
-from xllm_service_tpu_torch.service.httpd import http_json
+from xllm_service_tpu_torch.service.httpd import (http_json, http_stream,
+                                                  http_stream_status,
+                                                  iter_sse_events)
 from xllm_service_tpu_torch.service.instance_types import (
     Heartbeat, InstanceMetaInfo, LatencyMetrics, LoadMetrics)
 from xllm_service_tpu_torch.service.response_handler import (
-    ChatStreamAssembler, CompletionStreamAssembler, ResponseCollector,
-    sse_frame)
+    SSE_DONE, ChatStreamAssembler, CompletionStreamAssembler,
+    ResponseCollector, sse_frame)
 from xllm_service_tpu_torch.utils import threads
 from xllm_service_tpu_torch.utils.retry import RetryPolicy
 from xllm_service_tpu_torch.utils.types import (
     FinishReason, LogProb, RequestOutput, SamplingParams, SequenceOutput,
     Status, StatusCode, Usage, parse_openai_sampling, validate_sampling)
-from xllm_service_tpu_torch.utils.wire import stamp
+from xllm_service_tpu_torch.utils.wire import check_version, stamp
 
 logger = logging.getLogger(__name__)
 
@@ -157,6 +190,12 @@ _MODEL_REGISTRY = {
     "llama3-1b": ModelConfig.llama3_1b,
     "deepseek-v2-lite": ModelConfig.deepseek_v2_lite,
 }
+
+
+# Workers of this process, by name: a PD handoff to one of them takes the
+# direct path (device tensors end to end, no bytes on the wire).
+_LOCAL_WORKERS: "weakref.WeakValueDictionary[str, Worker]" = \
+    weakref.WeakValueDictionary()
 
 
 def resolve_model_config(name: str) -> ModelConfig:
@@ -187,6 +226,12 @@ class WorkerOptions:
     # Must equal the service's --murmur-hash3-seed (advertised as the
     # registration's hash_seed).
     murmur_seed: int = 0
+    # PD handoff to a decode worker in this process: device tensors end
+    # to end (off forces the HTTP transports, e.g. to test them).
+    pd_direct_kv: bool = True
+    # PD handoff between processes over CUDA IPC (runtime/kv_wire.py);
+    # without a GPU there is no wire and the host shuttle runs.
+    pd_device_wire: bool = True
 
 
 class HttpError(Exception):
@@ -195,6 +240,32 @@ class HttpError(Exception):
         super().__init__(message)
         self.status = status
         self.err_type = err_type
+
+
+class _Reply:
+    """A route's answer: a JSON body with its status, or an SSE stream
+    (``frames``, closed by the handler however the client leaves)."""
+
+    __slots__ = ("status", "body", "frames")
+
+    def __init__(self, status: int = 200,
+                 body: Optional[Dict[str, Any]] = None,
+                 frames: Optional[Iterator[bytes]] = None) -> None:
+        self.status, self.body, self.frames = status, body, frames
+
+    @classmethod
+    def error(cls, status: int, message: str,
+              err_type: str = "invalid_request_error") -> "_Reply":
+        return cls(status, {"error": {"message": message, "type": err_type,
+                                      "code": status}})
+
+    @classmethod
+    def accepted(cls, srid: str) -> "_Reply":
+        return cls(200, {"status": "accepted", "service_request_id": srid})
+
+    @classmethod
+    def sse(cls, frames: Iterator[bytes]) -> "_Reply":
+        return cls(200, frames=frames)
 
 
 class _StopWatcher:
@@ -388,6 +459,15 @@ MODEL_AWAKE = "awake"
 _STEP_PHASES = ("prefill", "decode", "mixed")
 # The prefix-reuse series on /metrics (JAX worker :1565-1600), by
 # ``Engine.prefix_cache_stats()`` key.
+# The PD handoff's counters on /metrics (JAX worker :2428-2440), by
+# ``Worker.kv_migration_<key>``.
+_MIGRATION_SERIES = (
+    ("bytes", "KV bytes this worker migrated to decode workers"),
+    ("seconds", "seconds of KV migration to decode workers"),
+    ("direct", "migrations to a decode worker in this process"),
+    ("device_wire", "migrations over the CUDA IPC device wire"),
+    ("chunked", "migrations over the chunked host shuttle"),
+)
 _PREFIX_SERIES = (
     ("hit_tokens_total", "prompt tokens served from the prefix cache "
                          "(local hits and tier restores)"),
@@ -478,6 +558,15 @@ class Worker:
             "xllm_worker_jit_compiles_total",
             "graphs captured per program, warmup included (steady growth "
             "= an unbucketed shape)", labelnames=("model", "program"))
+        self._m_eager = self.obs.counter(
+            "xllm_worker_eager_steps_total",
+            "steps per program run outside a graph (0 on a warmed CUDA "
+            "engine)", labelnames=("model", "program"))
+        self._m_launches = self.obs.gauge(
+            "xllm_worker_kernel_launches",
+            "hand-written kernel launches counted in this process (each "
+            "graph replay counts the kernels it holds)",
+            labelnames=("kernel",))
         self._lease_id: Optional[int] = None
         self._reg_mu = threading.Lock()
         self._addr_watch: Optional[int] = None
@@ -544,6 +633,27 @@ class Worker:
         self._device_kind = (torch.cuda.get_device_name(self.engine.device)
                              if self.engine.device.type == "cuda"
                              else "cpu")
+        # The role this worker registers under (``/flip_role`` changes it).
+        self.instance_type = opts.instance_type
+        # The PD handoff's counters (both sides; /metrics), the decode
+        # side's staged /kv/chunk parts by request, the decode peers that
+        # answered wire-unsupported, and the RPC topology's first tokens
+        # of adopted sequences, pushed ahead of the next step's outputs
+        # (appended under the engine lock).
+        self.kv_migration_bytes = 0
+        self.kv_migration_seconds = 0.0
+        self.kv_migration_direct = 0
+        self.kv_migration_device_wire = 0
+        self.kv_migration_chunked = 0
+        self._kv_chunk_mu = threading.Lock()
+        self._kv_chunk_staging: Dict[str, Dict[str, Any]] = {}
+        self._wire_refused: set = set()
+        self._service_push_buffer: List[RequestOutput] = []
+        try:
+            self._kv_shuttle_chunk_mb = float(os.environ.get(
+                "XLLM_KV_SHUTTLE_CHUNK_MB", "32"))
+        except ValueError:
+            self._kv_shuttle_chunk_mb = 32.0
 
     # ------------------------------------------------------------------
     # Lifecycle
@@ -561,6 +671,7 @@ class Worker:
                                  daemon=True)
             t.start()
             self._threads.append(t)
+        _LOCAL_WORKERS[self.name] = self
         if self.store is None:
             return self
         attempt = outage_waits = 0
@@ -601,6 +712,7 @@ class Worker:
         server's shutdown poll."""
         self._stop.set()
         self._work.set()
+        _LOCAL_WORKERS.pop(self.name, None)
         if self._addr_watch is not None:
             try:
                 self.store.cancel_watch(self._addr_watch)
@@ -638,7 +750,7 @@ class Worker:
         layers = list(range(self.model_cfg.num_layers))
         meta = InstanceMetaInfo(
             name=self.name, rpc_address=self.name,
-            instance_type=self.opts.instance_type,
+            instance_type=self.instance_type,
             models=[self.opts.model], dp_size=1,
             k_cache_ids=layers, v_cache_ids=list(layers),
             addrs=[self.name],
@@ -656,7 +768,7 @@ class Worker:
                 self._lease_id = None
             self._lease_id = self.store.lease_grant(self.lease_ttl_s)
             self.store.put_json(
-                instance_prefix(self.opts.instance_type.value) + self.name,
+                instance_prefix(self.instance_type.value) + self.name,
                 stamp(meta.to_json()), self._lease_id)
 
     @property
@@ -849,7 +961,7 @@ class Worker:
                 self.engine.waiting_prefill_tokens()))
         ev = cache_ev or KvCacheEvent()
         hb = Heartbeat(name=self.name,
-                       instance_type=self.opts.instance_type,
+                       instance_type=self.instance_type,
                        load=self._engine_load(), latency=latency,
                        cache_stored=[h.hex() for h in ev.stored],
                        cache_removed=[h.hex() for h in ev.removed],
@@ -1000,10 +1112,11 @@ class Worker:
         }
 
     def metrics_text(self) -> str:
-        """``GET /metrics``: the load mirrors, the prefix-cache series and
+        """``GET /metrics``: the load mirrors, the prefix-cache series,
         the graph census (captures per program, and those after warmup:
-        the JAX worker's compile and recompile counters) refreshed, then
-        the registry in Prometheus text."""
+        the JAX worker's compile and recompile counters; eager steps),
+        the process's kernel launch counts and the PD handoff's counters
+        refreshed, then the registry in Prometheus text."""
         self._engine_load()
         stats = self.engine.prefix_cache_stats()
         for key, _ in _PREFIX_SERIES:
@@ -1016,9 +1129,29 @@ class Worker:
             self._m_recompiles.set_total(
                 captures[program]["captures_after_warmup"],
                 model=self.opts.model, program=program)
+            self._m_eager.set_total(
+                sum(captures[program]["eager_steps"].values()),
+                model=self.opts.model, program=program)
+        for name, n in kernels.launch_counts().items():
+            self._m_launches.set(n, kernel=name)
         steptrace.flush_metrics(self.obs, self.opts.model,
                                 self.engine.roofline, self._st_last["mfu"],
                                 self._st_last["debt_ms"], self._device_kind)
+        for key, help in _MIGRATION_SERIES:
+            self.obs.counter(f"xllm_worker_kv_migration_{key}_total",
+                             help).set_total(
+                getattr(self, f"kv_migration_{key}"))
+        wire = kv_wire.wire_stats()
+        self.obs.gauge("xllm_worker_kv_wire_reserved_bytes",
+                       "device bytes this process holds in CUDA IPC "
+                       "staging segments (kv_wire.MAX_STAGING_BYTES caps them)"
+                       ).set(wire["reserved_bytes"])
+        self.obs.counter("xllm_worker_kv_wire_busy_total",
+                         "device-wire stages that found no segment and "
+                         "took the host shuttle").set_total(wire["busy"])
+        self.obs.counter("xllm_worker_kv_wire_leaked_total",
+                         "staging segments left reserved by a pull that "
+                         "may still read them").set_total(wire["leaked"])
         return self.obs.render()
 
     def warmup(self) -> float:
@@ -1044,6 +1177,10 @@ class Worker:
             with self._engine_lock:
                 busy = eng.has_work()
                 if busy:
+                    # First tokens of sequences adopted since the last
+                    # step go out ahead of this step's outputs.
+                    adopted, self._service_push_buffer = \
+                        self._service_push_buffer, []
                     t0 = time.perf_counter()
                     try:
                         outs = eng.step()
@@ -1054,6 +1191,7 @@ class Worker:
                 self._work.wait(timeout=0.05)
                 self._work.clear()
                 continue
+            self._push_outputs_to_service(adopted)
             if fault is not None:
                 # Contain, attribute, resume; or, with the breaker open,
                 # die visibly: every request gets a 500, then and after.
@@ -1288,8 +1426,13 @@ class Worker:
         if self.failpoints.fire("worker.refuse_generate") is not None:
             raise HttpError(503, "refused by failpoint", "unavailable")
 
-    def _parse_generate(self, body: Dict[str, Any],
-                        is_chat: bool) -> _LiveRequest:
+    def _parse_generate(self, body: Dict[str, Any], is_chat: bool,
+                        pd_prefill: bool = False) -> _LiveRequest:
+        """Parse, validate and queue one generate request. ``pd_prefill``:
+        the prefill half of a PD request (JAX worker :1982-1985,
+        :2036-2065): one engine request sampling only its first token,
+        EOS honoured, its pages held for the handoff; the live request
+        keeps the client's sampling for the answer."""
         if self.engine_error is not None:
             raise HttpError(500, self.engine_error, "engine_fault")
         model = body.get("model", self.opts.model)
@@ -1312,7 +1455,11 @@ class Worker:
             else:
                 sampling = parse_openai_sampling(body, is_chat)
             stream = bool(body.get("stream", False))
-            validate_sampling(sampling, stream)
+            engine_sampling = sampling
+            if pd_prefill:
+                engine_sampling = dataclasses.replace(
+                    sampling, max_tokens=1, ignore_eos=False)
+            validate_sampling(engine_sampling, stream)
         except (TypeError, ValueError) as e:
             raise HttpError(400, str(e)) from e
         if sampling.logit_bias:
@@ -1325,21 +1472,23 @@ class Worker:
                                      f"range (< {V}): {bad[:5]}")
         # best_of: the larger candidate pool runs; the response keeps
         # target_n of them (ResponseCollector).
-        n = max(1, sampling.n, sampling.best_of or 0)
+        n = 1 if pd_prefill else max(1, sampling.n, sampling.best_of or 0)
         req = EngineRequest(request_id=rid, token_ids=list(token_ids),
-                            sampling=sampling,
+                            sampling=engine_sampling,
                             offline=bool(body.get("offline", False)),
                             eos_token_ids=self.tokenizer.eos_token_ids,
                             prompt_logprobs=(sampling.echo
                                              and sampling.logprobs
-                                             and not is_chat))
+                                             and not is_chat
+                                             and not pd_prefill),
+                            hold_after_finish=pd_prefill)
         live = _LiveRequest(
             req, self.tokenizer, model, is_chat, stream,
             bool((body.get("stream_options") or {}).get("include_usage")),
             sampling,
-            stream_to_service=self._decode_to_service
-            and bool(self.service_addr), n=n)
-        live.target_n = max(1, sampling.n)
+            stream_to_service=not pd_prefill and self._topology2(), n=n)
+        if not pd_prefill:
+            live.target_n = max(1, sampling.n)
         live.emit_token_ids = bool(body.get("ledger_tokens"))
         # worker.fault_step_req marks a request at admission: a string
         # value marks prompts that contain it, any other every request.
@@ -1539,12 +1688,18 @@ class Worker:
                             "engine_fault")
         return out
 
-    def stream_sse(self, live: _LiveRequest) -> Iterator[bytes]:
+    def stream_sse(self, live: _LiveRequest,
+                   initial: Optional[List[RequestOutput]] = None
+                   ) -> Iterator[bytes]:
+        """The client's SSE frames of ``live``: the ``initial`` outputs
+        (a migrated first token), then the engine's."""
         asm = (ChatStreamAssembler if live.is_chat
                else CompletionStreamAssembler)(
             live.request_id, live.model, live.include_usage,
             emit_token_ids=live.emit_token_ids)
         try:
+            for ro in initial or []:
+                yield from asm.on_output(ro)
             while not live.finished:
                 try:
                     out = self._next_output(live)
@@ -1559,10 +1714,14 @@ class Worker:
         finally:
             self._finalize(live)
 
-    def collect_full(self, live: _LiveRequest) -> Dict[str, Any]:
+    def collect_full(self, live: _LiveRequest,
+                     initial: Optional[List[RequestOutput]] = None
+                     ) -> Dict[str, Any]:
         coll = ResponseCollector(live.request_id, live.model, live.is_chat,
                                  target_n=live.target_n)
         try:
+            for ro in initial or []:
+                coll.add(ro)
             while not live.finished:
                 for ro in self._process_step_output(
                         live, self._next_output(live)):
@@ -1570,6 +1729,630 @@ class Worker:
         finally:
             self._finalize(live)
         return coll.body()
+
+    # ------------------------------------------------------------------
+    # PD disaggregation (JAX worker :3057-3905): prefill here, decode on
+    # the routed decode worker; the wire format of the host shuttle is a
+    # meta-JSON line, then the K bytes, then the V bytes.
+    # ------------------------------------------------------------------
+    def _topology2(self) -> bool:
+        """The RPC topology: outputs go to the service's fan-in."""
+        return self._decode_to_service and bool(self.service_addr)
+
+    @staticmethod
+    def pd_route(body: Dict[str, Any], is_chat: bool,
+                 name: str) -> Optional[str]:
+        """The decode worker a generate body hands its sequence to, or
+        None to serve it here (JAX worker :2200-2228): routed here as the
+        prefill worker with another decode worker, exactly one choice,
+        no ``best_of``, no ``echo``, and more than one token to make."""
+        routing = body.get("routing") or {}
+        sp = body.get("sampling") or {}
+        try:
+            max_toks = int(sp.get("max_tokens", body.get("max_tokens", 16)))
+            n = int(sp.get("n", body.get("n", 1)))
+            best_of = 1 if is_chat else int(
+                sp.get("best_of") or body.get("best_of") or n)
+        except (TypeError, ValueError):
+            return None         # the parse answers the 400
+        echo = not is_chat and bool(sp.get("echo", body.get("echo", False)))
+        decode = routing.get("decode_name")
+        if routing.get("prefill_name") == name and decode \
+                and decode != name and max_toks > 1 and n == 1 \
+                and best_of <= 1 and not echo:
+            return decode
+        return None
+
+    def _migration_meta(self, live: _LiveRequest,
+                        tokens: List[int]) -> Dict[str, Any]:
+        return {"service_request_id": live.request_id,
+                "model": live.model, "tokens": list(tokens),
+                "prompt_len": len(live.req.token_ids),
+                "sampling": live.sampling.to_json(),
+                "stream": live.stream}
+
+    def serve_pd_prefill(self, body: Dict[str, Any], is_chat: bool,
+                         decode_name: str) -> "_Reply":
+        """The prefill side of a PD request: prefill, hold, export, hand
+        over by the first transport that takes it, and answer with what
+        the decode worker streams back (or, in the RPC topology, the
+        ack). A first token that ends the request answers here."""
+        live = self._parse_generate(body, is_chat, pd_prefill=True)
+        srid = live.request_id
+        try:
+            first = self._next_output(live)
+        except HttpError:
+            # Cancel, so that a late finish holds no pages.
+            with self._engine_lock:
+                self.engine.cancel(srid)
+                self.engine.drop_held(srid)
+            self._work.set()
+            live.choices[0].finished = True
+            self._finalize(live)
+            raise
+        if first.finish_reason in (FinishReason.STOP,
+                                   FinishReason.CANCELLED):
+            # EOS on the first token (or a cancel): nothing to migrate.
+            with self._engine_lock:
+                self.engine.drop_held(srid)
+            ro = self._to_request_output(live, first)
+            outs = [ro] if ro is not None else []
+            live.choices[0].finished = True
+            self._finalize(live)
+            if self._topology2():
+                self._push_outputs_to_service(outs)
+                return _Reply.accepted(srid)
+            return self._respond_outputs(live, outs)
+        # From here the prefill-side live only carries the request's
+        # metadata: the answer is assembled from the decode side's
+        # outputs.
+        live.choices[0].finished = True
+        self._finalize(live)
+        if self.failpoints.fire("worker.fail_kv_transfer") is not None:
+            # An injected transport failure: every transport is skipped
+            # as if the decode worker were unreachable.
+            with self._engine_lock:
+                exported = self.engine.export_held(srid, device=True)
+            if exported is None:
+                raise HttpError(500, "prefill KV export failed",
+                                "internal_error")
+            logger.warning("failpoint worker.fail_kv_transfer: decoding "
+                           "%s locally", srid)
+            return self._local_decode_fallback(live, *exported)
+        peer = (_LOCAL_WORKERS.get(decode_name)
+                if self.opts.pd_direct_kv else None)
+        if peer is not None and peer is not self:
+            return self._migrate_direct(live, peer)
+        wire = self._kv_wire_for(decode_name)
+        # The export stays on the device for every transport: the wire
+        # stages it, the chunked shuttle slices it.
+        with self._engine_lock:
+            exported = self.engine.export_held(srid, device=True)
+        if exported is None:
+            raise HttpError(500, "prefill KV export failed",
+                            "internal_error")
+        tokens, k, v = exported
+        if wire is not None:
+            reply = self._migrate_device_wire(live, decode_name, tokens,
+                                              k, v, wire)
+            if reply is not None:
+                return reply
+        t0 = time.monotonic()
+        meta = self._migration_meta(live, tokens)
+        total, chunk_bytes = self._shuttle_send_chunks(decode_name, srid,
+                                                       k, v)
+        if total:
+            try:
+                chunks = http_stream(
+                    "POST", decode_name, "/kv/import",
+                    obj=stamp({**meta, "chunked": {"total": total}}),
+                    timeout=self.opts.request_timeout_s)
+                head = next(chunks, b"")
+            except Exception as e:  # noqa: BLE001 — peer unreachable
+                logger.warning("chunked kv import to %s failed (%s); "
+                               "decoding locally", decode_name, e)
+                return self._local_decode_fallback(live, tokens, k, v)
+            parsed = self._parse_import_head(head)
+            err = (parsed or {}).get("error") or {}
+            msg = err.get("message", "") if isinstance(err, dict) else ""
+            if parsed is None or parsed.get("status") == "accepted":
+                self.kv_migration_bytes += chunk_bytes
+                self.kv_migration_seconds += time.monotonic() - t0
+                self.kv_migration_chunked += 1
+                return self._finish_migration(live, decode_name, tokens,
+                                              head, chunks, parsed, k, v)
+            chunks.close()
+            if not msg.startswith("chunks-missing"):
+                # A real refusal: the monolithic retry would meet it too.
+                logger.warning("kv import refused by %s (%r); decoding "
+                               "locally", decode_name, head[:120])
+                return self._local_decode_fallback(live, tokens, k, v)
+            logger.warning("chunked staging incomplete on %s; retrying "
+                           "monolithic", decode_name)
+        payload = encode_kv_block(k, v, extra=stamp(dict(meta)))
+        try:
+            chunks = http_stream("POST", decode_name, "/kv/import",
+                                 raw=payload,
+                                 timeout=self.opts.request_timeout_s)
+            head = next(chunks, b"")
+        except Exception as e:  # noqa: BLE001 — peer unreachable
+            logger.warning("kv migration to %s failed (%s); decoding "
+                           "locally", decode_name, e)
+            return self._local_decode_fallback(live, tokens, k, v)
+        self.kv_migration_bytes += len(payload)
+        self.kv_migration_seconds += time.monotonic() - t0
+        return self._finish_migration(live, decode_name, tokens, head,
+                                      chunks, self._parse_import_head(head),
+                                      k, v)
+
+    def _shuttle_send_chunks(self, decode_name: str, srid: str,
+                             k: torch.Tensor, v: torch.Tensor
+                             ) -> Tuple[int, int]:
+        """The chunked host shuttle's sends (JAX worker :3232-3296): the
+        block sliced along the layers (``XLLM_KV_SHUTTLE_CHUNK_MB`` a
+        chunk), every device-to-host copy started first, each chunk
+        POSTed to ``/kv/chunk`` as its copy lands. Returns (chunks, bytes
+        sent), or (0, 0) when chunking is off, one chunk would do, or a
+        send failed (the caller then ships the block whole; the peer's
+        TTL drops what it staged). The caller counts the bytes, only on
+        an accepted import."""
+        chunk_mb = self._kv_shuttle_chunk_mb
+        if chunk_mb <= 0:
+            return 0, 0
+        L = int(k.shape[0])
+        layer_bytes = 2 * (k.numel() // max(L, 1)) * k.element_size()
+        per_chunk = max(1, int(chunk_mb * 1e6) // max(layer_bytes, 1))
+        n = (L + per_chunk - 1) // per_chunk
+        if n < 2:
+            return 0, 0
+        parts = start_host_copies(k, v, n)
+        sent = 0
+        for idx, (lo, hi, kh, vh, ev) in enumerate(parts):
+            if ev is not None:
+                ev.synchronize()
+            payload = encode_kv_block(kh, vh, extra=stamp({
+                "service_request_id": srid, "idx": idx,
+                "total": len(parts), "lo": lo, "hi": hi}))
+            try:
+                status, body = http_stream_status(
+                    "POST", decode_name, "/kv/chunk", raw=payload,
+                    timeout=self.opts.request_timeout_s)
+                body.close()
+            except Exception as e:  # noqa: BLE001 — the whole block next
+                logger.info("kv chunk %d/%d to %s failed (%s)", idx + 1,
+                            len(parts), decode_name, e)
+                return 0, 0
+            if status != 200:
+                logger.info("kv chunk %d/%d refused by %s (HTTP %d)",
+                            idx + 1, len(parts), decode_name, status)
+                return 0, 0
+            sent += len(payload)
+        return len(parts), sent
+
+    def serve_kv_chunk(self, raw: bytes) -> "_Reply":
+        """``POST /kv/chunk`` (JAX worker :3297-3355): stage one chunk of
+        a migrating block on the device under (request, index), for the
+        ``/kv/import`` manifest to assemble. Stagings older than 60 s are
+        dropped (a prefill worker that died mid-send)."""
+        nl = raw.find(b"\n")
+        if nl < 0:
+            return _Reply.error(400, "missing meta line")
+        try:
+            meta = json.loads(raw[:nl].decode("utf-8"))
+            check_version(meta, "kv_chunk")
+            k, v = decode_kv_blob(meta, raw[nl + 1:])
+            srid, idx = meta["service_request_id"], int(meta["idx"])
+            total = int(meta["total"])
+        except (ValueError, KeyError, TypeError, UnicodeDecodeError) as e:
+            return _Reply.error(400, f"bad kv chunk: {e}")
+        dev = self.engine.device
+        k, v = k.to(dev, non_blocking=True), v.to(dev, non_blocking=True)
+        now = time.monotonic()
+        with self._kv_chunk_mu:
+            for stale in [r for r, e in self._kv_chunk_staging.items()
+                          if now - e["t"] > 60.0]:
+                del self._kv_chunk_staging[stale]
+                logger.warning("evicted stale kv-chunk staging for %s",
+                               stale)
+            entry = self._kv_chunk_staging.setdefault(
+                srid, {"t": now, "total": total, "parts": {}})
+            entry["t"] = now
+            entry["parts"][idx] = (k, v)
+        return _Reply(200, {"status": "staged"})
+
+    def _pop_staged_chunks(self, srid: str, total: int
+                           ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """A complete chunk set as one (k, v), or None when a part is
+        missing."""
+        with self._kv_chunk_mu:
+            entry = self._kv_chunk_staging.pop(srid, None)
+        if entry is None or entry["total"] != total \
+                or len(entry["parts"]) != total:
+            return None
+        parts = [entry["parts"][i] for i in range(total)]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
+
+    @staticmethod
+    def _parse_import_head(head: bytes) -> Optional[Dict[str, Any]]:
+        """The decode side's ``/kv/import`` answer: a dict for a JSON
+        verdict ({} when unparseable), None for an SSE stream to relay."""
+        if not head.startswith(b"{"):
+            return None
+        try:
+            return json.loads(head.decode("utf-8")) or {}
+        except (ValueError, UnicodeDecodeError):
+            return {}
+
+    def _finish_migration(self, live: _LiveRequest, decode_name: str,
+                          tokens: List[int], head: bytes, chunks,
+                          parsed: Optional[Dict[str, Any]],
+                          k: torch.Tensor, v: torch.Tensor) -> "_Reply":
+        """Act on the decode side's verdict (JAX worker :3357-3386):
+        relay its stream, pass its ack on, or decode here after a
+        refusal."""
+        if parsed is None:
+            return self._relay_decode_stream(live, head, chunks)
+        if parsed.get("status") == "accepted":
+            return _Reply(200, parsed)
+        logger.warning("kv import refused by %s (%r); decoding locally",
+                       decode_name, head[:120])
+        return self._local_decode_fallback(live, tokens, k, v)
+
+    def _kv_wire_for(self, decode_name: str):
+        """This process's device wire, or None when it is off, there is
+        none, or the peer answered wire-unsupported before."""
+        if not self.opts.pd_device_wire \
+                or decode_name in self._wire_refused:
+            return None
+        return kv_wire.get_device_wire()
+
+    def _migrate_device_wire(self, live: _LiveRequest, decode_name: str,
+                             tokens: List[int], k: torch.Tensor,
+                             v: torch.Tensor, wire) -> Optional["_Reply"]:
+        """The handoff over the device wire (JAX worker :3400-3478): stage
+        the block, send a ticket in the ``/kv/import`` meta line, release
+        the uuid when the peer answers. None tells the caller to take the
+        host shuttle (the block is still in hand)."""
+        t0 = time.monotonic()
+        try:
+            uuid = wire.stage(k, v)
+        except Exception as e:  # noqa: BLE001 — the shuttle instead
+            logger.warning("kv device-wire staging failed (%s)", e)
+            return None
+        meta = {**self._migration_meta(live, tokens),
+                "transfer": wire.ticket(uuid)}
+        try:
+            chunks = http_stream(
+                "POST", decode_name, "/kv/import",
+                raw=json.dumps(stamp(meta)).encode("utf-8") + b"\n",
+                timeout=self.opts.request_timeout_s)
+            head = next(chunks, b"")
+        except Exception as e:  # noqa: BLE001 — peer unreachable
+            logger.warning("kv device-wire handshake to %s failed (%s)",
+                           decode_name, e)
+            # Refused: the ticket never arrived. Anything later is
+            # ambiguous: the peer may be copying.
+            wire.release(uuid,
+                         leaked=not isinstance(e, ConnectionRefusedError))
+            return None
+        parsed = self._parse_import_head(head)
+        err = (parsed or {}).get("error") or {}
+        code = err.get("code") if isinstance(err, dict) else None
+        if code == 424:
+            msg = str(err.get("message", ""))
+            if msg.startswith("wire-unsupported:"):
+                self._wire_refused.add(decode_name)
+                logger.info("decode %s cannot pull the device wire; host "
+                            "shuttle from now on", decode_name)
+            wire.release(uuid, leaked=msg.startswith("wire-pull:"))
+            chunks.close()
+            return None
+        # Accepted, rejected before a pull (400) or refused after it
+        # (503): the segment is free; anything else leaves the pull's
+        # state unknown.
+        wire.release(uuid, leaked=code not in (None, 400, 503))
+        if code is None:
+            self.kv_migration_bytes += 2 * k.numel() * k.element_size()
+            self.kv_migration_seconds += time.monotonic() - t0
+            self.kv_migration_device_wire += 1
+        return self._finish_migration(live, decode_name, tokens, head,
+                                      chunks, parsed, k, v)
+
+    def _migrate_direct(self, live: _LiveRequest,
+                        peer: "Worker") -> "_Reply":
+        """The handoff to a decode worker of this process (JAX worker
+        :3480-3554): the gathered block stays a device tensor from export
+        to the peer's scatter; the peer's outputs are read from its live
+        request in-process."""
+        srid = live.request_id
+        with self._engine_lock:
+            exported = self.engine.export_held(srid, device=True)
+        if exported is None:
+            raise HttpError(500, "prefill KV export failed",
+                            "internal_error")
+        tokens, k, v = exported
+        t0 = time.monotonic()
+        ok, dlive, first_out = peer.adopt_migrated(
+            self._migration_meta(live, tokens), k, v)
+        if not ok:
+            if dlive is not None and dlive.stream_to_service:
+                return _Reply.accepted(srid)    # a live duplicate
+            logger.warning("direct kv migration to %s refused; decoding "
+                           "locally", peer.name)
+            return self._local_decode_fallback(live, tokens, k, v)
+        if peer.engine.device.type == "cuda":
+            torch.cuda.synchronize(peer.engine.device)
+        self.kv_migration_bytes += 2 * k.numel() * k.element_size()
+        self.kv_migration_seconds += time.monotonic() - t0
+        self.kv_migration_direct += 1
+        if dlive.stream_to_service:
+            return _Reply.accepted(srid)
+        outs = peer._iter_live_outputs(dlive)
+        if live.stream:
+            asm = (ChatStreamAssembler if live.is_chat
+                   else CompletionStreamAssembler)(
+                srid, live.model, live.include_usage,
+                emit_token_ids=live.emit_token_ids)
+
+            def gen() -> Iterator[bytes]:
+                try:
+                    yield from asm.on_output(first_out)
+                    for ro in outs:
+                        yield from asm.on_output(ro)
+                finally:
+                    outs.close()
+            return _Reply.sse(gen())
+        coll = ResponseCollector(srid, live.model, live.is_chat)
+        coll.add(first_out)
+        for ro in outs:
+            coll.add(ro)
+        return _Reply(200, coll.body())
+
+    def _respond_outputs(self, live: _LiveRequest,
+                         outs: List[RequestOutput]) -> "_Reply":
+        if live.stream:
+            asm = (ChatStreamAssembler if live.is_chat
+                   else CompletionStreamAssembler)(
+                live.request_id, live.model, live.include_usage,
+                emit_token_ids=live.emit_token_ids)
+            return _Reply.sse(iter([f for ro in outs
+                                    for f in asm.on_output(ro)]))
+        coll = ResponseCollector(live.request_id, live.model, live.is_chat)
+        for ro in outs:
+            coll.add(ro)
+        return _Reply(200, coll.body())
+
+    def _relay_decode_stream(self, live: _LiveRequest, head: bytes,
+                             chunks) -> "_Reply":
+        """The decode worker's RequestOutput SSE frames as the client's
+        answer (JAX worker :3608-3637)."""
+
+        def payloads() -> Iterator[RequestOutput]:
+            def all_chunks():
+                if head:
+                    yield head
+                yield from chunks
+            for payload in iter_sse_events(all_chunks()):
+                if payload == "[DONE]":
+                    return
+                yield RequestOutput.from_json(json.loads(payload))
+
+        if live.stream:
+            asm = (ChatStreamAssembler if live.is_chat
+                   else CompletionStreamAssembler)(
+                live.request_id, live.model, live.include_usage,
+                emit_token_ids=live.emit_token_ids)
+
+            def gen() -> Iterator[bytes]:
+                try:
+                    for ro in payloads():
+                        yield from asm.on_output(ro)
+                finally:
+                    chunks.close()
+            return _Reply.sse(gen())
+        try:
+            return self._respond_outputs(live, list(payloads()))
+        finally:
+            chunks.close()
+
+    def _local_decode_fallback(self, live: _LiveRequest, tokens: List[int],
+                               k, v) -> "_Reply":
+        """Decode here when no transport took the sequence (JAX worker
+        :3639-3682): adopt the exported block into this engine."""
+        srid = live.request_id
+        req = EngineRequest(request_id=srid,
+                            token_ids=list(live.req.token_ids),
+                            sampling=live.sampling,
+                            eos_token_ids=live.req.eos_token_ids)
+        new_live = _LiveRequest(req, self.tokenizer, live.model,
+                                live.is_chat, live.stream,
+                                live.include_usage, live.sampling,
+                                stream_to_service=self._topology2())
+        new_live.emit_token_ids = live.emit_token_ids
+        first_out = self._adopted_first_output(new_live, tokens)
+        with self._live_lock:
+            self._live[srid] = new_live
+            self._live_srid[srid] = new_live
+        with self._engine_lock:
+            ok = self.engine.import_sequence(req, tokens, k, v)
+            if ok and new_live.stream_to_service:
+                self._service_push_buffer.append(first_out)
+        if not ok:
+            self._drop_live(srid)
+            with self._live_lock:
+                self._live_srid.pop(srid, None)
+            raise HttpError(503, "no local capacity for fallback",
+                            "unavailable")
+        self._work.set()
+        if new_live.stream_to_service:
+            return _Reply.accepted(srid)
+        if live.stream:
+            return _Reply.sse(self.stream_sse(new_live,
+                                              initial=[first_out]))
+        return _Reply(200, self.collect_full(new_live, initial=[first_out]))
+
+    @staticmethod
+    def _adopted_first_output(live: _LiveRequest,
+                              tokens: List[int]) -> RequestOutput:
+        """The migrated first token as its RequestOutput, counted in the
+        choice's completion tokens (it bypasses ``_to_request_output``)."""
+        live.choices[0].completion_tokens = 1
+        srid = live.request_id
+        return RequestOutput(
+            request_id=srid, service_request_id=srid,
+            outputs=[SequenceOutput(
+                index=0, text=live.choices[0].decoder.feed([tokens[-1]]),
+                token_ids=[tokens[-1]])])
+
+    def adopt_migrated(self, meta: Dict[str, Any], k, v
+                       ) -> Tuple[bool, Optional[_LiveRequest],
+                                  Optional[RequestOutput]]:
+        """The decode side's adoption (JAX worker :3684-3782), shared by
+        ``/kv/import`` and the direct path: (ok, live, first output). A
+        duplicate of a live request returns (False, that live, None), so
+        the caller can answer idempotently; a refusal (no slot or pages,
+        a layout mismatch, multimodal state, a dead engine) returns
+        (False, None, None)."""
+        if self.engine_error is not None or meta.get("mm"):
+            return False, None, None
+        tokens = [int(t) for t in meta["tokens"]]
+        srid = str(meta["service_request_id"])
+        sampling = SamplingParams.from_json(meta.get("sampling"))
+        prompt = tokens[:int(meta.get("prompt_len", len(tokens) - 1))]
+        req = EngineRequest(request_id=srid, token_ids=prompt,
+                            sampling=sampling,
+                            eos_token_ids=self.tokenizer.eos_token_ids)
+        live = _LiveRequest(req, self.tokenizer,
+                            str(meta.get("model", self.opts.model)),
+                            is_chat=False, stream=bool(meta.get("stream")),
+                            include_usage=False, sampling=sampling,
+                            stream_to_service=self._topology2())
+        with self._live_lock:
+            dup = self._live_srid.get(srid)
+            if dup is not None:
+                # A transport ambiguity (a timeout, then a retry) must
+                # not adopt one sequence twice.
+                logger.warning("duplicate kv import for %s refused", srid)
+                return False, dup, None
+            self._live[srid] = live
+            self._live_srid[srid] = live
+        first_out = self._adopted_first_output(live, tokens)
+        with self._engine_lock:
+            ok = self.engine.import_sequence(req, tokens, k, v)
+            if ok and live.stream_to_service:
+                # Under the engine lock: ahead of any later step output.
+                self._service_push_buffer.append(first_out)
+        if not ok:
+            self._drop_live(srid)
+            with self._live_lock:
+                self._live_srid.pop(srid, None)
+            return False, None, None
+        self._work.set()
+        return True, live, first_out
+
+    def serve_kv_import(self, raw: bytes) -> "_Reply":
+        """``POST /kv/import`` (JAX worker :3784-3869), three body forms:
+        the meta line and the block's bytes (monolithic shuttle), or a
+        meta object alone with a ``chunked`` manifest (the parts came by
+        ``/kv/chunk``) or a ``transfer`` ticket (the device wire). A 424
+        asks the prefill side to take another transport; a 503 to decode
+        locally."""
+        nl = raw.find(b"\n")
+        try:
+            meta = json.loads((raw[:nl] if nl >= 0 else raw)
+                              .decode("utf-8"))
+            if not isinstance(meta, dict):
+                raise ValueError("meta must be an object")
+        except (ValueError, UnicodeDecodeError) as e:
+            return _Reply.error(400, f"bad meta: {e}")
+        check_version(meta, "kv_import")
+        if "service_request_id" not in meta or "tokens" not in meta:
+            return _Reply.error(400, "bad meta: missing request or tokens")
+        chunked, tr = meta.get("chunked"), meta.get("transfer")
+        try:
+            if chunked is not None:
+                got = self._pop_staged_chunks(meta["service_request_id"],
+                                              int(chunked.get("total", 0)))
+                if got is None:
+                    return _Reply.error(
+                        424, "chunks-missing: staging incomplete or "
+                             "expired")
+                k, v = got
+            elif tr is not None:
+                try:
+                    k, v = kv_wire.pull_block(tr)
+                except kv_wire.WireUnsupported as e:
+                    return _Reply.error(424, f"wire-unsupported: {e}")
+                except kv_wire.WireNoPull as e:
+                    return _Reply.error(424, f"wire-nopull: {e}")
+                except Exception as e:  # noqa: BLE001 — failed mid-pull
+                    return _Reply.error(424, f"wire-pull: {e}")
+            else:
+                k, v = decode_kv_blob(meta, raw[nl + 1:])
+        except (ValueError, KeyError, TypeError) as e:
+            return _Reply.error(400, str(e))
+        srid = str(meta["service_request_id"])
+        ok, live, first_out = self.adopt_migrated(meta, k, v)
+        if not ok:
+            if live is not None and live.stream_to_service:
+                return _Reply.accepted(srid)
+            return _Reply.error(503, "no capacity on decode instance",
+                                "unavailable")
+        if live.stream_to_service:
+            return _Reply.accepted(srid)
+        outs = self._iter_live_outputs(live)
+
+        def gen() -> Iterator[bytes]:
+            try:
+                yield sse_frame(first_out.to_json())
+                for ro in outs:
+                    yield sse_frame(ro.to_json())
+                    if ro.finished:
+                        yield SSE_DONE
+                        return
+            finally:
+                outs.close()
+        return _Reply.sse(gen())
+
+    def _iter_live_outputs(self, live: _LiveRequest
+                           ) -> Iterator[RequestOutput]:
+        """An adopted request's engine outputs as RequestOutputs, until
+        it finishes (JAX worker :3871-3905). A timeout cancels it; an
+        engine failure ends the iteration with a finished output that
+        carries the error. The live request is finalized however the
+        consumer leaves."""
+        try:
+            while not live.finished:
+                try:
+                    out = self._next_output(live)
+                except HttpError as e:
+                    yield RequestOutput(
+                        request_id=live.request_id,
+                        service_request_id=live.request_id,
+                        status=Status(StatusCode.INTERNAL, str(e)),
+                        finished=True)
+                    return
+                yield from self._process_step_output(live, out)
+        finally:
+            self._finalize(live)
+
+    def flip_role(self, body: Dict[str, Any]) -> "_Reply":
+        """``POST /flip_role {"instance_type"}`` (JAX worker :2522-2540):
+        take the new role and re-register under its prefix (a fresh lease
+        removes the old key), so that the master's lists follow."""
+        try:
+            self.instance_type = InstanceType(body.get("instance_type", ""))
+        except ValueError:
+            return _Reply.error(
+                400, f"bad instance_type {body.get('instance_type')!r}")
+        if self._lease_id is not None:
+            try:
+                self._register()
+            except Exception as e:  # noqa: BLE001 — the next beat's
+                logger.warning("flip re-register failed: %s", e)
+        return _Reply(200, {"ok": True,
+                            "instance_type": self.instance_type.value})
 
     def models_body(self) -> Dict[str, Any]:
         return {"object": "list",
@@ -1597,6 +2380,37 @@ def _handler_class(worker: Worker):
             self._json(e.status, {"error": {"message": str(e),
                                             "type": e.err_type,
                                             "code": e.status}})
+
+        def _sse(self, frames: Iterator[bytes]) -> None:
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.end_headers()
+            try:
+                for frame in frames:
+                    self.wfile.write(frame)
+                    self.wfile.flush()
+            except OSError:
+                pass        # client went away; the close cancels
+            finally:
+                close = getattr(frames, "close", None)
+                if close is not None:
+                    close()
+
+        def _send(self, reply: _Reply) -> None:
+            if reply.frames is not None:
+                self._sse(reply.frames)
+            else:
+                self._json(reply.status, reply.body or {})
+
+        def _raw_post(self) -> None:
+            """The PD handoff's octet-stream routes."""
+            n = int(self.headers.get("Content-Length") or 0)
+            raw = self.rfile.read(n)
+            if self.path == "/kv/chunk":
+                self._send(worker.serve_kv_chunk(raw))
+            else:
+                self._send(worker.serve_kv_import(raw))
 
         def do_GET(self) -> None:
             url = urlsplit(self.path)
@@ -1628,8 +2442,11 @@ def _handler_class(worker: Worker):
         def do_POST(self) -> None:
             routes = {"/v1/completions": False,
                       "/v1/chat/completions": True}
-            if self.path not in routes and \
-                    self.path not in ("/cancel", "/admin/failpoint"):
+            if self.path in ("/kv/import", "/kv/chunk"):
+                self._raw_post()
+                return
+            if self.path not in routes and self.path not in (
+                    "/cancel", "/admin/failpoint", "/flip_role"):
                 self._error(HttpError(404, f"no route {self.path}"))
                 return
             try:
@@ -1649,8 +2466,17 @@ def _handler_class(worker: Worker):
                     self._json(200, {"ok": True,
                                      "state": worker.failpoints.state()})
                     return
+                if self.path == "/flip_role":
+                    self._send(worker.flip_role(body))
+                    return
                 worker.generate_failpoints()
-                live = worker._parse_generate(body, routes[self.path])
+                is_chat = routes[self.path]
+                decode = worker.pd_route(body, is_chat, worker.name)
+                if decode is not None:
+                    reply = worker.serve_pd_prefill(body, is_chat, decode)
+                    self._send(reply)
+                    return
+                live = worker._parse_generate(body, is_chat)
             except json.JSONDecodeError:
                 self._error(HttpError(400, "invalid JSON body"))
                 return
@@ -1669,19 +2495,7 @@ def _handler_class(worker: Worker):
                 except HttpError as e:
                     self._error(e)
                 return
-            self.send_response(200)
-            self.send_header("Content-Type", "text/event-stream")
-            self.send_header("Cache-Control", "no-cache")
-            self.end_headers()
-            frames = worker.stream_sse(live)
-            try:
-                for frame in frames:
-                    self.wfile.write(frame)
-                    self.wfile.flush()
-            except OSError:
-                pass        # client went away; the finally cancels
-            finally:
-                frames.close()
+            self._sse(worker.stream_sse(live))
 
     return Handler
 
@@ -1720,6 +2534,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="capture the engine's graphs before serving "
                         "(default: auto, on for CUDA)")
     p.add_argument("--no-warmup", dest="warmup", action="store_false")
+    p.add_argument("--pd-direct-kv", default=True,
+                   action=argparse.BooleanOptionalAction,
+                   help="PD handoff to a decode worker of this process "
+                        "as device tensors")
+    p.add_argument("--pd-device-wire", default=True,
+                   action=argparse.BooleanOptionalAction,
+                   help="PD handoff between processes over CUDA IPC "
+                        "(else the host shuttle)")
     return p.parse_args(argv)
 
 
@@ -1741,7 +2563,8 @@ def build_worker(args: argparse.Namespace,
         instance_type=InstanceType(args.instance_type),
         service_addr=args.service_addr, store_addr=args.store_addr,
         heartbeat_interval_s=args.heartbeat_interval_s,
-        murmur_seed=args.murmur_seed)
+        murmur_seed=args.murmur_seed, pd_direct_kv=args.pd_direct_kv,
+        pd_device_wire=args.pd_device_wire)
     return Worker(opts, engine_cfg=ecfg, params=params)
 
 

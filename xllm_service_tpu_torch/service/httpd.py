@@ -1,13 +1,15 @@
-"""HTTP client half of the worker's cluster plane: one JSON request to
-the service or the coordination store.
+"""HTTP client half of the worker's cluster plane: one JSON (or raw
+bytes) request to the service, the coordination store or a peer worker,
+and the progressive readers of the PD handoff's streamed answers.
 
 A copy of the JAX package's ``service/httpd.py`` ``http_json`` and its
-keep-alive pool (the worker's HTTP server stays the standard library's
-``ThreadingHTTPServer``, ``runtime/worker.py``). Pooled connections are
-dropped once idle longer than ``_MAX_IDLE_S``, well under a server's
-keep-alive timeout, so a reused socket is never one the peer already
-closed; a request that provably never reached the peer is retried once
-on a fresh connection.
+keep-alive pool, ``http_stream_status`` / ``http_stream`` and
+``iter_sse_events`` (the worker's HTTP server stays the standard
+library's ``ThreadingHTTPServer``, ``runtime/worker.py``). Pooled
+connections are dropped once idle longer than ``_MAX_IDLE_S``, well
+under a server's keep-alive timeout, so a reused socket is never one the
+peer already closed; a request that provably never reached the peer is
+retried once on a fresh connection.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import socket
 import threading
 import time
 from http.client import HTTPConnection
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 _MAX_IDLE_S = 20.0
 _MAX_IDLE_PER_ADDR = 8
@@ -73,12 +75,23 @@ _SEND_ERRORS = (http.client.CannotSendRequest, ConnectionResetError,
                 BrokenPipeError)
 
 
-def http_json(method: str, address: str, path: str, obj: Any = None,
-              timeout: float = 30.0) -> Tuple[int, Any]:
-    """One JSON request to ``address`` ("host:port") over a pooled
-    keep-alive connection. Returns (status, parsed-json-or-None)."""
+def _body(obj: Any, raw: Optional[bytes]
+          ) -> Tuple[Optional[bytes], Dict[str, str]]:
+    """A request's body and headers: ``raw`` as an octet stream, else
+    ``obj`` as JSON."""
+    if raw is not None:
+        return raw, {"Content-Type": "application/octet-stream"}
     body = None if obj is None else json.dumps(obj).encode("utf-8")
-    hdrs = {"Content-Type": "application/json"}
+    return body, {"Content-Type": "application/json"}
+
+
+def http_json(method: str, address: str, path: str, obj: Any = None,
+              timeout: float = 30.0,
+              raw: Optional[bytes] = None) -> Tuple[int, Any]:
+    """One request to ``address`` ("host:port") over a pooled keep-alive
+    connection, its body ``obj`` as JSON or ``raw`` bytes. Returns
+    (status, parsed-json-or-None)."""
+    body, hdrs = _body(obj, raw)
     while True:
         conn, reused = _get_conn(address, timeout)
         try:
@@ -111,3 +124,69 @@ def http_json(method: str, address: str, path: str, obj: Any = None,
         else:
             _put_conn(address, conn)
         return resp.status, parsed
+
+
+def http_stream_status(method: str, address: str, path: str,
+                       obj: Any = None, timeout: float = 600.0,
+                       raw: Optional[bytes] = None
+                       ) -> Tuple[int, "_StreamBody"]:
+    """Connect eagerly and return (status, body iterator) on a fresh
+    connection, so that a caller can act on the status before it reads
+    the body. The caller exhausts or closes the iterator."""
+    conn = _NoDelayHTTPConnection(address, timeout=timeout)
+    try:
+        body, hdrs = _body(obj, raw)
+        conn.request(method, path, body=body, headers=hdrs)
+        resp = conn.getresponse()
+    except Exception:
+        conn.close()
+        raise
+    return resp.status, _StreamBody(resp, conn)
+
+
+class _StreamBody:
+    """A response body that yields its chunks as they arrive and can be
+    closed without having been iterated (closing a generator that never
+    started cannot run its ``finally``)."""
+
+    def __init__(self, resp, conn) -> None:
+        self._resp = resp
+        self._conn = conn
+
+    def __iter__(self) -> Iterator[bytes]:
+        try:
+            while True:
+                chunk = self._resp.read1(65536)
+                if not chunk:
+                    return
+                yield chunk
+        finally:
+            self._conn.close()
+
+    def close(self) -> None:
+        self._conn.close()
+
+
+def http_stream(method: str, address: str, path: str, obj: Any = None,
+                timeout: float = 600.0,
+                raw: Optional[bytes] = None) -> Iterator[bytes]:
+    """The response body's chunks as they arrive (``raw`` sends an
+    octet-stream body instead of JSON: the KV handoff's payloads)."""
+    _, body = http_stream_status(method, address, path, obj=obj,
+                                 timeout=timeout, raw=raw)
+    yield from body
+
+
+def iter_sse_events(chunks: Iterable[bytes]) -> Iterator[str]:
+    """The ``data:`` payloads of an SSE byte stream, reassembled across
+    chunk boundaries."""
+    buf = b""
+    for chunk in chunks:
+        buf += chunk
+        while b"\n\n" in buf:
+            event, buf = buf.split(b"\n\n", 1)
+            for line in event.decode("utf-8").splitlines():
+                if line.startswith("data: "):
+                    yield line[len("data: "):]
+                elif line.startswith("data:"):
+                    yield line[len("data:"):]
