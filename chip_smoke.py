@@ -3345,16 +3345,17 @@ class PushTimes:
                 "push_ms_sum": sum(pushes)}
 
 
-def start_master(store: str, rpc_topology: bool, log: Path):
+def start_master(store: str, rpc_topology: bool, log: Path, env=None):
     """The reference master on ``store``: round robin, block size 128 (the
-    worker's page size), 0.5 s heartbeats. Returns (process, http, rpc)."""
+    worker's page size), 0.5 s heartbeats, ``env`` added to its
+    environment. Returns (process, http, rpc)."""
     args = ["xllm_service_tpu.service.master", "--host", "127.0.0.1",
             "--http-port", "0", "--rpc-port", "0", "--etcd-addr", store,
             "--block-size", "128", "--heartbeat-interval", "0.5",
             "--load-balance-policy", "RR"]
     if rpc_topology:
         args.append("--enable-decode-response-to-service")
-    p = RefProcess(args, "XLLM_SERVICE_UP", log)
+    p = RefProcess(args, "XLLM_SERVICE_UP", log, env=env)
     fields = dict(f.split("=", 1) for f in p.line.split()[1:])
     return p, fields["http"], fields["rpc"]
 
@@ -5558,6 +5559,343 @@ def pd_phase(torch, kernels, card: str, err: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the cross-worker block fetch
+# ---------------------------------------------------------------------------
+
+FETCH_MODEL, FETCH_DEVICE = "llama3-1b", "cuda"
+# Phase 7's flags: room for the 1,024-token prompt, a tail and 32 tokens.
+FETCH_ARGS = ["--page-size", "128", "--num-pages", "512", "--max-model-len",
+              "2048", "--max-batch-size", "8", "--prefill-buckets",
+              "128,256,512", "--max-prefill-tokens", "256",
+              "--heartbeat-interval-s", "0.5"]
+FETCH_ENV = {"XLLM_RAGGED_ATTN": "0", "XLLM_WRITE_THEN_ATTEND": "1",
+             "XLLM_CUDA_GRAPHS": "1"}
+# The master prices a fetch far below a recompute, so that every planned
+# run is a fetch (a holder that migrated no PD request beats kv_gbps 0.0,
+# so the master's XLLM_KV_FETCH_GBPS applies).
+FETCH_MASTER_ENV = {"XLLM_KV_FETCH_GBPS": "1000",
+                    "XLLM_KV_FETCH_OVERHEAD_MS": "0"}
+# The planner's defaults (the reference master's XLLM_KV_FETCH_GBPS and
+# XLLM_KV_FETCH_OVERHEAD_MS), for the verdict it gives unprompted.
+FETCH_DEFAULT_GBPS, FETCH_DEFAULT_OVERHEAD_MS = 1.0, 5.0
+# The holder's cold request's tail, then the 8 chats' tails: every
+# prompt of a round has its own length.
+FETCH_TAILS = (20, 40, 70, 100, 130, 160, 190, 220, 250)
+# (tag, the requester offers the CUDA IPC wire, worker.fail_kv_fetch
+# armed on the requester). The first wire round maps the holder's new
+# staging segments in the requester's process; the second reuses them.
+FETCH_ROUNDS = (("wire_first", True, False), ("wire", True, False),
+                ("bytes", False, False), ("recompute", False, True))
+
+
+def _fetch_counters(w) -> dict:
+    return {k: getattr(w, k) for k in (
+        "kv_fetch_attempts", "kv_fetch_failures", "kv_fetch_bytes",
+        "kv_fetch_seconds", "kv_fetch_adopt_seconds",
+        "kv_fetch_device_wire")}
+
+
+def _default_verdict(terms: dict) -> dict:
+    """The reference planner's verdict for the audited plan's blocks at
+    its default price (``FETCH_DEFAULT_*``), from the audit's own terms:
+    a block is fetched while its transfer costs less than recomputing
+    it, and the fetch wins when those blocks' transfer plus the
+    overhead costs less than recomputing them."""
+    blocks = terms["holder_blocks"] - terms["local_blocks"]
+    recompute_blk = terms["block_size"] / terms["prefill_tok_s"] * 1e3
+    fetch_blk = terms["block_bytes"] / (FETCH_DEFAULT_GBPS * 1e9) * 1e3
+    n = blocks if fetch_blk < recompute_blk else 0
+    fetch_ms = n * fetch_blk + FETCH_DEFAULT_OVERHEAD_MS
+    return {"blocks": blocks, "fetch_ms_per_block": fetch_blk,
+            "recompute_ms_per_block": recompute_blk,
+            "fetch_ms": blocks * fetch_blk + FETCH_DEFAULT_OVERHEAD_MS,
+            "recompute_ms": blocks * recompute_blk,
+            "verdict": "fetch" if n and fetch_ms < n * recompute_blk
+            else "recompute"}
+
+
+def fetch_phase(torch, kernels, card: str, err: float) -> dict:
+    """Phase 11: the cross-worker block fetch behind the reference master
+    (round robin, block size 128, a fetch priced to win:
+    ``FETCH_MASTER_ENV``). The store and the master run as children (as
+    in phase 10); so does the holder A (llama3-1b, phase 5's flags and
+    order, graphs on, random weights from the engine's seed), and the
+    requester B runs in this process with the same weights and
+    ``--enable-profiling``, so that its token streams and kernel launches
+    are read step by step (a stream the master relays carries no token
+    ids). Each round (``FETCH_ROUNDS``) takes a new 1,024-token shared
+    prompt: A serves it with a tail straight (cold); once a beat of A's
+    after it reached the master, 8 chats share it with other tails (32
+    greedy tokens each) through the master at once, so that the four
+    routed to B are planned as fetches from A. Rounds: over the CUDA IPC
+    wire (twice: the first maps A's staging segments in this process),
+    over the bytes (B offers no wire), and with ``worker.fail_kv_fetch``
+    armed on B (the recompute yardstick).
+
+    Checks: every planned fetch adopted outside the armed round (no
+    failure, 8 blocks and their bytes a fetch, the wire's fetches over
+    the wire); the master's ``fetch`` verdicts moved; in the armed round
+    every attempt a failure; B's streams equal A's own (the same prompts
+    sent straight to A) or drift under the margins rule; each of B's
+    steps launches its kernels (K2/K4 a prefill replay, K1/K3 a decode
+    replay); no eager step and no capture after warmup on A or B; no
+    ticket left staged and no segment leaked on A; B's free pages back
+    to their start and A's KV usage 0. Printed: KV bytes a fetch; its ms
+    on B's clock, split into A's export, the transfer and B's adoption,
+    and GB/s, per transport; TTFT of the fetched requests against the
+    recompute round and against A's local hits; the planner's audit
+    terms and its verdict at its defaults beside what the card measured;
+    B's profiling samples as the master holds them."""
+    from xllm_service_tpu_torch.runtime import kv_wire, worker
+    logs = ROOT / "build" / "fetch_logs"
+    logs.mkdir(parents=True, exist_ok=True)
+    procs, ws, out = [], [], {"rounds": {}}
+    t_phase = time.perf_counter()
+    try:
+        store = RefProcess(["xllm_service_tpu.service.coordination_net",
+                            "--port", "0"], "coordination store serving on",
+                           logs / "store.log")
+        procs.append(store)
+        store_addr = store.line.split()[-1]
+        master, m_http, m_rpc = start_master(store_addr, False,
+                                             logs / "master.log",
+                                             env=FETCH_MASTER_ENV)
+        procs.append(master)
+        argv = ["--model", FETCH_MODEL, "--device", FETCH_DEVICE,
+                *FETCH_ARGS, "--instance-type", "DEFAULT", "--store-addr",
+                store_addr, "--service-addr", m_rpc]
+        # A starts in its child while B builds here.
+        started = {}
+
+        def start_holder() -> None:
+            try:
+                started["a"] = RefProcess(
+                    ["xllm_service_tpu_torch.runtime.worker", *argv],
+                    "XLLM_TORCH_WORKER_UP", logs / "holder_child.log",
+                    timeout=300.0, env=FETCH_ENV)
+            except Exception as e:  # noqa: BLE001 — raised below
+                started["error"] = e
+        th = threading.Thread(target=start_holder)
+        th.start()
+        try:
+            b, out["requester_start_s"] = _start(
+                worker, argv + ["--enable-profiling"], FETCH_ENV)
+            ws.append(b)
+        finally:
+            th.join(timeout=330.0)
+        if "a" not in started:
+            raise AssertionError(f"phase 11: the holder did not start: "
+                                 f"{started.get('error')}")
+        procs.append(started["a"])
+        a_addr = started["a"].line.split("http=")[-1]
+        wait_for(lambda: {a_addr, b.name} <= set(listed(m_rpc)), 60.0,
+                 "A and B on the master's list")
+        eng = b.engine
+        layers = eng.cfg.num_layers
+        block_bytes = eng.kv_block_bytes()
+        start_free = eng.allocator.num_free + eng.prefix_cache.num_reclaimable
+        steplog = StepLog(eng, kernels)
+        on_b = set()
+        add = eng.add_request
+
+        def noted_add(req):
+            on_b.add(req.request_id)
+            return add(req)
+        eng.add_request = noted_add
+        rng = random.Random(110)
+        tok = b.tokenizer
+        path = {"ragged": False, "write_then_attend": True}
+        # TTFT ms: B's chats by round (fetched, or recomputed in the
+        # armed round), and A's (local hits) over every round.
+        margins, ttft = [], {"local": []}
+        audits = {}
+
+        def body(ids, **extra):
+            return {**_chat_body(ids), "model": FETCH_MODEL, **extra}
+
+        for tag, offer, armed in FETCH_ROUNDS:
+            system = _token_ids(tok, rng, SYSTEM_TOKENS)
+            prompts = [system + _token_ids(tok, rng, n) for n in FETCH_TAILS]
+            cold = {}
+            _request(a_addr, CHAT, body(prompts[0]), True, cold)
+            t_done = time.monotonic()
+            wait_for(lambda: (lambda row: row is not None and
+                              time.monotonic() - row["heartbeat_age_s"]
+                              > t_done + 0.1)(master_row(m_http, a_addr)),
+                     10.0, "a beat of A's after its cold request")
+            b.opts.pd_device_wire = offer
+            if armed:
+                b.failpoints.arm("worker.fail_kv_fetch", mode="always")
+            c0, a0 = _fetch_counters(b), _metric_rows(a_addr)
+            v0 = _metric(_metric_rows(m_http),
+                         "xllm_kv_fetch_decisions_total", verdict="fetch")
+            steplog.clear()
+            on_b.clear()
+            kernels.reset_launch_counts()
+            rids = [f"phase11-{tag}-{i}" for i in range(len(prompts) - 1)]
+            t0 = time.perf_counter()
+            try:
+                res = _concurrent(m_http, [body(p) for p in prompts[1:]],
+                                  [{"x-request-id": r} for r in rids])
+            finally:
+                if armed:
+                    b.failpoints.arm("worker.fail_kv_fetch", mode="off")
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            check_step_launches(steplog.rows, kernels.launch_counts(),
+                                layers, False, True, False)
+            c1, a1 = _fetch_counters(b), _metric_rows(a_addr)
+            v1 = _metric(_metric_rows(m_http),
+                         "xllm_kv_fetch_decisions_total", verdict="fetch")
+            d = {k: c1[k] - c0[k] for k in c1}
+            mine = [i for i, r in enumerate(rids) if r in on_b]
+            if not mine or len(mine) == len(rids):
+                raise AssertionError(f"phase 11 {tag}: {len(mine)} of "
+                                     f"{len(rids)} chats on B")
+            attempts = d["kv_fetch_attempts"]
+            if armed:
+                ok = attempts >= 1 and d["kv_fetch_failures"] == attempts \
+                    and d["kv_fetch_bytes"] == 0
+            else:
+                ok = (attempts >= 1 and d["kv_fetch_failures"] == 0
+                      and d["kv_fetch_bytes"] == attempts * block_bytes
+                      * (SYSTEM_TOKENS // eng.ecfg.page_size)
+                      and d["kv_fetch_device_wire"]
+                      == (attempts if offer else 0))
+            if not ok or v1 <= v0:
+                raise AssertionError(f"phase 11 {tag}: fetch counters "
+                                     f"{d}, fetch verdicts {v0} -> {v1}")
+            # B's streams against A's own: the same prompts straight to A.
+            ref = {}
+            for i, r in zip(mine, _concurrent(
+                    a_addr, [body(prompts[i + 1], ledger_tokens=True)
+                             for i in mine])):
+                _ttft_ms(r)
+                ref[len(prompts[i + 1])] = [
+                    t for f in r["frames"][:-1]
+                    for t in (json.loads(f[6:]).get("xllm") or {})
+                    .get("token_ids", [])]
+            got = {n: steplog.tokens.get(n, []) for n in ref}
+            equal = sum(got[n] == ref[n] for n in ref)
+            if equal < len(ref):
+                m = divergence_margins(
+                    torch, eng, [(f"fetch_{tag}", ref, path, got, path,
+                                  {len(p): p for p in prompts})], err)
+                if any(x["verdict"] == "fault" for x in m):
+                    raise AssertionError(f"phase 11 {tag}: divergence "
+                                         f"past the margin rule: {m}")
+                margins.extend(m)
+            ttft[tag] = [_ttft_ms(res[i]) for i in mine]
+            ttft["local"] += [_ttft_ms(r) for i, r in enumerate(res)
+                              if i not in mine]
+            status, span = _get(m_http, f"/admin/trace/{rids[mine[0]]}")
+            if status != 200:
+                raise AssertionError(f"phase 11 {tag}: trace {status}")
+            audits[tag] = span["attrs"]["schedule_decision"]["kv_fetch"]
+            if audits[tag].get("verdict") != "fetch":
+                raise AssertionError(f"phase 11 {tag}: plan {audits[tag]}")
+            rec = {"chats_on_requester": len(mine), "fetches": attempts,
+                   "round_s": wall, "equal_streams": equal,
+                   "streams": len(ref), "counters": d,
+                   "ttft_ms_cold_on_holder": _ttft_ms(cold),
+                   "ttft_ms_on_requester": [_ttft_ms(res[i])
+                                            for i in mine],
+                   "ttft_ms_on_holder": [_ttft_ms(r) for i, r in
+                                         enumerate(res) if i not in mine]}
+            if not armed:
+                served = _metric(a1, "xllm_worker_kv_blocks_served_total") \
+                    - _metric(a0, "xllm_worker_kv_blocks_served_total")
+                export_s = _metric(
+                    a1, "xllm_worker_kv_blocks_export_seconds_total") - \
+                    _metric(a0, "xllm_worker_kv_blocks_export_seconds_total")
+                fetch_ms = 1e3 * d["kv_fetch_seconds"] / attempts
+                rec.update(
+                    kv_bytes_per_fetch=d["kv_fetch_bytes"] / attempts,
+                    blocks_per_fetch=d["kv_fetch_bytes"] / attempts
+                    / block_bytes,
+                    fetch_ms=fetch_ms,
+                    export_ms=1e3 * export_s / max(served, 1),
+                    adopt_ms=1e3 * d["kv_fetch_adopt_seconds"] / attempts,
+                    gbps=d["kv_fetch_bytes"] / d["kv_fetch_seconds"] / 1e9)
+                rec["transfer_ms"] = (fetch_ms - rec["export_ms"]
+                                      - rec["adopt_ms"])
+            out["rounds"][tag] = rec
+        # Every step of B's a replay of a graph its warmup captured; A's
+        # too (its /metrics); no ticket left and no segment leaked.
+        cap = eng.capture_report()
+        a_rows = _metric_rows(a_addr)
+        a_state = {k: _metric(a_rows, k) for k in (
+            "xllm_worker_eager_steps_total", "xllm_worker_recompiles_total",
+            "xllm_worker_kv_wire_staged", "xllm_worker_kv_wire_leaked_total",
+            "xllm_worker_kv_cache_usage")}
+        if cap["captures_after_warmup"] or cap["eager_steps"] or \
+                any(a_state.values()) or kv_wire.wire_stats()["leaked"]:
+            raise AssertionError(f"phase 11: B's census {cap}, A's "
+                                 f"{a_state}")
+        wait_for(lambda: not eng.has_work(), 60.0, "B idle")
+        free = eng.allocator.num_free + eng.prefix_cache.num_reclaimable
+        if free != start_free:
+            raise AssertionError(f"phase 11: B's free pages {free} of "
+                                 f"{start_free}")
+        status, info = _get(m_rpc, f"/rpc/instance_info?name={b.name}")
+        prof = {"ttft": (info or {}).get("ttft_profiling_data") or [],
+                "tpot": (info or {}).get("tpot_profiling_data") or []}
+        if [s[0] for s in prof["ttft"]] != [32, 64, 128] or \
+                [s[0] for s in prof["tpot"]] != [1, 2, 4]:
+            raise AssertionError(f"phase 11: B's registration's profile "
+                                 f"{status} {prof}")
+        out["profiling"] = prof
+    except Exception:
+        for p in procs:
+            log(f"[fetch] {p.proc.args[2]} log tail:\n{p.tail()}")
+        raise
+    finally:
+        for w in ws:
+            w.stop()
+        for p in procs:
+            p.stop()
+    del ws
+    free_device_memory(torch)
+    out["margins"] = margins
+    out["ttft_ms"] = ttft
+    med = out["ttft_ms_median"] = {k: _median(v) for k, v in ttft.items()}
+    out["audit"] = audits["recompute"]
+    dv = out["default_verdict"] = _default_verdict(audits["recompute"])
+    # The card's verdict per transport: whether the fetched chats' median
+    # TTFT beat the recomputed ones'.
+    out["card_verdict"] = {
+        tag: "fetch" if med[tag] < med["recompute"] else "recompute"
+        for tag, _, armed in FETCH_ROUNDS if not armed}
+    out["phase_s"] = time.perf_counter() - t_phase
+    rows = []
+    for tag, rec in out["rounds"].items():
+        if "fetch_ms" in rec:
+            rows.append(
+                f"{tag}: {rec['fetches']} fetches of "
+                f"{rec['kv_bytes_per_fetch']:.0f} B "
+                f"({rec['blocks_per_fetch']:.0f} blocks), "
+                f"{rec['fetch_ms']:.3f} ms a fetch = A's export "
+                f"{rec['export_ms']:.3f} + transfer "
+                f"{rec['transfer_ms']:.3f} + B's adoption "
+                f"{rec['adopt_ms']:.3f}, {rec['gbps']:.3f} GB/s; streams "
+                f"equal {rec['equal_streams']} of {rec['streams']}")
+    log(f"[fetch] {card}: " + "; ".join(rows))
+    log(f"[fetch] {card}: TTFT ms median on B by round "
+        f"{ {t: med[t] for t, *_ in FETCH_ROUNDS} } (recompute: "
+        f"fail_kv_fetch armed), local hit on A {med['local']}; planner "
+        f"audit {json.dumps(out['audit'])}; at the defaults "
+        f"({FETCH_DEFAULT_GBPS} GB/s, {FETCH_DEFAULT_OVERHEAD_MS} ms): "
+        f"fetch {dv['fetch_ms']:.3f} ms vs recompute "
+        f"{dv['recompute_ms']:.3f} ms, verdict {dv['verdict']}; the card "
+        f"by transport {out['card_verdict']}")
+    log(f"[fetch] {card}: B's profiling samples on the master: TTFT "
+        f"(tokens, ms) {prof['ttft']}; TPOT (batch, tokens, ms) "
+        f"{prof['tpot']}; phase {out['phase_s']:.1f} s")
+    log(f"[fetch] detail {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5797,6 +6135,10 @@ def main() -> int:
     disaggregated = pd_phase(torch, kernels, card, err)
     free_device_memory(torch)
     mark("10_pd")
+    # 11. The cross-worker block fetch behind the reference master.
+    fetched = fetch_phase(torch, kernels, card, err)
+    free_device_memory(torch)
+    mark("11_fetch")
     margins = served_c["on_engine"] + served_e["on_engine"]
     for phase in (served, served_b, served_c, served_d, served_e):
         phase.pop("prompts")
@@ -5807,7 +6149,7 @@ def main() -> int:
         f"largest logit error, llama3-1b {err}, deepseek-v2-lite "
         f"{err_mla}): {json.dumps(margins)}")
 
-    # 11. Summary.
+    # 12. Summary.
     for r in bench.results:
         name = r.get("entry", r["name"])       # a record at another shape
         phase = (served_b if name == "ragged_paged_attention" else
@@ -5831,7 +6173,7 @@ def main() -> int:
                "cluster": clustered,
                "prefix_reuse": prefixed, "spill_restore": spilled,
                "cluster_cache_aware": routed, "sampling": sampled,
-               "faults": faulted, "pd": disaggregated,
+               "faults": faulted, "pd": disaggregated, "fetch": fetched,
                "graph_decode_check": {"llama3-1b": graph,
                                       "deepseek-v2-lite": graph_mla},
                "warmup_ladders": ladders,

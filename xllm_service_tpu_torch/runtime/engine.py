@@ -81,6 +81,13 @@ releases them, ``drop_held`` releases them unread, and
 sequence with the first token still to be written. The gather and the
 scatter are plain tensor indexing, as the JAX engine's are XLA.
 
+The cross-worker block fetch, as the JAX engine serves it: on the holder,
+``export_blocks`` gathers the K/V of a contiguous run of block digests
+out of the pools, extended with blocks parked in the host tier; on the
+requester, ``adopt_blocks`` scatters such a run into fresh pages, in
+place, and registers them under their digests as cached, reclaimable
+pages, so that the request's admission hits them like a local prefix.
+
 Decode runs through ``runtime/decode_graph.py``: one CUDA graph per
 (table width, steps, sampling mode), captured by ``warmup()`` (or at a
 key's first use), as the JAX engine compiles its decode programs. With
@@ -118,9 +125,6 @@ the runners keep between steps stale, to be rebuilt from host truth.
 {"flops", "bytes", "tokens"} from the analytic count of
 ``models/cost.py``, keyed as the JAX engine keys its ``cost_analysis``
 table (``obs/steptrace.py`` reads it).
-
-Not in this package yet: the cross-worker block fetch
-(``export_blocks``, adoption of a remote holder's blocks).
 """
 
 from __future__ import annotations
@@ -399,6 +403,8 @@ class Engine:
         # the cache covered (local hits and tier restores).
         self.prefix_lookups = 0
         self.prefix_hit_tokens = 0
+        # Blocks adopted from another worker (``adopt_blocks``).
+        self.fetched_blocks = 0
         # The step fault boundary (module docstring): the worker reads
         # ``step_members`` and ``last_step_partial_outs`` after a fault
         # and drives ``isolate`` / ``fault_reset``; ``fault_hook`` is its
@@ -495,13 +501,13 @@ class Engine:
 
     def prefix_cache_stats(self) -> Dict[str, int]:
         """The ``xllm_worker_prefix_cache_*`` series: lifetime lookups,
-        hit tokens and spill traffic (no block is fetched from another
-        worker in this package: ``fetched_blocks_total`` stays 0)."""
+        hit tokens, blocks adopted from another worker and spill
+        traffic."""
         tier = self.host_tier
         return {
             "lookups_total": self.prefix_lookups,
             "hit_tokens_total": self.prefix_hit_tokens,
-            "fetched_blocks_total": 0,
+            "fetched_blocks_total": self.fetched_blocks,
             "spilled_pages": tier.spilled_blocks if tier else 0,
             "restored_pages": tier.restored_blocks if tier else 0,
         }
@@ -1709,6 +1715,118 @@ class Engine:
         self.prefix_cache.register_full_pages(
             seq.tokens[:seq.num_computed], seq.pages)
         return True
+
+    # ------------------------------------------------------------------
+    # The cross-worker block fetch
+    # ------------------------------------------------------------------
+    def export_blocks(self, hashes: Seq[bytes], device: bool = False
+                      ) -> Optional[Tuple[int, torch.Tensor, torch.Tensor]]:
+        """The holder's side of a fetch (JAX engine ``export_blocks``):
+        the K/V of a contiguous run of block digests, gathered out of the
+        pools and extended with the blocks parked in the host tier (its
+        disk copies included). Returns (n, k, v), k and v [L, n,
+        page_size, H, D], or None when the leading digest is held
+        nowhere. On the engine's device only with ``device=True`` and the
+        whole run in the pools (for the device wire; a tier block is on
+        the host already), else on the CPU.
+
+        ``pages_for_hashes`` pins the pages: a reclamation racing the
+        gather would hand the requester another prompt's KV. The pins
+        drop in the ``finally`` as soon as the gather is enqueued: the
+        gather lands in a fresh tensor, on the current stream (the
+        device's default stream, the one the engine loop's steps and
+        graph replays run on), so it is ordered before any later write
+        of a reclaimed page by the same stream."""
+        pages = self.prefix_cache.pages_for_hashes(hashes)
+        n_pool = len(pages)
+        k = v = None
+        try:
+            if n_pool:
+                k_pages, v_pages = self.kv
+                idx = torch.tensor(pages, dtype=torch.long,
+                                   device=k_pages.device)
+                k = k_pages.index_select(1, idx)
+                v = v_pages.index_select(1, idx)
+        finally:
+            self.prefix_cache.release_pages(pages)
+        if n_pool and device and n_pool == len(hashes):
+            return n_pool, k, v
+        parts_k = [k.cpu()] if n_pool else []
+        parts_v = [v.cpu()] if n_pool else []
+        i = n_pool
+        while self.host_tier is not None and i < len(hashes):
+            blk = self.host_tier.peek(hashes[i])
+            if blk is None:
+                break
+            parts_k.append(torch.as_tensor(blk[0]).unsqueeze(1))
+            parts_v.append(torch.as_tensor(blk[1]).unsqueeze(1))
+            i += 1
+        if not parts_k:
+            return None
+        return i, torch.cat(parts_k, dim=1), torch.cat(parts_v, dim=1)
+
+    def adopt_blocks(self, token_ids: Seq[int], start_block: int,
+                     k, v) -> int:
+        """The requester's side (JAX engine ``adopt_blocks``): blocks
+        ``start_block .. start_block + n - 1`` of ``token_ids``' digest
+        chain, k and v [L, n, page_size, H, D] (tensors on any device, or
+        numpy arrays), written into fresh pages and registered as cached,
+        reclaimable pages, so that the prompt's admission hits them as a
+        local prefix. Returns the blocks adopted; 0, with nothing
+        changed, on a layout that is not the pools', a run past the
+        prompt's full blocks, a lead block held neither in the pools nor
+        in the host tier (the run would be unreachable), or no free
+        pages: the caller then prefills from its own hit.
+
+        The scatter is an in-place ``index_copy_``: the pools are the
+        static buffers the decode, prefill and ragged graphs captured.
+        The adopted pages belong to no sequence, so nothing a runner
+        stages changes; the next admission's page table is packed whole
+        into the prefill runner's buffer."""
+        self.drain_pipeline()
+        k_pages, v_pages = self.kv
+        n = int(k.shape[1]) if len(getattr(k, "shape", ())) == 5 else 0
+        expect = (k_pages.shape[0], n, *k_pages.shape[2:])
+        if n <= 0 or tuple(k.shape) != expect or \
+                tuple(v.shape) != expect:
+            return 0
+        hashes = self.prefix_cache.block_hashes(token_ids)
+        if start_block + n > len(hashes):
+            return 0
+        # The chain below the run must resolve here, or its digests would
+        # be unreachable (match_prefix walks from block 0). A lead in the
+        # host tier counts: the admission restores it and then picks up
+        # the adopted pages behind it. The pool's leads stay pinned
+        # across the allocation, whose reclamation would otherwise free
+        # the chain's own head.
+        lead = []
+        for h in hashes[:start_block]:
+            pid = self.prefix_cache.page_of(h)
+            if pid is not None:
+                lead.append(pid)
+            elif self.host_tier is None or h not in self.host_tier:
+                return 0
+        self.prefix_cache.acquire_pages(lead)
+        try:
+            pages = self.prefix_cache.alloc(n)
+            if pages is None:
+                return 0
+            # Released registered (cached, reclaimable), or, when the
+            # scatter raised, unregistered (freed).
+            try:
+                idx = torch.tensor(pages, dtype=torch.long,
+                                   device=k_pages.device)
+                for pool, block in ((k_pages, k), (v_pages, v)):
+                    pool.index_copy_(1, idx, torch.as_tensor(block).to(
+                        device=pool.device, dtype=pool.dtype))
+                self.prefix_cache.register_blocks(
+                    hashes[start_block:start_block + n], pages)
+            finally:
+                self.prefix_cache.release_pages(pages)
+        finally:
+            self.prefix_cache.release_pages(lead)
+        self.fetched_blocks += n
+        return n
 
     # ------------------------------------------------------------------
     # The host spill tier

@@ -417,6 +417,41 @@ class PrefixCacheIndex:
                 logger.warning("kv spill of page %d failed: %s", pid, e)
         self._pending_event.removed.append(h)
 
+    def register_blocks(self, hashes: Sequence[bytes],
+                        pages: Sequence[int]) -> int:
+        """Register digest→page mappings positionally (the adoption of
+        blocks fetched from another worker, whose chain below may resolve
+        through the host tier, so no full list of lead pages exists).
+        The chain's reachability is the caller's contract. A digest
+        already owned is skipped (exactly once: the redundant page stays
+        unregistered and frees on release). Returns the number
+        registered."""
+        n = 0
+        for h, pid in zip(hashes, pages):
+            if self._hash_of.get(pid) == h or h in self._by_hash:
+                continue
+            self._evict_mapping(pid)
+            self._by_hash[h] = pid
+            self._hash_of[pid] = h
+            self._pending_event.stored.append(h)
+            n += 1
+        return n
+
+    def pages_for_hashes(self, hashes: Sequence[bytes]) -> List[int]:
+        """The pages of a digest run, stopping at the first miss (a fetch
+        serves a contiguous leading run), ACQUIRED for the caller: pinned
+        against reclamation while an export gathers them, and released
+        with ``release_pages``."""
+        pages: List[int] = []
+        for h in hashes:
+            pid = self._by_hash.get(h)
+            if pid is None:
+                break
+            pages.append(pid)
+        for pid in pages:
+            self._acquire(pid)
+        return pages
+
     def page_of(self, h: bytes) -> Optional[int]:
         return self._by_hash.get(h)
 

@@ -343,6 +343,11 @@ def wire_stats() -> Dict[str, int]:
                 "busy": wire.busy, "leaked": wire.leaked}
 
 
+def peek_device_wire() -> Optional[DeviceWire]:
+    """This process's wire if one was made, without making one."""
+    return _wire
+
+
 def pull_block(tr: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
     """The decode side's pull of a staged (k, v) block. The exception
     tells the producer what to do with its segment: ``WireUnsupported``

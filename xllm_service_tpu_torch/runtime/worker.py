@@ -51,10 +51,44 @@ the vocabulary is a 400), the presence and frequency penalties and the
 per-request ``seed`` are applied by the engine inside its steps.
 
 A request body may mark the request ``offline`` (batch tier: queued
-behind online requests, preempted first). The master's ``kv_fetch``
-routing plan (pull the leading blocks from another worker) is not
-followed: the worker prefills from its own prefix hit, the JAX worker's
-own path when a fetch fails.
+behind online requests, preempted first).
+
+The cross-worker block fetch, as the JAX worker serves it. A request the
+master routes here with a ``routing.kv_fetch`` plan (another worker holds
+more of its prefix's blocks, and fetching them is priced below
+recomputing them) first asks the holder for the planned leading blocks
+that this worker's pools and host tier lack (``POST /kv/blocks``, bounded
+by ``XLLM_KV_FETCH_TIMEOUT_S``, default 15 s) and adopts them
+(``Engine.adopt_blocks``); the admission then hits them as a local
+prefix. Any failure, ``worker.fail_kv_fetch`` included, is counted and
+the request prefills from its own hit. As a holder, ``POST /kv/blocks
+{"model", "hashes", "wire"}`` answers with the run's K/V
+(``Engine.export_blocks``) as the meta line and bytes, or as a staged
+CUDA IPC ticket that the requester pulls and acknowledges with ``POST
+/kv/blocks_done {"uuid", "outcome"}``; tickets no requester acknowledged
+within 60 s are released as leaked, at heartbeat cadence and at each
+``/kv/blocks``. The model resolves strictly (404 for one not served
+here); a run no longer held is a 404. The wire between the packages: a
+JAX requester's ``"wire": true`` offers its PJRT wire, which cannot pull
+a CUDA IPC ticket, so this holder stages only for an ask marked
+``"wire": "cuda_ipc"`` (``FETCH_WIRE``), which only this package's
+requesters send, and only to a holder in another process. A ticket the
+requester cannot pull (a JAX holder's, or one of its own process) is
+acknowledged ``nopull`` and the same fetch asks again for the bytes;
+that holder is not offered the wire again (as ``_wire_refused`` does for
+a PD decode peer). ``/metrics`` counts
+``xllm_worker_kv_fetch_{attempts,failures,bytes}_total`` under the JAX
+names, with the seconds of adopted fetches and of their adoption, those
+over the wire, and the holder's requests served and export seconds
+(``xllm_worker_kv_blocks_{served,export_seconds}_total``). The beat
+carries ``kv_gbps``, the PD migrations' measured rate, which the master
+prices fetches from this holder with.
+
+``--enable-profiling`` (``WorkerOptions.enable_profiling``) measures the
+JAX worker's TTFT/TPOT profile once on the warmed engine
+(``service/time_predictor.profile_engine``) and puts the samples in every
+registration (``ttft_profiling_data`` / ``tpot_profiling_data``), which
+the master's SLO-aware policy fits its latency predictor from.
 
 The engine step runs inside the JAX worker's fault boundary: an
 exception from ``Engine.step()`` is classified (a timeout or a dropped
@@ -113,11 +147,9 @@ since the last acknowledged beat on each heartbeat; ``/metrics`` carries
 ``xllm_worker_step_mfu``, ``xllm_worker_step_debt_ms``,
 ``xllm_worker_program_flops`` / ``_bytes`` and ``xllm_worker_peak_flops``.
 
-Not in this package yet: etcd stores, profiling data in the
-registration, draining, spans on the heartbeat (and the hot-path
-sections of ``/admin/steptrace``), the store guard, sleep/wakeup, the
-other ``/admin/*`` routes, the cross-worker block fetch (``/kv/blocks``)
-and EPD traffic.
+Not in this package yet: etcd stores, draining, spans on the heartbeat
+(and the hot-path sections of ``/admin/steptrace``), the store guard,
+sleep/wakeup and EPD traffic.
 
 Run: ``python -m xllm_service_tpu_torch.runtime.worker --model llama3-1b``
 (add ``--store-addr`` and ``--service-addr`` to join a cluster).
@@ -170,6 +202,7 @@ from xllm_service_tpu_torch.service.httpd import (http_json, http_stream,
                                                   iter_sse_events)
 from xllm_service_tpu_torch.service.instance_types import (
     Heartbeat, InstanceMetaInfo, LatencyMetrics, LoadMetrics)
+from xllm_service_tpu_torch.service.time_predictor import profile_engine
 from xllm_service_tpu_torch.service.response_handler import (
     SSE_DONE, ChatStreamAssembler, CompletionStreamAssembler,
     ResponseCollector, sse_frame)
@@ -229,9 +262,13 @@ class WorkerOptions:
     # PD handoff to a decode worker in this process: device tensors end
     # to end (off forces the HTTP transports, e.g. to test them).
     pd_direct_kv: bool = True
-    # PD handoff between processes over CUDA IPC (runtime/kv_wire.py);
-    # without a GPU there is no wire and the host shuttle runs.
+    # PD handoff and block fetch between processes over CUDA IPC
+    # (runtime/kv_wire.py); without a GPU there is no wire and the
+    # bytes go over HTTP.
     pd_device_wire: bool = True
+    # Measure TTFT/TPOT samples on the warmed engine for the
+    # registration (``service/time_predictor.profile_engine``).
+    enable_profiling: bool = False
 
 
 class HttpError(Exception):
@@ -243,15 +280,18 @@ class HttpError(Exception):
 
 
 class _Reply:
-    """A route's answer: a JSON body with its status, or an SSE stream
-    (``frames``, closed by the handler however the client leaves)."""
+    """A route's answer: a JSON body with its status, an SSE stream
+    (``frames``, closed by the handler however the client leaves) or
+    octet-stream bytes (``data``)."""
 
-    __slots__ = ("status", "body", "frames")
+    __slots__ = ("status", "body", "frames", "data")
 
     def __init__(self, status: int = 200,
                  body: Optional[Dict[str, Any]] = None,
-                 frames: Optional[Iterator[bytes]] = None) -> None:
+                 frames: Optional[Iterator[bytes]] = None,
+                 data: Optional[bytes] = None) -> None:
         self.status, self.body, self.frames = status, body, frames
+        self.data = data
 
     @classmethod
     def error(cls, status: int, message: str,
@@ -468,6 +508,28 @@ _MIGRATION_SERIES = (
     ("device_wire", "migrations over the CUDA IPC device wire"),
     ("chunked", "migrations over the chunked host shuttle"),
 )
+# The block fetch's counters on /metrics, by ``Worker.<key>``: the JAX
+# worker's three (:2439-2448), then this package's split of the time.
+_FETCH_SERIES = (
+    ("kv_fetch_attempts", "cross-worker cached-block fetches attempted "
+                          "(requester side)"),
+    ("kv_fetch_failures", "fetch attempts that fell back to recompute "
+                          "(holder refusal, transport, failpoint)"),
+    ("kv_fetch_bytes", "KV bytes adopted from remote holders"),
+    ("kv_fetch_seconds", "seconds of fetches that adopted blocks, from "
+                         "the ask to the adoption's end"),
+    ("kv_fetch_adopt_seconds", "of those, seconds adopting the blocks "
+                               "under the engine lock"),
+    ("kv_fetch_device_wire", "fetches adopted over the CUDA IPC wire"),
+    ("kv_blocks_served", "/kv/blocks requests answered with blocks "
+                         "(holder side)"),
+    ("kv_blocks_export_seconds", "seconds of the holder's block exports "
+                                 "(and wire staging)"),
+)
+# The wire mark a requester of this package puts on /kv/blocks: only an
+# ask carrying it gets a CUDA IPC ticket (a JAX requester's ``"wire":
+# true`` offers its PJRT wire, which cannot pull one).
+FETCH_WIRE = "cuda_ipc"
 _PREFIX_SERIES = (
     ("hit_tokens_total", "prompt tokens served from the prefix cache "
                          "(local hits and tier restores)"),
@@ -477,7 +539,7 @@ _PREFIX_SERIES = (
     ("restored_pages", "spilled pages restored to the pool on a later "
                        "prefix hit"),
     ("fetched_blocks_total", "KV blocks adopted from a remote holder "
-                             "(none: this worker does not fetch)"),
+                             "(cross-worker cached-block fetch)"),
 )
 
 
@@ -503,6 +565,14 @@ class Worker:
             secs = self.warmup()
             logger.info("warmup: %.1f s, %s", secs,
                         self.engine.compile_report())
+        # The registration's TTFT/TPOT samples, measured once here, on the
+        # warmed engine (its steps replay warmup's graphs) before the
+        # engine loop starts; every registration carries them. The JAX
+        # worker measures them at each registration.
+        self._ttft_prof: List[Tuple[float, float]] = []
+        self._tpot_prof: List[Tuple[float, float, float]] = []
+        if opts.enable_profiling:
+            self._ttft_prof, self._tpot_prof = profile_engine(self.engine)
         self._live: Dict[str, _LiveRequest] = {}        # engine rid
         self._live_srid: Dict[str, _LiveRequest] = {}   # request id
         self._live_lock = threading.Lock()
@@ -654,6 +724,32 @@ class Worker:
                 "XLLM_KV_SHUTTLE_CHUNK_MB", "32"))
         except ValueError:
             self._kv_shuttle_chunk_mb = 32.0
+        # The cross-worker block fetch. Holder: the wire tickets staged
+        # for a requester's pull, uuid -> (staged at, wire), released by
+        # /kv/blocks_done or the TTL sweep; the requests served and the
+        # export's seconds. Requester: attempts, failures (each fell back
+        # to recompute), bytes adopted, the seconds of adopted fetches
+        # and of their adoption, those over the wire, and the holders
+        # that answered a wire ticket this process cannot pull. All
+        # under _kv_fetch_mu.
+        self._kv_fetch_mu = threading.Lock()
+        self._kv_fetch_staged: Dict[int, Tuple[float, Any]] = {}
+        self.kv_blocks_served = 0
+        self.kv_blocks_export_seconds = 0.0
+        self.kv_fetch_attempts = 0
+        self.kv_fetch_failures = 0
+        self.kv_fetch_bytes = 0
+        self.kv_fetch_seconds = 0.0
+        self.kv_fetch_adopt_seconds = 0.0
+        self.kv_fetch_device_wire = 0
+        self._fetch_wire_refused: set = set()
+        # A fetch must never hold TTFT for long: recompute is always
+        # near (JAX worker :611-614).
+        try:
+            self._kv_fetch_timeout_s = float(os.environ.get(
+                "XLLM_KV_FETCH_TIMEOUT_S", "15") or 15)
+        except ValueError:
+            self._kv_fetch_timeout_s = 15.0
 
     # ------------------------------------------------------------------
     # Lifecycle
@@ -743,8 +839,8 @@ class Worker:
     # Registration and the master's address
     # ------------------------------------------------------------------
     def _register(self) -> None:
-        """Write the registration (JAX worker :1114-1169; no profiling
-        data, as this engine has no profiler yet) under a fresh TTL
+        """Write the registration (JAX worker :1114-1169, with the
+        profiling samples of ``enable_profiling``) under a fresh TTL
         lease. A re-registration revokes the old lease first, or every
         one leaks a live lease in the store."""
         layers = list(range(self.model_cfg.num_layers))
@@ -758,7 +854,9 @@ class Worker:
             # (block_size, murmur seed), and one block's bytes.
             page_size=self.engine.ecfg.page_size,
             hash_seed=self.opts.murmur_seed,
-            kv_block_bytes=self.engine.kv_block_bytes())
+            kv_block_bytes=self.engine.kv_block_bytes(),
+            ttft_profiling_data=list(self._ttft_prof),
+            tpot_profiling_data=list(self._tpot_prof))
         with self._reg_mu:
             if self._lease_id is not None:
                 try:
@@ -884,6 +982,7 @@ class Worker:
                             logger.warning("re-registration failed: %s", e)
                         if healed and self.opts.service_addr:
                             self._adopt_advertised_addr()
+                self._sweep_kv_fetch_staged()
                 if self._service_config_stale:
                     self._refresh_service_config()
                 if self.service_addr and time.monotonic() >= next_hb:
@@ -953,10 +1052,15 @@ class Worker:
                                              since_seq=self._hb_steps_seq)
             if steps_tail:
                 steps_seq = int(steps_tail[-1].get("seq", steps_seq))
+        # The fetch planner's terms: the measured prefill rate and KV
+        # transfer rate (the PD migrations'; 0.0 = no signal, the master
+        # falls back to XLLM_KV_FETCH_{TOKS,GBPS}).
         latency = LatencyMetrics(
             step_ms_p99=p99,
             prefill_tok_s=(self._prefill_tok_cum / self._prefill_s_cum
                            if self._prefill_s_cum > 0 else 0.0),
+            kv_gbps=(self.kv_migration_bytes / self.kv_migration_seconds
+                     / 1e9 if self.kv_migration_seconds > 0 else 0.0),
             waiting_prefill_tokens=int(
                 self.engine.waiting_prefill_tokens()))
         ev = cache_ev or KvCacheEvent()
@@ -1141,11 +1245,19 @@ class Worker:
             self.obs.counter(f"xllm_worker_kv_migration_{key}_total",
                              help).set_total(
                 getattr(self, f"kv_migration_{key}"))
+        for key, help in _FETCH_SERIES:
+            self.obs.counter(f"xllm_worker_{key}_total", help).set_total(
+                getattr(self, key))
         wire = kv_wire.wire_stats()
         self.obs.gauge("xllm_worker_kv_wire_reserved_bytes",
                        "device bytes this process holds in CUDA IPC "
                        "staging segments (kv_wire.MAX_STAGING_BYTES caps them)"
                        ).set(wire["reserved_bytes"])
+        staging = kv_wire.peek_device_wire()
+        self.obs.gauge("xllm_worker_kv_wire_staged",
+                       "tickets staged on the CUDA IPC wire awaiting a "
+                       "peer's pull").set(
+            staging.staged_count() if staging is not None else 0)
         self.obs.counter("xllm_worker_kv_wire_busy_total",
                          "device-wire stages that found no segment and "
                          "took the host shuttle").set_total(wire["busy"])
@@ -1446,6 +1558,17 @@ class Worker:
             else:
                 prompt = body.get("prompt", "")
             token_ids = self.tokenizer.encode(prompt)
+        # The master's block fetch plan, followed before admission so
+        # that the admission hits the adopted blocks (multimodal prompts
+        # are never prefix-cached: no fetch).
+        kvf = (body.get("routing") or {}).get("kv_fetch")
+        if kvf and not body.get("mm_inputs"):
+            try:
+                self._maybe_fetch_blocks(list(token_ids), kvf)
+            except Exception as e:  # noqa: BLE001 — the fetch only saves
+                # a prefill: anything unforeseen recomputes
+                logger.warning("kv block fetch failed (%s); recomputing",
+                               e)
         try:
             # The service-parsed SamplingParams travel in the forwarded
             # body: what the service normalized (max_completion_tokens,
@@ -2337,6 +2460,239 @@ class Worker:
         finally:
             self._finalize(live)
 
+    # ------------------------------------------------------------------
+    # The cross-worker block fetch
+    # ------------------------------------------------------------------
+    def serve_kv_blocks(self, body: Dict[str, Any]) -> "_Reply":
+        """``POST /kv/blocks`` (JAX worker :3914-3978), the holder's side:
+        the K/V of a contiguous run of the requested digests, as a
+        staged CUDA IPC ticket (``{"status": "staged", "blocks",
+        "transfer"}``) when the ask carries ``FETCH_WIRE`` and the whole
+        run is on the device, else as octet-stream bytes (the
+        ``encode_kv_block`` meta line with ``blocks``, then K and V).
+        The model resolves strictly (a digest hashes token ids only, so
+        another model's engine could hold it): one not served here is a
+        404, as is a run whose leading digest is no longer held."""
+        check_version(body, "kv_blocks")
+        model = body.get("model", self.opts.model)
+        if model != self.opts.model:
+            return _Reply.error(404, f"model {model!r} not served here")
+        try:
+            hashes = [bytes.fromhex(h) for h in body.get("hashes", [])]
+        except (TypeError, ValueError):
+            return _Reply.error(400, "bad digest hex")
+        if not hashes:
+            return _Reply.error(400, "no hashes requested")
+        # A worker without a store has no heartbeat loop: its tickets'
+        # TTL sweep runs here.
+        self._sweep_kv_fetch_staged()
+        wire = None
+        if body.get("wire") == FETCH_WIRE and self.opts.pd_device_wire:
+            wire = kv_wire.get_device_wire()
+        t0 = time.monotonic()
+        with self._engine_lock:
+            exported = self.engine.export_blocks(hashes,
+                                                 device=wire is not None)
+        if exported is None:
+            # Evicted since the master's index last heard of it: the
+            # requester recomputes, and the next beat's removals catch
+            # the index up.
+            return _Reply.error(404, "blocks no longer held")
+        n, k, v = exported
+        reply = None
+        if wire is not None and k.device == self.engine.kv[0].device:
+            try:
+                uuid = wire.stage(k, v)
+            except Exception as e:  # noqa: BLE001 — the bytes instead
+                logger.warning("kv block staging failed (%s); serving "
+                               "bytes", e)
+            else:
+                with self._kv_fetch_mu:
+                    self._kv_fetch_staged[uuid] = (time.monotonic(), wire)
+                reply = _Reply(200, {"status": "staged", "blocks": n,
+                                     "transfer": wire.ticket(uuid)})
+        with self._kv_fetch_mu:
+            self.kv_blocks_served += 1
+            self.kv_blocks_export_seconds += time.monotonic() - t0
+        if reply is not None:
+            return reply
+        return _Reply(data=encode_kv_block(k, v,
+                                           extra=stamp({"blocks": n})))
+
+    def serve_kv_blocks_done(self, body: Dict[str, Any]) -> "_Reply":
+        """``POST /kv/blocks_done {"uuid", "outcome"}`` (JAX worker
+        :3980-4000): the requester's word on a staged ticket. ``pulled``
+        and ``nopull`` free the segment (this wire's release has no
+        drain to run), anything else leaves it reserved as leaked."""
+        try:
+            uuid = int(body.get("uuid"))
+        except (TypeError, ValueError):
+            return _Reply.error(400, "invalid body")
+        outcome = body.get("outcome", "pulled")
+        with self._kv_fetch_mu:
+            entry = self._kv_fetch_staged.pop(uuid, None)
+        if entry is None:
+            return _Reply(200, {"ok": True, "known": False})
+        entry[1].release(uuid, leaked=outcome not in ("pulled", "nopull"))
+        return _Reply(200, {"ok": True, "known": True})
+
+    def _sweep_kv_fetch_staged(self, ttl: float = 60.0) -> None:
+        """Release, as leaked, the tickets no requester acknowledged
+        within ``ttl`` seconds (it died mid-pull: whether a copy still
+        reads the segment is unknown). At heartbeat cadence, and at each
+        ``/kv/blocks``."""
+        now = time.monotonic()
+        with self._kv_fetch_mu:
+            stale = [(u, e[1]) for u, e in self._kv_fetch_staged.items()
+                     if now - e[0] > ttl]
+            for u, _ in stale:
+                del self._kv_fetch_staged[u]
+        for u, wire in stale:
+            wire.release(u, leaked=True)
+
+    def _maybe_fetch_blocks(self, token_ids: List[int],
+                            kvf: Dict[str, Any]) -> None:
+        """The requester's side (JAX worker :4016-4145): follow the
+        master's ``kv_fetch`` plan before admission. The planned leading
+        blocks this worker's pools and host tier do not hold come from
+        the holder and are adopted into the pools, so that the admission
+        hits them as a local prefix. Every failure (the holder's refusal,
+        the transport, a layout or page refusal, an armed
+        ``worker.fail_kv_fetch``) is counted and falls back to the
+        request's own prefill."""
+        eng = self.engine
+        if not eng.prefix_cache.enable:
+            return
+        holder = kvf.get("holder") or ""
+        holder_addr = kvf.get("holder_addr") or holder
+        try:
+            end = int(kvf.get("blocks", 0))
+            bs = int(kvf.get("block_size", 0))
+        except (TypeError, ValueError):
+            return
+        if not holder_addr or holder == self.name or end <= 0:
+            return
+        if bs != eng.ecfg.page_size:
+            # Planned on another block size: adopted blocks would be
+            # keyed wrong.
+            logger.warning("kv fetch plan block_size=%d != page_size=%d; "
+                           "recomputing", bs, eng.ecfg.page_size)
+            return
+        hashes = eng.prefix_cache.block_hashes(token_ids)
+        end = min(end, len(hashes))
+        with self._engine_lock:
+            start = 0
+            while start < end and (
+                    eng.prefix_cache.page_of(hashes[start]) is not None
+                    or (eng.host_tier is not None
+                        and hashes[start] in eng.host_tier)):
+                start += 1
+        if start >= end:
+            return              # the local tiers cover the plan
+        with self._kv_fetch_mu:
+            self.kv_fetch_attempts += 1
+        t0 = time.monotonic()
+        got = None
+        if self.failpoints.fire("worker.fail_kv_fetch") is not None:
+            logger.warning("failpoint worker.fail_kv_fetch: recomputing "
+                           "%d planned blocks", end - start)
+        else:
+            try:
+                got = self._ask_holder(holder_addr, hashes[start:end])
+            except Exception as e:  # noqa: BLE001 — holder unreachable
+                logger.warning("kv block fetch from %s failed (%s); "
+                               "recomputing", holder_addr, e)
+        adopted = 0
+        if got is not None:
+            k, v, over_wire = got
+            t1 = time.monotonic()
+            with self._engine_lock:
+                adopted = eng.adopt_blocks(token_ids, start, k, v)
+            t2 = time.monotonic()
+        with self._kv_fetch_mu:
+            if not adopted:
+                self.kv_fetch_failures += 1
+                return
+            self.kv_fetch_bytes += 2 * k.numel() * k.element_size()
+            self.kv_fetch_seconds += t2 - t0
+            self.kv_fetch_adopt_seconds += t2 - t1
+            self.kv_fetch_device_wire += int(over_wire)
+        logger.info("adopted %d cached blocks from %s in %.1f ms", adopted,
+                    holder_addr, 1e3 * (t2 - t0))
+
+    def _ask_holder(self, holder_addr: str, hashes: List[bytes]
+                    ) -> Optional[Tuple[Any, Any, bool]]:
+        """``POST /kv/blocks`` to the holder: (k, v, over the wire), or
+        None on a refusal or a bad answer. The CUDA IPC wire is offered
+        (``FETCH_WIRE``) when this process has one and the holder is in
+        another process that never answered a ticket this process could
+        not pull. Such a ticket (a JAX holder's PJRT one, or one of this
+        process) is acknowledged ``nopull``, and the same fetch asks once
+        more for the bytes, never offering that holder the wire again."""
+        offer = (self.opts.pd_device_wire
+                 and holder_addr not in _LOCAL_WORKERS
+                 and holder_addr not in self._fetch_wire_refused
+                 and kv_wire.get_device_wire() is not None)
+        for wire in ((True, False) if offer else (False,)):
+            status, body_iter = http_stream_status(
+                "POST", holder_addr, "/kv/blocks",
+                obj=stamp({"model": self.opts.model,
+                           "wire": FETCH_WIRE if wire else False,
+                           "hashes": [h.hex() for h in hashes]}),
+                timeout=self._kv_fetch_timeout_s)
+            raw = b"".join(body_iter)
+            if status != 200:
+                logger.info("kv block fetch refused by %s (HTTP %d); "
+                            "recomputing", holder_addr, status)
+                return None
+            if not (raw.startswith(b"{") and b"\n" not in raw):
+                nl = raw.find(b"\n")
+                try:
+                    k, v = decode_kv_blob(
+                        json.loads(raw[:nl].decode("utf-8")), raw[nl + 1:])
+                except (ValueError, KeyError, UnicodeDecodeError) as e:
+                    logger.warning("bad kv block payload from %s: %s",
+                                   holder_addr, e)
+                    return None
+                return k, v, False
+            # A staged ticket.
+            try:
+                head = json.loads(raw.decode("utf-8"))
+            except (ValueError, UnicodeDecodeError):
+                return None
+            if not isinstance(head, dict) or \
+                    head.get("status") != "staged" or \
+                    not head.get("transfer"):
+                return None
+            tr = head["transfer"]
+            k = v = None
+            retry = False
+            try:
+                k, v = kv_wire.pull_block(tr)
+                outcome = "pulled"
+            except kv_wire.WireUnsupported:
+                outcome, retry = "nopull", True
+            except kv_wire.WireNoPull:
+                outcome = "nopull"
+            except Exception:  # noqa: BLE001 — failed mid-pull
+                outcome = "error"
+            try:
+                http_json("POST", holder_addr, "/kv/blocks_done",
+                          {"uuid": tr.get("uuid"), "outcome": outcome},
+                          timeout=10.0)
+            except Exception:  # noqa: BLE001 — the holder's TTL sweep
+                pass            # releases it
+            if k is not None:
+                return k, v, True
+            if not retry:
+                logger.info("kv block wire pull from %s failed (%s); "
+                            "recomputing", holder_addr, outcome)
+                return None
+            self._fetch_wire_refused.add(holder_addr)
+            logger.info("holder %s staged a ticket this process cannot "
+                        "pull; bytes from now on", holder_addr)
+        return None
+
     def flip_role(self, body: Dict[str, Any]) -> "_Reply":
         """``POST /flip_role {"instance_type"}`` (JAX worker :2522-2540):
         take the new role and re-register under its prefix (a fresh lease
@@ -2400,6 +2756,12 @@ def _handler_class(worker: Worker):
         def _send(self, reply: _Reply) -> None:
             if reply.frames is not None:
                 self._sse(reply.frames)
+            elif reply.data is not None:
+                self.send_response(reply.status)
+                self.send_header("Content-Type", "application/octet-stream")
+                self.send_header("Content-Length", str(len(reply.data)))
+                self.end_headers()
+                self.wfile.write(reply.data)
             else:
                 self._json(reply.status, reply.body or {})
 
@@ -2446,7 +2808,8 @@ def _handler_class(worker: Worker):
                 self._raw_post()
                 return
             if self.path not in routes and self.path not in (
-                    "/cancel", "/admin/failpoint", "/flip_role"):
+                    "/cancel", "/admin/failpoint", "/flip_role",
+                    "/kv/blocks", "/kv/blocks_done"):
                 self._error(HttpError(404, f"no route {self.path}"))
                 return
             try:
@@ -2468,6 +2831,19 @@ def _handler_class(worker: Worker):
                     return
                 if self.path == "/flip_role":
                     self._send(worker.flip_role(body))
+                    return
+                if self.path in ("/kv/blocks", "/kv/blocks_done"):
+                    serve = (worker.serve_kv_blocks
+                             if self.path == "/kv/blocks"
+                             else worker.serve_kv_blocks_done)
+                    try:
+                        reply = serve(body)
+                    except Exception as e:  # noqa: BLE001 — a 500, never
+                        # a dead handler (the JAX worker's _guarded)
+                        logger.exception("%s failed", self.path)
+                        reply = _Reply.error(500, f"{self.path}: {e!r}",
+                                             "internal_error")
+                    self._send(reply)
                     return
                 worker.generate_failpoints()
                 is_chat = routes[self.path]
@@ -2540,8 +2916,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "as device tensors")
     p.add_argument("--pd-device-wire", default=True,
                    action=argparse.BooleanOptionalAction,
-                   help="PD handoff between processes over CUDA IPC "
-                        "(else the host shuttle)")
+                   help="PD handoff and block fetch between processes "
+                        "over CUDA IPC (else bytes over HTTP)")
+    p.add_argument("--enable-profiling", action="store_true",
+                   help="measure TTFT/TPOT samples for the registration")
     return p.parse_args(argv)
 
 
@@ -2564,7 +2942,8 @@ def build_worker(args: argparse.Namespace,
         service_addr=args.service_addr, store_addr=args.store_addr,
         heartbeat_interval_s=args.heartbeat_interval_s,
         murmur_seed=args.murmur_seed, pd_direct_kv=args.pd_direct_kv,
-        pd_device_wire=args.pd_device_wire)
+        pd_device_wire=args.pd_device_wire,
+        enable_profiling=args.enable_profiling)
     return Worker(opts, engine_cfg=ecfg, params=params)
 
 
