@@ -83,7 +83,9 @@ Phases (any failure raises and the exit code is not 0):
    100-token sliding window with each row's leading table entries NULL
    (page 0, filled with large values), as the engine leaves a table once
    it has released the pages every later window masks
-   (``paged_decode_attention_null_lead``).
+   (``paged_decode_attention_null_lead``). The fused rope writers, K3
+   and K4 are also recorded at llama3-8b's shapes (32 query heads, Hkv
+   8, D = 128; records ``*_d128``), which phase 12 serves.
 4. Forward: a full-width llama3-1b forward_prefill + forward_decode + a
    ragged forward_prefill through the kernels (bf16 on the GPU), and
    the attend-then-write order (two prefill windows, the second at
@@ -296,12 +298,33 @@ Phases (any failure raises and the exit code is not 0):
    ``probe_kv_migration`` at 16 pages. Printed: KV bytes per request,
    migration ms and GB/s per transport, TTFT and tokens/s per stream
    under PD against the reference.
-11. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
+11. The cross-worker block fetch (``fetch_phase``, ``[fetch]``): the
+   reference store and master, a llama3-1b holder child and an
+   in-process requester; the prefix fetched over the CUDA IPC wire, as
+   bytes, and recomputed.
+12. Lifecycle (``lifecycle_phase``, ``[lifecycle]``): the reference
+   store and master as children, a llama3-1b worker in-process (phase
+   5's flags). Phase 5's four requests through the master; a sleep
+   through ``/model/triggers`` (memory allocated back within 256 MiB of
+   its value before the worker, the bytes freed beside the parameters',
+   KV pools' and graph pool's, the D2H rate); a wake (the weights' H2D,
+   the warmup; as many graphs as at boot and none after, no kernel built
+   again, every parameter's checksum unchanged, the requests' streams
+   equal or drift under the margins rule, launches per step); a
+   llama3-8b staged by ``/fork_master``, woken cold in the 1b's place
+   and served (K1-K4 at D = 128), then swapped back; a 64-token stream
+   that ``drain_and_stop`` finishes with the greedy tokens, the worker
+   off the master's list and a late request a 503; on a fresh worker,
+   ``worker.crash_heartbeat`` once: the loop restarts, the lease is kept,
+   the crash counted and in the event ring. At most 150 s.
+13. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
    writers' launches from phase 5 (K1/K2 now 0), K5 from 5b, K6 (now 0),
    K7, K3', K4' and the dense all-layer mode from 5c, K3'' and the fused
    latent writers from 5d, the current form of K3'' and the latent
    all-layer mode from 5e; a record at another shape takes its kernel's
-   count; phases 5f/5g and the graph checks go to the ``[summary]``
+   count, and its count in phase 12's woken llama3-1b round
+   (``launches_lifecycle``); the ``*_d128`` records take phase 12's
+   llama3-8b round's; phases 5f/5g and the graph checks go to the ``[summary]``
    line; phases 7, 7b, 6b and 9 too, and ``phase_end_s``, the script's
    clock at the end of each phase), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -410,11 +433,14 @@ def sdpa(q, k, v, mask, scale=None):
 
 class KernelBench:
     """Serving-shape inputs for llama3-1b and the checks/timings of the
-    four kernels."""
+    four kernels. ``suffix``: a bench at another model's shapes (its
+    records named ``<kernel><suffix>``, their ``entry`` the kernel's own
+    and ``shape_model`` the model)."""
 
-    def __init__(self, torch, cfg, device) -> None:
+    def __init__(self, torch, cfg, device, suffix: str = "") -> None:
         self.torch = torch
         self.cfg = cfg
+        self.suffix = suffix
         self.dev = torch.device(device)
         self.g = torch.Generator(device=self.dev).manual_seed(1234)
         self.L, self.P, self.ps = 4, 512, 128
@@ -447,6 +473,10 @@ class KernelBench:
         PyTorch call computes the same function (``library_ms`` null).
         ``peak``: the operations' rate (the fused writers' float32
         arithmetic runs outside the tensor cores)."""
+        if self.suffix:
+            extra.setdefault("entry", name)
+            extra["shape_model"] = self.cfg.name
+            name += self.suffix
         ms = graph_ms(kernel)
         lib_ms = graph_ms(library) if library is not None else None
         eager_ms, plain_ms = time_ms(kernel), time_ms(plain)
@@ -4587,11 +4617,11 @@ def fault_phase(torch, kernels, card: str, err: float) -> dict:
     faults = []
     contain = w._contain_engine_fault
 
-    def noted_contain(exc, step_ms):
+    def noted_contain(rt, exc, step_ms):
         probes[0] = 0
         salvaged = [o.request_id for o in eng.last_step_partial_outs]
         members = list(eng.step_members)
-        ok = contain(exc, step_ms)
+        ok = contain(rt, exc, step_ms)
         faults.append({"error": f"{type(exc).__name__}: {exc}",
                        "step_ms": step_ms, "members": members,
                        "salvaged_outputs": len(salvaged),
@@ -4812,9 +4842,9 @@ def fault_phase(torch, kernels, card: str, err: float) -> dict:
         record = w._record_steptrace
         rec_s = [0.0, 0]
 
-        def timed_record(kind, step_ms):
+        def timed_record(rt, eng, kind, step_ms):
             t0 = time.perf_counter()
-            record(kind, step_ms)
+            record(rt, eng, kind, step_ms)
             rec_s[0] += time.perf_counter() - t0
             rec_s[1] += 1
         w._record_steptrace = timed_record
@@ -5896,6 +5926,385 @@ def fetch_phase(torch, kernels, card: str, err: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the worker's lifecycle plane
+# ---------------------------------------------------------------------------
+
+LIFE_MODEL, LIFE_BIG, LIFE_DEVICE = "llama3-1b", "llama3-8b", "cuda"
+# Phase 5's flags, the cluster's 0.5 s beats.
+LIFE_ARGS = ["--page-size", "128", "--num-pages", "512", "--max-model-len",
+             "1024", "--max-batch-size", "8", "--prefill-buckets",
+             "128,256,512", "--max-prefill-tokens", "256",
+             "--heartbeat-interval-s", "0.5", "--instance-type", "DEFAULT"]
+LIFE_ENV = {"XLLM_RAGGED_ATTN": "0", "XLLM_WRITE_THEN_ATTEND": "1",
+            "XLLM_CUDA_GRAPHS": "1"}
+# Device memory a sleep may leave allocated beyond what the process held
+# before the worker was built.
+LIFE_RESIDUE_BYTES = 256 << 20
+LIFE_BUDGET_S = 150.0
+
+
+def _param_checksums(torch, params) -> dict:
+    """Per parameter tensor, two int64 sums of its bit patterns (plain,
+    and weighted by position mod 65521), computed on the device in
+    chunks."""
+    out = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            elif isinstance(v, torch.Tensor):
+                flat = v.detach().reshape(-1)
+                bits = flat.view({2: torch.int16, 4: torch.int32}[
+                    flat.element_size()])
+                s1 = s2 = 0
+                step = 1 << 24
+                for i in range(0, bits.numel(), step):
+                    c = bits[i:i + step].to(torch.int64)
+                    w = torch.arange(i, i + c.numel(), device=c.device) \
+                        % 65521 + 1
+                    s1 += int(c.sum())
+                    s2 += int((c * w).sum())
+                out[prefix + k] = (s1, s2)
+    walk(params, "")
+    return out
+
+
+def _active_blocks(torch) -> dict:
+    """The caching allocator's active blocks, counted by size (bytes)."""
+    out = {}
+    for seg in torch.cuda.memory_snapshot():
+        for blk in seg.get("blocks", []):
+            if blk.get("state") == "active_allocated":
+                out[blk["size"]] = out.get(blk["size"], 0) + 1
+    return out
+
+
+def _graph_pool_bytes(torch, eng) -> int:
+    pool = tuple(eng.graphs.pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def _post(addr: str, path: str, body: dict, timeout: float = 300.0):
+    host, port = addr.rsplit(":", 1)
+    conn = HTTPConnection(host, int(port), timeout=timeout)
+    try:
+        conn.request("POST", path, body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read() or b"null")
+    finally:
+        conn.close()
+
+
+def _life_round(torch, kernels, w, model: str, m_http: str, bodies) -> dict:
+    """``bodies`` (phase 5's four requests) through the master to
+    ``model`` on ``w``: replies checked, every step's launches checked on
+    the model's live engine (K2/K4 a prefill replay, K1/K3 a decode
+    replay, fused with the rope), its tokens and prompts by prompt
+    length, the launch counts, and the engine's census after."""
+    rt = w.runtimes[model]
+    steplog = StepLog(rt.engine, kernels)
+    layers = rt.model_cfg.num_layers
+    bodies = [dict(b, model=model) for b in bodies]
+    kernels.reset_launch_counts()
+    results, wall = run_concurrent(m_http, bodies)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check_replies(SERVE_PLAN, results)
+    check_step_launches(steplog.rows, counts, layers, False, True, False)
+    cap = rt.engine.capture_report()
+    if cap["captures_after_warmup"] or cap["eager_steps"]:
+        raise AssertionError(f"phase 12: {model} did not replay its warmup "
+                             f"graphs: {cap}")
+    return {"tokens": {n: list(t) for n, t in steplog.tokens.items()},
+            "prompts": dict(steplog.prompts), "launches": counts,
+            "steps": len(steplog.rows), "wall_s": wall,
+            "graphs": sum(rt.engine.compile_report().values())}
+
+
+def _trigger(m_http: str, model: str, action: str) -> float:
+    """``POST /model/triggers`` on the master; its seconds."""
+    t0 = time.perf_counter()
+    status, resp = _post(m_http, "/model/triggers",
+                         {"model": model, "action": action})
+    if status != 200 or set((resp or {}).get("results", {}).values()) \
+            != {200}:
+        raise AssertionError(f"phase 12: {action} {model}: {status} {resp}")
+    return time.perf_counter() - t0
+
+
+def lifecycle_phase(torch, kernels, card: str, err: float) -> dict:
+    """Phase 12: the worker's lifecycle behind the reference master (store
+    and master as children, round robin, block size 128) with a llama3-1b
+    port worker in-process (phase 5's flags, random bf16 weights from the
+    engine's seed, graphs on).
+
+    a. Phase 5's four requests through the master, token streams kept;
+       device memory allocated before the worker is built and while it
+       serves.
+    b. ``/model/triggers`` sleep: the master's row says asleep; allocated
+       memory back within ``LIFE_RESIDUE_BYTES`` of its value before the
+       worker (the residue named); the bytes freed beside the parameters',
+       the KV pools' and the graph pool's; the sleep's ms and D2H GB/s.
+    c. ``/model/triggers`` wakeup: its seconds split into the weights' H2D
+       (GB/s), the engine's build and the warmup capture; as many graphs
+       as the first warmup, none after; no kernel built or loaded again;
+       every parameter's checksum equal to the one before the sleep; the
+       four requests again: streams equal to a's, or drift under the
+       margins rule; launches checked per step.
+    d. ``/fork_master`` llama3-8b straight to the worker (staged asleep),
+       then through the master: sleep llama3-1b, wake llama3-8b cold
+       (random bf16 weights from seed 0), the four requests to it (K1-K4
+       at D = 128, launches checked per step), sleep it, wake llama3-1b;
+       memory after each flip, each wake's seconds.
+    e. A 64-token llama3-1b stream through the master, ``drain_and_stop
+       (30)`` while it runs: [DONE] with the greedy text of the same
+       request served before; the worker off the master's list, a late
+       request a 503; the drain's seconds.
+    f. A fresh worker (no warmup: it serves nothing) with
+       ``worker.crash_heartbeat`` armed once: the loop restarts, the worker
+       stays listed past 3 x its lease, ``xllm_thread_crashes_total
+       {root="worker.hb_loop"}`` is 1 and ``thread_crashed`` is in its
+       event ring.
+
+    At most ``LIFE_BUDGET_S`` on the script's clock."""
+    from xllm_service_tpu_torch.ops.kernels import _build, paged_attention
+    from xllm_service_tpu_torch.runtime import worker
+    from xllm_service_tpu_torch.utils import threads as sup
+    logs = ROOT / "build" / "lifecycle_logs"
+    logs.mkdir(parents=True, exist_ok=True)
+    t_phase = time.perf_counter()
+    procs, ws, out = [], [], {}
+    path = {"ragged": False, "write_then_attend": True}
+    try:
+        store = RefProcess(["xllm_service_tpu.service.coordination_net",
+                            "--port", "0"], "coordination store serving on",
+                           logs / "store.log")
+        procs.append(store)
+        store_addr = store.line.split()[-1]
+        master, m_http, m_rpc = start_master(store_addr, False,
+                                             logs / "master.log")
+        procs.append(master)
+        argv = ["--model", LIFE_MODEL, "--device", LIFE_DEVICE, *LIFE_ARGS,
+                "--store-addr", store_addr, "--service-addr", m_rpc]
+        free_device_memory(torch)
+        torch.cuda.synchronize()
+        alloc0 = torch.cuda.memory_allocated()
+        blocks0 = _active_blocks(torch)
+        builds0 = (len(_build.build_logs),
+                   {k: id(v) for k, v in _build._libs.items()})
+        w, out["worker_start_s"] = _start(worker, argv, LIFE_ENV)
+        ws.append(w)
+        wait_for(lambda: w.name in listed(m_rpc), 60.0,
+                 "the worker on the master's list")
+        rng = random.Random(0)
+        _prompt(rng, 64)                   # phase 5's warm-up prompt
+        bodies = serve_bodies(rng, w.tokenizer)
+        # a.
+        a = _life_round(torch, kernels, w, LIFE_MODEL, m_http, bodies)
+        torch.cuda.synchronize()
+        alloc_serving = torch.cuda.memory_allocated()
+        rt = w.runtimes[LIFE_MODEL]
+        eng = rt.engine
+        kv_bytes = sum(t.numel() * t.element_size() for t in eng.kv)
+        pool_bytes = _graph_pool_bytes(torch, eng)
+        sums0 = _param_checksums(torch, eng.params)
+        del eng
+        # b.
+        _trigger(m_http, LIFE_MODEL, "sleep")
+        if rt.engine is not None:
+            raise AssertionError("phase 12: an engine after the sleep")
+        # The master's books follow the trigger and the beats after it.
+        wait_for(lambda: master_row(m_http, w.name)["models"].get(
+            LIFE_MODEL) == "asleep", 5.0, "the master's row asleep")
+        torch.cuda.synchronize()
+        alloc_sleep = torch.cuda.memory_allocated()
+        residue = alloc_sleep - alloc0
+        # What is left: the blocks active now and not before the worker,
+        # by size, and the split kernels' ticket buffers among them.
+        blocks1 = _active_blocks(torch)
+        new_blocks = {n: c - blocks0.get(n, 0) for n, c in blocks1.items()
+                      if c > blocks0.get(n, 0)}
+        tickets = sum(t.numel() * t.element_size() for t in
+                      list(paged_attention._tickets.values())
+                      + paged_attention._retired)
+        if residue > LIFE_RESIDUE_BYTES:
+            raise AssertionError(f"phase 12: {residue} B left allocated after "
+                                 f"the sleep; new blocks by size "
+                                 f"{new_blocks}")
+        param_bytes = rt.timings["param_bytes"]
+        out["sleep"] = {
+            "allocated_before_worker": alloc0,
+            "allocated_serving": alloc_serving,
+            "allocated_asleep": alloc_sleep, "residue_bytes": residue,
+            "residue_split_kv_tickets_bytes": tickets,
+            "residue_blocks_by_size": new_blocks,
+            "reserved_asleep": torch.cuda.memory_reserved(),
+            "freed_bytes": alloc_serving - alloc_sleep,
+            "param_bytes": param_bytes, "kv_pool_bytes": kv_bytes,
+            "graph_pool_bytes": pool_bytes,
+            "sleep_ms": 1e3 * rt.timings["sleep_s"],
+            "d2h_gbps": param_bytes / rt.timings["d2h_s"] / 1e9}
+        # c.
+        wake_s = _trigger(m_http, LIFE_MODEL, "wakeup")
+        wait_for(lambda: master_row(m_http, w.name)["models"].get(
+            LIFE_MODEL) == "awake", 5.0, "the master's row awake")
+        builds1 = (len(_build.build_logs),
+                   {k: id(v) for k, v in _build._libs.items()})
+        if builds1 != builds0:
+            raise AssertionError(f"phase 12: kernels built or loaded again: "
+                                 f"{builds0} -> {builds1}")
+        graphs_woken = sum(rt.engine.compile_report().values())
+        if _param_checksums(torch, rt.engine.params) != sums0:
+            raise AssertionError("phase 12: parameters changed across the "
+                                 "sleep")
+        c = _life_round(torch, kernels, w, LIFE_MODEL, m_http, bodies)
+        if graphs_woken != a["graphs"] or c["graphs"] != a["graphs"]:
+            raise AssertionError(f"phase 12: graphs {a['graphs']} at boot, "
+                                 f"{graphs_woken} at the wake, {c['graphs']} "
+                                 f"after serving")
+        equal = sum(c["tokens"].get(n) == t for n, t in a["tokens"].items())
+        margins = []
+        if equal < len(a["tokens"]):
+            margins = divergence_margins(
+                torch, rt.engine, [("wake", a["tokens"], path, c["tokens"],
+                                    path, a["prompts"])], err)
+            if any(m["verdict"] == "fault" for m in margins):
+                raise AssertionError(f"phase 12: streams after the wake "
+                                     f"diverge past the margins: {margins}")
+        out["wake"] = {
+            "seconds": wake_s, "h2d_s": rt.timings["h2d_s"],
+            "h2d_gbps": param_bytes / rt.timings["h2d_s"] / 1e9,
+            "engine_s": rt.timings["engine_s"],
+            "warmup_s": rt.timings["warmup_s"], "graphs": graphs_woken,
+            "equal_streams": equal, "streams": len(a["tokens"]),
+            "margins": margins, "launches": c["launches"],
+            "kernel_builds": builds1[0]}
+        # d.
+        status, resp = _post(w.name, "/fork_master", {"models": [LIFE_BIG]})
+        if status != 200 or resp.get("created") != [LIFE_BIG]:
+            raise AssertionError(f"phase 12: fork_master {status} {resp}")
+        wait_for(lambda: master_row(m_http, w.name)["models"].get(LIFE_BIG)
+                 == "asleep", 10.0, "llama3-8b staged on the master's row")
+        flips = []
+
+        def flip(model, action):
+            s = _trigger(m_http, model, action)
+            torch.cuda.synchronize()
+            keys = (("sleep_s", "d2h_s", "param_bytes") if action == "sleep"
+                    else ("h2d_s", "engine_s", "warmup_s"))
+            timings = w.runtimes[model].timings
+            rec = {"model": model, "action": action, "seconds": s,
+                   "allocated": torch.cuda.memory_allocated(),
+                   **{k: timings.get(k) for k in keys}}
+            flips.append(rec)
+            return rec
+        flip(LIFE_MODEL, "sleep")
+        big_wake = flip(LIFE_BIG, "wakeup")
+        d = _life_round(torch, kernels, w, LIFE_BIG, m_http, bodies)
+        flip(LIFE_BIG, "sleep")
+        flip(LIFE_MODEL, "wakeup")
+        out["swap"] = {"flips": flips, "big_launches": d["launches"],
+                       "big_steps": d["steps"], "big_graphs": d["graphs"],
+                       "big_cold_wake_s": big_wake["seconds"]}
+        # e.
+        long_body = dict(bodies[0], model=LIFE_MODEL, max_tokens=64)
+        # The cache off: the drained request prefills as the first did.
+        w.engine.prefix_cache.enable = False
+        steplog = StepLog(w.engine, kernels)
+        base = {}
+        _request(m_http, CHAT, long_body, True, base)
+        want = (stream_tokens(base["frames"])[0], dict(steplog.tokens))
+        steplog.clear()
+        got = {}
+        reader = threading.Thread(target=_request,
+                                  args=(m_http, CHAT, long_body, True, got))
+        reader.start()
+        wait_for(lambda: w.engine.has_work(), 30.0, "the long stream")
+        t0 = time.perf_counter()
+        drained = w.drain_and_stop(30.0)
+        drain_s = time.perf_counter() - t0
+        reader.join(60)
+        # stream_tokens raises unless the stream ended in [DONE].
+        if not drained or (stream_tokens(got["frames"])[0],
+                           dict(steplog.tokens)) != want:
+            raise AssertionError(f"phase 12: drain {drained}, stream "
+                                 f"{got.get('frames', [])[-2:]}")
+        del steplog
+        wait_for(lambda: w.name not in listed(m_rpc), 10.0,
+                 "the drained worker off the master's list")
+        status, _ = _post(m_http, CMPL, {"model": LIFE_MODEL,
+                                         "prompt": "late", "max_tokens": 1})
+        if status != 503:
+            raise AssertionError(f"phase 12: a late request got {status}")
+        out["drain"] = {"seconds": drain_s, "late_status": status}
+        ws.remove(w)
+        del w, rt
+        free_device_memory(torch)
+        # f.
+        f, _ = _start(worker, argv + ["--no-warmup"], LIFE_ENV)
+        ws.append(f)
+        wait_for(lambda: f.name in listed(m_rpc), 60.0, "the fresh worker")
+        lease0 = f._lease_id
+        before = sup.crash_counts().get("worker.hb_loop", 0)
+        t0 = time.perf_counter()
+        f.failpoints.arm("worker.crash_heartbeat", mode="count", n=1)
+        wait_for(lambda: sup.crash_counts().get("worker.hb_loop", 0)
+                 == before + 1, 10.0, "the heartbeat loop's crash")
+        crashed = [e for e in f.events.since(0)
+                   if e["type"] == "thread_crashed"]
+        wait_for(lambda: f.failpoints.trips("worker.crash_heartbeat") == 1
+                 and f._threads[-1].is_alive(), 10.0, "the restart")
+        restart_s = time.perf_counter() - t0
+        time.sleep(3 * f.lease_ttl_s)
+        metric = _metric(_metric_rows(f.name), "xllm_thread_crashes_total",
+                         root="worker.hb_loop")
+        if not crashed or crashed[-1]["attrs"]["restarting"] is not True \
+                or f.name not in listed(m_rpc) or f._lease_id != lease0 \
+                or metric != before + 1:
+            raise AssertionError(f"phase 12: restart {crashed}, listed "
+                                 f"{listed(m_rpc)}, metric {metric}")
+        out["restart"] = {"crashes_metric": metric,
+                          "seconds_to_restart": restart_s,
+                          "lease_kept": True}
+    except Exception:
+        for p in procs:
+            log(f"[lifecycle] {p.proc.args[2]} log tail:\n{p.tail()}")
+        raise
+    finally:
+        for x in ws:
+            x.stop()
+        for p in procs:
+            p.stop()
+    del ws
+    free_device_memory(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    if out["phase_s"] > LIFE_BUDGET_S:
+        raise AssertionError(f"phase 12 took {out['phase_s']:.1f} s")
+    s, wk = out["sleep"], out["wake"]
+    log(f"[lifecycle] {card}: sleep {s['sleep_ms']:.1f} ms, D2H "
+        f"{s['d2h_gbps']:.2f} GB/s; freed {s['freed_bytes']} B (parameters "
+        f"{s['param_bytes']}, KV pools {s['kv_pool_bytes']}, graph pool "
+        f"{s['graph_pool_bytes']}); {s['residue_bytes']} B left over the "
+        f"{s['allocated_before_worker']} B before the worker: new active "
+        f"blocks by size {s['residue_blocks_by_size']} (the split kernels' "
+        f"tickets {s['residue_split_kv_tickets_bytes']} B among them)")
+    log(f"[lifecycle] {card}: wake {wk['seconds']:.2f} s = H2D "
+        f"{wk['h2d_s']:.3f} s ({wk['h2d_gbps']:.2f} GB/s) + engine "
+        f"{wk['engine_s']:.3f} s + warmup {wk['warmup_s']:.2f} s, "
+        f"{wk['graphs']} graphs; streams equal {wk['equal_streams']} of "
+        f"{wk['streams']}; llama3-8b cold wake "
+        f"{out['swap']['big_cold_wake_s']:.2f} s; drain "
+        f"{out['drain']['seconds']:.2f} s; restart "
+        f"{out['restart']['seconds_to_restart']:.2f} s; phase "
+        f"{out['phase_s']:.1f} s")
+    log(f"[lifecycle] detail {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5982,6 +6391,16 @@ def main() -> int:
     bench.decode_writer(kv_update, latent)
     bench.prefill_writer(kv_update, latent)
     del bench.kp, bench.vp, latent
+    free_device_memory(torch)
+    # K1-K4 as phase 12 serves them at llama3-8b's D = 128 (Hkv 8, 32
+    # query heads): the fused rope writers, K3 and K4.
+    big = KernelBench(torch, ModelConfig.llama3_8b(), "cuda", suffix="_d128")
+    big.rope_decode_writer(kv_update, rope)
+    big.rope_prefill_writer(kv_update, rope)
+    big.decode_attention(paged_attention, attention)
+    big.prefill_attention(prefill_attention, attention)
+    bench.results += big.results
+    del big
     free_device_memory(torch)
     mark("3_kernels")
 
@@ -6139,6 +6558,11 @@ def main() -> int:
     fetched = fetch_phase(torch, kernels, card, err)
     free_device_memory(torch)
     mark("11_fetch")
+    # 12. The worker's lifecycle: sleep, wake, several models, drain and
+    # the supervised heartbeat.
+    lifecycle = lifecycle_phase(torch, kernels, card, err)
+    free_device_memory(torch)
+    mark("12_lifecycle")
     margins = served_c["on_engine"] + served_e["on_engine"]
     for phase in (served, served_b, served_c, served_d, served_e):
         phase.pop("prompts")
@@ -6150,8 +6574,13 @@ def main() -> int:
         f"{err_mla}): {json.dumps(margins)}")
 
     # 12. Summary.
+    woken = lifecycle["wake"]["launches"]
     for r in bench.results:
         name = r.get("entry", r["name"])       # a record at another shape
+        if r.get("shape_model") == LIFE_BIG:
+            # Served only by phase 12's llama3-8b round.
+            r["launches"] = lifecycle["swap"]["big_launches"][name]
+            continue
         phase = (served_b if name == "ragged_paged_attention" else
                  served_c if name in ATTEND_THEN_WRITE_KERNELS else
                  served_e if name in ("paged_decode_attention_mla_current",
@@ -6159,6 +6588,8 @@ def main() -> int:
                  else served_d if name in MLA_KERNELS else
                  served)
         r["launches"] = phase["launches"][name]
+        # And the woken llama3-1b engine's round in phase 12.
+        r["launches_lifecycle"] = woken[name]
     summary = {"card": card, "build_s": build_s, "forward_rel_l2": rel,
                "forward_rel_l2_deepseek": rel_mla,
                "forward_max_abs_logit_err": err,
@@ -6174,6 +6605,7 @@ def main() -> int:
                "prefix_reuse": prefixed, "spill_restore": spilled,
                "cluster_cache_aware": routed, "sampling": sampled,
                "faults": faulted, "pd": disaggregated, "fetch": fetched,
+               "lifecycle": lifecycle,
                "graph_decode_check": {"llama3-1b": graph,
                                       "deepseek-v2-lite": graph_mla},
                "warmup_ladders": ladders,

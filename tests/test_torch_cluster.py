@@ -673,6 +673,7 @@ def test_spawn_logs_a_crash(caplog):
 
     with caplog.at_level(logging.ERROR, logger=threads.__name__):
         t = threads.spawn("test.crash", crash)
+        t.start()               # spawn returns it unstarted, as JAX's does
         t.join(timeout=5.0)
     assert not t.is_alive() and t.name == "test.crash"
     assert "'test.crash' crashed" in caplog.text

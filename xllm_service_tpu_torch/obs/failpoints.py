@@ -13,13 +13,13 @@ deterministically in the count and threshold modes, so a test that arms
 - Armed through the ``XLLM_FAILPOINTS`` environment at construction
   (grammar below) and at run time through ``POST /admin/failpoint``.
 - Every trip counts in ``xllm_failpoints_tripped_total{name}`` of the
-  owning plane's registry.
+  owning plane's registry, and emits ``failpoint_tripped`` into its
+  event log when given one.
 
-This package's worker fires ``worker.fault_step``,
-``worker.fault_step_req``, ``worker.refuse_generate``,
-``worker.slow_response_ms``, ``worker.hang_rpc`` and
-``worker.drop_heartbeats``; the KV, encode, store and crash sites belong
-to paths it does not have yet, so armed they never trip.
+This package's worker fires every name of the catalog where the JAX
+worker fires it, except the encode sites (``worker.fail_encode``,
+``worker.hang_encode``: no EPD path here yet) and
+``service.fail_redispatch`` (a master's).
 
 Spec grammar (comma-separated entries)::
 
@@ -73,9 +73,11 @@ class Failpoints:
     """Per-plane armed-failpoint registry (one per worker, so that a
     test can arm one of two in-process workers)."""
 
-    def __init__(self, obs=None, env: Optional[str] = None) -> None:
+    def __init__(self, obs=None, env: Optional[str] = None,
+                 events=None) -> None:
         self._lock = threading.Lock()
         self.obs = obs
+        self.events = events
         # name -> {"mode", "n", "value", "fired", "units"}
         self._armed: Dict[str, Dict[str, Any]] = {}
         self._trips: Dict[str, int] = {name: 0 for name in FAILPOINTS}
@@ -188,6 +190,8 @@ class Failpoints:
                 "armed failure-injection sites tripped, by name "
                 "(obs/failpoints.py catalog)",
                 labelnames=("name",)).inc(name=name)
+        if self.events is not None:
+            self.events.emit("failpoint_tripped", name=name)
         return value if value is not None else True
 
     def armed_value(self, name: str) -> Optional[Any]:

@@ -113,8 +113,38 @@ prompt holds the armed string, or every request, is marked at
 admission; a step that holds a marked request faults) inside the step,
 ``worker.slow_response_ms``, ``worker.hang_rpc`` and
 ``worker.refuse_generate`` at the generate routes,
-``worker.fail_kv_transfer`` in the PD handoff and
-``worker.drop_heartbeats`` in the heartbeat loop.
+``worker.fail_kv_transfer`` in the PD handoff, ``worker.fail_kv_fetch``
+in the block fetch, ``worker.drop_heartbeats`` and
+``worker.crash_heartbeat`` (raised outside the tick's ``try``: the
+supervised loop restarts) in the heartbeat loop, ``store.fail_rpc``,
+``store.hang`` and ``store.partition`` in the store guard, and
+``worker.die_after_n_tokens`` (after N tokens of outputs: a simulated
+death) where the outputs are dispatched.
+
+The lifecycle plane, as the JAX worker runs it. A worker holds one
+``ModelRuntime`` per model (``runtimes``; the primary is
+``WorkerOptions.model``). ``POST /fork_master {"models"}`` stages more
+models asleep, ``POST /sleep {"model"}`` and ``POST /wakeup {"model"}``
+flip one (the master's serverless allocator and ``/model/triggers``
+drive them). A sleep drains the decode pipeline, copies the parameters
+bit for bit into pinned host memory and drops the engine: its pools,
+every captured graph with its private pool, and the prefix cache; the
+freed memory goes back to the card. A wake copies them back (a model
+staged by ``/fork_master`` random-inits from seed 0) and
+re-captures the worker's warmup ladder under the engine lock. The
+engine loop steps every awake runtime; a request to a sleeping model is
+a 400; a request in flight at its model's sleep ends with a 503 (the JAX
+worker leaves it to its timeout). Registration lists the awake models
+and ``memory_budget_gb``; every beat carries each model's state.
+``drain_and_stop(timeout_s)`` beats every model ``draining`` until the
+master acknowledges, then refuses new work with a 503 (a ``/wakeup`` with
+a 409), lets the requests in flight finish and stops. The heartbeat loop
+is a supervised thread (``utils/threads.py``): a crash is counted
+(``xllm_thread_crashes_total{root}``), lands as ``thread_crashed`` in the
+worker's event ring (``events``) and the loop restarts with backoff. The
+store sits behind a ``StoreGuard`` (``service/store_guard.py``); its
+heal makes the next tick re-register on a fresh lease and re-read the
+advertised master.
 
 PD disaggregation, as the JAX worker serves it: a request the master
 routes here as its prefill worker with a ``routing.decode_name`` (one
@@ -147,9 +177,8 @@ since the last acknowledged beat on each heartbeat; ``/metrics`` carries
 ``xllm_worker_step_mfu``, ``xllm_worker_step_debt_ms``,
 ``xllm_worker_program_flops`` / ``_bytes`` and ``xllm_worker_peak_flops``.
 
-Not in this package yet: etcd stores, draining, spans on the heartbeat
-(and the hot-path sections of ``/admin/steptrace``), the store guard,
-sleep/wakeup and EPD traffic.
+Not in this package yet: etcd stores, spans on the heartbeat (and the
+hot-path sections of ``/admin/steptrace``) and EPD traffic.
 
 Run: ``python -m xllm_service_tpu_torch.runtime.worker --model llama3-1b``
 (add ``--store-addr`` and ``--service-addr`` to join a cluster).
@@ -158,7 +187,9 @@ Run: ``python -m xllm_service_tpu_torch.runtime.worker --model llama3-1b``
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import logging
 import os
@@ -182,12 +213,14 @@ from xllm_service_tpu_torch.nlp.tokenizer import (IncrementalDecoder,
                                                   Tokenizer,
                                                   TokenizerFactory)
 from xllm_service_tpu_torch.obs import steptrace
+from xllm_service_tpu_torch.obs.events import EventLog
 from xllm_service_tpu_torch.obs.failpoints import Failpoints
 from xllm_service_tpu_torch.obs.metrics import (Registry,
                                                 quantile_from_buckets)
 from xllm_service_tpu_torch.ops import kernels
 from xllm_service_tpu_torch.runtime.engine import (Engine, EngineRequest,
-                                                   StepOutput)
+                                                   StepOutput,
+                                                   resolve_device)
 from xllm_service_tpu_torch.runtime import kv_wire
 from xllm_service_tpu_torch.runtime.kv_cache import (KvCacheEvent,
                                                      decode_kv_blob,
@@ -195,13 +228,14 @@ from xllm_service_tpu_torch.runtime.kv_cache import (KvCacheEvent,
 from xllm_service_tpu_torch.runtime.kv_transfer import start_host_copies
 from xllm_service_tpu_torch.service.coordination import (
     KEY_MASTER_ADDR, CoordinationStore, instance_prefix)
-from xllm_service_tpu_torch.service.coordination_net import (
-    StoreOutageError, connect_store)
+from xllm_service_tpu_torch.service.coordination_net import connect_store
 from xllm_service_tpu_torch.service.httpd import (http_json, http_stream,
                                                   http_stream_status,
                                                   iter_sse_events)
 from xllm_service_tpu_torch.service.instance_types import (
     Heartbeat, InstanceMetaInfo, LatencyMetrics, LoadMetrics)
+from xllm_service_tpu_torch.service.store_guard import (StoreGuard,
+                                                       StoreOutageError)
 from xllm_service_tpu_torch.service.time_predictor import profile_engine
 from xllm_service_tpu_torch.service.response_handler import (
     SSE_DONE, ChatStreamAssembler, CompletionStreamAssembler,
@@ -221,6 +255,7 @@ _MODEL_REGISTRY = {
     "tiny": lambda: ModelConfig.tiny(vocab_size=512),
     "tiny-moe": lambda: ModelConfig.tiny(vocab_size=512, num_experts=4),
     "llama3-1b": ModelConfig.llama3_1b,
+    "llama3-8b": ModelConfig.llama3_8b,
     "deepseek-v2-lite": ModelConfig.deepseek_v2_lite,
 }
 
@@ -269,6 +304,9 @@ class WorkerOptions:
     # Measure TTFT/TPOT samples on the warmed engine for the
     # registration (``service/time_predictor.profile_engine``).
     enable_profiling: bool = False
+    # The device memory the master's serverless allocator may fill with
+    # awake models here (registration's ``memory_budget_gb``).
+    memory_budget_gb: float = 60.0
 
 
 class HttpError(Exception):
@@ -353,10 +391,54 @@ class _StopWatcher:
 
 
 class _EngineDied:
-    """Queued to every live request when the engine loop dies."""
+    """Queued to every live request when the engine loop dies (or, with
+    ``status`` 503, when its model is put to sleep)."""
 
-    def __init__(self, message: str) -> None:
+    def __init__(self, message: str, status: int = 500,
+                 err_type: str = "engine_fault") -> None:
         self.message = message
+        self.status = status
+        self.err_type = err_type
+
+
+# Queued to every live request by a simulated death
+# (``worker.die_after_n_tokens``): its consumer raises ``_WorkerDied``, so
+# that the client's socket breaks mid-stream as a killed process's would.
+_ABORT = object()
+
+
+class _WorkerDied(Exception):
+    """Raised to a request's consumer by ``_ABORT``: the handler closes
+    the connection without another byte."""
+
+
+class _Closing:
+    """An SSE frame iterator whose ``close`` runs ``on_close`` exactly
+    once, even when the body was never started (a generator's ``finally``
+    does not run then)."""
+
+    def __init__(self, frames: Iterator[bytes], *on_close) -> None:
+        self.frames = frames
+        self.on_close = on_close
+        self.closed = False
+
+    def __iter__(self) -> "_Closing":
+        return self
+
+    def __next__(self) -> bytes:
+        return next(self.frames)
+
+    def close(self) -> None:
+        if self.closed:
+            return
+        self.closed = True
+        try:
+            close = getattr(self.frames, "close", None)
+            if close is not None:
+                close()
+        finally:
+            for fn in self.on_close:
+                fn()
 
 
 class StepFaultInjected(Exception):
@@ -496,6 +578,8 @@ class _LiveRequest:
 
 
 MODEL_AWAKE = "awake"
+MODEL_ASLEEP = "asleep"
+MODEL_DRAINING = "draining"
 _STEP_PHASES = ("prefill", "decode", "mixed")
 # The prefix-reuse series on /metrics (JAX worker :1565-1600), by
 # ``Engine.prefix_cache_stats()`` key.
@@ -543,6 +627,122 @@ _PREFIX_SERIES = (
 )
 
 
+def _params_map(fn, tree):
+    """``fn`` over every tensor of a parameter tree (nested dicts)."""
+    if isinstance(tree, dict):
+        return {k: _params_map(fn, v) for k, v in tree.items()}
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _params_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_params_bytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+class ModelRuntime:
+    """One model's engine and its sleep/wakeup state on this worker (JAX
+    worker :239-330). ``timings`` keeps the last sleep's and wake's
+    seconds and bytes (``sleep_s``, ``d2h_s``, ``h2d_s``, ``engine_s``,
+    ``param_bytes``; the worker adds ``warmup_s``)."""
+
+    def __init__(self, model: str, model_cfg: ModelConfig,
+                 engine_cfg: EngineConfig, device, murmur_seed: int = 0,
+                 params: Optional[Params] = None,
+                 start_asleep: bool = False) -> None:
+        self.model = model
+        self.model_cfg = model_cfg
+        self.engine_cfg = engine_cfg
+        self.device = resolve_device(device)
+        self.murmur_seed = murmur_seed
+        self.state = MODEL_ASLEEP if start_asleep else MODEL_AWAKE
+        self._host_params: Optional[Params] = None
+        self.timings: Dict[str, float] = {}
+        self.engine: Optional[Engine] = None
+        if not start_asleep:
+            self.engine = self._build(params)
+
+    def _build(self, params: Optional[Params]) -> Engine:
+        """A new engine on ``params`` (None: random from seed 0, as the
+        JAX engine's without a checkpoint)."""
+        return Engine(self.model_cfg, self.engine_cfg, params=params,
+                      device=self.device, murmur_seed=self.murmur_seed)
+
+    def sleep(self) -> None:
+        """Park the parameters in host memory, bit for bit (pinned on a
+        GPU), and drop the engine: its KV pools, its decode, prefill and
+        ragged graphs with their private pool and static buffers, and the
+        prefix cache's pages. The reference cycles that would keep them
+        alive are collected and the freed blocks go back to the card."""
+        if self.state == MODEL_ASLEEP:
+            return
+        t0 = time.perf_counter()
+        eng = self.engine
+        if eng is not None:
+            # A speculative burst in flight must not outlive its pools.
+            eng.drain_pipeline()
+            t1 = time.perf_counter()
+            if self.device.type == "cuda":
+                def park(t: torch.Tensor) -> torch.Tensor:
+                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    h.copy_(t, non_blocking=True)
+                    return h
+                self._host_params = _params_map(park, eng.params)
+                torch.cuda.synchronize(self.device)
+            else:
+                self._host_params = _params_map(torch.clone, eng.params)
+            self.timings["d2h_s"] = time.perf_counter() - t1
+            self.timings["param_bytes"] = _params_bytes(self._host_params)
+            self.engine = eng = None
+            gc.collect()
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+        self.state = MODEL_ASLEEP
+        self.timings["sleep_s"] = time.perf_counter() - t0
+
+    def wakeup(self) -> None:
+        """A new engine on the parked parameters (a warm wake), or on
+        random ones from seed 0 for a model staged asleep (a cold wake).
+        The caller runs the warmup."""
+        if self.state == MODEL_AWAKE:
+            return
+        t0 = time.perf_counter()
+        params = self._host_params
+        if params is not None and self.device.type == "cuda":
+            params = _params_map(
+                lambda h: h.to(self.device, non_blocking=True), params)
+            torch.cuda.synchronize(self.device)
+        self.timings["h2d_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.engine = self._build(params)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.timings["engine_s"] = time.perf_counter() - t1
+        # Only now: a build that raised (out of memory) keeps the parked
+        # weights for the next wake.
+        self._host_params = None
+        self.state = MODEL_AWAKE
+
+    @property
+    def memory_gb(self) -> float:
+        """Rough device footprint for the serverless allocator (the JAX
+        worker's estimate)."""
+        cfg = self.model_cfg
+        if cfg.is_moe:
+            f = cfg.moe_intermediate_size or cfg.intermediate_size
+            mlp = cfg.num_experts * 3 * cfg.hidden_size * f \
+                + cfg.hidden_size * cfg.num_experts
+        else:
+            mlp = 3 * cfg.hidden_size * cfg.intermediate_size
+        n_params = (cfg.vocab_size * cfg.hidden_size * 2
+                    + cfg.num_layers * (
+                        4 * cfg.hidden_size * cfg.num_heads * cfg.head_dim
+                        + mlp))
+        return 2.0 * n_params / 1e9
+
+
 class Worker:
     def __init__(self, opts: WorkerOptions,
                  engine_cfg: Optional[EngineConfig] = None,
@@ -552,16 +752,16 @@ class Worker:
         # No checkpoint loader yet, so no model directory: the byte
         # tokenizer, as the JAX worker uses without --model-dir.
         self.tokenizer = TokenizerFactory.create_tokenizer()
-        self.model_cfg = model_cfg or resolve_model_config(opts.model)
-        # The engine first: without the device it raises before any
-        # socket is bound.
-        self.engine = Engine(self.model_cfg, engine_cfg or EngineConfig(),
-                             params=params, device=opts.device,
-                             murmur_seed=opts.murmur_seed)
-        warmup = opts.warmup
-        if warmup is None:
-            warmup = self.engine.device.type == "cuda"
-        if warmup:
+        self.engine_cfg = engine_cfg or EngineConfig()
+        self.device = resolve_device(opts.device)
+        # One runtime per model; the primary first. Its engine first:
+        # without the device it raises before any socket is bound.
+        self.runtimes: Dict[str, ModelRuntime] = {
+            opts.model: ModelRuntime(
+                opts.model, model_cfg or resolve_model_config(opts.model),
+                self.engine_cfg, self.device, murmur_seed=opts.murmur_seed,
+                params=params)}
+        if self._should_warmup():
             secs = self.warmup()
             logger.info("warmup: %.1f s, %s", secs,
                         self.engine.compile_report())
@@ -577,9 +777,22 @@ class Worker:
         self._live_srid: Dict[str, _LiveRequest] = {}   # request id
         self._live_lock = threading.Lock()
         self._engine_lock = threading.Lock()
+        # Held by the engine loop across one runtime's step, the dispatch
+        # of its outputs and its records; /sleep and /wakeup take it
+        # before the engine lock, so that no reference of a step to an
+        # engine outlives the engine's sleep.
+        self._loop_mu = threading.Lock()
+        # Sleeps and wakes waiting for _loop_mu: the engine loop yields
+        # to them between steps instead of re-taking it at once.
+        self._flip_mu = threading.Lock()
+        self._flips_waiting = 0
         self._work = threading.Event()
         self._stop = threading.Event()
+        self._stopped = False
         self.engine_error: Optional[str] = None
+        # The worker's event ring: supervised thread crashes and the
+        # store guard's outages land here (JAX worker :545).
+        self.events = EventLog(capacity=256)
         self._srv = ThreadingHTTPServer((opts.host, opts.port),
                                         _handler_class(self))
         self._srv.daemon_threads = True
@@ -613,9 +826,6 @@ class Worker:
             "xllm_worker_engine_alive",
             "1 while the engine loop serves this model, 0 once it died",
             labelnames=("model",))
-        self._m_load = {k: self.obs.gauge(f"xllm_worker_{k}",
-                                          labelnames=("model",))
-                        for k in self.engine.load_metrics()}
         self._m_prefix = {
             key: self.obs.counter(f"xllm_worker_prefix_cache_{key}", help,
                                   labelnames=("model",))
@@ -669,6 +879,29 @@ class Worker:
         # Fault injection, armed by XLLM_FAILPOINTS and POST
         # /admin/failpoint; trips count in this registry.
         self.failpoints = Failpoints(obs=self.obs)
+        # The store guard (JAX worker :627-636): this worker's view of
+        # the store's health, wired to its own failpoints. Its heal only
+        # flags the heartbeat loop, which re-registers
+        # (``_on_store_heal``).
+        if self.store is not None:
+            self.store = StoreGuard(self.store, failpoints=self.failpoints,
+                                    events=self.events)
+            self.store.on_heal(self._on_store_heal)
+        self._heal_pending = threading.Event()
+        # The simulated death of worker.die_after_n_tokens: work refused,
+        # beats dropped, streams broken; the process lives on.
+        self._dead = False
+        # Graceful drain (JAX worker :690-706): while draining, beats say
+        # every model is draining; new work is refused once the master
+        # has heard it (``_refuse_new``). ``_inflight_parse`` counts the
+        # work-accepting handlers not yet answered or registered in
+        # ``_live_srid``, ``_relay_streams`` the PD streams this worker
+        # relays after its own live request ended (both under
+        # _live_lock).
+        self._draining = False
+        self._refuse_new = False
+        self._inflight_parse = 0
+        self._relay_streams = 0
         self._m_faults = self.obs.counter(
             "xllm_engine_faults_total",
             "engine step faults seen by the fault boundary, by "
@@ -694,15 +927,14 @@ class Worker:
         # highest record seq an acknowledged beat carried (under
         # _hb_lock).
         self.steptrace = steptrace.StepTrace()
-        self._st_phase_snap: Dict[str, float] = {}
-        self._st_spec_snap: Dict[str, int] = {}
-        self._st_prefix_snap = 0
-        self._st_free_pages: Optional[int] = None
-        self._st_last = {"mfu": 0.0, "debt_ms": 0.0}
+        self._st_phase_snap: Dict[str, Dict[str, float]] = {}
+        self._st_spec_snap: Dict[str, Dict[str, int]] = {}
+        self._st_prefix_snap: Dict[str, int] = {}
+        self._st_free_pages: Dict[str, int] = {}
+        self._st_last: Dict[str, Dict[str, float]] = {}
         self._hb_steps_seq = 0
-        self._device_kind = (torch.cuda.get_device_name(self.engine.device)
-                             if self.engine.device.type == "cuda"
-                             else "cpu")
+        self._device_kind = (torch.cuda.get_device_name(self.device)
+                             if self.device.type == "cuda" else "cpu")
         # The role this worker registers under (``/flip_role`` changes it).
         self.instance_type = opts.instance_type
         # The PD handoff's counters (both sides; /metrics), the decode
@@ -754,17 +986,42 @@ class Worker:
     # ------------------------------------------------------------------
     # Lifecycle
     # ------------------------------------------------------------------
+    @property
+    def engine(self) -> Optional[Engine]:
+        """The primary model's engine (None while it sleeps)."""
+        return self.primary_runtime().engine
+
+    @property
+    def model_cfg(self) -> ModelConfig:
+        return self.primary_runtime().model_cfg
+
+    def primary_runtime(self) -> ModelRuntime:
+        return self.runtimes[self.opts.model]
+
+    def _runtime_for(self, model: Optional[str]) -> ModelRuntime:
+        """The runtime a request names, the primary for any other name
+        (JAX worker :1948)."""
+        return self.runtimes.get(model or "") or self.primary_runtime()
+
+    def _should_warmup(self) -> bool:
+        if self.opts.warmup is not None:
+            return self.opts.warmup
+        return self.device.type == "cuda"
+
     def start(self) -> "Worker":
         """Serve, then join the cluster (JAX worker :921-975): register
         under a lease with retry and backoff (a store outage waits
         without spending the budget), adopt and watch the master's
         advertised address, learn the service's topology, and start the
         heartbeat loop. The engine warmed up in ``__init__``, before
-        registration. A worker without a store only serves."""
-        for target, name in ((self._engine_loop, "engine-loop"),
-                             (self._srv.serve_forever, "http")):
-            t = threading.Thread(target=target, name=f"worker-{name}",
-                                 daemon=True)
+        registration. A worker without a store only serves. The engine
+        loop is supervised without a restart: a crash that escapes its
+        fault boundary leaves device state unknown (JAX :832-866)."""
+        for root, target, name in (
+                ("worker.engine_loop", self._engine_loop, "engine-loop"),
+                ("worker.http", self._srv.serve_forever, "http")):
+            t = threads.spawn(root, target, thread_name=f"worker-{name}",
+                              events=self.events, stop=self._stop)
             t.start()
             self._threads.append(t)
         _LOCAL_WORKERS[self.name] = self
@@ -789,6 +1046,8 @@ class Worker:
                 logger.warning("registration attempt %d failed (%s); "
                                "backing off", attempt, e)
                 self._reg_retry.sleep(attempt - 1, stop_event=self._stop)
+        # A heal during the boot retries is met by the registration.
+        self._heal_pending.clear()
         # Only a worker configured with a service follows the advertised
         # master: a standalone worker sharing the store must not start
         # taking routed traffic.
@@ -797,17 +1056,62 @@ class Worker:
             self._addr_watch = self.store.add_watch(KEY_MASTER_ADDR,
                                                     self._on_master_addr)
             self._refresh_service_config()
-        self._threads.append(threads.spawn("worker.hb_loop",
-                                           self._heartbeat_loop))
+        # The heartbeat loop restarts after a crash: a dead loop looks
+        # like a dead worker to the master (its lease expires).
+        t = threads.spawn("worker.hb_loop", self._heartbeat_loop,
+                          restart=threads.RESTART_POLICY,
+                          events=self.events, stop=self._stop)
+        t.start()
+        self._threads.append(t)
         return self
+
+    def drain_and_stop(self, timeout_s: float = 30.0) -> bool:
+        """Graceful shutdown (JAX worker :1031-1072): beat every model
+        ``draining`` until the master acknowledges (it stops routing
+        here), then refuse new work, let the requests in flight finish,
+        and stop. True when everything drained within ``timeout_s``."""
+        self._draining = True
+        if self.service_addr:
+            for _ in range(3):
+                try:
+                    if self._send_heartbeat():
+                        break
+                except Exception:  # noqa: BLE001 — retried; the drain
+                    pass            # goes on either way
+                time.sleep(0.2)
+            else:
+                # The master did not hear it: give its next poll a beat.
+                time.sleep(min(1.0, self.opts.heartbeat_interval_s))
+        self._refuse_new = True
+        deadline = time.monotonic() + timeout_s
+        drained = False
+        try:
+            while time.monotonic() < deadline:
+                busy = any(rt.engine is not None and rt.engine.has_work()
+                           for rt in list(self.runtimes.values()))
+                with self._live_lock:
+                    busy = busy or bool(self._live_srid) \
+                        or self._inflight_parse > 0 \
+                        or self._relay_streams > 0
+                if not busy:
+                    drained = True
+                    break
+                time.sleep(0.05)
+        finally:
+            self.stop()
+        return drained
 
     def stop(self) -> None:
         """Cancel the watch, end live streams, revoke the lease and stop
         the HTTP server (JAX worker :1074-1112, which revokes last): the
         master drops this instance on the lease's DELETE, before the
-        server's shutdown poll."""
+        server's shutdown poll. A second call does nothing."""
+        if self._stopped:
+            return
+        self._stopped = True
         self._stop.set()
         self._work.set()
+        self._refuse_new = True
         _LOCAL_WORKERS.pop(self.name, None)
         if self._addr_watch is not None:
             try:
@@ -841,20 +1145,24 @@ class Worker:
     def _register(self) -> None:
         """Write the registration (JAX worker :1114-1169, with the
         profiling samples of ``enable_profiling``) under a fresh TTL
-        lease. A re-registration revokes the old lease first, or every
-        one leaks a live lease in the store."""
+        lease: the awake models and the memory budget. A re-registration
+        revokes the old lease first, or every one leaks a live lease in
+        the store."""
         layers = list(range(self.model_cfg.num_layers))
+        eng = self.engine
         meta = InstanceMetaInfo(
             name=self.name, rpc_address=self.name,
             instance_type=self.instance_type,
-            models=[self.opts.model], dp_size=1,
+            models=[m for m, rt in self.runtimes.items()
+                    if rt.state == MODEL_AWAKE], dp_size=1,
+            memory_budget_gb=self.opts.memory_budget_gb,
             k_cache_ids=layers, v_cache_ids=list(layers),
             addrs=[self.name],
             # The block-hash contract the service checks against its
             # (block_size, murmur seed), and one block's bytes.
-            page_size=self.engine.ecfg.page_size,
+            page_size=self.engine_cfg.page_size,
             hash_seed=self.opts.murmur_seed,
-            kv_block_bytes=self.engine.kv_block_bytes(),
+            kv_block_bytes=eng.kv_block_bytes() if eng is not None else 0,
             ttft_profiling_data=list(self._ttft_prof),
             tpot_profiling_data=list(self._tpot_prof))
         with self._reg_mu:
@@ -868,6 +1176,16 @@ class Worker:
             self.store.put_json(
                 instance_prefix(self.instance_type.value) + self.name,
                 stamp(meta.to_json()), self._lease_id)
+
+    def _on_store_heal(self) -> None:
+        """The store guard's heal callback (JAX worker :1171-1182): only
+        flags the heartbeat loop, which re-registers on a fresh lease and
+        re-reads the advertised master. It runs on the thread whose store
+        call healed the guard, possibly inside ``_register`` itself, so
+        registering here would re-enter ``_reg_mu``."""
+        if self._stop.is_set() or self._dead:
+            return
+        self._heal_pending.set()
 
     @property
     def service_addr(self) -> str:
@@ -941,48 +1259,66 @@ class Worker:
     # Heartbeats
     # ------------------------------------------------------------------
     def _heartbeat_loop(self) -> None:
-        """Each tick (JAX worker :4173-4275): the lease keepalive (a store
-        outage is not a beat failure; a dead lease while the store
-        answers re-registers, and so does the store's return after an
-        outage), the service config when stale, then a beat unless the
-        backoff holds it (a retarget clears it); after two failed beats,
-        the advertised address is read again."""
+        """Each tick (JAX worker :4173-4275): the injected crash (raised
+        outside the tick's ``try``, so that the supervised thread
+        restarts the loop), the staged-ticket sweep, the dropped beat of
+        ``worker.drop_heartbeats``, the re-registration a store heal
+        asked for, the lease keepalive (a store outage is not a beat
+        failure; a dead lease while the store answers re-registers), the
+        service config when stale, then a beat unless the backoff holds
+        it (a retarget clears it); after two failed beats, the advertised
+        address is read again."""
         hb_failures = 0
         next_hb = 0.0
-        store_down = False
         target = self.service_addr
         while not self._stop.wait(self.opts.heartbeat_interval_s):
+            if self.failpoints.fire("worker.crash_heartbeat") is not None:
+                raise RuntimeError("injected heartbeat-loop crash "
+                                   "(failpoint worker.crash_heartbeat)")
             if self.service_addr != target:
                 # A new master gets its first beat now, not after the
                 # backoff earned against the old one.
                 target = self.service_addr
                 hb_failures, next_hb = 0, 0.0
-            if self.failpoints.fire("worker.drop_heartbeats") is not None:
-                # A simulated partition: no keepalive and no beat, so
-                # the lease expires as if the process were gone.
-                continue
             try:
+                self._sweep_kv_fetch_staged()
+                if self.failpoints.fire("worker.drop_heartbeats") \
+                        is not None:
+                    # A simulated partition: no keepalive and no beat, so
+                    # the lease expires as if the process were gone.
+                    continue
+                if self._heal_pending.is_set():
+                    # Before the keepalive, so that it runs against the
+                    # fresh lease.
+                    self._heal_pending.clear()
+                    try:
+                        self._register()
+                        logger.info("store healed: lease and registration "
+                                    "re-established for %s", self.name)
+                    except Exception as e:  # noqa: BLE001 — the store
+                        # flaps; the next tick retries
+                        self._heal_pending.set()
+                        logger.warning("post-heal re-registration "
+                                       "failed: %s", e)
+                    else:
+                        if self.opts.service_addr:
+                            self._adopt_advertised_addr()
                 lease_id = self._lease_id
                 if lease_id is not None:
                     try:
                         alive = self.store.lease_keepalive(lease_id)
-                        healed, store_down = store_down, False
                     except StoreOutageError as e:
                         logger.debug("store keepalive unreachable: %s", e)
-                        alive, healed, store_down = True, False, True
-                    if (not alive or healed) and lease_id == self._lease_id:
+                        alive = True     # frozen: not a beat failure
+                    if not alive and lease_id == self._lease_id:
                         try:
                             self._register()
-                            logger.warning("lease %d %s; re-registered "
-                                           "with a fresh lease", lease_id,
-                                           "expired" if not alive
-                                           else "outlived a store outage")
-                        except Exception as e:  # noqa: BLE001 — the
-                            # next tick retries
+                            logger.warning("lease %d expired under a live "
+                                           "worker; re-registered with a "
+                                           "fresh lease", lease_id)
+                        except Exception as e:  # noqa: BLE001 — the next
+                            # tick (or the guard's heal) retries
                             logger.warning("re-registration failed: %s", e)
-                        if healed and self.opts.service_addr:
-                            self._adopt_advertised_addr()
-                self._sweep_kv_fetch_staged()
                 if self._service_config_stale:
                     self._refresh_service_config()
                 if self.service_addr and time.monotonic() >= next_hb:
@@ -1003,13 +1339,18 @@ class Worker:
 
     def _send_heartbeat(self) -> bool:
         """One beat; True when the service acknowledged it (HTTP 200
-        from a master whose epoch is not behind one already acked)."""
+        from a master whose epoch is not behind one already acked). The
+        cache digests are the primary model's, as the JAX worker's: none
+        while it sleeps (its undelivered ones wait for its wake)."""
         with self._hb_lock:
-            cache_ev = self.engine.drain_kvcache_event()
-            if self._hb_cache_pending is not None:
-                self._hb_cache_pending.merge(cache_ev)
-                cache_ev, self._hb_cache_pending = \
-                    self._hb_cache_pending, None
+            eng = self.engine
+            cache_ev = None
+            if eng is not None:
+                cache_ev = eng.drain_kvcache_event()
+                if self._hb_cache_pending is not None:
+                    self._hb_cache_pending.merge(cache_ev)
+                    cache_ev, self._hb_cache_pending = \
+                        self._hb_cache_pending, None
             delivered = False
             try:
                 hb, (step_baseline, steps_seq) = \
@@ -1034,17 +1375,21 @@ class Worker:
                 delivered = True
                 return True
             finally:
-                if not delivered and not cache_ev.empty:
+                if not delivered and cache_ev is not None \
+                        and not cache_ev.empty:
                     self._hb_cache_pending = cache_ev
 
     def _build_heartbeat(self, cache_ev: Optional[KvCacheEvent] = None
                          ) -> Tuple[Heartbeat, Tuple[Dict[str, Any], int]]:
-        """The beat's payload (JAX worker :4336-4471), carrying the
-        cache digests of ``cache_ev`` as hex and the step records since
-        the last acknowledged beat (at most 64), and what to commit once
-        it is acked: the step histogram's baseline and the last record's
-        seq."""
-        p99, baseline = self._recent_step_p99()
+        """The beat's payload (JAX worker :4336-4471): the primary
+        model's load and step p99, every model's state (``draining`` for
+        all while draining), the cache digests of ``cache_ev`` as hex and
+        the step records since the last acknowledged beat (at most 64),
+        and what to commit once it is acked: the step histogram's
+        baseline and the last record's seq."""
+        rt = self.primary_runtime()
+        eng = rt.engine
+        p99, baseline = self._recent_step_p99(rt.model)
         steps_tail: List[Dict[str, Any]] = []
         steps_seq = self._hb_steps_seq
         if self.steptrace.enabled:
@@ -1061,32 +1406,36 @@ class Worker:
                            if self._prefill_s_cum > 0 else 0.0),
             kv_gbps=(self.kv_migration_bytes / self.kv_migration_seconds
                      / 1e9 if self.kv_migration_seconds > 0 else 0.0),
-            waiting_prefill_tokens=int(
-                self.engine.waiting_prefill_tokens()))
+            waiting_prefill_tokens=(int(eng.waiting_prefill_tokens())
+                                    if eng is not None else 0))
         ev = cache_ev or KvCacheEvent()
         hb = Heartbeat(name=self.name,
                        instance_type=self.instance_type,
-                       load=self._engine_load(), latency=latency,
+                       load=self._engine_load(rt), latency=latency,
                        cache_stored=[h.hex() for h in ev.stored],
                        cache_removed=[h.hex() for h in ev.removed],
                        cache_offloaded=[h.hex() for h in ev.offloaded],
                        cache_offloaded_ssd=[h.hex()
                                             for h in ev.offloaded_ssd],
-                       model_states={self.opts.model: MODEL_AWAKE},
+                       model_states={
+                           m: MODEL_DRAINING if self._draining else r.state
+                           for m, r in list(self.runtimes.items())},
                        steps=steps_tail)
         return hb, (baseline, steps_seq)
 
-    def _recent_step_p99(self) -> Tuple[float, Dict[str, Any]]:
-        """p99 of ``xllm_worker_step_ms`` over the steps since the last
-        acked beat, prefill, decode and mixed merged (JAX worker :4307):
-        the delta of cumulative bucket counts is itself a histogram.
-        Returns (p99, the baseline to commit on an ack), so a refused
-        beat folds its interval into the next. 0.0 = no step ran."""
+    def _recent_step_p99(self, model: str
+                         ) -> Tuple[float, Dict[str, Any]]:
+        """p99 of ``model``'s ``xllm_worker_step_ms`` over the steps since
+        the last acked beat, prefill, decode and mixed merged (JAX worker
+        :4307): the delta of cumulative bucket counts is itself a
+        histogram. Returns (p99, the baseline to commit on an ack), so a
+        refused beat folds its interval into the next. 0.0 = no step
+        ran."""
         h = self._m_step_ms
         pending = dict(self._hb_step_cum)
         merged = None
         for phase in _STEP_PHASES:
-            cur = h.cumulative(model=self.opts.model, phase=phase)
+            cur = h.cumulative(model=model, phase=phase)
             if cur is None:
                 continue
             prev = self._hb_step_cum.get(phase)
@@ -1099,16 +1448,20 @@ class Worker:
             return 0.0, pending
         return quantile_from_buckets(merged, 0.99) or 0.0, pending
 
-    def _engine_load(self) -> LoadMetrics:
-        """The engine's load as the heartbeat carries it, mirrored into
-        the registry as ``xllm_worker_<key>{model}`` (JAX worker
-        :4285-4305). Reads the engine without its lock."""
-        lm = self.engine.load_metrics()
-        model = self.opts.model
+    def _engine_load(self, rt: ModelRuntime) -> LoadMetrics:
+        """A runtime's load as the heartbeat carries it (empty while it
+        sleeps), mirrored into the registry as ``xllm_worker_<key>{model}``
+        and ``xllm_worker_engine_alive{model}`` (JAX worker :4285-4305).
+        Reads the engine without its lock."""
+        eng = rt.engine
+        if eng is None:
+            return LoadMetrics()
+        lm = eng.load_metrics()
         for k, v in lm.items():
-            self._m_load[k].set(v, model=model)
+            self.obs.gauge(f"xllm_worker_{k}",
+                           labelnames=("model",)).set(v, model=rt.model)
         alive = int(self._engine_loop_alive)
-        self._m_alive.set(alive, model=model)
+        self._m_alive.set(alive, model=rt.model)
         return LoadMetrics(
             waiting_requests=lm["waiting_requests"],
             running_requests=lm["running_requests"],
@@ -1117,19 +1470,19 @@ class Worker:
             moe_dropped_tokens=lm["moe_dropped_tokens"],
             engine_alive=alive)
 
-    def _record_step(self, step_ms: float,
+    def _record_step(self, rt: ModelRuntime, eng: Engine, step_ms: float,
                      phase: Optional[str] = None) -> None:
         """After each ``Engine.step()`` and its outputs' dispatch, on the
-        engine-loop thread: the step series by ``last_step_kind`` (JAX
-        worker :1386-1440), or by ``phase`` (``"fault"`` for a faulted
-        step), and the flight recorder's record. The load mirrors
-        refresh at each scrape and beat."""
-        eng, m = self.engine, self.opts.model
+        engine-loop thread: ``rt``'s step series by ``last_step_kind``
+        (JAX worker :1386-1440), or by ``phase`` (``"fault"`` for a
+        faulted step), and the flight recorder's record. The load
+        mirrors refresh at each scrape and beat."""
+        m = rt.model
         kind = phase or eng.last_step_kind
         if kind == "idle":
             return
         if self.steptrace.enabled:
-            self._record_steptrace(kind, step_ms)
+            self._record_steptrace(rt, eng, kind, step_ms)
         pf, dc = eng.last_step_prefill_tokens, eng.last_step_decode_tokens
         self._m_steps.inc(1, model=m, phase=kind)
         if pf:
@@ -1141,30 +1494,33 @@ class Worker:
             self._prefill_tok_cum += pf
             self._prefill_s_cum += eng.last_step_prefill_s
 
-    def _record_steptrace(self, kind: str, step_ms: float) -> None:
+    def _record_steptrace(self, rt: ModelRuntime, eng: Engine, kind: str,
+                          step_ms: float) -> None:
         """One flight-recorder record for the step that just ran (JAX
         worker :1476-1534): the phase, speculation, prefix-hit and
-        free-page deltas against the previous step's snapshots, and the
+        free-page deltas against the model's previous snapshots, and the
         roofline verdict of the engine's table against the device's
         peaks."""
-        eng = self.engine
+        m = rt.model
         cur = dict(eng.phase_times)
+        snap = self._st_phase_snap.get(m, {})
         phases = {}
         for k, v in cur.items():
-            d = (v - self._st_phase_snap.get(k, 0.0)) * 1e3
+            d = (v - snap.get(k, 0.0)) * 1e3
             if d > 0.0005:
                 phases[k] = round(d, 3)
-        self._st_phase_snap = cur
+        self._st_phase_snap[m] = cur
         om = eng.overlap_metrics()
-        spec = {k: int(om[k] - self._st_spec_snap.get(k, 0))
+        spec_snap = self._st_spec_snap.get(m, {})
+        spec = {k: int(om[k] - spec_snap.get(k, 0))
                 for k in ("spec_dispatches", "spec_hits", "spec_rollbacks")}
-        self._st_spec_snap = {k: int(om[k]) for k in spec}
+        self._st_spec_snap[m] = {k: int(om[k]) for k in spec}
         hit_cum = int(eng.prefix_cache_stats()["hit_tokens_total"])
-        hit_delta = hit_cum - self._st_prefix_snap
-        self._st_prefix_snap = hit_cum
+        hit_delta = hit_cum - self._st_prefix_snap.get(m, 0)
+        self._st_prefix_snap[m] = hit_cum
         free = int(eng.allocator.num_free)
-        prev = self._st_free_pages
-        self._st_free_pages = free
+        prev = self._st_free_pages.get(m)
+        self._st_free_pages[m] = free
         peak_flops, peak_bytes_s = steptrace.peaks_for(self._device_kind)
         verdict = steptrace.attribute_step(
             eng.roofline, kind=kind, step_ms=step_ms,
@@ -1174,10 +1530,10 @@ class Worker:
             decode_steps=eng.decode_steps,
             ragged=eng.last_step_ragged,
             peak_flops=peak_flops, peak_bytes_s=peak_bytes_s)
-        self._st_last = {"mfu": verdict["mfu"],
-                         "debt_ms": verdict["debt_ms"]}
+        self._st_last[m] = {"mfu": verdict["mfu"],
+                            "debt_ms": verdict["debt_ms"]}
         self.steptrace.record(
-            model=self.opts.model, kind=kind, step_ms=round(step_ms, 3),
+            model=m, kind=kind, step_ms=round(step_ms, 3),
             prefill_tokens=eng.last_step_prefill_tokens,
             decode_tokens=eng.last_step_decode_tokens,
             prefill_windows=eng.last_step_prefill_windows,
@@ -1193,17 +1549,28 @@ class Worker:
             mfu=verdict["mfu"], bound=verdict["bound"],
             debt_ms=verdict["debt_ms"])
 
+    def _awake(self) -> List[Tuple[ModelRuntime, Engine]]:
+        """(runtime, engine) of every awake model."""
+        out = []
+        for rt in list(self.runtimes.values()):
+            eng = rt.engine
+            if eng is not None:
+                out.append((rt, eng))
+        return out
+
     def steptrace_body(self, n: int = 0,
                        window_s: float = 0.0) -> Dict[str, Any]:
         """``GET /admin/steptrace`` (JAX worker :1908-1940): the ring's
         tail (``n`` newest, or within ``window_s`` of the newest), the
-        peaks, and the roofline rows. ``sections`` stays empty: this
-        package has no hot-path section profiler."""
+        peaks, and every awake model's roofline rows. ``sections`` stays
+        empty: this package has no hot-path section profiler."""
         peak_flops, peak_bytes_s = steptrace.peaks_for(self._device_kind)
-        roofline = steptrace.roofline_table(self.engine.roofline,
-                                            peak_flops, peak_bytes_s)
-        for row in roofline:
-            row["model"] = self.opts.model
+        roofline = []
+        for rt, eng in self._awake():
+            for row in steptrace.roofline_table(eng.roofline, peak_flops,
+                                                peak_bytes_s):
+                row["model"] = rt.model
+                roofline.append(row)
         return {
             "name": self.name,
             "enabled": self.steptrace.enabled,
@@ -1216,31 +1583,40 @@ class Worker:
         }
 
     def metrics_text(self) -> str:
-        """``GET /metrics``: the load mirrors, the prefix-cache series,
-        the graph census (captures per program, and those after warmup:
-        the JAX worker's compile and recompile counters; eager steps),
-        the process's kernel launch counts and the PD handoff's counters
-        refreshed, then the registry in Prometheus text."""
-        self._engine_load()
-        stats = self.engine.prefix_cache_stats()
-        for key, _ in _PREFIX_SERIES:
-            self._m_prefix[key].set_total(stats[key],
-                                          model=self.opts.model)
-        captures = self.engine.capture_report()
-        for program, total in self.engine.compile_report().items():
-            self._m_compiles.set_total(total, model=self.opts.model,
-                                       program=program)
-            self._m_recompiles.set_total(
-                captures[program]["captures_after_warmup"],
-                model=self.opts.model, program=program)
-            self._m_eager.set_total(
-                sum(captures[program]["eager_steps"].values()),
-                model=self.opts.model, program=program)
+        """``GET /metrics``: per awake model the load mirrors, the
+        prefix-cache series, the graph census (captures per program, and
+        those after warmup: the JAX worker's compile and recompile
+        counters; eager steps) and the roofline mirrors; then the
+        supervised threads' crash books, the store guard's health, the
+        process's kernel launch counts and the PD handoff's and block
+        fetch's counters, and the registry in Prometheus text."""
+        for rt, eng in self._awake():
+            m = rt.model
+            self._engine_load(rt)
+            stats = eng.prefix_cache_stats()
+            for key, _ in _PREFIX_SERIES:
+                self._m_prefix[key].set_total(stats[key], model=m)
+            captures = eng.capture_report()
+            for program, total in eng.compile_report().items():
+                self._m_compiles.set_total(total, model=m, program=program)
+                self._m_recompiles.set_total(
+                    captures[program]["captures_after_warmup"],
+                    model=m, program=program)
+                self._m_eager.set_total(
+                    sum(captures[program]["eager_steps"].values()),
+                    model=m, program=program)
+            last = self._st_last.get(m, {})
+            steptrace.flush_metrics(self.obs, m, eng.roofline,
+                                    last.get("mfu", 0.0),
+                                    last.get("debt_ms", 0.0),
+                                    self._device_kind)
+        threads.flush_metrics(self.obs)
+        self.obs.gauge("xllm_store_health",
+                       "coordination-store health as seen by this plane "
+                       "(2 healthy / 1 flaky / 0 down)").set(
+            int(getattr(self.store, "health", 2)))
         for name, n in kernels.launch_counts().items():
             self._m_launches.set(n, kernel=name)
-        steptrace.flush_metrics(self.obs, self.opts.model,
-                                self.engine.roofline, self._st_last["mfu"],
-                                self._st_last["debt_ms"], self._device_kind)
         for key, help in _MIGRATION_SERIES:
             self.obs.counter(f"xllm_worker_kv_migration_{key}_total",
                              help).set_total(
@@ -1266,56 +1642,79 @@ class Worker:
                          "may still read them").set_total(wire["leaked"])
         return self.obs.render()
 
-    def warmup(self) -> float:
-        """The engine's warmup ladder (``XLLM_WARMUP_EXTENDED=0`` keeps
-        only its first shapes, as the JAX worker reads it), and with the
-        full ladder the wider tables of later windows
-        (``Engine.late_window_shapes``). Returns the seconds spent."""
+    def warmup(self, rt: Optional[ModelRuntime] = None) -> float:
+        """The warmup ladder of ``rt``'s engine (the primary's by
+        default; ``XLLM_WARMUP_EXTENDED=0`` keeps only its first shapes,
+        as the JAX worker reads it), and with the full ladder the wider
+        tables of later windows (``Engine.late_window_shapes``). Returns
+        the seconds spent."""
+        eng = (rt or self.primary_runtime()).engine
         extended = os.environ.get("XLLM_WARMUP_EXTENDED", "1") != "0"
-        secs = self.engine.warmup(extended=extended)
+        secs = eng.warmup(extended=extended)
         if extended:
-            secs += self.engine.warmup(
-                prefill_shapes=self.engine.late_window_shapes())
+            secs += eng.warmup(prefill_shapes=eng.late_window_shapes())
         return secs
 
     # ------------------------------------------------------------------
     # Engine loop
     # ------------------------------------------------------------------
     def _engine_loop(self) -> None:
-        eng = self.engine
-        eng.fault_hook = self._step_fault_hook
+        """Step every awake runtime in turn (JAX worker :1190-1223), each
+        inside the step fault boundary; wait for work when none has any.
+        Ends, visibly, when the breaker opens."""
         while not self._stop.is_set():
-            fault: Optional[BaseException] = None
-            with self._engine_lock:
-                busy = eng.has_work()
-                if busy:
-                    # First tokens of sequences adopted since the last
-                    # step go out ahead of this step's outputs.
-                    adopted, self._service_push_buffer = \
-                        self._service_push_buffer, []
-                    t0 = time.perf_counter()
-                    try:
-                        outs = eng.step()
-                    except Exception as exc:  # noqa: BLE001 — the step
-                        fault = exc           # fault boundary, below
-                    step_ms = (time.perf_counter() - t0) * 1e3
+            busy = False
+            for rt in list(self.runtimes.values()):
+                stepped = self._step_runtime(rt)
+                if stepped is False:
+                    return
+                busy = busy or bool(stepped)
             if not busy:
                 self._work.wait(timeout=0.05)
                 self._work.clear()
-                continue
+
+    def _step_runtime(self, rt: ModelRuntime) -> Optional[bool]:
+        """One step of ``rt``'s engine, its outputs and records: None when
+        it sleeps or has no work, True when it stepped (or a fault was
+        contained), False when the breaker opened (every request, then
+        and after, gets a 500). Under ``_loop_mu``: a sleep waits for
+        the step's references to its engine to go."""
+        if self._flips_waiting:
+            return None
+        with self._loop_mu:
+            fault: Optional[BaseException] = None
+            with self._engine_lock:
+                eng = rt.engine
+                if eng is None or not eng.has_work():
+                    return None
+                if eng.fault_hook is None:
+                    # A woken runtime's engine is new.
+                    eng.fault_hook = self._step_fault_hook
+                # First tokens of sequences adopted since the last step
+                # go out ahead of this step's outputs.
+                adopted, self._service_push_buffer = \
+                    self._service_push_buffer, []
+                t0 = time.perf_counter()
+                try:
+                    outs = eng.step()
+                except Exception as exc:  # noqa: BLE001 — the step
+                    fault = exc           # fault boundary, below
+                step_ms = (time.perf_counter() - t0) * 1e3
             self._push_outputs_to_service(adopted)
             if fault is not None:
                 # Contain, attribute, resume; or, with the breaker open,
-                # die visibly: every request gets a 500, then and after.
-                if not self._contain_engine_fault(fault, step_ms):
+                # die visibly.
+                if not self._contain_engine_fault(rt, fault, step_ms):
                     logger.error("engine step failed", exc_info=fault)
                     self._engine_loop_alive = False
+                    self._m_alive.set(0, model=rt.model)
                     self._fail_all(f"engine step failed: {fault!r}")
-                    return
-                continue
+                    return False
+                return True
             # The outputs first, then the step's records.
             self._dispatch_outputs(outs)
-            self._record_step(step_ms)
+            self._record_step(rt, eng, step_ms)
+            return True
 
     def _step_fault_hook(self, member_rids: Tuple[str, ...]) -> None:
         """``Engine.fault_hook``: called under the engine lock with each
@@ -1328,7 +1727,7 @@ class Worker:
                     "worker.fault_step_req") is not None:
             raise StepFaultInjected("worker.fault_step_req")
 
-    def _contain_engine_fault(self, exc: BaseException,
+    def _contain_engine_fault(self, rt: ModelRuntime, exc: BaseException,
                               step_ms: float) -> bool:
         """The fault boundary's recovery (JAX worker :1245-1317): the
         faulted step's records under ``phase="fault"``, the breaker,
@@ -1336,15 +1735,15 @@ class Worker:
         deterministic one), ``fault_reset``, the salvaged and probe
         outputs to their streams and the blamed requests' typed errors.
         True when contained; False when the breaker is open."""
-        eng = self.engine
-        self._record_step(step_ms, phase="fault")
+        eng = rt.engine
+        self._record_step(rt, eng, step_ms, phase="fault")
         now = time.monotonic()
         self._fault_times.append(now)
         while self._fault_times and \
                 now - self._fault_times[0] > self._fault_window_s:
             self._fault_times.popleft()
         if len(self._fault_times) > self._fault_limit:
-            self._m_faults.inc(model=self.opts.model, outcome="uncontained")
+            self._m_faults.inc(model=rt.model, outcome="uncontained")
             logger.error("engine fault breaker open (%d faults in %.0fs "
                          "window): %s", len(self._fault_times),
                          self._fault_window_s, exc)
@@ -1383,7 +1782,7 @@ class Worker:
             kept = [o for o in outs if o.request_id not in blamed_set]
             if kept:
                 self._dispatch_outputs(kept)
-        self._m_faults.inc(model=self.opts.model, outcome=outcome)
+        self._m_faults.inc(model=rt.model, outcome=outcome)
         if blamed:
             self._fail_lives_engine_fault(blamed, verdict)
         self._work.set()
@@ -1454,6 +1853,14 @@ class Worker:
         queue, or one push of the wire outputs to the service."""
         to_service: List[RequestOutput] = []
         for out in outs:
+            if not self._dead and self.failpoints.fire(
+                    "worker.die_after_n_tokens",
+                    n=len(out.new_token_ids)) is not None:
+                self._die()
+            if self._dead:
+                # Outputs past the trip point are lost, as a killed
+                # process's socket buffers are.
+                return
             with self._live_lock:
                 live = self._live.get(out.request_id)
             if live is None:
@@ -1477,8 +1884,8 @@ class Worker:
     def _push_outputs_to_service(self, outs: List[RequestOutput]) -> None:
         """The RPC topology: one push of a step's outputs to the
         service's fan-in, stamped and with the sender's name (JAX worker
-        :3573-3589)."""
-        if not outs:
+        :3573-3589). Nothing after a simulated death."""
+        if not outs or self._dead:
             return
         try:
             status, _ = http_json(
@@ -1498,23 +1905,58 @@ class Worker:
             if live is not None and live.finished:
                 self._live_srid.pop(live.request_id, None)
 
-    def _end_lives(self, message: str) -> None:
-        """End every live request: a relayed one gets an error in its
-        reply, a pushed one a finished output with an INTERNAL status."""
+    def _end_lives(self, message: str, model: Optional[str] = None,
+                   status: int = 500,
+                   err_type: str = "engine_fault") -> None:
+        """End every live request (of ``model`` only, when given): a
+        relayed one gets an error in its reply (``status`` and
+        ``err_type``), a pushed one a finished output with an INTERNAL
+        status (UNAVAILABLE for a 503)."""
         with self._live_lock:
-            lives = list(self._live_srid.values())
-            self._live, self._live_srid = {}, {}
+            lives = [lv for lv in self._live_srid.values()
+                     if model is None or self._runtime_for(lv.model).model
+                     == model]
+            for lv in lives:
+                self._live_srid.pop(lv.request_id, None)
+                for erid in lv.engine_rids:
+                    self._live.pop(erid, None)
+        code = StatusCode.UNAVAILABLE if status == 503 else \
+            StatusCode.INTERNAL
         to_service = []
         for live in lives:
             if live.stream_to_service:
                 to_service.append(RequestOutput(
                     request_id=live.request_id,
                     service_request_id=live.request_id,
-                    status=Status(StatusCode.INTERNAL, message),
-                    finished=True))
+                    status=Status(code, message), finished=True))
             else:
-                live.q.put(_EngineDied(message))
+                live.q.put(_EngineDied(message, status, err_type))
         self._push_outputs_to_service(to_service)
+
+    def _die(self) -> None:
+        """``worker.die_after_n_tokens`` tripped (JAX worker :1865-1888):
+        look dead without ending the process. Refuse new work, drop
+        every beat and keepalive (``worker.drop_heartbeats``: the lease
+        expires as a crashed worker's would), cancel every live request's
+        engine work and break its stream mid-frame, and push nothing more
+        to the service."""
+        if self._dead:
+            return
+        self._dead = True
+        self._refuse_new = True
+        logger.warning("failpoint worker.die_after_n_tokens tripped: %s "
+                       "simulating death", self.name)
+        self.failpoints.arm("worker.drop_heartbeats", mode="always")
+        with self._live_lock:
+            lives = list(self._live_srid.values())
+        for live in lives:
+            eng = self._runtime_for(live.model).engine
+            if eng is not None:
+                with self._engine_lock:
+                    for erid in live.engine_rids:
+                        eng.cancel(erid)
+            live.q.put(_ABORT)
+        self._work.set()
 
     def _fail_all(self, message: str) -> None:
         self.engine_error = message
@@ -1548,6 +1990,10 @@ class Worker:
         if self.engine_error is not None:
             raise HttpError(500, self.engine_error, "engine_fault")
         model = body.get("model", self.opts.model)
+        rt = self._runtime_for(model)
+        if rt.engine is None:
+            # As the JAX worker answers it (:1945-1950): a 400.
+            raise HttpError(400, f"model {model} is asleep on this worker")
         rid = body.get("service_request_id") or \
             f"req-{secrets.token_urlsafe(16)}"
         token_ids = body.get("token_ids") or []
@@ -1564,7 +2010,7 @@ class Worker:
         kvf = (body.get("routing") or {}).get("kv_fetch")
         if kvf and not body.get("mm_inputs"):
             try:
-                self._maybe_fetch_blocks(list(token_ids), kvf)
+                self._maybe_fetch_blocks(rt, model, list(token_ids), kvf)
             except Exception as e:  # noqa: BLE001 — the fetch only saves
                 # a prefill: anything unforeseen recomputes
                 logger.warning("kv block fetch failed (%s); recomputing",
@@ -1588,7 +2034,7 @@ class Worker:
         if sampling.logit_bias:
             # Only the worker knows the vocabulary: an id past it is
             # refused, not silently ignored (JAX worker :2024-2033).
-            V = self.model_cfg.vocab_size
+            V = rt.model_cfg.vocab_size
             bad = [t for t in sampling.logit_bias if t >= V]
             if bad:
                 raise HttpError(400, f"logit_bias token ids out of vocab "
@@ -1620,6 +2066,10 @@ class Worker:
             not isinstance(mark, str)
             or mark in self.tokenizer.decode(list(token_ids)))
         with self._engine_lock:
+            eng = rt.engine
+            if eng is None:
+                raise HttpError(400, f"model {model} is asleep on this "
+                                     f"worker")
             if marked:
                 self._fault_marked.update(live.engine_rids)
             added: List[str] = []
@@ -1638,11 +2088,11 @@ class Worker:
                                                 if sampling.seed is not None
                                                 else None)),
                             prompt_logprobs=req.prompt_logprobs and k == 0)
-                    self.engine.add_request(creq)
+                    eng.add_request(creq)
                     added.append(erid)
             except ValueError as e:
                 for erid in added:
-                    self.engine.cancel(erid)
+                    eng.cancel(erid)
                 raise HttpError(400, str(e)) from e
             with self._live_lock:
                 self._live_srid[rid] = live
@@ -1712,7 +2162,7 @@ class Worker:
             text = ch.stopper.feed(text)
             if ch.stopper.stopped:
                 finish = FinishReason.STOP
-                self._cancel([out.request_id])
+                self._cancel([out.request_id], live.model)
             elif finish != FinishReason.NONE:
                 text += ch.stopper.flush()
         ch.completion_tokens += len(out.new_token_ids)
@@ -1760,10 +2210,14 @@ class Worker:
             outputs=[seq], usage=usage, finished=live.finished,
             cancelled=finish == FinishReason.CANCELLED)
 
-    def _cancel(self, engine_rids: List[str]) -> None:
+    def _cancel(self, engine_rids: List[str], model: str) -> None:
+        """Cancel engine requests of ``model``'s runtime (nothing to do
+        while it sleeps: its engine is gone)."""
         with self._engine_lock:
-            for erid in engine_rids:
-                self.engine.cancel(erid)
+            eng = self._runtime_for(model).engine
+            if eng is not None:
+                for erid in engine_rids:
+                    eng.cancel(erid)
         self._work.set()
 
     def cancel_request(self, service_request_id: str) -> bool:
@@ -1775,7 +2229,7 @@ class Worker:
                     or self._live.get(service_request_id))
         if live is None:
             return False
-        self._cancel(live.engine_rids)
+        self._cancel(live.engine_rids, live.model)
         return True
 
     def _finalize(self, live: _LiveRequest) -> None:
@@ -1790,7 +2244,7 @@ class Worker:
                                                live.choices)
                       if not ch.finished]
         if unfinished:
-            self._cancel(unfinished)
+            self._cancel(unfinished, live.model)
         if self._fault_marked:
             with self._engine_lock:
                 self._fault_marked.difference_update(live.engine_rids)
@@ -1802,8 +2256,10 @@ class Worker:
             raise HttpError(504, f"no engine output within "
                                  f"{self.opts.request_timeout_s:g}s",
                             "timeout") from None
+        if out is _ABORT:
+            raise _WorkerDied("worker died (failpoint)")
         if isinstance(out, _EngineDied):
-            raise HttpError(500, out.message, "engine_fault")
+            raise HttpError(out.status, out.message, out.err_type)
         if isinstance(out, _EngineFault):
             # Blamed by the step fault boundary: the typed error the
             # master counts as a poison strike.
@@ -1902,13 +2358,15 @@ class Worker:
         ack). A first token that ends the request answers here."""
         live = self._parse_generate(body, is_chat, pd_prefill=True)
         srid = live.request_id
+        rt = self._runtime_for(live.model)
         try:
             first = self._next_output(live)
         except HttpError:
             # Cancel, so that a late finish holds no pages.
             with self._engine_lock:
-                self.engine.cancel(srid)
-                self.engine.drop_held(srid)
+                if rt.engine is not None:
+                    rt.engine.cancel(srid)
+                    rt.engine.drop_held(srid)
             self._work.set()
             live.choices[0].finished = True
             self._finalize(live)
@@ -1917,7 +2375,8 @@ class Worker:
                                    FinishReason.CANCELLED):
             # EOS on the first token (or a cancel): nothing to migrate.
             with self._engine_lock:
-                self.engine.drop_held(srid)
+                if rt.engine is not None:
+                    rt.engine.drop_held(srid)
             ro = self._to_request_output(live, first)
             outs = [ro] if ro is not None else []
             live.choices[0].finished = True
@@ -1934,8 +2393,7 @@ class Worker:
         if self.failpoints.fire("worker.fail_kv_transfer") is not None:
             # An injected transport failure: every transport is skipped
             # as if the decode worker were unreachable.
-            with self._engine_lock:
-                exported = self.engine.export_held(srid, device=True)
+            exported = self._export_held(rt, srid)
             if exported is None:
                 raise HttpError(500, "prefill KV export failed",
                                 "internal_error")
@@ -1949,8 +2407,7 @@ class Worker:
         wire = self._kv_wire_for(decode_name)
         # The export stays on the device for every transport: the wire
         # stages it, the chunked shuttle slices it.
-        with self._engine_lock:
-            exported = self.engine.export_held(srid, device=True)
+        exported = self._export_held(rt, srid)
         if exported is None:
             raise HttpError(500, "prefill KV export failed",
                             "internal_error")
@@ -2007,6 +2464,14 @@ class Worker:
         return self._finish_migration(live, decode_name, tokens, head,
                                       chunks, self._parse_import_head(head),
                                       k, v)
+
+    def _export_held(self, rt: ModelRuntime, srid: str):
+        """``rt``'s held sequence as device tensors, or None (also when
+        the model went to sleep in between)."""
+        with self._engine_lock:
+            eng = rt.engine
+            return (eng.export_held(srid, device=True)
+                    if eng is not None else None)
 
     def _shuttle_send_chunks(self, decode_name: str, srid: str,
                              k: torch.Tensor, v: torch.Tensor
@@ -2068,7 +2533,7 @@ class Worker:
             total = int(meta["total"])
         except (ValueError, KeyError, TypeError, UnicodeDecodeError) as e:
             return _Reply.error(400, f"bad kv chunk: {e}")
-        dev = self.engine.device
+        dev = self.device
         k, v = k.to(dev, non_blocking=True), v.to(dev, non_blocking=True)
         now = time.monotonic()
         with self._kv_chunk_mu:
@@ -2189,8 +2654,7 @@ class Worker:
         to the peer's scatter; the peer's outputs are read from its live
         request in-process."""
         srid = live.request_id
-        with self._engine_lock:
-            exported = self.engine.export_held(srid, device=True)
+        exported = self._export_held(self._runtime_for(live.model), srid)
         if exported is None:
             raise HttpError(500, "prefill KV export failed",
                             "internal_error")
@@ -2204,8 +2668,8 @@ class Worker:
             logger.warning("direct kv migration to %s refused; decoding "
                            "locally", peer.name)
             return self._local_decode_fallback(live, tokens, k, v)
-        if peer.engine.device.type == "cuda":
-            torch.cuda.synchronize(peer.engine.device)
+        if peer.device.type == "cuda":
+            torch.cuda.synchronize(peer.device)
         self.kv_migration_bytes += 2 * k.numel() * k.element_size()
         self.kv_migration_seconds += time.monotonic() - t0
         self.kv_migration_direct += 1
@@ -2219,18 +2683,29 @@ class Worker:
                 emit_token_ids=live.emit_token_ids)
 
             def gen() -> Iterator[bytes]:
-                try:
-                    yield from asm.on_output(first_out)
-                    for ro in outs:
-                        yield from asm.on_output(ro)
-                finally:
-                    outs.close()
-            return _Reply.sse(gen())
+                yield from asm.on_output(first_out)
+                for ro in outs:
+                    yield from asm.on_output(ro)
+            return self._tracked_relay(gen(), outs.close)
         coll = ResponseCollector(srid, live.model, live.is_chat)
         coll.add(first_out)
         for ro in outs:
             coll.add(ro)
         return _Reply(200, coll.body())
+
+    def _tracked_relay(self, frames: Iterator[bytes],
+                       *cleanups) -> "_Reply":
+        """An SSE reply relaying another worker's stream after this
+        worker's own live request ended, counted for the drain (JAX
+        worker :3555-3568): counted now, uncounted once when the handler
+        closes it, after ``cleanups``."""
+        with self._live_lock:
+            self._relay_streams += 1
+
+        def uncount() -> None:
+            with self._live_lock:
+                self._relay_streams -= 1
+        return _Reply.sse(_Closing(frames, *cleanups, uncount))
 
     def _respond_outputs(self, live: _LiveRequest,
                          outs: List[RequestOutput]) -> "_Reply":
@@ -2268,12 +2743,9 @@ class Worker:
                 emit_token_ids=live.emit_token_ids)
 
             def gen() -> Iterator[bytes]:
-                try:
-                    for ro in payloads():
-                        yield from asm.on_output(ro)
-                finally:
-                    chunks.close()
-            return _Reply.sse(gen())
+                for ro in payloads():
+                    yield from asm.on_output(ro)
+            return self._tracked_relay(gen(), chunks.close)
         try:
             return self._respond_outputs(live, list(payloads()))
         finally:
@@ -2298,7 +2770,8 @@ class Worker:
             self._live[srid] = new_live
             self._live_srid[srid] = new_live
         with self._engine_lock:
-            ok = self.engine.import_sequence(req, tokens, k, v)
+            eng = self._runtime_for(live.model).engine
+            ok = eng is not None and eng.import_sequence(req, tokens, k, v)
             if ok and new_live.stream_to_service:
                 self._service_push_buffer.append(first_out)
         if not ok:
@@ -2336,8 +2809,24 @@ class Worker:
         duplicate of a live request returns (False, that live, None), so
         the caller can answer idempotently; a refusal (no slot or pages,
         a layout mismatch, multimodal state, a dead engine) returns
-        (False, None, None)."""
-        if self.engine_error is not None or meta.get("mm"):
+        (False, None, None). Counted in ``_inflight_parse`` like every
+        work-accepting entry (the direct path has no HTTP handler), and
+        refused while draining (JAX worker :3684-3712)."""
+        with self._live_lock:
+            self._inflight_parse += 1
+        try:
+            return self._adopt_migrated(meta, k, v)
+        finally:
+            with self._live_lock:
+                self._inflight_parse -= 1
+
+    def _adopt_migrated(self, meta: Dict[str, Any], k, v
+                        ) -> Tuple[bool, Optional[_LiveRequest],
+                                   Optional[RequestOutput]]:
+        model = str(meta.get("model", self.opts.model))
+        rt = self._runtime_for(model)
+        if self._refuse_new or self.engine_error is not None \
+                or meta.get("mm") or rt.engine is None:
             return False, None, None
         tokens = [int(t) for t in meta["tokens"]]
         srid = str(meta["service_request_id"])
@@ -2346,8 +2835,7 @@ class Worker:
         req = EngineRequest(request_id=srid, token_ids=prompt,
                             sampling=sampling,
                             eos_token_ids=self.tokenizer.eos_token_ids)
-        live = _LiveRequest(req, self.tokenizer,
-                            str(meta.get("model", self.opts.model)),
+        live = _LiveRequest(req, self.tokenizer, model,
                             is_chat=False, stream=bool(meta.get("stream")),
                             include_usage=False, sampling=sampling,
                             stream_to_service=self._topology2())
@@ -2362,7 +2850,8 @@ class Worker:
             self._live_srid[srid] = live
         first_out = self._adopted_first_output(live, tokens)
         with self._engine_lock:
-            ok = self.engine.import_sequence(req, tokens, k, v)
+            eng = rt.engine
+            ok = eng is not None and eng.import_sequence(req, tokens, k, v)
             if ok and live.stream_to_service:
                 # Under the engine lock: ahead of any later step output.
                 self._service_push_buffer.append(first_out)
@@ -2475,7 +2964,8 @@ class Worker:
         404, as is a run whose leading digest is no longer held."""
         check_version(body, "kv_blocks")
         model = body.get("model", self.opts.model)
-        if model != self.opts.model:
+        rt = self.runtimes.get(model)
+        if rt is None:
             return _Reply.error(404, f"model {model!r} not served here")
         try:
             hashes = [bytes.fromhex(h) for h in body.get("hashes", [])]
@@ -2491,8 +2981,12 @@ class Worker:
             wire = kv_wire.get_device_wire()
         t0 = time.monotonic()
         with self._engine_lock:
-            exported = self.engine.export_blocks(hashes,
-                                                 device=wire is not None)
+            eng = rt.engine
+            if eng is None:
+                return _Reply.error(503, f"model {model!r} asleep",
+                                    "unavailable")
+            exported = eng.export_blocks(hashes, device=wire is not None)
+            pool_device = eng.kv[0].device
         if exported is None:
             # Evicted since the master's index last heard of it: the
             # requester recomputes, and the next beat's removals catch
@@ -2500,7 +2994,7 @@ class Worker:
             return _Reply.error(404, "blocks no longer held")
         n, k, v = exported
         reply = None
-        if wire is not None and k.device == self.engine.kv[0].device:
+        if wire is not None and k.device == pool_device:
             try:
                 uuid = wire.stage(k, v)
             except Exception as e:  # noqa: BLE001 — the bytes instead
@@ -2550,7 +3044,8 @@ class Worker:
         for u, wire in stale:
             wire.release(u, leaked=True)
 
-    def _maybe_fetch_blocks(self, token_ids: List[int],
+    def _maybe_fetch_blocks(self, rt: ModelRuntime, model: str,
+                            token_ids: List[int],
                             kvf: Dict[str, Any]) -> None:
         """The requester's side (JAX worker :4016-4145): follow the
         master's ``kv_fetch`` plan before admission. The planned leading
@@ -2560,8 +3055,8 @@ class Worker:
         the transport, a layout or page refusal, an armed
         ``worker.fail_kv_fetch``) is counted and falls back to the
         request's own prefill."""
-        eng = self.engine
-        if not eng.prefix_cache.enable:
+        eng = rt.engine
+        if eng is None or not eng.prefix_cache.enable:
             return
         holder = kvf.get("holder") or ""
         holder_addr = kvf.get("holder_addr") or holder
@@ -2598,7 +3093,8 @@ class Worker:
                            "%d planned blocks", end - start)
         else:
             try:
-                got = self._ask_holder(holder_addr, hashes[start:end])
+                got = self._ask_holder(holder_addr, hashes[start:end],
+                                       model)
             except Exception as e:  # noqa: BLE001 — holder unreachable
                 logger.warning("kv block fetch from %s failed (%s); "
                                "recomputing", holder_addr, e)
@@ -2620,8 +3116,8 @@ class Worker:
         logger.info("adopted %d cached blocks from %s in %.1f ms", adopted,
                     holder_addr, 1e3 * (t2 - t0))
 
-    def _ask_holder(self, holder_addr: str, hashes: List[bytes]
-                    ) -> Optional[Tuple[Any, Any, bool]]:
+    def _ask_holder(self, holder_addr: str, hashes: List[bytes],
+                    model: str) -> Optional[Tuple[Any, Any, bool]]:
         """``POST /kv/blocks`` to the holder: (k, v, over the wire), or
         None on a refusal or a bad answer. The CUDA IPC wire is offered
         (``FETCH_WIRE``) when this process has one and the holder is in
@@ -2636,7 +3132,7 @@ class Worker:
         for wire in ((True, False) if offer else (False,)):
             status, body_iter = http_stream_status(
                 "POST", holder_addr, "/kv/blocks",
-                obj=stamp({"model": self.opts.model,
+                obj=stamp({"model": model,
                            "wire": FETCH_WIRE if wire else False,
                            "hashes": [h.hex() for h in hashes]}),
                 timeout=self._kv_fetch_timeout_s)
@@ -2710,11 +3206,124 @@ class Worker:
         return _Reply(200, {"ok": True,
                             "instance_type": self.instance_type.value})
 
+    def guarded(self, fn, *args) -> "_Reply":
+        """Every work-accepting route (JAX worker :2110-2127): counted in
+        ``_inflight_parse`` before the refusal check (the other order
+        races a drain's sample of the counters), refused with a 503 while
+        draining or dead. By the time ``fn`` returns, its request is
+        refused, served, or registered in ``_live_srid`` or
+        ``_relay_streams``."""
+        with self._live_lock:
+            self._inflight_parse += 1
+        try:
+            if self._refuse_new:
+                return _Reply.error(503, "instance is draining",
+                                    "unavailable")
+            return fn(*args)
+        finally:
+            with self._live_lock:
+                self._inflight_parse -= 1
+
+    def serve_generate(self, body: Dict[str, Any],
+                       is_chat: bool) -> "_Reply":
+        """``POST /v1/completions`` and ``/v1/chat/completions``: the
+        failpoints, then the PD handoff or a local request: the RPC
+        topology's ack, an SSE stream, or the whole response."""
+        self.generate_failpoints()
+        decode = self.pd_route(body, is_chat, self.name)
+        if decode is not None:
+            return self.serve_pd_prefill(body, is_chat, decode)
+        live = self._parse_generate(body, is_chat)
+        if live.stream_to_service:
+            # The RPC topology: the outputs go to the service's fan-in;
+            # this reply is the ack it waits for.
+            return _Reply.accepted(live.request_id)
+        if live.stream:
+            return _Reply.sse(_Closing(self.stream_sse(live),
+                                       lambda: self._finalize(live)))
+        return _Reply(200, self.collect_full(live))
+
     def models_body(self) -> Dict[str, Any]:
+        """``GET /v1/models``: every runtime with its state."""
         return {"object": "list",
-                "data": [{"id": self.opts.model, "object": "model",
-                          "owned_by": "xllm-service-tpu",
-                          "state": "awake"}]}
+                "data": [{"id": m, "object": "model",
+                          "owned_by": "xllm-service-tpu", "state": rt.state}
+                         for m, rt in list(self.runtimes.items())]}
+
+    # ------------------------------------------------------------------
+    # Several models: staging, sleep and wake (JAX worker :2469-2520)
+    # ------------------------------------------------------------------
+    def fork_master(self, body: Dict[str, Any]) -> "_Reply":
+        """``POST /fork_master {"models"}``: stage more models asleep
+        (nothing on the device until a wake)."""
+        created = []
+        for model in body.get("models", []):
+            if model in self.runtimes:
+                continue
+            try:
+                cfg = resolve_model_config(model)
+            except ValueError as e:
+                return _Reply.error(400, str(e))
+            self.runtimes[model] = ModelRuntime(
+                model, cfg, self.engine_cfg, self.device,
+                murmur_seed=self.opts.murmur_seed, start_asleep=True)
+            created.append(model)
+        return _Reply(200, {"ok": True, "created": created})
+
+    @contextlib.contextmanager
+    def _model_flip(self) -> Iterator[None]:
+        """Hold the engine loop between steps (it yields to a waiting
+        flip) and the engine lock; on the way out, wait for a beat in
+        flight: one built before a model's state flipped lands before the
+        route answers, not after, with the old state."""
+        with self._flip_mu:
+            self._flips_waiting += 1
+        try:
+            self._loop_mu.acquire()
+        finally:
+            with self._flip_mu:
+                self._flips_waiting -= 1
+        try:
+            with self._engine_lock:
+                yield
+        finally:
+            self._loop_mu.release()
+        with self._hb_lock:
+            pass
+
+    def sleep_model(self, body: Dict[str, Any]) -> "_Reply":
+        """``POST /sleep {"model"}``: park the model's parameters on the
+        host and free its device memory (``ModelRuntime.sleep``), after
+        the engine loop's current step. Its requests in flight end with a
+        503 (the JAX worker leaves them to their timeout)."""
+        model = body.get("model", "")
+        rt = self.runtimes.get(model)
+        if rt is None:
+            return _Reply.error(404, f"model {model} not on this worker")
+        with self._model_flip():
+            rt.sleep()
+        self._end_lives(f"model {model} was put to sleep", model=model,
+                        status=503, err_type="unavailable")
+        return _Reply(200, {"ok": True, "model": model, "state": rt.state})
+
+    def wakeup_model(self, body: Dict[str, Any]) -> "_Reply":
+        """``POST /wakeup {"model"}``: a new engine on the parked (or, for
+        a staged model, random) parameters, and the worker's warmup ladder
+        captured again under the engine lock; a 409 while draining (a
+        wake would advertise the model awake again)."""
+        if self._draining:
+            return _Reply.error(409, "instance is draining", "unavailable")
+        model = body.get("model", "")
+        rt = self.runtimes.get(model)
+        if rt is None:
+            return _Reply.error(404, f"model {model} not on this worker")
+        with self._model_flip():
+            woke = rt.state != MODEL_AWAKE
+            rt.wakeup()
+            if woke and self._should_warmup():
+                rt.timings["warmup_s"] = self.warmup(rt)
+        self._work.set()
+        return _Reply(200, {"ok": True, "model": model, "state": rt.state})
 
 
 def _handler_class(worker: Worker):
@@ -2738,16 +3347,19 @@ def _handler_class(worker: Worker):
                                             "code": e.status}})
 
         def _sse(self, frames: Iterator[bytes]) -> None:
-            self.send_response(200)
-            self.send_header("Content-Type", "text/event-stream")
-            self.send_header("Cache-Control", "no-cache")
-            self.end_headers()
             try:
+                self.send_response(200)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.end_headers()
                 for frame in frames:
                     self.wfile.write(frame)
                     self.wfile.flush()
             except OSError:
                 pass        # client went away; the close cancels
+            except _WorkerDied:
+                # A simulated death: the stream breaks mid-frame.
+                self.close_connection = True
             finally:
                 close = getattr(frames, "close", None)
                 if close is not None:
@@ -2769,10 +3381,9 @@ def _handler_class(worker: Worker):
             """The PD handoff's octet-stream routes."""
             n = int(self.headers.get("Content-Length") or 0)
             raw = self.rfile.read(n)
-            if self.path == "/kv/chunk":
-                self._send(worker.serve_kv_chunk(raw))
-            else:
-                self._send(worker.serve_kv_import(raw))
+            serve = (worker.serve_kv_chunk if self.path == "/kv/chunk"
+                     else worker.serve_kv_import)
+            self._send(worker.guarded(serve, raw))
 
         def do_GET(self) -> None:
             url = urlsplit(self.path)
@@ -2804,12 +3415,20 @@ def _handler_class(worker: Worker):
         def do_POST(self) -> None:
             routes = {"/v1/completions": False,
                       "/v1/chat/completions": True}
+            # Control routes, exempt from the drain's refusal (JAX worker
+            # :815-830): a refused /sleep would desync the master's model
+            # states, a refused /kv/blocks_done leaks a staged segment.
+            control = {"/sleep": worker.sleep_model,
+                       "/wakeup": worker.wakeup_model,
+                       "/fork_master": worker.fork_master,
+                       "/flip_role": worker.flip_role,
+                       "/kv/blocks_done": worker.serve_kv_blocks_done}
             if self.path in ("/kv/import", "/kv/chunk"):
                 self._raw_post()
                 return
-            if self.path not in routes and self.path not in (
-                    "/cancel", "/admin/failpoint", "/flip_role",
-                    "/kv/blocks", "/kv/blocks_done"):
+            if self.path not in routes and self.path not in control \
+                    and self.path not in ("/cancel", "/admin/failpoint",
+                                          "/kv/blocks"):
                 self._error(HttpError(404, f"no route {self.path}"))
                 return
             try:
@@ -2829,15 +3448,13 @@ def _handler_class(worker: Worker):
                     self._json(200, {"ok": True,
                                      "state": worker.failpoints.state()})
                     return
-                if self.path == "/flip_role":
-                    self._send(worker.flip_role(body))
-                    return
-                if self.path in ("/kv/blocks", "/kv/blocks_done"):
-                    serve = (worker.serve_kv_blocks
-                             if self.path == "/kv/blocks"
-                             else worker.serve_kv_blocks_done)
+                if self.path in control or self.path == "/kv/blocks":
                     try:
-                        reply = serve(body)
+                        if self.path == "/kv/blocks":
+                            reply = worker.guarded(worker.serve_kv_blocks,
+                                                   body)
+                        else:
+                            reply = control[self.path](body)
                     except Exception as e:  # noqa: BLE001 — a 500, never
                         # a dead handler (the JAX worker's _guarded)
                         logger.exception("%s failed", self.path)
@@ -2845,33 +3462,19 @@ def _handler_class(worker: Worker):
                                              "internal_error")
                     self._send(reply)
                     return
-                worker.generate_failpoints()
-                is_chat = routes[self.path]
-                decode = worker.pd_route(body, is_chat, worker.name)
-                if decode is not None:
-                    reply = worker.serve_pd_prefill(body, is_chat, decode)
-                    self._send(reply)
-                    return
-                live = worker._parse_generate(body, is_chat)
+                reply = worker.guarded(worker.serve_generate, body,
+                                       routes[self.path])
             except json.JSONDecodeError:
                 self._error(HttpError(400, "invalid JSON body"))
                 return
             except HttpError as e:
                 self._error(e)
                 return
-            if live.stream_to_service:
-                # The RPC topology: the outputs go to the service's
-                # fan-in; this reply is the ack it waits for.
-                self._json(200, {"status": "accepted",
-                                 "service_request_id": live.request_id})
+            except _WorkerDied:
+                # A simulated death: no answer, the connection drops.
+                self.close_connection = True
                 return
-            if not live.stream:
-                try:
-                    self._json(200, worker.collect_full(live))
-                except HttpError as e:
-                    self._error(e)
-                return
-            self._sse(worker.stream_sse(live))
+            self._send(reply)
 
     return Handler
 

@@ -18,15 +18,12 @@ from __future__ import annotations
 
 import abc
 import json
-import logging
 import queue
 import threading
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 from xllm_service_tpu_torch.utils import threads
-
-logger = logging.getLogger(__name__)
 
 # Watch event: ("PUT" | "DELETE", key, value-or-None)
 WatchEvent = Tuple[str, str, Optional[str]]
@@ -101,9 +98,9 @@ class InMemoryStore(CoordinationStore):
         self.revision = 0
         self._closed = threading.Event()
         self._dispatch_q: "queue.Queue" = queue.Queue()
-        threads.spawn("coord.dispatch", self._dispatch_loop)
+        threads.spawn("coord.dispatch", self._dispatch_loop).start()
         threads.spawn("coord.sweep", self._sweep_loop,
-                      args=(sweep_interval_s,))
+                      args=(sweep_interval_s,)).start()
 
     # -- internal ---------------------------------------------------------
     def _emit(self, ev_type: str, key: str, value: Optional[str]) -> None:
@@ -123,9 +120,9 @@ class InMemoryStore(CoordinationStore):
             for cb in callbacks:
                 try:
                     cb(ev)
-                except Exception:  # noqa: BLE001 — one broken watcher
-                    # must not starve the others
-                    logger.exception("watch callback failed on %s", ev)
+                except Exception as e:  # noqa: BLE001 — one broken
+                    # watcher must not starve the others; counted
+                    threads.record_callback_error("coord.dispatch", e)
 
     def _delete_locked(self, key: str) -> bool:
         if key not in self._data:

@@ -8,8 +8,9 @@ Watches are long-polls on the store's revision counter, so a remote
 watcher sees the PUT/DELETE stream in order.
 
 A call the store never answered (connection refused, reset, timed out)
-raises ``StoreOutageError``: the heartbeat loop tells an outage, during
-which the worker keeps serving, from a lease the store says is dead.
+raises ``StoreOutageError`` (the one class, ``service/store_guard.py``):
+the heartbeat loop tells an outage, during which the worker keeps
+serving, from a lease the store says is dead.
 """
 
 from __future__ import annotations
@@ -23,16 +24,11 @@ from urllib.parse import quote
 from xllm_service_tpu_torch.service.coordination import (
     CoordinationStore, InMemoryStore, WatchCallback)
 from xllm_service_tpu_torch.service.httpd import http_json
+from xllm_service_tpu_torch.service.store_guard import StoreOutageError
 from xllm_service_tpu_torch.utils import threads
 from xllm_service_tpu_torch.utils.retry import RetryPolicy
 
 logger = logging.getLogger(__name__)
-
-
-class StoreOutageError(RuntimeError):
-    """A coordination-store call failed because the store is
-    unreachable. Callers treat it as 'the control plane is gone', never
-    as 'the answer is no'."""
 
 
 def _q(s: str) -> str:
@@ -90,16 +86,17 @@ class RemoteStore(CoordinationStore):
             self._next_watch += 1
             stop = threading.Event()
             self._watches[wid] = stop
-        threads.spawn(f"remote-watch-{wid}", self._watch_loop,
-                      args=(prefix, callback, stop))
+        threads.spawn("coordination_net.watch_loop", self._watch_loop,
+                      args=(prefix, callback, stop),
+                      thread_name=f"remote-watch-{wid}").start()
         return wid
 
     def _deliver(self, callback: WatchCallback, ev) -> None:
         try:
             callback(ev)
-        except Exception:  # noqa: BLE001 — a broken callback must not
-            # kill the watch loop
-            logger.exception("watch callback failed on %s", ev)
+        except Exception as e:  # noqa: BLE001 — a broken callback must
+            # not kill the watch loop; counted
+            threads.record_callback_error("coordination_net.watch_loop", e)
 
     def _watch_loop(self, prefix: str, callback: WatchCallback,
                     stop: threading.Event) -> None:
