@@ -85,7 +85,13 @@ Phases (any failure raises and the exit code is not 0):
    it has released the pages every later window masks
    (``paged_decode_attention_null_lead``). The fused rope writers, K3
    and K4 are also recorded at llama3-8b's shapes (32 query heads, Hkv
-   8, D = 128; records ``*_d128``), which phase 12 serves.
+   8, D = 128; records ``*_d128``), which phase 12 serves, and K3, K3',
+   K4, K4', K5 and the fused rope writers at GPT-OSS-20B's (64 query
+   heads, Hkv 8, D = 64, yarn tables; the attention with float32 sinks
+   and a 128-token window, checked with the window and without it, the
+   bound counting the keys inside the window, ``library_ms`` null since
+   no one PyTorch call takes sinks, SDPA without them beside it; records
+   ``*_gptoss``), which phase 13 serves.
 4. Forward: a full-width llama3-1b forward_prefill + forward_decode + a
    ragged forward_prefill through the kernels (bf16 on the GPU), and
    the attend-then-write order (two prefill windows, the second at
@@ -134,7 +140,9 @@ Phases (any failure raises and the exit code is not 0):
    K4' once per layer and K7 once; K1-K6 never. One request is profiled
    as in phase 5.
 5d. Serving DeepSeek-V2-Lite: the worker with --model deepseek-v2-lite
-   (all 27 layers, random bf16 weights, 31.4 GB), the same flags and
+   at full width, its depth cut to ``DEEPSEEK_SERVE_LAYERS`` (4: the
+   dense layer and 3 MoE layers, as phase 4; the cut config goes to the
+   worker as its ``model_cfg``; random bf16 weights), the same flags and
    requests, in the GPU default order (write-then-attend). Every decode
    forward must launch the fused latent writer and K3'' once per layer,
    every prefill forward the fused latent prefill writer once per layer
@@ -148,19 +156,20 @@ Phases (any failure raises and the exit code is not 0):
    Profiled as 5d.
 5f. Decode modes, llama3-1b: the worker of phase 5 (write-then-attend,
    ragged off) serves the same requests with CUDA graphs off
-   (XLLM_CUDA_GRAPHS=0, single steps), on (single steps) and on with
-   --decode-steps 4 (fused bursts and the speculative pipeline), in that
-   order, twice (interleaved rounds, one set of weights). Each worker
-   warms up (captures every decode graph) before serving; with graphs
-   on, every decode step must be a replay of a graph warmup captured.
+   (XLLM_CUDA_GRAPHS=0, single steps) and on with --decode-steps 4
+   (fused bursts and the speculative pipeline), beside phase 5's own
+   serve, which is the mode with graphs on and single steps (the same
+   flags, weights and requests). Each worker warms up (captures every
+   decode graph) before serving; with graphs on, every decode step must
+   be a replay of a graph warmup captured.
    Per mode (``[servef]``): TTFT, decode tokens/s per stream, the
    profiled stream's idle share, host launches per forward (kernel and
    graph launches the profiler sees the host issue), device kernels per
    forward, graphs captured, speculation hits and rollbacks. Greedy
    streams with graphs on must equal graphs off; where not, the margins
    rule below decides, and a fault fails.
-5g. The same for DeepSeek-V2-Lite (27 layers). Each worker's weights
-   are freed before the next phase.
+5g. The same for DeepSeek-V2-Lite at 5d's depth, beside 5d's serve.
+   Each worker's weights are freed before the next phase.
    Launch counts: a kernel captured in a CUDA graph counts once per
    replay (``ops/kernels/_launch.count_replay``), so the per-step checks
    hold in every mode (a burst step runs N decode forwards, 2N with a
@@ -317,14 +326,29 @@ Phases (any failure raises and the exit code is not 0):
    off the master's list and a late request a 503; on a fresh worker,
    ``worker.crash_heartbeat`` once: the loop restarts, the lease is kept,
    the crash counted and in the event ring. At most 150 s.
-13. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
+13. Serving from a model directory (``checkpoint_phase``,
+   ``[checkpoint]``): llama3-1b's phase 5 weights written by the port's
+   ``save_checkpoint`` and served by a CLI worker child with
+   ``--model-dir`` (every leaf's sha256 equal to the weights written,
+   phase 5's streams, no graph after warmup, the write's and load's
+   GB/s); a two-layer GPT-OSS checkpoint at full width in the MXFP4
+   dialect loaded on the card (the dequantization bit-equal to the
+   host's, prefill and decode against the float32 plain path, two planted
+   faults that the check fails); and
+   GPT-OSS-20B at full width and depth on random weights made on the
+   card, served in the split path, the ragged step and attend-then-write
+   (``[serveh_*]`` lines; launches per step, margins; 4 slots, 512
+   tokens, buckets 128 and 256; the split path's request profiled).
+14. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
    writers' launches from phase 5 (K1/K2 now 0), K5 from 5b, K6 (now 0),
    K7, K3', K4' and the dense all-layer mode from 5c, K3'' and the fused
    latent writers from 5d, the current form of K3'' and the latent
    all-layer mode from 5e; a record at another shape takes its kernel's
    count, and its count in phase 12's woken llama3-1b round
    (``launches_lifecycle``); the ``*_d128`` records take phase 12's
-   llama3-8b round's; phases 5f/5g and the graph checks go to the ``[summary]``
+   llama3-8b round's, the ``*_gptoss`` records phase 13's GPT-OSS-20B
+   round of their path (with their time per byte against the llama3-1b
+   record's); phases 5f/5g and the graph checks go to the ``[summary]``
    line; phases 7, 7b, 6b and 9 too, and ``phase_end_s``, the script's
    clock at the end of each phase), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -338,12 +362,14 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import random
 import subprocess
 import sys
 import threading
 import time
+import types
 from http.client import HTTPConnection
 from pathlib import Path
 
@@ -2141,6 +2167,203 @@ class KernelBench:
                     pool_pages=P, shape=label)
         del pool
 
+    # -- K3, K3', K4, K4', K5 at GPT-OSS-20B's sliding layers -------------
+    GPTOSS_WINDOW = 128
+
+    def _window_counts(self, starts, lens_list):
+        """The keys a windowed row needs (the positions within the window
+        of any of its queries) and its (query, key) pairs, summed over the
+        rows: what this data needs, not the table's width."""
+        W = self.GPTOSS_WINDOW
+        keys = pairs = 0
+        for s, n in zip(starts, lens_list):
+            if n <= 0:
+                continue
+            keys += s + n - max(0, s - W + 1)
+            pairs += sum(min(p + 1, W) for p in range(s, s + n))
+        return keys, pairs
+
+    def gptoss_attention(self, pa, pf, ra, attention):
+        """The attention forms the GPT-OSS-20B path reaches, at its shapes
+        (64 query heads, Hkv 8, D 64) on its sliding layers: a 128-token
+        window and float32 sinks. Each form is checked against its plain
+        version with sinks and the window and with sinks alone (a full
+        layer), then timed with both; ``library_ms`` is null (no single
+        PyTorch call takes sinks) and SDPA's time for the same windowed
+        attention without sinks is ``sdpa_without_sinks_ms``. K3 / K3' at
+        B = 8 rows of contexts 117-411 (one inactive, the current form a
+        row at cache length 0), K4 / K4' at the 4 x 256 prefill batch, K5
+        at the ragged mix. The bound counts the keys inside the window."""
+        torch = self.torch
+        W = self.GPTOSS_WINDOW
+        sinks = self.randn(self.Hq, dtype=torch.float32)
+        checked = ({"sinks": sinks, "sliding_window": W}, {"sinks": sinks})
+        timed = checked[0]
+        row = self.Hkv * self.D * 2
+        head_row = self.Hq * self.D * 2
+        S = self.MP * self.ps
+        B = 8
+        # -- K3 and K3' -----------------------------------------------------
+        q = self.randn(B, self.Hq, self.D)
+        ctx_list = [117, 205, 298, 411, 150, 260, 0, 390]
+        ctx = self.i32(ctx_list)
+        act = ctx > 0
+        cache_list = [max(c - 1, 0) for c in ctx_list]
+        cache = self.i32(cache_list)
+        k_cur, v_cur = self.randn(B, self.Hkv, self.D), \
+            self.randn(B, self.Hkv, self.D)
+        pos = torch.arange(S + 1, device=self.dev)[None, :]
+        ones = torch.ones(B, dtype=torch.bool, device=self.dev)
+        for name, run, plain, keys, mask, lib_kv, valid, current in (
+                ("paged_decode_attention",
+                 lambda n, kw: pa.paged_decode_attention(
+                     q, self.kp, self.vp, self.pt8, ctx, self.layer,
+                     num_splits=n, **kw),
+                 lambda kw: pa.paged_decode_attention_plain(
+                     q, self.kp, self.vp, self.pt8, ctx, self.layer, **kw),
+                 sum(min(c, W) for c in ctx_list),
+                 # An inactive row keeps every key: SDPA needs one.
+                 ((pos[:, :S] < ctx.long()[:, None])
+                  & (pos[:, :S] >= ctx.long()[:, None] - W))
+                 | ~act[:, None],
+                 lambda: (attention.gather_pages(self.kp[self.layer],
+                                                 self.pt8),
+                          attention.gather_pages(self.vp[self.layer],
+                                                 self.pt8)),
+                 act, False),
+                ("paged_decode_attention_current",
+                 lambda n, kw: pa.paged_decode_attention_current(
+                     q, self.kp, self.vp, self.pt8, cache, k_cur, v_cur,
+                     self.layer, num_splits=n, **kw),
+                 lambda kw: pa.paged_decode_attention_current_plain(
+                     q, self.kp, self.vp, self.pt8, cache, k_cur, v_cur,
+                     self.layer, **kw),
+                 sum(min(c + 1, W) for c in cache_list),
+                 ((pos < cache.long()[:, None])
+                  & (pos > cache.long()[:, None] - W)) | (pos == S),
+                 lambda: (torch.cat([attention.gather_pages(
+                     self.kp[self.layer], self.pt8), k_cur[:, None]], 1),
+                     torch.cat([attention.gather_pages(
+                         self.vp[self.layer], self.pt8), v_cur[:, None]],
+                         1)),
+                 ones, True)):
+            worst = max(self.close(f"{name} gptoss ({list(kw)})",
+                                   run(None, kw), plain(kw), valid)
+                        for kw in checked)
+            m = mask[:, None, None, :]
+
+            def lib(m=m, lib_kv=lib_kv):
+                k, v = lib_kv()
+                return sdpa(q[:, :, None], k.transpose(1, 2),
+                            v.transpose(1, 2), m)
+            nbytes = keys * 2 * row + 2 * int(valid.sum()) * head_row \
+                + self.Hq * 4 + B * (4 + 4 * self.MP)
+            self.split_record(
+                name, name, f"{CSRC}/paged_decode_attention.cu",
+                lambda n, run=run: run(n, timed),
+                lambda plain=plain: plain(timed), None, nbytes,
+                4.0 * keys * self.Hq * self.D,
+                pa.gqa_splits(B, self.Hkv, self.MP, self.ps, W, current),
+                valid, worst, sliding_window=W, sinks=True, bytes_moved=nbytes,
+                sdpa_without_sinks_ms=graph_ms(lib))
+        # -- K4 and K4' -----------------------------------------------------
+        Bp, T = 4, 256
+        starts, lens_list = [0, 256, 128, 0], [256, 144, 200, 97]
+        qp = self.randn(Bp, T, self.Hq, self.D)
+        k_fresh, v_fresh = self.randn(Bp, T, self.Hkv, self.D), \
+            self.randn(Bp, T, self.Hkv, self.D)
+        pt = self.pt8[:Bp].contiguous()
+        q_start, lens = self.i32(starts), self.i32(lens_list)
+        valid = (torch.arange(T, device=self.dev)[None, :]
+                 < lens.long()[:, None])
+        kv_pos = torch.arange(S, device=self.dev)[None, None, :]
+        q_pos = q_start.long()[:, None, None] + torch.arange(
+            T, device=self.dev)[None, :, None]
+        pmask = ((kv_pos <= q_pos) & (kv_pos > q_pos - W)
+                 & (kv_pos < (q_start + lens).long()[:, None, None])
+                 )[:, None]
+        idx = (q_start.long()[:, None] + torch.arange(T, device=self.dev))[
+            :, :, None, None].expand(-1, -1, self.Hkv, self.D)
+
+        def gathered(fresh: bool):
+            k = attention.gather_pages(self.kp[self.layer], pt)
+            v = attention.gather_pages(self.vp[self.layer], pt)
+            if fresh:
+                k.scatter_(1, idx, k_fresh)
+                v.scatter_(1, idx, v_fresh)
+            return k, v
+        keys, pairs = self._window_counts(starts, lens_list)
+        n_rows = sum(lens_list)
+        for name, run, plain, fresh, extra_rows in (
+                ("paged_prefill_attention",
+                 lambda kw: pf.paged_prefill_attention(
+                     qp, self.kp, self.vp, pt, q_start, lens, self.layer,
+                     **kw),
+                 lambda kw: pf.paged_prefill_attention_plain(
+                     qp, self.kp, self.vp, pt, q_start, lens, self.layer,
+                     **kw), False, 0),
+                ("paged_prefill_attention_fresh",
+                 lambda kw: pf.paged_prefill_attention_fresh(
+                     qp, k_fresh, v_fresh, self.kp, self.vp, pt, q_start,
+                     lens, self.layer, **kw),
+                 lambda kw: pf.paged_prefill_attention_fresh_plain(
+                     qp, k_fresh, v_fresh, self.kp, self.vp, pt, q_start,
+                     lens, self.layer, **kw), True, 0)):
+            worst = max(self.close(f"{name} gptoss ({list(kw)})", run(kw),
+                                   plain(kw), valid) for kw in checked)
+
+            def lib(fresh=fresh):
+                k, v = gathered(fresh)
+                return sdpa(qp.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), pmask)
+            nbytes = keys * 2 * row + 2 * n_rows * head_row + self.Hq * 4 \
+                + Bp * (8 + 4 * self.MP)
+            self.record(
+                name, f"{CSRC}/paged_prefill_attention.cu",
+                f"{PALLAS}/prefill_attention.py:272", worst,
+                lambda run=run: run(timed), lambda plain=plain: plain(timed),
+                None, nbytes, 4.0 * pairs * self.Hq * self.D, entry=name,
+                sliding_window=W, sinks=True, bytes_moved=nbytes,
+                sdpa_without_sinks_ms=graph_ms(lib))
+        # -- K5 -------------------------------------------------------------
+        Tr = 256
+        rctx = [117, 205, 298, 411, 150, 260, 333]
+        rstarts = [c - 1 for c in rctx] + [128]
+        rlens_list = [1] * 7 + [256]
+        qr = self.randn(B, Tr, self.Hq, self.D)
+        rq_start, rlens = self.i32(rstarts), self.i32(rlens_list)
+        rvalid = (torch.arange(Tr, device=self.dev)[None, :]
+                  < rlens.long()[:, None])
+        args = (qr, self.kp, self.vp, self.pt8, rq_start, rlens, self.layer)
+        worst = max(self.close(
+            f"ragged_paged_attention gptoss ({list(kw)})",
+            ra.ragged_paged_attention(*args, **kw),
+            ra.ragged_paged_attention_plain(*args, **kw), rvalid)
+            for kw in checked)
+        rq_pos = rq_start.long()[:, None, None] + torch.arange(
+            Tr, device=self.dev)[None, :, None]
+        rmask = ((kv_pos <= rq_pos) & (kv_pos > rq_pos - W)
+                 & (kv_pos < (rq_start + rlens).long()[:, None, None])
+                 )[:, None]
+
+        def rlib():
+            k = attention.gather_pages(self.kp[self.layer], self.pt8)
+            v = attention.gather_pages(self.vp[self.layer], self.pt8)
+            return sdpa(qr.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), rmask)
+        keys, pairs = self._window_counts(rstarts, rlens_list)
+        # The whole [B, T, Hq, D] output is written (padding as zeros).
+        nbytes = keys * 2 * row + sum(rlens_list) * head_row \
+            + B * Tr * head_row + self.Hq * 4 + B * (8 + 4 * self.MP)
+        self.record(
+            "ragged_paged_attention", f"{CSRC}/ragged_paged_attention.cu",
+            f"{PALLAS}/ragged_attention.py:191", worst,
+            lambda: ra.ragged_paged_attention(*args, **timed),
+            lambda: ra.ragged_paged_attention_plain(*args, **timed), None,
+            nbytes, 4.0 * pairs * self.Hq * self.D,
+            entry="ragged_paged_attention", sliding_window=W, sinks=True,
+            bytes_moved=nbytes, sdpa_without_sinks_ms=graph_ms(rlib))
+
 
 # ---------------------------------------------------------------------------
 # Phase 4: full-width forward, kernels (GPU bf16) vs plain (CPU float32)
@@ -2577,6 +2800,7 @@ def profile_request(torch, addr: str, body: dict) -> dict:
     and the device's busy share of the request's wall time (the profiler
     adds host time, so the idle share is an upper bound)."""
     from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
     res: dict = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2623,7 +2847,9 @@ def profile_request(torch, addr: str, body: dict) -> dict:
            "kernel_launches": sum(r[1] for r in rows),
            "host_launches": host_launches,
            "top": [{"ms": ms, "count": n, "name": k[:90]}
-                   for ms, n, k in rows[:14]]}
+                   for ms, n, k in rows[:14]],
+           # The profiled request and the reading of its events.
+           "profile_s": time.perf_counter() - t0}
     log(f"[profile] {json.dumps(out)}")
     return out
 
@@ -2911,10 +3137,18 @@ def check_step_launches(rows, counts, layers: int, mla: bool,
     return need
 
 
+# Phases 5-5g's worker flags (phase 5's flags).
+SERVE_ARGS = ["--page-size", "128", "--num-pages", "512",
+              "--max-model-len", "1024", "--max-batch-size", "8",
+              "--prefill-buckets", "128,256,512",
+              "--max-prefill-tokens", "256"]
+
+
 def serve(torch, kernels, model: str, device: str, ragged: bool,
           write_then_attend: bool = True, tag: str = "",
           on_engine=None, graphs: bool = True, decode_steps: int = 1,
-          params=None, keep_params: bool = False) -> dict:
+          params=None, keep_params: bool = False, model_cfg=None,
+          engine_args=None, profile: bool = True) -> dict:
     """Phase 5 (ragged off), 5b (ragged on), 5c (attend-then-write), 5d
     and 5e (DeepSeek-V2-Lite in either order), and each mode of 5f/5g:
     4 concurrent requests through the worker (which captures its decode
@@ -2922,16 +3156,18 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
     and which kernels ran. ``decode_steps``: the worker's
     --decode-steps. ``params``: weights to serve (default: random from
     the engine's seed); ``keep_params`` returns them as
-    ``out["params"]``. ``on_engine(engine, tokens)``, if given, runs on
-    the live engine once the requests are served (``tokens``: each
-    request's, by prompt length); its result is ``out["on_engine"]``."""
+    ``out["params"]``. ``model_cfg``: the model to serve instead of
+    ``model``'s catalog entry. ``engine_args``: the worker's pool and
+    batch flags (default ``SERVE_ARGS``). ``profile``: profile one
+    request (the split paths). ``on_engine(engine, tokens)``, if given,
+    runs on the live engine once the requests are served (``tokens``:
+    each request's, by prompt length); its result is
+    ``out["on_engine"]``."""
     from xllm_service_tpu_torch.runtime import worker
+    t_serve = time.perf_counter()
     args = worker.parse_args([
         "--model", model, "--device", device,
-        "--page-size", "128", "--num-pages", "512",
-        "--max-model-len", "1024", "--max-batch-size", "8",
-        "--prefill-buckets", "128,256,512", "--max-prefill-tokens", "256",
-        "--decode-steps", str(decode_steps)])
+        *(engine_args or SERVE_ARGS), "--decode-steps", str(decode_steps)])
     # The engine reads the switches once, when its config is built.
     env = {"XLLM_RAGGED_ATTN": "1" if ragged else "0",
            "XLLM_WRITE_THEN_ATTEND": "1" if write_then_attend else "0",
@@ -2940,7 +3176,8 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
     os.environ.update(env)
     try:
         t_build = time.perf_counter()
-        w = worker.build_worker(args, params=params).start()
+        w = worker.build_worker(args, params=params,
+                                model_cfg=model_cfg).start()
         build_s = time.perf_counter() - t_build
     finally:
         for k, v in saved.items():
@@ -2975,9 +3212,10 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
         tokens = {n: list(t) for n, t in steplog.tokens.items()}
         capture = w.engine.capture_report()
         overlap = w.engine.overlap_metrics()
+        moe_dropped = w.engine.moe_dropped_tokens
         runner_launches = runner_host_launches(torch, w.engine)
         prof = None
-        if not ragged:
+        if profile and not ragged:
             n0 = len(steplog.rows)
             # A prompt of the same length that no served request shares a
             # page with: the profiled request prefills from token 0.
@@ -3068,7 +3306,10 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
                        for k, v in capture.items()},
            "runner_host_launches": runner_launches,
            "overlap": overlap,
-           "profile": prof}
+           "moe_dropped_tokens": moe_dropped,
+           "profile": prof,
+           # The whole call: build, warmup, serving, profile, on_engine.
+           "serve_s": time.perf_counter() - t_serve}
     log(f"[serve{tag}] {json.dumps(out)}")
     out["tokens"], out["prompts"] = tokens, prompts
     out["on_engine"] = on_engine_out
@@ -3138,106 +3379,97 @@ def divergence_margins(torch, engine, pairs, err, cpu_params=None):
     return out
 
 
-# Phases 5f/5g: the decode modes, in the order each round serves them.
+# The depth at which 5d, 5e and 5g serve DeepSeek-V2-Lite at full width:
+# the dense layer and 3 MoE layers, as phase 4 cuts it, so that the
+# script fits its time limit.
+DEEPSEEK_SERVE_LAYERS = 4
+# Phases 5f/5g: the decode modes, in the order they are served.
 DECODE_MODES = (("graphs_off", False, 1), ("graphs_n1", True, 1),
                 ("graphs_n4", True, 4))
 
 
-def decode_mode_rounds(torch, kernels, model: str, tag: str, err: float,
-                       card: str, rounds: int = 2, cpu_params=None) -> dict:
+def decode_modes(torch, kernels, model: str, tag: str, err: float,
+                 card: str, served_n1: dict, tokens_n1: dict,
+                 model_cfg=None) -> dict:
     """Phase 5f (llama3-1b) / 5g (DeepSeek-V2-Lite): the same 4 requests
     served (write-then-attend, ragged off) with graphs off (single
-    steps), graphs on (single steps) and graphs on with 4-step bursts and
-    the pipeline, in interleaved rounds, all on the same weights. Per
-    mode: TTFT, decode tokens/s per stream, the prefill step's median
-    ms, host launches per prefill and per ragged forward
-    (``runner_host_launches``), the profiled idle share, host launches
-    and device kernels per forward, graphs captured, speculation hits
-    and rollbacks. Greedy streams with graphs on must equal graphs
-    off token for token; where they do not, the margins rule
-    (``divergence_margins``) decides drift or fault, and a fault fails."""
-    import types
-    params, runs = None, {name: [] for name, _, _ in DECODE_MODES}
-    margins, same = [], {name: [] for name, _, _ in DECODE_MODES[1:]}
-    by_round = []
-    for r in range(rounds):
-        tokens = {}
-        by_round.append(tokens)
-        for name, graphs, steps in DECODE_MODES:
-            out = serve(torch, kernels, model, "cuda", ragged=False,
-                        tag=f"{tag}:{name}:{r}", graphs=graphs,
-                        decode_steps=steps, params=params, keep_params=True)
-            params = out.pop("params")
-            tokens[name] = out.pop("tokens")
-            prompts = out.pop("prompts")
-            out.pop("on_engine")
-            runs[name].append(out)
-            free_device_memory(torch)
-        cfg = None
-        for name in same:
-            same[name].append(tokens[name] == tokens["graphs_off"])
-            if same[name][-1]:
-                continue
-            if cfg is None:
-                from xllm_service_tpu_torch.runtime.worker import \
-                    resolve_model_config
-                cfg = resolve_model_config(model)
-            path = {"ragged": False, "write_then_attend": True}
+    steps) and graphs on with 4-step bursts and the pipeline, on the
+    weights of graphs on with single steps: phase 5's (5d's) serve,
+    whose worker has these flags, weights and requests (``served_n1``,
+    its tokens ``tokens_n1``). Per mode: TTFT, decode tokens/s per
+    stream, the prefill step's median ms, host launches per prefill and
+    per ragged forward (``runner_host_launches``), the profiled idle
+    share, host launches and device kernels per forward, graphs
+    captured, speculation hits and rollbacks. Greedy streams with graphs
+    on must equal graphs off token for token; where they do not, the
+    margins rule (``divergence_margins``) decides drift or fault, and a
+    fault fails. ``model_cfg``: the model to serve instead of
+    ``model``'s catalog entry (5g's depth cut)."""
+    from xllm_service_tpu_torch.runtime.worker import resolve_model_config
+    cfg = model_cfg or resolve_model_config(model)
+    runs, tokens = {"graphs_n1": served_n1}, {"graphs_n1": tokens_n1}
+    params, prompts = None, None
+    for name, graphs, steps in DECODE_MODES:
+        if name in runs:
+            continue
+        out = serve(torch, kernels, model, "cuda", ragged=False,
+                    tag=f"{tag}:{name}", graphs=graphs, decode_steps=steps,
+                    params=params, keep_params=True, model_cfg=cfg)
+        params = out.pop("params")
+        tokens[name] = out.pop("tokens")
+        prompts = out.pop("prompts")
+        out.pop("on_engine")
+        runs[name] = out
+        free_device_memory(torch)
+    same, margins = {}, []
+    path = {"ragged": False, "write_then_attend": True}
+    for name in ("graphs_n1", "graphs_n4"):
+        same[name] = tokens[name] == tokens["graphs_off"]
+        if not same[name]:
             margins += divergence_margins(
                 torch, types.SimpleNamespace(
                     params=params, cfg=cfg, device=torch.device("cuda")),
-                [(f"{name}_round{r}", tokens["graphs_off"], path,
-                  tokens[name], path, prompts)], err, cpu_params)
+                [(name, tokens["graphs_off"], path, tokens[name], path,
+                  prompts)], err)
     del params
     free_device_memory(torch)
     faults = [m for m in margins if m["verdict"] == "fault"]
     table = {}
     for name, _, steps in DECODE_MODES:
-        rs = runs[name]
+        x = runs[name]
         table[name] = {
             "decode_steps": steps,
-            "ttft_ms": [x["ttft_ms_streams"] for x in rs],
+            "ttft_ms": x["ttft_ms_streams"],
             "decode_tokens_per_s_per_stream":
-                [x["decode_tokens_per_s_streams"] for x in rs],
-            "idle_share": [x["profile"]["idle_share"] for x in rs],
+                x["decode_tokens_per_s_streams"],
+            "idle_share": x["profile"]["idle_share"],
             "host_launches_per_forward":
-                [x["profile"]["host_launches_per_forward"] for x in rs],
+                x["profile"]["host_launches_per_forward"],
             "device_kernels_per_forward":
-                [x["profile"]["kernel_launches_per_forward"] for x in rs],
-            "device_busy_ms": [x["profile"]["device_busy_ms"] for x in rs],
-            "graphs_captured": [x["capture"]["captured"] for x in rs],
-            "captures_after_warmup":
-                [x["capture"]["captures_after_warmup"] for x in rs],
-            "spec_hits": [x["overlap"]["spec_hits"] for x in rs],
-            "spec_rollbacks": [x["overlap"]["spec_rollbacks"] for x in rs],
-            "decode_step_ms_median":
-                [x["decode_step_ms_median"] for x in rs],
-            "prefill_step_ms_median":
-                [x["prefill_step_ms_median"] for x in rs],
-            "mixed_step_ms_median":
-                [_median(x["mixed_step_ms"]) for x in rs],
+                x["profile"]["kernel_launches_per_forward"],
+            "device_busy_ms": x["profile"]["device_busy_ms"],
+            "graphs_captured": x["capture"]["captured"],
+            "captures_after_warmup": x["capture"]["captures_after_warmup"],
+            "spec_hits": x["overlap"]["spec_hits"],
+            "spec_rollbacks": x["overlap"]["spec_rollbacks"],
+            "decode_step_ms_median": x["decode_step_ms_median"],
+            "prefill_step_ms_median": x["prefill_step_ms_median"],
+            "mixed_step_ms_median": _median(x["mixed_step_ms"]),
             "host_launches_per_prefill_forward":
-                [x["runner_host_launches"]["prefill"]["launch"] for x in rs],
+                x["runner_host_launches"]["prefill"]["launch"],
             "host_launches_per_ragged_forward":
-                [x["runner_host_launches"].get("ragged", {}).get("launch")
-                 for x in rs],
-            "worker_build_s": [x["worker_build_s"] for x in rs]}
+                x["runner_host_launches"].get("ragged", {}).get("launch"),
+            "worker_build_s": x["worker_build_s"]}
         log(f"[serve{tag}] {card}: {model} {name}: "
             f"{json.dumps(table[name])}")
-    # A mode's streams across rounds: where they differ, the batches the
-    # requests met (the requests' arrival against the steps) moved them.
-    stable = {name: all(t[name] == by_round[0][name] for t in by_round[1:])
-              for name, _, _ in DECODE_MODES}
-    log(f"[serve{tag}] {card}: {model} greedy streams equal to graphs off, "
-        f"by round: {json.dumps(same)}; each mode's equal across rounds: "
-        f"{json.dumps(stable)}")
+    log(f"[serve{tag}] {card}: {model} greedy streams equal to graphs off: "
+        f"{json.dumps(same)}")
     log(f"[margins] {card}: {model} graphs on vs off: {json.dumps(margins)}")
     if faults:
         raise AssertionError(f"{model}: greedy streams with graphs on "
                              f"diverge from graphs off past the margin "
                              f"rule: {faults}")
-    return {"modes": table, "equal_to_graphs_off": same,
-            "equal_across_rounds": stable, "margins": margins}
+    return {"modes": table, "equal_to_graphs_off": same, "margins": margins}
 
 
 def ladder_warmup(torch, model: str, params, card: str) -> dict:
@@ -3292,7 +3524,7 @@ class RefProcess:
     ``log``."""
 
     def __init__(self, args, marker: str, log: Path,
-                 timeout: float = 60.0, env=None) -> None:
+                 timeout: float = 60.0, env=None, on_spawn=None) -> None:
         import queue
         self.log_path = log
         self._log = open(log, "w")
@@ -3300,6 +3532,8 @@ class RefProcess:
             [sys.executable, "-m", *args], cwd=ROOT, text=True,
             stdout=subprocess.PIPE, stderr=self._log,
             env={**os.environ, **(env or {}), "PYTHONPATH": str(ROOT)})
+        if on_spawn is not None:          # before the wait for the marker
+            on_spawn(self.proc)
         lines: "queue.Queue[str]" = queue.Queue()
 
         def drain() -> None:       # keeps the pipe from filling up
@@ -5127,8 +5361,11 @@ def pd_phase(torch, kernels, card: str, err: float) -> dict:
       between their engines;
     - after D1 leaves, a DECODE worker D2 as a child process
       (``python -m xllm_service_tpu_torch.runtime.worker --instance-type
-      DECODE``) with the same seed; one greedy stream straight to D2
-      must equal P's (the same weights); then the CUDA IPC device wire,
+      DECODE``) with the same seed: its weights sha256-equal to P's
+      leaf by leaf (``GET /admin/weights``), and one greedy stream
+      straight to D2 equal to the reference or drift under the margins
+      rule (D2 decodes it alone, the reference round in a batch); then
+      the CUDA IPC device wire,
       the chunked host shuttle (``PD_CHUNK_MB``) and the monolithic one.
 
     Checks, each round: every stream 32 tokens, equal to the reference
@@ -5148,7 +5385,8 @@ def pd_phase(torch, kernels, card: str, err: float) -> dict:
     (``wire_pull_check``), beside the card's copy yardsticks. Printed:
     KV bytes per request, migration ms and GB/s per transport, TTFT and
     tokens/s per stream under PD against the reference."""
-    from xllm_service_tpu_torch.runtime import kv_transfer, kv_wire, worker
+    from xllm_service_tpu_torch.runtime import (checkpoint, kv_transfer,
+                                                kv_wire, worker)
     logs = ROOT / "build" / "pd_logs"
     logs.mkdir(parents=True, exist_ok=True)
     procs, live_workers, out = [], [], {}
@@ -5416,9 +5654,17 @@ def pd_phase(torch, kernels, card: str, err: float) -> dict:
         d2_tokens = [t for f in one["frames"][:-1]
                      for t in (json.loads(f[6:]).get("xllm") or {})
                      .get("token_ids", [])]
-        if d2_tokens != ref[n0]:
-            raise AssertionError("phase 10: D2's weights differ from P's "
-                                 f"({d2_tokens[:8]} vs {ref[n0][:8]})")
+        status, body = _get(d2_addr, "/admin/weights")
+        p_digests = checkpoint.param_digests(p.engine.params)
+        if status != 200 or body["digests"] != p_digests:
+            raise AssertionError(
+                "phase 10: D2's weights differ from P's: " + str(sorted(
+                    k for k in p_digests
+                    if (body or {}).get("digests", {}).get(k)
+                    != p_digests[k])))
+        out["d2_leaves_equal"] = len(p_digests)
+        out["d2_alone_equal_streams"] = check_streams(
+            "d2_alone", {n0: d2_tokens}, p, keys=[n0])
         tee = _RelayTee(worker)
         for tag, idx, wire_on, chunk_mb in (
                 ("device_wire", 1, True, 0.0),
@@ -6305,6 +6551,655 @@ def lifecycle_phase(torch, kernels, card: str, err: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: serving from a model directory
+# ---------------------------------------------------------------------------
+
+CKPT_MODEL = "llama3-1b"
+CKPT_DEVICE = "cuda"
+GPTOSS_MODEL = "gpt-oss-20b"
+# Part (c)'s depth: one sliding and one full layer at full width, so the
+# MXFP4 file stays near 3 GB (the experts of all 24 layers would be
+# 9.6 GB, and the float32 plain copy on the host 4 x that).
+MXFP4_LAYERS = 2
+# The RMS of the 16 E2M1 codes drawn uniformly (0, 0.5, 1, 1.5, 2, 3, 4,
+# 6 and their negatives).
+FP4_RMS = math.sqrt(68.5 / 8)
+CKPT_ENV = {"XLLM_RAGGED_ATTN": "0", "XLLM_WRITE_THEN_ATTEND": "1"}
+CKPT_ARGS = ["--page-size", "128", "--num-pages", "512", "--max-model-len",
+             "1024", "--max-batch-size", "8", "--prefill-buckets",
+             "128,256,512", "--max-prefill-tokens", "256"]
+
+
+class RssSampler:
+    """Peaks of a process's resident memory (GiB) while it runs, sampled
+    every 20 ms on a thread, beside their values at the start: ``rss``
+    the whole resident set, ``anon`` / ``file`` its anonymous and
+    file-backed parts (``/proc/<pid>/status`` RssAnon / RssFile), and
+    ``hwm`` the kernel's own peak of the resident set over the process's
+    life (VmHWM). Where ``status`` lacks the split (some kernels list no
+    RssAnon), ``rss`` comes from ``statm`` and the other three are null:
+    ``statm`` gives no peak and no file-backed part (``source`` says
+    which file was read)."""
+
+    _KEYS = (("VmRSS:", "rss"), ("RssAnon:", "anon"), ("RssFile:", "file"),
+             ("VmHWM:", "hwm"))
+
+    def __init__(self, pid: int = 0) -> None:
+        self.path = f"/proc/{pid or os.getpid()}/status"
+        self.start = self.read()
+        self.peak = dict(self.start)
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def read(self) -> dict:
+        out = {name: None for _, name in self._KEYS}
+        out["source"] = "status"
+        try:
+            with open(self.path) as f:
+                for line in f:
+                    for key, name in self._KEYS:
+                        if line.startswith(key):
+                            out[name] = int(line.split()[1]) / 2 ** 20
+            if out["anon"] is None:
+                with open(self.path[:-len("status")] + "statm") as f:
+                    resident = int(f.read().split()[1])
+                out = {name: None for _, name in self._KEYS}
+                out.update(rss=resident * os.sysconf("SC_PAGE_SIZE") / 2 ** 30,
+                           source="statm")
+        except (OSError, ValueError, IndexError):
+            out["source"] = "unreadable"
+        return out
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.02):
+            for k, v in self.read().items():
+                if k != "source" and v is not None:
+                    old = self.peak.get(k)
+                    self.peak[k] = v if old is None else max(old, v)
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._t.join()
+        return {"start_gib": self.start, "peak_gib": self.peak}
+
+
+def _streamed_tokens(results) -> dict:
+    """Each streamed reply's token ids (its frames carry them, served
+    with ``ledger_tokens``), by its prompt's token count; every stream
+    must end in [DONE] with 32 tokens."""
+    out = {}
+    for r in results:
+        if r.get("status") != 200:
+            raise AssertionError(f"phase 13: reply {r.get('status')}: {r}")
+        ids, _, error = _stream_tokens_and_times(r)
+        usage = [json.loads(f[len("data: "):]).get("usage")
+                 for f in r["frames"] if f.startswith("data: {")]
+        usage = [u for u in usage if u]
+        if error or r["frames"][-1] != "data: [DONE]" or len(ids) != 32 \
+                or not usage:
+            raise AssertionError(f"phase 13: stream {error} {len(ids)} "
+                                 f"tokens, usage {usage}")
+        out[usage[-1]["prompt_tokens"]] = ids
+    return out
+
+
+def _llama_from_disk(torch, tf, ck, cfg, tmp: Path, tok_ref, prompts,
+                     err: float, card: str) -> dict:
+    """Part (a): phase 5's weights written with the port's writer, a CLI
+    worker child on the directory, phase 5's four requests."""
+    out = {}
+    params = tf.init_params(cfg, torch.Generator(
+        device=CKPT_DEVICE).manual_seed(0), CKPT_DEVICE)
+    written = ck.param_digests(params)
+    d = tmp / "llama"
+    t0 = time.perf_counter()
+    nbytes = ck.save_checkpoint(params, cfg, str(d))
+    out["write_s"] = time.perf_counter() - t0
+    out["bytes"] = nbytes
+    out["write_gbps"] = nbytes / out["write_s"] / 1e9
+    if (d / "tokenizer.json").exists():
+        raise AssertionError("the directory carries a tokenizer.json")
+    logs = ROOT / "build" / "ckpt_logs"
+    logs.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    samplers = []
+    child = RefProcess(["xllm_service_tpu_torch.runtime.worker", "--model",
+                        CKPT_MODEL, "--model-dir", str(d), "--device",
+                        CKPT_DEVICE, *CKPT_ARGS], "XLLM_TORCH_WORKER_UP",
+                       logs / "llama_child.log", timeout=300.0, env=CKPT_ENV,
+                       on_spawn=lambda p: samplers.append(RssSampler(p.pid)))
+    rss = samplers[0]
+    try:
+        addr = child.line.split("http=")[-1]
+        out["child_up_s"] = time.perf_counter() - t0
+        status, body = _get(addr, "/admin/weights")
+        if status != 200:
+            raise AssertionError(f"/admin/weights: {status} {body}")
+        if body["source"] != "checkpoint" or body["load_bytes"] != nbytes:
+            raise AssertionError(f"the child did not load the file: {body}")
+        out.update(load_s=body["load_s"], load_bytes=body["load_bytes"],
+                   load_gbps=body["load_bytes"] / body["load_s"] / 1e9)
+        unequal = sorted(k for k in written
+                         if body["digests"].get(k) != written[k])
+        if unequal or set(body["digests"]) != set(written):
+            raise AssertionError(f"leaves differ from the weights written: "
+                                 f"{unequal}")
+        out["leaves_equal"] = len(written)
+        compiles0 = _metric(_metric_rows(addr),
+                            "xllm_worker_jit_compiles_total")
+        rng = random.Random(0)
+        _request(addr, "/v1/completions",
+                 {"prompt": _prompt(rng, 64), "max_tokens": 4,
+                  "temperature": 0.0}, False, {})
+        bodies = [dict(b, stream=True, ledger_tokens=True,
+                       stream_options={"include_usage": True})
+                  for b in serve_bodies(rng)]
+        results = [{} for _ in bodies]
+        threads = [threading.Thread(target=_request,
+                                    args=(addr, p, b, True, r))
+                   for (p, _, _), b, r in zip(SERVE_PLAN, bodies, results)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        tokens = _streamed_tokens(results)
+        rows = _metric_rows(addr)
+        out["graphs_at_boot"] = compiles0
+        out["graphs_after_warmup"] = _metric(
+            rows, "xllm_worker_recompiles_total")
+        out["eager_steps"] = _metric(rows, "xllm_worker_eager_steps_total")
+        if out["graphs_after_warmup"] or out["eager_steps"] or \
+                _metric(rows, "xllm_worker_jit_compiles_total") != compiles0:
+            raise AssertionError(f"phase 13: graphs after warmup or eager "
+                                 f"steps: {out}")
+    finally:
+        out["child_rss"] = rss.stop()
+        child.stop()
+    if sorted(tokens) != sorted(tok_ref):
+        raise AssertionError(f"prompt lengths {sorted(tokens)} vs phase 5's "
+                             f"{sorted(tok_ref)}")
+    out["equal_streams"] = sum(tokens[n] == tok_ref[n] for n in tokens)
+    margins = []
+    if out["equal_streams"] != len(tokens):
+        eng = types.SimpleNamespace(params=params, cfg=cfg,
+                                    device=torch.device(CKPT_DEVICE))
+        path = {"ragged": False, "write_then_attend": True}
+        margins = divergence_margins(
+            torch, eng, [("from_disk", tok_ref, path, tokens, path,
+                          prompts)], err, cpu_float(params))
+    out["margins"] = margins
+    if any(m["verdict"] == "fault" for m in margins):
+        raise AssertionError(f"phase 13: served from disk, a stream "
+                             f"diverged past the margins rule: {margins}")
+    del params
+    log(f"[checkpoint] {card}: {cfg.name} written {nbytes} B in "
+        f"{out['write_s']:.3f} s ({out['write_gbps']:.3f} GB/s, into the page "
+        f"cache), loaded by "
+        f"the CLI child in {out['load_s']:.3f} s ({out['load_gbps']:.3f} "
+        f"GB/s, warm page cache); {out['leaves_equal']} leaves sha256-equal "
+        f"to the weights written; {out['equal_streams']} of 4 streams equal "
+        f"to phase 5's {json.dumps(margins)}; graphs at boot "
+        f"{out['graphs_at_boot']}, after warmup "
+        f"{out['graphs_after_warmup']}; child RSS {out['child_rss']}")
+    return out
+
+
+def _gptoss_hf_config(cfg) -> dict:
+    """The ``config.json`` of a GPT-OSS checkpoint for ``cfg``."""
+    (_, factor, bf, bs, orig, attn, trunc, _) = cfg.rope_scaling
+    return {
+        "model_type": "gpt_oss", "architectures": ["GptOssForCausalLM"],
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+        "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "sliding_window": cfg.sliding_window,
+        "layer_types": ["sliding_attention" if s else "full_attention"
+                        for s in cfg.layer_sliding],
+        "num_local_experts": cfg.num_experts,
+        "num_experts_per_tok": cfg.num_experts_per_tok,
+        "rope_scaling": {"rope_type": "yarn", "factor": factor,
+                         "beta_fast": bf, "beta_slow": bs,
+                         "original_max_position_embeddings": orig,
+                         "attention_factor": attn, "truncate": trunc},
+        "tie_word_embeddings": False, "attention_bias": True,
+        "torch_dtype": "bfloat16"}
+
+
+def _mxfp4_tensors(torch, cfg, g) -> dict:
+    """A GPT-OSS checkpoint's tensors in the MXFP4 dialect, made on the
+    card: random E2M1 codes for the experts with E8M0 scales in [119,
+    127] that keep their weights near in_features^-0.5, bf16 for the rest
+    (attention with its biases and sinks, router, norms, embeddings, LM
+    head)."""
+    D, E, F = cfg.hidden_size, cfg.num_experts, cfg.intermediate_size
+    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dev = g.device
+
+    def w(*shape, scale=None):
+        t = torch.randn(shape, generator=g, device=dev)
+        return t.mul_(scale if scale is not None
+                      else shape[-1] ** -0.5).to(torch.bfloat16)
+
+    def codes(*shape):
+        return torch.randint(0, 256, shape, generator=g, device=dev,
+                             dtype=torch.uint8)
+
+    def scales(*shape):
+        # E8M0 exponents (bias 127) that keep each expert weight's RMS
+        # near in_features^-0.5, as ``w`` draws the bf16 weights: random
+        # E2M1 codes have an RMS of FP4_RMS, so for 2880 inputs the
+        # scales are 2^-8 and 2^-7 (codes 119 and 120), within [119, 127].
+        lo = 127 + math.floor(-0.5 * math.log2(shape[-1] * 32)
+                              - math.log2(FP4_RMS))
+        return torch.randint(lo, lo + 2, shape, generator=g, device=dev,
+                             dtype=torch.uint8)
+    out = {"model.embed_tokens.weight": w(cfg.vocab_size, D),
+           "model.norm.weight": w(D, scale=0.1).add_(1),
+           "lm_head.weight": w(cfg.vocab_size, D)}
+    for i in range(cfg.num_layers):
+        L = f"model.layers.{i}."
+        A, M = L + "self_attn.", L + "mlp."
+        out.update({
+            L + "input_layernorm.weight": w(D, scale=0.1).add_(1),
+            L + "post_attention_layernorm.weight": w(D, scale=0.1).add_(1),
+            A + "q_proj.weight": w(Hq * Dh, D),
+            A + "k_proj.weight": w(Hkv * Dh, D),
+            A + "v_proj.weight": w(Hkv * Dh, D),
+            A + "o_proj.weight": w(D, Hq * Dh),
+            A + "q_proj.bias": w(Hq * Dh, scale=0.1),
+            A + "k_proj.bias": w(Hkv * Dh, scale=0.1),
+            A + "v_proj.bias": w(Hkv * Dh, scale=0.1),
+            A + "o_proj.bias": w(D, scale=0.1),
+            # Near ln(window): a sink takes about a third of a window's
+            # attention, so a kernel that dropped it would show.
+            A + "sinks": w(Hq, scale=1.0).add_(
+                math.log(cfg.sliding_window)),
+            M + "router.weight": w(E, D),
+            M + "router.bias": w(E, scale=0.1),
+            M + "experts.gate_up_proj_blocks": codes(E, 2 * F, D // 32, 16),
+            M + "experts.gate_up_proj_scales": scales(E, 2 * F, D // 32),
+            M + "experts.gate_up_proj_bias": w(E, 2 * F, scale=0.1),
+            M + "experts.down_proj_blocks": codes(E, D, F // 32, 16),
+            M + "experts.down_proj_scales": scales(E, D, F // 32),
+            M + "experts.down_proj_bias": w(E, D, scale=0.1)})
+    return out
+
+
+def _gptoss_forwards(torch, tf, params, cfg) -> dict:
+    """Phase 4's forwards at GPT-OSS's shapes: a prefill of 2 rows (200
+    and 150 tokens: past the 128-token window) and a decode step in each
+    order of the KV write, through the kernels (bf16 on the card) and the
+    plain versions in float32 on the CPU (same weights).
+    Returns each pair's rel L2 errors and largest absolute logit error,
+    and the token rows (padding included) whose experts the float32 path
+    would have chosen otherwise. Two planted faults run on the card as
+    well and are held to the plain float32 path: the sinks dropped (the
+    kernels' forms without sinks) and the experts' gate and up
+    projections swapped.
+
+    The discrete choices are shared, as phase 4 feeds the card's greedy
+    token to both decodes: the plain paths take the card's top-k experts
+    per token (``transformer._gptoss_gate`` replayed, its weights the
+    softmax over those k logits). A near-tie between the 4th and 5th
+    logit that two precisions break differently swaps one of 4 random
+    experts for a token, which no kernel error explains."""
+    chosen, at, differ = [], [0], [0, 0]
+    gate = tf._gptoss_gate
+
+    def logits_of(lp, x):
+        return (x @ lp["router"]).float() + lp["router_bias"]
+
+    def record(lp, cfg_, x):
+        chosen.append(torch.topk(logits_of(lp, x),
+                                 cfg_.num_experts_per_tok, -1).indices)
+        return gate(lp, cfg_, x)
+
+    def replay(lp, cfg_, x):
+        logits = logits_of(lp, x)
+        idx = chosen[at[0]].to(logits.device)
+        at[0] += 1
+        if x.dtype == torch.float32:
+            own = torch.topk(logits, cfg_.num_experts_per_tok, -1).indices
+            differ[0] += int((own.sort(-1).values != idx.sort(-1).values)
+                             .any(-1).sum())
+            differ[1] += idx[..., 0].numel()
+        return tf._scatter_topk(torch.softmax(logits.gather(-1, idx), -1),
+                                idx, logits.shape[-1])
+    P, ps, B, T = 8, 128, 2, 256
+    pt = torch.tensor([[1, 2, 0, 0], [3, 4, 0, 0]], dtype=torch.int32)
+    rng = random.Random(13)
+    tokens = torch.tensor([[rng.randrange(3, cfg.vocab_size)
+                            for _ in range(T)] for _ in range(B)])
+    start = torch.zeros(B, dtype=torch.int32)
+    lens = torch.tensor([200, 150], dtype=torch.int32)
+    on = torch.ones(B, dtype=torch.bool)
+    cpu, card_dev = torch.device("cpu"), torch.device(CKPT_DEVICE)
+
+    def run(p, device, dtype, route, ref=None):
+        """Prefill and decode in each order of the KV write, routed by
+        ``route``; the decodes take ``ref``'s greedy tokens (None: this
+        run's own)."""
+        tf._gptoss_gate = route
+        at[0] = 0
+        outs = []
+        for wta in (True, False):
+            kv = tf.init_kv_cache(cfg, P, ps, device, dtype=dtype)
+            pre, kv = tf.forward_prefill(
+                p, cfg, tokens.to(device), start.to(device),
+                lens.to(device), kv, pt.to(device), write_then_attend=wta)
+            nxt = (pre if ref is None else ref[len(outs)]).argmax(-1)
+            dec, kv = tf.forward_decode(
+                p, cfg, nxt.to(device), lens.to(device), on.to(device),
+                kv, pt.to(device), write_then_attend=wta)
+            outs += [pre.float().cpu(), dec.float().cpu()]
+        return tuple(outs)
+
+    def on_cpu(dtype):
+        p = {k: ({n: t.to(cpu, dtype) for n, t in v.items()}
+                 if isinstance(v, dict) else v.to(cpu, dtype))
+             for k, v in params.items()}
+        # The float32 leaves (sinks, router bias) stay float32.
+        for n, t in params["layers"].items():
+            if t.dtype == torch.float32:
+                p["layers"][n] = t.to(cpu)
+        return p
+    lp = params["layers"]
+    faults = {"sinks_dropped": {n: t for n, t in lp.items() if n != "sinks"},
+              "gate_up_swapped": dict(
+                  lp, gate_proj=lp["up_proj"], up_proj=lp["gate_proj"],
+                  gate_bias=lp["up_bias"], up_bias=lp["gate_bias"])}
+    try:
+        card = run(params, card_dev, torch.bfloat16, record)
+        planted = {name: run(dict(params, layers=layers), card_dev,
+                             torch.bfloat16, gate, card)
+                   for name, layers in faults.items()}
+        plain_f32 = run(on_cpu(torch.float32), cpu, torch.float32, replay,
+                        card)
+    finally:
+        tf._gptoss_gate = gate
+    out = {"routing_rows_differing": differ[0], "routing_rows": differ[1]}
+    for name, pair in (("vs_plain_float32", (card, plain_f32)),
+                       *((f"{n}_vs_plain_float32", (o, plain_f32))
+                         for n, o in planted.items())):
+        rels, err = logit_errors(torch, pair)
+        out[f"rel_l2_{name}"], out[f"max_abs_logit_err_{name}"] = rels, err
+    out["planted"] = list(planted)
+    return out
+
+
+def _mxfp4_checkpoint(torch, tf, ck, tmp: Path, card: str) -> dict:
+    """Part (c): a two-layer GPT-OSS checkpoint at full width in the MXFP4
+    dialect, written with the port's writer, loaded on the card."""
+    from xllm_service_tpu_torch.config import ModelConfig
+    from xllm_service_tpu_torch.runtime import worker
+    out = {}
+    full = ModelConfig.gpt_oss_20b()
+    cfg = dataclasses.replace(full, num_layers=MXFP4_LAYERS,
+                              layer_sliding=full.layer_sliding[
+                                  :MXFP4_LAYERS])
+    d = tmp / "gptoss_mxfp4"
+    d.mkdir()
+    g = torch.Generator(device=CKPT_DEVICE).manual_seed(21)
+    tensors = _mxfp4_tensors(torch, cfg, g)
+    t0 = time.perf_counter()
+    out["bytes"] = ck.save_file(tensors, str(d / "model.safetensors"),
+                                metadata={"format": "pt"})
+    out["write_s"] = time.perf_counter() - t0
+    del tensors
+    free_device_memory(torch)
+    with open(d / "config.json", "w") as f:
+        json.dump(_gptoss_hf_config(cfg), f)
+    rcfg = worker.resolve_model_config(GPTOSS_MODEL, str(d))
+    # A GPT-OSS config.json names no expert width apart from the MLP's,
+    # nor top-k renormalization (its router takes a softmax over the k).
+    want = dataclasses.replace(cfg, moe_intermediate_size=None,
+                               norm_topk_prob=rcfg.norm_topk_prob)
+    if dataclasses.asdict(rcfg) != dataclasses.asdict(want):
+        raise AssertionError(f"config.json resolves to {rcfg}, not {want}")
+    rss = RssSampler()
+    stats = {}
+    t0 = time.perf_counter()
+    params = ck.load_checkpoint(str(d), rcfg, CKPT_DEVICE, stats=stats)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    out["load_rss"] = rss.stop()
+    out["load_bytes"] = stats["bytes_read"]
+    out["load_gbps"] = stats["bytes_read"] / out["load_s"] / 1e9
+    if params["layers"]["sinks"].dtype != torch.float32 or \
+            tuple(params["layers"]["gate_proj"].shape) != (
+                MXFP4_LAYERS, cfg.num_experts, cfg.hidden_size,
+                cfg.intermediate_size):
+        raise AssertionError("the MXFP4 load's layout")
+    # The dequantization on the card against the host's, bit for bit, on
+    # one layer's gate_up blocks [32, 5760, 90, 16].
+    f = ck.SafetensorsFile(str(d / "model.safetensors"))
+    blocks = f.get("model.layers.0.mlp.experts.gate_up_proj_blocks")
+    scales = f.get("model.layers.0.mlp.experts.gate_up_proj_scales")
+    t0 = time.perf_counter()
+    host = ck.dequant_mxfp4(blocks, scales)
+    out["dequant_host_s"] = time.perf_counter() - t0
+    b_dev, s_dev = blocks.to(CKPT_DEVICE), scales.to(CKPT_DEVICE)
+    dev = ck.dequant_mxfp4(b_dev, s_dev)
+    same = torch.equal(dev.cpu().view(torch.int32), host.view(torch.int32))
+    out["dequant_shape"] = list(blocks.shape)
+    del dev, host
+    if not same:
+        raise AssertionError("dequant_mxfp4 on the card is not bit-equal to "
+                             "the host's")
+    out["dequant_ms"] = time_ms(lambda: ck.dequant_mxfp4(b_dev, s_dev),
+                                iters=10, warmup=2)
+    # Reads the codes and scales once, writes float32 values once.
+    dq_bytes = blocks.numel() + scales.numel() + blocks.numel() * 2 * 4
+    out["dequant_bound_ms"] = dq_bytes / HBM_BYTES_PER_S * 1e3
+    del b_dev, s_dev, blocks, scales, f
+    fw = _gptoss_forwards(torch, tf, params, rcfg)
+    out.update(fw)
+    rels = fw["rel_l2_vs_plain_float32"]
+    # (b)'s margins rule reads the largest logit error of the same check.
+    out["max_abs_logit_err"] = fw["max_abs_logit_err_vs_plain_float32"]
+    planted = {n: fw[f"rel_l2_{n}_vs_plain_float32"] for n in fw["planted"]}
+    del params
+    free_device_memory(torch)
+    log(f"[checkpoint] {card}: gpt-oss MXFP4 x{MXFP4_LAYERS} layers at full "
+        f"width: {out['bytes']} B written in {out['write_s']:.3f} s, loaded "
+        f"in {out['load_s']:.3f} s ({out['load_gbps']:.3f} GB/s, warm page "
+        f"cache; host RSS {out['load_rss']}); dequant on the card bit-equal "
+        f"to the host over {out['dequant_shape']} ({out['dequant_ms']:.4f} "
+        f"ms, bound {out['dequant_bound_ms']:.4f} ms; host "
+        f"{out['dequant_host_s']:.2f} s); logits rel L2 (wta prefill/decode, "
+        f"atw prefill/decode) kernels vs plain float32 {rels} (limit "
+        f"{FORWARD_REL_L2}); largest logit error "
+        f"{fw['max_abs_logit_err_vs_plain_float32']}; planted faults "
+        f"vs plain float32 {json.dumps(planted)}; float32 would have chosen "
+        f"other experts on {fw['routing_rows_differing']} of "
+        f"{fw['routing_rows']} token rows (the plain paths took the card's)")
+    if max(rels) > FORWARD_REL_L2:
+        raise AssertionError(f"gpt-oss logits rel L2 against the plain "
+                             f"float32 path {max(rels)} > {FORWARD_REL_L2}")
+    passed = [n for n, r in planted.items() if max(r) <= FORWARD_REL_L2]
+    if passed:
+        raise AssertionError(f"gpt-oss logits check passed planted faults "
+                             f"{passed}: {planted}")
+    return out
+
+
+GPTOSS_PATHS = (("split", False, True), ("ragged", True, True),
+                ("attend_then_write", False, False))
+# Part (b)'s worker flags: the four requests' slots, the longest one's
+# pages (at most 4 of 128 tokens with its template and 32 new) and the
+# buckets a 256-token budget fills, so that its warmup captures 54 graphs
+# (108 with the ragged step) where phase 5's flags take 96 (240): each
+# graph's warm-up forward runs all 32 experts over its every row.
+GPTOSS_ARGS = ["--page-size", "128", "--num-pages", "512",
+               "--max-model-len", "512", "--max-batch-size", "4",
+               "--prefill-buckets", "128,256",
+               "--max-prefill-tokens", "256"]
+
+
+def _gptoss_20b(torch, kernels, tf, err: float, card: str) -> dict:
+    """Part (b): GPT-OSS-20B at its published widths and depth on random
+    bf16 weights made on the card (sinks, biases and the router bias
+    drawn too), served in-process by the worker in each of
+    ``GPTOSS_PATHS`` with phase 5's four requests."""
+    from xllm_service_tpu_torch.config import ModelConfig
+    cfg = ModelConfig.gpt_oss_20b()
+    # At the catalog's factor 2 a prefill chunk's assignments drop by the
+    # batch it shares (a random model routes its tokens alike), so two
+    # paths that chunk alike but batch otherwise part at the first token.
+    # At E / k each expert can take every token of its group.
+    served_cfg = dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=CKPT_DEVICE).manual_seed(0)
+    params = tf.init_params(cfg, g, CKPT_DEVICE)
+    lp = params["layers"]
+    for k in ("sinks", "router_bias", "q_bias", "k_bias", "v_bias",
+              "o_bias", "gate_bias", "up_bias", "down_bias"):
+        lp[k].copy_(0.1 * torch.randn(lp[k].shape, generator=g,
+                                      device=CKPT_DEVICE))
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in [params["embed"], params["lm_head"],
+                                        params["final_norm"], *lp.values()]),
+           "params": sum(t.numel() for t in [params["embed"],
+                                             params["lm_head"],
+                                             params["final_norm"],
+                                             *lp.values()])}
+    split = {"ragged": False, "write_then_attend": True}
+    served = {}
+    tok = {}
+    for tag, ragged, wta in GPTOSS_PATHS:
+        on_engine = None
+        if tag != "split":
+            def on_engine(eng, tok_x, path={"ragged": ragged,
+                                            "write_then_attend": wta},
+                          tag=tag):
+                return divergence_margins(torch, eng, [(
+                    tag, tok["split"], split, tok_x, path,
+                    served["split"]["prompts"])], err)
+        served[tag] = serve(torch, kernels, GPTOSS_MODEL, CKPT_DEVICE,
+                            ragged=ragged, write_then_attend=wta,
+                            tag=f"h_{tag}", params=params,
+                            on_engine=on_engine, model_cfg=served_cfg,
+                            engine_args=GPTOSS_ARGS,
+                            profile=tag == "split")
+        tok[tag] = served[tag].pop("tokens")
+    for tag in served:
+        served[tag].pop("prompts")
+        served[tag].pop("params", None)
+    margins = [m for tag in served for m in (served[tag].pop("on_engine")
+                                             or [])]
+    same = {}
+    for tag in ("ragged", "attend_then_write"):
+        pairs = [(x, y) for n in tok["split"]
+                 for x, y in zip(tok["split"][n], tok[tag].get(n, []))]
+        same[tag] = sum(x == y for x, y in pairs) / len(pairs)
+    del params, lp
+    free_device_memory(torch)
+    out.update(serve=served, margins=margins, equal_token_share=same)
+    if any(m["verdict"] == "fault" for m in margins):
+        raise AssertionError(f"gpt-oss-20b: a stream diverged past the "
+                             f"margins rule: {margins}")
+    dropped = {t: served[t]["moe_dropped_tokens"] for t in served}
+    if any(dropped.values()):
+        raise AssertionError(f"gpt-oss-20b: assignments dropped at the "
+                             f"capacity factor E / k: {dropped}")
+    s = served["split"]
+    log(f"[checkpoint] {card}: gpt-oss-20b x{cfg.num_layers} layers, "
+        f"{out['params']} parameters ({out['param_bytes']} B) made in "
+        f"{out['init_s']:.2f} s; decode step ms median split "
+        f"{s['decode_step_ms_median']}, ragged "
+        f"{served['ragged']['decode_step_ms_median']}, attend-then-write "
+        f"{served['attend_then_write']['decode_step_ms_median']}; idle share "
+        f"(split, profiled) {(s['profile'] or {}).get('idle_share')}; "
+        f"capacity factor {served_cfg.moe_capacity_factor}, moe_dropped "
+        f"{dropped}; "
+        f"equal tokens {same}; margins {json.dumps(margins)}")
+    return out
+
+
+def checkpoint_phase(torch, kernels, card: str, tok_ref, prompts,
+                     err: float) -> dict:
+    """Phase 13: the port served from a model directory.
+
+    a. llama3-1b's random bf16 weights (phase 5's: the engine's seed 0;
+       2,471,628,800 B, tied embeddings so no ``lm_head``) written by the
+       port's ``save_checkpoint`` to a temporary directory without a
+       ``tokenizer.json`` (the byte tokenizer, as phase 5), then a CLI
+       worker child (``--model-dir <dir> --model llama3-1b``, phase 5's
+       flags) serving phase 5's four requests, each streamed with its
+       token ids: the write's and the load's seconds and GB/s (a warm
+       read), every leaf's sha256 in the child (``GET /admin/weights``)
+       equal to the weights written, the streams equal to phase 5's or
+       drift under the margins rule, graphs captured at boot and none
+       after warmup, the child's peak RSS.
+    c. GPT-OSS at full width cut to ``MXFP4_LAYERS`` layers (one sliding,
+       one full): a checkpoint in the MXFP4 dialect (random codes, scales
+       2^-8 and 2^-7, codes 119 and 120, which keep the expert weights
+       near 2880^-0.5; bf16 attention, sinks near ln(128), router,
+       embeddings and LM head; ~3.1 GB) written with ``save_file`` and a
+       gpt_oss
+       ``config.json`` (the port's ``save_checkpoint`` refuses GPT-OSS),
+       loaded by ``load_checkpoint`` on the card: the load's GB/s and
+       the host's peak RSS, ``dequant_mxfp4`` on the card bit-equal to the
+       host's over one layer's [32, 5760, 90, 16] blocks and its ms, and a
+       prefill + decode in both orders through the kernels against the
+       plain versions in float32 on the CPU (rel L2 under 5e-2), and two
+       planted faults (sinks dropped; gate and up swapped) that the same
+       check must fail.
+    b. GPT-OSS-20B at its published widths and depth (24 layers, vocab
+       201,088, 32 experts top-4, alternating 128-token windows, sinks,
+       yarn): ~20.9 B random bf16 parameters made on the card, served by
+       the worker in-process, at the capacity factor E / k = 8 so that no
+       (token, expert) assignment drops and each stream depends on its own
+       tokens alone, in 4 slots of up to 512 tokens with prefill buckets
+       128 and 256 (``GPTOSS_ARGS``), with phase 5's four requests in the
+       split path, the ragged step and attend-then-write (``serve``: launches
+       checked per step, K3/K3'/K4/K4'/K5 with sinks once per layer per
+       forward, graphs replayed, none captured late); step medians, idle
+       share, ``moe_dropped`` (0); the margins rule on each path's streams
+       against the split path's, against 10 x c's largest logit error.
+    d. Every model freed between parts; the directories deleted.
+
+    Its seconds are printed."""
+    import shutil
+    import tempfile
+    from xllm_service_tpu_torch.models import transformer as tf
+    from xllm_service_tpu_torch.runtime import checkpoint as ck
+    from xllm_service_tpu_torch.runtime import worker
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="xllm_ckpt_"))
+    out = {}
+    part_s = out["part_s"] = {}
+    try:
+        out["llama"] = _llama_from_disk(
+            torch, tf, ck, worker.resolve_model_config(CKPT_MODEL), tmp,
+            tok_ref, prompts, err, card)
+        free_device_memory(torch)
+        part_s["a"] = time.perf_counter() - t_phase
+        out["mxfp4"] = _mxfp4_checkpoint(torch, tf, ck, tmp, card)
+        free_device_memory(torch)
+        part_s["c"] = time.perf_counter() - t_phase - part_s["a"]
+        out["gptoss"] = _gptoss_20b(torch, kernels, tf,
+                                    out["mxfp4"]["max_abs_logit_err"], card)
+        free_device_memory(torch)
+        part_s["b"] = (time.perf_counter() - t_phase - part_s["a"]
+                       - part_s["c"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[checkpoint] {card}: phase 13 took {out['seconds']:.1f} s "
+        f"(parts {json.dumps(part_s)})")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6402,6 +7297,18 @@ def main() -> int:
     bench.results += big.results
     del big
     free_device_memory(torch)
+    # K3, K3', K4, K4', K5 with sinks and the 128-token window, and the
+    # fused rope writers at D = 64 with yarn tables, at GPT-OSS-20B's
+    # shapes (64 query heads, Hkv 8), which phase 13 serves.
+    oss = KernelBench(torch, ModelConfig.gpt_oss_20b(), "cuda",
+                      suffix="_gptoss")
+    oss.rope_decode_writer(kv_update, rope)
+    oss.rope_prefill_writer(kv_update, rope)
+    oss.gptoss_attention(paged_attention, prefill_attention,
+                         ragged_attention, attention)
+    bench.results += oss.results
+    del oss
+    free_device_memory(torch)
     mark("3_kernels")
 
     # 4. Forward pass: llama3-1b, then DeepSeek-V2-Lite cut to 4 layers.
@@ -6413,7 +7320,8 @@ def main() -> int:
     mark("4_forward")
 
     # 5. Serving, split path; 5b. serving, ragged step; 5c. serving,
-    # attend-then-write; 5d/5e. DeepSeek-V2-Lite, 27 layers, in the GPU
+    # attend-then-write; 5d/5e. DeepSeek-V2-Lite, DEEPSEEK_SERVE_LAYERS
+    # layers, in the GPU
     # default order and in attend-then-write.
     # Each phase's path; every llama3-1b phase serves the same weights
     # (the engine's seed), and so does every DeepSeek one. The margins of
@@ -6441,15 +7349,14 @@ def main() -> int:
                           split_atw, served["prompts"])],
             err, cpu_float(eng.params)))
     free_device_memory(torch)
+    ds_cfg = dataclasses.replace(mla_cfg, num_layers=DEEPSEEK_SERVE_LAYERS)
     served_d = serve(torch, kernels, "deepseek-v2-lite", "cuda",
-                     ragged=False, tag="d", keep_params=True)
-    ladders["deepseek-v2-lite"] = ladder_warmup(
-        torch, "deepseek-v2-lite", served_d.pop("params"), card)
+                     ragged=False, tag="d", model_cfg=ds_cfg)
     free_device_memory(torch)
     tok_d = served_d.pop("tokens")
     served_e = serve(
         torch, kernels, "deepseek-v2-lite", "cuda", ragged=False,
-        write_then_attend=False, tag="e",
+        write_then_attend=False, tag="e", model_cfg=ds_cfg,
         on_engine=lambda eng, tok_e: divergence_margins(
             torch, eng, [("deepseek_orders", tok_d, split_wta, tok_e,
                           split_atw, served_d["prompts"])], err_mla))
@@ -6522,11 +7429,11 @@ def main() -> int:
         f"5e {p5e['elementwise_device_ms']}; cat/copy device ms 5 "
         f"{p5['cat_copy_device_ms']}, 5c {p5c['cat_copy_device_ms']}, 5d "
         f"{p5d['cat_copy_device_ms']}, 5e {p5e['cat_copy_device_ms']}")
-    # 5f/5g. The decode modes in interleaved rounds.
-    served_f = decode_mode_rounds(torch, kernels, "llama3-1b", "f", err,
-                                  card)
-    served_g = decode_mode_rounds(torch, kernels, "deepseek-v2-lite", "g",
-                                  err_mla, card)
+    # 5f/5g. The decode modes beside phase 5's and 5d's serves.
+    served_f = decode_modes(torch, kernels, "llama3-1b", "f", err, card,
+                            served, tok_a)
+    served_g = decode_modes(torch, kernels, "deepseek-v2-lite", "g",
+                            err_mla, card, served_d, tok_d, model_cfg=ds_cfg)
     free_device_memory(torch)
     mark("5f_5g_decode_modes")
     # 6. The cluster: the reference master in front of the port's worker.
@@ -6563,6 +7470,12 @@ def main() -> int:
     lifecycle = lifecycle_phase(torch, kernels, card, err)
     free_device_memory(torch)
     mark("12_lifecycle")
+    # 13. Serving from a model directory: llama3-1b from disk, GPT-OSS in
+    # MXFP4 at full width, GPT-OSS-20B at full width and depth.
+    from_disk = checkpoint_phase(torch, kernels, card, tok_a,
+                                 served["prompts"], err)
+    free_device_memory(torch)
+    mark("13_checkpoint")
     margins = served_c["on_engine"] + served_e["on_engine"]
     for phase in (served, served_b, served_c, served_d, served_e):
         phase.pop("prompts")
@@ -6580,6 +7493,25 @@ def main() -> int:
         if r.get("shape_model") == LIFE_BIG:
             # Served only by phase 12's llama3-8b round.
             r["launches"] = lifecycle["swap"]["big_launches"][name]
+            continue
+        if r.get("shape_model") == GPTOSS_MODEL:
+            # Served by phase 13's GPT-OSS-20B rounds: each path's kernels.
+            oss = from_disk["gptoss"]["serve"]
+            tag = ("ragged" if name == "ragged_paged_attention" else
+                   "attend_then_write" if name in ATTEND_THEN_WRITE_KERNELS
+                   else "split")
+            r["launches"] = oss[tag]["launches"][name]
+            r["launches_served_path"] = tag
+            base = next((b for b in bench.results
+                         if b["name"] == name), None)
+            if base is not None and r.get("bytes_moved") and \
+                    base["bound_by"] == "bytes":
+                # Time per byte against the llama3-1b record's (whose
+                # bound is its bytes over the memory rate).
+                per_byte = r["ms"] / r["bytes_moved"]
+                base_per_byte = base["ms"] / (base["bound_ms"] * 1e-3
+                                              * HBM_BYTES_PER_S)
+                r["ms_per_byte_vs_llama3_1b"] = per_byte / base_per_byte
             continue
         phase = (served_b if name == "ragged_paged_attention" else
                  served_c if name in ATTEND_THEN_WRITE_KERNELS else
@@ -6605,7 +7537,7 @@ def main() -> int:
                "prefix_reuse": prefixed, "spill_restore": spilled,
                "cluster_cache_aware": routed, "sampling": sampled,
                "faults": faulted, "pd": disaggregated, "fetch": fetched,
-               "lifecycle": lifecycle,
+               "lifecycle": lifecycle, "checkpoint": from_disk,
                "graph_decode_check": {"llama3-1b": graph,
                                       "deepseek-v2-lite": graph_mla},
                "warmup_ladders": ladders,

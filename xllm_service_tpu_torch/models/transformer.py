@@ -3,7 +3,9 @@
 The counterpart of the JAX package's ``models/transformer.py`` for the
 Llama-2/3.x, Qwen2/2.5/3, Phi-3, Mistral and Gemma-2 families, their
 mixture-of-experts variants (Mixtral, Qwen3-MoE: SwiGLU experts behind
-a softmax top-k router, ``parallel/expert.py``), and DeepSeek-V2/V3's
+a softmax top-k router, ``parallel/expert.py``), GPT-OSS (attention
+sinks, biased q/k/v/o, alternating 128-token windows, clamped-GLU
+experts with biases behind a biased router), and DeepSeek-V2/V3's
 multi-head latent attention (MLA) with DeepSeek's MoE, in both of its
 orders of the KV write (``write_then_attend``):
 
@@ -60,7 +62,7 @@ from xllm_service_tpu_torch.ops.kernels import (
 from xllm_service_tpu_torch.ops.norm import rms_norm
 from xllm_service_tpu_torch.ops.rope import (rope_cos_sin, rotate,
                                              rotate_interleaved)
-from xllm_service_tpu_torch.parallel.expert import moe_mlp
+from xllm_service_tpu_torch.parallel.expert import gptoss_glu, moe_mlp
 
 Params = Dict[str, Any]
 KVCache = Tuple[torch.Tensor, torch.Tensor]   # [L, P, ps, Hkv, D] each
@@ -69,9 +71,6 @@ KVCache = Tuple[torch.Tensor, torch.Tensor]   # [L, P, ps, Hkv, D] each
 def check_supported(cfg: ModelConfig) -> None:
     """Refuse the families whose layer body this package lacks."""
     missing = []
-    if cfg.gptoss:
-        missing.append("GPT-OSS (attention sinks, biased router, clamped "
-                       "GLU experts)")
     if cfg.rope_local_base_freq is not None:
         missing.append("per-layer rope bases")
     if cfg.rope_scaling is not None and cfg.rope_scaling[0] not in (
@@ -149,6 +148,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if cfg.gemma:
         layers["pre_ff_norm"] = ones(L, D)
         layers["post_ff_norm"] = ones(L, D)
+    if cfg.gptoss:
+        layers["sinks"] = torch.zeros(L, Hq, device=device,
+                                      dtype=torch.float32)
+        layers["o_bias"] = zeros(L, D)
     if cfg.qk_norm:
         layers["q_norm"] = ones(L, Dh)
         layers["k_norm"] = ones(L, Dh)
@@ -158,6 +161,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         layers["gate_proj"] = w((L, E, D, Fe), D)
         layers["up_proj"] = w((L, E, D, Fe), D)
         layers["down_proj"] = w((L, E, Fe, D), Fe)
+        if cfg.gptoss:
+            layers["router_bias"] = torch.zeros(L, E, device=device,
+                                                dtype=torch.float32)
+            layers["gate_bias"] = zeros(L, E, Fe)
+            layers["up_bias"] = zeros(L, E, Fe)
+            layers["down_bias"] = zeros(L, E, D)
     else:
         layers["gate_proj"] = w((L, D, Fi), D)
         layers["up_proj"] = w((L, D, Fi), D)
@@ -265,10 +274,47 @@ def _experts_dense(lp: Dict[str, torch.Tensor], x: torch.Tensor,
                    weights: torch.Tensor) -> torch.Tensor:
     """The dense oracle of an MoE layer: every SwiGLU expert on every
     token, mixed by the [B, T, E] routing map."""
-    h = F.silu(torch.einsum("btd,edf->btef", x, lp["gate_proj"])) \
-        * torch.einsum("btd,edf->btef", x, lp["up_proj"])
+    hg = torch.einsum("btd,edf->btef", x, lp["gate_proj"])
+    hu = torch.einsum("btd,edf->btef", x, lp["up_proj"])
+    if "gate_bias" in lp:
+        # GPT-OSS: biased clamped-GLU experts.
+        h = gptoss_glu(hg + lp["gate_bias"], hu + lp["up_bias"])
+    else:
+        h = F.silu(hg) * hu
     out = torch.einsum("btef,efd->bted", h, lp["down_proj"])
+    if "down_bias" in lp:
+        out = out + lp["down_bias"]
     return torch.einsum("bted,bte->btd", out, weights.to(x.dtype))
+
+
+def _gptoss_gate(lp: Dict[str, torch.Tensor], cfg: ModelConfig,
+                 x: torch.Tensor) -> torch.Tensor:
+    """GPT-OSS's routing weights as a dense [.., E] map: the top-k of the
+    BIASED router logits (float32), a softmax over just the k chosen."""
+    logits = (x @ lp["router"]).float() + lp["router_bias"]
+    topv, topi = torch.topk(logits, cfg.num_experts_per_tok, dim=-1)
+    return _scatter_topk(torch.softmax(topv, dim=-1), topi,
+                         logits.shape[-1])
+
+
+def _gptoss_moe(lp: Dict[str, torch.Tensor], cfg: ModelConfig,
+                x: torch.Tensor, valid: Optional[torch.Tensor],
+                moe_dropped: Optional[torch.Tensor]) -> torch.Tensor:
+    """GPT-OSS's MoE: ``_gptoss_gate``'s routing, the clamped-GLU experts
+    with their biases (the capacity path, or the dense oracle at
+    capacity factor 0)."""
+    k = cfg.num_experts_per_tok
+    weights = _gptoss_gate(lp, cfg, x)
+    if cfg.moe_capacity_factor <= 0:
+        return _experts_dense(lp, x, weights)
+    out, dropped = moe_mlp(
+        x, lp["router"], lp["gate_proj"], lp["up_proj"], lp["down_proj"], k,
+        cfg.moe_capacity_factor, valid=valid, group_size=cfg.moe_group_size,
+        norm_topk=False, gates=weights, expert_style="gptoss",
+        gate_b=lp["gate_bias"], up_b=lp["up_bias"], down_b=lp["down_bias"])
+    if moe_dropped is not None:
+        moe_dropped.add_(dropped)
+    return out
 
 
 def _mlp(lp: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
@@ -284,6 +330,8 @@ def _mlp(lp: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
         gate = x @ lp["gate_proj"]
         act = F.gelu(gate, approximate="tanh") if cfg.gemma else F.silu(gate)
         return (act * (x @ lp["up_proj"])) @ lp["down_proj"]
+    if cfg.gptoss:
+        return _gptoss_moe(lp, cfg, x, valid, moe_dropped)
     k = cfg.num_experts_per_tok
     if cfg.moe_capacity_factor > 0:
         out, dropped = moe_mlp(x, lp["router"], lp["gate_proj"],

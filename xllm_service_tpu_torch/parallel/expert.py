@@ -79,23 +79,39 @@ def topk_dispatch(gates: torch.Tensor, k: int, cap: int,
     return dispatch, combine
 
 
+def gptoss_glu(hg: torch.Tensor, hu: torch.Tensor) -> torch.Tensor:
+    """GPT-OSS's clamped GLU of the gate and up projections."""
+    hg = hg.clamp(max=7.0)
+    hu = hu.clamp(-7.0, 7.0)
+    return (hu + 1.0) * (hg * torch.sigmoid(1.702 * hg))
+
+
 def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, gate_w: torch.Tensor,
             up_w: torch.Tensor, down_w: torch.Tensor, k: int,
             capacity_factor: float = 2.0,
             valid: Optional[torch.Tensor] = None,
             group_size: int = 512, norm_topk: bool = True,
-            gates: Optional[torch.Tensor] = None
+            gates: Optional[torch.Tensor] = None,
+            expert_style: str = "swiglu",
+            gate_b: Optional[torch.Tensor] = None,
+            up_b: Optional[torch.Tensor] = None,
+            down_b: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sparse SwiGLU MoE layer, group by group.
+    """Sparse gated MoE layer, group by group.
 
     x: [B, T, D]; router_w [D, E]; gate/up [E, D, F]; down [E, F, D];
     ``valid`` [B, T] bool marks real tokens. Tokens flatten to [N, D] and
     pad to a multiple of the group size (padding is invalid). ``gates``
     [B, T, E] is a caller-selected routing map with exactly k nonzero
-    weights per token (DeepSeek's gate, scaling applied; ``norm_topk``
-    must then be False); without it the router's softmax routes. Returns
-    ``(out [B, T, D], dropped)``, ``dropped`` the int64 count of (token,
-    expert) assignments lost to capacity."""
+    weights per token (DeepSeek's gate, scaling applied, or GPT-OSS's
+    softmax over its chosen logits; ``norm_topk`` must then be False);
+    without it the router's softmax routes. ``expert_style``: "swiglu"
+    (silu(gate) * up) or "gptoss" (the clamped GLU: gate <= 7, up in
+    [-7, 7], (up + 1) * gate * sigmoid(1.702 * gate)). ``gate_b`` /
+    ``up_b`` [E, F] and ``down_b`` [E, D] are per-expert biases; the
+    down bias rides the combine weights with the rest of the expert's
+    output. Returns ``(out [B, T, D], dropped)``, ``dropped`` the int64
+    count of (token, expert) assignments lost to capacity."""
     B, T, D = x.shape
     N = B * T
     E = router_w.shape[-1]
@@ -120,9 +136,16 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, gate_w: torch.Tensor,
     cap = capacity(G, E, k, capacity_factor)
     dispatch, combine = topk_dispatch(gates, k, cap, vg, norm_topk)
     x_e = torch.einsum("gnd,gnec->gecd", xg, dispatch.to(x.dtype))
-    h = F.silu(torch.einsum("gecd,edf->gecf", x_e, gate_w)) \
-        * torch.einsum("gecd,edf->gecf", x_e, up_w)
+    hg = torch.einsum("gecd,edf->gecf", x_e, gate_w)
+    hu = torch.einsum("gecd,edf->gecf", x_e, up_w)
+    if gate_b is not None:
+        hg = hg + gate_b[None, :, None, :]
+    if up_b is not None:
+        hu = hu + up_b[None, :, None, :]
+    h = gptoss_glu(hg, hu) if expert_style == "gptoss" else F.silu(hg) * hu
     y_e = torch.einsum("gecf,efd->gecd", h, down_w)        # [g, E, C, D]
+    if down_b is not None:
+        y_e = y_e + down_b[None, :, None, :]
     out = torch.einsum("gecd,gnec->gnd", y_e, combine.to(x.dtype))
     out = out.reshape(-1, D)[:N].reshape(B, T, D)
     # Every valid token asks for k experts; the rest were dropped.

@@ -149,6 +149,16 @@ class _Graph:
         self.replays = 0
 
 
+# Per device, the warm-up stream and the capture stream of every graph:
+# the caching allocator reuses a freed block only on the stream it was
+# allocated on, so one pair lets each warm-up reuse the last one's
+# temporaries and each capture the pool blocks the last one freed.
+_STREAMS: Dict[int, Tuple[torch.cuda.Stream, torch.cuda.Stream]] = {}
+# Cached bytes no tensor holds past which a capture first returns them to
+# the device (the warm-ups' temporaries; the pool draws on the device).
+_CACHE_SLACK = 2 << 30
+
+
 def capture(warm_up: Callable[[], None], body: Callable[[], Outputs],
             pool, generator: torch.Generator, greedy: bool) -> _Graph:
     """``body()`` (returning its ``Outputs``) captured into a graph in
@@ -156,19 +166,35 @@ def capture(warm_up: Callable[[], None], body: Callable[[], Outputs],
     that lazy set-up (libraries' handles and workspaces, the kernels'
     modules) stays out of the graph; it must leave the inputs as it
     found them. A sampled body (not ``greedy``) registers ``generator``,
-    whose state is as it was before."""
+    whose state is as it was before. Unlike ``torch.cuda.graph``, a
+    capture neither synchronizes the device nor empties the allocator's
+    cache (unless it holds more than ``_CACHE_SLACK`` unused bytes):
+    emptied, each warm-up allocated its temporaries from the device
+    again, and llama3-1b's 96-graph warmup took ~1.6x as long (NVIDIA
+    H100 80GB HBM3, 700 W)."""
     state = generator.get_state()
-    side = torch.cuda.Stream()
+    dev = torch.cuda.current_device()
+    if dev not in _STREAMS:
+        _STREAMS[dev] = (torch.cuda.Stream(), torch.cuda.Stream())
+    side, cap = _STREAMS[dev]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         warm_up()
-    torch.cuda.current_stream().wait_stream(side)
+    cap.wait_stream(side)
+    if torch.cuda.memory_reserved() - torch.cuda.memory_allocated() > \
+            _CACHE_SLACK:
+        torch.cuda.empty_cache()
     graph = torch.cuda.CUDAGraph()
     if not greedy:
         graph.register_generator_state(generator)
     with capture_tally() as tally:
-        with torch.cuda.graph(graph, pool=pool):
-            outs = body()
+        with torch.cuda.stream(cap):
+            graph.capture_begin(pool)
+            try:
+                outs = body()
+            finally:
+                graph.capture_end()
+    torch.cuda.current_stream().wait_stream(cap)
     generator.set_state(state)
     return _Graph(graph, outs, tally)
 

@@ -129,9 +129,13 @@ flip one (the master's serverless allocator and ``/model/triggers``
 drive them). A sleep drains the decode pipeline, copies the parameters
 bit for bit into pinned host memory and drops the engine: its pools,
 every captured graph with its private pool, and the prefix cache; the
-freed memory goes back to the card. A wake copies them back (a model
-staged by ``/fork_master`` random-inits from seed 0) and
-re-captures the worker's warmup ladder under the engine lock. The
+freed memory goes back to the card. A wake copies them back (a cold
+wake, with nothing parked, reads the model directory's weights, or
+random-inits from seed 0 without them: a model staged by
+``/fork_master``) and re-captures the worker's warmup ladder under the
+engine lock. ``/fork_master`` stages any name of the JAX worker's
+catalog (``_MODEL_REGISTRY``); a family this package lacks refuses at
+its wake. The
 engine loop steps every awake runtime; a request to a sleeping model is
 a 400; a request in flight at its model's sleep ends with a 503 (the JAX
 worker leaves it to its timeout). Registration lists the awake models
@@ -177,11 +181,21 @@ since the last acknowledged beat on each heartbeat; ``/metrics`` carries
 ``xllm_worker_step_mfu``, ``xllm_worker_step_debt_ms``,
 ``xllm_worker_program_flops`` / ``_bytes`` and ``xllm_worker_peak_flops``.
 
+A model directory (``--model-dir``, ``WorkerOptions.model_dir``): its
+``config.json`` names the model (any name, through
+``ModelConfig.from_hf_config``), its tokenizer files the tokenizer, and
+its ``*.safetensors`` shards the weights, read onto the device by
+``runtime/checkpoint.py`` at boot and at a cold wake (random from seed 0
+without them; ``ModelRuntime.timings`` says which, with the load's
+seconds and bytes). ``GET /admin/weights?model=`` gives an awake model's
+per-leaf sha256 digests.
+
 Not in this package yet: etcd stores, spans on the heartbeat (and the
 hot-path sections of ``/admin/steptrace``) and EPD traffic.
 
 Run: ``python -m xllm_service_tpu_torch.runtime.worker --model llama3-1b``
-(add ``--store-addr`` and ``--service-addr`` to join a cluster).
+or ``--model-dir <HF directory>`` (add ``--store-addr`` and
+``--service-addr`` to join a cluster).
 """
 
 from __future__ import annotations
@@ -221,7 +235,7 @@ from xllm_service_tpu_torch.ops import kernels
 from xllm_service_tpu_torch.runtime.engine import (Engine, EngineRequest,
                                                    StepOutput,
                                                    resolve_device)
-from xllm_service_tpu_torch.runtime import kv_wire
+from xllm_service_tpu_torch.runtime import checkpoint, kv_wire
 from xllm_service_tpu_torch.runtime.kv_cache import (KvCacheEvent,
                                                      decode_kv_blob,
                                                      encode_kv_block)
@@ -250,13 +264,30 @@ from xllm_service_tpu_torch.utils.wire import check_version, stamp
 logger = logging.getLogger(__name__)
 
 _MODEL_REGISTRY = {
-    # vocab 512 >= the byte tokenizer's id range (256 bytes + specials):
-    # an embedding lookup past the vocabulary raises in PyTorch.
+    # The JAX worker's catalog, name for name (its presets are copied in
+    # ``config.ModelConfig``). A family whose layer body this package
+    # lacks resolves all the same: its engine build raises
+    # ``check_supported``'s NotImplementedError, at the wake, not at the
+    # fork. vocab 512 >= the byte tokenizer's id range (256 bytes +
+    # specials): an embedding lookup past the vocabulary raises in
+    # PyTorch, so the tiny MoE differs from JAX's in its vocabulary.
     "tiny": lambda: ModelConfig.tiny(vocab_size=512),
-    "tiny-moe": lambda: ModelConfig.tiny(vocab_size=512, num_experts=4),
     "llama3-1b": ModelConfig.llama3_1b,
     "llama3-8b": ModelConfig.llama3_8b,
+    "qwen2-7b": ModelConfig.qwen2_7b,
+    "qwen2.5-7b": ModelConfig.qwen25_7b,
+    "qwen3-8b": ModelConfig.qwen3_8b,
+    "qwen3-30b-a3b": ModelConfig.qwen3_30b_a3b,
+    "phi3-mini": ModelConfig.phi3_mini,
+    "mistral-7b": ModelConfig.mistral_7b,
+    "mistral-7b-v01": ModelConfig.mistral_7b_v01,
+    "gemma2-9b": ModelConfig.gemma2_9b,
+    "gemma3-12b": ModelConfig.gemma3_12b,
     "deepseek-v2-lite": ModelConfig.deepseek_v2_lite,
+    "deepseek-v3": ModelConfig.deepseek_v3,
+    "gpt-oss-20b": ModelConfig.gpt_oss_20b,
+    "mixtral-8x7b": ModelConfig.mixtral_8x7b,
+    "tiny-moe": lambda: ModelConfig.tiny(vocab_size=512, num_experts=4),
 }
 
 
@@ -266,7 +297,15 @@ _LOCAL_WORKERS: "weakref.WeakValueDictionary[str, Worker]" = \
     weakref.WeakValueDictionary()
 
 
-def resolve_model_config(name: str) -> ModelConfig:
+def resolve_model_config(name: str, model_dir: str = "") -> ModelConfig:
+    """The model a worker serves: the directory's ``config.json`` when it
+    has one (any model, by the name given), else the catalog's preset
+    (JAX worker :225-236)."""
+    if model_dir:
+        cfg_path = os.path.join(model_dir, "config.json")
+        if os.path.exists(cfg_path):
+            with open(cfg_path, "r", encoding="utf-8") as f:
+                return ModelConfig.from_hf_config(json.load(f), name=name)
     factory = _MODEL_REGISTRY.get(name)
     if factory is None:
         raise ValueError(f"unknown model {name!r}; known: "
@@ -279,6 +318,10 @@ class WorkerOptions:
     host: str = "127.0.0.1"
     port: int = 0
     model: str = "tiny"
+    # A HuggingFace model directory: config.json (the model), the
+    # tokenizer files and the *.safetensors weights (random from seed 0
+    # without them). '' = the catalog's model and the byte tokenizer.
+    model_dir: str = ""
     device: str = "cuda"
     # Capture the engine's graphs before serving (``warmup``); None = on
     # for a CUDA device.
@@ -644,25 +687,59 @@ def _params_bytes(tree) -> int:
 
 class ModelRuntime:
     """One model's engine and its sleep/wakeup state on this worker (JAX
-    worker :239-330). ``timings`` keeps the last sleep's and wake's
-    seconds and bytes (``sleep_s``, ``d2h_s``, ``h2d_s``, ``engine_s``,
-    ``param_bytes``; the worker adds ``warmup_s``)."""
+    worker :239-330). ``timings`` keeps the last boot's, sleep's and
+    wake's seconds and bytes (``sleep_s``, ``d2h_s``, ``h2d_s``,
+    ``load_s`` and ``load_bytes`` for a read of the checkpoint,
+    ``engine_s``, ``param_bytes``; the worker adds ``warmup_s``) and
+    where the weights came from (``source``: ``checkpoint``, ``random``
+    from seed 0, ``parked`` for a warm wake, ``given`` by the caller)."""
 
     def __init__(self, model: str, model_cfg: ModelConfig,
                  engine_cfg: EngineConfig, device, murmur_seed: int = 0,
                  params: Optional[Params] = None,
-                 start_asleep: bool = False) -> None:
+                 start_asleep: bool = False, model_dir: str = "") -> None:
         self.model = model
         self.model_cfg = model_cfg
         self.engine_cfg = engine_cfg
         self.device = resolve_device(device)
         self.murmur_seed = murmur_seed
+        self.model_dir = model_dir
         self.state = MODEL_ASLEEP if start_asleep else MODEL_AWAKE
         self._host_params: Optional[Params] = None
-        self.timings: Dict[str, float] = {}
+        self.timings: Dict[str, Any] = {}
         self.engine: Optional[Engine] = None
         if not start_asleep:
+            if params is None:
+                params = self._load_params()
+            else:
+                self.timings["source"] = "given"
+            t0 = time.perf_counter()
             self.engine = self._build(params)
+            self.timings["engine_s"] = time.perf_counter() - t0
+
+    def _load_params(self) -> Optional[Params]:
+        """The directory's weights when it holds ``*.safetensors``, read
+        onto the device (JAX worker :262-272); None otherwise (the engine
+        random-inits from seed 0). Records the source, the seconds and
+        the bytes read."""
+        self.timings.update(load_s=0.0, load_bytes=0)
+        if not checkpoint.checkpoint_files(self.model_dir):
+            self.timings["source"] = "random"
+            logger.info("%s: random weights from seed 0", self.model)
+            return None
+        t0 = time.perf_counter()
+        stats: Dict[str, float] = {}
+        params = checkpoint.load_checkpoint(self.model_dir, self.model_cfg,
+                                            self.device, stats=stats)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.timings.update(source="checkpoint",
+                            load_s=time.perf_counter() - t0,
+                            load_bytes=int(stats["bytes_read"]))
+        logger.info("%s: weights from %s, %d bytes in %.2f s", self.model,
+                    self.model_dir, self.timings["load_bytes"],
+                    self.timings["load_s"])
+        return params
 
     def _build(self, params: Optional[Params]) -> Engine:
         """A new engine on ``params`` (None: random from seed 0, as the
@@ -703,18 +780,25 @@ class ModelRuntime:
         self.timings["sleep_s"] = time.perf_counter() - t0
 
     def wakeup(self) -> None:
-        """A new engine on the parked parameters (a warm wake), or on
-        random ones from seed 0 for a model staged asleep (a cold wake).
+        """A new engine on the parked parameters (a warm wake), or for a
+        model with nothing parked (staged asleep) on the model directory's
+        weights, or random ones from seed 0 without them (a cold wake).
         The caller runs the warmup."""
         if self.state == MODEL_AWAKE:
             return
-        t0 = time.perf_counter()
         params = self._host_params
-        if params is not None and self.device.type == "cuda":
-            params = _params_map(
-                lambda h: h.to(self.device, non_blocking=True), params)
-            torch.cuda.synchronize(self.device)
-        self.timings["h2d_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if params is None:
+            params = self._load_params()        # cold wake: from disk
+        else:
+            self.timings.update(source="parked", load_s=0.0, load_bytes=0)
+            if self.device.type == "cuda":
+                params = _params_map(
+                    lambda h: h.to(self.device, non_blocking=True), params)
+                torch.cuda.synchronize(self.device)
+        # The parked copy's way back (a load's seconds are load_s).
+        self.timings["h2d_s"] = (time.perf_counter() - t0
+                                 - self.timings["load_s"])
         t1 = time.perf_counter()
         self.engine = self._build(params)
         if self.device.type == "cuda":
@@ -749,18 +833,20 @@ class Worker:
                  model_cfg: Optional[ModelConfig] = None,
                  params: Optional[Params] = None) -> None:
         self.opts = opts
-        # No checkpoint loader yet, so no model directory: the byte
-        # tokenizer, as the JAX worker uses without --model-dir.
-        self.tokenizer = TokenizerFactory.create_tokenizer()
+        # The directory's tokenizer (tokenizer.json, *.tiktoken or
+        # tokenizer.model), else the byte tokenizer (JAX worker :500).
+        self.tokenizer = TokenizerFactory.create_tokenizer(opts.model_dir)
         self.engine_cfg = engine_cfg or EngineConfig()
         self.device = resolve_device(opts.device)
         # One runtime per model; the primary first. Its engine first:
         # without the device it raises before any socket is bound.
         self.runtimes: Dict[str, ModelRuntime] = {
             opts.model: ModelRuntime(
-                opts.model, model_cfg or resolve_model_config(opts.model),
+                opts.model,
+                model_cfg or resolve_model_config(opts.model,
+                                                  opts.model_dir),
                 self.engine_cfg, self.device, murmur_seed=opts.murmur_seed,
-                params=params)}
+                params=params, model_dir=opts.model_dir)}
         if self._should_warmup():
             secs = self.warmup()
             logger.info("warmup: %.1f s, %s", secs,
@@ -3250,6 +3336,30 @@ class Worker:
                           "owned_by": "xllm-service-tpu", "state": rt.state}
                          for m, rt in list(self.runtimes.items())]}
 
+    def weights_body(self, model: str) -> Dict[str, Any]:
+        """``GET /admin/weights?model=``: the awake model's weights as
+        per-leaf sha256 digests (``checkpoint.param_digests``: equal
+        digests are bit-equal weights), their bytes, and the last boot's
+        or wake's timings (where they came from, the load's seconds and
+        bytes). The primary model without ``model``. Only the reference
+        to the parameters is taken under the engine lock: the hash runs
+        outside it, so the streams keep stepping (no step writes a
+        weight, and a sleep meanwhile only frees them after the hash)."""
+        rt = self.runtimes.get(model) if model else self.primary_runtime()
+        if rt is None:
+            raise HttpError(404, f"model {model} not on this worker")
+        with self._engine_lock:
+            eng = rt.engine
+            if eng is None:
+                raise HttpError(409, f"model {rt.model} is asleep",
+                                "unavailable")
+            params = eng.params
+        digests = checkpoint.param_digests(params)
+        nbytes = _params_bytes(params)
+        return {"model": rt.model, "digests": digests, "bytes": nbytes,
+                **{k: rt.timings.get(k) for k in ("source", "load_s",
+                                                  "load_bytes")}}
+
     # ------------------------------------------------------------------
     # Several models: staging, sleep and wake (JAX worker :2469-2520)
     # ------------------------------------------------------------------
@@ -3393,6 +3503,12 @@ def _handler_class(worker: Worker):
                 self._json(200, worker.models_body())
             elif self.path == "/admin/failpoints":
                 self._json(200, worker.failpoints.state())
+            elif url.path == "/admin/weights":
+                model = (parse_qs(url.query).get("model") or [""])[0]
+                try:
+                    self._json(200, worker.weights_body(model))
+                except HttpError as e:
+                    self._error(e)
             elif url.path == "/admin/steptrace":
                 q = parse_qs(url.query)
                 try:
@@ -3484,7 +3600,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         description="OpenAI worker on the PyTorch/CUDA engine")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=0)
-    p.add_argument("--model", default="tiny", choices=sorted(_MODEL_REGISTRY))
+    # A catalog name, or with --model-dir any name for the directory's
+    # config.json (JAX worker CLI :4527).
+    p.add_argument("--model", default="tiny",
+                   help=f"model name (catalog: {', '.join(_MODEL_REGISTRY)})")
+    p.add_argument("--model-dir", default="",
+                   help="HuggingFace model directory: config.json, the "
+                        "tokenizer and the *.safetensors weights")
     p.add_argument("--device", default="cuda")
     p.add_argument("--instance-type", default=InstanceType.DEFAULT.value,
                    choices=[t.value for t in InstanceType])
@@ -3527,9 +3649,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def build_worker(args: argparse.Namespace,
-                 params: Optional[Params] = None) -> Worker:
+                 params: Optional[Params] = None,
+                 model_cfg: Optional[ModelConfig] = None) -> Worker:
     """The Worker the CLI serves, from parsed arguments (``params``:
-    weights to serve instead of random ones from the engine's seed)."""
+    weights to serve instead of random ones from the engine's seed;
+    ``model_cfg``: the model to serve instead of the one ``--model`` and
+    ``--model-dir`` resolve to)."""
     ecfg = EngineConfig(
         page_size=args.page_size, num_pages=args.num_pages,
         max_model_len=args.max_model_len,
@@ -3540,14 +3665,14 @@ def build_worker(args: argparse.Namespace,
         decode_steps=args.decode_steps)
     opts = WorkerOptions(
         host=args.host, port=args.port, model=args.model,
-        device=args.device, warmup=args.warmup,
+        model_dir=args.model_dir, device=args.device, warmup=args.warmup,
         instance_type=InstanceType(args.instance_type),
         service_addr=args.service_addr, store_addr=args.store_addr,
         heartbeat_interval_s=args.heartbeat_interval_s,
         murmur_seed=args.murmur_seed, pd_direct_kv=args.pd_direct_kv,
         pd_device_wire=args.pd_device_wire,
         enable_profiling=args.enable_profiling)
-    return Worker(opts, engine_cfg=ecfg, params=params)
+    return Worker(opts, engine_cfg=ecfg, model_cfg=model_cfg, params=params)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
