@@ -339,7 +339,20 @@ Phases (any failure raises and the exit code is not 0):
    card, served in the split path, the ragged step and attend-then-write
    (``[serveh_*]`` lines; launches per step, margins; 4 slots, 512
    tokens, buckets 128 and 256; the split path's request profiled).
-14. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
+14. The EPD multimodal path (``epd_phase``, ``[epd]``): Qwen2-VL-7B at
+   full width and depth (the published config.json, random bf16
+   weights): K1/K2 with the sectioned mrope tables, K3 and K4 at its
+   shapes (``*_qwen2vl`` records); its vision tower written as ``visual.*``
+   safetensors and read back by the port's reader (every leaf equal), one
+   image against the float32 run of the same weights, ms per image and
+   share of the bf16 peak, and the Qwen2.5-VL-7B tower the same way; an
+   ENCODE worker child and an in-process MIX worker behind the reference
+   store and master serving text and image chats: TTFT with and without
+   an image, the decode step's ms, K1/K2, K3, K4 launched and K5 not, no
+   graph after warmup, an encode-cache hit on a repeated image, the
+   local encode under ``worker.fail_encode`` (the same text), the image
+   streams under the margins rule. At most 150 s.
+15. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
    writers' launches from phase 5 (K1/K2 now 0), K5 from 5b, K6 (now 0),
    K7, K3', K4' and the dense all-layer mode from 5c, K3'' and the fused
    latent writers from 5d, the current form of K3'' and the latent
@@ -348,7 +361,8 @@ Phases (any failure raises and the exit code is not 0):
    (``launches_lifecycle``); the ``*_d128`` records take phase 12's
    llama3-8b round's, the ``*_gptoss`` records phase 13's GPT-OSS-20B
    round of their path (with their time per byte against the llama3-1b
-   record's); phases 5f/5g and the graph checks go to the ``[summary]``
+   record's), the ``*_qwen2vl`` records phase 14's; phases 5f/5g and the
+   graph checks go to the ``[summary]``
    line; phases 7, 7b, 6b and 9 too, and ``phase_end_s``, the script's
    clock at the end of each phase), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -640,8 +654,15 @@ class KernelBench:
         torch, cfg = self.torch, self.cfg
         pos = self.i32(starts).long()[:, None] \
             + torch.arange(T, device=self.dev)[None, :]
-        cos, sin = rope.rope_cos_sin(pos, self.D, cfg.rope_theta,
-                                     cfg.rope_scaling)
+        if cfg.is_mrope:
+            # Three distinct streams, as an image's (t, h, w) ids: the
+            # sectioned tables of the multimodal rope.
+            pos3 = torch.stack([pos, pos // 2, pos % 16], dim=1)
+            cos, sin = rope.mrope_cos_sin(pos3, self.D, cfg.rope_theta,
+                                          cfg.rope_scaling[1])
+        else:
+            cos, sin = rope.rope_cos_sin(pos, self.D, cfg.rope_theta,
+                                         cfg.rope_scaling)
         return (self.randn(B, T, self.Hq, self.D),
                 self.randn(B, T, self.Hkv, self.D),
                 self.randn(B, T, self.Hkv, self.D), cos, sin)
@@ -7200,6 +7221,429 @@ def checkpoint_phase(torch, kernels, card: str, tok_ref, prompts,
     return out
 
 
+# Phase 14: Qwen2-VL-7B with images. The published
+# Qwen/Qwen2-VL-7B-Instruct config.json (text stack and vision tower).
+EPD_MODEL = "qwen2-vl-7b"
+EPD_DEVICE = "cuda"
+QWEN2VL_7B = {
+    "architectures": ["Qwen2VLForConditionalGeneration"],
+    "model_type": "qwen2_vl", "hidden_act": "silu", "hidden_size": 3584,
+    "intermediate_size": 18944, "num_hidden_layers": 28,
+    "num_attention_heads": 28, "num_key_value_heads": 4,
+    "max_position_embeddings": 32768, "max_window_layers": 28,
+    "rms_norm_eps": 1e-06, "rope_theta": 1000000.0,
+    "sliding_window": 32768, "use_sliding_window": False,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "vocab_size": 152064, "bos_token_id": 151643, "eos_token_id": 151645,
+    "vision_start_token_id": 151652, "vision_end_token_id": 151653,
+    "vision_token_id": 151654, "image_token_id": 151655,
+    "video_token_id": 151656,
+    "rope_scaling": {"type": "mrope", "mrope_section": [16, 24, 24]},
+    "vision_config": {"depth": 32, "embed_dim": 1280, "mlp_ratio": 4,
+                      "num_heads": 16, "in_chans": 3, "hidden_size": 3584,
+                      "patch_size": 14, "spatial_merge_size": 2,
+                      "spatial_patch_size": 14, "temporal_patch_size": 2},
+}
+# The published Qwen/Qwen2.5-VL-7B-Instruct vision_config.
+QWEN25VL_7B_VISION = {
+    "depth": 32, "hidden_act": "silu", "hidden_size": 1280,
+    "intermediate_size": 3420, "num_heads": 16, "in_chans": 3,
+    "out_hidden_size": 3584, "patch_size": 14, "spatial_merge_size": 2,
+    "spatial_patch_size": 14, "window_size": 112,
+    "fullatt_block_indexes": [7, 15, 23, 31], "tokens_per_second": 2,
+    "temporal_patch_size": 2}
+EPD_ARGS = ["--page-size", "128", "--num-pages", "64", "--max-model-len",
+            "512", "--max-batch-size", "4", "--prefill-buckets", "128,256",
+            "--max-prefill-tokens", "256", "--heartbeat-interval-s", "0.5"]
+EPD_ENV = {"XLLM_RAGGED_ATTN": "0", "XLLM_WRITE_THEN_ATTEND": "1"}
+# A tower's bf16 output against the float32 run of the same weights:
+# relative L2 of the [tokens, 3584] embeddings (bf16 keeps 8 mantissa
+# bits; 32 blocks accumulate their rounding).
+EPD_TOWER_TOL = 5e-2
+EPD_TOKENS = 16
+EPD_BUDGET_S = 150.0
+
+
+def _epd_chat(image=None, text="Describe this picture in a few words.",
+              model=EPD_MODEL) -> dict:
+    content = [{"type": "text", "text": text}]
+    if image is not None:
+        content.append({"type": "image_url", "image_url": {"url": image}})
+    return {"model": model, "max_tokens": EPD_TOKENS, "temperature": 0.0,
+            "ignore_eos": True, "stream": True, "logprobs": True,
+            "stream_options": {"include_usage": True},
+            "messages": [{"role": "user", "content": content}]}
+
+
+def _epd_reply(result) -> tuple:
+    """A streamed reply's text and TTFT (ms); its tokens counted."""
+    if result.get("status") != 200:
+        raise AssertionError(f"phase 14: reply {result.get('status')}: "
+                             f"{result.get('frames', result)}")
+    text, lps, idx, usage = stream_tokens(result["frames"])
+    if not usage or usage["completion_tokens"] != EPD_TOKENS:
+        raise AssertionError(f"phase 14: stream usage {usage}")
+    return text, result["times"][idx[0]] * 1e3 if idx else None
+
+
+def _tower_run(torch, qv, params, vcfg, pixels, v25: bool):
+    fn = (qv.encode_images_fixed_grid_v25 if v25
+          else qv.encode_images_fixed_grid)
+    with torch.inference_mode():
+        return fn(params, vcfg, pixels)
+
+
+def _tower_check(torch, qv, params, vcfg, v25: bool, card: str) -> dict:
+    """One 224 x 224 image through ``params`` (bf16) and through the same
+    weights in float32: relative L2 and max abs error of the embeddings,
+    the bf16 run's ms per image (median of 5 after one warm run) and its
+    modeled FLOPs as a share of the bf16 peak."""
+    import numpy as np
+
+    from xllm_service_tpu_torch.runtime.multimodal import load_image
+    pixels = load_image("random:5", vcfg.image_size)[None]
+    out = _tower_run(torch, qv, params, vcfg, pixels, v25)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _tower_run(torch, qv, params, vcfg, pixels, v25)
+        times.append((time.perf_counter() - t0) * 1e3)
+    p32 = {k: ({kk: vv.float() for kk, vv in v.items()}
+               if isinstance(v, dict) else v.float())
+           for k, v in params.items()}
+    ref = _tower_run(torch, qv, p32, vcfg, pixels, v25)
+    del p32
+    free_device_memory(torch)
+    rel = float(np.linalg.norm(out - ref) / np.linalg.norm(ref))
+    ms = _median(times)
+    flops = qv.tower_flops(vcfg)
+    rec = {"shape": list(out.shape), "finite": bool(np.isfinite(out).all()),
+           "rel_l2_vs_fp32": rel,
+           "max_abs_err_vs_fp32": float(np.abs(out - ref).max()),
+           "ref_rms": float(np.sqrt((ref ** 2).mean())),
+           "tol": EPD_TOWER_TOL, "ms_per_image": ms,
+           "ms_samples": times, "modeled_flops": flops,
+           "bf16_peak_share": flops / (ms * 1e-3) / PEAK_BF16_FLOPS,
+           "card": card}
+    want = [1, vcfg.tokens_per_image, vcfg.hidden_size]
+    if rec["shape"] != want or not rec["finite"] or rel > EPD_TOWER_TOL:
+        raise AssertionError(f"phase 14: tower check failed: {rec}")
+    return rec
+
+
+def _mm_margins(torch, eng, reqs, streams, err) -> list:
+    """The served image streams under the margins rule: each stream's
+    tokens against teacher-forced argmaxes of one prefill forward (the
+    splice, the rope streams, write-then-attend, eager) over the prompt
+    and the tokens before; at the first disagreement the top-2 margin,
+    drift under 10 x ``err``, a fault above it."""
+    import numpy as np
+
+    from xllm_service_tpu_torch.models import transformer as tf
+    out = []
+    for rid, req in reqs.items():
+        toks = streams.get(rid, [])
+        for i in range(len(toks)):
+            ids = list(req.token_ids) + toks[:i]
+            T = len(ids)
+            pages = -(-T // 128)
+            kv = tf.init_kv_cache(eng.cfg, pages + 1, 128, eng.device)
+            index = np.full((1, T), -1, np.int64)
+            index[0, req.mm_positions] = np.arange(len(req.mm_positions))
+            rope_pos = eng._rope_window(types.SimpleNamespace(req=req), 0, T)
+            dev = eng.device
+            with torch.inference_mode():
+                logits, _ = tf.forward_prefill(
+                    eng.params, eng.cfg, torch.tensor([ids], device=dev),
+                    torch.zeros(1, dtype=torch.int32, device=dev),
+                    torch.tensor([T], dtype=torch.int32, device=dev), kv,
+                    torch.arange(1, pages + 1, dtype=torch.int32,
+                                 device=dev)[None],
+                    mm_embeds=torch.from_numpy(req.mm_embeds).to(dev),
+                    mm_index=torch.from_numpy(index).to(dev),
+                    rope_pos=torch.from_numpy(rope_pos[None]).to(dev))
+            top = torch.topk(logits[0].float(), 2)
+            if int(top.indices[0]) != toks[i]:
+                margin = float(top.values[0] - top.values[1])
+                out.append({"request": rid, "position": i,
+                            "served": toks[i],
+                            "top2": top.indices.tolist(), "margin": margin,
+                            "limit": 10 * err,
+                            "verdict": "fault" if margin > 10 * err
+                            else "drift"})
+                break
+    return out
+
+
+def epd_phase(torch, kernels, card: str, err: float) -> dict:
+    """Phase 14: the EPD multimodal path with Qwen2-VL-7B at full width
+    and depth (the published config.json; random bf16 weights from seed
+    0), behind the reference store and master (children).
+
+    a. K1/K2 with the sectioned mrope tables, K3 and K4 at Qwen2-VL-7B's
+       shapes (28 query heads, 4 KV heads, D = 128) against their plain
+       versions, timed (``*_qwen2vl`` records).
+    b. The vision tower (``Qwen2VLVisionConfig`` defaults: depth 32,
+       width 1280, 16 heads, patch 14, merge 2) random in bf16, written
+       as HF-named safetensors (``visual.*``) with the config.json and
+       read back through the port's reader: every leaf equal; one image
+       through it against the float32 run of the same weights
+       (``EPD_TOWER_TOL``), its ms per image and share of the bf16 peak.
+       The Qwen2.5-VL-7B tower (``Qwen25VLVisionConfig`` defaults) over
+       one image the same way.
+    c. An ENCODE worker child (``--role encode``) and an in-process MIX
+       worker on that directory (the language model random from seed 0,
+       the tower from the file), warmed up, behind the master: two text
+       chats, three image chats (224 x 224, 64 merged tokens each), the
+       first image again (an encode-cache hit on the ENCODE worker, the
+       same text), then ``worker.fail_encode`` armed on the ENCODE
+       worker and the second image again (the MIX worker encodes
+       locally: the same text, the fallback counted). TTFT with and
+       without an image, the decode step's median ms, the launches of
+       K1/K2, K3, K4 (K5 none), no graph captured after warmup, every
+       image token spliced, and the image streams under the margins
+       rule.
+
+    At most ``EPD_BUDGET_S`` on the script's clock."""
+    import collections
+
+    from xllm_service_tpu_torch.config import ModelConfig
+    from xllm_service_tpu_torch.models import qwen2vl_vision as qv
+    from xllm_service_tpu_torch.ops import attention, rope
+    from xllm_service_tpu_torch.ops.kernels import (kv_update,
+                                                    paged_attention,
+                                                    prefill_attention)
+    from xllm_service_tpu_torch.runtime import checkpoint, worker
+    t_phase = time.perf_counter()
+    logs = ROOT / "build" / "epd_logs"
+    logs.mkdir(parents=True, exist_ok=True)
+    mdir = ROOT / "build" / "epd_model"
+    mdir.mkdir(parents=True, exist_ok=True)
+    for f in mdir.glob("*"):
+        f.unlink()
+    cfg = ModelConfig.from_hf_config(QWEN2VL_7B, name=EPD_MODEL)
+    out = {"card": card}
+    # a.
+    bench = KernelBench(torch, cfg, EPD_DEVICE, suffix="_qwen2vl")
+    bench.rope_decode_writer(kv_update, rope)
+    bench.rope_prefill_writer(kv_update, rope)
+    bench.decode_attention(paged_attention, attention)
+    bench.prefill_attention(prefill_attention, attention)
+    records = bench.results
+    del bench
+    free_device_memory(torch)
+    out["kernels_s"] = time.perf_counter() - t_phase
+    # b.
+    vcfg = qv.Qwen2VLVisionConfig.from_hf_config(QWEN2VL_7B["vision_config"])
+    gen = torch.Generator(device=EPD_DEVICE).manual_seed(0)
+    tower = qv.init_vision_params(vcfg, gen, EPD_DEVICE, torch.bfloat16)
+    with open(mdir / "config.json", "w", encoding="utf-8") as f:
+        json.dump(QWEN2VL_7B, f)
+    t0 = time.perf_counter()
+    nbytes = checkpoint.save_qwen2vl_vision(tower, vcfg,
+                                            str(mdir / "visual.safetensors"))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vcfg2, read = checkpoint.load_qwen2vl_vision(str(mdir), EPD_DEVICE,
+                                                 dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    if vcfg2 != dataclasses.replace(vcfg, dtype="float32"):
+        raise AssertionError(f"phase 14: reader config {vcfg2} != {vcfg}")
+    for grp in ("blocks", "merger"):
+        for k, v in tower[grp].items():
+            if not torch.equal(v, read[grp][k]):
+                raise AssertionError(f"phase 14: {grp}.{k} read back "
+                                     f"differs")
+    if not torch.equal(tower["patch_embed"], read["patch_embed"]):
+        raise AssertionError("phase 14: patch_embed read back differs")
+    out["tower_io"] = {"bytes": nbytes, "write_s": write_s,
+                       "read_s": read_s}
+    out["tower"] = _tower_check(torch, qv, read, vcfg, False, card)
+    del tower, read
+    free_device_memory(torch)
+    v25 = qv.Qwen25VLVisionConfig.from_hf_config(QWEN25VL_7B_VISION)
+    p25 = qv.init_vision_params(v25, gen, EPD_DEVICE, torch.bfloat16)
+    out["tower_v25"] = _tower_check(torch, qv, p25, v25, True, card)
+    del p25
+    free_device_memory(torch)
+    log(f"[epd] {card}: qwen2-vl tower {json.dumps(out['tower'])}; "
+        f"qwen2.5-vl tower {json.dumps(out['tower_v25'])}; tower file "
+        f"{json.dumps(out['tower_io'])}")
+    # c.
+    procs, ws = [], []
+    try:
+        store = RefProcess(["xllm_service_tpu.service.coordination_net",
+                            "--port", "0"], "coordination store serving on",
+                           logs / "store.log")
+        procs.append(store)
+        store_addr = store.line.split()[-1]
+        master, m_http, m_rpc = start_master(store_addr, False,
+                                             logs / "master.log")
+        procs.append(master)
+        common = ["--model", EPD_MODEL, "--model-dir", str(mdir),
+                  "--device", EPD_DEVICE, *EPD_ARGS,
+                  "--store-addr", store_addr, "--service-addr", m_rpc]
+        enc_box = {}
+
+        def spawn_encoder() -> None:
+            try:
+                enc_box["p"] = RefProcess(
+                    ["xllm_service_tpu_torch.runtime.worker", "--role",
+                     "encode", "--instance-type", "ENCODE", *common],
+                    "XLLM_TORCH_WORKER_UP", logs / "encode_child.log",
+                    timeout=240.0, env=EPD_ENV)
+            except Exception as e:  # noqa: BLE001 — raised below
+                enc_box["err"] = e
+        t_enc = threading.Thread(target=spawn_encoder)
+        t0 = time.perf_counter()
+        t_enc.start()
+        w, out["mix_start_s"] = _start(
+            worker, [*common, "--instance-type", "MIX"], EPD_ENV)
+        ws.append(w)
+        t_enc.join(300)
+        if "err" in enc_box or "p" not in enc_box:
+            raise AssertionError(f"phase 14: the ENCODE child did not "
+                                 f"start: {enc_box.get('err')}")
+        enc = enc_box["p"]
+        procs.append(enc)
+        out["both_up_s"] = time.perf_counter() - t0
+        enc_addr = enc.line.split("http=")[1].split()[0]
+        # A lone MIX instance takes the decode seat and prefills too.
+        wait_for(lambda: (master_row(m_http, w.name) or {}).get(
+            "models", {}).get(EPD_MODEL) == "awake", 60.0,
+            "the MIX worker's beat in the master's books")
+        wait_for(lambda: master_row(m_http, enc_addr) is not None, 60.0,
+                 "the ENCODE worker in the master's books")
+        eng = w.engine
+        graphs = sum(eng.compile_report().values())
+        reqs, streams, steps = {}, collections.defaultdict(list), []
+        add, step = eng.add_request, eng.step
+
+        def add_request(req):
+            if req.mm_embeds is not None:
+                reqs[req.request_id] = req
+            return add(req)
+
+        def timed_step():
+            t1 = time.perf_counter()
+            outs = step()
+            steps.append((eng.last_step_kind,
+                          (time.perf_counter() - t1) * 1e3))
+            for o in outs:
+                streams[o.request_id].extend(o.new_token_ids)
+            return outs
+        eng.add_request, eng.step = add_request, timed_step
+        spliced0 = eng.mm_spliced_tokens
+        kernels.reset_launch_counts()
+        texts = _concurrent(m_http, [_epd_chat(text=t) for t in (
+            "Tell me about the weather in spring and autumn.",
+            "Write two sentences about a quiet harbour town.")])
+        imgs = _concurrent(m_http, [_epd_chat(f"random:{s}")
+                                    for s in (1, 2, 3)])
+        again = _concurrent(m_http, [_epd_chat("random:1")])
+        launches = kernels.launch_counts()
+        enc_rows = _metric_rows(enc_addr)
+        st, resp = _post(enc_addr, "/admin/failpoint",
+                         {"name": "worker.fail_encode", "mode": "count",
+                          "n": 4})
+        if st != 200:
+            raise AssertionError(f"phase 14: arming failed: {st} {resp}")
+        degraded = _concurrent(m_http, [_epd_chat("random:2")])
+        fb = [e for e in w.events.since(0) if e["type"] == "encode_fallback"]
+        mix_rows = _metric_rows(w.name)
+        text_replies = [_epd_reply(r) for r in texts]
+        img_replies = [_epd_reply(r) for r in imgs]
+        again_text = _epd_reply(again[0])[0]
+        degraded_text = _epd_reply(degraded[0])[0]
+        decode_ms = [ms for kind, ms in steps if kind == "decode"]
+        rep = eng.capture_report()
+        late = sum(rep[p]["captures_after_warmup"]
+                   for p in ("prefill", "ragged", "decode", "decode_multi"))
+        eager = sum(sum(rep[p]["eager_steps"].values())
+                    for p in ("prefill", "ragged", "decode", "decode_multi"))
+        out.update({
+            "graphs_at_warmup": graphs, "captures_after_warmup": late,
+            "eager_steps": eager,
+            "ttft_ms_text": [t for _, t in text_replies],
+            "ttft_ms_image": [t for _, t in img_replies],
+            "ttft_ms_image_cached": _epd_reply(again[0])[1],
+            "ttft_ms_image_local_encode": _epd_reply(degraded[0])[1],
+            "decode_step_ms_median": _median(decode_ms),
+            "decode_steps": len(decode_ms),
+            "launches": {k: launches.get(k, 0) for k in (
+                "rope_kv_update_layer", "rope_prefill_kv_update_layer",
+                "paged_decode_attention", "paged_prefill_attention",
+                "ragged_paged_attention", "paged_kv_update_layer",
+                "paged_prefill_kv_update_layer")},
+            "spliced_tokens": eng.mm_spliced_tokens - spliced0,
+            "tokens_per_image": vcfg.tokens_per_image,
+            "encode_child": {
+                "cache_hits": _metric(enc_rows,
+                                      "xllm_encode_cache_hits_total"),
+                "cache_misses": _metric(enc_rows,
+                                        "xllm_encode_cache_misses_total"),
+                "encode_seconds": _metric(
+                    enc_rows, "xllm_worker_encode_seconds_total"),
+                "images": _metric(enc_rows,
+                                  "xllm_worker_encode_images_total")},
+            "fallback": {
+                "events": [e["attrs"] for e in fb],
+                "counted": _metric(mix_rows, "xllm_encode_fallback_total"),
+                "same_text": degraded_text == img_replies[1][0]},
+            "repeat_same_text": again_text == img_replies[0][0],
+            "margins": _mm_margins(torch, eng, reqs, streams, err),
+        })
+        ec = out["encode_child"]
+        ec["ms_per_image"] = (1e3 * ec["encode_seconds"] / ec["images"]
+                              if ec["images"] else None)
+        la = out["launches"]
+        problems = []
+        if min(la["rope_kv_update_layer"], la["rope_prefill_kv_update_layer"],
+               la["paged_decode_attention"],
+               la["paged_prefill_attention"]) <= 0:
+            problems.append("a kernel of the path never launched")
+        if la["ragged_paged_attention"] or la["paged_kv_update_layer"] \
+                or la["paged_prefill_kv_update_layer"]:
+            problems.append("K5 or an unfused writer launched")
+        if late or eager:
+            problems.append(f"{late} captures after warmup, {eager} eager "
+                            f"steps")
+        # Three images through the ENCODE child and one repeat: every
+        # image's 64 tokens spliced, the repeat a cache hit.
+        if out["spliced_tokens"] != 5 * vcfg.tokens_per_image:
+            problems.append(f"spliced {out['spliced_tokens']} tokens")
+        if ec["cache_hits"] < 1 or ec["cache_misses"] < 3:
+            problems.append(f"encode cache {ec}")
+        if not (out["fallback"]["events"] and out["fallback"]["counted"] >= 1
+                and out["fallback"]["same_text"]
+                and out["repeat_same_text"]):
+            problems.append(f"fallback {out['fallback']}, repeat "
+                            f"{out['repeat_same_text']}")
+        if any(m["verdict"] == "fault" for m in out["margins"]):
+            problems.append(f"margins {out['margins']}")
+        out["seconds"] = time.perf_counter() - t_phase
+        if out["seconds"] > EPD_BUDGET_S:
+            problems.append(f"{out['seconds']:.1f} s > {EPD_BUDGET_S} s")
+        log(f"[epd] {card}: {json.dumps(out)}")
+        if problems:
+            raise AssertionError(f"phase 14: {problems}")
+        out["records"] = records
+        return out
+    except BaseException:
+        for p in procs:
+            tail = p.tail() if hasattr(p, "tail") else ""
+            if tail:
+                log(f"[epd] {p.log_path.name} tail:\n{tail}")
+        raise
+    finally:
+        for x in ws:
+            x.stop()
+        for p in reversed(procs):
+            p.stop()
+
+
 def main() -> int:
     try:
         import torch
@@ -7476,6 +7920,11 @@ def main() -> int:
                                  served["prompts"], err)
     free_device_memory(torch)
     mark("13_checkpoint")
+    # 14. The EPD multimodal path: Qwen2-VL-7B with images.
+    epd = epd_phase(torch, kernels, card, err)
+    bench.results += epd.pop("records")
+    free_device_memory(torch)
+    mark("14_epd")
     margins = served_c["on_engine"] + served_e["on_engine"]
     for phase in (served, served_b, served_c, served_d, served_e):
         phase.pop("prompts")
@@ -7490,6 +7939,10 @@ def main() -> int:
     woken = lifecycle["wake"]["launches"]
     for r in bench.results:
         name = r.get("entry", r["name"])       # a record at another shape
+        if r.get("shape_model") == EPD_MODEL:
+            # Served only by phase 14's Qwen2-VL-7B worker.
+            r["launches"] = epd["launches"][name]
+            continue
         if r.get("shape_model") == LIFE_BIG:
             # Served only by phase 12's llama3-8b round.
             r["launches"] = lifecycle["swap"]["big_launches"][name]
@@ -7538,6 +7991,7 @@ def main() -> int:
                "cluster_cache_aware": routed, "sampling": sampled,
                "faults": faulted, "pd": disaggregated, "fetch": fetched,
                "lifecycle": lifecycle, "checkpoint": from_disk,
+               "epd": epd,
                "graph_decode_check": {"llama3-1b": graph,
                                       "deepseek-v2-lite": graph_mla},
                "warmup_ladders": ladders,

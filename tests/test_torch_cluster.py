@@ -647,7 +647,8 @@ def test_forwarded_sampling_wins_over_body_fields(relay):
 
 def test_standalone_worker_opens_no_store(models):
     """Given neither a store nor a service, the worker only serves: no
-    store, no registration, no heartbeat thread."""
+    store, no registration, no heartbeat thread (the engine loop, the
+    HTTP server and the encode loop only)."""
     _, tcfg, jparams = models
     w = torch_worker.Worker(
         torch_worker.WorkerOptions(model=MODEL, device="cpu"),
@@ -656,7 +657,8 @@ def test_standalone_worker_opens_no_store(models):
     try:
         assert w.store is None and w._lease_id is None
         assert [t.name for t in w._threads] == ["worker-engine-loop",
-                                                "worker-http"]
+                                                "worker-http",
+                                                "worker-encode"]
         status, resp = http_json(
             "POST", w.name, "/v1/completions",
             {"model": MODEL, "prompt": "hello", "max_tokens": 3,

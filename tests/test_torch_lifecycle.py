@@ -8,7 +8,8 @@ engine's ``init_params(cfg, PRNGKey(0))``, carried into the port by
 
 - F5: every catalog failpoint the JAX worker fires (``worker.
   crash_heartbeat``, ``store.fail_rpc``, ``store.hang``,
-  ``store.partition``, ``worker.die_after_n_tokens``) armed through
+  ``store.partition``, ``worker.die_after_n_tokens``,
+  ``worker.fail_encode``, ``worker.hang_encode``) armed through
   ``POST /admin/failpoint`` on a port worker and on a JAX worker, with
   the same effect and the same trip count;
 - ``drain_and_stop`` in the relay and the RPC topology
@@ -216,8 +217,25 @@ def _die_case(models, pkg):
         c.close()
 
 
+def _f5_encode_case(c, name):
+    """Arm an encode site once on the cluster's worker and ask it to
+    encode: a failed ask's status and message, a hung one's delay."""
+    w = c.workers[0]
+    _arm(w, name, "count", 1, 0.3 if name == "worker.hang_encode" else None)
+    t0 = time.monotonic()
+    status, resp = http_json("POST", w.name, "/encode",
+                             {"images": ["random:1"]}, timeout=60.0)
+    held = time.monotonic() - t0
+    again, _ = http_json("POST", w.name, "/encode", {"images": ["random:1"]},
+                         timeout=60.0)
+    return {"trips": _trips(w, name), "status": status,
+            "error": (resp or {}).get("error") if status != 200 else None,
+            "held": held >= 0.3, "again": again}
+
+
 F5_NAMES = ("worker.crash_heartbeat", "store.fail_rpc", "store.hang",
-            "store.partition", "worker.die_after_n_tokens")
+            "store.partition", "worker.die_after_n_tokens",
+            "worker.fail_encode", "worker.hang_encode")
 
 
 @pytest.mark.parametrize("name", F5_NAMES)
@@ -227,6 +245,13 @@ def test_f5_every_catalog_failpoint_fires_as_on_jax(models, f5_clusters,
         mine, ref = _die_case(models, "torch"), _die_case(models, "jax")
         assert mine["trips"] == 1 and mine["dead"] and mine["left_list"]
         assert all(s == (True, True, [], None) for s in mine["streams"])
+    elif name.endswith("_encode"):
+        mine = _f5_encode_case(f5_clusters["torch"], name)
+        ref = _f5_encode_case(f5_clusters["jax"], name)
+        assert mine["trips"] == 1 and mine["again"] == 200
+        assert mine["status"] == (500 if name == "worker.fail_encode"
+                                  else 200)
+        assert mine["held"] == (name == "worker.hang_encode")
     else:
         mine = _f5_store_case(f5_clusters["torch"], "torch", name)
         ref = _f5_store_case(f5_clusters["jax"], "jax", name)

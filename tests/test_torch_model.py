@@ -125,15 +125,15 @@ def test_prefill_two_windows_then_decode(family):
 
 
 def test_unsupported_families_refused():
-    """Per-layer rope bases (Gemma-3) and mrope are still missing; MoE,
-    MLA (DeepSeek) and GPT-OSS are served."""
+    """Per-layer rope bases (Gemma-3) are still missing; MoE, MLA
+    (DeepSeek), GPT-OSS and mrope (Qwen2-VL) are served."""
     mrope = dataclasses.replace(ModelConfig.tiny(),
                                 rope_scaling=("mrope", (2, 3, 3)))
-    for cfg in (ModelConfig.gemma3_12b(), mrope):
-        with pytest.raises(NotImplementedError):
-            ttf.check_supported(cfg)
+    with pytest.raises(NotImplementedError):
+        ttf.check_supported(ModelConfig.gemma3_12b())
     for cfg in (ModelConfig.tiny(num_experts=4),
-                ModelConfig.deepseek_v2_lite(), ModelConfig.gpt_oss_20b()):
+                ModelConfig.deepseek_v2_lite(), ModelConfig.gpt_oss_20b(),
+                mrope):
         ttf.check_supported(cfg)
 
 

@@ -25,6 +25,19 @@ orders of the KV write (``write_then_attend``):
   ``latent_kv_update_all_layers``); a prefill step writes them after
   the layer loop with one launch of the all-layer window writer.
 
+The Qwen2/2.5-VL text stacks rotate by the multimodal rope (mrope):
+three position streams, each owning a section of the frequency bands.
+A prefill given ``rope_pos`` [B, 3, T] builds the sectioned cos/sin
+tables from them (``ops/rope.mrope_cos_sin``), which the fused rope +
+KV-write kernels take unchanged; a decode given ``rope_delta`` [B]
+rotates at ``position + rope_delta`` (equal streams: standard rope),
+while the KV goes to its storage position. ``mm_embeds`` rows splice
+over the token embeddings at the window positions ``mm_index`` names
+(the EPD path's vision embeddings, ``runtime/multimodal.py``).
+``forward_embedding`` is the ``/v1/embeddings`` forward: a causal pass
+with no cache (the fresh-window form of the prefill attention kernel,
+nothing read from the pools), mean-pooled over the valid tokens.
+
 Under MLA the pool holds one latent row per token, [kv_lora_rank
 (normed) | rotated k_pe], as a single KV "head" of width
 ``cfg.kv_cache_dim``; the key up-projection is absorbed into the query
@@ -60,8 +73,8 @@ from xllm_service_tpu_torch.ops.kernels import (
     ragged_paged_attention, rope_kv_update_all_layers, rope_kv_update_layer,
     rope_prefill_kv_update_layer)
 from xllm_service_tpu_torch.ops.norm import rms_norm
-from xllm_service_tpu_torch.ops.rope import (rope_cos_sin, rotate,
-                                             rotate_interleaved)
+from xllm_service_tpu_torch.ops.rope import (mrope_cos_sin, rope_cos_sin,
+                                             rotate, rotate_interleaved)
 from xllm_service_tpu_torch.parallel.expert import gptoss_glu, moe_mlp
 
 Params = Dict[str, Any]
@@ -74,7 +87,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.rope_local_base_freq is not None:
         missing.append("per-layer rope bases")
     if cfg.rope_scaling is not None and cfg.rope_scaling[0] not in (
-            "llama3", "linear", "yarn"):
+            "llama3", "linear", "yarn", "mrope"):
         missing.append(f"{cfg.rope_scaling[0]} rope scaling")
     if missing:
         raise NotImplementedError(
@@ -391,7 +404,10 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     kv: KVCache, page_table: torch.Tensor,
                     ragged: bool = False, write_then_attend: bool = True,
                     moe_dropped: Optional[torch.Tensor] = None,
-                    prompt_lp_targets: Optional[torch.Tensor] = None
+                    prompt_lp_targets: Optional[torch.Tensor] = None,
+                    mm_embeds: Optional[torch.Tensor] = None,
+                    mm_index: Optional[torch.Tensor] = None,
+                    rope_pos: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, ...]:
     """Prefill ``tokens`` [B, T] (padded; ``lengths`` [B] int32 true
     counts) at positions start_pos[b] + t, with the cached prefix
@@ -419,13 +435,22 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ``moe_dropped``: a device int64 scalar into which an MoE model's
     capacity path adds the (token, expert) assignments it dropped, the
     JAX forwards' ``moe_dropped``; MLA models add nothing (their routed
-    experts run dense, as in the JAX package)."""
+    experts run dense, as in the JAX package).
+
+    ``mm_embeds`` [N, D] and ``mm_index`` [B, T] (int, -1 = none): window
+    position t of row b takes embedding row ``mm_index[b, t]`` in place
+    of its token's embedding (the JAX forward's ``mm_embeds`` /
+    ``mm_positions`` splice, after Gemma's embedding scale). ``rope_pos``
+    [B, 3, T]: an mrope model's explicit position streams for the
+    window; None broadcasts the storage positions (standard rope)."""
     check_supported(cfg)
     if ragged and not write_then_attend:
         raise ValueError("the ragged mixed step requires write_then_attend")
     if cfg.mla:
         if ragged:
             raise ValueError("MLA models have no ragged mixed-batch path")
+        if mm_embeds is not None:
+            raise ValueError("MLA models have no multimodal splice")
         return _mla_forward_prefill(params, cfg, tokens, start_pos, lengths,
                                     kv, page_table, write_then_attend,
                                     prompt_lp_targets)
@@ -433,11 +458,17 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     k_pages, v_pages = kv
     B, T = tokens.shape
     x = _scale_embed(cfg, params["embed"][tokens])                 # [B, T, D]
+    if mm_embeds is not None:
+        x = splice_embeds(x, mm_embeds, mm_index)
     positions = start_pos.long()[:, None] + torch.arange(
         T, device=tokens.device)[None, :]
     # Every layer rotates by the same positions: one cos/sin table.
-    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
-                            cfg.rope_scaling)
+    if rope_pos is not None:
+        cos, sin = mrope_cos_sin(rope_pos, cfg.head_dim, cfg.rope_theta,
+                                 cfg.rope_scaling[1])
+    else:
+        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                                cfg.rope_scaling)
     valid = torch.arange(T, device=tokens.device)[None, :] \
         < lengths.long()[:, None]
     extras = _attn_extras(cfg)
@@ -476,6 +507,14 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                    cap=cfg.final_logit_softcapping),)
 
 
+def splice_embeds(x: torch.Tensor, mm_embeds: torch.Tensor,
+                  mm_index: torch.Tensor) -> torch.Tensor:
+    """x [B, T, D] with position (b, t) replaced by ``mm_embeds[mm_index[
+    b, t]]`` where the index is >= 0 (cast to x's dtype)."""
+    rows = mm_embeds[mm_index.long().clamp(min=0)].to(x.dtype)
+    return torch.where(mm_index[..., None] >= 0, rows, x)
+
+
 def _prompt_logprobs(x: torch.Tensor, head: torch.Tensor,
                      targets: torch.Tensor, chunk: int = 128,
                      cap: float = 0.0) -> torch.Tensor:
@@ -502,7 +541,8 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    positions: torch.Tensor, active: torch.Tensor,
                    kv: KVCache, page_table: torch.Tensor,
                    write_then_attend: bool = True,
-                   moe_dropped: Optional[torch.Tensor] = None
+                   moe_dropped: Optional[torch.Tensor] = None,
+                   rope_delta: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step for ``tokens`` [B] at ``positions`` [B] int32
     (``active`` [B] bool masks empty slots). Writes each active row's
@@ -514,7 +554,10 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     the current one, held apart in a staging buffer; the last layer's
     writer writes all layers' rows, before that layer attends (which
     reads only positions below ``positions``). ``moe_dropped`` as in
-    ``forward_prefill``."""
+    ``forward_prefill``. ``rope_delta`` [B] (mrope models): each row
+    rotates at ``positions + rope_delta`` (images compress their rope
+    span, so a generated token's rope position trails its storage
+    position); its KV is written at ``positions``."""
     check_supported(cfg)
     if cfg.mla:
         return _mla_forward_decode(params, cfg, tokens, positions, active,
@@ -522,7 +565,8 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     k_pages, v_pages = kv
     B = tokens.shape[0]
     x = _scale_embed(cfg, params["embed"][tokens[:, None]])        # [B, 1, D]
-    cos, sin = rope_cos_sin(positions.long()[:, None], cfg.head_dim,
+    rope_at = positions if rope_delta is None else positions + rope_delta
+    cos, sin = rope_cos_sin(rope_at.long()[:, None], cfg.head_dim,
                             cfg.rope_theta, cfg.rope_scaling)
     zero = torch.zeros_like(positions)
     if write_then_attend:
@@ -557,6 +601,49 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                         active[:, None], moe_dropped)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return _head_logits(cfg, x[:, 0], _head(params)), (k_pages, v_pages)
+
+
+def forward_embedding(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                      lengths: torch.Tensor, kv: KVCache) -> torch.Tensor:
+    """Sequence embeddings (``/v1/embeddings``): a causal forward of
+    ``tokens`` [B, T] (padded; ``lengths`` [B] true counts) from
+    position 0, with no cache, the final hidden states mean-pooled over
+    each row's valid tokens and L2-normalized -> [B, D] float32. Each
+    layer attends through the fresh-window prefill kernel with its K/V
+    as the fresh operands and no cached prefix: ``kv`` (the engine's
+    pools) is passed for its layout and never read or written."""
+    check_supported(cfg)
+    if cfg.mla:
+        raise NotImplementedError(
+            "/v1/embeddings is not implemented for MLA models")
+    k_pages, v_pages = kv
+    B, T = tokens.shape
+    dev = tokens.device
+    x = _scale_embed(cfg, params["embed"][tokens])
+    positions = torch.arange(T, device=dev)[None, :].expand(B, T)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                            cfg.rope_scaling)
+    lengths = lengths.to(device=dev, dtype=torch.int32)
+    start = torch.zeros_like(lengths)
+    table = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    valid = torch.arange(T, device=dev)[None, :] < lengths.long()[:, None]
+    extras = _attn_extras(cfg)
+    windows = _layer_windows(cfg)
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+        h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(lp, cfg, h)
+        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+        attn = paged_prefill_attention_fresh(
+            q, k, v, k_pages, v_pages, table, start, lengths, i,
+            sliding_window=windows[i], sinks=lp.get("sinks"), **extras)
+        x = _block_tail(lp, cfg, x, _attn_out(lp, attn.reshape(B, T, -1)),
+                        valid)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps).float()
+    mask = valid.float()
+    pooled = (x * mask[..., None]).sum(dim=1) / \
+        mask.sum(dim=1, keepdim=True).clamp(min=1.0)
+    return pooled / pooled.norm(dim=-1, keepdim=True).clamp(min=1e-12)
 
 
 # ---------------------------------------------------------------------------

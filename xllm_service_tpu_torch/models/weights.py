@@ -5,7 +5,8 @@ weights stacked over [L], ``x @ W`` with ``W`` [in, out]); this package
 keeps the same dict with torch tensors. ``params_from_jax`` takes that
 tree with numpy leaves (``jax.tree_util.tree_map(np.asarray, params)``
 on the JAX side) and gives tensors on ``device``, so both packages
-compute the same function from the same weights.
+compute the same function from the same weights;
+``vision_params_from_jax`` does the same for the vision towers' trees.
 """
 
 from __future__ import annotations
@@ -50,3 +51,15 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device,
         if stack in tree:
             params[stack] = {k: conv(k, v) for k, v in tree[stack].items()}
     return params
+
+
+def vision_params_from_jax(tree: Dict[str, Any], device,
+                           dtype: torch.dtype = torch.float32
+                           ) -> Dict[str, Any]:
+    """A JAX vision tower's parameters (``models/qwen2vl_vision.py``'s
+    Qwen2-VL or Qwen2.5-VL tree, or ``models/vision.py``'s synthetic ViT;
+    numpy leaves) as the same nested dict of ``dtype`` tensors on
+    ``device``."""
+    return {k: (vision_params_from_jax(v, device, dtype)
+                if isinstance(v, dict) else _tensor(v, device, dtype))
+            for k, v in tree.items()}

@@ -17,9 +17,9 @@ deterministically in the count and threshold modes, so a test that arms
   event log when given one.
 
 This package's worker fires every name of the catalog where the JAX
-worker fires it, except the encode sites (``worker.fail_encode``,
-``worker.hang_encode``: no EPD path here yet) and
-``service.fail_redispatch`` (a master's).
+worker fires it, the encode sites (``worker.fail_encode``,
+``worker.hang_encode``) in ``/encode``, except ``service.fail_redispatch``
+(a master's).
 
 Spec grammar (comma-separated entries)::
 

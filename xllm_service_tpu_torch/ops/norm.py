@@ -1,4 +1,6 @@
-"""RMSNorm, accumulated in float32 whatever the activation dtype."""
+"""RMSNorm and LayerNorm, accumulated in float32 whatever the activation
+dtype. LayerNorm is the Qwen2-VL vision tower's norm; the text stacks
+are RMSNorm only."""
 
 from __future__ import annotations
 
@@ -11,3 +13,13 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Mean-subtracting LayerNorm (the JAX package's ``layer_norm``)."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)

@@ -6,8 +6,14 @@ is the hashable tuple ``ModelConfig.rope_scaling`` carries:
 ``("llama3", factor, low_freq, high_freq, original_max_pos)``,
 ``("linear", factor, 0, 0, 0)`` or ``("yarn", factor, beta_fast,
 beta_slow, original_max_pos, attention_factor, truncate,
-mscale_all_dim)``; None is unscaled. The 3-D multimodal rope is not part
-of this package yet and raises.
+mscale_all_dim)``, or ``("mrope", (s_t, s_h, s_w))``; None is unscaled.
+
+The Qwen2-VL multimodal rope (``apply_mrope``) rotates by three position
+streams (temporal, height, width), each owning a contiguous section of
+the half axis's frequency bands. ``mrope_cos_sin`` builds its cos/sin
+tables [..., T, head_dim/2] in the same float32 layout as
+``rope_cos_sin``: the fused rope + KV-write kernels take them unchanged.
+Text tokens carry equal streams, which is exactly standard rope.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 RopeScaling = Tuple  # ("llama3", f, lo, hi, orig) | ("linear", f, 0, 0, 0)
+#   | ("mrope", (s_t, s_h, s_w))
 #   | ("yarn", factor, beta_fast, beta_slow, orig, attn_factor, truncate,
 #      mscale_all_dim)
 
@@ -45,6 +52,8 @@ def rope_inv_freq(head_dim: int, theta: float,
                            torch.where(wavelen < orig / high_f, inv, scaled))
     if kind == "linear":
         return inv / float(scaling[1])
+    if kind == "mrope":
+        return inv          # the sections select streams; bands unscaled
     if kind == "yarn":
         # NTK-by-parts (YaRN section 3.2): bands doing more than
         # beta_fast rotations over the original context keep their
@@ -130,10 +139,42 @@ def rotate_interleaved(x: torch.Tensor, cos: torch.Tensor,
     return out.reshape(x.shape).to(x.dtype)
 
 
+def mrope_cos_sin(positions3: torch.Tensor, head_dim: int, theta: float,
+                  sections: Tuple[int, ...]):
+    """The sectioned float32 cos/sin tables of the multimodal rope:
+    ``positions3`` [..., 3, T] (temporal, height, width streams) ->
+    [..., T, head_dim/2] each, band j taking the stream of the section
+    it falls in (``sections`` sums to head_dim/2)."""
+    freq = rope_inv_freq(head_dim, theta, device=positions3.device)
+    ang = positions3.float()[..., None] * freq          # [..., 3, T, half]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    parts_c, parts_s, off = [], [], 0
+    for i, s in enumerate(sections):
+        parts_c.append(cos[..., i, :, off:off + s])
+        parts_s.append(sin[..., i, :, off:off + s])
+        off += s
+    return torch.cat(parts_c, dim=-1), torch.cat(parts_s, dim=-1)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """Rotate ``x`` [..., T, heads, head_dim] by the three position
+    streams ``positions3`` [..., 3, T] (the JAX package's
+    ``apply_mrope``)."""
+    cos, sin = mrope_cos_sin(positions3, x.shape[-1], theta, sections)
+    return rotate(x, cos, sin)
+
+
 def rope_for(cfg_scaling, x: torch.Tensor, positions: torch.Tensor,
-             theta: float) -> torch.Tensor:
-    """Model-level dispatch for 1-D positions (the multimodal 3-D rope
-    of the JAX package is not ported)."""
+             theta: float, positions3: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+    """Model-level dispatch: standard or scaled rope for 1-D positions,
+    the multimodal rope when the config carries sections (its streams
+    broadcast from ``positions`` when ``positions3`` is None: standard
+    rope by construction)."""
     if cfg_scaling is not None and cfg_scaling[0] == "mrope":
-        raise NotImplementedError("mrope is not supported by this package")
+        if positions3 is None:
+            positions3 = positions.unsqueeze(-2).expand(
+                *positions.shape[:-1], 3, positions.shape[-1])
+        return apply_mrope(x, positions3, theta, cfg_scaling[1])
     return apply_rope(x, positions, theta, cfg_scaling)

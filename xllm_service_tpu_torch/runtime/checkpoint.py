@@ -10,6 +10,10 @@ Qwen3-MoE's per-expert weights stacked into ``[L, E, ...]``, Phi-3's
 fused projections split, Gemma's ``(1 + w)`` norms folded, GPT-OSS's
 interleaved ``gate_up`` columns split (from bf16 or MXFP4 storage), and
 DeepSeek's MLA tree split into its dense prefix and MoE suffix stacks.
+A Qwen2-VL or Qwen2.5-VL directory's vision tower (``visual.*``) maps
+into ``models/qwen2vl_vision.py``'s tree (``load_qwen2vl_vision``; the
+Conv3D patch kernel flattened into one matmul) and back
+(``save_qwen2vl_vision``).
 
 The safetensors format is read and written here with the standard
 library and torch alone (no ``safetensors``, ``ml_dtypes`` or numpy
@@ -560,6 +564,158 @@ def _load_mla(s: _Stacker, cfg: ModelConfig) -> Params:
         params["layers_moe"] = moe
     _load_head(s, cfg, params)
     return params
+
+
+# ---------------------------------------------------------------------------
+# The vision towers (Qwen2-VL, Qwen2.5-VL)
+# ---------------------------------------------------------------------------
+
+def has_text_weights(model_dir: str) -> bool:
+    """Whether the directory's shards hold a text stack (its token
+    embedding, at either nesting): a directory holding only a vision
+    tower serves the language model from random weights."""
+    if not checkpoint_files(model_dir):
+        return False
+    r = ShardedReader(model_dir)
+    try:
+        return ("model.embed_tokens.weight" in r
+                or "model.language_model.embed_tokens.weight" in r)
+    finally:
+        r.close()
+
+
+def _visual_reader(model_dir: str, depth: int, device, dtype):
+    """Both tower readers' scaffolding: the shard reader, the visual key
+    prefix (published ``visual.`` or the module path ``model.visual.``),
+    and (reader, get, stack); None when the directory has no tower."""
+    if not checkpoint_files(model_dir):
+        return None
+    r = ShardedReader(model_dir)
+    prefix = ("visual." if "visual.patch_embed.proj.weight" in r
+              else "model.visual.")
+    if prefix + "patch_embed.proj.weight" not in r:
+        r.close()
+        return None
+    s = _Stacker(r, device, dtype)
+
+    def g(name: str) -> torch.Tensor:
+        return s.get(prefix + name).to(dtype)
+
+    def stack(fmt: str, transpose: bool = False) -> torch.Tensor:
+        return s.stack(prefix + fmt, range(depth), transpose=transpose)
+
+    return r, g, stack
+
+
+def _conv_patch_embed(g) -> torch.Tensor:
+    """The Conv3d with stride = kernel over flattened patch rows is a
+    matmul: the kernel [D, C, tp, P, P] flattened and transposed to
+    [C * tp * P * P, D]."""
+    conv = g("patch_embed.proj.weight")
+    return conv.reshape(conv.shape[0], -1).t().contiguous()
+
+
+def _merger_tree(g, with_bias_norm: bool) -> Dict[str, torch.Tensor]:
+    out = {"ln_q_w": g("merger.ln_q.weight"),
+           "mlp0_w": g("merger.mlp.0.weight").t().contiguous(),
+           "mlp0_b": g("merger.mlp.0.bias"),
+           "mlp2_w": g("merger.mlp.2.weight").t().contiguous(),
+           "mlp2_b": g("merger.mlp.2.bias")}
+    if with_bias_norm:
+        out["ln_q_b"] = g("merger.ln_q.bias")
+    return out
+
+
+# Per-block leaves of each tower: (ours, the HF name, transposed).
+_QWEN2VL_BLOCK = (
+    ("norm1_w", "norm1.weight", False), ("norm1_b", "norm1.bias", False),
+    ("qkv_w", "attn.qkv.weight", True), ("qkv_b", "attn.qkv.bias", False),
+    ("proj_w", "attn.proj.weight", True), ("proj_b", "attn.proj.bias", False),
+    ("norm2_w", "norm2.weight", False), ("norm2_b", "norm2.bias", False),
+    ("fc1_w", "mlp.fc1.weight", True), ("fc1_b", "mlp.fc1.bias", False),
+    ("fc2_w", "mlp.fc2.weight", True), ("fc2_b", "mlp.fc2.bias", False))
+_QWEN25VL_BLOCK = (
+    ("norm1_w", "norm1.weight", False),
+    ("qkv_w", "attn.qkv.weight", True), ("qkv_b", "attn.qkv.bias", False),
+    ("proj_w", "attn.proj.weight", True), ("proj_b", "attn.proj.bias", False),
+    ("norm2_w", "norm2.weight", False),
+    ("gate_w", "mlp.gate_proj.weight", True),
+    ("gate_b", "mlp.gate_proj.bias", False),
+    ("up_w", "mlp.up_proj.weight", True), ("up_b", "mlp.up_proj.bias", False),
+    ("down_w", "mlp.down_proj.weight", True),
+    ("down_b", "mlp.down_proj.bias", False))
+
+
+def load_qwen2vl_vision(model_dir: str, device, vcfg=None,
+                        image_size: int = 224,
+                        dtype: Optional[torch.dtype] = None):
+    """A Qwen2-VL or Qwen2.5-VL checkpoint's vision tower (``visual.*``,
+    or ``model.visual.*`` as current transformers writes it) as
+    ``models/qwen2vl_vision.py``'s parameter dict on ``device``, in
+    ``dtype`` (default the config's, float32). Returns (vcfg, params), or
+    None when the directory has no tower (a text checkpoint). The
+    config.json's ``vision_config`` picks the tower (the JAX package's
+    ``load_qwen2vl_vision``)."""
+    from xllm_service_tpu_torch.models.qwen2vl_vision import (
+        Qwen25VLVisionConfig, Qwen2VLVisionConfig)
+    if vcfg is None:
+        cfg_path = os.path.join(model_dir, "config.json")
+        if not os.path.exists(cfg_path):
+            return None
+        with open(cfg_path, "r", encoding="utf-8") as f:
+            d = json.load(f)
+        if "vision_config" not in d:
+            return None
+        vc = d["vision_config"]
+        if vc.get("model_type") == "qwen2_5_vl" \
+                or "fullatt_block_indexes" in vc:
+            vcfg = Qwen25VLVisionConfig.from_hf_config(vc, image_size)
+        else:
+            vcfg = Qwen2VLVisionConfig.from_hf_config(vc, image_size)
+    v25 = isinstance(vcfg, Qwen25VLVisionConfig)
+    opened = _visual_reader(model_dir, vcfg.depth, device,
+                            dtype or getattr(torch, vcfg.dtype))
+    if opened is None:
+        return None
+    r, g, stack = opened
+    try:
+        params = {
+            "patch_embed": _conv_patch_embed(g),
+            "blocks": {ours: stack("blocks.{i}." + hf, transpose=t)
+                       for ours, hf, t in (_QWEN25VL_BLOCK if v25
+                                           else _QWEN2VL_BLOCK)},
+            "merger": _merger_tree(g, with_bias_norm=not v25),
+        }
+    finally:
+        r.close()
+    return vcfg, params
+
+
+def save_qwen2vl_vision(params: Dict[str, Any], vcfg, path: str) -> int:
+    """Write a tower's parameters under the published ``visual.*`` names
+    (the inverse of ``load_qwen2vl_vision``) as one safetensors file.
+    Returns the bytes of tensor data written."""
+    from xllm_service_tpu_torch.models.qwen2vl_vision import (
+        Qwen25VLVisionConfig)
+    v25 = isinstance(vcfg, Qwen25VLVisionConfig)
+    pe = params["patch_embed"]
+    out: Dict[str, torch.Tensor] = {
+        "visual.patch_embed.proj.weight": pe.t().reshape(
+            pe.shape[1], vcfg.in_channels, vcfg.temporal_patch_size,
+            vcfg.patch_size, vcfg.patch_size)}
+    bl = params["blocks"]
+    for ours, hf, t in (_QWEN25VL_BLOCK if v25 else _QWEN2VL_BLOCK):
+        for i in range(vcfg.depth):
+            out[f"visual.blocks.{i}.{hf}"] = bl[ours][i].t() if t \
+                else bl[ours][i]
+    mg = params["merger"]
+    out["visual.merger.ln_q.weight"] = mg["ln_q_w"]
+    if not v25:
+        out["visual.merger.ln_q.bias"] = mg["ln_q_b"]
+    for k in ("0", "2"):
+        out[f"visual.merger.mlp.{k}.weight"] = mg[f"mlp{k}_w"].t()
+        out[f"visual.merger.mlp.{k}.bias"] = mg[f"mlp{k}_b"]
+    return save_file(out, path, metadata={"format": "pt"})
 
 
 # ---------------------------------------------------------------------------

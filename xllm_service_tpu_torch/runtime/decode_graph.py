@@ -10,8 +10,9 @@ static device buffer that the engine fills before a replay, and only
 where it changed: the sampled tokens and positions, the active mask,
 one page table per width, the packed sampling pair (float32 [B, 4],
 int32 [B, 2]), the bias ids and values [B, K] (always staged, zeros
-when unused, as the JAX engine always builds them) and, for penalized
-keys, the [B, V] output-token counts. The body runs n forwards, each
+when unused, as the JAX engine always builds them), for an mrope model
+each slot's rope delta (its generated tokens rotate at position + delta)
+and, for penalized keys, the [B, V] output-token counts. The body runs n forwards, each
 sampling with the bias and (penalized keys) the penalties, adding its
 tokens to the counts, and feeding its sampled token and ``pos + 1``
 forward on the device; it ends by copying the last token and position
@@ -218,6 +219,8 @@ class DecodeGraphs:
         self.tokens = torch.zeros(B, dtype=torch.int64, device=device)
         self.positions = torch.zeros(B, dtype=torch.int32, device=device)
         self.active = torch.zeros(B, dtype=torch.bool, device=device)
+        self.rope_delta = (torch.zeros(B, dtype=torch.int32, device=device)
+                           if cfg.is_mrope else None)
         self.tables: Dict[int, torch.Tensor] = {}
         # The packed sampling pair (greedy rows, unseeded) and its views.
         self.samp_f32 = torch.zeros((B, 4), dtype=torch.float32,
@@ -234,6 +237,7 @@ class DecodeGraphs:
         self._apt_mirror: Optional[Tuple[int, np.ndarray]] = None
         self._st_mirror: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self._bias_mirror: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        self._delta_mirror: Optional[np.ndarray] = None
         self.graphs: Dict[Key, Optional[_Graph]] = {}
         self.pool = (torch.cuda.graph_pool_handle() if use_graphs
                      else None)
@@ -341,13 +345,23 @@ class DecodeGraphs:
         self._upload(dst_vals, vals)
         self._bias_mirror[K] = (ids.copy(), vals.copy())
 
+    def stage_rope_delta(self, delta: np.ndarray) -> None:
+        """Upload an mrope model's per-slot rope deltas [B] int32 unless
+        they equal the last upload."""
+        m = self._delta_mirror
+        if m is not None and np.array_equal(m, delta):
+            return
+        self._upload(self.rope_delta, delta.astype(np.int32))
+        self._delta_mirror = delta.copy()
+
     def invalidate_staged(self) -> None:
         """Forget the host mirrors of the last uploads (after a step
         fault): the next step uploads the active mask, table, sampling
-        pair and bias whole, into the same buffers."""
+        pair, bias and rope deltas whole, into the same buffers."""
         self._apt_mirror = None
         self._st_mirror = None
         self._bias_mirror = {}
+        self._delta_mirror = None
 
     def stage_counts(self, counts: np.ndarray) -> None:
         """Upload a host rebuild of the [B, V] output-token counts."""
@@ -376,7 +390,8 @@ class DecodeGraphs:
         for _ in range(key.steps if steps is None else steps):
             logits, kv = transformer.forward_decode(
                 self.params, self.cfg, tok, pos, self.active, self.kv,
-                table, write_then_attend=self.wta, moe_dropped=drops)
+                table, write_then_attend=self.wta, moe_dropped=drops,
+                rope_delta=self.rope_delta)
             if kv[0] is not self.kv[0] or kv[1] is not self.kv[1]:
                 raise RuntimeError("forward_decode replaced the KV pools; "
                                    "the writers must write in place")

@@ -64,6 +64,17 @@ allocation pressure takes them (LRU), spilling them to the host tier
 first when it is on. The digests stored, removed and offloaded drain
 into the worker's heartbeat (``drain_kvcache_event``).
 
+Multimodal requests (the EPD path), as the JAX engine serves them: a
+request's ``mm_embeds`` rows splice over its prompt's image tokens
+(``mm_positions``) in whichever prefill windows hold them, through the
+prefill runner's embedding buffer; an mrope model's prompt rotates by
+its ``mm_rope_pos`` streams and its generated tokens at position +
+``rope_delta``, a per-slot decode input. Such sequences neither hit nor
+feed the prefix cache (their KV depends on the images, not only on the
+token ids), and an mrope model never takes the ragged step (its decode
+rows need the delta, as in the JAX engine). ``mm_spliced_tokens``
+counts the embedding rows spliced.
+
 Uniform sliding-window models release the leading pages that every
 later window masks (``_swa_trim``); the freed table entries become the
 NULL page 0, which every kernel reads only in window-masked lanes.
@@ -213,6 +224,15 @@ class EngineRequest:
     # PD disaggregation: keep the pages resident after the finish, for
     # ``export_held`` to hand the KV to a decode worker.
     hold_after_finish: bool = False
+    # EPD multimodal: vision embeddings [M, hidden] and the prompt
+    # positions they splice over (one per row, the image token spans).
+    mm_embeds: Optional[np.ndarray] = None
+    mm_positions: Optional[List[int]] = None
+    # mrope models: the prompt's [3, prompt_len] rope position streams
+    # (``runtime/multimodal.mrope_positions``) and the rope-minus-storage
+    # offset of every generated token. None / 0: plain text.
+    mm_rope_pos: Optional[np.ndarray] = None
+    rope_delta: int = 0
 
 
 class SeqStatus(enum.Enum):
@@ -330,9 +350,12 @@ class Engine:
         self.step_token_budget = (engine_cfg.step_token_budget
                                   or engine_cfg.max_prefill_tokens)
         self.prefill_deadline_ms = float(engine_cfg.prefill_deadline_ms)
-        # MLA models have no ragged mixed step (as in the JAX engine):
-        # their mixed iterations run split.
-        self.ragged = bool(engine_cfg.ragged_attn) and not model_cfg.mla
+        # MLA models have no ragged mixed step, and neither do mrope
+        # models (their decode rows need the per-slot rope delta), as in
+        # the JAX engine: their mixed iterations run split.
+        self.mrope = model_cfg.is_mrope
+        self.ragged = (bool(engine_cfg.ragged_attn) and not model_cfg.mla
+                       and not self.mrope)
         self.write_then_attend = resolve_write_then_attend(
             engine_cfg.write_then_attend, self.device)
         # Fused multi-step decode and its pipeline (None = on when
@@ -357,11 +380,17 @@ class Engine:
             self.device, use_graphs, self.num_top)
         # The prefill and ragged steps' runner, in the decode runner's
         # memory pool.
+        # Its embedding buffer holds the most rows one step can splice:
+        # the windows of a step never exceed the larger of the budget and
+        # the largest bucket.
         self.prefill_graphs = prefill_graph.PrefillGraphs(
             self.params, model_cfg, self.kv,
             _pow2(engine_cfg.max_batch_size), self.write_then_attend,
             self.generator, self.device, use_graphs, self.graphs.pool,
-            self.num_top)
+            self.num_top, mm_cap=(0 if model_cfg.mla else max(
+                engine_cfg.max_prefill_tokens, self.step_token_budget,
+                engine_cfg.prefill_buckets[-1])))
+        self.mm_spliced_tokens = 0
         # Whether the decode runner's [B, V] output-token counts hold the
         # running batch's histogram (the JAX engine's ``_counts`` is not
         # None): dropped wherever the batch changes outside a decode
@@ -431,6 +460,12 @@ class Engine:
     def add_request(self, req: EngineRequest) -> None:
         if not req.token_ids:
             raise ValueError("empty prompt")
+        if req.mm_embeds is not None:
+            if self.cfg.mla:
+                raise ValueError("MLA models have no multimodal splice")
+            if len(req.mm_positions or ()) != len(req.mm_embeds):
+                raise ValueError("mm_positions must name one prompt "
+                                 "position per embedding row")
         max_prompt = self.ecfg.max_model_len - 1
         if len(req.token_ids) > max_prompt:
             raise ValueError(
@@ -578,9 +613,10 @@ class Engine:
         slot = self._free_slot()
         if slot < 0:
             return False
-        # A prompt-scored sequence skips hits: cached positions would
-        # never be scored.
-        scored = seq.req.prompt_logprobs
+        # A prompt-scored sequence skips hits (cached positions would
+        # never be scored), and so does a multimodal one (its KV depends
+        # on the images, not only on the token ids).
+        scored = seq.req.prompt_logprobs or seq.req.mm_embeds is not None
         cached_pages, cached_tokens = [], 0
         if not scored:
             cached_pages, cached_tokens = \
@@ -640,8 +676,7 @@ class Engine:
         if seq.slot >= 0:
             self._slots[seq.slot] = None
             seq.slot = -1
-        self.prefix_cache.register_full_pages(
-            seq.tokens[:seq.num_computed], seq.pages)
+        self._register_pages(seq)
         self.prefix_cache.release_pages([p for p in seq.pages if p])
         seq.pages = []
         seq.num_trimmed = 0
@@ -654,6 +689,13 @@ class Engine:
         if seq not in self.waiting:     # a partial prefill already waits
             self.waiting.append(seq)
         self._sort_waiting()
+
+    def _register_pages(self, seq: Sequence) -> None:
+        """Register the full pages of ``seq``'s computed tokens in the
+        prefix cache, unless it is multimodal."""
+        if seq.req.mm_embeds is None:
+            self.prefix_cache.register_full_pages(
+                seq.tokens[:seq.num_computed], seq.pages)
 
     def _grow_pages(self, seq: Sequence, lookahead: int = 0) -> bool:
         """Pages for ``seq``'s next ``1 + lookahead`` token writes (see
@@ -702,8 +744,7 @@ class Engine:
             self.waiting.remove(seq)
         # Full pages become reusable by later prompts; only
         # tokens[:num_computed] have KV (the last sampled token has none).
-        self.prefix_cache.register_full_pages(
-            seq.tokens[:seq.num_computed], seq.pages)
+        self._register_pages(seq)
         if seq.req.hold_after_finish and reason != FinishReason.CANCELLED:
             # PD handoff: the pages stay referenced until export_held.
             self._held[seq.req.request_id] = seq
@@ -942,15 +983,24 @@ class Engine:
             for t, g in scored_at:
                 targets[0, t] = scored.tokens[g]
         K = bias[0].shape[1]
-        self.prefill_graphs.stage((B, T, MP, K, scored is not None),
+        mm = self.mrope or any(s.req.mm_embeds is not None for s in rows)
+        mm_index = self._stage_splice(rows, spans, B, T) if mm else None
+        rope_pos = None
+        if self.mrope:
+            rope_pos = np.zeros((B, 3, T), np.int32)
+            for i, (seq, (st, _)) in enumerate(zip(rows, spans)):
+                rope_pos[i] = self._rope_window(seq, st, T)
+        self.prefill_graphs.stage((B, T, MP, K, scored is not None, mm),
                                   prefill_graph.pack(
             (B, T, MP), [(seq.tokens[st:st + n], st, seq.pages)
                          for seq, (st, n) in zip(rows, spans)],
-            SamplingTensors.pack_batch(padded), bias, targets))
+            SamplingTensors.pack_batch(padded), bias, targets, mm_index,
+            rope_pos))
         greedy_only, seeded = batch_mode(params)
         res = self.prefill_graphs.launch(
             prefill_graph.Key("ragged" if ragged else "prefill", B, T, MP,
-                              greedy_only, seeded, K, scored is not None),
+                              greedy_only, seeded, K, scored is not None,
+                              mm),
             want_top=self._want_top(rows))
         self.last_step_attn_dispatches += 1
         self._note_moe_dropped(res.dropped)
@@ -963,6 +1013,45 @@ class Engine:
         # rebuilt from host truth before the next penalized decode.
         self._counts_valid = False
         return res
+
+    def _stage_splice(self, rows: List[Sequence],
+                      spans: List[Tuple[int, int]], B: int, T: int
+                      ) -> np.ndarray:
+        """Stage the embedding rows whose prompt positions fall in this
+        step's windows (the JAX engine's window-relative ``mm_positions``;
+        the rest splice in another window) and return the [B, T] index
+        into them, -1 where the token's own embedding stays."""
+        index = np.full((B, T), -1, np.int32)
+        picked: List[np.ndarray] = []
+        n_rows = 0
+        for i, (seq, (st, n)) in enumerate(zip(rows, spans)):
+            if seq.req.mm_embeds is None:
+                continue
+            pos = np.asarray(seq.req.mm_positions, np.int64) - st
+            sel = np.nonzero((pos >= 0) & (pos < n))[0]
+            if not len(sel):
+                continue
+            index[i, pos[sel]] = n_rows + np.arange(len(sel))
+            picked.append(np.asarray(seq.req.mm_embeds)[sel])
+            n_rows += len(sel)
+        if picked:
+            self.prefill_graphs.stage_mm(np.concatenate(picked))
+        self.mm_spliced_tokens += n_rows
+        return index
+
+    def _rope_window(self, seq: Sequence, start: int, T: int) -> np.ndarray:
+        """[3, T] mrope ids of the window [start, start + T): prompt
+        positions take the request's streams, later (generated, padding)
+        positions storage + delta on all three (plain text by then), as
+        the JAX engine's ``_rope_window``."""
+        g = np.arange(start, start + T, dtype=np.int32)
+        out = np.broadcast_to(g + seq.req.rope_delta, (3, T)).copy()
+        rp = seq.req.mm_rope_pos
+        if rp is not None:
+            n = max(0, min(rp.shape[1] - start, T))
+            if n > 0:
+                out[:, :n] = rp[:, start:start + n]
+        return out
 
     def _want_top(self, seqs) -> bool:
         """Whether a step's top logprobs cross to the host: computed
@@ -1095,6 +1184,11 @@ class Engine:
         self.graphs.stage_sampling(SamplingTensors.pack_batch(params))
         bias = batch_bias(params, len(params), self.cfg.vocab_size)
         self.graphs.stage_bias(*bias)
+        if self.mrope:
+            delta = np.zeros((self.ecfg.max_batch_size,), np.int32)
+            for seq in self.running:
+                delta[seq.slot] = seq.req.rope_delta
+            self.graphs.stage_rope_delta(delta)
         penalized = self._ensure_counts()
         if self._resident != self._snapshot():
             B = self.ecfg.max_batch_size
@@ -1440,8 +1534,7 @@ class Engine:
             if reason != FinishReason.NONE:
                 self._finish_seq(seq, reason)
             else:
-                self.prefix_cache.register_full_pages(
-                    seq.tokens[:seq.num_computed], seq.pages)
+                self._register_pages(seq)
                 self._swa_trim(seq)
         if carry_free:
             self._resident = self._snapshot()
@@ -1621,8 +1714,7 @@ class Engine:
             # grow the table for the next token's write; the growth may
             # preempt ``seq``, which keeps this token and prefills it
             # again later.
-            self.prefix_cache.register_full_pages(
-                seq.tokens[:seq.num_computed], seq.pages)
+            self._register_pages(seq)
             self._swa_trim(seq)
             self._grow_pages(seq)
         return out
@@ -1712,8 +1804,7 @@ class Engine:
         # lists, the migrated first token included.
         self._counts_valid = False
         self._resident = None
-        self.prefix_cache.register_full_pages(
-            seq.tokens[:seq.num_computed], seq.pages)
+        self._register_pages(seq)
         return True
 
     # ------------------------------------------------------------------

@@ -5,21 +5,27 @@ its window's prompt tokens, for ``echo`` with ``logprobs``) and
 ``_jit_ragged`` (the ragged mixed step).
 
 One graph per key (``Key``: kind, B, T, MP, the sampling variant, the
-``logit_bias`` width K, ``plp``): ``kind`` is ``prefill`` or ``ragged``,
-B the power-of-two row count, T the prefill bucket, MP the table width
+``logit_bias`` width K, ``plp``, ``mm``): ``kind`` is ``prefill`` or
+``ragged``, B the power-of-two row count, T the prefill bucket, MP the table width
 the engine picks for the batch (a power of two of its widest row,
 clamped to ``max_pages_per_seq``), then whether no row samples, whether
 some sampled row is seeded, K, and whether the window's prompt tokens
 are scored (B = 1, captured at its first use, as the JAX engine compiles
-``_jit_prefill_plp`` lazily). Every input of an input shape (B, T, MP,
-K, plp) lives in one static int32 buffer that the engine fills with one
-upload before each launch, as the JAX step packs its header, tokens and
+``_jit_prefill_plp`` lazily), and whether vision embeddings splice over
+the window's token embeddings (``mm``: every key of an mrope model, a
+batch carrying an image on any other). Every input of an input shape
+(B, T, MP, K, plp, mm) lives in one static int32 buffer that the engine
+fills with one upload before each launch, as the JAX step packs its header, tokens and
 table into one array: the rows' starts and lengths, the packed sampling
 pair (float32 [B, 4] as bits, int32 [B, 2]), the bias ids and values
 [B, K] (zeros when unused), the [B, T] tokens, the [B, MP] page table
 and, for ``plp``, the [B, T] targets (the prompt token after each window
-position). The whole buffer is written each time, so the rows past the
-batch are padding of length 0 with an all-NULL table row: a padding row
+position), for ``mm`` the [B, T] splice index (the row of the runner's
+embedding buffer a window position takes, -1 for none) and, for an
+mrope model, the window's [B, 3, T] rope position streams. The
+embedding rows themselves go into one [mm_cap, D] buffer that every
+``mm`` key reads (``stage_mm``). The whole buffer is written each time,
+so the rows past the batch are padding of length 0 with an all-NULL table row: a padding row
 left from an earlier, larger batch under the same key would write into
 another sequence's pages.
 
@@ -58,7 +64,7 @@ from xllm_service_tpu_torch.runtime.decode_graph import (
     BIAS_K, Outputs, _Graph, capture, program_census, top_rows, variant)
 
 Shape = Tuple[int, int, int]            # (B, T, MP)
-InShape = Tuple[int, int, int, int, bool]   # (B, T, MP, K, plp)
+InShape = Tuple[int, int, int, int, bool, bool]   # (B, T, MP, K, plp, mm)
 KINDS = ("prefill", "ragged")
 
 
@@ -72,10 +78,11 @@ class Key(NamedTuple):
     seeded: bool = False                # some sampled row has a seed
     bias_k: int = BIAS_K                # logit-bias columns
     plp: bool = False                   # scores the window's prompt
+    mm: bool = False                    # splices vision embeddings
 
     @property
     def in_shape(self) -> InShape:
-        return (self.B, self.T, self.MP, self.bias_k, self.plp)
+        return (self.B, self.T, self.MP, self.bias_k, self.plp, self.mm)
 
 
 class Result(NamedTuple):
@@ -91,19 +98,29 @@ class Result(NamedTuple):
 
 def _in_shape(shape) -> InShape:
     """An input shape from (B, T, MP) (bias width ``BIAS_K``, no
-    targets) or the whole (B, T, MP, K, plp)."""
-    return tuple(shape) if len(shape) == 5 else (*shape, BIAS_K, False)
+    targets, no splice), (B, T, MP, K, plp) or the whole (B, T, MP, K,
+    plp, mm)."""
+    shape = tuple(shape)
+    if len(shape) == 3:
+        return (*shape, BIAS_K, False, False)
+    return shape if len(shape) == 6 else (*shape, False)
 
 
-def layout(B: int, T: int, MP: int, K: int = BIAS_K, plp: bool = False
+def layout(B: int, T: int, MP: int, K: int = BIAS_K, plp: bool = False,
+           mm: bool = False, mrope: bool = False
            ) -> Dict[str, Tuple[int, int]]:
-    """(offset, length) of each field in a shape's packed int32 buffer."""
+    """(offset, length) of each field in a shape's packed int32 buffer
+    (``mrope``: the model's, which adds the rope position streams)."""
     out, off = {}, 0
     fields = [("start", B), ("lengths", B), ("f32", B * 4), ("i32", B * 2),
               ("bias_ids", B * K), ("bias_vals", B * K),
               ("tokens", B * T), ("table", B * MP)]
     if plp:
         fields.append(("targets", B * T))
+    if mm:
+        fields.append(("mm_index", B * T))
+    if mrope:
+        fields.append(("rope_pos", B * 3 * T))
     for name, n in fields:
         out[name] = (off, n)
         off += n
@@ -114,15 +131,20 @@ def pack(shape: Shape, rows: Sequence[Tuple[Sequence[int], int,
                                             Sequence[int]]],
          sampling: Tuple[np.ndarray, np.ndarray],
          bias: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-         targets: Optional[np.ndarray] = None) -> np.ndarray:
+         targets: Optional[np.ndarray] = None,
+         mm_index: Optional[np.ndarray] = None,
+         rope_pos: Optional[np.ndarray] = None) -> np.ndarray:
     """The packed buffer of one step: ``rows`` (tokens, start, pages) for
     the live rows, zeros (length 0, NULL pages) past them; ``sampling``
     the ``SamplingTensors.pack_batch`` pair of all B rows; ``bias`` the
     [B, K] ids and values (None: K = ``BIAS_K`` zeros); ``targets`` the
-    [B, T] prompt-score targets of a ``plp`` step."""
+    [B, T] prompt-score targets of a ``plp`` step; ``mm_index`` the
+    [B, T] splice index of an ``mm`` step; ``rope_pos`` an mrope model's
+    [B, 3, T] position streams."""
     B, T, MP = shape[:3]
     K = BIAS_K if bias is None else bias[0].shape[1]
-    lay = layout(B, T, MP, K, targets is not None)
+    lay = layout(B, T, MP, K, targets is not None, mm_index is not None,
+                 rope_pos is not None)
     flat = np.zeros(sum(n for _, n in lay.values()), np.int32)
 
     def field(name):
@@ -144,6 +166,10 @@ def pack(shape: Shape, rows: Sequence[Tuple[Sequence[int], int,
         field("bias_vals").view(np.float32)[:] = bias[1].reshape(-1)
     if targets is not None:
         field("targets")[:] = targets.reshape(-1)
+    if mm_index is not None:
+        field("mm_index")[:] = mm_index.reshape(-1)
+    if rope_pos is not None:
+        field("rope_pos")[:] = rope_pos.reshape(-1)
     return flat
 
 
@@ -154,8 +180,12 @@ class PrefillGraphs:
     def __init__(self, params, cfg, kv, max_rows: int,
                  write_then_attend: bool, generator: torch.Generator,
                  device: torch.device, use_graphs: bool, pool,
-                 num_top: int = 0) -> None:
+                 num_top: int = 0, mm_cap: int = 0) -> None:
         self.params, self.cfg, self.kv = params, cfg, kv
+        # Every key of an mrope model splices (and carries rope streams).
+        self.mrope = cfg.is_mrope
+        self.mm_cap = mm_cap
+        self.mm_rows: Optional[torch.Tensor] = None
         self.wta, self.generator = write_then_attend, generator
         self.device = device
         self.use_graphs = use_graphs
@@ -180,11 +210,14 @@ class PrefillGraphs:
     # ------------------------------------------------------------------
     # Static inputs
     # ------------------------------------------------------------------
+    def _layout(self, shape) -> Dict[str, Tuple[int, int]]:
+        return layout(*_in_shape(shape), mrope=self.mrope)
+
     def _buffer(self, shape) -> torch.Tensor:
         shape = _in_shape(shape)
         buf = self.inputs.get(shape)
         if buf is None:
-            n = sum(n for _, n in layout(*shape).values())
+            n = sum(n for _, n in self._layout(shape).values())
             buf = self.inputs[shape] = torch.zeros(
                 (n,), dtype=torch.int32, device=self.device)
         return buf
@@ -201,6 +234,29 @@ class PrefillGraphs:
         else:
             self._buffer(shape).copy_(src)
 
+    def _mm_buffer(self) -> torch.Tensor:
+        if self.mm_rows is None:
+            self.mm_rows = torch.zeros(
+                (max(self.mm_cap, 1), self.cfg.hidden_size),
+                dtype=self.params["embed"].dtype, device=self.device)
+        return self.mm_rows
+
+    def stage_mm(self, rows: np.ndarray) -> None:
+        """Upload a step's spliced embedding rows [n, D] (float32) into
+        the head of the shared embedding buffer, which the staged
+        ``mm_index`` points into."""
+        if len(rows) > self.mm_cap:
+            raise ValueError(f"{len(rows)} spliced rows exceed the "
+                             f"buffer's {self.mm_cap}")
+        if not len(rows):
+            return
+        src = torch.from_numpy(np.ascontiguousarray(rows, np.float32))
+        dst = self._mm_buffer()[:len(rows)]
+        if self.device.type == "cuda":
+            dst.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(src)
+
     # ------------------------------------------------------------------
     # The body
     # ------------------------------------------------------------------
@@ -211,7 +267,7 @@ class PrefillGraphs:
         ``plp`` key, the [B, T] prompt logprobs."""
         B, T, K = key.B, key.T, key.bias_k
         flat = self.inputs[key.in_shape]
-        lay = layout(*key.in_shape)
+        lay = self._layout(key.in_shape)
 
         def field(name):
             off, n = lay[name]
@@ -229,7 +285,11 @@ class PrefillGraphs:
             ragged=ragged, write_then_attend=ragged or self.wta,
             moe_dropped=drops,
             prompt_lp_targets=(field("targets").view(B, T) if key.plp
-                               else None))
+                               else None),
+            mm_embeds=self._mm_buffer() if key.mm else None,
+            mm_index=field("mm_index").view(B, T) if key.mm else None,
+            rope_pos=(field("rope_pos").view(B, 3, T) if self.mrope
+                      else None))
         logits, kv = res[0], res[1]
         if kv[0] is not self.kv[0] or kv[1] is not self.kv[1]:
             raise RuntimeError("forward_prefill replaced the KV pools; "
@@ -252,8 +312,11 @@ class PrefillGraphs:
     def prepare(self, key) -> Key:
         """Capture ``key``'s graph (on the CPU, or with graphs off, only
         record the key). The staged inputs and the generator's state are
-        as they were before. Returns the key."""
+        as they were before. Returns the key (``mm`` set for an mrope
+        model)."""
         key = Key(*key)
+        if self.mrope and not key.mm:
+            key = key._replace(mm=True)
         if key in self.graphs:
             return key
         if self.warm:
@@ -317,7 +380,7 @@ class PrefillGraphs:
         def name(k: Key) -> str:
             return (f"b{k.B}_t{k.T}_mp{k.MP}_"
                     f"{variant(k.greedy, k.seeded, False, k.bias_k)}"
-                    + ("_echo" if k.plp else ""))
+                    + ("_echo" if k.plp else "") + ("_mm" if k.mm else ""))
         return program_census(list(self.graphs.items()), KINDS,
                               lambda k: k.kind, name, list(self.late),
                               self.eager_steps)

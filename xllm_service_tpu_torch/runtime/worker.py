@@ -165,8 +165,11 @@ decode worker answers ``POST /kv/import`` by adopting the sequence
 RequestOutput SSE frames, which this worker assembles for the client, or
 pushes them to the service in the RPC topology. Any refusal decodes
 locally (``worker.fail_kv_transfer`` forces it). A duplicate import of a
-live request is answered idempotently. A migration carrying multimodal
-state is refused with a 503 (no multimodal path here yet). ``POST
+live request is answered idempotently. A migration carries a multimodal
+sequence's embeddings, splice positions, rope streams and rope delta
+(``_mm_meta``, the JAX worker's meta keys), so that the decode side keeps
+it out of its prefix cache and can prefill it again after a preemption.
+``POST
 /flip_role {"instance_type"}`` re-registers the worker under its new
 role. ``/metrics`` counts ``xllm_worker_kv_migration_{bytes,seconds,
 direct,device_wire,chunked}_total``, and the device wire's staging
@@ -190,8 +193,34 @@ without them; ``ModelRuntime.timings`` says which, with the load's
 seconds and bytes). ``GET /admin/weights?model=`` gives an awake model's
 per-leaf sha256 digests.
 
+The EPD multimodal path, as the JAX worker serves it. A generate body's
+``mm_inputs`` (the master's image descriptors beside a prompt holding one
+``<|image_pad|>`` per image) resolve to embeddings from the routed
+ENCODE worker (``routing.encode_name``, then its ``encode_fallbacks``)
+under one ``XLLM_ENCODE_TIMEOUT_S`` deadline, else from this worker's own
+tower; every hop off the routed instance counts in
+``xllm_encode_fallback_total{reason}`` and emits ``encode_fallback``.
+Each placeholder becomes ``tokens_per_image`` image tokens whose
+embeddings the engine splices, and an mrope model gets the prompt's 3-D
+rope streams and delta (``runtime/multimodal.py``). ``POST /encode
+{"images", "raw"}`` runs the tower through the batched encode queue
+(``worker.fail_encode`` answers a 500, ``worker.hang_encode`` stalls the
+handler first) and its content-addressed embedding cache
+(``XLLM_EMBED_CACHE_CAP``, ``xllm_encode_cache_{hits,misses}_total``);
+it answers the raw meta line and float32 bytes, or base64 JSON. The
+tower is ``--model-dir``'s Qwen2-VL or Qwen2.5-VL (``visual.*``, resized
+to ``XLLM_VISION_IMAGE_SIZE``, default 224), else the synthetic ViT from
+seed 0. ``--role encode`` (``WorkerOptions.encode_only``) serves the
+tower alone: the model sleeps, the worker registers as ENCODE with
+``encode_capable`` and its image grid. Beats carry the encode queue's
+depth, the recent encode ms and the embedding cache's digest delta.
+``POST /v1/embeddings`` answers the mean-pooled, L2-normalized final
+hidden states (``forward_embedding``), at most ``EMBED_MAX_TOKENS``
+tokens an input. The embeddings do not ride the CUDA IPC wire
+(``/encode_done`` acknowledges nothing staged).
+
 Not in this package yet: etcd stores, spans on the heartbeat (and the
-hot-path sections of ``/admin/steptrace``) and EPD traffic.
+hot-path sections of ``/admin/steptrace``).
 
 Run: ``python -m xllm_service_tpu_torch.runtime.worker --model llama3-1b``
 or ``--model-dir <HF directory>`` (add ``--store-addr`` and
@@ -201,6 +230,7 @@ or ``--model-dir <HF directory>`` (add ``--store-addr`` and
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -218,11 +248,14 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 from urllib.parse import parse_qs, urlsplit
 
+import numpy as np
 import torch
 
 from xllm_service_tpu_torch.config import (EngineConfig, InstanceType,
                                            ModelConfig)
-from xllm_service_tpu_torch.models.transformer import Params
+from xllm_service_tpu_torch.models import qwen2vl_vision, vision
+from xllm_service_tpu_torch.models.transformer import (Params,
+                                                       forward_embedding)
 from xllm_service_tpu_torch.nlp.tokenizer import (IncrementalDecoder,
                                                   Tokenizer,
                                                   TokenizerFactory)
@@ -235,7 +268,7 @@ from xllm_service_tpu_torch.ops import kernels
 from xllm_service_tpu_torch.runtime.engine import (Engine, EngineRequest,
                                                    StepOutput,
                                                    resolve_device)
-from xllm_service_tpu_torch.runtime import checkpoint, kv_wire
+from xllm_service_tpu_torch.runtime import checkpoint, kv_wire, multimodal
 from xllm_service_tpu_torch.runtime.kv_cache import (KvCacheEvent,
                                                      decode_kv_blob,
                                                      encode_kv_block)
@@ -262,6 +295,18 @@ from xllm_service_tpu_torch.utils.types import (
 from xllm_service_tpu_torch.utils.wire import check_version, stamp
 
 logger = logging.getLogger(__name__)
+
+def _mm_meta(req: EngineRequest) -> Optional[Dict[str, Any]]:
+    """A migration meta line's multimodal state (None for text): the
+    embeddings, splice positions and mrope prompt streams (JAX worker
+    :180-193)."""
+    if req.mm_embeds is None:
+        return None
+    return {"embeds": multimodal.embeds_to_wire(req.mm_embeds),
+            "positions": list(req.mm_positions or []),
+            "rope_pos": (np.asarray(req.mm_rope_pos).tolist()
+                         if req.mm_rope_pos is not None else None)}
+
 
 _MODEL_REGISTRY = {
     # The JAX worker's catalog, name for name (its presets are copied in
@@ -350,6 +395,10 @@ class WorkerOptions:
     # The device memory the master's serverless allocator may fill with
     # awake models here (registration's ``memory_budget_gb``).
     memory_budget_gb: float = 60.0
+    # EPD dedicated encode mode (``--role encode``): the vision tower is
+    # the worker's only program; the model starts asleep and the worker
+    # registers as ENCODE.
+    encode_only: bool = False
 
 
 class HttpError(Exception):
@@ -653,6 +702,24 @@ _FETCH_SERIES = (
     ("kv_blocks_export_seconds", "seconds of the holder's block exports "
                                  "(and wire staging)"),
 )
+# The encode plane's counters on /metrics (JAX worker :2398-2414):
+# (series, help, ``Worker`` attribute).
+_ENCODE_SERIES = (
+    ("xllm_worker_encode_seconds_total", "seconds in the vision tower",
+     "encode_seconds"),
+    ("xllm_worker_encode_calls_total", "vision tower calls",
+     "encode_calls"),
+    ("xllm_worker_encode_images_total", "images through the vision tower",
+     "encode_images_total"),
+    ("xllm_worker_encode_steps_total", "batched encode steps executed",
+     "encode_steps"),
+    ("xllm_encode_cache_hits_total", "images served from the "
+     "content-addressed embedding cache", "encode_cache_hits"),
+    ("xllm_encode_cache_misses_total", "images that required a tower run",
+     "encode_cache_misses"),
+    ("xllm_worker_mm_spliced_tokens_total", "image tokens whose embeddings "
+     "the engines spliced over the prompt", "mm_spliced_tokens"),
+)
 # The wire mark a requester of this package puts on /kv/blocks: only an
 # ask carrying it gets a CUDA IPC ticket (a JAX requester's ``"wire":
 # true`` offers its PJRT wire, which cannot pull one).
@@ -718,12 +785,13 @@ class ModelRuntime:
             self.timings["engine_s"] = time.perf_counter() - t0
 
     def _load_params(self) -> Optional[Params]:
-        """The directory's weights when it holds ``*.safetensors``, read
-        onto the device (JAX worker :262-272); None otherwise (the engine
-        random-inits from seed 0). Records the source, the seconds and
-        the bytes read."""
+        """The directory's weights when its ``*.safetensors`` hold the
+        text stack, read onto the device (JAX worker :262-272); None
+        otherwise (the engine random-inits from seed 0), also for a
+        directory whose shards hold only a vision tower. Records the
+        source, the seconds and the bytes read."""
         self.timings.update(load_s=0.0, load_bytes=0)
-        if not checkpoint.checkpoint_files(self.model_dir):
+        if not checkpoint.has_text_weights(self.model_dir):
             self.timings["source"] = "random"
             logger.info("%s: random weights from seed 0", self.model)
             return None
@@ -828,16 +896,31 @@ class ModelRuntime:
 
 
 class Worker:
+    # Per-input token cap of /v1/embeddings: a longer input is a 400,
+    # never truncated (JAX worker :487-490).
+    EMBED_MAX_TOKENS = 256
+
     def __init__(self, opts: WorkerOptions,
                  engine_cfg: Optional[EngineConfig] = None,
                  model_cfg: Optional[ModelConfig] = None,
-                 params: Optional[Params] = None) -> None:
+                 params: Optional[Params] = None,
+                 vision_tower: Optional[Tuple[Any, Dict[str, Any]]] = None
+                 ) -> None:
+        """``vision_tower``: a (config, parameters) pair to encode images
+        with instead of the model directory's tower or the synthetic ViT
+        from seed 0 (``models/vision.VisionConfig``, or either
+        ``models/qwen2vl_vision`` config)."""
         self.opts = opts
+        if opts.encode_only:
+            opts.instance_type = InstanceType.ENCODE
         # The directory's tokenizer (tokenizer.json, *.tiktoken or
         # tokenizer.model), else the byte tokenizer (JAX worker :500).
         self.tokenizer = TokenizerFactory.create_tokenizer(opts.model_dir)
         self.engine_cfg = engine_cfg or EngineConfig()
         self.device = resolve_device(opts.device)
+        # Held across an engine step and a vision tower run: a tower's
+        # kernels never interleave with a graph capture.
+        self._engine_lock = threading.Lock()
         # One runtime per model; the primary first. Its engine first:
         # without the device it raises before any socket is bound.
         self.runtimes: Dict[str, ModelRuntime] = {
@@ -846,23 +929,32 @@ class Worker:
                 model_cfg or resolve_model_config(opts.model,
                                                   opts.model_dir),
                 self.engine_cfg, self.device, murmur_seed=opts.murmur_seed,
-                params=params, model_dir=opts.model_dir)}
-        if self._should_warmup():
+                params=params, model_dir=opts.model_dir,
+                start_asleep=opts.encode_only)}
+        self._init_encode_plane(vision_tower)
+        if self._should_warmup() and self.engine is not None:
             secs = self.warmup()
             logger.info("warmup: %.1f s, %s", secs,
                         self.engine.compile_report())
+        if self._should_warmup() and (
+                self.model_cfg.is_mrope
+                or self.opts.instance_type == InstanceType.ENCODE):
+            # The tower's first run, before registration (JAX worker
+            # :908-919): the first image request does not pay it.
+            t0 = time.perf_counter()
+            self.encode_images(["random:0"])
+            logger.info("vision warmup: %.1f s", time.perf_counter() - t0)
         # The registration's TTFT/TPOT samples, measured once here, on the
         # warmed engine (its steps replay warmup's graphs) before the
         # engine loop starts; every registration carries them. The JAX
         # worker measures them at each registration.
         self._ttft_prof: List[Tuple[float, float]] = []
         self._tpot_prof: List[Tuple[float, float, float]] = []
-        if opts.enable_profiling:
+        if opts.enable_profiling and self.engine is not None:
             self._ttft_prof, self._tpot_prof = profile_engine(self.engine)
         self._live: Dict[str, _LiveRequest] = {}        # engine rid
         self._live_srid: Dict[str, _LiveRequest] = {}   # request id
         self._live_lock = threading.Lock()
-        self._engine_lock = threading.Lock()
         # Held by the engine loop across one runtime's step, the dispatch
         # of its outputs and its records; /sleep and /wakeup take it
         # before the engine lock, so that no reference of a step to an
@@ -1110,6 +1202,14 @@ class Worker:
                               events=self.events, stop=self._stop)
             t.start()
             self._threads.append(t)
+        # The encode loop restarts after a crash: a dead loop would hang
+        # every queued /encode until its deadline (JAX worker :855-864).
+        t = threads.spawn("worker.encode_loop", self._encode_loop,
+                          thread_name="worker-encode",
+                          restart=threads.RESTART_POLICY,
+                          events=self.events, stop=self._stop)
+        t.start()
+        self._threads.append(t)
         _LOCAL_WORKERS[self.name] = self
         if self.store is None:
             return self
@@ -1250,7 +1350,13 @@ class Worker:
             hash_seed=self.opts.murmur_seed,
             kv_block_bytes=eng.kv_block_bytes() if eng is not None else 0,
             ttft_profiling_data=list(self._ttft_prof),
-            tpot_profiling_data=list(self._tpot_prof))
+            tpot_profiling_data=list(self._tpot_prof),
+            # The encode plane's advertisement (JAX worker :1149-1155):
+            # an ENCODE worker serves the tower; the grid is its image
+            # side once the tower is built (never built for this).
+            encode_capable=(self.instance_type == InstanceType.ENCODE
+                            or self.opts.encode_only),
+            encode_image_size=self._encode_image_size())
         with self._reg_mu:
             if self._lease_id is not None:
                 try:
@@ -1438,9 +1544,17 @@ class Worker:
                     cache_ev, self._hb_cache_pending = \
                         self._hb_cache_pending, None
             delivered = False
+            # The encode plane's delta (digests gained and evicted, recent
+            # step ms), requeued unless the beat is delivered.
+            with self._embed_mu:
+                enc = (self._embed_stored_pending,
+                       self._embed_removed_pending, self._encode_recent_ms)
+                self._embed_stored_pending = []
+                self._embed_removed_pending = []
+                self._encode_recent_ms = []
             try:
                 hb, (step_baseline, steps_seq) = \
-                    self._build_heartbeat(cache_ev)
+                    self._build_heartbeat(cache_ev, enc)
                 status, ack = http_json(
                     "POST", self.service_addr, "/rpc/heartbeat",
                     stamp(hb.to_json()), timeout=10.0)
@@ -1464,15 +1578,24 @@ class Worker:
                 if not delivered and cache_ev is not None \
                         and not cache_ev.empty:
                     self._hb_cache_pending = cache_ev
+                if not delivered and any(enc):
+                    with self._embed_mu:
+                        self._embed_stored_pending[:0] = enc[0]
+                        self._embed_removed_pending[:0] = enc[1]
+                        self._encode_recent_ms[:0] = enc[2]
 
-    def _build_heartbeat(self, cache_ev: Optional[KvCacheEvent] = None
+    def _build_heartbeat(self, cache_ev: Optional[KvCacheEvent] = None,
+                         enc: Tuple[List[str], List[str], List[float]] = (
+                             [], [], [])
                          ) -> Tuple[Heartbeat, Tuple[Dict[str, Any], int]]:
         """The beat's payload (JAX worker :4336-4471): the primary
         model's load and step p99, every model's state (``draining`` for
         all while draining), the cache digests of ``cache_ev`` as hex and
         the step records since the last acknowledged beat (at most 64),
-        and what to commit once it is acked: the step histogram's
-        baseline and the last record's seq."""
+        the encode plane's queue depth, mean step ms and the embedding
+        cache's digest delta ``enc`` (stored, removed, step ms), and what
+        to commit once it is acked: the step histogram's baseline and the
+        last record's seq."""
         rt = self.primary_runtime()
         eng = rt.engine
         p99, baseline = self._recent_step_p99(rt.model)
@@ -1494,10 +1617,16 @@ class Worker:
                      / 1e9 if self.kv_migration_seconds > 0 else 0.0),
             waiting_prefill_tokens=(int(eng.waiting_prefill_tokens())
                                     if eng is not None else 0))
+        stored, removed, enc_ms = enc
+        if enc_ms:
+            latency.encode_ms = sum(enc_ms) / len(enc_ms)
+            latency.encode_ms_samples = list(enc_ms)
+        load = self._engine_load(rt)
+        load.encode_queue_depth = self._encode_q.qsize()
         ev = cache_ev or KvCacheEvent()
         hb = Heartbeat(name=self.name,
                        instance_type=self.instance_type,
-                       load=self._engine_load(rt), latency=latency,
+                       load=load, latency=latency,
                        cache_stored=[h.hex() for h in ev.stored],
                        cache_removed=[h.hex() for h in ev.removed],
                        cache_offloaded=[h.hex() for h in ev.offloaded],
@@ -1506,6 +1635,8 @@ class Worker:
                        model_states={
                            m: MODEL_DRAINING if self._draining else r.state
                            for m, r in list(self.runtimes.items())},
+                       embed_stored=list(stored),
+                       embed_removed=list(removed),
                        steps=steps_tail)
         return hb, (baseline, steps_seq)
 
@@ -1710,6 +1841,16 @@ class Worker:
         for key, help in _FETCH_SERIES:
             self.obs.counter(f"xllm_worker_{key}_total", help).set_total(
                 getattr(self, key))
+        for name, help, key in _ENCODE_SERIES:
+            self.obs.counter(name, help).set_total(getattr(self, key))
+        self.obs.gauge("xllm_worker_encode_queue_depth",
+                       "encode jobs waiting for the batched encode "
+                       "loop").set(self._encode_q.qsize())
+        with self._embed_mu:
+            cached = len(self._embed_cache)
+        self.obs.gauge("xllm_worker_embed_cache_entries",
+                       "embeddings resident in the content-addressed "
+                       "embedding cache").set(cached)
         wire = kv_wire.wire_stats()
         self.obs.gauge("xllm_worker_kv_wire_reserved_bytes",
                        "device bytes this process holds in CUDA IPC "
@@ -2125,6 +2266,14 @@ class Worker:
             if bad:
                 raise HttpError(400, f"logit_bias token ids out of vocab "
                                      f"range (< {V}): {bad[:5]}")
+        mm: Dict[str, Any] = {}
+        if body.get("mm_inputs"):
+            try:
+                token_ids, mm = self._resolve_mm(rt, body, list(token_ids))
+            except TimeoutError as e:
+                raise HttpError(503, str(e), "unavailable") from e
+            except ValueError as e:
+                raise HttpError(400, str(e)) from e
         # best_of: the larger candidate pool runs; the response keeps
         # target_n of them (ResponseCollector).
         n = 1 if pd_prefill else max(1, sampling.n, sampling.best_of or 0)
@@ -2136,7 +2285,7 @@ class Worker:
                                              and sampling.logprobs
                                              and not is_chat
                                              and not pd_prefill),
-                            hold_after_finish=pd_prefill)
+                            hold_after_finish=pd_prefill, **mm)
         live = _LiveRequest(
             req, self.tokenizer, model, is_chat, stream,
             bool((body.get("stream_options") or {}).get("include_usage")),
@@ -2433,6 +2582,8 @@ class Worker:
         return {"service_request_id": live.request_id,
                 "model": live.model, "tokens": list(tokens),
                 "prompt_len": len(live.req.token_ids),
+                "rope_delta": live.req.rope_delta,
+                "mm": _mm_meta(live.req),
                 "sampling": live.sampling.to_json(),
                 "stream": live.stream}
 
@@ -2894,8 +3045,9 @@ class Worker:
         ``/kv/import`` and the direct path: (ok, live, first output). A
         duplicate of a live request returns (False, that live, None), so
         the caller can answer idempotently; a refusal (no slot or pages,
-        a layout mismatch, multimodal state, a dead engine) returns
-        (False, None, None). Counted in ``_inflight_parse`` like every
+        a layout mismatch, a dead engine) returns (False, None, None). A
+        multimodal sequence keeps its embeddings, positions, rope streams
+        and delta (JAX worker :3717-3736). Counted in ``_inflight_parse`` like every
         work-accepting entry (the direct path has no HTTP handler), and
         refused while draining (JAX worker :3684-3712)."""
         with self._live_lock:
@@ -2912,15 +3064,23 @@ class Worker:
         model = str(meta.get("model", self.opts.model))
         rt = self._runtime_for(model)
         if self._refuse_new or self.engine_error is not None \
-                or meta.get("mm") or rt.engine is None:
+                or rt.engine is None:
             return False, None, None
         tokens = [int(t) for t in meta["tokens"]]
         srid = str(meta["service_request_id"])
         sampling = SamplingParams.from_json(meta.get("sampling"))
         prompt = tokens[:int(meta.get("prompt_len", len(tokens) - 1))]
-        req = EngineRequest(request_id=srid, token_ids=prompt,
-                            sampling=sampling,
-                            eos_token_ids=self.tokenizer.eos_token_ids)
+        mm = meta.get("mm") or None
+        req = EngineRequest(
+            request_id=srid, token_ids=prompt, sampling=sampling,
+            eos_token_ids=self.tokenizer.eos_token_ids,
+            rope_delta=int(meta.get("rope_delta", 0) or 0),
+            mm_embeds=(multimodal.embeds_from_wire(mm["embeds"]) if mm
+                       else None),
+            mm_positions=list(mm.get("positions") or []) if mm else None,
+            mm_rope_pos=(np.asarray(mm["rope_pos"], np.int32)
+                         if mm and mm.get("rope_pos") is not None
+                         else None))
         live = _LiveRequest(req, self.tokenizer, model,
                             is_chat=False, stream=bool(meta.get("stream")),
                             include_usage=False, sampling=sampling,
@@ -3292,6 +3452,397 @@ class Worker:
         return _Reply(200, {"ok": True,
                             "instance_type": self.instance_type.value})
 
+    # ------------------------------------------------------------------
+    # The EPD encode plane (JAX worker :2563-3054)
+    # ------------------------------------------------------------------
+    def _init_encode_plane(self, tower) -> None:
+        """The vision tower's state (built at first use, or now on an
+        ENCODE worker), the batched encode queue, the content-addressed
+        embedding cache and their books; the environment read once
+        here."""
+        self._vision_tower = tower
+        self._vision: Optional[Tuple[str, Any, Any]] = None
+        self._vision_lock = threading.Lock()
+        self._vision_image_size = int(os.environ.get(
+            "XLLM_VISION_IMAGE_SIZE", "224") or 224)
+        try:
+            self._encode_timeout_s = float(os.environ.get(
+                "XLLM_ENCODE_TIMEOUT_S", "120") or 120)
+        except ValueError:
+            self._encode_timeout_s = 120.0
+        self._encode_q: "queue.Queue[Dict[str, Any]]" = queue.Queue()
+        self._embed_cache: "collections.OrderedDict[str, np.ndarray]" = \
+            collections.OrderedDict()
+        self._embed_cache_cap = int(os.environ.get(
+            "XLLM_EMBED_CACHE_CAP", "256") or 256)
+        # The cache, its heartbeat delta (digests stored and evicted since
+        # the last delivered beat) and the recent step ms, under this.
+        self._embed_mu = threading.Lock()
+        self._embed_stored_pending: List[str] = []
+        self._embed_removed_pending: List[str] = []
+        self._encode_recent_ms: List[float] = []
+        self.encode_seconds = 0.0
+        self.encode_calls = 0
+        self.encode_images_total = 0
+        self.encode_steps = 0
+        self.encode_cache_hits = 0
+        self.encode_cache_misses = 0
+        if self.opts.instance_type == InstanceType.ENCODE:
+            self._get_vision()
+
+    @property
+    def mm_spliced_tokens(self) -> int:
+        """Image tokens the awake engines spliced embeddings over."""
+        return sum(eng.mm_spliced_tokens for _, eng in self._awake())
+
+    def _get_vision(self) -> Tuple[str, Any, Any]:
+        """(kind, config, encode function) of this worker's tower, built
+        at its first use (JAX worker :2625-2684): the one given at
+        construction, else the model directory's Qwen2-VL or Qwen2.5-VL
+        tower (in the model's dtype, resized to XLLM_VISION_IMAGE_SIZE),
+        else the synthetic ViT from seed 0. An encode function maps
+        pixels [N, S, S, 3] to float32 embeddings [N, tokens, hidden]."""
+        with self._vision_lock:
+            if self._vision is None:
+                self._vision = self._build_vision()
+            return self._vision
+
+    def _build_vision(self) -> Tuple[str, Any, Any]:
+        cfg = self.model_cfg
+        tower = self._vision_tower
+        if tower is None and self.opts.model_dir:
+            tower = checkpoint.load_qwen2vl_vision(
+                self.opts.model_dir, self.device,
+                image_size=self._vision_image_size,
+                dtype=getattr(torch, cfg.dtype))
+        if tower is None:
+            vcfg = (vision.VisionConfig.tiny(cfg.hidden_size)
+                    if cfg.name.startswith("tiny")
+                    else vision.VisionConfig.for_model(cfg))
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            tower = (vcfg, vision.init_vision_params(vcfg, gen, self.device))
+        vcfg, params = tower
+        if isinstance(vcfg, vision.VisionConfig):
+            def synthetic(pixels: np.ndarray) -> np.ndarray:
+                x = torch.from_numpy(pixels).to(self.device)
+                return vision.encode_image(params, vcfg, x).float() \
+                    .cpu().numpy()
+            return "synthetic", vcfg, synthetic
+        if isinstance(vcfg, qwen2vl_vision.Qwen25VLVisionConfig):
+            entry = qwen2vl_vision.encode_images_fixed_grid_v25
+            kind = "qwen25vl"
+        else:
+            entry = qwen2vl_vision.encode_images_fixed_grid
+            kind = "qwen2vl"
+        return kind, vcfg, lambda pixels: entry(params, vcfg, pixels)
+
+    def encode_images(self, mm_inputs: List[Any]) -> np.ndarray:
+        """Run this worker's tower on ``mm_inputs`` descriptors -> [N,
+        tokens_per_image, hidden] float32, under the engine lock."""
+        _kind, vcfg, fn = self._get_vision()
+        t0 = time.monotonic()
+        pixels = np.stack([multimodal.load_image(m, vcfg.image_size)
+                           for m in mm_inputs])
+        with self._engine_lock, torch.inference_mode():
+            out = fn(pixels)
+        self.encode_seconds += time.monotonic() - t0
+        self.encode_calls += 1
+        self.encode_images_total += len(mm_inputs)
+        return out
+
+    def _encode_image_size(self) -> int:
+        """The registration's image grid: the built tower's side, 0
+        before it is built (registration builds nothing)."""
+        with self._vision_lock:
+            if self._vision is None:
+                return 0
+            return int(getattr(self._vision[1], "image_size", 0) or 0)
+
+    def _encode_loop(self) -> None:
+        """Drain the encode queue, one tower step per drain (at most 64
+        jobs). A job's failure is attached to it; an exception escaping
+        the step is a bug, and the supervised thread restarts."""
+        while not self._stop.is_set():
+            try:
+                jobs = [self._encode_q.get(timeout=0.2)]
+            except queue.Empty:
+                continue
+            while len(jobs) < 64:
+                try:
+                    jobs.append(self._encode_q.get_nowait())
+                except queue.Empty:
+                    break
+            self._encode_step(jobs)
+
+    def _encode_step(self, jobs: List[Dict[str, Any]]) -> None:
+        """One encode step (JAX worker :2733-2801): every job's digests
+        against the embedding cache, one tower run over all the images it
+        missed, the cache filled (LRU) with the beat's delta recorded,
+        and each job handed its [N, tokens, hidden] embeddings."""
+        t0 = time.monotonic()
+        need: List[Tuple[int, int]] = []
+        rows: List[List[Optional[np.ndarray]]] = []
+        with self._embed_mu:
+            for ji, job in enumerate(jobs):
+                jrows: List[Optional[np.ndarray]] = []
+                for ii, dig in enumerate(job["digests"]):
+                    hit = self._embed_cache.get(dig)
+                    if hit is not None:
+                        self._embed_cache.move_to_end(dig)
+                        self.encode_cache_hits += 1
+                    else:
+                        self.encode_cache_misses += 1
+                        need.append((ji, ii))
+                    jrows.append(hit)
+                rows.append(jrows)
+        fresh: Dict[Tuple[int, int], np.ndarray] = {}
+        if need:
+            try:
+                out = self.encode_images([jobs[ji]["mm"][ii]
+                                          for ji, ii in need])
+            except Exception as e:  # noqa: BLE001 — a bad image spec is
+                # the callers' 400, not a dead loop
+                for job in jobs:
+                    job["err"] = e
+                    job["ev"].set()
+                return
+            with self._embed_mu:
+                for pos, (ji, ii) in enumerate(need):
+                    emb = np.asarray(out[pos], np.float32)
+                    fresh[(ji, ii)] = emb
+                    dig = jobs[ji]["digests"][ii]
+                    if dig not in self._embed_cache:
+                        self._embed_cache[dig] = emb
+                        self._embed_stored_pending.append(dig)
+                        while len(self._embed_cache) > self._embed_cache_cap:
+                            old, _ = self._embed_cache.popitem(last=False)
+                            self._embed_removed_pending.append(old)
+        step_ms = 1000.0 * (time.monotonic() - t0)
+        self.encode_steps += 1
+        self.obs.histogram("xllm_worker_encode_step_ms",
+                           "wall time of one batched encode step"
+                           ).observe(step_ms)
+        with self._embed_mu:
+            self._encode_recent_ms.append(step_ms)
+            del self._encode_recent_ms[:-64]
+        for ji, job in enumerate(jobs):
+            try:
+                job["out"] = np.stack([r if r is not None else fresh[(ji, ii)]
+                                       for ii, r in enumerate(rows[ji])])
+                job["hits"] = sum(r is not None for r in rows[ji])
+            except Exception as e:  # noqa: BLE001 — towers of different
+                job["err"] = e      # shapes in one cache: a verdict
+            job["ev"].set()
+
+    def encode_via_queue(self, mm_inputs: List[Any],
+                         timeout: Optional[float] = None
+                         ) -> Tuple[np.ndarray, int]:
+        """Encode through the batched queue and the embedding cache:
+        (embeddings, cache hits). Raises the job's error (a bad spec is a
+        ValueError) or TimeoutError past ``timeout``."""
+        job: Dict[str, Any] = {
+            "mm": list(mm_inputs),
+            "digests": [multimodal.image_digest(m, self.opts.murmur_seed)
+                        for m in mm_inputs],
+            "ev": threading.Event()}
+        self._encode_q.put(job)
+        if not job["ev"].wait(timeout if timeout and timeout > 0
+                              else 300.0):
+            raise TimeoutError("encode queue did not serve the job in time")
+        if "err" in job:
+            raise job["err"]
+        return job["out"], int(job.get("hits", 0))
+
+    def serve_encode(self, body: Dict[str, Any]) -> "_Reply":
+        """``POST /encode {"images" | "mm_inputs", "raw"}`` (JAX worker
+        :2827-2881): ``worker.hang_encode`` stalls the handler (value:
+        seconds, default 30) and ``worker.fail_encode`` answers a 500,
+        first; then the embeddings as the meta line and float32 bytes
+        (``raw``) or base64 JSON, with the cache hits. A bad image spec
+        is a 400, a queue that did not serve in time a 503."""
+        hang = self.failpoints.fire("worker.hang_encode")
+        if hang is not None:
+            self._stop.wait(float(hang) if hang is not True else 30.0)
+        if self.failpoints.fire("worker.fail_encode") is not None:
+            return _Reply.error(500, "injected encode failure "
+                                     "(failpoint worker.fail_encode)")
+        images = body.get("images") or body.get("mm_inputs") or []
+        if not images:
+            return _Reply.error(400, "no images")
+        try:
+            embeds, hits = self.encode_via_queue(images)
+        except ValueError as e:
+            return _Reply.error(400, str(e))
+        except TimeoutError as e:
+            return _Reply.error(503, str(e), "unavailable")
+        if body.get("raw"):
+            meta = multimodal.embeds_raw_meta(embeds)
+            meta["cache_hits"] = hits
+            return _Reply(data=json.dumps(stamp(meta)).encode("utf-8")
+                          + b"\n" + np.ascontiguousarray(
+                              embeds, dtype=np.float32).tobytes())
+        out = multimodal.embeds_to_wire(embeds)
+        out["cache_hits"] = hits
+        return _Reply(200, out)
+
+    def serve_encode_done(self, body: Dict[str, Any]) -> "_Reply":
+        """``POST /encode_done {"uuid"}``: a requester's acknowledgment
+        of a staged embedding ticket. This worker stages none (its
+        embeddings travel as bytes), so every ticket is unknown."""
+        try:
+            int(body.get("uuid"))
+        except (TypeError, ValueError):
+            return _Reply.error(400, "invalid body")
+        return _Reply(200, {"ok": True, "known": False})
+
+    def _count_encode_fallback(self, reason: str, source: str,
+                               target: str) -> None:
+        """A routed encode stage not served by its instance: counted and
+        an event (JAX worker :2940-2955)."""
+        self.obs.counter(
+            "xllm_encode_fallback_total",
+            "routed encode stages rerouted to a survivor or degraded to "
+            "local encode, by reason", labelnames=("reason",)
+        ).inc(reason=reason)
+        self.events.emit("encode_fallback", reason=reason, source=source,
+                         target=target)
+        logger.warning("encode fallback (%s): %s -> %s", reason, source,
+                       target or "local")
+
+    def _fetch_remote_embeds(self, target: str, mm_inputs: List[Any],
+                             timeout: float) -> Tuple[np.ndarray, int]:
+        """One ``/encode`` ask of ``target`` for the raw bytes (a base64
+        JSON answer is read too). Raises on any failure: the caller walks
+        the fallbacks."""
+        status, body_iter = http_stream_status(
+            "POST", target, "/encode",
+            obj=stamp({"images": list(mm_inputs), "raw": True,
+                       "wire": False}), timeout=timeout)
+        raw = b"".join(body_iter)
+        if status != 200:
+            raise RuntimeError(f"/encode returned HTTP {status}")
+        if raw.startswith(b"{") and b"\n" not in raw:
+            head = json.loads(raw.decode("utf-8"))
+            return (multimodal.embeds_from_wire(head),
+                    int(head.get("cache_hits", 0)))
+        nl = raw.find(b"\n")
+        if nl < 0:
+            raise ValueError("malformed raw embed payload")
+        meta = json.loads(raw[:nl].decode("utf-8"))
+        check_version(meta, "encode")
+        return (multimodal.embeds_from_raw(meta, raw[nl + 1:]),
+                int(meta.get("cache_hits", 0)))
+
+    def _resolve_mm_embeds(self, mm_inputs: List[Any], encode_name: str,
+                           fallbacks: Optional[List[str]] = None
+                           ) -> np.ndarray:
+        """The encode stage (JAX worker :2996-3054): the routed encode
+        instance, then its ranked survivors, under one
+        XLLM_ENCODE_TIMEOUT_S deadline with jittered pacing between
+        attempts, then this worker's own tower: an encode worker's death
+        is never the client's error."""
+        deadline = time.monotonic() + self._encode_timeout_s
+        policy = RetryPolicy(max_attempts=1, base_delay_s=0.05,
+                             max_delay_s=2.0, multiplier=2.0, jitter=0.5)
+        targets: List[str] = []
+        for t in [encode_name] + list(fallbacks or []):
+            if t and t != self.name and t not in targets:
+                targets.append(t)
+        for attempt, target in enumerate(targets):
+            remaining = deadline - time.monotonic()
+            if remaining <= 0.05:
+                self._count_encode_fallback("deadline", target, "local")
+                break
+            try:
+                return self._fetch_remote_embeds(target, mm_inputs,
+                                                 remaining)[0]
+            except Exception as e:  # noqa: BLE001 — any failure walks on
+                nxt = targets[attempt + 1] if attempt + 1 < len(targets) \
+                    else "local"
+                self._count_encode_fallback(
+                    "unreachable" if isinstance(e, (OSError,
+                                                    ConnectionError))
+                    else "error", target, nxt)
+                policy.sleep(attempt, deadline=deadline,
+                             stop_event=self._stop)
+        return self.encode_via_queue(
+            mm_inputs, timeout=max(deadline - time.monotonic(), 5.0))[0]
+
+    def _resolve_mm(self, rt: ModelRuntime, body: Dict[str, Any],
+                    token_ids: List[int]) -> Tuple[List[int], Dict[str, Any]]:
+        """A generate body's images (JAX worker :1986-2023): their
+        embeddings from the encode stage, each placeholder expanded to
+        that many image tokens, and for an mrope model the prompt's 3-D
+        rope streams and delta (the merged grid side from the embeddings'
+        token count, the one source right whichever worker encoded).
+        Returns (the expanded token ids, the EngineRequest's multimodal
+        fields)."""
+        routing = body.get("routing") or {}
+        embeds = self._resolve_mm_embeds(
+            list(body["mm_inputs"]), routing.get("encode_name", ""),
+            routing.get("encode_fallbacks", []))
+        n_img, tpi, _ = embeds.shape
+        img_tok = multimodal.image_token_id(rt.model_cfg.vocab_size)
+        token_ids, positions = multimodal.expand_image_placeholders(
+            token_ids, self.tokenizer.encode(multimodal.IMAGE_PLACEHOLDER),
+            n_img, tpi, img_tok)
+        mm: Dict[str, Any] = {"mm_embeds": embeds.reshape(n_img * tpi, -1),
+                              "mm_positions": positions}
+        if rt.model_cfg.is_mrope:
+            side = int(round(tpi ** 0.5))
+            if side * side != tpi:
+                raise ValueError(f"non-square image token count {tpi}; "
+                                 f"cannot derive the mrope grid")
+            mm["mm_rope_pos"], mm["rope_delta"] = \
+                multimodal.mrope_positions(
+                    token_ids, img_tok, [(1, 2 * side, 2 * side)] * n_img, 2)
+        return token_ids, mm
+
+    def serve_embeddings(self, body: Dict[str, Any]) -> "_Reply":
+        """``POST /v1/embeddings {"input", "model"}`` (JAX worker
+        :2566-2618): each input's mean-pooled, L2-normalized final hidden
+        state. Inputs pad to a power of two in count and length; one
+        longer than ``EMBED_MAX_TOKENS`` is a 400."""
+        inputs = body.get("input", [])
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        if not inputs:
+            return _Reply.error(400, "input is required")
+        model = body.get("model", self.opts.model)
+        rt = self._runtime_for(model)
+        if rt.engine is None:
+            return _Reply.error(503, f"model {model} asleep", "unavailable")
+        id_lists = [self.tokenizer.encode(t) or [0] for t in inputs]
+        for i, ids in enumerate(id_lists):
+            if len(ids) > self.EMBED_MAX_TOKENS:
+                return _Reply.error(
+                    400, f"input {i} is {len(ids)} tokens; the embeddings "
+                         f"endpoint accepts at most {self.EMBED_MAX_TOKENS} "
+                         f"tokens per input")
+        B = 1 << max(len(id_lists) - 1, 0).bit_length()
+        T = 1 << max(max(len(i) for i in id_lists) - 1, 0).bit_length()
+        toks = np.zeros((B, T), np.int64)
+        lens = np.zeros((B,), np.int32)
+        for i, ids in enumerate(id_lists):
+            toks[i, :len(ids)] = ids
+            lens[i] = len(ids)
+        with self._engine_lock, torch.inference_mode():
+            eng = rt.engine
+            if eng is None:
+                return _Reply.error(503, f"model {model} asleep",
+                                    "unavailable")
+            out = forward_embedding(
+                eng.params, rt.model_cfg,
+                torch.from_numpy(toks).to(self.device),
+                torch.from_numpy(lens).to(self.device), eng.kv).cpu()
+        total = int(lens.sum())
+        return _Reply(200, {
+            "object": "list", "model": model,
+            "data": [{"object": "embedding", "index": i,
+                      "embedding": out[i].tolist()}
+                     for i in range(len(id_lists))],
+            "usage": {"prompt_tokens": total, "total_tokens": total}})
+
     def guarded(self, fn, *args) -> "_Reply":
         """Every work-accepting route (JAX worker :2110-2127): counted in
         ``_inflight_parse`` before the refusal check (the other order
@@ -3538,13 +4089,15 @@ def _handler_class(worker: Worker):
                        "/wakeup": worker.wakeup_model,
                        "/fork_master": worker.fork_master,
                        "/flip_role": worker.flip_role,
-                       "/kv/blocks_done": worker.serve_kv_blocks_done}
+                       "/kv/blocks_done": worker.serve_kv_blocks_done,
+                       "/encode": worker.serve_encode,
+                       "/encode_done": worker.serve_encode_done}
             if self.path in ("/kv/import", "/kv/chunk"):
                 self._raw_post()
                 return
             if self.path not in routes and self.path not in control \
                     and self.path not in ("/cancel", "/admin/failpoint",
-                                          "/kv/blocks"):
+                                          "/kv/blocks", "/v1/embeddings"):
                 self._error(HttpError(404, f"no route {self.path}"))
                 return
             try:
@@ -3564,10 +4117,14 @@ def _handler_class(worker: Worker):
                     self._json(200, {"ok": True,
                                      "state": worker.failpoints.state()})
                     return
-                if self.path in control or self.path == "/kv/blocks":
+                if self.path in control or self.path in ("/kv/blocks",
+                                                         "/v1/embeddings"):
                     try:
                         if self.path == "/kv/blocks":
                             reply = worker.guarded(worker.serve_kv_blocks,
+                                                   body)
+                        elif self.path == "/v1/embeddings":
+                            reply = worker.guarded(worker.serve_embeddings,
                                                    body)
                         else:
                             reply = control[self.path](body)
@@ -3645,6 +4202,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "over CUDA IPC (else bytes over HTTP)")
     p.add_argument("--enable-profiling", action="store_true",
                    help="measure TTFT/TPOT samples for the registration")
+    p.add_argument("--role", default="", choices=["", "encode"],
+                   help="encode: serve the vision tower only (the model "
+                        "sleeps; registers as ENCODE)")
     return p.parse_args(argv)
 
 
@@ -3671,7 +4231,8 @@ def build_worker(args: argparse.Namespace,
         heartbeat_interval_s=args.heartbeat_interval_s,
         murmur_seed=args.murmur_seed, pd_direct_kv=args.pd_direct_kv,
         pd_device_wire=args.pd_device_wire,
-        enable_profiling=args.enable_profiling)
+        enable_profiling=args.enable_profiling,
+        encode_only=args.role == "encode")
     return Worker(opts, engine_cfg=ecfg, model_cfg=model_cfg, params=params)
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import random
 import time
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,11 +43,18 @@ class RetryPolicy:
             d *= 1.0 - self.jitter * random.random()
         return max(d, 0.0)
 
-    def sleep(self, attempt: int, stop_event=None) -> bool:
-        """Wait out attempt ``attempt``'s backoff. Returns False when
+    def sleep(self, attempt: int, stop_event=None,
+              deadline: Optional[float] = None) -> bool:
+        """Wait out attempt ``attempt``'s backoff, cut at ``deadline``
+        (monotonic). Returns False when the deadline has passed or
         ``stop_event`` is set (the caller abandons the retry loop);
         waiting on it keeps shutdown responsive."""
         d = self.delay(attempt)
+        if deadline is not None:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return False
+            d = min(d, remaining)
         if stop_event is not None:
             return not stop_event.wait(d)
         time.sleep(d)
