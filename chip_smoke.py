@@ -352,7 +352,20 @@ Phases (any failure raises and the exit code is not 0):
    graph after warmup, an encode-cache hit on a repeated image, the
    local encode under ``worker.fail_encode`` (the same text), the image
    streams under the margins rule. At most 150 s.
-15. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
+15. The observability and coordination plane over etcd (``obs_phase``,
+   ``[obs]``): the native etcd server built from ``csrc/xllm_etcd.cpp``
+   with g++; the reference master on ``etcd://`` and llama3-1b (16
+   layers, random bf16 weights) in-process on ``--store-addr etcd://``:
+   seconds until listed; 8 chats through the master whose traces at
+   ``/admin/trace/<id>`` hold the worker-plane stages in order beside the
+   service's, and how long after ``finished`` they arrived; the worker's
+   ``/admin/steptrace`` sections and ``/metrics`` profiler families; the
+   profiler's cost (decode step median and tokens/s per stream with
+   ``XLLM_HOTPATH_PROFILE`` on and off, two children); the etcd process
+   killed (store health 0, chats still served) and restarted empty (the
+   seconds to re-registration and the list); ``stop()`` off the list.
+   At most 60 s.
+16. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
    writers' launches from phase 5 (K1/K2 now 0), K5 from 5b, K6 (now 0),
    K7, K3', K4' and the dense all-layer mode from 5c, K3'' and the fused
    latent writers from 5d, the current form of K3'' and the latent
@@ -373,6 +386,7 @@ present, or when the port's package is not beside it.
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 import gc
 import json
@@ -7644,6 +7658,381 @@ def epd_phase(torch, kernels, card: str, err: float) -> dict:
             p.stop()
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 15: the observability and coordination plane over etcd
+# ---------------------------------------------------------------------------
+
+OBS_MODEL = "llama3-1b"
+OBS_DEVICE = "cuda"
+OBS_ARGS = ["--page-size", "128", "--num-pages", "512", "--max-model-len",
+            "1024", "--max-batch-size", "8", "--prefill-buckets",
+            "128,256,512", "--max-prefill-tokens", "256",
+            "--heartbeat-interval-s", "0.5"]
+OBS_ENV = {"XLLM_RAGGED_ATTN": "0", "XLLM_WRITE_THEN_ATTEND": "1"}
+# 1 in N lock acquisitions sampled on the cluster worker (what
+# XLLM_LOCK_PROFILE_SAMPLE=N sets at import), so that its /metrics
+# carries the lock-wait families.
+OBS_LOCK_SAMPLE = 64
+OBS_SECTIONS = ("span.write", "event.emit", "sse.assemble")
+# The profiler-cost rounds, each the 8 chats direct to one child: on
+# and off in turns, each first and last in turn.
+OBS_COST_ROUNDS = ("profile_on", "profile_off", "profile_off", "profile_on",
+                   "profile_on", "profile_off")
+OBS_BUDGET_S = 60.0
+WORKER_STAGES = ["received", "scheduled", "first_token", "finished"]
+
+
+class EtcdProcess:
+    """The native etcd v3 JSON-gateway server (``csrc/xllm_etcd.cpp``,
+    built by ``build_etcd``) on ``port`` (0 = ephemeral); it prints
+    ``LISTENING <port>`` once bound."""
+
+    def __init__(self, binary: Path, port: int = 0) -> None:
+        self.proc = subprocess.Popen([str(binary), str(port)],
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.DEVNULL, text=True)
+        line = self.proc.stdout.readline()
+        if not line.startswith("LISTENING "):
+            self.stop()
+            raise AssertionError(f"phase 15: xllm_etcd did not bind: "
+                                 f"{line!r}")
+        self.port = int(line.split()[1])
+        self.address = f"127.0.0.1:{self.port}"
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=15)
+
+
+def build_etcd(out_dir: Path) -> tuple:
+    """g++ builds the native etcd server from the checkout; returns
+    (binary, seconds)."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    binary = out_dir / "xllm_etcd"
+    t0 = time.perf_counter()
+    subprocess.run(["g++", "-O2", "-std=c++17", "-pthread",
+                    str(ROOT / "csrc" / "xllm_etcd.cpp"), "-o",
+                    str(binary)], check=True, capture_output=True,
+                   timeout=300)
+    return binary, time.perf_counter() - t0
+
+
+def etcd_revision(addr: str) -> int:
+    """The etcd server's current revision (a range's header)."""
+    host, port = addr.rsplit(":", 1)
+    conn = HTTPConnection(host, int(port), timeout=10)
+    try:
+        conn.request("POST", "/v3/kv/range", json.dumps(
+            {"key": base64.b64encode(b"\0").decode()}),
+            {"Content-Type": "application/json"})
+        return int(json.loads(conn.getresponse().read())["header"]
+                   ["revision"])
+    finally:
+        conn.close()
+
+
+def pad_etcd_revision(client, addr: str, revision: int) -> int:
+    """Write one scratch key until the server's revision passes
+    ``revision``; returns the writes. An etcd client's watch resumes from
+    the revision after the last it saw, so on a store restarted empty
+    (its revisions counted from 1 again) the reference master's watches
+    hear nothing until the new revision passes the old."""
+    n = 0
+    while etcd_revision(addr) <= revision:
+        client.put("OBS:PAD", str(n))
+        n += 1
+    return n
+
+
+def _stream_rate(result) -> tuple:
+    """A 32-token streamed reply's (TTFT ms, decode tokens/s over its 31
+    gaps)."""
+    ttft = _ttft_ms(result)
+    _, _, idx, _ = stream_tokens(result["frames"])
+    return ttft, 31 / (result["times"][idx[-1]] - result["times"][idx[0]])
+
+
+def _decode_steps_ms(addr: str, t0: float, t1: float) -> list:
+    """The decode steps' ms a worker recorded between wall clocks t0 and
+    t1 (its /admin/steptrace)."""
+    status, st = _get(addr, "/admin/steptrace?n=4096")
+    if status != 200:
+        raise AssertionError(f"phase 15: steptrace of {addr}: {status}")
+    return [r["step_ms"] for r in st["steps"]
+            if r["kind"] == "decode" and t0 <= r["t_wall"] <= t1]
+
+
+def obs_phase(torch, kernels, card: str) -> dict:
+    """Phase 15: llama3-1b at full width and depth (16 layers, random
+    bf16 weights from the engine's seed) behind the reference master
+    over etcd, on the card.
+
+    a. The native etcd server built from ``csrc/xllm_etcd.cpp`` with g++
+       and started on an ephemeral port.
+    b. The reference master (a child) on ``etcd://``; the port worker
+       in-process on ``--store-addr etcd://...`` (lock contention sampled
+       1 in ``OBS_LOCK_SAMPLE``): the seconds until it is listed.
+    c. ``CHAT_ROUND``'s 8 streamed chats through the master at
+       temperature 0, each with its ``x-request-id``: every master trace
+       holds the worker-plane stages received, scheduled, first_token,
+       finished in that order beside the service's; the delay from the
+       worker's ``finished`` to the spans at the master; the path's
+       kernels launched.
+    d. The worker's ``/admin/steptrace`` sections (count and mean us of
+       span.write, event.emit, sse.assemble) and its ``/metrics`` with
+       the profiler's families, parsed.
+    e. The profiler's cost: two standalone worker children, the default
+       and ``XLLM_HOTPATH_PROFILE=0``, the same chats direct in the
+       rounds of ``OBS_COST_ROUNDS``: decode step medians (each round's
+       too) and tokens/s per stream.
+    f. The etcd process killed: ``xllm_store_health`` 0 and chats still
+       served through the master; the server restarted empty on its
+       port: the seconds until the worker re-registered in it and is on
+       the master's list.
+    g. ``stop()``: the seconds until the worker is off the list.
+
+    At most ``OBS_BUDGET_S`` on the script's clock."""
+    from xllm_service_tpu_torch.runtime import worker
+    from xllm_service_tpu_torch.service.etcd_store import EtcdStore
+    from xllm_service_tpu_torch.utils import locks
+    t_phase, t_wall0 = time.perf_counter(), time.time()
+    logs = ROOT / "build" / "obs_logs"
+    logs.mkdir(parents=True, exist_ok=True)
+    out = {"card": card}
+    procs, children, w, etcd = [], {}, None, None
+    problems = []
+    sample = locks.PROFILE_SAMPLE
+
+    def spawn_child(tag: str, env: dict) -> None:
+        try:
+            children[tag] = RefProcess(
+                ["xllm_service_tpu_torch.runtime.worker", "--model",
+                 OBS_MODEL, "--device", OBS_DEVICE, *OBS_ARGS],
+                "XLLM_TORCH_WORKER_UP",
+                logs / f"{tag}_child.log", timeout=240.0,
+                env={**OBS_ENV, **env})
+        except Exception as e:  # noqa: BLE001 — raised after the join
+            children[tag + "_err"] = e
+    starters = [threading.Thread(target=spawn_child, args=(tag, env))
+                for tag, env in (("profile_on", {}),
+                                 ("profile_off",
+                                  {"XLLM_HOTPATH_PROFILE": "0"}))]
+    try:
+        for t in starters:
+            t.start()
+        # a.
+        binary, out["etcd_build_s"] = build_etcd(ROOT / "build" / "obs")
+        etcd = EtcdProcess(binary)
+        store = f"etcd://{etcd.address}"
+        log(f"[obs] {card}: xllm_etcd built in {out['etcd_build_s']:.2f} s,"
+            f" listening on {etcd.address}")
+        # b.
+        master, m_http, m_rpc = start_master(store, False,
+                                             logs / "master.log")
+        procs.append(master)
+        locks.PROFILE_SAMPLE = OBS_LOCK_SAMPLE
+        t0 = time.perf_counter()
+        w, out["worker_boot_s"] = _start(
+            worker, ["--model", OBS_MODEL, "--device", OBS_DEVICE,
+                     *OBS_ARGS, "--store-addr", store,
+                     "--service-addr", m_rpc], OBS_ENV)
+        if type(w.store.inner) is not EtcdStore:
+            raise AssertionError(f"phase 15: the worker's store is "
+                                 f"{type(w.store.inner)}")
+        wait_for(lambda: w.name in listed(m_rpc), 30.0,
+                 "phase 15: the worker on the master's list")
+        out["listed_s"] = time.perf_counter() - t0
+        out["listed_after_start_s"] = out["listed_s"] - out["worker_boot_s"]
+        # c.
+        rng = random.Random(15)
+        bodies = [_chat_body(_token_ids(w.tokenizer, rng, n))
+                  for n in CHAT_ROUND]
+        rids = [f"obs-{i}" for i in range(len(bodies))]
+        kernels.reset_launch_counts()
+        results = _concurrent(m_http, bodies,
+                              [{"x-request-id": r} for r in rids])
+        launches = kernels.launch_counts()
+        out["through_master"] = chat_summary(
+            [_stream_rate(r) for r in results])
+        pending, delays = set(rids), {}
+        traces = {}
+        deadline = time.monotonic() + 15.0
+        while pending and time.monotonic() < deadline:
+            for rid in sorted(pending):
+                status, tr = _get(m_http, f"/admin/trace/{rid}")
+                if status != 200:
+                    continue
+                wk = [e for e in tr["events"] if e["plane"] == "worker"]
+                fin = [e for e in wk if e["stage"] == "finished"]
+                if fin:
+                    delays[rid] = (time.time() - fin[0]["t_wall"]) * 1e3
+                    traces[rid] = tr
+                    pending.discard(rid)
+            time.sleep(0.02)
+        if pending:
+            raise AssertionError(f"phase 15: no worker spans at the master "
+                                 f"for {sorted(pending)}")
+        for rid, tr in traces.items():
+            wk = [e["stage"] for e in tr["events"] if e["plane"] == "worker"]
+            svc = {e["stage"] for e in tr["events"]
+                   if e["plane"] == "service"}
+            if wk != WORKER_STAGES or not {"received", "finished"} <= svc:
+                problems.append(f"trace {rid}: worker {wk}, service "
+                                f"{sorted(svc)}")
+        out["spans_at_master_after_finished_ms"] = {
+            "median": _median(list(delays.values())),
+            "max": max(delays.values()),
+            "each": [delays[r] for r in rids]}
+        out["launches"] = {k: launches.get(k, 0) for k in (
+            "rope_kv_update_layer", "rope_prefill_kv_update_layer",
+            "paged_decode_attention", "paged_prefill_attention")}
+        if min(out["launches"].values()) <= 0:
+            problems.append(f"a kernel of the path never launched: "
+                            f"{out['launches']}")
+        log(f"[obs] {card}: listed {out['listed_s']:.2f} s after boot "
+            f"began ({out['listed_after_start_s']:.2f} s after start()); "
+            f"8 chats through the master {json.dumps(out['through_master'])}"
+            f"; worker spans at the master ms after finished "
+            f"{json.dumps(out['spans_at_master_after_finished_ms'])}")
+        # d.
+        def section_stats() -> dict:
+            status, st = _get(w.name, "/admin/steptrace")
+            if status != 200 or not st["sections"]:
+                raise AssertionError(f"phase 15: steptrace sections "
+                                     f"{status} {st and st['sections']}")
+            stats = {}
+            for name in OBS_SECTIONS:
+                ms = [e["dur_ms"] for e in st["sections"]
+                      if e["name"] == name and e["t_wall"] >= t_wall0]
+                stats[name] = {"count": len(ms), "mean_us": (
+                    1e3 * sum(ms) / len(ms) if ms else None)}
+            return stats
+        out["sections"] = section_stats()
+        if not out["sections"]["span.write"]["count"] or \
+                not out["sections"]["sse.assemble"]["count"]:
+            problems.append(f"sections {out['sections']}")
+        rows = _metric_rows(w.name)
+        names = {n for n, _ in rows}
+        want = {"xllm_service_hotpath_ms_bucket",
+                "xllm_service_hotpath_ops_total", "xllm_lock_wait_ms_bucket",
+                "xllm_lock_contended_total", "xllm_thread_cpu_seconds_total",
+                "xllm_gc_pause_ms_bucket", "xllm_process_rss_bytes",
+                "xllm_span_evictions_total", "xllm_http_conn_pool_hits_total"}
+        out["metrics_missing"] = sorted(want - names)
+        if out["metrics_missing"]:
+            problems.append(f"/metrics lacks {out['metrics_missing']}")
+        out["thread_cpu_s"] = {dict(ls)["root"]: v for (n, ls), v in
+                               rows.items()
+                               if n == "xllm_thread_cpu_seconds_total"}
+        log(f"[obs] {card}: sections since the phase began "
+            f"{json.dumps(out['sections'])}; CPU s per thread root "
+            f"{json.dumps(out['thread_cpu_s'])}")
+        # e.
+        for t in starters:
+            t.join(300)
+        for tag in ("profile_on", "profile_off"):
+            if tag not in children:
+                raise AssertionError(f"phase 15: the {tag} child did not "
+                                     f"start: {children.get(tag + '_err')}")
+            procs.append(children[tag])
+        addrs = {tag: children[tag].line.split("http=")[1].split()[0]
+                 for tag in ("profile_on", "profile_off")}
+        cost = {tag: {"steps": [], "streams": [], "round_step_ms": []}
+                for tag in addrs}
+        for tag in OBS_COST_ROUNDS:
+            t0 = time.time()
+            res = _concurrent(addrs[tag], bodies)
+            steps = _decode_steps_ms(addrs[tag], t0, time.time())
+            cost[tag]["streams"] += [_stream_rate(r) for r in res]
+            cost[tag]["steps"] += steps
+            cost[tag]["round_step_ms"].append(_median(steps))
+        out["profiler_cost"] = {
+            tag: {"decode_step_ms_median": _median(c["steps"]),
+                  "decode_steps": len(c["steps"]),
+                  "round_decode_step_ms_median": c["round_step_ms"],
+                  **chat_summary(c["streams"])}
+            for tag, c in cost.items()}
+        on, off = (out["profiler_cost"][t]["decode_step_ms_median"]
+                   for t in ("profile_on", "profile_off"))
+        out["profiler_cost"]["decode_step_ms_delta"] = on - off
+        log(f"[obs] {card}: profiler cost, XLLM_HOTPATH_PROFILE on vs off:"
+            f" decode step median ms {on} vs {off}; decode tokens/s per "
+            f"stream median "
+            f"{out['profiler_cost']['profile_on']['decode_tokens_per_s_median']}"
+            f" vs "
+            f"{out['profiler_cost']['profile_off']['decode_tokens_per_s_median']}")
+        # f.
+        old_revision = etcd_revision(etcd.address)
+        etcd.stop()
+        t0 = time.perf_counter()
+        wait_for(lambda: _metric(_metric_rows(w.name),
+                                 "xllm_store_health") == 0, 15.0,
+                 "phase 15: the worker's store health 0")
+        out["outage_seen_s"] = time.perf_counter() - t0
+        during = _concurrent(m_http, bodies[:2])
+        out["served_during_outage"] = [_stream_rate(r)[0] for r in during]
+        etcd = EtcdProcess(binary, etcd.port)
+        t0 = time.perf_counter()
+        client = EtcdStore(etcd.address)
+        key = f"XLLM:DEFAULT:{w.name}"
+        wait_for(lambda: client.get(key) is not None, 20.0,
+                 "phase 15: the re-registration in the restarted store")
+        out["reregistered_s"] = time.perf_counter() - t0
+        out["etcd_revision_padding"] = pad_etcd_revision(
+            client, etcd.address, old_revision)
+        wait_for(lambda: w.name in listed(m_rpc) and _metric(
+            _metric_rows(w.name), "xllm_store_health") == 2, 20.0,
+            "phase 15: the worker back on the master's list")
+        out["relisted_s"] = time.perf_counter() - t0
+        out["sections_after_outage"] = section_stats()
+        if not out["sections_after_outage"]["event.emit"]["count"]:
+            problems.append("no event.emit section after the outage")
+        log(f"[obs] {card}: etcd killed: store health 0 after "
+            f"{out['outage_seen_s']:.2f} s, TTFT ms during the outage "
+            f"{out['served_during_outage']}; restarted empty: re-registered "
+            f"after {out['reregistered_s']:.2f} s, on the list after "
+            f"{out['relisted_s']:.2f} s (revision padded by "
+            f"{out['etcd_revision_padding']} writes); sections "
+            f"{json.dumps(out['sections_after_outage'])}")
+        # g.
+        t0 = time.perf_counter()
+        w.stop()
+        wait_for(lambda: w.name not in listed(m_rpc), 15.0,
+                 "phase 15: the worker off the list after stop()")
+        out["unlisted_after_stop_s"] = time.perf_counter() - t0
+        if client.get(key) is not None:
+            problems.append("the registration outlived stop()")
+        out["seconds"] = time.perf_counter() - t_phase
+        if out["seconds"] > OBS_BUDGET_S:
+            problems.append(f"{out['seconds']:.1f} s > {OBS_BUDGET_S} s")
+        log(f"[obs] {card}: {json.dumps(out)}")
+        if problems:
+            raise AssertionError(f"phase 15: {problems}")
+        return out
+    except BaseException:
+        for p in list(procs) + [c for c in children.values()
+                                if isinstance(c, RefProcess)]:
+            tail = p.tail()
+            if tail:
+                log(f"[obs] {p.log_path.name} tail:\n{tail}")
+        raise
+    finally:
+        locks.PROFILE_SAMPLE = sample
+        for t in starters:
+            t.join(300)
+        if w is not None:
+            w.stop()
+        for p in reversed(procs):
+            p.stop()
+        for c in children.values():
+            if isinstance(c, RefProcess) and c not in procs:
+                c.stop()
+        if etcd is not None:
+            etcd.stop()
+
+
 def main() -> int:
     try:
         import torch
@@ -7925,6 +8314,10 @@ def main() -> int:
     bench.results += epd.pop("records")
     free_device_memory(torch)
     mark("14_epd")
+    # 15. The observability and coordination plane, over etcd.
+    observed = obs_phase(torch, kernels, card)
+    free_device_memory(torch)
+    mark("15_obs")
     margins = served_c["on_engine"] + served_e["on_engine"]
     for phase in (served, served_b, served_c, served_d, served_e):
         phase.pop("prompts")
@@ -7991,7 +8384,7 @@ def main() -> int:
                "cluster_cache_aware": routed, "sampling": sampled,
                "faults": faulted, "pd": disaggregated, "fetch": fetched,
                "lifecycle": lifecycle, "checkpoint": from_disk,
-               "epd": epd,
+               "epd": epd, "obs": observed,
                "graph_decode_check": {"llama3-1b": graph,
                                       "deepseek-v2-lite": graph_mla},
                "warmup_ladders": ladders,

@@ -33,6 +33,10 @@ from xllm_service_tpu_torch.runtime import worker as torch_worker
 from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
 from xllm_service_tpu_torch.utils.types import FinishReason, SamplingParams
 
+from tests.test_torch_cluster import jax_compile_cache  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_compile_cache")
+
 VOCAB = 128
 # 16 usable pages of 4 tokens: 64 token positions for up to 4 sequences
 # that each grow to 22-24 tokens, so decode growth runs the pool dry.
@@ -57,10 +61,9 @@ def weights():
 
 def _jax(weights, **kw):
     jcfg, _, jparams, _ = weights
-    engine = JaxEngine(jcfg, JaxEngineConfig(
-        **{**TIGHT, **kw}, decode_steps=1, enable_prefix_cache=False))
-    engine.params = jparams
-    return engine
+    return JaxEngine(jcfg, JaxEngineConfig(
+        **{**TIGHT, **kw}, decode_steps=1, enable_prefix_cache=False),
+        params=jparams)
 
 
 def _port(weights, **kw):
@@ -115,39 +118,56 @@ def _first_new_token(stream, start):
     raise AssertionError(f"no fresh token in {stream}")
 
 
-@pytest.mark.parametrize("mode", [dict(), dict(ragged_attn=True),
-                                  dict(interleave=False)],
-                         ids=["split", "ragged", "prefill_first"])
-def test_preemption_under_a_tight_pool_matches_jax(weights, mode):
-    jax_engine, port = _jax(weights, **mode), _port(weights, **mode)
-    jst, jfin, jled = _drive(jax_engine, _feed(PRESSURE), JaxRequest,
-                             JaxSampling)
-    tst, tfin, tled = _drive(port, _feed(PRESSURE), EngineRequest,
-                             SamplingParams)
+MODES = {"split": dict(), "ragged": dict(ragged_attn=True),
+         "prefill_first": dict(interleave=False)}
+
+
+@pytest.fixture(scope="module")
+def pressure_runs(weights):
+    """One run of ``PRESSURE`` per mode on each engine, shared by the
+    tests of its mode: {mode: ((JAX engine, streams, finish, ledger,
+    loads), (port engine, ...))}, each mode run at its first use."""
+    runs = {}
+
+    def run(mode):
+        if mode not in runs:
+            pair = []
+            for engine, request, sampling in (
+                    (_jax(weights, **MODES[mode]), JaxRequest,
+                     JaxSampling),
+                    (_port(weights, **MODES[mode]), EngineRequest,
+                     SamplingParams)):
+                loads = []
+                pair.append((engine, *_drive(engine, _feed(PRESSURE),
+                                             request, sampling,
+                                             loads=loads), loads))
+            runs[mode] = tuple(pair)
+        return runs[mode]
+    return run
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_preemption_under_a_tight_pool_matches_jax(pressure_runs, mode):
+    (jax_engine, jst, jfin, jled, _), (port, tst, tfin, tled, _) = \
+        pressure_runs(mode)
     assert tst == jst and tfin == jfin
     assert tled == jled
     assert port.num_preemptions == jax_engine.num_preemptions > 0
     assert all(len(tst[rid]) == n for rid, _, n in
                sum(_feed(PRESSURE).values(), []))
-    if mode.get("ragged_attn"):
+    if mode == "ragged":
         assert any(r for _, r, *_ in tled), "no ragged iteration ran"
     assert port.allocator.num_free == TIGHT["num_pages"] - 1
     assert all(s is None for s in port._slots)
 
 
-@pytest.mark.parametrize("mode", [dict(), dict(ragged_attn=True),
-                                  dict(interleave=False)],
-                         ids=["split", "ragged", "prefill_first"])
-def test_load_metrics_match_jax_at_every_step(weights, mode):
+@pytest.mark.parametrize("mode", list(MODES))
+def test_load_metrics_match_jax_at_every_step(pressure_runs, mode):
     """The heartbeat's load (queue depths, the prefill backlog, KV usage,
     preemptions) equals the JAX engine's after every step under
     pressure; the JAX engine has no prefix cache here, so neither counts
     reclaimable pages."""
-    jloads, tloads = [], []
-    _drive(_jax(weights, **mode), _feed(PRESSURE), JaxRequest, JaxSampling,
-           loads=jloads)
-    _drive(_port(weights, **mode), _feed(PRESSURE), EngineRequest,
-           SamplingParams, loads=tloads)
+    (*_, jloads), (*_, tloads) = pressure_runs(mode)
     assert tloads == jloads
     assert max(x["kv_cache_usage"] for x in tloads) > 0.9
     assert max(x["waiting_prefill_tokens"] for x in tloads) > 0
@@ -163,8 +183,6 @@ VARIANTS = {"window": dict(sliding_window=8),
 VARIANT_RUNS = [(v, m, 1, False) for v in sorted(VARIANTS)
                 for m in ("split", "ragged", "prefill_first")] + \
     [(v, "split", 4, True) for v in sorted(VARIANTS)]
-MODES = {"split": dict(), "ragged": dict(ragged_attn=True),
-         "prefill_first": dict(interleave=False)}
 
 
 @pytest.fixture(scope="module")
@@ -239,7 +257,8 @@ def test_decode_growth_takes_one_page_at_a_time(weights):
 SMALL_POOL = dict(TIGHT, num_pages=9)
 
 
-def _eos_case(weights):
+@pytest.fixture(scope="module")
+def eos_case(weights):
     """The prompt, and an EOS id that first appears as the 9th-or-later
     greedy token of a free run on a large pool."""
     prompt = np.random.default_rng(7).integers(3, VOCAB, size=10).tolist()
@@ -255,8 +274,9 @@ def _eos_case(weights):
     return prompt, eos, stream[:i + 1]
 
 
-def test_prompt_that_fits_with_max_tokens_that_would_not_is_served(weights):
-    prompt, eos, want = _eos_case(weights)
+def test_prompt_that_fits_with_max_tokens_that_would_not_is_served(
+        weights, eos_case):
+    prompt, eos, want = eos_case
     feed = {1: [("r0", prompt, 60)]}
     jst, jfin, jled = _drive(_jax(weights, **SMALL_POOL), feed, JaxRequest,
                              JaxSampling, eos=(eos,))
@@ -281,8 +301,8 @@ def _post(addr, path, obj):
         conn.close()
 
 
-def test_worker_answers_200_where_it_answered_400(weights):
-    prompt, eos, want = _eos_case(weights)
+def test_worker_answers_200_where_it_answered_400(weights, eos_case):
+    prompt, eos, want = eos_case
     _, tcfg, _, tparams = weights
     w = torch_worker.Worker(
         torch_worker.WorkerOptions(model="tiny", device="cpu"),

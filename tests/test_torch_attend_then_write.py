@@ -581,8 +581,8 @@ def _run_port(weights, workload, **kw):
 def _run_jax(weights, workload, **kw):
     jcfg, _, jparams, _ = weights
     engine = JaxEngine(jcfg, JaxEngineConfig(
-        **{**ENGINE_KW, **kw}, decode_steps=1, enable_prefix_cache=False))
-    engine.params = jparams
+        **{**ENGINE_KW, **kw}, decode_steps=1, enable_prefix_cache=False),
+        params=jparams)
     assert engine.write_then_attend == kw.get("write_then_attend", False)
     return _drive(engine, _feed(workload), JaxRequest, JaxSampling)
 

@@ -48,6 +48,10 @@ from xllm_service_tpu_torch.utils.types import SamplingParams
 from tests.test_torch_decode_graph import TIGHT
 from tests.test_torch_worker import _post, _sse
 
+from tests.test_torch_cluster import jax_compile_cache  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_compile_cache")
+
 TOL = 1e-4
 V = 128
 ENGINE = dict(page_size=4, num_pages=96, max_model_len=128,

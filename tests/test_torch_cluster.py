@@ -59,6 +59,30 @@ def wait_until(cond, timeout=15.0, step=0.02):
 
 
 @pytest.fixture(scope="module")
+def jax_compile_cache(tmp_path_factory):
+    """XLA's persistent compilation cache for one module: a JAX engine
+    whose programs an engine before it in the module compiled (the same
+    configuration, the same programs) loads them instead of compiling
+    them again. The process's cache settings come back after the module.
+    (The JAX package leaves its CPU processes uncached, as a cache written
+    on another machine may not load there; this one lives and dies with
+    the module's process.)"""
+    from jax._src import compilation_cache
+    names = ("jax_compilation_cache_dir",
+             "jax_persistent_cache_min_compile_time_secs",
+             "jax_persistent_cache_min_entry_size_bytes")
+    saved = {n: getattr(jax.config, n) for n in names}
+    compilation_cache.reset_cache()
+    for n, v in zip(names, (str(tmp_path_factory.mktemp("xla_cache")),
+                            0.0, 0)):
+        jax.config.update(n, v)
+    yield
+    for n, v in saved.items():
+        jax.config.update(n, v)
+    compilation_cache.reset_cache()
+
+
+@pytest.fixture(scope="module")
 def models():
     jcfg = dataclasses.replace(JaxModelConfig.tiny(vocab_size=512),
                                dtype="float32")
@@ -688,8 +712,10 @@ def test_connect_store():
     s.close()
     assert isinstance(coordination_net.connect_store("127.0.0.1:1"),
                       coordination_net.RemoteStore)
-    with pytest.raises(NotImplementedError):
-        coordination_net.connect_store("etcd://127.0.0.1:2379")
+    from xllm_service_tpu_torch.service.etcd_store import EtcdStore
+    etcd = coordination_net.connect_store("etcd://127.0.0.1:2379")
+    assert isinstance(etcd, EtcdStore)
+    assert (etcd._host, etcd._port) == ("127.0.0.1", 2379)
     # A store that does not answer is an outage, not a dead lease.
     with pytest.raises(coordination_net.StoreOutageError):
         coordination_net.RemoteStore("127.0.0.1:1",

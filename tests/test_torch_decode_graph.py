@@ -45,6 +45,10 @@ from xllm_service_tpu_torch.runtime import decode_graph
 from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
 from xllm_service_tpu_torch.utils.types import FinishReason, SamplingParams
 
+from tests.test_torch_cluster import jax_compile_cache  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_compile_cache")
+
 # 10 usable pages of 4 tokens for 4 sequences that grow to 22-24 tokens:
 # single steps and bursts of 4 both preempt.
 TIGHT = dict(page_size=4, num_pages=11, max_model_len=128,

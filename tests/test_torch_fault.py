@@ -59,6 +59,10 @@ from xllm_service_tpu_torch.runtime import worker as torch_worker
 from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
 from xllm_service_tpu_torch.utils.types import SamplingParams
 
+from tests.test_torch_cluster import jax_compile_cache  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_compile_cache")
+
 V = 128
 
 

@@ -44,6 +44,10 @@ from xllm_service_tpu_torch.runtime import worker as torch_worker
 from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
 from xllm_service_tpu_torch.utils.types import SamplingParams
 
+from tests.test_torch_cluster import jax_compile_cache  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_compile_cache")
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 

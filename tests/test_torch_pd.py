@@ -57,6 +57,10 @@ from xllm_service_tpu_torch.service import httpd as torch_httpd
 from xllm_service_tpu_torch.utils.types import SamplingParams
 from tests.test_torch_prefix import _model
 
+from tests.test_torch_cluster import jax_compile_cache  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_compile_cache")
+
 # ---------------------------------------------------------------------------
 # Engines
 # ---------------------------------------------------------------------------

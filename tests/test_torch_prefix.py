@@ -40,6 +40,10 @@ from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
 from xllm_service_tpu_torch.utils import hashing as thash
 from xllm_service_tpu_torch.utils.types import SamplingParams
 
+from tests.test_torch_cluster import jax_compile_cache  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_compile_cache")
+
 VOCAB = 128
 # 10 usable pages of 4 tokens for up to 4 sequences of 14-30 tokens:
 # decode growth runs the pool dry (preemptions), and released cached

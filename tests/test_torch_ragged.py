@@ -26,6 +26,10 @@ from xllm_service_tpu_torch.models.weights import params_from_jax
 from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
 from xllm_service_tpu_torch.utils.types import SamplingParams
 
+from tests.test_torch_cluster import jax_compile_cache  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_compile_cache")
+
 VOCAB = 128
 ENGINE_KW = dict(page_size=8, num_pages=160, max_model_len=128,
                  max_batch_size=4, max_prefill_tokens=32,
@@ -88,16 +92,25 @@ def _port(weights, **kw):
     return engine
 
 
+# The port's runs by (weights, workload, options): the tests that drive
+# the same configuration share one run.
+_PORT_RUNS = {}
+
+
 def _run_port(weights, workload, **kw):
-    return _drive(_port(weights, **kw), _feed(workload), EngineRequest,
-                  SamplingParams)
+    key = (id(weights), repr(sorted(workload.items())), repr(sorted(
+        kw.items())))
+    if key not in _PORT_RUNS:
+        _PORT_RUNS[key] = _drive(_port(weights, **kw), _feed(workload),
+                                 EngineRequest, SamplingParams)
+    return _PORT_RUNS[key]
 
 
 def _run_jax(weights, workload, **kw):
     jcfg, _, jparams, _ = weights
     engine = JaxEngine(jcfg, JaxEngineConfig(
-        **{**ENGINE_KW, **kw}, decode_steps=1, enable_prefix_cache=False))
-    engine.params = jparams
+        **{**ENGINE_KW, **kw}, decode_steps=1, enable_prefix_cache=False),
+        params=jparams)
     return _drive(engine, _feed(workload), JaxRequest, JaxSampling)
 
 

@@ -444,7 +444,13 @@ def test_served_request_records_and_admin_steptrace(jparams, monkeypatch):
         assert status == 200 and st["enabled"] is True
         assert st["device_kind"] == "cpu"
         assert (st["peak_flops"], st["peak_bytes_s"]) == (1e11, 5e10)
-        assert st["sections"] == []
+        # The hot-path profiler's timed sections: the stream's SSE frames
+        # and its spans were timed on this process's threads.
+        assert st["sections"], "no hot-path section recorded"
+        assert all(set(e) == {"name", "t_wall", "dur_ms", "thread"}
+                   for e in st["sections"])
+        assert {"sse.assemble", "span.write"} <= {
+            e["name"] for e in st["sections"]}
         assert st["steps"], "no step recorded"
         kinds = {r["kind"] for r in st["steps"]}
         assert kinds <= {"prefill", "decode", "mixed"} and \

@@ -18,9 +18,11 @@ thread's crash, ``utils/threads.py``), ``store_outage_open`` and
 from __future__ import annotations
 
 import collections
-import threading
 import time
 from typing import Any, Dict, List, Optional
+
+from xllm_service_tpu_torch.obs import profiler
+from xllm_service_tpu_torch.utils.locks import make_lock
 
 
 def _deep_copy(v: Any) -> Any:
@@ -71,7 +73,7 @@ class EventLog:
 
     def __init__(self, capacity: int = DEFAULT_CAPACITY) -> None:
         self.capacity = max(1, int(capacity))
-        self._lock = threading.Lock()
+        self._lock = make_lock("obs.events", 80)
         self._ring: "collections.deque[Dict[str, Any]]" = \
             collections.deque(maxlen=self.capacity)
         self._seq = 0
@@ -85,14 +87,15 @@ class EventLog:
             raise ValueError(
                 f"event type {type!r} is not in the obs/events.py "
                 f"catalog {EVENT_TYPES}")
-        with self._lock:
-            self._seq += 1
-            if len(self._ring) == self.capacity:
-                self._dropped += 1
-            self._ring.append({"seq": self._seq, "type": type,
-                               "t_wall": time.time(), "attrs": attrs})
-            self._counts[type] += 1
-            return self._seq
+        with profiler.section("event.emit"):
+            with self._lock:
+                self._seq += 1
+                if len(self._ring) == self.capacity:
+                    self._dropped += 1
+                self._ring.append({"seq": self._seq, "type": type,
+                                   "t_wall": time.time(), "attrs": attrs})
+                self._counts[type] += 1
+                return self._seq
 
     def since(self, seq: int = 0,
               limit: Optional[int] = None) -> List[Dict[str, Any]]:

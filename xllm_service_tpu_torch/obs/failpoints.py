@@ -38,8 +38,9 @@ from __future__ import annotations
 
 import os
 import random
-import threading
 from typing import Any, Dict, Optional
+
+from xllm_service_tpu_torch.utils.locks import make_lock
 
 # The complete catalog, as the JAX package's.
 FAILPOINTS = (
@@ -75,7 +76,7 @@ class Failpoints:
 
     def __init__(self, obs=None, env: Optional[str] = None,
                  events=None) -> None:
-        self._lock = threading.Lock()
+        self._lock = make_lock("obs.failpoints", 75)
         self.obs = obs
         self.events = events
         # name -> {"mode", "n", "value", "fired", "units"}

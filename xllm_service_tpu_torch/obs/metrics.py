@@ -17,8 +17,9 @@ usage), refreshed by the ``/metrics`` handler before it renders.
 from __future__ import annotations
 
 import math
-import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from xllm_service_tpu_torch.utils.locks import make_rlock
 
 # Log-spaced latency buckets (milliseconds): 1-2-5 per decade from 1 ms
 # to 2 minutes.
@@ -177,6 +178,26 @@ class Histogram(_Family):
             s.total += 1
             s.sum += v
 
+    def set_counts(self, counts: Sequence[int], sum_value: float,
+                   total: Optional[int] = None, **labels: Any) -> None:
+        """Scrape-time mirror of a whole distribution another object
+        owns (the profiler's books): ``counts`` per bucket
+        (non-cumulative, one per edge), ``total`` with the samples past
+        the last edge (default ``sum(counts)``)."""
+        if len(counts) != len(self.buckets):
+            raise ValueError(
+                f"{self.name}: set_counts got {len(counts)} buckets, "
+                f"family has {len(self.buckets)}")
+        key = self._key(labels)
+        n_total = int(sum(counts)) if total is None else int(total)
+        with self._lock:
+            s = self._series.get(key)
+            if s is None:
+                s = self._series[key] = _HistogramSeries(len(self.buckets))
+            s.counts = [int(c) for c in counts]
+            s.total = n_total
+            s.sum = float(sum_value)
+
     def cumulative(self, **labels: Any
                    ) -> Optional[List[Tuple[float, float]]]:
         """One label set's cumulative bucket counts as ``[(le, cum),
@@ -222,7 +243,7 @@ class Registry:
     labelname conflict."""
 
     def __init__(self) -> None:
-        self._lock = threading.RLock()
+        self._lock = make_rlock("obs.registry", 93)
         self._families: Dict[str, _Family] = {}
 
     def _get_or_create(self, cls, name: str, help: str,

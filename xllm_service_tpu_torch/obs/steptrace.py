@@ -28,9 +28,10 @@ from __future__ import annotations
 
 import collections
 import os
-import threading
 import time
 from typing import Any, Deque, Dict, List, Optional, Tuple
+
+from xllm_service_tpu_torch.utils.locks import make_lock
 
 # The closed step-record schema (the JAX package's, field for field).
 STEP_FIELDS: Tuple[str, ...] = (
@@ -130,7 +131,7 @@ class StepTrace:
         self._ring: Deque[Dict[str, Any]] = collections.deque(
             maxlen=self.capacity)
         self._seq = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("obs.steptrace", 85)
 
     def record(self, **fields: Any) -> int:
         """Append one step record; returns its ``seq``. Unknown field

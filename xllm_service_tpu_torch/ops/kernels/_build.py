@@ -29,9 +29,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 from typing import Dict, List
+
+from xllm_service_tpu_torch.utils.locks import make_lock
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -39,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--split-compile=0",
               "-Xptxas=-v")
 
-_lock = threading.Lock()
+_lock = make_lock("kernels.build", 97)
 _libs: Dict[str, ctypes.CDLL] = {}
 # Compiler messages of the last build (register and shared-memory use
 # per kernel from ``-Xptxas=-v``), by source name.

@@ -29,7 +29,6 @@ import dataclasses
 import json
 import logging
 import os
-import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -37,6 +36,7 @@ import numpy as np
 import torch
 
 from xllm_service_tpu_torch.utils.hashing import prefix_block_hashes
+from xllm_service_tpu_torch.utils.locks import make_lock
 
 logger = logging.getLogger(__name__)
 
@@ -132,7 +132,7 @@ class HostKvTier:
         self.capacity_bytes = max(int(capacity_bytes), 0)
         self.disk_dir = disk_dir
         self.disk_capacity_bytes = max(int(disk_capacity_bytes), 0)
-        self._lock = threading.Lock()
+        self._lock = make_lock("kv_cache.tier", 22)
         # hash → (k, v); insertion order ~ LRU.
         self._blocks: "collections.OrderedDict[bytes, Tuple]" = \
             collections.OrderedDict()

@@ -219,12 +219,32 @@ hidden states (``forward_embedding``), at most ``EMBED_MAX_TOKENS``
 tokens an input. The embeddings do not ride the CUDA IPC wire
 (``/encode_done`` acknowledges nothing staged).
 
-Not in this package yet: etcd stores, spans on the heartbeat (and the
-hot-path sections of ``/admin/steptrace``).
+The observability and coordination plane, as the JAX worker runs it.
+Each request's worker-plane span (``obs/spans.py``: ``received`` with
+the master's ``x-xllm-request-id`` correlation header, ``encoded`` with
+the encoding instance, ``scheduled``, ``first_token`` with the prefix
+cache's hit tokens, ``faulted``, ``finished``; a PD decode side's
+adoption is ``received`` and ``scheduled``) is drained once finished
+onto the next beat and requeued unless that beat is delivered; the
+master merges it at ``GET /admin/trace/<id>`` (``XLLM_SPAN_RING``, 2048,
+sizes the ring; ``xllm_span_evictions_total``). The hot-path profiler
+(``obs/profiler.py``: ``span.write``, ``event.emit``, ``sse.assemble``;
+``XLLM_HOTPATH_PROFILE=0`` turns its timers off) answers
+``/admin/steptrace``'s ``sections`` and puts its series on ``/metrics``
+(``xllm_service_hotpath_*``, ``xllm_lock_*``,
+``xllm_thread_cpu_seconds_total``, ``xllm_process_*``, ``xllm_gc_*``)
+beside the keep-alive pool's. Every lock is named and ranked
+(``utils/locks.py``; ``XLLM_LOCK_CHECK=1`` raises on an inversion,
+``XLLM_LOCK_PROFILE_SAMPLE=N`` samples contention). The store is
+``--store-addr``: a ``StoreServer`` at ``host:port``, or an etcd v3
+JSON gateway at ``etcd://host:port`` (``service/etcd_store.py``; the
+native ``csrc/xllm_etcd.cpp`` serves one), always behind the store
+guard.
 
 Run: ``python -m xllm_service_tpu_torch.runtime.worker --model llama3-1b``
-or ``--model-dir <HF directory>`` (add ``--store-addr`` and
-``--service-addr`` to join a cluster).
+or ``--model-dir <HF directory>`` (add ``--store-addr host:port`` or
+``--store-addr etcd://host:port``, and ``--service-addr``, to join a
+cluster).
 """
 
 from __future__ import annotations
@@ -259,11 +279,12 @@ from xllm_service_tpu_torch.models.transformer import (Params,
 from xllm_service_tpu_torch.nlp.tokenizer import (IncrementalDecoder,
                                                   Tokenizer,
                                                   TokenizerFactory)
-from xllm_service_tpu_torch.obs import steptrace
+from xllm_service_tpu_torch.obs import profiler, steptrace
 from xllm_service_tpu_torch.obs.events import EventLog
 from xllm_service_tpu_torch.obs.failpoints import Failpoints
 from xllm_service_tpu_torch.obs.metrics import (Registry,
                                                 quantile_from_buckets)
+from xllm_service_tpu_torch.obs.spans import REQUEST_ID_HEADER, SpanStore
 from xllm_service_tpu_torch.ops import kernels
 from xllm_service_tpu_torch.runtime.engine import (Engine, EngineRequest,
                                                    StepOutput,
@@ -276,7 +297,8 @@ from xllm_service_tpu_torch.runtime.kv_transfer import start_host_copies
 from xllm_service_tpu_torch.service.coordination import (
     KEY_MASTER_ADDR, CoordinationStore, instance_prefix)
 from xllm_service_tpu_torch.service.coordination_net import connect_store
-from xllm_service_tpu_torch.service.httpd import (http_json, http_stream,
+from xllm_service_tpu_torch.service.httpd import (flush_conn_pool_metrics,
+                                                  http_json, http_stream,
                                                   http_stream_status,
                                                   iter_sse_events)
 from xllm_service_tpu_torch.service.instance_types import (
@@ -288,6 +310,7 @@ from xllm_service_tpu_torch.service.response_handler import (
     SSE_DONE, ChatStreamAssembler, CompletionStreamAssembler,
     ResponseCollector, sse_frame)
 from xllm_service_tpu_torch.utils import threads
+from xllm_service_tpu_torch.utils.locks import make_lock
 from xllm_service_tpu_torch.utils.retry import RetryPolicy
 from xllm_service_tpu_torch.utils.types import (
     FinishReason, LogProb, RequestOutput, SamplingParams, SequenceOutput,
@@ -637,6 +660,9 @@ class _LiveRequest:
         # master forwards): SSE chunks carry their token ids.
         self.emit_token_ids = False
         self._echo_cache: Optional[Tuple[str, List[LogProb]]] = None
+        # The monotonic time of the first output, 0.0 before it (the
+        # span's first_token).
+        self.first_out_time = 0.0
 
     @property
     def request_id(self) -> str:
@@ -920,7 +946,7 @@ class Worker:
         self.device = resolve_device(opts.device)
         # Held across an engine step and a vision tower run: a tower's
         # kernels never interleave with a graph capture.
-        self._engine_lock = threading.Lock()
+        self._engine_lock = make_lock("worker.engine", 20)
         # One runtime per model; the primary first. Its engine first:
         # without the device it raises before any socket is bound.
         self.runtimes: Dict[str, ModelRuntime] = {
@@ -954,15 +980,15 @@ class Worker:
             self._ttft_prof, self._tpot_prof = profile_engine(self.engine)
         self._live: Dict[str, _LiveRequest] = {}        # engine rid
         self._live_srid: Dict[str, _LiveRequest] = {}   # request id
-        self._live_lock = threading.Lock()
+        self._live_lock = make_lock("worker.live", 10)
         # Held by the engine loop across one runtime's step, the dispatch
         # of its outputs and its records; /sleep and /wakeup take it
         # before the engine lock, so that no reference of a step to an
         # engine outlives the engine's sleep.
-        self._loop_mu = threading.Lock()
+        self._loop_mu = make_lock("worker.loop", 9)
         # Sleeps and wakes waiting for _loop_mu: the engine loop yields
         # to them between steps instead of re-taking it at once.
-        self._flip_mu = threading.Lock()
+        self._flip_mu = make_lock("worker.flip", 90)
         self._flips_waiting = 0
         self._work = threading.Event()
         self._stop = threading.Event()
@@ -971,6 +997,10 @@ class Worker:
         # The worker's event ring: supervised thread crashes and the
         # store guard's outages land here (JAX worker :545).
         self.events = EventLog(capacity=256)
+        # The worker plane's request spans (JAX worker :538): finished
+        # ones ride the heartbeat to the master's span ring.
+        self.spans = SpanStore(capacity=int(os.environ.get(
+            "XLLM_SPAN_RING", "2048")))
         self._srv = ThreadingHTTPServer((opts.host, opts.port),
                                         _handler_class(self))
         self._srv.daemon_threads = True
@@ -1026,18 +1056,18 @@ class Worker:
             "graph replay counts the kernels it holds)",
             labelnames=("kernel",))
         self._lease_id: Optional[int] = None
-        self._reg_mu = threading.Lock()
+        self._reg_mu = make_lock("worker.reg", 8)
         self._addr_watch: Optional[int] = None
         # Current service target (configured, then store-advertised) and
         # its topology; compare-and-swapped under _addr_mu by the watch
         # thread and the heartbeat thread.
-        self._addr_mu = threading.Lock()
+        self._addr_mu = make_lock("worker.addr", 89)
         self._service_addr = opts.service_addr
         self._service_config_stale = bool(opts.service_addr)
         self._decode_to_service = False
         # Serializes heartbeat build + send; the step-p99 baseline and
         # the acked master epoch are touched only under it.
-        self._hb_lock = threading.Lock()
+        self._hb_lock = make_lock("worker.hb", 5)
         self._hb_step_cum: Dict[str, List[Tuple[float, float]]] = {}
         # The cache digests of a beat that was not delivered, folded
         # into the next one (touched only under _hb_lock: a beat never
@@ -1125,7 +1155,7 @@ class Worker:
         self.kv_migration_direct = 0
         self.kv_migration_device_wire = 0
         self.kv_migration_chunked = 0
-        self._kv_chunk_mu = threading.Lock()
+        self._kv_chunk_mu = make_lock("worker.kvchunk", 27)
         self._kv_chunk_staging: Dict[str, Dict[str, Any]] = {}
         self._wire_refused: set = set()
         self._service_push_buffer: List[RequestOutput] = []
@@ -1142,7 +1172,7 @@ class Worker:
         # and of their adoption, those over the wire, and the holders
         # that answered a wire ticket this process cannot pull. All
         # under _kv_fetch_mu.
-        self._kv_fetch_mu = threading.Lock()
+        self._kv_fetch_mu = make_lock("worker.kvfetch", 25)
         self._kv_fetch_staged: Dict[int, Tuple[float, Any]] = {}
         self.kv_blocks_served = 0
         self.kv_blocks_export_seconds = 0.0
@@ -1533,7 +1563,9 @@ class Worker:
         """One beat; True when the service acknowledged it (HTTP 200
         from a master whose epoch is not behind one already acked). The
         cache digests are the primary model's, as the JAX worker's: none
-        while it sleeps (its undelivered ones wait for its wake)."""
+        while it sleeps (its undelivered ones wait for its wake). The
+        finished spans it carries go back to the ring unless it is
+        delivered (JAX worker :4386-4464)."""
         with self._hb_lock:
             eng = self.engine
             cache_ev = None
@@ -1544,6 +1576,7 @@ class Worker:
                     cache_ev, self._hb_cache_pending = \
                         self._hb_cache_pending, None
             delivered = False
+            span_batch: List[Dict[str, Any]] = []
             # The encode plane's delta (digests gained and evicted, recent
             # step ms), requeued unless the beat is delivered.
             with self._embed_mu:
@@ -1555,6 +1588,7 @@ class Worker:
             try:
                 hb, (step_baseline, steps_seq) = \
                     self._build_heartbeat(cache_ev, enc)
+                span_batch = hb.spans
                 status, ack = http_json(
                     "POST", self.service_addr, "/rpc/heartbeat",
                     stamp(hb.to_json()), timeout=10.0)
@@ -1575,6 +1609,8 @@ class Worker:
                 delivered = True
                 return True
             finally:
+                if not delivered:
+                    self.spans.requeue(span_batch)
                 if not delivered and cache_ev is not None \
                         and not cache_ev.empty:
                     self._hb_cache_pending = cache_ev
@@ -1592,10 +1628,12 @@ class Worker:
         model's load and step p99, every model's state (``draining`` for
         all while draining), the cache digests of ``cache_ev`` as hex and
         the step records since the last acknowledged beat (at most 64),
-        the encode plane's queue depth, mean step ms and the embedding
-        cache's digest delta ``enc`` (stored, removed, step ms), and what
-        to commit once it is acked: the step histogram's baseline and the
-        last record's seq."""
+        the finished spans (drained after the step tail; back to the
+        ring if the beat cannot be built), the encode plane's queue
+        depth, mean step ms and the embedding cache's digest delta
+        ``enc`` (stored, removed, step ms), and what to commit once it is
+        acked: the step histogram's baseline and the last record's
+        seq."""
         rt = self.primary_runtime()
         eng = rt.engine
         p99, baseline = self._recent_step_p99(rt.model)
@@ -1606,38 +1644,44 @@ class Worker:
                                              since_seq=self._hb_steps_seq)
             if steps_tail:
                 steps_seq = int(steps_tail[-1].get("seq", steps_seq))
-        # The fetch planner's terms: the measured prefill rate and KV
-        # transfer rate (the PD migrations'; 0.0 = no signal, the master
-        # falls back to XLLM_KV_FETCH_{TOKS,GBPS}).
-        latency = LatencyMetrics(
-            step_ms_p99=p99,
-            prefill_tok_s=(self._prefill_tok_cum / self._prefill_s_cum
-                           if self._prefill_s_cum > 0 else 0.0),
-            kv_gbps=(self.kv_migration_bytes / self.kv_migration_seconds
-                     / 1e9 if self.kv_migration_seconds > 0 else 0.0),
-            waiting_prefill_tokens=(int(eng.waiting_prefill_tokens())
-                                    if eng is not None else 0))
-        stored, removed, enc_ms = enc
-        if enc_ms:
-            latency.encode_ms = sum(enc_ms) / len(enc_ms)
-            latency.encode_ms_samples = list(enc_ms)
-        load = self._engine_load(rt)
-        load.encode_queue_depth = self._encode_q.qsize()
-        ev = cache_ev or KvCacheEvent()
-        hb = Heartbeat(name=self.name,
-                       instance_type=self.instance_type,
-                       load=load, latency=latency,
-                       cache_stored=[h.hex() for h in ev.stored],
-                       cache_removed=[h.hex() for h in ev.removed],
-                       cache_offloaded=[h.hex() for h in ev.offloaded],
-                       cache_offloaded_ssd=[h.hex()
-                                            for h in ev.offloaded_ssd],
-                       model_states={
-                           m: MODEL_DRAINING if self._draining else r.state
-                           for m, r in list(self.runtimes.items())},
-                       embed_stored=list(stored),
-                       embed_removed=list(removed),
-                       steps=steps_tail)
+        # Nothing between the drain and the return may lose the batch.
+        span_batch = self.spans.drain_finished()
+        try:
+            # The fetch planner's terms: the measured prefill rate and KV
+            # transfer rate (the PD migrations'; 0.0 = no signal, the master
+            # falls back to XLLM_KV_FETCH_{TOKS,GBPS}).
+            latency = LatencyMetrics(
+                step_ms_p99=p99,
+                prefill_tok_s=(self._prefill_tok_cum / self._prefill_s_cum
+                               if self._prefill_s_cum > 0 else 0.0),
+                kv_gbps=(self.kv_migration_bytes / self.kv_migration_seconds
+                         / 1e9 if self.kv_migration_seconds > 0 else 0.0),
+                waiting_prefill_tokens=(int(eng.waiting_prefill_tokens())
+                                        if eng is not None else 0))
+            stored, removed, enc_ms = enc
+            if enc_ms:
+                latency.encode_ms = sum(enc_ms) / len(enc_ms)
+                latency.encode_ms_samples = list(enc_ms)
+            load = self._engine_load(rt)
+            load.encode_queue_depth = self._encode_q.qsize()
+            ev = cache_ev or KvCacheEvent()
+            hb = Heartbeat(name=self.name,
+                           instance_type=self.instance_type,
+                           load=load, latency=latency,
+                           cache_stored=[h.hex() for h in ev.stored],
+                           cache_removed=[h.hex() for h in ev.removed],
+                           cache_offloaded=[h.hex() for h in ev.offloaded],
+                           cache_offloaded_ssd=[h.hex()
+                                                for h in ev.offloaded_ssd],
+                           model_states={
+                               m: MODEL_DRAINING if self._draining else r.state
+                               for m, r in list(self.runtimes.items())},
+                           embed_stored=list(stored),
+                           embed_removed=list(removed),
+                           steps=steps_tail, spans=span_batch)
+        except BaseException:
+            self.spans.requeue(span_batch)
+            raise
         return hb, (baseline, steps_seq)
 
     def _recent_step_p99(self, model: str
@@ -1779,8 +1823,9 @@ class Worker:
                        window_s: float = 0.0) -> Dict[str, Any]:
         """``GET /admin/steptrace`` (JAX worker :1908-1940): the ring's
         tail (``n`` newest, or within ``window_s`` of the newest), the
-        peaks, and every awake model's roofline rows. ``sections`` stays
-        empty: this package has no hot-path section profiler."""
+        peaks, the hot-path profiler's timed sections
+        (``profiler.recent_events``, the same window) and every awake
+        model's roofline rows."""
         peak_flops, peak_bytes_s = steptrace.peaks_for(self._device_kind)
         roofline = []
         for rt, eng in self._awake():
@@ -1795,7 +1840,7 @@ class Worker:
             "peak_flops": peak_flops,
             "peak_bytes_s": peak_bytes_s,
             "steps": self.steptrace.tail(n=n, window_s=window_s),
-            "sections": [],
+            "sections": profiler.recent_events(window_s=window_s),
             "roofline": roofline,
         }
 
@@ -1804,9 +1849,12 @@ class Worker:
         prefix-cache series, the graph census (captures per program, and
         those after warmup: the JAX worker's compile and recompile
         counters; eager steps) and the roofline mirrors; then the
-        supervised threads' crash books, the store guard's health, the
-        process's kernel launch counts and the PD handoff's and block
-        fetch's counters, and the registry in Prometheus text."""
+        supervised threads' crash books, the hot-path profiler's books
+        (sections, sampled lock waits, CPU per thread root, RSS, CPU%,
+        GC pauses), the keep-alive pool, the span ring's evictions, the
+        store guard's health, the process's kernel launch counts and the
+        PD handoff's and block fetch's counters, and the registry in
+        Prometheus text."""
         for rt, eng in self._awake():
             m = rt.model
             self._engine_load(rt)
@@ -1828,6 +1876,13 @@ class Worker:
                                     last.get("debt_ms", 0.0),
                                     self._device_kind)
         threads.flush_metrics(self.obs)
+        profiler.flush_metrics(self.obs)
+        flush_conn_pool_metrics(self.obs, plane="worker")
+        self.obs.counter(
+            "xllm_span_evictions_total",
+            "request spans dropped by ring overflow "
+            "(size the ring with XLLM_SPAN_RING)").set_total(
+            self.spans.eviction_count())
         self.obs.gauge("xllm_store_health",
                        "coordination-store health as seen by this plane "
                        "(2 healthy / 1 flaky / 0 down)").set(
@@ -2063,6 +2118,7 @@ class Worker:
                 live = self._live.get(rid)
             if live is None:
                 continue
+            self.spans.record(live.request_id, "faulted", plane="worker")
             if live.stream_to_service:
                 to_service.append(RequestOutput(
                     request_id=live.request_id,
@@ -2077,7 +2133,11 @@ class Worker:
 
     def _dispatch_outputs(self, outs: List[StepOutput]) -> None:
         """A step's outputs to their consumers: a relayed request's
-        queue, or one push of the wire outputs to the service."""
+        queue, or one push of the wire outputs to the service. The span's
+        ``first_token`` (with the prompt tokens the prefix cache served)
+        and, at an engine-level finish, ``finished`` (JAX worker
+        :1662-1677)."""
+        now = time.monotonic()
         to_service: List[RequestOutput] = []
         for out in outs:
             if not self._dead and self.failpoints.fire(
@@ -2092,6 +2152,15 @@ class Worker:
                 live = self._live.get(out.request_id)
             if live is None:
                 continue
+            if live.first_out_time == 0.0:
+                live.first_out_time = now
+                self.spans.record(live.request_id, "first_token",
+                                  plane="worker", t_mono=now)
+                self.spans.annotate(live.request_id,
+                                    cache_hit_tokens=out.num_cached_tokens)
+            if out.finished:
+                self.spans.record(live.request_id, "finished",
+                                  plane="worker", t_mono=now)
             if not live.stream_to_service:
                 live.q.put(out)
                 if out.finished:
@@ -2269,7 +2338,8 @@ class Worker:
         mm: Dict[str, Any] = {}
         if body.get("mm_inputs"):
             try:
-                token_ids, mm = self._resolve_mm(rt, body, list(token_ids))
+                token_ids, mm = self._resolve_mm(rt, body,
+                                                 list(token_ids), rid)
             except TimeoutError as e:
                 raise HttpError(503, str(e), "unavailable") from e
             except ValueError as e:
@@ -2300,39 +2370,54 @@ class Worker:
         marked = mark is not None and (
             not isinstance(mark, str)
             or mark in self.tokenizer.decode(list(token_ids)))
-        with self._engine_lock:
-            eng = rt.engine
-            if eng is None:
-                raise HttpError(400, f"model {model} is asleep on this "
-                                     f"worker")
-            if marked:
-                self._fault_marked.update(live.engine_rids)
-            added: List[str] = []
-            try:
-                for k, erid in enumerate(live.engine_rids):
-                    creq = req
-                    if n > 1:
-                        # Distinct choices: a seeded request's choice k
-                        # draws from seed + k; prompt scores are the same
-                        # for every choice, so choice 0 computes them.
-                        creq = dataclasses.replace(
-                            req, request_id=erid,
-                            token_ids=list(token_ids),
-                            sampling=dataclasses.replace(
-                                sampling, seed=(sampling.seed + k
-                                                if sampling.seed is not None
-                                                else None)),
-                            prompt_logprobs=req.prompt_logprobs and k == 0)
-                    eng.add_request(creq)
-                    added.append(erid)
-            except ValueError as e:
-                for erid in added:
-                    eng.cancel(erid)
-                raise HttpError(400, str(e)) from e
+        # Registered before the engine sees the request (no output of its
+        # first step finds it missing) and outside the engine lock: the
+        # rank table orders worker.live before worker.engine (JAX worker
+        # :2067-2088).
+        with self._live_lock:
+            self._live_srid[rid] = live
+            for erid in live.engine_rids:
+                self._live[erid] = live
+        try:
+            with self._engine_lock:
+                eng = rt.engine
+                if eng is None:
+                    raise HttpError(400, f"model {model} is asleep on "
+                                         f"this worker")
+                if marked:
+                    self._fault_marked.update(live.engine_rids)
+                added: List[str] = []
+                try:
+                    for k, erid in enumerate(live.engine_rids):
+                        creq = req
+                        if n > 1:
+                            # Distinct choices: a seeded request's choice
+                            # k draws from seed + k; prompt scores are the
+                            # same for every choice, so choice 0 computes
+                            # them.
+                            seed = (sampling.seed + k
+                                    if sampling.seed is not None else None)
+                            creq = dataclasses.replace(
+                                req, request_id=erid,
+                                token_ids=list(token_ids),
+                                sampling=dataclasses.replace(sampling,
+                                                             seed=seed),
+                                prompt_logprobs=(req.prompt_logprobs
+                                                 and k == 0))
+                        eng.add_request(creq)
+                        added.append(erid)
+                except ValueError as e:
+                    for erid in added:
+                        eng.cancel(erid)
+                    raise HttpError(400, str(e)) from e
+        except BaseException:
             with self._live_lock:
-                self._live_srid[rid] = live
+                if self._live_srid.get(rid) is live:
+                    self._live_srid.pop(rid, None)
                 for erid in live.engine_rids:
-                    self._live[erid] = live
+                    if self._live.get(erid) is live:
+                        self._live.pop(erid, None)
+            raise
         self._work.set()
         return live
 
@@ -2595,6 +2680,7 @@ class Worker:
         ack). A first token that ends the request answers here."""
         live = self._parse_generate(body, is_chat, pd_prefill=True)
         srid = live.request_id
+        self.spans.record(srid, "scheduled", plane="worker")
         rt = self._runtime_for(live.model)
         try:
             first = self._next_output(live)
@@ -3107,6 +3193,11 @@ class Worker:
                 self._live_srid.pop(srid, None)
             return False, None, None
         self._work.set()
+        # The decode side's span: received and scheduled in one adoption
+        # (JAX worker :3780-3781); the master merges it beside the
+        # prefill worker's.
+        self.spans.record(srid, "received", plane="worker")
+        self.spans.record(srid, "scheduled", plane="worker")
         return True, live, first_out
 
     def serve_kv_import(self, raw: bytes) -> "_Reply":
@@ -3462,7 +3553,7 @@ class Worker:
         here."""
         self._vision_tower = tower
         self._vision: Optional[Tuple[str, Any, Any]] = None
-        self._vision_lock = threading.Lock()
+        self._vision_lock = make_lock("worker.vision", 90)
         self._vision_image_size = int(os.environ.get(
             "XLLM_VISION_IMAGE_SIZE", "224") or 224)
         try:
@@ -3477,7 +3568,7 @@ class Worker:
             "XLLM_EMBED_CACHE_CAP", "256") or 256)
         # The cache, its heartbeat delta (digests stored and evicted since
         # the last delivered beat) and the recent step ms, under this.
-        self._embed_mu = threading.Lock()
+        self._embed_mu = make_lock("worker.embedcache", 87)
         self._embed_stored_pending: List[str] = []
         self._embed_removed_pending: List[str] = []
         self._encode_recent_ms: List[float] = []
@@ -3734,14 +3825,17 @@ class Worker:
                 int(meta.get("cache_hits", 0)))
 
     def _resolve_mm_embeds(self, mm_inputs: List[Any], encode_name: str,
-                           fallbacks: Optional[List[str]] = None
-                           ) -> np.ndarray:
+                           fallbacks: Optional[List[str]] = None,
+                           srid: str = "") -> np.ndarray:
         """The encode stage (JAX worker :2996-3054): the routed encode
         instance, then its ranked survivors, under one
         XLLM_ENCODE_TIMEOUT_S deadline with jittered pacing between
         attempts, then this worker's own tower: an encode worker's death
-        is never the client's error."""
-        deadline = time.monotonic() + self._encode_timeout_s
+        is never the client's error. ``srid``'s span gets ``encoded``
+        with the instance that encoded (``remote``, "" for this
+        worker), its cache hits, the images and the ms."""
+        t_start = time.monotonic()
+        deadline = t_start + self._encode_timeout_s
         policy = RetryPolicy(max_attempts=1, base_delay_s=0.05,
                              max_delay_s=2.0, multiplier=2.0, jitter=0.5)
         targets: List[str] = []
@@ -3754,8 +3848,8 @@ class Worker:
                 self._count_encode_fallback("deadline", target, "local")
                 break
             try:
-                return self._fetch_remote_embeds(target, mm_inputs,
-                                                 remaining)[0]
+                embeds, hits = self._fetch_remote_embeds(
+                    target, mm_inputs, remaining)
             except Exception as e:  # noqa: BLE001 — any failure walks on
                 nxt = targets[attempt + 1] if attempt + 1 < len(targets) \
                     else "local"
@@ -3765,11 +3859,25 @@ class Worker:
                     else "error", target, nxt)
                 policy.sleep(attempt, deadline=deadline,
                              stop_event=self._stop)
-        return self.encode_via_queue(
-            mm_inputs, timeout=max(deadline - time.monotonic(), 5.0))[0]
+                continue
+            self._encoded_span(srid, target, hits, mm_inputs, t_start)
+            return embeds
+        embeds, hits = self.encode_via_queue(
+            mm_inputs, timeout=max(deadline - time.monotonic(), 5.0))
+        self._encoded_span(srid, "", hits, mm_inputs, t_start)
+        return embeds
+
+    def _encoded_span(self, srid: str, remote: str, hits: int,
+                      mm_inputs: List[Any], t_start: float) -> None:
+        if srid:
+            self.spans.record(
+                srid, "encoded", plane="worker", remote=remote,
+                cache_hits=hits, images=len(mm_inputs),
+                ms=round(1000.0 * (time.monotonic() - t_start), 3))
 
     def _resolve_mm(self, rt: ModelRuntime, body: Dict[str, Any],
-                    token_ids: List[int]) -> Tuple[List[int], Dict[str, Any]]:
+                    token_ids: List[int], srid: str = ""
+                    ) -> Tuple[List[int], Dict[str, Any]]:
         """A generate body's images (JAX worker :1986-2023): their
         embeddings from the encode stage, each placeholder expanded to
         that many image tokens, and for an mrope model the prompt's 3-D
@@ -3780,7 +3888,7 @@ class Worker:
         routing = body.get("routing") or {}
         embeds = self._resolve_mm_embeds(
             list(body["mm_inputs"]), routing.get("encode_name", ""),
-            routing.get("encode_fallbacks", []))
+            routing.get("encode_fallbacks", []), srid=srid)
         n_img, tpi, _ = embeds.shape
         img_tok = multimodal.image_token_id(rt.model_cfg.vocab_size)
         token_ids, positions = multimodal.expand_image_placeholders(
@@ -3861,16 +3969,34 @@ class Worker:
             with self._live_lock:
                 self._inflight_parse -= 1
 
-    def serve_generate(self, body: Dict[str, Any],
-                       is_chat: bool) -> "_Reply":
+    def _ingress_span(self, srid: str, t_recv: float, headers) -> None:
+        """Open this worker's side of the request's span (JAX worker
+        :2156-2166) under the id the master used; the correlation header
+        it stamped on the forward is kept as an attr."""
+        corr = headers.get(REQUEST_ID_HEADER, "")
+        if corr:
+            self.spans.annotate(srid, correlation_header=corr)
+        self.spans.record(srid, "received", plane="worker", t_mono=t_recv)
+
+    def serve_generate(self, body: Dict[str, Any], is_chat: bool,
+                       headers, t_recv: float) -> "_Reply":
         """``POST /v1/completions`` and ``/v1/chat/completions``: the
         failpoints, then the PD handoff or a local request: the RPC
-        topology's ack, an SSE stream, or the whole response."""
+        topology's ack, an SSE stream, or the whole response. The span
+        is ``received`` at ``t_recv`` (the handler's entry; ``headers``
+        are the request's) and ``scheduled`` once the engine holds the
+        request."""
         self.generate_failpoints()
+        srid_hint = body.get("service_request_id") or ""
+        if srid_hint:
+            self._ingress_span(srid_hint, t_recv, headers)
         decode = self.pd_route(body, is_chat, self.name)
         if decode is not None:
             return self.serve_pd_prefill(body, is_chat, decode)
         live = self._parse_generate(body, is_chat)
+        if not srid_hint:       # sent straight here: the id was minted
+            self._ingress_span(live.request_id, t_recv, headers)
+        self.spans.record(live.request_id, "scheduled", plane="worker")
         if live.stream_to_service:
             # The RPC topology: the outputs go to the service's fan-in;
             # this reply is the ack it waits for.
@@ -4080,6 +4206,7 @@ def _handler_class(worker: Worker):
                 self._error(HttpError(404, f"no route {self.path}"))
 
         def do_POST(self) -> None:
+            t_recv = time.monotonic()
             routes = {"/v1/completions": False,
                       "/v1/chat/completions": True}
             # Control routes, exempt from the drain's refusal (JAX worker
@@ -4136,7 +4263,8 @@ def _handler_class(worker: Worker):
                     self._send(reply)
                     return
                 reply = worker.guarded(worker.serve_generate, body,
-                                       routes[self.path])
+                                       routes[self.path], self.headers,
+                                       t_recv)
             except json.JSONDecodeError:
                 self._error(HttpError(400, "invalid JSON body"))
                 return
@@ -4170,8 +4298,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--service-addr", default="",
                    help="service RPC host:port for heartbeats")
     p.add_argument("--store-addr", default="",
-                   help="coordination store host:port ('' with a "
-                        "--service-addr = private in-process store)")
+                   help="coordination store: host:port of a StoreServer, "
+                        "etcd://host:port of an etcd v3 JSON gateway ('' "
+                        "with a --service-addr = private in-process "
+                        "store)")
     p.add_argument("--heartbeat-interval-s", type=float, default=3.0)
     # Must equal the service's --murmur-hash3-seed.
     p.add_argument("--murmur-seed", type=int, default=0)

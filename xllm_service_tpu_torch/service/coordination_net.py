@@ -26,6 +26,7 @@ from xllm_service_tpu_torch.service.coordination import (
 from xllm_service_tpu_torch.service.httpd import http_json
 from xllm_service_tpu_torch.service.store_guard import StoreOutageError
 from xllm_service_tpu_torch.utils import threads
+from xllm_service_tpu_torch.utils.locks import make_lock
 from xllm_service_tpu_torch.utils.retry import RetryPolicy
 
 logger = logging.getLogger(__name__)
@@ -43,7 +44,7 @@ class RemoteStore(CoordinationStore):
         self.timeout = timeout
         self._watches: Dict[int, threading.Event] = {}
         self._next_watch = 1
-        self._lock = threading.Lock()
+        self._lock = make_lock("coordination_net", 60)
         # Watch-reconnect pacing, jittered so a fleet of watchers does
         # not hammer a restarting store in lockstep.
         self._watch_retry = RetryPolicy(base_delay_s=0.25, max_delay_s=5.0)
@@ -175,11 +176,12 @@ class RemoteStore(CoordinationStore):
 
 
 def connect_store(addr: str) -> CoordinationStore:
-    """'' → a fresh in-process store; 'host:port' → ``RemoteStore``
-    against a ``StoreServer``. etcd is not reachable from this package
-    yet."""
+    """'' → a fresh in-process store; 'etcd://host:port' → ``EtcdStore``
+    (an etcd v3 JSON gateway, ``service/etcd_store.py``); 'host:port' →
+    ``RemoteStore`` against a ``StoreServer``."""
     if not addr:
         return InMemoryStore()
     if addr.startswith("etcd://"):
-        raise NotImplementedError("etcd store not ported yet")
+        from xllm_service_tpu_torch.service.etcd_store import EtcdStore
+        return EtcdStore(addr[len("etcd://"):])
     return RemoteStore(addr)

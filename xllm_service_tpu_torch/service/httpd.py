@@ -3,7 +3,8 @@ bytes) request to the service, the coordination store or a peer worker,
 and the progressive readers of the PD handoff's streamed answers.
 
 A copy of the JAX package's ``service/httpd.py`` ``http_json`` and its
-keep-alive pool, ``http_stream_status`` / ``http_stream`` and
+keep-alive pool with its reuse counters (``flush_conn_pool_metrics``,
+``xllm_http_conn_pool_*{plane}``), ``http_stream_status`` / ``http_stream`` and
 ``iter_sse_events`` (the worker's HTTP server stays the standard
 library's ``ThreadingHTTPServer``, ``runtime/worker.py``). Pooled
 connections are dropped once idle longer than ``_MAX_IDLE_S``, well
@@ -17,10 +18,11 @@ from __future__ import annotations
 import http.client
 import json
 import socket
-import threading
 import time
 from http.client import HTTPConnection
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
+
+from xllm_service_tpu_torch.utils.locks import make_lock
 
 _MAX_IDLE_S = 20.0
 _MAX_IDLE_PER_ADDR = 8
@@ -37,7 +39,31 @@ class _NoDelayHTTPConnection(HTTPConnection):
 
 
 _idle: Dict[str, List[Tuple[HTTPConnection, float]]] = {}
-_idle_lock = threading.Lock()
+_idle_lock = make_lock("httpd.connpool", 92)
+# Reuse counters, under _idle_lock: a get served from the pool or by a
+# fresh connection, a put dropped past the per-address cap, an idle
+# connection aged out.
+_stats = {"hits_total": 0, "misses_total": 0, "overflow_total": 0,
+          "expired_total": 0}
+
+
+def conn_pool_stats() -> Dict[str, int]:
+    """The keep-alive pool's counters and its idle connections."""
+    with _idle_lock:
+        return dict(_stats, idle=sum(len(v) for v in _idle.values()))
+
+
+def flush_conn_pool_metrics(registry, plane: str) -> None:
+    """Mirror the pool's counters into ``registry`` under the exporting
+    plane's label, as the JAX package's exporter names them."""
+    for k, v in conn_pool_stats().items():
+        name = f"xllm_http_conn_pool_{k}"
+        if k.endswith("_total"):
+            registry.counter(name, labelnames=("plane",)).set_total(
+                v, plane=plane)
+        else:
+            registry.gauge(name, labelnames=("plane",)).set(
+                v, plane=plane)
 
 
 def _get_conn(address: str, timeout: float) -> Tuple[HTTPConnection, bool]:
@@ -52,6 +78,8 @@ def _get_conn(address: str, timeout: float) -> Tuple[HTTPConnection, bool]:
                 conn = cand
                 break
             stale.append(cand)
+        _stats["expired_total"] += len(stale)
+        _stats["hits_total" if conn is not None else "misses_total"] += 1
     for c in stale:
         c.close()
     if conn is None:
@@ -68,6 +96,7 @@ def _put_conn(address: str, conn: HTTPConnection) -> None:
         if len(conns) < _MAX_IDLE_PER_ADDR:
             conns.append((conn, time.monotonic()))
             return
+        _stats["overflow_total"] += 1
     conn.close()
 
 

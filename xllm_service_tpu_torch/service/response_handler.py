@@ -18,6 +18,7 @@ import json
 import time
 from typing import Any, Dict, List, Optional
 
+from xllm_service_tpu_torch.obs import profiler
 from xllm_service_tpu_torch.utils.types import (
     FinishReason, LogProb, RequestOutput, Usage)
 
@@ -29,8 +30,9 @@ def _now() -> int:
 
 
 def sse_frame(obj: Dict[str, Any]) -> bytes:
-    return b"data: " + json.dumps(obj, separators=(",", ":")).encode() \
-        + b"\n\n"
+    with profiler.section("sse.assemble"):
+        return b"data: " \
+            + json.dumps(obj, separators=(",", ":")).encode() + b"\n\n"
 
 
 def _chat_logprob_entry(lp: LogProb) -> Dict[str, Any]:

@@ -33,13 +33,13 @@ from __future__ import annotations
 
 import logging
 import os
-import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
 from xllm_service_tpu_torch.service.coordination import (
     CoordinationStore, WatchCallback)
 from xllm_service_tpu_torch.utils import threads
+from xllm_service_tpu_torch.utils.locks import make_lock
 
 logger = logging.getLogger(__name__)
 
@@ -77,7 +77,7 @@ class StoreGuard(CoordinationStore):
         self.events = events
         # Guards the health state and the callback books only; never held
         # across an inner store call or a callback.
-        self._mu = threading.Lock()
+        self._mu = make_lock("store_guard", 74)
         self._consecutive_failures = 0
         self._health = HEALTHY
         self._outage_since: Optional[float] = None

@@ -17,8 +17,9 @@ import ctypes
 import os
 import struct
 import subprocess
-import threading
 from typing import List, Optional, Sequence
+
+from xllm_service_tpu_torch.utils.locks import make_lock
 
 _MASK64 = (1 << 64) - 1
 
@@ -99,7 +100,7 @@ def murmur3_x64_128_py(data: bytes, seed: int = 0) -> bytes:
 # The native helper, built on demand from csrc/xllm_native.cpp.
 # ---------------------------------------------------------------------------
 
-_native_lock = threading.Lock()
+_native_lock = make_lock("hashing.native", 95)
 _native_lib: Optional[ctypes.CDLL] = None
 _native_tried = False
 

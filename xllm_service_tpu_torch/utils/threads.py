@@ -32,11 +32,12 @@ import time
 import traceback
 from typing import Any, Callable, Dict, Optional, Tuple
 
+from xllm_service_tpu_torch.utils.locks import make_lock
 from xllm_service_tpu_torch.utils.retry import RetryPolicy
 
 logger = logging.getLogger(__name__)
 
-_book_lock = threading.Lock()
+_book_lock = make_lock("threads.book", 94)
 _crashes: Dict[str, int] = {}
 _callback_errors: Dict[str, int] = {}
 
@@ -147,6 +148,13 @@ class SupervisedThread(threading.Thread):
                     and self._stop_event.is_set())
 
     def run(self) -> None:
+        try:
+            # Imported here: obs sits above utils in the import graph.
+            # The profiler attributes this thread's CPU to its root.
+            from xllm_service_tpu_torch.obs import profiler
+            profiler.register_thread_root(self.root)
+        except Exception:  # noqa: BLE001 — CPU attribution is
+            pass           # best-effort; the root starts regardless
         attempt = 0
         while True:
             started = time.monotonic()
