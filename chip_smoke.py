@@ -91,7 +91,14 @@ Phases (any failure raises and the exit code is not 0):
    and a 128-token window, checked with the window and without it, the
    bound counting the keys inside the window, ``library_ms`` null since
    no one PyTorch call takes sinks, SDPA without them beside it; records
-   ``*_gptoss``), which phase 13 serves.
+   ``*_gptoss``), which phase 13 serves. And at Gemma-3-12B's shapes
+   (16 query heads, Hkv 8, D = 256; 16 pages a row, contexts up to
+   2,011 past the 1024-token window of its local layers): the fused
+   rope writers (a local layer's tables), K3, K3', K4, K4' and K5 with
+   the window and without it, timed with it (records ``*_gemma3``;
+   ``library_ms`` null, SDPA without the window beside it), and K3 and
+   K4 with Gemma-2-9B's soft-cap 50 (``*_gemma2``; SDPA without the
+   soft-cap beside them), which phase 16 serves.
 4. Forward: a full-width llama3-1b forward_prefill + forward_decode + a
    ragged forward_prefill through the kernels (bf16 on the GPU), and
    the attend-then-write order (two prefill windows, the second at
@@ -204,7 +211,8 @@ Phases (any failure raises and the exit code is not 0):
    over, the worker follows its advertisement in the store and learns
    the RPC topology, and the four requests finish through it (tokens
    pushed to ``/rpc/generations``); ``worker.stop()`` takes the worker
-   off the master's list within the lease TTL (1.5 s). ``[cluster]``:
+   off the master's list within the lease TTL (1.5 s). The worker's
+   front door must be the native epoll server. ``[cluster]``:
    the median TTFT and decode tokens/s per stream through the master
    (relay, rpc) and direct, the heartbeat's step p99 and the card. In
    phase 6 each run sends its own prompts, and the chat compared direct
@@ -351,7 +359,12 @@ Phases (any failure raises and the exit code is not 0):
    an image, the decode step's ms, K1/K2, K3, K4 launched and K5 not, no
    graph after warmup, an encode-cache hit on a repeated image, the
    local encode under ``worker.fail_encode`` (the same text), the image
-   streams under the margins rule. At most 150 s.
+   streams under the margins rule; the staged wire beside the bytes
+   (``_epd_wire_round``): one image's embeddings fetched from the child
+   over CUDA IPC and as bytes, bit-equal, the child's staged tickets
+   back to 0, an image chat each way with its TTFT and the master's
+   trace split (received -> encoded -> scheduled -> first_token). At
+   most 150 s.
 15. The observability and coordination plane over etcd (``obs_phase``,
    ``[obs]``): the native etcd server built from ``csrc/xllm_etcd.cpp``
    with g++; the reference master on ``etcd://`` and llama3-1b (16
@@ -364,8 +377,24 @@ Phases (any failure raises and the exit code is not 0):
    ``XLLM_HOTPATH_PROFILE`` on and off, two children); the etcd process
    killed (store health 0, chats still served) and restarted empty (the
    seconds to re-registration and the list); ``stop()`` off the list.
-   At most 60 s.
-16. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
+   The in-process worker's front door must be native; a shed round
+   (``shed_round``): a third child at ``--max-concurrency 2`` joins the
+   master, two streams held by ``worker.slow_response_ms`` fill it, and
+   two chats through the master must both be served with a 503 counted
+   on the child; the profiler's thread books after the phase beside the
+   handler pool's cap. At most 90 s.
+16. Gemma (``gemma_phase``, ``[gemma]``): Gemma-3-12B at its published
+   widths cut to 6 layers (5 local, 1 global), the kernels in bf16
+   against the float32 plain path (rel L2 under 5e-2); Gemma-3-12B at
+   all 48 layers on random bf16 weights made on the card (~23.5 GB),
+   served in-process in the split path and attend-then-write, and the
+   ragged step at its first 6 layers (4 slots of 2,048 tokens, buckets
+   128/256/512, prefill budget 259; two
+   of the four prompts past the window, 32 new tokens): launches per
+   step, no capture after warmup, TTFT, decode step median, tokens/s
+   per stream, margins between paths; Gemma-2-9B at its published widths
+   and 8 layers through one served batch (the soft-capped path).
+17. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
    writers' launches from phase 5 (K1/K2 now 0), K5 from 5b, K6 (now 0),
    K7, K3', K4' and the dense all-layer mode from 5c, K3'' and the fused
    latent writers from 5d, the current form of K3'' and the latent
@@ -374,7 +403,9 @@ Phases (any failure raises and the exit code is not 0):
    (``launches_lifecycle``); the ``*_d128`` records take phase 12's
    llama3-8b round's, the ``*_gptoss`` records phase 13's GPT-OSS-20B
    round of their path (with their time per byte against the llama3-1b
-   record's), the ``*_qwen2vl`` records phase 14's; phases 5f/5g and the
+   record's), the ``*_qwen2vl`` records phase 14's, the ``*_gemma3``
+   records phase 16's Gemma-3 round of their path and the ``*_gemma2``
+   ones its Gemma-2 round; phases 5f/5g and the
    graph checks go to the ``[summary]``
    line; phases 7, 7b, 6b and 9 too, and ``phase_end_s``, the script's
    clock at the end of each phase), the card line, then the last line
@@ -491,7 +522,8 @@ class KernelBench:
     records named ``<kernel><suffix>``, their ``entry`` the kernel's own
     and ``shape_model`` the model)."""
 
-    def __init__(self, torch, cfg, device, suffix: str = "") -> None:
+    def __init__(self, torch, cfg, device, suffix: str = "",
+                 mp: int = 8) -> None:
         self.torch = torch
         self.cfg = cfg
         self.suffix = suffix
@@ -500,7 +532,7 @@ class KernelBench:
         self.L, self.P, self.ps = 4, 512, 128
         self.Hq, self.Hkv, self.D = cfg.num_heads, cfg.num_kv_heads, \
             cfg.head_dim
-        self.MP = 8                                   # 1024 / 128
+        self.MP = mp                         # pages a row: 8 = 1024 / 128
         shape = (self.L, self.P, self.ps, self.Hkv, self.D)
         self.kp = self.randn(*shape)
         self.vp = self.randn(*shape)
@@ -674,6 +706,8 @@ class KernelBench:
             pos3 = torch.stack([pos, pos // 2, pos % 16], dim=1)
             cos, sin = rope.mrope_cos_sin(pos3, self.D, cfg.rope_theta,
                                           cfg.rope_scaling[1])
+        elif cfg.rope_local_base_freq is not None:
+            cos, sin = rope.layer_cos_sin(cfg, pos)[0]     # a local layer's
         else:
             cos, sin = rope.rope_cos_sin(pos, self.D, cfg.rope_theta,
                                          cfg.rope_scaling)
@@ -2204,43 +2238,72 @@ class KernelBench:
 
     # -- K3, K3', K4, K4', K5 at GPT-OSS-20B's sliding layers -------------
     GPTOSS_WINDOW = 128
+    # The attention forms ``windowed_attention`` can hold.
+    ATTN_FORMS = ("paged_decode_attention", "paged_decode_attention_current",
+                  "paged_prefill_attention", "paged_prefill_attention_fresh",
+                  "ragged_paged_attention")
 
-    def _window_counts(self, starts, lens_list):
-        """The keys a windowed row needs (the positions within the window
-        of any of its queries) and its (query, key) pairs, summed over the
-        rows: what this data needs, not the table's width."""
-        W = self.GPTOSS_WINDOW
+    @staticmethod
+    def _window_counts(starts, lens_list, W):
+        """The keys a row needs (the positions within the window ``W`` of
+        any of its queries; W = 0: all before them) and its (query, key)
+        pairs, summed over the rows: what this data needs, not the
+        table's width."""
         keys = pairs = 0
         for s, n in zip(starts, lens_list):
             if n <= 0:
                 continue
-            keys += s + n - max(0, s - W + 1)
-            pairs += sum(min(p + 1, W) for p in range(s, s + n))
+            keys += s + n - (max(0, s - W + 1) if W else 0)
+            pairs += sum(min(p + 1, W) if W else p + 1
+                         for p in range(s, s + n))
         return keys, pairs
 
     def gptoss_attention(self, pa, pf, ra, attention):
         """The attention forms the GPT-OSS-20B path reaches, at its shapes
         (64 query heads, Hkv 8, D 64) on its sliding layers: a 128-token
-        window and float32 sinks. Each form is checked against its plain
-        version with sinks and the window and with sinks alone (a full
-        layer), then timed with both; ``library_ms`` is null (no single
-        PyTorch call takes sinks) and SDPA's time for the same windowed
-        attention without sinks is ``sdpa_without_sinks_ms``. K3 / K3' at
-        B = 8 rows of contexts 117-411 (one inactive, the current form a
-        row at cache length 0), K4 / K4' at the 4 x 256 prefill batch, K5
-        at the ragged mix. The bound counts the keys inside the window."""
-        torch = self.torch
+        window and float32 sinks, checked with sinks and the window and
+        with sinks alone (a full layer), timed with both; SDPA's time for
+        the same windowed attention without sinks is
+        ``sdpa_without_sinks_ms``."""
         W = self.GPTOSS_WINDOW
-        sinks = self.randn(self.Hq, dtype=torch.float32)
-        checked = ({"sinks": sinks, "sliding_window": W}, {"sinks": sinks})
+        sinks = self.randn(self.Hq, dtype=self.torch.float32)
+        self.windowed_attention(
+            pa, pf, ra, attention,
+            ({"sinks": sinks, "sliding_window": W}, {"sinks": sinks}),
+            "sdpa_without_sinks_ms", sliding_window=W, sinks=True)
+
+    def windowed_attention(self, pa, pf, ra, attention, checked,
+                           library_key, forms=ATTN_FORMS,
+                           ctx_list=(117, 205, 298, 411, 150, 260, 0, 390),
+                           prefill_starts=(0, 256, 128, 0),
+                           ragged_ctx=(117, 205, 298, 411, 150, 260, 333),
+                           ragged_start=128, lib_window=True, **flags):
+        """The attention ``forms`` with a model's features (a window,
+        sinks, a soft-cap): each checked against its plain version with
+        every keyword set of ``checked``, then timed with the first. K3 /
+        K3' at B = 8 rows of contexts ``ctx_list`` (a 0 is an inactive
+        row; the current form there a row at cache length 0), K4 / K4' at
+        4 x 256 prefill windows from ``prefill_starts``, K5 at decode rows
+        of ``ragged_ctx`` beside a 256-token window at ``ragged_start``.
+        ``library_ms`` is null (no one PyTorch call computes the same
+        function); SDPA's time for the attention without the feature is
+        under ``library_key``, its mask with the timed window when
+        ``lib_window``. The bound counts the keys inside the timed
+        window. ``flags`` go into each record."""
+        torch = self.torch
         timed = checked[0]
+        W = int(timed.get("sliding_window") or 0)
+        Wl = W if lib_window else 0
         row = self.Hkv * self.D * 2
         head_row = self.Hq * self.D * 2
         S = self.MP * self.ps
         B = 8
+        label = self.suffix.lstrip("_") or self.cfg.name
+        extra_bytes = self.Hq * 4 if "sinks" in timed else 0
+        flops_per_pair = 4.0 * self.Hq * self.D
         # -- K3 and K3' -----------------------------------------------------
         q = self.randn(B, self.Hq, self.D)
-        ctx_list = [117, 205, 298, 411, 150, 260, 0, 390]
+        ctx_list = list(ctx_list)
         ctx = self.i32(ctx_list)
         act = ctx > 0
         cache_list = [max(c - 1, 0) for c in ctx_list]
@@ -2249,6 +2312,8 @@ class KernelBench:
             self.randn(B, self.Hkv, self.D)
         pos = torch.arange(S + 1, device=self.dev)[None, :]
         ones = torch.ones(B, dtype=torch.bool, device=self.dev)
+        lo_dec = (pos[:, :S] >= ctx.long()[:, None] - Wl) if Wl else True
+        lo_cur = (pos > cache.long()[:, None] - Wl) if Wl else True
         for name, run, plain, keys, mask, lib_kv, valid, current in (
                 ("paged_decode_attention",
                  lambda n, kw: pa.paged_decode_attention(
@@ -2256,10 +2321,9 @@ class KernelBench:
                      num_splits=n, **kw),
                  lambda kw: pa.paged_decode_attention_plain(
                      q, self.kp, self.vp, self.pt8, ctx, self.layer, **kw),
-                 sum(min(c, W) for c in ctx_list),
+                 sum(min(c, W) if W else c for c in ctx_list),
                  # An inactive row keeps every key: SDPA needs one.
-                 ((pos[:, :S] < ctx.long()[:, None])
-                  & (pos[:, :S] >= ctx.long()[:, None] - W))
+                 ((pos[:, :S] < ctx.long()[:, None]) & lo_dec)
                  | ~act[:, None],
                  lambda: (attention.gather_pages(self.kp[self.layer],
                                                  self.pt8),
@@ -2273,16 +2337,17 @@ class KernelBench:
                  lambda kw: pa.paged_decode_attention_current_plain(
                      q, self.kp, self.vp, self.pt8, cache, k_cur, v_cur,
                      self.layer, **kw),
-                 sum(min(c + 1, W) for c in cache_list),
-                 ((pos < cache.long()[:, None])
-                  & (pos > cache.long()[:, None] - W)) | (pos == S),
+                 sum(min(c + 1, W) if W else c + 1 for c in cache_list),
+                 ((pos < cache.long()[:, None]) & lo_cur) | (pos == S),
                  lambda: (torch.cat([attention.gather_pages(
                      self.kp[self.layer], self.pt8), k_cur[:, None]], 1),
                      torch.cat([attention.gather_pages(
                          self.vp[self.layer], self.pt8), v_cur[:, None]],
                          1)),
                  ones, True)):
-            worst = max(self.close(f"{name} gptoss ({list(kw)})",
+            if name not in forms:
+                continue
+            worst = max(self.close(f"{name} {label} ({list(kw)})",
                                    run(None, kw), plain(kw), valid)
                         for kw in checked)
             m = mask[:, None, None, :]
@@ -2292,18 +2357,18 @@ class KernelBench:
                 return sdpa(q[:, :, None], k.transpose(1, 2),
                             v.transpose(1, 2), m)
             nbytes = keys * 2 * row + 2 * int(valid.sum()) * head_row \
-                + self.Hq * 4 + B * (4 + 4 * self.MP)
+                + extra_bytes + B * (4 + 4 * self.MP)
             self.split_record(
                 name, name, f"{CSRC}/paged_decode_attention.cu",
                 lambda n, run=run: run(n, timed),
                 lambda plain=plain: plain(timed), None, nbytes,
-                4.0 * keys * self.Hq * self.D,
+                flops_per_pair * keys,
                 pa.gqa_splits(B, self.Hkv, self.MP, self.ps, W, current),
-                valid, worst, sliding_window=W, sinks=True, bytes_moved=nbytes,
-                sdpa_without_sinks_ms=graph_ms(lib))
+                valid, worst, bytes_moved=nbytes,
+                **{library_key: graph_ms(lib)}, **flags)
         # -- K4 and K4' -----------------------------------------------------
         Bp, T = 4, 256
-        starts, lens_list = [0, 256, 128, 0], [256, 144, 200, 97]
+        starts, lens_list = list(prefill_starts), [256, 144, 200, 97]
         qp = self.randn(Bp, T, self.Hq, self.D)
         k_fresh, v_fresh = self.randn(Bp, T, self.Hkv, self.D), \
             self.randn(Bp, T, self.Hkv, self.D)
@@ -2314,7 +2379,8 @@ class KernelBench:
         kv_pos = torch.arange(S, device=self.dev)[None, None, :]
         q_pos = q_start.long()[:, None, None] + torch.arange(
             T, device=self.dev)[None, :, None]
-        pmask = ((kv_pos <= q_pos) & (kv_pos > q_pos - W)
+        pmask = ((kv_pos <= q_pos)
+                 & ((kv_pos > q_pos - Wl) if Wl else True)
                  & (kv_pos < (q_start + lens).long()[:, None, None])
                  )[:, None]
         idx = (q_start.long()[:, None] + torch.arange(T, device=self.dev))[
@@ -2327,57 +2393,61 @@ class KernelBench:
                 k.scatter_(1, idx, k_fresh)
                 v.scatter_(1, idx, v_fresh)
             return k, v
-        keys, pairs = self._window_counts(starts, lens_list)
+        keys, pairs = self._window_counts(starts, lens_list, W)
         n_rows = sum(lens_list)
-        for name, run, plain, fresh, extra_rows in (
+        for name, run, plain, fresh in (
                 ("paged_prefill_attention",
                  lambda kw: pf.paged_prefill_attention(
                      qp, self.kp, self.vp, pt, q_start, lens, self.layer,
                      **kw),
                  lambda kw: pf.paged_prefill_attention_plain(
                      qp, self.kp, self.vp, pt, q_start, lens, self.layer,
-                     **kw), False, 0),
+                     **kw), False),
                 ("paged_prefill_attention_fresh",
                  lambda kw: pf.paged_prefill_attention_fresh(
                      qp, k_fresh, v_fresh, self.kp, self.vp, pt, q_start,
                      lens, self.layer, **kw),
                  lambda kw: pf.paged_prefill_attention_fresh_plain(
                      qp, k_fresh, v_fresh, self.kp, self.vp, pt, q_start,
-                     lens, self.layer, **kw), True, 0)):
-            worst = max(self.close(f"{name} gptoss ({list(kw)})", run(kw),
+                     lens, self.layer, **kw), True)):
+            if name not in forms:
+                continue
+            worst = max(self.close(f"{name} {label} ({list(kw)})", run(kw),
                                    plain(kw), valid) for kw in checked)
 
             def lib(fresh=fresh):
                 k, v = gathered(fresh)
                 return sdpa(qp.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), pmask)
-            nbytes = keys * 2 * row + 2 * n_rows * head_row + self.Hq * 4 \
+            nbytes = keys * 2 * row + 2 * n_rows * head_row + extra_bytes \
                 + Bp * (8 + 4 * self.MP)
             self.record(
                 name, f"{CSRC}/paged_prefill_attention.cu",
                 f"{PALLAS}/prefill_attention.py:272", worst,
                 lambda run=run: run(timed), lambda plain=plain: plain(timed),
-                None, nbytes, 4.0 * pairs * self.Hq * self.D, entry=name,
-                sliding_window=W, sinks=True, bytes_moved=nbytes,
-                sdpa_without_sinks_ms=graph_ms(lib))
+                None, nbytes, flops_per_pair * pairs, entry=name,
+                bytes_moved=nbytes, **{library_key: graph_ms(lib)}, **flags)
+        if "ragged_paged_attention" not in forms:
+            return
         # -- K5 -------------------------------------------------------------
         Tr = 256
-        rctx = [117, 205, 298, 411, 150, 260, 333]
-        rstarts = [c - 1 for c in rctx] + [128]
-        rlens_list = [1] * 7 + [256]
+        rctx = list(ragged_ctx)
+        rstarts = [c - 1 for c in rctx] + [ragged_start]
+        rlens_list = [1] * len(rctx) + [256]
         qr = self.randn(B, Tr, self.Hq, self.D)
         rq_start, rlens = self.i32(rstarts), self.i32(rlens_list)
         rvalid = (torch.arange(Tr, device=self.dev)[None, :]
                   < rlens.long()[:, None])
         args = (qr, self.kp, self.vp, self.pt8, rq_start, rlens, self.layer)
         worst = max(self.close(
-            f"ragged_paged_attention gptoss ({list(kw)})",
+            f"ragged_paged_attention {label} ({list(kw)})",
             ra.ragged_paged_attention(*args, **kw),
             ra.ragged_paged_attention_plain(*args, **kw), rvalid)
             for kw in checked)
         rq_pos = rq_start.long()[:, None, None] + torch.arange(
             Tr, device=self.dev)[None, :, None]
-        rmask = ((kv_pos <= rq_pos) & (kv_pos > rq_pos - W)
+        rmask = ((kv_pos <= rq_pos)
+                 & ((kv_pos > rq_pos - Wl) if Wl else True)
                  & (kv_pos < (rq_start + rlens).long()[:, None, None])
                  )[:, None]
 
@@ -2386,18 +2456,18 @@ class KernelBench:
             v = attention.gather_pages(self.vp[self.layer], self.pt8)
             return sdpa(qr.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), rmask)
-        keys, pairs = self._window_counts(rstarts, rlens_list)
+        keys, pairs = self._window_counts(rstarts, rlens_list, W)
         # The whole [B, T, Hq, D] output is written (padding as zeros).
         nbytes = keys * 2 * row + sum(rlens_list) * head_row \
-            + B * Tr * head_row + self.Hq * 4 + B * (8 + 4 * self.MP)
+            + B * Tr * head_row + extra_bytes + B * (8 + 4 * self.MP)
         self.record(
             "ragged_paged_attention", f"{CSRC}/ragged_paged_attention.cu",
             f"{PALLAS}/ragged_attention.py:191", worst,
             lambda: ra.ragged_paged_attention(*args, **timed),
             lambda: ra.ragged_paged_attention_plain(*args, **timed), None,
-            nbytes, 4.0 * pairs * self.Hq * self.D,
-            entry="ragged_paged_attention", sliding_window=W, sinks=True,
-            bytes_moved=nbytes, sdpa_without_sinks_ms=graph_ms(rlib))
+            nbytes, flops_per_pair * pairs,
+            entry="ragged_paged_attention", bytes_moved=nbytes,
+            **{library_key: graph_ms(rlib)}, **flags)
 
 
 # ---------------------------------------------------------------------------
@@ -3061,12 +3131,13 @@ SERVE_PLAN = (
 )
 
 
-def serve_bodies(rng: random.Random, tokenizer=None) -> list:
-    """The bodies of ``SERVE_PLAN``. With ``tokenizer`` each also carries
-    its prompt's token ids, so a master in front (which renders chats
+def serve_bodies(rng: random.Random, tokenizer=None,
+                 plan=SERVE_PLAN) -> list:
+    """The bodies of ``plan``. With ``tokenizer`` each also carries its
+    prompt's token ids, so a master in front (which renders chats
     through its own template) serves the prompt a direct request does."""
     bodies = []
-    for path, stream, n in SERVE_PLAN:
+    for path, stream, n in plan:
         body = {"max_tokens": 32, "temperature": 0.0, "ignore_eos": True,
                 "stream": stream}
         text = _prompt(rng, n)
@@ -3132,13 +3203,13 @@ def check_replies(plan, results):
     return ttfts, decode_rates, total_tokens
 
 
-def run_concurrent(addr, bodies, headers=None):
-    """``SERVE_PLAN``'s requests with ``bodies``, all at once, to
-    ``addr``; returns (results, wall seconds)."""
-    results = [{} for _ in SERVE_PLAN]
+def run_concurrent(addr, bodies, headers=None, plan=SERVE_PLAN):
+    """``plan``'s requests with ``bodies``, all at once, to ``addr``;
+    returns (results, wall seconds)."""
+    results = [{} for _ in plan]
     threads = [threading.Thread(target=_request,
                                 args=(addr, p, b, s, r, headers))
-               for (p, s, _), b, r in zip(SERVE_PLAN, bodies, results)]
+               for (p, s, _), b, r in zip(plan, bodies, results)]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
@@ -3183,7 +3254,8 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
           write_then_attend: bool = True, tag: str = "",
           on_engine=None, graphs: bool = True, decode_steps: int = 1,
           params=None, keep_params: bool = False, model_cfg=None,
-          engine_args=None, profile: bool = True) -> dict:
+          engine_args=None, profile: bool = True,
+          plan=SERVE_PLAN) -> dict:
     """Phase 5 (ragged off), 5b (ragged on), 5c (attend-then-write), 5d
     and 5e (DeepSeek-V2-Lite in either order), and each mode of 5f/5g:
     4 concurrent requests through the worker (which captures its decode
@@ -3194,7 +3266,8 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
     ``out["params"]``. ``model_cfg``: the model to serve instead of
     ``model``'s catalog entry. ``engine_args``: the worker's pool and
     batch flags (default ``SERVE_ARGS``). ``profile``: profile one
-    request (the split paths). ``on_engine(engine, tokens)``, if given,
+    request (the split paths). ``plan``: the requests (default
+    ``SERVE_PLAN``). ``on_engine(engine, tokens)``, if given,
     runs on the live engine once the requests are served (``tokens``:
     each request's, by prompt length); its result is
     ``out["on_engine"]``."""
@@ -3232,13 +3305,12 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
                   "temperature": 0.0}, False, warm)
         if warm["status"] != 200:
             raise AssertionError(f"warm-up request failed: {warm}")
-        plan = SERVE_PLAN
-        bodies = serve_bodies(rng)
+        bodies = serve_bodies(rng, plan=plan)
         steps0 = w.engine.step_count
         ragged0 = w.engine.ragged_steps
         kernels.reset_launch_counts()
         steplog.clear()
-        results, wall = run_concurrent(w.name, bodies)
+        results, wall = run_concurrent(w.name, bodies, plan=plan)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         steps = w.engine.step_count - steps0
@@ -3256,7 +3328,7 @@ def serve(torch, kernels, model: str, device: str, ragged: bool,
             # page with: the profiled request prefills from token 0.
             fresh = dict(bodies[0], messages=[{
                 "role": "user", "content": _prompt(random.Random(5),
-                                                   SERVE_PLAN[0][2])}])
+                                                   plan[0][2])}])
             prof = profile_request(torch, w.name, fresh)
             # Forward passes: decode forwards (N a burst) and prefill
             # forwards.
@@ -3774,6 +3846,11 @@ def cluster_phase(torch, kernels, card: str) -> dict:
             t0 = time.perf_counter()
             w.start()
             out["worker_start_s"] = time.perf_counter() - t0
+            # The front door: the native epoll server, which g++ builds.
+            out["front_door"] = w._srv.kind
+            if w._srv.kind != "native":
+                raise AssertionError(f"phase 6: the worker's front door is "
+                                     f"{w._srv.kind}, not native")
         finally:
             for k, v in saved.items():
                 if v is None:
@@ -7390,6 +7467,75 @@ def _mm_margins(torch, eng, reqs, streams, err) -> list:
     return out
 
 
+EPD_WORKER_STAGES = ("received", "encoded", "scheduled", "first_token")
+
+
+def _trace_split(m_http: str, rid: str) -> dict:
+    """The ms between the worker plane's stages of ``rid``'s trace at the
+    master (received -> encoded -> scheduled -> first_token), once its
+    spans arrived."""
+    stages = {}
+
+    def arrived() -> bool:
+        status, tr = _get(m_http, f"/admin/trace/{rid}")
+        if status != 200:
+            return False
+        for e in tr["events"]:
+            if e["plane"] == "worker" and e["stage"] in EPD_WORKER_STAGES:
+                stages.setdefault(e["stage"], e["t_wall"])
+        return len(stages) == len(EPD_WORKER_STAGES)
+    wait_for(arrived, 15.0, f"phase 14: the worker spans of {rid}")
+    return {f"{a}->{b}": (stages[b] - stages[a]) * 1e3
+            for a, b in zip(EPD_WORKER_STAGES, EPD_WORKER_STAGES[1:])}
+
+
+def _epd_wire_round(w, enc_addr: str, m_http: str, card: str) -> dict:
+    """Phase 14's staged wire beside the bytes: one image's embeddings
+    fetched from the ENCODE child by the MIX worker over CUDA IPC (a
+    staged ticket pulled and acknowledged) and as bytes, bit-equal; the
+    child's staged tickets back to 0; an image chat through the master
+    each way, its TTFT and trace split."""
+    from xllm_service_tpu_torch.runtime import kv_wire
+    pulls, pull_one = [], kv_wire.pull_one
+
+    def counted(tr):
+        out = pull_one(tr)
+        pulls.append(tr.get("uuid"))
+        return out
+    out = {}
+    kv_wire.pull_one = counted
+    try:
+        t0 = time.perf_counter()
+        wired, _ = w._fetch_remote_embeds(enc_addr, ["random:7"], 60.0)
+        out["fetch_ms_wire"] = (time.perf_counter() - t0) * 1e3
+        w.opts.pd_device_wire = False
+        t0 = time.perf_counter()
+        by_bytes, _ = w._fetch_remote_embeds(enc_addr, ["random:7"], 60.0)
+        out["fetch_ms_bytes"] = (time.perf_counter() - t0) * 1e3
+        bytes_chat = _concurrent(m_http, [_epd_chat("random:8")],
+                                 [{"x-request-id": "epd-bytes"}])[0]
+        w.opts.pd_device_wire = True
+        wire_chat = _concurrent(m_http, [_epd_chat("random:9")],
+                                [{"x-request-id": "epd-wire"}])[0]
+    finally:
+        kv_wire.pull_one = pull_one
+        w.opts.pd_device_wire = True
+    out["pulls"] = len(pulls)
+    out["bit_equal"] = (wired.dtype == by_bytes.dtype
+                        and wired.shape == by_bytes.shape
+                        and wired.tobytes() == by_bytes.tobytes())
+    out["child_staged_after"] = _metric(_metric_rows(enc_addr),
+                                        "xllm_worker_encode_staged")
+    out["ttft_ms_image_wire"] = _epd_reply(wire_chat)[1]
+    out["ttft_ms_image_bytes"] = _epd_reply(bytes_chat)[1]
+    out["trace_split_ms_wire"] = _trace_split(m_http, "epd-wire")
+    out["trace_split_ms_bytes"] = _trace_split(m_http, "epd-bytes")
+    out["ok"] = (out["bit_equal"] and out["pulls"] == 2
+                 and out["child_staged_after"] == 0)
+    log(f"[epd] {card}: staged wire beside bytes: {json.dumps(out)}")
+    return out
+
+
 def epd_phase(torch, kernels, card: str, err: float) -> dict:
     """Phase 14: the EPD multimodal path with Qwen2-VL-7B at full width
     and depth (the published config.json; random bf16 weights from seed
@@ -7559,6 +7705,7 @@ def epd_phase(torch, kernels, card: str, err: float) -> dict:
         again = _concurrent(m_http, [_epd_chat("random:1")])
         launches = kernels.launch_counts()
         enc_rows = _metric_rows(enc_addr)
+        out["wire"] = _epd_wire_round(w, enc_addr, m_http, card)
         st, resp = _post(enc_addr, "/admin/failpoint",
                          {"name": "worker.fail_encode", "mode": "count",
                           "n": 4})
@@ -7624,9 +7771,10 @@ def epd_phase(torch, kernels, card: str, err: float) -> dict:
         if late or eager:
             problems.append(f"{late} captures after warmup, {eager} eager "
                             f"steps")
-        # Three images through the ENCODE child and one repeat: every
-        # image's 64 tokens spliced, the repeat a cache hit.
-        if out["spliced_tokens"] != 5 * vcfg.tokens_per_image:
+        # Three images through the ENCODE child, one repeat, the wire
+        # round's two and the local encode: every image's 64 tokens
+        # spliced, the repeat a cache hit.
+        if out["spliced_tokens"] != 7 * vcfg.tokens_per_image:
             problems.append(f"spliced {out['spliced_tokens']} tokens")
         if ec["cache_hits"] < 1 or ec["cache_misses"] < 3:
             problems.append(f"encode cache {ec}")
@@ -7637,6 +7785,8 @@ def epd_phase(torch, kernels, card: str, err: float) -> dict:
                             f"{out['repeat_same_text']}")
         if any(m["verdict"] == "fault" for m in out["margins"]):
             problems.append(f"margins {out['margins']}")
+        if not out["wire"]["ok"]:
+            problems.append(f"wire round {out['wire']}")
         out["seconds"] = time.perf_counter() - t_phase
         if out["seconds"] > EPD_BUDGET_S:
             problems.append(f"{out['seconds']:.1f} s > {EPD_BUDGET_S} s")
@@ -7679,8 +7829,62 @@ OBS_SECTIONS = ("span.write", "event.emit", "sse.assemble")
 # and off in turns, each first and last in turn.
 OBS_COST_ROUNDS = ("profile_on", "profile_off", "profile_off", "profile_on",
                    "profile_on", "profile_off")
-OBS_BUDGET_S = 60.0
+OBS_BUDGET_S = 90.0
+# The shed round: a worker child at this cap, its slots held by streams
+# the worker.slow_response_ms failpoint keeps in their handlers this long.
+OBS_SHED_CAP = 2
+OBS_SHED_HOLD_MS = 4000
 WORKER_STAGES = ["received", "scheduled", "first_token", "finished"]
+
+
+def shed_round(child, w, m_http: str, m_rpc: str, body: dict,
+               card: str) -> dict:
+    """Phase 15's shed round: ``child`` (a worker at ``OBS_SHED_CAP``)
+    and ``w`` behind the master; the child's slots held by two streams
+    the slow-response failpoint keeps in their handlers, then two chats
+    through the master in turn (round robin offers the child one): each
+    must be served (the master re-dispatches the child's 503 to ``w``),
+    the child's ``xllm_worker_http_rejected_total`` must move and its
+    front door be the native one. The child leaves the list after."""
+    addr = child.line.split("http=")[1].split()[0]
+    wait_for(lambda: addr in listed(m_rpc), 30.0,
+             "phase 15: the shed child on the master's list")
+    st, resp = _post(addr, "/admin/failpoint", {
+        "name": "worker.slow_response_ms", "mode": "count",
+        "n": OBS_SHED_CAP, "value": OBS_SHED_HOLD_MS})
+    if st != 200:
+        raise AssertionError(f"phase 15: arming the shed child: {st} {resp}")
+    held = [{} for _ in range(OBS_SHED_CAP)]
+    holders = [threading.Thread(target=_request, args=(
+        addr, CHAT, dict(body), True, r)) for r in held]
+    for t in holders:
+        t.start()
+    time.sleep(0.5)
+    rows0 = _metric_rows(addr)
+    rej0 = _metric(rows0, "xllm_worker_http_rejected_total")
+    t0 = time.perf_counter()
+    through = [_concurrent(m_http, [body])[0] for _ in range(2)]
+    shed_s = time.perf_counter() - t0
+    rows = _metric_rows(addr)
+    for t in holders:
+        t.join(120)
+    out = {"rejected": _metric(rows, "xllm_worker_http_rejected_total")
+           - rej0,
+           "child_server": [dict(ls).get("kind") for (n, ls), v in
+                            rows.items() if n == "xllm_worker_http_server"
+                            and v == 1],
+           "served_through_master": [r.get("status") for r in through],
+           "ttft_ms_through_master": [_stream_rate(r)[0] for r in through],
+           "held_served": [r.get("status") for r in held],
+           "seconds": shed_s, "in_process_server": w._srv.kind}
+    child.stop()
+    wait_for(lambda: addr not in listed(m_rpc), 15.0,
+             "phase 15: the shed child off the list")
+    out["ok"] = (out["rejected"] >= 1 and out["child_server"] == ["native"]
+                 and out["served_through_master"] == [200, 200]
+                 and out["held_served"] == [200] * OBS_SHED_CAP)
+    log(f"[obs] {card}: shed round: {json.dumps(out)}")
+    return out
 
 
 class EtcdProcess:
@@ -7794,6 +7998,7 @@ def obs_phase(torch, kernels, card: str) -> dict:
     g. ``stop()``: the seconds until the worker is off the list.
 
     At most ``OBS_BUDGET_S`` on the script's clock."""
+    from xllm_service_tpu_torch.obs import profiler
     from xllm_service_tpu_torch.runtime import worker
     from xllm_service_tpu_torch.service.etcd_store import EtcdStore
     from xllm_service_tpu_torch.utils import locks
@@ -7805,11 +8010,11 @@ def obs_phase(torch, kernels, card: str) -> dict:
     problems = []
     sample = locks.PROFILE_SAMPLE
 
-    def spawn_child(tag: str, env: dict) -> None:
+    def spawn_child(tag: str, env: dict, args=()) -> None:
         try:
             children[tag] = RefProcess(
                 ["xllm_service_tpu_torch.runtime.worker", "--model",
-                 OBS_MODEL, "--device", OBS_DEVICE, *OBS_ARGS],
+                 OBS_MODEL, "--device", OBS_DEVICE, *OBS_ARGS, *args],
                 "XLLM_TORCH_WORKER_UP",
                 logs / f"{tag}_child.log", timeout=240.0,
                 env={**OBS_ENV, **env})
@@ -7841,6 +8046,8 @@ def obs_phase(torch, kernels, card: str) -> dict:
         if type(w.store.inner) is not EtcdStore:
             raise AssertionError(f"phase 15: the worker's store is "
                                  f"{type(w.store.inner)}")
+        if w._srv.kind != "native":
+            problems.append(f"the worker's front door is {w._srv.kind}")
         wait_for(lambda: w.name in listed(m_rpc), 30.0,
                  "phase 15: the worker on the master's list")
         out["listed_s"] = time.perf_counter() - t0
@@ -7891,6 +8098,14 @@ def obs_phase(torch, kernels, card: str) -> dict:
         if min(out["launches"].values()) <= 0:
             problems.append(f"a kernel of the path never launched: "
                             f"{out['launches']}")
+        # The shed round's child joins the master after (c), so that the
+        # 8 chats all reach the in-process worker; it boots during (d)-(e).
+        shed_starter = threading.Thread(target=spawn_child, args=(
+            "shed", {}, ["--store-addr", store, "--service-addr", m_rpc,
+                         "--max-concurrency", str(OBS_SHED_CAP),
+                         "--no-warmup"]))
+        shed_starter.start()
+        starters.append(shed_starter)
         log(f"[obs] {card}: listed {out['listed_s']:.2f} s after boot "
             f"began ({out['listed_after_start_s']:.2f} s after start()); "
             f"8 chats through the master {json.dumps(out['through_master'])}"
@@ -7963,6 +8178,16 @@ def obs_phase(torch, kernels, card: str) -> dict:
             f"{out['profiler_cost']['profile_on']['decode_tokens_per_s_median']}"
             f" vs "
             f"{out['profiler_cost']['profile_off']['decode_tokens_per_s_median']}")
+        # e2. The shed round.
+        shed_starter.join(300)
+        if "shed" not in children:
+            raise AssertionError(f"phase 15: the shed child did not start: "
+                                 f"{children.get('shed_err')}")
+        procs.append(children["shed"])
+        out["shed"] = shed_round(children["shed"], w, m_http, m_rpc,
+                                 bodies[0], card)
+        if not out["shed"]["ok"]:
+            problems.append(f"shed round {out['shed']}")
         # f.
         old_revision = etcd_revision(etcd.address)
         etcd.stop()
@@ -8004,6 +8229,10 @@ def obs_phase(torch, kernels, card: str) -> dict:
         out["unlisted_after_stop_s"] = time.perf_counter() - t0
         if client.get(key) is not None:
             problems.append("the registration outlived stop()")
+        # The profiler's books: one per thread that ever recorded, which
+        # the front door's handler pool bounds.
+        out["thread_books"] = profiler.thread_books()
+        out["handler_pool_cap"] = w._srv._pool_cap
         out["seconds"] = time.perf_counter() - t_phase
         if out["seconds"] > OBS_BUDGET_S:
             problems.append(f"{out['seconds']:.1f} s > {OBS_BUDGET_S} s")
@@ -8031,6 +8260,294 @@ def obs_phase(torch, kernels, card: str) -> dict:
                 c.stop()
         if etcd is not None:
             etcd.stop()
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: Gemma-3-12B (per-layer rope bases, D = 256) and Gemma-2-9B
+# ---------------------------------------------------------------------------
+
+GEMMA3_MODEL = "gemma3-12b"
+GEMMA2_MODEL = "gemma2-9b"
+GEMMA_DEVICE = "cuda"
+GEMMA3_WINDOW = 1024          # Gemma-3's local layers
+GEMMA2_SOFTCAP = 50.0         # Gemma-2's attention logit soft-cap
+# The logits check's depth: Gemma-3-12B's first six layers, five local
+# (the 1024-token window) and one global.
+GEMMA_CHECK_LAYERS = 6
+# Gemma-2-9B's served depth (of 42, alternating local and global): the
+# soft-capped D = 256 path at published widths, one served batch.
+GEMMA2_SERVE_LAYERS = 8
+# The served pool: 4 slots of 2,048 tokens (16 pages of 128 each, and
+# the NULL page), buckets 128/256/512. The prefill budget is 3 + 256:
+# the warmup ladder holds the pairs (B, T) with (B - 1) + T within the
+# budget (or T alone), and a prefill-first step packs windows by their
+# sum and pads to the longest one's bucket, so at a budget of 512 a 300-
+# and a 200-token window (B = 2, T = 512) were captured after warmup;
+# at 259 only a lone first window reaches T = 512.
+GEMMA_ARGS = ["--page-size", "128", "--num-pages", "72",
+              "--max-model-len", "2048", "--max-batch-size", "4",
+              "--prefill-buckets", "128,256,512",
+              "--max-prefill-tokens", "259"]
+# Two of the four prompts past the 1024-token window.
+GEMMA_PLAN = (("/v1/chat/completions", True, 1400),
+              ("/v1/completions", False, 300),
+              ("/v1/chat/completions", True, 1150),
+              ("/v1/completions", False, 200))
+# (tag, ragged, write-then-attend, layers): both write orders at all 48
+# layers; the ragged step (K5's launches) at the first 6 layers (5
+# local, 1 global) of the same weights, since its warmup captures twice
+# the split path's graphs (87.3 s at 48 layers on an H100, against 38.1
+# s for the split path).
+GEMMA_PATHS = (("split", False, True, 48),
+               ("attend_then_write", False, False, 48),
+               ("ragged", True, True, 6))
+
+
+def gemma_kernel_rows(torch) -> list:
+    """Phase 3's D = 256 records, the forms phase 16 serves: Gemma-3-12B's
+    (16 query heads, Hkv 8; 16 pages a row, contexts past the 1024-token
+    window of its local layers) fused rope writers, K3, K3', K4, K4' and
+    K5, and K3 / K4 with Gemma-2-9B's soft-cap 50."""
+    from xllm_service_tpu_torch.config import ModelConfig
+    from xllm_service_tpu_torch.ops import attention, rope
+    from xllm_service_tpu_torch.ops.kernels import (kv_update,
+                                                    paged_attention,
+                                                    prefill_attention,
+                                                    ragged_attention)
+    long_ctx = (117, 1205, 1298, 2011, 150, 1860, 0, 1390)
+    g3 = KernelBench(torch, ModelConfig.gemma3_12b(), "cuda",
+                     suffix="_gemma3", mp=16)
+    g3.rope_decode_writer(kv_update, rope)
+    g3.rope_prefill_writer(kv_update, rope)
+    g3.windowed_attention(
+        paged_attention, prefill_attention, ragged_attention, attention,
+        ({"sliding_window": GEMMA3_WINDOW}, {}), "sdpa_without_window_ms",
+        ctx_list=long_ctx, prefill_starts=(0, 1280, 1024, 0),
+        ragged_ctx=tuple(c for c in long_ctx if c), ragged_start=1152,
+        lib_window=False, sliding_window=GEMMA3_WINDOW)
+    rows = g3.results
+    del g3
+    free_device_memory(torch)
+    g2 = KernelBench(torch, ModelConfig.gemma2_9b(), "cuda",
+                     suffix="_gemma2", mp=16)
+    g2.windowed_attention(
+        paged_attention, prefill_attention, ragged_attention, attention,
+        ({"logits_soft_cap": GEMMA2_SOFTCAP},
+         {"logits_soft_cap": GEMMA2_SOFTCAP, "sliding_window": 4096}),
+        "sdpa_without_softcap_ms",
+        forms=("paged_decode_attention", "paged_prefill_attention"),
+        ctx_list=long_ctx, prefill_starts=(0, 1280, 1024, 0),
+        logits_soft_cap=GEMMA2_SOFTCAP)
+    rows += g2.results
+    del g2
+    free_device_memory(torch)
+    return rows
+
+
+def gemma_forward_check(torch, cfg, device) -> tuple:
+    """Gemma-3-12B cut to ``cfg.num_layers`` through the kernels (bf16
+    on the card) against the plain path (float32 on the CPU, the same
+    weights): a 1,100-token prefill (past the local window) in
+    write-then-attend order, a decode step, a ragged step (that row
+    decoding at 1,100 beside a fresh 40-token window), then on a fresh
+    pool the attend-then-write order (256- and 200-token windows, 40 and
+    30 more at q_start > 0, a decode step). Returns (the relative L2
+    errors, the largest absolute logit error)."""
+    from xllm_service_tpu_torch.models import transformer as tf
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = tf.init_params(cfg, gen, dev)
+    cpu_params = cpu_float(params)
+    P, ps, B, T = 24, 128, 2, 1152
+    pt = torch.arange(1, 1 + 2 * 10, dtype=torch.int32).reshape(2, 10)
+    rng = random.Random(16)
+
+    def toks(n):
+        return [rng.randrange(3, 259) for _ in range(n)]
+    tokens = torch.tensor([toks(T)])
+    one = torch.zeros(1, dtype=torch.int32)
+    long_len = torch.tensor([1100], dtype=torch.int32)
+    rg_tokens = torch.zeros(B, 64, dtype=torch.long)
+    rg_tokens[1, :40] = torch.tensor(toks(40))
+    rg_start = torch.tensor([1100, 0], dtype=torch.int32)
+    rg_lens = torch.tensor([1, 40], dtype=torch.int32)
+    start = torch.zeros(B, dtype=torch.int32)
+    aw_first = torch.tensor([toks(256) for _ in range(B)])
+    aw_lens0 = torch.tensor([256, 200], dtype=torch.int32)
+    aw_tokens = torch.tensor([toks(64) for _ in range(B)])
+    aw_lens = torch.tensor([40, 30], dtype=torch.int32)
+    results = []
+    with torch.inference_mode():
+        for device, p, dtype in ((dev, params, tf.torch_dtype(cfg)),
+                                 (torch.device("cpu"), cpu_params,
+                                  torch.float32)):
+            kv = tf.init_kv_cache(cfg, P, ps, device, dtype=dtype)
+            pre, kv = tf.forward_prefill(p, cfg, tokens.to(device),
+                                         one.to(device), long_len.to(device),
+                                         kv, pt[:1].to(device))
+            nxt = pre.argmax(-1) if not results else results[0][0].argmax(-1)
+            dec, kv = tf.forward_decode(
+                p, cfg, nxt.to(device), long_len.to(device),
+                torch.ones(1, dtype=torch.bool, device=device), kv,
+                pt[:1].to(device))
+            rg_tokens[0, 0] = (dec if not results else results[0][1]).argmax(
+                -1)[0].item()
+            rag, kv = tf.forward_prefill(p, cfg, rg_tokens.to(device),
+                                         rg_start.to(device),
+                                         rg_lens.to(device), kv,
+                                         pt.to(device), ragged=True)
+            kv = tf.init_kv_cache(cfg, P, ps, device, dtype=dtype)
+            first, kv = tf.forward_prefill(
+                p, cfg, aw_first.to(device), start.to(device),
+                aw_lens0.to(device), kv, pt.to(device),
+                write_then_attend=False)
+            second, kv = tf.forward_prefill(
+                p, cfg, aw_tokens.to(device), aw_lens0.to(device),
+                aw_lens.to(device), kv, pt.to(device),
+                write_then_attend=False)
+            nxt = second.argmax(-1) if not results else \
+                results[0][4].argmax(-1)
+            aw_dec, kv = tf.forward_decode(
+                p, cfg, nxt.to(device), (aw_lens0 + aw_lens).to(device),
+                torch.ones(B, dtype=torch.bool, device=device), kv,
+                pt.to(device), write_then_attend=False)
+            results.append(tuple(x.float().cpu() for x in (
+                pre, dec, rag, first, second, aw_dec)))
+            del kv
+    del params, cpu_params
+    return logit_errors(torch, results)
+
+
+def gemma_phase(torch, kernels, card: str) -> dict:
+    """Phase 16: the first served D = 256 models.
+
+    a. Gemma-3-12B at its published widths cut to ``GEMMA_CHECK_LAYERS``
+       (five local layers, one global; per-layer rope bases): the
+       kernels in bf16 against the float32 plain path
+       (``gemma_forward_check``), relative L2 under ``FORWARD_REL_L2``.
+    b. Gemma-3-12B at its published widths on random bf16 weights made
+       on the card from seed 0, served in-process by the worker in each
+       of ``GEMMA_PATHS`` (the split path and attend-then-write at all 48
+       layers, the ragged step at the first 6) with ``GEMMA_PLAN``'s
+       four requests (two prompts past the window, 32 new tokens at
+       temperature 0) on ``GEMMA_ARGS``' pool: every step's launches, no
+       capture after warmup, TTFT, decode step median, tokens/s per
+       stream; attend-then-write's streams against the split path's
+       under the margins rule (limit: 10 x (a)'s largest logit
+       error).
+    c. Gemma-2-9B at its published widths and ``GEMMA2_SERVE_LAYERS``
+       layers (random bf16 weights from the engine's seed), phase 5's
+       requests in the split path: the soft-capped D = 256 kernels."""
+    from xllm_service_tpu_torch.config import ModelConfig
+    from xllm_service_tpu_torch.models import transformer as tf
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    cfg = ModelConfig.gemma3_12b()
+    cut = dataclasses.replace(
+        cfg, num_layers=GEMMA_CHECK_LAYERS,
+        layer_sliding=cfg.layer_sliding[:GEMMA_CHECK_LAYERS])
+    # a.
+    t0 = time.perf_counter()
+    rels, err = gemma_forward_check(torch, cut, GEMMA_DEVICE)
+    free_device_memory(torch)
+    out["check"] = {"layers": GEMMA_CHECK_LAYERS,
+                    "local_layers": sum(cut.layer_sliding),
+                    "rel_l2": rels, "max_abs_logit_err": err,
+                    "seconds": time.perf_counter() - t0}
+    log(f"[gemma] {card}: gemma3-12b x{GEMMA_CHECK_LAYERS} rel L2 (kernels "
+        f"bf16 vs plain fp32): write-then-attend prefill/decode/ragged "
+        f"{rels[:3]}, attend-then-write prefill/prefill/decode {rels[3:]};"
+        f" largest logit error {err}")
+    if max(rels) > FORWARD_REL_L2:
+        raise AssertionError(f"phase 16: gemma3-12b logits rel L2 "
+                             f"{max(rels)} > {FORWARD_REL_L2}")
+    # b.
+    t0 = time.perf_counter()
+    g = torch.Generator(device=GEMMA_DEVICE).manual_seed(0)
+    params = tf.init_params(cfg, g, GEMMA_DEVICE)
+    torch.cuda.synchronize()
+    leaves = [params["embed"], params["final_norm"],
+              *params["layers"].values()]
+    out["init_s"] = time.perf_counter() - t0
+    out["param_bytes"] = sum(t.numel() * t.element_size() for t in leaves)
+    out["params"] = sum(t.numel() for t in leaves)
+    split = {"ragged": False, "write_then_attend": True}
+    served, tok = {}, {}
+    for tag, ragged, wta, layers in GEMMA_PATHS:
+        on_engine = None
+        if layers == cfg.num_layers and tag != "split":
+            def on_engine(eng, tok_x, path={"ragged": ragged,
+                                            "write_then_attend": wta},
+                          tag=tag):
+                return divergence_margins(torch, eng, [(
+                    tag, tok["split"], split, tok_x, path,
+                    served["split"]["prompts"])], err)
+        # A cut depth serves the first layers of the same weights (views).
+        served[tag] = serve(
+            torch, kernels, GEMMA3_MODEL, GEMMA_DEVICE, ragged=ragged,
+            write_then_attend=wta, tag=f"_gemma3_{tag}",
+            params=dict(params, layers={k: v[:layers] for k, v in
+                                        params["layers"].items()}),
+            model_cfg=dataclasses.replace(
+                cfg, num_layers=layers,
+                layer_sliding=cfg.layer_sliding[:layers]),
+            on_engine=on_engine, engine_args=GEMMA_ARGS, profile=False,
+            plan=GEMMA_PLAN)
+        tok[tag] = served[tag].pop("tokens")
+    for tag in served:
+        served[tag].pop("prompts")
+        served[tag].pop("params", None)
+    margins = [m for tag in served for m in (served[tag].pop("on_engine")
+                                             or [])]
+    same = {}
+    for tag, _, _, layers in GEMMA_PATHS:
+        if tag == "split" or layers != cfg.num_layers:
+            continue
+        pairs = [(x, y) for n in tok["split"]
+                 for x, y in zip(tok["split"][n], tok[tag].get(n, []))]
+        same[tag] = sum(x == y for x, y in pairs) / len(pairs)
+    del params, leaves
+    free_device_memory(torch)
+    out.update(serve=served, margins=margins, equal_token_share=same,
+               served_s=time.perf_counter() - t0)
+    if any(m["verdict"] == "fault" for m in margins):
+        raise AssertionError(f"phase 16: a gemma3-12b stream diverged past "
+                             f"the margins rule: {margins}")
+    s = served["split"]
+    log(f"[gemma] {card}: gemma3-12b x{cfg.num_layers} layers, "
+        f"{out['params']} parameters ({out['param_bytes']} B) made in "
+        f"{out['init_s']:.2f} s; TTFT ms split {s['ttft_ms_streams']}, "
+        f"attend-then-write "
+        f"{served['attend_then_write']['ttft_ms_streams']}, ragged (6 "
+        f"layers) {served['ragged']['ttft_ms_streams']}; decode step ms "
+        f"median split {s['decode_step_ms_median']}, attend-then-write "
+        f"{served['attend_then_write']['decode_step_ms_median']}, ragged "
+        f"(6 layers) {served['ragged']['decode_step_ms_median']}; tokens/s "
+        f"per stream split {s['decode_tokens_per_s_streams']}; equal tokens "
+        f"{same}; margins {json.dumps(margins)}")
+    # c.
+    t0 = time.perf_counter()
+    cfg2 = ModelConfig.gemma2_9b()
+    cut2 = dataclasses.replace(
+        cfg2, num_layers=GEMMA2_SERVE_LAYERS,
+        layer_sliding=cfg2.layer_sliding[:GEMMA2_SERVE_LAYERS])
+    out["gemma2"] = serve(torch, kernels, GEMMA2_MODEL, GEMMA_DEVICE,
+                          ragged=False, tag="_gemma2", model_cfg=cut2,
+                          engine_args=GEMMA_ARGS, profile=False)
+    out["gemma2"].pop("tokens")
+    out["gemma2"].pop("prompts")
+    out["gemma2"].pop("params", None)
+    out["gemma2"].pop("on_engine", None)
+    out["gemma2_s"] = time.perf_counter() - t0
+    free_device_memory(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    g2 = out["gemma2"]
+    log(f"[gemma] {card}: gemma2-9b x{GEMMA2_SERVE_LAYERS} layers: TTFT ms "
+        f"{g2['ttft_ms_streams']}, decode step ms median "
+        f"{g2['decode_step_ms_median']}; phase 16 {out['seconds']:.1f} s "
+        f"(check {out['check']['seconds']:.1f}, gemma3 served "
+        f"{out['served_s']:.1f}, gemma2 {out['gemma2_s']:.1f})")
+    return out
 
 
 def main() -> int:
@@ -8142,6 +8659,7 @@ def main() -> int:
     bench.results += oss.results
     del oss
     free_device_memory(torch)
+    bench.results += gemma_kernel_rows(torch)
     mark("3_kernels")
 
     # 4. Forward pass: llama3-1b, then DeepSeek-V2-Lite cut to 4 layers.
@@ -8318,6 +8836,9 @@ def main() -> int:
     observed = obs_phase(torch, kernels, card)
     free_device_memory(torch)
     mark("15_obs")
+    # 16. Gemma-3-12B and Gemma-2-9B: the D = 256 path served.
+    gemma = gemma_phase(torch, kernels, card)
+    mark("16_gemma")
     margins = served_c["on_engine"] + served_e["on_engine"]
     for phase in (served, served_b, served_c, served_d, served_e):
         phase.pop("prompts")
@@ -8328,10 +8849,21 @@ def main() -> int:
         f"largest logit error, llama3-1b {err}, deepseek-v2-lite "
         f"{err_mla}): {json.dumps(margins)}")
 
-    # 12. Summary.
+    # 17. Summary.
     woken = lifecycle["wake"]["launches"]
     for r in bench.results:
         name = r.get("entry", r["name"])       # a record at another shape
+        if r.get("shape_model") == GEMMA3_MODEL:
+            # Served by phase 16's Gemma-3-12B rounds: each path's kernels.
+            tag = ("ragged" if name == "ragged_paged_attention" else
+                   "attend_then_write" if name in ATTEND_THEN_WRITE_KERNELS
+                   else "split")
+            r["launches"] = gemma["serve"][tag]["launches"][name]
+            r["launches_served_path"] = tag
+            continue
+        if r.get("shape_model") == GEMMA2_MODEL:
+            r["launches"] = gemma["gemma2"]["launches"][name]
+            continue
         if r.get("shape_model") == EPD_MODEL:
             # Served only by phase 14's Qwen2-VL-7B worker.
             r["launches"] = epd["launches"][name]
@@ -8384,7 +8916,7 @@ def main() -> int:
                "cluster_cache_aware": routed, "sampling": sampled,
                "faults": faulted, "pd": disaggregated, "fetch": fetched,
                "lifecycle": lifecycle, "checkpoint": from_disk,
-               "epd": epd, "obs": observed,
+               "epd": epd, "obs": observed, "gemma": gemma,
                "graph_decode_check": {"llama3-1b": graph,
                                       "deepseek-v2-lite": graph_mla},
                "warmup_ladders": ladders,

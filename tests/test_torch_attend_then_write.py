@@ -52,6 +52,7 @@ from xllm_service_tpu_torch.ops.kernels import (
 from xllm_service_tpu_torch.runtime.engine import (
     Engine, EngineRequest, resolve_write_then_attend)
 from xllm_service_tpu_torch.utils.types import SamplingParams
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 ATTN_TOL = dict(atol=1e-5, rtol=1e-5)
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)

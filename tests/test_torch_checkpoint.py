@@ -47,6 +47,7 @@ from xllm_service_tpu_torch.models import transformer as ttf
 from xllm_service_tpu_torch.models.weights import params_from_jax
 from xllm_service_tpu_torch.runtime import checkpoint as tck
 from xllm_service_tpu_torch.runtime import worker as torch_worker
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -654,9 +655,9 @@ def test_f6_fork_master_stages_the_jax_catalog():
     """``POST /fork_master`` with every name of the JAX worker's catalog,
     to a port worker and to a JAX worker: the same status and ``created``
     list, and each staged config equal to the JAX preset (the tiny MoE:
-    all but ``vocab_size``, which the byte tokenizer needs at 512). A
-    family the port lacks (Gemma-3's per-layer rope bases) refuses at
-    its wake, not at the fork."""
+    all but ``vocab_size``, which the byte tokenizer needs at 512), each
+    accepted by the port (Gemma-3's per-layer rope bases included) and
+    left asleep."""
     names = sorted(jax_worker._MODEL_REGISTRY)
     body = {"models": names}
     tw = torch_worker.Worker(
@@ -683,8 +684,15 @@ def test_f6_fork_master_stages_the_jax_catalog():
                 continue                # the primary: both workers' own
             assert mine == ref, n
             assert tw.runtimes[n].state == "asleep"
-        with pytest.raises(NotImplementedError):
-            tw.runtimes["gemma3-12b"].wakeup()
+        # Gemma-3 is served now. Its wake would build a 12 B-parameter
+        # model here: what is checked instead is that the staged config is
+        # the JAX catalog's (its per-layer rope bases included) and that
+        # the port accepts it.
+        g3 = tw.runtimes["gemma3-12b"].model_cfg
+        assert dataclasses.asdict(g3) == dataclasses.asdict(
+            jax_worker._MODEL_REGISTRY["gemma3-12b"]())
+        assert g3.rope_local_base_freq == 10000.0
+        ttf.check_supported(g3)
         assert tw.runtimes["gemma3-12b"].state == "asleep"
     finally:
         tw.stop()

@@ -49,6 +49,7 @@ from tests.test_torch_decode_graph import TIGHT
 from tests.test_torch_worker import _post, _sse
 
 from tests.test_torch_cluster import jax_compile_cache  # noqa: F401
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("jax_compile_cache")
 

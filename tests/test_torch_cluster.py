@@ -41,6 +41,7 @@ from xllm_service_tpu_torch.runtime import worker as torch_worker
 from xllm_service_tpu_torch.service import coordination, coordination_net
 from xllm_service_tpu_torch.utils import threads
 from xllm_service_tpu_torch.utils import wire as torch_wire
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 HB_S = 0.25          # heartbeat interval of every worker and master here
 MODEL = "tiny"
@@ -671,8 +672,9 @@ def test_forwarded_sampling_wins_over_body_fields(relay):
 
 def test_standalone_worker_opens_no_store(models):
     """Given neither a store nor a service, the worker only serves: no
-    store, no registration, no heartbeat thread (the engine loop, the
-    HTTP server and the encode loop only)."""
+    store, no registration, no heartbeat thread (the engine loop and the
+    encode loop only, beside the front door, whose threads are the
+    server's own)."""
     _, tcfg, jparams = models
     w = torch_worker.Worker(
         torch_worker.WorkerOptions(model=MODEL, device="cpu"),
@@ -681,7 +683,6 @@ def test_standalone_worker_opens_no_store(models):
     try:
         assert w.store is None and w._lease_id is None
         assert [t.name for t in w._threads] == ["worker-engine-loop",
-                                                "worker-http",
                                                 "worker-encode"]
         status, resp = http_json(
             "POST", w.name, "/v1/completions",

@@ -18,6 +18,7 @@ from xllm_service_tpu_torch.config import EngineConfig, ModelConfig
 from xllm_service_tpu_torch.models.weights import params_from_jax
 from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
 from xllm_service_tpu_torch.utils.types import FinishReason, SamplingParams
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 ENGINE_KW = dict(page_size=8, num_pages=96, max_model_len=128,
                  max_batch_size=4, max_prefill_tokens=48,

@@ -39,6 +39,7 @@ from xllm_service_tpu_torch.utils import threads
 
 from tests.test_torch_cluster import (  # noqa: F401 — a fixture
     ENGINE, HB_S, MODEL, models, wait_until)
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 CLIENTS = {"port": port_etcd.EtcdStore, "jax": jax_etcd.EtcdStore}
 

@@ -47,6 +47,7 @@ from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
 from xllm_service_tpu_torch.utils.types import SamplingParams
 
 from tests.test_torch_checkpoint import _float32, _same_leaves
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 GPTOSS = dict(attention_bias=True, sliding_window=6,

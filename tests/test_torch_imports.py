@@ -8,6 +8,7 @@ import ast
 from pathlib import Path
 
 import pytest
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "xllm_service_tpu_torch").rglob("*.py")) + [

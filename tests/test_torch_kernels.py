@@ -28,6 +28,7 @@ from xllm_service_tpu_torch.ops import kernels
 from xllm_service_tpu_torch.ops.kernels import (
     paged_decode_attention, paged_kv_update_layer, paged_prefill_attention,
     paged_prefill_kv_update_layer, ragged_paged_attention)
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

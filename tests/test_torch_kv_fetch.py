@@ -69,6 +69,7 @@ from xllm_service_tpu_torch.utils.types import SamplingParams
 from tests.test_torch_cluster import MODEL, Cluster
 from tests.test_torch_cluster import wait_until
 from tests.test_torch_prefix import _events, _model
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 # The pools of two float32 forwards of the same weights (the PD export's
 # tolerance, tests/test_torch_pd.py).

@@ -47,6 +47,7 @@ from xllm_service_tpu_torch.ops.kernels import kv_update as kv
 from xllm_service_tpu_torch.ops.kernels import paged_attention as pa
 from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
 from xllm_service_tpu_torch.utils.types import SamplingParams
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

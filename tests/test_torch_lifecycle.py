@@ -56,6 +56,7 @@ from xllm_service_tpu_torch.utils import threads
 from tests.test_torch_cluster import (  # noqa: F401 — a fixture
     ENGINE, HB_S, MODEL, REQUESTS, Cluster, assert_same, generate, models,
     wait_until)
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 THREADS = {"torch": threads, "jax": jax_threads}
 LONG = {"model": MODEL, "prompt": "drain me", "max_tokens": 60,

@@ -56,6 +56,7 @@ from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
 from xllm_service_tpu_torch.utils.types import SamplingParams
 
 from tests.test_torch_cluster import jax_compile_cache  # noqa: F401
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("jax_compile_cache")
 

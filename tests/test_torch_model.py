@@ -19,6 +19,7 @@ from xllm_service_tpu.models import transformer as jtf
 from xllm_service_tpu_torch.config import ModelConfig
 from xllm_service_tpu_torch.models import transformer as ttf
 from xllm_service_tpu_torch.models.weights import params_from_jax
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -125,16 +126,18 @@ def test_prefill_two_windows_then_decode(family):
 
 
 def test_unsupported_families_refused():
-    """Per-layer rope bases (Gemma-3) are still missing; MoE, MLA
-    (DeepSeek), GPT-OSS and mrope (Qwen2-VL) are served."""
+    """Every family of the worker's catalog is accepted (Gemma-3's
+    per-layer rope bases since they were ported; MoE, MLA, GPT-OSS,
+    Gemma-2 and the mrope of Qwen2-VL before); a rope scaling this
+    package lacks is still refused."""
+    from xllm_service_tpu_torch.runtime.worker import _MODEL_REGISTRY
     mrope = dataclasses.replace(ModelConfig.tiny(),
                                 rope_scaling=("mrope", (2, 3, 3)))
-    with pytest.raises(NotImplementedError):
-        ttf.check_supported(ModelConfig.gemma3_12b())
-    for cfg in (ModelConfig.tiny(num_experts=4),
-                ModelConfig.deepseek_v2_lite(), ModelConfig.gpt_oss_20b(),
-                mrope):
+    for cfg in [f() for f in _MODEL_REGISTRY.values()] + [mrope]:
         ttf.check_supported(cfg)
+    with pytest.raises(NotImplementedError):
+        ttf.check_supported(dataclasses.replace(
+            ModelConfig.tiny(), rope_scaling=("dynamic", 2.0, 0, 0, 0)))
 
 
 @pytest.mark.parametrize("family", ["llama", "gemma2"])

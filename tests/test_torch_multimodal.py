@@ -60,6 +60,7 @@ from xllm_service_tpu_torch.utils.types import SamplingParams
 from tests.test_torch_cluster import (  # noqa: F401 — a fixture
     ENGINE, HB_S, MODEL, Cluster, generate, models, wait_until)
 from tests.test_torch_pd import PdCluster
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 TOL = 1e-5              # rope, norms, towers (float32)
 LOGIT_TOL = 1e-4        # float32 forwards

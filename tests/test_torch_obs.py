@@ -49,6 +49,7 @@ from tests.test_torch_cluster import (  # noqa: F401 — fixtures
 from tests.test_torch_multimodal import (  # noqa: F401 — fixtures
     CHATS, _chat, _port_worker, epd, vit)
 from tests.test_torch_pd import PdCluster
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # Keys of a stage event that are not its attrs.

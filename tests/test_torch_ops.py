@@ -21,6 +21,7 @@ from xllm_service_tpu_torch.ops import norm as tnorm
 from xllm_service_tpu_torch.ops import rope as trope
 from xllm_service_tpu_torch.ops import sampling as tsamp
 from xllm_service_tpu_torch.utils.types import SamplingParams
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -47,6 +47,7 @@ from xllm_service_tpu_torch.runtime.engine import (_VARIANTS as VARIANTS,
 from xllm_service_tpu_torch.utils.types import SamplingParams
 from tests.test_torch_prefix import (MODES, PLAN, TIGHT, _drive, _feed,
                                      _model)
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 TINY = dataclasses.replace(ModelConfig.tiny(vocab_size=128), dtype="float32")
 

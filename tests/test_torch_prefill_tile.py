@@ -22,6 +22,7 @@ from xllm_service_tpu_torch.ops import kernels
 from xllm_service_tpu_torch.ops.kernels import _build, prefill_attention
 from xllm_service_tpu_torch.ops.kernels import (
     paged_prefill_attention, paged_prefill_attention_fresh)
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 SMEM_PER_BLOCK = 232448          # bytes a block may use on an H100

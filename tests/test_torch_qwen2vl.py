@@ -38,6 +38,7 @@ from xllm_service_tpu_torch.runtime import checkpoint
 
 from tests.test_qwen2vl_vision import _VC, _VC25, _make_hf_vlm, \
     _make_hf_vlm25
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 # Float32 towers on the same weights and patches: the einsum and matmul
 # orders differ between XLA and PyTorch, nothing else.

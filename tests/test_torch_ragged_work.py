@@ -35,6 +35,7 @@ from xllm_service_tpu_torch.ops import kernels
 from xllm_service_tpu_torch.ops.kernels import paged_attention as pa
 from xllm_service_tpu_torch.ops.kernels import ragged_attention as ra
 from xllm_service_tpu_torch.ops.kernels.prefill_attention import query_tile
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 CHUNK = 8                      # small split units: several per decode row

@@ -48,6 +48,7 @@ from xllm_service_tpu_torch.ops.kernels import (
     latent_kv_update_layer, latent_prefill_kv_update_layer,
     paged_kv_update_layer, paged_prefill_kv_update_layer,
     rope_kv_update_layer, rope_prefill_kv_update_layer)
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=1e-5, rtol=2 ** -7)

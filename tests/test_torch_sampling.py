@@ -41,6 +41,7 @@ from xllm_service_tpu_torch.models.weights import params_from_jax
 from xllm_service_tpu_torch.ops import sampling as tsamp
 from xllm_service_tpu_torch.utils.types import SamplingParams
 from tests.test_torch_decode_graph import MLA
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 SEEDS = [0, 1, 7, 2 ** 31 - 1]
 POSITIONS = [0, 1, 4095]

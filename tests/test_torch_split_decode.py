@@ -26,6 +26,7 @@ from xllm_service_tpu.ops.pallas.paged_attention import (
     paged_decode_attention_pallas)
 from xllm_service_tpu_torch.ops import kernels
 from xllm_service_tpu_torch.ops.kernels import paged_attention as pa
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 CHUNK = 8                      # small chunks: several per row at tiny size

@@ -61,6 +61,7 @@ from xllm_service_tpu_torch.obs.metrics import Registry
 from xllm_service_tpu_torch.runtime import worker as torch_worker
 from xllm_service_tpu_torch.runtime.engine import Engine
 from tests.test_torch_prefill_graph import _Recorder
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,7 @@ from xllm_service_tpu_torch.utils.retry import RetryPolicy
 
 from tests.test_torch_cluster import (  # noqa: F401 — a fixture
     Cluster, MODEL, models, wait_until)
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 PACKAGES = {
     "torch": dict(guard=store_guard, store=coordination.InMemoryStore,

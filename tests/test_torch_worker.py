@@ -20,6 +20,7 @@ from xllm_service_tpu.service.coordination import InMemoryStore
 from xllm_service_tpu_torch.config import ModelConfig
 from xllm_service_tpu_torch.models.weights import params_from_jax
 from xllm_service_tpu_torch.runtime import worker as torch_worker
+from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 
 def _post(addr, path, obj):

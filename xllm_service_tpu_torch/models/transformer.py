@@ -1,7 +1,10 @@
 """Decoder-only transformer over a paged KV cache.
 
 The counterpart of the JAX package's ``models/transformer.py`` for the
-Llama-2/3.x, Qwen2/2.5/3, Phi-3, Mistral and Gemma-2 families, their
+Llama-2/3.x, Qwen2/2.5/3, Phi-3, Mistral, Gemma-2 and Gemma-3 families
+(Gemma-3's local and global layers rotate by their own rope bases:
+``ops/rope.layer_cos_sin`` makes one cos/sin set per base from the
+forward's positions, and each layer takes its own), their
 mixture-of-experts variants (Mixtral, Qwen3-MoE: SwiGLU experts behind
 a softmax top-k router, ``parallel/expert.py``), GPT-OSS (attention
 sinks, biased q/k/v/o, alternating 128-token windows, clamped-GLU
@@ -73,8 +76,9 @@ from xllm_service_tpu_torch.ops.kernels import (
     ragged_paged_attention, rope_kv_update_all_layers, rope_kv_update_layer,
     rope_prefill_kv_update_layer)
 from xllm_service_tpu_torch.ops.norm import rms_norm
-from xllm_service_tpu_torch.ops.rope import (mrope_cos_sin, rope_cos_sin,
-                                             rotate, rotate_interleaved)
+from xllm_service_tpu_torch.ops.rope import (layer_cos_sin, mrope_cos_sin,
+                                             rope_cos_sin, rotate,
+                                             rotate_interleaved)
 from xllm_service_tpu_torch.parallel.expert import gptoss_glu, moe_mlp
 
 Params = Dict[str, Any]
@@ -82,16 +86,11 @@ KVCache = Tuple[torch.Tensor, torch.Tensor]   # [L, P, ps, Hkv, D] each
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse the families whose layer body this package lacks."""
-    missing = []
-    if cfg.rope_local_base_freq is not None:
-        missing.append("per-layer rope bases")
-    if cfg.rope_scaling is not None and cfg.rope_scaling[0] not in (
-            "llama3", "linear", "yarn", "mrope"):
-        missing.append(f"{cfg.rope_scaling[0]} rope scaling")
-    if missing:
+    """Refuse a rope scaling this package lacks."""
+    kind = cfg.rope_scaling[0] if cfg.rope_scaling is not None else None
+    if kind not in (None, "llama3", "linear", "yarn", "mrope"):
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not supported by this "
+            f"{cfg.name}: {kind} rope scaling not supported by this "
             f"package yet")
 
 
@@ -236,8 +235,10 @@ def _scale_embed(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     dtype."""
     if not cfg.gemma:
         return x
-    return x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=x.dtype,
-                            device=x.device)
+    # The factor rounded to the activation dtype on the host: a Python
+    # number, so that a CUDA graph capture copies nothing from the host.
+    scale = float(torch.tensor(math.sqrt(cfg.hidden_size), dtype=x.dtype))
+    return x * scale
 
 
 def _head(params: Params) -> torch.Tensor:
@@ -462,13 +463,13 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         x = splice_embeds(x, mm_embeds, mm_index)
     positions = start_pos.long()[:, None] + torch.arange(
         T, device=tokens.device)[None, :]
-    # Every layer rotates by the same positions: one cos/sin table.
+    # Every layer rotates by the same positions: one cos/sin table, or
+    # one per rope base (Gemma-3's local and global layers).
     if rope_pos is not None:
-        cos, sin = mrope_cos_sin(rope_pos, cfg.head_dim, cfg.rope_theta,
-                                 cfg.rope_scaling[1])
+        ropes = [mrope_cos_sin(rope_pos, cfg.head_dim, cfg.rope_theta,
+                               cfg.rope_scaling[1])] * cfg.num_layers
     else:
-        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
-                                cfg.rope_scaling)
+        ropes = layer_cos_sin(cfg, positions)
     valid = torch.arange(T, device=tokens.device)[None, :] \
         < lengths.long()[:, None]
     extras = _attn_extras(cfg)
@@ -479,6 +480,7 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         lp = _layer(params, i)
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(lp, cfg, h)
+        cos, sin = ropes[i]
         kw = dict(sliding_window=windows[i], sinks=lp.get("sinks"), **extras)
         if write_then_attend:
             # q and k rotated in place, k and v written: one launch.
@@ -566,8 +568,7 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     B = tokens.shape[0]
     x = _scale_embed(cfg, params["embed"][tokens[:, None]])        # [B, 1, D]
     rope_at = positions if rope_delta is None else positions + rope_delta
-    cos, sin = rope_cos_sin(rope_at.long()[:, None], cfg.head_dim,
-                            cfg.rope_theta, cfg.rope_scaling)
+    ropes = layer_cos_sin(cfg, rope_at.long()[:, None])
     zero = torch.zeros_like(positions)
     if write_then_attend:
         context = torch.where(active, positions + 1, zero)
@@ -580,6 +581,7 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         lp = _layer(params, i)
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(lp, cfg, h)                                 # [B,1,H,Dh]
+        cos, sin = ropes[i]
         kw = dict(sliding_window=windows[i], sinks=lp.get("sinks"), **extras)
         if write_then_attend:
             rope_kv_update_layer(q, k, v, cos, sin, k_pages, v_pages,
@@ -621,8 +623,7 @@ def forward_embedding(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     dev = tokens.device
     x = _scale_embed(cfg, params["embed"][tokens])
     positions = torch.arange(T, device=dev)[None, :].expand(B, T)
-    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
-                            cfg.rope_scaling)
+    ropes = layer_cos_sin(cfg, positions)
     lengths = lengths.to(device=dev, dtype=torch.int32)
     start = torch.zeros_like(lengths)
     table = torch.zeros((B, 1), dtype=torch.int32, device=dev)
@@ -633,7 +634,7 @@ def forward_embedding(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         lp = _layer(params, i)
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(lp, cfg, h)
-        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+        q, k = rotate(q, *ropes[i]), rotate(k, *ropes[i])
         attn = paged_prefill_attention_fresh(
             q, k, v, k_pages, v_pages, table, start, lengths, i,
             sliding_window=windows[i], sinks=lp.get("sinks"), **extras)

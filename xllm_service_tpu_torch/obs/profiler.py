@@ -201,6 +201,12 @@ def section_snapshot() -> Dict[str, Dict[str, Any]]:
     return merged
 
 
+def thread_books() -> int:
+    """The section books kept: one per thread that ever recorded."""
+    with _books_lock:
+        return len(_all_books)
+
+
 def reset_sections() -> None:
     """Test helper: forget every thread's book and tail."""
     with _books_lock:

@@ -14,12 +14,19 @@ the half axis's frequency bands. ``mrope_cos_sin`` builds its cos/sin
 tables [..., T, head_dim/2] in the same float32 layout as
 ``rope_cos_sin``: the fused rope + KV-write kernels take them unchanged.
 Text tokens carry equal streams, which is exactly standard rope.
+
+Gemma-3 rotates by a base per layer type (the JAX package's
+``_layer_rope`` and ``apply_rope_dynamic``): ``layer_rope`` is the
+``[L]`` (theta, linear factor) table from the config, and
+``layer_cos_sin`` makes one cos/sin set per distinct row (two for
+Gemma-3: local and global) from the same positions, shared by every
+layer of its type.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -91,6 +98,57 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
     if scaling is not None and scaling[0] == "yarn":
         cos, sin = cos * scaling[5], sin * scaling[5]
     return cos, sin
+
+
+def layer_rope(cfg) -> Optional[List[Tuple[float, float]]]:
+    """[L] (theta, linear factor) per layer when the rope base differs by
+    layer type (Gemma-3), else None (JAX ``_layer_rope``): sliding layers
+    use ``rope_local_base_freq`` unscaled, full layers ``rope_theta``
+    with the linear factor. A uniform model is all local when it has a
+    window, else all global."""
+    if cfg.rope_local_base_freq is None:
+        return None
+    factor = (float(cfg.rope_scaling[1])
+              if cfg.rope_scaling is not None
+              and cfg.rope_scaling[0] == "linear" else 1.0)
+    pattern = cfg.layer_sliding
+    if pattern is None:
+        pattern = (cfg.sliding_window is not None,) * cfg.num_layers
+    return [(float(cfg.rope_local_base_freq), 1.0) if s
+            else (float(cfg.rope_theta), factor) for s in pattern]
+
+
+def rope_cos_sin_dynamic(positions: torch.Tensor, head_dim: int,
+                         theta: float, factor: float):
+    """float32 cos/sin of the half-rotation rope at base ``theta`` with
+    positions divided by ``factor`` (JAX ``apply_rope_dynamic``)."""
+    return rope_cos_sin(positions, head_dim, theta,
+                        None if factor == 1.0
+                        else ("linear", factor, 0.0, 0.0, 0))
+
+
+def layer_cos_sin(cfg, positions: torch.Tensor) -> List[Tuple[torch.Tensor,
+                                                              torch.Tensor]]:
+    """Each layer's float32 (cos, sin) for ``positions``: one set for a
+    model with one base (``rope_cos_sin`` with the config's scaling),
+    one set per distinct ``layer_rope`` row otherwise, the same tensors
+    shared by every layer of a row."""
+    rows = layer_rope(cfg)
+    if rows is None:
+        cs = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                          cfg.rope_scaling)
+        return [cs] * cfg.num_layers
+    sets = {r: rope_cos_sin_dynamic(positions, cfg.head_dim, *r)
+            for r in dict.fromkeys(rows)}
+    return [sets[r] for r in rows]
+
+
+def apply_rope_dynamic(x: torch.Tensor, positions: torch.Tensor,
+                       theta: float, factor: float) -> torch.Tensor:
+    """Rotate ``x`` [..., seq, heads, head_dim] at base ``theta`` with a
+    linear ``factor`` (JAX ``apply_rope_dynamic``)."""
+    cos, sin = rope_cos_sin_dynamic(positions, x.shape[-1], theta, factor)
+    return rotate(x, cos, sin)
 
 
 def rotate(x: torch.Tensor, cos: torch.Tensor,

@@ -21,6 +21,9 @@ its pools. Any failure degrades to the host shuttle (the worker's
   ``WireBusy`` and the worker takes the host shuttle; such stages are
   counted (``busy``), and ``wire_stats()`` reads the reserved bytes for
   ``/metrics``.
+- ``DeviceWire.stage_one(t)`` stages one tensor the same way (the EPD
+  embeddings, JAX ``kv_wire.py`` ``stage_one``), in the same segments
+  and with the same ``release``; ``pull_one(ticket)`` reads it.
 - ``DeviceWire.ticket(uuid)`` is the ``transfer`` dict of the meta line:
   the segment's memory and event handles (hex), the offset of V, the
   shape, dtype and byte count, and the producer's pid.
@@ -199,29 +202,37 @@ class DeviceWire:
         """Copy (k, v) into a staging segment on the current stream and
         record its event; returns the uuid of the ticket. The segment is
         held until ``release``."""
-        if k.device != self.device or v.device != self.device:
-            raise ValueError(f"stage needs tensors on {self.device}")
         if k.shape != v.shape or k.dtype != v.dtype:
             raise ValueError("k and v differ in shape or dtype")
-        k, v = k.contiguous(), v.contiguous()
-        nb = k.numel() * k.element_size()
+        return self._stage((k, v))
+
+    def stage_one(self, t: torch.Tensor) -> int:
+        """``stage`` for one tensor (the EPD embeddings): its ticket has
+        no ``v_offset``, and ``pull_one`` reads it."""
+        return self._stage((t,))
+
+    def _stage(self, parts: Tuple[torch.Tensor, ...]) -> int:
+        if any(t.device != self.device for t in parts):
+            raise ValueError(f"stage needs tensors on {self.device}")
+        parts = tuple(t.contiguous() for t in parts)
+        nb = parts[0].numel() * parts[0].element_size()
         with self._mu:
-            seg = self._segment_for(2 * nb)
+            seg = self._segment_for(len(parts) * nb)
             uuid = self._next_uuid
             self._next_uuid += 1
             seg.uuid = uuid
         stream = _stream()
-        _check("staging copy", self._lib.kv_ipc_copy(
-            seg.ptr, ctypes.c_void_p(k.data_ptr()), nb, stream))
-        _check("staging copy", self._lib.kv_ipc_copy(
-            ctypes.c_void_p(seg.ptr.value + nb),
-            ctypes.c_void_p(v.data_ptr()), nb, stream))
+        for i, t in enumerate(parts):
+            _check("staging copy", self._lib.kv_ipc_copy(
+                ctypes.c_void_p(seg.ptr.value + i * nb),
+                ctypes.c_void_p(t.data_ptr()), nb, stream))
         _check("event record", self._lib.kv_ipc_record(seg.event, stream))
         ticket = {"addr": self.address, "uuid": uuid, "pid": os.getpid(),
                   "handle": seg.mem_handle, "event": seg.event_handle,
-                  "offset": 0, "v_offset": nb, "nbytes": nb,
-                  "shape": list(k.shape),
-                  "dtype": str(k.dtype).replace("torch.", "")}
+                  "offset": 0, "nbytes": nb, "shape": list(parts[0].shape),
+                  "dtype": str(parts[0].dtype).replace("torch.", "")}
+        if len(parts) == 2:
+            ticket["v_offset"] = nb
         with self._mu:
             self._staged[uuid] = (seg, ticket)
         return uuid
@@ -279,6 +290,16 @@ class DeviceWire:
     def pull(self, tr: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
         """The ticket's block as fresh tensors on this device; see
         ``pull_block`` for the exceptions."""
+        k, v = self._pull(tr, ("offset", "v_offset"))
+        return k, v
+
+    def pull_one(self, tr: Dict[str, Any]) -> torch.Tensor:
+        """A ``stage_one`` ticket's tensor, fresh on this device."""
+        (t,) = self._pull(tr, ("offset",))
+        return t
+
+    def _pull(self, tr: Dict[str, Any],
+              offsets: Tuple[str, ...]) -> List[torch.Tensor]:
         if int(tr.get("pid", -1)) == os.getpid():
             raise WireUnsupported(
                 "a process cannot open its own CUDA IPC handle")
@@ -287,27 +308,28 @@ class DeviceWire:
         except Exception as e:  # noqa: BLE001 — nothing was copied yet
             raise WireNoPull(f"open of {tr.get('addr')} failed: {e}")
         _check("stream wait", self._lib.kv_ipc_wait(event, _stream()))
-        k, v = _copy_out(self._lib, ptr, tr, self.device)
-        # The producer reuses the segment once /kv/import answers.
+        out = _copy_out(self._lib, ptr, tr, self.device, offsets)
+        # The producer reuses the segment once the peer answers.
         torch.cuda.current_stream(self.device).synchronize()
-        return k, v
+        return out
 
 
 def _copy_out(lib, base: ctypes.c_void_p, tr: Dict[str, Any],
-              device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+              device: torch.device,
+              offsets: Tuple[str, ...]) -> List[torch.Tensor]:
     shape = tuple(int(s) for s in tr["shape"])
     dtype = _DTYPES[str(tr["dtype"])]
     nb = int(tr["nbytes"])
     out = []
-    for off in (int(tr["offset"]), int(tr["v_offset"])):
+    for key in offsets:
         t = torch.empty(shape, dtype=dtype, device=device)
         if t.numel() * t.element_size() != nb:
             raise ValueError("ticket shape and byte count disagree")
         _check("pull copy", lib.kv_ipc_copy(
             ctypes.c_void_p(t.data_ptr()),
-            ctypes.c_void_p(base.value + off), nb, _stream()))
+            ctypes.c_void_p(base.value + int(tr[key])), nb, _stream()))
         out.append(t)
-    return out[0], out[1]
+    return out
 
 
 def get_device_wire() -> Optional[DeviceWire]:
@@ -348,11 +370,7 @@ def peek_device_wire() -> Optional[DeviceWire]:
     return _wire
 
 
-def pull_block(tr: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The decode side's pull of a staged (k, v) block. The exception
-    tells the producer what to do with its segment: ``WireUnsupported``
-    (never offer this peer again), ``WireNoPull`` (untouched, free it),
-    anything else (a copy may have started)."""
+def _wire_for(tr: Dict[str, Any]) -> DeviceWire:
     wire = get_device_wire()
     if wire is None:
         raise WireUnsupported("no device wire in this process")
@@ -362,4 +380,18 @@ def pull_block(tr: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
     for key in ("pid", "event", "shape", "dtype", "nbytes"):
         if key not in tr:
             raise WireNoPull(f"bad transfer ticket: no {key!r}")
-    return wire.pull(tr)
+    return wire
+
+
+def pull_block(tr: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode side's pull of a staged (k, v) block. The exception
+    tells the producer what to do with its segment: ``WireUnsupported``
+    (never offer this peer again), ``WireNoPull`` (untouched, free it),
+    anything else (a copy may have started)."""
+    return _wire_for(tr).pull(tr)
+
+
+def pull_one(tr: Dict[str, Any]) -> torch.Tensor:
+    """The requester's pull of a ``stage_one`` ticket (the EPD
+    embeddings), with ``pull_block``'s exceptions."""
+    return _wire_for(tr).pull_one(tr)

@@ -39,6 +39,21 @@ One engine-loop thread owns the device and runs ``Engine.step()``; HTTP
 handler threads queue requests to it under the engine lock and read
 their outputs from a per-request queue.
 
+The front door, as the JAX worker's (``service/httpd.py``): a ``Router``
+of the JAX worker's paths behind ``HttpServer``, the native epoll server
+(``csrc/xllm_httpd.cpp``, built with g++ at first use; a bounded pool of
+handler threads) or, without its library or with
+``XLLM_NATIVE_HTTPD=0``, the Python threaded server. Past
+``WorkerOptions.max_concurrency`` (default 128, read live; 0 = no cap)
+concurrent entry requests, the next is answered 503 with ``Retry-After:
+1`` and ``overloaded_error`` before its body is read, which the master
+re-dispatches to another worker; the control and continuation routes
+(``ADMISSION_EXEMPT``) are never shed. ``/metrics`` names the server
+(``xllm_worker_http_server{kind}``) and counts the shed requests
+(``xllm_worker_http_rejected_total``). A request whose worker died
+(``worker.die_after_n_tokens``) ends its connection with no complete
+answer.
+
 Every OpenAI sampling option is served as the JAX worker serves it:
 ``n`` choices (and ``best_of`` candidates, the ``n`` with the highest
 mean token logprob kept by the non-streamed response) run as engine
@@ -216,8 +231,14 @@ tower alone: the model sleeps, the worker registers as ENCODE with
 depth, the recent encode ms and the embedding cache's digest delta.
 ``POST /v1/embeddings`` answers the mean-pooled, L2-normalized final
 hidden states (``forward_embedding``), at most ``EMBED_MAX_TOKENS``
-tokens an input. The embeddings do not ride the CUDA IPC wire
-(``/encode_done`` acknowledges nothing staged).
+tokens an input. Between two processes of this package the embeddings
+ride the CUDA IPC wire (``kv_wire.stage_one``): an ask marked ``"wire":
+"cuda_ipc"`` gets a staged ticket, the requester pulls it and answers
+``POST /encode_done {"uuid", "outcome"}``, and tickets no requester
+acknowledged within 60 s are released as leaked, at heartbeat cadence
+(``xllm_worker_encode_staged`` counts those held). A ticket the
+requester cannot pull is acknowledged ``nopull`` and the same target
+asked again for the bytes; a JAX requester gets bytes.
 
 The observability and coordination plane, as the JAX worker runs it.
 Each request's worker-plane span (``obs/spans.py``: ``received`` with
@@ -264,9 +285,7 @@ import threading
 import time
 import weakref
 from collections import deque
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Iterator, List, Optional, Tuple
-from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
 import torch
@@ -297,7 +316,10 @@ from xllm_service_tpu_torch.runtime.kv_transfer import start_host_copies
 from xllm_service_tpu_torch.service.coordination import (
     KEY_MASTER_ADDR, CoordinationStore, instance_prefix)
 from xllm_service_tpu_torch.service.coordination_net import connect_store
-from xllm_service_tpu_torch.service.httpd import (flush_conn_pool_metrics,
+from xllm_service_tpu_torch.service.httpd import (_ADMISSION_EXEMPT,
+                                                  HttpServer, Request,
+                                                  Response, Router,
+                                                  flush_conn_pool_metrics,
                                                   http_json, http_stream,
                                                   http_stream_status,
                                                   iter_sse_events)
@@ -422,6 +444,10 @@ class WorkerOptions:
     # the worker's only program; the model starts asleep and the worker
     # registers as ENCODE.
     encode_only: bool = False
+    # The front door's cap on concurrent entry requests (JAX worker
+    # :139-142; 0 = none), read live: past it a /v1/* request gets a 503
+    # with Retry-After, which the master re-dispatches elsewhere.
+    max_concurrency: int = 128
 
 
 class HttpError(Exception):
@@ -1001,11 +1027,13 @@ class Worker:
         # ones ride the heartbeat to the master's span ring.
         self.spans = SpanStore(capacity=int(os.environ.get(
             "XLLM_SPAN_RING", "2048")))
-        self._srv = ThreadingHTTPServer((opts.host, opts.port),
-                                        _handler_class(self))
-        self._srv.daemon_threads = True
-        host, port = self._srv.server_address[:2]
-        self.name = f"{host}:{port}"
+        # The front door (JAX worker :815-829): the native epoll server
+        # or the Python one, with admission at max_concurrency, read live.
+        self._srv = HttpServer(
+            opts.host, opts.port, build_router(self),
+            max_concurrency=lambda: self.opts.max_concurrency,
+            admission_exempt=ADMISSION_EXEMPT)
+        self.name = self._srv.address
         self._threads: List[threading.Thread] = []
         # The cluster plane: none for a worker given neither a store nor
         # a service, which serves requests sent straight to it.
@@ -1079,9 +1107,12 @@ class Worker:
         # Beat sends back off against a down master with full jitter
         # while the loop keeps ticking (the lease keepalive must go on);
         # registration retries a store hiccup at boot.
+        # The cap is XLLM_HB_BACKOFF_CAP_S (JAX worker :645-650).
         self._hb_backoff = RetryPolicy(
             max_attempts=1, base_delay_s=opts.heartbeat_interval_s,
-            max_delay_s=30.0, multiplier=2.0, jitter=0.5)
+            max_delay_s=float(os.environ.get(
+                "XLLM_HB_BACKOFF_CAP_S", "30") or 30),
+            multiplier=2.0, jitter=0.5)
         self._reg_retry = RetryPolicy(max_attempts=5, base_delay_s=0.2,
                                       max_delay_s=5.0)
         # Fault injection, armed by XLLM_FAILPOINTS and POST
@@ -1225,13 +1256,12 @@ class Worker:
         registration. A worker without a store only serves. The engine
         loop is supervised without a restart: a crash that escapes its
         fault boundary leaves device state unknown (JAX :832-866)."""
-        for root, target, name in (
-                ("worker.engine_loop", self._engine_loop, "engine-loop"),
-                ("worker.http", self._srv.serve_forever, "http")):
-            t = threads.spawn(root, target, thread_name=f"worker-{name}",
-                              events=self.events, stop=self._stop)
-            t.start()
-            self._threads.append(t)
+        t = threads.spawn("worker.engine_loop", self._engine_loop,
+                          thread_name="worker-engine-loop",
+                          events=self.events, stop=self._stop)
+        t.start()
+        self._threads.append(t)
+        self._srv.start()
         # The encode loop restarts after a crash: a dead loop would hang
         # every queued /encode until its deadline (JAX worker :855-864).
         t = threads.spawn("worker.encode_loop", self._encode_loop,
@@ -1343,9 +1373,7 @@ class Worker:
                 self.store.lease_revoke(lease_id)
             except Exception:  # noqa: BLE001 — best-effort: the lease's
                 pass            # TTL expires it anyway
-        if self._threads:
-            self._srv.shutdown()
-        self._srv.server_close()
+        self._srv.stop()
         for t in self._threads:
             t.join(timeout=30.0)
         if self.store is not None:
@@ -1504,6 +1532,7 @@ class Worker:
                 hb_failures, next_hb = 0, 0.0
             try:
                 self._sweep_kv_fetch_staged()
+                self._sweep_encode_staged()
                 if self.failpoints.fire("worker.drop_heartbeats") \
                         is not None:
                     # A simulated partition: no keepalive and no beat, so
@@ -1853,8 +1882,8 @@ class Worker:
         (sections, sampled lock waits, CPU per thread root, RSS, CPU%,
         GC pauses), the keep-alive pool, the span ring's evictions, the
         store guard's health, the process's kernel launch counts and the
-        PD handoff's and block fetch's counters, and the registry in
-        Prometheus text."""
+        PD handoff's and block fetch's counters, the front door's kind and
+        its shed requests, and the registry in Prometheus text."""
         for rt, eng in self._awake():
             m = rt.model
             self._engine_load(rt)
@@ -1878,6 +1907,15 @@ class Worker:
         threads.flush_metrics(self.obs)
         profiler.flush_metrics(self.obs)
         flush_conn_pool_metrics(self.obs, plane="worker")
+        self.obs.gauge("xllm_worker_http_server",
+                       "1 for the front door that serves this worker "
+                       "(native epoll or the Python threaded server)",
+                       labelnames=("kind",)).set(1, kind=self._srv.kind)
+        adm = self._srv.admission
+        self.obs.counter("xllm_worker_http_rejected_total",
+                         "entry requests shed with a 503 at "
+                         "max_concurrency").set_total(
+            adm.rejected_total if adm is not None else 0)
         self.obs.counter(
             "xllm_span_evictions_total",
             "request spans dropped by ring overflow "
@@ -1898,6 +1936,10 @@ class Worker:
                 getattr(self, key))
         for name, help, key in _ENCODE_SERIES:
             self.obs.counter(name, help).set_total(getattr(self, key))
+        self.obs.gauge("xllm_worker_encode_staged",
+                       "embedding tickets staged on the CUDA IPC wire "
+                       "awaiting a requester's pull").set(
+            self.encode_staged_count())
         self.obs.gauge("xllm_worker_encode_queue_depth",
                        "encode jobs waiting for the batched encode "
                        "loop").set(self._encode_q.qsize())
@@ -3578,6 +3620,11 @@ class Worker:
         self.encode_steps = 0
         self.encode_cache_hits = 0
         self.encode_cache_misses = 0
+        # The embeddings staged on the CUDA IPC wire for a requester's
+        # pull, uuid -> (staged at, wire) (JAX worker :780-783); released
+        # by /encode_done or the TTL sweep.
+        self._encode_staged: Dict[int, Tuple[float, Any]] = {}
+        self._encode_staged_mu = make_lock("worker.encstage", 26)
         if self.opts.instance_type == InstanceType.ENCODE:
             self._get_vision()
 
@@ -3745,12 +3792,16 @@ class Worker:
         return job["out"], int(job.get("hits", 0))
 
     def serve_encode(self, body: Dict[str, Any]) -> "_Reply":
-        """``POST /encode {"images" | "mm_inputs", "raw"}`` (JAX worker
-        :2827-2881): ``worker.hang_encode`` stalls the handler (value:
-        seconds, default 30) and ``worker.fail_encode`` answers a 500,
-        first; then the embeddings as the meta line and float32 bytes
-        (``raw``) or base64 JSON, with the cache hits. A bad image spec
-        is a 400, a queue that did not serve in time a 503."""
+        """``POST /encode {"images" | "mm_inputs", "raw", "wire"}`` (JAX
+        worker :2827-2881): ``worker.hang_encode`` stalls the handler
+        (value: seconds, default 30) and ``worker.fail_encode`` answers a
+        500, first; then the embeddings as a staged CUDA IPC ticket
+        (``{"status": "staged", "cache_hits", "transfer"}``) when the ask
+        carries ``FETCH_WIRE`` and this process has a wire, else as the
+        meta line and float32 bytes (``raw``) or base64 JSON, with the
+        cache hits. A JAX requester's ``"wire": true`` offers a PJRT wire
+        that cannot pull a CUDA IPC ticket: it gets bytes. A bad image
+        spec is a 400, a queue that did not serve in time a 503."""
         hang = self.failpoints.fire("worker.hang_encode")
         if hang is not None:
             self._stop.wait(float(hang) if hang is not True else 30.0)
@@ -3760,12 +3811,30 @@ class Worker:
         images = body.get("images") or body.get("mm_inputs") or []
         if not images:
             return _Reply.error(400, "no images")
+        # A worker without a store has no heartbeat loop: its tickets'
+        # TTL sweep runs here.
+        self._sweep_encode_staged()
         try:
             embeds, hits = self.encode_via_queue(images)
         except ValueError as e:
             return _Reply.error(400, str(e))
         except TimeoutError as e:
             return _Reply.error(503, str(e), "unavailable")
+        wire = (kv_wire.get_device_wire()
+                if body.get("wire") == FETCH_WIRE and self.opts.pd_device_wire
+                else None)
+        if wire is not None:
+            try:
+                uuid = wire.stage_one(torch.from_numpy(np.ascontiguousarray(
+                    embeds, dtype=np.float32)).to(wire.device))
+            except Exception as e:  # noqa: BLE001 — the bytes instead
+                logger.warning("embedding staging failed (%s); serving "
+                               "bytes", e)
+            else:
+                with self._encode_staged_mu:
+                    self._encode_staged[uuid] = (time.monotonic(), wire)
+                return _Reply(200, {"status": "staged", "cache_hits": hits,
+                                    "transfer": wire.ticket(uuid)})
         if body.get("raw"):
             meta = multimodal.embeds_raw_meta(embeds)
             meta["cache_hits"] = hits
@@ -3777,14 +3846,37 @@ class Worker:
         return _Reply(200, out)
 
     def serve_encode_done(self, body: Dict[str, Any]) -> "_Reply":
-        """``POST /encode_done {"uuid"}``: a requester's acknowledgment
-        of a staged embedding ticket. This worker stages none (its
-        embeddings travel as bytes), so every ticket is unknown."""
+        """``POST /encode_done {"uuid", "outcome"}`` (JAX worker
+        :2885-2920): the requester's word on a staged embedding ticket,
+        released as ``/kv/blocks_done`` releases a block's."""
         try:
-            int(body.get("uuid"))
+            uuid = int(body.get("uuid"))
         except (TypeError, ValueError):
             return _Reply.error(400, "invalid body")
-        return _Reply(200, {"ok": True, "known": False})
+        outcome = body.get("outcome", "pulled")
+        with self._encode_staged_mu:
+            entry = self._encode_staged.pop(uuid, None)
+        if entry is None:
+            return _Reply(200, {"ok": True, "known": False})
+        entry[1].release(uuid, leaked=outcome not in ("pulled", "nopull"))
+        return _Reply(200, {"ok": True, "known": True})
+
+    def _sweep_encode_staged(self, ttl: float = 60.0) -> None:
+        """Release, as leaked, the embedding tickets no requester
+        acknowledged within ``ttl`` seconds (JAX worker :2906-2920). At
+        heartbeat cadence, and at each ``/encode``."""
+        now = time.monotonic()
+        with self._encode_staged_mu:
+            stale = [(u, e[1]) for u, e in self._encode_staged.items()
+                     if now - e[0] > ttl]
+            for u, _ in stale:
+                del self._encode_staged[u]
+        for u, wire in stale:
+            wire.release(u, leaked=True)
+
+    def encode_staged_count(self) -> int:
+        with self._encode_staged_mu:
+            return len(self._encode_staged)
 
     def _count_encode_fallback(self, reason: str, source: str,
                                target: str) -> None:
@@ -3802,27 +3894,67 @@ class Worker:
 
     def _fetch_remote_embeds(self, target: str, mm_inputs: List[Any],
                              timeout: float) -> Tuple[np.ndarray, int]:
-        """One ``/encode`` ask of ``target`` for the raw bytes (a base64
-        JSON answer is read too). Raises on any failure: the caller walks
-        the fallbacks."""
-        status, body_iter = http_stream_status(
-            "POST", target, "/encode",
-            obj=stamp({"images": list(mm_inputs), "raw": True,
-                       "wire": False}), timeout=timeout)
-        raw = b"".join(body_iter)
-        if status != 200:
-            raise RuntimeError(f"/encode returned HTTP {status}")
-        if raw.startswith(b"{") and b"\n" not in raw:
+        """One ``/encode`` ask of ``target`` (JAX worker :2935-2990): the
+        CUDA IPC wire is offered (``FETCH_WIRE``) when this process has
+        one and ``target`` is in another process that never staged a
+        ticket this process could not pull; a staged ticket is pulled and
+        acknowledged with its outcome. A ticket that cannot be pulled is
+        acknowledged ``nopull`` and the same target is asked again for
+        the bytes (one that can never be pulled bars the target from the
+        wire, in ``_fetch_wire_refused``). Else the raw bytes, or a
+        base64 JSON answer. Raises on any failure: the caller walks the
+        fallbacks."""
+        offer = (self.opts.pd_device_wire
+                 and target not in _LOCAL_WORKERS
+                 and target not in self._fetch_wire_refused
+                 and kv_wire.get_device_wire() is not None)
+        for wire in ((True, False) if offer else (False,)):
+            status, body_iter = http_stream_status(
+                "POST", target, "/encode",
+                obj=stamp({"images": list(mm_inputs), "raw": True,
+                           "wire": FETCH_WIRE if wire else False}),
+                timeout=timeout)
+            raw = b"".join(body_iter)
+            if status != 200:
+                raise RuntimeError(f"/encode returned HTTP {status}")
+            if not (raw.startswith(b"{") and b"\n" not in raw):
+                nl = raw.find(b"\n")
+                if nl < 0:
+                    raise ValueError("malformed raw embed payload")
+                meta = json.loads(raw[:nl].decode("utf-8"))
+                check_version(meta, "encode")
+                return (multimodal.embeds_from_raw(meta, raw[nl + 1:]),
+                        int(meta.get("cache_hits", 0)))
             head = json.loads(raw.decode("utf-8"))
-            return (multimodal.embeds_from_wire(head),
-                    int(head.get("cache_hits", 0)))
-        nl = raw.find(b"\n")
-        if nl < 0:
-            raise ValueError("malformed raw embed payload")
-        meta = json.loads(raw[:nl].decode("utf-8"))
-        check_version(meta, "encode")
-        return (multimodal.embeds_from_raw(meta, raw[nl + 1:]),
-                int(meta.get("cache_hits", 0)))
+            tr = head.get("transfer")
+            if head.get("status") != "staged" or not tr:
+                return (multimodal.embeds_from_wire(head),
+                        int(head.get("cache_hits", 0)))
+            arr, refused = None, False
+            try:
+                arr = kv_wire.pull_one(tr).cpu().numpy()
+                outcome = "pulled"
+            except kv_wire.WireUnsupported:
+                outcome, refused = "nopull", True
+            except kv_wire.WireNoPull:
+                outcome = "nopull"
+            except Exception:  # noqa: BLE001 — failed mid-pull
+                outcome = "error"
+            try:
+                http_json("POST", target, "/encode_done",
+                          {"uuid": tr.get("uuid"), "outcome": outcome},
+                          timeout=min(10.0, timeout))
+            except Exception:  # noqa: BLE001 — the holder's TTL sweep
+                pass            # releases it
+            if arr is not None:
+                return arr, int(head.get("cache_hits", 0))
+            if outcome != "nopull":
+                raise RuntimeError(f"embedding wire pull failed ({outcome})")
+            if refused:
+                self._fetch_wire_refused.add(target)
+            logger.info("%s staged embeddings this process cannot pull; "
+                        "asking for the bytes", target)
+        raise RuntimeError(f"{target} answered no embeddings")
 
     def _resolve_mm_embeds(self, mm_inputs: List[Any], encode_name: str,
                            fallbacks: Optional[List[str]] = None,
@@ -4113,171 +4245,136 @@ class Worker:
         return _Reply(200, {"ok": True, "model": model, "state": rt.state})
 
 
-def _handler_class(worker: Worker):
-    class Handler(BaseHTTPRequestHandler):
-        server_version = "xllm-torch-worker"
+def _response(reply: "_Reply") -> Response:
+    """A route's ``_Reply`` as the server's ``Response``: an SSE stream,
+    octet-stream bytes, or a JSON body."""
+    if reply.frames is not None:
+        return Response.sse(reply.frames)
+    if reply.data is not None:
+        return Response(reply.status, reply.data,
+                        content_type="application/octet-stream")
+    return Response.json(reply.body or {}, reply.status)
 
-        def log_message(self, fmt, *args) -> None:   # quiet by default
-            logger.debug("%s " + fmt, self.address_string(), *args)
 
-        def _json(self, status: int, obj: Dict[str, Any]) -> None:
-            data = json.dumps(obj).encode()
-            self.send_response(status)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(data)))
-            self.end_headers()
-            self.wfile.write(data)
+def _dropped() -> Iterator[bytes]:
+    """The body of a request whose worker died (simulated) before it
+    answered: it fails at once, so that the server ends the connection
+    with no complete answer, as a killed process's would."""
+    raise _WorkerDied("worker died (failpoint)")
+    yield b""       # a generator: the raise comes at the server's first read
 
-        def _error(self, e: HttpError) -> None:
-            self._json(e.status, {"error": {"message": str(e),
-                                            "type": e.err_type,
-                                            "code": e.status}})
 
-        def _sse(self, frames: Iterator[bytes]) -> None:
-            try:
-                self.send_response(200)
-                self.send_header("Content-Type", "text/event-stream")
-                self.send_header("Cache-Control", "no-cache")
-                self.end_headers()
-                for frame in frames:
-                    self.wfile.write(frame)
-                    self.wfile.flush()
-            except OSError:
-                pass        # client went away; the close cancels
-            except _WorkerDied:
-                # A simulated death: the stream breaks mid-frame.
-                self.close_connection = True
-            finally:
-                close = getattr(frames, "close", None)
-                if close is not None:
-                    close()
+def _json_body(req: Request) -> Dict[str, Any]:
+    try:
+        body = json.loads(req.body or b"{}")
+    except (json.JSONDecodeError, UnicodeDecodeError):
+        raise HttpError(400, "invalid JSON body") from None
+    if not isinstance(body, dict):
+        raise HttpError(400, "request body must be an object")
+    return body
 
-        def _send(self, reply: _Reply) -> None:
-            if reply.frames is not None:
-                self._sse(reply.frames)
-            elif reply.data is not None:
-                self.send_response(reply.status)
-                self.send_header("Content-Type", "application/octet-stream")
-                self.send_header("Content-Length", str(len(reply.data)))
-                self.end_headers()
-                self.wfile.write(reply.data)
-            else:
-                self._json(reply.status, reply.body or {})
 
-        def _raw_post(self) -> None:
-            """The PD handoff's octet-stream routes."""
-            n = int(self.headers.get("Content-Length") or 0)
-            raw = self.rfile.read(n)
-            serve = (worker.serve_kv_chunk if self.path == "/kv/chunk"
-                     else worker.serve_kv_import)
-            self._send(worker.guarded(serve, raw))
+def _route(fn, body_of=_json_body, internal_500: bool = False):
+    """A router handler around ``fn(body, req)``: ``HttpError`` becomes
+    its typed answer, ``_WorkerDied`` a dropped connection, and with
+    ``internal_500`` any other exception a 500 naming the path (the
+    control routes: a refused /sleep would desync the master's model
+    states). Without it, the router's own 500 answers."""
+    def handler(req: Request) -> Response:
+        try:
+            return _response(fn(body_of(req), req))
+        except HttpError as e:
+            return Response.error(e.status, str(e), e.err_type)
+        except _WorkerDied:
+            return Response(200, content_type="text/event-stream",
+                            stream=_dropped())
+        except Exception as e:  # noqa: BLE001
+            if not internal_500:
+                raise
+            logger.exception("%s failed", req.path)
+            return Response.error(500, f"{req.path}: {e!r}",
+                                  "internal_error")
+    return handler
 
-        def do_GET(self) -> None:
-            url = urlsplit(self.path)
-            if self.path == "/hello":
-                self._json(200, {"ok": True})
-            elif self.path == "/v1/models":
-                self._json(200, worker.models_body())
-            elif self.path == "/admin/failpoints":
-                self._json(200, worker.failpoints.state())
-            elif url.path == "/admin/weights":
-                model = (parse_qs(url.query).get("model") or [""])[0]
-                try:
-                    self._json(200, worker.weights_body(model))
-                except HttpError as e:
-                    self._error(e)
-            elif url.path == "/admin/steptrace":
-                q = parse_qs(url.query)
-                try:
-                    n = int((q.get("n") or ["0"])[0] or 0)
-                    window_s = float((q.get("seconds") or ["0"])[0] or 0)
-                except ValueError:
-                    n, window_s = 0, 0.0
-                self._json(200, worker.steptrace_body(n, window_s))
-            elif self.path == "/metrics":
-                data = worker.metrics_text().encode()
-                self.send_response(200)
-                self.send_header("Content-Type",
-                                 "text/plain; version=0.0.4")
-                self.send_header("Content-Length", str(len(data)))
-                self.end_headers()
-                self.wfile.write(data)
-            else:
-                self._error(HttpError(404, f"no route {self.path}"))
 
-        def do_POST(self) -> None:
-            t_recv = time.monotonic()
-            routes = {"/v1/completions": False,
-                      "/v1/chat/completions": True}
-            # Control routes, exempt from the drain's refusal (JAX worker
-            # :815-830): a refused /sleep would desync the master's model
-            # states, a refused /kv/blocks_done leaks a staged segment.
-            control = {"/sleep": worker.sleep_model,
-                       "/wakeup": worker.wakeup_model,
-                       "/fork_master": worker.fork_master,
-                       "/flip_role": worker.flip_role,
-                       "/kv/blocks_done": worker.serve_kv_blocks_done,
-                       "/encode": worker.serve_encode,
-                       "/encode_done": worker.serve_encode_done}
-            if self.path in ("/kv/import", "/kv/chunk"):
-                self._raw_post()
-                return
-            if self.path not in routes and self.path not in control \
-                    and self.path not in ("/cancel", "/admin/failpoint",
-                                          "/kv/blocks", "/v1/embeddings"):
-                self._error(HttpError(404, f"no route {self.path}"))
-                return
-            try:
-                n = int(self.headers.get("Content-Length") or 0)
-                body = json.loads(self.rfile.read(n) or b"{}")
-                if not isinstance(body, dict):
-                    raise HttpError(400, "request body must be an object")
-                if self.path == "/cancel":
-                    self._json(200, {"ok": worker.cancel_request(
-                        str(body.get("service_request_id", "")))})
-                    return
-                if self.path == "/admin/failpoint":
-                    try:
-                        worker.failpoints.arm_from_body(body)
-                    except (TypeError, ValueError) as e:
-                        raise HttpError(400, str(e)) from e
-                    self._json(200, {"ok": True,
-                                     "state": worker.failpoints.state()})
-                    return
-                if self.path in control or self.path in ("/kv/blocks",
-                                                         "/v1/embeddings"):
-                    try:
-                        if self.path == "/kv/blocks":
-                            reply = worker.guarded(worker.serve_kv_blocks,
-                                                   body)
-                        elif self.path == "/v1/embeddings":
-                            reply = worker.guarded(worker.serve_embeddings,
-                                                   body)
-                        else:
-                            reply = control[self.path](body)
-                    except Exception as e:  # noqa: BLE001 — a 500, never
-                        # a dead handler (the JAX worker's _guarded)
-                        logger.exception("%s failed", self.path)
-                        reply = _Reply.error(500, f"{self.path}: {e!r}",
-                                             "internal_error")
-                    self._send(reply)
-                    return
-                reply = worker.guarded(worker.serve_generate, body,
-                                       routes[self.path], self.headers,
-                                       t_recv)
-            except json.JSONDecodeError:
-                self._error(HttpError(400, "invalid JSON body"))
-                return
-            except HttpError as e:
-                self._error(e)
-                return
-            except _WorkerDied:
-                # A simulated death: no answer, the connection drops.
-                self.close_connection = True
-                return
-            self._send(reply)
+def _query_float(req: Request, name: str) -> float:
+    try:
+        return float(req.param(name, "0") or 0)
+    except ValueError:
+        return 0.0
 
-    return Handler
+
+# The routes that admission never sheds (JAX worker :815-829): the
+# shared control plane, the control verbs, and the continuations of a
+# request already admitted elsewhere (a PD import, a block fetch, an
+# encode for a request in flight).
+ADMISSION_EXEMPT = _ADMISSION_EXEMPT + (
+    "/sleep", "/wakeup", "/cancel", "/flip_role", "/fork_master",
+    "/kv/import", "/kv/chunk", "/kv/blocks", "/kv/blocks_done", "/encode",
+    "/encode_done")
+
+
+def build_router(worker: Worker) -> Router:
+    """The worker's routes, with the JAX worker's paths and methods
+    (plus ``GET /admin/weights``)."""
+    w = worker
+    r = Router()
+    r.route("GET", "/hello", lambda req: Response.json({"ok": True}))
+    r.route("GET", "/v1/models",
+            lambda req: Response.json(w.models_body()))
+    r.route("GET", "/metrics", lambda req: Response(
+        200, w.metrics_text().encode(),
+        content_type="text/plain; version=0.0.4"))
+    r.route("GET", "/admin/failpoints",
+            lambda req: Response.json(w.failpoints.state()))
+    r.route("GET", "/admin/weights", _route(
+        lambda _, req: _Reply(200, w.weights_body(req.param("model"))),
+        body_of=lambda req: None))
+    r.route("GET", "/admin/steptrace", lambda req: Response.json(
+        w.steptrace_body(int(_query_float(req, "n")),
+                         _query_float(req, "seconds"))))
+
+    def generate(is_chat: bool):
+        def fn(body, req):
+            return w.guarded(w.serve_generate, body, is_chat, req.headers,
+                             time.monotonic())
+        return _route(fn)
+
+    r.route("POST", "/v1/completions", generate(False))
+    r.route("POST", "/v1/chat/completions", generate(True))
+
+    def arm_failpoint(body, req):
+        try:
+            w.failpoints.arm_from_body(body)
+        except (TypeError, ValueError) as e:
+            raise HttpError(400, str(e)) from e
+        return _Reply(200, {"ok": True, "state": w.failpoints.state()})
+
+    r.route("POST", "/admin/failpoint", _route(arm_failpoint))
+    r.route("POST", "/cancel", _route(lambda body, req: _Reply(
+        200, {"ok": w.cancel_request(
+            str(body.get("service_request_id", "")))})))
+    # The control routes, exempt from the drain's refusal (JAX worker
+    # :815-830): a refused /sleep would desync the master's model
+    # states, a refused /kv/blocks_done leaks a staged segment.
+    for path, fn in (("/sleep", w.sleep_model), ("/wakeup", w.wakeup_model),
+                     ("/fork_master", w.fork_master),
+                     ("/flip_role", w.flip_role),
+                     ("/kv/blocks_done", w.serve_kv_blocks_done),
+                     ("/encode", w.serve_encode),
+                     ("/encode_done", w.serve_encode_done)):
+        r.route("POST", path, _route(lambda body, req, fn=fn: fn(body),
+                                     internal_500=True))
+    for path, fn in (("/kv/blocks", w.serve_kv_blocks),
+                     ("/v1/embeddings", w.serve_embeddings)):
+        r.route("POST", path, _route(
+            lambda body, req, fn=fn: w.guarded(fn, body), internal_500=True))
+    # The PD handoff's octet-stream routes.
+    for path, fn in (("/kv/import", w.serve_kv_import),
+                     ("/kv/chunk", w.serve_kv_chunk)):
+        r.route("POST", path, _route(lambda raw, req, fn=fn: w.guarded(
+            fn, raw), body_of=lambda req: req.body))
+    return r
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -4332,6 +4429,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "over CUDA IPC (else bytes over HTTP)")
     p.add_argument("--enable-profiling", action="store_true",
                    help="measure TTFT/TPOT samples for the registration")
+    p.add_argument("--max-concurrency", type=int,
+                   default=WorkerOptions.max_concurrency,
+                   help="concurrent entry requests before a 503 with "
+                        "Retry-After (0 = no cap)")
     p.add_argument("--role", default="", choices=["", "encode"],
                    help="encode: serve the vision tower only (the model "
                         "sleeps; registers as ENCODE)")
@@ -4362,7 +4463,8 @@ def build_worker(args: argparse.Namespace,
         murmur_seed=args.murmur_seed, pd_direct_kv=args.pd_direct_kv,
         pd_device_wire=args.pd_device_wire,
         enable_profiling=args.enable_profiling,
-        encode_only=args.role == "encode")
+        encode_only=args.role == "encode",
+        max_concurrency=args.max_concurrency)
     return Worker(opts, engine_cfg=ecfg, model_cfg=model_cfg, params=params)
 
 
