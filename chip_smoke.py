@@ -189,11 +189,14 @@ Phases (any failure raises and the exit code is not 0):
    float32 path on the CPU (``[margins]``): wider than 10 x phase 4's
    largest logit error for the model is a fault, narrower is drift.
    ``[profile]`` prints the launches per forward of 5, 5c, 5d and 5e.
-6. Cluster: the reference coordination store and master run as child
-   processes (``python -m xllm_service_tpu.service.coordination_net``,
-   ``python -m xllm_service_tpu.service.master --block-size 128
-   --heartbeat-interval 0.5 --load-balance-policy RR``; nothing of the
-   reference package is imported here) and the port's worker (llama3-1b,
+6. Cluster: the port's coordination store and master run as child
+   processes (``python -m xllm_service_tpu_torch.service.coordination_net``,
+   ``python -m xllm_service_tpu_torch.service.master --block-size 128
+   --heartbeat-interval 0.5 --master-upload-interval 0.5
+   --load-balance-policy RR``; nothing of the
+   JAX package runs or is imported here: ``guard_child_argv`` fails a
+   child whose argv names one of its modules, ``guard_no_jax_modules``
+   a run that imported one) and the port's worker (llama3-1b,
    the phase 5 flags and seed, write-then-attend, graphs on) joins them
    in-process: it warms up, registers through the store under a lease
    and heartbeats every 0.5 s; the phase waits (60 s at most) for the
@@ -210,7 +213,20 @@ Phases (any failure raises and the exit code is not 0):
    stopped and one with ``--enable-decode-response-to-service`` takes
    over, the worker follows its advertisement in the store and learns
    the RPC topology, and the four requests finish through it (tokens
-   pushed to ``/rpc/generations``); ``worker.stop()`` takes the worker
+   pushed to ``/rpc/generations``); the ``[master]`` round
+   (``master_round``, at most ``MASTER_ROUND_S``): the RPC master's
+   ``/admin/timeline``, ``/admin/slo``, ``/admin/profile`` and
+   ``/admin/debug_bundle`` answer 200 with the JAX master's top-level
+   keys (``ADMIN_KEYS``), its hot-path section medians (``schedule``,
+   ``tokenize``) are printed, a second master joins the store as a
+   replica, the leader is killed with SIGKILL and the replica takes over
+   within the election lease (3 s) plus ``MASTER_TAKEOVER_SLACK_S``, the
+   worker follows it and the four requests finish through it, and no
+   master or store process holds the card (``nvidia-smi
+   --query-compute-apps=pid``, and from ``/proc``: the CUDA driver
+   library mapped or a device file open, this process the probe's
+   control);
+   ``worker.stop()`` takes the worker
    off the master's list within the lease TTL (1.5 s). The worker's
    front door must be the native epoll server. ``[cluster]``:
    the median TTFT and decode tokens/s per stream through the master
@@ -239,7 +255,7 @@ Phases (any failure raises and the exit code is not 0):
    restored page read back from the pool bit-equal to the bytes the tier
    took, the stream equal to the cold one (or the margins rule decides);
    each spill's and restore's host ms.
-6b. Cache-aware routing (``[cluster-car]``): the reference store and a
+6b. Cache-aware routing (``[cluster-car]``): the port's store and a
    master with ``--load-balance-policy CAR --block-size 128`` over two
    port workers (phase 7's weights): A (the shared prompt and a tail),
    then, once a heartbeat after it reached the master, B and C (the same
@@ -291,7 +307,7 @@ Phases (any failure raises and the exit code is not 0):
    most its attention share; then the greedy round four times, recorder
    off and on alternately: the decode step medians and the recorder's
    host microseconds a step.
-10. PD disaggregation (``pd_phase``, ``[pd]``): the reference store and
+10. PD disaggregation (``pd_phase``, ``[pd]``): the port's store and
    master as children, a llama3-1b PREFILL worker in-process (phase 5's
    flags and seed) whose own round (phase 5's four requests and 16
    streamed chats) is the reference before ``POST /flip_role`` makes it
@@ -316,10 +332,10 @@ Phases (any failure raises and the exit code is not 0):
    migration ms and GB/s per transport, TTFT and tokens/s per stream
    under PD against the reference.
 11. The cross-worker block fetch (``fetch_phase``, ``[fetch]``): the
-   reference store and master, a llama3-1b holder child and an
+   port's store and master, a llama3-1b holder child and an
    in-process requester; the prefix fetched over the CUDA IPC wire, as
    bytes, and recomputed.
-12. Lifecycle (``lifecycle_phase``, ``[lifecycle]``): the reference
+12. Lifecycle (``lifecycle_phase``, ``[lifecycle]``): the port's
    store and master as children, a llama3-1b worker in-process (phase
    5's flags). Phase 5's four requests through the master; a sleep
    through ``/model/triggers`` (memory allocated back within 256 MiB of
@@ -354,7 +370,7 @@ Phases (any failure raises and the exit code is not 0):
    safetensors and read back by the port's reader (every leaf equal), one
    image against the float32 run of the same weights, ms per image and
    share of the bf16 peak, and the Qwen2.5-VL-7B tower the same way; an
-   ENCODE worker child and an in-process MIX worker behind the reference
+   ENCODE worker child and an in-process MIX worker behind the port's
    store and master serving text and image chats: TTFT with and without
    an image, the decode step's ms, K1/K2, K3, K4 launched and K5 not, no
    graph after warmup, an encode-cache hit on a repeated image, the
@@ -367,7 +383,7 @@ Phases (any failure raises and the exit code is not 0):
    most 150 s.
 15. The observability and coordination plane over etcd (``obs_phase``,
    ``[obs]``): the native etcd server built from ``csrc/xllm_etcd.cpp``
-   with g++; the reference master on ``etcd://`` and llama3-1b (16
+   with g++; the port's master on ``etcd://`` and llama3-1b (16
    layers, random bf16 weights) in-process on ``--store-addr etcd://``:
    seconds until listed; 8 chats through the master whose traces at
    ``/admin/trace/<id>`` hold the worker-plane stages in order beside the
@@ -424,6 +440,7 @@ import json
 import math
 import os
 import random
+import re
 import subprocess
 import sys
 import threading
@@ -3622,17 +3639,46 @@ def _median(xs):
 # Phase 6: the cluster
 # ---------------------------------------------------------------------------
 
+# The JAX package is the reference the CPU tests hold the port to; no
+# process of this script runs it or imports it.
+JAX_PACKAGE = "xllm_service_tpu"
+
+
+def _names_jax_package(text: str) -> bool:
+    """True when ``text`` names the JAX package or a module under it
+    (``xllm_service_tpu_torch`` is the port, not the JAX package)."""
+    return re.search(r"(?<![\w.])" + JAX_PACKAGE + r"(?!\w)", text) \
+        is not None
+
+
+def guard_child_argv(argv) -> None:
+    """Fails the run when a child's argv names a module of the JAX
+    package."""
+    bad = [str(a) for a in argv if _names_jax_package(str(a))]
+    if bad:
+        raise AssertionError(f"a child process would run the JAX "
+                             f"package: {bad}")
+
+
+def guard_no_jax_modules() -> None:
+    """Fails the run when this process imported the JAX package or a
+    module of it."""
+    bad = sorted(m for m in sys.modules if _names_jax_package(m))
+    if bad:
+        raise AssertionError(f"the JAX package was imported: {bad[:8]}")
+
+
 class RefProcess:
     """A child process started as ``python -m <module>`` from this
-    checkout: the reference package's coordination store or master (the
-    script itself imports nothing of that package), or the port's worker
-    (phase 10), with ``env`` added to its environment. Waits (bounded)
-    for the stdout line starting with ``marker``; stderr goes to
-    ``log``."""
+    checkout: the port's coordination store, master or worker, with
+    ``env`` added to its environment (``guard_child_argv`` refuses a
+    module of the JAX package). Waits (bounded) for the stdout line
+    starting with ``marker``; stderr goes to ``log``."""
 
     def __init__(self, args, marker: str, log: Path,
                  timeout: float = 60.0, env=None, on_spawn=None) -> None:
         import queue
+        guard_child_argv(args)
         self.log_path = log
         self._log = open(log, "w")
         self.proc = subprocess.Popen(
@@ -3717,12 +3763,17 @@ class PushTimes:
 
 
 def start_master(store: str, rpc_topology: bool, log: Path, env=None):
-    """The reference master on ``store``: round robin, block size 128 (the
-    worker's page size), 0.5 s heartbeats, ``env`` added to its
-    environment. Returns (process, http, rpc)."""
-    args = ["xllm_service_tpu.service.master", "--host", "127.0.0.1",
+    """The port's master on ``store``: round robin, block size 128 (the
+    worker's page size), 0.5 s heartbeats and keepalives, ``env`` added
+    to its environment. Returns (process, http, rpc). The keepalive runs
+    at the upload interval, which must sit below the election lease
+    (max(3 x 0.5 s, 3 s)): at the default 3 s the master loses its own
+    lease every few seconds and re-wins it, and a standing replica can
+    take the seat."""
+    args = ["xllm_service_tpu_torch.service.master", "--host", "127.0.0.1",
             "--http-port", "0", "--rpc-port", "0", "--etcd-addr", store,
             "--block-size", "128", "--heartbeat-interval", "0.5",
+            "--master-upload-interval", "0.5",
             "--load-balance-policy", "RR"]
     if rpc_topology:
         args.append("--enable-decode-response-to-service")
@@ -3794,8 +3845,156 @@ def chat_summary(streams: list) -> dict:
             "ttft_ms": ttft, "decode_tokens_per_s": rate}
 
 
+# The top-level keys of the JAX master's admin answers (its
+# ``service/http_service.py``); the port's master must answer with them.
+ADMIN_KEYS = {
+    "/admin/timeline": ["displayTimeUnit", "metadata", "traceEvents"],
+    "/admin/slo": ["breached", "burn_close", "burn_open", "fast_window_s",
+                   "objectives", "slow_window_s", "tick_s"],
+    "/admin/profile?seconds=0.2": [
+        "enabled", "lock_profile_sample", "locks", "sections", "self",
+        "stacks", "thread_cpu_s"],
+    "/admin/debug_bundle": [
+        "anomalies", "captured_at", "events", "flags", "instances",
+        "is_master", "metrics", "profile", "service_id", "slo", "spans",
+        "steptrace", "tracked_requests"],
+}
+# The [master] round's budget on the script's clock, and the slack
+# allowed past the election lease (max(3 x 0.5 s, 3 s) = 3 s) for the
+# store to expire it, the replica's watch to hear the DELETE and its
+# election to run.
+MASTER_ROUND_S = 20.0
+MASTER_LEASE_S = 3.0
+MASTER_TAKEOVER_SLACK_S = 0.5
+
+
+def _compute_app_pids() -> list:
+    """The pids of the processes that hold a context on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def _opened_the_card(pid: int):
+    """True when process ``pid`` mapped the CUDA driver library or holds
+    an NVIDIA device file open, False when neither, None when its
+    ``/proc`` entries cannot be read."""
+    try:
+        with open(f"/proc/{pid}/maps", encoding="utf-8",
+                  errors="replace") as f:
+            if any("libcuda" in line for line in f):
+                return True
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return None
+    for fd in fds:
+        try:
+            if os.readlink(f"/proc/{pid}/fd/{fd}").startswith(
+                    "/dev/nvidia"):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+def master_round(torch, kernels, w, leader, leader_http: str,
+                 store_addr: str, store, procs: list, logs: Path,
+                 steplog, rng: random.Random, layers: int) -> dict:
+    """Phase 6's ``[master]`` round: the port's master at the card's run.
+
+    The leader's (``leader``, the RPC master) ``/admin/timeline``,
+    ``/admin/slo``, ``/admin/profile`` and ``/admin/debug_bundle`` must
+    answer 200 with ``ADMIN_KEYS``; its hot-path section medians are
+    read from the profile. A second master (relay topology) joins the
+    store as a replica; the leader is killed with SIGKILL; the replica
+    must take over within ``MASTER_LEASE_S`` + ``MASTER_TAKEOVER_SLACK_S``,
+    the worker follow its advertisement (and the relay topology), and
+    phase 5's four requests finish through it with the kernels each step
+    must launch. Neither master nor the store may hold a context on the
+    card: none among the compute apps, and none with the CUDA driver
+    mapped or a device file open where ``/proc`` shows this process
+    (which holds the card) so."""
+    t_round = time.perf_counter()
+    out = {"admin": {}}
+    for path, keys in ADMIN_KEYS.items():
+        status, body = _get(leader_http, path)
+        got = sorted(body) if isinstance(body, dict) else body
+        out["admin"][path.split("?")[0]] = status
+        if status != 200 or got != keys:
+            raise AssertionError(f"[master] {path}: {status}, keys {got}")
+        if path.startswith("/admin/profile"):
+            sections = body["sections"]
+        if path == "/admin/debug_bundle" and not body["is_master"]:
+            raise AssertionError("[master] the leader's bundle says it is "
+                                 "not the master")
+    out["sections_us"] = {
+        name: {"ops": sections[name]["ops"],
+               "p50_us": (None if sections[name]["p50"] is None
+                          else sections[name]["p50"] * 1e3),
+               "p99_us": (None if sections[name]["p99"] is None
+                          else sections[name]["p99"] * 1e3)}
+        for name in ("schedule", "tokenize") if name in sections}
+    if set(out["sections_us"]) != {"schedule", "tokenize"}:
+        raise AssertionError(f"[master] sections: {sorted(sections)}")
+
+    replica, rep_http, rep_rpc = start_master(store_addr, False,
+                                              logs / "master_replica.log")
+    procs.append(replica)
+    status, bundle = _get(rep_http, "/admin/debug_bundle")
+    if status != 200 or bundle["is_master"]:
+        raise AssertionError("[master] the replica leads beside the leader")
+    pids = _compute_app_pids()
+    out["compute_app_pids"] = pids
+    ours = {"store": store.proc.pid, "leader": leader.proc.pid,
+            "replica": replica.proc.pid}
+    on_card = {k: p for k, p in ours.items() if p in pids}
+    # The same from /proc, which names this process namespace's pids:
+    # the CUDA driver library mapped or a device file open. This process
+    # (the worker's, on the card) is the probe's control.
+    out["opened_the_card"] = {k: _opened_the_card(p)
+                              for k, p in ours.items()}
+    out["opened_the_card"]["this_process"] = _opened_the_card(os.getpid())
+    if out["opened_the_card"]["this_process"]:
+        on_card.update({k: p for k, p in ours.items()
+                        if out["opened_the_card"][k]})
+    if on_card or len(pids) > 1:
+        raise AssertionError(f"[master] service processes on the card: "
+                             f"{on_card}, compute apps {pids}")
+    t0 = time.perf_counter()
+    leader.proc.kill()
+    leader.proc.wait(timeout=15)
+
+    def replica_leads():
+        st, b = _get(rep_http, "/admin/debug_bundle")
+        return st == 200 and b["is_master"]
+    wait_for(replica_leads, MASTER_LEASE_S + MASTER_TAKEOVER_SLACK_S,
+             "the replica leading after the leader's SIGKILL")
+    out["takeover_s"] = time.perf_counter() - t0
+    wait_for(lambda: w.service_addr == rep_rpc and not w._decode_to_service
+             and w.name in listed(rep_rpc), 10.0,
+             "the worker following the replica")
+    out["followed_s"] = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    steplog.clear()
+    bodies = [{**b, "model": w.opts.model}
+              for b in serve_bodies(rng, w.tokenizer)]
+    results, wall = run_concurrent(rep_http, bodies)
+    torch.cuda.synchronize()
+    ttft, rate, _ = check_replies(SERVE_PLAN, results)
+    check_step_launches(steplog.rows, kernels.launch_counts(), layers,
+                        False, True, False)
+    out["after_takeover"] = {"ttft_ms_streams": ttft,
+                             "decode_tokens_per_s_streams": rate,
+                             "wall_s": wall}
+    out["seconds"] = time.perf_counter() - t_round
+    if out["seconds"] > MASTER_ROUND_S:
+        raise AssertionError(f"[master] round took {out['seconds']:.1f} s")
+    return out
+
+
 def cluster_phase(torch, kernels, card: str) -> dict:
-    """Phase 6: the reference store and master as child processes, the
+    """Phase 6: the port's store and master as child processes, the
     port's worker (llama3-1b, 16 layers, bf16, write-then-attend, every
     step through the warmed-up graphs) in-process, registered through
     the store. Checks: one streamed chat alone gives the same text and
@@ -3808,15 +4007,18 @@ def cluster_phase(torch, kernels, card: str) -> dict:
     p99) while a long stream runs, which ``POST /cancel`` then ends, the
     engine idle after; the master is replaced by one in the RPC
     topology, which the worker follows through the store, and the four
-    requests finish through it too; ``stop()`` takes the worker off the
-    master's list within the lease TTL."""
+    requests finish through it too; the ``[master]`` round
+    (``master_round``): the admin answers, a replica's takeover after the
+    leader's SIGKILL, the four requests through the replica, no service
+    process on the card; ``stop()`` takes the worker off the master's
+    list within the lease TTL."""
     from xllm_service_tpu_torch.runtime import worker
     model = "llama3-1b"
     logs = ROOT / "build" / "cluster_logs"
     logs.mkdir(parents=True, exist_ok=True)
     procs, w, out = [], None, {}
     try:
-        store = RefProcess(["xllm_service_tpu.service.coordination_net",
+        store = RefProcess(["xllm_service_tpu_torch.service.coordination_net",
                             "--port", "0"],
                            "coordination store serving on",
                            logs / "store.log")
@@ -4030,6 +4232,13 @@ def cluster_phase(torch, kernels, card: str) -> dict:
             raise AssertionError(f"phase 6 steps outside the warmed-up "
                                  f"graphs: {capture}")
 
+        # 5b. [master]: the leader's admin answers, then its SIGKILL and
+        # a replica's takeover.
+        out["master"] = master_round(torch, kernels, w, rpc_p, rpc_http,
+                                     store_addr, store, procs, logs,
+                                     steplog, rng, layers)
+        rpc_rpc = w.service_addr
+
         # 6. stop() takes the worker off the master's list within the
         # lease TTL.
         t0 = time.perf_counter()
@@ -4071,6 +4280,27 @@ def cluster_phase(torch, kernels, card: str) -> dict:
         f"{med['direct']['decode_tokens_per_s']}; heartbeat step_ms_p99 "
         f"by beat during a long stream (the first holds its prefill) "
         f"{beats}")
+    mr = out["master"]
+    after = {"ttft_ms": statistics.median(
+                 mr["after_takeover"]["ttft_ms_streams"]),
+             "decode_tokens_per_s": statistics.median(
+                 mr["after_takeover"]["decode_tokens_per_s_streams"])}
+    log(f"[master] {card}: the port's master; admin answers "
+        f"{json.dumps(mr['admin'])} with the JAX master's keys; hot-path "
+        f"sections (us) {json.dumps(mr['sections_us'])}; SIGKILLed leader "
+        f"replaced in {mr['takeover_s']:.3f} s (lease {MASTER_LEASE_S} s), "
+        f"worker following in {mr['followed_s']:.3f} s; no service "
+        f"process among the card's compute apps "
+        f"{mr['compute_app_pids']} (libcuda mapped or a device file open, "
+        f"from /proc: {json.dumps(mr['opened_the_card'])}); median TTFT "
+        f"ms / decode tokens/s per "
+        f"stream of the four requests: direct "
+        f"{med['direct']['ttft_ms']} / {med['direct']['decode_tokens_per_s']}"
+        f", relay {med['relay']['ttft_ms']} / "
+        f"{med['relay']['decode_tokens_per_s']}, rpc {med['rpc']['ttft_ms']}"
+        f" / {med['rpc']['decode_tokens_per_s']}, after the takeover "
+        f"{after['ttft_ms']} / {after['decode_tokens_per_s']}; the round "
+        f"{mr['seconds']:.1f} s")
     log(f"[cluster] {card}: 16 streamed chats a topology (two rounds of "
         f"8 at once), TTFT ms median / p90 and decode tokens/s per stream "
         f"median: " + json.dumps({
@@ -4424,7 +4654,7 @@ def _route_audit(master_http: str, srid: str):
 
 
 def routed_cluster_phase(torch, kernels, card: str, params) -> dict:
-    """Phase 6b: the reference store and a master under the cache-aware
+    """Phase 6b: the port's store and a master under the cache-aware
     policy (``--load-balance-policy CAR --block-size 128``) with two
     port workers (llama3-1b, the same weights, 0.5 s heartbeats) in this
     process. A (the 1,024-token shared prompt and a tail) is served
@@ -4438,16 +4668,17 @@ def routed_cluster_phase(torch, kernels, card: str, params) -> dict:
     logs.mkdir(parents=True, exist_ok=True)
     procs, ws, out = [], [], {}
     try:
-        store = RefProcess(["xllm_service_tpu.service.coordination_net",
+        store = RefProcess(["xllm_service_tpu_torch.service.coordination_net",
                             "--port", "0"], "coordination store serving on",
                            logs / "store_car.log")
         procs.append(store)
         store_addr = store.line.split()[-1]
         master = RefProcess(
-            ["xllm_service_tpu.service.master", "--host", "127.0.0.1",
+            ["xllm_service_tpu_torch.service.master", "--host", "127.0.0.1",
              "--http-port", "0", "--rpc-port", "0", "--etcd-addr",
              store_addr, "--block-size", "128", "--heartbeat-interval",
-             "0.5", "--load-balance-policy", "CAR"], "XLLM_SERVICE_UP",
+             "0.5", "--master-upload-interval", "0.5",
+             "--load-balance-policy", "CAR"], "XLLM_SERVICE_UP",
             logs / "master_car.log")
         procs.append(master)
         fields = dict(f.split("=", 1) for f in master.line.split()[1:])
@@ -5319,10 +5550,11 @@ def wire_pull_check(torch, kv_wire, card: str) -> dict:
     uuid = wire.stage(k, v)
     torch.cuda.synchronize()
     want = _sha256(torch, k, v)
+    argv = [sys.executable, "-c", WIRE_CHILD, json.dumps(wire.ticket(uuid))]
+    guard_child_argv(argv)
     try:
         child = subprocess.run(
-            [sys.executable, "-c", WIRE_CHILD,
-             json.dumps(wire.ticket(uuid))], cwd=ROOT, text=True,
+            argv, cwd=ROOT, text=True,
             capture_output=True, timeout=300,
             env={**os.environ, "PYTHONPATH": str(ROOT)})
     finally:
@@ -5454,7 +5686,7 @@ class _RelayTee:
 
 
 def pd_phase(torch, kernels, card: str, err: float) -> dict:
-    """Phase 10: PD disaggregation behind the reference master. The store
+    """Phase 10: PD disaggregation behind the port's master. The store
     and master run as child processes (as in phase 6); the PREFILL
     worker P (llama3-1b at phase 5's flags, random weights from the
     engine's seed) runs in-process. Its first round, sent straight to
@@ -5510,7 +5742,7 @@ def pd_phase(torch, kernels, card: str, err: float) -> dict:
                 "--service-addr", rpc]
 
     try:
-        store = RefProcess(["xllm_service_tpu.service.coordination_net",
+        store = RefProcess(["xllm_service_tpu_torch.service.coordination_net",
                             "--port", "0"],
                            "coordination store serving on",
                            logs / "store.log")
@@ -5964,7 +6196,7 @@ FETCH_ENV = {"XLLM_RAGGED_ATTN": "0", "XLLM_WRITE_THEN_ATTEND": "1",
 # so the master's XLLM_KV_FETCH_GBPS applies).
 FETCH_MASTER_ENV = {"XLLM_KV_FETCH_GBPS": "1000",
                     "XLLM_KV_FETCH_OVERHEAD_MS": "0"}
-# The planner's defaults (the reference master's XLLM_KV_FETCH_GBPS and
+# The planner's defaults (the master's XLLM_KV_FETCH_GBPS and
 # XLLM_KV_FETCH_OVERHEAD_MS), for the verdict it gives unprompted.
 FETCH_DEFAULT_GBPS, FETCH_DEFAULT_OVERHEAD_MS = 1.0, 5.0
 # The holder's cold request's tail, then the 8 chats' tails: every
@@ -6004,7 +6236,7 @@ def _default_verdict(terms: dict) -> dict:
 
 
 def fetch_phase(torch, kernels, card: str, err: float) -> dict:
-    """Phase 11: the cross-worker block fetch behind the reference master
+    """Phase 11: the cross-worker block fetch behind the port's master
     (round robin, block size 128, a fetch priced to win:
     ``FETCH_MASTER_ENV``). The store and the master run as children (as
     in phase 10); so does the holder A (llama3-1b, phase 5's flags and
@@ -6041,7 +6273,7 @@ def fetch_phase(torch, kernels, card: str, err: float) -> dict:
     procs, ws, out = [], [], {"rounds": {}}
     t_phase = time.perf_counter()
     try:
-        store = RefProcess(["xllm_service_tpu.service.coordination_net",
+        store = RefProcess(["xllm_service_tpu_torch.service.coordination_net",
                             "--port", "0"], "coordination store serving on",
                            logs / "store.log")
         procs.append(store)
@@ -6395,7 +6627,7 @@ def _trigger(m_http: str, model: str, action: str) -> float:
 
 
 def lifecycle_phase(torch, kernels, card: str, err: float) -> dict:
-    """Phase 12: the worker's lifecycle behind the reference master (store
+    """Phase 12: the worker's lifecycle behind the port's master (store
     and master as children, round robin, block size 128) with a llama3-1b
     port worker in-process (phase 5's flags, random bf16 weights from the
     engine's seed, graphs on).
@@ -6438,7 +6670,7 @@ def lifecycle_phase(torch, kernels, card: str, err: float) -> dict:
     procs, ws, out = [], [], {}
     path = {"ragged": False, "write_then_attend": True}
     try:
-        store = RefProcess(["xllm_service_tpu.service.coordination_net",
+        store = RefProcess(["xllm_service_tpu_torch.service.coordination_net",
                             "--port", "0"], "coordination store serving on",
                            logs / "store.log")
         procs.append(store)
@@ -7539,7 +7771,7 @@ def _epd_wire_round(w, enc_addr: str, m_http: str, card: str) -> dict:
 def epd_phase(torch, kernels, card: str, err: float) -> dict:
     """Phase 14: the EPD multimodal path with Qwen2-VL-7B at full width
     and depth (the published config.json; random bf16 weights from seed
-    0), behind the reference store and master (children).
+    0), behind the port's store and master (children).
 
     a. K1/K2 with the sectioned mrope tables, K3 and K4 at Qwen2-VL-7B's
        shapes (28 query heads, 4 KV heads, D = 128) against their plain
@@ -7634,7 +7866,7 @@ def epd_phase(torch, kernels, card: str, err: float) -> dict:
     # c.
     procs, ws = [], []
     try:
-        store = RefProcess(["xllm_service_tpu.service.coordination_net",
+        store = RefProcess(["xllm_service_tpu_torch.service.coordination_net",
                             "--port", "0"], "coordination store serving on",
                            logs / "store.log")
         procs.append(store)
@@ -7910,17 +8142,17 @@ class EtcdProcess:
         self.proc.wait(timeout=15)
 
 
-def build_etcd(out_dir: Path) -> tuple:
-    """g++ builds the native etcd server from the checkout; returns
-    (binary, seconds)."""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    binary = out_dir / "xllm_etcd"
+def build_etcd() -> tuple:
+    """The port's ``service/etcd_native.build_binary`` builds the native
+    etcd server from the checkout with g++ (into ``build/native/``, once;
+    a fresh binary is reused); returns (binary, seconds)."""
+    from xllm_service_tpu_torch.service import etcd_native
     t0 = time.perf_counter()
-    subprocess.run(["g++", "-O2", "-std=c++17", "-pthread",
-                    str(ROOT / "csrc" / "xllm_etcd.cpp"), "-o",
-                    str(binary)], check=True, capture_output=True,
-                   timeout=300)
-    return binary, time.perf_counter() - t0
+    binary = etcd_native.build_binary()
+    if binary is None:
+        raise AssertionError("phase 15: the native etcd server did not "
+                             "build (g++)")
+    return Path(binary), time.perf_counter() - t0
 
 
 def etcd_revision(addr: str) -> int:
@@ -7941,7 +8173,7 @@ def pad_etcd_revision(client, addr: str, revision: int) -> int:
     """Write one scratch key until the server's revision passes
     ``revision``; returns the writes. An etcd client's watch resumes from
     the revision after the last it saw, so on a store restarted empty
-    (its revisions counted from 1 again) the reference master's watches
+    (its revisions counted from 1 again) the master's watches
     hear nothing until the new revision passes the old."""
     n = 0
     while etcd_revision(addr) <= revision:
@@ -7970,12 +8202,12 @@ def _decode_steps_ms(addr: str, t0: float, t1: float) -> list:
 
 def obs_phase(torch, kernels, card: str) -> dict:
     """Phase 15: llama3-1b at full width and depth (16 layers, random
-    bf16 weights from the engine's seed) behind the reference master
+    bf16 weights from the engine's seed) behind the port's master
     over etcd, on the card.
 
     a. The native etcd server built from ``csrc/xllm_etcd.cpp`` with g++
        and started on an ephemeral port.
-    b. The reference master (a child) on ``etcd://``; the port worker
+    b. The port's master (a child) on ``etcd://``; the port worker
        in-process on ``--store-addr etcd://...`` (lock contention sampled
        1 in ``OBS_LOCK_SAMPLE``): the seconds until it is listed.
     c. ``CHAT_ROUND``'s 8 streamed chats through the master at
@@ -8028,7 +8260,7 @@ def obs_phase(torch, kernels, card: str) -> dict:
         for t in starters:
             t.start()
         # a.
-        binary, out["etcd_build_s"] = build_etcd(ROOT / "build" / "obs")
+        binary, out["etcd_build_s"] = build_etcd()
         etcd = EtcdProcess(binary)
         store = f"etcd://{etcd.address}"
         log(f"[obs] {card}: xllm_etcd built in {out['etcd_build_s']:.2f} s,"
@@ -8564,6 +8796,7 @@ def main() -> int:
             "xllm_service_tpu_torch package is not beside this script)")
         return 2
     sys.path.insert(0, str(ROOT))
+    guard_no_jax_modules()
     from xllm_service_tpu_torch.config import ModelConfig
     from xllm_service_tpu_torch.models import transformer
     from xllm_service_tpu_torch.ops import attention, kernels, rope
@@ -8787,7 +9020,7 @@ def main() -> int:
                             err_mla, card, served_d, tok_d, model_cfg=ds_cfg)
     free_device_memory(torch)
     mark("5f_5g_decode_modes")
-    # 6. The cluster: the reference master in front of the port's worker.
+    # 6. The cluster: the port's master in front of the port's worker.
     clustered = cluster_phase(torch, kernels, card)
     free_device_memory(torch)
     mark("6_cluster")
@@ -8808,11 +9041,11 @@ def main() -> int:
     faulted = fault_phase(torch, kernels, card, err)
     free_device_memory(torch)
     mark("9_faults")
-    # 10. PD disaggregation behind the reference master.
+    # 10. PD disaggregation behind the port's master.
     disaggregated = pd_phase(torch, kernels, card, err)
     free_device_memory(torch)
     mark("10_pd")
-    # 11. The cross-worker block fetch behind the reference master.
+    # 11. The cross-worker block fetch behind the port's master.
     fetched = fetch_phase(torch, kernels, card, err)
     free_device_memory(torch)
     mark("11_fetch")
@@ -8924,6 +9157,7 @@ def main() -> int:
                "phase_end_s": marks,
                "seconds": time.perf_counter() - t_start}
     log(f"[summary] {json.dumps(summary)}")
+    guard_no_jax_modules()
     print(json.dumps({"kernels": bench.results}))
     print(card)
     print(json.dumps({"ok": True, "device": {

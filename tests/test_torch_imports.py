@@ -2,9 +2,12 @@
 ``xllm_service_tpu_torch`` and not ``chip_smoke.py`` imports JAX or
 anything of the JAX package ``xllm_service_tpu`` (the port keeps its
 own copies). Checked on the syntax tree, so imports inside functions
-count too."""
+count too. Nor may a string of ``chip_smoke.py`` or
+``tools/chip_phases.py`` name a module of the JAX package (a child's
+``-m xllm_service_tpu....``): the card's run starts nothing of it."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -56,3 +59,37 @@ def test_every_subpackage_is_checked():
     assert "parallel" in subpackages
     assert subpackages <= checked
     assert pkg / "parallel" / "expert.py" in FILES
+
+
+# A dotted module name under the JAX package: ``xllm_service_tpu`` then
+# ``.``, not ``xllm_service_tpu_torch`` (the port) nor the path of the
+# Pallas sources that ``chip_smoke.py`` reads as text.
+_JAX_MODULE = re.compile(r"(?<![\w.])xllm_service_tpu\.\w")
+CHIP_FILES = [ROOT / "chip_smoke.py", ROOT / "tools" / "chip_phases.py"]
+
+
+def _jax_module_strings(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and _JAX_MODULE.search(node.value):
+            yield node.lineno, node.value
+
+
+@pytest.mark.parametrize("path", CHIP_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_chip_scripts_name_no_jax_module(path):
+    assert list(_jax_module_strings(path)) == []
+
+
+def test_checker_catches_a_planted_jax_module(tmp_path):
+    """A child started as ``-m xllm_service_tpu.service.master`` (argv
+    strings or the script's docstring) is caught; the port's modules and
+    the Pallas sources' path are not."""
+    bad = tmp_path / "chip_smoke.py"
+    bad.write_text(
+        '"""Starts ``python -m xllm_service_tpu.service.master``."""\n'
+        'PALLAS = "xllm_service_tpu/ops/pallas"\n'
+        'ok = ["xllm_service_tpu_torch.service.master", "--port", "0"]\n'
+        'args = ["-m", "xllm_service_tpu.service.master", "--host", "h"]\n')
+    assert [line for line, _ in _jax_module_strings(bad)] == [1, 4]

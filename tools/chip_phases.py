@@ -16,7 +16,11 @@ named:
 - ``16``: ``gemma_phase``;
 - ``14``: ``epd_phase`` (its margins limit 0.5, as phase 4 is not run);
 - ``15``: ``obs_phase``;
-- ``6``: ``cluster_phase``.
+- ``6``: ``cluster_phase``;
+- ``6b``: ``routed_cluster_phase``, on the weights of a worker built as
+  phase 7's first (phase 7 itself is not run);
+- ``10``: ``pd_phase``, ``11``: ``fetch_phase``, ``12``:
+  ``lifecycle_phase`` (their margins limit 0.5, as phase 4 is not run).
 
 Each phase's checks hold as in ``chip_smoke.py``. The seconds of each
 phase, the card and every result go to
@@ -42,6 +46,20 @@ from xllm_service_tpu_torch.ops import kernels  # noqa: E402
 from xllm_service_tpu_torch.ops.kernels import _build  # noqa: E402
 
 
+def routed(card: str) -> dict:
+    """Phase 6b on the weights of phase 7's first worker (built, then
+    stopped)."""
+    from xllm_service_tpu_torch.runtime import worker
+    w, _ = cs._start(worker, cs.PREFIX_ARGS,
+                     {"XLLM_RAGGED_ATTN": "0", "XLLM_WRITE_THEN_ATTEND": "1",
+                      "XLLM_CUDA_GRAPHS": "1"})
+    params = w.engine.params
+    w.stop()
+    del w
+    cs.free_device_memory(torch)
+    return cs.routed_cluster_phase(torch, kernels, card, params)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         cs.log("chip_phases: no CUDA device is available")
@@ -62,7 +80,13 @@ def main() -> int:
             "16": lambda: {"gemma": cs.gemma_phase(torch, kernels, card)},
             "14": lambda: {"epd": cs.epd_phase(torch, kernels, card, 0.5)},
             "15": lambda: {"obs": cs.obs_phase(torch, kernels, card)},
-            "6": lambda: {"cluster": cs.cluster_phase(torch, kernels, card)}}
+            "6": lambda: {"cluster": cs.cluster_phase(torch, kernels, card)},
+            "6b": lambda: {"cluster_cache_aware": routed(card)},
+            "10": lambda: {"pd": cs.pd_phase(torch, kernels, card, 0.5)},
+            "11": lambda: {"fetch": cs.fetch_phase(torch, kernels, card,
+                                                   0.5)},
+            "12": lambda: {"lifecycle": cs.lifecycle_phase(
+                torch, kernels, card, 0.5)}}
     for phase in phases:
         t0 = time.perf_counter()
         out.update(runs[phase]())
@@ -70,6 +94,7 @@ def main() -> int:
         cs.free_device_memory(torch)
     if "epd" in out:
         out["epd"].pop("records", None)
+    cs.guard_no_jax_modules()
     marks["total"] = time.perf_counter() - t_start
     here = Path(__file__).resolve().parents[1] / "build" / "chip_phases"
     if "--out" in sys.argv:

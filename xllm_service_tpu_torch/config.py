@@ -7,7 +7,9 @@ for one package describes the same model in the other. ``EngineConfig``
 keeps the fields this engine reads: the paged KV pool, the decode slot
 count, the prefill buckets, the step schedule and the order of the KV
 write. ``InstanceType`` is the worker's role in the cluster, as the
-JAX package names it.
+JAX package names it. ``LoadBalancePolicyType``, ``ServiceOptions`` and
+``options_from_env`` configure the service process (the master), as the
+JAX package's do, with the same fields, defaults and environment names.
 
 Standard library only.
 """
@@ -16,8 +18,15 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import json
 import os
 from typing import Any, Dict, Optional, Tuple
+
+
+class LoadBalancePolicyType(str, enum.Enum):
+    ROUND_ROBIN = "RR"
+    CACHE_AWARE = "CAR"
+    SLO_AWARE = "SLO_AWARE"
 
 
 class InstanceType(str, enum.Enum):
@@ -30,6 +39,56 @@ class InstanceType(str, enum.Enum):
     DECODE = "DECODE"
     MIX = "MIX"
     ENCODE = "ENCODE"
+
+
+@dataclasses.dataclass
+class ServiceOptions:
+    """Service-process options (reference: common/global_gflags.cpp + options.h)."""
+
+    host: str = "127.0.0.1"
+    http_port: int = 9888
+    rpc_port: int = 9889
+    num_threads: int = 32
+    max_concurrency: int = 128
+
+    etcd_addr: str = ""           # empty → in-process coordination store
+    load_balance_policy: LoadBalancePolicyType = LoadBalancePolicyType.CACHE_AWARE
+
+    block_size: int = 128          # prefix-hash granularity (tokens per KV block)
+    murmur_hash3_seed: int = 0
+
+    tokenizer_path: str = ""
+    model_id: str = ""
+
+    enable_request_trace: bool = False
+    # .jsonl: the file has always been JSON Lines (one record per line).
+    trace_path: str = "trace/trace.jsonl"
+    enable_decode_response_to_service: bool = False
+
+    # SLO routing thresholds (hot-reloadable in the reference,
+    # global_gflags.cpp:95-104).
+    target_ttft_ms: float = 1000.0
+    target_tpot_ms: float = 50.0
+
+    # End-to-end bound on one generation (RPC fan-in waits, relay reads).
+    request_timeout_s: float = 600.0
+
+    # Cluster cadences.
+    heartbeat_interval_s: float = 3.0
+    master_upload_interval_s: float = 3.0
+    detect_disconnected_instance_interval_s: float = 10.0
+
+    # Token fan-in ordering pools (reference: scheduler.h:114).
+    num_output_pools: int = 128
+
+    # Multi-model serverless allocator budget per instance, GB
+    # (reference: instance_mgr.h:143).
+    instance_memory_budget_gb: float = 60.0
+
+    def to_json(self) -> Dict[str, Any]:
+        d = dataclasses.asdict(self)
+        d["load_balance_policy"] = self.load_balance_policy.value
+        return d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -808,3 +867,29 @@ def _env_flag(name: str) -> Optional[bool]:
     if env in ("1", "true", "yes"):
         return True
     return None
+
+
+def load_json(path: str) -> Dict[str, Any]:
+    with open(path, "r", encoding="utf-8") as f:
+        return json.load(f)
+
+
+def options_from_env(**overrides: Any) -> ServiceOptions:
+    """Build ServiceOptions honoring the reference's env toggles
+    (``ENABLE_DECODE_RESPONSE_TO_SERVICE``, ``ENABLE_XLLM_DEBUG_LOG`` —
+    http_service/service.cpp:54-55, common/utils.cpp:28-41)."""
+    opts = ServiceOptions(**overrides)
+    if os.environ.get("ENABLE_DECODE_RESPONSE_TO_SERVICE", "").lower() in (
+            "1", "true", "yes"):
+        opts.enable_decode_response_to_service = True
+    raw_mc = os.environ.get("XLLM_MAX_CONCURRENCY", "").strip()
+    if raw_mc and "max_concurrency" not in overrides:
+        # Admission-gate ceiling override: the saturation harness
+        # (benchmarks/service_bench.py --saturate) spawns a master that
+        # must admit thousands of concurrent streams; there is no CLI
+        # flag for it because only benchmarks legitimately raise it.
+        try:
+            opts.max_concurrency = max(1, int(raw_mc))
+        except ValueError:
+            pass
+    return opts

@@ -1,11 +1,14 @@
-"""Structured event log: what happened to a worker, when.
+"""Structured event log: what happened to a worker or the cluster, when.
 
 A copy of the JAX package's ``obs/events.py`` ``EventLog``: a bounded,
 ordered, thread-safe ring of typed events. The worker keeps one
 (``Worker.events``, 256 events) where ``thread_crashed`` (a supervised
 thread's crash, ``utils/threads.py``), ``store_outage_open`` and
 ``store_outage_close`` (the store guard, ``service/store_guard.py``) and
-``failpoint_tripped`` land.
+``failpoint_tripped`` land. The master keeps the cluster's
+(``XLLM_EVENT_RING``, 1024 events): instance lifecycle, role flips,
+elections, redispatches, SLO breaches and watchdog anomalies, served at
+``GET /admin/events?since=<seq>`` and in ``/admin/debug_bundle``.
 
 - CLOSED taxonomy: ``EVENT_TYPES`` is the JAX package's catalogue,
   whole; ``emit()`` rejects anything else.

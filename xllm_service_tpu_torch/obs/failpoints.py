@@ -18,8 +18,9 @@ deterministically in the count and threshold modes, so a test that arms
 
 This package's worker fires every name of the catalog where the JAX
 worker fires it, the encode sites (``worker.fail_encode``,
-``worker.hang_encode``) in ``/encode``, except ``service.fail_redispatch``
-(a master's).
+``worker.hang_encode``) in ``/encode``; its master fires
+``service.fail_redispatch`` and the ``store.*`` sites of its own store
+guard where the JAX master does.
 
 Spec grammar (comma-separated entries)::
 

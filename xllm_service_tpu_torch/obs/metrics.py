@@ -1,17 +1,22 @@
-"""Metrics core of the worker: Counter / Gauge / Histogram families
+"""Metrics core of both planes: Counter / Gauge / Histogram families
 with label sets, rendered as Prometheus text.
 
-The subset of the JAX package's ``obs/metrics.py`` (and
-``obs/expfmt.quantile_from_buckets``) that this worker's ``/metrics``
-and heartbeat need, with the same exposition: ``# HELP`` / ``# TYPE``
-headers, integers without a trailing ``.0``, histograms as cumulative
-``_bucket`` series ending in ``+Inf`` with ``_sum`` and ``_count``.
-Thread-safe: one lock per registry.
+A copy of the JAX package's ``obs/metrics.py``, with
+``quantile_from_buckets`` (the JAX package keeps it in
+``obs/expfmt.py``, which imports it from here in this package). The
+exposition: ``# HELP`` / ``# TYPE`` headers, integers without a
+trailing ``.0``, histograms as cumulative ``_bucket`` series ending in
+``+Inf`` with ``_sum`` and ``_count``. Thread-safe: one lock per
+registry. Each plane owns its registry (``Worker.obs``,
+``HttpService.obs``); ``default_registry()`` serves single-plane
+callers.
 
 Two write paths coexist: live instrumentation (``Counter.inc``,
-``Histogram.observe``) for events such as engine steps, and scrape-time
-mirroring (``Gauge.set``) of state the engine owns (queue depths, KV
-usage), refreshed by the ``/metrics`` handler before it renders.
+``Histogram.observe``) for events such as engine steps or requests, and
+scrape-time mirroring (``Gauge.set``, ``Counter.set_total``) of state
+another object owns (queue depths, KV usage, per-instance load),
+refreshed by the ``/metrics`` handler before it renders. Unlike the JAX
+package's, ``set_total`` refuses a total below the series' value.
 """
 
 from __future__ import annotations
@@ -109,6 +114,20 @@ class _Family:
         for key, v in items:
             out.append(f"{self.name}{self._label_str(key)} {_fmt(v)}")
 
+    def clear(self) -> None:
+        """Drop every label set (scrape-time rebuilders: per-instance
+        gauges whose members come and go with the cluster)."""
+        with self._lock:
+            self._series.clear()
+
+    def remove(self, **labels: Any) -> None:
+        with self._lock:
+            self._series.pop(self._key(labels), None)
+
+    def value(self, **labels: Any) -> float:
+        with self._lock:
+            return float(self._series.get(self._key(labels), 0.0))
+
 
 class Counter(_Family):
     kind = "counter"
@@ -138,6 +157,14 @@ class Gauge(_Family):
         key = self._key(labels)
         with self._lock:
             self._series[key] = float(value)
+
+    def inc(self, amount: float = 1.0, **labels: Any) -> None:
+        key = self._key(labels)
+        with self._lock:
+            self._series[key] = self._series.get(key, 0.0) + amount
+
+    def dec(self, amount: float = 1.0, **labels: Any) -> None:
+        self.inc(-amount, **labels)
 
 
 class _HistogramSeries:
@@ -177,6 +204,22 @@ class Histogram(_Family):
                     break
             s.total += 1
             s.sum += v
+
+    def count(self, **labels: Any) -> int:
+        with self._lock:
+            s = self._series.get(self._key(labels))
+            return s.total if s is not None else 0
+
+    def quantile(self, q: float, **labels: Any) -> Optional[float]:
+        """Estimated q-quantile of one label set, by the same ``le``
+        interpolation as the scrape side (``quantile_from_buckets``).
+        None with no observations."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile {q} outside [0, 1]")
+        bs = self.cumulative(**labels)
+        if bs is None or bs[-1][1] == 0:
+            return None
+        return quantile_from_buckets(bs, q)
 
     def set_counts(self, counts: Sequence[int], sum_value: float,
                    total: Optional[int] = None, **labels: Any) -> None:
@@ -271,8 +314,14 @@ class Registry:
     def histogram(self, name: str, help: str = "",
                   labelnames: Sequence[str] = (),
                   buckets: Optional[Sequence[float]] = None) -> Histogram:
-        return self._get_or_create(Histogram, name, help, labelnames,
-                                   buckets=buckets)
+        fam = self._get_or_create(Histogram, name, help, labelnames,
+                                  buckets=buckets)
+        if buckets is not None and fam.buckets != tuple(
+                float(b) for b in buckets):
+            raise ValueError(
+                f"histogram {name!r} re-declared with buckets "
+                f"{tuple(buckets)} (was {fam.buckets})")
+        return fam
 
     def render(self) -> str:
         """Prometheus text exposition (version 0.0.4)."""
@@ -285,3 +334,14 @@ class Registry:
             out.append(f"# TYPE {fam.name} {fam.kind}")
             fam.render(out)
         return "\n".join(out) + "\n"
+
+
+_DEFAULT: Optional[Registry] = None
+
+
+def default_registry() -> Registry:
+    """The process-global registry of single-plane callers."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = Registry()
+    return _DEFAULT

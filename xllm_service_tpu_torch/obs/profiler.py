@@ -1,7 +1,7 @@
-"""Hot-path profiler of the worker process: what its own Python costs.
+"""Hot-path profiler of a serving process: what its own Python costs.
 
-The part of the JAX package's ``obs/profiler.py`` that a worker process
-uses, under the same names:
+A copy of the JAX package's ``obs/profiler.py``, used by the worker and
+the master under the same names:
 
 - **Hot-path sections**: a CLOSED catalog (``SECTIONS``) of named timed
   regions, recorded by ``with profiler.section("span.write"):`` into
@@ -11,7 +11,9 @@ uses, under the same names:
   bounded tail of timed events, which ``recent_events`` merges for
   ``GET /admin/steptrace``'s ``sections``. The worker's sites are
   ``span.write`` (``obs/spans.py``), ``event.emit`` (``obs/events.py``)
-  and ``sse.assemble`` (``service/response_handler.py``).
+  and ``sse.assemble`` (``service/response_handler.py``); the master's
+  add ``schedule``, ``tokenize``, ``relay.frame`` and the rest of the
+  catalog (``service/``).
 - **Lock contention**: ``utils/locks.py`` samples 1-in-N acquisitions
   (``XLLM_LOCK_PROFILE_SAMPLE``); ``flush_metrics`` mirrors the book as
   ``xllm_lock_wait_ms{lock,rank}`` / ``xllm_lock_contended_total{lock}``.
@@ -22,6 +24,10 @@ uses, under the same names:
 - **Self-gauges**: RSS, process CPU% between scrapes, live threads, and
   GC pauses through ``gc.callbacks`` (``xllm_gc_pause_ms``,
   ``xllm_gc_collections_total{generation}``).
+- **Stack sampler**: ``sample_stacks(seconds)`` drives
+  ``sys._current_frames`` at a fixed rate and returns collapsed-stack and
+  top-function tables, served by the master's ``GET
+  /admin/profile?seconds=N`` beside ``snapshot()``.
 
 ``XLLM_HOTPATH_PROFILE`` (default on) gates the section timers and
 ``XLLM_STEPTRACE`` (default on) the event tails; both are read at
@@ -36,6 +42,7 @@ from __future__ import annotations
 import collections
 import gc
 import os
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -450,3 +457,119 @@ def flush_metrics(registry) -> None:
                             labelnames=("generation",))
     for gen, n in g["collections"].items():
         gc_c.set_total(n, generation=gen)
+
+
+def _quantiles_from_counts(counts: List[int], total: int,
+                           edges: Tuple[float, ...],
+                           qs: Tuple[float, ...] = (0.5, 0.99)
+                           ) -> Dict[str, Optional[float]]:
+    from xllm_service_tpu_torch.obs.metrics import quantile_from_buckets
+    if total <= 0:
+        return {f"p{int(q * 100)}": None for q in qs}
+    bs: List[Tuple[float, float]] = []
+    cum = 0
+    for edge, c in zip(edges, counts):
+        cum += c
+        bs.append((edge, float(cum)))
+    bs.append((float("inf"), float(total)))
+    return {f"p{int(q * 100)}": quantile_from_buckets(bs, q)
+            for q in qs}
+
+
+def snapshot() -> Dict[str, Any]:
+    """The live section/contention/self tables as one JSON-ready dict —
+    what /admin/profile returns alongside the sampled stacks and what
+    the debug bundle embeds."""
+    sections: Dict[str, Any] = {}
+    for name, m in sorted(section_snapshot().items()):
+        row = {"ops": m["ops"], "sum_ms": round(m["sum_ms"], 3)}
+        row.update({
+            k: (round(v, 4) if v is not None else None)
+            for k, v in _quantiles_from_counts(
+                m["counts"], m["ops"], HOTPATH_BUCKETS_MS).items()})
+        sections[name] = row
+    lock_rows: Dict[str, Any] = {}
+    for name, b in sorted(_locks.contention_snapshot().items()):
+        row = {"rank": b["rank"], "sampled": b["sampled"],
+               "contended": b["contended"],
+               "wait_sum_ms": round(b["wait_sum_ms"], 3)}
+        row.update({
+            k: (round(v, 4) if v is not None else None)
+            for k, v in _quantiles_from_counts(
+                b["wait_counts"], b["sampled"],
+                _locks.LOCK_WAIT_BUCKETS_MS).items()})
+        lock_rows[name] = row
+    g = gc_snapshot()
+    return {
+        "enabled": ENABLED,
+        "lock_profile_sample": _locks.PROFILE_SAMPLE,
+        "sections": sections,
+        "locks": lock_rows,
+        "thread_cpu_s": {r: round(v, 3) for r, v in
+                         sorted(thread_cpu_snapshot().items())},
+        "self": {
+            "rss_bytes": process_rss_bytes(),
+            "threads": threading.active_count(),
+            "gc_collections": {str(k): v for k, v in
+                               sorted(g["collections"].items())},
+            "gc_pause_total": g["pause_total"],
+            "gc_pause_sum_ms": round(g["pause_sum_ms"], 3),
+        },
+    }
+
+
+def sample_stacks(seconds: float = 2.0, hz: float = 50.0,
+                  top: int = 30) -> Dict[str, Any]:
+    """On-demand wall-clock stack sampler: polls
+    ``sys._current_frames`` at ``hz`` for ``seconds``, aggregating
+    collapsed stacks (root;...;leaf) and leaf functions. The sampling
+    thread excludes itself. Cost is borne only while a sampling request
+    is in flight — nothing runs between requests."""
+    seconds = max(0.05, min(float(seconds), 60.0))
+    hz = max(1.0, min(float(hz), 250.0))
+    interval = 1.0 / hz
+    me = threading.get_ident()
+    stack_counts: Dict[str, int] = {}
+    func_counts: Dict[str, int] = {}
+    samples = 0
+    threads_seen = 0
+    deadline = time.monotonic() + seconds
+    while True:
+        for tid, frame in sys._current_frames().items():
+            if tid == me:
+                continue
+            names: List[str] = []
+            f = frame
+            depth = 0
+            while f is not None and depth < 64:
+                code = f.f_code
+                names.append(
+                    f"{code.co_name} "
+                    f"({os.path.basename(code.co_filename)}"
+                    f":{f.f_lineno})")
+                f = f.f_back
+                depth += 1
+            if not names:
+                continue
+            threads_seen += 1
+            collapsed = ";".join(reversed(names))
+            stack_counts[collapsed] = stack_counts.get(collapsed, 0) + 1
+            leaf = names[0]
+            func_counts[leaf] = func_counts.get(leaf, 0) + 1
+        samples += 1
+        if time.monotonic() >= deadline:
+            break
+        time.sleep(interval)
+    def _top(d: Dict[str, int], key: str) -> List[Dict[str, Any]]:
+        rows = sorted(d.items(), key=lambda kv: (-kv[1], kv[0]))[:top]
+        return [{key: k, "count": v,
+                 "share": round(v / max(1, threads_seen), 4)}
+                for k, v in rows]
+    return {
+        "seconds": seconds,
+        "hz": hz,
+        "samples": samples,
+        "thread_samples": threads_seen,
+        "top_functions": _top(func_counts, "function"),
+        "stacks": _top(stack_counts, "stack"),
+    }

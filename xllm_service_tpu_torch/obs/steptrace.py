@@ -17,7 +17,8 @@ JAX package's ``obs/steptrace.py`` for this package.
 - **Shipping**: the worker serves the ring on ``GET /admin/steptrace``
   and ships a bounded tail on every heartbeat (the sequence baseline
   commits only on an acknowledged beat, so an undelivered tail is sent
-  again); the reference master merges them into ``/admin/timeline``.
+  again); the master's ``StepBooks`` holds the last records per instance
+  for the cluster-merged ``/admin/timeline`` (``obs/timeline.py``).
 
 ``XLLM_STEPTRACE`` (default on) and ``XLLM_STEPTRACE_RING`` (default
 512) are read once at import; with the flag off the worker's recording
@@ -171,6 +172,43 @@ class StepTrace:
     def __len__(self) -> int:
         with self._lock:
             return len(self._ring)
+
+
+class StepBooks:
+    """Master-side per-instance step-record books, fed by heartbeat
+    tails (``Heartbeat.steps``) — the fallback source for the merged
+    timeline when a worker's ``/admin/steptrace`` pull fails. Bounded
+    per instance; an instance's book is replaced record-by-record in
+    seq order (re-shipped tails dedupe on seq)."""
+
+    def __init__(self, per_instance: int = 256) -> None:
+        self._cap = per_instance
+        self._books: Dict[str, Deque[Dict[str, Any]]] = {}
+        self._lock = make_lock("obs.stepbooks", 86)
+
+    def ingest(self, instance: str, records: List[Dict[str, Any]]) -> None:
+        if not records:
+            return
+        with self._lock:
+            book = self._books.get(instance)
+            if book is None:
+                book = self._books[instance] = collections.deque(
+                    maxlen=self._cap)
+            have = {r.get("seq") for r in book}
+            for r in records:
+                if isinstance(r, dict) and r.get("seq") not in have:
+                    book.append(r)
+
+    def tail(self, instance: str, n: int = 0) -> List[Dict[str, Any]]:
+        with self._lock:
+            book = self._books.get(instance)
+            recs = [dict(r) for r in book] if book else []
+        recs.sort(key=lambda r: r.get("seq", 0))
+        return recs[-n:] if n > 0 else recs
+
+    def instances(self) -> List[str]:
+        with self._lock:
+            return sorted(self._books)
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from xllm_service_tpu_torch.utils.hashing import murmur3_x64_128_py
+from xllm_service_tpu_torch.utils.hashing import image_digest  # noqa: F401 — the master derives it too
 
 # The chat template's image placeholder (the JAX package's
 # ``nlp/chat_template.IMAGE_PLACEHOLDER``).
@@ -138,23 +138,6 @@ def mrope_positions(token_ids: Sequence[int], image_token: int,
             base += 1
             pos += 1
     return out, base - T
-
-
-def image_digest(spec: Any, seed: int = 0) -> str:
-    """Content digest of one ``mm_inputs`` descriptor (hex, 128-bit
-    murmur3 over the descriptor's bytes, not the decoded pixels): the key
-    of the encode plane's embedding cache and of the master's cache-hit
-    term, which both derive it from the same descriptor."""
-    if isinstance(spec, dict) and spec.get("type") in ("image", "video"):
-        spec = spec.get("data")
-    if isinstance(spec, str):
-        payload = spec.encode("utf-8")
-    elif isinstance(spec, dict) and "pixels_b64" in spec:
-        payload = (str(spec.get("shape")).encode("ascii") + b"|"
-                   + spec["pixels_b64"].encode("ascii"))
-    else:
-        payload = repr(spec).encode("utf-8", "replace")
-    return murmur3_x64_128_py(payload, seed).hex()
 
 
 def embeds_raw_meta(embeds: np.ndarray) -> Dict[str, Any]:

@@ -1,17 +1,19 @@
-"""Coordination store: the etcd-shaped metadata plane, as a worker
-sees it.
+"""Coordination store: the etcd-shaped metadata plane.
 
-A copy of the part of the JAX package's ``service/coordination.py``
-interface and in-process store that a worker uses: keys, TTL leases and
+A copy of the JAX package's ``service/coordination.py``: keys, TTL
+leases, ``compare_create`` transactions (the master's election) and
 prefix watches.
-``InMemoryStore`` serves a worker that runs without a shared store
-(``--store-addr ''``); ``coordination_net.RemoteStore`` reaches the
-JAX package's ``StoreServer``, which masters and workers of both
-packages share.
+``InMemoryStore`` serves a process that runs without a shared store
+(a worker with ``--store-addr ''``, a master with ``--etcd-addr ''``)
+and backs ``coordination_net.StoreServer``, which serves it over
+HTTP/JSON to the masters and workers of both packages
+(``coordination_net.RemoteStore``); ``etcd_store.EtcdStore`` speaks
+etcd's v3 JSON gateway.
 
 Key schema kept from the reference (instance_mgr.cpp:34-41,
-scheduler.cpp:25): ``XLLM:{DEFAULT,PREFILL,DECODE,MIX,ENCODE}:<name>``
-for registrations and ``XLLM:SERVICE:ADDR`` for the master's address.
+scheduler.cpp:25): ``XLLM:{DEFAULT,PREFILL,DECODE,MIX,ENCODE}:<name>``,
+``XLLM:LOADMETRICS:``, ``XLLM:CACHE:``, ``XLLM:SERVICE:MASTER``, and
+``XLLM:SERVICE:ADDR`` for the master's address.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import json
 import queue
 import threading
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from xllm_service_tpu_torch.utils import threads
 
@@ -33,6 +35,15 @@ WatchCallback = Callable[[WatchEvent], None]
 # written under the master's lease. Workers watch this key so heartbeats
 # and generation pushes follow a replica takeover.
 KEY_MASTER_ADDR = "XLLM:SERVICE:ADDR"
+KEY_MASTER = "XLLM:SERVICE:MASTER"
+KEY_LOADMETRICS = "XLLM:LOADMETRICS:"
+KEY_CACHE = "XLLM:CACHE:"
+# Fenced master epochs: each election mints XLLM:SERVICE:EPOCH:<n> via
+# compare_create with NO lease. The keys are a monotonic ledger that
+# survives master death, so a deposed master healing from a partition
+# finds a higher epoch and demotes itself instead of serving beside the
+# new leader.
+KEY_EPOCH_PREFIX = "XLLM:SERVICE:EPOCH:"
 
 
 def instance_prefix(instance_type: str) -> str:
@@ -53,6 +64,12 @@ class CoordinationStore(abc.ABC):
     def get_prefix(self, prefix: str) -> Dict[str, str]: ...
 
     @abc.abstractmethod
+    def delete(self, key: str) -> bool: ...
+
+    @abc.abstractmethod
+    def delete_prefix(self, prefix: str) -> int: ...
+
+    @abc.abstractmethod
     def lease_grant(self, ttl_s: float) -> int: ...
 
     @abc.abstractmethod
@@ -60,6 +77,12 @@ class CoordinationStore(abc.ABC):
 
     @abc.abstractmethod
     def lease_revoke(self, lease_id: int) -> None: ...
+
+    @abc.abstractmethod
+    def compare_create(self, key: str, value: str,
+                       lease_id: Optional[int] = None) -> bool:
+        """Atomically create ``key`` iff absent (leader-election txn,
+        reference etcd_client.cpp:47-62). True iff this caller created it."""
 
     @abc.abstractmethod
     def add_watch(self, prefix: str, callback: WatchCallback) -> int: ...
@@ -75,6 +98,9 @@ class CoordinationStore(abc.ABC):
         v = self.get(key)
         return None if v is None else json.loads(v)
 
+    def get_prefix_json(self, prefix: str) -> Dict[str, Any]:
+        return {k: json.loads(v) for k, v in self.get_prefix(prefix).items()}
+
     def close(self) -> None:
         pass
 
@@ -83,8 +109,10 @@ class InMemoryStore(CoordinationStore):
     """Thread-safe in-process store with leases, revisions and watches.
 
     A sweeper thread expires leases: expiry deletes every key attached to
-    the lease and fires DELETE watch events. Watch callbacks run on one
-    dispatcher thread, in revision order."""
+    the lease and fires DELETE watch events (how the master learns of a
+    dead worker or a dead master). Watch callbacks run on one dispatcher
+    thread, in revision order. A bounded event log serves the long-poll
+    watchers of ``coordination_net.StoreServer`` (``events_since``)."""
 
     def __init__(self, sweep_interval_s: float = 0.05) -> None:
         self._lock = threading.RLock()
@@ -96,20 +124,33 @@ class InMemoryStore(CoordinationStore):
         self._next_watch = 1
         self._watches: Dict[int, Tuple[str, WatchCallback]] = {}
         self.revision = 0
+        self._events: List[Tuple[int, WatchEvent]] = []
+        self._events_cv = threading.Condition(self._lock)
+        self._max_events = 65536
         self._closed = threading.Event()
         self._dispatch_q: "queue.Queue" = queue.Queue()
-        threads.spawn("coord.dispatch", self._dispatch_loop).start()
+        # Restarted with backoff after a crash, as the JAX store's: the
+        # queue and the lease books outlive a restart.
+        threads.spawn("coord.dispatch", self._dispatch_loop,
+                      thread_name="coord-dispatch",
+                      restart=threads.RESTART_POLICY).start()
         threads.spawn("coord.sweep", self._sweep_loop,
-                      args=(sweep_interval_s,)).start()
+                      args=(sweep_interval_s,), thread_name="coord-sweeper",
+                      restart=threads.RESTART_POLICY).start()
 
     # -- internal ---------------------------------------------------------
     def _emit(self, ev_type: str, key: str, value: Optional[str]) -> None:
         """Caller holds the lock."""
         self.revision += 1
+        ev = (ev_type, key, value)
+        self._events.append((self.revision, ev))
+        if len(self._events) > self._max_events:
+            del self._events[: self._max_events // 2]
         callbacks = [cb for pfx, cb in self._watches.values()
                      if key.startswith(pfx)]
+        self._events_cv.notify_all()
         if callbacks:
-            self._dispatch_q.put((callbacks, (ev_type, key, value)))
+            self._dispatch_q.put((callbacks, ev))
 
     def _dispatch_loop(self) -> None:
         while True:
@@ -168,6 +209,17 @@ class InMemoryStore(CoordinationStore):
             return {k: v for k, v in self._data.items()
                     if k.startswith(prefix)}
 
+    def delete(self, key: str) -> bool:
+        with self._lock:
+            return self._delete_locked(key)
+
+    def delete_prefix(self, prefix: str) -> int:
+        with self._lock:
+            keys = [k for k in self._data if k.startswith(prefix)]
+            for k in keys:
+                self._delete_locked(k)
+            return len(keys)
+
     def lease_grant(self, ttl_s: float) -> int:
         with self._lock:
             lid = self._next_lease
@@ -188,6 +240,14 @@ class InMemoryStore(CoordinationStore):
         with self._lock:
             self._revoke_locked(lease_id)
 
+    def compare_create(self, key: str, value: str,
+                       lease_id: Optional[int] = None) -> bool:
+        with self._lock:
+            if key in self._data:
+                return False
+            self.put(key, value, lease_id)
+            return True
+
     def add_watch(self, prefix: str, callback: WatchCallback) -> int:
         with self._lock:
             wid = self._next_watch
@@ -198,6 +258,29 @@ class InMemoryStore(CoordinationStore):
     def cancel_watch(self, watch_id: int) -> None:
         with self._lock:
             self._watches.pop(watch_id, None)
+
+    # -- long-poll support (used by StoreServer) --------------------------
+    def events_since(self, rev: int, prefix: str,
+                     timeout_s: float = 10.0
+                     ) -> Tuple[int, List[WatchEvent]]:
+        """Block until an event with revision > ``rev`` under ``prefix``
+        exists (or timeout). Returns (latest_revision, matching events)."""
+        deadline = time.monotonic() + timeout_s
+        with self._events_cv:
+            while True:
+                evs = [e for r, e in self._events
+                       if r > rev and e[1].startswith(prefix)]
+                if evs:
+                    return self.revision, evs
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return self.revision, []
+                self._events_cv.wait(remaining)
+
+    @property
+    def oldest_retained_revision(self) -> int:
+        with self._lock:
+            return self._events[0][0] if self._events else self.revision + 1
 
     def close(self) -> None:
         self._closed.set()

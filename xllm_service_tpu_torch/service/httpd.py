@@ -461,23 +461,29 @@ _SEND_ERRORS = (http.client.CannotSendRequest, ConnectionResetError,
                 BrokenPipeError)
 
 
-def _body(obj: Any, raw: Optional[bytes]
+def _body(obj: Any, raw: Optional[bytes],
+          headers: Optional[Dict[str, str]] = None
           ) -> Tuple[Optional[bytes], Dict[str, str]]:
     """A request's body and headers: ``raw`` as an octet stream, else
-    ``obj`` as JSON."""
+    ``obj`` as JSON, with ``headers`` added."""
     if raw is not None:
-        return raw, {"Content-Type": "application/octet-stream"}
-    body = None if obj is None else json.dumps(obj).encode("utf-8")
-    return body, {"Content-Type": "application/json"}
+        body, hdrs = raw, {"Content-Type": "application/octet-stream"}
+    else:
+        body = None if obj is None else json.dumps(obj).encode("utf-8")
+        hdrs = {"Content-Type": "application/json"}
+    if headers:
+        hdrs.update(headers)
+    return body, hdrs
 
 
 def http_json(method: str, address: str, path: str, obj: Any = None,
               timeout: float = 30.0,
-              raw: Optional[bytes] = None) -> Tuple[int, Any]:
+              raw: Optional[bytes] = None,
+              headers: Optional[Dict[str, str]] = None) -> Tuple[int, Any]:
     """One request to ``address`` ("host:port") over a pooled keep-alive
-    connection, its body ``obj`` as JSON or ``raw`` bytes. Returns
-    (status, parsed-json-or-None)."""
-    body, hdrs = _body(obj, raw)
+    connection, its body ``obj`` as JSON or ``raw`` bytes, ``headers``
+    added. Returns (status, parsed-json-or-None)."""
+    body, hdrs = _body(obj, raw, headers)
     while True:
         conn, reused = _get_conn(address, timeout)
         try:
@@ -514,14 +520,15 @@ def http_json(method: str, address: str, path: str, obj: Any = None,
 
 def http_stream_status(method: str, address: str, path: str,
                        obj: Any = None, timeout: float = 600.0,
-                       raw: Optional[bytes] = None
+                       raw: Optional[bytes] = None,
+                       headers: Optional[Dict[str, str]] = None
                        ) -> Tuple[int, "_StreamBody"]:
     """Connect eagerly and return (status, body iterator) on a fresh
     connection, so that a caller can act on the status before it reads
     the body. The caller exhausts or closes the iterator."""
     conn = _NoDelayHTTPConnection(address, timeout=timeout)
     try:
-        body, hdrs = _body(obj, raw)
+        body, hdrs = _body(obj, raw, headers)
         conn.request(method, path, body=body, headers=hdrs)
         resp = conn.getresponse()
     except Exception:
@@ -555,11 +562,12 @@ class _StreamBody:
 
 def http_stream(method: str, address: str, path: str, obj: Any = None,
                 timeout: float = 600.0,
-                raw: Optional[bytes] = None) -> Iterator[bytes]:
+                raw: Optional[bytes] = None,
+                headers: Optional[Dict[str, str]] = None) -> Iterator[bytes]:
     """The response body's chunks as they arrive (``raw`` sends an
     octet-stream body instead of JSON: the KV handoff's payloads)."""
     _, body = http_stream_status(method, address, path, obj=obj,
-                                 timeout=timeout, raw=raw)
+                                 timeout=timeout, raw=raw, headers=headers)
     yield from body
 
 

@@ -1,10 +1,11 @@
-"""Instance-plane value types: the registration record and the
-heartbeat with its load and latency metrics.
+"""Instance-plane value types: the registration record, the heartbeat
+with its load and latency metrics, and the master's per-instance request
+ledger.
 
 A copy of the JAX package's ``service/instance_types.py``
 (``InstanceMetaInfo``, ``LoadMetrics``, ``LatencyMetrics``,
-``Heartbeat``), so the service reads this worker's registration and
-heartbeats as it reads the JAX worker's. They cross the coordination
+``Heartbeat``, ``RequestMetrics``, ``RequestPhase``), so a master reads
+this worker's registration and heartbeats as it reads the JAX worker's. They cross the coordination
 store and the heartbeat RPC as JSON.
 """
 
@@ -177,6 +178,119 @@ class LatencyMetrics:
             return cls()
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclasses.dataclass
+class Heartbeat:
+    """Wire form of one worker heartbeat (xllm_rpc_service.proto
+    HeartbeatRequest)."""
+
+    name: str = ""
+    instance_type: InstanceType = InstanceType.DEFAULT
+    load: LoadMetrics = dataclasses.field(default_factory=LoadMetrics)
+    latency: LatencyMetrics = dataclasses.field(default_factory=LatencyMetrics)
+    # Prefix-cache delta: hex digests stored/removed since last beat.
+    # ``cache_offloaded`` = spilled HBM→host-DRAM (still servable from
+    # this worker, one tier down); ``cache_offloaded_ssd`` = demoted
+    # DRAM→disk — the deltas that make the cluster index's DRAM/SSD
+    # tier slots real (docs/KV_CACHE.md).
+    cache_stored: List[str] = dataclasses.field(default_factory=list)
+    cache_removed: List[str] = dataclasses.field(default_factory=list)
+    cache_offloaded: List[str] = dataclasses.field(default_factory=list)
+    cache_offloaded_ssd: List[str] = dataclasses.field(
+        default_factory=list)
+    # EPD embedding-cache delta (docs/EPD.md): hex image digests whose
+    # encoded embeddings this worker gained/evicted since the last
+    # beat. The instance manager folds them into its per-instance
+    # digest books so the cost-aware encode pick can credit cache hits.
+    embed_stored: List[str] = dataclasses.field(default_factory=list)
+    embed_removed: List[str] = dataclasses.field(default_factory=list)
+    # Per-model sleep/wake state for the serverless layer.
+    model_states: Dict[str, str] = dataclasses.field(default_factory=dict)
+    # Finished request-span timelines since the last beat
+    # ([{"request_id", "attrs", "events": [...]}], obs/spans.py): the
+    # service merges them into its span ring under the same correlation
+    # id, so /admin/trace/<id> shows worker-side stages too.
+    spans: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
+    # Step flight-recorder tail since the last delivered beat
+    # (obs/steptrace.py STEP_FIELDS records): the master's StepBooks
+    # dedupe on seq, so a re-shipped tail after a failed beat is safe.
+    steps: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
+    timestamp: float = dataclasses.field(default_factory=time.time)
+
+    def to_json(self) -> Dict[str, Any]:
+        return {
+            "name": self.name,
+            "instance_type": self.instance_type.value,
+            "load": self.load.to_json(),
+            "latency": self.latency.to_json(),
+            "cache_stored": self.cache_stored,
+            "cache_removed": self.cache_removed,
+            "cache_offloaded": self.cache_offloaded,
+            "cache_offloaded_ssd": self.cache_offloaded_ssd,
+            "embed_stored": self.embed_stored,
+            "embed_removed": self.embed_removed,
+            "model_states": self.model_states,
+            "spans": self.spans,
+            "steps": self.steps,
+            "timestamp": self.timestamp,
+        }
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any]) -> "Heartbeat":
+        try:
+            itype = InstanceType(d.get("instance_type", "DEFAULT"))
+        except ValueError:
+            itype = InstanceType.DEFAULT
+        return cls(
+            name=d.get("name", ""),
+            instance_type=itype,
+            load=LoadMetrics.from_json(d.get("load")),
+            latency=LatencyMetrics.from_json(d.get("latency")),
+            cache_stored=list(d.get("cache_stored", [])),
+            cache_removed=list(d.get("cache_removed", [])),
+            cache_offloaded=list(d.get("cache_offloaded", [])),
+            cache_offloaded_ssd=list(d.get("cache_offloaded_ssd", [])),
+            embed_stored=list(d.get("embed_stored", [])),
+            embed_removed=list(d.get("embed_removed", [])),
+            model_states=dict(d.get("model_states", {})),
+            spans=list(d.get("spans", [])),
+            steps=list(d.get("steps", [])),
+            timestamp=d.get("timestamp", time.time()),
+        )
+
+
+@dataclasses.dataclass
+class RequestMetrics:
+    """Service-side in-flight ledger per instance (types.h:138-155,
+    maintained like instance_mgr.cpp:745-817): what the SLO policy uses to
+    estimate prefill backlog and decode load."""
+
+    num_prefill_requests: int = 0
+    num_prefill_tokens: int = 0
+    num_decode_requests: int = 0
+    num_decode_tokens: int = 0
+    estimated_prefill_time_ms: float = 0.0
+    estimated_ttft_ms: float = 0.0
+
+    def to_json(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+class RequestPhase:
+    """Request-metrics transition points (reference update_request_metrics
+    call sites: SCHEDULE scheduler.cpp:127, PREFILL_FINISH :183-202,
+    GENERATE :345, FINISH_DECODE/CANCEL :304-327)."""
+
+    SCHEDULE = "schedule"
+    # Exact reversal of SCHEDULE — used when a scheduled request is
+    # re-dispatched to another instance before any work happened (the
+    # failed instance must not keep phantom prefill backlog).
+    UNSCHEDULE = "unschedule"
+    PREFILL_FINISH = "prefill_finish"
+    GENERATE = "generate"
+    FINISH_DECODE = "finish_decode"
+    CANCEL = "cancel"
 
 
 @dataclasses.dataclass

@@ -1,7 +1,7 @@
 """Store guard: deadlined health tracking around the coordination store.
 
-A copy of the JAX package's ``service/store_guard.py``. The worker
-wraps its store in a ``StoreGuard``; every ``CoordinationStore`` call
+A copy of the JAX package's ``service/store_guard.py``. The worker and
+the master wrap their store in a ``StoreGuard``; every ``CoordinationStore`` call
 goes through ``_call``, which
 
 - fires the catalog's ``store.*`` failpoints (``store.fail_rpc``,
@@ -17,12 +17,14 @@ goes through ``_call``, which
   watch events, as a client cut off from the store hears nothing;
 - on the down -> healthy transition runs the heal callbacks
   synchronously, before the healing call returns;
-- fences writes: when the owner installed ``fence_check`` and it returns
-  True, a write raises ``EpochFencedError``.
+- fences writes (``put``, ``delete``, ``delete_prefix`` and the
+  election's ``compare_create``): when the owner (the master's scheduler)
+  installed ``fence_check`` and it returns True, a write raises
+  ``EpochFencedError`` instead of serving beside a newer master.
 
-Its surface is this package's ``CoordinationStore`` (no ``delete`` or
-``compare_create``: a worker never calls them), so ``put`` is the one
-fenced write.
+Liveness during an outage is judged by the direct worker -> master
+heartbeats that keep flowing: the guard only decides what the store is
+allowed to tell its client, never who is alive.
 
 ``StoreOutageError`` is this package's one outage class: the guard
 raises it, and so does ``coordination_net.RemoteStore`` for a call the
@@ -233,6 +235,13 @@ class StoreGuard(CoordinationStore):
     def get_prefix(self, prefix: str) -> Dict[str, str]:
         return self._call("get_prefix", self.inner.get_prefix, prefix)
 
+    def delete(self, key: str) -> bool:
+        return self._write("delete", self.inner.delete, key)
+
+    def delete_prefix(self, prefix: str) -> int:
+        return self._write("delete_prefix", self.inner.delete_prefix,
+                           prefix)
+
     def lease_grant(self, ttl_s: float) -> int:
         return self._call("lease_grant", self.inner.lease_grant, ttl_s)
 
@@ -242,6 +251,13 @@ class StoreGuard(CoordinationStore):
 
     def lease_revoke(self, lease_id: int) -> None:
         self._call("lease_revoke", self.inner.lease_revoke, lease_id)
+
+    def compare_create(self, key: str, value: str,
+                       lease_id: Optional[int] = None) -> bool:
+        # The election's transaction is fenced like a write: a deposed
+        # master must not take any key while behind the cluster's epoch.
+        return self._write("compare_create", self.inner.compare_create,
+                           key, value, lease_id)
 
     def add_watch(self, prefix: str, callback: WatchCallback) -> int:
         def guarded(event) -> None:

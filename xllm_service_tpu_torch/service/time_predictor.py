@@ -1,14 +1,16 @@
-"""The worker's profiling mode: TTFT/TPOT samples measured on the live
-engine for its registration.
+"""TTFT/TPOT latency predictors for SLO-aware routing, and the worker's
+profiling mode that feeds them.
 
-A copy of ``profile_engine`` from the JAX package's
-``service/time_predictor.py``: the same prompt lengths, batches, request
-ids and sampling, so that a port worker's ``ttft_profiling_data`` /
-``tpot_profiling_data`` have the JAX worker's shape. The master fits each
-instance's latency predictor from them (a degree-2 TTFT polynomial in
-the prompt length, a linear TPOT model in the batch and its context);
-the predictor itself belongs to the service plane, which this package
-does not carry.
+A copy of the JAX package's ``service/time_predictor.py``.
+``TimePredictor`` (reference ``common/time_predictor.{h,cpp}``) is the
+master's per-instance model: a degree-2 polynomial TTFT fit over the
+prompt length and a linear TPOT model ``c0 + c1*batch +
+c2*batch*(seq_len-1)``, both numpy least squares. ``profile_engine``
+measures the samples on the live engine for a worker's registration
+(the same prompt lengths, batches, request ids and sampling as the JAX
+worker's). The module imports no engine at import time: the engine is
+imported inside ``profile_engine``, so the master, which loads only the
+predictor, touches no device.
 """
 
 from __future__ import annotations
@@ -16,7 +18,76 @@ from __future__ import annotations
 import time
 from typing import List, Sequence, Tuple
 
+import numpy as np
+
 from xllm_service_tpu_torch.utils.types import SamplingParams
+
+
+class TimePredictor:
+    """Per-instance latency model fit from registration profiling data."""
+
+    def __init__(self) -> None:
+        self._ttft_coef: np.ndarray | None = None      # [c0, c1, c2]
+        self._tpot_coef: np.ndarray | None = None      # [c0, c1, c2]
+
+    @property
+    def has_ttft(self) -> bool:
+        return self._ttft_coef is not None
+
+    @property
+    def has_tpot(self) -> bool:
+        return self._tpot_coef is not None
+
+    def fit_ttft(self, samples: Sequence[Tuple[float, float]]) -> bool:
+        """samples: [(num_prompt_tokens, ttft_ms)]; fits
+        ttft ≈ c0 + c1*n + c2*n²."""
+        if len(samples) < 3:
+            return False
+        n = np.asarray([s[0] for s in samples], np.float64)
+        y = np.asarray([s[1] for s in samples], np.float64)
+        A = np.stack([np.ones_like(n), n, n * n], axis=1)
+        self._ttft_coef, *_ = np.linalg.lstsq(A, y, rcond=None)
+        return True
+
+    def fit_tpot(self,
+                 samples: Sequence[Tuple[float, float, float]]) -> bool:
+        """samples: [(batch, seq_len, tpot_ms)]; fits
+        tpot ≈ c0 + c1*batch + c2*batch*(seq_len-1)."""
+        if len(samples) < 3:
+            return False
+        b = np.asarray([s[0] for s in samples], np.float64)
+        t = np.asarray([s[1] for s in samples], np.float64)
+        y = np.asarray([s[2] for s in samples], np.float64)
+        A = np.stack([np.ones_like(b), b, b * (t - 1.0)], axis=1)
+        self._tpot_coef, *_ = np.linalg.lstsq(A, y, rcond=None)
+        return True
+
+    def predict_ttft(self, num_tokens: int) -> float:
+        if self._ttft_coef is None:
+            return 0.0
+        c = self._ttft_coef
+        return float(c[0] + c[1] * num_tokens + c[2] * num_tokens ** 2)
+
+    def predict_tpot(self, total_tokens: int, num_requests: int) -> float:
+        """Predicted per-token latency with ``num_requests`` decoding and
+        ``total_tokens`` total context across them (reference call shape:
+        instance_mgr.cpp:849-877)."""
+        if self._tpot_coef is None:
+            return 0.0
+        c = self._tpot_coef
+        b = float(max(num_requests, 1))
+        mean_len = float(total_tokens) / b
+        return float(c[0] + c[1] * b + c[2] * b * (mean_len - 1.0))
+
+    @classmethod
+    def from_profiling(cls, ttft: Sequence[Tuple[float, float]],
+                       tpot: Sequence[Tuple[float, float, float]]
+                       ) -> "TimePredictor":
+        p = cls()
+        p.fit_ttft(ttft)
+        p.fit_tpot(tpot)
+        return p
+
 
 
 def profile_engine(engine, prompt_lens: Sequence[int] = (32, 64, 128),

@@ -17,7 +17,7 @@ import ctypes
 import os
 import struct
 import subprocess
-from typing import List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 from xllm_service_tpu_torch.utils.locks import make_lock
 
@@ -151,6 +151,9 @@ def _load_native() -> Optional[ctypes.CDLL]:
             return None
         try:
             lib = ctypes.CDLL(so)
+            lib.xllm_murmur3_x64_128.argtypes = [
+                ctypes.c_void_p, ctypes.c_int32, ctypes.c_uint32,
+                ctypes.c_void_p]
             lib.xllm_prefix_block_hashes.argtypes = [
                 ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
                 ctypes.c_int32, ctypes.c_uint32, ctypes.c_void_p]
@@ -163,6 +166,15 @@ def _load_native() -> Optional[ctypes.CDLL]:
 
 def native_available() -> bool:
     return _load_native() is not None
+
+
+def murmur3_x64_128(data: bytes, seed: int = 0) -> bytes:
+    lib = _load_native()
+    if lib is None:
+        return murmur3_x64_128_py(data, seed)
+    out = ctypes.create_string_buffer(16)
+    lib.xllm_murmur3_x64_128(data, len(data), seed & 0xFFFFFFFF, out)
+    return out.raw
 
 
 def _as_i32(t: int) -> int:
@@ -202,3 +214,29 @@ def prefix_block_hashes(tokens: Sequence[int], block_size: int,
     lib.xllm_prefix_block_hashes(arr, n, block_size, seed & 0xFFFFFFFF, buf)
     raw = buf.raw
     return [raw[i * 16:(i + 1) * 16] for i in range(n_blocks)]
+
+
+def prompt_digest(tokens: Sequence[int], seed: int = 0) -> str:
+    """Whole-prompt content digest (hex) for the master's poison ledger:
+    unlike ``prefix_block_hashes`` it covers the trailing partial block
+    too, so two prompts quarantine together iff they are token-identical.
+    The same int32 packing as the block hashes."""
+    data = struct.pack(f"<{len(tokens)}i", *[_as_i32(t) for t in tokens])
+    return murmur3_x64_128(data, seed).hex()
+
+
+def image_digest(spec: Any, seed: int = 0) -> str:
+    """Content digest of one ``mm_inputs`` descriptor (hex, 128-bit
+    murmur3 over the descriptor's bytes, not the decoded pixels): the key
+    of the encode plane's embedding cache and of the master's cache-hit
+    term, which both derive it from the same descriptor."""
+    if isinstance(spec, dict) and spec.get("type") in ("image", "video"):
+        spec = spec.get("data")
+    if isinstance(spec, str):
+        payload = spec.encode("utf-8")
+    elif isinstance(spec, dict) and "pixels_b64" in spec:
+        payload = (str(spec.get("shape")).encode("ascii") + b"|"
+                   + spec["pixels_b64"].encode("ascii"))
+    else:
+        payload = repr(spec).encode("utf-8", "replace")
+    return murmur3_x64_128_py(payload, seed).hex()

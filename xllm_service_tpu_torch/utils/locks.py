@@ -1,7 +1,8 @@
 """Named, ranked locks: the lock-order check and its contention sampler.
 
 A copy of the JAX package's ``utils/locks.py``. Every lock of this
-package's worker carries a NAME and a RANK from the table below. With
+package's worker and master carries a NAME and a RANK from the table
+below. With
 ``XLLM_LOCK_CHECK`` on (the test suite sets it in ``tests/conftest.py``)
 a thread may only acquire a lock whose rank is STRICTLY GREATER than
 every lock it already holds; equal ranks mean "never held together".
@@ -19,6 +20,9 @@ keeps its rank there; the rest are this package's own, each with why:
                             dispatch (worker.live) and its records, and
                             by /sleep and /wakeup before worker.engine
     10  worker.live         request registries
+    10  scheduler.req       the master's request table + in-flight count
+    11  service.poison      the master's poison ledger (taken under
+                            scheduler.req on the fault path)
     20  worker.engine       engine step / submit, the vision tower's run
     22  kv_cache.tier       host spill tier (never calls out; taken under
                             worker.engine)
@@ -26,21 +30,31 @@ keeps its rank there; the rest are this package's own, each with why:
                             releases happen outside)
     27  worker.kvchunk      this package only: the decode side's staged
                             /kv/chunk parts (dict only, never calls out)
+    30  instance_mgr        the master's instance books (takes
+                            kvcache_mgr and store locks inside)
+    35  kvcache_mgr         the master's prefix-cache index
     60  coordination_net,   store transports (watch books only)
         etcd.watches
     74  store_guard         store-health state machine (never held
                             across an inner store call, a heal callback
                             or an event emit)
     75  obs.failpoints      arming state (trips are counted outside)
-    80  obs.events          the worker's event ring (never calls out)
+    78  obs.slo             the master's SLO burn-rate books
+    79  obs.watchdog        the master's anomaly detector books
+    80  obs.events          the event ring (never calls out)
     85  obs.steptrace       step flight-recorder ring (never calls out)
+    86  obs.stepbooks       the master's per-instance step tails
     87  worker.embedcache   embedding cache and the beat's digest deltas
                             (the tower runs outside it)
+    88  scheduler.elect     the master's election and epoch state
     89  worker.addr         master address + config-stale pair
     90  worker.vision       the tower's one-time build
     90  worker.flip         this package only: the count of sleeps and
                             wakes waiting for worker.loop (taken under
                             it; a counter, never calls out)
+    90  misc.pool           the fan-in pools' request assignment
+    90  tracer              the master's request-trace file
+    91  misc.counter        AtomicCounter
     92  httpd.connpool      keep-alive pool dict only
     93  obs.registry        metrics families (never calls out)
     94  obs.spans           span ring (never calls out)
@@ -48,6 +62,7 @@ keeps its rank there; the rest are this package's own, each with why:
     95  hashing.native      the native hashing library's load
     97  kernels.build       this package only: the one-time nvcc build of
                             the CUDA kernels (like etcd_native.build)
+    97  etcd_native.build   the one-time g++ build of the native etcd
 
 Left raw on purpose: ``InMemoryStore``'s re-entrant lock (as the JAX
 store's, its own single-class discipline) and ``runtime/kv_wire.py``'s
@@ -131,6 +146,12 @@ def _record_wait(name: str, rank: int, wait_ms: float,
                 b.wait_counts[i] += 1
                 break
         b.wait_sum_ms += wait_ms
+
+
+def reset_contention() -> None:
+    """Test helper: drop the book (module state is process-global)."""
+    with _books_lock:
+        _books.clear()
 
 
 def contention_snapshot() -> Dict[str, Dict[str, object]]:

@@ -5,15 +5,25 @@ exponential backoff with full jitter (a fleet of workers retrying a
 restarted master spreads over [0, delay] instead of synchronizing on the
 backoff boundary), a per-use attempt budget, a delay cap and
 stop-event-aware sleeping. Registration retries with it at boot, and
-heartbeat sends back off with it while the master does not answer.
+heartbeat sends back off with it while the master does not answer; the
+master's relay and recovery paths read theirs from the environment
+(``from_env``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import random
 import time
 from typing import Optional
+
+
+def _as_float(raw: str, default: float) -> float:
+    try:
+        return float(raw) if raw else default
+    except ValueError:
+        return default
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +37,24 @@ class RetryPolicy:
     max_delay_s: float = 2.0
     multiplier: float = 2.0
     jitter: float = 0.5          # fraction of each delay randomized away
+
+    @classmethod
+    def from_env(cls, **defaults) -> "RetryPolicy":
+        """The serving-path policy: ``XLLM_RETRY_ATTEMPTS`` /
+        ``XLLM_RETRY_BASE_MS`` / ``XLLM_RETRY_MAX_MS`` over per-call-site
+        defaults."""
+        base = cls(**defaults)
+        return dataclasses.replace(
+            base,
+            max_attempts=int(_as_float(
+                os.environ.get("XLLM_RETRY_ATTEMPTS", ""),
+                base.max_attempts)),
+            base_delay_s=_as_float(
+                os.environ.get("XLLM_RETRY_BASE_MS", ""),
+                base.base_delay_s * 1e3) / 1e3,
+            max_delay_s=_as_float(
+                os.environ.get("XLLM_RETRY_MAX_MS", ""),
+                base.max_delay_s * 1e3) / 1e3)
 
     def delay(self, attempt: int) -> float:
         """The (jittered) delay before retry ``attempt`` (0-based)."""

@@ -1,10 +1,11 @@
-"""Request/response value types of the worker: sampling parameters,
-finish reasons and the per-step output records the OpenAI assemblers
-consume and the RPC topology pushes to the service.
+"""Request/response value types shared by the service and the worker:
+sampling parameters, finish reasons, the per-step output records the
+OpenAI assemblers consume and the RPC topology pushes to the service,
+and the master's request record with its routing decision.
 
-A copy of the JAX package's ``utils/types.py`` subset that the worker
-serves, with the same field names and JSON shapes (``to_json`` /
-``from_json``; ``utils/wire.py`` holds them to the wire contract).
+A copy of the JAX package's ``utils/types.py``, with the same field
+names and JSON shapes (``to_json`` / ``from_json``; ``utils/wire.py``
+holds them to the wire contract).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 
 class StatusCode(enum.IntEnum):
@@ -177,6 +178,56 @@ class RequestOutput:
         )
 
 
+# Callback invoked per RequestOutput; returning False cancels the request
+# (mirrors reference output_callback semantics, scheduler.cpp:207-236).
+OutputCallback = Callable[[RequestOutput], bool]
+
+
+@dataclasses.dataclass
+class Routing:
+    """Instance routing decision attached to a forwarded request
+    (reference: chat.proto extension fields 24-28). ``encode_name`` is the
+    EPD multimodal encode stage — a third role the reference claims but
+    keeps engine-side (SURVEY.md §7.1)."""
+
+    prefill_name: str = ""
+    decode_name: str = ""
+    encode_name: str = ""
+    # Ranked encode survivors (docs/EPD.md): the scheduler's cost-aware
+    # encode pick emits the remaining candidates in score order; the
+    # prefill worker walks them when ``encode_name`` fails, so an
+    # encode-worker death reroutes deterministically (the same list on
+    # retry) before degrading to local encode.
+    encode_fallbacks: List[str] = dataclasses.field(default_factory=list)
+    # Cross-worker cached-block fetch plan (docs/KV_CACHE.md): when the
+    # scheduler places a request on a non-holder with a nonzero cluster
+    # prefix match AND the fetch-vs-recompute cost model says fetching
+    # wins, this carries {"holder", "holder_addr", "blocks",
+    # "block_size"} — the prefill worker pulls those leading KV blocks
+    # from the holder and starts prefill at the first uncached token.
+    # None = recompute (the always-correct default).
+    kv_fetch: Optional[Dict[str, Any]] = None
+
+    def to_json(self) -> Dict[str, Any]:
+        out = {"prefill_name": self.prefill_name,
+               "decode_name": self.decode_name,
+               "encode_name": self.encode_name}
+        if self.encode_fallbacks:
+            out["encode_fallbacks"] = list(self.encode_fallbacks)
+        if self.kv_fetch:
+            out["kv_fetch"] = dict(self.kv_fetch)
+        return out
+
+    @classmethod
+    def from_json(cls, d: Optional[Dict[str, Any]]) -> "Routing":
+        if not d:
+            return cls()
+        return cls(d.get("prefill_name", ""), d.get("decode_name", ""),
+                   d.get("encode_name", ""),
+                   encode_fallbacks=list(d.get("encode_fallbacks", [])),
+                   kv_fetch=d.get("kv_fetch") or None)
+
+
 @dataclasses.dataclass
 class SamplingParams:
     """Full OpenAI sampling contract (reference carries these end to end:
@@ -308,3 +359,32 @@ def validate_sampling(sp: SamplingParams, stream: bool) -> None:
             raise ValueError("best_of must be >= n")
         if stream and sp.best_of > sp.n:
             raise ValueError("best_of > n cannot be used with streaming")
+
+
+@dataclasses.dataclass
+class Request:
+    """Scheduler-side request record (reference: request/request.h:26-61).
+
+    The ``offline`` flag is *implemented* here (online-over-offline
+    preemption in the worker and tiered admission in the service) — in the
+    reference it exists in the proto (chat.proto:115) but nothing reads it.
+    """
+
+    model: str = ""
+    service_request_id: str = ""
+    stream: bool = False
+    include_usage: bool = False
+    offline: bool = False
+    priority: int = 0
+    prompt: str = ""
+    messages: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
+    token_ids: List[int] = dataclasses.field(default_factory=list)
+    routing: Routing = dataclasses.field(default_factory=Routing)
+    sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
+    # Multimodal inputs for the EPD encode stage.
+    mm_inputs: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
+    num_generated_tokens: int = 0
+    estimated_ttft_ms: float = 0.0
+    arrival_time: float = 0.0
+    output_callback: Optional[OutputCallback] = None
+    trace_callback: Optional[Callable[[str, Dict[str, Any]], None]] = None
