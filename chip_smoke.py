@@ -410,7 +410,21 @@ Phases (any failure raises and the exit code is not 0):
    step, no capture after warmup, TTFT, decode step median, tokens/s
    per stream, margins between paths; Gemma-2-9B at its published widths
    and 8 layers through one served batch (the soft-capped path).
-17. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
+17. Parallelism (``parallel_phase``, ``[parallel]``) on the one card,
+   two ranks each over gloo (collectives staged through the host),
+   eager steps: llama3-1b at tp = 2 behind a worker (``--tp 2
+   --dist-backend gloo``, rank 1 a child) serving phase 5's requests
+   (launches per step on every rank, collectives a forward, the staged
+   all-reduce's ms, rank 0's logits within rel L2 5e-2 of the unsharded
+   forward, streams against an unsharded eager engine, eager decode
+   step beside it); a ~900-token prompt in one ``prefill_ring`` step at
+   sp = 2 (its logits and first token against the unsharded chunked
+   windows); DeepSeek-V2-Lite at 4 layers at ep = 2 (32 experts a rank:
+   streams and ``moe_dropped`` against the unsharded engine, the MLA
+   prefill calls past the 64 MiB cut through ``mha_prefill_chunked``,
+   its error against the dense form). K3 and K4 at the tp = 2 rank's
+   shapes are timed as ``*_tp2`` records. At most 150 s.
+18. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
    writers' launches from phase 5 (K1/K2 now 0), K5 from 5b, K6 (now 0),
    K7, K3', K4' and the dense all-layer mode from 5c, K3'' and the fused
    latent writers from 5d, the current form of K3'' and the latent
@@ -421,7 +435,8 @@ Phases (any failure raises and the exit code is not 0):
    round of their path (with their time per byte against the llama3-1b
    record's), the ``*_qwen2vl`` records phase 14's, the ``*_gemma3``
    records phase 16's Gemma-3 round of their path and the ``*_gemma2``
-   ones its Gemma-2 round; phases 5f/5g and the
+   ones its Gemma-2 round, the ``*_tp2`` records phase 17's tp = 2
+   round; phases 5f/5g and the
    graph checks go to the ``[summary]``
    line; phases 7, 7b, 6b and 9 too, and ``phase_end_s``, the script's
    clock at the end of each phase), the card line, then the last line
@@ -8782,6 +8797,480 @@ def gemma_phase(torch, kernels, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: parallelism on one card (gloo, eager steps)
+# ---------------------------------------------------------------------------
+
+PAR_DEVICE = "cuda"
+# The shape model of the *_tp2 records: llama3-1b's rank at tp = 2.
+PAR_TP2_MODEL = "llama3-1b-tp2"
+PAR_ENV = {"XLLM_RAGGED_ATTN": "0", "XLLM_WRITE_THEN_ATTEND": "1",
+           "XLLM_CUDA_GRAPHS": "0"}
+# Phase 5's flags; eager steps (a mesh runs no graphs), no warmup.
+PAR_ARGS = SERVE_ARGS + ["--dist-backend", "gloo", "--no-warmup"]
+PAR_RING_CHARS = 900                    # one ring prompt: > 512, <= 1024
+PAR_DS_LONG = (1800, 1790)              # DeepSeek prompts, 512-token windows
+PAR_BUDGET_S = 150.0
+
+
+def _par_engine_cfg(**kw):
+    from xllm_service_tpu_torch.config import EngineConfig
+    base = dict(page_size=128, num_pages=512, max_model_len=1024,
+                max_batch_size=8, prefill_buckets=(128, 256, 512),
+                max_prefill_tokens=256, cuda_graphs=False,
+                ragged_attn=False, write_then_attend=True,
+                enable_prefix_cache=False)
+    base.update(kw)
+    return EngineConfig(**base)
+
+
+def _par_mesh(spec, cfg, ecfg):
+    """Rank 0 of a mesh on this card (this process) and its followers,
+    started as a worker starts them; returns (engine, mesh, processes)."""
+    from xllm_service_tpu_torch.runtime import ranks
+    from xllm_service_tpu_torch.runtime.engine import Engine
+    guard_child_argv([sys.executable, "-m",
+                      "xllm_service_tpu_torch.runtime.ranks"])
+    mesh, procs = ranks.start_mesh(spec, cfg, ecfg, PAR_DEVICE, "gloo")
+    try:
+        return Engine(cfg, ecfg, device=PAR_DEVICE, mesh=mesh), mesh, procs
+    except BaseException:
+        _par_close(None, mesh, procs)
+        raise
+
+
+def _par_close(eng, mesh, procs) -> None:
+    from xllm_service_tpu_torch.runtime import ranks
+    try:
+        ranks.stop_followers(mesh)
+    finally:
+        ranks.stop_processes(procs)
+        mesh.close()
+
+
+def _par_collectives(reports, forwards: int) -> list:
+    """Per rank: its kernel launches, collectives a forward and the
+    staged all-reduce's ms."""
+    out = []
+    for rep in reports:
+        c, s = rep["collectives"], rep["staged_s"]
+        n_ar = c.get("all_reduce", 0)
+        out.append({
+            "rank": rep["rank"],
+            "launches": {k: v for k, v in rep["launches"].items() if v},
+            "collectives_per_forward": (sum(c.values()) / forwards
+                                        if forwards else None),
+            "by_op": c,
+            "staged_all_reduce_ms": (1e3 * s.get("all_reduce", 0.0) / n_ar
+                                     if n_ar else None),
+            "staged_ms_by_op": {k: 1e3 * v for k, v in s.items()}})
+    return out
+
+
+def _par_same_launches(reports) -> None:
+    """Every rank launched each hand-written kernel as often as rank 0
+    (each runs the same forwards at the shard's shapes)."""
+    base = reports[0]["launches"]
+    for rep in reports[1:]:
+        if rep["launches"] != base:
+            raise AssertionError(f"rank {rep['rank']} launched "
+                                 f"{rep['launches']}, rank 0 {base}")
+
+
+def _rel_l2(a, b) -> float:
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _ref_logits(torch, params, cfg, ids, next_id, windows=None):
+    """Unsharded logits after ``ids`` (prefilled in ``windows`` tokens at
+    a time, default whole) and after ``next_id`` (one decode), on the
+    card in write-then-attend."""
+    from xllm_service_tpu_torch.models import transformer as tf
+    dev = torch.device(PAR_DEVICE)
+    ps, T = 128, len(ids)
+    pages = -(-(T + 1) // ps)
+    kv = tf.init_kv_cache(cfg, pages + 1, ps, dev)
+    table = torch.arange(1, pages + 1, dtype=torch.int32, device=dev)[None]
+    i32 = dict(dtype=torch.int32, device=dev)
+    step = windows or T
+    for s in range(0, T, step):
+        chunk = ids[s:s + step]
+        logits, kv = tf.forward_prefill(
+            params, cfg, torch.tensor([chunk], device=dev),
+            torch.tensor([s], **i32), torch.tensor([len(chunk)], **i32), kv,
+            table, write_then_attend=True)
+    dec = None
+    if next_id is not None:
+        dec, _ = tf.forward_decode(
+            params, cfg, torch.tensor([next_id], device=dev),
+            torch.tensor([T], **i32),
+            torch.ones(1, dtype=torch.bool, device=dev), kv, table,
+            write_then_attend=True)
+        dec = dec[0].float().cpu().numpy()
+    return logits[0].float().cpu().numpy(), dec
+
+
+def _par_streams(eng, reqs, steplog, max_steps: int = 400):
+    """Serve ``reqs`` (rid, ids, max_tokens) greedily on ``eng`` (whose
+    ``step`` ``steplog`` wraps), all added before the first step;
+    returns (tokens by rid, the steps' rows)."""
+    from xllm_service_tpu_torch.runtime.engine import EngineRequest
+    from xllm_service_tpu_torch.utils.types import SamplingParams
+    for rid, ids, n in reqs:
+        eng.add_request(EngineRequest(rid, list(ids), sampling=SamplingParams(
+            max_tokens=n, temperature=0.0, ignore_eos=True)))
+    toks = {rid: [] for rid, _, _ in reqs}
+    n0 = len(steplog.rows)
+    for _ in range(max_steps):
+        if not eng.has_work():
+            break
+        for o in eng.step():
+            toks[o.request_id].extend(o.new_token_ids)
+    return toks, steplog.rows[n0:]
+
+
+def _par_per_forward(rows, launches) -> dict:
+    """Each kernel's launches per forward of its kind: a prefill
+    kernel's per prefill forward, a decode kernel's per decode forward."""
+    dec = sum(r["decode_forwards"] for r in rows)
+    pre = sum(int(r["kind"] in ("prefill", "mixed")) for r in rows)
+    return {k: v / (pre if "prefill" in k else dec)
+            for k, v in launches.items()
+            if v and (pre if "prefill" in k else dec)}
+
+
+def _par_margins(torch, params, cfg, prompts, tok_a, tok_b, err, tag):
+    """Each stream's first divergent token between two runs, with the
+    unsharded top-2 margin there: drift under 10 x ``err``, else a
+    fault (``divergence_margins``'s rule)."""
+    import numpy as np
+    out = []
+    for rid in sorted(tok_a):
+        a, b = tok_a[rid], tok_b.get(rid, [])
+        i = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None and len(a) == len(b):
+            continue
+        if i is None:
+            raise AssertionError(f"{tag}: {rid} has {len(b)} tokens, "
+                                 f"want {len(a)}")
+        logits, _ = _ref_logits(torch, params, cfg, prompts[rid] + a[:i],
+                                None)
+        top = np.sort(logits)[-2:]
+        margin = float(top[1] - top[0])
+        out.append({"pair": tag, "request": rid, "position": i,
+                    "served": [a[i], b[i]], "margin": margin,
+                    "limit": 10 * err,
+                    "verdict": "fault" if margin > 10 * err else "drift"})
+    bad = [m for m in out if m["verdict"] == "fault"]
+    if bad:
+        raise AssertionError(f"{tag}: streams diverge at a wide margin: "
+                             f"{bad}")
+    return out
+
+
+def check_ring_step(row, census, layers: int) -> dict:
+    """The ring step: one eager ``prefill_ring`` step in the census, a
+    prefill forward that launched the fused rope writer in its pool-less
+    form once per layer and K7 once, and no other kernel (its attention
+    is the ring's online softmax). Returns its launches."""
+    want = {"rope_prefill_kv_update_layer": layers,
+            "paged_prefill_kv_update": 1}
+    got = {k: v for k, v in row["launches"].items() if v}
+    if census != {"graphs_off": 1} or row["kind"] != "prefill" or \
+            row["forwards"] != 1 or got != want:
+        raise AssertionError(f"the ring step: census {census}, row {row}, "
+                             f"want launches {want}")
+    return got
+
+
+def parallel_phase(torch, kernels, card: str, err: float,
+                   err_mla: float) -> dict:
+    """Phase 17: the sharded paths on the one card, two ranks each over
+    gloo (collectives staged through the host), eager steps.
+
+    a. llama3-1b at full width and depth at tp = 2 behind a worker
+       (``--tp 2 --dist-backend gloo``; rank 1 a child it starts): phase
+       5's four requests; every step's launches exactly (the fused
+       writer and K3/K4 at the shard's 16 query and 4 KV heads), rank 1
+       launching what rank 0 did; collectives a forward and the staged
+       all-reduce's ms; rank 0's prefill and decode logits against the
+       unsharded forward on the same weights (rel L2 under
+       ``FORWARD_REL_L2``); the four streams against an unsharded eager
+       engine's (equal, or drift under the margins rule), and the eager
+       decode step beside the unsharded eager one.
+    b. sp = 2 on llama3-1b: a ~900-token prompt in one ``prefill_ring``
+       step (the step census; per rank the fused rope writer in its
+       pool-less form x 16 and K7 once, nothing else), its first token
+       and its logits against the unsharded engine's chunked windows;
+       the ring step's ms.
+    c. DeepSeek-V2-Lite at its published widths and
+       ``DEEPSEEK_SERVE_LAYERS`` layers at ep = 2 (32 experts a rank):
+       four requests, then two ~1,800-token prompts in 512-token
+       windows; streams and ``moe_dropped`` against the unsharded
+       engine's on the same weights, every step's launches exactly, and
+       the MLA prefill calls that took ``mha_prefill_chunked`` (past the
+       64 MiB cut) counted per rank, with the chunked form's largest
+       error against the dense ``mha_prefill`` at such a call's shape.
+    """
+    import dataclasses as dc
+    import numpy as np
+    from xllm_service_tpu_torch.config import ModelConfig
+    from xllm_service_tpu_torch.models import transformer as tf
+    from xllm_service_tpu_torch.ops import attention
+    from xllm_service_tpu_torch.parallel.mesh import MeshSpec
+    from xllm_service_tpu_torch.runtime import ranks, worker
+    from xllm_service_tpu_torch.runtime.engine import Engine
+    t_phase = time.perf_counter()
+    cfg = ModelConfig.llama3_1b()
+    out = {}
+
+    # a. tp = 2 behind a worker.
+    t0 = time.perf_counter()
+    argv = ["--model", "llama3-1b", "--device", PAR_DEVICE, *PAR_ARGS,
+            "--tp", "2"]
+    guard_child_argv(argv)
+    w, build_s = _start(worker, argv, PAR_ENV)
+    eng = w.engine
+    if eng.mesh is None or eng.shard_cfg.num_heads != 16 or \
+            eng.shard_cfg.num_kv_heads != 4:
+        raise AssertionError(f"tp=2 rank 0 holds {eng.shard_cfg}")
+    steplog = StepLog(eng, kernels)
+    try:
+        rng = random.Random(0)
+        warm = {}
+        _request(w.name, "/v1/completions",
+                 {"prompt": _prompt(rng, 64), "max_tokens": 4,
+                  "temperature": 0.0}, False, warm)
+        if warm["status"] != 200:
+            raise AssertionError(f"warm-up request failed: {warm}")
+        bodies = serve_bodies(rng)
+        # Calls on every rank take the engine lock, as the worker's
+        # steps do: one broadcast at a time on the world.
+        with w._engine_lock:
+            ranks.control(eng, "reset")
+        steplog.clear()
+        results, wall = run_concurrent(w.name, bodies)
+        with w._engine_lock:
+            reps = ranks.control(eng, "report")
+        rows = list(steplog.rows)
+        tokens = {n: list(t) for n, t in steplog.tokens.items()}
+        prompts = {n: steplog.prompts[n] for n in tokens}
+        n_max = max(prompts)
+        with w._engine_lock:
+            lp, ld = ranks.control(eng, "forward_logits", prompts[n_max],
+                                   tokens[n_max][0])
+            # The staged all-reduce alone at a decode step's rows and at
+            # a 512-token window.
+            ar_ms = ranks.control(eng, "all_reduce_ms",
+                                  [(8, 1, cfg.hidden_size),
+                                   (1, 512, cfg.hidden_size)])
+    finally:
+        w.stop()
+    del w, eng, steplog
+    free_device_memory(torch)
+    check_replies(SERVE_PLAN, results)
+    check_step_launches(rows, reps[0]["launches"], cfg.num_layers, False,
+                        True, False)
+    _par_same_launches(reps)
+    forwards = sum(r["forwards"] for r in rows)
+    gen = torch.Generator(device=PAR_DEVICE).manual_seed(0)
+    full = tf.init_params(cfg, gen, PAR_DEVICE)
+    rp, rd = _ref_logits(torch, full, cfg, prompts[n_max], tokens[n_max][0])
+    rel = {"prefill": _rel_l2(lp, rp), "decode": _rel_l2(ld, rd)}
+    if max(rel.values()) > FORWARD_REL_L2:
+        raise AssertionError(f"tp=2 logits rel L2 {rel} over "
+                             f"{FORWARD_REL_L2}")
+    ref_eng = Engine(cfg, _par_engine_cfg(), params=full, device=PAR_DEVICE)
+    reqs = [(f"n{n}", prompts[n], 32) for n in sorted(prompts)]
+    ref_tok, ref_rows = _par_streams(ref_eng, reqs,
+                                     StepLog(ref_eng, kernels))
+    del ref_eng
+    free_device_memory(torch)
+    mine = {f"n{n}": tokens[n] for n in prompts}
+    margins = _par_margins(torch, full, cfg,
+                           {f"n{n}": prompts[n] for n in prompts}, ref_tok,
+                           mine, err, "tp2")
+    launches = {k: v for k, v in reps[0]["launches"].items() if v}
+    decode_ms = _median([r["ms"] for r in rows if r["kind"] == "decode"])
+    ref_decode_ms = _median([r["ms"] for r in ref_rows
+                             if r["kind"] == "decode"])
+    out["tp2"] = {
+        "worker_build_s": build_s, "wall_s": wall,
+        "launches": reps[0]["launches"],
+        "launches_per_forward": _par_per_forward(rows, launches),
+        "forwards": forwards,
+        "staged_all_reduce_ms_by_shape": ar_ms,
+        "ranks": _par_collectives(reps, forwards),
+        "logits_rel_l2": rel,
+        "equal_streams": sum(mine[k] == ref_tok[k] for k in ref_tok),
+        "margins": margins,
+        "eager_decode_step_ms_median": decode_ms,
+        "unsharded_eager_decode_step_ms_median": ref_decode_ms,
+        "prefill_step_ms_median": _median(
+            [r["ms"] for r in rows if r["kind"] == "prefill"]),
+        "seconds": time.perf_counter() - t0}
+    log(f"[parallel] {card}: tp=2 {json.dumps(out['tp2'])}")
+
+    # b. sp = 2: one long prompt in a ring step.
+    t0 = time.perf_counter()
+    eng, mesh, procs = _par_mesh(MeshSpec(sp=2), cfg, _par_engine_cfg(
+        sp=2, max_prefill_tokens=512))
+    try:
+        ids = [int(b) + 3 for b in
+               _prompt(random.Random(7), PAR_RING_CHARS).encode()]
+        ranks.control(eng, "reset")
+        ring_tok, ring_rows = _par_streams(eng, [("ring", ids, 4)],
+                                           StepLog(eng, kernels))
+        reps = ranks.control(eng, "report")
+        census = eng.capture_report()["prefill_ring"]["eager_steps"]
+        T = eng._bucket(-(-len(ids) // 2)) * 2
+        lr = ranks.control(eng, "ring_logits", ids, T)
+    finally:
+        _par_close(eng, mesh, procs)
+    del eng
+    free_device_memory(torch)
+    ring_row = ring_rows[0]
+    got = check_ring_step(ring_row, census, cfg.num_layers)
+    _par_same_launches(reps)
+    rl, _ = _ref_logits(torch, full, cfg, ids, None, windows=512)
+    rel_ring = _rel_l2(lr, rl)
+    if rel_ring > FORWARD_REL_L2:
+        raise AssertionError(f"ring logits rel L2 {rel_ring}")
+    first_ref = int(np.argmax(rl))
+    ring_margin = None
+    if ring_tok["ring"][0] != first_ref:
+        top = np.sort(rl)[-2:]
+        ring_margin = float(top[1] - top[0])
+        if ring_margin > 10 * err:
+            raise AssertionError(f"ring first token {ring_tok['ring'][0]}"
+                                 f" vs {first_ref}, margin {ring_margin}")
+    out["sp2"] = {
+        "prompt_tokens": len(ids), "ring_positions": T,
+        "ring_step_ms": ring_row["ms"], "census": census,
+        "launches_ring_step": got, "logits_rel_l2": rel_ring,
+        "first_token": [ring_tok["ring"][0], first_ref],
+        "first_token_margin": ring_margin,
+        "ranks": _par_collectives(reps, len(ring_rows)),
+        "seconds": time.perf_counter() - t0}
+    log(f"[parallel] {card}: sp=2 {json.dumps(out['sp2'])}")
+    del full
+    free_device_memory(torch)
+
+    # c. DeepSeek-V2-Lite at ep = 2.
+    t0 = time.perf_counter()
+    ds = dc.replace(ModelConfig.deepseek_v2_lite(),
+                    num_layers=DEEPSEEK_SERVE_LAYERS)
+    ecfg = _par_engine_cfg(max_model_len=2048, num_pages=256,
+                           max_prefill_tokens=1024)
+    rng = random.Random(3)
+    short = [(f"s{n}", [rng.randrange(3, 259) for _ in range(n)], 32)
+             for _, _, n in SERVE_PLAN]
+    long = [(f"l{n}", [rng.randrange(3, 259) for _ in range(n)], 4)
+            for n in PAR_DS_LONG]
+    eng, mesh, procs = _par_mesh(MeshSpec(ep=2), ds, ecfg)
+    try:
+        if eng.params["layers_moe"]["gate_proj"].shape[1] != \
+                ds.num_experts // 2:
+            raise AssertionError("ep=2 rank 0 does not hold half the "
+                                 "experts")
+        ranks.control(eng, "reset")
+        log_e = StepLog(eng, kernels)
+        tok_s, rows_s = _par_streams(eng, short, log_e)
+        tok_l, rows_l = _par_streams(eng, long, log_e)
+        reps = ranks.control(eng, "report")
+        dropped = eng.moe_dropped_tokens
+    finally:
+        _par_close(eng, mesh, procs)
+    del eng
+    free_device_memory(torch)
+    check_step_launches(rows_s + rows_l, reps[0]["launches"], ds.num_layers,
+                        True, True, False)
+    _par_same_launches(reps)
+    chunked = [rep["prefill_branch"]["chunked"] for rep in reps]
+    if min(chunked) < 1:
+        raise AssertionError(f"no MLA prefill call took the chunked "
+                             f"path: {[r['prefill_branch'] for r in reps]}")
+    ref_eng = Engine(ds, ecfg, device=PAR_DEVICE)
+    log_r = StepLog(ref_eng, kernels)
+    ref_s, _ = _par_streams(ref_eng, short, log_r)
+    ref_l, _ = _par_streams(ref_eng, long, log_r)
+    ref_dropped = ref_eng.moe_dropped_tokens
+    ds_params = ref_eng.params
+    del ref_eng
+    if dropped != ref_dropped:
+        raise AssertionError(f"moe_dropped {dropped} vs unsharded "
+                             f"{ref_dropped}")
+    mine, ref_all = {**tok_s, **tok_l}, {**ref_s, **ref_l}
+    ds_margins = _par_margins(torch, ds_params, ds,
+                              {rid: ids for rid, ids, _ in short + long},
+                              ref_all, mine, err_mla, "ep2")
+    del ds_params
+    free_device_memory(torch)
+    # The chunked form against the dense one at a chunked call's shape
+    # (2 rows of a 512-token window over 2,048 latent keys).
+    g = torch.Generator(device=PAR_DEVICE).manual_seed(17)
+    B, T, S, H, D = 2, 512, 2048, ds.num_heads, ds.kv_cache_dim
+    q = torch.randn((B, T, H, D), generator=g, device=PAR_DEVICE).to(
+        torch.bfloat16)
+    lat = torch.randn((B, S, 1, D), generator=g, device=PAR_DEVICE).to(
+        torch.bfloat16)
+    kvl = torch.tensor([S - 200, S - 400], dtype=torch.int32,
+                       device=PAR_DEVICE)
+    st = kvl - T
+    scale = tf._mla_scale(ds)
+    chunk = attention.prefill_chunk(B, T, H, S)
+    a = attention.mha_prefill_chunked(q, lat, lat, kvl, st, chunk_size=chunk,
+                                      scale=scale)
+    b = attention.mha_prefill(q, lat, lat, kvl, st, scale=scale)
+    chunk_err = float((a.float() - b.float()).abs().max())
+    if chunk_err > ATTN_TOL:
+        raise AssertionError(f"chunked MLA prefill off the dense one by "
+                             f"{chunk_err}")
+    del q, lat, a, b
+    forwards = sum(r["forwards"] for r in rows_s + rows_l)
+    out["ep2"] = {
+        "experts_per_rank": ds.num_experts // 2,
+        "launches": reps[0]["launches"],
+        "launches_per_forward": _par_per_forward(
+            rows_s + rows_l, reps[0]["launches"]),
+        "equal_streams": sum(mine[k] == ref_all[k] for k in ref_all),
+        "margins": ds_margins, "moe_dropped": [dropped, ref_dropped],
+        "chunked_prefill_calls": chunked,
+        "dense_prefill_calls": [rep["prefill_branch"]["dense"]
+                                for rep in reps],
+        "chunk": chunk, "chunked_vs_dense_max_abs_err": chunk_err,
+        "ranks": _par_collectives(reps, forwards),
+        "prefill_step_ms": [r["ms"] for r in rows_l],
+        "seconds": time.perf_counter() - t0}
+    log(f"[parallel] {card}: ep=2 {json.dumps(out['ep2'])}")
+    free_device_memory(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[parallel] {card}: the phase took {out['seconds']:.1f} s (budget "
+        f"{PAR_BUDGET_S} s)")
+    return out
+
+
+def parallel_kernel_rows(torch) -> list:
+    """K3 and K4 at llama3-1b's rank shape at tp = 2 (16 query heads, 4
+    KV heads, D 64): ``*_tp2`` records, each with its bound and its
+    library time."""
+    from xllm_service_tpu_torch.config import ModelConfig
+    from xllm_service_tpu_torch.ops import attention
+    from xllm_service_tpu_torch.ops.kernels import (paged_attention,
+                                                    prefill_attention)
+    cfg = dataclasses.replace(ModelConfig.llama3_1b(), name=PAR_TP2_MODEL,
+                              num_heads=16, num_kv_heads=4, head_dim=64)
+    bench = KernelBench(torch, cfg, "cuda", suffix="_tp2")
+    bench.decode_attention(paged_attention, attention)
+    bench.prefill_attention(prefill_attention, attention)
+    rows = bench.results
+    del bench
+    free_device_memory(torch)
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -9071,7 +9560,13 @@ def main() -> int:
     mark("15_obs")
     # 16. Gemma-3-12B and Gemma-2-9B: the D = 256 path served.
     gemma = gemma_phase(torch, kernels, card)
+    free_device_memory(torch)
     mark("16_gemma")
+    # 17. Parallelism on the one card: tp = 2, sp = 2, ep = 2.
+    bench.results += parallel_kernel_rows(torch)
+    parallel = parallel_phase(torch, kernels, card, err, err_mla)
+    free_device_memory(torch)
+    mark("17_parallel")
     margins = served_c["on_engine"] + served_e["on_engine"]
     for phase in (served, served_b, served_c, served_d, served_e):
         phase.pop("prompts")
@@ -9082,10 +9577,15 @@ def main() -> int:
         f"largest logit error, llama3-1b {err}, deepseek-v2-lite "
         f"{err_mla}): {json.dumps(margins)}")
 
-    # 17. Summary.
+    # 18. Summary.
     woken = lifecycle["wake"]["launches"]
     for r in bench.results:
         name = r.get("entry", r["name"])       # a record at another shape
+        if r.get("shape_model") == PAR_TP2_MODEL:
+            # Served by phase 17's tp = 2 round (rank 0's count; rank 1
+            # launched as many).
+            r["launches"] = parallel["tp2"]["launches"][name]
+            continue
         if r.get("shape_model") == GEMMA3_MODEL:
             # Served by phase 16's Gemma-3-12B rounds: each path's kernels.
             tag = ("ragged" if name == "ragged_paged_attention" else
@@ -9150,6 +9650,7 @@ def main() -> int:
                "faults": faulted, "pd": disaggregated, "fetch": fetched,
                "lifecycle": lifecycle, "checkpoint": from_disk,
                "epd": epd, "obs": observed, "gemma": gemma,
+               "parallel": parallel,
                "graph_decode_check": {"llama3-1b": graph,
                                       "deepseek-v2-lite": graph_mla},
                "warmup_ladders": ladders,
@@ -9157,6 +9658,8 @@ def main() -> int:
                "phase_end_s": marks,
                "seconds": time.perf_counter() - t_start}
     log(f"[summary] {json.dumps(summary)}")
+    log(f"[seconds] {card}: phase 17 {parallel['seconds']:.1f} s, the "
+        f"script {summary['seconds']:.1f} s")
     guard_no_jax_modules()
     print(json.dumps({"kernels": bench.results}))
     print(card)

@@ -44,6 +44,14 @@ from xllm_service_tpu_torch.utils import wire as torch_wire
 from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 HB_S = 0.25          # heartbeat interval of every worker and master here
+# A lease a loaded host does not let lapse: with 3 x HB_S (0.75 s) a
+# worker whose heartbeat thread is starved for under a second (six test
+# processes compiling at once) loses its lease, the master drops it, and
+# a request it was serving in the RPC topology ends empty ("stop", no
+# usage; the JAX master does the same) or its cached blocks leave the
+# master's index. Tests whose results ride on the worker staying listed
+# give their workers this lease; tests of expiry keep their own.
+LOADED_LEASE_S = 10.0
 MODEL = "tiny"
 ENGINE = dict(page_size=16, num_pages=64, max_model_len=256,
               max_batch_size=4, max_prefill_tokens=256,
@@ -134,12 +142,12 @@ class Cluster:
             "the port worker never joined the master's list"
         return w
 
-    def add_jax_worker(self):
+    def add_jax_worker(self, lease_ttl_s: float = 3 * HB_S):
         w = jax_worker.Worker(
             jax_worker.WorkerOptions(
                 port=0, instance_type=JaxInstanceType.DEFAULT,
                 service_addr=self.master.rpc_address, model=MODEL,
-                heartbeat_interval_s=HB_S, lease_ttl_s=3 * HB_S),
+                heartbeat_interval_s=HB_S, lease_ttl_s=lease_ttl_s),
             self.server.store,
             engine_cfg=JaxEngineConfig(**ENGINE)).start()
         self.workers.append(w)
@@ -806,8 +814,9 @@ def _routing_run(models, kind):
     c = Cluster(policy=LoadBalancePolicyType.CACHE_AWARE)
     try:
         for _ in range(2):
-            (c.add_torch_worker(models) if kind == "torch"
-             else c.add_jax_worker())
+            (c.add_torch_worker(models, lease_ttl_s=LOADED_LEASE_S)
+             if kind == "torch"
+             else c.add_jax_worker(lease_ttl_s=LOADED_LEASE_S))
         a = SHARED + [5, 6, 7]
         holder, ratio_a, fallback_a = _route(c, a)
         assert wait_until(lambda: len(_holders(c, a).get(holder, []))

@@ -61,6 +61,20 @@ def test_every_subpackage_is_checked():
     assert pkg / "parallel" / "expert.py" in FILES
 
 
+PARALLEL_MODULES = ["parallel/mesh.py", "parallel/sharding.py",
+                    "parallel/ring.py", "runtime/ranks.py"]
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_modules_are_checked(module):
+    """The mesh, the sharding rules, ring attention and the rank
+    processes are on the checked list, and import neither JAX nor the
+    JAX package."""
+    path = ROOT / "xllm_service_tpu_torch" / module
+    assert path in FILES
+    assert list(_bad_imports(path)) == []
+
+
 # A dotted module name under the JAX package: ``xllm_service_tpu`` then
 # ``.``, not ``xllm_service_tpu_torch`` (the port) nor the path of the
 # Pallas sources that ``chip_smoke.py`` reads as text.

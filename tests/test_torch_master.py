@@ -42,8 +42,8 @@ from xllm_service_tpu_torch.service.master import Master
 from xllm_service_tpu_torch.utils.types import Request, SamplingParams
 
 from tests.test_torch_cluster import (  # noqa: F401 — fixtures
-    ENGINE, HB_S, MODEL, REQUESTS, Cluster, assert_same, generate,
-    jax_ref, models, wait_until)
+    ENGINE, HB_S, LOADED_LEASE_S, MODEL, REQUESTS, Cluster, assert_same,
+    generate, jax_ref, models, wait_until)
 from tests.test_torch_locks import _no_swallowed_port_lock_violations  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -79,7 +79,7 @@ def port_relay(models):
 @pytest.fixture(scope="module")
 def port_rpc(models):
     c = PortCluster(rpc_topology=True)
-    w = c.add_torch_worker(models)
+    w = c.add_torch_worker(models, lease_ttl_s=LOADED_LEASE_S)
     assert w._decode_to_service
     yield c
     c.close()
@@ -114,7 +114,7 @@ def test_port_master_texts_match_jax(request, jax_ref,
 def test_jax_worker_behind_port_master(models, jax_ref, rpc_topology):
     c = PortCluster(rpc_topology)
     try:
-        w = c.add_jax_worker()
+        w = c.add_jax_worker(lease_ttl_s=LOADED_LEASE_S)
         assert wait_until(lambda: w._decode_to_service == rpc_topology)
         for kind in sorted(REQUESTS):
             for stream in (False, True):

@@ -244,7 +244,7 @@ def test_roofline_switches(monkeypatch):
 _ATTN = ("paged_decode_attention", "paged_prefill_attention",
          "ragged_paged_attention", "paged_decode_attention_current",
          "paged_prefill_attention_fresh", "paged_decode_attention_mla",
-         "paged_decode_attention_mla_current", "mha_prefill")
+         "paged_decode_attention_mla_current", "mha_prefill_auto")
 MLA = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
            num_layers=3, num_heads=4, num_kv_heads=4, head_dim=8,
            kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,

@@ -20,7 +20,10 @@ named:
 - ``6b``: ``routed_cluster_phase``, on the weights of a worker built as
   phase 7's first (phase 7 itself is not run);
 - ``10``: ``pd_phase``, ``11``: ``fetch_phase``, ``12``:
-  ``lifecycle_phase`` (their margins limit 0.5, as phase 4 is not run).
+  ``lifecycle_phase`` (their margins limit 0.5, as phase 4 is not run);
+- ``17``: ``parallel_phase`` (tp = 2, sp = 2 and ep = 2 on the card over
+  gloo; margins limit 0.5) with the ``*_tp2`` K3/K4 records
+  (``parallel_kernel_rows``).
 
 Each phase's checks hold as in ``chip_smoke.py``. The seconds of each
 phase, the card and every result go to
@@ -86,7 +89,10 @@ def main() -> int:
             "11": lambda: {"fetch": cs.fetch_phase(torch, kernels, card,
                                                    0.5)},
             "12": lambda: {"lifecycle": cs.lifecycle_phase(
-                torch, kernels, card, 0.5)}}
+                torch, kernels, card, 0.5)},
+            "17": lambda: {"tp2_records": cs.parallel_kernel_rows(torch),
+                           "parallel": cs.parallel_phase(
+                               torch, kernels, card, 0.5, 0.5)}}
     for phase in phases:
         t0 = time.perf_counter()
         out.update(runs[phase]())

@@ -775,6 +775,11 @@ class EngineConfig:
     # 0 computes none). OpenAI callers get at most this many
     # ``top_logprobs``.
     num_top_logprobs: int = 0
+    # Parallel degrees of this instance's mesh (``parallel/mesh.py``;
+    # the expert degree is the worker's ``--ep``).
+    tp: int = 1
+    dp: int = 1
+    sp: int = 1
     # Pipelined decode: after dispatching fused burst k, start its
     # device-to-host copy and, while the batch still matches, dispatch
     # burst k+1 from the device-resident carries before reading burst k

@@ -49,6 +49,19 @@ attention reads each latent row once for both products (the K3''
 kernel). Both pools carry the same latent rows, as in the JAX package;
 the second is written and never read.
 
+Under a mesh (``parallel/mesh.py``; every forward takes ``mesh=``) the
+parameters are one rank's shard (``parallel/sharding.py``) and ``cfg``
+is its view (``shard_config``: its query and KV heads), so that every
+kernel runs at the shard's head counts. The collectives sit where the
+JAX package's GSPMD puts them: one all-reduce over tp after ``o_proj``
+and one after ``down_proj`` (after an MoE layer's combine over the
+joint (ep, tp) group: each rank contracts its own experts), the
+vocabulary-split embedding as a masked local lookup and an all-reduce,
+the split head as local logits and an all-gather over tp before the
+soft-cap. A leaf left whole (``o_bias``, shared experts) is added once,
+after its reduce. ``forward_prefill_ring`` splits a whole prompt's
+sequence over sp (ring attention).
+
 Parameters are a plain dict with the JAX package's layout: per-layer
 weights stacked over a leading [L] axis, weights used as ``x @ W`` with
 ``W`` [in, out]. The layer loop is a Python loop over L; ``params[...][i]``
@@ -66,7 +79,7 @@ import torch.nn.functional as F
 
 from xllm_service_tpu_torch.config import ModelConfig
 from xllm_service_tpu_torch.ops.attention import (
-    FULL_WINDOW, gather_pages, mha_prefill, overlay_fresh_kv)
+    FULL_WINDOW, gather_pages, mha_prefill_auto, overlay_fresh_kv)
 from xllm_service_tpu_torch.ops.kernels import (
     latent_kv_update_all_layers, latent_kv_update_layer,
     latent_prefill_kv_update_layer, paged_decode_attention,
@@ -80,6 +93,9 @@ from xllm_service_tpu_torch.ops.rope import (layer_cos_sin, mrope_cos_sin,
                                              rope_cos_sin, rotate,
                                              rotate_interleaved)
 from xllm_service_tpu_torch.parallel.expert import gptoss_glu, moe_mlp
+from xllm_service_tpu_torch.parallel.mesh import (AXIS_EP, AXIS_EP_TP,
+                                                  AXIS_SP, AXIS_TP, Mesh)
+from xllm_service_tpu_torch.parallel.ring import ring_attention
 
 Params = Dict[str, Any]
 KVCache = Tuple[torch.Tensor, torch.Tensor]   # [L, P, ps, Hkv, D] each
@@ -246,10 +262,40 @@ def _head(params: Params) -> torch.Tensor:
     return params["embed"].t() if head is None else head
 
 
+def _split(mesh: Optional[Mesh], axes=AXIS_TP) -> bool:
+    return mesh is not None and mesh.size(axes) > 1
+
+
+def _reduce(mesh: Optional[Mesh], x: torch.Tensor,
+            axes=AXIS_TP) -> torch.Tensor:
+    """Sum of a row-parallel product's shares over ``axes``."""
+    return mesh.all_reduce(x, axes) if _split(mesh, axes) else x
+
+
+def _embed(params: Params, tokens: torch.Tensor,
+           mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Token embeddings; under tp each rank holds a slice of the
+    vocabulary and looks up the tokens that fall in it (zeros for the
+    rest), and one all-reduce puts every row together (exactly: one
+    share of each row is nonzero)."""
+    emb = params["embed"]
+    if not _split(mesh):
+        return emb[tokens]
+    n = emb.shape[0]
+    idx = tokens.long() - mesh.index(AXIS_TP) * n
+    inside = (idx >= 0) & (idx < n)
+    rows = emb[idx.clamp(0, n - 1)] * inside[..., None].to(emb.dtype)
+    return mesh.all_reduce(rows, AXIS_TP)
+
+
 def _head_logits(cfg: ModelConfig, x: torch.Tensor,
-                 head: torch.Tensor) -> torch.Tensor:
-    """lm_head matmul, logits in float32, with Gemma-2's final soft-cap."""
+                 head: torch.Tensor,
+                 mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """lm_head matmul, logits in float32, with Gemma-2's final soft-cap;
+    under tp each rank's vocabulary slice, gathered over tp first."""
     logits = (x @ head).float()
+    if _split(mesh):
+        logits = mesh.all_gather(logits, AXIS_TP, dim=-1)
     cap = cfg.final_logit_softcapping
     if cap > 0.0:
         logits = cap * torch.tanh(logits / cap)
@@ -284,10 +330,26 @@ def _scatter_topk(vals: torch.Tensor, idx: torch.Tensor,
     return out.scatter_(-1, idx, vals)
 
 
+def _expert_offset(mesh: Optional[Mesh], lp) -> int:
+    """The global id of this rank's first expert."""
+    if not _split(mesh, AXIS_EP):
+        return 0
+    return mesh.index(AXIS_EP) * lp["gate_proj"].shape[0]
+
+
+def _tp_lead(mesh: Optional[Mesh]) -> bool:
+    """Whether this rank adds the leaves a tp group adds once."""
+    return mesh is None or mesh.index(AXIS_TP) == 0
+
+
 def _experts_dense(lp: Dict[str, torch.Tensor], x: torch.Tensor,
-                   weights: torch.Tensor) -> torch.Tensor:
+                   weights: torch.Tensor,
+                   mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The dense oracle of an MoE layer: every SwiGLU expert on every
-    token, mixed by the [B, T, E] routing map."""
+    token, mixed by the [B, T, E] routing map (this rank's experts'
+    share of it under a mesh, reduced over (ep, tp))."""
+    e0, n = _expert_offset(mesh, lp), lp["gate_proj"].shape[0]
+    weights = weights[..., e0:e0 + n]
     hg = torch.einsum("btd,edf->btef", x, lp["gate_proj"])
     hu = torch.einsum("btd,edf->btef", x, lp["up_proj"])
     if "gate_bias" in lp:
@@ -296,9 +358,10 @@ def _experts_dense(lp: Dict[str, torch.Tensor], x: torch.Tensor,
     else:
         h = F.silu(hg) * hu
     out = torch.einsum("btef,efd->bted", h, lp["down_proj"])
-    if "down_bias" in lp:
+    if "down_bias" in lp and _tp_lead(mesh):
         out = out + lp["down_bias"]
-    return torch.einsum("bted,bte->btd", out, weights.to(x.dtype))
+    return _reduce(mesh, torch.einsum("bted,bte->btd", out,
+                                      weights.to(x.dtype)), AXIS_EP_TP)
 
 
 def _gptoss_gate(lp: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -313,27 +376,31 @@ def _gptoss_gate(lp: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def _gptoss_moe(lp: Dict[str, torch.Tensor], cfg: ModelConfig,
                 x: torch.Tensor, valid: Optional[torch.Tensor],
-                moe_dropped: Optional[torch.Tensor]) -> torch.Tensor:
+                moe_dropped: Optional[torch.Tensor],
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
     """GPT-OSS's MoE: ``_gptoss_gate``'s routing, the clamped-GLU experts
     with their biases (the capacity path, or the dense oracle at
     capacity factor 0)."""
     k = cfg.num_experts_per_tok
     weights = _gptoss_gate(lp, cfg, x)
     if cfg.moe_capacity_factor <= 0:
-        return _experts_dense(lp, x, weights)
+        return _experts_dense(lp, x, weights, mesh)
     out, dropped = moe_mlp(
         x, lp["router"], lp["gate_proj"], lp["up_proj"], lp["down_proj"], k,
         cfg.moe_capacity_factor, valid=valid, group_size=cfg.moe_group_size,
         norm_topk=False, gates=weights, expert_style="gptoss",
-        gate_b=lp["gate_bias"], up_b=lp["up_bias"], down_b=lp["down_bias"])
+        gate_b=lp["gate_bias"], up_b=lp["up_bias"],
+        down_b=lp["down_bias"] if _tp_lead(mesh) else None,
+        expert_offset=_expert_offset(mesh, lp))
     if moe_dropped is not None:
         moe_dropped.add_(dropped)
-    return out
+    return _reduce(mesh, out, AXIS_EP_TP)
 
 
 def _mlp(lp: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
          valid: Optional[torch.Tensor] = None,
-         moe_dropped: Optional[torch.Tensor] = None) -> torch.Tensor:
+         moe_dropped: Optional[torch.Tensor] = None,
+         mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Gated MLP: SiLU (Llama family) or tanh-GELU (Gemma); MoE models
     route each token through its top-k SwiGLU experts. ``valid`` [B, T]
     bool marks real tokens: padding and inactive rows take no expert
@@ -343,44 +410,50 @@ def _mlp(lp: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
     if not cfg.is_moe:
         gate = x @ lp["gate_proj"]
         act = F.gelu(gate, approximate="tanh") if cfg.gemma else F.silu(gate)
-        return (act * (x @ lp["up_proj"])) @ lp["down_proj"]
+        return _reduce(mesh, (act * (x @ lp["up_proj"])) @ lp["down_proj"])
     if cfg.gptoss:
-        return _gptoss_moe(lp, cfg, x, valid, moe_dropped)
+        return _gptoss_moe(lp, cfg, x, valid, moe_dropped, mesh)
     k = cfg.num_experts_per_tok
     if cfg.moe_capacity_factor > 0:
         out, dropped = moe_mlp(x, lp["router"], lp["gate_proj"],
                                lp["up_proj"], lp["down_proj"], k,
                                cfg.moe_capacity_factor, valid=valid,
                                group_size=cfg.moe_group_size,
-                               norm_topk=cfg.norm_topk_prob)
+                               norm_topk=cfg.norm_topk_prob,
+                               expert_offset=_expert_offset(mesh, lp))
         if moe_dropped is not None:
             moe_dropped.add_(dropped)
-        return out
+        return _reduce(mesh, out, AXIS_EP_TP)
     # Dense oracle (capacity factor 0), the reference of the sparse path.
     gates = torch.softmax((x @ lp["router"]).float(), dim=-1)
     topv, topi = torch.topk(gates, k, dim=-1)
     if cfg.norm_topk_prob:
         topv = topv / topv.sum(dim=-1, keepdim=True)
-    return _experts_dense(lp, x, _scatter_topk(topv, topi, gates.shape[-1]))
+    return _experts_dense(lp, x, _scatter_topk(topv, topi, gates.shape[-1]),
+                          mesh)
 
 
 def _block_tail(lp, cfg: ModelConfig, x: torch.Tensor, a: torch.Tensor,
                 valid: torch.Tensor,
-                moe_dropped: Optional[torch.Tensor] = None) -> torch.Tensor:
+                moe_dropped: Optional[torch.Tensor] = None,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Residual adds around attention output ``a`` and the MLP; Gemma's
     four-norm block norms each sublayer output before its add."""
     if cfg.gemma:
         x = x + rms_norm(a, lp["post_norm"], cfg.rms_norm_eps)
         h = rms_norm(x, lp["pre_ff_norm"], cfg.rms_norm_eps)
-        return x + rms_norm(_mlp(lp, cfg, h, valid, moe_dropped),
+        return x + rms_norm(_mlp(lp, cfg, h, valid, moe_dropped, mesh),
                             lp["post_ff_norm"], cfg.rms_norm_eps)
     x = x + a
     h = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
-    return x + _mlp(lp, cfg, h, valid, moe_dropped)
+    return x + _mlp(lp, cfg, h, valid, moe_dropped, mesh)
 
 
-def _attn_out(lp, a: torch.Tensor) -> torch.Tensor:
-    a = a @ lp["o_proj"]
+def _attn_out(lp, a: torch.Tensor, mesh: Optional[Mesh] = None
+              ) -> torch.Tensor:
+    """o_proj (row-parallel under tp: reduced), then GPT-OSS's o bias,
+    once."""
+    a = _reduce(mesh, a @ lp["o_proj"])
     return a + lp["o_bias"] if "o_bias" in lp else a
 
 
@@ -408,7 +481,8 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     prompt_lp_targets: Optional[torch.Tensor] = None,
                     mm_embeds: Optional[torch.Tensor] = None,
                     mm_index: Optional[torch.Tensor] = None,
-                    rope_pos: Optional[torch.Tensor] = None
+                    rope_pos: Optional[torch.Tensor] = None,
+                    mesh: Optional[Mesh] = None
                     ) -> Tuple[torch.Tensor, ...]:
     """Prefill ``tokens`` [B, T] (padded; ``lengths`` [B] int32 true
     counts) at positions start_pos[b] + t, with the cached prefix
@@ -443,7 +517,9 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     of its token's embedding (the JAX forward's ``mm_embeds`` /
     ``mm_positions`` splice, after Gemma's embedding scale). ``rope_pos``
     [B, 3, T]: an mrope model's explicit position streams for the
-    window; None broadcasts the storage positions (standard rope)."""
+    window; None broadcasts the storage positions (standard rope).
+    ``mesh``: the rank's mesh (``params`` its shard, ``cfg`` its view;
+    see the module docstring)."""
     check_supported(cfg)
     if ragged and not write_then_attend:
         raise ValueError("the ragged mixed step requires write_then_attend")
@@ -454,11 +530,11 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             raise ValueError("MLA models have no multimodal splice")
         return _mla_forward_prefill(params, cfg, tokens, start_pos, lengths,
                                     kv, page_table, write_then_attend,
-                                    prompt_lp_targets)
+                                    prompt_lp_targets, mesh)
     attend = ragged_paged_attention if ragged else paged_prefill_attention
     k_pages, v_pages = kv
     B, T = tokens.shape
-    x = _scale_embed(cfg, params["embed"][tokens])                 # [B, T, D]
+    x = _scale_embed(cfg, _embed(params, tokens, mesh))            # [B, T, D]
     if mm_embeds is not None:
         x = splice_embeds(x, mm_embeds, mm_index)
     positions = start_pos.long()[:, None] + torch.arange(
@@ -494,19 +570,22 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             attn = paged_prefill_attention_fresh(
                 q, k_stage[i], v_stage[i], k_pages, v_pages, page_table,
                 start_pos, lengths, i, **kw)
-        x = _block_tail(lp, cfg, x, _attn_out(lp, attn.reshape(B, T, -1)),
-                        valid, moe_dropped)
+        x = _block_tail(lp, cfg, x,
+                        _attn_out(lp, attn.reshape(B, T, -1), mesh),
+                        valid, moe_dropped, mesh)
     if not write_then_attend:
         paged_prefill_kv_update(k_pages, v_pages, k_stage, v_stage,
                                 page_table, start_pos, lengths)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = (lengths.long() - 1).clamp(min=0)
     last_x = x[torch.arange(B, device=x.device), last]
-    out = (_head_logits(cfg, last_x, _head(params)), (k_pages, v_pages))
+    out = (_head_logits(cfg, last_x, _head(params), mesh),
+           (k_pages, v_pages))
     if prompt_lp_targets is None:
         return out
     return out + (_prompt_logprobs(x, _head(params), prompt_lp_targets,
-                                   cap=cfg.final_logit_softcapping),)
+                                   cap=cfg.final_logit_softcapping,
+                                   mesh=mesh),)
 
 
 def splice_embeds(x: torch.Tensor, mm_embeds: torch.Tensor,
@@ -519,7 +598,8 @@ def splice_embeds(x: torch.Tensor, mm_embeds: torch.Tensor,
 
 def _prompt_logprobs(x: torch.Tensor, head: torch.Tensor,
                      targets: torch.Tensor, chunk: int = 128,
-                     cap: float = 0.0) -> torch.Tensor:
+                     cap: float = 0.0,
+                     mesh: Optional[Mesh] = None) -> torch.Tensor:
     """logprob of ``targets[b, t]`` under the distribution predicted at
     position t, from the final hidden states ``x`` [B, T, D]. Chunked
     over T (gcd(T, 128) positions a chunk) so the [B, c, V] logits block,
@@ -530,6 +610,8 @@ def _prompt_logprobs(x: torch.Tensor, head: torch.Tensor,
     out = []
     for i in range(0, T, c):
         logits = (x[:, i:i + c] @ head).float()              # [B, c, V]
+        if _split(mesh):
+            logits = mesh.all_gather(logits, AXIS_TP, dim=-1)
         if cap > 0.0:
             logits = cap * torch.tanh(logits / cap)
         lse = torch.logsumexp(logits, dim=-1)
@@ -544,7 +626,8 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    kv: KVCache, page_table: torch.Tensor,
                    write_then_attend: bool = True,
                    moe_dropped: Optional[torch.Tensor] = None,
-                   rope_delta: Optional[torch.Tensor] = None
+                   rope_delta: Optional[torch.Tensor] = None,
+                   mesh: Optional[Mesh] = None
                    ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step for ``tokens`` [B] at ``positions`` [B] int32
     (``active`` [B] bool masks empty slots). Writes each active row's
@@ -563,10 +646,10 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     check_supported(cfg)
     if cfg.mla:
         return _mla_forward_decode(params, cfg, tokens, positions, active,
-                                   kv, page_table, write_then_attend)
+                                   kv, page_table, write_then_attend, mesh)
     k_pages, v_pages = kv
     B = tokens.shape[0]
-    x = _scale_embed(cfg, params["embed"][tokens[:, None]])        # [B, 1, D]
+    x = _scale_embed(cfg, _embed(params, tokens[:, None], mesh))   # [B, 1, D]
     rope_at = positions if rope_delta is None else positions + rope_delta
     ropes = layer_cos_sin(cfg, rope_at.long()[:, None])
     zero = torch.zeros_like(positions)
@@ -599,10 +682,12 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             attn = paged_decode_attention_current(
                 q[:, 0], k_pages, v_pages, page_table, cache_lens,
                 k_stage[i], v_stage[i], i, **kw)
-        x = _block_tail(lp, cfg, x, _attn_out(lp, attn.reshape(B, 1, -1)),
-                        active[:, None], moe_dropped)
+        x = _block_tail(lp, cfg, x,
+                        _attn_out(lp, attn.reshape(B, 1, -1), mesh),
+                        active[:, None], moe_dropped, mesh)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _head_logits(cfg, x[:, 0], _head(params)), (k_pages, v_pages)
+    return (_head_logits(cfg, x[:, 0], _head(params), mesh),
+            (k_pages, v_pages))
 
 
 def forward_embedding(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -645,6 +730,79 @@ def forward_embedding(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     pooled = (x * mask[..., None]).sum(dim=1) / \
         mask.sum(dim=1, keepdim=True).clamp(min=1.0)
     return pooled / pooled.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+
+
+def forward_prefill_ring(params: Params, cfg: ModelConfig,
+                         tokens: torch.Tensor, lengths: torch.Tensor,
+                         kv: KVCache, page_table: torch.Tensor, mesh: Mesh,
+                         moe_dropped: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, KVCache]:
+    """Sequence-parallel prefill of whole prompts: ``tokens`` [B, T]
+    (T a multiple of the sp size; ``lengths`` [B] true counts, every
+    prompt from position 0, nothing cached) split over the mesh's ``sp``
+    axis, this rank taking the block [r * T / sp, (r + 1) * T / sp). Each
+    layer rotates its block's q and k with the fused rope writer in its
+    pool-less form (staged per layer), attends by ring attention
+    (``parallel/ring.py``) and runs its MLP on the block; an MoE layer
+    routes the whole sequence (gathered over sp), so that its groups and
+    capacities are the unsplit forward's. After the layer loop the
+    staged K/V are gathered over sp and written into every layer of the
+    pools with one launch of the all-layer writer (K7). Returns (logits
+    of each row's last valid token [B, V] float32, kv).
+
+    As the JAX package's ``forward_prefill_ring``: no sliding window,
+    Gemma layer body, latent attention or attention sinks (those long
+    prompts take the chunked windows), and no prompt scores."""
+    check_supported(cfg)
+    if cfg.sliding_window or cfg.gemma or cfg.mla or cfg.gptoss:
+        raise NotImplementedError(
+            "ring prefill implements neither sliding-window masks, the "
+            "gemma layer body, latent attention, nor attention sinks")
+    k_pages, v_pages = kv
+    B, T = tokens.shape
+    n, r = mesh.size(AXIS_SP), mesh.index(AXIS_SP)
+    if T % n:
+        raise ValueError(f"ring prefill of {T} positions does not split "
+                         f"over sp={n}")
+    tl = T // n
+    dev = tokens.device
+    pos = r * tl + torch.arange(tl, device=dev)                    # global
+    x = _embed(params, tokens[:, r * tl:(r + 1) * tl], mesh)
+    ropes = layer_cos_sin(cfg, pos[None, :].expand(B, tl))
+    valid = pos[None, :] < lengths.long()[:, None]                 # [B, tl]
+    full_valid = torch.arange(T, device=dev)[None, :] \
+        < lengths.long()[:, None]
+    k_stage, v_stage = _staging(cfg, (B, tl), k_pages)
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+        h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(lp, cfg, h)
+        cos, sin = ropes[i]
+        rope_prefill_kv_update_layer(q, k, v, cos, sin, layer=i,
+                                     k_stage=k_stage, v_stage=v_stage)
+        attn = ring_attention(q, k_stage[i], v_stage[i], mesh, lengths)
+        x = x + _attn_out(lp, attn.reshape(B, tl, -1), mesh)
+        h = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
+        if cfg.is_moe:
+            whole = mesh.all_gather(h, AXIS_SP, dim=1)
+            m = _mlp(lp, cfg, whole, full_valid, moe_dropped, mesh)
+            x = x + m[:, r * tl:(r + 1) * tl]
+        else:
+            x = x + _mlp(lp, cfg, h, valid, moe_dropped, mesh)
+    k_all = mesh.all_gather(k_stage, AXIS_SP, dim=2)         # [L, B, T, ..]
+    v_all = mesh.all_gather(v_stage, AXIS_SP, dim=2)
+    zero = torch.zeros_like(lengths)
+    paged_prefill_kv_update(k_pages, v_pages, k_all, v_all, page_table,
+                            zero, lengths)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    # Each row's last valid token lies in one rank's block: that rank
+    # contributes its hidden state, the others zeros.
+    last = (lengths.long() - 1).clamp(min=0) - r * tl
+    mine = (last >= 0) & (last < tl)
+    last_x = x[torch.arange(B, device=dev), last.clamp(0, tl - 1)]
+    last_x = mesh.all_reduce(last_x * mine[:, None].to(x.dtype), AXIS_SP)
+    return (_head_logits(cfg, last_x, _head(params), mesh),
+            (k_pages, v_pages))
 
 
 # ---------------------------------------------------------------------------
@@ -763,20 +921,24 @@ def _deepseek_gate(cfg: ModelConfig, x: torch.Tensor,
 
 
 def _mla_moe_mlp(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
-                 x: torch.Tensor,
-                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 x: torch.Tensor, valid: Optional[torch.Tensor] = None,
+                 mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Routed experts behind the DeepSeek gate, plus the always-on shared
     experts. A capacity factor > 0 dispatches sparsely (the drop count is
-    discarded, as in the JAX package); 0 runs the dense oracle."""
+    discarded, as in the JAX package); 0 runs the dense oracle. Under a
+    mesh the routed share is reduced over (ep, tp) and the shared
+    experts, whole on every rank, are added after it."""
     weights = _deepseek_gate(cfg, x, lp["router"], lp.get("router_bias"))
     if cfg.moe_capacity_factor > 0:
         routed, _ = moe_mlp(
             x, lp["router"], lp["gate_proj"], lp["up_proj"],
             lp["down_proj"], cfg.num_experts_per_tok,
             cfg.moe_capacity_factor, valid=valid,
-            group_size=cfg.moe_group_size, norm_topk=False, gates=weights)
+            group_size=cfg.moe_group_size, norm_topk=False, gates=weights,
+            expert_offset=_expert_offset(mesh, lp))
+        routed = _reduce(mesh, routed, AXIS_EP_TP)
     else:
-        routed = _experts_dense(lp, x, weights)
+        routed = _experts_dense(lp, x, weights, mesh)
     if "shared_gate" not in lp:
         return routed
     return routed + (F.silu(x @ lp["shared_gate"]) * (x @ lp["shared_up"])) \
@@ -817,12 +979,13 @@ def _latent_args(cfg: ModelConfig, lp, h: torch.Tensor, rope):
             cfg.rope_interleave)
 
 
-def _mla_out(cfg: ModelConfig, lp, attn: torch.Tensor) -> torch.Tensor:
+def _mla_out(cfg: ModelConfig, lp, attn: torch.Tensor,
+             mesh: Optional[Mesh] = None) -> torch.Tensor:
     """attn [..., Hq, r + rope] -> the absorbed value up-projection of its
-    first r columns -> o_proj."""
+    first r columns -> o_proj (reduced over tp under a mesh)."""
     o = torch.einsum("...hr,hvr->...hv", attn[..., :cfg.kv_lora_rank],
                      lp["kv_b_v"])
-    return o.reshape(*o.shape[:-2], -1) @ lp["o_proj"]
+    return _reduce(mesh, o.reshape(*o.shape[:-2], -1) @ lp["o_proj"])
 
 
 def _mla_scale(cfg: ModelConfig) -> float:
@@ -853,21 +1016,25 @@ def _mla_layers(params: Params):
 
 
 def _mla_mlp(cfg: ModelConfig, lp, h: torch.Tensor, moe: bool,
-             valid: torch.Tensor) -> torch.Tensor:
+             valid: torch.Tensor, mesh: Optional[Mesh] = None
+             ) -> torch.Tensor:
     if moe:
-        return _mla_moe_mlp(cfg, lp, h, valid)
-    return (F.silu(h @ lp["gate_proj"]) * (h @ lp["up_proj"])) \
-        @ lp["down_proj"]
+        return _mla_moe_mlp(cfg, lp, h, valid, mesh)
+    return _reduce(mesh, (F.silu(h @ lp["gate_proj"]) * (h @ lp["up_proj"]))
+                   @ lp["down_proj"])
 
 
 def _mla_forward_prefill(params: Params, cfg: ModelConfig,
                          tokens: torch.Tensor, start_pos: torch.Tensor,
                          lengths: torch.Tensor, kv: KVCache,
                          page_table: torch.Tensor, write_then_attend: bool,
-                         prompt_lp_targets: Optional[torch.Tensor] = None
+                         prompt_lp_targets: Optional[torch.Tensor] = None,
+                         mesh: Optional[Mesh] = None
                          ) -> Tuple[torch.Tensor, ...]:
     """``forward_prefill`` for MLA models. Attention is the plain
-    ``mha_prefill`` over the gathered latent pool (write-then-attend:
+    ``mha_prefill_auto`` (dense up to 64 MiB of scores, the chunked
+    online softmax past it) over the gathered latent pool
+    (write-then-attend:
     after the latent form of K2 built and wrote the window's latent
     rows) or over the gathered prefix with the fresh
     window laid over it (attend-then-write: the windows staged per
@@ -875,7 +1042,7 @@ def _mla_forward_prefill(params: Params, cfg: ModelConfig,
     package runs it through XLA."""
     k_pages, v_pages = kv
     B, T = tokens.shape
-    x = params["embed"][tokens]
+    x = _embed(params, tokens, mesh)
     positions = start_pos.long()[:, None] + torch.arange(
         T, device=tokens.device)[None, :]
     kv_lengths = start_pos + lengths
@@ -898,28 +1065,31 @@ def _mla_forward_prefill(params: Params, cfg: ModelConfig,
                                                     stage=stage)
             lat_all = overlay_fresh_kv(gather_pages(k_pages[li], page_table),
                                        latent, start_pos)
-        attn = mha_prefill(q_t, lat_all, lat_all, kv_lengths, start_pos,
-                           scale=scale)
-        x = x + _mla_out(cfg, lp, attn)
+        attn = mha_prefill_auto(q_t, lat_all, lat_all, kv_lengths, start_pos,
+                                scale=scale)
+        x = x + _mla_out(cfg, lp, attn, mesh)
         h = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
-        x = x + _mla_mlp(cfg, lp, h, moe, valid)
+        x = x + _mla_mlp(cfg, lp, h, moe, valid, mesh)
     if not write_then_attend:
         paged_prefill_kv_update(k_pages, v_pages, stage, stage, page_table,
                                 start_pos, lengths)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = (lengths.long() - 1).clamp(min=0)
     last_x = x[torch.arange(B, device=x.device), last]
-    out = (_head_logits(cfg, last_x, _head(params)), (k_pages, v_pages))
+    out = (_head_logits(cfg, last_x, _head(params), mesh),
+           (k_pages, v_pages))
     if prompt_lp_targets is None:
         return out
     # No final soft-cap on the MLA path's scores, as in the JAX package.
-    return out + (_prompt_logprobs(x, _head(params), prompt_lp_targets),)
+    return out + (_prompt_logprobs(x, _head(params), prompt_lp_targets,
+                                   mesh=mesh),)
 
 
 def _mla_forward_decode(params: Params, cfg: ModelConfig,
                         tokens: torch.Tensor, positions: torch.Tensor,
                         active: torch.Tensor, kv: KVCache,
-                        page_table: torch.Tensor, write_then_attend: bool
+                        page_table: torch.Tensor, write_then_attend: bool,
+                        mesh: Optional[Mesh] = None
                         ) -> Tuple[torch.Tensor, KVCache]:
     """``forward_decode`` for MLA models: every layer attends with K3''
     over its latent pool, after the latent form of K1 built and wrote
@@ -927,7 +1097,7 @@ def _mla_forward_decode(params: Params, cfg: ModelConfig,
     held apart in a staging buffer and the last layer's latent writer
     writing every layer's row (attend-then-write)."""
     k_pages, v_pages = kv
-    x = params["embed"][tokens[:, None]]                    # [B, 1, D]
+    x = _embed(params, tokens[:, None], mesh)               # [B, 1, D]
     rope = _mla_rope(cfg, positions[:, None])
     scale = _mla_scale(cfg)
     zero = torch.zeros_like(positions)
@@ -954,8 +1124,9 @@ def _mla_forward_decode(params: Params, cfg: ModelConfig,
             lat = stage[li]                                 # [B, 1, r+rope]
             attn = paged_decode_attention_mla_current(
                 q_t[:, 0], k_pages, page_table, cache_lens, lat, li, scale)
-        x = x + _mla_out(cfg, lp, attn)[:, None, :]
+        x = x + _mla_out(cfg, lp, attn, mesh)[:, None, :]
         h = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
-        x = x + _mla_mlp(cfg, lp, h, moe, active[:, None])
+        x = x + _mla_mlp(cfg, lp, h, moe, active[:, None], mesh)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _head_logits(cfg, x[:, 0], _head(params)), (k_pages, v_pages)
+    return (_head_logits(cfg, x[:, 0], _head(params), mesh),
+            (k_pages, v_pages))

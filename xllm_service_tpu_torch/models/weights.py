@@ -7,6 +7,13 @@ tree with numpy leaves (``jax.tree_util.tree_map(np.asarray, params)``
 on the JAX side) and gives tensors on ``device``, so both packages
 compute the same function from the same weights;
 ``vision_params_from_jax`` does the same for the vision towers' trees.
+
+It stays the one carrier under a mesh: a rank's parameters are
+``parallel/sharding.shard_params(params_from_jax(...), mesh, cfg)``,
+the full tree sliced to the rank's shard (the engine slices whatever
+full tree it is given). A ``--model-dir`` checkpoint likewise loads in
+full on every rank (``runtime/checkpoint.load_checkpoint``) and is then
+sliced; no rank reads only its part of the files.
 """
 
 from __future__ import annotations

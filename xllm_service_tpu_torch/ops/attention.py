@@ -291,3 +291,137 @@ def paged_decode_attention_current(q: torch.Tensor, k_pages: torch.Tensor,
     p = _softmax_with_sinks(logits, sinks, Hkv, 1)
     out = torch.einsum("bhgs,bshd->bhgd", p.to(v.dtype), v)
     return out.reshape(B, Hq, D)
+
+
+# ---------------------------------------------------------------------------
+# Flash-style (online-softmax) prefill: the chunked branch of the JAX
+# package's ``mha_prefill_auto`` and the fold ring attention shares
+# ---------------------------------------------------------------------------
+
+# How often each branch of ``mha_prefill_auto`` was taken in this
+# process (host counts: a call inside a CUDA graph capture counts once
+# at the capture, not per replay).
+PREFILL_BRANCH_CALLS = {"dense": 0, "chunked": 0}
+
+# Score-tensor bytes (4 * B * Hq * T * S) up to which the dense path
+# runs; past it the chunked path, its chunk sized to about
+# ``_CHUNK_SCORE_BYTES`` of scores, clamped to [128, 1024] and rounded
+# down to a multiple of 128 (the JAX package's cut and rule).
+_DENSE_SCORE_BYTES = 64 * 1024 * 1024
+_CHUNK_SCORE_BYTES = 32 * 1024 * 1024
+
+
+def flash_fold(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+               qg: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor,
+               mask: torch.Tensor, scale: float,
+               logits_soft_cap: float = 0.0
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fold one KV block into a running online-softmax accumulator.
+
+    qg [B, T, Hkv, G, D] float32; kb/vb [B, S, Hkv, D]; ``mask``
+    broadcastable to [B, T, Hkv, G, S]; the carry o [B, T, Hkv, G, D]
+    and m/l [B, T, Hkv, G], all float32. A fully masked block leaves
+    the carry bit for bit as it was (the block max is -1e30, so the
+    correction is exp(0) = 1 and every p is 0): folding it is the same
+    as skipping it. Shared by ``mha_prefill_chunked`` and ring attention
+    (``parallel/ring.py``)."""
+    logits = torch.einsum("bthgd,bshd->bthgs", qg, kb.float()) * scale
+    if logits_soft_cap > 0.0:
+        logits = logits_soft_cap * torch.tanh(logits / logits_soft_cap)
+    logits = logits.masked_fill(~mask, _NEG_INF)
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    # A masked score must contribute zero, not exp(-1e30 - -1e30) = 1.
+    p = torch.exp(logits - m_new[..., None]).masked_fill(~mask, 0.0)
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(dim=-1)
+    o_new = o * corr[..., None] + torch.einsum("bthgs,bshd->bthgd", p,
+                                               vb.float())
+    return o_new, m_new, l_new
+
+
+def flash_finalize(o: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """[B, T, Hkv, G, D] accumulator / its denominator -> the normalized
+    output."""
+    return o / l.clamp(min=1e-30)[..., None]
+
+
+def mha_prefill_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_lengths: torch.Tensor, q_start: torch.Tensor,
+                        logits_soft_cap: float = 0.0, chunk_size: int = 512,
+                        sliding_window: int = 0,
+                        scale: Optional[float] = None,
+                        sinks: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """``mha_prefill``'s contract with O(B * T * chunk) score memory: the
+    keys are folded ``chunk_size`` at a time into an online-softmax
+    accumulator (float32). A sink seeds the accumulator (running max
+    the sink logit, denominator 1, numerator 0).
+
+    Every chunk is folded under its mask, also those above the causal
+    diagonal or below every row's window, which the JAX package skips
+    with a ``lax.cond`` on device values: a fully masked fold leaves the
+    accumulator bit-identical (``flash_fold``), and a skip decided on
+    the device could not be captured into a CUDA graph. Returns
+    [B, T, Hq, D] in v's dtype."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    if S <= chunk_size:
+        return mha_prefill(q, k, v, kv_lengths, q_start, logits_soft_cap,
+                           sliding_window, scale, sinks)
+    dev = q.device
+    qg = _group_heads(q, Hkv).float()                        # [B,T,Hkv,G,D]
+    sc = _attn_scale(D, scale)
+    q_pos = q_start.long()[:, None] + torch.arange(T, device=dev)[None, :]
+    lengths = kv_lengths.long()[:, None]
+    o = torch.zeros((B, T, Hkv, G, D), dtype=torch.float32, device=dev)
+    if sinks is None:
+        m = torch.full((B, T, Hkv, G), _NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, T, Hkv, G), dtype=torch.float32, device=dev)
+    else:
+        m = sinks.float().reshape(Hkv, G)[None, None].expand(
+            B, T, Hkv, G).clone()
+        l = torch.ones((B, T, Hkv, G), dtype=torch.float32, device=dev)
+    for base in range(0, S, chunk_size):
+        kb, vb = k[:, base:base + chunk_size], v[:, base:base + chunk_size]
+        k_pos = torch.arange(base, base + kb.shape[1], device=dev)
+        btc = (k_pos[None, None, :] <= q_pos[:, :, None]) \
+            & (k_pos[None, :] < lengths)[:, None, :]
+        if sliding_window:
+            btc = btc & (k_pos[None, None, :]
+                         > q_pos[:, :, None] - sliding_window)
+        o, m, l = flash_fold(o, m, l, qg, kb, vb, btc[:, :, None, None, :],
+                             sc, logits_soft_cap)
+    out = flash_finalize(o, l)
+    return out.reshape(B, T, Hq, D).to(v.dtype)
+
+
+def prefill_chunk(B: int, T: int, Hq: int, S: int) -> int:
+    """The chunk ``mha_prefill_auto`` folds keys by, or 0 for the dense
+    path: dense while the score tensor (4 * B * Hq * T * S bytes) stays
+    within 64 MiB, else about 32 MiB of scores a chunk, in [128, 1024]
+    and a multiple of 128."""
+    if 4 * B * Hq * T * S <= _DENSE_SCORE_BYTES:
+        return 0
+    chunk = _CHUNK_SCORE_BYTES // max(4 * B * Hq * T, 1)
+    return max(128, min(1024, (chunk // 128) * 128))
+
+
+def mha_prefill_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_lengths: torch.Tensor, q_start: torch.Tensor,
+                     logits_soft_cap: float = 0.0, sliding_window: int = 0,
+                     scale: Optional[float] = None,
+                     sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Prefill attention by score-tensor bytes, as the JAX package's
+    ``mha_prefill_auto``: ``mha_prefill`` up to the cut
+    (``prefill_chunk``), ``mha_prefill_chunked`` past it."""
+    chunk = prefill_chunk(q.shape[0], q.shape[1], q.shape[2], k.shape[1])
+    if not chunk:
+        PREFILL_BRANCH_CALLS["dense"] += 1
+        return mha_prefill(q, k, v, kv_lengths, q_start, logits_soft_cap,
+                           sliding_window, scale, sinks)
+    PREFILL_BRANCH_CALLS["chunked"] += 1
+    return mha_prefill_chunked(q, k, v, kv_lengths, q_start,
+                               logits_soft_cap, chunk, sliding_window, scale,
+                               sinks)

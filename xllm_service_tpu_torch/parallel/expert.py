@@ -95,7 +95,8 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, gate_w: torch.Tensor,
             expert_style: str = "swiglu",
             gate_b: Optional[torch.Tensor] = None,
             up_b: Optional[torch.Tensor] = None,
-            down_b: Optional[torch.Tensor] = None
+            down_b: Optional[torch.Tensor] = None,
+            expert_offset: int = 0
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sparse gated MoE layer, group by group.
 
@@ -111,7 +112,14 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, gate_w: torch.Tensor,
     ``up_b`` [E, F] and ``down_b`` [E, D] are per-expert biases; the
     down bias rides the combine weights with the rest of the expert's
     output. Returns ``(out [B, T, D], dropped)``, ``dropped`` the int64
-    count of (token, expert) assignments lost to capacity."""
+    count of (token, expert) assignments lost to capacity.
+
+    Under expert parallelism the expert weights (and their biases) are
+    this rank's experts only, ``gate_w.shape[0]`` of them from global
+    expert ``expert_offset`` on: the routing, the capacity and the drop
+    count stay global (every rank routes every token over all experts),
+    and the output is this rank's experts' share of the sum, which the
+    caller reduces over the (ep, tp) group."""
     B, T, D = x.shape
     N = B * T
     E = router_w.shape[-1]
@@ -135,6 +143,12 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, gate_w: torch.Tensor,
         gates = gf.reshape(n_g, G, -1)
     cap = capacity(G, E, k, capacity_factor)
     dispatch, combine = topk_dispatch(gates, k, cap, vg, norm_topk)
+    # Every valid token asks for k experts; the rest were dropped.
+    dropped = k * vf.sum() - dispatch.sum().long()
+    n_local = gate_w.shape[0]
+    if n_local != E:
+        dispatch = dispatch[..., expert_offset:expert_offset + n_local, :]
+        combine = combine[..., expert_offset:expert_offset + n_local, :]
     x_e = torch.einsum("gnd,gnec->gecd", xg, dispatch.to(x.dtype))
     hg = torch.einsum("gecd,edf->gecf", x_e, gate_w)
     hu = torch.einsum("gecd,edf->gecf", x_e, up_w)
@@ -148,6 +162,4 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, gate_w: torch.Tensor,
         y_e = y_e + down_b[None, :, None, :]
     out = torch.einsum("gecd,gnec->gnd", y_e, combine.to(x.dtype))
     out = out.reshape(-1, D)[:N].reshape(B, T, D)
-    # Every valid token asks for k experts; the rest were dropped.
-    dropped = k * vf.sum() - dispatch.sum().long()
     return out, dropped

@@ -207,8 +207,9 @@ class DecodeGraphs:
     def __init__(self, params, cfg, kv, batch: int, max_steps: int,
                  write_then_attend: bool, generator: torch.Generator,
                  device: torch.device, use_graphs: bool,
-                 num_top: int = 0) -> None:
+                 num_top: int = 0, mesh=None) -> None:
         self.params, self.cfg, self.kv = params, cfg, kv
+        self.mesh = mesh
         self.B, self.wta, self.generator = batch, write_then_attend, generator
         self.device = device
         self.use_graphs = use_graphs
@@ -391,7 +392,7 @@ class DecodeGraphs:
             logits, kv = transformer.forward_decode(
                 self.params, self.cfg, tok, pos, self.active, self.kv,
                 table, write_then_attend=self.wta, moe_dropped=drops,
-                rope_delta=self.rope_delta)
+                rope_delta=self.rope_delta, mesh=self.mesh)
             if kv[0] is not self.kv[0] or kv[1] is not self.kv[1]:
                 raise RuntimeError("forward_decode replaced the KV pools; "
                                    "the writers must write in place")

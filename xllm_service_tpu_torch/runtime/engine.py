@@ -132,6 +132,23 @@ blamed requests and requeues every survivor for re-prefill with its
 tokens, releasing its pages unregistered and marking the device state
 the runners keep between steps stale, to be rebuilt from host truth.
 
+Under a mesh (``mesh=``, ``parallel/mesh.py``) the engine is one rank
+of a sharded instance: it slices the full parameters to its shard
+(``parallel/sharding.shard_params``), holds its share of the KV pools
+and runs the forwards with its view of the model
+(``shard_config``). Rank 0 schedules; every call it makes on its
+runners that touches their device state is broadcast to the other
+ranks first, which make the same call on theirs
+(``runtime/ranks.py``), so that the collectives inside the forwards
+meet. The sharded steps run eagerly: ``cuda_graphs=True`` or
+``decode_pipeline=True`` with a mesh of several ranks raises, as does
+a host spill tier. With an sp axis, a prompt longer than the largest
+bucket and at most ``sp`` buckets long prefills in ONE ring step
+(``forward_prefill_ring``; ``_ring_eligible``), counted under
+``prefill_ring`` in the step census. The paths this package does not
+shard (PD export and import, the block fetch, the multimodal splice)
+raise under such a mesh.
+
 ``warmup()`` also fills ``roofline``: program -> variant key ->
 {"flops", "bytes", "tokens"} from the analytic count of
 ``models/cost.py``, keyed as the JAX engine keys its ``cost_analysis``
@@ -157,7 +174,9 @@ from xllm_service_tpu_torch.models import cost, transformer
 from xllm_service_tpu_torch.ops.kernels import paged_attention
 from xllm_service_tpu_torch.ops.sampling import (SamplingTensors,
                                                  batch_bias, batch_mode)
-from xllm_service_tpu_torch.runtime import decode_graph, prefill_graph
+from xllm_service_tpu_torch.parallel import sharding
+from xllm_service_tpu_torch.parallel.mesh import AXIS_SP, Mesh
+from xllm_service_tpu_torch.runtime import decode_graph, prefill_graph, ranks
 from xllm_service_tpu_torch.runtime.kv_cache import (HostKvTier,
                                                      KvCacheEvent,
                                                      PageAllocator,
@@ -296,6 +315,26 @@ class StepOutput:
         return self.finish_reason != FinishReason.NONE
 
 
+def _check_mesh_config(ecfg: EngineConfig) -> None:
+    """Refuse what a sharded engine does not run: CUDA graphs (its steps
+    run eagerly: a gloo collective cannot be captured, and NCCL capture
+    needs a machine with several cards to be tried on), the decode
+    pipeline (its rollback restores the generator of rank 0 alone) and
+    the host spill tier (its restores would write rank 0's pools
+    alone)."""
+    if ecfg.cuda_graphs:
+        raise ValueError(
+            "cuda_graphs=True with a mesh of several ranks: the sharded "
+            "engine runs its steps eagerly (set cuda_graphs=False or "
+            "leave it unset)")
+    if ecfg.decode_pipeline:
+        raise ValueError("decode_pipeline=True with a mesh of several "
+                         "ranks: the sharded engine has no pipeline")
+    if ecfg.kv_spill_mb > 0:
+        raise ValueError("the host spill tier is not sharded: "
+                         "kv_spill_mb must be 0 under a mesh")
+
+
 def _pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
@@ -307,18 +346,29 @@ class Engine:
     def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
                  params: Optional[transformer.Params] = None,
                  device="cuda", seed: int = 0,
-                 murmur_seed: int = 0) -> None:
+                 murmur_seed: int = 0, mesh: Optional[Mesh] = None) -> None:
         self.cfg = model_cfg
         self.ecfg = engine_cfg
         self.device = resolve_device(device)
         transformer.check_supported(model_cfg)
+        # A mesh of one rank is no mesh.
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        if self.mesh is not None:
+            _check_mesh_config(engine_cfg)
         if params is None:
             init_gen = torch.Generator(device=self.device).manual_seed(0)
             params = transformer.init_params(model_cfg, init_gen,
                                              self.device)
+        # The rank's view of the model: its heads (the weights' shapes
+        # carry the rest).
+        self.shard_cfg = model_cfg
+        if self.mesh is not None:
+            params = sharding.shard_params(params, self.mesh, model_cfg)
+            self.shard_cfg = sharding.shard_config(model_cfg,
+                                                   self.mesh.spec)
         self.params = params
         self.kv = transformer.init_kv_cache(
-            model_cfg, engine_cfg.num_pages, engine_cfg.page_size,
+            self.shard_cfg, engine_cfg.num_pages, engine_cfg.page_size,
             self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -362,34 +412,45 @@ class Engine:
         # bursts are fused), as the JAX engine resolves them.
         self.decode_steps = max(1, int(engine_cfg.decode_steps))
         dp = engine_cfg.decode_pipeline
+        # Under a mesh the pipeline (whose rollback restores the
+        # generator on rank 0 alone) is off.
         self.decode_pipeline = self.decode_steps > 1 and (
-            dp is None or bool(dp))
+            dp is None or bool(dp)) and self.mesh is None
         if self.device.type == "cuda":
             # The split kernels' tickets at their largest size (a decode
             # step's rows, a ragged launch's), before any capture.
             rows = max(engine_cfg.max_batch_size,
                        min(_pow2(engine_cfg.max_batch_size), 256))
             paged_attention.reserve_tickets(
-                self.device, rows * model_cfg.kv_cache_heads)
-        use_graphs = resolve_cuda_graphs(engine_cfg.cuda_graphs, self.device)
+                self.device, rows * self.shard_cfg.kv_cache_heads)
+        use_graphs = (resolve_cuda_graphs(engine_cfg.cuda_graphs, self.device)
+                      and self.mesh is None)
+        # Sequence-parallel ring prefill, where the mesh has an sp axis.
+        self._sp = self.mesh.size(AXIS_SP) if self.mesh is not None else 1
         # Top-k alternative logprobs computed inside every step (0: none).
         self.num_top = int(engine_cfg.num_top_logprobs)
         self.graphs = decode_graph.DecodeGraphs(
-            self.params, model_cfg, self.kv, engine_cfg.max_batch_size,
+            self.params, self.shard_cfg, self.kv, engine_cfg.max_batch_size,
             self.decode_steps, self.write_then_attend, self.generator,
-            self.device, use_graphs, self.num_top)
+            self.device, use_graphs, self.num_top, mesh=self.mesh)
         # The prefill and ragged steps' runner, in the decode runner's
         # memory pool.
         # Its embedding buffer holds the most rows one step can splice:
         # the windows of a step never exceed the larger of the budget and
         # the largest bucket.
         self.prefill_graphs = prefill_graph.PrefillGraphs(
-            self.params, model_cfg, self.kv,
+            self.params, self.shard_cfg, self.kv,
             _pow2(engine_cfg.max_batch_size), self.write_then_attend,
             self.generator, self.device, use_graphs, self.graphs.pool,
             self.num_top, mm_cap=(0 if model_cfg.mla else max(
                 engine_cfg.max_prefill_tokens, self.step_token_budget,
-                engine_cfg.prefill_buckets[-1])))
+                engine_cfg.prefill_buckets[-1])),
+            mesh=self.mesh, ring=self._sp > 1)
+        if self.mesh is not None and self.mesh.rank == 0:
+            # Rank 0 leads: its runner calls reach every rank.
+            self.graphs = ranks.Mirror(self.graphs, "decode", self.mesh)
+            self.prefill_graphs = ranks.Mirror(self.prefill_graphs,
+                                               "prefill", self.mesh)
         self.mm_spliced_tokens = 0
         # Whether the decode runner's [B, V] output-token counts hold the
         # running batch's histogram (the JAX engine's ``_counts`` is not
@@ -457,10 +518,17 @@ class Engine:
     # ------------------------------------------------------------------
     # Request intake
     # ------------------------------------------------------------------
+    def _refuse_under_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} is not sharded: not available under a mesh of "
+                f"{self.mesh.world} ranks")
+
     def add_request(self, req: EngineRequest) -> None:
         if not req.token_ids:
             raise ValueError("empty prompt")
         if req.mm_embeds is not None:
+            self._refuse_under_mesh("the multimodal splice")
             if self.cfg.mla:
                 raise ValueError("MLA models have no multimodal splice")
             if len(req.mm_positions or ()) != len(req.mm_embeds):
@@ -569,8 +637,11 @@ class Engine:
         """Bytes of one KV page across every layer, K and V (the
         registration record's ``kv_block_bytes``)."""
         k_pages = self.kv[0]
-        return 2 * k_pages.numel() * k_pages.element_size() \
+        per_rank = 2 * k_pages.numel() * k_pages.element_size() \
             // k_pages.shape[1]
+        # The instance's page: every KV head, not this rank's share.
+        return per_rank * self.cfg.kv_cache_heads \
+            // self.shard_cfg.kv_cache_heads
 
     # ------------------------------------------------------------------
     # Pages and slots
@@ -624,6 +695,15 @@ class Engine:
         if self.host_tier is not None and not scored:
             cached_pages, cached_tokens = self._restore_spilled(
                 seq.req.token_ids, cached_pages, cached_tokens)
+        if cached_tokens and self._ring_preferred(seq, cached_tokens):
+            # A cached prefix forces the chunked windows (the ring's
+            # positions start at 0): for a ring-eligible prompt it is
+            # cheaper to recompute the prefix inside the one ring step,
+            # as the JAX engine decides. Also the readmission path of a
+            # preempted long prompt, whose own pages match as a prefix.
+            self.prefix_cache.release_pages(cached_pages)
+            cached_pages, cached_tokens = [], 0
+        cap = self._ring_cap(seq, cached_tokens, cap)
         window = min(len(seq.tokens) - cached_tokens, cap)
         need = max(self._pages_needed(self._window_pages_covered(
             seq, window, cached_tokens)) - len(cached_pages), 0)
@@ -866,7 +946,8 @@ class Engine:
         # through the split sections.
         decode_seqs = [s for s in self.running
                        if s.status == SeqStatus.RUNNING]
-        if not decode_seqs or batch[0].req.prompt_logprobs:
+        if not decode_seqs or batch[0].req.prompt_logprobs or \
+                batch[0].sched_window > self.ecfg.prefill_buckets[-1]:
             if self.running:
                 self._decode_section(outs)
             self._prefill_section(batch, outs)
@@ -894,6 +975,36 @@ class Engine:
     # keeps its place and retries first on the next step.
     _ADMIT_SKIP_AHEAD = 4
 
+    def _ring_eligible(self, seq: Sequence, start: int) -> bool:
+        """Whether the whole prompt prefills in one ring step, as the JAX
+        engine decides: an sp axis, from position 0 (no cached prefix),
+        no window, Gemma, MLA or GPT-OSS layer, no multimodal splice, no
+        prompt scores, and longer than the largest bucket but within sp
+        of them."""
+        cap1 = self.ecfg.prefill_buckets[-1]
+        return (self._sp > 1 and start == 0
+                and not self.cfg.sliding_window and not self.cfg.gemma
+                and not self.cfg.mla and not self.cfg.gptoss
+                and seq.req.mm_embeds is None
+                and not seq.req.prompt_logprobs
+                and cap1 < len(seq.tokens) <= cap1 * self._sp)
+
+    def _ring_preferred(self, seq: Sequence, cached_tokens: int) -> bool:
+        """Forgoing a cached prefix to ring the whole prompt wins while
+        the ring's per-rank work (len / sp) is below the chunked path's
+        remaining work (len - cached)."""
+        n = len(seq.tokens)
+        return (self._ring_eligible(seq, 0)
+                and n / max(self._sp, 1) < n - cached_tokens)
+
+    def _ring_cap(self, seq: Sequence, start: int, cap: int) -> int:
+        """A window cap of ``sp`` buckets for a ring-eligible prompt
+        (exempt from an interleaved budget: its one step is the whole
+        prompt), else ``cap``."""
+        if self._ring_eligible(seq, start):
+            return self.ecfg.prefill_buckets[-1] * self._sp
+        return cap
+
     def _window_cap(self, budget: Optional[int]) -> int:
         """Largest window one prefill step takes: the largest bucket, or
         under an interleaved ``budget`` the largest bucket not above it
@@ -916,16 +1027,18 @@ class Engine:
         if budget is None:
             budget = self.ecfg.max_prefill_tokens
         skipped = 0
+        cap1 = self.ecfg.prefill_buckets[-1]
         for seq in list(self.waiting):
             cap = self._window_cap(budget if interleaved else None)
-            window = min(len(seq.tokens) - seq.num_computed, cap)
+            window = min(len(seq.tokens) - seq.num_computed,
+                         self._ring_cap(seq, seq.num_computed, cap))
             if window <= 0:
                 break               # residual below the smallest bucket
             if batch and window > budget:
                 break
-            if seq.req.prompt_logprobs and batch:
-                break               # a prompt-scored window runs alone
-            if seq.slot < 0:
+            if batch and (window > cap1 or seq.req.prompt_logprobs):
+                break               # a ring or prompt-scored window
+            if seq.slot < 0:        # runs alone
                 if not self._try_admit(seq, cap):
                     if self._free_slot() < 0 or \
                             skipped >= self._ADMIT_SKIP_AHEAD:
@@ -934,7 +1047,8 @@ class Engine:
                     continue        # pages short: try the next prompt
                 # The window starts past the cached prefix: the budget
                 # is charged, and the executor runs, only what is left.
-                window = min(len(seq.tokens) - seq.num_computed, cap)
+                window = min(len(seq.tokens) - seq.num_computed,
+                             self._ring_cap(seq, seq.num_computed, cap))
             elif not self._ensure_pages(
                     seq, self._window_pages_covered(seq, window)):
                 continue            # preempted itself: waits, slotless
@@ -942,7 +1056,7 @@ class Engine:
             budget -= window
             self.waiting.remove(seq)
             batch.append(seq)
-            if seq.req.prompt_logprobs:
+            if seq.req.prompt_logprobs or window > cap1:
                 break
             if budget <= 0 or len(batch) >= self.ecfg.max_batch_size:
                 break
@@ -1069,6 +1183,8 @@ class Engine:
 
     def _run_prefill(self, batch: List[Sequence]) -> List[StepOutput]:
         windows = [s.sched_window for s in batch]
+        if windows[0] > self.ecfg.prefill_buckets[-1]:
+            return self._run_prefill_ring(batch[0], windows[0])
         res = self._forward_windows(
             batch, [(s.num_computed, w) for s, w in zip(batch, windows)],
             ragged=False)
@@ -1102,6 +1218,34 @@ class Engine:
                 seq, res.tokens[i], res.logprobs[i],
                 self._top_entry(seq, res.tops, i)))
         outs.extend(self._finish_windows(batch, windows, res, nd))
+
+    def _run_prefill_ring(self, seq: Sequence, window: int
+                          ) -> List[StepOutput]:
+        """One ring prefill step for a whole long prompt
+        (``_ring_eligible`` makes ``window`` the whole prompt), as the
+        JAX engine's ``_run_prefill_ring``: the sequence pads to sp x
+        the bucket of window / sp so that every rank holds an equal
+        block; the token is sampled in the step."""
+        sp = self._sp
+        T = self._bucket(-(-window // sp)) * sp
+        MP = _pow2(max(len(seq.pages),
+                       self._pages_needed(window + 1)))
+        params = [seq.req.sampling]
+        bias = batch_bias(params, 1, self.cfg.vocab_size)
+        K = bias[0].shape[1]
+        self.prefill_graphs.stage((1, T, MP, K, False, False),
+                                  prefill_graph.pack(
+            (1, T, MP), [(seq.tokens[:window], 0, seq.pages)],
+            SamplingTensors.pack_batch(params), bias))
+        greedy_only, seeded = batch_mode(params)
+        res = self.prefill_graphs.launch(
+            prefill_graph.Key("prefill_ring", 1, T, MP, greedy_only, seeded,
+                              K),
+            want_top=self._want_top([seq]))
+        self.last_step_attn_dispatches += 1
+        self._note_moe_dropped(res.dropped)
+        self._counts_valid = False
+        return self._finish_windows([seq], [window], res, 0)
 
     def _finish_windows(self, batch: List[Sequence], windows: List[int],
                         res: prefill_graph.Result, first: int
@@ -1693,8 +1837,10 @@ class Engine:
         step is on."""
         rep = self.capture_report()
         return {p: rep[p]["captured"]
-                for p in ("prefill", "ragged", "decode", "decode_multi")
-                if p != "ragged" or self.ragged}
+                for p in ("prefill", "ragged", "prefill_ring", "decode",
+                          "decode_multi")
+                if (p != "ragged" or self.ragged)
+                and (p != "prefill_ring" or self._sp > 1)}
 
     def _append_token(self, seq: Sequence, tok: int, logprob: float,
                       top: Optional[List[List[Dict[str, Any]]]] = None
@@ -1732,6 +1878,7 @@ class Engine:
         writes it in its first step). On the engine's device with
         ``device=True`` (the co-hosted direct path and the device wire),
         else on the CPU. None when nothing is held under the id."""
+        self._refuse_under_mesh("the PD export")
         seq = self._held.pop(request_id, None)
         if seq is None:
             return None
@@ -1769,6 +1916,7 @@ class Engine:
         in the prefix cache. False, with nothing changed, when the layout
         differs from this engine's or no slot or pages are free: the
         caller decodes elsewhere."""
+        self._refuse_under_mesh("the PD import")
         self.drain_pipeline()
         n_pages = self._pages_needed(len(tokens))
         k_pages, v_pages = self.kv
@@ -1828,6 +1976,7 @@ class Engine:
         device's default stream, the one the engine loop's steps and
         graph replays run on), so it is ordered before any later write
         of a reclaimed page by the same stream."""
+        self._refuse_under_mesh("the block export")
         pages = self.prefix_cache.pages_for_hashes(hashes)
         n_pool = len(pages)
         k = v = None
@@ -1874,6 +2023,7 @@ class Engine:
         The adopted pages belong to no sequence, so nothing a runner
         stages changes; the next admission's page table is packed whole
         into the prefill runner's buffer."""
+        self._refuse_under_mesh("the block adoption")
         self.drain_pipeline()
         k_pages, v_pages = self.kv
         n = int(k.shape[1]) if len(getattr(k, "shape", ())) == 5 else 0

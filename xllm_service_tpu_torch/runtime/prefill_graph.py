@@ -40,6 +40,12 @@ behind a CUDA event. The graphs share the decode runner's memory pool:
 no two run at once, and each launch queues its outputs' host copy
 before the next replay can reuse the pool's memory.
 
+A ``prefill_ring`` key (one row, T a multiple of the mesh's sp size,
+from position 0) runs ``forward_prefill_ring`` over the same packed
+buffer, eagerly: it exists only under a mesh, whose steps run eager
+(``runtime/engine.py``); ``programs()`` counts it under its own kind
+where the runner was made with ``ring``.
+
 A capture that fails raises: nothing falls back to eager steps on CUDA.
 Steps run eagerly, through the same body and buffers, only where graphs
 are off (the CPU, ``EngineConfig.cuda_graphs=False``); ``programs()``
@@ -66,6 +72,7 @@ from xllm_service_tpu_torch.runtime.decode_graph import (
 Shape = Tuple[int, int, int]            # (B, T, MP)
 InShape = Tuple[int, int, int, int, bool, bool]   # (B, T, MP, K, plp, mm)
 KINDS = ("prefill", "ragged")
+RING = "prefill_ring"
 
 
 class Key(NamedTuple):
@@ -180,8 +187,11 @@ class PrefillGraphs:
     def __init__(self, params, cfg, kv, max_rows: int,
                  write_then_attend: bool, generator: torch.Generator,
                  device: torch.device, use_graphs: bool, pool,
-                 num_top: int = 0, mm_cap: int = 0) -> None:
+                 num_top: int = 0, mm_cap: int = 0, mesh=None,
+                 ring: bool = False) -> None:
         self.params, self.cfg, self.kv = params, cfg, kv
+        self.mesh = mesh
+        self.kinds = KINDS + ((RING,) if ring else ())
         # Every key of an mrope model splices (and carries rope streams).
         self.mrope = cfg.is_mrope
         self.mm_cap = mm_cap
@@ -205,7 +215,7 @@ class PrefillGraphs:
         # The keys captured after warmup, and the eager steps by kind.
         self.late: List[Key] = []
         self.eager_steps: Dict[str, Dict[str, int]] = {
-            kind: collections.Counter() for kind in KINDS}
+            kind: collections.Counter() for kind in self.kinds}
 
     # ------------------------------------------------------------------
     # Static inputs
@@ -277,19 +287,14 @@ class PrefillGraphs:
             field("i32").view(B, 2))
         drops = (torch.zeros((1,), dtype=torch.int64, device=self.device)
                  if self.count_drops else None)
-        ragged = key.kind == "ragged"
         start, lengths = field("start"), field("lengths")
-        res = transformer.forward_prefill(
-            self.params, self.cfg, field("tokens").view(B, T).long(),
-            start, lengths, self.kv, field("table").view(B, key.MP),
-            ragged=ragged, write_then_attend=ragged or self.wta,
-            moe_dropped=drops,
-            prompt_lp_targets=(field("targets").view(B, T) if key.plp
-                               else None),
-            mm_embeds=self._mm_buffer() if key.mm else None,
-            mm_index=field("mm_index").view(B, T) if key.mm else None,
-            rope_pos=(field("rope_pos").view(B, 3, T) if self.mrope
-                      else None))
+        if key.kind == RING:
+            res = transformer.forward_prefill_ring(
+                self.params, self.cfg, field("tokens").view(B, T).long(),
+                lengths, self.kv, field("table").view(B, key.MP), self.mesh,
+                moe_dropped=drops)
+        else:
+            res = self._forward(key, field, drops)
         logits, kv = res[0], res[1]
         if kv[0] is not self.kv[0] or kv[1] is not self.kv[1]:
             raise RuntimeError("forward_prefill replaced the KV pools; "
@@ -305,6 +310,24 @@ class PrefillGraphs:
             top_ids, top_lps = compute_top_logprobs(logits, self.num_top)
         return Outputs(tokens, compute_logprobs(logits, tokens), drops,
                        top_ids, top_lps, res[2] if key.plp else None)
+
+    def _forward(self, key: Key, field, drops):
+        """The prefill or ragged forward of ``key`` over the staged
+        fields."""
+        B, T = key.B, key.T
+        ragged = key.kind == "ragged"
+        return transformer.forward_prefill(
+            self.params, self.cfg, field("tokens").view(B, T).long(),
+            field("start"), field("lengths"), self.kv, field("table").view(B, key.MP),
+            ragged=ragged, write_then_attend=ragged or self.wta,
+            moe_dropped=drops,
+            prompt_lp_targets=(field("targets").view(B, T) if key.plp
+                               else None),
+            mm_embeds=self._mm_buffer() if key.mm else None,
+            mm_index=field("mm_index").view(B, T) if key.mm else None,
+            rope_pos=(field("rope_pos").view(B, 3, T) if self.mrope
+                      else None),
+            mesh=self.mesh)
 
     # ------------------------------------------------------------------
     # Capture and launch
@@ -381,7 +404,7 @@ class PrefillGraphs:
             return (f"b{k.B}_t{k.T}_mp{k.MP}_"
                     f"{variant(k.greedy, k.seeded, False, k.bias_k)}"
                     + ("_echo" if k.plp else "") + ("_mm" if k.mm else ""))
-        return program_census(list(self.graphs.items()), KINDS,
+        return program_census(list(self.graphs.items()), self.kinds,
                               lambda k: k.kind, name, list(self.late),
                               self.eager_steps)
 

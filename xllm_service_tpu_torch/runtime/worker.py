@@ -308,7 +308,10 @@ from xllm_service_tpu_torch.ops import kernels
 from xllm_service_tpu_torch.runtime.engine import (Engine, EngineRequest,
                                                    StepOutput,
                                                    resolve_device)
-from xllm_service_tpu_torch.runtime import checkpoint, kv_wire, multimodal
+from xllm_service_tpu_torch.parallel.mesh import (MeshSpec, default_backend,
+                                                  make_mesh)
+from xllm_service_tpu_torch.runtime import (checkpoint, kv_wire, multimodal,
+                                            ranks)
 from xllm_service_tpu_torch.runtime.kv_cache import (KvCacheEvent,
                                                      decode_kv_blob,
                                                      encode_kv_block)
@@ -448,6 +451,19 @@ class WorkerOptions:
     # :139-142; 0 = none), read live: past it a /v1/* request gets a 503
     # with Retry-After, which the master re-dispatches elsewhere.
     max_concurrency: int = 128
+    # The expert degree of the mesh (tp, dp and sp are the engine
+    # config's): a mesh of several ranks is one process per rank
+    # (``runtime/ranks.py``).
+    ep: int = 1
+    # A world the caller started, one process per rank (JAX worker
+    # --dist-*): process 0 is this worker, every other process id runs
+    # the follower loop. '' = this worker starts its other ranks itself.
+    dist_coordinator: str = ""
+    dist_num_processes: int = 0
+    dist_process_id: int = -1
+    # The collectives' backend: '' = nccl on CUDA, gloo on the CPU. Two
+    # ranks on one card need gloo (NCCL refuses them).
+    dist_backend: str = ""
 
 
 class HttpError(Exception):
@@ -816,8 +832,10 @@ class ModelRuntime:
     def __init__(self, model: str, model_cfg: ModelConfig,
                  engine_cfg: EngineConfig, device, murmur_seed: int = 0,
                  params: Optional[Params] = None,
-                 start_asleep: bool = False, model_dir: str = "") -> None:
+                 start_asleep: bool = False, model_dir: str = "",
+                 mesh=None) -> None:
         self.model = model
+        self.mesh = mesh
         self.model_cfg = model_cfg
         self.engine_cfg = engine_cfg
         self.device = resolve_device(device)
@@ -865,7 +883,8 @@ class ModelRuntime:
         """A new engine on ``params`` (None: random from seed 0, as the
         JAX engine's without a checkpoint)."""
         return Engine(self.model_cfg, self.engine_cfg, params=params,
-                      device=self.device, murmur_seed=self.murmur_seed)
+                      device=self.device, murmur_seed=self.murmur_seed,
+                      mesh=self.mesh)
 
     def sleep(self) -> None:
         """Park the parameters in host memory, bit for bit (pinned on a
@@ -875,6 +894,9 @@ class ModelRuntime:
         alive are collected and the freed blocks go back to the card."""
         if self.state == MODEL_ASLEEP:
             return
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "sleep/wake is not sharded: not available under a mesh")
         t0 = time.perf_counter()
         eng = self.engine
         if eng is not None:
@@ -973,16 +995,19 @@ class Worker:
         # Held across an engine step and a vision tower run: a tower's
         # kernels never interleave with a graph capture.
         self._engine_lock = make_lock("worker.engine", 20)
+        model_cfg = model_cfg or resolve_model_config(opts.model,
+                                                      opts.model_dir)
+        # The mesh, rank 0's side (the followers started, or joined).
+        self.mesh, self._rank_procs = self._join_mesh(model_cfg, params)
+        self._mesh_down = False
         # One runtime per model; the primary first. Its engine first:
         # without the device it raises before any socket is bound.
         self.runtimes: Dict[str, ModelRuntime] = {
             opts.model: ModelRuntime(
-                opts.model,
-                model_cfg or resolve_model_config(opts.model,
-                                                  opts.model_dir),
-                self.engine_cfg, self.device, murmur_seed=opts.murmur_seed,
-                params=params, model_dir=opts.model_dir,
-                start_asleep=opts.encode_only)}
+                opts.model, model_cfg, self.engine_cfg, self.device,
+                murmur_seed=opts.murmur_seed, params=params,
+                model_dir=opts.model_dir, start_asleep=opts.encode_only,
+                mesh=self.mesh)}
         self._init_encode_plane(vision_tower)
         if self._should_warmup() and self.engine is not None:
             secs = self.warmup()
@@ -1378,6 +1403,69 @@ class Worker:
             t.join(timeout=30.0)
         if self.store is not None:
             self.store.close()
+        self._leave_mesh()
+
+    def _join_mesh(self, model_cfg: ModelConfig, params: Optional[Params]):
+        """Rank 0's mesh for the engine config's tp, dp and sp and the
+        options' ep, or (None, []) for one rank: a world started by the
+        caller (``dist_coordinator``), or ranks 1 .. n-1 started here on
+        the devices ``ranks.plan_devices`` gives them."""
+        ecfg, opts = self.engine_cfg, self.opts
+        spec = MeshSpec(dp=ecfg.dp, ep=opts.ep, sp=ecfg.sp, tp=ecfg.tp)
+        if spec.num_devices == 1:
+            return None, []
+        if opts.encode_only:
+            raise NotImplementedError(
+                "the encode role is not sharded: not available under a "
+                "mesh")
+        if opts.dist_coordinator:
+            if opts.dist_num_processes not in (0, spec.num_devices):
+                raise ValueError(
+                    f"--dist-num-processes {opts.dist_num_processes} is "
+                    f"not the mesh's {spec.num_devices} ranks")
+            if opts.dist_process_id not in (-1, 0):
+                raise ValueError("a worker is process 0; other process "
+                                 "ids run the follower loop")
+            return make_mesh(spec, 0, self.device, opts.dist_backend or None,
+                             f"tcp://{opts.dist_coordinator}"), []
+        return ranks.start_mesh(spec, model_cfg, ecfg, self.device,
+                                opts.dist_backend, params=params,
+                                model_dir=opts.model_dir,
+                                murmur_seed=opts.murmur_seed)
+
+    def _leave_mesh(self) -> None:
+        """Release the followers and leave the world (after the engine
+        loop stopped: no step broadcast is in flight). A world the
+        engine loop tore down (``_mesh_fault``) is gone already."""
+        if self.mesh is None or self._mesh_down:
+            return
+        mesh, self.mesh = self.mesh, None
+        try:
+            ranks.stop_followers(mesh)
+        finally:
+            ranks.stop_processes(self._rank_procs)
+            mesh.close()
+
+    def _mesh_fault(self, message: str,
+                    exc: Optional[BaseException] = None) -> None:
+        """A step failed on some rank of the mesh, or a follower exited:
+        the ranks are out of step, so nothing is contained. Every
+        request fails (with the follower that exited named, if one
+        did), the engine loop ends and the world is torn down
+        (``ranks.abort``)."""
+        if exc is not None:
+            lost = ranks.lost_follower(self._rank_procs, wait_s=0.5)
+            message = f"{message}: {exc!r}" + (f" (mesh {lost})"
+                                               if lost else "")
+        logger.error("%s; the mesh is torn down", message, exc_info=exc)
+        with self._engine_lock:
+            self._mesh_down = True
+            ranks.abort(self.mesh, self._rank_procs)
+        self._engine_loop_alive = False
+        for rt in self.runtimes.values():
+            self._m_alive.set(0, model=rt.model)
+            self._m_faults.inc(model=rt.model, outcome="uncontained")
+        self._fail_all(message)
 
     def serve_forever(self) -> None:
         """Block until ``stop`` (from another thread or a signal)."""
@@ -1398,7 +1486,8 @@ class Worker:
             name=self.name, rpc_address=self.name,
             instance_type=self.instance_type,
             models=[m for m, rt in self.runtimes.items()
-                    if rt.state == MODEL_AWAKE], dp_size=1,
+                    if rt.state == MODEL_AWAKE],
+            dp_size=self.engine_cfg.dp,
             memory_budget_gb=self.opts.memory_budget_gb,
             k_cache_ids=layers, v_cache_ids=list(layers),
             addrs=[self.name],
@@ -1987,6 +2076,8 @@ class Worker:
         inside the step fault boundary; wait for work when none has any.
         Ends, visibly, when the breaker opens."""
         while not self._stop.is_set():
+            if self.mesh is not None and not self._mesh_idle():
+                return
             busy = False
             for rt in list(self.runtimes.values()):
                 stepped = self._step_runtime(rt)
@@ -1996,6 +2087,24 @@ class Worker:
             if not busy:
                 self._work.wait(timeout=0.05)
                 self._work.clear()
+
+    def _mesh_idle(self) -> bool:
+        """Between steps under a mesh: False (the world torn down) when a
+        follower this worker started has exited or the keep-alive
+        failed; else the keep-alive sent when due, True."""
+        lost = ranks.lost_follower(self._rank_procs)
+        if not lost:
+            if not ranks.keepalive_due(self.mesh):
+                return True
+            try:
+                with self._engine_lock:
+                    ranks.keepalive(self.mesh)
+                return True
+            except Exception as exc:  # noqa: BLE001 — a lost peer
+                self._mesh_fault("mesh keep-alive failed", exc)
+                return False
+        self._mesh_fault(f"mesh {lost}")
+        return False
 
     def _step_runtime(self, rt: ModelRuntime) -> Optional[bool]:
         """One step of ``rt``'s engine, its outputs and records: None when
@@ -2025,6 +2134,11 @@ class Worker:
                     fault = exc           # fault boundary, below
                 step_ms = (time.perf_counter() - t0) * 1e3
             self._push_outputs_to_service(adopted)
+            if fault is not None and self.mesh is not None:
+                self._record_step(rt, eng, step_ms, phase="fault")
+                self._mesh_fault(f"engine step failed under a "
+                                 f"{self.mesh.world}-rank mesh", fault)
+                return False
             if fault is not None:
                 # Contain, attribute, resume; or, with the breaker open,
                 # die visibly.
@@ -4066,6 +4180,10 @@ class Worker:
         for i, ids in enumerate(id_lists):
             toks[i, :len(ids)] = ids
             lens[i] = len(ids)
+        if rt.mesh is not None:
+            return _Reply.error(501, "/v1/embeddings is not sharded: not "
+                                     "available under a mesh",
+                                "not_implemented")
         with self._engine_lock, torch.inference_mode():
             eng = rt.engine
             if eng is None:
@@ -4436,6 +4554,22 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--role", default="", choices=["", "encode"],
                    help="encode: serve the vision tower only (the model "
                         "sleeps; registers as ENCODE)")
+    # The mesh (parallel/mesh.py): one process per rank; without
+    # --dist-* this worker starts its other ranks itself.
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--dp", type=int, default=1)
+    p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--ep", type=int, default=1)
+    p.add_argument("--dist-coordinator", default="",
+                   help="host:port of process 0's rendezvous (a world "
+                        "started by the caller; '' = this worker starts "
+                        "its ranks)")
+    p.add_argument("--dist-num-processes", type=int, default=0)
+    p.add_argument("--dist-process-id", type=int, default=-1,
+                   help="this process's rank; > 0 runs the follower loop")
+    p.add_argument("--dist-backend", default="", choices=["", "nccl", "gloo"],
+                   help="collectives' backend ('' = nccl on CUDA, gloo on "
+                        "the CPU; two ranks on one card need gloo)")
     return p.parse_args(argv)
 
 
@@ -4446,14 +4580,7 @@ def build_worker(args: argparse.Namespace,
     weights to serve instead of random ones from the engine's seed;
     ``model_cfg``: the model to serve instead of the one ``--model`` and
     ``--model-dir`` resolve to)."""
-    ecfg = EngineConfig(
-        page_size=args.page_size, num_pages=args.num_pages,
-        max_model_len=args.max_model_len,
-        max_batch_size=args.max_batch_size,
-        max_prefill_tokens=args.max_prefill_tokens,
-        prefill_buckets=tuple(int(b) for b in
-                              args.prefill_buckets.split(",") if b),
-        decode_steps=args.decode_steps)
+    ecfg = engine_config(args)
     opts = WorkerOptions(
         host=args.host, port=args.port, model=args.model,
         model_dir=args.model_dir, device=args.device, warmup=args.warmup,
@@ -4464,13 +4591,52 @@ def build_worker(args: argparse.Namespace,
         pd_device_wire=args.pd_device_wire,
         enable_profiling=args.enable_profiling,
         encode_only=args.role == "encode",
-        max_concurrency=args.max_concurrency)
+        max_concurrency=args.max_concurrency, ep=args.ep,
+        dist_coordinator=args.dist_coordinator,
+        dist_num_processes=args.dist_num_processes,
+        dist_process_id=args.dist_process_id,
+        dist_backend=args.dist_backend)
     return Worker(opts, engine_cfg=ecfg, model_cfg=model_cfg, params=params)
 
 
+def engine_config(args: argparse.Namespace) -> EngineConfig:
+    """The engine config the CLI's arguments name."""
+    return EngineConfig(
+        page_size=args.page_size, num_pages=args.num_pages,
+        max_model_len=args.max_model_len,
+        max_batch_size=args.max_batch_size,
+        max_prefill_tokens=args.max_prefill_tokens,
+        prefill_buckets=tuple(int(b) for b in
+                              args.prefill_buckets.split(",") if b),
+        decode_steps=args.decode_steps, tp=args.tp, dp=args.dp, sp=args.sp)
+
+
+def run_rank(args: argparse.Namespace) -> int:
+    """A process of a caller-started world whose id is not 0: build its
+    shard of the model the arguments name and follow process 0."""
+    ecfg = engine_config(args)
+    spec = MeshSpec(dp=args.dp, ep=args.ep, sp=args.sp, tp=args.tp)
+    if args.dist_num_processes not in (0, spec.num_devices):
+        raise ValueError(f"--dist-num-processes {args.dist_num_processes} "
+                         f"is not the mesh's {spec.num_devices} ranks")
+    devices = [args.device] * spec.num_devices
+    launch = ranks.Launch(
+        resolve_model_config(args.model, args.model_dir), ecfg, spec,
+        devices, args.dist_backend or default_backend(args.device),
+        f"tcp://{args.dist_coordinator}", model_dir=args.model_dir,
+        murmur_seed=args.murmur_seed)
+    calls = ranks.run_follower(launch, args.dist_process_id)
+    logger.info("rank %d: followed %d runner calls", args.dist_process_id,
+                calls)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
-    w = build_worker(parse_args(argv))
+    args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    if args.dist_coordinator and args.dist_process_id > 0:
+        return run_rank(args)
+    w = build_worker(args)
     w.start()
     print(f"XLLM_TORCH_WORKER_UP http={w.name}", flush=True)
 
