@@ -423,7 +423,20 @@ Phases (any failure raises and the exit code is not 0):
    streams and ``moe_dropped`` against the unsharded engine, the MLA
    prefill calls past the 64 MiB cut through ``mha_prefill_chunked``,
    its error against the dense form). K3 and K4 at the tp = 2 rank's
-   shapes are timed as ``*_tp2`` records. At most 150 s.
+   shapes are timed as ``*_tp2`` records. Then the sharded worker's KV
+   plane and fault boundary on the tp = 2 worker, behind the port's
+   master: ``[parallel-fetch]`` (it holds a 1,024-token prefix that an
+   unsharded requester fetches, bit-equal to its ranks' pool shares
+   joined; TTFT fetched against recomputed), ``[parallel-spill]`` (a
+   prefix spilled to the host tier and restored: the stream equal, each
+   spill's and restore's ms with the gather's and scatter's part),
+   ``[parallel-fault]`` (``worker.fault_step_req`` fails only its
+   request; a raise planted in rank 0's sharded MLP re-forms the world
+   at epoch 1 with rank 1's process unchanged, and the batch is served)
+   and ``[parallel-pd]`` (a PD prefill feeding an unsharded decode
+   worker over the bytes path and the CUDA IPC wire, then the reverse:
+   KV bytes a request, the handoff's ms and the gather's and scatter's
+   share). At most 120 s.
 18. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
    writers' launches from phase 5 (K1/K2 now 0), K5 from 5b, K6 (now 0),
    K7, K3', K4' and the dense all-layer mode from 5c, K3'' and the fused
@@ -8810,7 +8823,7 @@ PAR_ENV = {"XLLM_RAGGED_ATTN": "0", "XLLM_WRITE_THEN_ATTEND": "1",
 PAR_ARGS = SERVE_ARGS + ["--dist-backend", "gloo", "--no-warmup"]
 PAR_RING_CHARS = 900                    # one ring prompt: > 512, <= 1024
 PAR_DS_LONG = (1800, 1790)              # DeepSeek prompts, 512-token windows
-PAR_BUDGET_S = 150.0
+PAR_BUDGET_S = 120.0
 
 
 def _par_engine_cfg(**kw):
@@ -8985,91 +8998,617 @@ def check_ring_step(row, census, layers: int) -> dict:
     return got
 
 
-def parallel_phase(torch, kernels, card: str, err: float,
-                   err_mla: float) -> dict:
-    """Phase 17: the sharded paths on the one card, two ranks each over
-    gloo (collectives staged through the host), eager steps.
+# ---------------------------------------------------------------------------
+# Phase 17 d-g: the sharded worker's KV plane and step fault boundary
+# ---------------------------------------------------------------------------
 
-    a. llama3-1b at full width and depth at tp = 2 behind a worker
-       (``--tp 2 --dist-backend gloo``; rank 1 a child it starts): phase
-       5's four requests; every step's launches exactly (the fused
-       writer and K3/K4 at the shard's 16 query and 4 KV heads), rank 1
-       launching what rank 0 did; collectives a forward and the staged
-       all-reduce's ms; rank 0's prefill and decode logits against the
-       unsharded forward on the same weights (rel L2 under
-       ``FORWARD_REL_L2``); the four streams against an unsharded eager
-       engine's (equal, or drift under the margins rule), and the eager
-       decode step beside the unsharded eager one.
-    b. sp = 2 on llama3-1b: a ~900-token prompt in one ``prefill_ring``
-       step (the step census; per rank the fused rope writer in its
-       pool-less form x 16 and K7 once, nothing else), its first token
-       and its logits against the unsharded engine's chunked windows;
-       the ring step's ms.
-    c. DeepSeek-V2-Lite at its published widths and
-       ``DEEPSEEK_SERVE_LAYERS`` layers at ep = 2 (32 experts a rank):
-       four requests, then two ~1,800-token prompts in 512-token
-       windows; streams and ``moe_dropped`` against the unsharded
-       engine's on the same weights, every step's launches exactly, and
-       the MLA prefill calls that took ``mha_prefill_chunked`` (past the
-       64 MiB cut) counted per rank, with the chunked form's largest
-       error against the dense ``mha_prefill`` at such a call's shape.
-    """
-    import dataclasses as dc
-    import numpy as np
-    from xllm_service_tpu_torch.config import ModelConfig
+# Round a's tp = 2 worker, registered with the port's master, serves
+# rounds d-g too: a 40-page pool (a 1,024-token prefix, then three
+# fillers of ~1,900 tokens spill it) with phase 7b's host tier.
+PAR_KV_ARGS = ["--num-pages", "40", "--max-model-len", "2048",
+               "--heartbeat-interval-s", "0.5"]
+PAR_KV_ENV = {"XLLM_KV_SPILL_MB": "160"}
+PAR_FILLERS = (1900, 1890, 1880)
+# The holder's cold request's tail, then the requests through the
+# master (round robin: one of them lands on the requester).
+PAR_FETCH_TAILS = (20, 40, 60, 80, 100)
+# New tokens a request in rounds d-f (the tp = 2 worker's eager decode
+# step took 0.1-0.2 s with both ranks on one NVIDIA H100 80GB HBM3 at
+# 700.00 W).
+PAR_KV_TOKENS = 8
+PAR_FAULT_TOKENS = 16
+# Round d's handoffs over the CUDA IPC wire (a rehearsal on the CPU,
+# which has no wire, sets it False).
+PAR_WIRE = True
+
+
+def _par_wait(cond, timeout: float, what: str):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = cond()
+        if got:
+            return got
+        time.sleep(0.05)
+    got = cond()
+    if not got:
+        raise AssertionError(f"phase 17: {what} not within {timeout:g} s")
+    return got
+
+
+class ParPlane:
+    """Phase 17's cluster: the port's store and master as children (round
+    robin, block size 128, a fetch priced to win: ``FETCH_MASTER_ENV``),
+    and U, an unsharded llama3-1b worker (graphs off, no warmup) in a
+    child process registered DECODE, which starts in a thread
+    (``start_u``) while the caller runs other rounds. ``close`` stops
+    every worker in ``workers``, U, the master and the store."""
+
+    def __init__(self, logs: Path) -> None:
+        self.logs, self.procs, self.workers = logs, [], []
+        self._u, self._thread = {}, None
+        store = RefProcess(["xllm_service_tpu_torch.service.coordination_net",
+                            "--port", "0"], "coordination store serving on",
+                           logs / "store.log")
+        self.procs.append(store)
+        self.store = store.line.split()[-1]
+        master, self.m_http, self.m_rpc = start_master(
+            self.store, False, logs / "master.log", env=FETCH_MASTER_ENV)
+        self.procs.append(master)
+
+    def start_u(self) -> None:
+        """Start U in a thread (``u`` waits for it)."""
+        argv = ["xllm_service_tpu_torch.runtime.worker", "--model",
+                "llama3-1b", "--device", PAR_DEVICE, *SERVE_ARGS,
+                *PAR_KV_ARGS, "--no-warmup", *self.registration("DECODE")]
+        guard_child_argv(argv)
+
+        def run() -> None:
+            try:
+                self._u["proc"] = RefProcess(
+                    argv, "XLLM_TORCH_WORKER_UP",
+                    self.logs / "decode_child.log", timeout=300.0,
+                    env=PAR_ENV)
+            except Exception as e:  # noqa: BLE001 — raised by ``u``
+                self._u["error"] = e
+        self._thread = threading.Thread(target=run)
+        self._thread.start()
+
+    def registration(self, role: str) -> list:
+        return ["--instance-type", role, "--store-addr", self.store,
+                "--service-addr", self.m_rpc]
+
+    def u(self):
+        """U's process and address, once it is up."""
+        if self._thread is None:
+            self.start_u()
+        self._thread.join(timeout=330.0)
+        if "proc" not in self._u:
+            raise AssertionError(f"phase 17: U did not start: "
+                                 f"{self._u.get('error')}")
+        return self._u["proc"], self._u["proc"].line.split("http=")[-1]
+
+    def lists(self):
+        return tuple(_get(self.m_rpc, f"/rpc/static_{kind}_list")[1].get(
+            "instances") for kind in ("prefill", "decode"))
+
+    def close(self) -> None:
+        for w in self.workers:
+            w.stop()
+        if self._thread is not None:
+            self._thread.join(timeout=330.0)
+        for p in [self._u.get("proc")] + self.procs[::-1]:
+            if p is not None:
+                p.stop()
+
+
+def _par_flip(addr: str, role: str) -> None:
+    st = {}
+    _request(addr, "/flip_role", {"instance_type": role}, False, st)
+    if st.get("status") != 200:
+        raise AssertionError(f"phase 17: /flip_role {role} on {addr}: {st}")
+
+
+def _par_body(ids, n: int, **extra) -> dict:
+    """A streamed greedy chat on ``ids`` for ``n`` tokens, its frames
+    carrying their token ids (``ledger_tokens``)."""
+    return {**_chat_body(ids), "max_tokens": n, "ledger_tokens": True,
+            **extra}
+
+
+def _par_reply(r, n: int, tag: str):
+    """A streamed reply's token ids and first-token ms (``n`` tokens)."""
+    if r.get("status") != 200:
+        raise AssertionError(f"phase 17 {tag}: reply {r.get('status')}: "
+                             f"{r}")
+    _, lps, idx, usage = stream_tokens(r["frames"])
+    ids = [t for f in r["frames"][:-1]
+           for t in (json.loads(f[6:]).get("xllm") or {}).get("token_ids",
+                                                              [])]
+    if not usage or usage["completion_tokens"] != n or len(lps) != n:
+        raise AssertionError(f"phase 17 {tag}: stream usage {usage}, "
+                             f"{len(lps)} tokens, want {n}")
+    return ids, r["times"][idx[0]] * 1e3
+
+
+def _par_timed(torch, fn, acc: dict, key: str):
+    """``fn`` timed into ``acc[key]`` (seconds, until the device is
+    done)."""
+    def call(*a, **k):
+        t0 = time.perf_counter()
+        got = fn(*a, **k)
+        torch.cuda.synchronize()
+        acc[key] += time.perf_counter() - t0
+        return got
+    return call
+
+
+def parallel_kv_rounds(torch, kernels, card: str, err: float, cfg, w,
+                       steplog, plane, full, prompts: dict,
+                       ref_tok: dict) -> dict:
+    """Phase 17 d-g on round a's tp = 2 worker W (``w``; rank 1 a child,
+    both ranks on the card over gloo), behind the port's master, beside
+    R, an unsharded requester in this process, and U, an unsharded worker
+    in a child (``ParPlane``). Streams are checked against round a's
+    unsharded eager engine (``ref_tok``, on ``prompts``, by prompt
+    length): equal, or drift under the margins rule on the unsharded
+    weights ``full``.
+
+    d. [parallel-fetch]: W holds a 1,024-token prefix (a cold request
+       straight to it); requests through the master until one lands on
+       R, which must fetch the 8 blocks from W (bytes: an in-process
+       holder is never offered the wire) with no failure; R's fetched
+       pages bit-equal to W's ranks' own pool shares joined
+       (``ranks.control(.., "kv_pages")``, pickled, not the KV plane's
+       gather) and to W's ``export_blocks``. Printed: TTFT fetched
+       against a recompute of a fresh prefix of the same length on R.
+    e. [parallel-spill]: on W, a 1,224-token request, three fillers of
+       ~1,900 tokens that spill its pages into the host tier, then the
+       request again, restored from it: pages spilled and restored, the
+       prefix hit, the stream equal to the cold one (or drift). Printed:
+       each spill's and restore's ms, the gather's and scatter's part.
+    f. [parallel-fault]: on W, ``worker.fault_step_req`` on one of four
+       requests: only it fails, with the typed 500 (``engine_fault:
+       culprit``), the world stays in step (epoch unchanged), the other
+       three stream as the reference. Then a raise planted once in rank
+       0's sharded MLP while the four stream: the world re-forms (epoch
+       + 1, rank 1's process unchanged), at most the one request the
+       bisection blames fails (a typed error frame), the others stream
+       as the reference, and a later request is served. Printed: the
+       seconds from the fault to the survivors' next token.
+    g. [parallel-pd]: W PREFILL -> U DECODE on phase 5's four prompts
+       (32 greedy tokens) over the bytes path (monolithic shuttle), then
+       over the CUDA IPC wire, then the roles flipped (U PREFILL -> W
+       DECODE, U's default: the wire). Each transport's counter moves
+       once a request. Printed: KV bytes a request, the handoff's ms (W's
+       export until the device is done, plus the transfer) and the share
+       of it spent gathering rank 1's heads; on the reverse, W's import
+       ms and the scatter's share.
+    Every round prints its seconds."""
     from xllm_service_tpu_torch.models import transformer as tf
-    from xllm_service_tpu_torch.ops import attention
-    from xllm_service_tpu_torch.parallel.mesh import MeshSpec
-    from xllm_service_tpu_torch.runtime import ranks, worker
-    from xllm_service_tpu_torch.runtime.engine import Engine
-    t_phase = time.perf_counter()
-    cfg = ModelConfig.llama3_1b()
+    from xllm_service_tpu_torch.runtime import ranks
+    from xllm_service_tpu_torch.runtime import worker as worker_mod
+    eng, mesh = w.engine, w.engine.mesh
     out = {}
+    lengths = sorted(prompts)
+    by_rid = {f"n{n}": prompts[n] for n in lengths}
+    nreq = len(by_rid)
 
-    # a. tp = 2 behind a worker.
+    def check(tag, got, n):
+        if sorted(got) != sorted(by_rid) or \
+                any(len(t) != n for t in got.values()):
+            raise AssertionError(f"phase 17 {tag}: streams "
+                                 f"{ {r: len(t) for r, t in got.items()} }")
+        want = {r: ref_tok[r][:n] for r in by_rid}
+        margins = _par_margins(torch, full, cfg, by_rid, want, got, err, tag)
+        return sum(got[r] == want[r] for r in want), margins
+
+    # d. The block fetch: W holds, R requests. It runs before W's PD
+    # handoffs, whose bandwidth W's beats would then report: the master
+    # prices a holder by it, and the host shuttle's loses to a
+    # recompute (phase 11's holder migrates nothing either).
     t0 = time.perf_counter()
-    argv = ["--model", "llama3-1b", "--device", PAR_DEVICE, *PAR_ARGS,
-            "--tp", "2"]
-    guard_child_argv(argv)
-    w, build_s = _start(worker, argv, PAR_ENV)
+    rq, r_s = _start(worker_mod, [
+        "--model", "llama3-1b", "--device", PAR_DEVICE, *SERVE_ARGS,
+        *PAR_KV_ARGS, "--no-warmup", *plane.registration("DEFAULT")],
+        PAR_ENV)
+    plane.workers.append(rq)
+    _par_wait(lambda: (lambda pre, dec: sorted(pre) == sorted(
+        [w.name, rq.name]) and not dec)(*plane.lists()), 60.0,
+        "W and R alone on the master's lists")
+    tok = w.tokenizer
+    rng = random.Random(171)
+    system = _token_ids(tok, rng, SYSTEM_TOKENS)
+    shared = [system + _token_ids(tok, rng, n) for n in PAR_FETCH_TAILS]
+    cold = {}
+    _request(w.name, CHAT, _par_body(shared[0], PAR_KV_TOKENS), True, cold)
+    _par_reply(cold, PAR_KV_TOKENS, "fetch holder")
+    t_done = time.monotonic()
+    _par_wait(lambda: (lambda row: row is not None and
+                       time.monotonic() - row["heartbeat_age_s"]
+                       > t_done + 0.1)(master_row(plane.m_http, w.name)),
+              10.0, "a beat of W's after its cold request")
+    f0 = _fetch_counters(rq)
+    g0 = mesh.staged_s.get("gather", 0.0)
+    fetched = None
+    for p in shared[1:]:
+        res = {}
+        _request(plane.m_http, CHAT, _par_body(p, PAR_KV_TOKENS), True, res)
+        _par_reply(res, PAR_KV_TOKENS, "fetch")
+        if _fetch_counters(rq)["kv_fetch_attempts"] > f0["kv_fetch_attempts"]:
+            fetched = (p, res)
+            break
+    if fetched is None:
+        raise AssertionError(
+            f"phase 17 fetch: no request was planned as a fetch onto R; "
+            f"the master's verdicts " + str({k: v for k, v in _metric_rows(
+                plane.m_http).items()
+                if k[0] == "xllm_kv_fetch_decisions_total"}))
+    # U starts now (it registers DECODE, which would turn the requests
+    # above into PD ones) and comes up during rounds e-f.
+    plane.start_u()
+    f1 = _fetch_counters(rq)
+    holder_gather_ms = (mesh.staged_s.get("gather", 0.0) - g0) * 1e3
+    blocks = SYSTEM_TOKENS // rq.engine.ecfg.page_size
+    d = {k: f1[k] - f0[k] for k in f1}
+    if d["kv_fetch_failures"] or \
+            d["kv_fetch_bytes"] != blocks * rq.engine.kv_block_bytes():
+        raise AssertionError(f"phase 17 fetch: counters {d}")
+    fresh = _token_ids(tok, rng, SYSTEM_TOKENS) + \
+        _token_ids(tok, rng, PAR_FETCH_TAILS[1])
+    recomputed = {}
+    _request(rq.name, CHAT, _par_body(fresh, PAR_KV_TOKENS), True, recomputed)
+    hashes = rq.engine.prefix_cache.block_hashes(fetched[0])[:blocks]
+    with rq._engine_lock:
+        r_pages = [rq.engine.prefix_cache.page_of(h) for h in hashes]
+        if None in r_pages:
+            raise AssertionError(f"phase 17 fetch: R's pages {r_pages}")
+        r_kv = [p[:, r_pages].cpu() for p in rq.engine.kv]
+    with w._engine_lock:
+        w_pages = [eng.prefix_cache.page_of(h) for h in hashes]
+        if None in w_pages:
+            raise AssertionError(f"phase 17 fetch: W's pages {w_pages}")
+        shares = ranks.control(eng, "kv_pages", w_pages)
+        exported = eng.export_blocks(hashes)
+    joined = [torch.cat([s[i] for s in shares], dim=3) for i in range(2)]
+    bit_equal = all(torch.equal(a, b) for a, b in zip(r_kv, joined)) and \
+        all(torch.equal(a, b) for a, b in zip(exported[1:], joined))
+    if not bit_equal or exported[0] != blocks:
+        raise AssertionError("phase 17 fetch: R's fetched pages are not "
+                             "W's ranks' shares joined")
+    out["fetch"] = {
+        "requester_start_s": r_s, "blocks": blocks,
+        "kv_bytes": d["kv_fetch_bytes"],
+        "fetch_ms": 1e3 * d["kv_fetch_seconds"],
+        "holder_gather_ms": holder_gather_ms,
+        "adopt_ms": 1e3 * d["kv_fetch_adopt_seconds"],
+        "ttft_ms_fetched": _par_reply(fetched[1], PAR_KV_TOKENS,
+                                      "fetch")[1],
+        "ttft_ms_recomputed": _par_reply(recomputed, PAR_KV_TOKENS,
+                                         "recompute")[1],
+        "ttft_ms_holder_cold": _par_reply(cold, PAR_KV_TOKENS, "cold")[1],
+        "bit_equal": bit_equal, "seconds": time.perf_counter() - t0}
+    log(f"[parallel-fetch] {card}: {json.dumps(out['fetch'])}")
+
+    # e. The host spill tier on W.
+    t0 = time.perf_counter()
+    spills, restores = [], []
+    hook, restore = eng.prefix_cache.spill_hook, eng._restore_spilled
+
+    def timed_spill(h, pid):
+        g, t1 = mesh.staged_s.get("gather", 0.0), time.perf_counter()
+        ok = hook(h, pid)
+        spills.append(((time.perf_counter() - t1) * 1e3,
+                       (mesh.staged_s.get("gather", 0.0) - g) * 1e3))
+        return ok
+
+    def timed_restore(*a):
+        g, t1 = mesh.staged_s.get("scatter", 0.0), time.perf_counter()
+        got = restore(*a)
+        torch.cuda.synchronize()
+        restores.append(((time.perf_counter() - t1) * 1e3,
+                         (mesh.staged_s.get("scatter", 0.0) - g) * 1e3))
+        return got
+    eng.prefix_cache.spill_hook, eng._restore_spilled = timed_spill, \
+        timed_restore
+    try:
+        s2 = _token_ids(tok, rng, SYSTEM_TOKENS) + _token_ids(tok, rng, 200)
+        st0 = eng.prefix_cache_stats()
+        first_r = {}
+        _request(w.name, CHAT, _par_body(s2, PAR_KV_TOKENS), True, first_r)
+        cold_ids, ttft_cold = _par_reply(first_r, PAR_KV_TOKENS, "spill")
+        for n in PAR_FILLERS:
+            f = {}
+            _request(w.name, CHAT, _par_body(_token_ids(tok, rng, n), 1),
+                     True, f)
+            _par_reply(f, 1, "filler")
+        st1 = eng.prefix_cache_stats()
+        steplog.clear()
+        again = {}
+        _request(w.name, CHAT, _par_body(s2, PAR_KV_TOKENS), True, again)
+        warm_ids, ttft_warm = _par_reply(again, PAR_KV_TOKENS, "restored")
+        st2 = eng.prefix_cache_stats()
+    finally:
+        eng.prefix_cache.spill_hook, eng._restore_spilled = hook, restore
+    spilled = st1["spilled_pages"] - st0["spilled_pages"]
+    restored = st2["restored_pages"] - st1["restored_pages"]
+    cached = steplog.cached.get(len(s2), 0)
+    if spilled <= 0 or restored <= 0 or cached < SYSTEM_TOKENS:
+        raise AssertionError(f"phase 17 spill: spilled {spilled}, "
+                             f"restored {restored}, cached {cached}")
+    spill_margins = _par_margins(torch, full, cfg, {"s": s2},
+                                 {"s": cold_ids}, {"s": warm_ids}, err,
+                                 "spill")
+    out["spill"] = {
+        "spilled_pages": spilled, "restored_pages": restored,
+        "cached_tokens_on_reuse": cached,
+        "spill_ms": [a for a, _ in spills],
+        "spill_gather_ms": [b for _, b in spills],
+        "restore_ms": [a for a, _ in restores],
+        "restore_scatter_ms": [b for _, b in restores],
+        "ttft_ms_cold": ttft_cold, "ttft_ms_restored": ttft_warm,
+        "equal_stream": cold_ids == warm_ids, "margins": spill_margins,
+        "seconds": time.perf_counter() - t0}
+    log(f"[parallel-spill] {card}: {json.dumps(out['spill'])}")
+
+    # f. The step fault boundary on W.
+    t0 = time.perf_counter()
+    rids = list(by_rid)
+    poison = tok.encode("POISON " + _prompt(random.Random(5), 200))
+    epoch0, follower = mesh.epoch, w._rank_procs[0]
+    pid = follower.pid
+
+    def batch(bodies):
+        results = [{} for _ in bodies]
+        threads = [threading.Thread(target=_request, args=(
+            w.name, CHAT, b, b["stream"], r))
+            for b, r in zip(bodies, results)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        return results
+
+    w.failpoints.arm("worker.fault_step_req", mode="always", value="POISON")
+    try:
+        res = batch([_par_body(by_rid[r], PAR_FAULT_TOKENS)
+                     for r in rids[:3]] +
+                    [_par_body(poison, PAR_FAULT_TOKENS, stream=False)])
+    finally:
+        w.failpoints.arm("worker.fault_step_req", mode="off")
+    bad = res[3]
+    msg = ((bad.get("body") or {}).get("error") or {}).get("message", "")
+    if bad.get("status") != 500 or \
+            bad["body"]["error"].get("type") != "engine_fault" or \
+            not msg.startswith("engine_fault: culprit [StepFaultInjected"):
+        raise AssertionError(f"phase 17 fault: the marked request {bad}")
+    if mesh.epoch != epoch0:
+        raise AssertionError("phase 17 fault: a fault before the launch "
+                             "re-formed the world")
+    survivors = {r: _par_reply(x, PAR_FAULT_TOKENS, "fault_req")[0]
+                 for r, x in zip(rids[:3], res[:3])}
+    want = {r: ref_tok[r][:PAR_FAULT_TOKENS] for r in survivors}
+    req_margins = _par_margins(torch, full, cfg, by_rid, want, survivors,
+                               err, "fault_req")
+    # A raise in rank 0's MLP mid-forward, once.
+    mlp, dispatch, reform = tf._mlp, w._dispatch_outputs, mesh.reform
+    marks = {}
+
+    def timed_reform(*a, **k):
+        t1 = time.perf_counter()
+        reform(*a, **k)
+        marks["reform_s"] = time.perf_counter() - t1
+
+    def planted(*a, **k):
+        if "fault" not in marks:
+            marks["fault"] = time.perf_counter()
+            raise RuntimeError("planted fault in rank 0's sharded MLP")
+        return mlp(*a, **k)
+
+    def noted_dispatch(outs):
+        if "fault" in marks and "next" not in marks and outs:
+            marks["next"] = time.perf_counter()
+        return dispatch(outs)
+    w._dispatch_outputs, tf._mlp = noted_dispatch, planted
+    mesh.reform = timed_reform
+    try:
+        res = batch([_par_body(by_rid[r], PAR_FAULT_TOKENS) for r in rids])
+    finally:
+        tf._mlp, w._dispatch_outputs = mlp, dispatch
+        del mesh.reform
+    # The step's members are its suspects (JAX worker :1319-1353): the
+    # bisection's last suspect, or a lone member, is blamed; every other
+    # request is served.
+    served, blamed = {}, []
+    for r, x in zip(rids, res):
+        frames = x.get("frames") or []
+        if frames and frames[-1] != "data: [DONE]" and \
+                "planted fault" in frames[-1] and \
+                '"type":"engine_fault"' in frames[-1].replace(" ", ""):
+            blamed.append(r)
+        else:
+            served[r] = _par_reply(x, PAR_FAULT_TOKENS, "fault_mlp")[0]
+    if "fault" not in marks or len(blamed) > 1 or \
+            mesh.epoch != epoch0 + 1 or follower.poll() is not None or \
+            w._rank_procs[0].pid != pid:
+        raise AssertionError(f"phase 17 fault: fired {'fault' in marks}, "
+                             f"blamed {blamed}, epoch {mesh.epoch} (was "
+                             f"{epoch0}), rank 1 {follower.poll()}")
+    mlp_margins = _par_margins(
+        torch, full, cfg, by_rid,
+        {r: ref_tok[r][:PAR_FAULT_TOKENS] for r in served}, served, err,
+        "fault_mlp")
+    after = {}
+    _request(w.name, CHAT, _par_body(by_rid[rids[0]], PAR_FAULT_TOKENS),
+             True, after)
+    _par_reply(after, PAR_FAULT_TOKENS, "after the re-form")
+    out["fault"] = {
+        "marked_status": bad["status"], "marked_message": msg,
+        "survivors_equal": sum(survivors[r] == want[r] for r in want),
+        "survivors_margins": req_margins,
+        "epoch": mesh.epoch, "rank1_pid_unchanged": True,
+        "blamed_after_reform": len(blamed),
+        "served_after_reform": len(served),
+        "served_equal": sum(served[r] == ref_tok[r][:PAR_FAULT_TOKENS]
+                            for r in served),
+        "reform_margins": mlp_margins,
+        "reform_s": marks.get("reform_s"),
+        "fault_to_next_token_s": marks["next"] - marks["fault"],
+        "seconds": time.perf_counter() - t0}
+    log(f"[parallel-fault] {card}: {json.dumps(out['fault'])}")
+    # g. PD handoffs (U came up during rounds e-f; R leaves first).
+    t0 = time.perf_counter()
+    rq.stop()
+    plane.workers.remove(rq)
+    u_proc, u_addr = plane.u()
+    _par_flip(w.name, "PREFILL")
+    _par_wait(lambda: plane.lists() == ([w.name], [u_addr]), 60.0,
+              "W PREFILL and U DECODE on the master's lists")
+    srid_len, acc = {}, {"export": 0.0, "import": 0.0}
+    add, export, imp = eng.add_request, eng.export_held, eng.import_sequence
+
+    def noted_add(req):
+        srid_len[req.request_id] = len(req.token_ids)
+        return add(req)
+    eng.add_request = noted_add
+    eng.export_held = _par_timed(torch, export, acc, "export")
+    tee = _RelayTee(worker_mod)
+    pd = {}
+    try:
+        for tag, wire in (("bytes", False), ("wire", True))[:1 + PAR_WIRE]:
+            w.opts.pd_device_wire = wire
+            w._kv_shuttle_chunk_mb = 0.0
+            tee.tokens.clear()
+            srid_len.clear()
+            acc["export"] = 0.0
+            c0 = (w.kv_migration_bytes, w.kv_migration_seconds,
+                  w.kv_migration_device_wire)
+            g0 = (mesh.counts.get("gather", 0),
+                  mesh.staged_s.get("gather", 0.0))
+            t1 = time.perf_counter()
+            res = _concurrent(plane.m_http, [_par_body(by_rid[r], 32)
+                                             for r in by_rid])
+            wall = time.perf_counter() - t1
+            ttft = [_pd_stream_stats(r)[0] for r in res]
+            got = {f"n{srid_len[rid]}": t for rid, t in tee.tokens.items()}
+            equal, margins = check(f"pd_{tag}", got, 32)
+            nbytes = w.kv_migration_bytes - c0[0]
+            secs = w.kv_migration_seconds - c0[1]
+            wires = w.kv_migration_device_wire - c0[2]
+            gathers = mesh.counts.get("gather", 0) - g0[0]
+            gather_s = mesh.staged_s.get("gather", 0.0) - g0[1]
+            if wires != (nreq if wire else 0) or nbytes <= 0 or \
+                    gathers < nreq:
+                raise AssertionError(f"phase 17 pd_{tag}: {wires} over "
+                                     f"the wire, {nbytes} B, {gathers} "
+                                     f"gathers for {nreq} requests")
+            handoff = acc["export"] + secs
+            pd[tag] = {
+                "round_s": wall, "kv_bytes_per_request": nbytes / nreq,
+                "export_ms_per_request": 1e3 * acc["export"] / nreq,
+                "transfer_ms_per_request": 1e3 * secs / nreq,
+                "handoff_ms_per_request": 1e3 * handoff / nreq,
+                "gather_ms_per_request": 1e3 * gather_s / nreq,
+                "gather_share_of_handoff": gather_s / handoff,
+                "gathers": gathers, "ttft_ms": ttft,
+                "equal_streams": equal, "margins": margins}
+    finally:
+        tee.close()
+        eng.export_held = export
+        w.opts.pd_device_wire = True
+    # The reverse: U prefills, W decodes (U's default transport, the
+    # wire; W pulls, then scatters each rank's heads).
+    _par_flip(w.name, "DECODE")
+    _par_flip(u_addr, "PREFILL")
+    _par_wait(lambda: plane.lists() == ([u_addr], [w.name]), 60.0,
+              "U PREFILL and W DECODE on the master's lists")
+    first = {}
+
+    def noted_import(req, tokens, k, v):
+        first[len(req.token_ids)] = tokens[-1]
+        return imp(req, tokens, k, v)
+    eng.import_sequence = _par_timed(torch, noted_import, acc, "import")
+    try:
+        m0 = _metric_rows(u_addr)
+        s0 = (mesh.counts.get("scatter", 0),
+              mesh.staged_s.get("scatter", 0.0))
+        steplog.clear()
+        t1 = time.perf_counter()
+        res = _concurrent(plane.m_http, [_par_body(by_rid[r], 32)
+                                         for r in by_rid])
+        wall = time.perf_counter() - t1
+        ttft = [_pd_stream_stats(r)[0] for r in res]
+        m1 = _metric_rows(u_addr)
+    finally:
+        eng.import_sequence = imp
+    got = {f"n{n}": [first[n]] + steplog.tokens.get(n, [])
+           for n in lengths if n in first}
+    equal, margins = check("pd_reverse", got, 32)
+    wires = _metric(m1, "xllm_worker_kv_migration_device_wire_total") - \
+        _metric(m0, "xllm_worker_kv_migration_device_wire_total")
+    u_secs = _metric(m1, "xllm_worker_kv_migration_seconds_total") - \
+        _metric(m0, "xllm_worker_kv_migration_seconds_total")
+    scatters = mesh.counts.get("scatter", 0) - s0[0]
+    scatter_s = mesh.staged_s.get("scatter", 0.0) - s0[1]
+    if wires != nreq * PAR_WIRE or scatters < nreq:
+        raise AssertionError(f"phase 17 pd_reverse: {wires} over the "
+                             f"wire, {scatters} scatters")
+    pd["reverse_wire"] = {
+        "round_s": wall, "u_transfer_ms_per_request": 1e3 * u_secs / nreq,
+        "import_ms_per_request": 1e3 * acc["import"] / nreq,
+        "scatter_ms_per_request": 1e3 * scatter_s / nreq,
+        "scatter_share_of_import": scatter_s / acc["import"],
+        "scatters": scatters, "ttft_ms": ttft, "equal_streams": equal,
+        "margins": margins}
+    eng.add_request = add
+    pd["seconds"] = time.perf_counter() - t0
+    out["pd"] = pd
+    log(f"[parallel-pd] {card}: {json.dumps(pd)}")
+
+    return out
+
+
+def _par_tp2_and_kv(torch, kernels, card: str, err: float, cfg, w,
+                    build_s: float, t0: float, plane) -> dict:
+    """Round a of ``parallel_phase`` on its tp = 2 worker ``w``, then
+    rounds d-g (``parallel_kv_rounds``) on it. Returns {"tp2": round a's
+    record, the rounds' records, "full": the unsharded weights}."""
+    from xllm_service_tpu_torch.models import transformer as tf
+    from xllm_service_tpu_torch.runtime import ranks
+    from xllm_service_tpu_torch.runtime.engine import Engine
+    out = {}
     eng = w.engine
     if eng.mesh is None or eng.shard_cfg.num_heads != 16 or \
             eng.shard_cfg.num_kv_heads != 4:
         raise AssertionError(f"tp=2 rank 0 holds {eng.shard_cfg}")
     steplog = StepLog(eng, kernels)
-    try:
-        rng = random.Random(0)
-        warm = {}
-        _request(w.name, "/v1/completions",
-                 {"prompt": _prompt(rng, 64), "max_tokens": 4,
-                  "temperature": 0.0}, False, warm)
-        if warm["status"] != 200:
-            raise AssertionError(f"warm-up request failed: {warm}")
-        bodies = serve_bodies(rng)
-        # Calls on every rank take the engine lock, as the worker's
-        # steps do: one broadcast at a time on the world.
-        with w._engine_lock:
-            ranks.control(eng, "reset")
-        steplog.clear()
-        results, wall = run_concurrent(w.name, bodies)
-        with w._engine_lock:
-            reps = ranks.control(eng, "report")
-        rows = list(steplog.rows)
-        tokens = {n: list(t) for n, t in steplog.tokens.items()}
-        prompts = {n: steplog.prompts[n] for n in tokens}
-        n_max = max(prompts)
-        with w._engine_lock:
-            lp, ld = ranks.control(eng, "forward_logits", prompts[n_max],
-                                   tokens[n_max][0])
-            # The staged all-reduce alone at a decode step's rows and at
-            # a 512-token window.
-            ar_ms = ranks.control(eng, "all_reduce_ms",
-                                  [(8, 1, cfg.hidden_size),
-                                   (1, 512, cfg.hidden_size)])
-    finally:
-        w.stop()
-    del w, eng, steplog
-    free_device_memory(torch)
+    rng = random.Random(0)
+    warm = {}
+    _request(w.name, "/v1/completions",
+             {"prompt": _prompt(rng, 64), "max_tokens": 4,
+              "temperature": 0.0}, False, warm)
+    if warm["status"] != 200:
+        raise AssertionError(f"warm-up request failed: {warm}")
+    bodies = serve_bodies(rng)
+    # Calls on every rank take the engine lock, as the worker's
+    # steps do: one broadcast at a time on the world.
+    with w._engine_lock:
+        ranks.control(eng, "reset")
+    steplog.clear()
+    results, wall = run_concurrent(w.name, bodies)
+    with w._engine_lock:
+        reps = ranks.control(eng, "report")
+    rows = list(steplog.rows)
+    tokens = {n: list(t) for n, t in steplog.tokens.items()}
+    prompts = {n: steplog.prompts[n] for n in tokens}
+    n_max = max(prompts)
+    with w._engine_lock:
+        lp, ld = ranks.control(eng, "forward_logits", prompts[n_max],
+                               tokens[n_max][0])
+        # The staged all-reduce alone at a decode step's rows and at
+        # a 512-token window.
+        ar_ms = ranks.control(eng, "all_reduce_ms",
+                              [(8, 1, cfg.hidden_size),
+                               (1, 512, cfg.hidden_size)])
     check_replies(SERVE_PLAN, results)
     check_step_launches(rows, reps[0]["launches"], cfg.num_layers, False,
                         True, False)
@@ -9112,6 +9651,72 @@ def parallel_phase(torch, kernels, card: str, err: float,
             [r["ms"] for r in rows if r["kind"] == "prefill"]),
         "seconds": time.perf_counter() - t0}
     log(f"[parallel] {card}: tp=2 {json.dumps(out['tp2'])}")
+    out.update(parallel_kv_rounds(torch, kernels, card, err, cfg, w,
+                                  steplog, plane, full, prompts, ref_tok))
+    out["full"] = full
+    return out
+
+
+def parallel_phase(torch, kernels, card: str, err: float,
+                   err_mla: float) -> dict:
+    """Phase 17: the sharded paths on the one card, two ranks each over
+    gloo (collectives staged through the host), eager steps.
+
+    a. llama3-1b at full width and depth at tp = 2 behind a worker
+       (``--tp 2 --dist-backend gloo``; rank 1 a child it starts): phase
+       5's four requests; every step's launches exactly (the fused
+       writer and K3/K4 at the shard's 16 query and 4 KV heads), rank 1
+       launching what rank 0 did; collectives a forward and the staged
+       all-reduce's ms; rank 0's prefill and decode logits against the
+       unsharded forward on the same weights (rel L2 under
+       ``FORWARD_REL_L2``); the four streams against an unsharded eager
+       engine's (equal, or drift under the margins rule), and the eager
+       decode step beside the unsharded eager one.
+    b. sp = 2 on llama3-1b: a ~900-token prompt in one ``prefill_ring``
+       step (the step census; per rank the fused rope writer in its
+       pool-less form x 16 and K7 once, nothing else), its first token
+       and its logits against the unsharded engine's chunked windows;
+       the ring step's ms.
+    c. DeepSeek-V2-Lite at its published widths and
+       ``DEEPSEEK_SERVE_LAYERS`` layers at ep = 2 (32 experts a rank):
+       four requests, then two ~1,800-token prompts in 512-token
+       windows; streams and ``moe_dropped`` against the unsharded
+       engine's on the same weights, every step's launches exactly, and
+       the MLA prefill calls that took ``mha_prefill_chunked`` (past the
+       64 MiB cut) counted per rank, with the chunked form's largest
+       error against the dense ``mha_prefill`` at such a call's shape.
+    """
+    import dataclasses as dc
+    import numpy as np
+    from xllm_service_tpu_torch.config import ModelConfig
+    from xllm_service_tpu_torch.models import transformer as tf
+    from xllm_service_tpu_torch.ops import attention
+    from xllm_service_tpu_torch.parallel.mesh import MeshSpec
+    from xllm_service_tpu_torch.runtime import ranks, worker
+    from xllm_service_tpu_torch.runtime.engine import Engine
+    t_phase = time.perf_counter()
+    cfg = ModelConfig.llama3_1b()
+    out = {}
+
+    # a. tp = 2 behind a worker (registered with the port's master, which
+    # rounds d-g then use).
+    t0 = time.perf_counter()
+    logs = ROOT / "build" / "par_logs"
+    logs.mkdir(parents=True, exist_ok=True)
+    plane = ParPlane(logs)
+    try:
+        argv = ["--model", "llama3-1b", "--device", PAR_DEVICE, *PAR_ARGS,
+                "--tp", "2", *PAR_KV_ARGS, *plane.registration("DEFAULT")]
+        guard_child_argv(argv)
+        w, build_s = _start(worker, argv, {**PAR_ENV, **PAR_KV_ENV})
+        plane.workers.append(w)
+        out.update(_par_tp2_and_kv(torch, kernels, card, err, cfg, w,
+                                   build_s, t0, plane))
+    finally:
+        plane.close()
+    del w
+    free_device_memory(torch)
+    full = out.pop("full")
 
     # b. sp = 2: one long prompt in a ring step.
     t0 = time.perf_counter()

@@ -24,11 +24,11 @@ with the JAX package's ``make_mesh`` / ``shard_params``. Cases:
 - a worker at ``--tp 2`` (its rank 1 a child it starts) and a world the
   caller started (``--dist-*``), whose ``/v1/completions`` texts equal
   the JAX worker's at tp = 2;
-- a step fault under a mesh (rank 0 raising mid-forward, a follower
-  exiting) stopping the worker with an error, not a hang;
-- the refusals: NCCL with two ranks on one card, CUDA graphs under a
-  mesh, the paths a mesh does not shard; and the mesh's geometry and
-  the KV rule against the JAX package's.
+- a follower that exits stopping the worker with an error, not a hang
+  (the contained faults are ``tests/test_torch_parallel_kv.py``'s);
+- the refusals: NCCL with two ranks on one card, CUDA graphs and the
+  decode pipeline under a mesh, the multimodal splice; and the mesh's
+  geometry and the KV rule against the JAX package's.
 """
 
 import dataclasses
@@ -548,15 +548,12 @@ def test_tp2_worker_text_matches_jax(tmp_path):
         assert "rank 1: followed" in log.read_text()
 
 
-@pytest.mark.parametrize("where", ["rank0_mid_forward", "follower_exits"])
+@pytest.mark.parametrize("where", ["follower_exits"])
 def test_step_fault_under_mesh_stops_the_worker(monkeypatch, where):
-    """A fault under a mesh is not contained (the ranks are out of
-    step): rank 0 raising inside a sharded forward, after its follower
-    has joined the step, or a follower that exits, ends every request
-    with a 500, stops the engine loop and the follower, and leaves no
+    """A follower that exits is a lost rank, which is not contained: it
+    ends every request with a 500, stops the engine loop, and leaves no
     collective waiting; the worker then stops at once. Before it, the
     idle worker's keep-alives reach the follower uncounted."""
-    from xllm_service_tpu_torch.models import transformer as ttf
     from xllm_service_tpu_torch.runtime import worker as tw
     ecfg = EngineConfig(page_size=4, num_pages=32, max_model_len=64,
                         max_prefill_tokens=16, prefill_buckets=(8, 16),
@@ -591,26 +588,12 @@ def test_step_fault_under_mesh_stops_the_worker(monkeypatch, where):
         assert w.mesh.last_broadcast > last + 0.2
         assert w.mesh.counts["broadcast"] == sent
         assert complete("served after keep-alives")[0] == 200
-        if where == "rank0_mid_forward":
-            mlp = ttf._mlp
-
-            def faulty(*args, **kwargs):
-                # Rank 0 leaves after layer 0's attention all-reduce:
-                # its follower waits in the MLP's.
-                raise RuntimeError("planted fault in a sharded forward")
-            monkeypatch.setattr(ttf, "_mlp", faulty)
-            t0 = time.monotonic()
-            status, body = complete("the step that faults")
-            monkeypatch.setattr(ttf, "_mlp", mlp)
-            assert status == 500, body
-            assert "planted fault" in w.engine_error
-        else:
-            follower.kill()
-            t0 = time.monotonic()
-            deadline = t0 + 30.0
-            while w.engine_error is None and time.monotonic() < deadline:
-                time.sleep(0.02)
-            assert "rank 1 exited" in (w.engine_error or "")
+        follower.kill()
+        t0 = time.monotonic()
+        deadline = t0 + 30.0
+        while w.engine_error is None and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert "rank 1 exited" in (w.engine_error or "")
         assert time.monotonic() - t0 < 30.0
         assert not w._engine_loop_alive
         assert follower.poll() is not None
@@ -647,7 +630,6 @@ def test_nccl_two_ranks_on_one_card_raises():
 REFUSED_CONFIGS = {
     "cuda_graphs": dict(cuda_graphs=True),
     "decode_pipeline": dict(decode_steps=4, decode_pipeline=True),
-    "spill_tier": dict(kv_spill_mb=1.0),
 }
 
 
@@ -665,7 +647,7 @@ def test_unsharded_paths_raise_under_mesh(pool):
     ecfg = EngineConfig(page_size=4, num_pages=16, max_model_len=64,
                         prefill_buckets=(8,))
     for msgs in pool.run({"tp": 2}, "engine_refusals", cfg, ecfg):
-        assert len(msgs) == 5
+        assert len(msgs) == 1
         assert all(m is not None and "not sharded" in m for m in msgs), msgs
 
 

@@ -34,7 +34,6 @@ from xllm_service_tpu.utils import hashing as jhash
 from xllm_service_tpu.utils.types import SamplingParams as JaxSampling
 from xllm_service_tpu_torch.config import EngineConfig, ModelConfig
 from xllm_service_tpu_torch.models.weights import params_from_jax
-from xllm_service_tpu_torch.runtime import engine as engine_mod
 from xllm_service_tpu_torch.runtime import kv_cache as tkv
 from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
 from xllm_service_tpu_torch.utils import hashing as thash
@@ -507,15 +506,15 @@ def test_failed_restore_releases_pins_pages_and_reparks_tier(
     def exploding(*a, **kw):
         raise RuntimeError("injected scatter failure")
 
-    real = engine_mod.pool_scatter
-    monkeypatch.setattr(engine_mod, "pool_scatter", exploding)
+    real = teng.kv_plane.scatter
+    monkeypatch.setattr(teng.kv_plane, "scatter", exploding)
     with pytest.raises(RuntimeError, match="injected scatter"):
         teng._restore_spilled(P1, [], 0)
     assert accounted() == total_before
     assert idx.allocator.num_free >= free_before
     assert dict(idx._ref) == refs_before
     assert all(h in teng.host_tier for h in tier_before)
-    monkeypatch.setattr(engine_mod, "pool_scatter", real)
+    monkeypatch.setattr(teng.kv_plane, "scatter", real)
     assert _run(teng, P1, "c", EngineRequest, SamplingParams) == out1
     assert teng.prefix_cache_stats()["restored_pages"] > 0
 

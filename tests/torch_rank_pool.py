@@ -184,18 +184,12 @@ def refusal(mesh, cfg, ecfg):
 
 
 def engine_refusals(mesh, cfg, ecfg):
-    """The messages a sharded engine's unsharded paths raise: the PD
-    export, the PD import, the block export and adoption, an image
-    request."""
+    """The messages a sharded engine's unsharded paths raise: an image
+    request (the multimodal splice)."""
     import numpy as np
     from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
     eng = Engine(cfg, ecfg, device="cpu", mesh=mesh)
     calls = [
-        lambda: eng.export_held("x"),
-        lambda: eng.import_sequence(EngineRequest("x", [1, 2]), [1, 2],
-                                    None, None),
-        lambda: eng.export_blocks([b"x"]),
-        lambda: eng.adopt_blocks([1, 2], 0, None, None),
         lambda: eng.add_request(EngineRequest(
             "x", [1, 2], mm_embeds=np.zeros((1, cfg.hidden_size),
                                             np.float32),
@@ -230,3 +224,224 @@ def control_logits(mesh, cfg, ecfg, params, ids, next_id, T):
         return lp, ld, lr, ranks.control(eng, "report")
     finally:
         ranks.stop_followers(mesh)
+
+
+# ---------------------------------------------------------------------------
+# The KV plane: one script of engine calls, run on a sharded engine's
+# rank 0 (``kv_engine``) or, in the test process, on an unsharded port
+# engine or a JAX engine (``run_kv_script`` with that package's request
+# and sampling types)
+# ---------------------------------------------------------------------------
+
+def _np(x):
+    if x is None:
+        return None
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def run_kv_script(eng, script, request=None, sampling=None):
+    """Run ``script``, a list of ops, on ``eng``; returns one result per
+    op (numpy for tensors):
+
+    - ("serve", rid, prompt, max_tokens): a greedy request served to its
+      end alone; its tokens;
+    - ("hold", rid, prompt): a prefill held for the PD export (one
+      token); the pages it holds;
+    - ("export_held", rid): (tokens, k, v);
+    - ("import", rid, prompt, tokens, k, v, max_tokens): the verdict;
+    - ("drain",): every stream stepped to its end since the last drain
+      ({rid: tokens}, an import's first token included);
+    - ("export_blocks", prompt, n): (n, k, v) of the prompt's first n
+      block digests, or None;
+    - ("adopt", prompt, start, k, v): the blocks adopted;
+    - ("tier", prompt): the host tier's (k, v) of each full block of the
+      prompt (None where it holds none);
+    - ("stats",): ``prefix_cache_stats()``;
+    - ("pages", rid): the pages a live request holds;
+    - ("block_pages", prompt, n): the pool page of each of the prompt's
+      first n block digests (None where none).
+    """
+    if request is None:
+        from xllm_service_tpu_torch.runtime.engine import EngineRequest
+        from xllm_service_tpu_torch.utils.types import SamplingParams
+        request, sampling = EngineRequest, SamplingParams
+    out, streams = [], {}
+
+    def drain():
+        while eng.has_work():
+            for o in eng.step():
+                streams.setdefault(o.request_id, []).extend(
+                    o.new_token_ids)
+
+    for op in script:
+        kind = op[0]
+        if kind == "serve":
+            _, rid, prompt, n = op
+            eng.add_request(request(rid, list(prompt), sampling(
+                max_tokens=n, temperature=0.0, ignore_eos=True)))
+            drain()
+            out.append(streams.pop(rid))
+        elif kind == "hold":
+            _, rid, prompt = op
+            eng.add_request(request(rid, list(prompt), sampling(
+                max_tokens=1, temperature=0.0), hold_after_finish=True))
+            drain()
+            streams.pop(rid, None)
+            out.append(list(eng._held[rid].pages))
+        elif kind == "export_held":
+            tokens, k, v = eng.export_held(op[1])
+            out.append((list(tokens), _np(k), _np(v)))
+        elif kind == "import":
+            _, rid, prompt, tokens, k, v, n = op
+            ok = eng.import_sequence(request(rid, list(prompt), sampling(
+                max_tokens=n, temperature=0.0, ignore_eos=True)),
+                list(tokens), k, v)
+            if ok:
+                streams.setdefault(rid, []).append(tokens[-1])
+            out.append(bool(ok))
+        elif kind == "drain":
+            drain()
+            out.append(dict(streams))
+            streams.clear()
+        elif kind == "export_blocks":
+            _, prompt, n = op
+            got = eng.export_blocks(eng.prefix_cache.block_hashes(prompt)[:n])
+            out.append(None if got is None
+                       else (int(got[0]), _np(got[1]), _np(got[2])))
+        elif kind == "adopt":
+            _, prompt, start, k, v = op
+            out.append(int(eng.adopt_blocks(list(prompt), start, k, v)))
+        elif kind == "tier":
+            blocks = []
+            for h in eng.prefix_cache.block_hashes(op[1]):
+                blk = eng.host_tier.peek(h) if eng.host_tier else None
+                blocks.append(None if blk is None
+                              else (_np(blk[0]), _np(blk[1])))
+            out.append(blocks)
+        elif kind == "stats":
+            out.append(dict(eng.prefix_cache_stats()))
+        elif kind == "pages":
+            out.append(list(eng._by_id[op[1]].pages))
+        elif kind == "block_pages":
+            _, prompt, n = op
+            out.append([eng.prefix_cache.page_of(h) for h in
+                        eng.prefix_cache.block_hashes(prompt)[:n]])
+        else:
+            raise ValueError(f"unknown op {kind!r}")
+    return out
+
+
+def kv_engine(mesh, cfg, ecfg, params, script):
+    """A sharded engine: rank 0 runs ``script`` (``run_kv_script``) and
+    returns (its results, its pools, its collectives' counts); every
+    follower follows, then returns its pools. Pools as numpy."""
+    from xllm_service_tpu_torch.runtime import ranks
+    from xllm_service_tpu_torch.runtime.engine import Engine
+    eng = Engine(cfg, ecfg, params=_tensors(params), device="cpu",
+                 mesh=mesh)
+    if mesh.rank:
+        ranks.follow(eng, mesh)
+        return [p.numpy().copy() for p in eng.kv]
+    try:
+        out = run_kv_script(eng, script)
+        return out, [p.numpy().copy() for p in eng.kv], dict(mesh.counts)
+    finally:
+        ranks.stop_followers(mesh)
+
+
+def _complete(addr: str, prompt: str, max_tokens: int = 4):
+    import json
+    from http.client import HTTPConnection
+    host, port = addr.rsplit(":", 1)
+    conn = HTTPConnection(host, int(port), timeout=60)
+    conn.request("POST", "/v1/completions", body=json.dumps(
+        {"model": "tiny", "prompt": prompt, "max_tokens": max_tokens,
+         "temperature": 0.0, "ignore_eos": True}),
+        headers={"Content-Type": "application/json"})
+    r = conn.getresponse()
+    return r.status, json.loads(r.read())
+
+
+def worker_fault(mesh, cfg, ecfg, params, prompts, flag):
+    """Rank 0 serves a worker on this mesh (its followers follow);
+    rank 1 raises once in its MLP, in the first forward after the file
+    ``flag`` appears, which rank 0 writes after its first request.
+    Rank 0 returns, per prompt, (status, body, seconds), then the
+    mesh's epoch; a follower its calls."""
+    import os
+    import time
+    from xllm_service_tpu_torch.runtime import ranks
+    if mesh.rank:
+        from xllm_service_tpu_torch.models import transformer
+        from xllm_service_tpu_torch.runtime.engine import Engine
+        mlp = transformer._mlp
+
+        def planted(*args, **kwargs):
+            if os.path.exists(flag):
+                os.remove(flag)
+                raise RuntimeError(f"planted fault on rank {mesh.rank}")
+            return mlp(*args, **kwargs)
+        transformer._mlp = planted
+        eng = Engine(cfg, ecfg, params=_tensors(params), device="cpu",
+                     mesh=mesh)
+        return ranks.follow(eng, mesh)
+    from xllm_service_tpu_torch.runtime import worker
+    w = worker.Worker(worker.WorkerOptions(model="tiny", device="cpu",
+                                           warmup=False),
+                      engine_cfg=ecfg, model_cfg=cfg,
+                      params=_tensors(params), mesh=mesh).start()
+    out = []
+    try:
+        for i, prompt in enumerate(prompts):
+            if i == 1:
+                open(flag, "w").close()
+            t0 = time.monotonic()
+            status, body = _complete(w.name, prompt)
+            out.append((status, body, time.monotonic() - t0))
+        return out, mesh.epoch, w._engine_loop_alive
+    finally:
+        w.stop()
+
+
+def mesh_moves(mesh):
+    """Rank 0 gathers every rank's tensor, sends each rank its part, and
+    the ranks agree twice (all True, then rank 1 False). Returns (what
+    rank 0 gathered or None, this rank's part, the agreements, the
+    counts)."""
+    import torch
+    world = mesh.world
+    x = torch.full((2, 3), float(mesh.rank))
+    got = mesh.gather(x, list(range(world)))
+    parts = ({r: torch.full((2, 3), 10.0 * r) for r in range(world)}
+             if mesh.rank == 0 else None)
+    mine = mesh.scatter(parts, (2, 3), torch.float32, "cpu")
+    agreed = (mesh.agree(True), mesh.agree(mesh.rank != 1))
+    return (None if got is None else [t.tolist() for t in got],
+            mine.tolist(), agreed, dict(mesh.counts))
+
+
+def reform_blocked(mesh):
+    """Rank 0 re-forms the world while every other rank waits in an
+    all-reduce it never joins: each waiting rank's collective fails,
+    that rank re-forms too, and the new world's collectives meet.
+    Returns (whether this rank's collective failed, the seconds to the
+    new world, its epoch, an all-reduce over it, an agreement)."""
+    import time
+    import torch
+    t0 = time.monotonic()
+    failed = None
+    if mesh.rank == 0:
+        time.sleep(0.5)
+        mesh.reform()
+    else:
+        try:
+            mesh.all_reduce(torch.ones(4), "tp")
+            failed = False
+        except RuntimeError as exc:
+            failed = True
+            mesh.reform(exc)
+    waited = time.monotonic() - t0
+    y = mesh.all_reduce(torch.full((3,), float(mesh.rank + 1)), "tp")
+    return failed, waited, mesh.epoch, y.tolist(), mesh.agree(True)

@@ -20,6 +20,23 @@ broadcast on the CPU, copied back): gloo has no send/recv for device
 tensors, and its device all-reduce and broadcast copy through the host
 themselves. ``counts`` records the collectives by op, ``staged_s`` the
 seconds the staged ones and the step broadcasts took.
+
+Rank 0 moves page sets of the KV pools with ``gather`` (from a chosen
+set of ranks) and ``scatter`` (a part to each rank): point-to-point
+sends, staged through the host under gloo, on the device under nccl.
+``agree`` is a one-int all-reduce on a CPU tensor (a gloo group of the
+world under nccl), the status every rank reports after a launched
+forward.
+
+A step that fails on some rank leaves the others in a collective that
+will never complete, or ahead of it. ``reform`` is the way back: the
+rank leaves every process group it holds (a gloo peer then sees its
+pairs close and fails promptly, rather than at ``TIMEOUT``), and joins
+the world again under the next ``epoch``, a fresh key prefix on the
+same rendezvous store. The process, its engine, weights and pools stay.
+Under nccl it is untried (the layout needs a card per rank) whether the
+groups' destruction wakes a peer blocked in a collective; NCCL does not
+see a peer die, so such a peer may wait out ``TIMEOUT``.
 """
 
 from __future__ import annotations
@@ -30,7 +47,9 @@ import datetime
 import pickle
 import socket
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import traceback
+from typing import (Any, Callable, Dict, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -52,6 +71,11 @@ BACKENDS = ("nccl", "gloo")
 # rank waits on a lost peer.
 TIMEOUT = datetime.timedelta(minutes=10)
 KEEPALIVE_S = 30.0
+
+
+class MeshLost(RuntimeError):
+    """The world could not be re-formed: a peer did not come back (it
+    exited, or it did not arrive at the rendezvous within ``TIMEOUT``)."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,13 +158,29 @@ class Mesh:
     every collective is then the identity."""
 
     def __init__(self, spec: MeshSpec, rank: int, backend: str,
-                 device, groups: Dict[Any, Any]) -> None:
+                 device, groups: Dict[Any, Any], store=None) -> None:
         self.spec = spec
         self.rank = rank
         self.backend = backend
         self.device = torch.device(device)
         self.coords = spec.coords(rank)
         self._groups = groups
+        # The rendezvous store (kept: rank 0 serves a TCPStore from it,
+        # and ``reform`` rendezvouses on it again).
+        self._store = store
+        # The gloo group ``agree`` reduces over under nccl (None: the
+        # default group).
+        self._cpu_group = None
+        # Re-formations so far (``reform``); the world's key prefix.
+        self.epoch = 0
+        # False from the broadcast of a call whose status the ranks
+        # agree on until that agreement (``runtime/ranks.py``): a
+        # failure in between leaves the world out of step.
+        self.synced = True
+        # Rank 0's check, while it waits to re-form, that the peers it
+        # started still run (None: wait up to ``TIMEOUT``).
+        self.alive: Optional[Callable[[], bool]] = None
+        self.lost = False
         # The gloo path stages device tensors through the host.
         self.staged = backend == "gloo" and self.device.type == "cuda"
         self.counts: Dict[str, int] = collections.Counter()
@@ -238,6 +278,69 @@ class Mesh:
         self._tick("send_recv", t0)
         return out
 
+    def gather(self, x: torch.Tensor, sources: Sequence[int],
+               device=None) -> Optional[List[torch.Tensor]]:
+        """Rank 0: the ``x`` of every rank of ``sources`` (world ranks,
+        0 among them, every ``x`` of one shape and dtype), in that
+        order, on ``device`` (default x's). A source sends its ``x``;
+        every other rank returns None at once."""
+        device = x.device if device is None else torch.device(device)
+        if self.world == 1:
+            return [x.to(device)]
+        if self.rank != 0 and self.rank not in sources:
+            return None
+        t0 = time.perf_counter()
+        if self.rank != 0:
+            torch.distributed.send(self._host(x).contiguous(), 0)
+            self._tick("gather", t0)
+            return None
+        parts = {r: torch.empty(x.shape, dtype=x.dtype,
+                                device="cpu" if self.staged else x.device)
+                 for r in sources if r != 0}
+        reqs = [torch.distributed.irecv(t, r) for r, t in parts.items()]
+        for req in reqs:
+            req.wait()
+        out = [(x if r == 0 else parts[r]).to(device) for r in sources]
+        self._tick("gather", t0)
+        return out
+
+    def scatter(self, parts: Optional[Dict[int, torch.Tensor]],
+                shape: Sequence[int], dtype: torch.dtype,
+                device) -> torch.Tensor:
+        """Rank 0 passes ``parts``, one tensor of ``shape`` for every
+        world rank, and sends each rank its own; every rank returns its
+        part in ``dtype`` on ``device`` (the others pass None)."""
+        if self.world == 1:
+            return parts[0].to(device, dtype)
+        t0 = time.perf_counter()
+        # gloo sends host tensors, nccl device ones.
+        wire = device if self.backend == "nccl" else "cpu"
+        if self.rank == 0:
+            reqs = [torch.distributed.isend(
+                parts[r].to(wire, dtype).contiguous(), r)
+                for r in range(1, self.world)]
+            for req in reqs:
+                req.wait()
+            out = parts[0].to(device, dtype)
+        else:
+            buf = torch.empty(tuple(shape), dtype=dtype, device=wire)
+            torch.distributed.recv(buf, 0)
+            out = buf.to(device)
+        self._tick("scatter", t0)
+        return out
+
+    def agree(self, ok: bool = True) -> bool:
+        """Whether every rank of the world passed ``ok`` (a one-int
+        all-reduce on a CPU tensor)."""
+        if self.world == 1:
+            return ok
+        t0 = time.perf_counter()
+        flag = torch.tensor([0 if ok else 1], dtype=torch.int32)
+        torch.distributed.all_reduce(flag, group=self._cpu_group)
+        self.counts["agree"] += 1
+        self.staged_s["agree"] += time.perf_counter() - t0
+        return int(flag.item()) == 0
+
     def broadcast_object(self, obj: Any = None, tally: bool = True) -> Any:
         """World rank 0's ``obj`` on every rank (pickled; a length and
         the bytes, two broadcasts). Rank 0 passes it, the others None.
@@ -283,8 +386,74 @@ class Mesh:
 
     def close(self) -> None:
         """Leave the world (the process's default group)."""
+        self._groups = {}
+        self._cpu_group = None
         if self.world > 1 and torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
+
+    def reform(self, exc: Optional[BaseException] = None) -> None:
+        """Leave every process group and join the world again under the
+        next epoch (module docstring). ``exc``: the failure that left
+        the world out of step; its frames' locals are cleared, so that
+        no group outlives this rank's leaving in them. Raises
+        ``MeshLost`` when a peer does not come back (rank 0 asks
+        ``alive`` while it waits); the mesh is then unusable."""
+        if self.lost:
+            raise MeshLost(f"rank {self.rank}: the world is gone")
+        if exc is not None:
+            traceback.clear_frames(exc.__traceback__)
+        self.close()
+        self.epoch += 1
+        key = f"mesh/reform/{self.epoch}"
+        self._store.add(key, 1)
+        deadline = time.monotonic() + TIMEOUT.total_seconds()
+        while int(self._store.add(key, 0)) < self.world:
+            if self.alive is not None and not self.alive():
+                self.lost = True
+                raise MeshLost(f"epoch {self.epoch}: a peer is gone")
+            if time.monotonic() > deadline:
+                self.lost = True
+                raise MeshLost(f"epoch {self.epoch}: the peers did not "
+                               f"re-form within {TIMEOUT}")
+            time.sleep(0.01)
+        self._join()
+        self.synced = True
+
+    def _join(self) -> None:
+        """Join the world of the current epoch on the store and make the
+        axis groups (every rank makes every group, in one order)."""
+        spec, rank, world = self.spec, self.rank, self.world
+        prefix = "world" if self.epoch == 0 else f"world/{self.epoch}"
+        torch.distributed.init_process_group(
+            self.backend,
+            store=torch.distributed.PrefixStore(prefix, self._store),
+            rank=rank, world_size=world, timeout=TIMEOUT)
+        groups: Dict[Tuple[str, ...], Any] = {}
+        for axes in [(a,) for a in MESH_AXES] + [AXIS_EP_TP]:
+            members: Dict[Tuple, List[int]] = collections.defaultdict(list)
+            for r in range(world):
+                c = spec.coords(r)
+                members[tuple(c[a] for a in MESH_AXES
+                              if a not in axes)].append(r)
+            size = 1
+            for a in axes:
+                size *= getattr(spec, a)
+            if size == 1:
+                continue
+            if size == world:
+                groups[axes] = None                 # the default group
+                continue
+            own = tuple(self.coords[a] for a in MESH_AXES if a not in axes)
+            for key in sorted(members):
+                g = torch.distributed.new_group(members[key],
+                                                timeout=TIMEOUT,
+                                                backend=self.backend)
+                if key == own:
+                    groups[axes] = g
+        if self.backend == "nccl":
+            self._cpu_group = torch.distributed.new_group(
+                list(range(world)), timeout=TIMEOUT, backend="gloo")
+        self._groups = groups
 
 
 def _exchange_identities(store, rank: int, world: int,
@@ -319,33 +488,9 @@ def make_mesh(spec: MeshSpec, rank: int = 0, device="cuda",
     store = _make_store(init_method, rank, world)
     check_backend(backend, _exchange_identities(
         store, rank, world, device_identity(device)))
-    torch.distributed.init_process_group(
-        backend, store=torch.distributed.PrefixStore("world", store),
-        rank=rank, world_size=world, timeout=TIMEOUT)
-    groups: Dict[Tuple[str, ...], Any] = {}
-    # Every rank makes every group, in one order.
-    for axes in [(a,) for a in MESH_AXES] + [AXIS_EP_TP]:
-        members: Dict[Tuple, List[int]] = collections.defaultdict(list)
-        for r in range(world):
-            c = spec.coords(r)
-            members[tuple(c[a] for a in MESH_AXES
-                          if a not in axes)].append(r)
-        size = 1
-        for a in axes:
-            size *= getattr(spec, a)
-        if size == 1:
-            continue
-        if size == world:
-            groups[axes] = None                 # the default group
-            continue
-        mine = spec.coords(rank)
-        own = tuple(mine[a] for a in MESH_AXES if a not in axes)
-        for key in sorted(members):
-            g = torch.distributed.new_group(members[key], timeout=TIMEOUT,
-                                            backend=backend)
-            if key == own:
-                groups[axes] = g
-    return Mesh(spec, rank, backend, device, groups)
+    mesh = Mesh(spec, rank, backend, device, {}, store=store)
+    mesh._join()
+    return mesh
 
 
 def _make_store(init_method: str, rank: int, world: int):

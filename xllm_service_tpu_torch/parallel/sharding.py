@@ -1,6 +1,9 @@
 """Sharding rules: which dimension of each parameter and of the KV pool
-lies over which mesh axis, and the slicing of a full parameter tree to
-one rank's shard.
+lies over which mesh axis, the slicing of a full parameter tree to one
+rank's shard, and the KV heads' owners: a rank's slice of a full-head
+block (``kv_share``), the ranks whose slices make every head once
+(``kv_sources``) and their join (``unshard_kv_cache``), which the KV
+plane of ``runtime/ranks.py`` moves pages with.
 
 The counterpart of the JAX package's ``parallel/sharding.py``, with its
 rule tables: Megatron-style tensor parallelism (q/k/v, gate and up over
@@ -38,13 +41,13 @@ its engine never applies it, so none is copied).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from xllm_service_tpu_torch.config import ModelConfig
-from xllm_service_tpu_torch.parallel.mesh import (AXIS_EP, AXIS_TP, Mesh,
-                                                  MeshSpec)
+from xllm_service_tpu_torch.parallel.mesh import (AXIS_DP, AXIS_EP, AXIS_SP,
+                                                  AXIS_TP, Mesh, MeshSpec)
 
 
 class Rule(NamedTuple):
@@ -219,18 +222,46 @@ def shard_params(params: Dict[str, Any], mesh: Mesh,
     return walk(params)
 
 
+def kv_share(x: torch.Tensor, cfg: ModelConfig, tp: int, tp_index: int,
+             dim: int = 3) -> torch.Tensor:
+    """The KV heads (dimension ``dim`` of ``x``, which holds them all)
+    that the rank at ``tp_index`` of ``tp`` holds: its split when they
+    split, else the head its query heads read; all of them under MLA or
+    at tp = 1 (a view)."""
+    if tp == 1 or cfg.mla:
+        return x
+    if kv_split(cfg, tp):
+        return _slice(x, dim, tp_index, tp)
+    return _slice(x, dim, tp_index // (tp // cfg.num_kv_heads),
+                  cfg.num_kv_heads)
+
+
 def shard_kv_cache(kv, mesh: Mesh, cfg: ModelConfig):
     """Full KV pools [L, P, ps, Hkv, D] sliced to the heads this rank
     holds (all of them under MLA)."""
     tp = mesh.size(AXIS_TP)
     if tp == 1 or cfg.mla:
         return tuple(kv)
-    out = []
-    for x in kv:
-        if kv_split(cfg, tp):
-            x = _slice(x, 3, mesh.index(AXIS_TP), tp)
-        else:
-            x = _slice(x, 3, mesh.index(AXIS_TP) // (tp // cfg.num_kv_heads),
-                       cfg.num_kv_heads)
-        out.append(x.contiguous().clone())
-    return tuple(out)
+    return tuple(kv_share(x, cfg, tp, mesh.index(AXIS_TP)).contiguous()
+                 .clone() for x in kv)
+
+
+def kv_sources(cfg: ModelConfig, spec: MeshSpec) -> List[int]:
+    """The world ranks whose KV shares, in order, make up every KV head
+    once: for each head group the first rank holding it, among the
+    ranks at dp = ep = sp = 0 (the others hold copies). Rank 0 alone
+    under MLA or at tp = 1."""
+    tp = spec.tp
+    if tp == 1 or cfg.mla:
+        return [0]
+    step = 1 if kv_split(cfg, tp) else tp // cfg.num_kv_heads
+    return [spec.rank_of({AXIS_DP: 0, AXIS_EP: 0, AXIS_SP: 0, AXIS_TP: t})
+            for t in range(0, tp, step)]
+
+
+def unshard_kv_cache(parts: Sequence[torch.Tensor], cfg: ModelConfig,
+                     dim: int = 3) -> torch.Tensor:
+    """The inverse of ``shard_kv_cache``: the shares of the
+    ``kv_sources`` ranks, in their order, joined into every KV head
+    along ``dim``."""
+    return parts[0] if len(parts) == 1 else torch.cat(list(parts), dim=dim)

@@ -141,13 +141,18 @@ runners that touches their device state is broadcast to the other
 ranks first, which make the same call on theirs
 (``runtime/ranks.py``), so that the collectives inside the forwards
 meet. The sharded steps run eagerly: ``cuda_graphs=True`` or
-``decode_pipeline=True`` with a mesh of several ranks raises, as does
-a host spill tier. With an sp axis, a prompt longer than the largest
-bucket and at most ``sp`` buckets long prefills in ONE ring step
-(``forward_prefill_ring``; ``_ring_eligible``), counted under
-``prefill_ring`` in the step census. The paths this package does not
-shard (PD export and import, the block fetch, the multimodal splice)
-raise under such a mesh.
+``decode_pipeline=True`` with a mesh of several ranks raises. With an
+sp axis, a prompt longer than the largest bucket and at most ``sp``
+buckets long prefills in ONE ring step (``forward_prefill_ring``;
+``_ring_eligible``), counted under ``prefill_ring`` in the step census.
+The KV plane (the PD export and import, the block fetch, the host spill
+tier) moves full-head blocks [L, n, page_size, Hkv, D], the layout of an
+unsharded engine's pools, through ``kv_plane`` (``ranks.KvPlane``):
+rank 0 gathers the pages' heads from the ranks holding them, or sends
+each rank its slice. The multimodal splice raises under a mesh. A call
+that leaves the ranks out of step (a fault between a launch and its
+agreement) re-forms the world before its error goes on (``_rejoin``),
+so that the worker contains it as with one rank.
 
 ``warmup()`` also fills ``roofline``: program -> variant key ->
 {"flops", "bytes", "tokens"} from the analytic count of
@@ -161,6 +166,7 @@ import bisect
 import collections
 import dataclasses
 import enum
+import functools
 import os
 import time
 from typing import (Any, Callable, Dict, List, Optional, Sequence as Seq,
@@ -180,9 +186,7 @@ from xllm_service_tpu_torch.runtime import decode_graph, prefill_graph, ranks
 from xllm_service_tpu_torch.runtime.kv_cache import (HostKvTier,
                                                      KvCacheEvent,
                                                      PageAllocator,
-                                                     PrefixCacheIndex,
-                                                     pool_gather,
-                                                     pool_scatter)
+                                                     PrefixCacheIndex)
 from xllm_service_tpu_torch.utils.types import FinishReason, SamplingParams
 
 
@@ -318,10 +322,8 @@ class StepOutput:
 def _check_mesh_config(ecfg: EngineConfig) -> None:
     """Refuse what a sharded engine does not run: CUDA graphs (its steps
     run eagerly: a gloo collective cannot be captured, and NCCL capture
-    needs a machine with several cards to be tried on), the decode
-    pipeline (its rollback restores the generator of rank 0 alone) and
-    the host spill tier (its restores would write rank 0's pools
-    alone)."""
+    needs a machine with several cards to be tried on) and the decode
+    pipeline (its rollback restores the generator of rank 0 alone)."""
     if ecfg.cuda_graphs:
         raise ValueError(
             "cuda_graphs=True with a mesh of several ranks: the sharded "
@@ -330,13 +332,24 @@ def _check_mesh_config(ecfg: EngineConfig) -> None:
     if ecfg.decode_pipeline:
         raise ValueError("decode_pipeline=True with a mesh of several "
                          "ranks: the sharded engine has no pipeline")
-    if ecfg.kv_spill_mb > 0:
-        raise ValueError("the host spill tier is not sharded: "
-                         "kv_spill_mb must be 0 under a mesh")
 
 
 def _pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
+
+
+def _rejoins(method):
+    """An engine call that may broadcast to the ranks: when it raises
+    with the world out of step, re-form the world first
+    (``Engine._rejoin``)."""
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        try:
+            return method(self, *args, **kwargs)
+        except Exception as exc:
+            self._rejoin(exc)
+            raise
+    return call
 
 
 class Engine:
@@ -378,10 +391,12 @@ class Engine:
             enable=engine_cfg.enable_prefix_cache)
         # The host spill tier: cached pages reclaimed under pressure are
         # copied to host memory (and on to disk when configured) and
-        # restored on a later hit. None unless kv_spill_mb > 0.
+        # restored on a later hit. None unless kv_spill_mb > 0, and on a
+        # follower rank (rank 0 holds the instance's tier, full heads).
         self.host_tier: Optional[HostKvTier] = None
         spill_bytes = int(engine_cfg.kv_spill_mb * 1e6)
-        if spill_bytes > 0 and engine_cfg.enable_prefix_cache:
+        if spill_bytes > 0 and engine_cfg.enable_prefix_cache and (
+                self.mesh is None or self.mesh.rank == 0):
             self.host_tier = HostKvTier(
                 spill_bytes, disk_dir=engine_cfg.kv_spill_dir,
                 disk_capacity_bytes=int(engine_cfg.kv_spill_disk_mb * 1e6))
@@ -446,11 +461,14 @@ class Engine:
                 engine_cfg.max_prefill_tokens, self.step_token_budget,
                 engine_cfg.prefill_buckets[-1])),
             mesh=self.mesh, ring=self._sp > 1)
+        # The KV plane: page sets in and out as full-head blocks.
+        self.kv_plane = ranks.KvPlane(self, self.mesh)
         if self.mesh is not None and self.mesh.rank == 0:
             # Rank 0 leads: its runner calls reach every rank.
             self.graphs = ranks.Mirror(self.graphs, "decode", self.mesh)
             self.prefill_graphs = ranks.Mirror(self.prefill_graphs,
                                                "prefill", self.mesh)
+            self.kv_plane = ranks.Mirror(self.kv_plane, "kv", self.mesh)
         self.mm_spliced_tokens = 0
         # Whether the decode runner's [B, V] output-token counts hold the
         # running batch's histogram (the JAX engine's ``_counts`` is not
@@ -523,6 +541,20 @@ class Engine:
             raise NotImplementedError(
                 f"{what} is not sharded: not available under a mesh of "
                 f"{self.mesh.world} ranks")
+
+    def _rejoin(self, exc: BaseException) -> None:
+        """After ``exc``: when it left the ranks out of step (raised
+        between a broadcast call and its agreement), re-form the world
+        (``Mesh.reform``; ``MeshLost`` when a rank does not come back).
+        In step, nothing to do: the followers wait for the next call."""
+        if self.mesh is not None and not self.mesh.synced:
+            self.mesh.reform(exc)
+
+    def _block_shape(self, n: int) -> Tuple[int, ...]:
+        """The layout of a KV block of ``n`` pages: every KV head (the
+        full model's, whatever share of them this rank's pools hold)."""
+        return (self.cfg.num_layers, n, self.ecfg.page_size,
+                self.cfg.kv_cache_heads, self.cfg.kv_cache_dim)
 
     def add_request(self, req: EngineRequest) -> None:
         if not req.token_ids:
@@ -837,6 +869,7 @@ class Engine:
     # ------------------------------------------------------------------
     # Step
     # ------------------------------------------------------------------
+    @_rejoins
     def step(self) -> List[StepOutput]:
         """One iteration, interleaved or prefill-first (see the module
         docstring); ``last_step_*`` describe it afterwards."""
@@ -1583,6 +1616,7 @@ class Engine:
         if parked:
             self._sort_waiting()
 
+    @_rejoins
     def fault_reset(self, evict_rids: Seq[str] = ()) -> List[str]:
         """Recover from a step fault: ``evict_rids`` leave the engine and
         every survivor requeues for re-prefill with its tokens (the shape
@@ -1868,6 +1902,7 @@ class Engine:
     # ------------------------------------------------------------------
     # PD disaggregation: the KV handoff
     # ------------------------------------------------------------------
+    @_rejoins
     def export_held(self, request_id: str, device: bool = False
                     ) -> Optional[Tuple[List[int], torch.Tensor,
                                         torch.Tensor]]:
@@ -1878,18 +1913,11 @@ class Engine:
         writes it in its first step). On the engine's device with
         ``device=True`` (the co-hosted direct path and the device wire),
         else on the CPU. None when nothing is held under the id."""
-        self._refuse_under_mesh("the PD export")
         seq = self._held.pop(request_id, None)
         if seq is None:
             return None
         self.drain_pipeline()
-        k_pages, v_pages = self.kv
-        idx = torch.tensor(seq.pages, dtype=torch.long,
-                           device=k_pages.device)
-        k = k_pages.index_select(1, idx)
-        v = v_pages.index_select(1, idx)
-        if not device:
-            k, v = k.cpu(), v.cpu()
+        k, v = self.kv_plane.gather(seq.pages, device=device)
         self.prefix_cache.release_pages([p for p in seq.pages if p])
         seq.pages = []
         return list(seq.tokens), k, v
@@ -1905,6 +1933,7 @@ class Engine:
     def num_held(self) -> int:
         return len(self._held)
 
+    @_rejoins
     def import_sequence(self, req: EngineRequest, tokens: Seq[int],
                         k, v) -> bool:
         """Adopt a migrated sequence mid-generation (the decode side of
@@ -1914,13 +1943,11 @@ class Engine:
         fresh pages (an online request preempts offline ones), scatters
         the block, adds a RUNNING sequence and registers its full pages
         in the prefix cache. False, with nothing changed, when the layout
-        differs from this engine's or no slot or pages are free: the
-        caller decodes elsewhere."""
-        self._refuse_under_mesh("the PD import")
+        differs from this engine's (every KV head, also under a mesh) or
+        no slot or pages are free: the caller decodes elsewhere."""
         self.drain_pipeline()
         n_pages = self._pages_needed(len(tokens))
-        k_pages, v_pages = self.kv
-        expect = (k_pages.shape[0], n_pages, *k_pages.shape[2:])
+        expect = self._block_shape(n_pages)
         if tuple(k.shape) != expect or tuple(v.shape) != expect \
                 or k.dtype != v.dtype:
             return False
@@ -1933,11 +1960,12 @@ class Engine:
             pages = self.prefix_cache.alloc(n_pages)
         if pages is None:
             return False
-        idx = torch.tensor(pages, dtype=torch.long, device=k_pages.device)
-        for pool, block in ((k_pages, k), (v_pages, v)):
-            block = torch.as_tensor(block)
-            pool.index_copy_(1, idx, block.to(device=pool.device,
-                                              dtype=pool.dtype))
+        try:
+            self.kv_plane.scatter(pages, k, v)
+        except BaseException:
+            # Unregistered: straight back to the free list.
+            self.prefix_cache.release_pages(pages)
+            raise
         seq = Sequence(req=req, tokens=list(tokens), pages=pages,
                        num_computed=len(tokens) - 1, slot=slot,
                        status=SeqStatus.RUNNING,
@@ -1958,6 +1986,7 @@ class Engine:
     # ------------------------------------------------------------------
     # The cross-worker block fetch
     # ------------------------------------------------------------------
+    @_rejoins
     def export_blocks(self, hashes: Seq[bytes], device: bool = False
                       ) -> Optional[Tuple[int, torch.Tensor, torch.Tensor]]:
         """The holder's side of a fetch (JAX engine ``export_blocks``):
@@ -1976,23 +2005,19 @@ class Engine:
         device's default stream, the one the engine loop's steps and
         graph replays run on), so it is ordered before any later write
         of a reclaimed page by the same stream."""
-        self._refuse_under_mesh("the block export")
         pages = self.prefix_cache.pages_for_hashes(hashes)
         n_pool = len(pages)
         k = v = None
+        on_device = device and n_pool == len(hashes)
         try:
             if n_pool:
-                k_pages, v_pages = self.kv
-                idx = torch.tensor(pages, dtype=torch.long,
-                                   device=k_pages.device)
-                k = k_pages.index_select(1, idx)
-                v = v_pages.index_select(1, idx)
+                k, v = self.kv_plane.gather(pages, device=on_device)
         finally:
             self.prefix_cache.release_pages(pages)
-        if n_pool and device and n_pool == len(hashes):
+        if n_pool and on_device:
             return n_pool, k, v
-        parts_k = [k.cpu()] if n_pool else []
-        parts_v = [v.cpu()] if n_pool else []
+        parts_k = [k] if n_pool else []
+        parts_v = [v] if n_pool else []
         i = n_pool
         while self.host_tier is not None and i < len(hashes):
             blk = self.host_tier.peek(hashes[i])
@@ -2005,6 +2030,7 @@ class Engine:
             return None
         return i, torch.cat(parts_k, dim=1), torch.cat(parts_v, dim=1)
 
+    @_rejoins
     def adopt_blocks(self, token_ids: Seq[int], start_block: int,
                      k, v) -> int:
         """The requester's side (JAX engine ``adopt_blocks``): blocks
@@ -2023,11 +2049,9 @@ class Engine:
         The adopted pages belong to no sequence, so nothing a runner
         stages changes; the next admission's page table is packed whole
         into the prefill runner's buffer."""
-        self._refuse_under_mesh("the block adoption")
         self.drain_pipeline()
-        k_pages, v_pages = self.kv
         n = int(k.shape[1]) if len(getattr(k, "shape", ())) == 5 else 0
-        expect = (k_pages.shape[0], n, *k_pages.shape[2:])
+        expect = self._block_shape(n)
         if n <= 0 or tuple(k.shape) != expect or \
                 tuple(v.shape) != expect:
             return 0
@@ -2055,11 +2079,7 @@ class Engine:
             # Released registered (cached, reclaimable), or, when the
             # scatter raised, unregistered (freed).
             try:
-                idx = torch.tensor(pages, dtype=torch.long,
-                                   device=k_pages.device)
-                for pool, block in ((k_pages, k), (v_pages, v)):
-                    pool.index_copy_(1, idx, torch.as_tensor(block).to(
-                        device=pool.device, dtype=pool.dtype))
+                self.kv_plane.scatter(pages, k, v)
                 self.prefix_cache.register_blocks(
                     hashes[start_block:start_block + n], pages)
             finally:
@@ -2072,14 +2092,19 @@ class Engine:
     # ------------------------------------------------------------------
     # The host spill tier
     # ------------------------------------------------------------------
+    @_rejoins
     def _spill_page(self, h: bytes, pid: int) -> bool:
         """The prefix index's spill hook: copy page ``pid``, about to be
         reclaimed, into the host tier under digest ``h``. The copy is
         taken here, before the page's next owner is handed it, so it
-        reads the content the page held."""
+        reads the content the page held: every KV head, gathered from
+        the ranks under a mesh. The index takes a raise for a plain
+        eviction, so the world re-forms here when it left it out of
+        step."""
         if self.host_tier is None:
             return False
-        return self.host_tier.put(h, *pool_gather(self.kv, pid))
+        k, v = self.kv_plane.gather([pid])
+        return self.host_tier.put(h, k[:, 0], v[:, 0])
 
     def _restore_spilled(self, tokens: Seq[int], pages: List[int],
                          cached_tokens: int) -> Tuple[List[int], int]:
@@ -2120,8 +2145,11 @@ class Engine:
                     self.host_tier.pop(h)
             new_pages = self.prefix_cache.alloc(n_tier)
             if new_pages is not None:
-                pool_scatter(self.kv, new_pages,
-                             [b for kind, _, b in plan if kind == "tier"])
+                blocks = [b for kind, _, b in plan if kind == "tier"]
+                self.kv_plane.scatter(
+                    new_pages,
+                    *(torch.stack([torch.as_tensor(b[i]) for b in blocks],
+                                  dim=1) for i in range(2)))
                 restored = True
         finally:
             if not restored:

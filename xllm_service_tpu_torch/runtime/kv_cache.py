@@ -30,7 +30,7 @@ import json
 import logging
 import os
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -478,13 +478,3 @@ def pool_gather(kv: Tuple[torch.Tensor, ...], pid: int
     to the page, and waited for, so it holds the content the page held
     when called."""
     return tuple(p[:, pid].to("cpu", copy=True) for p in kv)
-
-
-def pool_scatter(kv: Tuple[torch.Tensor, ...], pages: Sequence[int],
-                 blocks: Sequence[Tuple[Any, ...]]) -> None:
-    """Write ``blocks[j]`` (one host tensor per pool, [L, ps, H, D])
-    into page ``pages[j]`` of every pool, in place."""
-    idx = torch.tensor(list(pages), dtype=torch.long, device=kv[0].device)
-    for i, p in enumerate(kv):
-        new = torch.stack([torch.as_tensor(b[i]) for b in blocks], dim=1)
-        p.index_copy_(1, idx, new.to(device=p.device, dtype=p.dtype))

@@ -31,17 +31,35 @@ itself (``start_followers``: ``python -m
 xllm_service_tpu_torch.runtime.ranks <launch file> <rank>``, each on a
 device of ``plan_devices``), and stops them when it stops.
 
-A step that fails on any rank leaves the world out of step: rank 0 may
-have broadcast the launch and raised before the collective its
-followers wait in, or a follower may have raised and left. So a sharded
-worker does not contain a step fault as a single-rank one does (no
-reset, no bisection probes, which would start collectives the
-followers' pending ones would pair with): it fails every request,
-stops its engine loop and tears the world down (``abort``). Rank 0
-polls the followers it started and treats one that exited as such a
-fault; between steps it broadcasts a keep-alive every
-``mesh.KEEPALIVE_S``, so that every collective can wait a bounded time
-(``mesh.TIMEOUT``) for a peer.
+Rank 0 also moves KV between the pools of every rank and the full-head
+blocks its engine hands out and takes in (the PD handoff, the block
+fetch, the host spill tier): ``KvPlane``, a mirrored runner too.
+``gather(pages)`` has each rank holding a head group
+(``sharding.kv_sources``) send its heads of those pages to rank 0,
+which joins them (``sharding.unshard_kv_cache``); ``scatter(pages, k,
+v)`` sends every rank, replicas included, its slice of a full-head
+block for the pages rank 0 allocated, which each writes into its own
+pools. An unsharded engine's ``KvPlane`` does the same on its own
+pools.
+
+The step fault boundary holds under a mesh. After every launched
+forward (and every KV move and control call) the ranks agree on its
+status (``Mesh.agree``). A fault raised on rank 0 before a section's
+launch (the step failpoints, a host error) leaves the world in step,
+and the worker contains it as with one rank. A fault between a launch
+and its agreement (rank 0 raising inside a sharded forward, a follower
+raising) leaves it out of step: the rank that raised leaves its
+process groups, which makes its peers' pending collectives fail at
+once, and every rank re-forms the world under the next epoch
+(``Mesh.reform``), keeping its engine, weights and pools; rank 0's
+engine re-forms before the fault reaches the worker, which then
+contains it (``Engine._rejoin``). A follower whose call without an
+agreement raised (a staging call) re-forms at the next agreed call
+instead of running it, so that rank 0 learns of it there. A follower
+that exits is a lost rank: rank 0 polls the followers it started and
+ends the worker (``abort``); between steps it broadcasts a keep-alive
+every ``mesh.KEEPALIVE_S``, so that every collective can wait a bounded
+time (``mesh.TIMEOUT``) for a peer.
 """
 
 from __future__ import annotations
@@ -60,6 +78,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from xllm_service_tpu_torch.config import EngineConfig, ModelConfig
+from xllm_service_tpu_torch.parallel import sharding
 from xllm_service_tpu_torch.parallel.mesh import (KEEPALIVE_S, Mesh, MeshSpec,
                                                   default_backend, free_port,
                                                   make_mesh)
@@ -78,14 +97,42 @@ MIRRORED: Dict[str, Tuple[str, ...]] = {
                "stage_carries", "prepare", "launch"),
     "prefill": ("stage", "stage_mm", "prepare", "launch"),
     "control": ("reset", "report", "all_reduce_ms", "forward_logits",
-                "ring_logits"),
+                "ring_logits", "kv_pages"),
+    "kv": ("gather", "scatter"),
 }
+# The calls that run collectives, after which every rank reports its
+# status (``Mesh.agree``).
+AGREED: Dict[str, Tuple[str, ...]] = {
+    "decode": ("launch",), "prefill": ("launch",),
+    "control": MIRRORED["control"], "kv": MIRRORED["kv"],
+}
+
+
+def _lead(mesh: Mesh, name: str, attr: str, fn, args, kwargs,
+          header=None):
+    """Rank 0: broadcast the call (``header``: the arguments the
+    followers get, default all), make it here, and for an ``AGREED``
+    call wait for every rank's status. ``mesh.synced`` is False from the
+    broadcast until the call is known to have gone through on every
+    rank."""
+    hargs, hkwargs = (args, kwargs) if header is None else header
+    mesh.synced = False
+    mesh.broadcast_object((name, attr, hargs, hkwargs))
+    if attr not in AGREED[name]:
+        mesh.synced = True
+        return fn(*args, **kwargs)
+    out = fn(*args, **kwargs)
+    if not mesh.agree(True):
+        raise RuntimeError(f"{name}.{attr} failed on another rank")
+    mesh.synced = True
+    return out
 
 
 class Mirror:
     """Rank 0's stand-in for one of its engine's runners: a call of a
     ``MIRRORED`` method is broadcast to the followers, then made here;
-    anything else is the runner's own."""
+    anything else is the runner's own. A runner with a ``header``
+    method chooses what of a call's arguments the followers get."""
 
     def __init__(self, runner, name: str, mesh: Mesh) -> None:
         object.__setattr__(self, "_runner", runner)
@@ -96,14 +143,77 @@ class Mirror:
         value = getattr(self._runner, attr)
         if attr not in MIRRORED[self._name]:
             return value
+        header = getattr(self._runner, "header", None)
 
         def call(*args, **kwargs):
-            self._mesh.broadcast_object((self._name, attr, args, kwargs))
-            return value(*args, **kwargs)
+            return _lead(self._mesh, self._name, attr, value, args, kwargs,
+                         header=None if header is None
+                         else header(attr, args, kwargs))
         return call
 
     def __setattr__(self, attr: str, value) -> None:
         setattr(self._runner, attr, value)
+
+
+class KvPlane:
+    """Page sets of the KV pools in and out as full-head blocks [L, n,
+    page_size, Hkv, D] (module docstring): the pools of every rank under
+    a mesh, the engine's own without one. Rank 0 calls it through a
+    ``Mirror``; the followers make the same call with the page ids."""
+
+    def __init__(self, engine, mesh: Optional[Mesh]) -> None:
+        self.engine, self.mesh = engine, mesh
+
+    @staticmethod
+    def header(attr: str, args, kwargs):
+        """The followers get the page ids alone (the blocks travel in
+        the scatter, the placement of the result is rank 0's)."""
+        return (args[0],), {}
+
+    def _index(self, pages) -> torch.Tensor:
+        return torch.tensor(list(pages), dtype=torch.long,
+                            device=self.engine.kv[0].device)
+
+    def gather(self, pages, device: bool = False):
+        """Rank 0: (k, v) of ``pages`` with every KV head, fresh tensors
+        on the engine's device with ``device=True``, else on the CPU.
+        None on the followers (a source sends its heads)."""
+        pools, mesh = self.engine.kv, self.mesh
+        idx = self._index(pages)
+        if mesh is None:
+            k, v = (p.index_select(1, idx) for p in pools)
+            return (k, v) if device else (k.cpu(), v.cpu())
+        mine = torch.stack([p.index_select(1, idx) for p in pools])
+        parts = mesh.gather(mine, sharding.kv_sources(self.engine.cfg,
+                                                      mesh.spec),
+                            device=pools[0].device if device else "cpu")
+        if parts is None:
+            return None
+        full = sharding.unshard_kv_cache(parts, self.engine.cfg, dim=4)
+        return full[0], full[1]
+
+    def scatter(self, pages, k=None, v=None) -> None:
+        """Write a full-head block (k, v: tensors on any device, or numpy
+        arrays, given on rank 0) into ``pages`` of every rank's pools,
+        each rank its own heads, in place."""
+        pools, mesh = self.engine.kv, self.mesh
+        idx = self._index(pages)
+        if mesh is None:
+            for pool, block in zip(pools, (k, v)):
+                pool.index_copy_(1, idx, torch.as_tensor(block).to(
+                    device=pool.device, dtype=pool.dtype))
+            return
+        parts = None
+        if mesh.rank == 0:
+            full = torch.stack([torch.as_tensor(k), torch.as_tensor(v)])
+            cfg, tp = self.engine.cfg, mesh.spec.tp
+            parts = {r: sharding.kv_share(full, cfg, tp,
+                                          mesh.spec.coords(r)["tp"], dim=4)
+                     for r in range(mesh.world)}
+        shape = (2, pools[0].shape[0], len(idx), *pools[0].shape[2:])
+        mine = mesh.scatter(parts, shape, pools[0].dtype, pools[0].device)
+        for pool, block in zip(pools, mine):
+            pool.index_copy_(1, idx, block)
 
 
 class Control:
@@ -165,6 +275,16 @@ class Control:
         self.mesh.staged_s.update(saved[1])
         return out
 
+    def kv_pages(self, pages: List[int]) -> Optional[List[Tuple]]:
+        """Every rank's (k, v) share of ``pages`` of its pools, on the
+        CPU, in rank order, gathered over the world to rank 0 as pickled
+        objects (not through ``KvPlane``: what its gather is checked
+        against); None on the others."""
+        idx = torch.tensor(list(pages), dtype=torch.long,
+                           device=self.engine.kv[0].device)
+        return self.mesh.gather_object(tuple(
+            p.index_select(1, idx).cpu() for p in self.engine.kv))
+
     def _scratch(self, n: int, page_size: int):
         from xllm_service_tpu_torch.models import transformer
         e = self.engine
@@ -215,8 +335,8 @@ class Control:
 def control(engine, attr: str, *args, **kwargs):
     """Rank 0: make ``Control.<attr>`` on every rank of ``engine``'s mesh;
     returns rank 0's result."""
-    engine.mesh.broadcast_object(("control", attr, args, kwargs))
-    return getattr(Control(engine, engine.mesh), attr)(*args, **kwargs)
+    return _lead(engine.mesh, "control", attr,
+                 getattr(Control(engine, engine.mesh), attr), args, kwargs)
 
 
 def stop_followers(mesh: Mesh) -> None:
@@ -258,10 +378,10 @@ def lost_follower(procs: List[subprocess.Popen], wait_s: float = 0.0
 
 
 def abort(mesh: Mesh, procs: List[subprocess.Popen]) -> None:
-    """Rank 0, after a step failed: end the followers it started and
+    """Rank 0, after a rank was lost: end the followers it started and
     leave the world without a stop broadcast (a follower may be waiting
-    in a collective of the failed step). Followers of a world the
-    caller started see the world go (gloo) or time out (nccl)."""
+    in a collective). Followers of a world the caller started see the
+    world go (gloo) or time out (nccl)."""
     for p in procs:
         if p.poll() is None:
             p.kill()
@@ -271,12 +391,16 @@ def abort(mesh: Mesh, procs: List[subprocess.Popen]) -> None:
 
 def follow(engine, mesh: Mesh) -> int:
     """A follower's loop: make each call rank 0 broadcasts on this
-    engine's runners, until rank 0 stops it. Returns the calls made.
-    A call that raises ends the loop with that error (the world is out
-    of step; rank 0 tears it down)."""
+    engine's runners, until rank 0 stops it. Returns the calls made. A
+    call that raises re-forms the world (module docstring): an
+    ``AGREED`` one at once, any other at the next agreed call. Ends
+    with ``MeshLost`` when the world cannot re-form, and with the
+    broadcast's error when rank 0 is gone."""
     runners = {"decode": engine.graphs, "prefill": engine.prefill_graphs,
-               "control": Control(engine, mesh)}
+               "control": Control(engine, mesh), "kv": engine.kv_plane}
     n = 0
+    # A call without an agreement that raised, not reported yet.
+    failed: Optional[BaseException] = None
     while True:
         msg = mesh.broadcast_object()
         if msg is None:
@@ -284,8 +408,27 @@ def follow(engine, mesh: Mesh) -> int:
         if msg == _KEEPALIVE:
             continue
         name, attr, args, kwargs = msg
-        getattr(runners[name], attr)(*args, **kwargs)
+        agreed = attr in AGREED[name]
+        try:
+            if agreed and failed is not None:
+                raise failed
+            getattr(runners[name], attr)(*args, **kwargs)
+            if agreed:
+                mesh.agree(True)
+        except Exception as exc:  # noqa: BLE001 — this rank's fault
+            if not agreed:
+                failed = exc
+                continue
+            failed = None
+            logger.warning("rank %d: %s.%s failed (%r); re-forming the "
+                           "world", mesh.rank, name, attr, exc)
+            mesh.reform(exc)
+            continue
         n += 1
+        if attr == "invalidate_staged":
+            # Rank 0 reset after a fault: everything staged is uploaded
+            # whole again.
+            failed = None
 
 
 @dataclasses.dataclass

@@ -308,8 +308,8 @@ from xllm_service_tpu_torch.ops import kernels
 from xllm_service_tpu_torch.runtime.engine import (Engine, EngineRequest,
                                                    StepOutput,
                                                    resolve_device)
-from xllm_service_tpu_torch.parallel.mesh import (MeshSpec, default_backend,
-                                                  make_mesh)
+from xllm_service_tpu_torch.parallel.mesh import (Mesh, MeshLost, MeshSpec,
+                                                  default_backend, make_mesh)
 from xllm_service_tpu_torch.runtime import (checkpoint, kv_wire, multimodal,
                                             ranks)
 from xllm_service_tpu_torch.runtime.kv_cache import (KvCacheEvent,
@@ -978,12 +978,14 @@ class Worker:
                  engine_cfg: Optional[EngineConfig] = None,
                  model_cfg: Optional[ModelConfig] = None,
                  params: Optional[Params] = None,
-                 vision_tower: Optional[Tuple[Any, Dict[str, Any]]] = None
-                 ) -> None:
+                 vision_tower: Optional[Tuple[Any, Dict[str, Any]]] = None,
+                 mesh: Optional[Mesh] = None) -> None:
         """``vision_tower``: a (config, parameters) pair to encode images
         with instead of the model directory's tower or the synthetic ViT
         from seed 0 (``models/vision.VisionConfig``, or either
-        ``models/qwen2vl_vision`` config)."""
+        ``models/qwen2vl_vision`` config). ``mesh``: rank 0's mesh of a
+        world the caller started in this process (its followers run
+        ``ranks.follow``), instead of the engine config's."""
         self.opts = opts
         if opts.encode_only:
             opts.instance_type = InstanceType.ENCODE
@@ -998,8 +1000,15 @@ class Worker:
         model_cfg = model_cfg or resolve_model_config(opts.model,
                                                       opts.model_dir)
         # The mesh, rank 0's side (the followers started, or joined).
-        self.mesh, self._rank_procs = self._join_mesh(model_cfg, params)
+        self.mesh, self._rank_procs = (
+            (mesh, []) if mesh is not None and mesh.world > 1
+            else self._join_mesh(model_cfg, params))
         self._mesh_down = False
+        if self.mesh is not None:
+            # A re-formation waits for the followers this worker started
+            # only while they run.
+            self.mesh.alive = lambda: not ranks.lost_follower(
+                self._rank_procs)
         # One runtime per model; the primary first. Its engine first:
         # without the device it raises before any socket is bound.
         self.runtimes: Dict[str, ModelRuntime] = {
@@ -1448,11 +1457,11 @@ class Worker:
 
     def _mesh_fault(self, message: str,
                     exc: Optional[BaseException] = None) -> None:
-        """A step failed on some rank of the mesh, or a follower exited:
-        the ranks are out of step, so nothing is contained. Every
-        request fails (with the follower that exited named, if one
-        did), the engine loop ends and the world is torn down
-        (``ranks.abort``)."""
+        """A rank of the mesh is lost: a follower exited, the keep-alive
+        failed, or the world did not re-form after a fault
+        (``MeshLost``). Nothing is contained: every request fails (with
+        the follower that exited named, if one did), the engine loop
+        ends and the world is torn down (``ranks.abort``)."""
         if exc is not None:
             lost = ranks.lost_follower(self._rank_procs, wait_s=0.5)
             message = f"{message}: {exc!r}" + (f" (mesh {lost})"
@@ -2134,15 +2143,22 @@ class Worker:
                     fault = exc           # fault boundary, below
                 step_ms = (time.perf_counter() - t0) * 1e3
             self._push_outputs_to_service(adopted)
-            if fault is not None and self.mesh is not None:
-                self._record_step(rt, eng, step_ms, phase="fault")
-                self._mesh_fault(f"engine step failed under a "
-                                 f"{self.mesh.world}-rank mesh", fault)
-                return False
             if fault is not None:
-                # Contain, attribute, resume; or, with the breaker open,
-                # die visibly.
-                if not self._contain_engine_fault(rt, fault, step_ms):
+                # Contain, attribute, resume (under a mesh the engine
+                # re-formed the world first, where the fault left it out
+                # of step); or, with the breaker open or a rank lost, die
+                # visibly.
+                try:
+                    if isinstance(fault, MeshLost):
+                        self._record_step(rt, eng, step_ms, phase="fault")
+                        raise fault
+                    contained = self._contain_engine_fault(rt, fault,
+                                                           step_ms)
+                except MeshLost as exc:
+                    self._mesh_fault(f"engine step failed under a "
+                                     f"{self.mesh.world}-rank mesh", exc)
+                    return False
+                if not contained:
                     logger.error("engine step failed", exc_info=fault)
                     self._engine_loop_alive = False
                     self._m_alive.set(0, model=rt.model)
