@@ -402,8 +402,9 @@ Phases (any failure raises and the exit code is not 0):
 16. Gemma (``gemma_phase``, ``[gemma]``): Gemma-3-12B at its published
    widths cut to 6 layers (5 local, 1 global), the kernels in bf16
    against the float32 plain path (rel L2 under 5e-2); Gemma-3-12B at
-   all 48 layers on random bf16 weights made on the card (~23.5 GB),
-   served in-process in the split path and attend-then-write, and the
+   its first 16 of 48 layers (cut from 48 for phase 17's rounds h-k) on
+   random bf16 weights made on the card, served in-process in the split
+   path and attend-then-write, and the
    ragged step at its first 6 layers (4 slots of 2,048 tokens, buckets
    128/256/512, prefill budget 259; two
    of the four prompts past the window, 32 new tokens): launches per
@@ -436,7 +437,21 @@ Phases (any failure raises and the exit code is not 0):
    and ``[parallel-pd]`` (a PD prefill feeding an unsharded decode
    worker over the bytes path and the CUDA IPC wire, then the reverse:
    KV bytes a request, the handoff's ms and the gather's and scatter's
-   share). At most 120 s.
+   share). Then the sharded worker's lifecycle and encode plane:
+   ``[parallel-life]`` (W sleeps: bytes freed per rank and D2H GB/s;
+   a warm wake: H2D and engine build per rank; the streams equal across
+   it; llama3-8b forked and woken cold, half its heads on each rank),
+   ``[parallel-embed]`` (``/v1/embeddings`` on W against the unsharded
+   forward: rel L2 and cosine, ms), ``[parallel-pipeline]`` (llama3-1b
+   at tp = 2 and 4 fused decode steps, the pipeline on and off: equal
+   streams, rollbacks, both ranks' generators equal, decode ms per
+   token) and ``[parallel-epd]`` (an ENCODE child at ``--role encode
+   --tp 2`` and a tp = 2 MIX worker on Qwen2-VL-7B, its language model
+   at 4 of 28 layers, the tower whole, behind the port's master: TTFT
+   with and without an image, every image token spliced, the splice's
+   broadcast ms, the image streams under the margins rule). K3 and K4
+   at the Qwen2-VL-7B rank's shapes are timed as ``*_qwen2vl_tp2``
+   records. At most ``PAR_BUDGET_S``.
 18. Summary: one line ``{"kernels": [...]}`` (K1-K4 and the fused rope
    writers' launches from phase 5 (K1/K2 now 0), K5 from 5b, K6 (now 0),
    K7, K3', K4' and the dense all-layer mode from 5c, K3'' and the fused
@@ -449,7 +464,7 @@ Phases (any failure raises and the exit code is not 0):
    record's), the ``*_qwen2vl`` records phase 14's, the ``*_gemma3``
    records phase 16's Gemma-3 round of their path and the ``*_gemma2``
    ones its Gemma-2 round, the ``*_tp2`` records phase 17's tp = 2
-   round; phases 5f/5g and the
+   round, the ``*_qwen2vl_tp2`` records its EPD round; phases 5f/5g and the
    graph checks go to the ``[summary]``
    line; phases 7, 7b, 6b and 9 too, and ``phase_end_s``, the script's
    clock at the end of each phase), the card line, then the last line
@@ -8553,13 +8568,19 @@ GEMMA_PLAN = (("/v1/chat/completions", True, 1400),
               ("/v1/completions", False, 300),
               ("/v1/chat/completions", True, 1150),
               ("/v1/completions", False, 200))
-# (tag, ragged, write-then-attend, layers): both write orders at all 48
-# layers; the ragged step (K5's launches) at the first 6 layers (5
-# local, 1 global) of the same weights, since its warmup captures twice
-# the split path's graphs (87.3 s at 48 layers on an H100, against 38.1
-# s for the split path).
-GEMMA_PATHS = (("split", False, True, 48),
-               ("attend_then_write", False, False, 48),
+# The served depth of the split path and attend-then-write: Gemma-3-12B's
+# first 16 of 48 layers (13 local, 3 global), cut from all 48 to pay for
+# phase 17's lifecycle and encode rounds (h-k) under the script's limit
+# (each served layer of the two paths took ~1 s of the phase on an
+# NVIDIA H100 80GB HBM3 at 700.00 W).
+GEMMA_SERVE_LAYERS = 16
+# (tag, ragged, write-then-attend, layers): both write orders at
+# ``GEMMA_SERVE_LAYERS``; the ragged step (K5's launches) at the first 6
+# layers (5 local, 1 global) of the same weights, since its warmup
+# captures twice the split path's graphs (87.3 s at 48 layers on an
+# H100, against 38.1 s for the split path).
+GEMMA_PATHS = (("split", False, True, GEMMA_SERVE_LAYERS),
+               ("attend_then_write", False, False, GEMMA_SERVE_LAYERS),
                ("ragged", True, True, 6))
 
 
@@ -8685,10 +8706,11 @@ def gemma_phase(torch, kernels, card: str) -> dict:
        (five local layers, one global; per-layer rope bases): the
        kernels in bf16 against the float32 plain path
        (``gemma_forward_check``), relative L2 under ``FORWARD_REL_L2``.
-    b. Gemma-3-12B at its published widths on random bf16 weights made
-       on the card from seed 0, served in-process by the worker in each
-       of ``GEMMA_PATHS`` (the split path and attend-then-write at all 48
-       layers, the ragged step at the first 6) with ``GEMMA_PLAN``'s
+    b. Gemma-3-12B at its published widths cut to
+       ``GEMMA_SERVE_LAYERS`` of its 48 layers, on random bf16 weights
+       made on the card from seed 0, served in-process by the worker in
+       each of ``GEMMA_PATHS`` (the split path and attend-then-write at
+       that depth, the ragged step at the first 6) with ``GEMMA_PLAN``'s
        four requests (two prompts past the window, 32 new tokens at
        temperature 0) on ``GEMMA_ARGS``' pool: every step's launches, no
        capture after warmup, TTFT, decode step median, tokens/s per
@@ -8723,6 +8745,9 @@ def gemma_phase(torch, kernels, card: str) -> dict:
                              f"{max(rels)} > {FORWARD_REL_L2}")
     # b.
     t0 = time.perf_counter()
+    cfg = dataclasses.replace(
+        cfg, num_layers=GEMMA_SERVE_LAYERS,
+        layer_sliding=cfg.layer_sliding[:GEMMA_SERVE_LAYERS])
     g = torch.Generator(device=GEMMA_DEVICE).manual_seed(0)
     params = tf.init_params(cfg, g, GEMMA_DEVICE)
     torch.cuda.synchronize()
@@ -8823,7 +8848,7 @@ PAR_ENV = {"XLLM_RAGGED_ATTN": "0", "XLLM_WRITE_THEN_ATTEND": "1",
 PAR_ARGS = SERVE_ARGS + ["--dist-backend", "gloo", "--no-warmup"]
 PAR_RING_CHARS = 900                    # one ring prompt: > 512, <= 1024
 PAR_DS_LONG = (1800, 1790)              # DeepSeek prompts, 512-token windows
-PAR_BUDGET_S = 120.0
+PAR_BUDGET_S = 180.0
 
 
 def _par_engine_cfg(**kw):
@@ -9567,6 +9592,465 @@ def parallel_kv_rounds(torch, kernels, card: str, err: float, cfg, w,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17 h-k: the sharded worker's lifecycle and encode plane
+# ---------------------------------------------------------------------------
+
+# New tokens a request in round h (served one at a time, so that the
+# batches before and after the sleep are the same).
+PAR_LIFE_TOKENS = 8
+# The model round h forks on W and wakes cold (random from the seed).
+PAR_LIFE_FORK = "llama3-8b"
+# Round i's inputs (characters; the byte tokenizer: one token each).
+PAR_EMBED_CHARS = (40, 120, 250)
+# Round j's fused decode steps a dispatch, and its prompts' lengths:
+# none within a burst and a speculation (7 tokens) of a 128-token page's
+# end while it decodes 32 tokens, so that a speculation may go out at
+# every burst but the last ones.
+PAR_PIPE_STEPS = 4
+PAR_PIPE_LENGTHS = (60, 170, 200, 300)
+# Round k: Qwen2-VL-7B's language model cut to these of its 28 layers
+# (full width; the tower whole), at tp = 2.
+PAR_EPD_LAYERS = 4
+# The shape model of the *_qwen2vl_tp2 records: Qwen2-VL-7B's rank at
+# tp = 2 (14 query heads, 2 KV heads, D 128), which round k serves.
+PAR_QWEN2VL_TP2_MODEL = "qwen2-vl-7b-tp2"
+PAR_EPD_TEXTS = ("Tell me about the weather in spring and autumn.",
+                 "Write two sentences about a quiet harbour town.")
+
+
+def _par_book_model(book, model: str) -> list:
+    """Each rank's entry for ``model`` in ``Worker.mesh_book``: where it
+    is (awake, asleep or absent), its heads and bytes, its timings."""
+    out = []
+    for r in book:
+        where = ("awake" if model in r["awake"] else
+                 "asleep" if model in r["asleep"] else None)
+        out.append({"rank": r["rank"], "state": where,
+                    **(r[where][model] if where else {}),
+                    "allocated": r["allocated"], "free": r["free"],
+                    "timings": r["timings"].get(model, {})})
+    return out
+
+
+def parallel_life_rounds(torch, card: str, err: float, cfg, w,
+                         full) -> dict:
+    """Phase 17 h-i on round a's tp = 2 worker W (``w``; both ranks on
+    the card over gloo), after rounds d-g.
+
+    h. [parallel-life]: phase 5's four prompt lengths (fresh prompts),
+       served one at a time, ``PAR_LIFE_TOKENS`` tokens each; ``/sleep``
+       (every rank parks its shard in pinned host memory and drops its
+       engine): the bytes freed per rank (``torch.cuda.memory_allocated``
+       of each rank's process; the card's free bytes from
+       ``torch.cuda.mem_get_info``) and each rank's D2H GB/s; a warm
+       ``/wakeup`` (its seconds, and per rank the H2D and the engine
+       build); the prompts again, the streams equal to before the sleep.
+       Then ``/fork_master`` of ``PAR_LIFE_FORK`` (random from the seed)
+       and its cold ``/wakeup``: every rank holds an engine with half the
+       heads (F13).
+    i. [parallel-embed]: ``/v1/embeddings`` of three inputs on W against
+       ``forward_embedding`` on the unsharded weights ``full`` on the
+       card: rel L2 (under ``FORWARD_REL_L2``) and cosine per input
+       (over 0.99), and the route's ms (median of 3).
+    Every round prints its seconds."""
+    import numpy as np
+
+    from xllm_service_tpu_torch.models import transformer as tf
+    from xllm_service_tpu_torch.runtime import worker
+    out = {}
+    model = w.opts.model
+    # h.
+    t0 = time.perf_counter()
+    rng = random.Random(251)
+    tok = w.tokenizer
+    ids = {f"n{n}": _token_ids(tok, rng, n) for _, _, n in SERVE_PLAN}
+
+    def serve_one_at_a_time(tag):
+        got, ttft = {}, {}
+        for rid, p in ids.items():
+            r = {}
+            _request(w.name, CHAT, _par_body(p, PAR_LIFE_TOKENS), True, r)
+            got[rid], ttft[rid] = _par_reply(r, PAR_LIFE_TOKENS, tag)
+        return got, ttft
+
+    before, ttft_before = serve_one_at_a_time("life before")
+    book0 = w.mesh_book()
+    t1 = time.perf_counter()
+    st, resp = _post(w.name, "/sleep", {"model": model})
+    sleep_s = time.perf_counter() - t1
+    if st != 200 or resp.get("state") != "asleep":
+        raise AssertionError(f"phase 17 life: /sleep {st} {resp}")
+    book1 = w.mesh_book()
+    t1 = time.perf_counter()
+    st, resp = _post(w.name, "/wakeup", {"model": model})
+    wake_s = time.perf_counter() - t1
+    if st != 200 or resp.get("state") != "awake":
+        raise AssertionError(f"phase 17 life: /wakeup {st} {resp}")
+    book2 = w.mesh_book()
+    after, ttft_after = serve_one_at_a_time("life after")
+    a0, a1, a2 = (_par_book_model(b, model) for b in (book0, book1, book2))
+    ranks_out = []
+    for r0, r1, r2 in zip(a0, a1, a2):
+        t_s, t_w = r1["timings"], r2["timings"]
+        ranks_out.append({
+            "rank": r0["rank"], "param_bytes": t_s.get("param_bytes"),
+            "freed_bytes": r0["allocated"] - r1["allocated"],
+            "allocated_asleep": r1["allocated"],
+            "d2h_s": t_s.get("d2h_s"),
+            "d2h_gbps": t_s["param_bytes"] / t_s["d2h_s"] / 1e9,
+            "h2d_s": t_w.get("h2d_s"), "engine_s": t_w.get("engine_s"),
+            "wake_source": t_w.get("source")})
+        if r1["state"] != "asleep" or r2["state"] != "awake" or \
+                t_w.get("source") != "parked" or r0["allocated"] and \
+                ranks_out[-1]["freed_bytes"] < t_s["param_bytes"]:
+            raise AssertionError(f"phase 17 life: rank {r0['rank']}: "
+                                 f"{ranks_out[-1]}, {r1}, {r2}")
+    if after != before:
+        raise AssertionError(f"phase 17 life: streams after the wake "
+                             f"{after} differ from before {before}")
+    t1 = time.perf_counter()
+    st, resp = _post(w.name, "/fork_master", {"models": [PAR_LIFE_FORK]})
+    if st != 200 or resp.get("created") != [PAR_LIFE_FORK]:
+        raise AssertionError(f"phase 17 life: fork_master {st} {resp}")
+    st, resp = _post(w.name, "/wakeup", {"model": PAR_LIFE_FORK})
+    fork_wake_s = time.perf_counter() - t1
+    if st != 200:
+        raise AssertionError(f"phase 17 life: cold /wakeup {st} {resp}")
+    big = _par_book_model(w.mesh_book(), PAR_LIFE_FORK)
+    bcfg = worker.resolve_model_config(PAR_LIFE_FORK)
+    for r in big:
+        if r["state"] != "awake" or not r.get("mesh") or \
+                r.get("heads") != [bcfg.num_heads // 2,
+                                   bcfg.num_kv_heads // 2] or \
+                r["timings"].get("source") != "random":
+            raise AssertionError(f"phase 17 life: F13: {big}")
+    if big[0]["bytes"] != big[1]["bytes"]:
+        raise AssertionError(f"phase 17 life: F13: uneven shards {big}")
+    out["life"] = {
+        "card_free_before": a0[0]["free"], "card_free_asleep": a1[0]["free"],
+        "card_freed_bytes": a1[0]["free"] - a0[0]["free"],
+        "sleep_s": sleep_s, "wake_s": wake_s, "ranks": ranks_out,
+        "equal_streams": sum(after[k] == before[k] for k in before),
+        "ttft_ms_before": ttft_before, "ttft_ms_after_wake": ttft_after,
+        "fork": {"model": PAR_LIFE_FORK, "fork_and_cold_wake_s": fork_wake_s,
+                 "ranks": [{k: r.get(k) for k in ("rank", "heads", "bytes")}
+                           | {"load_s": r["timings"].get("load_s"),
+                              "engine_s": r["timings"].get("engine_s")}
+                           for r in big]},
+        "seconds": time.perf_counter() - t0}
+    log(f"[parallel-life] {card}: {json.dumps(out['life'])}")
+    # i.
+    t0 = time.perf_counter()
+    inputs = [_prompt(rng, n) for n in PAR_EMBED_CHARS]
+    times, got = [], None
+    for _ in range(3):
+        t1 = time.perf_counter()
+        st, resp = _post(w.name, "/v1/embeddings",
+                         {"model": model, "input": inputs})
+        times.append((time.perf_counter() - t1) * 1e3)
+        if st != 200:
+            raise AssertionError(f"phase 17 embed: {st} {resp}")
+        got = np.array([d["embedding"] for d in resp["data"]])
+    id_lists = [tok.encode(t) or [0] for t in inputs]
+    B = 1 << max(len(id_lists) - 1, 0).bit_length()
+    T = 1 << max(max(len(i) for i in id_lists) - 1, 0).bit_length()
+    toks = torch.zeros((B, T), dtype=torch.long, device=PAR_DEVICE)
+    lens = torch.zeros((B,), dtype=torch.int32, device=PAR_DEVICE)
+    for i, x in enumerate(id_lists):
+        toks[i, :len(x)] = torch.tensor(x, device=PAR_DEVICE)
+        lens[i] = len(x)
+    with torch.inference_mode():
+        ref = tf.forward_embedding(
+            full, cfg, toks, lens,
+            tf.init_kv_cache(cfg, 2, 128, PAR_DEVICE)).float().cpu().numpy()
+    ref = ref[:len(inputs)]
+    rel = [_rel_l2(a, b) for a, b in zip(got, ref)]
+    cos = [float(np.dot(a, b) / np.linalg.norm(a) / np.linalg.norm(b))
+           for a, b in zip(got, ref)]
+    out["embed"] = {"inputs_tokens": [len(x) for x in id_lists],
+                    "shape": list(got.shape), "rel_l2": rel, "cosine": cos,
+                    "ms": _median(times), "ms_samples": times,
+                    "seconds": time.perf_counter() - t0}
+    log(f"[parallel-embed] {card}: {json.dumps(out['embed'])}")
+    if max(rel) > FORWARD_REL_L2 or min(cos) < 0.99 or \
+            got.shape != (len(inputs), cfg.hidden_size):
+        raise AssertionError(f"phase 17 embed: {out['embed']}")
+    return out
+
+
+def parallel_pipeline_round(torch, kernels, card: str, err: float, cfg,
+                            full) -> dict:
+    """Phase 17 j, [parallel-pipeline]: llama3-1b at tp = 2 (rank 1 a
+    child, as a worker starts it) at ``PAR_PIPE_STEPS`` fused decode
+    steps: four prompts of ``PAR_PIPE_LENGTHS`` tokens, 32 new tokens
+    each (the shortest one's request is cancelled while a speculation is
+    out, which is rolled back), after one short warm-up request, with
+    the decode
+    pipeline on, then again with
+    it off (rank 0 decides, the followers make the calls it makes): the
+    streams equal, the speculations, hits and rollbacks counted, both
+    ranks' generators and carries identical after them, and the decode
+    ms per token of each beside the other; the streams against an
+    unsharded eager engine's on the same weights ``full`` (equal, or
+    drift under the margins rule)."""
+    from xllm_service_tpu_torch.parallel.mesh import MeshSpec
+    from xllm_service_tpu_torch.runtime import ranks
+    from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
+    from xllm_service_tpu_torch.utils.types import SamplingParams
+    t0 = time.perf_counter()
+    rng = random.Random(29)
+    reqs = {f"n{n}": [rng.randrange(3, 259) for _ in range(n)]
+            for n in PAR_PIPE_LENGTHS}
+    ref_eng = Engine(cfg, _par_engine_cfg(), params=full, device=PAR_DEVICE)
+    ref_tok, _ = _par_streams(ref_eng, [(rid, ids, 32)
+                                        for rid, ids in reqs.items()],
+                              StepLog(ref_eng, kernels))
+    del ref_eng
+    free_device_memory(torch)
+    # With the pipeline on, the shortest prompt's request is cancelled
+    # between two steps at the first one that leaves a speculation out
+    # (none goes out while a prompt waits, or while a request has 4
+    # tokens or fewer to go): the next step drops it and rolls the
+    # speculation back. With it off, it is cancelled at the same token.
+    cancel_rid = f"n{min(PAR_PIPE_LENGTHS)}"
+    cancel_at = []
+
+    def serve(eng, steplog):
+        for rid, ids in reqs.items():
+            eng.add_request(EngineRequest(rid, list(ids), sampling=(
+                SamplingParams(max_tokens=32, temperature=0.0,
+                               ignore_eos=True))))
+        toks = {rid: [] for rid in reqs}
+        n0 = len(steplog.rows)
+        cancelled = False
+        while eng.has_work():
+            for o in eng.step():
+                toks[o.request_id].extend(o.new_token_ids)
+            n = len(toks[cancel_rid])
+            if cancelled or n >= 32:
+                continue
+            if (eng.decode_pipeline and eng._pending is not None) or \
+                    (not eng.decode_pipeline and cancel_at and
+                     n >= cancel_at[0]):
+                if eng.decode_pipeline:
+                    cancel_at.append(n)
+                eng.cancel(cancel_rid)
+                cancelled = True
+        return toks, steplog.rows[n0:]
+    eng, mesh, procs = _par_mesh(MeshSpec(tp=2), cfg, _par_engine_cfg(
+        decode_steps=PAR_PIPE_STEPS))
+    try:
+        if not eng.decode_pipeline:
+            raise AssertionError("phase 17 pipeline: the auto setting "
+                                 "left the pipeline off")
+        steplog = StepLog(eng, kernels)
+        _par_streams(eng, [("warm", reqs[cancel_rid][:32], 8)], steplog)
+        m0 = eng.overlap_metrics()
+        tok_on, rows_on = serve(eng, steplog)
+        m1 = eng.overlap_metrics()
+        eng.decode_pipeline = False
+        tok_off, rows_off = serve(eng, steplog)
+        states = ranks.control(eng, "decode_state")
+    finally:
+        _par_close(eng, mesh, procs)
+    del eng
+    free_device_memory(torch)
+    if tok_on != tok_off:
+        raise AssertionError(f"phase 17 pipeline: streams on {tok_on} "
+                             f"and off {tok_off} differ")
+    if states[0] != states[1]:
+        raise AssertionError("phase 17 pipeline: the ranks' generators "
+                             "or carries differ after the rollbacks")
+    want = {rid: ref_tok[rid][:len(tok_on[rid])] if rid == cancel_rid
+            else ref_tok[rid] for rid in reqs}
+    margins = _par_margins(torch, full, cfg, reqs, want, tok_on, err,
+                           "pipeline")
+
+    def per_token(rows):
+        ms = [r["ms"] for r in rows if r["kind"] == "decode"]
+        return _median(ms) / PAR_PIPE_STEPS if ms else None
+    out = {"decode_steps": PAR_PIPE_STEPS,
+           "prompt_tokens": list(PAR_PIPE_LENGTHS),
+           "spec_dispatches": m1["spec_dispatches"] - m0["spec_dispatches"],
+           "spec_hits": m1["spec_hits"] - m0["spec_hits"],
+           "rollbacks": m1["spec_rollbacks"] - m0["spec_rollbacks"],
+           "equal_streams_on_off": sum(tok_on[k] == tok_off[k]
+                                       for k in tok_on),
+           "cancel": {"request": cancel_rid, "at_token": cancel_at,
+                      "tokens": len(tok_on[cancel_rid])},
+           "equal_streams_vs_unsharded_eager": sum(
+               tok_on[k] == want[k] for k in tok_on),
+           "margins": margins,
+           "decode_ms_per_token_on": per_token(rows_on),
+           "decode_ms_per_token_off": per_token(rows_off),
+           "seconds": time.perf_counter() - t0}
+    log(f"[parallel-pipeline] {card}: {json.dumps(out)}")
+    if any(m["verdict"] == "fault" for m in margins):
+        raise AssertionError(f"phase 17 pipeline: margins {margins}")
+    return out
+
+
+def parallel_epd_round(torch, kernels, card: str, err: float,
+                       logs: Path) -> dict:
+    """Phase 17 k, [parallel-epd]: an ENCODE child at ``--role encode
+    --tp 2`` (its rank 1 a child of its own; the language model asleep
+    on both, the tower on rank 0) and a tp = 2 MIX worker in this
+    process (rank 1 a child), on Qwen2-VL-7B at full width, its language
+    model cut to ``PAR_EPD_LAYERS`` of 28 layers (random from the seed),
+    the tower whole (random bf16 from seed 0, read from the directory),
+    behind the port's master: phase 14's two text chats and three image
+    chats (64 merged tokens an image). Printed: TTFT with and without an
+    image, every image token spliced, the splice rows' tensor broadcast
+    ms (rank 0's, per prefill), each rank's launches (rank 1 as rank
+    0), and the image streams under the margins rule against the
+    unsharded forward of the same weights."""
+    from xllm_service_tpu_torch.models import qwen2vl_vision as qv
+    from xllm_service_tpu_torch.models import transformer as tf
+    from xllm_service_tpu_torch.runtime import checkpoint, ranks, worker
+    t_round = time.perf_counter()
+    mdir = ROOT / "build" / "par_epd_model"
+    mdir.mkdir(parents=True, exist_ok=True)
+    for f in mdir.glob("*"):
+        f.unlink()
+    hf = dict(QWEN2VL_7B, num_hidden_layers=PAR_EPD_LAYERS,
+              max_window_layers=PAR_EPD_LAYERS)
+    with open(mdir / "config.json", "w", encoding="utf-8") as f:
+        json.dump(hf, f)
+    vcfg = qv.Qwen2VLVisionConfig.from_hf_config(QWEN2VL_7B["vision_config"])
+    gen = torch.Generator(device=PAR_DEVICE).manual_seed(0)
+    tower = qv.init_vision_params(vcfg, gen, PAR_DEVICE, torch.bfloat16)
+    checkpoint.save_qwen2vl_vision(tower, vcfg,
+                                   str(mdir / "visual.safetensors"))
+    del tower
+    free_device_memory(torch)
+    out = {"layers": PAR_EPD_LAYERS, "card": card}
+    plane = ParPlane(logs)
+    enc = None
+    try:
+        common = ["--model", EPD_MODEL, "--model-dir", str(mdir),
+                  "--device", PAR_DEVICE, *EPD_ARGS, "--tp", "2",
+                  "--dist-backend", "gloo", "--no-warmup"]
+        guard_child_argv([sys.executable, "-m",
+                          "xllm_service_tpu_torch.runtime.ranks"])
+        enc_box = {}
+
+        def spawn_encoder() -> None:
+            try:
+                enc_box["p"] = RefProcess(
+                    ["xllm_service_tpu_torch.runtime.worker", "--role",
+                     "encode", *common, *plane.registration("ENCODE")],
+                    "XLLM_TORCH_WORKER_UP", logs / "encode_child.log",
+                    timeout=300.0, env={**EPD_ENV, **PAR_ENV})
+            except Exception as e:  # noqa: BLE001 — raised below
+                enc_box["err"] = e
+        t_enc = threading.Thread(target=spawn_encoder)
+        t0 = time.perf_counter()
+        t_enc.start()
+        w, out["mix_start_s"] = _start(
+            worker, [*common, *plane.registration("MIX")],
+            {**EPD_ENV, **PAR_ENV})
+        plane.workers.append(w)
+        t_enc.join(330)
+        if "p" not in enc_box:
+            raise AssertionError(f"phase 17 epd: the ENCODE child did not "
+                                 f"start: {enc_box.get('err')}")
+        enc = enc_box["p"]
+        out["both_up_s"] = time.perf_counter() - t0
+        enc_addr = enc.line.split("http=")[1].split()[0]
+        eng = w.engine
+        if eng.mesh is None or eng.shard_cfg.num_heads * 2 != \
+                eng.cfg.num_heads or \
+                eng.shard_cfg.num_kv_heads * 2 != eng.cfg.num_kv_heads:
+            raise AssertionError(f"phase 17 epd: rank 0 holds "
+                                 f"{eng.shard_cfg}")
+        _par_wait(lambda: (master_row(plane.m_http, w.name) or {}).get(
+            "models", {}).get(EPD_MODEL) == "awake", 60.0,
+            "the MIX worker in the master's books")
+        _par_wait(lambda: master_row(plane.m_http, enc_addr) is not None,
+                  60.0, "the ENCODE worker in the master's books")
+        st, models = _get(enc_addr, "/v1/models")
+        if st != 200 or models["data"][0]["state"] != "asleep":
+            raise AssertionError(f"phase 17 epd: the ENCODE child's model "
+                                 f"{st} {models}")
+        reqs, streams = {}, {}
+        add, step = eng.add_request, eng.step
+
+        def add_request(req):
+            if req.mm_embeds is not None:
+                reqs[req.request_id] = req
+            return add(req)
+
+        def collect():
+            outs = step()
+            for o in outs:
+                streams.setdefault(o.request_id, []).extend(
+                    o.new_token_ids)
+            return outs
+        eng.add_request, eng.step = add_request, collect
+        spliced0 = eng.mm_spliced_tokens
+        with w._engine_lock:
+            ranks.control(eng, "reset")
+        texts = _concurrent(plane.m_http, [_epd_chat(text=t)
+                                           for t in PAR_EPD_TEXTS])
+        imgs = _concurrent(plane.m_http, [_epd_chat(f"random:{s}")
+                                          for s in (1, 2, 3)])
+        with w._engine_lock:
+            reps = ranks.control(eng, "report")
+        eng.add_request, eng.step = add, step
+        text_replies = [_epd_reply(r) for r in texts]
+        img_replies = [_epd_reply(r) for r in imgs]
+        _par_same_launches(reps)
+        spliced = eng.mm_spliced_tokens - spliced0
+        c0, s0 = reps[0]["collectives"], reps[0]["staged_s"]
+        nb = c0.get("broadcast_tensor", 0)
+        cfg = w.model_cfg
+        g = torch.Generator(device=PAR_DEVICE).manual_seed(0)
+        full = tf.init_params(cfg, g, PAR_DEVICE)
+        margins = _mm_margins(torch, types.SimpleNamespace(
+            cfg=cfg, params=full, device=torch.device(PAR_DEVICE),
+            _rope_window=eng._rope_window), reqs, streams, err)
+        del full, eng
+        out.update({
+            "ttft_ms_text": [t for _, t in text_replies],
+            "ttft_ms_image": [t for _, t in img_replies],
+            "spliced_tokens": spliced,
+            "tokens_per_image": vcfg.tokens_per_image,
+            "splice_route": "tensor broadcast (Mesh.broadcast, staged "
+                            "through the host under gloo)",
+            "splice_broadcasts": nb,
+            "splice_broadcast_ms": (1e3 * s0.get("broadcast_tensor", 0.0)
+                                    / nb if nb else None),
+            "launches": reps[0]["launches"],
+            "ranks": _par_collectives(reps, 1),
+            "margins": margins,
+            "seconds": time.perf_counter() - t_round})
+        out["ranks"] = [{k: r[k] for k in ("rank", "by_op",
+                                          "staged_ms_by_op")}
+                        for r in out["ranks"]]
+        log(f"[parallel-epd] {card}: {json.dumps(out)}")
+        problems = []
+        if spliced != 3 * vcfg.tokens_per_image:
+            problems.append(f"spliced {spliced} tokens")
+        if nb < 1:
+            problems.append("no splice broadcast")
+        if any(m["verdict"] == "fault" for m in margins):
+            problems.append(f"margins {margins}")
+        la = out["launches"]
+        if min(la.get("paged_decode_attention", 0),
+               la.get("paged_prefill_attention", 0),
+               la.get("rope_kv_update_layer", 0),
+               la.get("rope_prefill_kv_update_layer", 0)) <= 0:
+            problems.append("a kernel of the path never launched")
+        if problems:
+            raise AssertionError(f"phase 17 epd: {problems}")
+        return out
+    finally:
+        if enc is not None:
+            enc.stop()
+        plane.close()
+
+
 def _par_tp2_and_kv(torch, kernels, card: str, err: float, cfg, w,
                     build_s: float, t0: float, plane) -> dict:
     """Round a of ``parallel_phase`` on its tp = 2 worker ``w``, then
@@ -9653,6 +10137,10 @@ def _par_tp2_and_kv(torch, kernels, card: str, err: float, cfg, w,
     log(f"[parallel] {card}: tp=2 {json.dumps(out['tp2'])}")
     out.update(parallel_kv_rounds(torch, kernels, card, err, cfg, w,
                                   steplog, plane, full, prompts, ref_tok))
+    # No reference to W's engine may outlive its sleep (rank 0's shard
+    # would stay on the card).
+    del eng, steplog
+    out.update(parallel_life_rounds(torch, card, err, cfg, w, full))
     out["full"] = full
     return out
 
@@ -9685,6 +10173,12 @@ def parallel_phase(torch, kernels, card: str, err: float,
        the MLA prefill calls that took ``mha_prefill_chunked`` (past the
        64 MiB cut) counted per rank, with the chunked form's largest
        error against the dense ``mha_prefill`` at such a call's shape.
+    d-g. Round a's worker's KV plane and fault boundary
+       (``parallel_kv_rounds``); h-i. its lifecycle and embeddings
+       (``parallel_life_rounds``), both before a's master closes.
+    j. The decode pipeline at tp = 2 (``parallel_pipeline_round``).
+    k. The EPD path at tp = 2 (``parallel_epd_round``).
+    Rounds j and k run after a, before b.
     """
     import dataclasses as dc
     import numpy as np
@@ -9717,6 +10211,14 @@ def parallel_phase(torch, kernels, card: str, err: float,
     del w
     free_device_memory(torch)
     full = out.pop("full")
+
+    # j. The decode pipeline at tp = 2.
+    out["pipeline"] = parallel_pipeline_round(torch, kernels, card, err, cfg,
+                                              full)
+    # k. The EPD path at tp = 2 behind a master of its own.
+    (logs / "epd").mkdir(parents=True, exist_ok=True)
+    out["epd"] = parallel_epd_round(torch, kernels, card, err, logs / "epd")
+    free_device_memory(torch)
 
     # b. sp = 2: one long prompt in a ring step.
     t0 = time.perf_counter()
@@ -9859,8 +10361,9 @@ def parallel_phase(torch, kernels, card: str, err: float,
 
 def parallel_kernel_rows(torch) -> list:
     """K3 and K4 at llama3-1b's rank shape at tp = 2 (16 query heads, 4
-    KV heads, D 64): ``*_tp2`` records, each with its bound and its
-    library time."""
+    KV heads, D 64): ``*_tp2`` records; and at Qwen2-VL-7B's (14 query
+    heads, 2 KV heads, D 128): ``*_qwen2vl_tp2`` records; each with its
+    bound and its library time."""
     from xllm_service_tpu_torch.config import ModelConfig
     from xllm_service_tpu_torch.ops import attention
     from xllm_service_tpu_torch.ops.kernels import (paged_attention,
@@ -9871,6 +10374,16 @@ def parallel_kernel_rows(torch) -> list:
     bench.decode_attention(paged_attention, attention)
     bench.prefill_attention(prefill_attention, attention)
     rows = bench.results
+    del bench
+    free_device_memory(torch)
+    # Qwen2-VL-7B's rank at tp = 2, which round k serves.
+    qcfg = dataclasses.replace(
+        ModelConfig.from_hf_config(QWEN2VL_7B, name=PAR_QWEN2VL_TP2_MODEL),
+        num_heads=14, num_kv_heads=2, head_dim=128)
+    bench = KernelBench(torch, qcfg, "cuda", suffix="_qwen2vl_tp2")
+    bench.decode_attention(paged_attention, attention)
+    bench.prefill_attention(prefill_attention, attention)
+    rows += bench.results
     del bench
     free_device_memory(torch)
     return rows
@@ -10190,6 +10703,10 @@ def main() -> int:
             # Served by phase 17's tp = 2 round (rank 0's count; rank 1
             # launched as many).
             r["launches"] = parallel["tp2"]["launches"][name]
+            continue
+        if r.get("shape_model") == PAR_QWEN2VL_TP2_MODEL:
+            # Served by phase 17's tp = 2 EPD round (rank 0's count).
+            r["launches"] = parallel["epd"]["launches"][name]
             continue
         if r.get("shape_model") == GEMMA3_MODEL:
             # Served by phase 16's Gemma-3-12B rounds: each path's kernels.

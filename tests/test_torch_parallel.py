@@ -26,9 +26,11 @@ with the JAX package's ``make_mesh`` / ``shard_params``. Cases:
   the JAX worker's at tp = 2;
 - a follower that exits stopping the worker with an error, not a hang
   (the contained faults are ``tests/test_torch_parallel_kv.py``'s);
-- the refusals: NCCL with two ranks on one card, CUDA graphs and the
-  decode pipeline under a mesh, the multimodal splice; and the mesh's
-  geometry and the KV rule against the JAX package's.
+- the refusals: NCCL with two ranks on one card, CUDA graphs under a
+  mesh; and the mesh's geometry and the KV rule against the JAX
+  package's. (The paths that once refused a mesh, sleep and wake, the
+  encode role, the image splice, ``/v1/embeddings`` and the decode
+  pipeline, are ``tests/test_torch_parallel_life.py``'s.)
 """
 
 import dataclasses
@@ -493,7 +495,8 @@ def test_tp2_worker_text_matches_jax(tmp_path):
     world the caller started (``--dist-coordinator``,
     ``--dist-num-processes``, ``--dist-process-id``: process 1 runs the
     follower loop, process 0 is the worker). The first one's
-    /v1/embeddings, not sharded, answers 501."""
+    /v1/embeddings runs on both ranks' shards (its values are
+    ``tests/test_torch_parallel_life.py``'s)."""
     d = str(tmp_path / "model")
     cfg = dataclasses.replace(JaxModelConfig.tiny(), dtype="float32")
     save_checkpoint(jax.tree_util.tree_map(
@@ -528,7 +531,10 @@ def test_tp2_worker_text_matches_jax(tmp_path):
                 conn.request("POST", "/v1/embeddings", body=json.dumps(
                     {"model": "m", "input": "abc"}),
                     headers={"Content-Type": "application/json"})
-                assert conn.getresponse().status == 501
+                r = conn.getresponse()
+                body = json.loads(r.read())
+                assert r.status == 200, body
+                assert len(body["data"][0]["embedding"]) == 64
         out, _ = jax_proc.communicate(timeout=240)
         want = [json.loads(line[5:]) for line in out.splitlines()
                 if line.startswith("TEXT:")]
@@ -629,7 +635,6 @@ def test_nccl_two_ranks_on_one_card_raises():
 
 REFUSED_CONFIGS = {
     "cuda_graphs": dict(cuda_graphs=True),
-    "decode_pipeline": dict(decode_steps=4, decode_pipeline=True),
 }
 
 
@@ -640,15 +645,6 @@ def test_engine_config_refused_under_mesh(pool, name):
                         prefill_buckets=(8,), **REFUSED_CONFIGS[name])
     msgs = pool.run({"tp": 2}, "refusal", cfg, ecfg)
     assert all(m is not None and "mesh" in m for m in msgs), msgs
-
-
-def test_unsharded_paths_raise_under_mesh(pool):
-    cfg = ModelConfig(**MODELS["tiny"])
-    ecfg = EngineConfig(page_size=4, num_pages=16, max_model_len=64,
-                        prefill_buckets=(8,))
-    for msgs in pool.run({"tp": 2}, "engine_refusals", cfg, ecfg):
-        assert len(msgs) == 1
-        assert all(m is not None and "not sharded" in m for m in msgs), msgs
 
 
 @pytest.mark.parametrize("spec", [dict(dp=2, tp=4), dict(ep=2, sp=2, tp=2),

@@ -183,28 +183,6 @@ def refusal(mesh, cfg, ecfg):
     return None
 
 
-def engine_refusals(mesh, cfg, ecfg):
-    """The messages a sharded engine's unsharded paths raise: an image
-    request (the multimodal splice)."""
-    import numpy as np
-    from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
-    eng = Engine(cfg, ecfg, device="cpu", mesh=mesh)
-    calls = [
-        lambda: eng.add_request(EngineRequest(
-            "x", [1, 2], mm_embeds=np.zeros((1, cfg.hidden_size),
-                                            np.float32),
-            mm_positions=[0])),
-    ]
-    out = []
-    for c in calls:
-        try:
-            c()
-            out.append(None)
-        except NotImplementedError as e:
-            out.append(str(e))
-    return out
-
-
 def control_logits(mesh, cfg, ecfg, params, ids, next_id, T):
     """Rank 0's ``ranks.control`` forwards through a sharded engine: the
     whole-prompt prefill and one decode logits, the ring prefill's
@@ -385,7 +363,7 @@ def worker_fault(mesh, cfg, ecfg, params, prompts, flag):
             return mlp(*args, **kwargs)
         transformer._mlp = planted
         eng = Engine(cfg, ecfg, params=_tensors(params), device="cpu",
-                     mesh=mesh)
+                     mesh=mesh, name="tiny")
         return ranks.follow(eng, mesh)
     from xllm_service_tpu_torch.runtime import worker
     w = worker.Worker(worker.WorkerOptions(model="tiny", device="cpu",
@@ -445,3 +423,174 @@ def reform_blocked(mesh):
     waited = time.monotonic() - t0
     y = mesh.all_reduce(torch.full((3,), float(mesh.rank + 1)), "tp")
     return failed, waited, mesh.epoch, y.tolist(), mesh.agree(True)
+
+
+# ---------------------------------------------------------------------------
+# The sharded worker's lifecycle and encode plane
+# ---------------------------------------------------------------------------
+
+def _post(addr: str, path: str, body, timeout: float = 120.0):
+    import json
+    from http.client import HTTPConnection
+    host, port = addr.rsplit(":", 1)
+    conn = HTTPConnection(host, int(port), timeout=timeout)
+    conn.request("POST", path, body=json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    r = conn.getresponse()
+    return r.status, json.loads(r.read())
+
+
+def _texts(addr: str, model: str, prompts, **extra):
+    out = []
+    for prompt in prompts:
+        status, body = _post(addr, "/v1/completions", {
+            "model": model, "prompt": prompt, "max_tokens": 12,
+            "temperature": 0.0, "ignore_eos": True, **extra})
+        assert status == 200, body
+        out.append(body["choices"][0]["text"])
+    return out
+
+
+def _seeded_init(cfg_params):
+    """Make the engine's random init give ``params`` for each (config,
+    params) pair: the weights the JAX engine draws from PRNGKey(0) for a
+    model staged without a directory."""
+    from xllm_service_tpu_torch.models import transformer
+    init = transformer.init_params
+
+    def seeded(cfg, generator, device):
+        for c, p in cfg_params:
+            if cfg == c:
+                return _to_device(_tensors(p), device)
+        return init(cfg, generator, device)
+    transformer.init_params = seeded
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def life_worker(mesh, cfg, ecfg, params, forked, prompts, embed_inputs):
+    """A tp worker on this mesh (rank 0; its followers run the model
+    book of ``ranks.follow_launch``): texts, a sleep with a request in
+    flight, a warm wake, ``/fork_master`` and a cold wake of
+    ``forked`` = (name, config, params: what random-from-seed gives),
+    ``/v1/embeddings``; with every rank's book (``Worker.mesh_book``)
+    between. Rank 0 returns the record; a follower its calls."""
+    import threading
+    import time
+    from xllm_service_tpu_torch.runtime import ranks, worker
+    fname, fcfg, fparams = forked
+    _seeded_init([(fcfg, fparams)])
+    if mesh.rank:
+        return ranks.follow_launch(ranks.Launch(
+            cfg, ecfg, mesh.spec, ["cpu"] * mesh.world, "gloo", "",
+            params=_tensors(params), model="tiny"), mesh)
+    resolve = worker.resolve_model_config
+    worker.resolve_model_config = lambda name, model_dir="": (
+        fcfg if name == fname else resolve(name, model_dir))
+    w = worker.Worker(worker.WorkerOptions(model="tiny", device="cpu",
+                                           warmup=False),
+                      engine_cfg=ecfg, model_cfg=cfg,
+                      params=_tensors(params), mesh=mesh).start()
+    out = {}
+    try:
+        out["before"] = _texts(w.name, "tiny", prompts)
+        out["book_awake"] = w.mesh_book(digests=True)
+        # A long request in flight at the sleep.
+        inflight = {}
+
+        def long():
+            inflight["reply"] = _post(w.name, "/v1/completions", {
+                "model": "tiny", "prompt": "a request in flight",
+                "max_tokens": 200, "temperature": 0.0, "ignore_eos": True})
+        t = threading.Thread(target=long)
+        t.start()
+        deadline = time.monotonic() + 30.0
+        while not w._live_srid and time.monotonic() < deadline:
+            time.sleep(0.005)
+        out["sleep"] = _post(w.name, "/sleep", {"model": "tiny"})
+        t.join(60.0)
+        out["inflight"] = inflight.get("reply")
+        out["book_asleep"] = w.mesh_book(digests=True)
+        out["asleep_reply"] = _post(w.name, "/v1/completions", {
+            "model": "tiny", "prompt": "hi", "max_tokens": 2})[0]
+        out["wake"] = _post(w.name, "/wakeup", {"model": "tiny"})
+        out["after"] = _texts(w.name, "tiny", prompts)
+        out["fork"] = _post(w.name, "/fork_master", {"models": [fname]})
+        out["book_forked"] = w.mesh_book()
+        out["fork_wake"] = _post(w.name, "/wakeup", {"model": fname})
+        rt = w.runtimes[fname]
+        out["fork_mesh"] = (rt.mesh is w.mesh, rt.engine.mesh is w.mesh,
+                            [rt.engine.shard_cfg.num_heads,
+                             rt.engine.shard_cfg.num_kv_heads])
+        out["forked"] = _texts(w.name, fname, prompts)
+        out["book_both"] = w.mesh_book()
+        out["embed"] = _post(w.name, "/v1/embeddings",
+                             {"model": "tiny", "input": embed_inputs})
+        return out
+    finally:
+        w.stop()
+
+
+def pipeline_engine(mesh, cfg, ecfg, params, reqs):
+    """A sharded engine serving ``reqs`` = (rid, prompt, sampling
+    kwargs) from one step: rank 0 returns (streams, ``overlap_metrics``,
+    every rank's ``decode_state``); a follower its calls."""
+    from xllm_service_tpu_torch.runtime import ranks
+    from xllm_service_tpu_torch.runtime.engine import Engine, EngineRequest
+    from xllm_service_tpu_torch.utils.types import SamplingParams
+    eng = Engine(cfg, ecfg, params=_tensors(params), device="cpu",
+                 mesh=mesh)
+    if mesh.rank:
+        return ranks.follow(eng, mesh)
+    try:
+        for rid, prompt, kw in reqs:
+            eng.add_request(EngineRequest(rid, list(prompt),
+                                          sampling=SamplingParams(**kw)))
+        toks: Dict[str, List[int]] = {rid: [] for rid, _, _ in reqs}
+        for _ in range(400):
+            if not eng.has_work():
+                break
+            for o in eng.step():
+                toks[o.request_id].extend(o.new_token_ids)
+        return (toks, eng.overlap_metrics(),
+                ranks.control(eng, "decode_state"))
+    finally:
+        ranks.stop_followers(mesh)
+
+
+def image_worker(mesh, cfg, ecfg, params, tower, bodies):
+    """A tp worker with ``tower`` = (vision config kwargs, params), the
+    followers on ``ranks.follow_launch``; rank 0 returns each body's
+    completion text, the image tokens spliced, every rank's collectives
+    (``Control.report``) and its decode runner's staged rope deltas."""
+    from xllm_service_tpu_torch.models import vision
+    from xllm_service_tpu_torch.runtime import ranks, worker
+    if mesh.rank:
+        return ranks.follow_launch(ranks.Launch(
+            cfg, ecfg, mesh.spec, ["cpu"] * mesh.world, "gloo", "",
+            params=_tensors(params), model="tiny-vl"), mesh)
+    vcfg = vision.VisionConfig(**tower[0])
+    w = worker.Worker(worker.WorkerOptions(model="tiny-vl", device="cpu",
+                                           warmup=False),
+                      engine_cfg=ecfg, model_cfg=cfg,
+                      params=_tensors(params), mesh=mesh,
+                      vision_tower=(vcfg, _tensors(tower[1]))).start()
+    try:
+        with w._engine_lock:
+            ranks.control(w.engine, "reset")
+        texts = []
+        for body in bodies:
+            status, resp = _post(w.name, "/v1/completions", body)
+            assert status == 200, resp
+            texts.append(resp["choices"][0]["text"])
+        with w._engine_lock:
+            reps = ranks.control(w.engine, "report")
+            states = ranks.control(w.engine, "decode_state")
+        return (texts, w.engine.mm_spliced_tokens,
+                [r["collectives"] for r in reps], [s[3] for s in states])
+    finally:
+        w.stop()

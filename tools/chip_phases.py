@@ -22,9 +22,13 @@ named:
 - ``10``: ``pd_phase``, ``11``: ``fetch_phase``, ``12``:
   ``lifecycle_phase`` (their margins limit 0.5, as phase 4 is not run);
 - ``17``: ``parallel_phase`` (tp = 2, sp = 2 and ep = 2 on the card over
-  gloo, and the tp = 2 worker's block fetch, spill tier, step faults and
-  PD handoffs behind the port's master; margins limit 0.5) with the
-  ``*_tp2`` K3/K4 records (``parallel_kernel_rows``).
+  gloo; the tp = 2 worker's block fetch, spill tier, step faults and PD
+  handoffs behind the port's master; its sleep, warm wake, a forked
+  llama3-8b's cold wake and ``/v1/embeddings``; the decode pipeline at
+  tp = 2; an ENCODE child at ``--role encode --tp 2`` and a tp = 2 MIX
+  worker on Qwen2-VL-7B at 4 layers; margins limit 0.5) with the
+  ``*_tp2`` and ``*_qwen2vl_tp2`` K3/K4 records
+  (``parallel_kernel_rows``).
 
 Each phase's checks hold as in ``chip_smoke.py``. The seconds of each
 phase, the card and every result go to

@@ -691,14 +691,17 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def forward_embedding(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                      lengths: torch.Tensor, kv: KVCache) -> torch.Tensor:
+                      lengths: torch.Tensor, kv: KVCache,
+                      mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Sequence embeddings (``/v1/embeddings``): a causal forward of
     ``tokens`` [B, T] (padded; ``lengths`` [B] true counts) from
     position 0, with no cache, the final hidden states mean-pooled over
     each row's valid tokens and L2-normalized -> [B, D] float32. Each
     layer attends through the fresh-window prefill kernel with its K/V
     as the fresh operands and no cached prefix: ``kv`` (the engine's
-    pools) is passed for its layout and never read or written."""
+    pools) is passed for its layout and never read or written. ``mesh``:
+    as ``forward_prefill``'s (``params`` the rank's shard, ``cfg`` its
+    view); every rank returns the whole embeddings."""
     check_supported(cfg)
     if cfg.mla:
         raise NotImplementedError(
@@ -706,7 +709,7 @@ def forward_embedding(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     k_pages, v_pages = kv
     B, T = tokens.shape
     dev = tokens.device
-    x = _scale_embed(cfg, params["embed"][tokens])
+    x = _scale_embed(cfg, _embed(params, tokens, mesh))
     positions = torch.arange(T, device=dev)[None, :].expand(B, T)
     ropes = layer_cos_sin(cfg, positions)
     lengths = lengths.to(device=dev, dtype=torch.int32)
@@ -723,8 +726,9 @@ def forward_embedding(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         attn = paged_prefill_attention_fresh(
             q, k, v, k_pages, v_pages, table, start, lengths, i,
             sliding_window=windows[i], sinks=lp.get("sinks"), **extras)
-        x = _block_tail(lp, cfg, x, _attn_out(lp, attn.reshape(B, T, -1)),
-                        valid)
+        x = _block_tail(lp, cfg, x,
+                        _attn_out(lp, attn.reshape(B, T, -1), mesh), valid,
+                        mesh=mesh)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps).float()
     mask = valid.float()
     pooled = (x * mask[..., None]).sum(dim=1) / \

@@ -329,6 +329,26 @@ class Mesh:
         self._tick("scatter", t0)
         return out
 
+    def broadcast(self, x: Optional[torch.Tensor], shape: Sequence[int],
+                  dtype: torch.dtype, device) -> torch.Tensor:
+        """World rank 0's tensor ``x`` (of ``shape`` and ``dtype``) on
+        every rank, on ``device``: one broadcast over the world, staged
+        through the host under gloo, on the device under nccl. The
+        others pass None. Counted as ``broadcast_tensor``."""
+        if self.world == 1:
+            return x.to(device, dtype)
+        t0 = time.perf_counter()
+        wire = device if self.backend == "nccl" else "cpu"
+        if self.rank == 0:
+            buf = x.to(wire, dtype).contiguous()
+        else:
+            buf = torch.empty(tuple(shape), dtype=dtype, device=wire)
+        torch.distributed.broadcast(buf, src=0)
+        out = buf.to(device)
+        self.counts["broadcast_tensor"] += 1
+        self.staged_s["broadcast_tensor"] += time.perf_counter() - t0
+        return out
+
     def agree(self, ok: bool = True) -> bool:
         """Whether every rank of the world passed ``ok`` (a one-int
         all-reduce on a CPU tensor)."""

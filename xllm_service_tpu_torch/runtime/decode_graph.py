@@ -18,8 +18,10 @@ tokens to the counts, and feeding its sampled token and ``pos + 1``
 forward on the device; it ends by copying the last token and position
 back into the input buffers: the next burst starts from these carries
 with no upload, also when it is dispatched before this one is read back
-(the engine's speculative pipeline). A seeded key draws its seeded rows'
-noise by threefry from (seed, position) inside the graph, so a seeded
+(the engine's speculative pipeline, whose rollback restores the
+generator state ``save_generator`` kept before the speculation: both
+are runner calls, so that under a mesh every rank makes them). A
+seeded key draws its seeded rows' noise by threefry from (seed, position) inside the graph, so a seeded
 request's step is a replay like any other. Each launch's [n, B] tokens
 and logprobs (and, when asked for, the [n, B, k] top logprobs, k =
 ``EngineConfig.num_top_logprobs``) are copied into one of two pinned
@@ -239,6 +241,7 @@ class DecodeGraphs:
         self._st_mirror: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self._bias_mirror: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         self._delta_mirror: Optional[np.ndarray] = None
+        self._saved_gen: Optional[torch.Tensor] = None
         self.graphs: Dict[Key, Optional[_Graph]] = {}
         self.pool = (torch.cuda.graph_pool_handle() if use_graphs
                      else None)
@@ -363,6 +366,18 @@ class DecodeGraphs:
         self._st_mirror = None
         self._bias_mirror = {}
         self._delta_mirror = None
+
+    def save_generator(self) -> None:
+        """Keep the sampler's generator state (before a speculative
+        burst's dispatch), for ``restore_generator``. One state is kept:
+        the engine has at most one speculation in flight."""
+        self._saved_gen = self.generator.get_state()
+
+    def restore_generator(self) -> None:
+        """Put the generator back to the state ``save_generator`` kept
+        (a discarded speculation): the replacement burst draws what the
+        pipeline-off engine draws."""
+        self.generator.set_state(self._saved_gen)
 
     def stage_counts(self, counts: np.ndarray) -> None:
         """Upload a host rebuild of the [B, V] output-token counts."""

@@ -140,8 +140,10 @@ and runs the forwards with its view of the model
 runners that touches their device state is broadcast to the other
 ranks first, which make the same call on theirs
 (``runtime/ranks.py``), so that the collectives inside the forwards
-meet. The sharded steps run eagerly: ``cuda_graphs=True`` or
-``decode_pipeline=True`` with a mesh of several ranks raises. With an
+meet. The sharded steps run eagerly: ``cuda_graphs=True`` with a mesh
+of several ranks raises. The decode pipeline saves and restores the
+generator through the decode runner, so every rank's sampler stays in
+step across a discarded speculation. With an
 sp axis, a prompt longer than the largest bucket and at most ``sp``
 buckets long prefills in ONE ring step (``forward_prefill_ring``;
 ``_ring_eligible``), counted under ``prefill_ring`` in the step census.
@@ -149,7 +151,10 @@ The KV plane (the PD export and import, the block fetch, the host spill
 tier) moves full-head blocks [L, n, page_size, Hkv, D], the layout of an
 unsharded engine's pools, through ``kv_plane`` (``ranks.KvPlane``):
 rank 0 gathers the pages' heads from the ranks holding them, or sends
-each rank its slice. The multimodal splice raises under a mesh. A call
+each rank its slice. A multimodal splice's embedding rows reach every
+rank whole, in a tensor broadcast of their own
+(``PrefillGraphs.stage_mm``); the mrope streams ride the packed step
+buffer and the decode runner's staged deltas. A call
 that leaves the ranks out of step (a fault between a launch and its
 agreement) re-forms the world before its error goes on (``_rejoin``),
 so that the worker contains it as with one rank.
@@ -322,16 +327,12 @@ class StepOutput:
 def _check_mesh_config(ecfg: EngineConfig) -> None:
     """Refuse what a sharded engine does not run: CUDA graphs (its steps
     run eagerly: a gloo collective cannot be captured, and NCCL capture
-    needs a machine with several cards to be tried on) and the decode
-    pipeline (its rollback restores the generator of rank 0 alone)."""
+    needs a machine with several cards to be tried on)."""
     if ecfg.cuda_graphs:
         raise ValueError(
             "cuda_graphs=True with a mesh of several ranks: the sharded "
             "engine runs its steps eagerly (set cuda_graphs=False or "
             "leave it unset)")
-    if ecfg.decode_pipeline:
-        raise ValueError("decode_pipeline=True with a mesh of several "
-                         "ranks: the sharded engine has no pipeline")
 
 
 def _pow2(n: int) -> int:
@@ -359,7 +360,13 @@ class Engine:
     def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
                  params: Optional[transformer.Params] = None,
                  device="cuda", seed: int = 0,
-                 murmur_seed: int = 0, mesh: Optional[Mesh] = None) -> None:
+                 murmur_seed: int = 0, mesh: Optional[Mesh] = None,
+                 name: str = "", sharded: bool = False) -> None:
+        """``mesh``: this rank's mesh (module docstring); ``name``: the
+        model its broadcasts name, which keys the followers' engines
+        (``runtime/ranks.py``); ``sharded``: ``params`` are this rank's
+        shard already (a warm wake's parked copy), not the full
+        weights."""
         self.cfg = model_cfg
         self.ecfg = engine_cfg
         self.device = resolve_device(device)
@@ -376,7 +383,8 @@ class Engine:
         # carry the rest).
         self.shard_cfg = model_cfg
         if self.mesh is not None:
-            params = sharding.shard_params(params, self.mesh, model_cfg)
+            if not sharded:
+                params = sharding.shard_params(params, self.mesh, model_cfg)
             self.shard_cfg = sharding.shard_config(model_cfg,
                                                    self.mesh.spec)
         self.params = params
@@ -427,10 +435,8 @@ class Engine:
         # bursts are fused), as the JAX engine resolves them.
         self.decode_steps = max(1, int(engine_cfg.decode_steps))
         dp = engine_cfg.decode_pipeline
-        # Under a mesh the pipeline (whose rollback restores the
-        # generator on rank 0 alone) is off.
         self.decode_pipeline = self.decode_steps > 1 and (
-            dp is None or bool(dp)) and self.mesh is None
+            dp is None or bool(dp))
         if self.device.type == "cuda":
             # The split kernels' tickets at their largest size (a decode
             # step's rows, a ragged launch's), before any capture.
@@ -465,10 +471,13 @@ class Engine:
         self.kv_plane = ranks.KvPlane(self, self.mesh)
         if self.mesh is not None and self.mesh.rank == 0:
             # Rank 0 leads: its runner calls reach every rank.
-            self.graphs = ranks.Mirror(self.graphs, "decode", self.mesh)
+            self.graphs = ranks.Mirror(self.graphs, "decode", self.mesh,
+                                       name)
             self.prefill_graphs = ranks.Mirror(self.prefill_graphs,
-                                               "prefill", self.mesh)
-            self.kv_plane = ranks.Mirror(self.kv_plane, "kv", self.mesh)
+                                               "prefill", self.mesh, name)
+            self.kv_plane = ranks.Mirror(self.kv_plane, "kv", self.mesh,
+                                         name)
+        self.name = name
         self.mm_spliced_tokens = 0
         # Whether the decode runner's [B, V] output-token counts hold the
         # running batch's histogram (the JAX engine's ``_counts`` is not
@@ -536,12 +545,6 @@ class Engine:
     # ------------------------------------------------------------------
     # Request intake
     # ------------------------------------------------------------------
-    def _refuse_under_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} is not sharded: not available under a mesh of "
-                f"{self.mesh.world} ranks")
-
     def _rejoin(self, exc: BaseException) -> None:
         """After ``exc``: when it left the ranks out of step (raised
         between a broadcast call and its agreement), re-form the world
@@ -560,7 +563,6 @@ class Engine:
         if not req.token_ids:
             raise ValueError("empty prompt")
         if req.mm_embeds is not None:
-            self._refuse_under_mesh("the multimodal splice")
             if self.cfg.mla:
                 raise ValueError("MLA models have no multimodal splice")
             if len(req.mm_positions or ()) != len(req.mm_embeds):
@@ -1503,12 +1505,12 @@ class Engine:
         to restore on a rollback."""
         if not self._spec_eligible():
             return None
-        gen_state = self.generator.get_state()
+        self.graphs.save_generator()
         launch = self.graphs.launch(burst["key"], burst["want_top"])
         self.last_step_attn_dispatches += 1
         self.phase_counts["decode_multi.spec_dispatch"] += 1
         return {"launch": launch, "key": burst["key"],
-                "want_top": burst["want_top"], "gen_state": gen_state,
+                "want_top": burst["want_top"],
                 "members": tuple((s.req.request_id, s.slot)
                                  for s in self.running)}
 
@@ -1554,7 +1556,7 @@ class Engine:
         own and its outputs are dropped; the generator goes back to its
         state before it, and the carries are re-uploaded."""
         self.phase_counts["decode_multi.spec_rollback"] += 1
-        self.generator.set_state(p["gen_state"])
+        self.graphs.restore_generator()
         # Its in-place count updates went into the counts: rebuilt from
         # host truth at the next dispatch.
         self._counts_valid = False

@@ -24,9 +24,10 @@ position), for ``mm`` the [B, T] splice index (the row of the runner's
 embedding buffer a window position takes, -1 for none) and, for an
 mrope model, the window's [B, 3, T] rope position streams. The
 embedding rows themselves go into one [mm_cap, D] buffer that every
-``mm`` key reads (``stage_mm``). The whole buffer is written each time,
-so the rows past the batch are padding of length 0 with an all-NULL table row: a padding row
-left from an earlier, larger batch under the same key would write into
+``mm`` key reads (``stage_mm``; under a mesh rank 0 sends them to every
+rank in one tensor broadcast, outside the step header). The whole
+buffer is written each time, so the rows past the batch are padding of
+length 0 with an all-NULL table row: a padding row left from an earlier, larger batch under the same key would write into
 another sequence's pages.
 
 The body is the eager step's: ``forward_prefill`` (the ragged kernel for
@@ -251,17 +252,38 @@ class PrefillGraphs:
                 dtype=self.params["embed"].dtype, device=self.device)
         return self.mm_rows
 
-    def stage_mm(self, rows: np.ndarray) -> None:
+    @staticmethod
+    def header(attr: str, args, kwargs):
+        """What of a mirrored call the followers get in the step header:
+        ``stage_mm``'s rows travel in a tensor broadcast of their own
+        (the header carries their shape); every other call whole."""
+        if attr != "stage_mm":
+            return args, kwargs
+        rows = args[0] if args else kwargs["rows"]
+        return (), {"shape": tuple(np.shape(rows))}
+
+    def stage_mm(self, rows: Optional[np.ndarray] = None,
+                 shape: Optional[Tuple[int, int]] = None) -> None:
         """Upload a step's spliced embedding rows [n, D] (float32) into
         the head of the shared embedding buffer, which the staged
-        ``mm_index`` points into."""
-        if len(rows) > self.mm_cap:
-            raise ValueError(f"{len(rows)} spliced rows exceed the "
+        ``mm_index`` points into. Under a mesh every rank needs the
+        whole rows (the hidden state is replicated over tp): rank 0
+        passes them and broadcasts them over the world; a follower
+        passes their ``shape`` and receives them."""
+        n = len(rows) if rows is not None else shape[0]
+        if n > self.mm_cap:
+            raise ValueError(f"{n} spliced rows exceed the "
                              f"buffer's {self.mm_cap}")
-        if not len(rows):
+        if not n:
+            return
+        dst = self._mm_buffer()[:n]
+        if self.mesh is not None and self.mesh.world > 1:
+            src = None if rows is None else torch.from_numpy(
+                np.ascontiguousarray(rows, np.float32))
+            dst.copy_(self.mesh.broadcast(
+                src, (n, self.cfg.hidden_size), torch.float32, self.device))
             return
         src = torch.from_numpy(np.ascontiguousarray(rows, np.float32))
-        dst = self._mm_buffer()[:len(rows)]
         if self.device.type == "cuda":
             dst.copy_(src.pin_memory(), non_blocking=True)
         else:

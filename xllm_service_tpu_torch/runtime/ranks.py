@@ -31,6 +31,16 @@ itself (``start_followers``: ``python -m
 xllm_service_tpu_torch.runtime.ranks <launch file> <rank>``, each on a
 device of ``plan_devices``), and stops them when it stops.
 
+A follower keeps a model book (``Life``): one engine per model name,
+awake or asleep, and every broadcast call names the model whose
+runners it is for. ``life`` drives the book beside rank 0's own
+runtimes: ``fork`` stages a model asleep on every rank, ``sleep`` parks
+each rank's shard in host memory (pinned on a GPU) and drops its
+engine, ``wake`` rebuilds it from the parked shard (warm) or slices the
+full weights on each rank (cold), and ``report`` gathers what every
+rank holds. A follower whose every model sleeps holds nothing on the
+device and keeps answering the keep-alives.
+
 Rank 0 also moves KV between the pools of every rank and the full-head
 blocks its engine hands out and takes in (the PD handoff, the block
 fetch, the host spill tier): ``KvPlane``, a mirrored runner too.
@@ -43,9 +53,9 @@ pools. An unsharded engine's ``KvPlane`` does the same on its own
 pools.
 
 The step fault boundary holds under a mesh. After every launched
-forward (and every KV move and control call) the ranks agree on its
-status (``Mesh.agree``). A fault raised on rank 0 before a section's
-launch (the step failpoints, a host error) leaves the world in step,
+forward (and every KV move, control and lifecycle call) the ranks
+agree on its status (``Mesh.agree``). A fault raised on rank 0 before a
+section's launch (the step failpoints, a host error) leaves the world in step,
 and the worker contains it as with one rank. A fault between a launch
 and its agreement (rank 0 raising inside a sharded forward, a follower
 raising) leaves it out of step: the rank that raised leaves its
@@ -65,6 +75,7 @@ time (``mesh.TIMEOUT``) for a peer.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import logging
 import os
 import subprocess
@@ -94,30 +105,33 @@ _ROOT = str(Path(__file__).resolve().parents[2])
 MIRRORED: Dict[str, Tuple[str, ...]] = {
     "decode": ("stage_active_table", "stage_sampling", "stage_bias",
                "stage_rope_delta", "invalidate_staged", "stage_counts",
-               "stage_carries", "prepare", "launch"),
+               "stage_carries", "save_generator", "restore_generator",
+               "prepare", "launch"),
     "prefill": ("stage", "stage_mm", "prepare", "launch"),
     "control": ("reset", "report", "all_reduce_ms", "forward_logits",
-                "ring_logits", "kv_pages"),
+                "ring_logits", "kv_pages", "embed", "decode_state"),
     "kv": ("gather", "scatter"),
+    "life": ("fork", "sleep", "wake", "report"),
 }
-# The calls that run collectives, after which every rank reports its
-# status (``Mesh.agree``).
+# The calls that run collectives or change what a rank holds, after
+# which every rank reports its status (``Mesh.agree``).
 AGREED: Dict[str, Tuple[str, ...]] = {
     "decode": ("launch",), "prefill": ("launch",),
     "control": MIRRORED["control"], "kv": MIRRORED["kv"],
+    "life": MIRRORED["life"],
 }
 
 
-def _lead(mesh: Mesh, name: str, attr: str, fn, args, kwargs,
+def _lead(mesh: Mesh, model: str, name: str, attr: str, fn, args, kwargs,
           header=None):
-    """Rank 0: broadcast the call (``header``: the arguments the
-    followers get, default all), make it here, and for an ``AGREED``
-    call wait for every rank's status. ``mesh.synced`` is False from the
-    broadcast until the call is known to have gone through on every
-    rank."""
+    """Rank 0: broadcast the call on ``model``'s runner ``name``
+    (``header``: the arguments the followers get, default all), make it
+    here, and for an ``AGREED`` call wait for every rank's status.
+    ``mesh.synced`` is False from the broadcast until the call is known
+    to have gone through on every rank."""
     hargs, hkwargs = (args, kwargs) if header is None else header
     mesh.synced = False
-    mesh.broadcast_object((name, attr, hargs, hkwargs))
+    mesh.broadcast_object((model, name, attr, hargs, hkwargs))
     if attr not in AGREED[name]:
         mesh.synced = True
         return fn(*args, **kwargs)
@@ -130,14 +144,17 @@ def _lead(mesh: Mesh, name: str, attr: str, fn, args, kwargs,
 
 class Mirror:
     """Rank 0's stand-in for one of its engine's runners: a call of a
-    ``MIRRORED`` method is broadcast to the followers, then made here;
-    anything else is the runner's own. A runner with a ``header``
-    method chooses what of a call's arguments the followers get."""
+    ``MIRRORED`` method is broadcast to the followers, naming the
+    engine's model, then made here; anything else is the runner's own.
+    A runner with a ``header`` method chooses what of a call's arguments
+    the followers get."""
 
-    def __init__(self, runner, name: str, mesh: Mesh) -> None:
+    def __init__(self, runner, name: str, mesh: Mesh,
+                 model: str = "") -> None:
         object.__setattr__(self, "_runner", runner)
         object.__setattr__(self, "_name", name)
         object.__setattr__(self, "_mesh", mesh)
+        object.__setattr__(self, "_model", model)
 
     def __getattr__(self, attr: str):
         value = getattr(self._runner, attr)
@@ -146,7 +163,8 @@ class Mirror:
         header = getattr(self._runner, "header", None)
 
         def call(*args, **kwargs):
-            return _lead(self._mesh, self._name, attr, value, args, kwargs,
+            return _lead(self._mesh, self._model, self._name, attr, value,
+                         args, kwargs,
                          header=None if header is None
                          else header(attr, args, kwargs))
         return call
@@ -331,12 +349,217 @@ class Control:
             table, self.mesh)
         return logits[0].float().cpu().numpy()
 
+    def embed(self, tokens, lengths) -> "np.ndarray":
+        """``/v1/embeddings``' forward (``forward_embedding``) of
+        ``tokens`` [B, T] (``lengths`` [B]) through this rank's shard:
+        the [B, D] float32 embeddings, numpy (replicated over tp)."""
+        from xllm_service_tpu_torch.models import transformer
+        e, dev = self.engine, self.engine.device
+        with torch.inference_mode():
+            out = transformer.forward_embedding(
+                e.params, e.shard_cfg, torch.as_tensor(tokens).to(dev),
+                torch.as_tensor(lengths).to(dev), e.kv, mesh=self.mesh)
+        return out.cpu().numpy()
+
+    def decode_state(self) -> Optional[List[Tuple]]:
+        """Every rank's decode runner state, in rank order, gathered to
+        rank 0 (None on the others): the generator's state bytes, the
+        token and position carries and an mrope model's staged rope
+        deltas (None for another)."""
+        g = self.engine.graphs
+        g = getattr(g, "_runner", g)
+        return self.mesh.gather_object((
+            g.generator.get_state().cpu().numpy().tobytes(),
+            g.tokens.cpu().tolist(), g.positions.cpu().tolist(),
+            None if g.rope_delta is None else g.rope_delta.cpu().tolist()))
+
 
 def control(engine, attr: str, *args, **kwargs):
     """Rank 0: make ``Control.<attr>`` on every rank of ``engine``'s mesh;
     returns rank 0's result."""
-    return _lead(engine.mesh, "control", attr,
+    return _lead(engine.mesh, engine.name, "control", attr,
                  getattr(Control(engine, engine.mesh), attr), args, kwargs)
+
+
+def life(mesh: Mesh, attr: str, fn, *args, **kwargs):
+    """Rank 0: make ``Life.<attr>(*args, **kwargs)`` on every follower
+    and ``fn()`` here, then agree on it. A raise between the broadcast
+    and the agreement re-forms the world (``Mesh.reform``) before it
+    goes on; ``MeshLost`` when the world does not come back."""
+    try:
+        return _lead(mesh, "", "life", attr, fn, (), {},
+                     header=(args, kwargs))
+    except Exception as exc:
+        if not mesh.synced:
+            mesh.reform(exc)
+        raise
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def park(params, device: torch.device):
+    """A host copy of a parameter tree, bit for bit: pinned (and copied
+    without blocking, then synchronized) from a CUDA device."""
+    if device.type != "cuda":
+        return _map(torch.clone, params)
+
+    def one(t: torch.Tensor) -> torch.Tensor:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        return h
+    out = _map(one, params)
+    torch.cuda.synchronize(device)
+    return out
+
+
+def unpark(params, device: torch.device):
+    """A parked tree back on ``device``."""
+    if device.type != "cuda":
+        return params
+    out = _map(lambda h: h.to(device, non_blocking=True), params)
+    torch.cuda.synchronize(device)
+    return out
+
+
+def params_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(params_bytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def book_entry(rank: int, device: torch.device, engines: Dict[str, Any],
+               parked: Dict[str, Any], timings: Dict[str, Dict[str, Any]],
+               digests: bool = False) -> Dict[str, Any]:
+    """What a rank holds (``Life.report``): its awake models with their
+    shard's heads and bytes (and, with ``digests``, per-leaf sha256),
+    its asleep ones with their parked bytes (and digests), the device's
+    allocated bytes and free bytes (``torch.cuda.mem_get_info``, the
+    whole card's), and each model's last sleep's and wake's timings."""
+    from xllm_service_tpu_torch.runtime import checkpoint
+    awake, asleep = {}, {}
+    for model, eng in engines.items():
+        if eng is None:
+            p = parked.get(model)
+            asleep[model] = {
+                "parked_bytes": params_bytes(p) if p is not None else 0,
+                **({"digests": checkpoint.param_digests(p)}
+                   if digests and p is not None else {})}
+            continue
+        awake[model] = {
+            "mesh": eng.mesh is not None,
+            "heads": [eng.shard_cfg.num_heads, eng.shard_cfg.num_kv_heads],
+            "bytes": params_bytes(eng.params),
+            **({"digests": checkpoint.param_digests(eng.params)}
+               if digests else {})}
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+    return {"rank": rank, "awake": awake, "asleep": asleep,
+            "allocated": torch.cuda.memory_allocated(device) if cuda else 0,
+            "free": torch.cuda.mem_get_info(device)[0] if cuda else 0,
+            "timings": {m: dict(t) for m, t in timings.items()}}
+
+
+class Life:
+    """A follower's model book: one engine per model name, awake or
+    asleep (None), with what each wake needs (the model's config and
+    directory, the engine config and this rank's device), the shards
+    parked by a sleep, and each model's last sleep's and wake's
+    timings. Rank 0 drives it with ``life`` beside its own
+    ``ModelRuntime``: ``fork`` stages a model asleep, ``sleep`` parks
+    this rank's shard in host memory bit for bit and drops the engine,
+    ``wake`` rebuilds it from the parked shard (warm: no re-slicing) or,
+    with nothing parked, from the model directory's weights or random
+    ones from the engine's seed, sliced to this rank's shard (cold).
+    With every model asleep the rank holds nothing on the device."""
+
+    def __init__(self, mesh: Mesh, engine_cfg: EngineConfig, device,
+                 murmur_seed: int = 0) -> None:
+        self.mesh, self.engine_cfg = mesh, engine_cfg
+        self.device = torch.device(device)
+        self.murmur_seed = murmur_seed
+        self.engines: Dict[str, Any] = {}
+        self.models: Dict[str, Tuple[ModelConfig, str]] = {}
+        self.parked: Dict[str, Any] = {}
+        self.timings: Dict[str, Dict[str, Any]] = {}
+
+    @classmethod
+    def of(cls, engine, mesh: Mesh) -> "Life":
+        """A book holding one awake engine, under its name."""
+        book = cls(mesh, engine.ecfg, engine.device)
+        book.models[engine.name] = (engine.cfg, "")
+        book.engines[engine.name] = engine
+        return book
+
+    def fork(self, model: str, model_cfg: ModelConfig,
+             model_dir: str = "") -> None:
+        if model not in self.models:
+            self.models[model] = (model_cfg, model_dir)
+            self.engines[model] = None
+
+    def _build(self, model: str, params, sharded: bool = False):
+        from xllm_service_tpu_torch.runtime.engine import Engine
+        cfg, _ = self.models[model]
+        return Engine(cfg, self.engine_cfg, params=params,
+                      device=self.device, murmur_seed=self.murmur_seed,
+                      mesh=self.mesh, name=model, sharded=sharded)
+
+    def sleep(self, model: str) -> None:
+        eng = self.engines[model]
+        if eng is None:
+            return
+        t0 = time.perf_counter()
+        self.parked[model] = park(eng.params, self.device)
+        t = self.timings.setdefault(model, {})
+        t.update(d2h_s=time.perf_counter() - t0,
+                 param_bytes=params_bytes(self.parked[model]))
+        self.engines[model] = eng = None
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        t["sleep_s"] = time.perf_counter() - t0
+
+    def wake(self, model: str, params=None) -> None:
+        """``params``: the full weights to build from (the primary's at
+        boot, when the worker was given them)."""
+        if self.engines.get(model) is not None:
+            return
+        t = self.timings.setdefault(model, {})
+        t0 = time.perf_counter()
+        parked = self.parked.get(model)
+        if parked is not None:
+            params, t["source"] = unpark(parked, self.device), "parked"
+        elif params is None:
+            _, model_dir = self.models[model]
+            params = _full_params(model_dir, self.models[model][0],
+                                  self.device)
+            t["source"] = "random" if params is None else "checkpoint"
+        else:
+            t["source"] = "given"
+        # The parked shard's way back, or the full weights' load.
+        t["h2d_s" if parked is not None else "load_s"] = \
+            time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.engines[model] = self._build(model, params,
+                                          sharded=parked is not None)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t["engine_s"] = time.perf_counter() - t1
+        # Only now: a build that raised keeps the parked shard.
+        self.parked.pop(model, None)
+
+    def report(self, digests: bool = False) -> Optional[List[Dict]]:
+        """Every rank's ``book_entry``, in rank order, gathered to rank
+        0 (None on the others)."""
+        return self.mesh.gather_object(book_entry(
+            self.mesh.rank, self.device, self.engines, self.parked,
+            self.timings, digests))
 
 
 def stop_followers(mesh: Mesh) -> None:
@@ -389,15 +612,30 @@ def abort(mesh: Mesh, procs: List[subprocess.Popen]) -> None:
     mesh.close()
 
 
-def follow(engine, mesh: Mesh) -> int:
-    """A follower's loop: make each call rank 0 broadcasts on this
-    engine's runners, until rank 0 stops it. Returns the calls made. A
-    call that raises re-forms the world (module docstring): an
-    ``AGREED`` one at once, any other at the next agreed call. Ends
-    with ``MeshLost`` when the world cannot re-form, and with the
-    broadcast's error when rank 0 is gone."""
-    runners = {"decode": engine.graphs, "prefill": engine.prefill_graphs,
-               "control": Control(engine, mesh), "kv": engine.kv_plane}
+def _runner(book: Life, mesh: Mesh, model: str, name: str):
+    if name == "life":
+        return book
+    eng = book.engines[model]
+    if eng is None:
+        raise RuntimeError(f"rank {mesh.rank}: a {name} call for "
+                           f"{model!r}, which is asleep")
+    if name == "control":
+        return Control(eng, mesh)
+    return {"decode": eng.graphs, "prefill": eng.prefill_graphs,
+            "kv": eng.kv_plane}[name]
+
+
+def follow(book, mesh: Mesh) -> int:
+    """A follower's loop: make each call rank 0 broadcasts on the
+    runners of the engine of the model it names in ``book`` (a ``Life``,
+    or one engine, keyed by its name), or on the book itself, until
+    rank 0 stops it. Returns the calls made. A call that raises re-forms
+    the world (module docstring): an ``AGREED`` one at once, any other
+    at the next agreed call. Ends with ``MeshLost`` when the world
+    cannot re-form, and with the broadcast's error when rank 0 is
+    gone."""
+    if not isinstance(book, Life):
+        book = Life.of(book, mesh)
     n = 0
     # A call without an agreement that raised, not reported yet.
     failed: Optional[BaseException] = None
@@ -407,12 +645,12 @@ def follow(engine, mesh: Mesh) -> int:
             return n
         if msg == _KEEPALIVE:
             continue
-        name, attr, args, kwargs = msg
+        model, name, attr, args, kwargs = msg
         agreed = attr in AGREED[name]
         try:
             if agreed and failed is not None:
                 raise failed
-            getattr(runners[name], attr)(*args, **kwargs)
+            getattr(_runner(book, mesh, model, name), attr)(*args, **kwargs)
             if agreed:
                 mesh.agree(True)
         except Exception as exc:  # noqa: BLE001 — this rank's fault
@@ -433,12 +671,16 @@ def follow(engine, mesh: Mesh) -> int:
 
 @dataclasses.dataclass
 class Launch:
-    """What a follower needs to build its engine: the model and engine
-    configs, the mesh, each rank's device, the backend and the
-    rendezvous, and where the full weights come from (``params`` given
-    on the CPU, a ``model_dir`` checkpoint, else random from the
-    engine's default seed on the rank's device, as rank 0's engine
-    makes them)."""
+    """What a follower needs to start its model book: the primary
+    model's name (``model``, which its broadcasts name) and config, the
+    engine config, the mesh, each rank's device, the backend and the
+    rendezvous, where the full weights come from (``params`` given on
+    the CPU, a ``model_dir`` checkpoint, else random from the engine's
+    default seed on the rank's device, as rank 0's engine makes them),
+    the murmur seed every engine's prefix cache takes, and whether the
+    primary starts asleep (an encode worker's: nothing on the device
+    until a wake). A model forked later comes with its own config and
+    directory (``Life.fork``)."""
     model_cfg: ModelConfig
     engine_cfg: EngineConfig
     spec: MeshSpec
@@ -448,6 +690,8 @@ class Launch:
     model_dir: str = ""
     params: Optional[Dict[str, Any]] = None
     murmur_seed: int = 0
+    model: str = ""
+    start_asleep: bool = False
 
 
 def plan_devices(world: int, device, backend: str,
@@ -509,18 +753,23 @@ def stop_processes(procs: List[subprocess.Popen],
 def start_mesh(spec: MeshSpec, model_cfg: ModelConfig,
                engine_cfg: EngineConfig, device, backend: str = "",
                params: Optional[Dict[str, Any]] = None, model_dir: str = "",
-               murmur_seed: int = 0) -> Tuple[Mesh, List[subprocess.Popen]]:
+               murmur_seed: int = 0, model: str = "",
+               start_asleep: bool = False
+               ) -> Tuple[Mesh, List[subprocess.Popen]]:
     """Rank 0's side of a worker that starts its own ranks: plan the
-    devices (``plan_devices``), start the followers with the same model,
-    engine config and weights (``params`` are copied to them on the
-    CPU), and join them in a mesh over a localhost rendezvous. Returns
-    this rank's mesh and the followers' processes."""
+    devices (``plan_devices``), start the followers with the same model
+    (named ``model``; asleep with ``start_asleep``), engine config and
+    weights (``params`` are copied to them on the CPU), and join them in
+    a mesh over a localhost rendezvous. Returns this rank's mesh and the
+    followers' processes."""
     backend = backend or default_backend(device)
     devices = plan_devices(spec.num_devices, device, backend)
     launch = Launch(model_cfg, engine_cfg, spec, devices, backend,
                     f"tcp://127.0.0.1:{free_port()}", model_dir=model_dir,
-                    params=None if params is None else _to(params, "cpu"),
-                    murmur_seed=murmur_seed)
+                    params=None if params is None or start_asleep
+                    else _to(params, "cpu"),
+                    murmur_seed=murmur_seed, model=model,
+                    start_asleep=start_asleep)
     procs, path = start_followers(launch)
     try:
         mesh = make_mesh(spec, 0, devices[0], backend, launch.init_method)
@@ -533,14 +782,13 @@ def start_mesh(spec: MeshSpec, model_cfg: ModelConfig,
     return mesh, procs
 
 
-def _full_params(launch: Launch, device):
-    if launch.params is not None:
-        return {k: _to(v, device) for k, v in launch.params.items()}
-    if launch.model_dir:
+def _full_params(model_dir: str, model_cfg: ModelConfig, device):
+    """The directory's full weights on ``device`` when its shards hold
+    the text stack, else None (random from the engine's seed)."""
+    if model_dir:
         from xllm_service_tpu_torch.runtime import checkpoint
-        if checkpoint.has_text_weights(launch.model_dir):
-            return checkpoint.load_checkpoint(launch.model_dir,
-                                              launch.model_cfg, device)
+        if checkpoint.has_text_weights(model_dir):
+            return checkpoint.load_checkpoint(model_dir, model_cfg, device)
     return None
 
 
@@ -550,21 +798,28 @@ def _to(tree, device):
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
-def run_follower(launch: Launch, rank: int) -> int:
-    """Build rank ``rank``'s engine (its shard of the full weights) and
-    follow rank 0 until it stops. Returns the calls made."""
-    from xllm_service_tpu_torch.runtime.engine import Engine
-    device = launch.devices[rank]
-    mesh = make_mesh(launch.spec, rank, device, launch.backend,
-                     launch.init_method)
-    try:
+def follow_launch(launch: Launch, mesh: Mesh) -> int:
+    """A follower's model book for ``launch`` on ``mesh`` (the primary
+    built from its shard of the full weights, or staged asleep), then
+    ``follow`` until rank 0 stops. Returns the calls made."""
+    device = launch.devices[mesh.rank]
+    book = Life(mesh, launch.engine_cfg, device, launch.murmur_seed)
+    book.fork(launch.model, launch.model_cfg, launch.model_dir)
+    if not launch.start_asleep:
         # The engine resolves its switches (the write order, ragged) from
         # the config and the environment, which a follower inherits.
-        engine = Engine(launch.model_cfg, launch.engine_cfg,
-                        params=_full_params(launch, device), device=device,
-                        murmur_seed=launch.murmur_seed,
-                        mesh=mesh)
-        return follow(engine, mesh)
+        book.wake(launch.model, None if launch.params is None
+                  else _to(launch.params, device))
+    return follow(book, mesh)
+
+
+def run_follower(launch: Launch, rank: int) -> int:
+    """Join the mesh as rank ``rank`` and follow rank 0
+    (``follow_launch``) until it stops. Returns the calls made."""
+    mesh = make_mesh(launch.spec, rank, launch.devices[rank], launch.backend,
+                     launch.init_method)
+    try:
+        return follow_launch(launch, mesh)
     finally:
         mesh.close()
 

@@ -154,7 +154,15 @@ its wake. The
 engine loop steps every awake runtime; a request to a sleeping model is
 a 400; a request in flight at its model's sleep ends with a 503 (the JAX
 worker leaves it to its timeout). Registration lists the awake models
-and ``memory_budget_gb``; every beat carries each model's state.
+and ``memory_budget_gb``; every beat carries each model's state. Under a
+mesh (``--tp``, ``--dp``, ``--sp``, ``--ep``; one process a rank,
+``runtime/ranks.py``) each rank keeps one engine a model: a sleep parks
+every rank's own shard, a warm wake rebuilds each from it and a cold
+one slices the full weights on each rank; ``/fork_master`` stages the
+model on every rank, on the worker's mesh; ``--role encode`` starts
+every rank's model asleep (the tower runs on rank 0, unsharded, as the
+JAX worker's); ``/v1/embeddings`` runs on every rank's shard
+(``Control.embed``). ``mesh_book()`` reports what every rank holds.
 ``drain_and_stop(timeout_s)`` beats every model ``draining`` until the
 master acknowledges, then refuses new work with a 503 (a ``/wakeup`` with
 a 409), lets the requests in flight finish and stops. The heartbeat loop
@@ -805,21 +813,6 @@ _PREFIX_SERIES = (
 )
 
 
-def _params_map(fn, tree):
-    """``fn`` over every tensor of a parameter tree (nested dicts)."""
-    if isinstance(tree, dict):
-        return {k: _params_map(fn, v) for k, v in tree.items()}
-    return fn(tree) if isinstance(tree, torch.Tensor) else tree
-
-
-def _params_bytes(tree) -> int:
-    if isinstance(tree, dict):
-        return sum(_params_bytes(v) for v in tree.values())
-    if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
-    return 0
-
-
 class ModelRuntime:
     """One model's engine and its sleep/wakeup state on this worker (JAX
     worker :239-330). ``timings`` keeps the last boot's, sleep's and
@@ -879,41 +872,42 @@ class ModelRuntime:
                     self.timings["load_s"])
         return params
 
-    def _build(self, params: Optional[Params]) -> Engine:
+    def _build(self, params: Optional[Params],
+               sharded: bool = False) -> Engine:
         """A new engine on ``params`` (None: random from seed 0, as the
-        JAX engine's without a checkpoint)."""
+        JAX engine's without a checkpoint; ``sharded``: this rank's
+        shard already, a warm wake's under a mesh)."""
         return Engine(self.model_cfg, self.engine_cfg, params=params,
                       device=self.device, murmur_seed=self.murmur_seed,
-                      mesh=self.mesh)
+                      mesh=self.mesh, name=self.model, sharded=sharded)
 
     def sleep(self) -> None:
         """Park the parameters in host memory, bit for bit (pinned on a
         GPU), and drop the engine: its KV pools, its decode, prefill and
         ragged graphs with their private pool and static buffers, and the
         prefix cache's pages. The reference cycles that would keep them
-        alive are collected and the freed blocks go back to the card."""
+        alive are collected and the freed blocks go back to the card.
+        Under a mesh every rank does so with its own shard, at once
+        (``ranks.life``; the followers' ``Life.sleep``)."""
         if self.state == MODEL_ASLEEP:
             return
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "sleep/wake is not sharded: not available under a mesh")
+        if self.engine is not None:
+            # A speculative burst in flight must not outlive its pools
+            # (its rollback is a runner call every rank makes).
+            self.engine.drain_pipeline()
+        if self.mesh is None:
+            self._park()
+        else:
+            ranks.life(self.mesh, "sleep", self._park, self.model)
+
+    def _park(self) -> None:
         t0 = time.perf_counter()
         eng = self.engine
         if eng is not None:
-            # A speculative burst in flight must not outlive its pools.
-            eng.drain_pipeline()
-            t1 = time.perf_counter()
-            if self.device.type == "cuda":
-                def park(t: torch.Tensor) -> torch.Tensor:
-                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    h.copy_(t, non_blocking=True)
-                    return h
-                self._host_params = _params_map(park, eng.params)
-                torch.cuda.synchronize(self.device)
-            else:
-                self._host_params = _params_map(torch.clone, eng.params)
-            self.timings["d2h_s"] = time.perf_counter() - t1
-            self.timings["param_bytes"] = _params_bytes(self._host_params)
+            self._host_params = ranks.park(eng.params, self.device)
+            self.timings["d2h_s"] = time.perf_counter() - t0
+            self.timings["param_bytes"] = ranks.params_bytes(
+                self._host_params)
             self.engine = eng = None
             gc.collect()
             if self.device.type == "cuda":
@@ -925,24 +919,37 @@ class ModelRuntime:
         """A new engine on the parked parameters (a warm wake), or for a
         model with nothing parked (staged asleep) on the model directory's
         weights, or random ones from seed 0 without them (a cold wake).
-        The caller runs the warmup."""
+        Under a mesh every rank wakes at once (``ranks.life``): a warm
+        wake rebuilds each rank's engine from its parked shard, a cold
+        one slices the full weights to each rank's shard. A wake that
+        failed on some rank leaves this rank asleep, its parameters
+        parked. The caller runs the warmup."""
         if self.state == MODEL_AWAKE:
             return
+        if self.mesh is None:
+            self._unpark()
+            return
+        try:
+            ranks.life(self.mesh, "wake", self._unpark, self.model)
+        except Exception:
+            if self.state == MODEL_AWAKE:       # this rank woke alone
+                self._park()
+            raise
+
+    def _unpark(self) -> None:
         params = self._host_params
         t0 = time.perf_counter()
         if params is None:
             params = self._load_params()        # cold wake: from disk
         else:
             self.timings.update(source="parked", load_s=0.0, load_bytes=0)
-            if self.device.type == "cuda":
-                params = _params_map(
-                    lambda h: h.to(self.device, non_blocking=True), params)
-                torch.cuda.synchronize(self.device)
+            params = ranks.unpark(params, self.device)
         # The parked copy's way back (a load's seconds are load_s).
         self.timings["h2d_s"] = (time.perf_counter() - t0
                                  - self.timings["load_s"])
         t1 = time.perf_counter()
-        self.engine = self._build(params)
+        self.engine = self._build(params,
+                                  sharded=self._host_params is not None)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.timings["engine_s"] = time.perf_counter() - t1
@@ -1423,10 +1430,6 @@ class Worker:
         spec = MeshSpec(dp=ecfg.dp, ep=opts.ep, sp=ecfg.sp, tp=ecfg.tp)
         if spec.num_devices == 1:
             return None, []
-        if opts.encode_only:
-            raise NotImplementedError(
-                "the encode role is not sharded: not available under a "
-                "mesh")
         if opts.dist_coordinator:
             if opts.dist_num_processes not in (0, spec.num_devices):
                 raise ValueError(
@@ -1440,7 +1443,9 @@ class Worker:
         return ranks.start_mesh(spec, model_cfg, ecfg, self.device,
                                 opts.dist_backend, params=params,
                                 model_dir=opts.model_dir,
-                                murmur_seed=opts.murmur_seed)
+                                murmur_seed=opts.murmur_seed,
+                                model=opts.model,
+                                start_asleep=opts.encode_only)
 
     def _leave_mesh(self) -> None:
         """Release the followers and leave the world (after the engine
@@ -4196,19 +4201,20 @@ class Worker:
         for i, ids in enumerate(id_lists):
             toks[i, :len(ids)] = ids
             lens[i] = len(ids)
-        if rt.mesh is not None:
-            return _Reply.error(501, "/v1/embeddings is not sharded: not "
-                                     "available under a mesh",
-                                "not_implemented")
         with self._engine_lock, torch.inference_mode():
             eng = rt.engine
             if eng is None:
                 return _Reply.error(503, f"model {model} asleep",
                                     "unavailable")
-            out = forward_embedding(
-                eng.params, rt.model_cfg,
-                torch.from_numpy(toks).to(self.device),
-                torch.from_numpy(lens).to(self.device), eng.kv).cpu()
+            if eng.mesh is not None:
+                # Every rank runs it on its shard (``Control.embed``).
+                out = torch.from_numpy(ranks.control(eng, "embed", toks,
+                                                     lens))
+            else:
+                out = forward_embedding(
+                    eng.params, rt.model_cfg,
+                    torch.from_numpy(toks).to(self.device),
+                    torch.from_numpy(lens).to(self.device), eng.kv).cpu()
         total = int(lens.sum())
         return _Reply(200, {
             "object": "list", "model": model,
@@ -4298,7 +4304,7 @@ class Worker:
                                 "unavailable")
             params = eng.params
         digests = checkpoint.param_digests(params)
-        nbytes = _params_bytes(params)
+        nbytes = ranks.params_bytes(params)
         return {"model": rt.model, "digests": digests, "bytes": nbytes,
                 **{k: rt.timings.get(k) for k in ("source", "load_s",
                                                   "load_bytes")}}
@@ -4308,7 +4314,10 @@ class Worker:
     # ------------------------------------------------------------------
     def fork_master(self, body: Dict[str, Any]) -> "_Reply":
         """``POST /fork_master {"models"}``: stage more models asleep
-        (nothing on the device until a wake)."""
+        (nothing on the device until a wake), on this worker's mesh as
+        the JAX worker's are (:2503-2520): under a mesh every rank
+        stages the model (``Life.fork``) and its wake builds a sharded
+        engine on each."""
         created = []
         for model in body.get("models", []):
             if model in self.runtimes:
@@ -4317,11 +4326,35 @@ class Worker:
                 cfg = resolve_model_config(model)
             except ValueError as e:
                 return _Reply.error(400, str(e))
+            if self.mesh is not None:
+                with self._engine_lock:
+                    ranks.life(self.mesh, "fork", lambda: None, model, cfg)
             self.runtimes[model] = ModelRuntime(
                 model, cfg, self.engine_cfg, self.device,
-                murmur_seed=self.opts.murmur_seed, start_asleep=True)
+                murmur_seed=self.opts.murmur_seed, start_asleep=True,
+                mesh=self.mesh)
             created.append(model)
         return _Reply(200, {"ok": True, "created": created})
+
+    def mesh_book(self, digests: bool = False) -> List[Dict[str, Any]]:
+        """What every rank holds (``ranks.book_entry``: awake models with
+        their shard's heads and bytes, asleep ones with their parked
+        bytes, per-leaf digests with ``digests``, device bytes, the last
+        sleep's and wake's timings), in rank order; rank 0's from its
+        runtimes. One entry without a mesh."""
+        def mine():
+            rts = list(self.runtimes.values())
+            entry = ranks.book_entry(
+                0, self.device, {rt.model: rt.engine for rt in rts},
+                {rt.model: rt._host_params for rt in rts
+                 if rt._host_params is not None},
+                {rt.model: rt.timings for rt in rts}, digests)
+            return [entry] if self.mesh is None else \
+                self.mesh.gather_object(entry)
+        with self._engine_lock:
+            if self.mesh is None:
+                return mine()
+            return ranks.life(self.mesh, "report", mine, digests=digests)
 
     @contextlib.contextmanager
     def _model_flip(self) -> Iterator[None]:
@@ -4640,7 +4673,8 @@ def run_rank(args: argparse.Namespace) -> int:
         resolve_model_config(args.model, args.model_dir), ecfg, spec,
         devices, args.dist_backend or default_backend(args.device),
         f"tcp://{args.dist_coordinator}", model_dir=args.model_dir,
-        murmur_seed=args.murmur_seed)
+        murmur_seed=args.murmur_seed, model=args.model,
+        start_asleep=args.role == "encode")
     calls = ranks.run_follower(launch, args.dist_process_id)
     logger.info("rank %d: followed %d runner calls", args.dist_process_id,
                 calls)
